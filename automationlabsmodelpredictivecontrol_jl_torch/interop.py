@@ -1,0 +1,95 @@
+"""Carry a designed controller across from numpy arrays.
+
+``controller_from_numpy`` takes a controller's designed arrays as numpy
+(for example those of the JAX package's controller) and returns this
+package's ``MpcController`` on a given device, so both packages can be
+driven from the very same operator.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .design import LinearEngine, MpcController, MpcTuning
+from .ops.admm import AdmmConfig, AdmmOperator
+from .ops.condense import CondensedQpData
+from .types import References, TerminalIngredient, Weights
+
+
+def _record(cls, values: Mapping[str, Any]):
+    """Build a dataclass of tensors: array fields become float32 CPU
+    tensors (bit-exact copies of float32 input), other fields pass as is."""
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        v = values[f.name]
+        if isinstance(v, (bool, int, float, str)) or v is None:
+            kwargs[f.name] = v
+        else:
+            kwargs[f.name] = torch.from_numpy(np.array(v, np.float32))
+    return cls(**kwargs)
+
+
+def controller_from_numpy(
+    *,
+    qp: Mapping[str, Any],
+    op: Mapping[str, Any],
+    references: Mapping[str, Any],
+    weights: Mapping[str, Any],
+    terminal_P: Any,
+    config: Mapping[str, Any],
+    tuning: Mapping[str, Any],
+    device: Any = "cpu",
+) -> MpcController:
+    """A linear-engine controller from designed arrays.
+
+    - ``qp``: the ``CondensedQpData`` fields (arrays, and N, nx, nu,
+      n_ball, ball_radius_sq_factor);
+    - ``op``: the ``AdmmOperator`` fields, with diag_a, mixed_a, n_ball;
+    - ``references`` {x, u}, ``weights`` {Q, R, S}, the terminal cost
+      ``terminal_P``;
+    - ``config``: the ``AdmmConfig`` values (tuples for rho_grid);
+    - ``tuning``: horizon, sample_time, max_time, programming_type,
+      solver_name, state_constraint and terminal_kind.
+
+    The controller has no plant (``system=None``) and zero warm state.
+    """
+    ops = {k: (int(v) if k == "n_ball" else v) for k, v in op.items()}
+    ops["diag_a"] = bool(op["diag_a"])
+    ops["mixed_a"] = bool(op["mixed_a"])
+    cfg = AdmmConfig(
+        **{
+            k: (tuple(float(r) for r in v) if k == "rho_grid" else v)
+            for k, v in config.items()
+        }
+    )
+    tun = MpcTuning(
+        references=_record(References, references),
+        weights=_record(Weights, weights),
+        terminal=TerminalIngredient(
+            kind=str(tuning["terminal_kind"]),
+            P=torch.from_numpy(np.array(terminal_P, np.float32)),
+        ),
+        horizon=int(tuning["horizon"]),
+        sample_time=float(tuning["sample_time"]),
+        max_time=float(tuning["max_time"]),
+        programming_type=str(tuning["programming_type"]),
+        solver_name=str(tuning["solver_name"]),
+        state_constraint=bool(tuning["state_constraint"]),
+    )
+    operator = _record(AdmmOperator, ops)
+    m, n = operator.A_s.shape
+    return MpcController(
+        system=None,
+        tuning=tun,
+        engine=LinearEngine(
+            qp=_record(CondensedQpData, qp), op=operator, soft_mu=None, config=cfg
+        ),
+        initialization=torch.zeros((tun.references.x.shape[0],), dtype=torch.float32),
+        warm_z=torch.zeros((n,), dtype=torch.float32),
+        warm_y=torch.zeros((m,), dtype=torch.float32),
+        results=None,
+    ).to(device)

@@ -1,0 +1,96 @@
+"""Public entry API, with the reference's keyword vocabulary
+(mpc_programming_type, mpc_solver, mpc_terminal_ingredient, mpc_Q/mpc_R/
+mpc_S, mpc_max_time, mpc_state_constraint) plus ``device=``."""
+
+from __future__ import annotations
+
+from typing import Any
+
+from .design import MpcController, design_controller
+
+DEFAULT_PARAMETERS = {
+    "mpc_solver": "auto",
+    "mpc_terminal_ingredient": "none",
+    "mpc_Q": 100.0,
+    "mpc_R": 0.1,
+    "mpc_S": 0.0,
+    "mpc_max_time": 30.0,
+}
+
+IMPLEMENTATION_CONTROLLER_LIST = (
+    "model_predictive_control",
+    "economic_model_predictive_control",
+)
+
+
+def proceed_controller(
+    system: Any,
+    mpc_controller_type: str,
+    mpc_horizon: int,
+    mpc_sample_time: float,
+    mpc_state_reference,
+    mpc_input_reference,
+    device: Any = "cpu",
+    **kws: Any,
+) -> MpcController:
+    """Design a controller on the host (numpy f64) and move its operator
+    to ``device`` ("cpu", "cuda", a torch.device). Solves then run on the
+    device of their input tensors.
+
+    ``"model_predictive_control"``: quadratic tracking MPC.
+    ``"economic_model_predictive_control"`` is not ported yet and raises
+    NotImplementedError (ROADMAP Queue 1, 'Economic MPC and fuzzy control').
+    """
+    if mpc_controller_type not in IMPLEMENTATION_CONTROLLER_LIST:
+        raise ValueError(
+            f"unsupported controller type {mpc_controller_type!r}; "
+            f"available: {IMPLEMENTATION_CONTROLLER_LIST}"
+        )
+    economic = mpc_controller_type == "economic_model_predictive_control"
+    if economic and "mpc_cost_function" not in kws:
+        raise ValueError(
+            "economic_model_predictive_control requires mpc_cost_function "
+            "(a stage cost l(x, u) -> scalar)"
+        )
+    if not economic and "mpc_cost_function" in kws:
+        raise ValueError(
+            "mpc_cost_function is only accepted with "
+            "mpc_controller_type='economic_model_predictive_control'"
+        )
+    for key in ("sqp_config", "riccati_config", "empc_config", "mpc_terminal_cost_function"):
+        if kws.get(key) is not None:
+            raise NotImplementedError(
+                f"{key}: its engine is not ported yet (see ROADMAP Queue 1)"
+            )
+    p = dict(DEFAULT_PARAMETERS)
+    return design_controller(
+        system,
+        int(mpc_horizon),
+        float(mpc_sample_time),
+        mpc_state_reference,
+        mpc_input_reference,
+        programming_type=kws.get("mpc_programming_type"),
+        solver=kws.get("mpc_solver", p["mpc_solver"]),
+        terminal_ingredient=kws.get(
+            "mpc_terminal_ingredient", p["mpc_terminal_ingredient"]
+        ),
+        Q=float(kws.get("mpc_Q", p["mpc_Q"])),
+        R=float(kws.get("mpc_R", p["mpc_R"])),
+        S=float(kws.get("mpc_S", p["mpc_S"])),
+        max_time=float(kws.get("mpc_max_time", p["mpc_max_time"])),
+        # presence-flag semantics, like the reference; a soft state
+        # constraint implies the state constraint
+        state_constraint=(
+            ("mpc_state_constraint" in kws and kws["mpc_state_constraint"] is not False)
+            or "mpc_soft_state_constraint" in kws
+        ),
+        soft_state_penalty=(
+            float(kws["mpc_soft_state_constraint"])
+            if "mpc_soft_state_constraint" in kws
+            else None
+        ),
+        admm_config=kws.get("admm_config"),
+        engine=kws.get("engine", "auto"),
+        economic_cost=kws.get("mpc_cost_function"),
+        device=device,
+    )

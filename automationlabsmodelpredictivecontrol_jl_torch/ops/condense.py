@@ -1,0 +1,186 @@
+"""Condensed MPC -> QP transcription.
+
+The state trajectory is eliminated with prediction matrices, so the
+decision variable is the stacked input deviation z = vec(e_u), step-major
+[e_u_1; ...; e_u_N], and every x0-dependent quantity is a small matrix-
+vector product. Design runs once per controller, on the host, in numpy
+f64 (the same code as the JAX package's ``condense_np``, so the f32 arrays
+agree bit for bit); the per-solve vectors are fp32 matmuls on the device.
+
+Row layout of A: [input-box rows (N*nu)] then [state-box rows (N*nx),
+opt-in] then [terminal rows (nx or 0)]. The last ``n_ball`` rows are a
+Euclidean-ball block (contractive terminal set).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..types import (
+    CONTRACTIVE_FACTOR,
+    Box,
+    References,
+    TensorRecord,
+    TerminalIngredient,
+    Weights,
+    f32,
+)
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class CondensedQpData(TensorRecord):
+    """Everything needed to pose the condensed QP for any x0."""
+
+    P: Tensor  # (n, n)
+    A: Tensor  # (m, n)
+    # x0-affine runtime data: q = q_const + q_x0 @ e0, l/u = *_const + b_x0 @ e0
+    q_const: Tensor  # (n,)
+    q_x0: Tensor  # (n, nx)
+    l_const: Tensor  # (m,)
+    u_const: Tensor  # (m,)
+    b_x0: Tensor  # (m, nx)
+    ball_c_x0: Tensor  # (n_ball, nx)
+    # trajectory reconstruction: e_x[2..N+1] = G_flat z + F e0
+    F: Tensor  # (N, nx, nx)
+    G_flat: Tensor  # (N*nx, n)
+    N: int
+    nx: int
+    nu: int
+    n_ball: int  # 0 or nx (contractive)
+    ball_radius_sq_factor: float
+
+
+def condense_np(
+    A,
+    B,
+    horizon: int,
+    weights: Weights,
+    terminal: TerminalIngredient,
+    references: References,
+    X: Box,
+    U: Box,
+    state_constraint: bool,
+) -> CondensedQpData:
+    """Build the condensed QP data on the host (f64), stored f32 on the CPU."""
+    N = horizon
+    A64 = np.asarray(A, np.float64)
+    B64 = np.asarray(B, np.float64)
+    nx, nu = B64.shape
+    n = N * nu
+
+    # prediction operators by forward recursion
+    F = np.zeros((N, nx, nx))
+    G = np.zeros((N, N, nx, nu))
+    Fk = np.eye(nx)
+    for k in range(N):
+        Gk = np.zeros((N, nx, nu))
+        if k > 0:
+            Gk = np.einsum("ab,jbc->jac", A64, G[k - 1])
+        Gk[k] = B64
+        Fk = A64 @ Fk
+        F[k] = Fk
+        G[k] = Gk
+    G_flat = G.transpose(0, 2, 1, 3).reshape(N * nx, N * nu)
+    F_flat = F.reshape(N * nx, nx)
+
+    Q = np.asarray(weights.Q, np.float64)
+    P_term = np.asarray(terminal.P, np.float64)
+    R = np.asarray(weights.R, np.float64)
+    S = np.asarray(weights.S, np.float64)
+    Qbar = np.zeros((N * nx, N * nx))
+    for i in range(N):
+        Qbar[i * nx : (i + 1) * nx, i * nx : (i + 1) * nx] = (
+            P_term if i == N - 1 else Q
+        )
+    Rbar = np.kron(np.eye(N), R)
+
+    GtQ = G_flat.T @ Qbar
+    P_qp = 2.0 * (GtQ @ G_flat + Rbar)
+    q_x0 = 2.0 * (GtQ @ F_flat)
+
+    uref_stack = np.asarray(references.u).T.reshape(-1)
+    xref_stack = np.asarray(references.x).T[1:].reshape(-1)
+
+    q_const = np.zeros(n)
+    if np.any(S != 0.0):
+        eye = np.eye(N)
+        Dstep = eye[:-1] - eye[1:]
+        D = np.kron(Dstep, np.eye(nu))
+        Sbar = np.kron(np.eye(N - 1), S)
+        P_qp = P_qp + 2.0 * D.T @ Sbar @ D
+        q_const = q_const + 2.0 * D.T @ Sbar @ (D @ uref_stack)
+
+    rows_A = [np.eye(n)]
+    rows_l = [np.tile(np.asarray(U.lo, np.float64), N) - uref_stack]
+    rows_u = [np.tile(np.asarray(U.hi, np.float64), N) - uref_stack]
+    rows_bx0 = [np.zeros((n, nx))]
+    if state_constraint:
+        rows_A.append(G_flat)
+        rows_l.append(np.tile(np.asarray(X.lo, np.float64), N) - xref_stack)
+        rows_u.append(np.tile(np.asarray(X.hi, np.float64), N) - xref_stack)
+        rows_bx0.append(-F_flat)
+
+    n_ball = 0
+    ball_c_x0 = np.zeros((0, nx))
+    G_last = G_flat[-nx:]
+    F_last = F_flat[-nx:]
+    if terminal.kind == "equality":
+        rows_A.append(G_last)
+        rows_l.append(np.zeros(nx))
+        rows_u.append(np.zeros(nx))
+        rows_bx0.append(-F_last)
+    elif terminal.kind == "neighborhood":
+        raise NotImplementedError(
+            "neighborhood terminal rows are not ported yet (ROADMAP Queue 1, "
+            "'Neighborhood terminal sets')"
+        )
+    elif terminal.kind == "contractive":
+        rows_A.append(G_last)
+        rows_l.append(np.full(nx, -np.inf))
+        rows_u.append(np.full(nx, np.inf))
+        rows_bx0.append(np.zeros((nx, nx)))
+        n_ball = nx
+        ball_c_x0 = F_last
+
+    return CondensedQpData(
+        P=f32(P_qp),
+        A=f32(np.concatenate(rows_A, axis=0)),
+        q_const=f32(q_const),
+        q_x0=f32(q_x0),
+        l_const=f32(np.concatenate(rows_l)),
+        u_const=f32(np.concatenate(rows_u)),
+        b_x0=f32(np.concatenate(rows_bx0, axis=0)),
+        ball_c_x0=f32(ball_c_x0),
+        F=f32(F),
+        G_flat=f32(G_flat),
+        N=N,
+        nx=nx,
+        nu=nu,
+        n_ball=n_ball,
+        ball_radius_sq_factor=CONTRACTIVE_FACTOR,
+    )
+
+
+def runtime_qp_vectors_batch(qp: CondensedQpData, e0s: Tensor):
+    """Per-solve QP vectors for a batch of initial deviations e0s (B, nx):
+    three fp32 matmuls against the shared design matrices.
+    Returns (q, l, u, ball_c, ball_r), each with a leading batch axis."""
+    q = qp.q_const[None] + e0s @ qp.q_x0.T
+    shift = e0s @ qp.b_x0.T  # b_x0 already carries the sign (-F)
+    l = qp.l_const[None] + shift
+    u = qp.u_const[None] + shift
+    if qp.n_ball:
+        ball_c = e0s @ qp.ball_c_x0.T
+        ball_r = float(np.sqrt(qp.ball_radius_sq_factor)) * torch.linalg.vector_norm(
+            e0s, dim=1
+        )
+    else:
+        B = e0s.shape[0]
+        ball_c = e0s.new_zeros((B, 0))
+        ball_r = e0s.new_zeros((B,))
+    return q, l, u, ball_c, ball_r

@@ -1,0 +1,382 @@
+"""Batched scenario solves: many initial states, one controller.
+
+The port of the JAX package's ``parallel/scenarios.py`` for the condensed
+linear engine on one device:
+
+- :func:`solve_batch_fused` solves a batch on the fused diag-A kernel (K1);
+- :func:`solve_batch_auto` routes a batch to the fused kernel wherever K1
+  takes the shape (the vmapped general engine ``solve_batch`` is ROADMAP
+  Queue 1, item 4, so other shapes raise NotImplementedError);
+- :func:`solve_batch_escalated` and :func:`make_escalated_solver` close the
+  straggler tail in tiers: K1 at the controller's config, then the
+  unconverged lanes gathered on the device into a static bucket and
+  continued on a wider rho grid with refinement, then the host f64 oracle;
+- :func:`closed_loop_batch` runs the receding-horizon loop over a plant.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import native_qp
+from ..design import LinearEngine, MpcController
+from ..ops import admm as admm_ops
+from ..ops import admm_fused
+from ..ops.condense import runtime_qp_vectors_batch
+from ..solvers.sqp import true_objective
+from ..types import (
+    STATUS_CONVERGED,
+    STATUS_MAX_ITER,
+    STATUS_NUMERIC_ERROR,
+    MpcSolution,
+    TensorRecord,
+)
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchDiagnostics(TensorRecord):
+    """Fleet-level solve diagnostics (0-d tensors on the solve's device)."""
+
+    n_total: Tensor
+    n_converged: Tensor
+    n_max_iter: Tensor
+    n_infeasible: Tensor
+    max_primal_residual: Tensor
+    max_dual_residual: Tensor
+    mean_iterations: Tensor
+    max_iterations: Tensor
+
+
+def _diagnostics(sol: MpcSolution) -> BatchDiagnostics:
+    status = sol.status
+    i32 = torch.int32
+    return BatchDiagnostics(
+        n_total=torch.tensor(status.shape[0], dtype=i32, device=status.device),
+        n_converged=(status == STATUS_CONVERGED).sum().to(i32),
+        n_max_iter=(status == STATUS_MAX_ITER).sum().to(i32),
+        n_infeasible=(status >= 2).sum().to(i32),
+        max_primal_residual=sol.primal_residual.max(),
+        max_dual_residual=sol.dual_residual.max(),
+        mean_iterations=sol.iterations.to(torch.float32).mean(),
+        max_iterations=sol.iterations.max().to(i32),
+    )
+
+
+def init_warm_batch(controller: MpcController, batch: int) -> Tuple[Tensor, Tensor]:
+    """Broadcast the controller's warm state over a scenario batch."""
+    return (
+        controller.warm_z.expand(batch, -1),
+        controller.warm_y.expand(batch, -1),
+    )
+
+
+def _redispatch(status: Tensor) -> Tensor:
+    """Lanes a later tier re-solves: MAX_ITER and NUMERIC_ERROR (an
+    infeasibility certificate is final)."""
+    return (status == STATUS_MAX_ITER) | (status == STATUS_NUMERIC_ERROR)
+
+
+def solve_batch_fused(
+    controller: MpcController,
+    x0s: Tensor,  # (B, nx)
+    warm_z: Optional[Tensor] = None,  # (B, n)
+    warm_y: Optional[Tensor] = None,  # (B, m)
+    chunk_fn: admm_fused.ChunkFn = admm_fused.iterate_chunk_diag_T,
+) -> Tuple[MpcSolution, Tensor, Tensor, BatchDiagnostics]:
+    """Batched linear-MPC solves on K1, on the device of ``x0s``.
+
+    Returns (solutions with a leading batch axis, next warm_z (shifted),
+    next warm_y (the raw dual), diagnostics). ``chunk_fn`` as in
+    ``ops.admm_fused.solve_batch_fused``."""
+    engine = controller.engine
+    if not isinstance(engine, LinearEngine):
+        raise ValueError("fused path requires a linear engine")
+    if engine.soft_mu is not None:
+        raise ValueError("fused path does not support soft rows")
+    B = x0s.shape[0]
+    if warm_z is None or warm_y is None:
+        warm_z, warm_y = init_warm_batch(controller, B)
+
+    qp = engine.qp
+    tuning = controller.tuning
+    refs = tuning.references
+    e0s = x0s - refs.x[:, 0][None]
+    qv, lv, uv, _, _ = runtime_qp_vectors_batch(qp, e0s)
+
+    z, y, _, status, iters, rp, rd = admm_fused.solve_batch_fused(
+        engine.op, qv, lv, uv, warm_z, warm_y, config=engine.config,
+        chunk_fn=chunk_fn,
+    )
+
+    N, nx, nu = qp.N, qp.nx, qp.nu
+    ex_tail = (z @ qp.G_flat.T + e0s @ qp.F.reshape(N * nx, nx).T).reshape(B, N, nx)
+    ex = torch.cat([e0s[:, None], ex_tail], dim=1)  # (B, N+1, nx)
+    eu = z.reshape(B, N, nu)
+    xs = ex + refs.x.T[None]
+    us = eu + refs.u.T[None]
+    sol = MpcSolution(
+        x=xs.transpose(1, 2),
+        e_x=ex.transpose(1, 2),
+        u=us.transpose(1, 2),
+        e_u=eu.transpose(1, 2),
+        status=status,
+        iterations=iters,
+        primal_residual=rp,
+        dual_residual=rd,
+        objective=true_objective(tuning, xs, us),
+    )
+    wz_next = torch.cat([eu[:, 1:], eu[:, -1:]], dim=1).reshape(B, -1)
+    return sol, wz_next, y, _diagnostics(sol)
+
+
+def fused_supported(controller: MpcController) -> bool:
+    """The port's routing rule: fused wherever K1 takes the shape (a linear
+    engine without soft or ball rows, a diagonal A, and an operator stack
+    that fits K1's shared memory). The JAX package's bands were measured on
+    other hardware and are not copied; bands for this card come from its
+    own A/B runs."""
+    eng = controller.engine
+    if not isinstance(eng, LinearEngine):
+        return False
+    if eng.soft_mu is not None or eng.op.n_ball != 0 or not eng.op.diag_a:
+        return False
+    return admm_fused.k1_fits(
+        int(eng.op.A_s.shape[1]),
+        int(eng.op.rho_grid.shape[0]),
+        int(eng.config.refine_steps),
+    )
+
+
+def solve_batch_auto(
+    controller: MpcController,
+    x0s: Tensor,
+    warm_z: Optional[Tensor] = None,
+    warm_y: Optional[Tensor] = None,
+) -> Tuple[MpcSolution, Tensor, Tensor, BatchDiagnostics]:
+    """Batch solve on the fused kernel where :func:`fused_supported`;
+    same contract as :func:`solve_batch_fused`."""
+    if not fused_supported(controller):
+        raise NotImplementedError(
+            "this controller's QP is not one K1 takes (soft, ball, state or "
+            "terminal rows, or an operator too large for shared memory); the "
+            "general batched engine solve_batch is not ported yet (ROADMAP "
+            "Queue 1, item 4)"
+        )
+    return solve_batch_fused(controller, x0s, warm_z, warm_y)
+
+
+def escalation_controller(
+    controller: MpcController,
+    rho_grid: Tuple[float, ...] = (0.01, 0.1, 1.0, 10.0, 100.0),
+    max_iter: int = 4000,
+    refine_steps: int = 2,
+) -> MpcController:
+    """Fallback controller for straggler re-dispatch: the same condensed QP
+    with a wider prefactorized rho grid, a deeper iteration budget and
+    iterative refinement of the K-solve. Built on the host, moved to the
+    controller's device."""
+    eng = controller.engine
+    if not isinstance(eng, LinearEngine):
+        return controller
+    cfg = dataclasses.replace(
+        eng.config, rho_grid=tuple(rho_grid), max_iter=int(max_iter),
+        adaptive=True, refine_steps=int(refine_steps),
+    )
+    qp = eng.qp.to("cpu")
+    l_np = qp.l_const.numpy()
+    u_np = qp.u_const.numpy()
+    eq_mask = np.isfinite(l_np) & np.isfinite(u_np) & (l_np == u_np)
+    op = admm_ops.build_operator(qp.P, qp.A, eq_mask, qp.n_ball, cfg)
+    return controller.replace(
+        engine=LinearEngine(
+            qp=eng.qp, op=op.to(controller.device), soft_mu=eng.soft_mu, config=cfg
+        )
+    )
+
+
+def _native_lane_solve(controller: MpcController, x0, wz_lane, wy_lane):
+    """Tier-3 straggler solve in f64 on the host through the native oracle.
+    Returns numpy pieces of one lane of the batch solution, the next warm
+    z (shifted) and the raw dual."""
+    np64 = lambda t: np.asarray(torch.as_tensor(t).detach().cpu(), np.float64)
+    qp = controller.engine.qp.to("cpu")
+    tuning = controller.tuning.to("cpu")
+    refs = tuning.references
+    N, nx, nu = qp.N, qp.nx, qp.nu
+    e0 = np64(x0) - np64(refs.x[:, 0])
+    q = np64(qp.q_const) + np64(qp.q_x0) @ e0
+    shift = np64(qp.b_x0) @ e0
+    l = np64(qp.l_const) + shift
+    u = np64(qp.u_const) + shift
+    z, y, status, iters, rp, rd = native_qp.solve_qp(
+        np64(qp.P), q, np64(qp.A), l, u,
+        z0=np64(wz_lane), y0=np64(wy_lane), eps_abs=1e-7, eps_rel=1e-7,
+    )
+    eu = z.reshape(N, nu)
+    ex_tail = (np64(qp.G_flat) @ z + np64(qp.F).reshape(N * nx, nx) @ e0).reshape(N, nx)
+    ex = np.concatenate([e0[None], ex_tail], axis=0)  # (N+1, nx)
+    xs = ex + np64(refs.x).T
+    us = eu + np64(refs.u).T
+    obj = float(
+        true_objective(
+            tuning,
+            torch.from_numpy(xs.astype(np.float32))[None],
+            torch.from_numpy(us.astype(np.float32))[None],
+        )[0]
+    )
+    wz_next = np.concatenate([eu[1:], eu[-1:]], axis=0).reshape(-1)
+    lane_sol = dict(
+        x=xs.T, e_x=ex.T, u=us.T, e_u=eu.T, status=status,
+        iterations=iters, primal_residual=rp, dual_residual=rd, objective=obj,
+    )
+    return lane_sol, wz_next.astype(np.float32), y.astype(np.float32)
+
+
+def _gather_iterate(sol: MpcSolution, wy, warm_z, warm_y, idx: Tensor):
+    """The current primal/dual iterate of lanes ``idx`` (sol.e_u is the
+    unshifted z, wy the raw y), falling back to the warm pair on lanes that
+    are not finite."""
+    B = sol.e_u.shape[0]
+    z_it = sol.e_u.transpose(1, 2).reshape(B, -1)[idx]
+    y_it = wy[idx]
+    ok = (torch.isfinite(z_it).all(1) & torch.isfinite(y_it).all(1))[:, None]
+    return torch.where(ok, z_it, warm_z[idx]), torch.where(ok, y_it, warm_y[idx])
+
+
+def _scatter(old: Tensor, idx: Tensor, new: Tensor) -> Tensor:
+    out = old.clone()
+    out[idx] = new
+    return out
+
+
+def solve_batch_escalated(
+    controller: MpcController,
+    fallback: MpcController,
+    x0s: Tensor,  # (B, nx)
+    warm_z: Tensor,
+    warm_y: Tensor,
+    bucket: int = 256,
+) -> Tuple[MpcSolution, Tensor, Tensor, BatchDiagnostics]:
+    """Two-tier batch solve on the device.
+
+    Tier 1 runs the controller's config on K1. The straggler lanes
+    (MAX_ITER / NUMERIC_ERROR) are gathered on the device into a static
+    ``bucket`` (a stable partition: stragglers first, in lane order) and
+    re-solved on the fallback's operator on K1, continuing from the tier-1
+    iterate. Results are written back only over lanes that were
+    stragglers; their iteration counts continue tier 1's. Stragglers beyond
+    the bucket stay MAX_ITER for the host tier of make_escalated_solver.
+    """
+    B = x0s.shape[0]
+    bucket = min(bucket, B)
+    sol, wz, wy, _ = solve_batch_auto(controller, x0s, warm_z, warm_y)
+
+    bad = _redispatch(sol.status)
+    # stable: lanes keep their order within each side, as jnp.argsort does
+    gidx = torch.argsort((~bad).to(torch.int8), stable=True)[:bucket]
+    bad_g = bad[gidx]
+
+    z0, y0 = _gather_iterate(sol, wy, warm_z, warm_y, gidx)
+    if not fused_supported(fallback):
+        raise NotImplementedError(
+            "the fallback's QP is not one K1 takes; the general batched engine "
+            "is not ported yet (ROADMAP Queue 1, item 4)"
+        )
+    sol2, wz2, wy2, _ = solve_batch_fused(fallback, x0s[gidx], z0, y0)
+    sol2 = sol2.replace(iterations=sol2.iterations + sol.iterations[gidx])
+
+    def merge(old, new):
+        flag = bad_g.reshape((bucket,) + (1,) * (new.ndim - 1))
+        return _scatter(old, gidx, torch.where(flag, new, old[gidx]))
+
+    sol_m = MpcSolution(
+        **{
+            f.name: merge(getattr(sol, f.name), getattr(sol2, f.name))
+            for f in dataclasses.fields(MpcSolution)
+        }
+    )
+    return sol_m, merge(wz, wz2), merge(wy, wy2), _diagnostics(sol_m)
+
+
+def make_escalated_solver(
+    controller: MpcController,
+    fallback: Optional[MpcController] = None,
+    min_bucket: int = 256,
+    native_tier: bool = True,
+) -> Callable:
+    """Tiered batch solver: tiers 1 and 2 as :func:`solve_batch_escalated`
+    on the device, then every lane still MAX_ITER / NUMERIC_ERROR is solved
+    on the host by the f64 native oracle, continuing from the tier-2
+    iterate. Returns ``solve(x0s, warm_z=None, warm_y=None) -> (sol, wz,
+    wy, diag)``."""
+    fb = fallback if fallback is not None else escalation_controller(controller)
+    native_ok = native_tier and isinstance(controller.engine, LinearEngine)
+
+    def solve(x0s, warm_z=None, warm_y=None):
+        B = x0s.shape[0]
+        if warm_z is None or warm_y is None:
+            warm_z, warm_y = init_warm_batch(controller, B)
+        sol, wz, wy, diag = solve_batch_escalated(
+            controller, fb, x0s, warm_z, warm_y, bucket=min_bucket
+        )
+        if not native_ok:
+            return sol, wz, wy, diag
+        li = torch.nonzero(_redispatch(sol.status)).flatten()
+        if li.numel() == 0:
+            return sol, wz, wy, diag
+
+        z_g, y_g = _gather_iterate(sol, wy, warm_z, warm_y, li)
+        x0_g, z_g, y_g = (t.cpu().numpy() for t in (x0s[li], z_g, y_g))
+        lanes, wz3, wy3 = [], [], []
+        for k in range(li.numel()):
+            lane, wzl, wyl = _native_lane_solve(controller, x0_g[k], z_g[k], y_g[k])
+            lanes.append(lane)
+            wz3.append(wzl)
+            wy3.append(wyl)
+
+        dev = sol.status.device
+        stack = lambda key, dt=np.float32: torch.from_numpy(
+            np.stack([np.asarray(ln[key], np.float64) for ln in lanes]).astype(dt)
+        ).to(dev)
+        patch = {
+            f.name: stack(f.name, np.int32 if f.name in ("status", "iterations") else np.float32)
+            for f in dataclasses.fields(MpcSolution)
+        }
+        sol = MpcSolution(
+            **{k: _scatter(getattr(sol, k), li, v) for k, v in patch.items()}
+        )
+        wz = _scatter(wz, li, torch.from_numpy(np.stack(wz3)).to(dev))
+        wy = _scatter(wy, li, torch.from_numpy(np.stack(wy3)).to(dev))
+        return sol, wz, wy, _diagnostics(sol)
+
+    return solve
+
+
+def closed_loop_batch(
+    controller: MpcController,
+    plant_step: Callable[[Tensor, Tensor], Tensor],  # (x (B,nx), u (B,nu)) -> x_next
+    x0s: Tensor,  # (B, nx)
+    n_steps: int,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Batched receding-horizon closed loop, a Python loop over steps with
+    the warm start carried from step to step.
+
+    Returns (states (n_steps+1, B, nx), inputs (n_steps, B, nu),
+    statuses (n_steps, B))."""
+    wz, wy = init_warm_batch(controller, x0s.shape[0])
+    x = x0s
+    xs, us, statuses = [x0s], [], []
+    for _ in range(int(n_steps)):
+        sol, wz, wy, _ = solve_batch_auto(controller, x, wz, wy)
+        u0 = sol.u[:, :, 0]
+        x = plant_step(x, u0)
+        xs.append(x)
+        us.append(u0)
+        statuses.append(sol.status)
+    return torch.stack(xs), torch.stack(us), torch.stack(statuses)

@@ -1,0 +1,157 @@
+"""K1's plain PyTorch version and the fused driver vs the JAX kernel.
+
+The JAX side runs ops/admm_pallas in interpret mode on the CPU, as the JAX
+package's own tests do. Inputs are made with numpy from a seed and handed
+to both packages.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import automationlabsmodelpredictivecontrol_jl_tpu as jmpc
+from automationlabsmodelpredictivecontrol_jl_tpu.benchmarks import qtp as jqtp
+from automationlabsmodelpredictivecontrol_jl_tpu.ops import admm_pallas
+from automationlabsmodelpredictivecontrol_jl_tpu.ops.admm import AdmmConfig as JConfig
+
+import automationlabsmodelpredictivecontrol_jl_torch as tmpc
+from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp as tqtp
+from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig as TConfig
+from automationlabsmodelpredictivecontrol_jl_torch.ops.condense import (
+    runtime_qp_vectors_batch,
+)
+
+torch.set_num_threads(1)
+
+# the two main-path configs: tier 1 (R=2, no refinement) and tier 2 (R=4,
+# two refinement steps)
+CONFIGS = {
+    "R2": dict(max_iter=75, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0),
+    "R4": dict(max_iter=250, rho=1.0, rho_grid=(0.1, 1.0, 10.0, 100.0), refine_steps=2),
+}
+HORIZONS = {20: 10, 40: 20}  # n -> horizon (n = 2 * horizon)
+
+# 25 iterations of fp32 arithmetic whose sums run in another order in the
+# two packages (XLA's CPU dot splits each sum into interleaved partial
+# sums, torch's runs it in order): agreement to the last bits is not
+# expected. The bar is normwise, relative to each array's largest entry:
+# the dual update y += rho (v - s) multiplies the roundoff of v - s by rho,
+# up to 100 on the tier-2 grid, so a small entry of y can carry the
+# absolute error of the largest
+RTOL, ATOL = 1e-4, 1e-5
+
+# Convergence is decided against eps 1e-6 on residuals that sit at the f32
+# noise floor of the iterates, so at the main-path tolerance a lane's
+# status and iteration count follow the roundoff of either package. With
+# eps 1e-4 the decisions sit two decades above that floor and are
+# reproducible lane by lane.
+EPS_ABOVE_FLOOR = dict(eps_abs=1e-4, eps_rel=1e-4)
+
+
+def _pair(horizon, cfg):
+    """The JAX controller and the port's, designed alike."""
+    jc = jmpc.proceed_controller(
+        jqtp.linearized_discrete_system(), "model_predictive_control", horizon,
+        5.0, np.full(4, 0.65), np.full(2, 1.2), admm_config=JConfig(**cfg),
+    )
+    tc = tmpc.proceed_controller(
+        tqtp.linearized_discrete_system(), "model_predictive_control", horizon,
+        5.0, [0.65] * 4, [1.2] * 2, admm_config=TConfig(**cfg),
+    )
+    return jc, tc
+
+
+@pytest.fixture(scope="module")
+def designs():
+    return {
+        (n, key): _pair(h, cfg)
+        for n, h in HORIZONS.items()
+        for key, cfg in CONFIGS.items()
+    }
+
+
+def _x0s(B, seed):
+    rng = np.random.default_rng(seed)
+    return np.clip(0.65 + 0.15 * rng.standard_normal((B, 4)), 0.25, 1.3).astype(np.float32)
+
+
+def _chunk_inputs(tc, B, seed):
+    """Scaled lane-last QP vectors from real initial states, and a state
+    near the driver's cold start (x = y = ax = 0, s = clip(0, l, u)) with a
+    small seeded perturbation, as numpy."""
+    op = tc.engine.op
+    R = op.rho_grid.shape[0]
+    x0s = torch.from_numpy(_x0s(B, seed))
+    q, l, u, _, _ = runtime_qp_vectors_batch(tc.engine.qp, x0s - tc.tuning.references.x[:, 0])
+    qT = ((op.c * op.D)[:, None] * q.T).numpy()
+    lT = (op.E[:, None] * l.T).numpy()
+    uT = (op.E[:, None] * u.T).numpy()
+    n = qT.shape[0]
+    rng = np.random.default_rng(seed + 1)
+    x, y, ax = ((0.05 * rng.standard_normal((n, B))).astype(np.float32) for _ in range(3))
+    s = np.clip(ax, lT, uT)
+    idx = rng.integers(0, R, size=B).astype(np.int32)
+    return [qT, lT, uT, idx, x, s, y, ax]
+
+
+@pytest.mark.parametrize("B", [16, 13])
+@pytest.mark.parametrize("key", ["R2", "R4"])
+@pytest.mark.parametrize("n", [20, 40])
+def test_plain_chunk_matches_jax_interpret(designs, n, key, B):
+    jc, tc = designs[(n, key)]
+    args = _chunk_inputs(tc, B, seed=n + B)
+    calls = admm_fused.PLAIN_CALLS
+    out_t = admm_fused.iterate_chunk_diag_T(
+        tc.engine.op, *[torch.from_numpy(a) for a in args], 25, tc.engine.config
+    )
+    assert admm_fused.PLAIN_CALLS == calls + 1  # CPU tensors take the plain version
+    out_j = admm_pallas._iterate_chunk_diag_T(
+        jc.engine.op, *[jnp.asarray(a) for a in args], 25, jc.engine.config,
+        interpret=True,
+    )
+    for name, a, b in zip(("x", "s", "y", "ax"), out_t, out_j):
+        a, b = a.numpy(), np.asarray(b)
+        err = np.abs(a - b).max()
+        assert err <= RTOL * np.abs(b).max() + ATOL, (name, err)
+
+
+@pytest.mark.parametrize("key", ["R2", "R4"])
+def test_fused_solve_matches_jax_interpret(key):
+    cfg = dict(CONFIGS[key], check_interval=5, adapt_interval=5, **EPS_ABOVE_FLOOR)
+    jc, tc = _pair(20, cfg)
+    B = 13
+    x0s = _x0s(B, seed=5)
+    e0s = torch.from_numpy(x0s) - tc.tuning.references.x[:, 0]
+    q, l, u, _, _ = runtime_qp_vectors_batch(tc.engine.qp, e0s)
+    zt, yt, _, st, it, _, _ = admm_fused.solve_batch_fused(
+        tc.engine.op, q, l, u, config=tc.engine.config
+    )
+    zj, yj, _, sj, ij, _, _ = admm_pallas.solve_batch_fused(
+        jc.engine.op, jnp.asarray(q.numpy()), jnp.asarray(l.numpy()),
+        jnp.asarray(u.numpy()), config=jc.engine.config, interpret=True,
+    )
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    # the bar of the JAX package's own fused-vs-engine parity tests
+    np.testing.assert_allclose(zt.numpy(), np.asarray(zj), atol=5e-4)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=5e-4)
+
+
+def test_wrapper_rejects_other_precisions_and_shapes(designs):
+    _, tc = designs[(40, "R2")]
+    op = tc.engine.op
+    q = torch.zeros((2, 40))
+    for mode in ("bf16x3", "default", "hybrid"):
+        cfg = TConfig(**CONFIGS["R2"], kernel_precision=mode)
+        with pytest.raises(NotImplementedError):
+            admm_fused.solve_batch_fused(op, q, q, q, config=cfg)
+    with pytest.raises(ValueError):
+        admm_fused.solve_batch_fused(
+            op, q, q, q, config=TConfig(**CONFIGS["R2"], kernel_precision="tf32")
+        )
+    assert admm_fused.k1_fits(40, 4, 2) and admm_fused.k1_fits(40, 2, 0)
+    assert not admm_fused.k1_fits(200, 5, 1)  # 800 KB stack: tiling is later work
+    assert not admm_fused.k1_fits(130, 1, 0)

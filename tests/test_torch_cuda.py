@@ -1,0 +1,122 @@
+"""K1 on the card: the CUDA kernel against its plain PyTorch version.
+
+Marked ``cuda``; each test decides in a fixture whether a card is present
+and skips otherwise. Needs no JAX, so on a machine with a card and without
+JAX it runs as
+
+    python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from automationlabsmodelpredictivecontrol_jl_torch import parallel, proceed_controller
+from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp
+from automationlabsmodelpredictivecontrol_jl_torch.ops import _build, admm_fused
+from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig
+from automationlabsmodelpredictivecontrol_jl_torch.ops.condense import runtime_qp_vectors_batch
+
+pytestmark = pytest.mark.cuda
+
+TIER1 = AdmmConfig(max_iter=75, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0)
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def controllers(card):
+    c = proceed_controller(
+        qtp.linearized_discrete_system(), "model_predictive_control", 20, 5.0,
+        [0.65] * 4, [1.2] * 2, admm_config=TIER1, device=card,
+    )
+    fb = parallel.escalation_controller(
+        c, rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250, refine_steps=2
+    )
+    return c, fb
+
+
+def _x0s(B, seed):
+    rng = np.random.default_rng(seed)
+    return np.clip(0.65 + 0.15 * rng.standard_normal((B, 4)), 0.25, 1.3).astype(np.float32)
+
+
+def _chunk_args(ctrl, B, seed):
+    dev = ctrl.device
+    op = ctrl.engine.op
+    R, n = op.rho_vecs.shape
+    x0s = torch.from_numpy(_x0s(B, seed)).to(dev)
+    q, l, u, _, _ = runtime_qp_vectors_batch(ctrl.engine.qp, x0s - ctrl.tuning.references.x[:, 0])
+    qT = ((op.c * op.D)[:, None] * q.T).contiguous()
+    lT = (op.E[:, None] * l.T).contiguous()
+    uT = (op.E[:, None] * u.T).contiguous()
+    rng = np.random.default_rng(seed + 1)
+    x, y, ax = (
+        torch.from_numpy((0.05 * rng.standard_normal((n, B))).astype(np.float32)).to(dev)
+        for _ in range(3)
+    )
+    s = torch.clamp(ax, lT, uT).contiguous()
+    idx = torch.from_numpy(rng.integers(0, R, size=B).astype(np.int32)).to(dev)
+    return (op, qT, lT, uT, idx, x, s, y, ax, 25, ctrl.engine.config)
+
+
+@pytest.mark.parametrize("which,B", [("tier1", 16384), ("tier1", 1000), ("tier2", 512), ("tier2", 77)])
+def test_k1_matches_plain_version(controllers, which, B):
+    ctrl = controllers[0] if which == "tier1" else controllers[1]
+    args = _chunk_args(ctrl, B, seed=B)
+    launches, plain = admm_fused.K1_LAUNCHES, admm_fused.PLAIN_CALLS
+    out_k = admm_fused.iterate_chunk_diag_T(*args)
+    torch.cuda.synchronize()
+    assert admm_fused.K1_LAUNCHES == launches + 1
+    assert admm_fused.PLAIN_CALLS == plain
+    out_p = admm_fused.iterate_chunk_diag_T_plain(*args)
+    for name, a, b in zip(("x", "s", "y", "ax"), out_k, out_p):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        # both sum the K-solve in fp64 and round once; the fp64 sums run in
+        # another order, so an entry may round to a neighbouring float
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * max(1.0, float(b.abs().max())), (name, err)
+
+
+def test_fused_solve_on_card_matches_cpu(controllers):
+    ctrl, _ = controllers
+    x0 = torch.from_numpy(_x0s(300, seed=9))
+    s_gpu, _, _, d_gpu = parallel.solve_batch_fused(ctrl, x0.to(ctrl.device))
+    cpu = ctrl.to("cpu")
+    s_cpu, _, _, d_cpu = parallel.solve_batch_fused(cpu, x0)
+    np.testing.assert_allclose(s_gpu.u.cpu().numpy(), s_cpu.u.numpy(), atol=5e-4)
+    assert abs(int(d_gpu.n_converged) - int(d_cpu.n_converged)) <= 3
+
+
+def test_cuda_tensor_raises_without_library(controllers, tmp_path, monkeypatch):
+    """No fallback: with a broken kernel library a CUDA tensor raises and the
+    plain version is not called."""
+    bad = tmp_path / "libmpc_kernels.so"
+    bad.write_bytes(b"not a shared library")
+    future = max(os.path.getmtime(s) for s in _build._sources()) + 60
+    os.utime(bad, (future, future))
+    monkeypatch.setattr(_build, "LIB_PATH", str(bad))
+    monkeypatch.setattr(_build, "_lib", None)
+    args = _chunk_args(controllers[0], 64, seed=3)
+    launches, plain = admm_fused.K1_LAUNCHES, admm_fused.PLAIN_CALLS
+    with pytest.raises(OSError):
+        admm_fused.iterate_chunk_diag_T(*args)
+    assert admm_fused.K1_LAUNCHES == launches and admm_fused.PLAIN_CALLS == plain
+
+
+def test_wrapper_checks_inputs(controllers):
+    args = list(_chunk_args(controllers[0], 64, seed=4))
+    args[5] = args[5].T.contiguous().T  # non-contiguous x
+    with pytest.raises(ValueError):
+        admm_fused.iterate_chunk_diag_T(*args)
+    args = list(_chunk_args(controllers[0], 64, seed=4))
+    args[4] = args[4].long()  # idx must be int32
+    with pytest.raises(ValueError):
+        admm_fused.iterate_chunk_diag_T(*args)

@@ -1,0 +1,154 @@
+"""Port vs JAX controller design: the host design is the same numpy f64
+code in both packages, so the stored f32 arrays must agree bit for bit."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import automationlabsmodelpredictivecontrol_jl_tpu as jmpc
+from automationlabsmodelpredictivecontrol_jl_tpu.benchmarks import qtp as jqtp
+from automationlabsmodelpredictivecontrol_jl_tpu.ops.admm import AdmmConfig as JConfig
+
+import automationlabsmodelpredictivecontrol_jl_torch as tmpc
+from automationlabsmodelpredictivecontrol_jl_torch import interop
+from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp as tqtp
+from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig as TConfig
+
+torch.set_num_threads(1)
+
+X_REF = [0.65] * 4
+U_REF = [1.2] * 2
+CFG = dict(max_iter=75, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0)
+
+
+def export(jc):
+    """The JAX controller's designed arrays as numpy, for interop."""
+    eng = jc.engine
+    as_np = lambda rec: {
+        f.name: (getattr(rec, f.name) if isinstance(getattr(rec, f.name), (int, float, bool, str))
+                 else np.asarray(getattr(rec, f.name)))
+        for f in dataclasses.fields(rec)
+    }
+    t = jc.tuning
+    return dict(
+        qp=as_np(eng.qp),
+        op=as_np(eng.op),
+        references=as_np(t.references),
+        weights=as_np(t.weights),
+        terminal_P=np.asarray(t.terminal.P),
+        config=dataclasses.asdict(eng.config),
+        tuning=dict(
+            horizon=t.horizon, sample_time=t.sample_time, max_time=t.max_time,
+            programming_type=t.programming_type, solver_name=t.solver_name,
+            state_constraint=t.state_constraint, terminal_kind=t.terminal.kind,
+        ),
+    )
+
+
+@pytest.fixture(scope="module", params=[5, 10, 20], ids=lambda h: f"h{h}")
+def pair(request):
+    h = request.param
+    jc = jmpc.proceed_controller(
+        jqtp.linearized_discrete_system(), "model_predictive_control", h, 5.0,
+        np.asarray(X_REF), np.asarray(U_REF), admm_config=JConfig(**CFG),
+    )
+    tc = tmpc.proceed_controller(
+        tqtp.linearized_discrete_system(), "model_predictive_control", h, 5.0,
+        X_REF, U_REF, admm_config=TConfig(**CFG),
+    )
+    return jc, tc
+
+
+def _bits_equal(a, b, name):
+    a = np.asarray(a)
+    b = np.asarray(b)
+    assert a.shape == b.shape, name
+    assert a.dtype == b.dtype == np.float32, name
+    assert np.array_equal(a.view(np.int32), b.view(np.int32)), name
+
+
+def test_plant_matches(pair):
+    jc, tc = pair
+    _bits_equal(jc.system.A, tc.system.A, "A")
+    _bits_equal(jc.system.B, tc.system.B, "B")
+
+
+def test_condensed_qp_bitwise(pair):
+    jc, tc = pair
+    jqp, tqp = jc.engine.qp, tc.engine.qp
+    for f in dataclasses.fields(jqp):
+        jv, tv = getattr(jqp, f.name), getattr(tqp, f.name)
+        if isinstance(jv, (int, float)):
+            assert jv == tv, f.name
+        else:
+            _bits_equal(jv, tv, f.name)
+
+
+def test_admm_operator_bitwise(pair):
+    jc, tc = pair
+    jop, top = jc.engine.op, tc.engine.op
+    for f in dataclasses.fields(jop):
+        jv, tv = getattr(jop, f.name), getattr(top, f.name)
+        if isinstance(jv, (bool, int)):
+            assert jv == tv, f.name
+        else:
+            _bits_equal(jv, tv, f.name)
+    assert top.diag_a and not top.mixed_a
+
+
+def test_tuning_bitwise(pair):
+    jc, tc = pair
+    jt, tt = jc.tuning, tc.tuning
+    _bits_equal(jt.terminal.P, tt.terminal.P, "terminal P")
+    for name in ("x", "u"):
+        _bits_equal(getattr(jt.references, name), getattr(tt.references, name), name)
+    for name in ("Q", "R", "S"):
+        _bits_equal(getattr(jt.weights, name), getattr(tt.weights, name), name)
+    assert (tt.horizon, tt.solver_name, tt.programming_type) == (
+        jt.horizon, jt.solver_name, jt.programming_type
+    )
+
+
+def test_controller_from_numpy_round_trips(pair):
+    jc, tc = pair
+    rc = interop.controller_from_numpy(**export(jc))
+    assert rc.engine.config == tc.engine.config
+    for rec_r, rec_t in ((rc.engine.qp, tc.engine.qp), (rc.engine.op, tc.engine.op)):
+        for f in dataclasses.fields(rec_t):
+            a, b = getattr(rec_r, f.name), getattr(rec_t, f.name)
+            if isinstance(b, torch.Tensor):
+                _bits_equal(a, b, f.name)
+            else:
+                assert a == b, f.name
+    _bits_equal(rc.tuning.terminal.P, tc.tuning.terminal.P, "P")
+    assert rc.warm_z.shape == tc.warm_z.shape and rc.warm_y.shape == tc.warm_y.shape
+    assert (rc.nx, rc.nu) == (4, 2)
+
+
+def test_escalation_operator_bitwise(pair):
+    from automationlabsmodelpredictivecontrol_jl_tpu import parallel as jpar
+    from automationlabsmodelpredictivecontrol_jl_torch import parallel as tpar
+
+    jc, tc = pair
+    jfb = jpar.escalation_controller(jc, rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250)
+    tfb = tpar.escalation_controller(tc, rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250)
+    assert jfb.engine.config == jfb.engine.config.__class__(**dataclasses.asdict(tfb.engine.config))
+    for name in ("Ks", "K_invs", "rho_vecs", "rho_invs", "rho_grid"):
+        _bits_equal(getattr(jfb.engine.op, name), getattr(tfb.engine.op, name), name)
+
+
+def test_unported_branches_raise():
+    sys = tqtp.linearized_discrete_system()
+    with pytest.raises(NotImplementedError):
+        tmpc.proceed_controller(
+            sys, "model_predictive_control", 5, 5.0, X_REF, U_REF,
+            mpc_terminal_ingredient="neighborhood",
+        )
+    with pytest.raises(NotImplementedError):
+        tmpc.proceed_controller(
+            sys, "model_predictive_control", 5, 5.0, X_REF, U_REF, engine="riccati"
+        )
+    with pytest.raises(ValueError):
+        tmpc.proceed_controller(sys, "nonsense", 5, 5.0, X_REF, U_REF)

@@ -1,0 +1,50 @@
+"""The PyTorch port imports without JAX: the machine that runs it on the
+GPU has no jax, and the JAX package changes a global setting on import."""
+
+import subprocess
+import sys
+
+import jax  # noqa: F401  (both frameworks load in the test process)
+import torch
+
+torch.set_num_threads(1)
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys\n"
+        "import automationlabsmodelpredictivecontrol_jl_torch as m\n"
+        "from automationlabsmodelpredictivecontrol_jl_torch import interop, parallel\n"
+        "from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp\n"
+        "from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k.startswith('automationlabsmodelpredictivecontrol_jl_tpu'))\n"
+        "assert not bad, bad\n"
+        "import torch\n"
+        "assert not torch.backends.cuda.matmul.allow_tf32\n"
+        "assert torch.get_float32_matmul_precision() == 'highest'\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_chip_smoke_refuses_without_card(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line when there is
+    no card, and also when it stands alone outside the repository."""
+    import os
+    import shutil
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(root, "chip_smoke.py"), alone)
+    for cwd, script in ((root, "chip_smoke.py"), (tmp_path, str(alone))):
+        res = subprocess.run(
+            [sys.executable, script], cwd=cwd, capture_output=True, text=True,
+            timeout=120, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+        )
+        assert res.returncode != 0
+        assert '"ok": true' not in res.stdout
