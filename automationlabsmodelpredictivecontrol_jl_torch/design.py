@@ -22,6 +22,7 @@ from .ops.condense import CondensedQpData, condense_np
 from .solvers.registry import engine_for, resolve_solver
 from .systems import LinearDiscreteSystem, as_discrete
 from .terminal import create_terminal_ingredient
+from .utils.devices import resolve_device
 from .types import (
     MpcSolution,
     References,
@@ -145,15 +146,18 @@ def design_controller(
     admm_config: Optional[admm_ops.AdmmConfig] = None,
     economic_cost: Optional[Any] = None,
     engine: str = "auto",
-    device: Any = "cpu",
+    device: Any = None,
 ) -> MpcController:
-    """Design an MPC controller on the host and move it to ``device``.
+    """Design an MPC controller on the host and move it to ``device``
+    (``None``: the card, raising where there is none; "cpu" only when
+    named).
 
     ``engine``: "condensed" (the ported engine) or "auto", which is the
     condensed engine here: the JAX package's switch to its O(N) Riccati
     engine at long horizons was measured on other hardware and is not
     ported (ROADMAP Queue 1, "Riccati engine"). "riccati" raises.
     """
+    dev = resolve_device(device)  # before the design: no card, no work
     if economic_cost is not None:
         raise NotImplementedError(
             "economic MPC is not ported yet (ROADMAP Queue 1, 'Economic MPC "
@@ -205,4 +209,4 @@ def design_controller(
         warm_z=torch.zeros((n,), dtype=torch.float32),
         warm_y=torch.zeros((m,), dtype=torch.float32),
         results=None,
-    ).to(device)
+    ).to(dev)

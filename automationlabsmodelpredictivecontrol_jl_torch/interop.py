@@ -18,6 +18,11 @@ from .design import LinearEngine, MpcController, MpcTuning
 from .ops.admm import AdmmConfig, AdmmOperator
 from .ops.condense import CondensedQpData
 from .types import References, TerminalIngredient, Weights
+from .utils.devices import resolve_device
+
+
+def _f32(v: Any) -> torch.Tensor:
+    return torch.from_numpy(np.array(v, np.float32))
 
 
 def _record(cls, values: Mapping[str, Any]):
@@ -29,7 +34,7 @@ def _record(cls, values: Mapping[str, Any]):
         if isinstance(v, (bool, int, float, str)) or v is None:
             kwargs[f.name] = v
         else:
-            kwargs[f.name] = torch.from_numpy(np.array(v, np.float32))
+            kwargs[f.name] = _f32(v)
     return cls(**kwargs)
 
 
@@ -40,9 +45,11 @@ def controller_from_numpy(
     references: Mapping[str, Any],
     weights: Mapping[str, Any],
     terminal_P: Any,
+    terminal_H: Any = None,
+    terminal_b: Any = None,
     config: Mapping[str, Any],
     tuning: Mapping[str, Any],
-    device: Any = "cpu",
+    device: Any = None,
 ) -> MpcController:
     """A linear-engine controller from designed arrays.
 
@@ -50,12 +57,15 @@ def controller_from_numpy(
       n_ball, ball_radius_sq_factor);
     - ``op``: the ``AdmmOperator`` fields, with diag_a, mixed_a, n_ball;
     - ``references`` {x, u}, ``weights`` {Q, R, S}, the terminal cost
-      ``terminal_P``;
+      ``terminal_P`` and, for a neighborhood terminal, its set
+      ``terminal_H``, ``terminal_b`` (H e_x_N <= b);
     - ``config``: the ``AdmmConfig`` values (tuples for rho_grid);
     - ``tuning``: horizon, sample_time, max_time, programming_type,
       solver_name, state_constraint and terminal_kind.
 
-    The controller has no plant (``system=None``) and zero warm state.
+    The controller has no plant (``system=None``) and zero warm state. It
+    is moved to ``device``: ``None`` is the card, and raises where there
+    is none.
     """
     ops = {k: (int(v) if k == "n_ball" else v) for k, v in op.items()}
     ops["diag_a"] = bool(op["diag_a"])
@@ -71,7 +81,9 @@ def controller_from_numpy(
         weights=_record(Weights, weights),
         terminal=TerminalIngredient(
             kind=str(tuning["terminal_kind"]),
-            P=torch.from_numpy(np.array(terminal_P, np.float32)),
+            P=_f32(terminal_P),
+            H=None if terminal_H is None else _f32(terminal_H),
+            b=None if terminal_b is None else _f32(terminal_b),
         ),
         horizon=int(tuning["horizon"]),
         sample_time=float(tuning["sample_time"]),
@@ -92,4 +104,4 @@ def controller_from_numpy(
         warm_z=torch.zeros((n,), dtype=torch.float32),
         warm_y=torch.zeros((m,), dtype=torch.float32),
         results=None,
-    ).to(device)
+    ).to(resolve_device(device))

@@ -30,12 +30,14 @@ def proceed_controller(
     mpc_sample_time: float,
     mpc_state_reference,
     mpc_input_reference,
-    device: Any = "cpu",
+    device: Any = None,
     **kws: Any,
 ) -> MpcController:
     """Design a controller on the host (numpy f64) and move its operator
-    to ``device`` ("cpu", "cuda", a torch.device). Solves then run on the
-    device of their input tensors.
+    to ``device`` ("cuda", "cpu", a torch.device). ``None``, the default,
+    is the card (``utils.devices.require_cuda``), and raises where there
+    is none: the CPU is used only when the caller names it. Solves then run
+    on the device of their input tensors.
 
     ``"model_predictive_control"``: quadratic tracking MPC.
     ``"economic_model_predictive_control"`` is not ported yet and raises

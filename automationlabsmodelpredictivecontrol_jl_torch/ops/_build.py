@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, ``build/kernels/libmpc_kernels.so``
-at the root of the checkout, on first use (or when a source is newer than
-the library). The library is loaded with ctypes. Nothing here runs at
-import time: the CPU tests import every module on a machine with no nvcc.
+Each source in ``csrc/*.cu`` compiles with its own ``nvcc`` for
+``sm_90a``, all of them at once, into an object file; the objects link
+into one shared library with a plain C interface,
+``build/kernels/libmpc_kernels.so`` at the root of the checkout. That
+happens on first use, or when a source is newer than the library. The
+library is loaded with ctypes. Nothing here runs at import time: the CPU
+tests import every module on a machine with no nvcc.
 """
 
 from __future__ import annotations
@@ -20,9 +22,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 LIB_PATH = os.path.join(os.path.dirname(_PKG), "build", "kernels", "libmpc_kernels.so")
 
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH,
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "--fmad=false",  # round after every elementwise op, as PyTorch does
     "-Xptxas", "-v",  # registers, shared memory and spills of each kernel
 )
@@ -42,6 +45,21 @@ def _sources() -> list:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def _run(procs) -> str:
+    """Wait for every (cmd, Popen); return their output, raise on the first
+    that failed."""
+    out, failed = [], None
+    for cmd, proc in procs:
+        stdout, _ = proc.communicate()
+        out.append(stdout)
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, stdout)
+    if failed:
+        cmd, code, text = failed
+        raise RuntimeError(f"nvcc failed with exit code {code}: {' '.join(cmd)}\n{text}")
+    return "".join(out)
+
+
 def build_kernels(force: bool = False) -> str:
     """Compile ``csrc/*.cu`` into the library unless it is up to date.
 
@@ -58,17 +76,28 @@ def build_kernels(force: bool = False) -> str:
         and os.path.getmtime(LIB_PATH) >= max(os.path.getmtime(s) for s in sources)
     ):
         return ""
-    os.makedirs(os.path.dirname(LIB_PATH), exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"  # atomic replace: concurrent builders
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {res.returncode}: {' '.join(cmd)}\n"
-            f"{res.stdout}{res.stderr}"
-        )
+    out_dir = os.path.dirname(LIB_PATH)
+    os.makedirs(out_dir, exist_ok=True)
+    tag = os.getpid()  # concurrent builders write their own files
+    objs, procs = [], []
+    for src in sources:
+        stem = os.path.splitext(os.path.basename(src))[0]
+        obj = os.path.join(out_dir, f"{stem}.{tag}.o")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+        objs.append(obj)
+    report = _run(procs)
+    tmp = f"{LIB_PATH}.{tag}.tmp"  # atomic replace
+    cmd = [_nvcc(), *ARCH, "-shared", "-o", tmp, *objs]
+    report += _run([(cmd, subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    ))])
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, LIB_PATH)
-    return res.stdout + res.stderr
+    return report
 
 
 def load_kernels() -> ctypes.CDLL:
@@ -81,5 +110,7 @@ def load_kernels() -> ctypes.CDLL:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.admm_diag_chunk.restype = ci
     lib.admm_diag_chunk.argtypes = [vp] * 17 + [ci] * 5 + [cf, cf, vp]
+    lib.admm_mixed_chunk.restype = ci
+    lib.admm_mixed_chunk.argtypes = [vp] * 18 + [ci] * 6 + [cf, cf, vp]
     _lib = lib
     return lib

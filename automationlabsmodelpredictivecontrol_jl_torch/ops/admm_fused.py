@@ -1,20 +1,26 @@
-"""Batched ADMM on the fused diag-A kernel (K1) and its driver.
+"""Batched ADMM on the fused kernels K1 (diagonal A) and K2 (mixed A), and
+their driver.
 
-The counterpart of the JAX package's ``ops/admm_pallas.py`` for box-only
-QPs, whose scaled constraint matrix A_s is square and diagonal (every
-input-box-only condensed MPC, the h20 main path included):
+The counterpart of the JAX package's ``ops/admm_pallas.py`` for condensed
+QPs whose scaled constraint matrix A_s is
 
-- :func:`iterate_chunk_diag_T` runs ``chunk`` ADMM iterations on the lane-
-  last state (n, B). On a CUDA tensor it launches the hand-written kernel
-  ``csrc/admm_diag.cu``; on a CPU tensor it runs the plain PyTorch version
-  :func:`iterate_chunk_diag_T_plain`, the same chunk math, which the CPU
-  tests hold against the JAX kernel in interpret mode.
-- :func:`solve_batch_fused` is the driver: a Python loop over chunks that,
-  between chunks, computes the exact unscaled residuals, applies the OSQP
-  rho rule per lane, runs the NaN guard and freezes converged lanes.
+- square and diagonal (``op.diag_a``: every input-box-only condensed MPC,
+  the h20 main path included): :func:`iterate_chunk_diag_T`, kernel K1
+  (``csrc/admm_diag.cu``);
+- mixed, A_s = [diag(d); A2] with a dense tail A2 of state-box and terminal
+  rows (``op.mixed_a``: every condensed MPC with state or terminal rows):
+  :func:`iterate_chunk_mixed_T`, kernel K2 (``csrc/admm_mixed.cu``).
 
-``K1_LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` calls of the
-plain version, so a run can show which one did the work.
+Each chunk function runs ``chunk`` ADMM iterations on the lane-last state.
+On a CUDA tensor it launches its hand-written kernel and raises if it
+cannot; on a CPU tensor it runs its plain PyTorch version, the same chunk
+math, which the CPU tests hold against the JAX kernel in interpret mode.
+:func:`solve_batch_fused` is the driver: a Python loop over chunks that,
+between chunks, computes the exact unscaled residuals, applies the OSQP
+rho rule per lane, runs the NaN guard and freezes converged lanes.
+
+``LAUNCHES`` counts each kernel's launches and ``PLAIN_CALLS`` the calls
+of each plain version, so a run can show which one did the work.
 """
 
 from __future__ import annotations
@@ -30,13 +36,22 @@ from ..utils.precision import assert_ieee_fp32
 
 Tensor = torch.Tensor
 
-K1_LAUNCHES = 0
-PLAIN_CALLS = 0
+LAUNCHES = {"K1": 0, "K2": 0}
+PLAIN_CALLS = {"K1": 0, "K2": 0}
 
-# shared memory one block may use on Hopper (227 KB), and the widest n the
-# kernel's register layout takes (csrc/admm_diag.cu)
+
+def reset_counts() -> None:
+    """Set every launch and plain-call count to 0."""
+    for counts in (LAUNCHES, PLAIN_CALLS):
+        for key in counts:
+            counts[key] = 0
+
+
+# shared memory one block may use on Hopper (227 KB), the widest n the
+# kernels' register layouts take, and K2's widest dense tail
 SMEM_LIMIT = 232448
 MAX_N = 128
+MAX_TAIL = 128
 _LANES = 32
 
 
@@ -51,6 +66,41 @@ def k1_fits(n: int, R: int, refine_steps: int) -> bool:
     """Whether K1 takes this operator shape (tiling K for larger n is
     later work, ROADMAP Queue 2)."""
     return n <= MAX_N and k1_smem_bytes(n, R, refine_steps) <= SMEM_LIMIT
+
+
+def k2_smem_bytes(n: int, m: int, R: int, refine_steps: int) -> int:
+    """Dynamic shared memory of one K2 block: in fp64 the K^-1 stack (and K
+    when refining), A2, two (n, 32) and two (m - n, 32) vector buffers; in
+    fp32 the (R, m) rho and rho^-1 tables (csrc/admm_mixed.cu)."""
+    stacks = 2 if refine_steps > 0 else 1
+    ms = m - n
+    return (stacks * R * n * n + ms * n + 2 * (n + ms) * _LANES) * 8 + 2 * R * m * 4
+
+
+def k2_fits(n: int, m: int, R: int, refine_steps: int) -> bool:
+    """Whether K2 takes this operator shape: n <= 128, a dense tail of 1 to
+    128 rows, and a block within the card's shared memory."""
+    return (
+        n <= MAX_N
+        and 1 <= m - n <= MAX_TAIL
+        and k2_smem_bytes(n, m, R, refine_steps) <= SMEM_LIMIT
+    )
+
+
+def _lane_solver(op: AdmmOperator, idx: Tensor, n: int):
+    """The lane's own K_r^-1 v (or K_r v): all R candidates as one fp64
+    (R*n, n) @ (n, B) matmul, then a per-lane gather, rounded once to
+    fp32."""
+    R = int(op.rho_grid.shape[0])
+    B = idx.shape[0]
+    kicat = op.K_invs.reshape(R * n, n).double()
+    kcat = op.Ks.reshape(R * n, n).double()
+    pick = idx.long().view(1, 1, B).expand(1, n, B)
+
+    def solve(M, v):
+        return (M @ v.double()).view(R, n, B).gather(0, pick)[0].float()
+
+    return solve, kicat, kcat
 
 
 def iterate_chunk_diag_T_plain(
@@ -73,20 +123,13 @@ def iterate_chunk_diag_T_plain(
     once to fp32 (the state stays fp32): fp32 accumulation leaves about
     three times as many h20 lanes above the 1e-6 certificate after tier 1
     (csrc/admm_diag.cu, "Precision")."""
-    global PLAIN_CALLS
-    PLAIN_CALLS += 1
-    n, B = qT.shape
-    R = int(op.rho_grid.shape[0])
-    kicat = op.K_invs.reshape(R * n, n).double()
-    kcat = op.Ks.reshape(R * n, n).double()
+    PLAIN_CALLS["K1"] += 1
+    n = qT.shape[0]
+    solve, kicat, kcat = _lane_solver(op, idx, n)
     d = torch.diagonal(op.A_s)[:, None]
     il = idx.long()
     rho = op.rho_vecs[il].T  # (n, B)
     rho_inv = op.rho_invs[il].T
-    pick = il.view(1, 1, B).expand(1, n, B)
-
-    def solve(M, v):  # (R*n, n) @ (n, B) in fp64, the lane's own block, fp32
-        return (M @ v.double()).view(R, n, B).gather(0, pick)[0].float()
 
     sigma, alpha = float(config.sigma), float(config.alpha)
     x, s, y, ax = xT, sT, yT, axT
@@ -105,8 +148,103 @@ def iterate_chunk_diag_T_plain(
     return x, s, y, ax
 
 
+def iterate_chunk_mixed_T_plain(
+    op: AdmmOperator,
+    qT: Tensor,  # (n, B) scaled, lane-last
+    lT: Tensor,  # (m, B)
+    uT: Tensor,
+    idx: Tensor,  # (B,) int32 rho-grid index per lane
+    xT: Tensor,  # (n, B)
+    sT: Tensor,  # (m, B)
+    yT: Tensor,
+    axT: Tensor,
+    chunk: int,
+    config: AdmmConfig,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of K2, for A_s = [diag(d); A2].
+
+    A'y = d.y[:n] + A2' y[n:] and A'(rho.s) split the same way; the
+    K-solve as in K1; st = [d.xt; A2 xt]. Every matrix-vector product (the
+    K-solves and the three A2 products) is accumulated in fp64 and rounded
+    once to fp32, as in K2."""
+    PLAIN_CALLS["K2"] += 1
+    n = qT.shape[0]
+    solve, kicat, kcat = _lane_solver(op, idx, n)
+    d = torch.diagonal(op.A_s[:n, :n])[:, None]
+    a2 = op.A_s[n:].double()  # (m - n, n)
+    a2t = a2.T
+    il = idx.long()
+    rho = op.rho_vecs[il].T  # (m, B)
+    rho_inv = op.rho_invs[il].T
+
+    def prod(M, v):  # fp64 sums of exact fp32 products, rounded once
+        return (M @ v.double()).float()
+
+    sigma, alpha = float(config.sigma), float(config.alpha)
+    x, s, y, ax = xT, sT, yT, axT
+    for _ in range(int(chunk)):
+        rs = rho * s
+        aty = d * y[:n] + prod(a2t, y[n:])
+        w = d * rs[:n] + prod(a2t, rs[n:])
+        rhs = sigma * x - qT - aty + w
+        xt = solve(kicat, rhs)
+        for _ in range(int(config.refine_steps)):
+            xt = xt + solve(kicat, rhs - solve(kcat, xt))
+        st = torch.cat([d * xt, prod(a2, xt)])
+        x_new = alpha * xt + (1.0 - alpha) * x
+        v = alpha * st + (1.0 - alpha) * s
+        s_new = torch.clamp(v + rho_inv * y, lT, uT)
+        y = y + rho * (v - s_new)
+        ax = alpha * st + (1.0 - alpha) * ax
+        x, s = x_new, s_new
+    return x, s, y, ax
+
+
+def _check_args(kernel: str, args, dev) -> None:
+    for name, t, shape, dtype in args:
+        if t.device != dev:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, expected {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{kernel}: {name} has dtype {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} is not contiguous")
+
+
+def _state_args(n, m, B, qT, lT, uT, idx, xT, sT, yT, axT):
+    f = torch.float32
+    return [
+        ("qT", qT, (n, B), f),
+        ("lT", lT, (m, B), f),
+        ("uT", uT, (m, B), f),
+        ("idx", idx, (B,), torch.int32),
+        ("xT", xT, (n, B), f),
+        ("sT", sT, (m, B), f),
+        ("yT", yT, (m, B), f),
+        ("axT", axT, (m, B), f),
+    ]
+
+
+def _launch(kernel: str, entry: str, args, outs, ints, config):
+    """Call the C entry ``entry`` on the current stream; raise on a
+    non-zero cudaError_t, count the launch otherwise."""
+    dev = args[0][1].device
+    lib = _build.load_kernels()
+    with torch.cuda.device(dev):
+        err = getattr(lib, entry)(
+            *[t.data_ptr() for _, t, _, _ in args],
+            *[o.data_ptr() for o in outs],
+            *ints, float(config.sigma), float(config.alpha),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{kernel} ({entry}) launch failed: cudaError_t {err}")
+    LAUNCHES[kernel] += 1
+    return tuple(outs)
+
+
 def _launch_k1(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config):
-    global K1_LAUNCHES
     n, B = qT.shape
     R = int(op.rho_grid.shape[0])
     rs = int(config.refine_steps)
@@ -116,45 +254,51 @@ def _launch_k1(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config):
             f"{SMEM_LIMIT} B of shared memory; n={n}, R={R}, "
             f"refine_steps={rs} needs {k1_smem_bytes(n, R, rs)} B"
         )
-    dev = qT.device
-    dvec = torch.diagonal(op.A_s).contiguous()
+    f = torch.float32
     args = [
-        ("K_invs", op.K_invs, (R, n, n), torch.float32),
-        ("Ks", op.Ks, (R, n, n), torch.float32),
-        ("diag(A_s)", dvec, (n,), torch.float32),
-        ("rho_vecs", op.rho_vecs, (R, n), torch.float32),
-        ("rho_invs", op.rho_invs, (R, n), torch.float32),
-        ("qT", qT, (n, B), torch.float32),
-        ("lT", lT, (n, B), torch.float32),
-        ("uT", uT, (n, B), torch.float32),
-        ("idx", idx, (B,), torch.int32),
-        ("xT", xT, (n, B), torch.float32),
-        ("sT", sT, (n, B), torch.float32),
-        ("yT", yT, (n, B), torch.float32),
-        ("axT", axT, (n, B), torch.float32),
-    ]
-    for name, t, shape, dtype in args:
-        if t.device != dev:
-            raise ValueError(f"K1: {name} is on {t.device}, expected {dev}")
-        if t.dtype != dtype:
-            raise ValueError(f"K1: {name} has dtype {t.dtype}, expected {dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"K1: {name} has shape {tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"K1: {name} is not contiguous")
+        ("K_invs", op.K_invs, (R, n, n), f),
+        ("Ks", op.Ks, (R, n, n), f),
+        ("diag(A_s)", torch.diagonal(op.A_s).contiguous(), (n,), f),
+        ("rho_vecs", op.rho_vecs, (R, n), f),
+        ("rho_invs", op.rho_invs, (R, n), f),
+    ] + _state_args(n, n, B, qT, lT, uT, idx, xT, sT, yT, axT)
+    _check_args("K1", args, qT.device)
     outs = [torch.empty_like(xT) for _ in range(4)]
-    lib = _build.load_kernels()
-    with torch.cuda.device(dev):
-        err = lib.admm_diag_chunk(
-            *[t.data_ptr() for _, t, _, _ in args],
-            *[o.data_ptr() for o in outs],
-            n, B, R, int(chunk), rs, float(config.sigma), float(config.alpha),
-            torch.cuda.current_stream(dev).cuda_stream,
+    return _launch("K1", "admm_diag_chunk", args, outs, (n, B, R, int(chunk), rs), config)
+
+
+def _launch_k2(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config):
+    n, B = qT.shape
+    m = lT.shape[0]
+    R = int(op.rho_grid.shape[0])
+    rs = int(config.refine_steps)
+    if not k2_fits(n, m, R, rs):
+        raise ValueError(
+            f"K2 takes n <= {MAX_N}, 1 to {MAX_TAIL} dense rows and a block "
+            f"within {SMEM_LIMIT} B of shared memory; n={n}, m={m}, R={R}, "
+            f"refine_steps={rs} needs {k2_smem_bytes(n, m, R, rs)} B"
         )
-    if err != 0:
-        raise RuntimeError(f"K1 (admm_diag_chunk) launch failed: cudaError_t {err}")
-    K1_LAUNCHES += 1
-    return tuple(outs)
+    f = torch.float32
+    args = [
+        ("K_invs", op.K_invs, (R, n, n), f),
+        ("Ks", op.Ks, (R, n, n), f),
+        ("A2", op.A_s[n:], (m - n, n), f),
+        ("diag(A_s[:n])", torch.diagonal(op.A_s[:n, :n]).contiguous(), (n,), f),
+        ("rho_vecs", op.rho_vecs, (R, m), f),
+        ("rho_invs", op.rho_invs, (R, m), f),
+    ] + _state_args(n, m, B, qT, lT, uT, idx, xT, sT, yT, axT)
+    _check_args("K2", args, qT.device)
+    outs = [torch.empty_like(xT)] + [torch.empty_like(sT) for _ in range(3)]
+    return _launch("K2", "admm_mixed_chunk", args, outs, (n, m, B, R, int(chunk), rs), config)
+
+
+def _dispatch(kernel, launch, plain, args):
+    kind = args[1].device.type
+    if kind == "cuda":
+        return launch(*args)
+    if kind == "cpu":
+        return plain(*args)
+    raise ValueError(f"{kernel} runs on CUDA (or its plain version on CPU), not {kind}")
 
 
 def iterate_chunk_diag_T(
@@ -174,14 +318,33 @@ def iterate_chunk_diag_T(
 
     CUDA tensors launch K1 (``csrc/admm_diag.cu``) and raise if it cannot
     run; CPU tensors take the plain version. The state is out of place."""
-    kind = qT.device.type
-    if kind == "cuda":
-        return _launch_k1(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config)
-    if kind == "cpu":
-        return iterate_chunk_diag_T_plain(
-            op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config
-        )
-    raise ValueError(f"K1 runs on CUDA (or its plain version on CPU), not {kind}")
+    return _dispatch(
+        "K1", _launch_k1, iterate_chunk_diag_T_plain,
+        (op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config),
+    )
+
+
+def iterate_chunk_mixed_T(
+    op: AdmmOperator,
+    qT: Tensor,  # (n, B)
+    lT: Tensor,  # (m, B)
+    uT: Tensor,
+    idx: Tensor,
+    xT: Tensor,  # (n, B)
+    sT: Tensor,  # (m, B)
+    yT: Tensor,
+    axT: Tensor,
+    chunk: int,
+    config: AdmmConfig,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """``chunk`` ADMM iterations of a mixed-A QP batch, lane-last.
+
+    CUDA tensors launch K2 (``csrc/admm_mixed.cu``) and raise if it cannot
+    run; CPU tensors take the plain version. The state is out of place."""
+    return _dispatch(
+        "K2", _launch_k2, iterate_chunk_mixed_T_plain,
+        (op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config),
+    )
 
 
 def _check_precision(config: AdmmConfig) -> None:
@@ -201,33 +364,59 @@ def _check_precision(config: AdmmConfig) -> None:
 ChunkFn = Callable[..., Tuple[Tensor, Tensor, Tensor, Tensor]]
 
 
-def _solve_batch_fused_diag(
+def chunk_fn_for(op: AdmmOperator, plain: bool = False) -> ChunkFn:
+    """The chunk function of the kernel that takes ``op`` (or its plain
+    version): K1 for a diagonal A, K2 for a mixed one."""
+    if op.diag_a:
+        return iterate_chunk_diag_T_plain if plain else iterate_chunk_diag_T
+    if op.mixed_a:
+        return iterate_chunk_mixed_T_plain if plain else iterate_chunk_mixed_T
+    raise NotImplementedError(
+        "dense-A operators need K4/K5, which are not ported yet (ROADMAP "
+        "Queue 2); the port's fused path takes diagonal (K1) and mixed (K2) A"
+    )
+
+
+def _solve_batch_fused_T(
     op: AdmmOperator,
     q: Tensor,  # (B, n) unscaled
-    l: Tensor,
+    l: Tensor,  # (B, m)
     u: Tensor,
     z0: Optional[Tensor],
     y0: Optional[Tensor],
     config: AdmmConfig,
     chunk_fn: ChunkFn,
 ):
-    """Lane-last driver: transposes once at entry and exit; between chunks,
-    exact unscaled residuals (P_s @ x as a matmul; A'y and Ax are elementwise
-    for a diagonal A), the OSQP per-lane rho rule, the NaN guard and the
+    """Lane-last driver for diagonal and mixed A: transposes once at entry
+    and exit; between chunks, exact unscaled residuals (P_s @ x as a
+    matmul; the box block of A'y and Ax is elementwise, the dense tail A2
+    an fp32 matmul), the OSQP per-lane rho rule, the NaN guard and the
     freezing of converged lanes. One host read of ``done`` per chunk."""
     B = q.shape[0]
+    n = op.A_s.shape[1]
     R = int(op.rho_grid.shape[0])
     ck = max(1, int(config.check_interval))
     D_c = op.D[:, None]  # (n, 1)
-    E_c = op.E[:, None]
-    dvec = torch.diagonal(op.A_s)[:, None]
+    E_c = op.E[:, None]  # (m, 1)
+    dvec = torch.diagonal(op.A_s[:n, :n])[:, None]
+    a2 = op.A_s[n:] if op.mixed_a else None  # (m - n, n) dense tail
     qT = ((op.c * op.D)[:, None] * q.T).contiguous()
     lT = (E_c * l.T).contiguous()
     uT = (E_c * u.T).contiguous()
 
+    def a_apply(x):  # A_s @ x
+        if a2 is None:
+            return dvec * x
+        return torch.cat([dvec * x, a2 @ x])
+
+    def at_apply(y):  # A_s' y
+        if a2 is None:
+            return dvec * y
+        return dvec * y[:n] + a2.T @ y[n:]
+
     x = torch.zeros_like(qT) if z0 is None else (z0.T / D_c).contiguous()
     y = torch.zeros_like(lT) if y0 is None else (op.c * y0.T / E_c).contiguous()
-    ax = dvec * x
+    ax = a_apply(x).contiguous()
     idx = torch.full(
         (B,), start_rho_index(config) if R > 1 else 0, dtype=torch.int32,
         device=q.device,
@@ -244,7 +433,7 @@ def _solve_batch_fused_diag(
     def diagnostics(x, s, y, ax):
         r_prim = (E_inv * (ax - s)).abs().amax(0)
         Px = op.P_s @ x  # P_s symmetric
-        Aty = dvec * y
+        Aty = at_apply(y)
         r_dual = c_inv * (D_inv * (Px + qT + Aty)).abs().amax(0)
         prim_norm = torch.maximum(
             (E_inv * ax).abs().amax(0), (E_inv * s).abs().amax(0)
@@ -320,20 +509,17 @@ def solve_batch_fused(
     z0: Optional[Tensor] = None,  # (B, n)
     y0: Optional[Tensor] = None,  # (B, m)
     config: AdmmConfig = AdmmConfig(),
-    chunk_fn: ChunkFn = iterate_chunk_diag_T,
+    chunk_fn: Optional[ChunkFn] = None,
 ):
-    """Batched QP solve on K1. Returns (z, y, s, status, iterations,
-    primal_residual, dual_residual), each with a leading batch axis, on the
-    device of ``q``. ``chunk_fn`` is K1's wrapper; the plain version may be
+    """Batched QP solve on K1 (diagonal A) or K2 (mixed A). Returns (z, y,
+    s, status, iterations, primal_residual, dual_residual), each with a
+    leading batch axis, on the device of ``q``. ``chunk_fn`` defaults to
+    the kernel's wrapper (:func:`chunk_fn_for`); its plain version may be
     passed to re-solve on the card for comparison."""
     if op.n_ball:
         raise ValueError("fused kernel does not support ball rows")
-    if not op.diag_a:
-        raise NotImplementedError(
-            "only the diagonal-A kernel (K1) is ported; mixed-A operators need "
-            "K2 and dense ones K4/K5 (ROADMAP Queue 2)"
-        )
+    fn = chunk_fn_for(op) if chunk_fn is None else chunk_fn
     _check_precision(config)
     if q.device.type == "cuda":
         assert_ieee_fp32()
-    return _solve_batch_fused_diag(op, q, l, u, z0, y0, config, chunk_fn)
+    return _solve_batch_fused_T(op, q, l, u, z0, y0, config, fn)

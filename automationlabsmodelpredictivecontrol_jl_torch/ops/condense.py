@@ -8,7 +8,8 @@ f64 (the same code as the JAX package's ``condense_np``, so the f32 arrays
 agree bit for bit); the per-solve vectors are fp32 matmuls on the device.
 
 Row layout of A: [input-box rows (N*nu)] then [state-box rows (N*nx),
-opt-in] then [terminal rows (nx or 0)]. The last ``n_ball`` rows are a
+opt-in] then [terminal rows: nx (equality, contractive), the rows of H
+(neighborhood, with l = -inf) or none]. The last ``n_ball`` rows are a
 Euclidean-ball block (contractive terminal set).
 """
 
@@ -135,10 +136,13 @@ def condense_np(
         rows_u.append(np.zeros(nx))
         rows_bx0.append(-F_last)
     elif terminal.kind == "neighborhood":
-        raise NotImplementedError(
-            "neighborhood terminal rows are not ported yet (ROADMAP Queue 1, "
-            "'Neighborhood terminal sets')"
-        )
+        if terminal.H is None or terminal.b is None:
+            raise ValueError("neighborhood terminal kind requires H, b")
+        H = np.asarray(terminal.H, np.float64)
+        rows_A.append(H @ G_last)
+        rows_l.append(np.full(H.shape[0], -np.inf))
+        rows_u.append(np.asarray(terminal.b, np.float64))
+        rows_bx0.append(-(H @ F_last))
     elif terminal.kind == "contractive":
         rows_A.append(G_last)
         rows_l.append(np.full(nx, -np.inf))

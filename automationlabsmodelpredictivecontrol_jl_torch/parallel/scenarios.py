@@ -3,14 +3,17 @@
 The port of the JAX package's ``parallel/scenarios.py`` for the condensed
 linear engine on one device:
 
-- :func:`solve_batch_fused` solves a batch on the fused diag-A kernel (K1);
-- :func:`solve_batch_auto` routes a batch to the fused kernel wherever K1
-  takes the shape (the vmapped general engine ``solve_batch`` is ROADMAP
-  Queue 1, item 4, so other shapes raise NotImplementedError);
+- :func:`solve_batch_fused` solves a batch on a fused kernel: K1 for a
+  diagonal A (input boxes only), K2 for a mixed one (state-box or
+  terminal rows after the input boxes);
+- :func:`solve_batch_auto` routes a batch to the fused path wherever a
+  kernel takes the shape (the vmapped general engine ``solve_batch`` is
+  ROADMAP Queue 1, so other shapes raise NotImplementedError);
 - :func:`solve_batch_escalated` and :func:`make_escalated_solver` close the
-  straggler tail in tiers: K1 at the controller's config, then the
-  unconverged lanes gathered on the device into a static bucket and
-  continued on a wider rho grid with refinement, then the host f64 oracle;
+  straggler tail in tiers: the controller's config on the fused kernel,
+  then the unconverged lanes gathered on the device into a static bucket
+  and continued on a wider rho grid with refinement, then the host f64
+  oracle;
 - :func:`closed_loop_batch` runs the receding-horizon loop over a plant.
 """
 
@@ -32,6 +35,7 @@ from ..types import (
     STATUS_CONVERGED,
     STATUS_MAX_ITER,
     STATUS_NUMERIC_ERROR,
+    STATUS_PRIMAL_INFEASIBLE,
     MpcSolution,
     TensorRecord,
 )
@@ -82,18 +86,35 @@ def _redispatch(status: Tensor) -> Tensor:
     return (status == STATUS_MAX_ITER) | (status == STATUS_NUMERIC_ERROR)
 
 
+def _x0_outside_state_box(controller: MpcController, x0s: Tensor) -> Tensor:
+    """Lanes whose x0 lies outside the plant's state box. The reference
+    also poses the box row on the (fixed) first state; with x0 pinned it
+    is a pure feasibility check, applied wherever the state constraint is
+    hard (the JAX package's runtime and fused Riccati paths; its fused
+    condensed path skips it, ROADMAP Queue 3)."""
+    if controller.system is None:
+        raise ValueError(
+            "a state-constrained controller without a plant: the state box "
+            "that x0 is checked against is unknown"
+        )
+    X = controller.system.X
+    return ~torch.all((x0s >= X.lo) & (x0s <= X.hi), dim=1)
+
+
 def solve_batch_fused(
     controller: MpcController,
     x0s: Tensor,  # (B, nx)
     warm_z: Optional[Tensor] = None,  # (B, n)
     warm_y: Optional[Tensor] = None,  # (B, m)
-    chunk_fn: admm_fused.ChunkFn = admm_fused.iterate_chunk_diag_T,
+    chunk_fn: Optional[admm_fused.ChunkFn] = None,
 ) -> Tuple[MpcSolution, Tensor, Tensor, BatchDiagnostics]:
-    """Batched linear-MPC solves on K1, on the device of ``x0s``.
+    """Batched linear-MPC solves on K1 or K2, on the device of ``x0s``.
 
     Returns (solutions with a leading batch axis, next warm_z (shifted),
     next warm_y (the raw dual), diagnostics). ``chunk_fn`` as in
-    ``ops.admm_fused.solve_batch_fused``."""
+    ``ops.admm_fused.solve_batch_fused``. With a hard state constraint, a
+    lane whose x0 lies outside the state box reports
+    STATUS_PRIMAL_INFEASIBLE."""
     engine = controller.engine
     if not isinstance(engine, LinearEngine):
         raise ValueError("fused path requires a linear engine")
@@ -113,6 +134,11 @@ def solve_batch_fused(
         engine.op, qv, lv, uv, warm_z, warm_y, config=engine.config,
         chunk_fn=chunk_fn,
     )
+    if tuning.state_constraint:
+        status = torch.where(
+            _x0_outside_state_box(controller, x0s),
+            STATUS_PRIMAL_INFEASIBLE, status,
+        ).to(torch.int32)
 
     N, nx, nu = qp.N, qp.nx, qp.nu
     ex_tail = (z @ qp.G_flat.T + e0s @ qp.F.reshape(N * nx, nx).T).reshape(B, N, nx)
@@ -136,21 +162,33 @@ def solve_batch_fused(
 
 
 def fused_supported(controller: MpcController) -> bool:
-    """The port's routing rule: fused wherever K1 takes the shape (a linear
-    engine without soft or ball rows, a diagonal A, and an operator stack
-    that fits K1's shared memory). The JAX package's bands were measured on
-    other hardware and are not copied; bands for this card come from its
-    own A/B runs."""
+    """The port's routing rule: fused wherever a kernel takes the shape. A
+    linear engine without soft or ball rows whose operator is diagonal and
+    fits K1, or mixed and fits K2 (shared memory, n <= 128, a dense tail of
+    at most 128 rows). The JAX package's bands were measured on other
+    hardware and are not copied; bands for this card come from its own A/B
+    runs."""
     eng = controller.engine
     if not isinstance(eng, LinearEngine):
         return False
-    if eng.soft_mu is not None or eng.op.n_ball != 0 or not eng.op.diag_a:
+    op = eng.op
+    if eng.soft_mu is not None or op.n_ball != 0:
         return False
-    return admm_fused.k1_fits(
-        int(eng.op.A_s.shape[1]),
-        int(eng.op.rho_grid.shape[0]),
-        int(eng.config.refine_steps),
-    )
+    m, n = (int(d) for d in op.A_s.shape)
+    R = int(op.rho_grid.shape[0])
+    rs = int(eng.config.refine_steps)
+    if op.diag_a:
+        return admm_fused.k1_fits(n, R, rs)
+    if op.mixed_a:
+        return admm_fused.k2_fits(n, m, R, rs)
+    return False
+
+
+_NO_KERNEL = (
+    "no ported kernel takes this controller's QP (soft or ball rows, a "
+    "dense A, or an operator too large for shared memory); the general "
+    "batched engine solve_batch is not ported yet (ROADMAP Queue 1)"
+)
 
 
 def solve_batch_auto(
@@ -162,12 +200,7 @@ def solve_batch_auto(
     """Batch solve on the fused kernel where :func:`fused_supported`;
     same contract as :func:`solve_batch_fused`."""
     if not fused_supported(controller):
-        raise NotImplementedError(
-            "this controller's QP is not one K1 takes (soft, ball, state or "
-            "terminal rows, or an operator too large for shared memory); the "
-            "general batched engine solve_batch is not ported yet (ROADMAP "
-            "Queue 1, item 4)"
-        )
+        raise NotImplementedError(_NO_KERNEL)
     return solve_batch_fused(controller, x0s, warm_z, warm_y)
 
 
@@ -265,10 +298,12 @@ def solve_batch_escalated(
 ) -> Tuple[MpcSolution, Tensor, Tensor, BatchDiagnostics]:
     """Two-tier batch solve on the device.
 
-    Tier 1 runs the controller's config on K1. The straggler lanes
+    Tier 1 runs the controller's config on its fused kernel (K1 or K2).
+    The straggler lanes
     (MAX_ITER / NUMERIC_ERROR) are gathered on the device into a static
     ``bucket`` (a stable partition: stragglers first, in lane order) and
-    re-solved on the fallback's operator on K1, continuing from the tier-1
+    re-solved on the fallback's operator on the same kernel, continuing
+    from the tier-1
     iterate. Results are written back only over lanes that were
     stragglers; their iteration counts continue tier 1's. Stragglers beyond
     the bucket stay MAX_ITER for the host tier of make_escalated_solver.
@@ -284,10 +319,7 @@ def solve_batch_escalated(
 
     z0, y0 = _gather_iterate(sol, wy, warm_z, warm_y, gidx)
     if not fused_supported(fallback):
-        raise NotImplementedError(
-            "the fallback's QP is not one K1 takes; the general batched engine "
-            "is not ported yet (ROADMAP Queue 1, item 4)"
-        )
+        raise NotImplementedError(f"the fallback: {_NO_KERNEL}")
     sol2, wz2, wy2, _ = solve_batch_fused(fallback, x0s[gidx], z0, y0)
     sol2 = sol2.replace(iterations=sol2.iterations + sol.iterations[gidx])
 

@@ -59,7 +59,7 @@ def _pair(horizon, cfg):
     )
     tc = tmpc.proceed_controller(
         tqtp.linearized_discrete_system(), "model_predictive_control", horizon,
-        5.0, [0.65] * 4, [1.2] * 2, admm_config=TConfig(**cfg),
+        5.0, [0.65] * 4, [1.2] * 2, admm_config=TConfig(**cfg), device="cpu",
     )
     return jc, tc
 
@@ -103,11 +103,11 @@ def _chunk_inputs(tc, B, seed):
 def test_plain_chunk_matches_jax_interpret(designs, n, key, B):
     jc, tc = designs[(n, key)]
     args = _chunk_inputs(tc, B, seed=n + B)
-    calls = admm_fused.PLAIN_CALLS
+    calls = admm_fused.PLAIN_CALLS["K1"]
     out_t = admm_fused.iterate_chunk_diag_T(
         tc.engine.op, *[torch.from_numpy(a) for a in args], 25, tc.engine.config
     )
-    assert admm_fused.PLAIN_CALLS == calls + 1  # CPU tensors take the plain version
+    assert admm_fused.PLAIN_CALLS["K1"] == calls + 1  # CPU tensors take the plain version
     out_j = admm_pallas._iterate_chunk_diag_T(
         jc.engine.op, *[jnp.asarray(a) for a in args], 25, jc.engine.config,
         interpret=True,

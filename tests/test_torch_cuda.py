@@ -1,4 +1,4 @@
-"""K1 on the card: the CUDA kernel against its plain PyTorch version.
+"""K1 and K2 on the card: each CUDA kernel against its plain PyTorch version.
 
 Marked ``cuda``; each test decides in a fixture whether a card is present
 and skips otherwise. Needs no JAX, so on a machine with a card and without
@@ -51,7 +51,8 @@ def _x0s(B, seed):
 def _chunk_args(ctrl, B, seed):
     dev = ctrl.device
     op = ctrl.engine.op
-    R, n = op.rho_vecs.shape
+    R = op.rho_vecs.shape[0]
+    m, n = op.A_s.shape
     x0s = torch.from_numpy(_x0s(B, seed)).to(dev)
     q, l, u, _, _ = runtime_qp_vectors_batch(ctrl.engine.qp, x0s - ctrl.tuning.references.x[:, 0])
     qT = ((op.c * op.D)[:, None] * q.T).contiguous()
@@ -59,8 +60,8 @@ def _chunk_args(ctrl, B, seed):
     uT = (op.E[:, None] * u.T).contiguous()
     rng = np.random.default_rng(seed + 1)
     x, y, ax = (
-        torch.from_numpy((0.05 * rng.standard_normal((n, B))).astype(np.float32)).to(dev)
-        for _ in range(3)
+        torch.from_numpy((0.05 * rng.standard_normal((rows, B))).astype(np.float32)).to(dev)
+        for rows in (n, m, m)
     )
     s = torch.clamp(ax, lT, uT).contiguous()
     idx = torch.from_numpy(rng.integers(0, R, size=B).astype(np.int32)).to(dev)
@@ -71,11 +72,11 @@ def _chunk_args(ctrl, B, seed):
 def test_k1_matches_plain_version(controllers, which, B):
     ctrl = controllers[0] if which == "tier1" else controllers[1]
     args = _chunk_args(ctrl, B, seed=B)
-    launches, plain = admm_fused.K1_LAUNCHES, admm_fused.PLAIN_CALLS
+    launches, plain = admm_fused.LAUNCHES["K1"], admm_fused.PLAIN_CALLS["K1"]
     out_k = admm_fused.iterate_chunk_diag_T(*args)
     torch.cuda.synchronize()
-    assert admm_fused.K1_LAUNCHES == launches + 1
-    assert admm_fused.PLAIN_CALLS == plain
+    assert admm_fused.LAUNCHES["K1"] == launches + 1
+    assert admm_fused.PLAIN_CALLS["K1"] == plain
     out_p = admm_fused.iterate_chunk_diag_T_plain(*args)
     for name, a, b in zip(("x", "s", "y", "ax"), out_k, out_p):
         assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
@@ -83,6 +84,57 @@ def test_k1_matches_plain_version(controllers, which, B):
         # another order, so an entry may round to a neighbouring float
         err = float((a - b).abs().max())
         assert err <= 1e-4 * max(1.0, float(b.abs().max())), (name, err)
+
+
+@pytest.fixture(scope="module")
+def mixed_controllers(card):
+    """The state-constrained h20 controller at the suite's config (m = 120,
+    R = 5, refine 1) and its tier-2 fallback (R = 4, refine 2), and the
+    suite's neighborhood-terminal controller (m = 52)."""
+    design = lambda **kw: proceed_controller(
+        qtp.linearized_discrete_system(), "model_predictive_control", 20, 5.0,
+        [0.65] * 4, [1.2] * 2, admm_config=AdmmConfig(max_iter=1000), device=card, **kw,
+    )
+    sc = design(mpc_state_constraint=True)
+    fb = parallel.escalation_controller(
+        sc, rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250, refine_steps=2
+    )
+    return sc, fb, design(mpc_terminal_ingredient="neighborhood")
+
+
+@pytest.mark.parametrize("which,B", [("suite", 2048), ("suite", 1000), ("tier2", 512), ("tier2", 77)])
+def test_k2_matches_plain_version(mixed_controllers, which, B):
+    ctrl = mixed_controllers[0] if which == "suite" else mixed_controllers[1]
+    assert ctrl.engine.op.mixed_a and ctrl.engine.op.A_s.shape == (120, 40)
+    args = _chunk_args(ctrl, B, seed=B)
+    launches, plain = admm_fused.LAUNCHES["K2"], admm_fused.PLAIN_CALLS["K2"]
+    out_k = admm_fused.iterate_chunk_mixed_T(*args)
+    torch.cuda.synchronize()
+    assert admm_fused.LAUNCHES["K2"] == launches + 1
+    assert admm_fused.PLAIN_CALLS["K2"] == plain
+    out_p = admm_fused.iterate_chunk_mixed_T_plain(*args)
+    for name, a, b in zip(("x", "s", "y", "ax"), out_k, out_p):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        # fp64 sums in another order than the plain version's matmuls
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * max(1.0, float(b.abs().max())), (name, err)
+
+
+def test_mixed_solve_auto_launches_k2(mixed_controllers):
+    """The suite's neighborhood controller through solve_batch_auto: K2
+    launches, no plain version runs, every lane converges, and the result
+    agrees with the same solve on the CPU."""
+    ctrl = mixed_controllers[2]
+    rng = np.random.default_rng(0)
+    x0 = torch.from_numpy(0.65 + 0.002 * rng.standard_normal((256, 4)).astype(np.float32))
+    launches, plain = admm_fused.LAUNCHES["K2"], dict(admm_fused.PLAIN_CALLS)
+    s_gpu, _, _, d_gpu = parallel.solve_batch_auto(ctrl, x0.to(ctrl.device))
+    torch.cuda.synchronize()
+    assert admm_fused.LAUNCHES["K2"] > launches
+    assert admm_fused.PLAIN_CALLS == plain
+    assert int(d_gpu.n_converged) == 256
+    s_cpu, _, _, _ = parallel.solve_batch_auto(ctrl.to("cpu"), x0)
+    np.testing.assert_allclose(s_gpu.u.cpu().numpy(), s_cpu.u.numpy(), atol=5e-4)
 
 
 def test_fused_solve_on_card_matches_cpu(controllers):
@@ -105,10 +157,10 @@ def test_cuda_tensor_raises_without_library(controllers, tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "LIB_PATH", str(bad))
     monkeypatch.setattr(_build, "_lib", None)
     args = _chunk_args(controllers[0], 64, seed=3)
-    launches, plain = admm_fused.K1_LAUNCHES, admm_fused.PLAIN_CALLS
+    launches, plain = admm_fused.LAUNCHES["K1"], admm_fused.PLAIN_CALLS["K1"]
     with pytest.raises(OSError):
         admm_fused.iterate_chunk_diag_T(*args)
-    assert admm_fused.K1_LAUNCHES == launches and admm_fused.PLAIN_CALLS == plain
+    assert admm_fused.LAUNCHES["K1"] == launches and admm_fused.PLAIN_CALLS["K1"] == plain
 
 
 def test_wrapper_checks_inputs(controllers):

@@ -14,6 +14,7 @@ from automationlabsmodelpredictivecontrol_jl_tpu.ops.admm import AdmmConfig as J
 import automationlabsmodelpredictivecontrol_jl_torch as tmpc
 from automationlabsmodelpredictivecontrol_jl_torch import interop
 from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp as tqtp
+from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
 from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig as TConfig
 
 torch.set_num_threads(1)
@@ -56,7 +57,7 @@ def pair(request):
     )
     tc = tmpc.proceed_controller(
         tqtp.linearized_discrete_system(), "model_predictive_control", h, 5.0,
-        X_REF, U_REF, admm_config=TConfig(**CFG),
+        X_REF, U_REF, admm_config=TConfig(**CFG), device="cpu",
     )
     return jc, tc
 
@@ -113,7 +114,7 @@ def test_tuning_bitwise(pair):
 
 def test_controller_from_numpy_round_trips(pair):
     jc, tc = pair
-    rc = interop.controller_from_numpy(**export(jc))
+    rc = interop.controller_from_numpy(**export(jc), device="cpu")
     assert rc.engine.config == tc.engine.config
     for rec_r, rec_t in ((rc.engine.qp, tc.engine.qp), (rc.engine.op, tc.engine.op)):
         for f in dataclasses.fields(rec_t):
@@ -143,12 +144,106 @@ def test_unported_branches_raise():
     sys = tqtp.linearized_discrete_system()
     with pytest.raises(NotImplementedError):
         tmpc.proceed_controller(
-            sys, "model_predictive_control", 5, 5.0, X_REF, U_REF,
-            mpc_terminal_ingredient="neighborhood",
-        )
-    with pytest.raises(NotImplementedError):
-        tmpc.proceed_controller(
-            sys, "model_predictive_control", 5, 5.0, X_REF, U_REF, engine="riccati"
+            sys, "model_predictive_control", 5, 5.0, X_REF, U_REF, engine="riccati",
+            device="cpu",
         )
     with pytest.raises(ValueError):
-        tmpc.proceed_controller(sys, "nonsense", 5, 5.0, X_REF, U_REF)
+        tmpc.proceed_controller(sys, "nonsense", 5, 5.0, X_REF, U_REF, device="cpu")
+
+
+def test_entry_points_default_to_the_card():
+    """Without ``device=`` every entry point asks for the card, and raises
+    where there is none: nothing carries on on the CPU unasked."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    sys = tqtp.linearized_discrete_system()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmpc.proceed_controller(sys, "model_predictive_control", 5, 5.0, X_REF, U_REF)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmpc.design_controller(sys, 5, 5.0, X_REF, U_REF)
+    jc = jmpc.proceed_controller(
+        jqtp.linearized_discrete_system(), "model_predictive_control", 5, 5.0,
+        np.asarray(X_REF), np.asarray(U_REF),
+    )
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.controller_from_numpy(**export(jc))
+
+
+@pytest.fixture(scope="module", params=[10, 20], ids=lambda h: f"h{h}")
+def neighborhood_pair(request):
+    kw = dict(mpc_terminal_ingredient="neighborhood")
+    jc = jmpc.proceed_controller(
+        jqtp.linearized_discrete_system(), "model_predictive_control", request.param,
+        5.0, np.asarray(X_REF), np.asarray(U_REF), **kw,
+    )
+    tc = tmpc.proceed_controller(
+        tqtp.linearized_discrete_system(), "model_predictive_control", request.param,
+        5.0, X_REF, U_REF, device="cpu", **kw,
+    )
+    return jc, tc
+
+
+def test_neighborhood_controller_designs(neighborhood_pair):
+    """The neighborhood terminal: its set, its condensed rows (H G_last with
+    l = -inf, u = b, b_x0 = -H F_last) and the mixed operator, against the
+    JAX design."""
+    jc, tc = neighborhood_pair
+    jt, tt = jc.tuning.terminal, tc.tuning.terminal
+    assert tt.kind == "neighborhood" and tt.H.shape == np.asarray(jt.H).shape
+    np.testing.assert_allclose(tt.H.numpy(), np.asarray(jt.H), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tt.b.numpy(), np.asarray(jt.b), rtol=0, atol=1e-6)
+    jqp, tqp = jc.engine.qp, tc.engine.qp
+    n_h = tt.H.shape[0]
+    assert tqp.A.shape == (tqp.N * 2 + n_h, tqp.N * 2)
+    for name in ("A", "l_const", "u_const", "b_x0"):
+        np.testing.assert_allclose(
+            getattr(tqp, name).numpy()[-n_h:], np.asarray(getattr(jqp, name))[-n_h:],
+            rtol=0, atol=1e-6, err_msg=name,
+        )
+    assert np.all(np.isneginf(tqp.l_const.numpy()[-n_h:]))
+    assert tc.engine.op.mixed_a and not tc.engine.op.diag_a
+    _bits_equal(jc.engine.op.K_invs, tc.engine.op.K_invs, "K_invs")
+
+
+def test_neighborhood_controller_round_trips(neighborhood_pair):
+    """interop carries a neighborhood terminal's set across."""
+    jc, tc = neighborhood_pair
+    ex = export(jc)
+    ex.update(terminal_H=np.asarray(jc.tuning.terminal.H), terminal_b=np.asarray(jc.tuning.terminal.b))
+    rc = interop.controller_from_numpy(**ex, device="cpu")
+    assert rc.tuning.terminal.kind == "neighborhood"
+    _bits_equal(rc.tuning.terminal.H, tc.tuning.terminal.H, "H")
+    _bits_equal(rc.tuning.terminal.b, tc.tuning.terminal.b, "b")
+    for f in dataclasses.fields(tc.engine.op):
+        a, b = getattr(rc.engine.op, f.name), getattr(tc.engine.op, f.name)
+        if isinstance(b, torch.Tensor):
+            _bits_equal(a, b, f.name)
+        else:
+            assert a == b, f.name
+    _bits_equal(rc.engine.qp.u_const, tc.engine.qp.u_const, "u_const")
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(mpc_terminal_ingredient="equality"), dict(mpc_terminal_ingredient="neighborhood"),
+     dict(mpc_state_constraint=True),
+     dict(mpc_state_constraint=True, mpc_terminal_ingredient="neighborhood")],
+    ids=["equality", "neighborhood", "state", "state+neighborhood"],
+)
+def test_h20_row_configs_are_mixed(kw):
+    """Every h20 QP with state or terminal rows is mixed (the input-box
+    rows first, diagonal), in the port as in the JAX package, and K2 takes
+    its shape at the suite's R=5/refine 1."""
+    jc = jmpc.proceed_controller(
+        jqtp.linearized_discrete_system(), "model_predictive_control", 20, 5.0,
+        np.asarray(X_REF), np.asarray(U_REF), **kw,
+    )
+    tc = tmpc.proceed_controller(
+        tqtp.linearized_discrete_system(), "model_predictive_control", 20, 5.0,
+        X_REF, U_REF, device="cpu", **kw,
+    )
+    jop, top = jc.engine.op, tc.engine.op
+    assert (top.mixed_a, top.diag_a) == (bool(jop.mixed_a), bool(jop.diag_a)) == (True, False)
+    _bits_equal(jop.A_s, top.A_s, "A_s")
+    m, n = top.A_s.shape
+    assert admm_fused.k2_fits(n, m, 5, 1)

@@ -36,7 +36,7 @@ def test_fused_path_matches_frozen_golden(key):
     c = tmpc.proceed_controller(
         qtp.linearized_discrete_system(), "model_predictive_control",
         cfg["horizon"], 5.0, [0.65] * 4, [1.2] * 2,
-        mpc_R=cfg["R"], admm_config=_ADMM,
+        mpc_R=cfg["R"], admm_config=_ADMM, device="cpu",
     )
     assert c.engine.op.diag_a  # box-only: the K1 shape
     x0 = torch.tensor([cfg.get("x0", [0.6] * 4)], dtype=torch.float32)

@@ -16,7 +16,10 @@ def test_port_imports_without_jax():
         "import automationlabsmodelpredictivecontrol_jl_torch as m\n"
         "from automationlabsmodelpredictivecontrol_jl_torch import interop, parallel\n"
         "from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp\n"
-        "from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused\n"
+        "from automationlabsmodelpredictivecontrol_jl_torch.ops import _build, admm_fused, condense\n"
+        "from automationlabsmodelpredictivecontrol_jl_torch import terminal\n"
+        "from automationlabsmodelpredictivecontrol_jl_torch.utils import devices\n"
+        "assert callable(admm_fused.iterate_chunk_mixed_T) and callable(terminal.invariant_terminal_set)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('automationlabsmodelpredictivecontrol_jl_tpu'))\n"
         "assert not bad, bad\n"
