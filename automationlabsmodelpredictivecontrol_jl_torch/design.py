@@ -5,8 +5,9 @@ exactly as the JAX package does: the condensed QP matrices and the
 factorized ADMM KKT system. The finished controller is then moved to the
 device the caller names.
 
-Ported: the condensed linear branch. The Riccati, SQP, economic-MPC and
-MILP branches raise NotImplementedError naming their ROADMAP item.
+Ported: the condensed linear branch and the Riccati branch (the O(N)
+long-horizon engine). The SQP, economic-MPC and MILP branches raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from .ops import admm as admm_ops
+from .ops import riccati as riccati_ops
 from .ops.condense import CondensedQpData, condense_np
 from .solvers.registry import engine_for, resolve_solver
 from .systems import LinearDiscreteSystem, as_discrete
@@ -59,6 +61,37 @@ class LinearEngine(TensorRecord):
     op: admm_ops.AdmmOperator
     soft_mu: Optional[Tensor]
     config: admm_ops.AdmmConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class RiccatiEngine(TensorRecord):
+    """O(N) sparse engine: Riccati-factorized ADMM over the block-
+    tridiagonal KKT system (``ops/riccati.py``), the long-horizon path.
+    Selected by ``engine="riccati"``, or by "auto" at long horizons. The
+    engine keeps the user's config (auto rho stays None); the operator
+    resolves it against R."""
+
+    op: riccati_ops.RiccatiOperator
+    config: riccati_ops.RiccatiConfig
+
+
+# horizon at which engine="auto" switches the linear path from the
+# condensed O((N nu)^2) engine to the O(N) Riccati engine. The JAX
+# package's value, measured on a TPU v5e (QTP, B=2048-4096); kept so that
+# both packages design the same controller for the same arguments. It is
+# re-decided on the H100 once the port has its condensed general engine
+# (ROADMAP Queue 1, "Riccati engine").
+RICCATI_AUTO_HORIZON = 500
+
+
+def riccati_supported(terminal_kind: str, S, soft_state_penalty) -> bool:
+    """Feature gate of the sparse engine: no input-rate weight (S = 0), no
+    soft rows, a terminal kind that is a box or a ball per state block."""
+    if soft_state_penalty is not None:
+        return False
+    if terminal_kind not in ("none", "equality", "contractive"):
+        return False
+    return not np.any(np.asarray(S, np.float64) != 0.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +160,36 @@ def _linear_engine(
     return LinearEngine(qp=qp, op=op, soft_mu=soft_mu, config=admm_config)
 
 
+def _riccati_engine(
+    lin_system: LinearDiscreteSystem,
+    tuning: MpcTuning,
+    config: riccati_ops.RiccatiConfig,
+) -> RiccatiEngine:
+    """The factorized sparse engine, with deviation-space boxes around the
+    first reference point. Warm state: U (N nu,) and the duals (lamX,
+    lamU) ((N+1) nx + N nu,)."""
+    refs = tuning.references
+    nx = refs.x.shape[0]
+    x_ref0 = np.asarray(refs.x[:, 0], np.float64)
+    u_ref0 = np.asarray(refs.u[:, 0], np.float64)
+    if tuning.state_constraint:
+        x_lo = np.asarray(lin_system.X.lo, np.float64) - x_ref0
+        x_hi = np.asarray(lin_system.X.hi, np.float64) - x_ref0
+    else:
+        x_lo = np.full((nx,), -np.inf)
+        x_hi = np.full((nx,), np.inf)
+    op = riccati_ops.build_riccati_operator(
+        lin_system.A, lin_system.B, tuning.weights.Q, tuning.weights.R,
+        tuning.terminal.P, tuning.horizon, x_lo, x_hi,
+        np.asarray(lin_system.U.lo, np.float64) - u_ref0,
+        np.asarray(lin_system.U.hi, np.float64) - u_ref0,
+        tuning.state_constraint,
+        terminal_kind=tuning.terminal.kind,
+        config=config,
+    )
+    return RiccatiEngine(op=op, config=config)
+
+
 def design_controller(
     system: Any,
     horizon: int,
@@ -146,16 +209,18 @@ def design_controller(
     admm_config: Optional[admm_ops.AdmmConfig] = None,
     economic_cost: Optional[Any] = None,
     engine: str = "auto",
+    riccati_config: Optional[riccati_ops.RiccatiConfig] = None,
     device: Any = None,
 ) -> MpcController:
     """Design an MPC controller on the host and move it to ``device``
     (``None``: the card, raising where there is none; "cpu" only when
     named).
 
-    ``engine``: "condensed" (the ported engine) or "auto", which is the
-    condensed engine here: the JAX package's switch to its O(N) Riccati
-    engine at long horizons was measured on other hardware and is not
-    ported (ROADMAP Queue 1, "Riccati engine"). "riccati" raises.
+    ``engine``: "condensed" (dense condensed QP and factorized ADMM, the
+    short-horizon default), "riccati" (the O(N) Riccati-ADMM engine; needs
+    S = 0, hard constraints and a none/equality/contractive terminal), or
+    "auto": Riccati at ``horizon >= RICCATI_AUTO_HORIZON`` where it is
+    supported, condensed otherwise, as in the JAX package.
     """
     dev = resolve_device(device)  # before the design: no card, no work
     if economic_cost is not None:
@@ -177,10 +242,6 @@ def design_controller(
 
     if engine not in ("auto", "condensed", "riccati"):
         raise ValueError(f"unknown engine {engine!r}; available: auto|condensed|riccati")
-    if engine == "riccati":
-        raise NotImplementedError(
-            "the Riccati engine is not ported yet (ROADMAP Queue 1, 'Riccati engine')"
-        )
 
     nx, nu = sys_d.nx, sys_d.nu
     references = design_references(x_ref, u_ref, horizon)
@@ -197,10 +258,25 @@ def design_controller(
         solver_name=solver_name,
         state_constraint=bool(state_constraint),
     )
-    eng = _linear_engine(
-        sys_d, tuning, admm_config or admm_ops.AdmmConfig(), soft_state_penalty
+    use_riccati = engine == "riccati" or (
+        engine == "auto"
+        and horizon >= RICCATI_AUTO_HORIZON
+        and riccati_supported(terminal.kind, weights.S, soft_state_penalty)
     )
-    m, n = eng.op.A_s.shape
+    if use_riccati:
+        if not riccati_supported(terminal.kind, weights.S, soft_state_penalty):
+            raise ValueError(
+                "riccati engine requires S=0, hard constraints and a "
+                "none/equality/contractive terminal kind; use "
+                "engine='condensed' for this configuration"
+            )
+        eng = _riccati_engine(sys_d, tuning, riccati_config or riccati_ops.RiccatiConfig())
+        n, m = horizon * nu, (horizon + 1) * nx + horizon * nu
+    else:
+        eng = _linear_engine(
+            sys_d, tuning, admm_config or admm_ops.AdmmConfig(), soft_state_penalty
+        )
+        m, n = eng.op.A_s.shape
     return MpcController(
         system=sys_d,
         tuning=tuning,

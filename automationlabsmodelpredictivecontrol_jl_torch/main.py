@@ -39,7 +39,9 @@ def proceed_controller(
     is none: the CPU is used only when the caller names it. Solves then run
     on the device of their input tensors.
 
-    ``"model_predictive_control"``: quadratic tracking MPC.
+    ``"model_predictive_control"``: quadratic tracking MPC, on the condensed
+    engine or, with ``engine="riccati"`` or at long horizons, the Riccati
+    engine (``riccati_config=``).
     ``"economic_model_predictive_control"`` is not ported yet and raises
     NotImplementedError (ROADMAP Queue 1, 'Economic MPC and fuzzy control').
     """
@@ -59,7 +61,7 @@ def proceed_controller(
             "mpc_cost_function is only accepted with "
             "mpc_controller_type='economic_model_predictive_control'"
         )
-    for key in ("sqp_config", "riccati_config", "empc_config", "mpc_terminal_cost_function"):
+    for key in ("sqp_config", "empc_config", "mpc_terminal_cost_function"):
         if kws.get(key) is not None:
             raise NotImplementedError(
                 f"{key}: its engine is not ported yet (see ROADMAP Queue 1)"
@@ -93,6 +95,7 @@ def proceed_controller(
         ),
         admm_config=kws.get("admm_config"),
         engine=kws.get("engine", "auto"),
+        riccati_config=kws.get("riccati_config"),
         economic_cost=kws.get("mpc_cost_function"),
         device=device,
     )

@@ -100,6 +100,19 @@ def build_kernels(force: bool = False) -> str:
     return report
 
 
+# The parameters of each C entry of csrc/*.cu, in order: "p" a pointer
+# (the last one is the stream), "i" an int, "f" a float. Every entry
+# returns its cudaError_t as an int.
+SIGNATURES = {
+    "admm_diag_chunk": "p" * 17 + "i" * 5 + "ff" + "p",
+    "admm_mixed_chunk": "p" * 18 + "i" * 6 + "ff" + "p",
+    "riccati_admm_chunk": "p" * 30 + "i" * 9 + "p",
+    "riccati_rollout": "p" * 5 + "i" * 4 + "p",
+    "riccati_certificate": "p" * 15 + "i" * 7 + "p",
+}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
+
 def load_kernels() -> ctypes.CDLL:
     """The kernel library, built on first use, with every C signature set."""
     global _lib
@@ -107,10 +120,9 @@ def load_kernels() -> ctypes.CDLL:
         return _lib
     build_kernels()
     lib = ctypes.CDLL(LIB_PATH)
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.admm_diag_chunk.restype = ci
-    lib.admm_diag_chunk.argtypes = [vp] * 17 + [ci] * 5 + [cf, cf, vp]
-    lib.admm_mixed_chunk.restype = ci
-    lib.admm_mixed_chunk.argtypes = [vp] * 18 + [ci] * 6 + [cf, cf, vp]
+    for name, params in SIGNATURES.items():
+        entry = getattr(lib, name)
+        entry.restype = ctypes.c_int
+        entry.argtypes = [_CTYPES[c] for c in params]
     _lib = lib
     return lib

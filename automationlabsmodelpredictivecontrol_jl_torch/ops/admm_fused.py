@@ -20,7 +20,9 @@ between chunks, computes the exact unscaled residuals, applies the OSQP
 rho rule per lane, runs the NaN guard and freezes converged lanes.
 
 ``LAUNCHES`` counts each kernel's launches and ``PLAIN_CALLS`` the calls
-of each plain version, so a run can show which one did the work.
+of each plain version, so a run can show which one did the work. The
+registry also holds the Riccati path's kernels (``ops/riccati_fused.py``):
+K3 and the two recurrences of its driver, "rollout" and "certificate".
 """
 
 from __future__ import annotations
@@ -36,8 +38,8 @@ from ..utils.precision import assert_ieee_fp32
 
 Tensor = torch.Tensor
 
-LAUNCHES = {"K1": 0, "K2": 0}
-PLAIN_CALLS = {"K1": 0, "K2": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "rollout": 0, "certificate": 0}
+PLAIN_CALLS = dict(LAUNCHES)
 
 
 def reset_counts() -> None:
@@ -226,17 +228,17 @@ def _state_args(n, m, B, qT, lT, uT, idx, xT, sT, yT, axT):
     ]
 
 
-def _launch(kernel: str, entry: str, args, outs, ints, config):
-    """Call the C entry ``entry`` on the current stream; raise on a
-    non-zero cudaError_t, count the launch otherwise."""
+def _launch(kernel: str, entry: str, args, outs, ints, floats=()):
+    """Call the C entry ``entry`` with the tensors' pointers, ``ints`` and
+    ``floats`` on the current stream; raise on a non-zero cudaError_t,
+    count the launch otherwise."""
     dev = args[0][1].device
     lib = _build.load_kernels()
     with torch.cuda.device(dev):
         err = getattr(lib, entry)(
             *[t.data_ptr() for _, t, _, _ in args],
             *[o.data_ptr() for o in outs],
-            *ints, float(config.sigma), float(config.alpha),
-            torch.cuda.current_stream(dev).cuda_stream,
+            *ints, *floats, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{kernel} ({entry}) launch failed: cudaError_t {err}")
@@ -264,7 +266,8 @@ def _launch_k1(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config):
     ] + _state_args(n, n, B, qT, lT, uT, idx, xT, sT, yT, axT)
     _check_args("K1", args, qT.device)
     outs = [torch.empty_like(xT) for _ in range(4)]
-    return _launch("K1", "admm_diag_chunk", args, outs, (n, B, R, int(chunk), rs), config)
+    return _launch("K1", "admm_diag_chunk", args, outs, (n, B, R, int(chunk), rs),
+                   (float(config.sigma), float(config.alpha)))
 
 
 def _launch_k2(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config):
@@ -289,7 +292,8 @@ def _launch_k2(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config):
     ] + _state_args(n, m, B, qT, lT, uT, idx, xT, sT, yT, axT)
     _check_args("K2", args, qT.device)
     outs = [torch.empty_like(xT)] + [torch.empty_like(sT) for _ in range(3)]
-    return _launch("K2", "admm_mixed_chunk", args, outs, (n, m, B, R, int(chunk), rs), config)
+    return _launch("K2", "admm_mixed_chunk", args, outs, (n, m, B, R, int(chunk), rs),
+                   (float(config.sigma), float(config.alpha)))
 
 
 def _dispatch(kernel, launch, plain, args):

@@ -1,0 +1,495 @@
+"""Batched Riccati-ADMM on the fused kernel K3, and its driver.
+
+The counterpart of the JAX package's ``ops/riccati_pallas.py``: the
+long-horizon sparse MPC engine, whose w-update is an affine backward sweep
+and a forward rollout over the horizon with the factors of the current rho
+(``ops/riccati.py``).
+
+- :func:`iterate_chunk_riccati` runs ``chunk`` ADMM iterations on the
+  lane-last state, kernel K3 (``csrc/riccati_admm.cu``);
+- :func:`rollout` and :func:`certificate_terms` are the driver's two O(N)
+  recurrences (the warm and zero-input rollouts, once per solve; the
+  infeasibility certificate's adjoint recursion, every chunk), each a small
+  per-lane kernel in the same source, so that no Python loop over the
+  horizon runs between chunks;
+- :func:`solve_sparse_fused` is the driver: a Python loop over chunks that,
+  between chunks, computes the residuals, the certificate, the stall
+  escalation and the batch-global rho adaptation, and freezes converged
+  lanes.
+
+On a CUDA tensor each wrapper launches its kernel and raises if it cannot;
+on a CPU tensor it runs its plain PyTorch version, which forms the same
+sums in the same order. Launches and plain calls are counted in
+``admm_fused.LAUNCHES`` / ``PLAIN_CALLS`` under "K3", "rollout" and
+"certificate".
+
+The rho index is batch-global and stays on the device: the kernel takes
+the whole factor stacks and reads the index itself, where the JAX driver
+switches between compiled variants with ``lax.switch``. The JAX driver
+pads a batch above 128 lanes to a multiple of 128 with copies of its last
+lane, which then take part in the batch-global rho rule; the port does not
+pad.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from .admm_fused import LAUNCHES, PLAIN_CALLS, _check_args, _dispatch, _launch
+from .riccati import (
+    RiccatiConfig,
+    RiccatiOperator,
+    _initial_ridx,
+    ball_radius,
+    box_support,
+    dot64,
+    norm64,
+    project_X,
+    rollout_warm,
+)
+from ..types import (
+    STATUS_CONVERGED,
+    STATUS_MAX_ITER,
+    STATUS_NUMERIC_ERROR,
+    STATUS_PRIMAL_INFEASIBLE,
+)
+
+Tensor = torch.Tensor
+
+__all__ = [
+    "LAUNCHES", "PLAIN_CALLS", "MAX_NX", "MAX_NU", "k3_fits",
+    "iterate_chunk_riccati", "iterate_chunk_riccati_plain", "rollout",
+    "certificate_terms", "certificate_terms_plain", "solve_sparse_fused",
+]
+
+# the widest plant the kernels' register arrays take (csrc/riccati_admm.cu)
+MAX_NX, MAX_NU = 16, 8
+
+
+def k3_fits(op: RiccatiOperator) -> bool:
+    """Whether K3 (and the driver's recurrences) take this plant."""
+    return 1 <= op.nx <= MAX_NX and 1 <= op.nu <= MAX_NU
+
+
+def _grid_entry(op: RiccatiOperator, ridx: Tensor):
+    """The factors and the (rho, 1/rho, rho_t, 1/rho_t) row of the grid
+    entry ``ridx`` (1,), gathered on the device (no host read)."""
+    i = ridx.long()
+    f = op.factors
+    return f.K[i][0], f.G[i][0], f.AmBK[i][0], op.rho_tab[:, i]
+
+
+def iterate_chunk_riccati_plain(
+    op: RiccatiOperator,
+    ridx: Tensor,  # (1,) int32 grid index
+    e0T: Tensor,  # (nx, B)
+    ballr: Tensor,  # (B,)
+    vX: Tensor,  # (N+1, nx, B)
+    vU: Tensor,  # (N, nu, B)
+    lamX: Tensor,
+    lamU: Tensor,
+    chunk: int,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of K3, with a Python loop over the horizon:
+    the JAX kernel's iteration, each small product summed as
+    ``riccati.dot64`` does. Returns (X, U, vX, vU, lamX, lamU), out of
+    place."""
+    PLAIN_CALLS["K3"] += 1
+    N, nu = op.N, op.nu
+    K, G, AmBK, (rho, rho_inv, rho_t, rho_t_inv) = _grid_entry(op, ridx)
+    A, Bm = op.factors.A, op.factors.B
+    # products that share their vector are stacked (each row's sum is
+    # unchanged): [B'; (A - B K_k)'] g in the sweep, [K_k; A] e in the rollout
+    BtAmBKT = torch.cat([Bm.T.expand(N, -1, -1), AmBK.transpose(1, 2)], dim=1).double()
+    KA = torch.cat([K, A.expand(N, -1, -1)], dim=1).double()
+    G64, KT64, B64 = G.double(), K.transpose(1, 2).double(), Bm.double()
+    nrho = -rho
+    col = lambda v: v[:, None]
+    si, st = op.split_interior, op.split_terminal
+    split_x = si or st
+
+    vX, vU, lamX, lamU = vX.clone(), vU.clone(), lamX.clone(), lamU.clone()
+    # rows the engine never lets carry a dual: the fixed e_1 and, when only
+    # the terminal row is split, the interior rows
+    if not split_x:
+        lamX.zero_()
+    else:
+        lamX[0] = 0.0
+        if not si and N > 1:
+            lamX[1:N] = 0.0
+    for _ in range(int(chunk)):
+        # backward affine sweep
+        g = (-rho_t) * vX[N] + lamX[N] if st else torch.zeros_like(e0T)
+        ffs = [None] * N
+        for k in range(N - 1, -1, -1):
+            lu = nrho * vU[k] + lamU[k]
+            bg_ag = dot64(BtAmBKT[k], g)
+            ffs[k] = dot64(G64[k], bg_ag[:nu] + lu)
+            g = bg_ag[nu:] - dot64(KT64[k], lu)
+            if si and k >= 1:
+                g = g + (nrho * vX[k] + lamX[k])
+        # forward rollout
+        e, xs, us = e0T, [e0T], []
+        for k in range(N):
+            ke_ae = dot64(KA[k], e)
+            u = -ke_ae[:nu] - ffs[k]
+            e = ke_ae[nu:] + dot64(B64, u)
+            xs.append(e)
+            us.append(u)
+        X, U = torch.stack(xs), torch.stack(us)
+        # projections and dual ascent: U, the interior X, the terminal row
+        vU_new = torch.clamp(U + rho_inv * lamU, col(op.u_lo), col(op.u_hi))
+        lamU = lamU + rho * (U - vU_new)
+        vU = vU_new
+        if si and N > 1:
+            Xi = X[1:N]
+            vXi = torch.clamp(Xi + rho_inv * lamX[1:N], col(op.x_lo), col(op.x_hi))
+            lamX[1:N] = lamX[1:N] + rho * (Xi - vXi)
+            vX[1:N] = vXi
+        if op.terminal_ball:
+            w = X[N] + rho_inv * lamX[N]
+            nrm = norm64(w)
+            scale = torch.where(nrm > ballr, ballr / torch.clamp_min(nrm, 1e-30), 1.0)
+            v = w * scale
+            lamX[N] = lamX[N] + rho * (X[N] - v)
+            vX[N] = v
+        elif st:
+            v = torch.clamp(X[N] + rho_t_inv * lamX[N], col(op.xN_lo), col(op.xN_hi))
+            lamX[N] = lamX[N] + rho_t * (X[N] - v)
+            vX[N] = v
+    # rows that are not split mirror X, so the driver's residuals see none
+    if not split_x:
+        vX = X.clone()
+    else:
+        vX[0] = e0T
+        if not si and N > 1:
+            vX[1:N] = X[1:N]
+    return X, U, vX, vU, lamX, lamU
+
+
+def _shape_args(op: RiccatiOperator, B: int):
+    """The operator's arguments of the kernels, with their shapes."""
+    N, nx, nu = op.N, op.nx, op.nu
+    R = len(op.rho_grid)
+    f = torch.float32
+    fac = op.factors
+    return [
+        ("K", fac.K, (R, N, nu, nx), f),
+        ("G", fac.G, (R, N, nu, nu), f),
+        ("AmBK", fac.AmBK, (R, N, nx, nx), f),
+    ], [("A", fac.A, (nx, nx), f), ("B", fac.B, (nx, nu), f)], [
+        ("x_lo", op.x_lo, (nx,), f),
+        ("x_hi", op.x_hi, (nx,), f),
+        ("xN_lo", op.xN_lo, (nx,), f),
+        ("xN_hi", op.xN_hi, (nx,), f),
+        ("u_lo", op.u_lo, (nu,), f),
+        ("u_hi", op.u_hi, (nu,), f),
+    ]
+
+
+def _require_fits(kernel: str, op: RiccatiOperator) -> None:
+    if not k3_fits(op):
+        raise ValueError(
+            f"{kernel} takes nx <= {MAX_NX} and nu <= {MAX_NU}; nx={op.nx}, nu={op.nu}"
+        )
+
+
+def _flags(op: RiccatiOperator):
+    return (int(op.split_interior), int(op.split_terminal), int(op.terminal_ball))
+
+
+def _launch_k3(op, ridx, e0T, ballr, vX, vU, lamX, lamU, chunk):
+    _require_fits("K3", op)
+    if int(chunk) < 1:
+        raise ValueError(f"K3 runs at least one iteration; chunk={chunk}")
+    N, nx, nu = op.N, op.nx, op.nu
+    B = e0T.shape[1]
+    R = len(op.rho_grid)
+    f = torch.float32
+    stacks, plant, boxes = _shape_args(op, B)
+    args = stacks + plant + boxes + [
+        ("rho_tab", op.rho_tab, (4, R), f),
+        ("ridx", ridx, (1,), torch.int32),
+        ("e0T", e0T, (nx, B), f),
+        ("ballr", ballr, (B,), f),
+        ("vX", vX, (N + 1, nx, B), f),
+        ("vU", vU, (N, nu, B), f),
+        ("lamX", lamX, (N + 1, nx, B), f),
+        ("lamU", lamU, (N, nu, B), f),
+    ]
+    _check_args("K3", args, e0T.device)
+    # X, U, vX, vU, lamX, lamU, then the scratch: a second v/lam set that
+    # the iterations alternate with the outputs, and ffs
+    outs = [torch.empty_like(t) for t in (vX, vU) * 5 + (vU,)]
+    out = _launch(
+        "K3", "riccati_admm_chunk", args, outs, (N, nx, nu, B, R, int(chunk), *_flags(op))
+    )
+    return out[:6]
+
+
+def iterate_chunk_riccati(
+    op: RiccatiOperator,
+    ridx: Tensor,
+    e0T: Tensor,
+    ballr: Tensor,
+    vX: Tensor,
+    vU: Tensor,
+    lamX: Tensor,
+    lamU: Tensor,
+    chunk: int,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """``chunk`` Riccati-ADMM iterations of a batch, lane-last, at the
+    device-resident grid index ``ridx`` (1,) int32.
+
+    CUDA tensors launch K3 (``csrc/riccati_admm.cu``) and raise if it
+    cannot run; CPU tensors take the plain version. Returns (X, U, vX, vU,
+    lamX, lamU), out of place."""
+    return _dispatch(
+        "K3", _launch_k3, iterate_chunk_riccati_plain,
+        (op, ridx, e0T, ballr, vX, vU, lamX, lamU, chunk),
+    )
+
+
+def _rollout_plain(op, e0T, U):
+    PLAIN_CALLS["rollout"] += 1
+    return rollout_warm(op, e0T, U)
+
+
+def _launch_rollout(op, e0T, U):
+    _require_fits("the rollout kernel", op)
+    N, nx, nu = op.N, op.nx, op.nu
+    B = e0T.shape[1]
+    f = torch.float32
+    _, plant, _ = _shape_args(op, B)
+    args = plant + [("e0T", e0T, (nx, B), f), ("U", U, (N, nu, B), f)]
+    _check_args("rollout", args, e0T.device)
+    X = torch.empty((N + 1, nx, B), dtype=f, device=e0T.device)
+    return _launch("rollout", "riccati_rollout", args, [X], (N, nx, nu, B))[0]
+
+
+def rollout(op: RiccatiOperator, e0T: Tensor, U: Tensor) -> Tensor:
+    """X (N+1, nx, B) of the input plan U (N, nu, B) from e0T (nx, B):
+    the rollout kernel on a CUDA tensor, ``riccati.rollout_warm`` on a CPU
+    one."""
+    return _dispatch("rollout", _launch_rollout, _rollout_plain, (op, e0T, U))
+
+
+def certificate_terms_plain(op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ballr):
+    """Plain PyTorch version of the certificate kernel (the JAX driver's
+    ``infeas_cert`` up to its final comparisons): (3, B) rows max_k |r_k|,
+    the support value, max |dlam|."""
+    PLAIN_CALLS["certificate"] += 1
+    dlx = lamX_new - lamX_old
+    dlu = lamU_new - lamU_old
+    nu = op.nu
+    BtAt = torch.cat([op.factors.B.T, op.factors.A.T]).double()  # [B'; A'] g at once
+    g = dlx[op.N]
+    ortho = torch.zeros_like(ballr)
+    for k in range(op.N - 1, -1, -1):
+        bg_ag = dot64(BtAt, g)
+        ortho = torch.maximum(ortho, (bg_ag[:nu] + dlu[k]).abs().amax(0))
+        g = bg_ag[nu:] + dlx[k]
+    s_c = box_support(dlu, op.u_lo, op.u_hi)
+    if op.split_interior:
+        s_c = s_c + box_support(dlx[1:-1], op.x_lo, op.x_hi)
+    if op.terminal_ball:
+        s_c = s_c + ballr * norm64(dlx[-1])
+    elif op.split_terminal:
+        s_c = s_c + box_support(dlx[-1:], op.xN_lo, op.xN_hi)
+    support = s_c - (dlx.double() * Xbar.double()).sum(dim=(0, 1)).float()
+    dnorm = torch.maximum(dlx.abs().amax(dim=(0, 1)), dlu.abs().amax(dim=(0, 1)))
+    return torch.stack([ortho, support, dnorm])
+
+
+def _launch_certificate(op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ballr):
+    _require_fits("the certificate kernel", op)
+    N, nx, nu = op.N, op.nx, op.nu
+    B = ballr.shape[0]
+    f = torch.float32
+    _, plant, boxes = _shape_args(op, B)
+    args = plant + boxes + [
+        ("lamX_new", lamX_new, (N + 1, nx, B), f),
+        ("lamX_old", lamX_old, (N + 1, nx, B), f),
+        ("lamU_new", lamU_new, (N, nu, B), f),
+        ("lamU_old", lamU_old, (N, nu, B), f),
+        ("Xbar", Xbar, (N + 1, nx, B), f),
+        ("ballr", ballr, (B,), f),
+    ]
+    _check_args("certificate", args, ballr.device)
+    out = torch.empty((3, B), dtype=f, device=ballr.device)
+    return _launch(
+        "certificate", "riccati_certificate", args, [out], (N, nx, nu, B, *_flags(op))
+    )[0]
+
+
+def certificate_terms(
+    op: RiccatiOperator,
+    lamX_new: Tensor,
+    lamX_old: Tensor,
+    lamU_new: Tensor,
+    lamU_old: Tensor,
+    Xbar: Tensor,
+    ballr: Tensor,
+) -> Tensor:
+    """The primal-infeasibility certificate's terms of each lane, from the
+    dual deltas over a check block (the consensus splitting's version of
+    Banjac et al. 2019, as ``ops/riccati.py`` of the JAX package derives
+    it): (3, B) rows
+
+    - max_k |B' g_{k+1} + dlamU_k| along the adjoint recursion g_k = A' g_{k+1}
+      + dlamX_k from g_N = dlamX_N (orthogonality to the dynamics);
+    - S_C(dlam) - <dlamX, Xbar>, the box and ball support less the
+      zero-input rollout's term (separation);
+    - max |dlam|.
+
+    The certificate kernel on CUDA tensors, its plain version on CPU ones."""
+    return _dispatch(
+        "certificate", _launch_certificate, certificate_terms_plain,
+        (op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ballr),
+    )
+
+
+ChunkFn = Callable[..., Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]]
+
+
+def _lane_last(t: Tensor) -> Tensor:
+    return t.to(torch.float32).permute(1, 2, 0).contiguous()
+
+
+def _lane_first(t: Tensor) -> Tensor:
+    return t.permute(2, 0, 1).contiguous()
+
+
+def solve_sparse_fused(
+    op: RiccatiOperator,
+    e0s: Tensor,  # (B, nx)
+    warm_U: Optional[Tensor] = None,  # (B, N, nu)
+    warm_lam: Optional[Tuple[Tensor, Tensor]] = None,  # ((B, N+1, nx), (B, N, nu))
+    config: RiccatiConfig = RiccatiConfig(),
+    chunk_fn: Optional[ChunkFn] = None,
+):
+    """Batched sparse solves on K3, on the device of ``e0s``. Returns (X
+    (B, N+1, nx), U (B, N, nu), status (B,), iterations (B,), rp (B,), rd
+    (B,), (lamX, lamU)), as the JAX package's ``solve_sparse_fused``.
+    ``chunk_fn`` defaults to :func:`iterate_chunk_riccati`; its plain
+    version may be passed to re-solve on the card for comparison.
+
+    Between chunks: residuals, the per-lane certificate verdict, the stall
+    escalation and the OSQP rho rule, both batch-global, and the freezing
+    of finished lanes; one host read (all lanes done?) per chunk."""
+    fn = iterate_chunk_riccati if chunk_fn is None else chunk_fn
+    N, nu = op.N, op.nu
+    dev = e0s.device
+    B = e0s.shape[0]
+    f = torch.float32
+    R = len(op.rho_grid)
+    top = R - 1
+    adapt = int(config.adapt_interval or 0)
+    ck = max(1, int(config.check_interval))
+    split_x = op.split_interior or op.split_terminal
+    grid = op.rho_tab[0]  # (R,) float32
+    log_grid = torch.log(grid)
+    ulo, uhi = op.u_lo[:, None], op.u_hi[:, None]
+
+    e0T = e0s.to(f).T.contiguous()  # (nx, B)
+    ballr = ball_radius(op, e0T)
+    U0 = torch.zeros((N, nu, B), dtype=f, device=dev) if warm_U is None else _lane_last(warm_U)
+    X0 = rollout(op, e0T, U0)
+    if warm_lam is None:
+        lamX0 = torch.zeros_like(X0)
+        lamU0 = torch.zeros_like(U0)
+    else:
+        lamX0, lamU0 = (_lane_last(t) for t in warm_lam)
+    vX0 = project_X(op, X0, ballr)
+    vU0 = torch.clamp(U0, ulo, uhi)
+    # the zero-input rollouts: the certificate's anchor on the dynamics
+    Xbar = rollout(op, e0T, torch.zeros((N, nu, B), dtype=f, device=dev))
+
+    amax = lambda t: t.abs().amax(dim=(0, 1))
+    X, U, vX, vU, lamX, lamU = X0, U0, vX0, vU0, lamX0, lamU0
+    ridx = torch.full((1,), _initial_ridx(op, config), dtype=torch.int32, device=dev)
+    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
+    rp = torch.full((B,), float("inf"), dtype=f, device=dev)
+    rd = torch.full_like(rp, float("inf"))
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    stall = torch.zeros_like(iters)
+    bad = torch.zeros_like(done)
+    infeas = torch.zeros_like(done)
+    it = 0
+    while it < config.max_iter and not bool(done.all()):
+        vX_prev, vU_prev = vX, vU
+        rho = grid[ridx.long()]  # (1,)
+        Xn, Un, vXn, vUn, lamXn, lamUn = fn(op, ridx, e0T, ballr, vX, vU, lamX, lamU, ck)
+        keep = done[None, None, :]
+        Xn = torch.where(keep, X, Xn)
+        Un = torch.where(keep, U, Un)
+        vXn = torch.where(keep, vX, vXn)
+        vUn = torch.where(keep, vU, vUn)
+        lamXn = torch.where(keep, lamX, lamXn)
+        lamUn = torch.where(keep, lamU, lamUn)
+
+        rp2 = amax(Un - vUn)
+        rd2 = rho * amax(vUn - vU_prev)
+        if split_x:
+            rp2 = torch.maximum(amax(Xn - vXn), rp2)
+            rd2 = torch.maximum(rho * amax(vXn - vX_prev), rd2)
+        scale = torch.maximum(amax(Un), torch.clamp_min(amax(Xn), 1e-6))
+        tol = config.eps_abs + config.eps_rel * scale
+        finite = torch.isfinite(Un.sum(dim=(0, 1)) + Xn.sum(dim=(0, 1)))
+        # the per-lane certificate verdict; a stall only escalates rho
+        ortho, support, dnorm = certificate_terms(op, lamXn, lamX, lamUn, lamU, Xbar, ballr)
+        eps = config.eps_infeas
+        cert = (dnorm > 1e-9) & (ortho <= eps * dnorm) & (support <= -eps * dnorm) & ~done
+        stalled = (rp2 > 10.0 * tol) & ((rp - rp2).abs() <= 1e-3 * rp2)
+        stall_tmp = torch.where(done, stall, torch.where(stalled, stall + 1, 0))
+        esc = (~done & (stall_tmp >= config.stall_checks)).any() & (ridx < top)  # (1,)
+        stall = torch.where(esc, 0, stall_tmp)
+        bad = bad | (~finite & ~done)
+        infeas = infeas | cert
+        conv = (rp2 <= tol) & (rd2 <= tol * rho)
+        done2 = done | conv | ~finite | cert
+        iters = torch.where(done, iters, it + ck).to(torch.int32)
+
+        # batch-global rho adaptation (OSQP section 5.2): the mean normalized
+        # log-ratio over the lanes still active picks the next grid entry
+        ridx2 = ridx
+        if R > 1 and adapt and (it + ck) % adapt < ck:
+            prim_norm = torch.maximum(amax(Un), amax(vUn))
+            dual_norm = amax(lamUn)
+            if split_x:
+                prim_norm = torch.maximum(prim_norm, torch.maximum(amax(Xn), amax(vXn)))
+                dual_norm = torch.maximum(dual_norm, amax(lamXn))
+            ratio = (rp2 / torch.clamp_min(prim_norm, 1e-6)) / torch.clamp_min(
+                rd2 / torch.clamp_min(dual_norm, 1e-6), 1e-12
+            )
+            log_ratio = torch.log(torch.clamp(ratio, 1e-8, 1e8))
+            active = ~done2
+            n_act = torch.clamp_min(active.sum(), 1)
+            mean_lr = torch.where(active, log_ratio, 0.0).sum() / n_act
+            log_t = torch.log(rho) + 0.5 * mean_lr
+            ridx_t = torch.argmin((log_grid - log_t).abs()).to(torch.int32).view(1)
+            ridx2 = torch.where(active.any(), ridx_t, ridx)
+        # stall escalation wins the block over the adaptation rule
+        ridx = torch.where(esc, torch.clamp_max(ridx2 + 1, top), ridx2)
+
+        X, U, vX, vU, lamX, lamU = Xn, Un, vXn, vUn, lamXn, lamUn
+        rp, rd, done = rp2, rd2, done2
+        it += ck
+
+    status = torch.where(
+        bad,
+        STATUS_NUMERIC_ERROR,
+        torch.where(infeas, STATUS_PRIMAL_INFEASIBLE, torch.where(done, STATUS_CONVERGED, STATUS_MAX_ITER)),
+    ).to(torch.int32)
+    U_out = torch.clamp(U, ulo, uhi)
+    return (
+        _lane_first(X),
+        _lane_first(U_out),
+        status,
+        iters,
+        rp,
+        rd,
+        (_lane_first(lamX), _lane_first(lamU)),
+    )

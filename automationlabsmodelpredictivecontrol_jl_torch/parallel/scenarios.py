@@ -1,11 +1,12 @@
 """Batched scenario solves: many initial states, one controller.
 
 The port of the JAX package's ``parallel/scenarios.py`` for the condensed
-linear engine on one device:
+linear engine and the Riccati engine on one device:
 
 - :func:`solve_batch_fused` solves a batch on a fused kernel: K1 for a
   diagonal A (input boxes only), K2 for a mixed one (state-box or
-  terminal rows after the input boxes);
+  terminal rows after the input boxes), K3 for a Riccati engine (the
+  long-horizon sparse solve);
 - :func:`solve_batch_auto` routes a batch to the fused path wherever a
   kernel takes the shape (the vmapped general engine ``solve_batch`` is
   ROADMAP Queue 1, so other shapes raise NotImplementedError);
@@ -26,9 +27,9 @@ import numpy as np
 import torch
 
 from .. import native_qp
-from ..design import LinearEngine, MpcController
+from ..design import LinearEngine, MpcController, RiccatiEngine
 from ..ops import admm as admm_ops
-from ..ops import admm_fused
+from ..ops import admm_fused, riccati_fused
 from ..ops.condense import runtime_qp_vectors_batch
 from ..solvers.sqp import true_objective
 from ..types import (
@@ -106,16 +107,24 @@ def solve_batch_fused(
     x0s: Tensor,  # (B, nx)
     warm_z: Optional[Tensor] = None,  # (B, n)
     warm_y: Optional[Tensor] = None,  # (B, m)
-    chunk_fn: Optional[admm_fused.ChunkFn] = None,
+    chunk_fn: Optional[Callable] = None,
 ) -> Tuple[MpcSolution, Tensor, Tensor, BatchDiagnostics]:
-    """Batched linear-MPC solves on K1 or K2, on the device of ``x0s``.
+    """Batched linear-MPC solves on K1 or K2 (a condensed engine) or K3 (a
+    Riccati engine), on the device of ``x0s``.
 
-    Returns (solutions with a leading batch axis, next warm_z (shifted),
-    next warm_y (the raw dual), diagnostics). ``chunk_fn`` as in
-    ``ops.admm_fused.solve_batch_fused``. With a hard state constraint, a
-    lane whose x0 lies outside the state box reports
+    Returns (solutions with a leading batch axis, next warm_z, next
+    warm_y, diagnostics). For a condensed engine warm_z is the shifted
+    primal and warm_y the raw dual; for a Riccati engine both are shifted
+    receding-horizon carries (U; lamX, lamU). ``chunk_fn`` as in
+    ``ops.admm_fused.solve_batch_fused`` or
+    ``ops.riccati_fused.solve_sparse_fused``. With a hard state
+    constraint, a lane whose x0 lies outside the state box reports
     STATUS_PRIMAL_INFEASIBLE."""
     engine = controller.engine
+    if isinstance(engine, RiccatiEngine):
+        if warm_z is None or warm_y is None:
+            warm_z, warm_y = init_warm_batch(controller, x0s.shape[0])
+        return _solve_batch_fused_riccati(controller, x0s, warm_z, warm_y, chunk_fn)
     if not isinstance(engine, LinearEngine):
         raise ValueError("fused path requires a linear engine")
     if engine.soft_mu is not None:
@@ -161,14 +170,61 @@ def solve_batch_fused(
     return sol, wz_next, y, _diagnostics(sol)
 
 
+def _solve_batch_fused_riccati(
+    controller: MpcController,
+    x0s: Tensor,  # (B, nx)
+    warm_z: Tensor,  # (B, N*nu)
+    warm_y: Tensor,  # (B, (N+1)*nx + N*nu)
+    chunk_fn: Optional[Callable],
+) -> Tuple[MpcSolution, Tensor, Tensor, BatchDiagnostics]:
+    """Batched sparse solves on K3: the deviation shift, the x0-box
+    status, the objective, and the shifted warm carry of U, lamX, lamU."""
+    engine = controller.engine
+    op = engine.op
+    N, nx, nu = op.N, op.nx, op.nu
+    B = x0s.shape[0]
+    tuning = controller.tuning
+    refs = tuning.references
+    e0s = x0s - refs.x[:, 0][None]
+    lamX = warm_y[:, : (N + 1) * nx].reshape(B, N + 1, nx)
+    lamU = warm_y[:, (N + 1) * nx :].reshape(B, N, nu)
+    X, U, status, iters, rp, rd, (lamX_f, lamU_f) = riccati_fused.solve_sparse_fused(
+        op, e0s, warm_U=warm_z.reshape(B, N, nu), warm_lam=(lamX, lamU),
+        config=engine.config, chunk_fn=chunk_fn,
+    )
+    if tuning.state_constraint:
+        status = torch.where(
+            _x0_outside_state_box(controller, x0s), STATUS_PRIMAL_INFEASIBLE, status
+        ).to(torch.int32)
+    xs = X + refs.x.T[None]  # (B, N+1, nx)
+    us = U + refs.u.T[None]  # (B, N, nu)
+    sol = MpcSolution(
+        x=xs.transpose(1, 2),
+        e_x=X.transpose(1, 2),
+        u=us.transpose(1, 2),
+        e_u=U.transpose(1, 2),
+        status=status,
+        iterations=iters,
+        primal_residual=rp,
+        dual_residual=rd,
+        objective=true_objective(tuning, xs, us),
+    )
+    shift = lambda t: torch.cat([t[:, 1:], t[:, -1:]], dim=1).reshape(B, -1)
+    wy = torch.cat([shift(lamX_f), shift(lamU_f)], dim=1)
+    return sol, shift(U), wy, _diagnostics(sol)
+
+
 def fused_supported(controller: MpcController) -> bool:
     """The port's routing rule: fused wherever a kernel takes the shape. A
     linear engine without soft or ball rows whose operator is diagonal and
     fits K1, or mixed and fits K2 (shared memory, n <= 128, a dense tail of
-    at most 128 rows). The JAX package's bands were measured on other
-    hardware and are not copied; bands for this card come from its own A/B
-    runs."""
+    at most 128 rows). A Riccati engine whose plant K3 takes (nx <= 16,
+    nu <= 8). The JAX package's bands were measured on other hardware and
+    are not copied (it routes its Riccati engine to the vmapped engine);
+    bands for this card come from its own A/B runs."""
     eng = controller.engine
+    if isinstance(eng, RiccatiEngine):
+        return riccati_fused.k3_fits(eng.op)
     if not isinstance(eng, LinearEngine):
         return False
     op = eng.op
@@ -308,6 +364,12 @@ def solve_batch_escalated(
     stragglers; their iteration counts continue tier 1's. Stragglers beyond
     the bucket stay MAX_ITER for the host tier of make_escalated_solver.
     """
+    if isinstance(controller.engine, RiccatiEngine):
+        raise NotImplementedError(
+            "escalation of a Riccati engine: its tier 2 is the vmapped "
+            "per-lane engine solve_batch (solve_sparse), which is not ported "
+            "yet (ROADMAP Queue 1, 'Riccati engine'); use solve_batch_auto"
+        )
     B = x0s.shape[0]
     bucket = min(bucket, B)
     sol, wz, wy, _ = solve_batch_auto(controller, x0s, warm_z, warm_y)

@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's two kernel paths at full size, through the entry points
-a user calls (``proceed_controller(..., device=card)``, then ``parallel``):
+Drives the port's three kernel paths at full size, through the entry
+points a user calls (``proceed_controller(..., device=card)``, then
+``parallel``):
 
 - K1, the box-only main path: the QTP plant at horizon 20 (n = m = 40),
   16384 scenarios, tier 1 on the diagonal-A kernel K1 (rho grid (1, 10), no
@@ -16,7 +17,14 @@ a user calls (``proceed_controller(..., device=card)``, then ``parallel``):
   the default rho grid of 5 with one refinement step, 1000 iterations,
   2048 initial states 0.65 + 0.002 N(0, 1)) through ``solve_batch_auto``,
   and the state-constrained h20 controller on 2048 of bench.py's initial
-  states.
+  states;
+- K3, the long-horizon Riccati path: the QTP plant at horizon 500, where
+  ``engine="auto"`` designs the Riccati engine (benchmarks_suite.py config
+  6, ``RiccatiConfig(max_iter=1000)``), 1024 initial states
+  clip(0.65 + 0.1 N(0, 1), 0.3, 1.3) through ``solve_batch_auto``; the
+  same at horizon 50 over 4096 states (``engine="riccati"``); and a
+  1024-lane closed loop at h500. K3's driver runs two small per-lane
+  kernels of its own, the rollout and the certificate.
 
 Phases (any failure raises and exits non-zero):
 1. the card: its name, count, and power limit from nvidia-smi;
@@ -24,13 +32,14 @@ Phases (any failure raises and exits non-zero):
    the -Xptxas -v report is printed, the whole report is written to
    build/kernels/ptxas.txt), and the native oracle with g++, into build/;
 3. each kernel against its plain PyTorch version on the card at its
-   main-path shapes, with times from CUDA events;
+   main-path shapes (K3 at h500 and at one h50 shape per branch of the
+   kernel), with times from CUDA events;
 4. each path, with the launch counts set to 0 just before it and read
    just after, showing that it went through its kernel and never through
    a plain version;
 5. where the time goes in each path's cells (torch.profiler: device time
    per solve, the kernels' share of it, the card's idle share); then
-   re-solves of 256 lanes with the plain versions.
+   re-solves of 256 lanes with the plain versions (K3's at h50).
 
 The last two lines are the card's name and power limit, and
 {"ok": true, "device": {...}}; the line before them lists the kernels
@@ -48,18 +57,21 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "automationlabsmodelpredictivecontrol_jl_torch"
-TPU_OPS = "automationlabsmodelpredictivecontrol_jl_tpu/ops/admm_pallas.py"
+TPU_ADMM = "automationlabsmodelpredictivecontrol_jl_tpu/ops/admm_pallas.py"
+TPU_RICCATI = "automationlabsmodelpredictivecontrol_jl_tpu/ops/riccati_pallas.py"
 SHAPES_OK_REL = 1e-4  # kernel vs plain, relative to max(1, ||plain||_inf)
 U_OK = 5e-4  # plain re-solve vs kernel re-solve, absolute on u
-CONV_OK = 0.999  # in-program converged fraction of the h20 paths
+CONV_OK = 0.999  # in-program converged fraction of the h20 and h500 paths
 # the least time the card could take (H100 SXM data sheet): HBM bytes/s,
 # and fp64 operations/s on the tensor cores (67 TFLOP/s; the FMA units
 # give half); the kernels' work is fp64 multiply-adds
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 67e12
+FP32_OPS_PER_S = 67e12  # outside the tensor cores
 
 B_MAIN, BUCKET, B_CL, CL_STEPS = 16384, 512, 4096, 5
 B_SLICE, B_RESOLVE, REPS = 2048, 256, 20
+B_H500, B_H50, REPS_RICCATI = 1024, 4096, 10
 
 
 def log(**kv):
@@ -87,20 +99,24 @@ def ptxas_summary(report: str):
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            kind = "K2" if "mixed" in name else "K1"
+            kind = next(k for key, k in (
+                ("riccati_admm_chunk", "K3"), ("riccati_rollout", "K3 rollout"),
+                ("riccati_certificate", "K3 certificate"), ("mixed", "K2"), ("", "K1"),
+            ) if key in name)
             targs = re.findall(r"Li(\d+)E", name)
-            rows.append(dict(kernel=kind, rpt=[int(a) for a in targs],
+            rows.append(dict(kernel=kind, template=[int(a) for a in targs],
                              registers=int(m.group(1)), spill_bytes=spill))
             name, spill = None, 0
     return rows
 
 
-def cuda_ms(fn, reps=20):
-    """Mean milliseconds of fn() over reps launches after one warm-up,
+def cuda_ms(fn, reps=20, warm_up=True):
+    """Mean milliseconds of fn() over reps launches (after one warm-up),
     from CUDA events."""
     import torch
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -130,6 +146,15 @@ def suite_x0s(B):
     return 0.65 + 0.002 * rng.standard_normal((B, 4)).astype(np.float32)
 
 
+def suite6_x0s(B):
+    """benchmarks_suite.py config 6's initial states: default_rng(0),
+    clip(0.65 + 0.1 N(0, 1), 0.3, 1.3), shape (B, 4)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return np.clip(0.65 + 0.1 * rng.standard_normal((B, 4)), 0.3, 1.3).astype(np.float32)
+
+
 def chunk_bound(n, m, B, R, refine_steps, chunk, mixed):
     """Least milliseconds of one chunk on the card: each input read and
     each output written once (the operators once, q, l, u, idx and the
@@ -145,6 +170,137 @@ def chunk_bound(n, m, B, R, refine_steps, chunk, mixed):
     ops = 2 * macs * B * chunk
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP64_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def _bound(nbytes, fp64_ops, fp32_ops=0):
+    """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth and
+    the operations over their peaks."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = fp64_ops / FP64_OPS_PER_S + fp32_ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def riccati_chunk_bound(N, nx, nu, B, chunk, split_interior):
+    """Least milliseconds of one K3 chunk: the factors of one rho (K, G,
+    A - BK), A, B and the boxes, each lane's inputs (e0, ball radius, vX,
+    lamX, vU, lamU) and outputs (X, vX, lamX, U, vU, lamU) once over HBM,
+    against 2 operations per fp64 multiply-add of the sweep (B'g, G(.),
+    (A-BK)'g, K'lu) and the rollout (Ke, Ae, Bu) over the fp64 peak, plus
+    the fp32 elementwise steps (the linear terms, the projections and dual
+    ascent, the interior rows' terms when split) over the fp32 peak."""
+    factors = (nu * nx + nu * nu + nx * nx) * N + nx * nx + nx * nu + 4 * nx + 2 * nu + 4
+    lane = (nx + 1 + 2 * (N + 1) * nx + 2 * N * nu) + (3 * (N + 1) * nx + 3 * N * nu)
+    macs = (4 * nu * nx + nu * nu + 2 * nx * nx) * N
+    elementwise = (12 * nu + 2 * nx + (10 * nx if split_interior else 0)) * N + 8 * nx
+    return _bound(4 * (factors + lane * B), 2 * macs * B * chunk, elementwise * B * chunk)
+
+
+def rollout_bound(N, nx, nu, B):
+    """The rollout: A, B, e0 and U in, X out; A e and B u per step."""
+    nbytes = 4 * (nx * nx + nx * nu + (nx + N * nu + (N + 1) * nx) * B)
+    return _bound(nbytes, 2 * (nx * nx + nx * nu) * N * B, nx * N * B)
+
+
+def certificate_bound(N, nx, nu, B):
+    """The certificate: A, B, the boxes, lamX new/old and Xbar, lamU new/old
+    and the ball radius in, three values per lane out; the adjoint's B'g
+    and A'g and <dlamX, Xbar> per step, and its fp32 deltas, residuals and
+    support terms."""
+    nbytes = 4 * (nx * nx + nx * nu + 4 * nx + 2 * nu
+                  + (3 * (N + 1) * nx + 2 * N * nu + 1 + 3) * B)
+    macs = (nu * nx + nx * nx + nx) * N + 2 * nx
+    elementwise = (6 * nu + 6 * nx) * N
+    return _bound(nbytes, 2 * macs * B, elementwise * B)
+
+
+def _errors(outs_k, outs_p, tag):
+    """Max absolute and relative error, and the largest distance in fp32
+    ulps, of a kernel's outputs against its plain version's."""
+    import torch
+
+    abs_err, rel_err, ulps = 0.0, 0.0, 0
+    for a, b in zip(outs_k, outs_p):
+        if not bool(torch.isfinite(a).all()):
+            raise RuntimeError(f"{tag} produced non-finite values")
+        e = float((a - b).abs().max())
+        abs_err = max(abs_err, e)
+        rel_err = max(rel_err, e / max(1.0, float(b.abs().max())))
+        ulps = max(ulps, int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max()))
+    return abs_err, rel_err, ulps
+
+
+def riccati_inputs(ctrl, B, seed, x0s_fn):
+    """A chunk's inputs at a real shape: initial states from x0s_fn, the
+    ball radius they give, and a seeded state near the driver's start."""
+    import numpy as np
+    import torch
+
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati
+
+    op, dev = ctrl.engine.op, ctrl.device
+    x0s = torch.from_numpy(x0s_fn(B)).to(dev)
+    e0T = (x0s - ctrl.tuning.references.x[:, 0]).T.contiguous()
+    rng = np.random.default_rng(seed)
+    noise = lambda *shape: torch.from_numpy(
+        (0.05 * rng.standard_normal(shape)).astype(np.float32)
+    ).to(dev)
+    N, nx, nu = op.N, op.nx, op.nu
+    ridx = torch.tensor(
+        [riccati._initial_ridx(op, ctrl.engine.config)], dtype=torch.int32, device=dev
+    )
+    return (op, ridx, e0T, riccati.ball_radius(op, e0T), noise(N + 1, nx, B), noise(N, nu, B),
+            noise(N + 1, nx, B), noise(N, nu, B))
+
+
+def compare_k3(ctrl, branch, B, seed, x0s_fn, plain_reps):
+    """K3 against its plain version for one chunk at one shape, on the card."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati_fused
+
+    args = riccati_inputs(ctrl, B, seed, x0s_fn)
+    op = args[0]
+    chunk = int(ctrl.engine.config.check_interval)
+    args = args + (chunk,)
+    kernel, plain = riccati_fused.iterate_chunk_riccati, riccati_fused.iterate_chunk_riccati_plain
+    abs_err, rel_err, ulps = _errors(kernel(*args), plain(*args), "K3")
+    rec = dict(branch=branch, N=op.N, B=B, chunk=chunk, rho_index=int(args[1][0]),
+               split_interior=op.split_interior, terminal_ball=op.terminal_ball,
+               term_rho_scale=op.term_rho_scale, max_abs_err=abs_err, max_rel_err=rel_err,
+               max_ulps=ulps)
+    if rel_err > SHAPES_OK_REL:
+        raise RuntimeError(f"K3 disagrees with its plain version: {rec}")
+    rec["ms"] = cuda_ms(lambda: kernel(*args))
+    rec["plain_ms"] = cuda_ms(lambda: plain(*args), reps=plain_reps, warm_up=False)
+    rec["bound_ms"], rec["bound_by"] = riccati_chunk_bound(
+        op.N, op.nx, op.nu, B, chunk, op.split_interior
+    )
+    return rec
+
+
+def compare_recurrences(ctrl, B, seed, x0s_fn):
+    """The rollout and certificate kernels against their plain versions at
+    the cell's shape (the certificate on a chunk's worth of dual change)."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati_fused
+
+    op, _, e0T, ballr, _, vU, lamX, lamU = riccati_inputs(ctrl, B, seed, x0s_fn)
+    lamX2, lamU2 = lamX + 0.01 * lamX.flip(0), lamU - 0.02 * lamU.flip(0)
+    N, nx, nu = op.N, op.nx, op.nu
+    recs = []
+    for name, kernel, plain, args, bound in (
+        ("rollout", riccati_fused.rollout, riccati_fused._rollout_plain, (op, e0T, vU),
+         rollout_bound(N, nx, nu, B)),
+        ("certificate", riccati_fused.certificate_terms, riccati_fused.certificate_terms_plain,
+         (op, lamX2, lamX, lamU2, lamU, riccati_fused.rollout(op, e0T, vU), ballr),
+         certificate_bound(N, nx, nu, B)),
+    ):
+        abs_err, rel_err, ulps = _errors([kernel(*args)], [plain(*args)], name)
+        rec = dict(kernel=name, N=N, B=B, max_abs_err=abs_err, max_rel_err=rel_err, max_ulps=ulps)
+        if rel_err > SHAPES_OK_REL:
+            raise RuntimeError(f"the {name} kernel disagrees with its plain version: {rec}")
+        rec["ms"] = cuda_ms(lambda: kernel(*args))
+        rec["plain_ms"] = cuda_ms(lambda: plain(*args), reps=2, warm_up=False)
+        rec["bound_ms"], rec["bound_by"] = bound
+        recs.append(rec)
+    return recs
 
 
 def compare_kernel(ctrl, B, seed, x0s_fn):
@@ -242,10 +398,13 @@ def profile(fn, reps):
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-    ours = sum(e.time_range.elapsed_us() for e in dev if "admm_" in e.name) / 1e3
+    ours = [e for e in dev if "admm_" in e.name or "riccati_" in e.name]
+    k3 = sum(e.time_range.elapsed_us() for e in ours if "riccati_admm_chunk" in e.name) / 1e3
+    ours = sum(e.time_range.elapsed_us() for e in ours) / 1e3
     return dict(
         wall_ms_per_call=wall_ms / reps, device_ms_per_call=busy / reps,
-        port_kernels_ms_per_call=ours / reps, device_ops_per_call=len(dev) / reps,
+        port_kernels_ms_per_call=ours / reps, k3_ms_per_call=k3 / reps,
+        device_ops_per_call=len(dev) / reps,
         idle_share=1.0 - busy / wall_ms if dev else None,
     )
 
@@ -262,15 +421,13 @@ def check_solution(sol, B, N, tag):
         )
 
 
-def plain_resolve(parallel, admm_fused, ctrl, x0s, config):
+def plain_resolve(parallel, ctrl, x0s, config, plain_fn):
     """256 lanes solved with the kernel and with its plain version on the
     card: statuses equal and u within U_OK."""
     import torch
 
     s_k, _, _, _ = parallel.solve_batch_fused(ctrl, x0s)
-    s_p, _, _, _ = parallel.solve_batch_fused(
-        ctrl, x0s, chunk_fn=admm_fused.chunk_fn_for(ctrl.engine.op, plain=True)
-    )
+    s_p, _, _, _ = parallel.solve_batch_fused(ctrl, x0s, chunk_fn=plain_fn)
     du = float((s_k.u - s_p.u).abs().max())
     same = bool(torch.equal(s_k.status, s_p.status))
     log(phase="plain_resolve", config=config, lanes=int(x0s.shape[0]), max_abs_u_diff=du,
@@ -286,14 +443,15 @@ def kernel_entry(name, source, replaces, launches, shapes):
         "name": name,
         "route": "cuda",
         "source": f"{PKG}/csrc/{source}",
-        "replaces": f"{TPU_OPS}:{replaces}",
+        "replaces": replaces,
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
-        "library_ms": None,  # no single PyTorch call runs a 25-iteration ADMM chunk
+        # no single PyTorch call runs an ADMM chunk or a horizon recurrence
+        "library_ms": None,
         "shapes": shapes,
     }
 
@@ -308,10 +466,11 @@ def main():
     import torch
 
     from automationlabsmodelpredictivecontrol_jl_torch import native_qp, parallel
-    from automationlabsmodelpredictivecontrol_jl_torch import proceed_controller
+    from automationlabsmodelpredictivecontrol_jl_torch import RiccatiEngine, proceed_controller
     from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp
-    from automationlabsmodelpredictivecontrol_jl_torch.ops import _build, admm_fused
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import _build, admm_fused, riccati_fused
     from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig
+    from automationlabsmodelpredictivecontrol_jl_torch.ops.riccati import RiccatiConfig
     from automationlabsmodelpredictivecontrol_jl_torch.utils.devices import require_cuda
 
     # 1. the card
@@ -365,6 +524,28 @@ def main():
         if not (c.engine.op.mixed_a and parallel.fused_supported(c)):
             raise RuntimeError("the h20 row configs are expected to be mixed and fused")
 
+    # the K3 path's controllers: h500, where engine="auto" designs the
+    # Riccati engine, and h50 with engine="riccati" (suite config 6's
+    # RiccatiConfig); one h50 controller for each other branch of K3
+    long = lambda N, **kw: proceed_controller(
+        plant, "model_predictive_control", N, 5.0, [0.65] * 4, [1.2] * 2,
+        riccati_config=RiccatiConfig(max_iter=1000), device=dev, **kw,
+    )
+    ctrl_h500 = long(500)
+    ctrl_h50 = long(50, engine="riccati")
+    branches_h50 = {
+        "state": long(50, engine="riccati", mpc_state_constraint=True),
+        "contractive": long(50, engine="riccati", mpc_terminal_ingredient="contractive"),
+        "equality": long(50, engine="riccati", mpc_terminal_ingredient="equality"),
+    }
+    for c in (ctrl_h500, ctrl_h50, *branches_h50.values()):
+        if not (isinstance(c.engine, RiccatiEngine) and parallel.fused_supported(c)):
+            raise RuntimeError("the long-horizon controllers are expected on K3")
+    ops = {k: c.engine.op for k, c in branches_h50.items()}
+    if not (ops["state"].split_interior and ops["contractive"].terminal_ball
+            and ops["equality"].term_rho_scale == 100.0):
+        raise RuntimeError("the h50 controllers are expected to take K3's three branches")
+
     # 3. each kernel against its plain version at its main-path shapes
     k1_shapes = [compare_kernel(ctrl, B_MAIN, 1, bench_x0s),
                  compare_kernel(fb, BUCKET, 2, bench_x0s)]
@@ -377,6 +558,16 @@ def main():
     k2_shapes.append(compare_kernel(fb_sc, BUCKET, 7, bench_x0s))
     for rec in k2_shapes:
         log(phase="k2_vs_plain", **rec)
+    # K3 at the h500 cell's shape (plain timed once: ~10^6 small launches)
+    # and at h50 on each other branch; the driver's two recurrences at h500
+    k3_shapes = [compare_k3(ctrl_h500, "none", B_H500, 8, suite6_x0s, plain_reps=1)]
+    k3_shapes += [compare_k3(c, k, B_H500, 9 + i, suite6_x0s, plain_reps=2)
+                  for i, (k, c) in enumerate(branches_h50.items())]
+    for rec in k3_shapes:
+        log(phase="k3_vs_plain", **rec)
+    rollout_rec, cert_rec = compare_recurrences(ctrl_h500, B_H500, 13, suite6_x0s)
+    for rec in (rollout_rec, cert_rec):
+        log(phase="k3_driver_vs_plain", **rec)
 
     # 4a. the K1 path, counted from zero
     x0s = torch.from_numpy(bench_x0s(B_MAIN)).to(dev)
@@ -472,6 +663,56 @@ def main():
         if rec["converged_fraction"] < CONV_OK:
             raise RuntimeError(f"slice convergence too low: {rec}")
 
+    # 4c. the K3 path, counted from zero: the h500 cell and the h50 cell
+    # through solve_batch_auto, then a closed loop at h500
+    x_h500 = torch.from_numpy(suite6_x0s(B_H500)).to(dev)
+    x_h50 = torch.from_numpy(suite6_x0s(B_H50)).to(dev)
+    admm_fused.reset_counts()
+    ricc_recs = {}
+    for cell, c, x in (("riccati-h500-B1024", ctrl_h500, x_h500),
+                       ("riccati-h50-B4096", ctrl_h50, x_h50)):
+        B = int(x.shape[0])
+        before = admm_fused.LAUNCHES["K3"]
+        (sol_r, _, _, diag_r), lat = timed(
+            lambda c=c, x=x: parallel.solve_batch_auto(c, x), REPS_RICCATI
+        )
+        check_solution(sol_r, B, c.engine.op.N, cell)
+        rec = dict(
+            phase="riccati", cell=cell, B=B, N=c.engine.op.N,
+            converged_fraction=int(diag_r.n_converged) / B,
+            n_max_iter=int(diag_r.n_max_iter), n_infeasible=int(diag_r.n_infeasible),
+            mean_iterations=float(diag_r.mean_iterations),
+            max_iterations=int(diag_r.max_iterations), solves=len(lat),
+            batch_p50_ms=float(np.percentile(lat, 50)) * 1e3,
+            batch_p99_ms=float(np.percentile(lat, 99)) * 1e3,
+            solves_per_s=B / float(np.median(lat)),
+            k3_launches_per_solve=(admm_fused.LAUNCHES["K3"] - before) / (REPS_RICCATI + 1),
+        )
+        log(**rec)
+        ricc_recs[cell] = rec
+
+    t0 = time.perf_counter()
+    xs_r, _, st_r = parallel.closed_loop_batch(ctrl_h500, qtp.qtp_discrete_step, x_h500, CL_STEPS)
+    torch.cuda.synchronize()
+    t_clr = time.perf_counter() - t0
+    if not bool(torch.isfinite(xs_r).all()) or tuple(xs_r.shape) != (CL_STEPS + 1, B_H500, 4):
+        raise RuntimeError("the h500 closed loop produced non-finite or misshapen states")
+    log(phase="closed_loop", cell="riccati-h500-closed-loop", lanes=B_H500, steps=CL_STEPS,
+        converged_step_fraction=float((st_r == 0).float().mean()),
+        steps_per_s=B_H500 * CL_STEPS / t_clr, seconds=t_clr)
+
+    k3_counts = {k: admm_fused.LAUNCHES[k] for k in ("K3", "rollout", "certificate")}
+    plain_k3 = dict(admm_fused.PLAIN_CALLS)
+    log(phase="counts", path="K3", launches=k3_counts,
+        k1_k2_launches=[admm_fused.LAUNCHES["K1"], admm_fused.LAUNCHES["K2"]],
+        plain_calls=plain_k3)
+    if min(k3_counts.values()) <= 0:
+        raise RuntimeError(f"the K3 path left a kernel unlaunched: {k3_counts}")
+    if any(plain_k3.values()):
+        raise RuntimeError("the K3 path ran a plain version")
+    if ricc_recs["riccati-h500-B1024"]["converged_fraction"] < CONV_OK:
+        raise RuntimeError(f"h500 convergence too low: {ricc_recs['riccati-h500-B1024']}")
+
     # where the time goes in each cell (after the counts: these launches
     # are not the paths' runs)
     for cell, fn, reps in (
@@ -479,18 +720,39 @@ def main():
         ("suite-equality-B2048", lambda: parallel.solve_batch_auto(ctrl_eq, x_suite), 5),
         ("suite-neighborhood-B2048", lambda: parallel.solve_batch_auto(ctrl_nb, x_suite), 5),
         ("state-constrained-B2048", lambda: parallel.solve_batch_auto(ctrl_sc, x_bench), 2),
+        ("riccati-h500-B1024", lambda: parallel.solve_batch_auto(ctrl_h500, x_h500), 3),
+        ("riccati-h50-B4096", lambda: parallel.solve_batch_auto(ctrl_h50, x_h50), 3),
     ):
-        log(phase="profile", cell=cell, reps=reps, **profile(fn, reps))
+        rec = profile(fn, reps)
+        if cell in ricc_recs:  # the driver's device operations around each K3 launch
+            rec["device_ops_per_chunk"] = (
+                rec["device_ops_per_call"] / ricc_recs[cell]["k3_launches_per_solve"]
+            )
+        log(phase="profile", cell=cell, reps=reps, **rec)
 
     # 256 lanes of each path re-solved with the kernel and with its plain
     # version on the card
-    plain_resolve(parallel, admm_fused, ctrl, x0s[:B_RESOLVE], "K1 tier1")
-    plain_resolve(parallel, admm_fused, fb, x0s[:B_RESOLVE], "K1 tier2")
-    plain_resolve(parallel, admm_fused, ctrl_sc, x_bench[:B_RESOLVE], "K2 state-constrained")
+    plain_resolve(parallel, ctrl, x0s[:B_RESOLVE], "K1 tier1",
+                  admm_fused.chunk_fn_for(ctrl.engine.op, plain=True))
+    plain_resolve(parallel, fb, x0s[:B_RESOLVE], "K1 tier2",
+                  admm_fused.chunk_fn_for(fb.engine.op, plain=True))
+    plain_resolve(parallel, ctrl_sc, x_bench[:B_RESOLVE], "K2 state-constrained",
+                  admm_fused.chunk_fn_for(ctrl_sc.engine.op, plain=True))
+    plain_resolve(parallel, ctrl_h50, x_h50[:B_RESOLVE], "K3 h50",
+                  riccati_fused.iterate_chunk_riccati_plain)
 
     print(json.dumps({"kernels": [
-        kernel_entry("admm_diag_chunk (K1)", "admm_diag.cu", 348, k1_launches, k1_shapes),
-        kernel_entry("admm_mixed_chunk (K2)", "admm_mixed.cu", 580, k2_launches, k2_shapes),
+        kernel_entry("admm_diag_chunk (K1)", "admm_diag.cu", f"{TPU_ADMM}:348",
+                     k1_launches, k1_shapes),
+        kernel_entry("admm_mixed_chunk (K2)", "admm_mixed.cu", f"{TPU_ADMM}:580",
+                     k2_launches, k2_shapes),
+        kernel_entry("riccati_admm_chunk (K3)", "riccati_admm.cu", f"{TPU_RICCATI}:60",
+                     k3_counts["K3"], k3_shapes),
+        # the driver's rollouts and certificate recursion (lax.scan there)
+        kernel_entry("riccati_rollout (K3 driver)", "riccati_admm.cu", f"{TPU_RICCATI}:352",
+                     k3_counts["rollout"], [rollout_rec]),
+        kernel_entry("riccati_certificate (K3 driver)", "riccati_admm.cu",
+                     f"{TPU_RICCATI}:384", k3_counts["certificate"], [cert_rec]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

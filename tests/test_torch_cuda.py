@@ -1,4 +1,5 @@
-"""K1 and K2 on the card: each CUDA kernel against its plain PyTorch version.
+"""K1, K2 and K3 on the card: each CUDA kernel against its plain PyTorch
+version.
 
 Marked ``cuda``; each test decides in a fixture whether a card is present
 and skips otherwise. Needs no JAX, so on a machine with a card and without
@@ -15,7 +16,7 @@ import torch
 
 from automationlabsmodelpredictivecontrol_jl_torch import parallel, proceed_controller
 from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp
-from automationlabsmodelpredictivecontrol_jl_torch.ops import _build, admm_fused
+from automationlabsmodelpredictivecontrol_jl_torch.ops import _build, admm_fused, riccati, riccati_fused
 from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig
 from automationlabsmodelpredictivecontrol_jl_torch.ops.condense import runtime_qp_vectors_batch
 
@@ -172,3 +173,88 @@ def test_wrapper_checks_inputs(controllers):
     args[4] = args[4].long()  # idx must be int32
     with pytest.raises(ValueError):
         admm_fused.iterate_chunk_diag_T(*args)
+
+
+RICCATI_BRANCHES = {
+    "none": dict(),
+    "state": dict(mpc_state_constraint=True),
+    "contractive": dict(mpc_terminal_ingredient="contractive"),
+    "equality": dict(mpc_terminal_ingredient="equality"),
+}
+
+
+@pytest.fixture(scope="module")
+def riccati_controllers(card):
+    """h12 Riccati controllers on the card, one per branch of K3."""
+    return {
+        k: proceed_controller(
+            qtp.linearized_discrete_system(), "model_predictive_control", 12, 5.0,
+            [0.65] * 4, [1.2] * 2, engine="riccati", device=card, **kw,
+        )
+        for k, kw in RICCATI_BRANCHES.items()
+    }
+
+
+def _riccati_args(ctrl, B, seed):
+    op = ctrl.engine.op
+    dev = ctrl.device
+    rng = np.random.default_rng(seed)
+    t = lambda *shape: torch.from_numpy((0.05 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+    e0T = 2.0 * t(4, B)
+    ridx = torch.tensor([int(rng.integers(0, len(op.rho_grid)))], dtype=torch.int32, device=dev)
+    ballr = riccati.ball_radius(op, e0T)
+    N = op.N
+    return op, ridx, e0T, ballr, t(N + 1, 4, B), t(N, 2, B), t(N + 1, 4, B), t(N, 2, B)
+
+
+@pytest.mark.parametrize("branch", list(RICCATI_BRANCHES))
+@pytest.mark.parametrize("B", [1024, 77])
+def test_k3_matches_plain_version(riccati_controllers, branch, B):
+    """K3 and its plain version form the same fp64 sums in the same order
+    and round the same way: equal to the last bit."""
+    op, ridx, e0T, ballr, vX, vU, lamX, lamU = _riccati_args(riccati_controllers[branch], B, B)
+    args = (op, ridx, e0T, ballr, vX, vU, lamX, lamU, 25)
+    launches, plain = admm_fused.LAUNCHES["K3"], admm_fused.PLAIN_CALLS["K3"]
+    out_k = riccati_fused.iterate_chunk_riccati(*args)
+    torch.cuda.synchronize()
+    assert admm_fused.LAUNCHES["K3"] == launches + 1
+    assert admm_fused.PLAIN_CALLS["K3"] == plain
+    out_p = riccati_fused.iterate_chunk_riccati_plain(*args)
+    for name, a, b in zip(("X", "U", "vX", "vU", "lamX", "lamU"), out_k, out_p):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        assert float((a - b).abs().max()) == 0.0, name
+
+
+def test_recurrence_kernels_match_plain_versions(riccati_controllers):
+    for branch, ctrl in riccati_controllers.items():
+        op, _, e0T, ballr, lamX0, lamU0, lamX1, lamU1 = _riccati_args(ctrl, 300, 5)
+        X = riccati_fused.rollout(op, e0T, lamU1)
+        torch.cuda.synchronize()
+        assert torch.equal(X, riccati.rollout_warm(op, e0T, lamU1)), branch
+        terms = riccati_fused.certificate_terms(op, lamX1, lamX0, lamU1, lamU0, X, ballr)
+        want = riccati_fused.certificate_terms_plain(op, lamX1, lamX0, lamU1, lamU0, X, ballr)
+        # the adjoint and max|dlam| in the same order; the support's long
+        # fp64 sums in another order, each rounded once
+        assert torch.equal(terms[0], want[0]) and torch.equal(terms[2], want[2]), branch
+        finite = torch.isfinite(want[1])
+        assert torch.equal(torch.isfinite(terms[1]), finite), branch
+        err = (terms[1][finite] - want[1][finite]).abs()
+        assert bool((err <= 1e-6 * want[1][finite].abs().clamp_min(1.0)).all()), branch
+
+
+def test_riccati_solve_auto_launches_k3(riccati_controllers):
+    """A Riccati controller through solve_batch_auto: K3 and both
+    recurrence kernels launch, no plain version runs, and the result
+    agrees with the same solve on the CPU."""
+    ctrl = riccati_controllers["state"]
+    rng = np.random.default_rng(0)
+    x0 = torch.from_numpy(np.clip(0.65 + 0.1 * rng.standard_normal((256, 4)), 0.3, 1.3).astype(np.float32))
+    launches, plain = dict(admm_fused.LAUNCHES), dict(admm_fused.PLAIN_CALLS)
+    s_gpu, _, _, d_gpu = parallel.solve_batch_auto(ctrl, x0.to(ctrl.device))
+    torch.cuda.synchronize()
+    for key in ("K3", "rollout", "certificate"):
+        assert admm_fused.LAUNCHES[key] > launches[key], key
+    assert admm_fused.PLAIN_CALLS == plain
+    s_cpu, _, _, d_cpu = parallel.solve_batch_auto(ctrl.to("cpu"), x0)
+    assert torch.equal(s_gpu.status.cpu(), s_cpu.status)
+    np.testing.assert_allclose(s_gpu.u.cpu().numpy(), s_cpu.u.numpy(), atol=5e-4)

@@ -141,10 +141,17 @@ def test_escalation_operator_bitwise(pair):
 
 
 def test_unported_branches_raise():
+    """Engines not ported yet raise NotImplementedError (the Riccati engine
+    is ported: tests/test_torch_riccati.py)."""
     sys = tqtp.linearized_discrete_system()
     with pytest.raises(NotImplementedError):
         tmpc.proceed_controller(
-            sys, "model_predictive_control", 5, 5.0, X_REF, U_REF, engine="riccati",
+            sys, "economic_model_predictive_control", 5, 5.0, X_REF, U_REF,
+            mpc_cost_function=lambda x, u: 0.0, device="cpu",
+        )
+    with pytest.raises(NotImplementedError):
+        tmpc.proceed_controller(
+            sys, "model_predictive_control", 5, 5.0, X_REF, U_REF, sqp_config=object(),
             device="cpu",
         )
     with pytest.raises(ValueError):

@@ -1,8 +1,8 @@
 """The port's fused path against the frozen f64 goldens
 (tests/golden/qtp_golden.npz): the box-only configs, whose QP the
-diagonal-A kernel K1 takes. On the CPU the fused path runs K1's plain
-version; the bar is the JAX package's own for its fused kernels, 2e-4
-(tests/test_golden_parity.py)."""
+diagonal-A kernel K1 takes, and the Riccati engine's rows on K3. On the
+CPU the fused path runs the kernels' plain versions; the bar is the JAX
+package's own for its fused kernels, 2e-4 (tests/test_golden_parity.py)."""
 
 import json
 import os
@@ -17,6 +17,7 @@ import automationlabsmodelpredictivecontrol_jl_torch as tmpc
 from automationlabsmodelpredictivecontrol_jl_torch import parallel
 from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp
 from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig
+from automationlabsmodelpredictivecontrol_jl_torch.ops.riccati import RiccatiConfig
 
 torch.set_num_threads(1)
 
@@ -45,5 +46,38 @@ def test_fused_path_matches_frozen_golden(key):
     np.testing.assert_allclose(
         sol.u[0].numpy().T, _GOLDEN[key + "__u"], atol=2e-4,
         err_msg=f"{key}: fused path drifted off the frozen golden",
+    )
+    np.testing.assert_allclose(sol.x[0].numpy().T, _GOLDEN[key + "__x"], atol=5e-4)
+
+
+# the rows the JAX package holds its Riccati engine to (tests/
+# test_golden_parity.py, _RICCATI_OK): h5 with no terminal, and the
+# equality terminal at R=0.1 near the reference
+_RICCATI_OK = [
+    k for k, c in _META.items() if c["status"] == 0 and c["horizon"] == 5 and (
+        c["terminal"] == "none" or (c["terminal"] == "equality" and c["R"] == 0.1)
+    )
+]
+_RICC = RiccatiConfig(max_iter=20000, eps_abs=1e-6, eps_rel=1e-6)
+
+
+@pytest.mark.parametrize("key", _RICCATI_OK)
+def test_riccati_fused_path_matches_frozen_golden(key):
+    """The Riccati engine through the port's fused path (K3's plain version
+    on the CPU), batch of one, at the fused bar."""
+    cfg = _META[key]
+    c = tmpc.proceed_controller(
+        qtp.linearized_discrete_system(), "model_predictive_control",
+        cfg["horizon"], 5.0, [0.65] * 4, [1.2] * 2, engine="riccati",
+        mpc_terminal_ingredient=cfg["terminal"], mpc_R=cfg["R"], riccati_config=_RICC,
+        device="cpu", **({"mpc_state_constraint": True} if cfg["state_constraint"] else {}),
+    )
+    assert isinstance(c.engine, tmpc.RiccatiEngine)
+    x0 = torch.tensor([cfg.get("x0", [0.6] * 4)], dtype=torch.float32)
+    sol, _, _, diag = parallel.solve_batch_fused(c, x0)
+    assert int(sol.status[0]) == 0 and int(diag.n_converged) == 1
+    np.testing.assert_allclose(
+        sol.u[0].numpy().T, _GOLDEN[key + "__u"], atol=2e-4,
+        err_msg=f"{key}: the fused Riccati path drifted off the frozen golden",
     )
     np.testing.assert_allclose(sol.x[0].numpy().T, _GOLDEN[key + "__x"], atol=5e-4)
