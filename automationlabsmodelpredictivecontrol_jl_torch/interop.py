@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .design import LinearEngine, MpcController, MpcTuning, RiccatiEngine
-from .ops.admm import AdmmConfig, AdmmOperator
+from .ops.admm import AdmmConfig, AdmmOperator, packed_kia
 from .ops.condense import CondensedQpData
 from .ops.riccati import RiccatiConfig, RiccatiFactors, RiccatiOperator, rho_table
 from .types import References, TerminalIngredient, Weights
@@ -80,7 +80,9 @@ def controller_from_numpy(
 
     - ``qp``: the ``CondensedQpData`` fields (arrays, and N, nx, nu,
       n_ball, ball_radius_sq_factor); None for a Riccati engine;
-    - ``op``: the ``AdmmOperator`` fields, with diag_a, mixed_a, n_ball;
+    - ``op``: the ``AdmmOperator`` fields, with diag_a, mixed_a, n_ball
+      (``kia`` may be left out: it is formed here for a dense operator,
+      one whose rows are not box-first);
       or, for a Riccati engine, the ``RiccatiOperator`` fields: its
       ``factors`` (K, G, AmBK, A, B), bounds, flags, rho_grid, rho0 and
       term_rho_scale;
@@ -120,6 +122,7 @@ def controller_from_numpy(
         ops = {k: (int(v) if k == "n_ball" else v) for k, v in op.items()}
         ops["diag_a"] = bool(op["diag_a"])
         ops["mixed_a"] = bool(op["mixed_a"])
+        ops.setdefault("kia", None)
         cfg = AdmmConfig(
             **{
                 k: (tuple(float(r) for r in v) if k == "rho_grid" else v)
@@ -127,6 +130,8 @@ def controller_from_numpy(
             }
         )
         operator = _record(AdmmOperator, ops)
+        if operator.dense_a and operator.kia is None:
+            operator = operator.replace(kia=packed_kia(operator.K_invs, operator.A_s))
         m, n = operator.A_s.shape
         engine = LinearEngine(
             qp=_record(CondensedQpData, qp), op=operator, soft_mu=None, config=cfg

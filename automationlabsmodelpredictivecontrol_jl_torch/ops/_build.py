@@ -106,6 +106,8 @@ def build_kernels(force: bool = False) -> str:
 SIGNATURES = {
     "admm_diag_chunk": "p" * 17 + "i" * 5 + "ff" + "p",
     "admm_mixed_chunk": "p" * 18 + "i" * 6 + "ff" + "p",
+    "admm_dense_packed_chunk": "p" * 18 + "i" * 6 + "ff" + "p",
+    "admm_dense_perr_chunk": "p" * 17 + "i" * 6 + "ff" + "p",
     "riccati_admm_chunk": "p" * 30 + "i" * 9 + "p",
     "riccati_rollout": "p" * 5 + "i" * 4 + "p",
     "riccati_certificate": "p" * 15 + "i" * 7 + "p",

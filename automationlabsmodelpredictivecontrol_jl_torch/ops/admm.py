@@ -18,6 +18,7 @@ run on the fused kernel (``ops/admm_fused.py``).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -74,6 +75,22 @@ class AdmmOperator(TensorRecord):
     diag_a: bool = False
     # first n rows diagonal, the rest dense (state / terminal rows)
     mixed_a: bool = False
+    # (R, n, m) K_r^-1 A_s' of a dense operator (neither diagonal nor mixed,
+    # no ball rows), for the packed dense kernel K4; None otherwise
+    kia: Optional[Tensor] = None
+
+    @property
+    def dense_a(self) -> bool:
+        """Neither diagonal nor mixed, and no ball rows: the dense kernels'
+        operator (K4/K5, ``ops/admm_fused.py``)."""
+        return self.n_ball == 0 and not self.diag_a and not self.mixed_a
+
+
+def packed_kia(K_invs: Tensor, A_s: Tensor) -> Tensor:
+    """K_r^-1 A_s' for every rho of the grid, (R, n, m): fp64 sums of the
+    stored fp32 entries, rounded once to fp32. Built once per operator
+    (the JAX package forms it at fp32 HIGHEST on every chunk)."""
+    return (K_invs.double() @ A_s.double().T).float()
 
 
 def _ruiz_equilibrate(P: np.ndarray, A: np.ndarray, n_ball: int, iters: int):
@@ -159,7 +176,7 @@ def build_operator(
         and top is not None
         and np.count_nonzero(top - np.diag(np.diag(top))) == 0
     )
-    return AdmmOperator(
+    op = AdmmOperator(
         P_s=f32(P_s),
         A_s=f32(A_s),
         Ks=f32(np.stack(Ks)),
@@ -174,3 +191,6 @@ def build_operator(
         diag_a=diag_a,
         mixed_a=mixed_a,
     )
+    if op.dense_a:
+        op = op.replace(kia=packed_kia(op.K_invs, op.A_s))
+    return op

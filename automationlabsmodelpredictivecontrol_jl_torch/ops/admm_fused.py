@@ -1,5 +1,5 @@
-"""Batched ADMM on the fused kernels K1 (diagonal A) and K2 (mixed A), and
-their driver.
+"""Batched ADMM on the fused kernels K1 (diagonal A), K2 (mixed A), K4 and
+K5 (dense A), and their driver.
 
 The counterpart of the JAX package's ``ops/admm_pallas.py`` for condensed
 QPs whose scaled constraint matrix A_s is
@@ -9,7 +9,12 @@ QPs whose scaled constraint matrix A_s is
   (``csrc/admm_diag.cu``);
 - mixed, A_s = [diag(d); A2] with a dense tail A2 of state-box and terminal
   rows (``op.mixed_a``: every condensed MPC with state or terminal rows):
-  :func:`iterate_chunk_mixed_T`, kernel K2 (``csrc/admm_mixed.cu``).
+  :func:`iterate_chunk_mixed_T`, kernel K2 (``csrc/admm_mixed.cu``);
+- dense, any other A without ball rows (``op.dense_a``: a QP whose rows
+  are not box-first, such as OSQP's convention of equality and coupling
+  rows above the variable bounds): :func:`iterate_chunk_dense_packed_T`,
+  kernel K4, or :func:`iterate_chunk_dense_perr_T`, kernel K5 (both in
+  ``csrc/admm_dense.cu``), as :func:`use_packed` picks.
 
 Each chunk function runs ``chunk`` ADMM iterations on the lane-last state.
 On a CUDA tensor it launches its hand-written kernel and raises if it
@@ -33,12 +38,13 @@ import torch
 
 from . import _build
 from .admm import AdmmConfig, AdmmOperator, start_rho_index
+from .riccati import dot64
 from ..types import STATUS_CONVERGED, STATUS_MAX_ITER, STATUS_NUMERIC_ERROR
 from ..utils.precision import assert_ieee_fp32
 
 Tensor = torch.Tensor
 
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "rollout": 0, "certificate": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "rollout": 0, "certificate": 0, "K4": 0, "K5": 0}
 PLAIN_CALLS = dict(LAUNCHES)
 
 
@@ -50,10 +56,11 @@ def reset_counts() -> None:
 
 
 # shared memory one block may use on Hopper (227 KB), the widest n the
-# kernels' register layouts take, and K2's widest dense tail
+# kernels take, K2's widest dense tail and K4/K5's most constraint rows
 SMEM_LIMIT = 232448
 MAX_N = 128
 MAX_TAIL = 128
+MAX_DENSE_ROWS = 512
 _LANES = 32
 
 
@@ -87,6 +94,76 @@ def k2_fits(n: int, m: int, R: int, refine_steps: int) -> bool:
         and 1 <= m - n <= MAX_TAIL
         and k2_smem_bytes(n, m, R, refine_steps) <= SMEM_LIMIT
     )
+
+
+def _padded_flops_per_lane(n: int, m: int, R: int, rs: int, packed: bool) -> int:
+    """The JAX package's cost model (``admm_pallas._padded_flops_per_lane``):
+    multiply-adds per lane and iteration with every GEMM operand padded to
+    the TPU's 128-wide tile, for the packed (K4) and per-rho (K5) bodies."""
+    pad = lambda v: -(-v // 128) * 128
+    if packed:
+        f = 2 * pad(m) * pad((R + 1) * n)
+        f += pad(R * n) * pad(R * (n + m))
+        f += rs * (pad(n) * pad(R * n) + pad(n) * pad(R * (n + m)))
+    else:
+        f = pad(m) * pad(n)
+        f += R * (pad(m) * pad(n) + pad(n) * pad(n))
+        f += rs * 2 * R * pad(n) * pad(n)
+        f += pad(n) * pad(m)
+    return f
+
+
+def use_packed(n: int, m: int, R: int, refine_steps: int = 1) -> bool:
+    """Whether a dense operator of this shape runs K4 (packed) or K5 (per
+    rho): the JAX package's rule (``admm_pallas._use_packed``), its padded-
+    tile cost model with a cap on the packed operator's size.
+
+    K4 forms the constraint image through K_r^-1 A' and K5 as A x, so the two
+    round differently and converge in different iteration counts. The port
+    keeps the JAX rule, measured on the TPU, so that both packages compute
+    the same function at every shape; re-deciding the split for this card is
+    later work (ROADMAP Queue 2)."""
+    if R * n * R * (n + m) * 4 > 2 * 2**20:
+        return False
+    return _padded_flops_per_lane(n, m, R, refine_steps, True) <= _padded_flops_per_lane(
+        n, m, R, refine_steps, False
+    )
+
+
+def dense_smem_bytes(n: int, m: int, R: int) -> int:
+    """Shared memory that K4 and K5 need at least: the fp32 (R, m) rho and
+    rho^-1 tables and the lane buffers of y, s (m rows) and rhs, xt and the
+    refinement residual (n rows), 32 lanes each (csrc/admm_dense.cu)."""
+    return (2 * R * m + (2 * m + 3 * n) * _LANES) * 4
+
+
+def dense_ops_shared(n: int, m: int, R: int, refine_steps: int, packed: bool) -> bool:
+    """Whether K4 (packed) or K5 copies its fp32 operators into shared
+    memory beside the buffers (else it reads them from global memory
+    through L2), as csrc/admm_dense.cu decides: K^-1, K when refining, K4's
+    K^-1 A', each R-stack at an odd stride, and A."""
+    odd = lambda words: words | 1
+    words = R * odd(n * n) * (2 if refine_steps > 0 else 1) + m * n
+    if packed:
+        words += R * odd(n * m)
+    return dense_smem_bytes(n, m, R) + 4 * words <= SMEM_LIMIT
+
+
+def k4_fits(n: int, m: int, R: int) -> bool:
+    """Whether K4 takes this operator shape: n <= 128, 1 to 512 constraint
+    rows, and the rho tables and lane buffers within one block's shared
+    memory. Where the operators do not fit beside them, the kernel reads
+    them from global memory."""
+    return (
+        1 <= n <= MAX_N
+        and 1 <= m <= MAX_DENSE_ROWS
+        and dense_smem_bytes(n, m, R) <= SMEM_LIMIT
+    )
+
+
+# K5 shares K4's buffers and limits (at the h50 shape, n = 100 and m = 300
+# at R = 5, its operators are read from global memory)
+k5_fits = k4_fits
 
 
 def _lane_solver(op: AdmmOperator, idx: Tensor, n: int):
@@ -202,6 +279,133 @@ def iterate_chunk_mixed_T_plain(
     return x, s, y, ax
 
 
+def _kia(op: AdmmOperator) -> Tensor:
+    if op.kia is None:
+        raise ValueError(
+            "K4 needs the operator's kia = K_r^-1 A_s' (admm.packed_kia), "
+            "which build_operator forms for a dense operator"
+        )
+    return op.kia
+
+
+def packed_operators(op: AdmmOperator) -> Tuple[Tensor, Tensor, Tensor]:
+    """K4's column-packed operators (``admm_pallas.packed_operators``):
+
+    - rhs1 (m, n + R n) = [A_s | fl(rho_0 A_s) | ... ], whose columns give
+      A'y and every A' diag(rho_r) s;
+    - kcat (n, R n) = [K_0 | ... ], for the refinement's xt K_r;
+    - wrow (n, R (n + m)) = [K_0^-1 | K_0^-1 A_s' | ... ], for every rho's
+      xt and its image.
+
+    The JAX package also builds wcat, the block diagonal of wrow's blocks;
+    a per-lane gather needs only the blocks. K_r^-1 A_s' is the operator's
+    ``kia``, built once with it (``admm.packed_kia``)."""
+    A = op.A_s
+    R, n = op.K_invs.shape[0], op.K_invs.shape[1]
+    m = A.shape[0]
+    sacat = (op.rho_vecs[:, :, None] * A[None]).transpose(0, 1).reshape(m, R * n)
+    rhs1 = torch.cat([A, sacat], dim=1)
+    kcat = op.Ks.transpose(0, 1).reshape(n, R * n)
+    blocks = torch.cat([op.K_invs, _kia(op)], dim=2)  # (R, n, n + m)
+    wrow = blocks.transpose(0, 1).reshape(n, R * (n + m))
+    return rhs1, kcat, wrow
+
+
+def _own(cand: Tensor, idx: Tensor, R: int) -> Tensor:
+    """(R * rows, B) candidates, one block per rho -> (rows, B), each lane's
+    own block (a gather: an inf in another lane's block stays there)."""
+    rows, B = cand.shape[0] // R, cand.shape[1]
+    pick = idx.long().view(1, 1, B).expand(1, rows, B)
+    return cand.view(R, rows, B).gather(0, pick)[0]
+
+
+def _iterate_dense_plain(packed, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config):
+    """K4's (packed) or K5's chunk math, lane-last. Each product sums exact
+    fp32 products in fp64 in the kernel's index order and rounds once
+    (``riccati.dot64``); each lane takes its own rho's block of all R
+    candidates. The two differ only in the constraint image st."""
+    n, m = qT.shape[0], lT.shape[0]
+    R = int(op.rho_grid.shape[0])
+    if packed:
+        rhs1, kcat, wrow = packed_operators(op)
+        at, sat = rhs1[:, :n].T, rhs1[:, n:].T  # A', fl(rho_r A)' stacked
+        kit = wrow.T  # (R (n + m), n): rhs -> [xt; st] of every rho
+        kt = kcat.T
+    else:
+        at = op.A_s.T
+        sat = (op.A_s.T[None] * op.rho_vecs[:, None, :]).reshape(R * n, m)
+        kit = op.K_invs.transpose(1, 2).reshape(R * n, n)  # rhs -> xt
+        kt = op.Ks.transpose(1, 2).reshape(R * n, n)
+        a = op.A_s.double()
+    at, sat, kit, kt = (M.double() for M in (at, sat, kit, kt))
+    own = lambda M, v: _own(dot64(M, v), idx, R)
+    il = idx.long()
+    rho = op.rho_vecs[il].T  # (m, B)
+    rho_inv = op.rho_invs[il].T
+
+    sigma, alpha = float(config.sigma), float(config.alpha)
+    x, s, y, ax = xT, sT, yT, axT
+    for _ in range(int(chunk)):
+        rhs = sigma * x - qT - dot64(at, y) + own(sat, s)
+        cs = own(kit, rhs)
+        xt, st = cs[:n], cs[n:]
+        for _ in range(int(config.refine_steps)):
+            corr = own(kit, rhs - own(kt, xt))
+            xt = xt + corr[:n]
+            if packed:
+                st = st + corr[n:]
+        if not packed:
+            st = dot64(a, xt)
+        x_new = alpha * xt + (1.0 - alpha) * x
+        v = alpha * st + (1.0 - alpha) * s
+        s_new = torch.clamp(v + rho_inv * y, lT, uT)
+        y = y + rho * (v - s_new)
+        ax = alpha * st + (1.0 - alpha) * ax
+        x, s = x_new, s_new
+    return x, s, y, ax
+
+
+def iterate_chunk_dense_packed_T_plain(
+    op: AdmmOperator,
+    qT: Tensor,  # (n, B) scaled, lane-last
+    lT: Tensor,  # (m, B)
+    uT: Tensor,
+    idx: Tensor,  # (B,) int32 rho-grid index per lane
+    xT: Tensor,  # (n, B)
+    sT: Tensor,  # (m, B)
+    yT: Tensor,
+    axT: Tensor,
+    chunk: int,
+    config: AdmmConfig,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of K4 (``admm_pallas._iterate_kernel``), for a
+    dense A_s: GEMM 1 gives A'y and A' diag(rho_r) s from rhs1, GEMM 2 the
+    lane's xt and its image st = rhs K_r^-1 A' from wrow's blocks; the
+    refinement corrects both through K_r (kcat) and wrow."""
+    PLAIN_CALLS["K4"] += 1
+    return _iterate_dense_plain(True, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config)
+
+
+def iterate_chunk_dense_perr_T_plain(
+    op: AdmmOperator,
+    qT: Tensor,  # (n, B) scaled, lane-last
+    lT: Tensor,  # (m, B)
+    uT: Tensor,
+    idx: Tensor,  # (B,) int32 rho-grid index per lane
+    xT: Tensor,  # (n, B)
+    sT: Tensor,  # (m, B)
+    yT: Tensor,
+    axT: Tensor,
+    chunk: int,
+    config: AdmmConfig,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of K5 (``admm_pallas._iterate_kernel_perr``),
+    for a dense A_s: A'y, A' diag(rho_r) s, xt = rhs K_r^-1, the refinement
+    through K_r, then st = A xt."""
+    PLAIN_CALLS["K5"] += 1
+    return _iterate_dense_plain(False, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config)
+
+
 def _check_args(kernel: str, args, dev) -> None:
     for name, t, shape, dtype in args:
         if t.device != dev:
@@ -296,6 +500,34 @@ def _launch_k2(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config):
                    (float(config.sigma), float(config.alpha)))
 
 
+def _launch_dense(kernel, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config):
+    """Launch K4 (admm_dense_packed_chunk) or K5 (admm_dense_perr_chunk)."""
+    n, B = qT.shape
+    m = lT.shape[0]
+    R = int(op.rho_grid.shape[0])
+    rs = int(config.refine_steps)
+    if not k4_fits(n, m, R):
+        raise ValueError(
+            f"{kernel} takes n <= {MAX_N}, 1 to {MAX_DENSE_ROWS} constraint rows "
+            f"and lane buffers within {SMEM_LIMIT} B of shared memory; n={n}, "
+            f"m={m}, R={R} needs {dense_smem_bytes(n, m, R)} B"
+        )
+    f = torch.float32
+    args = [("K_invs", op.K_invs, (R, n, n), f), ("Ks", op.Ks, (R, n, n), f)]
+    if kernel == "K4":
+        args.append(("kia", _kia(op), (R, n, m), f))
+    args += [
+        ("A_s", op.A_s, (m, n), f),
+        ("rho_vecs", op.rho_vecs, (R, m), f),
+        ("rho_invs", op.rho_invs, (R, m), f),
+    ] + _state_args(n, m, B, qT, lT, uT, idx, xT, sT, yT, axT)
+    _check_args(kernel, args, qT.device)
+    outs = [torch.empty_like(xT)] + [torch.empty_like(sT) for _ in range(3)]
+    entry = "admm_dense_packed_chunk" if kernel == "K4" else "admm_dense_perr_chunk"
+    return _launch(kernel, entry, args, outs, (n, m, B, R, int(chunk), rs),
+                   (float(config.sigma), float(config.alpha)))
+
+
 def _dispatch(kernel, launch, plain, args):
     kind = args[1].device.type
     if kind == "cuda":
@@ -351,6 +583,52 @@ def iterate_chunk_mixed_T(
     )
 
 
+def iterate_chunk_dense_packed_T(
+    op: AdmmOperator,
+    qT: Tensor,  # (n, B)
+    lT: Tensor,  # (m, B)
+    uT: Tensor,
+    idx: Tensor,
+    xT: Tensor,  # (n, B)
+    sT: Tensor,  # (m, B)
+    yT: Tensor,
+    axT: Tensor,
+    chunk: int,
+    config: AdmmConfig,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """``chunk`` ADMM iterations of a dense-A QP batch on K4, lane-last.
+
+    CUDA tensors launch K4 (``csrc/admm_dense.cu``) and raise if it cannot
+    run; CPU tensors take the plain version. The state is out of place."""
+    return _dispatch(
+        "K4", lambda *a: _launch_dense("K4", *a), iterate_chunk_dense_packed_T_plain,
+        (op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config),
+    )
+
+
+def iterate_chunk_dense_perr_T(
+    op: AdmmOperator,
+    qT: Tensor,  # (n, B)
+    lT: Tensor,  # (m, B)
+    uT: Tensor,
+    idx: Tensor,
+    xT: Tensor,  # (n, B)
+    sT: Tensor,  # (m, B)
+    yT: Tensor,
+    axT: Tensor,
+    chunk: int,
+    config: AdmmConfig,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """``chunk`` ADMM iterations of a dense-A QP batch on K5, lane-last.
+
+    CUDA tensors launch K5 (``csrc/admm_dense.cu``) and raise if it cannot
+    run; CPU tensors take the plain version. The state is out of place."""
+    return _dispatch(
+        "K5", lambda *a: _launch_dense("K5", *a), iterate_chunk_dense_perr_T_plain,
+        (op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config),
+    )
+
+
 def _check_precision(config: AdmmConfig) -> None:
     mode = str(config.kernel_precision)
     if mode in ("bf16x3", "default", "hybrid"):
@@ -368,17 +646,38 @@ def _check_precision(config: AdmmConfig) -> None:
 ChunkFn = Callable[..., Tuple[Tensor, Tensor, Tensor, Tensor]]
 
 
-def chunk_fn_for(op: AdmmOperator, plain: bool = False) -> ChunkFn:
+def chunk_fn_for(
+    op: AdmmOperator, plain: bool = False, config: Optional[AdmmConfig] = None
+) -> ChunkFn:
     """The chunk function of the kernel that takes ``op`` (or its plain
-    version): K1 for a diagonal A, K2 for a mixed one."""
+    version): K1 for a diagonal A, K2 for a mixed one, and for a dense one
+    K4 or K5 as :func:`use_packed` says for ``config.refine_steps``. A
+    dense shape that the chosen kernel does not take raises ValueError:
+    nothing falls back to the other kernel, which computes another
+    function, or to the CPU."""
     if op.diag_a:
         return iterate_chunk_diag_T_plain if plain else iterate_chunk_diag_T
     if op.mixed_a:
         return iterate_chunk_mixed_T_plain if plain else iterate_chunk_mixed_T
-    raise NotImplementedError(
-        "dense-A operators need K4/K5, which are not ported yet (ROADMAP "
-        "Queue 2); the port's fused path takes diagonal (K1) and mixed (K2) A"
-    )
+    if op.n_ball:
+        raise ValueError("the fused kernels take no ball rows")
+    if config is None:
+        raise ValueError("a dense operator's kernel (K4 or K5) depends on the config's refine_steps")
+    m, n = (int(d) for d in op.A_s.shape)
+    R = int(op.rho_grid.shape[0])
+    rs = int(config.refine_steps)
+    packed = use_packed(n, m, R, rs)
+    name = "K4" if packed else "K5"
+    if not (k4_fits if packed else k5_fits)(n, m, R):
+        raise ValueError(
+            f"no kernel takes this dense operator: use_packed picks {name} for "
+            f"n={n}, m={m}, R={R}, refine_steps={rs}, and {name} takes n <= "
+            f"{MAX_N}, 1 to {MAX_DENSE_ROWS} rows and lane buffers within "
+            f"{SMEM_LIMIT} B of shared memory ({dense_smem_bytes(n, m, R)} B here)"
+        )
+    if packed:
+        return iterate_chunk_dense_packed_T_plain if plain else iterate_chunk_dense_packed_T
+    return iterate_chunk_dense_perr_T_plain if plain else iterate_chunk_dense_perr_T
 
 
 def _solve_batch_fused_T(
@@ -391,11 +690,12 @@ def _solve_batch_fused_T(
     config: AdmmConfig,
     chunk_fn: ChunkFn,
 ):
-    """Lane-last driver for diagonal and mixed A: transposes once at entry
-    and exit; between chunks, exact unscaled residuals (P_s @ x as a
-    matmul; the box block of A'y and Ax is elementwise, the dense tail A2
-    an fp32 matmul), the OSQP per-lane rho rule, the NaN guard and the
-    freezing of converged lanes. One host read of ``done`` per chunk."""
+    """Lane-last driver for diagonal, mixed and dense A: transposes once at
+    entry and exit; between chunks, exact unscaled residuals (P_s @ x as a
+    matmul; the box block of A'y and Ax is elementwise, the dense tail A2,
+    or a dense A whole, an fp32 matmul), the OSQP per-lane rho rule, the
+    NaN guard and the freezing of converged lanes. One host read of
+    ``done`` per chunk."""
     B = q.shape[0]
     n = op.A_s.shape[1]
     R = int(op.rho_grid.shape[0])
@@ -409,11 +709,15 @@ def _solve_batch_fused_T(
     uT = (E_c * u.T).contiguous()
 
     def a_apply(x):  # A_s @ x
+        if op.dense_a:
+            return op.A_s @ x
         if a2 is None:
             return dvec * x
         return torch.cat([dvec * x, a2 @ x])
 
     def at_apply(y):  # A_s' y
+        if op.dense_a:
+            return op.A_s.T @ y
         if a2 is None:
             return dvec * y
         return dvec * y[:n] + a2.T @ y[n:]
@@ -515,14 +819,15 @@ def solve_batch_fused(
     config: AdmmConfig = AdmmConfig(),
     chunk_fn: Optional[ChunkFn] = None,
 ):
-    """Batched QP solve on K1 (diagonal A) or K2 (mixed A). Returns (z, y,
+    """Batched QP solve on K1 (diagonal A), K2 (mixed A), or K4/K5 (dense
+    A, as :func:`use_packed` picks). Returns (z, y,
     s, status, iterations, primal_residual, dual_residual), each with a
     leading batch axis, on the device of ``q``. ``chunk_fn`` defaults to
     the kernel's wrapper (:func:`chunk_fn_for`); its plain version may be
     passed to re-solve on the card for comparison."""
     if op.n_ball:
         raise ValueError("fused kernel does not support ball rows")
-    fn = chunk_fn_for(op) if chunk_fn is None else chunk_fn
+    fn = chunk_fn_for(op, config=config) if chunk_fn is None else chunk_fn
     _check_precision(config)
     if q.device.type == "cuda":
         assert_ieee_fp32()

@@ -5,8 +5,9 @@ linear engine and the Riccati engine on one device:
 
 - :func:`solve_batch_fused` solves a batch on a fused kernel: K1 for a
   diagonal A (input boxes only), K2 for a mixed one (state-box or
-  terminal rows after the input boxes), K3 for a Riccati engine (the
-  long-horizon sparse solve);
+  terminal rows after the input boxes), K4 or K5 for a dense one (rows
+  that are not box-first), K3 for a Riccati engine (the long-horizon
+  sparse solve);
 - :func:`solve_batch_auto` routes a batch to the fused path wherever a
   kernel takes the shape (the vmapped general engine ``solve_batch`` is
   ROADMAP Queue 1, so other shapes raise NotImplementedError);
@@ -109,8 +110,8 @@ def solve_batch_fused(
     warm_y: Optional[Tensor] = None,  # (B, m)
     chunk_fn: Optional[Callable] = None,
 ) -> Tuple[MpcSolution, Tensor, Tensor, BatchDiagnostics]:
-    """Batched linear-MPC solves on K1 or K2 (a condensed engine) or K3 (a
-    Riccati engine), on the device of ``x0s``.
+    """Batched linear-MPC solves on K1, K2, K4 or K5 (a condensed engine) or
+    K3 (a Riccati engine), on the device of ``x0s``.
 
     Returns (solutions with a leading batch axis, next warm_z, next
     warm_y, diagnostics). For a condensed engine warm_z is the shifted
@@ -218,8 +219,10 @@ def fused_supported(controller: MpcController) -> bool:
     """The port's routing rule: fused wherever a kernel takes the shape. A
     linear engine without soft or ball rows whose operator is diagonal and
     fits K1, or mixed and fits K2 (shared memory, n <= 128, a dense tail of
-    at most 128 rows). A Riccati engine whose plant K3 takes (nx <= 16,
-    nu <= 8). The JAX package's bands were measured on other hardware and
+    at most 128 rows), or dense and fits the kernel that ``use_packed``
+    picks, K4 or K5 (n <= 128, at most 512 rows), as the JAX package's
+    ``_kernel_viable`` takes a dense operator. A Riccati engine whose
+    plant K3 takes (nx <= 16, nu <= 8). The JAX package's bands were measured on other hardware and
     are not copied (it routes its Riccati engine to the vmapped engine);
     bands for this card come from its own A/B runs."""
     eng = controller.engine
@@ -237,13 +240,15 @@ def fused_supported(controller: MpcController) -> bool:
         return admm_fused.k1_fits(n, R, rs)
     if op.mixed_a:
         return admm_fused.k2_fits(n, m, R, rs)
-    return False
+    if admm_fused.use_packed(n, m, R, rs):
+        return admm_fused.k4_fits(n, m, R)
+    return admm_fused.k5_fits(n, m, R)
 
 
 _NO_KERNEL = (
-    "no ported kernel takes this controller's QP (soft or ball rows, a "
-    "dense A, or an operator too large for shared memory); the general "
-    "batched engine solve_batch is not ported yet (ROADMAP Queue 1)"
+    "no ported kernel takes this controller's QP (soft or ball rows, or an "
+    "operator wider than its kernel takes); the general batched engine "
+    "solve_batch is not ported yet (ROADMAP Queue 1)"
 )
 
 
@@ -354,7 +359,8 @@ def solve_batch_escalated(
 ) -> Tuple[MpcSolution, Tensor, Tensor, BatchDiagnostics]:
     """Two-tier batch solve on the device.
 
-    Tier 1 runs the controller's config on its fused kernel (K1 or K2).
+    Tier 1 runs the controller's config on its fused kernel (K1, K2, K4 or
+    K5).
     The straggler lanes
     (MAX_ITER / NUMERIC_ERROR) are gathered on the device into a static
     ``bucket`` (a stable partition: stragglers first, in lane order) and

@@ -24,7 +24,15 @@ points a user calls (``proceed_controller(..., device=card)``, then
   clip(0.65 + 0.1 N(0, 1), 0.3, 1.3) through ``solve_batch_auto``; the
   same at horizon 50 over 4096 states (``engine="riccati"``); and a
   1024-lane closed loop at h500. K3's driver runs two small per-lane
-  kernels of its own, the rollout and the certificate.
+  kernels of its own, the rollout and the certificate;
+- K4 and K5, the dense-A path: the same QTP QPs with their state or
+  terminal rows moved above the input-box rows (OSQP's convention, rows
+  not box-first), so the designer's operator classes are bypassed and
+  ``use_packed`` picks the kernel: the h20 equality terminal on K4 (2048
+  of the suite's states), the h20 state box on K5 (2048 of bench.py's
+  states) and the h50 state box on K5 (operators read from global
+  memory), through ``parallel.solve_batch_fused``, each h20 cell held to
+  the K2 solve of the same QP.
 
 Phases (any failure raises and exits non-zero):
 1. the card: its name, count, and power limit from nvidia-smi;
@@ -33,13 +41,15 @@ Phases (any failure raises and exits non-zero):
    build/kernels/ptxas.txt), and the native oracle with g++, into build/;
 3. each kernel against its plain PyTorch version on the card at its
    main-path shapes (K3 at h500 and at one h50 shape per branch of the
-   kernel), with times from CUDA events;
+   kernel; K4 with and without refinement, K5 at h20 and h50), with times
+   from CUDA events;
 4. each path, with the launch counts set to 0 just before it and read
    just after, showing that it went through its kernel and never through
    a plain version;
 5. where the time goes in each path's cells (torch.profiler: device time
    per solve, the kernels' share of it, the card's idle share); then
-   re-solves of 256 lanes with the plain versions (K3's at h50).
+   re-solves of 256 lanes with the plain versions (K3's at h50, K4's at
+   the dense h20 equality cell, K5's at h50).
 
 The last two lines are the card's name and power limit, and
 {"ok": true, "device": {...}}; the line before them lists the kernels
@@ -101,7 +111,8 @@ def ptxas_summary(report: str):
         if m and name:
             kind = next(k for key, k in (
                 ("riccati_admm_chunk", "K3"), ("riccati_rollout", "K3 rollout"),
-                ("riccati_certificate", "K3 certificate"), ("mixed", "K2"), ("", "K1"),
+                ("riccati_certificate", "K3 certificate"), ("dense_packed", "K4"),
+                ("dense_perr", "K5"), ("mixed", "K2"), ("", "K1"),
             ) if key in name)
             targs = re.findall(r"Li(\d+)E", name)
             rows.append(dict(kernel=kind, template=[int(a) for a in targs],
@@ -155,18 +166,29 @@ def suite6_x0s(B):
     return np.clip(0.65 + 0.1 * rng.standard_normal((B, 4)), 0.3, 1.3).astype(np.float32)
 
 
-def chunk_bound(n, m, B, R, refine_steps, chunk, mixed):
-    """Least milliseconds of one chunk on the card: each input read and
-    each output written once (the operators once, q, l, u, idx and the
-    state x, s, y, ax in, the state out) over HBM bandwidth, against the
-    fp64 multiply-adds of the K-solves (and the three A2 products) over the
-    fp64 peak. Returns (bound_ms, bound_by)."""
-    ms = m - n
+def chunk_bound(n, m, B, R, refine_steps, chunk, kernel):
+    """Least milliseconds of one chunk of K1, K2, K4 or K5 on the card: each
+    input read and each output written once (the operators once, q, l, u,
+    idx and the state x, s, y, ax in, the state out) over HBM bandwidth,
+    against the fp64 multiply-adds of its products over the fp64 peak,
+    per lane and iteration: K1 the K-solves, (1 + 2 refine) n^2; K2 those
+    and the three A2 products, 3 (m - n) n; K5 A'y, A' rho s, A xt and the
+    K-solves, 3 m n + (1 + 2 refine) n^2; K4 A'y, A' rho s and the packed
+    solve with its image, 2 m n + n (n + m) + refine (n^2 + n (n + m)).
+    Returns (bound_ms, bound_by)."""
     stacks = 2 if refine_steps else 1
-    operator = stacks * R * n * n + 2 * R * m + n + ms * n
+    if kernel in ("K1", "K2"):
+        ms = m - n
+        operator = stacks * R * n * n + 2 * R * m + n + ms * n
+        macs = (1 + 2 * refine_steps) * n * n + (3 * ms * n if kernel == "K2" else 0)
+    else:
+        operator = stacks * R * n * n + 2 * R * m + m * n + (R * n * m if kernel == "K4" else 0)
+        if kernel == "K4":
+            macs = 2 * m * n + n * (n + m) + refine_steps * (n * n + n * (n + m))
+        else:
+            macs = 3 * m * n + (1 + 2 * refine_steps) * n * n
     lane = (2 * n + 5 * m + 1) + (n + 3 * m)
     nbytes = 4 * (operator + lane * B)
-    macs = (1 + 2 * refine_steps) * n * n + (3 * ms * n if mixed else 0)
     ops = 2 * macs * B * chunk
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP64_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
@@ -303,10 +325,23 @@ def compare_recurrences(ctrl, B, seed, x0s_fn):
     return recs
 
 
-def compare_kernel(ctrl, B, seed, x0s_fn):
+def _kernel_of(op, cfg):
+    """The name of the kernel that takes the operator: K1, K2, K4 or K5."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    if op.diag_a:
+        return "K1"
+    if op.mixed_a:
+        return "K2"
+    m, n = (int(d) for d in op.A_s.shape)
+    packed = admm_fused.use_packed(n, m, int(op.rho_grid.shape[0]), int(cfg.refine_steps))
+    return "K4" if packed else "K5"
+
+
+def compare_kernel(ctrl, B, seed, x0s_fn, plain_reps=REPS):
     """A kernel against its plain version at one shape, on the card; the
-    kernel is K1 or K2 as the controller's operator says. Returns a
-    record."""
+    kernel is K1, K2, K4 or K5 as the controller's operator says. Returns
+    a record."""
     import numpy as np
     import torch
 
@@ -319,8 +354,8 @@ def compare_kernel(ctrl, B, seed, x0s_fn):
     op, cfg = ctrl.engine.op, ctrl.engine.config
     R = int(op.rho_grid.shape[0])
     m, n = (int(d) for d in op.A_s.shape)
-    kernel = admm_fused.chunk_fn_for(op)
-    plain = admm_fused.chunk_fn_for(op, plain=True)
+    kernel = admm_fused.chunk_fn_for(op, config=cfg)
+    plain = admm_fused.chunk_fn_for(op, plain=True, config=cfg)
     x0s = torch.from_numpy(x0s_fn(B)).to(dev)
     q, l, u, _, _ = runtime_qp_vectors_batch(
         ctrl.engine.qp, x0s - ctrl.tuning.references.x[:, 0]
@@ -338,27 +373,44 @@ def compare_kernel(ctrl, B, seed, x0s_fn):
     chunk = int(cfg.check_interval)
     args = (op, qT, lT, uT, idx, x, s, y, ax, chunk, cfg)
 
-    out_k = kernel(*args)
-    out_p = plain(*args)
-    torch.cuda.synchronize()
-    abs_err, rel_err = 0.0, 0.0
-    for a, b in zip(out_k, out_p):
-        if not bool(torch.isfinite(a).all()):
-            raise RuntimeError(f"{kernel.__name__} produced non-finite values")
-        e = float((a - b).abs().max())
-        abs_err = max(abs_err, e)
-        rel_err = max(rel_err, e / max(1.0, float(b.abs().max())))
+    name = _kernel_of(op, cfg)
+    abs_err, rel_err, ulps = _errors(kernel(*args), plain(*args), name)
     rs = int(cfg.refine_steps)
     rec = dict(
-        n=n, m=m, R=R, refine_steps=rs, B=B, chunk=chunk,
-        max_abs_err=abs_err, max_rel_err=rel_err,
+        kernel=name, n=n, m=m, R=R, refine_steps=rs, B=B, chunk=chunk,
+        max_abs_err=abs_err, max_rel_err=rel_err, max_ulps=ulps,
     )
+    if name in ("K4", "K5"):
+        rec["operators_in_shared_memory"] = admm_fused.dense_ops_shared(n, m, R, rs, name == "K4")
     if rel_err > SHAPES_OK_REL:
         raise RuntimeError(f"{kernel.__name__} disagrees with its plain version: {rec}")
     rec["ms"] = cuda_ms(lambda: kernel(*args))
-    rec["plain_ms"] = cuda_ms(lambda: plain(*args))
-    rec["bound_ms"], rec["bound_by"] = chunk_bound(n, m, B, R, rs, chunk, bool(op.mixed_a))
+    rec["plain_ms"] = cuda_ms(lambda: plain(*args), reps=plain_reps)
+    rec["bound_ms"], rec["bound_by"] = chunk_bound(n, m, B, R, rs, chunk, name)
     return rec
+
+
+def rows_first(ctrl):
+    """The controller with its QP's state and terminal rows moved above the
+    input-box rows: the same QP, on an operator built for that order, which
+    is dense (its first n rows are not the diagonal input box)."""
+    import numpy as np
+
+    from automationlabsmodelpredictivecontrol_jl_torch.design import LinearEngine
+    from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import build_operator
+
+    dev = ctrl.device
+    c = ctrl.to("cpu")
+    qp = c.engine.qp
+    m, n = qp.A.shape
+    perm = np.r_[np.arange(n, m), np.arange(n)]
+    qp = qp.replace(**{k: getattr(qp, k)[perm] for k in ("A", "l_const", "u_const", "b_x0")})
+    l, u = qp.l_const.numpy(), qp.u_const.numpy()
+    eq = np.isfinite(l) & np.isfinite(u) & (l == u)
+    op = build_operator(qp.P.numpy(), qp.A.numpy(), eq, 0, c.engine.config)
+    return c.replace(
+        engine=LinearEngine(qp=qp, op=op, soft_mu=None, config=c.engine.config)
+    ).to(dev)
 
 
 def timed(fn, reps):
@@ -546,6 +598,28 @@ def main():
             and ops["equality"].term_rho_scale == 100.0):
         raise RuntimeError("the h50 controllers are expected to take K3's three branches")
 
+    # the dense path's controllers: the h20 equality and state-box QPs and
+    # the h50 state-box QP with their state or terminal rows first; and the
+    # state-box QP at tier 1's grid (K4's branch without refinement)
+    dense = {
+        "dense-eq-h20-B2048": rows_first(ctrl_eq),
+        "dense-sc-h20-B2048": rows_first(ctrl_sc),
+        "dense-sc-h50-B2048": rows_first(proceed_controller(
+            plant, "model_predictive_control", 50, 5.0, [0.65] * 4, [1.2] * 2,
+            admm_config=suite, device=dev, mpc_state_constraint=True,
+        )),
+    }
+    dense_t1 = rows_first(design(
+        AdmmConfig(max_iter=1000, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0),
+        mpc_state_constraint=True,
+    ))
+    want = {"dense-eq-h20-B2048": "K4", "dense-sc-h20-B2048": "K5", "dense-sc-h50-B2048": "K5"}
+    checks = [(k, c, want[k]) for k, c in dense.items()] + [("tier-1 state box", dense_t1, "K4")]
+    for cell, c, kind in checks:
+        if not (c.engine.op.dense_a and parallel.fused_supported(c)
+                and _kernel_of(c.engine.op, c.engine.config) == kind):
+            raise RuntimeError(f"{cell}: expected a dense operator on {kind}")
+
     # 3. each kernel against its plain version at its main-path shapes
     k1_shapes = [compare_kernel(ctrl, B_MAIN, 1, bench_x0s),
                  compare_kernel(fb, BUCKET, 2, bench_x0s)]
@@ -568,6 +642,14 @@ def main():
     rollout_rec, cert_rec = compare_recurrences(ctrl_h500, B_H500, 13, suite6_x0s)
     for rec in (rollout_rec, cert_rec):
         log(phase="k3_driver_vs_plain", **rec)
+    # K4 with and without refinement, K5 at h20 and h50 (plain timed less:
+    # ~10^4 small launches per chunk)
+    k4_shapes = [compare_kernel(dense["dense-eq-h20-B2048"], B_SLICE, 14, suite_x0s),
+                 compare_kernel(dense_t1, B_SLICE, 15, bench_x0s, plain_reps=5)]
+    k5_shapes = [compare_kernel(dense["dense-sc-h20-B2048"], B_SLICE, 16, bench_x0s, plain_reps=5),
+                 compare_kernel(dense["dense-sc-h50-B2048"], B_SLICE, 17, suite_x0s, plain_reps=2)]
+    for rec in k4_shapes + k5_shapes:
+        log(phase="dense_vs_plain", **rec)
 
     # 4a. the K1 path, counted from zero
     x0s = torch.from_numpy(bench_x0s(B_MAIN)).to(dev)
@@ -623,11 +705,12 @@ def main():
     x_suite = torch.from_numpy(suite_x0s(B_SLICE)).to(dev)
     x_bench = x0s[:B_SLICE]
     admm_fused.reset_counts()
-    slice_recs = []
+    slice_recs, k2_sols = [], {}
     for kind, c in (("equality", ctrl_eq), ("neighborhood", ctrl_nb)):
         before = admm_fused.LAUNCHES["K2"]
         (sol_s, _, _, diag_s), lat = timed(lambda c=c: parallel.solve_batch_auto(c, x_suite), REPS)
         check_solution(sol_s, B_SLICE, 20, f"the {kind} slice")
+        k2_sols[kind] = sol_s
         rec = dict(
             phase="slice", terminal=kind, B=B_SLICE, m=int(c.engine.op.A_s.shape[0]),
             converged_fraction=int(diag_s.n_converged) / B_SLICE,
@@ -713,6 +796,67 @@ def main():
     if ricc_recs["riccati-h500-B1024"]["converged_fraction"] < CONV_OK:
         raise RuntimeError(f"h500 convergence too low: {ricc_recs['riccati-h500-B1024']}")
 
+    # 4d. the dense path, counted from zero: each cell through
+    # parallel.solve_batch_fused; the h20 cells against the K2 solves of
+    # the same QPs above (K2 does not take h50's 200-row tail)
+    dense_x0s = {
+        "dense-eq-h20-B2048": (x_suite, k2_sols["equality"]),
+        "dense-sc-h20-B2048": (x_bench, sol_sc),
+        "dense-sc-h50-B2048": (torch.from_numpy(suite_x0s(B_SLICE)).to(dev), None),
+    }
+    admm_fused.reset_counts()
+    dense_recs = {}
+    for cell, c in dense.items():
+        x, ref = dense_x0s[cell]
+        kind = want[cell]
+        before = admm_fused.LAUNCHES[kind]
+        reps = REPS if cell == "dense-eq-h20-B2048" else 5
+        (sol_d, _, _, diag_d), lat = timed(lambda c=c, x=x: parallel.solve_batch_fused(c, x), reps)
+        check_solution(sol_d, B_SLICE, c.engine.qp.N, cell)
+        rec = dict(
+            phase="dense", cell=cell, kernel=kind, B=B_SLICE, N=c.engine.qp.N,
+            m=int(c.engine.op.A_s.shape[0]),
+            converged_fraction=int(diag_d.n_converged) / B_SLICE,
+            n_max_iter=int(diag_d.n_max_iter), n_infeasible=int(diag_d.n_infeasible),
+            mean_iterations=float(diag_d.mean_iterations),
+            max_iterations=int(diag_d.max_iterations), solves=len(lat),
+            batch_p50_ms=float(np.percentile(lat, 50)) * 1e3,
+            batch_p99_ms=float(np.percentile(lat, 99)) * 1e3,
+            solves_per_s=B_SLICE / float(np.median(lat)),
+            launches_per_solve=(admm_fused.LAUNCHES[kind] - before) / (reps + 1),
+        )
+        if ref is not None:
+            same = sol_d.status == ref.status
+            both = (sol_d.status == 0) & (ref.status == 0)
+            rec.update(
+                k2_converged_fraction=float((ref.status == 0).float().mean()),
+                statuses_equal_fraction=float(same.float().mean()),
+                max_abs_u_diff_vs_k2=float((sol_d.u - ref.u).abs()[both].max()) if bool(both.any()) else 0.0,
+            )
+        log(**rec)
+        dense_recs[cell] = rec
+
+    dense_counts = {k: admm_fused.LAUNCHES[k] for k in ("K4", "K5")}
+    plain_dense = dict(admm_fused.PLAIN_CALLS)
+    log(phase="counts", path="K4/K5", launches=dense_counts,
+        other_launches={k: v for k, v in admm_fused.LAUNCHES.items() if k not in dense_counts},
+        plain_calls=plain_dense)
+    if min(dense_counts.values()) <= 0:
+        raise RuntimeError(f"the dense path left a kernel unlaunched: {dense_counts}")
+    if any(plain_dense.values()):
+        raise RuntimeError("the dense path ran a plain version")
+    for cell in ("dense-eq-h20-B2048", "dense-sc-h50-B2048"):
+        if dense_recs[cell]["converged_fraction"] < CONV_OK:
+            raise RuntimeError(f"dense convergence too low: {dense_recs[cell]}")
+    # statuses are held to K2's on the equality cell; on the state box about
+    # half the lanes end at the iteration limit, decided by roundoff in
+    # either kernel, so there u is held where both converged
+    for cell in ("dense-eq-h20-B2048", "dense-sc-h20-B2048"):
+        rec = dense_recs[cell]
+        same_ok = cell != "dense-eq-h20-B2048" or rec["statuses_equal_fraction"] >= CONV_OK
+        if not same_ok or rec["max_abs_u_diff_vs_k2"] > U_OK:
+            raise RuntimeError(f"the dense solve disagrees with K2 on the same QP: {rec}")
+
     # where the time goes in each cell (after the counts: these launches
     # are not the paths' runs)
     for cell, fn, reps in (
@@ -722,11 +866,17 @@ def main():
         ("state-constrained-B2048", lambda: parallel.solve_batch_auto(ctrl_sc, x_bench), 2),
         ("riccati-h500-B1024", lambda: parallel.solve_batch_auto(ctrl_h500, x_h500), 3),
         ("riccati-h50-B4096", lambda: parallel.solve_batch_auto(ctrl_h50, x_h50), 3),
+        *((cell, lambda c=c, x=dense_x0s[cell][0]: parallel.solve_batch_fused(c, x), 3)
+          for cell, c in dense.items()),
     ):
         rec = profile(fn, reps)
         if cell in ricc_recs:  # the driver's device operations around each K3 launch
             rec["device_ops_per_chunk"] = (
                 rec["device_ops_per_call"] / ricc_recs[cell]["k3_launches_per_solve"]
+            )
+        if cell in dense_recs:
+            rec["device_ops_per_chunk"] = (
+                rec["device_ops_per_call"] / dense_recs[cell]["launches_per_solve"]
             )
         log(phase="profile", cell=cell, reps=reps, **rec)
 
@@ -740,6 +890,11 @@ def main():
                   admm_fused.chunk_fn_for(ctrl_sc.engine.op, plain=True))
     plain_resolve(parallel, ctrl_h50, x_h50[:B_RESOLVE], "K3 h50",
                   riccati_fused.iterate_chunk_riccati_plain)
+    for cell, label in (("dense-eq-h20-B2048", "K4 dense h20 equality"),
+                        ("dense-sc-h50-B2048", "K5 dense h50 state box")):
+        c = dense[cell]
+        plain_resolve(parallel, c, dense_x0s[cell][0][:B_RESOLVE], label,
+                      admm_fused.chunk_fn_for(c.engine.op, plain=True, config=c.engine.config))
 
     print(json.dumps({"kernels": [
         kernel_entry("admm_diag_chunk (K1)", "admm_diag.cu", f"{TPU_ADMM}:348",
@@ -753,6 +908,10 @@ def main():
                      k3_counts["rollout"], [rollout_rec]),
         kernel_entry("riccati_certificate (K3 driver)", "riccati_admm.cu",
                      f"{TPU_RICCATI}:384", k3_counts["certificate"], [cert_rec]),
+        kernel_entry("admm_dense_packed_chunk (K4)", "admm_dense.cu", f"{TPU_ADMM}:252",
+                     dense_counts["K4"], k4_shapes),
+        kernel_entry("admm_dense_perr_chunk (K5)", "admm_dense.cu", f"{TPU_ADMM}:778",
+                     dense_counts["K5"], k5_shapes),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""K1, K2 and K3 on the card: each CUDA kernel against its plain PyTorch
-version.
+"""K1, K2, K3, K4 and K5 on the card: each CUDA kernel against its plain
+PyTorch version.
 
 Marked ``cuda``; each test decides in a fixture whether a card is present
 and skips otherwise. Needs no JAX, so on a machine with a card and without
@@ -16,8 +16,9 @@ import torch
 
 from automationlabsmodelpredictivecontrol_jl_torch import parallel, proceed_controller
 from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp
+from automationlabsmodelpredictivecontrol_jl_torch.design import LinearEngine
 from automationlabsmodelpredictivecontrol_jl_torch.ops import _build, admm_fused, riccati, riccati_fused
-from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig
+from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig, build_operator
 from automationlabsmodelpredictivecontrol_jl_torch.ops.condense import runtime_qp_vectors_batch
 
 pytestmark = pytest.mark.cuda
@@ -173,6 +174,82 @@ def test_wrapper_checks_inputs(controllers):
     args[4] = args[4].long()  # idx must be int32
     with pytest.raises(ValueError):
         admm_fused.iterate_chunk_diag_T(*args)
+
+
+def _rows_first(c):
+    """The controller's QP with its state and terminal rows above the
+    input-box rows, on an operator built for that order (a dense A)."""
+    dev = c.device
+    c = c.to("cpu")
+    qp = c.engine.qp
+    m, n = qp.A.shape
+    perm = np.r_[np.arange(n, m), np.arange(n)]
+    qp = qp.replace(**{k: getattr(qp, k)[perm] for k in ("A", "l_const", "u_const", "b_x0")})
+    l, u = qp.l_const.numpy(), qp.u_const.numpy()
+    eq = np.isfinite(l) & np.isfinite(u) & (l == u)
+    op = build_operator(qp.P.numpy(), qp.A.numpy(), eq, 0, c.engine.config)
+    return c.replace(engine=LinearEngine(qp=qp, op=op, soft_mu=None, config=c.engine.config)).to(dev)
+
+
+@pytest.fixture(scope="module")
+def dense_controllers(card):
+    """The dense cells' controllers: h20 equality terminal (K4, refine 1),
+    h20 state box at tier 1's grid (K4, no refinement) and at the suite's
+    (K5), and h50 state box (K5, operators read from global memory)."""
+    design = lambda N, cfg, **kw: _rows_first(proceed_controller(
+        qtp.linearized_discrete_system(), "model_predictive_control", N, 5.0,
+        [0.65] * 4, [1.2] * 2, admm_config=cfg, device=card, **kw,
+    ))
+    suite = AdmmConfig(max_iter=1000)
+    t1 = AdmmConfig(max_iter=1000, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0)
+    return {
+        "K4-eq-h20": design(20, suite, mpc_terminal_ingredient="equality"),
+        "K4-sc-h20": design(20, t1, mpc_state_constraint=True),
+        "K5-sc-h20": design(20, suite, mpc_state_constraint=True),
+        "K5-sc-h50": design(50, suite, mpc_state_constraint=True),
+    }
+
+
+@pytest.mark.parametrize("B", [2048, 77])
+@pytest.mark.parametrize("which", ["K4-eq-h20", "K4-sc-h20", "K5-sc-h20", "K5-sc-h50"])
+def test_dense_kernels_match_plain_versions(dense_controllers, which, B):
+    """K4 and K5 sum every product in the plain versions' order: equal to
+    the last bit."""
+    ctrl = dense_controllers[which]
+    kernel = which[:2]
+    cfg = ctrl.engine.config
+    fn = admm_fused.chunk_fn_for(ctrl.engine.op, config=cfg)
+    plain_fn = admm_fused.chunk_fn_for(ctrl.engine.op, plain=True, config=cfg)
+    assert fn.__name__.startswith("iterate_chunk_dense_" + ("packed" if kernel == "K4" else "perr"))
+    args = _chunk_args(ctrl, B, seed=B + len(which))
+    launches, plain = admm_fused.LAUNCHES[kernel], admm_fused.PLAIN_CALLS[kernel]
+    out_k = fn(*args)
+    torch.cuda.synchronize()
+    assert admm_fused.LAUNCHES[kernel] == launches + 1
+    assert admm_fused.PLAIN_CALLS[kernel] == plain
+    out_p = plain_fn(*args)
+    for name, a, b in zip(("x", "s", "y", "ax"), out_k, out_p):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        assert float((a - b).abs().max()) == 0.0, name
+
+
+def test_dense_solve_auto_launches_k4(dense_controllers):
+    """The dense h20 equality controller through solve_batch_auto: K4
+    launches, no plain version runs, every lane converges, and the result
+    agrees with the same solve on the CPU."""
+    ctrl = dense_controllers["K4-eq-h20"]
+    assert parallel.fused_supported(ctrl)
+    rng = np.random.default_rng(0)
+    x0 = torch.from_numpy(0.65 + 0.002 * rng.standard_normal((256, 4)).astype(np.float32))
+    launches, plain = admm_fused.LAUNCHES["K4"], dict(admm_fused.PLAIN_CALLS)
+    s_gpu, _, _, d_gpu = parallel.solve_batch_auto(ctrl, x0.to(ctrl.device))
+    torch.cuda.synchronize()
+    assert admm_fused.LAUNCHES["K4"] > launches
+    assert admm_fused.PLAIN_CALLS == plain
+    assert int(d_gpu.n_converged) == 256
+    s_cpu, _, _, _ = parallel.solve_batch_auto(ctrl.to("cpu"), x0)
+    assert torch.equal(s_gpu.status.cpu(), s_cpu.status)
+    np.testing.assert_allclose(s_gpu.u.cpu().numpy(), s_cpu.u.numpy(), atol=5e-4)
 
 
 RICCATI_BRANCHES = {
