@@ -108,9 +108,10 @@ SIGNATURES = {
     "admm_mixed_chunk": "p" * 18 + "i" * 6 + "ff" + "p",
     "admm_dense_packed_chunk": "p" * 18 + "i" * 6 + "ff" + "p",
     "admm_dense_perr_chunk": "p" * 17 + "i" * 6 + "ff" + "p",
-    "riccati_admm_chunk": "p" * 30 + "i" * 9 + "p",
+    "riccati_admm_chunk": "p" * 26 + "i" * 13 + "p",
     "riccati_rollout": "p" * 5 + "i" * 4 + "p",
-    "riccati_certificate": "p" * 15 + "i" * 7 + "p",
+    "riccati_certificate": "p" * 15 + "i" * 9 + "p",
+    "riccati_chain_floor": "p" + "i" * 4 + "p",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

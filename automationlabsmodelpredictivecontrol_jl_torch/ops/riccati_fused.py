@@ -6,7 +6,11 @@ and a forward rollout over the horizon with the factors of the current rho
 (``ops/riccati.py``).
 
 - :func:`iterate_chunk_riccati` runs ``chunk`` ADMM iterations on the
-  lane-last state, kernel K3 (``csrc/riccati_admm.cu``);
+  lane-last state, kernel K3 (``csrc/riccati_admm.cu``), laid out for the
+  shape by :func:`k3_plan`: the lanes' rows in shared memory for the whole
+  chunk beside the current rho's factors (widened to fp64 where they fit,
+  else fp32 in shared or device memory), or the rows streamed from device
+  memory where not even one lane's fit;
 - :func:`rollout` and :func:`certificate_terms` are the driver's two O(N)
   recurrences (the warm and zero-input rollouts, once per solve; the
   infeasibility certificate's adjoint recursion, every chunk), each a small
@@ -33,11 +37,12 @@ pad.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import math
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from .admm_fused import LAUNCHES, PLAIN_CALLS, _check_args, _dispatch, _launch
+from .admm_fused import LAUNCHES, PLAIN_CALLS, SMEM_LIMIT, _check_args, _dispatch, _launch
 from .riccati import (
     RiccatiConfig,
     RiccatiOperator,
@@ -59,8 +64,8 @@ from ..types import (
 Tensor = torch.Tensor
 
 __all__ = [
-    "LAUNCHES", "PLAIN_CALLS", "MAX_NX", "MAX_NU", "k3_fits",
-    "iterate_chunk_riccati", "iterate_chunk_riccati_plain", "rollout",
+    "LAUNCHES", "PLAIN_CALLS", "MAX_NX", "MAX_NU", "k3_fits", "K3_ROUTES", "K3Plan",
+    "k3_plan", "certificate_plan", "iterate_chunk_riccati", "iterate_chunk_riccati_plain", "rollout",
     "certificate_terms", "certificate_terms_plain", "solve_sparse_fused",
 ]
 
@@ -71,6 +76,123 @@ MAX_NX, MAX_NU = 16, 8
 def k3_fits(op: RiccatiOperator) -> bool:
     """Whether K3 (and the driver's recurrences) take this plant."""
     return 1 <= op.nx <= MAX_NX and 1 <= op.nu <= MAX_NU
+
+
+# What K3's and the certificate's blocks are sized for: the SMs of an H100
+# SXM, the shared memory of one SM (a block may use SMEM_LIMIT of it; each
+# resident block reserves 1 KiB more), the threads of a block (one per lane)
+SM_COUNT = 132
+SM_SMEM = 233472
+BLOCK_THREADS = 128
+
+# K3's routes (csrc/riccati_admm.cu), each one instantiation of the kernel:
+# where a block keeps its lanes' rows and the factors of the current rho.
+# (rows in shared memory, the kernel's fac_mode, where the factors sit, and
+# the cost of a horizon step relative to the first route, measured on an
+# NVIDIA H100 80GB HBM3, 700.00 W at h500, B=1024 by k3_ab.py)
+K3_ROUTES = {
+    "shared-fp64": (True, 0, "shared memory, widened to fp64", 1.0),
+    "shared-fp32": (True, 1, "shared memory, fp32", 2.3),
+    "shared-l2": (True, 2, "device memory through L1/L2, fp32", 2.4),
+    "stream": (False, 2, "device memory through L1/L2, fp32", 3.0),
+}
+
+
+class K3Plan(NamedTuple):
+    """How one K3 launch is laid out: the route, the lanes and threads of a
+    block, its dynamic shared memory, where the factors sit, the blocks of
+    the grid, and the two switches the C entry takes."""
+
+    route: str
+    lanes: int
+    threads: int
+    smem_bytes: int
+    factors: str
+    blocks: int
+    rows_shared: bool
+    fac_mode: int
+
+
+def _tier(nx: int, nu: int) -> Tuple[int, int]:
+    """The kernels' register tier (MX, MU) of a plant."""
+    for mx, mu in ((4, 2), (8, 4), (MAX_NX, MAX_NU)):
+        if nx <= mx and nu <= mu:
+            return mx, mu
+    raise ValueError(f"K3 takes nx <= {MAX_NX} and nu <= {MAX_NU}; nx={nx}, nu={nu}")
+
+
+def _split_x_rows(op: RiccatiOperator) -> int:
+    """The rows of vX and lamX that a lane iterates on: all N past the fixed
+    first one when the interior is split, the terminal row when only it is."""
+    if op.split_interior:
+        return op.N
+    return 1 if (op.split_terminal or op.terminal_ball) else 0
+
+
+def k3_plan(op: RiccatiOperator, B: int, route: Optional[str] = None) -> K3Plan:
+    """The layout of a K3 launch for ``B`` lanes, from the shape alone (N,
+    nx, nu, which rows are split, B).
+
+    A lane's rows (vU, lamU, ffs and the split rows of vX, lamX; rows that
+    are not split are never staged) live in shared memory beside the
+    factors of the current rho. A block takes as many lanes as fit, but no
+    more than spread the batch over every SM. The factors sit, in order of
+    speed, widened to fp64 in shared memory, as fp32 in shared memory, or
+    in device memory; where not even one lane's rows fit in shared memory
+    the rows stay in device memory ("stream"). Among the routes that fit,
+    the one with the least estimated time wins: waves of blocks times the
+    warps that share an SM's four schedulers times the route's cost per
+    horizon step. Every shape :func:`k3_fits` takes gets a route. ``route``
+    forces one (ValueError if it does not fit)."""
+    mx, mu = _tier(op.nx, op.nu)
+    N, nx, nu = op.N, op.nx, op.nu
+    B = int(B)
+    if B < 1:
+        raise ValueError(f"K3 takes at least one lane; B={B}")
+    if route is not None and route not in K3_ROUTES:
+        raise ValueError(f"unknown K3 route {route!r}; one of {sorted(K3_ROUTES)}")
+    lane_bytes = 4 * (3 * N * nu + 2 * _split_x_rows(op) * nx)
+    fac_bytes = {
+        0: 8 * (N * (mu * mx + mu * mu + mx * mx) + mx * mx + mx * mu),
+        1: -(-4 * (N * (nu * nx + nu * nu + nx * nx) + nx * nx + nx * nu) // 16) * 16,
+        2: 0,
+    }  # a multiple of 16: the rows behind them are read as vectors
+    want = min(max(math.ceil(B / SM_COUNT), 1), BLOCK_THREADS)  # lanes that fill the card
+    best = None
+    for name, (rows_shared, fac_mode, where, step_cost) in K3_ROUTES.items():
+        if route not in (None, name):
+            continue
+        if rows_shared:
+            lanes = min((SMEM_LIMIT - fac_bytes[fac_mode]) // lane_bytes, want)
+            if lanes < 1:
+                continue
+            smem = fac_bytes[fac_mode] + lanes * lane_bytes
+        else:
+            lanes, smem = want, 0
+        blocks = math.ceil(B / lanes)
+        per_sm = max(1, min(16, SM_SMEM // (smem + 1024)))
+        waves = math.ceil(blocks / (SM_COUNT * per_sm))
+        warps = min(per_sm, math.ceil(blocks / SM_COUNT)) * math.ceil(lanes / 32)
+        cost = waves * math.ceil(warps / 4) * step_cost
+        if best is None or cost < best[0]:
+            best = (cost, K3Plan(name, lanes, BLOCK_THREADS, smem, where, blocks,
+                                 rows_shared, fac_mode))
+    if best is None:
+        raise ValueError(f"K3's route {route!r} does not fit N={N}, nx={nx}, nu={nu}")
+    return best[1]
+
+
+def certificate_plan(op: RiccatiOperator, B: int) -> Tuple[int, int, int]:
+    """(lanes per block, horizon rows per tile, shared-memory bytes) of a
+    certificate launch: lanes that spread the batch over every SM, and as
+    many rows of the dual deltas and Xbar as fit in a block's shared memory
+    beside the widened plant (the whole horizon where it does)."""
+    mx, mu = _tier(op.nx, op.nu)
+    lanes = min(max(math.ceil(int(B) / SM_COUNT), 1), BLOCK_THREADS)
+    plant = 8 * mx * (mx + mu)
+    row_bytes = 4 * lanes * (2 * op.nx + op.nu)
+    tile = max(1, min(op.N, (SMEM_LIMIT - plant) // row_bytes))
+    return lanes, tile, plant + tile * row_bytes
 
 
 def _grid_entry(op: RiccatiOperator, ridx: Tensor):
@@ -200,12 +322,15 @@ def _flags(op: RiccatiOperator):
     return (int(op.split_interior), int(op.split_terminal), int(op.terminal_ball))
 
 
-def _launch_k3(op, ridx, e0T, ballr, vX, vU, lamX, lamU, chunk):
+def _launch_k3(op, ridx, e0T, ballr, vX, vU, lamX, lamU, chunk, route=None):
+    """Launch K3 as :func:`k3_plan` lays it out (``route`` forces one of
+    ``K3_ROUTES``, for the comparisons of the routes)."""
     _require_fits("K3", op)
     if int(chunk) < 1:
         raise ValueError(f"K3 runs at least one iteration; chunk={chunk}")
     N, nx, nu = op.N, op.nx, op.nu
     B = e0T.shape[1]
+    plan = k3_plan(op, B, route)
     R = len(op.rho_grid)
     f = torch.float32
     stacks, plant, boxes = _shape_args(op, B)
@@ -220,11 +345,14 @@ def _launch_k3(op, ridx, e0T, ballr, vX, vU, lamX, lamU, chunk):
         ("lamU", lamU, (N, nu, B), f),
     ]
     _check_args("K3", args, e0T.device)
-    # X, U, vX, vU, lamX, lamU, then the scratch: a second v/lam set that
-    # the iterations alternate with the outputs, and ffs
-    outs = [torch.empty_like(t) for t in (vX, vU) * 5 + (vU,)]
+    # X, U, vX, vU, lamX, lamU, then ffs, a scratch only where the rows stay
+    # in device memory
+    outs = [torch.empty_like(t) for t in (vX, vU) * 3]
+    outs.append(torch.empty_like(vU) if not plan.rows_shared else vU.new_empty(0))
     out = _launch(
-        "K3", "riccati_admm_chunk", args, outs, (N, nx, nu, B, R, int(chunk), *_flags(op))
+        "K3", "riccati_admm_chunk", args, outs,
+        (N, nx, nu, B, R, int(chunk), *_flags(op), plan.lanes, int(plan.rows_shared),
+         plan.fac_mode, plan.smem_bytes),
     )
     return out[:6]
 
@@ -303,7 +431,9 @@ def certificate_terms_plain(op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ba
     return torch.stack([ortho, support, dnorm])
 
 
-def _launch_certificate(op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ballr):
+def _launch_certificate(op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ballr, tile=None):
+    """Launch the certificate kernel as :func:`certificate_plan` lays it out
+    (``tile`` forces the horizon rows staged at a time)."""
     _require_fits("the certificate kernel", op)
     N, nx, nu = op.N, op.nx, op.nu
     B = ballr.shape[0]
@@ -319,8 +449,11 @@ def _launch_certificate(op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ballr)
     ]
     _check_args("certificate", args, ballr.device)
     out = torch.empty((3, B), dtype=f, device=ballr.device)
+    lanes, planned, _ = certificate_plan(op, B)
+    tile = planned if tile is None else min(int(tile), planned)
     return _launch(
-        "certificate", "riccati_certificate", args, [out], (N, nx, nu, B, *_flags(op))
+        "certificate", "riccati_certificate", args, [out],
+        (N, nx, nu, B, *_flags(op), lanes, tile),
     )[0]
 
 

@@ -24,7 +24,11 @@ points a user calls (``proceed_controller(..., device=card)``, then
   clip(0.65 + 0.1 N(0, 1), 0.3, 1.3) through ``solve_batch_auto``; the
   same at horizon 50 over 4096 states (``engine="riccati"``); and a
   1024-lane closed loop at h500. K3's driver runs two small per-lane
-  kernels of its own, the rollout and the certificate;
+  kernels of its own, the rollout and the certificate. K3 lays each launch
+  out by shape (``riccati_fused.k3_plan``): the lanes' rows in shared
+  memory beside fp64 factors, or with fp32 factors in shared or device
+  memory, or the rows streamed from device memory; every route is held to
+  the plain version at a shape that takes it;
 - K4 and K5, the dense-A path: the same QTP QPs with their state or
   terminal rows moved above the input-box rows (OSQP's convention, rows
   not box-first), so the designer's operator classes are bypassed and
@@ -41,8 +45,11 @@ Phases (any failure raises and exits non-zero):
    build/kernels/ptxas.txt), and the native oracle with g++, into build/;
 3. each kernel against its plain PyTorch version on the card at its
    main-path shapes (K3 at h500 and at one h50 shape per branch of the
-   kernel; K4 with and without refinement, K5 at h20 and h50), with times
-   from CUDA events;
+   kernel, then at the shapes that take the other routes of its plan: h500
+   with the state box, a ragged batch, longer horizons, an (8, 4) and a
+   (16, 8) plant; K4 with and without refinement, K5 at h20 and h50), with
+   times from CUDA events, and beside K3's the time of its dependency chain
+   alone (chain_floor_ms);
 4. each path, with the launch counts set to 0 just before it and read
    just after, showing that it went through its kernel and never through
    a plain version;
@@ -111,10 +118,11 @@ def ptxas_summary(report: str):
         if m and name:
             kind = next(k for key, k in (
                 ("riccati_admm_chunk", "K3"), ("riccati_rollout", "K3 rollout"),
-                ("riccati_certificate", "K3 certificate"), ("dense_packed", "K4"),
+                ("riccati_certificate", "K3 certificate"),
+                ("riccati_chain_floor", "K3 chain floor"), ("dense_packed", "K4"),
                 ("dense_perr", "K5"), ("mixed", "K2"), ("", "K1"),
             ) if key in name)
-            targs = re.findall(r"Li(\d+)E", name)
+            targs = re.findall(r"L[ib](\d+)E", name)  # int and bool arguments
             rows.append(dict(kernel=kind, template=[int(a) for a in targs],
                              registers=int(m.group(1)), spill_bytes=spill))
             name, spill = None, 0
@@ -254,41 +262,113 @@ def _errors(outs_k, outs_p, tag):
 def riccati_inputs(ctrl, B, seed, x0s_fn):
     """A chunk's inputs at a real shape: initial states from x0s_fn, the
     ball radius they give, and a seeded state near the driver's start."""
+    import torch
+
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati
+
+    x0s = torch.from_numpy(x0s_fn(B)).to(ctrl.device)
+    e0T = (x0s - ctrl.tuning.references.x[:, 0]).T.contiguous()
+    ridx = riccati._initial_ridx(ctrl.engine.op, ctrl.engine.config)
+    return operator_inputs(ctrl.engine.op, ridx, e0T, seed)
+
+
+def operator_inputs(op, ridx, e0T, seed):
+    """A chunk's inputs for a Riccati operator on the card: the grid index,
+    the initial deviations e0T (nx, B) and a seeded state of scale 0.05."""
     import numpy as np
     import torch
 
     from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati
 
-    op, dev = ctrl.engine.op, ctrl.device
-    x0s = torch.from_numpy(x0s_fn(B)).to(dev)
-    e0T = (x0s - ctrl.tuning.references.x[:, 0]).T.contiguous()
+    dev, B = e0T.device, int(e0T.shape[1])
     rng = np.random.default_rng(seed)
     noise = lambda *shape: torch.from_numpy(
         (0.05 * rng.standard_normal(shape)).astype(np.float32)
     ).to(dev)
     N, nx, nu = op.N, op.nx, op.nu
-    ridx = torch.tensor(
-        [riccati._initial_ridx(op, ctrl.engine.config)], dtype=torch.int32, device=dev
-    )
-    return (op, ridx, e0T, riccati.ball_radius(op, e0T), noise(N + 1, nx, B), noise(N, nu, B),
+    return (op, torch.tensor([ridx], dtype=torch.int32, device=dev), e0T,
+            riccati.ball_radius(op, e0T), noise(N + 1, nx, B), noise(N, nu, B),
             noise(N + 1, nx, B), noise(N, nu, B))
 
 
+def operator_like(op, N, state_constraint):
+    """The Riccati operator of op's plant, weights and boxes at another
+    horizon, with or without the state box, on op's device: a shape of the
+    suite's horizon sweep without the controller's design."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati
+
+    dev = op.rho_tab.device
+    c = op.to("cpu")
+    f = lambda t: t.double().numpy()
+    return riccati.build_riccati_operator(
+        f(c.factors.A), f(c.factors.B), f(c.Q), f(c.R_in), f(c.P_term), N, f(c.x_lo),
+        f(c.x_hi), f(c.u_lo), f(c.u_hi), state_constraint,
+        config=riccati.RiccatiConfig(max_iter=1000),
+    ).to(dev)
+
+
+def wide_operator(nx, nu, N, dev, seed):
+    """A Riccati operator with the state box for a seeded stable plant of nx
+    states and nu inputs: K3's wider register tiers."""
+    import numpy as np
+
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati
+
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((nx, nx))
+    A *= 0.95 / np.abs(np.linalg.eigvals(A)).max()
+    return riccati.build_riccati_operator(
+        A, 0.5 * rng.standard_normal((nx, nu)), np.eye(nx), 0.5 * np.eye(nu), 2.0 * np.eye(nx),
+        N, -np.ones(nx), np.ones(nx), -0.5 * np.ones(nu), 0.5 * np.ones(nu), True,
+    ).to(dev)
+
+
+def chain_floor_ms(N, nx, nu, chunk, dev):
+    """Milliseconds of K3's dependency chain alone: one warp runs the
+    dependent instructions of N x chunk sweep steps and as many rollout
+    steps from registers, with no memory in the loop (riccati_chain_floor).
+    What a recurrence of this length can reach, beside the operations
+    bound."""
+    import torch
+
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import _build
+
+    lib = _build.load_kernels()
+    io = torch.full((34,), 0.5, dtype=torch.float32, device=dev)
+
+    def launch():
+        err = lib.riccati_chain_floor(io.data_ptr(), N, nx, nu, chunk,
+                                      torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"riccati_chain_floor launch failed: cudaError_t {err}")
+
+    return cuda_ms(launch, reps=5)
+
+
 def compare_k3(ctrl, branch, B, seed, x0s_fn, plain_reps):
-    """K3 against its plain version for one chunk at one shape, on the card."""
+    """K3 against its plain version for one chunk at one of the
+    controllers' shapes, on the card."""
+    chunk = int(ctrl.engine.config.check_interval)
+    return compare_k3_args(riccati_inputs(ctrl, B, seed, x0s_fn) + (chunk,), branch, plain_reps)
+
+
+def compare_k3_args(args, branch, plain_reps):
+    """K3, laid out as its plan says for the shape, against its plain
+    version on one chunk's inputs."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati_fused
 
-    args = riccati_inputs(ctrl, B, seed, x0s_fn)
-    op = args[0]
-    chunk = int(ctrl.engine.config.check_interval)
-    args = args + (chunk,)
+    op, B, chunk = args[0], int(args[2].shape[1]), args[-1]
+    plan = riccati_fused.k3_plan(op, B)
+    log(phase="k3_plan", branch=branch, N=op.N, nx=op.nx, nu=op.nu, B=B, **plan._asdict())
     kernel, plain = riccati_fused.iterate_chunk_riccati, riccati_fused.iterate_chunk_riccati_plain
     abs_err, rel_err, ulps = _errors(kernel(*args), plain(*args), "K3")
-    rec = dict(branch=branch, N=op.N, B=B, chunk=chunk, rho_index=int(args[1][0]),
+    rec = dict(branch=branch, N=op.N, nx=op.nx, nu=op.nu, B=B, chunk=chunk,
+               rho_index=int(args[1][0]), route=plan.route, lanes=plan.lanes,
+               blocks=plan.blocks, smem_bytes=plan.smem_bytes,
                split_interior=op.split_interior, terminal_ball=op.terminal_ball,
                term_rho_scale=op.term_rho_scale, max_abs_err=abs_err, max_rel_err=rel_err,
                max_ulps=ulps)
-    if rel_err > SHAPES_OK_REL:
+    if rel_err > SHAPES_OK_REL or ulps != 0:
         raise RuntimeError(f"K3 disagrees with its plain version: {rec}")
     rec["ms"] = cuda_ms(lambda: kernel(*args))
     rec["plain_ms"] = cuda_ms(lambda: plain(*args), reps=plain_reps, warm_up=False)
@@ -520,7 +600,9 @@ def main():
     from automationlabsmodelpredictivecontrol_jl_torch import native_qp, parallel
     from automationlabsmodelpredictivecontrol_jl_torch import RiccatiEngine, proceed_controller
     from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp
-    from automationlabsmodelpredictivecontrol_jl_torch.ops import _build, admm_fused, riccati_fused
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import (
+        _build, admm_fused, riccati, riccati_fused,
+    )
     from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig
     from automationlabsmodelpredictivecontrol_jl_torch.ops.riccati import RiccatiConfig
     from automationlabsmodelpredictivecontrol_jl_torch.utils.devices import require_cuda
@@ -635,8 +717,44 @@ def main():
     # K3 at the h500 cell's shape (plain timed once: ~10^6 small launches)
     # and at h50 on each other branch; the driver's two recurrences at h500
     k3_shapes = [compare_k3(ctrl_h500, "none", B_H500, 8, suite6_x0s, plain_reps=1)]
+    k3_shapes[0]["chain_floor_ms"] = chain_floor_ms(
+        500, 4, 2, int(ctrl_h500.engine.config.check_interval), dev)
     k3_shapes += [compare_k3(c, k, B_H500, 9 + i, suite6_x0s, plain_reps=2)
                   for i, (k, c) in enumerate(branches_h50.items())]
+    # the shapes that take the other routes of K3's plan: fewer lanes beside
+    # the fp64 factors (h500 with the state box), a ragged batch, fp32
+    # factors read through L1/L2 (h800) or in shared memory (h1000 at 256
+    # lanes), the rows streamed (h500 at 4096 lanes), and the (8, 4) and
+    # (16, 8) register tiers (seeded plants); 5 iterations where the plain
+    # version's Python loop over the horizon is long
+    qtp_op = ctrl_h500.engine.op
+    sc_op = branches_h50["state"].engine.op
+    e0 = lambda nx, B, seed: torch.from_numpy(
+        (0.1 * np.random.default_rng(seed).standard_normal((nx, B))).astype(np.float32)
+    ).to(dev)
+    ridx0 = riccati._initial_ridx(qtp_op, ctrl_h500.engine.config)
+    extra = [
+        ("h500 state box", operator_like(sc_op, 500, True), B_H500, 25, "shared-fp64"),
+        ("h50 state box, ragged batch", sc_op, 1000, 25, "shared-fp64"),
+        ("h800", operator_like(qtp_op, 800, False), B_H500, 5, "shared-l2"),
+        ("h1000, 256 lanes", operator_like(qtp_op, 1000, False), 256, 5, "shared-fp32"),
+        ("h500, 4096 lanes", qtp_op, B_H50, 5, "stream"),
+        ("(8, 4) plant, h50 state box", wide_operator(8, 4, 50, dev, 18), B_H500, 25,
+         "shared-fp64"),
+        ("(16, 8) plant, h50 state box, ragged batch", wide_operator(16, 8, 50, dev, 19), 1000,
+         5, "shared-fp64"),
+        ("(7, 3) plant, h200 state box", wide_operator(7, 3, 200, dev, 20), B_H500, 5,
+         "shared-fp32"),
+    ]
+    for i, (branch, op_x, B_x, chunk_x, want_route) in enumerate(extra):
+        args = operator_inputs(op_x, ridx0, e0(op_x.nx, B_x, 30 + i), 40 + i) + (chunk_x,)
+        rec = compare_k3_args(args, branch, plain_reps=1)
+        if rec["route"] != want_route:
+            raise RuntimeError(f"K3's plan took {rec['route']} at {branch}, expected {want_route}")
+        k3_shapes.append(rec)
+    routes = {rec["route"] for rec in k3_shapes}
+    if routes != set(riccati_fused.K3_ROUTES):
+        raise RuntimeError(f"K3 routes not held to the plain version: {set(riccati_fused.K3_ROUTES) - routes}")
     for rec in k3_shapes:
         log(phase="k3_vs_plain", **rec)
     rollout_rec, cert_rec = compare_recurrences(ctrl_h500, B_H500, 13, suite6_x0s)
@@ -773,6 +891,14 @@ def main():
         )
         log(**rec)
         ricc_recs[cell] = rec
+        if cell == "riccati-h500-B1024":
+            # the share of lanes still iterating in each chunk, from the
+            # solution's per-lane counts: what skipping finished lanes could save
+            ck = int(c.engine.config.check_interval)
+            its = sol_r.iterations.cpu().numpy()
+            chunks = -(-int(its.max()) // ck)
+            log(phase="active_lanes_per_chunk", cell=cell, chunk=ck, chunks=chunks,
+                share=[float((its > j * ck).mean()) for j in range(chunks)])
 
     t0 = time.perf_counter()
     xs_r, _, st_r = parallel.closed_loop_batch(ctrl_h500, qtp.qtp_discrete_step, x_h500, CL_STEPS)
@@ -901,8 +1027,9 @@ def main():
                      k1_launches, k1_shapes),
         kernel_entry("admm_mixed_chunk (K2)", "admm_mixed.cu", f"{TPU_ADMM}:580",
                      k2_launches, k2_shapes),
-        kernel_entry("riccati_admm_chunk (K3)", "riccati_admm.cu", f"{TPU_RICCATI}:60",
-                     k3_counts["K3"], k3_shapes),
+        dict(kernel_entry("riccati_admm_chunk (K3)", "riccati_admm.cu", f"{TPU_RICCATI}:60",
+                          k3_counts["K3"], k3_shapes),
+             routes=sorted({rec["route"] for rec in k3_shapes})),
         # the driver's rollouts and certificate recursion (lax.scan there)
         kernel_entry("riccati_rollout (K3 driver)", "riccati_admm.cu", f"{TPU_RICCATI}:352",
                      k3_counts["rollout"], [rollout_rec]),

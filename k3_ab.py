@@ -1,0 +1,217 @@
+"""A/B timing of K3 and the certificate kernel across source trees, on one
+NVIDIA GPU, in one process tree (so on one card, under one power limit).
+
+    python3 k3_ab.py NAME=TREE[:ROUTE] [NAME=TREE[:ROUTE] ...] [--sass NAME]
+
+Each TREE is a directory that holds the port's package (this checkout is
+"."; an earlier commit unpacked with ``git archive`` is another). The specs
+run in the order given, each in a child process that imports the package
+from its tree, builds the tree's kernels on first use (into the tree's own
+build/), and times K3 on the inputs chip_smoke.py's compare_k3 uses (the
+QTP plant, suite config 6's states, seeded noise of 0.05) at
+
+- h500, no state rows, B=1024 (the riccati-h500-B1024 cell's chunk);
+- h500 with the state box, B=1024;
+- h50 with the state box, the contractive ball and the equality terminal,
+  B=1024; h50, no state rows, B=4096 (the riccati-h50-B4096 cell's chunk);
+
+and the certificate and rollout kernels at h500, B=1024. ROUTE forces one
+of ``riccati_fused.K3_ROUTES`` in a tree that has them; a shape the route
+does not fit is skipped. Times are CUDA-event means over 20 launches after
+a warm-up (5 at h500). Each child also prints a SHA-256 of every output, so
+that trees can be held to each other bit for bit without the plain version;
+``--plain NAME`` also runs the plain version once per shape in that tree and
+compares. ``--sass NAME`` writes the SASS of that tree's (4, 2) K3 kernels to
+sass_NAME.txt under ``--sass-dir`` (default build/sass; cuobjdump). ``--shapes`` keeps only the named
+shapes. A tree that has the chain-floor probe (riccati_chain_floor: one warp
+running only the dependent instructions of the two horizon loops) reports
+its time for an h500 chunk as chain_floor_ms.
+
+List a tree twice (first and last) to see the drift within the call. The
+last line is a JSON object of all records.
+"""
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+SHAPES = (  # name, horizon, B, controller options, launches timed
+    ("h500-none-B1024", 500, 1024, {}, 5),
+    ("h500-state-B1024", 500, 1024, {"mpc_state_constraint": True}, 5),
+    ("h50-state-B1024", 50, 1024, {"mpc_state_constraint": True}, 20),
+    ("h50-contractive-B1024", 50, 1024, {"mpc_terminal_ingredient": "contractive"}, 20),
+    ("h50-equality-B1024", 50, 1024, {"mpc_terminal_ingredient": "equality"}, 20),
+    ("h50-none-B4096", 50, 4096, {}, 20),
+)
+
+
+def _digest(tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _ms(fn, reps):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def chain_floor_ms(lib, N, nx, nu, chunk, dev):
+    """Milliseconds of one warp running K3's dependent instructions for
+    N x chunk sweep steps and as many rollout steps, from registers."""
+    import torch
+
+    io = torch.full((34,), 0.5, dtype=torch.float32, device=dev)
+
+    def launch():
+        err = lib.riccati_chain_floor(io.data_ptr(), N, nx, nu, chunk,
+                                      torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"riccati_chain_floor launch failed: cudaError_t {err}")
+
+    return _ms(launch, 5)
+
+
+def child(tree, route, plain, sass, sass_dir, shapes):
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+
+    from automationlabsmodelpredictivecontrol_jl_torch import proceed_controller
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import _build, riccati, riccati_fused
+    from automationlabsmodelpredictivecontrol_jl_torch.ops.riccati import RiccatiConfig
+
+    dev = torch.device("cuda", 0)
+    lib = _build.load_kernels()
+    if sass:
+        text = subprocess.run(["cuobjdump", "-sass", _build.LIB_PATH], capture_output=True,
+                              text=True, check=True).stdout
+        parts = text.split("\t\tFunction : ")
+        keep = [p for p in parts[1:] if "riccati_admm_chunk" in p.split("\n", 1)[0]
+                and "Li4ELi2" in p.split("\n", 1)[0]]
+        os.makedirs(sass_dir, exist_ok=True)
+        with open(os.path.join(sass_dir, f"sass_{sass}.txt"), "w") as f:
+            f.write("\n\t\tFunction : ".join([""] + keep))
+    plant = qtp.linearized_discrete_system()
+    records = []
+    for name, N, B, kw, reps in SHAPES:
+        if shapes and name not in shapes:
+            continue
+        ctrl = proceed_controller(
+            plant, "model_predictive_control", N, 5.0, [0.65] * 4, [1.2] * 2,
+            riccati_config=RiccatiConfig(max_iter=1000), device=dev, engine="riccati", **kw,
+        )
+        op = ctrl.engine.op
+        rng = np.random.default_rng(0)
+        x0s = np.clip(0.65 + 0.1 * rng.standard_normal((B, 4)), 0.3, 1.3).astype(np.float32)
+        e0T = (torch.from_numpy(x0s).to(dev) - ctrl.tuning.references.x[:, 0]).T.contiguous()
+        rng = np.random.default_rng(8)
+        noise = lambda *shape: torch.from_numpy(
+            (0.05 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+        ridx = torch.tensor([riccati._initial_ridx(op, ctrl.engine.config)],
+                            dtype=torch.int32, device=dev)
+        ballr = riccati.ball_radius(op, e0T)
+        state = (noise(N + 1, 4, B), noise(N, 2, B), noise(N + 1, 4, B), noise(N, 2, B))
+        args = (op, ridx, e0T, ballr, *state, int(ctrl.engine.config.check_interval))
+        rec = dict(shape=name)
+        if route is None:
+            fn = lambda: riccati_fused.iterate_chunk_riccati(*args)
+            if hasattr(riccati_fused, "k3_plan"):
+                rec["plan"] = riccati_fused.k3_plan(op, B)._asdict()
+        else:
+            try:
+                rec["plan"] = riccati_fused.k3_plan(op, B, route)._asdict()
+            except ValueError as err:
+                records.append(dict(rec, skipped=str(err)))
+                continue
+            fn = lambda: riccati_fused._launch_k3(*args, route=route)
+        out = fn()
+        torch.cuda.synchronize()
+        rec["sha256"] = _digest(out)
+        if plain:
+            want = riccati_fused.iterate_chunk_riccati_plain(*args)
+            rec["equals_plain"] = all(
+                torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(out, want))
+        rec["ms"] = _ms(fn, reps)
+        if name == "h500-none-B1024":  # the driver's two recurrences at the cell's shape
+            lamX, lamU = state[2], state[3]
+            lamX2, lamU2 = lamX + 0.01 * lamX.flip(0), lamU - 0.02 * lamU.flip(0)
+            Xbar = riccati_fused.rollout(op, e0T, state[1])
+            cert = lambda: riccati_fused.certificate_terms(op, lamX2, lamX, lamU2, lamU, Xbar, ballr)
+            rec["certificate_sha256"] = _digest([cert()])
+            rec["certificate_ms"] = _ms(cert, 20)
+            rec["rollout_ms"] = _ms(lambda: riccati_fused.rollout(op, e0T, state[1]), 20)
+            if hasattr(lib, "riccati_chain_floor"):
+                rec["chain_floor_ms"] = chain_floor_ms(lib, N, 4, 2, args[-1], dev)
+        records.append(rec)
+    print("K3_AB " + json.dumps(records), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("specs", nargs="*", help="NAME=TREE[:ROUTE]")
+    ap.add_argument("--plain", default=None, help="the spec name whose outputs are held to the plain version")
+    ap.add_argument("--sass", action="append", default=[], help="spec names whose K3 SASS is written out")
+    ap.add_argument("--sass-dir", default=os.path.join("build", "sass"),
+                    help="where --sass writes")
+    ap.add_argument("--shapes", default="", help="comma-separated shape names (default: all)")
+    ap.add_argument("--child", nargs=2, metavar=("TREE", "ROUTE"), help=argparse.SUPPRESS)
+    ap.add_argument("--child-plain", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--child-sass", default=None, help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    if a.child:
+        tree, route = a.child
+        child(tree, None if route == "-" else route, a.child_plain, a.child_sass,
+              os.path.abspath(a.sass_dir), [s for s in a.shapes.split(",") if s])
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("k3_ab.py needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    results, plained, dumped = [], set(), set()
+    for spec in a.specs:
+        name, _, rest = spec.partition("=")
+        tree, _, route = rest.partition(":")
+        cmd = [sys.executable, os.path.abspath(__file__), "--child", tree, route or "-",
+               "--shapes", a.shapes, "--sass-dir", a.sass_dir]
+        if a.plain == name and name not in plained:
+            cmd.append("--child-plain")
+            plained.add(name)
+        if name in a.sass and name not in dumped:
+            cmd += ["--child-sass", name]
+            dumped.add(name)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        line = next((l for l in proc.stdout.splitlines() if l.startswith("K3_AB ")), None)
+        if proc.returncode != 0 or line is None:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr)
+            print(f"k3_ab.py: {spec} failed with exit code {proc.returncode}", file=sys.stderr)
+            return 1
+        for rec in json.loads(line[len("K3_AB "):]):
+            rec = dict(spec=name, tree=tree, route=route or None, **rec)
+            print(json.dumps(rec), flush=True)
+            results.append(rec)
+    print(json.dumps({"card": smi, "records": results}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

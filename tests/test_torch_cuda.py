@@ -273,15 +273,46 @@ def riccati_controllers(card):
 
 
 def _riccati_args(ctrl, B, seed):
-    op = ctrl.engine.op
-    dev = ctrl.device
+    return _op_args(ctrl.engine.op, ctrl.device, B, seed)
+
+
+def _op_args(op, dev, B, seed):
     rng = np.random.default_rng(seed)
     t = lambda *shape: torch.from_numpy((0.05 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
-    e0T = 2.0 * t(4, B)
+    N, nx, nu = op.N, op.nx, op.nu
+    e0T = 2.0 * t(nx, B)
     ridx = torch.tensor([int(rng.integers(0, len(op.rho_grid)))], dtype=torch.int32, device=dev)
     ballr = riccati.ball_radius(op, e0T)
-    N = op.N
-    return op, ridx, e0T, ballr, t(N + 1, 4, B), t(N, 2, B), t(N + 1, 4, B), t(N, 2, B)
+    return op, ridx, e0T, ballr, t(N + 1, nx, B), t(N, nu, B), t(N + 1, nx, B), t(N, nu, B)
+
+
+def _synthetic_op(N, nx, nu, branch, dev, seed=0):
+    """A Riccati operator of a seeded stable plant (nx, nu) at horizon N, on
+    one branch of K3: any horizon and width, with no controller design."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((nx, nx))
+    A *= 0.95 / np.abs(np.linalg.eigvals(A)).max()
+    kind = branch if branch in ("contractive", "equality") else "none"
+    op = riccati.build_riccati_operator(
+        A, 0.5 * rng.standard_normal((nx, nu)), np.eye(nx), 0.5 * np.eye(nu), 2.0 * np.eye(nx),
+        N, -np.ones(nx), np.ones(nx), -0.5 * np.ones(nu), 0.5 * np.ones(nu),
+        state_constraint=branch == "state", terminal_kind=kind,
+    )
+    return op.to(dev)
+
+
+def _assert_k3_equals_plain(args, route=None):
+    """One K3 launch (on ``route``, or as the plan lays it out) against the
+    plain version: equal to the last bit."""
+    launches, plain = admm_fused.LAUNCHES["K3"], admm_fused.PLAIN_CALLS["K3"]
+    out_k = riccati_fused._launch_k3(*args, route=route)
+    torch.cuda.synchronize()
+    assert admm_fused.LAUNCHES["K3"] == launches + 1
+    assert admm_fused.PLAIN_CALLS["K3"] == plain
+    out_p = riccati_fused.iterate_chunk_riccati_plain(*args)
+    for name, a, b in zip(("X", "U", "vX", "vU", "lamX", "lamU"), out_k, out_p):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
 
 
 @pytest.mark.parametrize("branch", list(RICCATI_BRANCHES))
@@ -300,6 +331,62 @@ def test_k3_matches_plain_version(riccati_controllers, branch, B):
     for name, a, b in zip(("X", "U", "vX", "vU", "lamX", "lamU"), out_k, out_p):
         assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
         assert float((a - b).abs().max()) == 0.0, name
+
+
+@pytest.mark.parametrize("branch", list(RICCATI_BRANCHES))
+@pytest.mark.parametrize("route", list(riccati_fused.K3_ROUTES))
+def test_k3_routes_match_plain_version(riccati_controllers, route, branch):
+    """Every route of the plan, forced at a shape all of them take, with a
+    partial last block (33 lanes)."""
+    args = _riccati_args(riccati_controllers[branch], 33, 7) + (25,)
+    assert riccati_fused.k3_plan(args[0], 33, route).route == route
+    _assert_k3_equals_plain(args, route)
+
+
+@pytest.mark.parametrize("branch", list(RICCATI_BRANCHES))
+@pytest.mark.parametrize("B", [1, 33, 1000])
+@pytest.mark.parametrize("N", [1, 2, 50])
+def test_k3_short_horizons_and_ragged_batches(card, N, B, branch):
+    op = _synthetic_op(N, 4, 2, branch, card, seed=N)
+    _assert_k3_equals_plain(_op_args(op, card, B, N + B) + (3 if N == 50 else 25,))
+
+
+@pytest.mark.parametrize("route", list(riccati_fused.K3_ROUTES))
+@pytest.mark.parametrize("nx,nu", [(8, 4), (16, 8), (3, 1), (7, 3)])
+def test_k3_wider_plants_match_plain_version(card, nx, nu, route):
+    """The (8, 4) and (16, 8) register tiers, and plants narrower than
+    their tier (padded factors), on every route."""
+    op = _synthetic_op(12, nx, nu, "state", card, seed=nx)
+    _assert_k3_equals_plain(_op_args(op, card, 77, nx + nu) + (5,), route)
+
+
+def _assert_certificate_equals_plain(op, dev, B, seed, tile=None):
+    _, _, e0T, ballr, lamX0, lamU0, lamX1, lamU1 = _op_args(op, dev, B, seed)
+    X = riccati.rollout_warm(op, e0T, lamU1)
+    args = (op, lamX1, lamX0, lamU1, lamU0, X, ballr)
+    terms = riccati_fused._launch_certificate(*args, tile=tile)
+    torch.cuda.synchronize()
+    want = riccati_fused.certificate_terms_plain(*args)
+    # the adjoint and max|dlam| in the same order; the support's long
+    # fp64 sums in another order, each rounded once
+    assert torch.equal(terms[0], want[0]) and torch.equal(terms[2], want[2])
+    finite = torch.isfinite(want[1])
+    assert torch.equal(torch.isfinite(terms[1]), finite)
+    err = (terms[1][finite] - want[1][finite]).abs()
+    assert bool((err <= 1e-6 * want[1][finite].abs().clamp_min(1.0)).all())
+
+
+@pytest.mark.parametrize("branch", list(RICCATI_BRANCHES))
+@pytest.mark.parametrize("N,B,tile", [(1, 1, None), (2, 33, 1), (50, 1000, None), (50, 33, 7)])
+def test_certificate_horizons_batches_and_tiles(card, N, B, tile, branch):
+    """The certificate kernel at short horizons, ragged batches and tiles
+    that do not divide the horizon."""
+    _assert_certificate_equals_plain(_synthetic_op(N, 4, 2, branch, card, seed=N), card, B, N + B, tile)
+
+
+@pytest.mark.parametrize("nx,nu", [(8, 4), (16, 8), (3, 1)])
+def test_certificate_wider_plants(card, nx, nu):
+    _assert_certificate_equals_plain(_synthetic_op(12, nx, nu, "state", card, seed=nx), card, 77, nx, tile=5)
 
 
 def test_recurrence_kernels_match_plain_versions(riccati_controllers):

@@ -327,3 +327,88 @@ def test_k3_fits_and_wrapper_guards(branch_ops):
         riccati_fused.iterate_chunk_riccati(
             op, torch.zeros(1, dtype=torch.int32, device="meta"), *([None] * 6), 25
         )
+
+
+def _shape(op, N, nx=4, nu=2, branch="none"):
+    """The operator's shape as k3_plan reads it, at another horizon, width
+    and branch (the plan reads no tensor)."""
+    return dataclasses.replace(
+        op, N=N, nx=nx, nu=nu,
+        split_interior=branch == "state",
+        split_terminal=branch != "none",
+        terminal_ball=branch == "contractive",
+    )
+
+
+def _k3_bytes(op, plan):
+    """The shared memory csrc/riccati_admm.cu lays out for a plan (its
+    launch_chunk refuses a launch whose bytes differ)."""
+    mx, mu = next(t for t in ((4, 2), (8, 4), (16, 8)) if op.nx <= t[0] and op.nu <= t[1])
+    N, nx, nu = op.N, op.nx, op.nu
+    fac = {0: 8 * (N * (mu * mx + mu * mu + mx * mx) + mx * mx + mx * mu),
+           1: (4 * (N * (nu * nx + nu * nu + nx * nx) + nx * nx + nx * nu) + 15) // 16 * 16,
+           2: 0}[plan.fac_mode]
+    xrows = N if op.split_interior else int(op.split_terminal or op.terminal_ball)
+    rows = 4 * plan.lanes * (3 * N * nu + 2 * xrows * nx) if plan.rows_shared else 0
+    return fac + rows
+
+
+@pytest.mark.parametrize("branch", list(BRANCHES))
+@pytest.mark.parametrize("N", [50, 100, 200, 500, 800])
+def test_k3_plan_gives_every_suite_shape_a_route(branch_ops, N, branch):
+    """Every horizon of the suite's Riccati sweep, on every branch, register
+    tier and batch size: a route within shared memory whose blocks cover
+    the batch, with the bytes the kernel's layout takes."""
+    op0 = branch_ops["none"][1].engine.op
+    for nx, nu in ((4, 2), (8, 4), (16, 8), (3, 1)):
+        for B in (1, 33, 1000, 1024, 4096):
+            op = _shape(op0, N, nx, nu, branch)
+            assert riccati_fused.k3_fits(op)
+            plan = riccati_fused.k3_plan(op, B)
+            assert plan.route in riccati_fused.K3_ROUTES
+            assert 1 <= plan.lanes <= plan.threads == 128
+            assert plan.blocks * plan.lanes >= B > (plan.blocks - 1) * plan.lanes
+            assert 0 <= plan.smem_bytes <= 232448
+            assert plan.smem_bytes == _k3_bytes(op, plan)
+            assert (plan.rows_shared, plan.fac_mode) == riccati_fused.K3_ROUTES[plan.route][:2]
+            # no more lanes in a block than spread the batch over the card
+            assert plan.lanes <= max(1, -(-B // riccati_fused.SM_COUNT))
+
+
+def test_k3_plan_routes_by_shape(branch_ops):
+    op0 = branch_ops["none"][1].engine.op
+    plan = riccati_fused.k3_plan
+    # the h500 cell: eight lanes beside the fp64 factors, 128 blocks
+    p = plan(_shape(op0, 500), 1024)
+    assert (p.route, p.lanes, p.blocks, p.smem_bytes) == ("shared-fp64", 8, 128, 208192)
+    # the h50 cell fills the card with one warp of lanes per block
+    p = plan(_shape(op0, 50), 4096)
+    assert (p.route, p.lanes, p.blocks) == ("shared-fp64", 32, 128)
+    # state rows at h500: 28 KB a lane, fewer lanes or lighter factors
+    p = plan(_shape(op0, 500, branch="state"), 1024)
+    assert p.rows_shared and 1 <= p.lanes < 8 or p.fac_mode != 0
+    # a horizon whose rows outgrow shared memory streams them
+    p = plan(_shape(op0, 5000, branch="state"), 1024)
+    assert (p.route, p.smem_bytes, p.rows_shared) == ("stream", 0, False)
+    assert plan(_shape(op0, 1200, 16, 8, "state"), 64).route == "stream"
+    # a forced route is taken where it fits and refused where it does not
+    for route in riccati_fused.K3_ROUTES:
+        assert plan(_shape(op0, 50), 77, route).route == route
+    with pytest.raises(ValueError, match="does not fit"):
+        plan(_shape(op0, 5000, branch="state"), 1024, "shared-l2")
+    with pytest.raises(ValueError, match="unknown K3 route"):
+        plan(_shape(op0, 50), 77, "registers")
+    with pytest.raises(ValueError, match="nx <= 16"):
+        plan(_shape(op0, 50, nx=17), 77)
+
+
+@pytest.mark.parametrize("N,nx,nu,B", [(500, 4, 2, 1024), (50, 4, 2, 4096), (800, 16, 8, 1),
+                                        (20000, 4, 2, 33), (12, 3, 1, 100000)])
+def test_certificate_plan_fits(branch_ops, N, nx, nu, B):
+    op = _shape(branch_ops["none"][1].engine.op, N, nx, nu, "state")
+    lanes, tile, smem = riccati_fused.certificate_plan(op, B)
+    assert 1 <= lanes <= 128 and 1 <= tile <= N and smem <= 232448
+    mx, mu = next(t for t in ((4, 2), (8, 4), (16, 8)) if nx <= t[0] and nu <= t[1])
+    assert smem == 8 * mx * (mx + mu) + 4 * tile * lanes * (2 * nx + nu)
+    if (N, B) == (500, 1024):  # the h500 cell: the whole horizon in one tile
+        assert (lanes, tile) == (8, 500)
