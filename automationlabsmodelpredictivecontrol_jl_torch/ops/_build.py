@@ -3,8 +3,10 @@
 Each source in ``csrc/*.cu`` compiles with its own ``nvcc`` for
 ``sm_90a``, all of them at once, into an object file; the objects link
 into one shared library with a plain C interface,
-``build/kernels/libmpc_kernels.so`` at the root of the checkout. That
-happens on first use, or when a source is newer than the library. The
+``build/kernels/libmpc_kernels.so`` at the root of the checkout (K3's
+register tiers, and the widest tier's routes, are sources of their own
+over one header, so that they build side by side). That happens on first use, or when a source or a
+header is newer than the library. The
 library is loaded with ctypes. Nothing here runs at import time: the CPU
 tests import every module on a machine with no nvcc.
 """
@@ -73,7 +75,9 @@ def build_kernels(force: bool = False) -> str:
     if (
         not force
         and os.path.exists(LIB_PATH)
-        and os.path.getmtime(LIB_PATH) >= max(os.path.getmtime(s) for s in sources)
+        and os.path.getmtime(LIB_PATH) >= max(
+            os.path.getmtime(s) for s in sources + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+        )
     ):
         return ""
     out_dir = os.path.dirname(LIB_PATH)

@@ -6,7 +6,7 @@ and a forward rollout over the horizon with the factors of the current rho
 (``ops/riccati.py``).
 
 - :func:`iterate_chunk_riccati` runs ``chunk`` ADMM iterations on the
-  lane-last state, kernel K3 (``csrc/riccati_admm.cu``), laid out for the
+  lane-last state, kernel K3 (``csrc/riccati_chunk.cuh``), laid out for the
   shape by :func:`k3_plan`: the lanes' rows in shared memory for the whole
   chunk beside the current rho's factors (widened to fp64 where they fit,
   else fp32 in shared or device memory), or the rows streamed from device
@@ -69,7 +69,7 @@ __all__ = [
     "certificate_terms", "certificate_terms_plain", "solve_sparse_fused",
 ]
 
-# the widest plant the kernels' register arrays take (csrc/riccati_admm.cu)
+# the widest plant the kernels' register arrays take (csrc/riccati_chunk.cuh)
 MAX_NX, MAX_NU = 16, 8
 
 
@@ -85,7 +85,7 @@ SM_COUNT = 132
 SM_SMEM = 233472
 BLOCK_THREADS = 128
 
-# K3's routes (csrc/riccati_admm.cu), each one instantiation of the kernel:
+# K3's routes (csrc/riccati_chunk.cuh), each one instantiation of the kernel:
 # where a block keeps its lanes' rows and the factors of the current rho.
 # (rows in shared memory, the kernel's fac_mode, where the factors sit, and
 # the cost of a horizon step relative to the first route, measured on an
@@ -371,7 +371,7 @@ def iterate_chunk_riccati(
     """``chunk`` Riccati-ADMM iterations of a batch, lane-last, at the
     device-resident grid index ``ridx`` (1,) int32.
 
-    CUDA tensors launch K3 (``csrc/riccati_admm.cu``) and raise if it
+    CUDA tensors launch K3 (``csrc/riccati_chunk.cuh``) and raise if it
     cannot run; CPU tensors take the plain version. Returns (X, U, vX, vU,
     lamX, lamU), out of place."""
     return _dispatch(

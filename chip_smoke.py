@@ -1027,7 +1027,7 @@ def main():
                      k1_launches, k1_shapes),
         kernel_entry("admm_mixed_chunk (K2)", "admm_mixed.cu", f"{TPU_ADMM}:580",
                      k2_launches, k2_shapes),
-        dict(kernel_entry("riccati_admm_chunk (K3)", "riccati_admm.cu", f"{TPU_RICCATI}:60",
+        dict(kernel_entry("riccati_admm_chunk (K3)", "riccati_chunk.cuh", f"{TPU_RICCATI}:60",
                           k3_counts["K3"], k3_shapes),
              routes=sorted({rec["route"] for rec in k3_shapes})),
         # the driver's rollouts and certificate recursion (lax.scan there)

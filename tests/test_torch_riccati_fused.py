@@ -341,7 +341,7 @@ def _shape(op, N, nx=4, nu=2, branch="none"):
 
 
 def _k3_bytes(op, plan):
-    """The shared memory csrc/riccati_admm.cu lays out for a plan (its
+    """The shared memory csrc/riccati_chunk.cuh lays out for a plan (its
     launch_chunk refuses a launch whose bytes differ)."""
     mx, mu = next(t for t in ((4, 2), (8, 4), (16, 8)) if op.nx <= t[0] and op.nu <= t[1])
     N, nx, nu = op.N, op.nx, op.nu
