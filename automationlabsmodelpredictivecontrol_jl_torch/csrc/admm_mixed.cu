@@ -13,56 +13,75 @@
 //   x     = alpha xt + (1-alpha) x;  s = clip(v + rho^-1 y, l, u)
 //   y    += rho (v - s);  ax = alpha st + (1-alpha) ax
 //
-// What bounds it on this card: the fp64 multiply-adds of its matrix-vector
-// products, read from shared memory. A lane does (1 + 2 refine) n^2 for the
-// K-solve and 3 ms n for the A2 products per iteration (at the state-
-// constrained h20 shape, n = 40 and ms = 80: 4,800 + 9,600) against 4 m + 2 n
-// floats moved per chunk; plus 3 + 2 refine barriers per iteration.
+// What bounds it on this card: not the fp64 multiply-adds (a lane does
+// (1 + 2 refine) n^2 for the K-solve and 3 ms n for the A2 products per
+// iteration; at the state-constrained h20 shape, n = 40 and ms = 80: 4,800
+// + 9,600) but the shared-memory loads that feed them, one operator entry
+// per multiply-add and the lane vectors once per thread, with 5-12 warps
+// per SM to hide their latency (one block per SM: shared memory). The
+// loads of a warp cost their bytes whether or not its threads read the
+// same address (k3_ab.py --kernel K2; PERF.md, Findings PR 7). So:
+// - No bank conflicts between the rho copies or the rows of a warp: the
+//   copies sit at a stride that is odd in 16-byte units, and the rows at a
+//   stride chosen for the lanes per block (row_stride), so that the
+//   distinct entries a warp reads fall in distinct banks. Lanes at mixed
+//   rho indices no longer serialize.
+// - A block covers L lanes x G row-groups with L and G from the wrapper's
+//   plan (ops/admm_fused.k2_plan): L small enough that ceil(B / L) blocks
+//   fill the 132 SMs, G as few as latency allows (each thread reads the
+//   vectors once for all its rows) and dividing the rows where it can.
+// - No predicates and no 64-bit index arithmetic in the iteration loop:
+//   offsets are 32-bit and computed once; rows past n or ms (padding) and
+//   lanes past B compute on clamped copies of real data into slots of
+//   their own, and store nothing.
+// - Operator rows and the lane vectors are read two entries at a time
+//   (16-byte loads): half the load instructions.
 //
 // Precision, as in K1 (csrc/admm_diag.cu): the state is fp32, every
 // matrix-vector product (the K-solves and the three A2 products) is
-// accumulated in fp64 from exact fp32 products and rounded once to fp32.
-// Built with --fmad=false so the elementwise updates round like PyTorch's.
+// accumulated in fp64 from exact fp32 products, in index order, and rounded
+// once to fp32. Built with --fmad=false so the elementwise updates round
+// like PyTorch's.
 //
-// Design:
-// - Layout stays lane-last: x, q (n, B); s, y, ax, l, u (m, B), row-major,
-//   so neighbouring threads own neighbouring lanes and every global access
-//   is coalesced.
-// - A block covers 32 lanes x 16 row-groups (512 threads). Thread (b, t)
-//   owns box rows t, t+16, ... (RPT_N of them) and tail rows t, t+16, ...
-//   (RPT_T), and keeps x, q, d and s, y, ax of those rows in registers for
-//   the whole chunk. l and u are read from global memory at each use
-//   (coalesced, L1-resident), rho and rho^-1 from an (R, m) shared table by
-//   the lane's index: at m = 132 a thread holding all seven per row would
-//   spill.
-// - Shared memory, fp64 unless said: the R stacked K^-1 (and K when
-//   refining), A2 once (A2' y is read column-wise from the same copy, so
-//   there is no transposed copy), two (n, 32) buffers (rhs and xt) and two
-//   (ms, 32) buffers (the tail of y and of rho.s, so both A2' products run
-//   in one pass), and the fp32 rho tables. The operators arrive as fp32 and
-//   are widened once per launch: widening at use would cost a conversion
-//   per multiply-add, at a quarter of the fp64 FMA rate. At the state +
-//   neighborhood h20 shape (n = 40, m = 132, R = 5, refine 1) that is
-//   230,304 of the 232,448 bytes a block may use; the wrapper (k2_fits)
-//   refuses what does not fit.
+// Layout:
+// - Lane-last state in device memory: x, q (n, B); s, y, ax, l, u (m, B),
+//   row-major, so neighbouring threads own neighbouring lanes and every
+//   global access is coalesced.
+// - Thread (b, t) owns box rows t, t+G, ... (RPT_N of them) and tail rows
+//   t, t+G, ... (RPT_T) and keeps x, q, d, rho, rho^-1 and s, y, ax of
+//   them in registers for the chunk (rho is fixed for a lane within a
+//   chunk); l and u are read at each use (coalesced, L1-resident).
+// - Shared memory, fp64: the R stacked K^-1 (and K when refining), rows at
+//   stride ld, copies at stride sk; A2 once (rows at stride ld; A2' y is
+//   read column-wise from the same copy); two box-row buffers (rhs and xt)
+//   and two tail-row buffers (the tail of y and of rho.s, so both A2'
+//   products run in one pass), L lanes each, rows paired: row i of lane b
+//   at ((i / 2) L + b) 2 + i % 2. The operators arrive as fp32 and are
+//   widened once per launch: widening at use would cost a conversion per
+//   multiply-add, at a quarter of the fp64 FMA rate.
 // - Each lane applies only its own K_r^-1: the TPU kernel's "all R
 //   candidates, then mask-select" was a gather workaround.
-// - The state is out of place, as in K1. Lanes past B compute on zeros,
-//   store nothing and reach every barrier.
-// - One block per SM (shared memory), so B = 2048 fills 64 of 132 SMs.
+// - The state is out of place. Every thread reaches every barrier; the
+//   only early return comes after the last one.
 //
 // Bound to PyTorch by ctypes through the plain C function admm_mixed_chunk,
 // which returns cudaGetLastError() after the launch (0 on success).
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
 
 namespace {
 
-constexpr int kLanes = 32;  // lanes per block (blockDim.x)
-constexpr int kGroups = 16;  // row-groups per block (blockDim.y)
-constexpr int kThreads = kLanes * kGroups;
+constexpr size_t kSmemLimit = 232448;
+
+// The most threads (L x G) a block of an instantiation may have: 512 where
+// its rows fit 128 registers a thread, else 256 (255 registers a thread).
+// ops/admm_fused.k2_max_threads mirrors it.
+constexpr int max_threads(int rpt_n, int rpt_t) {
+  return rpt_t <= 4 && (rpt_n <= 2 || (rpt_n == 3 && rpt_t <= 2)) ? 512 : 256;
+}
 
 // jnp.clip / torch.clamp semantics: a NaN passes through, l = -inf clips
 // nothing from below.
@@ -71,27 +90,53 @@ __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return v > hi ? hi : v;
 }
 
-// out[k] = sum_j M[off[k] + j] v[j, b] over j < len, fp64 sums of exact
-// fp32 products, rounded once
+__device__ __forceinline__ double2 load2(const double* p) {
+  return *reinterpret_cast<const double2*>(p);
+}
+
+// the double index of row i of lane b in an L-lane buffer of paired rows
+__device__ __forceinline__ int slot(int i, int L, int b) {
+  return (((i >> 1) * L + b) << 1) | (i & 1);
+}
+
+// out[k] = sum_j M[off[k] + j] v[j] over j < len, in index order: fp64 sums
+// of exact fp32 products, rounded once. v is the lane's column of a paired
+// buffer (rows j, j+1 at v + (j / 2) * pair_stride); both are read two
+// entries at a time.
 template <int RPT>
 __device__ __forceinline__ void matvec(const double* __restrict__ M,
                                        const double* __restrict__ v,
-                                       const int (&off)[RPT], int len, int b,
-                                       float (&out)[RPT]) {
+                                       const int (&off)[RPT], int len,
+                                       int pair_stride, float (&out)[RPT]) {
   double acc[RPT];
 #pragma unroll
   for (int k = 0; k < RPT; ++k) acc[k] = 0.0;
-  for (int j = 0; j < len; ++j) {
-    const double vj = v[j * kLanes + b];
+  const int pairs = len >> 1;
+#pragma unroll 2
+  for (int p = 0; p < pairs; ++p) {
+    const double2 vj = load2(v + p * pair_stride);
 #pragma unroll
-    for (int k = 0; k < RPT; ++k) acc[k] = fma(M[off[k] + j], vj, acc[k]);
+    for (int k = 0; k < RPT; ++k) {
+      const double2 a = load2(M + off[k] + 2 * p);
+      acc[k] = fma(a.x, vj.x, acc[k]);
+      acc[k] = fma(a.y, vj.y, acc[k]);
+    }
+  }
+  if (len & 1) {
+    const double vj = v[pairs * pair_stride];
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) acc[k] = fma(M[off[k] + len - 1], vj, acc[k]);
   }
 #pragma unroll
   for (int k = 0; k < RPT; ++k) out[k] = static_cast<float>(acc[k]);
 }
 
+struct Layout {
+  int ld, sk, nslots, tslots;  // row and copy strides, buffer rows
+};
+
 template <int RPT_N, int RPT_T>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(max_threads(RPT_N, RPT_T), 1)
 admm_mixed_chunk_kernel(const float* __restrict__ kinv,
                         const float* __restrict__ kmat,
                         const float* __restrict__ a2,
@@ -109,98 +154,113 @@ admm_mixed_chunk_kernel(const float* __restrict__ kinv,
                         float* __restrict__ x_out, float* __restrict__ s_out,
                         float* __restrict__ y_out, float* __restrict__ ax_out,
                         int n, int m, int B, int R, int chunk,
-                        int refine_steps, float sigma, float alpha) {
-  extern __shared__ double smem[];
+                        int refine_steps, float sigma, float alpha,
+                        Layout lay) {
+  extern __shared__ __align__(16) double smem[];
+  const int L = blockDim.x;
+  const int G = blockDim.y;
   const int ms = m - n;
-  const int nn = n * n;
-  const int ops = R * nn;
+  const int ld = lay.ld, sk = lay.sk;
   double* ki_sh = smem;
-  double* k_sh = smem + ops;  // present only when refining
-  double* a2_sh = smem + (refine_steps > 0 ? 2 : 1) * ops;
-  double* bn0 = a2_sh + ms * n;    // (n, 32): rhs, then the refinement residual
-  double* bn1 = bn0 + n * kLanes;  // (n, 32): xt
-  double* bt0 = bn1 + n * kLanes;  // (ms, 32): y[n:]
-  double* bt1 = bt0 + ms * kLanes;  // (ms, 32): (rho.s)[n:]
-  float* rho_sh = reinterpret_cast<float*>(bt1 + ms * kLanes);  // (R, m)
-  float* rhoi_sh = rho_sh + R * m;
+  double* k_sh = smem + R * sk;  // present only when refining
+  double* a2_sh = smem + (refine_steps > 0 ? 2 : 1) * R * sk;
+  double* bn0 = a2_sh + ms * ld;       // box rows: rhs, then the residual
+  double* bn1 = bn0 + lay.nslots * L;  // box rows: xt
+  double* bt0 = bn1 + lay.nslots * L;  // tail rows: y[n:]
+  double* bt1 = bt0 + lay.tslots * L;  // tail rows: (rho.s)[n:]
 
   const int b = threadIdx.x;
   const int t = threadIdx.y;
-  const int tid = t * kLanes + b;
-  const int lane = blockIdx.x * kLanes + b;
+  const int tid = t * L + b;
+  const int nthreads = L * G;
+  const int lane = blockIdx.x * L + b;
   const bool live = lane < B;
+  const int lc = live ? lane : B - 1;  // lanes past B run on lane B-1's data
 
-  for (int i = tid; i < ops; i += kThreads) ki_sh[i] = kinv[i];
-  if (refine_steps > 0)
-    for (int i = tid; i < ops; i += kThreads) k_sh[i] = kmat[i];
-  for (int i = tid; i < ms * n; i += kThreads) a2_sh[i] = a2[i];
-  for (int i = tid; i < R * m; i += kThreads) {
-    rho_sh[i] = rho_vecs[i];
-    rhoi_sh[i] = rho_invs[i];
+  const int nn = n * n;
+  for (int i = tid; i < R * nn; i += nthreads) {
+    const int rr = i / nn;
+    const int row = (i - rr * nn) / n;
+    const int dst = rr * sk + row * ld + (i - rr * nn - row * n);
+    ki_sh[dst] = kinv[i];
+    if (refine_steps > 0) k_sh[dst] = kmat[i];
+  }
+  for (int i = tid; i < ms * n; i += nthreads) {
+    const int row = i / n;
+    a2_sh[row * ld + (i - row * n)] = a2[i];
   }
 
-  const int r = live ? idx[lane] : 0;
-  const double* Ki = ki_sh + r * nn;
-  const double* Km = k_sh + r * nn;
-  const float* rho_r = rho_sh + r * m;
-  const float* rhoi_r = rhoi_sh + r * m;
+  const int r = idx[lc];
+  const float* rho_r = rho_vecs + r * m;
+  const float* rhoi_r = rho_invs + r * m;
 
-  // box rows i = t + k*16 (k < RPT_N); tail rows j = t + k*16 (k < RPT_T),
-  // which are rows n + j of s, y, ax, l, u
+  // box rows i = t + k G (k < RPT_N), tail rows j = t + k G (k < RPT_T),
+  // which are rows n + j of s, y, ax, l, u; a padded row reads the last
+  // real row and owns a buffer slot past the real ones
   float x[RPT_N], qv[RPT_N], d[RPT_N], sb[RPT_N], yb[RPT_N], axb[RPT_N];
-  float st[RPT_T], yt[RPT_T], axt[RPT_T];
-  int noff[RPT_N];  // K row offsets (row clamped into range)
-  int ncol[RPT_N];  // A2 column of the box row (clamped)
-  int toff[RPT_T];  // A2 row offsets (clamped)
-  bool nown[RPT_N], town[RPT_T];
+  float rhob[RPT_N], rhoib[RPT_N];
+  float st[RPT_T], yt[RPT_T], axt[RPT_T], rhot[RPT_T], rhoit[RPT_T];
+  int koff[RPT_N];  // the row of K_r^-1 and K_r
+  int acol[RPT_N];  // the column of A2
+  int gn[RPT_N];    // (row, lane) in the (n or m, B) arrays
+  int sn[RPT_N];    // the row's slot in bn0, bn1
+  int aoff[RPT_T], gt[RPT_T], stl[RPT_T];
 #pragma unroll
   for (int k = 0; k < RPT_N; ++k) {
-    const int i = t + k * kGroups;
-    nown[k] = i < n;
-    ncol[k] = nown[k] ? i : n - 1;
-    noff[k] = ncol[k] * n;
-    const bool ok = live && nown[k];
-    const size_t gn = static_cast<size_t>(i) * B + lane;
-    x[k] = ok ? x_in[gn] : 0.0f;
-    qv[k] = ok ? q[gn] : 0.0f;
-    d[k] = ok ? dvec[i] : 0.0f;
-    sb[k] = ok ? s_in[gn] : 0.0f;
-    yb[k] = ok ? y_in[gn] : 0.0f;
-    axb[k] = ok ? ax_in[gn] : 0.0f;
+    const int i = t + k * G;
+    const int ic = i < n ? i : n - 1;
+    koff[k] = r * sk + ic * ld;
+    acol[k] = ic;
+    gn[k] = ic * B + lc;
+    sn[k] = slot(i, L, b);
+    x[k] = x_in[gn[k]];
+    qv[k] = q[gn[k]];
+    d[k] = dvec[ic];
+    sb[k] = s_in[gn[k]];
+    yb[k] = y_in[gn[k]];
+    axb[k] = ax_in[gn[k]];
+    rhob[k] = rho_r[ic];
+    rhoib[k] = rhoi_r[ic];
   }
 #pragma unroll
   for (int k = 0; k < RPT_T; ++k) {
-    const int j = t + k * kGroups;
-    town[k] = j < ms;
-    toff[k] = (town[k] ? j : ms - 1) * n;
-    const bool ok = live && town[k];
-    const size_t gm = static_cast<size_t>(n + j) * B + lane;
-    st[k] = ok ? s_in[gm] : 0.0f;
-    yt[k] = ok ? y_in[gm] : 0.0f;
-    axt[k] = ok ? ax_in[gm] : 0.0f;
+    const int j = t + k * G;
+    const int jc = j < ms ? j : ms - 1;
+    aoff[k] = jc * ld;
+    gt[k] = (n + jc) * B + lc;
+    stl[k] = slot(j, L, b);
+    st[k] = s_in[gt[k]];
+    yt[k] = y_in[gt[k]];
+    axt[k] = ax_in[gt[k]];
+    rhot[k] = rho_r[n + jc];
+    rhoit[k] = rhoi_r[n + jc];
   }
   __syncthreads();
 
-  // one relaxation / clip / dual update of a row (row = its index in m)
-  auto update = [&](float stv, float& s, float& y, float& ax, int row) {
-    const float lo = live ? l[static_cast<size_t>(row) * B + lane] : 0.0f;
-    const float hi = live ? u[static_cast<size_t>(row) * B + lane] : 0.0f;
+  // one relaxation / clip / dual update of a row at g in the (m, B) arrays
+  auto update = [&](float stv, float& s, float& y, float& ax, int g,
+                    float rho, float rho_inv) {
+    const float lo = l[g];
+    const float hi = u[g];
     const float v = alpha * stv + (1.0f - alpha) * s;
-    const float s_new = clip(v + rhoi_r[row] * y, lo, hi);
-    y = y + rho_r[row] * (v - s_new);
+    const float s_new = clip(v + rho_inv * y, lo, hi);
+    y = y + rho * (v - s_new);
     ax = alpha * stv + (1.0f - alpha) * ax;
     s = s_new;
   };
 
   const float beta = 1.0f - alpha;
+  const int ps = 2 * L;  // doubles between a lane's row pairs
+  const double* bn0_b = bn0 + 2 * b;
+  const double* bn1_b = bn1 + 2 * b;
+  const double* bt0_b = bt0 + 2 * b;
+  const double* bt1_b = bt1 + 2 * b;
   for (int it = 0; it < chunk; ++it) {
     // the tail of y and of rho.s, for both A2' products in one pass
 #pragma unroll
     for (int k = 0; k < RPT_T; ++k) {
-      if (!town[k]) continue;
-      const int j = t + k * kGroups;
-      bt0[j * kLanes + b] = yt[k];
-      bt1[j * kLanes + b] = rho_r[n + j] * st[k];
+      bt0[stl[k]] = yt[k];
+      bt1[stl[k]] = rhot[k] * st[k];
     }
     __syncthreads();
     float aty2[RPT_N], ars2[RPT_N];
@@ -208,14 +268,31 @@ admm_mixed_chunk_kernel(const float* __restrict__ kinv,
       double acc_y[RPT_N], acc_r[RPT_N];
 #pragma unroll
       for (int k = 0; k < RPT_N; ++k) acc_y[k] = acc_r[k] = 0.0;
-      for (int j = 0; j < ms; ++j) {
-        const double vy = bt0[j * kLanes + b];
-        const double vr = bt1[j * kLanes + b];
+      const int pairs = ms >> 1;
+#pragma unroll 2
+      for (int p = 0; p < pairs; ++p) {
+        const double2 vy = load2(bt0_b + p * ps);
+        const double2 vr = load2(bt1_b + p * ps);
+        const double* a0 = a2_sh + 2 * p * ld;  // A2 rows 2p and 2p + 1
 #pragma unroll
         for (int k = 0; k < RPT_N; ++k) {
-          const double a = a2_sh[j * n + ncol[k]];  // A2'[col, j]
-          acc_y[k] = fma(a, vy, acc_y[k]);
-          acc_r[k] = fma(a, vr, acc_r[k]);
+          const double c0 = a0[acol[k]];
+          const double c1 = a0[ld + acol[k]];
+          acc_y[k] = fma(c0, vy.x, acc_y[k]);
+          acc_r[k] = fma(c0, vr.x, acc_r[k]);
+          acc_y[k] = fma(c1, vy.y, acc_y[k]);
+          acc_r[k] = fma(c1, vr.y, acc_r[k]);
+        }
+      }
+      if (ms & 1) {
+        const double vy = bt0_b[pairs * ps];
+        const double vr = bt1_b[pairs * ps];
+        const double* a0 = a2_sh + (ms - 1) * ld;
+#pragma unroll
+        for (int k = 0; k < RPT_N; ++k) {
+          const double c0 = a0[acol[k]];
+          acc_y[k] = fma(c0, vy, acc_y[k]);
+          acc_r[k] = fma(c0, vr, acc_r[k]);
         }
       }
 #pragma unroll
@@ -227,66 +304,57 @@ admm_mixed_chunk_kernel(const float* __restrict__ kinv,
     float rhs[RPT_N], xt[RPT_N];
 #pragma unroll
     for (int k = 0; k < RPT_N; ++k) {
-      const int i = t + k * kGroups;
       const float aty = d[k] * yb[k] + aty2[k];
-      const float w = d[k] * ((nown[k] ? rho_r[i] : 0.0f) * sb[k]) + ars2[k];
+      const float w = d[k] * (rhob[k] * sb[k]) + ars2[k];
       rhs[k] = sigma * x[k] - qv[k] - aty + w;
-      if (nown[k]) bn0[i * kLanes + b] = rhs[k];
+      bn0[sn[k]] = rhs[k];
     }
     __syncthreads();
-    matvec<RPT_N>(Ki, bn0, noff, n, b, xt);
+    matvec<RPT_N>(ki_sh, bn0_b, koff, n, ps, xt);
     for (int step = 0; step < refine_steps; ++step) {
       float tmp[RPT_N];
 #pragma unroll
-      for (int k = 0; k < RPT_N; ++k)
-        if (nown[k]) bn1[(t + k * kGroups) * kLanes + b] = xt[k];
+      for (int k = 0; k < RPT_N; ++k) bn1[sn[k]] = xt[k];
       __syncthreads();  // also: every thread is done reading bn0
-      matvec<RPT_N>(Km, bn1, noff, n, b, tmp);
+      matvec<RPT_N>(k_sh, bn1_b, koff, n, ps, tmp);
 #pragma unroll
-      for (int k = 0; k < RPT_N; ++k)
-        if (nown[k]) bn0[(t + k * kGroups) * kLanes + b] = rhs[k] - tmp[k];
+      for (int k = 0; k < RPT_N; ++k) bn0[sn[k]] = rhs[k] - tmp[k];
       __syncthreads();  // also: every thread is done reading bn1
-      matvec<RPT_N>(Ki, bn0, noff, n, b, tmp);
+      matvec<RPT_N>(ki_sh, bn0_b, koff, n, ps, tmp);
 #pragma unroll
       for (int k = 0; k < RPT_N; ++k) xt[k] += tmp[k];
     }
 #pragma unroll
-    for (int k = 0; k < RPT_N; ++k)
-      if (nown[k]) bn1[(t + k * kGroups) * kLanes + b] = xt[k];
+    for (int k = 0; k < RPT_N; ++k) bn1[sn[k]] = xt[k];
     __syncthreads();  // also: every thread is done reading bn0 and bn1
     float st2[RPT_T];
-    matvec<RPT_T>(a2_sh, bn1, toff, n, b, st2);  // A2 xt for the tail rows
+    matvec<RPT_T>(a2_sh, bn1_b, aoff, n, ps, st2);  // A2 xt for the tail rows
 
 #pragma unroll
     for (int k = 0; k < RPT_N; ++k) {
-      if (!nown[k]) continue;
-      update(d[k] * xt[k], sb[k], yb[k], axb[k], t + k * kGroups);
+      update(d[k] * xt[k], sb[k], yb[k], axb[k], gn[k], rhob[k], rhoib[k]);
       x[k] = alpha * xt[k] + beta * x[k];
     }
 #pragma unroll
-    for (int k = 0; k < RPT_T; ++k) {
-      if (!town[k]) continue;
-      update(st2[k], st[k], yt[k], axt[k], n + t + k * kGroups);
-    }
+    for (int k = 0; k < RPT_T; ++k)
+      update(st2[k], st[k], yt[k], axt[k], gt[k], rhot[k], rhoit[k]);
   }
 
-  if (!live) return;
+  if (!live) return;  // after the last barrier
 #pragma unroll
   for (int k = 0; k < RPT_N; ++k) {
-    if (!nown[k]) continue;
-    const size_t g = static_cast<size_t>(t + k * kGroups) * B + lane;
-    x_out[g] = x[k];
-    s_out[g] = sb[k];
-    y_out[g] = yb[k];
-    ax_out[g] = axb[k];
+    if (t + k * G >= n) continue;
+    x_out[gn[k]] = x[k];
+    s_out[gn[k]] = sb[k];
+    y_out[gn[k]] = yb[k];
+    ax_out[gn[k]] = axb[k];
   }
 #pragma unroll
   for (int k = 0; k < RPT_T; ++k) {
-    if (!town[k]) continue;
-    const size_t g = static_cast<size_t>(n + t + k * kGroups) * B + lane;
-    s_out[g] = st[k];
-    y_out[g] = yt[k];
-    ax_out[g] = axt[k];
+    if (t + k * G >= ms) continue;
+    s_out[gt[k]] = st[k];
+    y_out[gt[k]] = yt[k];
+    ax_out[gt[k]] = axt[k];
   }
 }
 
@@ -300,42 +368,39 @@ struct Args {
 };
 
 template <int RPT_N, int RPT_T>
-cudaError_t launch(const Args& a, size_t smem, cudaStream_t stream) {
+cudaError_t launch(const Args& a, dim3 block, const Layout& lay, size_t smem,
+                   cudaStream_t stream) {
+  if (static_cast<int>(block.x * block.y) > max_threads(RPT_N, RPT_T))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       admm_mixed_chunk_kernel<RPT_N, RPT_T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 block(kLanes, kGroups);
-  const dim3 grid((a.B + kLanes - 1) / kLanes);
+  const dim3 grid((a.B + block.x - 1) / block.x);
   admm_mixed_chunk_kernel<RPT_N, RPT_T><<<grid, block, smem, stream>>>(
       a.kinv, a.kmat, a.a2, a.dvec, a.rho_vecs, a.rho_invs, a.q, a.l, a.u,
       a.idx, a.x_in, a.s_in, a.y_in, a.ax_in, a.x_out, a.s_out, a.y_out,
       a.ax_out, a.n, a.m, a.B, a.R, a.chunk, a.refine_steps, a.sigma,
-      a.alpha);
+      a.alpha, lay);
   return cudaGetLastError();
 }
 
-// rows per thread are rounded up to an instantiated count; the extra rows
-// are masked
-int round_rpt(int rows, const int* counts, int k) {
-  const int need = (rows + kGroups - 1) / kGroups;
-  for (int i = 0; i < k; ++i)
-    if (counts[i] >= need) return counts[i];
-  return 0;
+// The row stride (in doubles) of an operator read two entries at a time by
+// blocks of `lanes` lanes: even, and such that the 32 / lanes consecutive
+// rows a warp reads start in distinct 16-byte bank groups (the stride in
+// 16-byte units an odd multiple of lanes / 4). ops/admm_fused.py mirrors it.
+int row_stride(int n, int lanes) {
+  int ld = n + (n & 1);
+  if (lanes >= 32) return ld;
+  const int unit = lanes / 4;
+  while ((ld / 2) % unit != 0 || ((ld / 2) / unit) % 2 == 0) ld += 2;
+  return ld;
 }
 
-template <int RPT_N>
-cudaError_t dispatch_tail(int rpt_t, const Args& a, size_t smem,
-                          cudaStream_t st) {
-  switch (rpt_t) {
-    case 1: return launch<RPT_N, 1>(a, smem, st);
-    case 2: return launch<RPT_N, 2>(a, smem, st);
-    case 4: return launch<RPT_N, 4>(a, smem, st);
-    case 6: return launch<RPT_N, 6>(a, smem, st);
-    case 8: return launch<RPT_N, 8>(a, smem, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
+// the instantiated rows per thread; ops/admm_fused.py (K2_RPT_N, K2_RPT_T)
+// plans only these
+#define MPC_K2_RPT_N(X) X(1) X(2) X(3) X(4)
+#define MPC_K2_RPT_T(N, X) X(N, 1) X(N, 2) X(N, 3) X(N, 4) X(N, 5) X(N, 6) X(N, 8)
 
 }  // namespace
 
@@ -345,7 +410,12 @@ extern "C" {
 // contiguous on one device: kinv, kmat (R, n, n) (kmat unused when
 // refine_steps == 0), a2 (m - n, n), dvec (n), rho_vecs, rho_invs (R, m),
 // q, x_in, x_out (n, B); l, u, s_in, y_in, ax_in, s_out, y_out, ax_out
-// (m, B); idx (B) int32 in [0, R). Takes n <= 128 and 1 <= m - n <= 128.
+// (m, B); idx (B) int32 in [0, R). Takes n <= 128, 1 <= m - n <= 128 and
+// m B < 2^31. The layout comes from ops/admm_fused.k2_plan: lanes (4, 8, 16
+// or 32) and groups per block (at most max_threads(rpt_n, rpt_t) threads),
+// rows per thread of the box (rpt_n) and of the tail (rpt_t), and the
+// dynamic shared memory they take, which must equal what the kernel's
+// layout needs.
 // Returns the cudaError_t of the launch (0 on success).
 int admm_mixed_chunk(const float* kinv, const float* kmat, const float* a2,
                      const float* dvec, const float* rho_vecs,
@@ -354,38 +424,43 @@ int admm_mixed_chunk(const float* kinv, const float* kmat, const float* a2,
                      const float* s_in, const float* y_in, const float* ax_in,
                      float* x_out, float* s_out, float* y_out, float* ax_out,
                      int n, int m, int B, int R, int chunk, int refine_steps,
-                     float sigma, float alpha, void* stream) {
+                     int lanes, int groups, int rpt_n, int rpt_t,
+                     int smem_bytes, float sigma, float alpha, void* stream) {
   const int ms = m - n;
   if (n <= 0 || n > 128 || ms < 1 || ms > 128 || B <= 0 || R <= 0 ||
-      chunk < 0 || refine_steps < 0)
+      chunk < 0 || refine_steps < 0 ||
+      static_cast<long long>(m) * B > INT_MAX ||
+      (lanes != 4 && lanes != 8 && lanes != 16 && lanes != 32) ||
+      groups <= 0 || lanes * groups > 512 || rpt_n * groups < n ||
+      rpt_t * groups < ms)
     return static_cast<int>(cudaErrorInvalidValue);
-  static const int kCountsN[] = {1, 2, 3, 4, 6, 8};
-  static const int kCountsT[] = {1, 2, 4, 6, 8};
-  const int rpt_n = round_rpt(n, kCountsN, 6);
-  const int rpt_t = round_rpt(ms, kCountsT, 5);
-  // the layout of the kernel's dynamic shared memory; the wrapper checks
-  // the same sum against the card's 227 KB per block (k2_smem_bytes)
+  Layout lay;
+  lay.ld = row_stride(n, lanes);
+  lay.sk = (n * lay.ld) | 2;  // odd in 16-byte units
+  lay.nslots = (groups * rpt_n + 1) & ~1;
+  lay.tslots = (groups * rpt_t + 1) & ~1;
   const size_t stacks = refine_steps > 0 ? 2 : 1;
   const size_t smem =
-      (stacks * R * n * n + static_cast<size_t>(ms) * n +
-       2 * static_cast<size_t>(n) * kLanes + 2 * static_cast<size_t>(ms) * kLanes) *
-          sizeof(double) +
-      2 * static_cast<size_t>(R) * m * sizeof(float);
+      (stacks * R * lay.sk + static_cast<size_t>(ms) * lay.ld +
+       2 * static_cast<size_t>(lay.nslots + lay.tslots) * lanes) *
+      sizeof(double);
+  if (smem != static_cast<size_t>(smem_bytes) || smem > kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{kinv, kmat, a2, dvec, rho_vecs, rho_invs, q, l, u, idx,
                x_in, s_in, y_in, ax_in, x_out, s_out, y_out, ax_out,
                n, m, B, R, chunk, refine_steps, sigma, alpha};
+  const dim3 block(lanes, groups);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (rpt_n) {
-    case 1: err = dispatch_tail<1>(rpt_t, a, smem, st); break;
-    case 2: err = dispatch_tail<2>(rpt_t, a, smem, st); break;
-    case 3: err = dispatch_tail<3>(rpt_t, a, smem, st); break;
-    case 4: err = dispatch_tail<4>(rpt_t, a, smem, st); break;
-    case 6: err = dispatch_tail<6>(rpt_t, a, smem, st); break;
-    case 8: err = dispatch_tail<8>(rpt_t, a, smem, st); break;
-    default: err = cudaErrorInvalidValue;
+#define MPC_K2_CASE(N, T) \
+  case 16 * N + T:        \
+    return static_cast<int>(launch<N, T>(a, block, lay, smem, st));
+#define MPC_K2_TAILS(N) MPC_K2_RPT_T(N, MPC_K2_CASE)
+  switch (16 * rpt_n + rpt_t) {
+    MPC_K2_RPT_N(MPC_K2_TAILS)
   }
-  return static_cast<int>(err);
+#undef MPC_K2_TAILS
+#undef MPC_K2_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

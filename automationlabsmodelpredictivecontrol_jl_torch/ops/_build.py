@@ -109,7 +109,7 @@ def build_kernels(force: bool = False) -> str:
 # returns its cudaError_t as an int.
 SIGNATURES = {
     "admm_diag_chunk": "p" * 17 + "i" * 5 + "ff" + "p",
-    "admm_mixed_chunk": "p" * 18 + "i" * 6 + "ff" + "p",
+    "admm_mixed_chunk": "p" * 18 + "i" * 11 + "ff" + "p",
     "admm_dense_packed_chunk": "p" * 18 + "i" * 6 + "ff" + "p",
     "admm_dense_perr_chunk": "p" * 17 + "i" * 6 + "ff" + "p",
     "riccati_admm_chunk": "p" * 26 + "i" * 13 + "p",

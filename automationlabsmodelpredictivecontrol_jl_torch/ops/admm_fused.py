@@ -32,7 +32,8 @@ K3 and the two recurrences of its driver, "rollout" and "certificate".
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import functools
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -77,23 +78,137 @@ def k1_fits(n: int, R: int, refine_steps: int) -> bool:
     return n <= MAX_N and k1_smem_bytes(n, R, refine_steps) <= SMEM_LIMIT
 
 
-def k2_smem_bytes(n: int, m: int, R: int, refine_steps: int) -> int:
-    """Dynamic shared memory of one K2 block: in fp64 the K^-1 stack (and K
-    when refining), A2, two (n, 32) and two (m - n, 32) vector buffers; in
-    fp32 the (R, m) rho and rho^-1 tables (csrc/admm_mixed.cu)."""
+# K2's instantiated rows per thread of the box and of the tail
+# (csrc/admm_mixed.cu, MPC_K2_RPT_N / MPC_K2_RPT_T), its lanes per block
+# and the card's SMs
+K2_RPT_N = (1, 2, 3, 4)
+K2_RPT_T = (1, 2, 3, 4, 5, 6, 8)
+K2_LANES = (32, 16, 8, 4)
+SM_COUNT = 132
+# the C entry's int parameters, in order (the wrapper passes them so)
+K2_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "lanes", "groups", "rpt_n",
+           "rpt_t", "smem_bytes")
+
+
+class K2Plan(NamedTuple):
+    """How one K2 launch is laid out: lanes and row-groups of a block
+    (blockDim.x, blockDim.y), the box and tail rows each thread owns, the
+    blocks of the grid and the block's dynamic shared memory."""
+
+    lanes: int
+    groups: int
+    rpt_n: int
+    rpt_t: int
+    blocks: int
+    smem_bytes: int
+
+
+def k2_max_threads(rpt_n: int, rpt_t: int) -> int:
+    """The most threads a K2 block of these rows per thread may have
+    (csrc/admm_mixed.cu, max_threads): 512 where a thread's rows fit 128
+    registers (no spills at 512 threads, measured), else 256."""
+    return 512 if rpt_t <= 4 and (rpt_n <= 2 or (rpt_n == 3 and rpt_t <= 2)) else 256
+
+
+def k2_row_stride(n: int, lanes: int) -> int:
+    """The row stride, in doubles, of K2's operators in shared memory
+    (csrc/admm_mixed.cu, row_stride): even, so that a row is read two
+    entries at a time, and for fewer than 32 lanes an odd multiple of
+    lanes / 4 in 16-byte units, so that the 32 / lanes consecutive rows a
+    warp reads start in distinct bank groups."""
+    ld = n + (n & 1)
+    if lanes >= 32:
+        return ld
+    unit = lanes // 4
+    while (ld // 2) % unit or ((ld // 2) // unit) % 2 == 0:
+        ld += 2
+    return ld
+
+
+def k2_smem_bytes(n: int, m: int, R: int, refine_steps: int, lanes: int, groups: int,
+                  rpt_n: int, rpt_t: int) -> int:
+    """Dynamic shared memory of one K2 block, all fp64: the K^-1 stack (and
+    K when refining), each copy at an odd stride in 16-byte units; A2; two
+    box-row and two tail-row buffers of ``lanes`` lanes, their rows (padded
+    ones included) rounded up to pairs (csrc/admm_mixed.cu)."""
+    ld = k2_row_stride(n, lanes)
+    sk = (n * ld) | 2
     stacks = 2 if refine_steps > 0 else 1
+    slots = lambda rows: (rows + 1) & ~1
+    buffers = 2 * (slots(groups * rpt_n) + slots(groups * rpt_t)) * lanes
+    return (stacks * R * sk + (m - n) * ld + buffers) * 8
+
+
+def _k2_layouts(n: int, m: int, R: int, refine_steps: int):
+    """Every (lanes, groups, rpt_n, rpt_t, smem_bytes) K2 can launch for
+    this operator shape: whole warps, an instantiated row count, no more
+    threads than its registers allow, a block within the card's shared
+    memory."""
     ms = m - n
-    return (stacks * R * n * n + ms * n + 2 * (n + ms) * _LANES) * 8 + 2 * R * m * 4
+    if not (1 <= n <= MAX_N and 1 <= ms <= MAX_TAIL):
+        return
+    for lanes in K2_LANES:
+        step = max(1, 32 // lanes)
+        for groups in range(step, 512 // lanes + 1, step):
+            rpt_n, rpt_t = -(-n // groups), -(-ms // groups)
+            if rpt_n not in K2_RPT_N or rpt_t not in K2_RPT_T:
+                continue
+            if lanes * groups > k2_max_threads(rpt_n, rpt_t):
+                continue
+            smem = k2_smem_bytes(n, m, R, refine_steps, lanes, groups, rpt_n, rpt_t)
+            if smem <= SMEM_LIMIT:
+                yield lanes, groups, rpt_n, rpt_t, smem
+
+
+@functools.lru_cache(maxsize=256)  # the driver asks once per chunk
+def k2_plan(n: int, m: int, R: int, refine_steps: int, B: int,
+            lanes: Optional[int] = None, groups: Optional[int] = None) -> K2Plan:
+    """The layout of a K2 launch for ``B`` lanes, from the shape alone.
+
+    One block per SM (its shared memory holds every rho's operators), so
+    the time is the lanes an SM runs, ceil(ceil(B / L) / 132) L (16 at
+    B = 2048, 4 at B = 512), times a lane's cost: the bytes its threads
+    read from shared memory per iteration, which on this card set the pace
+    whether or not the threads of a warp read the same address (k3_ab.py
+    --kernel K2, PERF.md): an operator entry per multiply-add, padded rows
+    included, and the lane vectors once per thread, so fewer row-groups G
+    read less; with a penalty where fewer than 7 warps are left to hide the
+    loads' latency. Ties go to more lanes per block. ``lanes`` and
+    ``groups`` force a layout (ValueError if it does not fit)."""
+    B = int(B)
+    if B < 1:
+        raise ValueError(f"K2 takes at least one lane; B={B}")
+    if m * B >= 2**31:
+        raise ValueError(f"K2 indexes the (m, B) state with 32 bits; m={m}, B={B}")
+    ms, rs = m - n, int(refine_steps)
+    best = None
+    for L, G, rpt_n, rpt_t, smem in _k2_layouts(n, m, R, rs):
+        if lanes not in (None, L) or groups not in (None, G):
+            continue
+        blocks = -(-B // L)
+        per_sm_lanes = -(-blocks // SM_COUNT) * L
+        box, tail = G * rpt_n, G * rpt_t
+        operator = box * ((1 + 2 * rs) * n + ms) + tail * n
+        vectors = G * ((2 + 2 * rs) * n + 2 * ms)
+        warps = L * G // 32
+        cost = per_sm_lanes * (operator + vectors) * max(1.0, 7 / warps)
+        key = (cost, -L)
+        if best is None or key < best[0]:
+            best = (key, K2Plan(L, G, rpt_n, rpt_t, blocks, smem))
+    if best is None:
+        raise ValueError(
+            f"no K2 layout for n={n}, m={m}, R={R}, refine_steps={rs}"
+            + ("" if lanes is None and groups is None else f", lanes={lanes}, groups={groups}")
+            + f": K2 takes n <= {MAX_N}, 1 to {MAX_TAIL} dense rows and a block within "
+            f"{SMEM_LIMIT} B of shared memory"
+        )
+    return best[1]
 
 
 def k2_fits(n: int, m: int, R: int, refine_steps: int) -> bool:
     """Whether K2 takes this operator shape: n <= 128, a dense tail of 1 to
-    128 rows, and a block within the card's shared memory."""
-    return (
-        n <= MAX_N
-        and 1 <= m - n <= MAX_TAIL
-        and k2_smem_bytes(n, m, R, refine_steps) <= SMEM_LIMIT
-    )
+    128 rows, and some layout within the card's shared memory."""
+    return next(_k2_layouts(n, m, R, refine_steps), None) is not None
 
 
 def _padded_flops_per_lane(n: int, m: int, R: int, rs: int, packed: bool) -> int:
@@ -474,17 +589,14 @@ def _launch_k1(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config):
                    (float(config.sigma), float(config.alpha)))
 
 
-def _launch_k2(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config):
+def _launch_k2(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
+    """Launch K2 as :func:`k2_plan` lays it out (``plan`` forces one)."""
     n, B = qT.shape
     m = lT.shape[0]
     R = int(op.rho_grid.shape[0])
     rs = int(config.refine_steps)
-    if not k2_fits(n, m, R, rs):
-        raise ValueError(
-            f"K2 takes n <= {MAX_N}, 1 to {MAX_TAIL} dense rows and a block "
-            f"within {SMEM_LIMIT} B of shared memory; n={n}, m={m}, R={R}, "
-            f"refine_steps={rs} needs {k2_smem_bytes(n, m, R, rs)} B"
-        )
+    if plan is None:
+        plan = k2_plan(n, m, R, rs, B)
     f = torch.float32
     args = [
         ("K_invs", op.K_invs, (R, n, n), f),
@@ -496,7 +608,8 @@ def _launch_k2(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config):
     ] + _state_args(n, m, B, qT, lT, uT, idx, xT, sT, yT, axT)
     _check_args("K2", args, qT.device)
     outs = [torch.empty_like(xT)] + [torch.empty_like(sT) for _ in range(3)]
-    return _launch("K2", "admm_mixed_chunk", args, outs, (n, m, B, R, int(chunk), rs),
+    ints = dict(n=n, m=m, B=B, R=R, chunk=int(chunk), refine_steps=rs, **plan._asdict())
+    return _launch("K2", "admm_mixed_chunk", args, outs, [ints[k] for k in K2_INTS],
                    (float(config.sigma), float(config.alpha)))
 
 

@@ -44,12 +44,15 @@ Phases (any failure raises and exits non-zero):
    the -Xptxas -v report is printed, the whole report is written to
    build/kernels/ptxas.txt), and the native oracle with g++, into build/;
 3. each kernel against its plain PyTorch version on the card at its
-   main-path shapes (K3 at h500 and at one h50 shape per branch of the
-   kernel, then at the shapes that take the other routes of its plan: h500
-   with the state box, a ragged batch, longer horizons, an (8, 4) and a
-   (16, 8) plant; K4 with and without refinement, K5 at h20 and h50), with
-   times from CUDA events, and beside K3's the time of its dependency chain
-   alone (chain_floor_ms);
+   main-path shapes (K2 at every tail the paths give it, with random rho
+   indices and with one index for all lanes, then at ragged batches, each
+   with its k2_plan line and equal bit for bit; K3 at h500 and at one h50
+   shape per branch of the kernel, then at the shapes that take the other
+   routes of its plan: h500 with the state box, a ragged batch, longer
+   horizons, an (8, 4) and a (16, 8) plant; K4 with and without
+   refinement, K5 at h20 and h50), with times from CUDA events, and beside
+   K2's its shared-memory floor (smem_floor_ms) and beside K3's the time of
+   its dependency chain alone (chain_floor_ms);
 4. each path, with the launch counts set to 0 just before it and read
    just after, showing that it went through its kernel and never through
    a plain version;
@@ -65,6 +68,7 @@ printing them when no card is visible or when the script stands outside
 its repository.
 """
 
+import functools
 import json
 import os
 import re
@@ -85,10 +89,12 @@ CONV_OK = 0.999  # in-program converged fraction of the h20 and h500 paths
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 67e12
 FP32_OPS_PER_S = 67e12  # outside the tensor cores
+SM_COUNT = 132
 
 B_MAIN, BUCKET, B_CL, CL_STEPS = 16384, 512, 4096, 5
-B_SLICE, B_RESOLVE, REPS = 2048, 256, 20
+B_SLICE, B_RESOLVE, REPS, REPS_SC = 2048, 256, 20, 5
 B_H500, B_H50, REPS_RICCATI = 1024, 4096, 10
+K2_RAGGED = (1, 33, 77, 1000)
 
 
 def log(**kv):
@@ -145,6 +151,35 @@ def cuda_ms(fn, reps=20, warm_up=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_graph_ms(fn, reps=20, repeats=5):
+    """Device milliseconds per call of fn(): reps calls captured in a CUDA
+    graph, replayed `repeats` times, the median replay over reps. For
+    kernels whose launch takes about as long on the host as the kernel on
+    the card, where cuda_ms would time the host."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
 
 
 def bench_x0s(B):
@@ -418,14 +453,15 @@ def _kernel_of(op, cfg):
     return "K4" if packed else "K5"
 
 
-def compare_kernel(ctrl, B, seed, x0s_fn, plain_reps=REPS):
-    """A kernel against its plain version at one shape, on the card; the
-    kernel is K1, K2, K4 or K5 as the controller's operator says. Returns
-    a record."""
+def kernel_inputs(ctrl, B, seed, x0s_fn, single_index=False):
+    """One chunk's arguments for the kernel that takes the controller's
+    operator (K1, K2, K4 or K5), on its device: the QP vectors of B initial
+    states from x0s_fn, a seeded state of scale 0.05 and the lanes' rho
+    indices, drawn at random or all at the start index of the config."""
     import numpy as np
     import torch
 
-    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+    from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import start_rho_index
     from automationlabsmodelpredictivecontrol_jl_torch.ops.condense import (
         runtime_qp_vectors_batch,
     )
@@ -434,8 +470,6 @@ def compare_kernel(ctrl, B, seed, x0s_fn, plain_reps=REPS):
     op, cfg = ctrl.engine.op, ctrl.engine.config
     R = int(op.rho_grid.shape[0])
     m, n = (int(d) for d in op.A_s.shape)
-    kernel = admm_fused.chunk_fn_for(op, config=cfg)
-    plain = admm_fused.chunk_fn_for(op, plain=True, config=cfg)
     x0s = torch.from_numpy(x0s_fn(B)).to(dev)
     q, l, u, _, _ = runtime_qp_vectors_batch(
         ctrl.engine.qp, x0s - ctrl.tuning.references.x[:, 0]
@@ -449,22 +483,71 @@ def compare_kernel(ctrl, B, seed, x0s_fn, plain_reps=REPS):
     ).to(dev)
     x, y, ax = noise(n), noise(m), noise(m)
     s = torch.clamp(ax, lT, uT).contiguous()
-    idx = torch.from_numpy(rng.integers(0, R, size=B).astype(np.int32)).to(dev)
-    chunk = int(cfg.check_interval)
-    args = (op, qT, lT, uT, idx, x, s, y, ax, chunk, cfg)
+    idx = rng.integers(0, R, size=B).astype(np.int32)
+    if single_index:
+        idx[:] = start_rho_index(cfg) if R > 1 else 0
+    idx = torch.from_numpy(idx).to(dev)
+    return (op, qT, lT, uT, idx, x, s, y, ax, int(cfg.check_interval), cfg)
+
+
+def smem_floor_ms(n, m, R, refine_steps, B, chunk):
+    """Least milliseconds of one K2 chunk if its shared memory delivered one
+    operator entry per lane and multiply-add at one 32-lane wavefront a
+    clock on every SM: (1 + 2 refine) n^2 + 2 (m - n) n entries per lane
+    and iteration (the K-solves, A2 and A2'), B chunk lane-iterations, over
+    132 SMs at the card's highest SM clock. The vector loads and the
+    entries a lane of another rho index cannot share come on top. R does
+    not enter: each lane reads only its own rho's operators."""
+    entries = (1 + 2 * refine_steps) * n * n + 2 * (m - n) * n
+    return entries * B * chunk / 32 / (SM_COUNT * sm_clock_hz()) * 1e3
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz():
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def compare_kernel(ctrl, B, seed, x0s_fn, plain_reps=REPS, single_index=False):
+    """A kernel against its plain version at one shape, on the card; the
+    kernel is K1, K2, K4 or K5 as the controller's operator says. K2 must
+    equal it bit for bit and logs its plan. Returns a record."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    op, cfg = ctrl.engine.op, ctrl.engine.config
+    R = int(op.rho_grid.shape[0])
+    m, n = (int(d) for d in op.A_s.shape)
+    kernel = admm_fused.chunk_fn_for(op, config=cfg)
+    plain = admm_fused.chunk_fn_for(op, plain=True, config=cfg)
+    args = kernel_inputs(ctrl, B, seed, x0s_fn, single_index)
+    chunk = args[-2]
 
     name = _kernel_of(op, cfg)
     abs_err, rel_err, ulps = _errors(kernel(*args), plain(*args), name)
     rs = int(cfg.refine_steps)
     rec = dict(
         kernel=name, n=n, m=m, R=R, refine_steps=rs, B=B, chunk=chunk,
+        rho_index="single" if single_index else "random",
         max_abs_err=abs_err, max_rel_err=rel_err, max_ulps=ulps,
     )
     if name in ("K4", "K5"):
         rec["operators_in_shared_memory"] = admm_fused.dense_ops_shared(n, m, R, rs, name == "K4")
-    if rel_err > SHAPES_OK_REL:
+    if name == "K2":
+        plan = admm_fused.k2_plan(n, m, R, rs, B)
+        log(phase="k2_plan", n=n, m=m, R=R, refine_steps=rs, B=B, **plan._asdict())
+        rec["plan"] = plan._asdict()
+    if rel_err > SHAPES_OK_REL or (name == "K2" and ulps != 0):
         raise RuntimeError(f"{kernel.__name__} disagrees with its plain version: {rec}")
-    rec["ms"] = cuda_ms(lambda: kernel(*args))
+    if name == "K2":  # 0.1-0.3 ms a launch: graph-timed, and through the wrapper
+        rec["ms"] = cuda_graph_ms(lambda: kernel(*args))
+        rec["wrapper_ms"] = cuda_ms(lambda: kernel(*args))
+        rec["smem_floor_ms"] = smem_floor_ms(n, m, R, rs, B, chunk)
+    else:
+        rec["ms"] = cuda_ms(lambda: kernel(*args))
     rec["plain_ms"] = cuda_ms(lambda: plain(*args), reps=plain_reps)
     rec["bound_ms"], rec["bound_by"] = chunk_bound(n, m, B, R, rs, chunk, name)
     return rec
@@ -707,11 +790,18 @@ def main():
                  compare_kernel(fb, BUCKET, 2, bench_x0s)]
     for rec in k1_shapes:
         log(phase="k1_vs_plain", **rec)
-    k2_shapes = [compare_kernel(c, B_SLICE, 3 + i, x0s_fn)
-                 for i, (c, x0s_fn) in enumerate(
-                     ((ctrl_eq, suite_x0s), (ctrl_nb, suite_x0s),
-                      (ctrl_sc, bench_x0s), (ctrl_scnb, bench_x0s)))]
-    k2_shapes.append(compare_kernel(fb_sc, BUCKET, 7, bench_x0s))
+    # K2 at the state-constrained shape first (40 launches per solve), then
+    # the suite's two terminals, state + neighborhood and tier 2, each with
+    # random rho indices and with every lane at the config's start index;
+    # then ragged batches, which take the plan's other lanes per block
+    k2_cases = ((ctrl_sc, B_SLICE, bench_x0s), (ctrl_eq, B_SLICE, suite_x0s),
+                (ctrl_nb, B_SLICE, suite_x0s), (ctrl_scnb, B_SLICE, bench_x0s),
+                (fb_sc, BUCKET, bench_x0s))
+    k2_shapes = [compare_kernel(c, B, 3 + i, x0s_fn, single_index=single)
+                 for i, (c, B, x0s_fn) in enumerate(k2_cases) for single in (False, True)]
+    k2_shapes += [compare_kernel(ctrl_sc, B, 20 + i, bench_x0s, plain_reps=2)
+                  for i, B in enumerate(K2_RAGGED)]
+    k2_layouts = {(r["plan"]["lanes"], r["plan"]["groups"]) for r in k2_shapes}
     for rec in k2_shapes:
         log(phase="k2_vs_plain", **rec)
     # K3 at the h500 cell's shape (plain timed once: ~10^6 small launches)
@@ -842,15 +932,18 @@ def main():
         log(**rec)
         slice_recs.append(rec)
 
-    t0 = time.perf_counter()
-    sol_sc, _, _, diag_sc = parallel.solve_batch_auto(ctrl_sc, x_bench)
-    torch.cuda.synchronize()
-    t_sc = time.perf_counter() - t0
+    before = admm_fused.LAUNCHES["K2"]
+    (sol_sc, _, _, diag_sc), lat = timed(
+        lambda: parallel.solve_batch_auto(ctrl_sc, x_bench), REPS_SC
+    )
     check_solution(sol_sc, B_SLICE, 20, "the state-constrained solve")
     log(phase="state_constrained", B=B_SLICE, m=int(ctrl_sc.engine.op.A_s.shape[0]),
         converged_fraction=int(diag_sc.n_converged) / B_SLICE,
         n_max_iter=int(diag_sc.n_max_iter), n_infeasible=int(diag_sc.n_infeasible),
-        mean_iterations=float(diag_sc.mean_iterations), seconds=t_sc)
+        mean_iterations=float(diag_sc.mean_iterations), solves=len(lat),
+        batch_p50_ms=float(np.percentile(lat, 50)) * 1e3,
+        batch_p99_ms=float(np.percentile(lat, 99)) * 1e3,
+        k2_launches_per_solve=(admm_fused.LAUNCHES["K2"] - before) / (REPS_SC + 1))
 
     k2_launches = admm_fused.LAUNCHES["K2"]
     plain_k2 = dict(admm_fused.PLAIN_CALLS)
@@ -1025,8 +1118,10 @@ def main():
     print(json.dumps({"kernels": [
         kernel_entry("admm_diag_chunk (K1)", "admm_diag.cu", f"{TPU_ADMM}:348",
                      k1_launches, k1_shapes),
-        kernel_entry("admm_mixed_chunk (K2)", "admm_mixed.cu", f"{TPU_ADMM}:580",
-                     k2_launches, k2_shapes),
+        dict(kernel_entry("admm_mixed_chunk (K2)", "admm_mixed.cu", f"{TPU_ADMM}:580",
+                          k2_launches, k2_shapes),
+             smem_floor_ms=k2_shapes[0]["smem_floor_ms"],
+             layouts=sorted(k2_layouts)),
         dict(kernel_entry("riccati_admm_chunk (K3)", "riccati_chunk.cuh", f"{TPU_RICCATI}:60",
                           k3_counts["K3"], k3_shapes),
              routes=sorted({rec["route"] for rec in k3_shapes})),

@@ -1,7 +1,9 @@
-"""A/B timing of K3 and the certificate kernel across source trees, on one
-NVIDIA GPU, in one process tree (so on one card, under one power limit).
+"""A/B timing of K3 and the certificate kernel, or of K2, across source
+trees, on one NVIDIA GPU, in one process tree (so on one card, under one
+power limit).
 
     python3 k3_ab.py NAME=TREE[:ROUTE] [NAME=TREE[:ROUTE] ...] [--sass NAME]
+    python3 k3_ab.py --kernel K2 NAME=TREE[:LxG] [...] [--plain NAME] [--sass NAME]
 
 Each TREE is a directory that holds the port's package (this checkout is
 "."; an earlier commit unpacked with ``git archive`` is another). The specs
@@ -21,11 +23,25 @@ does not fit is skipped. Times are CUDA-event means over 20 launches after
 a warm-up (5 at h500). Each child also prints a SHA-256 of every output, so
 that trees can be held to each other bit for bit without the plain version;
 ``--plain NAME`` also runs the plain version once per shape in that tree and
-compares. ``--sass NAME`` writes the SASS of that tree's (4, 2) K3 kernels to
+compares. A spec that fails is reported and the next one runs; the exit
+code is 1 if any failed. ``--sass NAME`` writes the SASS of that tree's (4, 2) K3 kernels to
 sass_NAME.txt under ``--sass-dir`` (default build/sass; cuobjdump). ``--shapes`` keeps only the named
 shapes. A tree that has the chain-floor probe (riccati_chain_floor: one warp
 running only the dependent instructions of the two horizon loops) reports
 its time for an h500 chunk as chain_floor_ms.
+
+With ``--kernel K2`` each tree's ``csrc/admm_mixed.cu`` alone is built
+first, all trees at once (one nvcc each, into the tree's build/k2ab/), and
+each child times K2 on chip_smoke.py's ``kernel_inputs`` at the shapes of
+K2_SHAPES (n = 40; m = 120 at B = 2048, tier 2's m = 120 at B = 512, the
+suite's m = 44 and 52, m = 132, and ragged B = 1, 33, 77, 1000), each with
+random rho indices and with every lane at the config's start index, timed
+as a CUDA graph of 20 launches replayed 5 times (the median: device time
+alone, ``ms``) and as 20 launches through the wrapper (``wrapper_ms``). LxG
+forces K2's lanes and row-groups per block (``admm_fused.k2_plan``) in a
+tree that has a plan; a layout that does not fit is skipped. A tree that
+fails to build is reported and skipped. ``--sass NAME`` writes the SASS of
+that tree's K2 kernels to sass_NAME.txt.
 
 List a tree twice (first and last) to see the drift within the call. The
 last line is a JSON object of all records.
@@ -37,6 +53,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 SHAPES = (  # name, horizon, B, controller options, launches timed
     ("h500-none-B1024", 500, 1024, {}, 5),
@@ -160,23 +177,140 @@ def child(tree, route, plain, sass, sass_dir, shapes):
         records.append(rec)
     print("K3_AB " + json.dumps(records), flush=True)
 
+K2_SHAPES = (  # name, controller options, initial states, B, tier-2 fallback, seed
+    ("m120-B2048", {"mpc_state_constraint": True}, "bench", 2048, False, 3),
+    ("m120-tier2-B512", {"mpc_state_constraint": True}, "bench", 512, True, 7),
+    ("m44-B2048", {"mpc_terminal_ingredient": "equality"}, "suite", 2048, False, 4),
+    ("m52-B2048", {"mpc_terminal_ingredient": "neighborhood"}, "suite", 2048, False, 5),
+    ("m132-B2048", {"mpc_state_constraint": True, "mpc_terminal_ingredient": "neighborhood"},
+     "bench", 2048, False, 6),
+    ("m120-B1", {"mpc_state_constraint": True}, "bench", 1, False, 20),
+    ("m120-B33", {"mpc_state_constraint": True}, "bench", 33, False, 21),
+    ("m120-B77", {"mpc_state_constraint": True}, "bench", 77, False, 22),
+    ("m120-B1000", {"mpc_state_constraint": True}, "bench", 1000, False, 23),
+)
+
+
+def _k2_lib(tree):
+    return os.path.join(os.path.abspath(tree), "build", "k2ab", "libk2.so")
+
+
+def build_k2(trees):
+    """nvcc each tree's csrc/admm_mixed.cu into a library of its own, all at
+    once, with this checkout's flags. Returns {tree: (seconds, report or
+    None if it failed, error text)}."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import _build
+
+    procs = {}
+    for tree in trees:
+        src = os.path.join(os.path.abspath(tree), "automationlabsmodelpredictivecontrol_jl_torch",
+                           "csrc", "admm_mixed.cu")
+        os.makedirs(os.path.dirname(_k2_lib(tree)), exist_ok=True)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", _k2_lib(tree), src]
+        procs[tree] = (time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for tree, (t0, proc) in procs.items():
+        text, _ = proc.communicate()
+        out[tree] = (time.perf_counter() - t0, text if proc.returncode == 0 else None, text)
+    return out
+
+
+def child_k2(tree, layout, plain, sass, sass_dir, shapes):
+    """Time K2 of one tree at K2_SHAPES; print one K2_AB line of records."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import ctypes
+
+    import torch
+
+    import chip_smoke
+    from automationlabsmodelpredictivecontrol_jl_torch import parallel, proceed_controller
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import _build, admm_fused
+    from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig
+
+    lib = ctypes.CDLL(_k2_lib(tree))
+    entry = lib.admm_mixed_chunk
+    entry.restype = ctypes.c_int
+    entry.argtypes = [_build._CTYPES[c] for c in _build.SIGNATURES["admm_mixed_chunk"]]
+    _build._lib = lib  # the wrappers launch from this library
+    if sass:
+        text = subprocess.run(["cuobjdump", "-sass", _k2_lib(tree)], capture_output=True,
+                              text=True, check=True).stdout
+        parts = text.split("\t\tFunction : ")
+        keep = [p for p in parts[1:] if "mixed" in p.split("\n", 1)[0]]
+        os.makedirs(sass_dir, exist_ok=True)
+        with open(os.path.join(sass_dir, f"sass_{sass}.txt"), "w") as f:
+            f.write("\n\t\tFunction : ".join([""] + keep))
+    dev = torch.device("cuda", 0)
+    design = lambda **kw: proceed_controller(
+        qtp.linearized_discrete_system(), "model_predictive_control", 20, 5.0,
+        [0.65] * 4, [1.2] * 2, admm_config=AdmmConfig(max_iter=1000), device=dev, **kw,
+    )
+    ctrls, records = {}, []
+    x0s = {"bench": chip_smoke.bench_x0s, "suite": chip_smoke.suite_x0s}
+    for name, kw, x0s_name, B, tier2, seed in K2_SHAPES:
+        if shapes and name not in shapes:
+            continue
+        key = tuple(sorted(kw.items()))
+        if key not in ctrls:
+            ctrls[key] = design(**kw)
+        ctrl = ctrls[key]
+        if tier2:
+            ctrl = parallel.escalation_controller(
+                ctrl, rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250, refine_steps=2)
+        for single in (False, True):
+            args = chip_smoke.kernel_inputs(ctrl, B, seed, x0s[x0s_name], single)
+            op, cfg = args[0], args[-1]
+            m, n = (int(d) for d in op.A_s.shape)
+            R, rs = int(op.rho_grid.shape[0]), int(cfg.refine_steps)
+            rec = dict(shape=name, rho_index="single" if single else "random",
+                       n=n, m=m, R=R, refine_steps=rs, B=B)
+            fn = lambda: admm_fused.iterate_chunk_mixed_T(*args)
+            if hasattr(admm_fused, "k2_plan"):
+                lanes, groups = (int(v) for v in layout.split("x")) if layout else (None, None)
+                try:
+                    plan = admm_fused.k2_plan(n, m, R, rs, B, lanes=lanes, groups=groups)
+                except ValueError as err:
+                    records.append(dict(rec, skipped=str(err)))
+                    continue
+                rec["plan"] = plan._asdict()
+                fn = lambda plan=plan: admm_fused._launch_k2(*args, plan=plan)
+            out = fn()
+            torch.cuda.synchronize()
+            rec["sha256"] = _digest(out)
+            if plain:
+                want = admm_fused.iterate_chunk_mixed_T_plain(*args)
+                rec["max_ulps_vs_plain"] = max(
+                    int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+                    for a, b in zip(out, want))
+            rec["ms"] = chip_smoke.cuda_graph_ms(fn)
+            rec["wrapper_ms"] = _ms(fn, 20)
+            rec["smem_floor_ms"] = chip_smoke.smem_floor_ms(n, m, R, rs, B, args[-2])
+            records.append(rec)
+    print("K2_AB " + json.dumps(records), flush=True)
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("specs", nargs="*", help="NAME=TREE[:ROUTE]")
+    ap.add_argument("specs", nargs="*", help="NAME=TREE[:ROUTE] (K2: NAME=TREE[:LxG])")
+    ap.add_argument("--kernel", choices=("K3", "K2"), default="K3", help="the kernel timed")
     ap.add_argument("--plain", default=None, help="the spec name whose outputs are held to the plain version")
     ap.add_argument("--sass", action="append", default=[], help="spec names whose K3 SASS is written out")
     ap.add_argument("--sass-dir", default=os.path.join("build", "sass"),
                     help="where --sass writes")
     ap.add_argument("--shapes", default="", help="comma-separated shape names (default: all)")
+    ap.add_argument("--child-timeout", type=float, default=1800.0,
+                    help="seconds a spec's child may run before it counts as failed")
     ap.add_argument("--child", nargs=2, metavar=("TREE", "ROUTE"), help=argparse.SUPPRESS)
     ap.add_argument("--child-plain", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--child-sass", default=None, help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.child:
         tree, route = a.child
-        child(tree, None if route == "-" else route, a.child_plain, a.child_sass,
-              os.path.abspath(a.sass_dir), [s for s in a.shapes.split(",") if s])
+        run = child_k2 if a.kernel == "K2" else child
+        run(tree, None if route == "-" else route, a.child_plain, a.child_sass,
+            os.path.abspath(a.sass_dir), [s for s in a.shapes.split(",") if s])
         return 0
     import torch
 
@@ -187,30 +321,53 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    results, plained, dumped = [], set(), set()
+    results, plained, dumped, failed = [], set(), set(), []
+    tag = f"{a.kernel}_AB "
+    built = {}
+    if a.kernel == "K2":
+        built = build_k2(sorted({spec.partition("=")[2].partition(":")[0] for spec in a.specs}))
+        for tree, (secs, report, text) in built.items():
+            rec = dict(tree=tree, nvcc_s=secs, built=report is not None)
+            if report is None:
+                rec["error"] = text[-4000:]
+            else:  # K2's registers and spills per instantiation
+                import chip_smoke
+                rec["ptxas"] = [(r["template"], r["registers"], r["spill_bytes"])
+                                for r in chip_smoke.ptxas_summary(report)]
+            print(json.dumps(rec), flush=True)
     for spec in a.specs:
         name, _, rest = spec.partition("=")
         tree, _, route = rest.partition(":")
+        if built and built[tree][1] is None:
+            print(f"k3_ab.py: {spec} skipped: its tree did not build", file=sys.stderr)
+            failed.append(spec)
+            continue
         cmd = [sys.executable, os.path.abspath(__file__), "--child", tree, route or "-",
-               "--shapes", a.shapes, "--sass-dir", a.sass_dir]
+               "--kernel", a.kernel, "--shapes", a.shapes, "--sass-dir", a.sass_dir]
         if a.plain == name and name not in plained:
             cmd.append("--child-plain")
             plained.add(name)
         if name in a.sass and name not in dumped:
             cmd += ["--child-sass", name]
             dumped.add(name)
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        line = next((l for l in proc.stdout.splitlines() if l.startswith("K3_AB ")), None)
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=a.child_timeout)
+        except subprocess.TimeoutExpired as err:
+            print(f"k3_ab.py: {spec} timed out after {err.timeout} s", file=sys.stderr)
+            failed.append(spec)
+            continue
+        line = next((l for l in proc.stdout.splitlines() if l.startswith(tag)), None)
         if proc.returncode != 0 or line is None:
             print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr)
             print(f"k3_ab.py: {spec} failed with exit code {proc.returncode}", file=sys.stderr)
-            return 1
-        for rec in json.loads(line[len("K3_AB "):]):
+            failed.append(spec)
+            continue
+        for rec in json.loads(line[len(tag):]):
             rec = dict(spec=name, tree=tree, route=route or None, **rec)
             print(json.dumps(rec), flush=True)
             results.append(rec)
-    print(json.dumps({"card": smi, "records": results}), flush=True)
-    return 0
+    print(json.dumps({"card": smi, "records": results, "failed": failed}), flush=True)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

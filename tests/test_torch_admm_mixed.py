@@ -216,9 +216,78 @@ def test_k2_shapes_and_precisions(designs):
     for m2 in (44, 52, 120, 132):
         assert admm_fused.k2_fits(40, m2, 5, 1)
     assert admm_fused.k2_fits(40, 120, 4, 2)
-    assert admm_fused.k2_smem_bytes(40, 132, 5, 1) == 230304
+    # state + neighborhood at B=2048: 16 lanes a block, the plan's bytes
+    plan = admm_fused.k2_plan(40, 132, 5, 1, 2048)
+    assert plan.smem_bytes == admm_fused.k2_smem_bytes(
+        40, 132, 5, 1, plan.lanes, plan.groups, plan.rpt_n, plan.rpt_t
+    ) <= admm_fused.SMEM_LIMIT
     assert not admm_fused.k2_fits(40, 40, 5, 1)  # no dense tail: K1's shape
     assert not admm_fused.k2_fits(40, 40 + 129, 1, 0)  # tail past 128 rows
     assert not admm_fused.k2_fits(100, 300, 5, 1)  # h50 state rows: 400 KB
     assert admm_fused.chunk_fn_for(op) is admm_fused.iterate_chunk_mixed_T
     assert admm_fused.chunk_fn_for(op, plain=True) is admm_fused.iterate_chunk_mixed_T_plain
+
+
+def _k2_fit_before_plans(n, m, R, refine_steps):
+    """K2's shape test before its layout was planned: 32 lanes a block,
+    operators at their natural strides, fp32 (R, m) rho tables."""
+    stacks = 2 if refine_steps > 0 else 1
+    ms = m - n
+    nbytes = (stacks * R * n * n + ms * n + 2 * (n + ms) * 32) * 8 + 2 * R * m * 4
+    return n <= 128 and 1 <= ms <= 128 and nbytes <= admm_fused.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("refine_steps", [0, 1, 2])
+@pytest.mark.parametrize("R", [2, 4, 5])
+@pytest.mark.parametrize("m", [41, 44, 52, 120, 132, 168])
+def test_k2_plan_covers_batch_and_rows(m, R, refine_steps):
+    """Every shape K2 took before still gets a plan, at every batch size;
+    each plan covers the lanes and the rows with instantiated row counts,
+    whole warps and a block within shared memory."""
+    n = 40
+    fits = admm_fused.k2_fits(n, m, R, refine_steps)
+    assert fits or not _k2_fit_before_plans(n, m, R, refine_steps)
+    for B in (1, 33, 77, 512, 1000, 2048, 16384):
+        if not fits:
+            with pytest.raises(ValueError):
+                admm_fused.k2_plan(n, m, R, refine_steps, B)
+            continue
+        p = admm_fused.k2_plan(n, m, R, refine_steps, B)
+        assert p.smem_bytes == admm_fused.k2_smem_bytes(
+            n, m, R, refine_steps, p.lanes, p.groups, p.rpt_n, p.rpt_t
+        )
+        assert p.smem_bytes <= admm_fused.SMEM_LIMIT
+        assert p.blocks * p.lanes >= B > (p.blocks - 1) * p.lanes
+        assert p.groups * p.rpt_n >= n and p.groups * p.rpt_t >= m - n
+        assert p.rpt_n in admm_fused.K2_RPT_N and p.rpt_t in admm_fused.K2_RPT_T
+        assert p.lanes in admm_fused.K2_LANES
+        assert (p.lanes * p.groups) % 32 == 0
+        assert p.lanes * p.groups <= admm_fused.k2_max_threads(p.rpt_n, p.rpt_t)
+
+
+@pytest.mark.parametrize("B,lanes", [(2048, 16), (512, 4), (1000, 8), (77, 4), (1, 4)])
+def test_k2_plan_fills_the_sms(B, lanes):
+    """The lanes per block spread the batch over the card's 132 SMs: 128
+    blocks at the state-constrained cell's B=2048 and at tier 2's B=512."""
+    for m, R, rs in ((120, 5, 1), (120, 4, 2), (44, 5, 1), (132, 5, 1)):
+        p = admm_fused.k2_plan(40, m, R, rs, B)
+        assert p.lanes == lanes and p.blocks <= admm_fused.SM_COUNT
+    with pytest.raises(ValueError):
+        admm_fused.k2_plan(40, 120, 5, 1, 2048, lanes=32, groups=7)  # 6 box rows a thread
+    with pytest.raises(ValueError):
+        admm_fused.k2_plan(40, 120, 5, 1, 0)
+
+
+@pytest.mark.parametrize("lanes", [32, 16, 8, 4])
+def test_k2_row_stride_is_conflict_free(lanes):
+    """The rows a warp reads (32 / lanes consecutive ones) of up to
+    8 lanes / 32 rho copies start in distinct 16-byte bank groups, for
+    every width n K2 takes; rows are 16-byte aligned."""
+    g = 32 // lanes
+    for n in range(1, admm_fused.MAX_N + 1):
+        ld = admm_fused.k2_row_stride(n, lanes)
+        assert ld >= n and ld % 2 == 0 and ld - n < 16
+        sk = (n * ld) | 2
+        copies = max(1, 8 // g)
+        starts = {(r * sk // 2 + row * ld // 2) % 8 for r in range(copies) for row in range(g)}
+        assert len(starts) == min(8, g * copies), (n, lanes)

@@ -39,3 +39,36 @@ def test_signatures_match_the_c_entries():
     for name, params in entries.items():
         assert _build.SIGNATURES[name] == params, name
         assert params.endswith("p"), f"{name}: the stream comes last"
+
+
+def _c_params(entry):
+    """The parameter names of a C entry of csrc/*.cu, in order."""
+    for path in sorted(glob.glob(os.path.join(_build.CSRC_DIR, "*.cu"))):
+        for name, params in _ENTRY.findall(open(path).read()):
+            if name == entry:
+                return [p.strip().split()[-1].lstrip("*") for p in params.split(",")]
+    raise AssertionError(f"no C entry {entry}")
+
+
+def test_k2_entry_takes_the_plan():
+    """admm_mixed_chunk's int parameters are the ones the wrapper passes,
+    in its order (admm_fused.K2_INTS: the shape, then k2_plan's layout)."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    params = _c_params("admm_mixed_chunk")
+    sig = _build.SIGNATURES["admm_mixed_chunk"]
+    ints = [p for p, kind in zip(params, sig) if kind == "i"]
+    assert tuple(ints) == admm_fused.K2_INTS
+    assert sig == "p" * 18 + "i" * len(admm_fused.K2_INTS) + "ff" + "p"
+
+
+def test_k2_instantiations_match_the_plan():
+    """The rows per thread K2 instantiates (MPC_K2_RPT_N / _T in
+    csrc/admm_mixed.cu) are the ones k2_plan may pick."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    text = open(os.path.join(_build.CSRC_DIR, "admm_mixed.cu")).read()
+    box = re.search(r"#define MPC_K2_RPT_N\(X\) (.*)", text).group(1)
+    tail = re.search(r"#define MPC_K2_RPT_T\(N, X\) (.*)", text).group(1)
+    assert tuple(int(v) for v in re.findall(r"X\((\d+)\)", box)) == admm_fused.K2_RPT_N
+    assert tuple(int(v) for v in re.findall(r"X\(N, (\d+)\)", tail)) == admm_fused.K2_RPT_T

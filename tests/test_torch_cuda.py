@@ -91,8 +91,9 @@ def test_k1_matches_plain_version(controllers, which, B):
 @pytest.fixture(scope="module")
 def mixed_controllers(card):
     """The state-constrained h20 controller at the suite's config (m = 120,
-    R = 5, refine 1) and its tier-2 fallback (R = 4, refine 2), and the
-    suite's neighborhood-terminal controller (m = 52)."""
+    R = 5, refine 1) and its tier-2 fallback (R = 4, refine 2), the suite's
+    neighborhood-terminal controller (m = 52), its equality-terminal one
+    (m = 44) and the state + neighborhood one (m = 132)."""
     design = lambda **kw: proceed_controller(
         qtp.linearized_discrete_system(), "model_predictive_control", 20, 5.0,
         [0.65] * 4, [1.2] * 2, admm_config=AdmmConfig(max_iter=1000), device=card, **kw,
@@ -101,16 +102,19 @@ def mixed_controllers(card):
     fb = parallel.escalation_controller(
         sc, rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250, refine_steps=2
     )
-    return sc, fb, design(mpc_terminal_ingredient="neighborhood")
+    return {
+        "suite": sc, "tier2": fb, "m52": design(mpc_terminal_ingredient="neighborhood"),
+        "m44": design(mpc_terminal_ingredient="equality"),
+        "m132": design(mpc_state_constraint=True, mpc_terminal_ingredient="neighborhood"),
+    }
 
 
-@pytest.mark.parametrize("which,B", [("suite", 2048), ("suite", 1000), ("tier2", 512), ("tier2", 77)])
-def test_k2_matches_plain_version(mixed_controllers, which, B):
-    ctrl = mixed_controllers[0] if which == "suite" else mixed_controllers[1]
-    assert ctrl.engine.op.mixed_a and ctrl.engine.op.A_s.shape == (120, 40)
-    args = _chunk_args(ctrl, B, seed=B)
+def _k2_held_to_plain(args, plan=None):
     launches, plain = admm_fused.LAUNCHES["K2"], admm_fused.PLAIN_CALLS["K2"]
-    out_k = admm_fused.iterate_chunk_mixed_T(*args)
+    if plan is None:
+        out_k = admm_fused.iterate_chunk_mixed_T(*args)
+    else:
+        out_k = admm_fused._launch_k2(*args, plan=plan)
     torch.cuda.synchronize()
     assert admm_fused.LAUNCHES["K2"] == launches + 1
     assert admm_fused.PLAIN_CALLS["K2"] == plain
@@ -122,11 +126,44 @@ def test_k2_matches_plain_version(mixed_controllers, which, B):
         assert err <= 1e-4 * max(1.0, float(b.abs().max())), (name, err)
 
 
+@pytest.mark.parametrize("which,B", [
+    ("suite", 2048), ("suite", 1000), ("tier2", 512), ("tier2", 77), ("m44", 2048),
+    ("m52", 2048), ("m132", 2048), ("suite", 1), ("suite", 33), ("suite", 77),
+])
+def test_k2_matches_plain_version(mixed_controllers, which, B):
+    """K2 as k2_plan lays it out (4, 8 and 16 lanes a block among these
+    shapes, and the row-groups of each tail) against its plain version."""
+    ctrl = mixed_controllers[which]
+    m = {"suite": 120, "tier2": 120, "m44": 44, "m52": 52, "m132": 132}[which]
+    assert ctrl.engine.op.mixed_a and ctrl.engine.op.A_s.shape == (m, 40)
+    _k2_held_to_plain(_chunk_args(ctrl, B, seed=B))
+
+
+@pytest.mark.parametrize("which,lanes", [("suite", 16), ("suite", 8), ("suite", 4), ("m44", 32)])
+def test_k2_forced_layouts_match_plain_version(mixed_controllers, which, lanes):
+    """Every lanes-per-block K2 takes, at a ragged batch: a partial last
+    block reaches every barrier (32 lanes fit only the short tail)."""
+    ctrl = mixed_controllers[which]
+    m = int(ctrl.engine.op.A_s.shape[0])
+    args = _chunk_args(ctrl, 1000, seed=5)
+    plan = admm_fused.k2_plan(40, m, 5, 1, 1000, lanes=lanes)
+    _k2_held_to_plain(args, plan)
+
+
+def test_k2_refuses_a_layout_it_does_not_have(mixed_controllers):
+    """The C entry refuses shared-memory bytes that differ from its own
+    layout (cudaError_t 1) rather than run on a wrong one."""
+    args = _chunk_args(mixed_controllers["suite"], 64, seed=6)
+    plan = admm_fused.k2_plan(40, 120, 5, 1, 64)
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        admm_fused._launch_k2(*args, plan=plan._replace(smem_bytes=plan.smem_bytes + 16))
+
+
 def test_mixed_solve_auto_launches_k2(mixed_controllers):
     """The suite's neighborhood controller through solve_batch_auto: K2
     launches, no plain version runs, every lane converges, and the result
     agrees with the same solve on the CPU."""
-    ctrl = mixed_controllers[2]
+    ctrl = mixed_controllers["m52"]
     rng = np.random.default_rng(0)
     x0 = torch.from_numpy(0.65 + 0.002 * rng.standard_normal((256, 4)).astype(np.float32))
     launches, plain = admm_fused.LAUNCHES["K2"], dict(admm_fused.PLAIN_CALLS)
