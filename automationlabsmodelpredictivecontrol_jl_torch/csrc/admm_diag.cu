@@ -10,84 +10,103 @@
 //   x   = alpha xt + (1-alpha) x;  s = clip(v + rho^-1 y, l, u)
 //   y  += rho (v - s);  ax = alpha st + (1-alpha) ax
 //
-// What bounds it on this card: not device memory. At the main-path shape
-// (n = 40) a lane moves 11 n floats per chunk but does n^2 multiply-adds per
-// K-solve per iteration, so the work is the K-solve's reads of the operator
-// and of the right-hand side from shared memory, its fp64 multiply-adds
-// (half the fp32 rate), plus one barrier per matrix-vector product.
+// What bounds it on this card: not device memory (a lane moves 11 n floats
+// per chunk) and not the fp64 multiply-adds ((1 + 2 refine) n^2 per lane
+// and iteration) but the shared-memory loads that feed them, an operator
+// entry per multiply-add and the lane's vector once per thread, and the
+// warps resident on an SM to hide their latency: at tier 1, two blocks of
+// 8 warps an SM run a chunk about 10% faster than one (PERF.md, Findings
+// PR 8). Lanes of a warp that share a rho index read one address, which
+// the card serves faster than the distinct addresses of mixed indices,
+// but no layout can count on it. So, as in K2 (admm_mixed.cu):
+// - No bank conflicts between the rho copies or the rows a warp reads
+//   (admm_common.cuh): lanes at mixed rho indices do not serialize.
+// - A block covers L lanes x G row-groups with L and G from the wrapper's
+//   plan (ops/admm_fused.k1_plan): L small enough that ceil(B / L) blocks
+//   fill the 132 SMs (4 lanes at tier 2's 512), G as few as the warps
+//   resident on an SM allow (each thread reads a lane's vector once for
+//   all its rows). Tier 1's operators take 25 KB, so up to 4 blocks share
+//   an SM: the plan counts the blocks that fit at once by shared memory,
+//   threads and the instantiation's registers (held by __launch_bounds__).
+// - No predicates and no 64-bit index arithmetic in the iteration loop:
+//   offsets are 32-bit and computed once; rows past n (padding) and lanes
+//   past B compute on clamped copies of real data into slots of their own,
+//   and store nothing.
+// - Operator rows and the lane vectors are read 16 bytes at a time.
+// - One barrier per matrix-vector product: the products alternate between
+//   two lane buffers, so a buffer is written again only after the barrier
+//   that follows every read of it.
 //
 // Precision: the state is fp32, but every matrix-vector product is
-// accumulated in fp64 (exact fp32 products, fp64 sums) and rounded once to
-// fp32. Accumulated in fp32, the K-solve's roundoff leaves 8.1% of the h20
-// main-path lanes (16384, the benchmark's initial states) above the 1e-6
-// certificate after tier 1's 75 iterations, more than the 512-lane tier-2
-// bucket holds; accumulated in fp64, 2.5% (counted with the plain version
-// on the CPU). The file is built with --fmad=false so that the elementwise
-// updates round after every operation, as PyTorch's do.
+// accumulated in fp64 (exact fp32 products, fp64 sums in index order) and
+// rounded once to fp32. Accumulated in fp32, the K-solve's roundoff leaves
+// 8.1% of the h20 main-path lanes (16384, the benchmark's initial states)
+// above the 1e-6 certificate after tier 1's 75 iterations, more than the
+// 512-lane tier-2 bucket holds; accumulated in fp64, 2.5% (counted with
+// the plain version on the CPU). The file is built with --fmad=false so
+// that the elementwise updates round after every operation, as PyTorch's
+// do.
 //
-// Design:
-// - Layout stays lane-last, (n, B) row-major: neighbouring threads own
-//   neighbouring lanes, so every global load and store is coalesced.
-// - A block covers 32 lanes x W row-groups (blockDim = (32, W)). Thread
-//   (b, t) owns rows t, t+W, t+2W, ... of lane b and keeps that lane's x, s,
-//   y, ax, q, l, u, rho, rho^-1 and d for those rows in registers for the
-//   whole chunk (RPT = ceil(n / W) rows, a template parameter so the arrays
-//   stay in registers).
-// - The R stacked K^-1 (and K, when refining) are copied into dynamic
-//   shared memory, widened to fp64, once per launch. Each lane applies only
-//   its own K_r^-1:
-//   the TPU kernel's "all R candidates, then mask-select" existed to avoid
-//   gathers on the TPU and is not needed here.
-// - The rhs (and the refinement vectors) of the block's 32 lanes go through
-//   two (n, 32) fp64 shared buffers; a warp (fixed t, 32 lanes) reads them
-//   conflict-free, and reads the operator row by broadcast when its lanes
-//   share r.
+// Layout:
+// - Lane-last state in device memory, (n, B) row-major: neighbouring
+//   threads own neighbouring lanes, so every global access is coalesced.
+// - Thread (b, t) owns rows t, t+G, ... (RPT of them) of lane b and keeps
+//   x, q, d, s, y, ax, l, u, rho and rho^-1 of them in registers for the
+//   chunk (rho is fixed for a lane within a chunk).
+// - Shared memory, fp64: the R stacked K^-1 (and K when refining) as
+//   admm_common.cuh lays them out, widened once per launch; two lane
+//   buffers of paired rows. Each lane applies only its own K_r^-1: the TPU
+//   kernel's "all R candidates, then mask-select" was a gather workaround.
 // - The state is out of place: the caller allocates x, s, y, ax out, since
-//   the driver keeps the pre-chunk state to freeze converged lanes.
-// - Lanes past B (the ragged last block) compute on zeros and store nothing;
-//   they still reach every barrier.
+//   the driver keeps the pre-chunk state to freeze converged lanes. Every
+//   thread reaches every barrier; the only early return comes after the
+//   last one.
 //
 // Bound to PyTorch by ctypes through the plain C function admm_diag_chunk,
 // which returns cudaGetLastError() after the launch (0 on success).
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC --fmad=false
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
+
+#include "admm_common.cuh"
 
 namespace {
 
-constexpr int kLanes = 32;  // lanes per block (blockDim.x)
-constexpr int kMaxThreads = 512;
+using mpc_admm::clip;
+using mpc_admm::matvec;
+using mpc_admm::slot;
 
-// out = (M v)[rows], accumulated in fp64 and rounded once to fp32
+struct Layout {
+  int ld, sk, nslots;  // row and copy strides, buffer rows
+};
+
+// out = M v for the thread's rows t + k G: v into the buffer at `cur`, a
+// barrier, the product; the next product writes the other buffer, which
+// nobody reads after this barrier. The slots are computed here, not held
+// in registers across the chunk.
 template <int RPT>
-__device__ __forceinline__ void matvec(const double* __restrict__ M,
-                                       const double* __restrict__ v,
-                                       const int (&roff)[RPT], int n, int b,
-                                       float (&out)[RPT]) {
-  double acc[RPT];
+__device__ __forceinline__ void product(const double* __restrict__ M,
+                                        double* __restrict__ bufs, int& cur,
+                                        int other, const int (&koff)[RPT],
+                                        const float (&v)[RPT], int n, int t,
+                                        int G, int L, int b,
+                                        float (&out)[RPT]) {
+  double* w = bufs + cur;
 #pragma unroll
-  for (int k = 0; k < RPT; ++k) acc[k] = 0.0;
-  for (int j = 0; j < n; ++j) {
-    const double vj = v[j * kLanes + b];
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) acc[k] = fma(M[roff[k] + j], vj, acc[k]);
-  }
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) out[k] = static_cast<float>(acc[k]);
+  for (int k = 0; k < RPT; ++k) w[slot(t + k * G, L, b)] = v[k];
+  __syncthreads();
+  matvec<RPT>(M, w + 2 * b, koff, n, 2 * L, out);
+  cur = other - cur;
 }
 
-// jnp.clip / torch.clamp semantics: a NaN passes through (fminf/fmaxf
-// would drop it, and the driver's NaN guard relies on it propagating).
-__device__ __forceinline__ float clip(float v, float lo, float hi) {
-  v = v < lo ? lo : v;
-  return v > hi ? hi : v;
-}
-
-template <int RPT>
-__global__ void __launch_bounds__(kMaxThreads)
+// REFINE: refine_steps > 0 (without it the right-hand side dies after the
+// first product, and tier 1's rows fit fewer registers); THREADS: the most
+// threads a block may have; REGS: the registers a thread is held to, so
+// that 65536 / (THREADS REGS) such blocks fit an SM.
+template <int RPT, bool REFINE, int THREADS, int REGS>
+__global__ void __launch_bounds__(THREADS, 65536 / (THREADS * REGS))
 admm_diag_chunk_kernel(const float* __restrict__ kinv,
                        const float* __restrict__ kmat,
                        const float* __restrict__ dvec,
@@ -103,81 +122,72 @@ admm_diag_chunk_kernel(const float* __restrict__ kinv,
                        float* __restrict__ x_out, float* __restrict__ s_out,
                        float* __restrict__ y_out, float* __restrict__ ax_out,
                        int n, int B, int R, int chunk, int refine_steps,
-                       float sigma, float alpha) {
-  extern __shared__ double smem[];
-  const int nn = n * n;
-  const int ops = R * nn;
+                       float sigma, float alpha, Layout lay) {
+  extern __shared__ __align__(16) double smem[];
+  const int L = blockDim.x;
+  const int G = blockDim.y;
+  const int sk = lay.sk;
   double* ki_sh = smem;
-  double* k_sh = smem + ops;  // present only when refining
-  double* buf0 = smem + (refine_steps > 0 ? 2 : 1) * ops;
-  double* buf1 = buf0 + n * kLanes;
+  double* k_sh = smem + R * sk;  // present only when refining
+  double* bufs = smem + (REFINE ? 2 : 1) * R * sk;
+  const int other = lay.nslots * L;  // doubles from one buffer to the next
 
   const int b = threadIdx.x;
   const int t = threadIdx.y;
-  const int W = blockDim.y;
-  const int tid = t * kLanes + b;
-  const int nthreads = W * kLanes;
-  const int lane = blockIdx.x * kLanes + b;
+  const int tid = t * L + b;
+  const int nthreads = L * G;
+  const int lane = blockIdx.x * L + b;
   const bool live = lane < B;
+  const int lc = live ? lane : B - 1;  // lanes past B run on lane B-1's data
 
-  for (int i = tid; i < ops; i += nthreads) ki_sh[i] = kinv[i];
-  if (refine_steps > 0)
-    for (int i = tid; i < ops; i += nthreads) k_sh[i] = kmat[i];
+  mpc_admm::stage_operators(ki_sh, k_sh, kinv, REFINE ? kmat : nullptr, R, n, lay.ld, sk,
+                            tid, nthreads);
 
-  const int r = live ? idx[lane] : 0;
-  const double* Ki = ki_sh + r * nn;
-  const double* Km = k_sh + r * nn;
+  const int r = idx[lc];
+  const float* rho_r = rho_vecs + r * n;
+  const float* rhoi_r = rho_invs + r * n;
 
-  float x[RPT], s[RPT], y[RPT], ax[RPT], qv[RPT], lv[RPT], uv[RPT];
-  float rho[RPT], rhoi[RPT], d[RPT];
-  int roff[RPT];   // operator row offsets (row clamped into range)
-  bool own[RPT];   // row exists
+  // rows i = t + k G; a padded row reads the last real row and owns a
+  // buffer slot past the real ones
+  float x[RPT], qv[RPT], d[RPT], s[RPT], y[RPT], ax[RPT], rho[RPT], rhoi[RPT];
+  float lv[RPT], uv[RPT];
+  int koff[RPT];  // the row of K_r^-1 and K_r
 #pragma unroll
   for (int k = 0; k < RPT; ++k) {
-    const int i = t + k * W;
-    own[k] = i < n;
-    roff[k] = (own[k] ? i : n - 1) * n;
-    const bool ok = live && own[k];
-    const size_t g = static_cast<size_t>(i) * B + lane;
-    x[k] = ok ? x_in[g] : 0.0f;
-    s[k] = ok ? s_in[g] : 0.0f;
-    y[k] = ok ? y_in[g] : 0.0f;
-    ax[k] = ok ? ax_in[g] : 0.0f;
-    qv[k] = ok ? q[g] : 0.0f;
-    lv[k] = ok ? l[g] : 0.0f;
-    uv[k] = ok ? u[g] : 0.0f;
-    rho[k] = ok ? rho_vecs[r * n + i] : 0.0f;
-    rhoi[k] = ok ? rho_invs[r * n + i] : 0.0f;
-    d[k] = ok ? dvec[i] : 0.0f;
+    const int i = t + k * G;
+    const int ic = i < n ? i : n - 1;
+    const int g = ic * B + lc;  // (row, lane) in the (n, B) arrays
+    koff[k] = r * sk + ic * lay.ld;
+    x[k] = x_in[g];
+    qv[k] = q[g];
+    d[k] = dvec[ic];
+    s[k] = s_in[g];
+    y[k] = y_in[g];
+    ax[k] = ax_in[g];
+    lv[k] = l[g];
+    uv[k] = u[g];
+    rho[k] = rho_r[ic];
+    rhoi[k] = rhoi_r[ic];
   }
   __syncthreads();
 
+  int cur = 0;  // the buffer the next product writes: 0 or `other`
   const float beta = 1.0f - alpha;
   for (int it = 0; it < chunk; ++it) {
     float rhs[RPT], xt[RPT];
 #pragma unroll
-    for (int k = 0; k < RPT; ++k) {
+    for (int k = 0; k < RPT; ++k)
       rhs[k] = sigma * x[k] - qv[k] - d[k] * y[k] + d[k] * (rho[k] * s[k]);
-      if (own[k]) buf0[(t + k * W) * kLanes + b] = rhs[k];
-    }
-    __syncthreads();
-    matvec<RPT>(Ki, buf0, roff, n, b, xt);
-    for (int step = 0; step < refine_steps; ++step) {
-      float tmp[RPT];
+    product<RPT>(ki_sh, bufs, cur, other, koff, rhs, n, t, G, L, b, xt);
+    for (int step = 0; REFINE && step < refine_steps; ++step) {
+      float tmp[RPT], res[RPT];
+      product<RPT>(k_sh, bufs, cur, other, koff, xt, n, t, G, L, b, tmp);
 #pragma unroll
-      for (int k = 0; k < RPT; ++k)
-        if (own[k]) buf1[(t + k * W) * kLanes + b] = xt[k];
-      __syncthreads();  // also: every thread is done reading buf0
-      matvec<RPT>(Km, buf1, roff, n, b, tmp);
-#pragma unroll
-      for (int k = 0; k < RPT; ++k)
-        if (own[k]) buf0[(t + k * W) * kLanes + b] = rhs[k] - tmp[k];
-      __syncthreads();  // also: every thread is done reading buf1
-      matvec<RPT>(Ki, buf0, roff, n, b, tmp);
+      for (int k = 0; k < RPT; ++k) res[k] = rhs[k] - tmp[k];
+      product<RPT>(ki_sh, bufs, cur, other, koff, res, n, t, G, L, b, tmp);
 #pragma unroll
       for (int k = 0; k < RPT; ++k) xt[k] += tmp[k];
     }
-    __syncthreads();  // buf0 is read by all before the next iteration writes it
 #pragma unroll
     for (int k = 0; k < RPT; ++k) {
       const float st = d[k] * xt[k];
@@ -190,11 +200,12 @@ admm_diag_chunk_kernel(const float* __restrict__ kinv,
     }
   }
 
-  if (!live) return;
+  if (!live) return;  // after the last barrier
 #pragma unroll
   for (int k = 0; k < RPT; ++k) {
-    if (!own[k]) continue;
-    const size_t g = static_cast<size_t>(t + k * W) * B + lane;
+    const int i = t + k * G;
+    if (i >= n) continue;
+    const int g = i * B + lane;
     x_out[g] = x[k];
     s_out[g] = s[k];
     y_out[g] = y[k];
@@ -202,26 +213,40 @@ admm_diag_chunk_kernel(const float* __restrict__ kinv,
   }
 }
 
-template <int RPT>
-cudaError_t launch(dim3 grid, dim3 block, size_t smem, cudaStream_t stream,
-                   const float* kinv, const float* kmat, const float* dvec,
-                   const float* rho_vecs, const float* rho_invs,
-                   const float* q, const float* l, const float* u,
-                   const int* idx, const float* x_in, const float* s_in,
-                   const float* y_in, const float* ax_in, float* x_out,
-                   float* s_out, float* y_out, float* ax_out, int n, int B,
-                   int R, int chunk, int refine_steps, float sigma,
-                   float alpha) {
+struct Args {
+  const float *kinv, *kmat, *dvec, *rho_vecs, *rho_invs, *q, *l, *u;
+  const int* idx;
+  const float *x_in, *s_in, *y_in, *ax_in;
+  float *x_out, *s_out, *y_out, *ax_out;
+  int n, B, R, chunk, refine_steps;
+  float sigma, alpha;
+};
+
+template <int RPT, bool REFINE, int THREADS, int REGS>
+cudaError_t launch(const Args& a, dim3 block, const Layout& lay, size_t smem,
+                   cudaStream_t stream) {
+  if (static_cast<int>(block.x * block.y) > THREADS) return cudaErrorInvalidValue;
+  auto kernel = admm_diag_chunk_kernel<RPT, REFINE, THREADS, REGS>;
   cudaError_t err = cudaFuncSetAttribute(
-      admm_diag_chunk_kernel<RPT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  admm_diag_chunk_kernel<RPT><<<grid, block, smem, stream>>>(
-      kinv, kmat, dvec, rho_vecs, rho_invs, q, l, u, idx, x_in, s_in, y_in,
-      ax_in, x_out, s_out, y_out, ax_out, n, B, R, chunk, refine_steps, sigma,
-      alpha);
+  const dim3 grid((a.B + block.x - 1) / block.x);
+  kernel<<<grid, block, smem, stream>>>(
+      a.kinv, a.kmat, a.dvec, a.rho_vecs, a.rho_invs, a.q, a.l, a.u, a.idx,
+      a.x_in, a.s_in, a.y_in, a.ax_in, a.x_out, a.s_out, a.y_out, a.ax_out,
+      a.n, a.B, a.R, a.chunk, a.refine_steps, a.sigma, a.alpha, lay);
   return cudaGetLastError();
 }
+
+// the instantiated rows per thread, each with the most threads its block
+// may have and the registers a thread is held to without and with
+// refinement (none spills; 5 rows without it fit 128, so that two 256-
+// thread blocks share an SM at tier 1); ops/admm_fused.K1_INSTANCES plans
+// only these
+#define MPC_K1_INSTANCES(X)                                                \
+  X(1, 512, 64, 64) X(2, 512, 128, 128) X(3, 512, 128, 128)              \
+  X(4, 512, 128, 128) X(5, 256, 128, 255) X(6, 256, 255, 255)            \
+  X(7, 256, 255, 255) X(8, 256, 255, 255)
 
 }  // namespace
 
@@ -230,7 +255,11 @@ extern "C" {
 // Launch `chunk` iterations on `stream`. All arrays are float32 and
 // contiguous on one device: kinv, kmat (R, n, n) (kmat unused when
 // refine_steps == 0), dvec (n), rho_vecs, rho_invs (R, n), q, l, u, x_in,
-// s_in, y_in, ax_in and the outputs (n, B); idx (B) int32 in [0, R).
+// s_in, y_in, ax_in and the outputs (n, B); idx (B) int32 in [0, R). Takes
+// n <= 128 and n B < 2^31. The layout comes from ops/admm_fused.k1_plan:
+// lanes (4, 8, 16 or 32) and groups per block, rows per thread (rpt), and
+// the dynamic shared memory they take, which must equal what the kernel's
+// layout needs.
 // Returns the cudaError_t of the launch (0 on success).
 int admm_diag_chunk(const float* kinv, const float* kmat, const float* dvec,
                     const float* rho_vecs, const float* rho_invs,
@@ -238,41 +267,40 @@ int admm_diag_chunk(const float* kinv, const float* kmat, const float* dvec,
                     const int* idx, const float* x_in, const float* s_in,
                     const float* y_in, const float* ax_in, float* x_out,
                     float* s_out, float* y_out, float* ax_out, int n, int B,
-                    int R, int chunk, int refine_steps, float sigma,
-                    float alpha, void* stream) {
-  if (n <= 0 || n > 128 || B <= 0 || R <= 0 || chunk < 0 || refine_steps < 0)
+                    int R, int chunk, int refine_steps, int lanes, int groups,
+                    int rpt, int smem_bytes, float sigma, float alpha,
+                    void* stream) {
+  if (n <= 0 || n > 128 || B <= 0 || R <= 0 || chunk < 0 || refine_steps < 0 ||
+      static_cast<long long>(n) * B > INT_MAX ||
+      (lanes != 4 && lanes != 8 && lanes != 16 && lanes != 32) ||
+      groups <= 0 || lanes * groups > 512 || rpt * groups < n)
     return static_cast<int>(cudaErrorInvalidValue);
-  // row-groups: 8 up to n = 64, 16 up to n = 128, so rpt <= 8 and a block
-  // has at most kMaxThreads threads
-  const int W = n <= 64 ? 8 : 16;
-  const int rpt = (n + W - 1) / W;
-  // the K^-1 stack (and K when refining) plus two (n, 32) vector buffers,
-  // all fp64; the wrapper checks this against the card's 227 KB per block
+  Layout lay;
+  lay.ld = mpc_admm::row_stride(n, lanes);
+  lay.sk = mpc_admm::copy_stride(n, lay.ld);
+  lay.nslots = (groups * rpt + 1) & ~1;
   const size_t stacks = refine_steps > 0 ? 2 : 1;
   const size_t smem =
-      (stacks * R * n * n + 2 * static_cast<size_t>(n) * kLanes) * sizeof(double);
-  const dim3 block(kLanes, W);
-  const dim3 grid((B + kLanes - 1) / kLanes);
+      (stacks * R * lay.sk + 2 * static_cast<size_t>(lay.nslots) * lanes) *
+      sizeof(double);
+  if (smem != static_cast<size_t>(smem_bytes) || smem > mpc_admm::kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{kinv, kmat, dvec, rho_vecs, rho_invs, q, l, u, idx,
+               x_in, s_in, y_in, ax_in, x_out, s_out, y_out, ax_out,
+               n, B, R, chunk, refine_steps, sigma, alpha};
+  const dim3 block(lanes, groups);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MPC_K1_CASE(RPT)                                                      \
-  case RPT:                                                                   \
-    return static_cast<int>(launch<RPT>(                                      \
-        grid, block, smem, st, kinv, kmat, dvec, rho_vecs, rho_invs, q, l, u, \
-        idx, x_in, s_in, y_in, ax_in, x_out, s_out, y_out, ax_out, n, B, R,   \
-        chunk, refine_steps, sigma, alpha));
+#define MPC_K1_CASE(N, T, REGS, REGS_REFINE)                              \
+  case N:                                                                  \
+    return static_cast<int>(                                               \
+        refine_steps > 0                                                   \
+            ? launch<N, true, T, REGS_REFINE>(a, block, lay, smem, st)     \
+            : launch<N, false, T, REGS>(a, block, lay, smem, st));
   switch (rpt) {
-    MPC_K1_CASE(1)
-    MPC_K1_CASE(2)
-    MPC_K1_CASE(3)
-    MPC_K1_CASE(4)
-    MPC_K1_CASE(5)
-    MPC_K1_CASE(6)
-    MPC_K1_CASE(7)
-    MPC_K1_CASE(8)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    MPC_K1_INSTANCES(MPC_K1_CASE)
   }
 #undef MPC_K1_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

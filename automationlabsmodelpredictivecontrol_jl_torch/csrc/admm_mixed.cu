@@ -23,7 +23,7 @@
 // same address (k3_ab.py --kernel K2; PERF.md, Findings PR 7). So:
 // - No bank conflicts between the rho copies or the rows of a warp: the
 //   copies sit at a stride that is odd in 16-byte units, and the rows at a
-//   stride chosen for the lanes per block (row_stride), so that the
+//   stride chosen for the lanes per block (admm_common.cuh), so that the
 //   distinct entries a warp reads fall in distinct banks. Lanes at mixed
 //   rho indices no longer serialize.
 // - A block covers L lanes x G row-groups with L and G from the wrapper's
@@ -72,63 +72,20 @@
 #include <climits>
 #include <cstddef>
 
+#include "admm_common.cuh"
+
 namespace {
 
-constexpr size_t kSmemLimit = 232448;
+using mpc_admm::clip;
+using mpc_admm::load2;
+using mpc_admm::matvec;
+using mpc_admm::slot;
 
 // The most threads (L x G) a block of an instantiation may have: 512 where
 // its rows fit 128 registers a thread, else 256 (255 registers a thread).
 // ops/admm_fused.k2_max_threads mirrors it.
 constexpr int max_threads(int rpt_n, int rpt_t) {
   return rpt_t <= 4 && (rpt_n <= 2 || (rpt_n == 3 && rpt_t <= 2)) ? 512 : 256;
-}
-
-// jnp.clip / torch.clamp semantics: a NaN passes through, l = -inf clips
-// nothing from below.
-__device__ __forceinline__ float clip(float v, float lo, float hi) {
-  v = v < lo ? lo : v;
-  return v > hi ? hi : v;
-}
-
-__device__ __forceinline__ double2 load2(const double* p) {
-  return *reinterpret_cast<const double2*>(p);
-}
-
-// the double index of row i of lane b in an L-lane buffer of paired rows
-__device__ __forceinline__ int slot(int i, int L, int b) {
-  return (((i >> 1) * L + b) << 1) | (i & 1);
-}
-
-// out[k] = sum_j M[off[k] + j] v[j] over j < len, in index order: fp64 sums
-// of exact fp32 products, rounded once. v is the lane's column of a paired
-// buffer (rows j, j+1 at v + (j / 2) * pair_stride); both are read two
-// entries at a time.
-template <int RPT>
-__device__ __forceinline__ void matvec(const double* __restrict__ M,
-                                       const double* __restrict__ v,
-                                       const int (&off)[RPT], int len,
-                                       int pair_stride, float (&out)[RPT]) {
-  double acc[RPT];
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) acc[k] = 0.0;
-  const int pairs = len >> 1;
-#pragma unroll 2
-  for (int p = 0; p < pairs; ++p) {
-    const double2 vj = load2(v + p * pair_stride);
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      const double2 a = load2(M + off[k] + 2 * p);
-      acc[k] = fma(a.x, vj.x, acc[k]);
-      acc[k] = fma(a.y, vj.y, acc[k]);
-    }
-  }
-  if (len & 1) {
-    const double vj = v[pairs * pair_stride];
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) acc[k] = fma(M[off[k] + len - 1], vj, acc[k]);
-  }
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) out[k] = static_cast<float>(acc[k]);
 }
 
 struct Layout {
@@ -177,14 +134,8 @@ admm_mixed_chunk_kernel(const float* __restrict__ kinv,
   const bool live = lane < B;
   const int lc = live ? lane : B - 1;  // lanes past B run on lane B-1's data
 
-  const int nn = n * n;
-  for (int i = tid; i < R * nn; i += nthreads) {
-    const int rr = i / nn;
-    const int row = (i - rr * nn) / n;
-    const int dst = rr * sk + row * ld + (i - rr * nn - row * n);
-    ki_sh[dst] = kinv[i];
-    if (refine_steps > 0) k_sh[dst] = kmat[i];
-  }
+  mpc_admm::stage_operators(ki_sh, k_sh, kinv, refine_steps > 0 ? kmat : nullptr, R, n, ld,
+                            sk, tid, nthreads);
   for (int i = tid; i < ms * n; i += nthreads) {
     const int row = i / n;
     a2_sh[row * ld + (i - row * n)] = a2[i];
@@ -385,18 +336,6 @@ cudaError_t launch(const Args& a, dim3 block, const Layout& lay, size_t smem,
   return cudaGetLastError();
 }
 
-// The row stride (in doubles) of an operator read two entries at a time by
-// blocks of `lanes` lanes: even, and such that the 32 / lanes consecutive
-// rows a warp reads start in distinct 16-byte bank groups (the stride in
-// 16-byte units an odd multiple of lanes / 4). ops/admm_fused.py mirrors it.
-int row_stride(int n, int lanes) {
-  int ld = n + (n & 1);
-  if (lanes >= 32) return ld;
-  const int unit = lanes / 4;
-  while ((ld / 2) % unit != 0 || ((ld / 2) / unit) % 2 == 0) ld += 2;
-  return ld;
-}
-
 // the instantiated rows per thread; ops/admm_fused.py (K2_RPT_N, K2_RPT_T)
 // plans only these
 #define MPC_K2_RPT_N(X) X(1) X(2) X(3) X(4)
@@ -435,8 +374,8 @@ int admm_mixed_chunk(const float* kinv, const float* kmat, const float* a2,
       rpt_t * groups < ms)
     return static_cast<int>(cudaErrorInvalidValue);
   Layout lay;
-  lay.ld = row_stride(n, lanes);
-  lay.sk = (n * lay.ld) | 2;  // odd in 16-byte units
+  lay.ld = mpc_admm::row_stride(n, lanes);
+  lay.sk = mpc_admm::copy_stride(n, lay.ld);
   lay.nslots = (groups * rpt_n + 1) & ~1;
   lay.tslots = (groups * rpt_t + 1) & ~1;
   const size_t stacks = refine_steps > 0 ? 2 : 1;
@@ -444,7 +383,7 @@ int admm_mixed_chunk(const float* kinv, const float* kmat, const float* a2,
       (stacks * R * lay.sk + static_cast<size_t>(ms) * lay.ld +
        2 * static_cast<size_t>(lay.nslots + lay.tslots) * lanes) *
       sizeof(double);
-  if (smem != static_cast<size_t>(smem_bytes) || smem > kSmemLimit)
+  if (smem != static_cast<size_t>(smem_bytes) || smem > mpc_admm::kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{kinv, kmat, a2, dvec, rho_vecs, rho_invs, q, l, u, idx,
                x_in, s_in, y_in, ax_in, x_out, s_out, y_out, ax_out,

@@ -108,7 +108,7 @@ def build_kernels(force: bool = False) -> str:
 # (the last one is the stream), "i" an int, "f" a float. Every entry
 # returns its cudaError_t as an int.
 SIGNATURES = {
-    "admm_diag_chunk": "p" * 17 + "i" * 5 + "ff" + "p",
+    "admm_diag_chunk": "p" * 17 + "i" * 9 + "ff" + "p",
     "admm_mixed_chunk": "p" * 18 + "i" * 11 + "ff" + "p",
     "admm_dense_packed_chunk": "p" * 18 + "i" * 6 + "ff" + "p",
     "admm_dense_perr_chunk": "p" * 17 + "i" * 6 + "ff" + "p",

@@ -63,28 +63,158 @@ MAX_N = 128
 MAX_TAIL = 128
 MAX_DENSE_ROWS = 512
 _LANES = 32
+# one SM of the card: its SM count, shared memory (of which the runtime
+# keeps 1 KB per resident block), registers, threads and resident blocks
+SM_COUNT = 132
+SM_SMEM, SM_SMEM_PER_BLOCK, SM_REGISTERS, SM_THREADS, SM_BLOCKS = 233472, 1024, 65536, 2048, 32
+# lanes per block of K1's and K2's layouts
+LANES = (32, 16, 8, 4)
 
 
-def k1_smem_bytes(n: int, R: int, refine_steps: int) -> int:
-    """Dynamic shared memory of one K1 block: the K^-1 stack (and K when
-    refining) plus two (n, 32) vector buffers, all fp64."""
+def row_strides(n: int, lanes: int) -> Tuple[int, int]:
+    """The strides, in doubles, of an (n, n) operator stack in K1's and K2's
+    shared memory (csrc/admm_common.cuh, row_stride): rows at ``ld``, even
+    so that a row is read two entries at a time, and for fewer than 32
+    lanes an odd multiple of lanes / 4 in 16-byte units, so that the
+    32 / lanes consecutive rows a warp reads start in distinct bank groups;
+    rho copies at ``sk``, odd in 16-byte units, so that the same entry of
+    two copies never shares a bank group."""
+    ld = n + (n & 1)
+    if lanes < 32:
+        unit = lanes // 4
+        while (ld // 2) % unit or ((ld // 2) // unit) % 2 == 0:
+            ld += 2
+    return ld, (n * ld) | 2
+
+
+def _warp_cost(per_sm_lanes: int, lane_reads: int, warps: float) -> float:
+    """K1's and K2's plans rank layouts by the doubles the busiest SM reads
+    from shared memory (per_sm_lanes lanes, lane_reads each per iteration),
+    which on this card set the pace whether or not the threads of a warp
+    read the same address (k3_ab.py --kernel K2, PERF.md), with a penalty
+    where fewer than 7 warps are resident on the SM to hide the loads'
+    latency."""
+    return per_sm_lanes * lane_reads * max(1.0, 7 / warps)
+
+
+# K1's instantiations (csrc/admm_diag.cu, MPC_K1_INSTANCES): rows per
+# thread -> the most threads a block of it may have and the registers a
+# thread takes without and with refinement (nvcc 12.9's -Xptxas -v report
+# on the H100; none spills)
+K1_INSTANCES = {1: (512, 45, 58), 2: (512, 70, 80), 3: (512, 94, 111), 4: (512, 121, 128),
+                5: (256, 126, 166), 6: (256, 164, 192), 7: (256, 186, 219), 8: (256, 208, 247)}
+# the C entry's int parameters, in order (the wrapper passes them so)
+K1_INTS = ("n", "B", "R", "chunk", "refine_steps", "lanes", "groups", "rpt", "smem_bytes")
+
+
+class K1Plan(NamedTuple):
+    """How one K1 launch is laid out: lanes and row-groups of a block
+    (blockDim.x, blockDim.y), the rows each thread owns, the blocks of the
+    grid, the block's dynamic shared memory and how many blocks an SM
+    holds at once."""
+
+    lanes: int
+    groups: int
+    rpt: int
+    blocks: int
+    smem_bytes: int
+    per_sm: int
+
+
+def k1_smem_bytes(n: int, R: int, refine_steps: int, lanes: int, groups: int, rpt: int) -> int:
+    """Dynamic shared memory of one K1 block, all fp64: the K^-1 stack (and
+    K when refining) at :func:`row_strides`, and two vector buffers of
+    ``lanes`` lanes whose rows (padded ones included) are rounded up to
+    pairs (csrc/admm_diag.cu)."""
+    _, sk = row_strides(n, lanes)
     stacks = 2 if refine_steps > 0 else 1
-    return (stacks * R * n * n + 2 * n * _LANES) * 8
+    slots = (groups * rpt + 1) & ~1
+    return (stacks * R * sk + 2 * slots * lanes) * 8
+
+
+def blocks_per_sm(threads: int, smem_bytes: int, registers: int) -> int:
+    """Blocks of ``threads`` threads, ``smem_bytes`` of dynamic shared
+    memory and ``registers`` a thread that one SM holds at once: the least
+    of what its shared memory, threads, registers (allocated per warp in
+    units of 256) and block slots allow."""
+    warps = -(-threads // 32)
+    per_warp = -(-registers * 32 // 256) * 256
+    return min(SM_SMEM // (smem_bytes + SM_SMEM_PER_BLOCK), SM_THREADS // threads,
+               SM_REGISTERS // (warps * per_warp), SM_BLOCKS)
+
+
+def _k1_layouts(n: int, R: int, refine_steps: int):
+    """Every (lanes, groups, rpt, smem_bytes, per_sm) K1 can launch for this
+    operator shape: whole warps, an instantiated row count, no more threads
+    than it allows, a block within the card's shared memory."""
+    if not 1 <= n <= MAX_N:
+        return
+    for lanes in LANES:
+        step = max(1, 32 // lanes)
+        for groups in range(step, 512 // lanes + 1, step):
+            rpt = -(-n // groups)
+            if rpt not in K1_INSTANCES:
+                continue
+            threads = K1_INSTANCES[rpt][0]
+            registers = K1_INSTANCES[rpt][2 if refine_steps > 0 else 1]
+            if lanes * groups > threads:
+                continue
+            smem = k1_smem_bytes(n, R, refine_steps, lanes, groups, rpt)
+            if smem <= SMEM_LIMIT:
+                yield lanes, groups, rpt, smem, blocks_per_sm(lanes * groups, smem, registers)
+
+
+@functools.lru_cache(maxsize=256)  # the driver asks once per chunk
+def k1_plan(n: int, R: int, refine_steps: int, B: int,
+            lanes: Optional[int] = None, groups: Optional[int] = None) -> K1Plan:
+    """The layout of a K1 launch for ``B`` lanes, from the shape alone.
+
+    The busiest SM runs ceil(ceil(B / L) / 132) blocks of L lanes; several
+    of them at once where its shared memory, threads and the
+    instantiation's registers allow (tier 1's operators take 25 KB, so up
+    to 4 blocks of 32 lanes share an SM). A lane reads per iteration an
+    operator entry per multiply-add, padded rows included, and its vector
+    once per thread, so fewer row-groups G read less; the cost
+    (:func:`_warp_cost`) counts the warps resident on the SM, not those of
+    one block. Ties go to more lanes per block. ``lanes`` and ``groups``
+    force a layout (ValueError if it does not fit)."""
+    B = int(B)
+    if B < 1:
+        raise ValueError(f"K1 takes at least one lane; B={B}")
+    if n * B >= 2**31:
+        raise ValueError(f"K1 indexes the (n, B) state with 32 bits; n={n}, B={B}")
+    products = 1 + 2 * int(refine_steps)
+    best = None
+    for L, G, rpt, smem, per_sm in _k1_layouts(n, R, int(refine_steps)):
+        if lanes not in (None, L) or groups not in (None, G):
+            continue
+        blocks = -(-B // L)
+        busiest = -(-blocks // SM_COUNT)
+        warps = min(per_sm, busiest) * L * G / 32
+        cost = _warp_cost(busiest * L, (G * rpt + G) * n * products, warps)
+        key = (cost, -L)
+        if best is None or key < best[0]:
+            best = (key, K1Plan(L, G, rpt, blocks, smem, per_sm))
+    if best is None:
+        raise ValueError(
+            f"no K1 layout for n={n}, R={R}, refine_steps={refine_steps}"
+            + ("" if lanes is None and groups is None else f", lanes={lanes}, groups={groups}")
+            + f": K1 takes n <= {MAX_N} and a block within {SMEM_LIMIT} B of shared memory"
+        )
+    return best[1]
 
 
 def k1_fits(n: int, R: int, refine_steps: int) -> bool:
-    """Whether K1 takes this operator shape (tiling K for larger n is
-    later work, ROADMAP Queue 2)."""
-    return n <= MAX_N and k1_smem_bytes(n, R, refine_steps) <= SMEM_LIMIT
+    """Whether K1 takes this operator shape: n <= 128 and some layout
+    within the card's shared memory (tiling K for larger n is later work,
+    ROADMAP Queue 2)."""
+    return next(_k1_layouts(n, R, refine_steps), None) is not None
 
 
 # K2's instantiated rows per thread of the box and of the tail
-# (csrc/admm_mixed.cu, MPC_K2_RPT_N / MPC_K2_RPT_T), its lanes per block
-# and the card's SMs
+# (csrc/admm_mixed.cu, MPC_K2_RPT_N / MPC_K2_RPT_T)
 K2_RPT_N = (1, 2, 3, 4)
 K2_RPT_T = (1, 2, 3, 4, 5, 6, 8)
-K2_LANES = (32, 16, 8, 4)
-SM_COUNT = 132
 # the C entry's int parameters, in order (the wrapper passes them so)
 K2_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "lanes", "groups", "rpt_n",
            "rpt_t", "smem_bytes")
@@ -110,29 +240,13 @@ def k2_max_threads(rpt_n: int, rpt_t: int) -> int:
     return 512 if rpt_t <= 4 and (rpt_n <= 2 or (rpt_n == 3 and rpt_t <= 2)) else 256
 
 
-def k2_row_stride(n: int, lanes: int) -> int:
-    """The row stride, in doubles, of K2's operators in shared memory
-    (csrc/admm_mixed.cu, row_stride): even, so that a row is read two
-    entries at a time, and for fewer than 32 lanes an odd multiple of
-    lanes / 4 in 16-byte units, so that the 32 / lanes consecutive rows a
-    warp reads start in distinct bank groups."""
-    ld = n + (n & 1)
-    if lanes >= 32:
-        return ld
-    unit = lanes // 4
-    while (ld // 2) % unit or ((ld // 2) // unit) % 2 == 0:
-        ld += 2
-    return ld
-
-
 def k2_smem_bytes(n: int, m: int, R: int, refine_steps: int, lanes: int, groups: int,
                   rpt_n: int, rpt_t: int) -> int:
     """Dynamic shared memory of one K2 block, all fp64: the K^-1 stack (and
-    K when refining), each copy at an odd stride in 16-byte units; A2; two
-    box-row and two tail-row buffers of ``lanes`` lanes, their rows (padded
-    ones included) rounded up to pairs (csrc/admm_mixed.cu)."""
-    ld = k2_row_stride(n, lanes)
-    sk = (n * ld) | 2
+    K when refining) at :func:`row_strides`; A2 (rows at the same stride);
+    two box-row and two tail-row buffers of ``lanes`` lanes, their rows
+    (padded ones included) rounded up to pairs (csrc/admm_mixed.cu)."""
+    ld, sk = row_strides(n, lanes)
     stacks = 2 if refine_steps > 0 else 1
     slots = lambda rows: (rows + 1) & ~1
     buffers = 2 * (slots(groups * rpt_n) + slots(groups * rpt_t)) * lanes
@@ -147,7 +261,7 @@ def _k2_layouts(n: int, m: int, R: int, refine_steps: int):
     ms = m - n
     if not (1 <= n <= MAX_N and 1 <= ms <= MAX_TAIL):
         return
-    for lanes in K2_LANES:
+    for lanes in LANES:
         step = max(1, 32 // lanes)
         for groups in range(step, 512 // lanes + 1, step):
             rpt_n, rpt_t = -(-n // groups), -(-ms // groups)
@@ -167,13 +281,10 @@ def k2_plan(n: int, m: int, R: int, refine_steps: int, B: int,
 
     One block per SM (its shared memory holds every rho's operators), so
     the time is the lanes an SM runs, ceil(ceil(B / L) / 132) L (16 at
-    B = 2048, 4 at B = 512), times a lane's cost: the bytes its threads
-    read from shared memory per iteration, which on this card set the pace
-    whether or not the threads of a warp read the same address (k3_ab.py
-    --kernel K2, PERF.md): an operator entry per multiply-add, padded rows
-    included, and the lane vectors once per thread, so fewer row-groups G
-    read less; with a penalty where fewer than 7 warps are left to hide the
-    loads' latency. Ties go to more lanes per block. ``lanes`` and
+    B = 2048, 4 at B = 512), times a lane's reads (:func:`_warp_cost`): an
+    operator entry per multiply-add, padded rows included, and the lane
+    vectors once per thread, so fewer row-groups G read less; the warps
+    are those of one block. Ties go to more lanes per block. ``lanes`` and
     ``groups`` force a layout (ValueError if it does not fit)."""
     B = int(B)
     if B < 1:
@@ -186,12 +297,10 @@ def k2_plan(n: int, m: int, R: int, refine_steps: int, B: int,
         if lanes not in (None, L) or groups not in (None, G):
             continue
         blocks = -(-B // L)
-        per_sm_lanes = -(-blocks // SM_COUNT) * L
         box, tail = G * rpt_n, G * rpt_t
         operator = box * ((1 + 2 * rs) * n + ms) + tail * n
         vectors = G * ((2 + 2 * rs) * n + 2 * ms)
-        warps = L * G // 32
-        cost = per_sm_lanes * (operator + vectors) * max(1.0, 7 / warps)
+        cost = _warp_cost(-(-blocks // SM_COUNT) * L, operator + vectors, L * G // 32)
         key = (cost, -L)
         if best is None or key < best[0]:
             best = (key, K2Plan(L, G, rpt_n, rpt_t, blocks, smem))
@@ -565,16 +674,13 @@ def _launch(kernel: str, entry: str, args, outs, ints, floats=()):
     return tuple(outs)
 
 
-def _launch_k1(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config):
+def _launch_k1(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
+    """Launch K1 as :func:`k1_plan` lays it out (``plan`` forces one)."""
     n, B = qT.shape
     R = int(op.rho_grid.shape[0])
     rs = int(config.refine_steps)
-    if not k1_fits(n, R, rs):
-        raise ValueError(
-            f"K1 takes n <= {MAX_N} and an operator stack within "
-            f"{SMEM_LIMIT} B of shared memory; n={n}, R={R}, "
-            f"refine_steps={rs} needs {k1_smem_bytes(n, R, rs)} B"
-        )
+    if plan is None:
+        plan = k1_plan(n, R, rs, B)
     f = torch.float32
     args = [
         ("K_invs", op.K_invs, (R, n, n), f),
@@ -585,7 +691,8 @@ def _launch_k1(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config):
     ] + _state_args(n, n, B, qT, lT, uT, idx, xT, sT, yT, axT)
     _check_args("K1", args, qT.device)
     outs = [torch.empty_like(xT) for _ in range(4)]
-    return _launch("K1", "admm_diag_chunk", args, outs, (n, B, R, int(chunk), rs),
+    ints = dict(n=n, B=B, R=R, chunk=int(chunk), refine_steps=rs, **plan._asdict())
+    return _launch("K1", "admm_diag_chunk", args, outs, [ints[k] for k in K1_INTS],
                    (float(config.sigma), float(config.alpha)))
 
 

@@ -44,15 +44,18 @@ Phases (any failure raises and exits non-zero):
    the -Xptxas -v report is printed, the whole report is written to
    build/kernels/ptxas.txt), and the native oracle with g++, into build/;
 3. each kernel against its plain PyTorch version on the card at its
-   main-path shapes (K2 at every tail the paths give it, with random rho
-   indices and with one index for all lanes, then at ragged batches, each
-   with its k2_plan line and equal bit for bit; K3 at h500 and at one h50
+   main-path shapes (K1 at tier 1's 16384 lanes and the closed loop's 4096
+   and at tier 2's bucket, K2 at every tail the paths give it, each with
+   random rho indices and with one index for all lanes, then both at
+   ragged batches, each with its k1_plan or k2_plan line, K2 equal bit for
+   bit and K1's distance in ulps logged; K3 at h500 and at one h50
    shape per branch of the kernel, then at the shapes that take the other
    routes of its plan: h500 with the state box, a ragged batch, longer
    horizons, an (8, 4) and a (16, 8) plant; K4 with and without
-   refinement, K5 at h20 and h50), with times from CUDA events, and beside
-   K2's its shared-memory floor (smem_floor_ms) and beside K3's the time of
-   its dependency chain alone (chain_floor_ms);
+   refinement, K5 at h20 and h50), with times from CUDA events (K1's and
+   K2's from CUDA graphs), and beside K1's and K2's their shared-memory
+   floor (smem_floor_ms) and beside K3's the time of its dependency chain
+   alone (chain_floor_ms);
 4. each path, with the launch counts set to 0 just before it and read
    just after, showing that it went through its kernel and never through
    a plain version;
@@ -94,7 +97,7 @@ SM_COUNT = 132
 B_MAIN, BUCKET, B_CL, CL_STEPS = 16384, 512, 4096, 5
 B_SLICE, B_RESOLVE, REPS, REPS_SC = 2048, 256, 20, 5
 B_H500, B_H50, REPS_RICCATI = 1024, 4096, 10
-K2_RAGGED = (1, 33, 77, 1000)
+RAGGED = (1, 33, 77, 1000)  # tier-2 buckets of K1 and K2
 
 
 def log(**kv):
@@ -491,10 +494,10 @@ def kernel_inputs(ctrl, B, seed, x0s_fn, single_index=False):
 
 
 def smem_floor_ms(n, m, R, refine_steps, B, chunk):
-    """Least milliseconds of one K2 chunk if its shared memory delivered one
-    operator entry per lane and multiply-add at one 32-lane wavefront a
-    clock on every SM: (1 + 2 refine) n^2 + 2 (m - n) n entries per lane
-    and iteration (the K-solves, A2 and A2'), B chunk lane-iterations, over
+    """Least milliseconds of one K1 (m = n) or K2 chunk if its shared memory
+    delivered one operator entry per lane and multiply-add at one 32-lane
+    wavefront a clock on every SM: (1 + 2 refine) n^2 + 2 (m - n) n entries
+    per lane and iteration (the K-solves, A2 and A2'), B chunk lane-iterations, over
     132 SMs at the card's highest SM clock. The vector loads and the
     entries a lane of another rho index cannot share come on top. R does
     not enter: each lane reads only its own rho's operators."""
@@ -514,8 +517,8 @@ def sm_clock_hz():
 
 def compare_kernel(ctrl, B, seed, x0s_fn, plain_reps=REPS, single_index=False):
     """A kernel against its plain version at one shape, on the card; the
-    kernel is K1, K2, K4 or K5 as the controller's operator says. K2 must
-    equal it bit for bit and logs its plan. Returns a record."""
+    kernel is K1, K2, K4 or K5 as the controller's operator says. K1 and K2
+    log their plans; K2 must equal it bit for bit. Returns a record."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
 
     op, cfg = ctrl.engine.op, ctrl.engine.config
@@ -536,13 +539,17 @@ def compare_kernel(ctrl, B, seed, x0s_fn, plain_reps=REPS, single_index=False):
     )
     if name in ("K4", "K5"):
         rec["operators_in_shared_memory"] = admm_fused.dense_ops_shared(n, m, R, rs, name == "K4")
-    if name == "K2":
-        plan = admm_fused.k2_plan(n, m, R, rs, B)
-        log(phase="k2_plan", n=n, m=m, R=R, refine_steps=rs, B=B, **plan._asdict())
+    if name in ("K1", "K2"):
+        if name == "K1":
+            plan = admm_fused.k1_plan(n, R, rs, B)
+        else:
+            plan = admm_fused.k2_plan(n, m, R, rs, B)
+        log(phase=f"{name.lower()}_plan", n=n, m=m, R=R, refine_steps=rs, B=B,
+            rho_index=rec["rho_index"], **plan._asdict())
         rec["plan"] = plan._asdict()
     if rel_err > SHAPES_OK_REL or (name == "K2" and ulps != 0):
         raise RuntimeError(f"{kernel.__name__} disagrees with its plain version: {rec}")
-    if name == "K2":  # 0.1-0.3 ms a launch: graph-timed, and through the wrapper
+    if name in ("K1", "K2"):  # 0.04-0.3 ms a launch: graph-timed, and through the wrapper
         rec["ms"] = cuda_graph_ms(lambda: kernel(*args))
         rec["wrapper_ms"] = cuda_ms(lambda: kernel(*args))
         rec["smem_floor_ms"] = smem_floor_ms(n, m, R, rs, B, chunk)
@@ -786,8 +793,15 @@ def main():
             raise RuntimeError(f"{cell}: expected a dense operator on {kind}")
 
     # 3. each kernel against its plain version at its main-path shapes
-    k1_shapes = [compare_kernel(ctrl, B_MAIN, 1, bench_x0s),
-                 compare_kernel(fb, BUCKET, 2, bench_x0s)]
+    # K1 at tier 1's B, tier 2's bucket and the closed loop's B, each with
+    # random rho indices and with every lane at the config's start index;
+    # then tier 2 at ragged buckets, which take the plan's other layouts
+    k1_cases = ((ctrl, B_MAIN, 1), (fb, BUCKET, 2), (ctrl, B_CL, 24))
+    k1_shapes = [compare_kernel(c, B, seed, bench_x0s, single_index=single)
+                 for c, B, seed in k1_cases for single in (False, True)]
+    k1_shapes += [compare_kernel(fb, B, 25 + i, bench_x0s, plain_reps=2)
+                  for i, B in enumerate(RAGGED)]
+    k1_layouts = {(r["plan"]["lanes"], r["plan"]["groups"]) for r in k1_shapes}
     for rec in k1_shapes:
         log(phase="k1_vs_plain", **rec)
     # K2 at the state-constrained shape first (40 launches per solve), then
@@ -800,7 +814,7 @@ def main():
     k2_shapes = [compare_kernel(c, B, 3 + i, x0s_fn, single_index=single)
                  for i, (c, B, x0s_fn) in enumerate(k2_cases) for single in (False, True)]
     k2_shapes += [compare_kernel(ctrl_sc, B, 20 + i, bench_x0s, plain_reps=2)
-                  for i, B in enumerate(K2_RAGGED)]
+                  for i, B in enumerate(RAGGED)]
     k2_layouts = {(r["plan"]["lanes"], r["plan"]["groups"]) for r in k2_shapes}
     for rec in k2_shapes:
         log(phase="k2_vs_plain", **rec)
@@ -1116,8 +1130,10 @@ def main():
                       admm_fused.chunk_fn_for(c.engine.op, plain=True, config=c.engine.config))
 
     print(json.dumps({"kernels": [
-        kernel_entry("admm_diag_chunk (K1)", "admm_diag.cu", f"{TPU_ADMM}:348",
-                     k1_launches, k1_shapes),
+        dict(kernel_entry("admm_diag_chunk (K1)", "admm_diag.cu", f"{TPU_ADMM}:348",
+                          k1_launches, k1_shapes),
+             smem_floor_ms=k1_shapes[0]["smem_floor_ms"],
+             layouts=sorted(k1_layouts)),
         dict(kernel_entry("admm_mixed_chunk (K2)", "admm_mixed.cu", f"{TPU_ADMM}:580",
                           k2_launches, k2_shapes),
              smem_floor_ms=k2_shapes[0]["smem_floor_ms"],

@@ -1,9 +1,10 @@
-"""A/B timing of K3 and the certificate kernel, or of K2, across source
-trees, on one NVIDIA GPU, in one process tree (so on one card, under one
-power limit).
+"""A/B timing of K3 and the certificate kernel, or of K2 or K1, across
+source trees, on one NVIDIA GPU, in one process tree (so on one card, under
+one power limit).
 
     python3 k3_ab.py NAME=TREE[:ROUTE] [NAME=TREE[:ROUTE] ...] [--sass NAME]
     python3 k3_ab.py --kernel K2 NAME=TREE[:LxG] [...] [--plain NAME] [--sass NAME]
+    python3 k3_ab.py --kernel K1 NAME=TREE[:LxG] [...] [--plain NAME] [--sass NAME]
 
 Each TREE is a directory that holds the port's package (this checkout is
 "."; an earlier commit unpacked with ``git archive`` is another). The specs
@@ -42,6 +43,14 @@ forces K2's lanes and row-groups per block (``admm_fused.k2_plan``) in a
 tree that has a plan; a layout that does not fit is skipped. A tree that
 fails to build is reported and skipped. ``--sass NAME`` writes the SASS of
 that tree's K2 kernels to sass_NAME.txt.
+
+``--kernel K1`` does the same for K1 with each tree's ``csrc/admm_diag.cu``
+(into build/k1ab/), at the shapes of K1_SHAPES: tier 1 (n = 40, R = 2, no
+refinement) at the headline's B = 16384 and the closed loop's 4096, tier 2
+(R = 4, 2 refinements) at its bucket of 512 and ragged B = 1, 33, 77, 1000,
+and the h50 box-only operator (n = 100) at tier 1, B = 2048; LxG forces
+``admm_fused.k1_plan``'s layout. A tree's wrapper calls its own C entry,
+whose parameters may differ from this checkout's.
 
 List a tree twice (first and last) to see the drift within the call. The
 last line is a JSON object of all records.
@@ -189,24 +198,45 @@ K2_SHAPES = (  # name, controller options, initial states, B, tier-2 fallback, s
     ("m120-B77", {"mpc_state_constraint": True}, "bench", 77, False, 22),
     ("m120-B1000", {"mpc_state_constraint": True}, "bench", 1000, False, 23),
 )
+# name, horizon, initial states, B, tier-2 fallback, seed: tier 1 (rho grid
+# (1, 10), no refinement) at the headline's B and the closed loop's, tier
+# 2's bucket and ragged buckets (grid (0.1, 1, 10, 100), 2 refinements),
+# and the box-only operator of another width (h50, n = 100) at tier 1
+K1_SHAPES = (
+    ("tier1-B16384", 20, "bench", 16384, False, 1),
+    ("tier2-B512", 20, "bench", 512, True, 2),
+    ("closed-loop-B4096", 20, "bench", 4096, False, 30),
+    ("tier2-B1", 20, "bench", 1, True, 31),
+    ("tier2-B33", 20, "bench", 33, True, 32),
+    ("tier2-B77", 20, "bench", 77, True, 33),
+    ("tier2-B1000", 20, "bench", 1000, True, 34),
+    ("h50-tier1-B2048", 50, "bench", 2048, False, 35),
+)
+ADMM_KERNELS = {  # the source each tree builds alone, and its C entry
+    "K1": ("admm_diag.cu", "admm_diag_chunk"),
+    "K2": ("admm_mixed.cu", "admm_mixed_chunk"),
+}
 
 
-def _k2_lib(tree):
-    return os.path.join(os.path.abspath(tree), "build", "k2ab", "libk2.so")
+def _admm_lib(tree, kernel):
+    return os.path.join(os.path.abspath(tree), "build", f"{kernel.lower()}ab",
+                        f"lib{kernel.lower()}.so")
 
 
-def build_k2(trees):
-    """nvcc each tree's csrc/admm_mixed.cu into a library of its own, all at
-    once, with this checkout's flags. Returns {tree: (seconds, report or
-    None if it failed, error text)}."""
+def build_admm(trees, kernel):
+    """nvcc each tree's source of the kernel (K1: csrc/admm_diag.cu, K2:
+    csrc/admm_mixed.cu) into a library of its own, all at once, with this
+    checkout's flags. Returns {tree: (seconds, report or None if it failed,
+    error text)}."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import _build
 
     procs = {}
     for tree in trees:
         src = os.path.join(os.path.abspath(tree), "automationlabsmodelpredictivecontrol_jl_torch",
-                           "csrc", "admm_mixed.cu")
-        os.makedirs(os.path.dirname(_k2_lib(tree)), exist_ok=True)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", _k2_lib(tree), src]
+                           "csrc", ADMM_KERNELS[kernel][0])
+        lib = _admm_lib(tree, kernel)
+        os.makedirs(os.path.dirname(lib), exist_ok=True)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib, src]
         procs[tree] = (time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
@@ -216,71 +246,98 @@ def build_k2(trees):
     return out
 
 
-def child_k2(tree, layout, plain, sass, sass_dir, shapes):
-    """Time K2 of one tree at K2_SHAPES; print one K2_AB line of records."""
+def _admm_cases(kernel, dev, shapes):
+    """(name, controller, initial states, B, seed) of each shape of the
+    kernel's table that ``shapes`` keeps, on the card."""
+    import chip_smoke
+    from automationlabsmodelpredictivecontrol_jl_torch import parallel, proceed_controller
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp
+    from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig
+
+    x0s = {"bench": chip_smoke.bench_x0s, "suite": chip_smoke.suite_x0s}
+    tier2 = lambda c: parallel.escalation_controller(
+        c, rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250, refine_steps=2)
+    design = lambda N, cfg, **kw: proceed_controller(
+        qtp.linearized_discrete_system(), "model_predictive_control", N, 5.0,
+        [0.65] * 4, [1.2] * 2, admm_config=cfg, device=dev, **kw,
+    )
+    ctrls = {}
+    if kernel == "K1":
+        cfg = AdmmConfig(max_iter=75, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0)
+        for name, N, x0s_name, B, fallback, seed in K1_SHAPES:
+            if shapes and name not in shapes:
+                continue
+            if N not in ctrls:
+                ctrls[N] = design(N, cfg)
+            yield name, tier2(ctrls[N]) if fallback else ctrls[N], x0s[x0s_name], B, seed
+        return
+    for name, kw, x0s_name, B, fallback, seed in K2_SHAPES:
+        if shapes and name not in shapes:
+            continue
+        key = tuple(sorted(kw.items()))
+        if key not in ctrls:
+            ctrls[key] = design(20, AdmmConfig(max_iter=1000), **kw)
+        yield name, tier2(ctrls[key]) if fallback else ctrls[key], x0s[x0s_name], B, seed
+
+
+def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
+    """Time K1 or K2 of one tree at its shapes; print one K1_AB or K2_AB
+    line of records. Each tree's wrapper calls its own C entry with that
+    tree's signature (an older tree's entry takes other parameters)."""
     sys.path.insert(0, os.path.abspath(tree))
     import ctypes
 
     import torch
 
     import chip_smoke
-    from automationlabsmodelpredictivecontrol_jl_torch import parallel, proceed_controller
-    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp
     from automationlabsmodelpredictivecontrol_jl_torch.ops import _build, admm_fused
-    from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig
 
-    lib = ctypes.CDLL(_k2_lib(tree))
-    entry = lib.admm_mixed_chunk
+    entry_name = ADMM_KERNELS[kernel][1]
+    lib = ctypes.CDLL(_admm_lib(tree, kernel))
+    entry = getattr(lib, entry_name)
     entry.restype = ctypes.c_int
-    entry.argtypes = [_build._CTYPES[c] for c in _build.SIGNATURES["admm_mixed_chunk"]]
+    entry.argtypes = [_build._CTYPES[c] for c in _build.SIGNATURES[entry_name]]
     _build._lib = lib  # the wrappers launch from this library
     if sass:
-        text = subprocess.run(["cuobjdump", "-sass", _k2_lib(tree)], capture_output=True,
-                              text=True, check=True).stdout
+        text = subprocess.run(["cuobjdump", "-sass", _admm_lib(tree, kernel)],
+                              capture_output=True, text=True, check=True).stdout
         parts = text.split("\t\tFunction : ")
-        keep = [p for p in parts[1:] if "mixed" in p.split("\n", 1)[0]]
+        keep = [p for p in parts[1:] if entry_name.rsplit("_", 1)[0] in p.split("\n", 1)[0]]
         os.makedirs(sass_dir, exist_ok=True)
         with open(os.path.join(sass_dir, f"sass_{sass}.txt"), "w") as f:
             f.write("\n\t\tFunction : ".join([""] + keep))
     dev = torch.device("cuda", 0)
-    design = lambda **kw: proceed_controller(
-        qtp.linearized_discrete_system(), "model_predictive_control", 20, 5.0,
-        [0.65] * 4, [1.2] * 2, admm_config=AdmmConfig(max_iter=1000), device=dev, **kw,
-    )
-    ctrls, records = {}, []
-    x0s = {"bench": chip_smoke.bench_x0s, "suite": chip_smoke.suite_x0s}
-    for name, kw, x0s_name, B, tier2, seed in K2_SHAPES:
-        if shapes and name not in shapes:
-            continue
-        key = tuple(sorted(kw.items()))
-        if key not in ctrls:
-            ctrls[key] = design(**kw)
-        ctrl = ctrls[key]
-        if tier2:
-            ctrl = parallel.escalation_controller(
-                ctrl, rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250, refine_steps=2)
+    if kernel == "K1":
+        wrapper, plain_fn = admm_fused.iterate_chunk_diag_T, admm_fused.iterate_chunk_diag_T_plain
+        plan_fn, launch = getattr(admm_fused, "k1_plan", None), getattr(admm_fused, "_launch_k1")
+    else:
+        wrapper, plain_fn = admm_fused.iterate_chunk_mixed_T, admm_fused.iterate_chunk_mixed_T_plain
+        plan_fn, launch = getattr(admm_fused, "k2_plan", None), getattr(admm_fused, "_launch_k2")
+    records = []
+    for name, ctrl, x0s_fn, B, seed in _admm_cases(kernel, dev, shapes):
         for single in (False, True):
-            args = chip_smoke.kernel_inputs(ctrl, B, seed, x0s[x0s_name], single)
+            args = chip_smoke.kernel_inputs(ctrl, B, seed, x0s_fn, single)
             op, cfg = args[0], args[-1]
             m, n = (int(d) for d in op.A_s.shape)
             R, rs = int(op.rho_grid.shape[0]), int(cfg.refine_steps)
             rec = dict(shape=name, rho_index="single" if single else "random",
                        n=n, m=m, R=R, refine_steps=rs, B=B)
-            fn = lambda: admm_fused.iterate_chunk_mixed_T(*args)
-            if hasattr(admm_fused, "k2_plan"):
+            fn = lambda: wrapper(*args)
+            if plan_fn is not None:
                 lanes, groups = (int(v) for v in layout.split("x")) if layout else (None, None)
+                shape = (n, R, rs, B) if kernel == "K1" else (n, m, R, rs, B)
                 try:
-                    plan = admm_fused.k2_plan(n, m, R, rs, B, lanes=lanes, groups=groups)
+                    plan = plan_fn(*shape, lanes=lanes, groups=groups)
                 except ValueError as err:
                     records.append(dict(rec, skipped=str(err)))
                     continue
                 rec["plan"] = plan._asdict()
-                fn = lambda plan=plan: admm_fused._launch_k2(*args, plan=plan)
+                fn = lambda plan=plan: launch(*args, plan=plan)
             out = fn()
             torch.cuda.synchronize()
             rec["sha256"] = _digest(out)
             if plain:
-                want = admm_fused.iterate_chunk_mixed_T_plain(*args)
+                want = plain_fn(*args)
                 rec["max_ulps_vs_plain"] = max(
                     int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
                     for a, b in zip(out, want))
@@ -288,13 +345,13 @@ def child_k2(tree, layout, plain, sass, sass_dir, shapes):
             rec["wrapper_ms"] = _ms(fn, 20)
             rec["smem_floor_ms"] = chip_smoke.smem_floor_ms(n, m, R, rs, B, args[-2])
             records.append(rec)
-    print("K2_AB " + json.dumps(records), flush=True)
+    print(f"{kernel}_AB " + json.dumps(records), flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("specs", nargs="*", help="NAME=TREE[:ROUTE] (K2: NAME=TREE[:LxG])")
-    ap.add_argument("--kernel", choices=("K3", "K2"), default="K3", help="the kernel timed")
+    ap.add_argument("specs", nargs="*", help="NAME=TREE[:ROUTE] (K1, K2: NAME=TREE[:LxG])")
+    ap.add_argument("--kernel", choices=("K3", "K2", "K1"), default="K3", help="the kernel timed")
     ap.add_argument("--plain", default=None, help="the spec name whose outputs are held to the plain version")
     ap.add_argument("--sass", action="append", default=[], help="spec names whose K3 SASS is written out")
     ap.add_argument("--sass-dir", default=os.path.join("build", "sass"),
@@ -308,9 +365,12 @@ def main():
     a = ap.parse_args()
     if a.child:
         tree, route = a.child
-        run = child_k2 if a.kernel == "K2" else child
-        run(tree, None if route == "-" else route, a.child_plain, a.child_sass,
-            os.path.abspath(a.sass_dir), [s for s in a.shapes.split(",") if s])
+        args = (tree, None if route == "-" else route, a.child_plain, a.child_sass,
+                os.path.abspath(a.sass_dir), [s for s in a.shapes.split(",") if s])
+        if a.kernel in ADMM_KERNELS:
+            child_admm(a.kernel, *args)
+        else:
+            child(*args)
         return 0
     import torch
 
@@ -324,13 +384,14 @@ def main():
     results, plained, dumped, failed = [], set(), set(), []
     tag = f"{a.kernel}_AB "
     built = {}
-    if a.kernel == "K2":
-        built = build_k2(sorted({spec.partition("=")[2].partition(":")[0] for spec in a.specs}))
+    if a.kernel in ADMM_KERNELS:
+        trees = sorted({spec.partition("=")[2].partition(":")[0] for spec in a.specs})
+        built = build_admm(trees, a.kernel)
         for tree, (secs, report, text) in built.items():
             rec = dict(tree=tree, nvcc_s=secs, built=report is not None)
             if report is None:
                 rec["error"] = text[-4000:]
-            else:  # K2's registers and spills per instantiation
+            else:  # registers and spills per instantiation
                 import chip_smoke
                 rec["ptxas"] = [(r["template"], r["registers"], r["spill_bytes"])
                                 for r in chip_smoke.ptxas_summary(report)]

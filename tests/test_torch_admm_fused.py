@@ -155,3 +155,80 @@ def test_wrapper_rejects_other_precisions_and_shapes(designs):
     assert admm_fused.k1_fits(40, 4, 2) and admm_fused.k1_fits(40, 2, 0)
     assert not admm_fused.k1_fits(200, 5, 1)  # 800 KB stack: tiling is later work
     assert not admm_fused.k1_fits(130, 1, 0)
+
+
+def _k1_fit_before_plans(n, R, refine_steps):
+    """K1's shape test before its layout was planned: 32 lanes a block,
+    operators at their natural strides."""
+    stacks = 2 if refine_steps > 0 else 1
+    return n <= 128 and (stacks * R * n * n + 2 * n * 32) * 8 <= admm_fused.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("R,refine_steps", [(2, 0), (4, 2), (5, 1)])
+@pytest.mark.parametrize("n", [20, 40, 41, 100, 128])
+def test_k1_plan_covers_batch_and_rows(n, R, refine_steps):
+    """Every shape K1 took before still gets a plan, at every batch size
+    from 1 to 16384; each plan covers the lanes and the rows (the fewest
+    rows per thread for its row-groups) with an instantiated row count,
+    whole warps, no more threads than the instantiation allows and a block
+    within shared memory, and counts the blocks an SM holds at once."""
+    fits = admm_fused.k1_fits(n, R, refine_steps)
+    assert fits or not _k1_fit_before_plans(n, R, refine_steps)
+    for B in (1, 33, 77, 512, 1000, 2048, 4096, 16384):
+        if not fits:
+            with pytest.raises(ValueError):
+                admm_fused.k1_plan(n, R, refine_steps, B)
+            continue
+        p = admm_fused.k1_plan(n, R, refine_steps, B)
+        assert p.blocks * p.lanes >= B > (p.blocks - 1) * p.lanes
+        assert p.groups * p.rpt >= n > p.groups * (p.rpt - 1)
+        assert p.rpt in admm_fused.K1_INSTANCES and p.lanes in admm_fused.LANES
+        threads = admm_fused.K1_INSTANCES[p.rpt][0]
+        registers = admm_fused.K1_INSTANCES[p.rpt][2 if refine_steps else 1]
+        assert (p.lanes * p.groups) % 32 == 0 and p.lanes * p.groups <= threads
+        assert p.smem_bytes == admm_fused.k1_smem_bytes(
+            n, R, refine_steps, p.lanes, p.groups, p.rpt) <= admm_fused.SMEM_LIMIT
+        assert p.per_sm == admm_fused.blocks_per_sm(p.lanes * p.groups, p.smem_bytes, registers)
+        assert p.per_sm >= 1
+
+
+@pytest.mark.parametrize("R,refine_steps,B,lanes", [
+    (4, 2, 512, 4),     # tier 2's bucket: 128 blocks of 4 lanes
+    (2, 0, 4096, 32),   # the closed loop at tier 1: 128 blocks of 32
+    (2, 0, 16384, 32),  # the headline's tier 1: 512 blocks, 2 an SM at once
+])
+def test_k1_plan_fills_the_sms(R, refine_steps, B, lanes):
+    """The lanes per block spread the batch over the card's 132 SMs (the
+    parent kernel's 32 lanes a block filled 16 of them at B=512), and at
+    tier 1 several blocks share an SM: its 25 KB of operators let the plan
+    count more than one block resident, which a one-block-per-SM model
+    (K2's) would not."""
+    p = admm_fused.k1_plan(40, R, refine_steps, B)
+    assert p.lanes == lanes
+    assert 0.96 * admm_fused.SM_COUNT <= min(p.blocks, admm_fused.SM_COUNT * p.per_sm)
+    if B == 16384:
+        assert p.per_sm >= 2 and p.blocks > admm_fused.SM_COUNT
+    with pytest.raises(ValueError):
+        admm_fused.k1_plan(40, R, refine_steps, B, lanes=32, groups=4)  # 10 rows a thread
+    with pytest.raises(ValueError):
+        admm_fused.k1_plan(40, R, refine_steps, 0)
+
+
+@pytest.mark.parametrize("lanes", [32, 16, 8, 4])
+def test_k1_row_stride_is_conflict_free(lanes):
+    """At K1's strides (row_strides, shared with K2), the operator entries
+    a warp reads at once, 32 / lanes consecutive rows of up to 5 rho
+    copies, spread over the 8 16-byte bank groups as evenly as their count
+    allows, for every width n K1 takes: lanes at mixed rho indices cost no
+    more wavefronts than distinct addresses need."""
+    from collections import Counter
+
+    rows = 32 // lanes
+    for n in range(1, admm_fused.MAX_N + 1):
+        ld, sk = admm_fused.row_strides(n, lanes)
+        assert sk % 4 == 2  # copies at an odd stride in 16-byte units
+        for R in range(1, 6):
+            copies = min(R, lanes)
+            groups = Counter((r * sk // 2 + row * ld // 2) % 8
+                             for r in range(copies) for row in range(rows))
+            assert max(groups.values()) == -(-rows * copies // 8), (n, lanes, R)

@@ -260,7 +260,7 @@ def test_k2_plan_covers_batch_and_rows(m, R, refine_steps):
         assert p.blocks * p.lanes >= B > (p.blocks - 1) * p.lanes
         assert p.groups * p.rpt_n >= n and p.groups * p.rpt_t >= m - n
         assert p.rpt_n in admm_fused.K2_RPT_N and p.rpt_t in admm_fused.K2_RPT_T
-        assert p.lanes in admm_fused.K2_LANES
+        assert p.lanes in admm_fused.LANES
         assert (p.lanes * p.groups) % 32 == 0
         assert p.lanes * p.groups <= admm_fused.k2_max_threads(p.rpt_n, p.rpt_t)
 
@@ -285,9 +285,8 @@ def test_k2_row_stride_is_conflict_free(lanes):
     every width n K2 takes; rows are 16-byte aligned."""
     g = 32 // lanes
     for n in range(1, admm_fused.MAX_N + 1):
-        ld = admm_fused.k2_row_stride(n, lanes)
+        ld, sk = admm_fused.row_strides(n, lanes)
         assert ld >= n and ld % 2 == 0 and ld - n < 16
-        sk = (n * ld) | 2
         copies = max(1, 8 // g)
         starts = {(r * sk // 2 + row * ld // 2) % 8 for r in range(copies) for row in range(g)}
         assert len(starts) == min(8, g * copies), (n, lanes)

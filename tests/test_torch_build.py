@@ -72,3 +72,35 @@ def test_k2_instantiations_match_the_plan():
     tail = re.search(r"#define MPC_K2_RPT_T\(N, X\) (.*)", text).group(1)
     assert tuple(int(v) for v in re.findall(r"X\((\d+)\)", box)) == admm_fused.K2_RPT_N
     assert tuple(int(v) for v in re.findall(r"X\(N, (\d+)\)", tail)) == admm_fused.K2_RPT_T
+
+
+def test_k1_entry_takes_the_plan():
+    """admm_diag_chunk's int parameters are the ones the wrapper passes,
+    in its order (admm_fused.K1_INTS: the shape, then k1_plan's layout)."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    params = _c_params("admm_diag_chunk")
+    sig = _build.SIGNATURES["admm_diag_chunk"]
+    ints = [p for p, kind in zip(params, sig) if kind == "i"]
+    assert tuple(ints) == admm_fused.K1_INTS
+    assert sig == "p" * 17 + "i" * len(admm_fused.K1_INTS) + "ff" + "p"
+
+
+def test_k1_instantiations_match_the_plan():
+    """The rows per thread K1 instantiates (MPC_K1_INSTANCES in
+    csrc/admm_diag.cu) are the ones k1_plan may pick, with the same most
+    threads a block, and the registers the plan counts, without and with
+    refinement, fit the budgets that __launch_bounds__ holds each
+    instantiation to."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    text = open(os.path.join(_build.CSRC_DIR, "admm_diag.cu")).read()
+    body = re.search(r"#define MPC_K1_INSTANCES\(X\)((?:.*\\\n)*.*)", text).group(1)
+    rows = [tuple(int(v) for v in m)
+            for m in re.findall(r"X\((\d+), (\d+), (\d+), (\d+)\)", body)]
+    assert [row[0] for row in rows] == sorted(admm_fused.K1_INSTANCES)
+    for rpt, threads, *budgets in rows:
+        planned_threads, *registers = admm_fused.K1_INSTANCES[rpt]
+        assert planned_threads == threads
+        for used, budget in zip(registers, budgets):
+            assert used <= budget <= 255 and 65536 // (threads * budget) >= 1

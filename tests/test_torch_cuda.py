@@ -18,7 +18,9 @@ from automationlabsmodelpredictivecontrol_jl_torch import parallel, proceed_cont
 from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp
 from automationlabsmodelpredictivecontrol_jl_torch.design import LinearEngine
 from automationlabsmodelpredictivecontrol_jl_torch.ops import _build, admm_fused, riccati, riccati_fused
-from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig, build_operator
+from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import (
+    AdmmConfig, build_operator, start_rho_index,
+)
 from automationlabsmodelpredictivecontrol_jl_torch.ops.condense import runtime_qp_vectors_batch
 
 pytestmark = pytest.mark.cuda
@@ -50,7 +52,9 @@ def _x0s(B, seed):
     return np.clip(0.65 + 0.15 * rng.standard_normal((B, 4)), 0.25, 1.3).astype(np.float32)
 
 
-def _chunk_args(ctrl, B, seed):
+def _chunk_args(ctrl, B, seed, single_index=False):
+    """One chunk's inputs on the card; the lanes' rho indices random, or
+    all at the config's start index."""
     dev = ctrl.device
     op = ctrl.engine.op
     R = op.rho_vecs.shape[0]
@@ -66,16 +70,34 @@ def _chunk_args(ctrl, B, seed):
         for rows in (n, m, m)
     )
     s = torch.clamp(ax, lT, uT).contiguous()
-    idx = torch.from_numpy(rng.integers(0, R, size=B).astype(np.int32)).to(dev)
+    idx = rng.integers(0, R, size=B).astype(np.int32)
+    if single_index:
+        idx[:] = start_rho_index(ctrl.engine.config) if R > 1 else 0
+    idx = torch.from_numpy(idx).to(dev)
     return (op, qT, lT, uT, idx, x, s, y, ax, 25, ctrl.engine.config)
 
 
-@pytest.mark.parametrize("which,B", [("tier1", 16384), ("tier1", 1000), ("tier2", 512), ("tier2", 77)])
-def test_k1_matches_plain_version(controllers, which, B):
+@pytest.mark.parametrize("which,B,single,layout", [
+    ("tier1", 16384, False, None), ("tier1", 16384, True, None), ("tier1", 4096, False, None),
+    ("tier1", 1000, False, None), ("tier2", 512, False, None), ("tier2", 512, True, None),
+    ("tier2", 77, False, None), ("tier2", 33, False, None), ("tier2", 1, False, None),
+    ("tier1", 1000, False, (16, 10)), ("tier2", 77, True, (8, 24)),
+])
+def test_k1_matches_plain_version(controllers, which, B, single, layout):
+    """K1 as k1_plan lays it out (32 lanes a block at tier 1, 4 at tier 2's
+    bucket, 8 at B=1000), or in a forced layout, against its plain version,
+    with random rho indices or one index for all lanes; ragged batches
+    reach every barrier with a partial last block."""
     ctrl = controllers[0] if which == "tier1" else controllers[1]
-    args = _chunk_args(ctrl, B, seed=B)
+    args = _chunk_args(ctrl, B, seed=B, single_index=single)
     launches, plain = admm_fused.LAUNCHES["K1"], admm_fused.PLAIN_CALLS["K1"]
-    out_k = admm_fused.iterate_chunk_diag_T(*args)
+    if layout is None:
+        out_k = admm_fused.iterate_chunk_diag_T(*args)
+    else:
+        op, cfg = args[0], args[-1]
+        plan = admm_fused.k1_plan(40, int(op.rho_grid.shape[0]), int(cfg.refine_steps), B,
+                                  lanes=layout[0], groups=layout[1])
+        out_k = admm_fused._launch_k1(*args, plan=plan)
     torch.cuda.synchronize()
     assert admm_fused.LAUNCHES["K1"] == launches + 1
     assert admm_fused.PLAIN_CALLS["K1"] == plain
@@ -86,6 +108,15 @@ def test_k1_matches_plain_version(controllers, which, B):
         # another order, so an entry may round to a neighbouring float
         err = float((a - b).abs().max())
         assert err <= 1e-4 * max(1.0, float(b.abs().max())), (name, err)
+
+
+def test_k1_refuses_a_layout_it_does_not_have(controllers):
+    """The C entry refuses shared-memory bytes that differ from its own
+    layout (cudaError_t 1) rather than run on a wrong one."""
+    args = _chunk_args(controllers[1], 64, seed=6)
+    plan = admm_fused.k1_plan(40, 4, 2, 64)
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        admm_fused._launch_k1(*args, plan=plan._replace(smem_bytes=plan.smem_bytes + 16))
 
 
 @pytest.fixture(scope="module")
