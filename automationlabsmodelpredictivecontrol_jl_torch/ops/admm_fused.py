@@ -90,10 +90,10 @@ def row_strides(n: int, lanes: int) -> Tuple[int, int]:
 def _warp_cost(per_sm_lanes: int, lane_reads: int, warps: float) -> float:
     """K1's and K2's plans rank layouts by the doubles the busiest SM reads
     from shared memory (per_sm_lanes lanes, lane_reads each per iteration),
-    which on this card set the pace whether or not the threads of a warp
-    read the same address (k3_ab.py --kernel K2, PERF.md), with a penalty
-    where fewer than 7 warps are resident on the SM to hide the loads'
-    latency."""
+    with a penalty where fewer than 7 warps are resident on the SM to hide
+    the loads' latency. It ranks the layouts as measured (k3_ab.py --kernel
+    K2 and K1, PERF.md) but is no time: a warp whose lanes share a rho index
+    reads faster than its bytes say."""
     return per_sm_lanes * lane_reads * max(1.0, 7 / warps)
 
 
