@@ -1,6 +1,8 @@
 // What K1 (admm_diag.cu) and K2 (admm_mixed.cu) share: the layout of the
 // operators and lane buffers in shared memory, and the fp64 matrix-vector
-// product that reads them.
+// product that reads them. Each kernel stages its operators itself: K2's
+// loop in this header's form of K1's ran 2% slower (PERF.md, Findings
+// PR 8).
 //
 // - Operators: the R rho copies of K^-1 (and of K), rows at a stride ld
 //   (row_stride), copies at a stride sk = (n ld) | 2, odd in 16-byte
@@ -82,26 +84,5 @@ inline int row_stride(int n, int lanes) {
 
 // the stride (in doubles) of the rho copies of an (n, n) operator
 inline int copy_stride(int n, int ld) { return (n * ld) | 2; }
-
-// Copy the R stacked (n, n) fp32 operators K^-1 (and K, when kmat is
-// given) into shared memory as fp64, rows at ld and copies at sk, with all
-// `nthreads` threads of the block, both stacks in one pass. Widening at use
-// would cost a conversion per multiply-add, at a quarter of the fp64 FMA
-// rate.
-__device__ __forceinline__ void stage_operators(double* __restrict__ ki_sh,
-                                                double* __restrict__ k_sh,
-                                                const float* __restrict__ kinv,
-                                                const float* __restrict__ kmat,
-                                                int R, int n, int ld, int sk,
-                                                int tid, int nthreads) {
-  const int nn = n * n;
-  for (int i = tid; i < R * nn; i += nthreads) {
-    const int rr = i / nn;
-    const int row = (i - rr * nn) / n;
-    const int dst = rr * sk + row * ld + (i - rr * nn - row * n);
-    ki_sh[dst] = kinv[i];
-    if (kmat != nullptr) k_sh[dst] = kmat[i];
-  }
-}
 
 }  // namespace mpc_admm

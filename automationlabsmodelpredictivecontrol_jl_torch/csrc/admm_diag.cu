@@ -82,6 +82,27 @@ struct Layout {
   int ld, sk, nslots;  // row and copy strides, buffer rows
 };
 
+// Copy the R stacked (n, n) fp32 operators K^-1 (and K, when kmat is
+// given) into shared memory as fp64, rows at ld and copies at sk, with all
+// `nthreads` threads of the block, both stacks in one pass. Widening at use
+// would cost a conversion per multiply-add, at a quarter of the fp64 FMA
+// rate.
+__device__ __forceinline__ void stage_operators(double* __restrict__ ki_sh,
+                                                double* __restrict__ k_sh,
+                                                const float* __restrict__ kinv,
+                                                const float* __restrict__ kmat,
+                                                int R, int n, int ld, int sk,
+                                                int tid, int nthreads) {
+  const int nn = n * n;
+  for (int i = tid; i < R * nn; i += nthreads) {
+    const int rr = i / nn;
+    const int row = (i - rr * nn) / n;
+    const int dst = rr * sk + row * ld + (i - rr * nn - row * n);
+    ki_sh[dst] = kinv[i];
+    if (kmat != nullptr) k_sh[dst] = kmat[i];
+  }
+}
+
 // out = M v for the thread's rows t + k G: v into the buffer at `cur`, a
 // barrier, the product; the next product writes the other buffer, which
 // nobody reads after this barrier. The slots are computed here, not held
@@ -140,7 +161,7 @@ admm_diag_chunk_kernel(const float* __restrict__ kinv,
   const bool live = lane < B;
   const int lc = live ? lane : B - 1;  // lanes past B run on lane B-1's data
 
-  mpc_admm::stage_operators(ki_sh, k_sh, kinv, REFINE ? kmat : nullptr, R, n, lay.ld, sk,
+  stage_operators(ki_sh, k_sh, kinv, REFINE ? kmat : nullptr, R, n, lay.ld, sk,
                             tid, nthreads);
 
   const int r = idx[lc];

@@ -134,8 +134,14 @@ admm_mixed_chunk_kernel(const float* __restrict__ kinv,
   const bool live = lane < B;
   const int lc = live ? lane : B - 1;  // lanes past B run on lane B-1's data
 
-  mpc_admm::stage_operators(ki_sh, k_sh, kinv, refine_steps > 0 ? kmat : nullptr, R, n, ld,
-                            sk, tid, nthreads);
+  const int nn = n * n;
+  for (int i = tid; i < R * nn; i += nthreads) {
+    const int rr = i / nn;
+    const int row = (i - rr * nn) / n;
+    const int dst = rr * sk + row * ld + (i - rr * nn - row * n);
+    ki_sh[dst] = kinv[i];
+    if (refine_steps > 0) k_sh[dst] = kmat[i];
+  }
   for (int i = tid; i < ms * n; i += nthreads) {
     const int row = i / n;
     a2_sh[row * ld + (i - row * n)] = a2[i];
