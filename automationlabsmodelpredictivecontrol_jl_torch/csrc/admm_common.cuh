@@ -1,8 +1,8 @@
 // What K1 (admm_diag.cu) and K2 (admm_mixed.cu) share: the layout of the
 // operators and lane buffers in shared memory, and the fp64 matrix-vector
 // product that reads them. Each kernel stages its operators itself: K2's
-// loop in this header's form of K1's ran 2% slower (PERF.md, Findings
-// PR 8).
+// loop in the form of K1's ran 2% slower (PERF.md, Findings, K1's
+// redesign).
 //
 // - Operators: the R rho copies of K^-1 (and of K), rows at a stride ld
 //   (row_stride), copies at a stride sk = (n ld) | 2, odd in 16-byte

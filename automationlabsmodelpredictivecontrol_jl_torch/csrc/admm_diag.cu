@@ -15,8 +15,8 @@
 // and iteration) but the shared-memory loads that feed them, an operator
 // entry per multiply-add and the lane's vector once per thread, and the
 // warps resident on an SM to hide their latency: at tier 1, two blocks of
-// 8 warps an SM run a chunk about 10% faster than one (PERF.md, Findings
-// PR 8). Lanes of a warp that share a rho index read one address, which
+// 8 warps an SM run a chunk about 10% faster than one (PERF.md, Findings,
+// K1's redesign). Lanes of a warp that share a rho index read one address, which
 // the card serves faster than the distinct addresses of mixed indices,
 // but no layout can count on it. So, as in K2 (admm_mixed.cu):
 // - No bank conflicts between the rho copies or the rows a warp reads

@@ -101,8 +101,8 @@ def _warp_cost(per_sm_lanes: int, lane_reads: int, warps: float) -> float:
 # thread -> the most threads a block of it may have and the registers a
 # thread takes without and with refinement (nvcc 12.9's -Xptxas -v report
 # on the H100; none spills)
-K1_INSTANCES = {1: (512, 45, 58), 2: (512, 70, 80), 3: (512, 94, 111), 4: (512, 121, 128),
-                5: (256, 126, 166), 6: (256, 164, 192), 7: (256, 186, 219), 8: (256, 208, 247)}
+K1_INSTANCES = {1: (512, 45, 57), 2: (512, 70, 80), 3: (512, 94, 108), 4: (512, 121, 128),
+                5: (256, 126, 163), 6: (256, 164, 192), 7: (256, 186, 216), 8: (256, 208, 243)}
 # the C entry's int parameters, in order (the wrapper passes them so)
 K1_INTS = ("n", "B", "R", "chunk", "refine_steps", "lanes", "groups", "rpt", "smem_bytes")
 
