@@ -1,6 +1,6 @@
-// What K1 (admm_diag.cu) and K2 (admm_mixed.cu) share: the layout of the
-// operators and lane buffers in shared memory, and the fp64 matrix-vector
-// product that reads them. Each kernel stages its operators itself: K2's
+// What K1 (admm_diag.cu), K2 (admm_mixed.cu) and K5 (admm_perr.cu) share:
+// the layout of the operators and lane buffers in shared memory, and the
+// fp64 matrix-vector product that reads them. Each kernel stages its operators itself: K2's
 // loop in the form of K1's ran 2% slower (PERF.md, Findings, K1's
 // redesign).
 //

@@ -1,42 +1,39 @@
-// K4 and K5 on Hopper: `chunk` ADMM iterations of a batch of QPs whose
-// scaled constraint matrix A (m, n) is dense: its rows are not box-first, so
+// K4 on Hopper: `chunk` ADMM iterations of a batch of QPs whose scaled
+// constraint matrix A (m, n) is dense: its rows are not box-first, so
 // neither K1 (diagonal A) nor K2 (A = [diag(d); A2]) takes it.
 //
-// Replaces the two bodies of ops/admm_pallas.py's dense pallas_call (driven
-// by _iterate_chunk): _iterate_kernel, the lane-packed K4, and
-// _iterate_kernel_perr, the per-rho K5. The JAX package picks one by its
-// cost model (_use_packed, ported as admm_fused.use_packed); the two round
-// differently, so each is its own kernel here. Per lane b and iteration,
-// with r the lane's rho-grid index:
+// Replaces _iterate_kernel, the lane-packed body of ops/admm_pallas.py's
+// dense pallas_call (driven by _iterate_chunk). The JAX package picks it or
+// the per-rho body K5 by its cost model (_use_packed, ported as
+// admm_fused.use_packed); the two round differently, so each is its own
+// kernel here (K5: csrc/admm_perr.cu). Per lane b and iteration, with r the
+// lane's rho-grid index:
 //
 //   A'y     = sum_i y_i A_i.;   A'rho.s = sum_i s_i fl(rho_r,i A_i.)
 //   rhs     = sigma x - q - A'y + A'rho.s
 //   xt      = rhs K_r^-1                       (row vector times matrix)
-//   K4: st  = rhs (K_r^-1 A')                  (the image from the packed
+//   st      = rhs (K_r^-1 A')                  (the image from the packed
 //                                               operator kia, built once)
-//   refine_steps times: res = rhs - xt K_r;  xt += res K_r^-1
-//                       K4 also: st += res (K_r^-1 A')
-//   K5: st  = A xt                             (after the refinement)
+//   refine_steps times: res = rhs - xt K_r;  xt += res K_r^-1;
+//                       st += res (K_r^-1 A')
 //   x = alpha xt + (1-alpha) x;  v = alpha st + (1-alpha) s
 //   s = clip(v + rho^-1 y, l, u);  y += rho (v - s);  ax = alpha st + (1-alpha) ax
 //
 // What bounds it on this card: the fp64 multiply-adds of the matrix-vector
 // products and the reads of their operator entries. A lane does 3 m n + n^2
-// + refine (2 n^2 + n m) multiply-adds per iteration in K4 (the A'y, A'rho.s
-// pass, the K^-1 solve and its image, the refinement), 3 m n + (1 + 2 refine)
-// n^2 in K5, against 3 n + 7 m floats moved per chunk; plus 3 + 2 refine
-// barriers per iteration. Each multiply-add also widens its fp32 operator
-// entry to fp64.
+// + refine (2 n^2 + n m) multiply-adds per iteration (the A'y, A'rho.s
+// pass, the K^-1 solve and its image, the refinement), against 3 n + 7 m
+// floats moved per chunk; plus 2 + 2 refine barriers per iteration. Each
+// multiply-add also widens its fp32 operator entry to fp64.
 //
 // Precision, as in K1 and K2: the state is fp32, every matrix-vector product
 // is accumulated in fp64 from exact fp32 products, in index order, and
-// rounded once to fp32; the plain versions (admm_fused.iterate_chunk_dense_
-// {packed,perr}_T_plain) sum in the same order, so the two agree bit for bit.
-// fl(rho_r,i A_ij) is one fp32 product, as in the JAX package's sacat and
-// atrho. Built with --fmad=false so the elementwise updates round like
-// PyTorch's.
+// rounded once to fp32; the plain version (admm_fused.iterate_chunk_dense_
+// packed_T_plain) sums in the same order, so the two agree bit for bit.
+// fl(rho_r,i A_ij) is one fp32 product, as in the JAX package's sacat.
+// Built with --fmad=false so the elementwise updates round like PyTorch's.
 //
-// Design (one source for both: they share every phase but the image st):
+// Design:
 // - Layout stays lane-last: x, q (n, B); s, y, ax, l, u (m, B), row-major, so
 //   neighbouring threads own neighbouring lanes and every global access is
 //   coalesced.
@@ -49,22 +46,22 @@
 //   stays in L1/L2.
 // - Vectors that every row-group reads (y, s, rhs, xt, the refinement
 //   residual) go through lane-last fp32 shared buffers, 2 m + 3 n rows of 32
-//   lanes; K4's image st reuses y's buffer once A'y is formed.
-// - The operators: fp32 K^-1 (R, n, n), K when refining, K4's K^-1 A'
-//   (R, n, m) and A (m, n). They are copied into shared memory when they fit
-//   beside the buffers (K4 at its main-path shapes, K5 at h20), the R copies
-//   at an odd stride so that lanes of one warp at different r hit different
-//   banks; otherwise (K5 at h50: about 1.1 MB) they are read from global
-//   memory through L1/L2. One generic pointer serves both. fp32 widened on
-//   read gives the same bits as an fp64 copy and takes half the space.
+//   lanes; the image st reuses y's buffer once A'y is formed.
+// - The operators: fp32 K^-1 (R, n, n), K when refining, K^-1 A' (R, n, m)
+//   and A (m, n). They are copied into shared memory when they fit beside
+//   the buffers (at the main path's shapes), the R copies at an odd stride
+//   so that lanes of one warp at different r hit different banks; otherwise
+//   they are read from global memory through L1/L2. One generic pointer
+//   serves both. fp32 widened on read gives the same bits as an fp64 copy
+//   and takes half the space.
 // - Each lane applies only its own K_r^-1: the TPU kernels' "all R
 //   candidates, then mask-select" was a gather workaround.
 // - Lanes past B compute on zeros, touch no global state and reach every
 //   barrier. One block per SM (shared memory), so B = 2048 fills 64 of 132.
 //
-// Bound to PyTorch by ctypes through the plain C functions
-// admm_dense_packed_chunk (K4) and admm_dense_perr_chunk (K5), which return
-// cudaGetLastError() after the launch (0 on success).
+// Bound to PyTorch by ctypes through the plain C function
+// admm_dense_packed_chunk, which returns cudaGetLastError() after the
+// launch (0 on success).
 
 #include <cuda_runtime.h>
 
@@ -129,13 +126,12 @@ struct Args {
 // two rho copies lies in two banks.
 __host__ __device__ inline int odd_stride(int words) { return words | 1; }
 
-template <bool kPacked>
 __device__ __forceinline__ void dense_chunk(const Args& p) {
   extern __shared__ float smem[];
   const int n = p.n, m = p.m, R = p.R;
   float* rho_sh = smem;  // (R, m)
   float* rhoi_sh = rho_sh + R * m;
-  float* vy = rhoi_sh + R * m;  // (m, 32): y, then K4's image st
+  float* vy = rhoi_sh + R * m;  // (m, 32): y, then the image st
   float* vs = vy + m * kLanes;  // (m, 32): s
   float* vrhs = vs + m * kLanes;  // (n, 32)
   float* vxt = vrhs + n * kLanes;  // (n, 32)
@@ -170,14 +166,12 @@ __device__ __forceinline__ void dense_chunk(const Args& p) {
       kmat = dst;
       dst += R * kst;
     }
-    if (kPacked) {
-      const int nm = n * m;
-      ast = odd_stride(nm);
-      for (int i = tid; i < R * nm; i += kThreads)
-        dst[(i / nm) * ast + i % nm] = p.kia[i];
-      kia = dst;
-      dst += R * ast;
-    }
+    const int nm = n * m;
+    ast = odd_stride(nm);
+    for (int i = tid; i < R * nm; i += kThreads)
+      dst[(i / nm) * ast + i % nm] = p.kia[i];
+    kia = dst;
+    dst += R * ast;
     for (int i = tid; i < m * n; i += kThreads) dst[i] = p.a[i];
     amat = dst;
   }
@@ -185,7 +179,7 @@ __device__ __forceinline__ void dense_chunk(const Args& p) {
   const int r = live ? p.idx[lane] : 0;
   const float* ki_r = kinv + r * kst;
   const float* k_r = kmat + r * kst;
-  const float* kia_r = kPacked ? kia + r * ast : nullptr;
+  const float* kia_r = kia + r * ast;
   const float* rho_r = rho_sh + r * m;
   const float* rhoi_r = rhoi_sh + r * m;
   const size_t B = p.B;
@@ -251,7 +245,7 @@ __device__ __forceinline__ void dense_chunk(const Args& p) {
       }
     }
     __syncthreads();
-    // xt = rhs K_r^-1 (column j of K_r^-1 for row j); K4: st = rhs kia_r
+    // xt = rhs K_r^-1 (column j of K_r^-1 for row j); st = rhs kia_r
     for (int k0 = 0; k0 * kGroups < n; k0 += kTile) {
       const Tile tile(t, k0, n);
       double acc[kTile];
@@ -260,15 +254,13 @@ __device__ __forceinline__ void dense_chunk(const Args& p) {
       for (int k = 0; k < kTile; ++k)
         if (tile.own[k]) vxt[tile.row[k] * kLanes + b] = static_cast<float>(acc[k]);
     }
-    if (kPacked) {
-      for (int k0 = 0; k0 * kGroups < m; k0 += kTile) {
-        const Tile tile(t, k0, m);
-        double acc[kTile];
-        tile_dot(kia_r, 1, m, tile, vrhs, n, b, acc);
+    for (int k0 = 0; k0 * kGroups < m; k0 += kTile) {
+      const Tile tile(t, k0, m);
+      double acc[kTile];
+      tile_dot(kia_r, 1, m, tile, vrhs, n, b, acc);
 #pragma unroll
-        for (int k = 0; k < kTile; ++k)
-          if (tile.own[k]) vy[tile.row[k] * kLanes + b] = static_cast<float>(acc[k]);
-      }
+      for (int k = 0; k < kTile; ++k)
+        if (tile.own[k]) vy[tile.row[k] * kLanes + b] = static_cast<float>(acc[k]);
     }
     for (int step = 0; step < refine; ++step) {
       __syncthreads();  // xt complete
@@ -295,34 +287,19 @@ __device__ __forceinline__ void dense_chunk(const Args& p) {
           vxt[j] = vxt[j] + static_cast<float>(acc[k]);
         }
       }
-      if (kPacked) {
-        for (int k0 = 0; k0 * kGroups < m; k0 += kTile) {
-          const Tile tile(t, k0, m);
-          double acc[kTile];
-          tile_dot(kia_r, 1, m, tile, vres, n, b, acc);
-#pragma unroll
-          for (int k = 0; k < kTile; ++k) {
-            if (!tile.own[k]) continue;
-            const int i = tile.row[k] * kLanes + b;
-            vy[i] = vy[i] + static_cast<float>(acc[k]);
-          }
-        }
-      }
-    }
-    if (kPacked) {
-      for (int i = t; i < m; i += kGroups) update(vy[i * kLanes + b], i);
-    } else {
-      __syncthreads();  // xt complete
-      // st = A xt, row i of A for constraint row i
       for (int k0 = 0; k0 * kGroups < m; k0 += kTile) {
         const Tile tile(t, k0, m);
         double acc[kTile];
-        tile_dot(amat, n, 1, tile, vxt, n, b, acc);
+        tile_dot(kia_r, 1, m, tile, vres, n, b, acc);
 #pragma unroll
-        for (int k = 0; k < kTile; ++k)
-          if (tile.own[k]) update(static_cast<float>(acc[k]), tile.row[k]);
+        for (int k = 0; k < kTile; ++k) {
+          if (!tile.own[k]) continue;
+          const int i = tile.row[k] * kLanes + b;
+          vy[i] = vy[i] + static_cast<float>(acc[k]);
+        }
       }
     }
+    for (int i = t; i < m; i += kGroups) update(vy[i * kLanes + b], i);
     if (live)
       for (int j = t; j < n; j += kGroups) {
         const size_t g = j * B + lane;
@@ -332,11 +309,7 @@ __device__ __forceinline__ void dense_chunk(const Args& p) {
 }
 
 __global__ void __launch_bounds__(kThreads, 1) admm_dense_packed_kernel(Args p) {
-  dense_chunk<true>(p);
-}
-
-__global__ void __launch_bounds__(kThreads, 1) admm_dense_perr_kernel(Args p) {
-  dense_chunk<false>(p);
+  dense_chunk(p);
 }
 
 // Bytes of dynamic shared memory: the rho tables and the vector buffers,
@@ -347,25 +320,23 @@ size_t buffer_bytes(int n, int m, int R) {
          sizeof(float);
 }
 
-size_t operator_bytes(int n, int m, int R, int refine_steps, bool packed) {
-  size_t words = static_cast<size_t>(R) * odd_stride(n * n) * (refine_steps > 0 ? 2 : 1) +
-                 static_cast<size_t>(m) * n;
-  if (packed) words += static_cast<size_t>(R) * odd_stride(n * m);
+size_t operator_bytes(int n, int m, int R, int refine_steps) {
+  const size_t words = static_cast<size_t>(R) * odd_stride(n * n) * (refine_steps > 0 ? 2 : 1) +
+                       static_cast<size_t>(m) * n + static_cast<size_t>(R) * odd_stride(n * m);
   return words * sizeof(float);
 }
 
 constexpr size_t kSmemLimit = 232448;  // what one block may use on Hopper
 
-template <bool kPacked>
 int launch(Args a, void* stream) {
   if (a.n <= 0 || a.m <= 0 || a.B <= 0 || a.R <= 0 || a.chunk < 0 || a.refine_steps < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = buffer_bytes(a.n, a.m, a.R);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t ops = operator_bytes(a.n, a.m, a.R, a.refine_steps, kPacked);
+  const size_t ops = operator_bytes(a.n, a.m, a.R, a.refine_steps);
   a.ops_shared = smem + ops <= kSmemLimit;
   if (a.ops_shared) smem += ops;
-  auto kernel = kPacked ? admm_dense_packed_kernel : admm_dense_perr_kernel;
+  auto kernel = admm_dense_packed_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -399,22 +370,7 @@ int admm_dense_packed_chunk(const float* kinv, const float* kmat,
   const Args p{kinv, kmat, kia, a, rho_vecs, rho_invs, q, l, u, idx,
                x_in, s_in, y_in, ax_in, x_out, s_out, y_out, ax_out,
                n, m, B, R, chunk, refine_steps, sigma, alpha, 0};
-  return launch<true>(p, stream);
-}
-
-// K5: as K4 without kia.
-int admm_dense_perr_chunk(const float* kinv, const float* kmat, const float* a,
-                          const float* rho_vecs, const float* rho_invs,
-                          const float* q, const float* l, const float* u,
-                          const int* idx, const float* x_in, const float* s_in,
-                          const float* y_in, const float* ax_in, float* x_out,
-                          float* s_out, float* y_out, float* ax_out, int n,
-                          int m, int B, int R, int chunk, int refine_steps,
-                          float sigma, float alpha, void* stream) {
-  const Args p{kinv, kmat, nullptr, a, rho_vecs, rho_invs, q, l, u, idx,
-               x_in, s_in, y_in, ax_in, x_out, s_out, y_out, ax_out,
-               n, m, B, R, chunk, refine_steps, sigma, alpha, 0};
-  return launch<false>(p, stream);
+  return launch(p, stream);
 }
 
 }  // extern "C"

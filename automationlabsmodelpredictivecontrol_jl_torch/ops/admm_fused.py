@@ -13,8 +13,8 @@ QPs whose scaled constraint matrix A_s is
 - dense, any other A without ball rows (``op.dense_a``: a QP whose rows
   are not box-first, such as OSQP's convention of equality and coupling
   rows above the variable bounds): :func:`iterate_chunk_dense_packed_T`,
-  kernel K4, or :func:`iterate_chunk_dense_perr_T`, kernel K5 (both in
-  ``csrc/admm_dense.cu``), as :func:`use_packed` picks.
+  kernel K4 (``csrc/admm_dense.cu``), or :func:`iterate_chunk_dense_perr_T`,
+  kernel K5 (``csrc/admm_perr.cu``), as :func:`use_packed` picks.
 
 Each chunk function runs ``chunk`` ADMM iterations on the lane-last state.
 On a CUDA tensor it launches its hand-written kernel and raises if it
@@ -355,21 +355,19 @@ def use_packed(n: int, m: int, R: int, refine_steps: int = 1) -> bool:
 
 
 def dense_smem_bytes(n: int, m: int, R: int) -> int:
-    """Shared memory that K4 and K5 need at least: the fp32 (R, m) rho and
-    rho^-1 tables and the lane buffers of y, s (m rows) and rhs, xt and the
+    """Shared memory that K4 needs at least: the fp32 (R, m) rho and rho^-1
+    tables and the lane buffers of y, s (m rows) and rhs, xt and the
     refinement residual (n rows), 32 lanes each (csrc/admm_dense.cu)."""
     return (2 * R * m + (2 * m + 3 * n) * _LANES) * 4
 
 
-def dense_ops_shared(n: int, m: int, R: int, refine_steps: int, packed: bool) -> bool:
-    """Whether K4 (packed) or K5 copies its fp32 operators into shared
-    memory beside the buffers (else it reads them from global memory
-    through L2), as csrc/admm_dense.cu decides: K^-1, K when refining, K4's
-    K^-1 A', each R-stack at an odd stride, and A."""
+def dense_ops_shared(n: int, m: int, R: int, refine_steps: int) -> bool:
+    """Whether K4 copies its fp32 operators into shared memory beside the
+    buffers (else it reads them from global memory through L2), as
+    csrc/admm_dense.cu decides: K^-1, K when refining, K^-1 A', each
+    R-stack at an odd stride, and A."""
     odd = lambda words: words | 1
-    words = R * odd(n * n) * (2 if refine_steps > 0 else 1) + m * n
-    if packed:
-        words += R * odd(n * m)
+    words = R * odd(n * n) * (2 if refine_steps > 0 else 1) + m * n + R * odd(n * m)
     return dense_smem_bytes(n, m, R) + 4 * words <= SMEM_LIMIT
 
 
@@ -385,9 +383,223 @@ def k4_fits(n: int, m: int, R: int) -> bool:
     )
 
 
-# K5 shares K4's buffers and limits (at the h50 shape, n = 100 and m = 300
-# at R = 5, its operators are read from global memory)
-k5_fits = k4_fits
+def k5_fits(n: int, m: int, R: int) -> bool:
+    """Whether K5 takes this operator shape: n <= 128 and 1 to 512
+    constraint rows, at any R. Every such shape has a layout on the stream
+    route, whose shared memory holds the lane buffers and two operator
+    panels whatever R is (:func:`k5_plan`)."""
+    return 1 <= n <= MAX_N and 1 <= m <= MAX_DENSE_ROWS
+
+
+# K5's shared route (csrc/admm_perr.cu, MPC_K5_INSTANCES) and stream route
+# (MPC_K5_STREAM_INSTANCES): rows per thread (variable rows, constraint
+# rows) -> the most threads a block of it may have and the registers a
+# thread takes without and with refinement (nvcc 12.9's -Xptxas -v report
+# on the H100; within the budgets the sources hold them to)
+K5_INSTANCES = {(1, 3): (512, 113, 108), (2, 5): (384, 157, 156), (2, 6): (320, 168, 168),
+                (3, 8): (256, 236, 229), (3, 9): (256, 244, 242)}
+K5_STREAM_INSTANCES = {(2, 6): (384, 135, 129), (3, 8): (448, 128, 128),
+                       (4, 10): (480, 128, 128)}
+# the C entries' int parameters, in order (the wrapper passes them so)
+K5_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "lanes", "groups", "rpt_n", "rpt_m",
+           "smem_bytes")
+K5_STREAM_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "lanes", "groups", "rpt_n",
+                  "rpt_m", "panel", "smem_bytes")
+# "shared": admm_perr_chunk (csrc/admm_perr.cu), every rho's fp64
+# operators in shared memory; "stream": admm_perr_stream_chunk (the same
+# file), lanes grouped by rho index, one rho's fp64 operators streamed
+# through shared panels
+K5_ROUTES = ("shared", "stream")
+
+
+class K5Plan(NamedTuple):
+    """How one K5 launch is laid out: the route, lanes and row-groups of a
+    block (blockDim.x, blockDim.y), the variable and constraint rows each
+    thread owns, the blocks of the grid (on the stream route, whose blocks take lanes of one rho index
+    each, R more: each index's partial last one), the block's dynamic
+    shared memory, how many blocks an SM holds at once, and the doubles of
+    one operator panel (the stream route; 0 else)."""
+
+    route: str
+    lanes: int
+    groups: int
+    rpt_n: int
+    rpt_m: int
+    blocks: int
+    smem_bytes: int
+    per_sm: int
+    panel: int = 0
+
+
+def rho_stride(m: int) -> int:
+    """The stride, in floats, of the rows of K5's fp32 rho table: even (a
+    lane reads rho_i, rho_i+1 as one 8-byte load) and odd in 8-byte units
+    (lanes of distinct rho indices read distinct banks); csrc/admm_perr.cu,
+    rho_stride."""
+    mr = m + (m & 1)
+    return mr + 2 if (mr // 2) % 2 == 0 else mr
+
+
+def k5_smem_bytes(n: int, m: int, R: int, refine_steps: int, lanes: int, groups: int,
+                  rpt_n: int, rpt_m: int) -> int:
+    """Dynamic shared memory of one block of K5's shared route
+    (csrc/admm_perr.cu): in fp64 the K^-1 stack (and K when refining), R
+    copies at :func:`row_strides`, A with rows at the same stride, four
+    lane buffers of ``lanes`` lanes whose rows (padded ones included) are
+    rounded up to pairs; in fp32 the rho table and A."""
+    ld, sk = row_strides(n, lanes)
+    stacks = 2 if refine_steps > 0 else 1
+    nslots, mslots = (groups * rpt_n + 1) & ~1, (groups * rpt_m + 1) & ~1
+    doubles = 2 * (nslots + mslots) * lanes + stacks * R * sk + m * ld
+    floats = R * rho_stride(m) + m * n
+    return 8 * doubles + 4 * floats
+
+
+@functools.lru_cache(maxsize=256)
+def _k5_layouts(n: int, m: int, R: int, refine_steps: int) -> tuple:
+    """Every (lanes, groups, rpt_n, rpt_m, smem_bytes, per_sm) of K5's
+    shared route for this operator shape: whole warps, an instantiation
+    whose rows cover n and m, no more threads than it allows, a block
+    within the card's shared memory."""
+    return tuple(_k5_layouts_of(n, m, R, refine_steps))
+
+
+def _k5_layouts_of(n, m, R, refine_steps):
+    if not (1 <= n <= MAX_N and 1 <= m <= MAX_DENSE_ROWS):
+        return
+    for lanes in LANES:
+        step = max(1, 32 // lanes)
+        for groups in range(step, 512 // lanes + 1, step):
+            for (rpt_n, rpt_m), (threads, *registers) in K5_INSTANCES.items():
+                if groups * rpt_n < n or groups * rpt_m < m or lanes * groups > threads:
+                    continue
+                smem = k5_smem_bytes(n, m, R, refine_steps, lanes, groups, rpt_n, rpt_m)
+                if smem <= SMEM_LIMIT:
+                    per_sm = blocks_per_sm(lanes * groups, smem,
+                                           registers[1 if refine_steps > 0 else 0])
+                    yield lanes, groups, rpt_n, rpt_m, smem, per_sm
+
+
+def k5_stream_smem_bytes(m: int, lanes: int, groups: int, rpt_n: int, rpt_m: int,
+                         panel: int) -> int:
+    """Dynamic shared memory of one block of K5's stream route
+    (csrc/admm_perr.cu): two operator panels of ``panel`` doubles, the four
+    fp64 lane buffers as on the shared route, and the block's rho and
+    rho^-1 in fp32."""
+    nslots, mslots = (groups * rpt_n + 1) & ~1, (groups * rpt_m + 1) & ~1
+    return 8 * (2 * panel + 2 * (nslots + mslots) * lanes) + 4 * 2 * m
+
+
+@functools.lru_cache(maxsize=256)
+def _k5_stream_layouts(n: int, m: int, refine_steps: int) -> tuple:
+    """Every (lanes, groups, rpt_n, rpt_m, smem_bytes, per_sm, panel) of
+    K5's stream route: as :func:`_k5_layouts`, with the largest panel that
+    fits beside the buffers with one or with two blocks an SM, up to what
+    a product can use (all the A'y / A'rho.s pass's rows, or every column
+    of A), and at least two rows of that pass and two columns of every
+    product."""
+    if not (1 <= n <= MAX_N and 1 <= m <= MAX_DENSE_ROWS):
+        return ()
+    ldg = n + (n & 1)
+    most = max(2 * (m + (m & 1)) * ldg, max(n, m) * (ldg + 2))
+    least = max(4 * ldg, 2 * max(n, m))
+    out = []
+    for lanes in LANES:
+        step = max(1, 32 // lanes)
+        for groups in range(step, 512 // lanes + 1, step):
+            for (rpt_n, rpt_m), (threads, *registers) in K5_STREAM_INSTANCES.items():
+                if groups * rpt_n < n or groups * rpt_m < m or lanes * groups > threads:
+                    continue
+                fixed = k5_stream_smem_bytes(m, lanes, groups, rpt_n, rpt_m, 0)
+                panels = set()
+                for per in (1, 2):  # the largest panel with `per` blocks an SM
+                    room = min(SMEM_LIMIT, SM_SMEM // per - SM_SMEM_PER_BLOCK) - fixed
+                    panels.add(min(most, max(room, 0) // 16) & ~1)
+                for per, panel in enumerate(sorted(panels, reverse=True), 1):
+                    if panel < least:
+                        continue
+                    smem = k5_stream_smem_bytes(m, lanes, groups, rpt_n, rpt_m, panel)
+                    per_sm = blocks_per_sm(lanes * groups, smem,
+                                           registers[1 if refine_steps > 0 else 0])
+                    if per_sm >= per or panel == max(panels):
+                        out.append((lanes, groups, rpt_n, rpt_m, smem, per_sm, panel))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=256)  # the driver asks once per chunk
+def k5_plan(n: int, m: int, R: int, refine_steps: int, B: int,
+            lanes: Optional[int] = None, groups: Optional[int] = None,
+            route: Optional[str] = None) -> K5Plan:
+    """The layout of a K5 launch for ``B`` lanes, from the shape alone.
+
+    The shared route where some layout of it fits (its fp64 operators and
+    lane buffers within one block's shared memory: the h20 state box), else
+    the stream route (the h50 state box), which takes every shape
+    :func:`k5_fits` takes. Within a route the busiest SM runs
+    ceil(blocks / 132) blocks of L lanes, several at once where shared
+    memory, threads and the instantiation's registers allow; a lane reads
+    per iteration an operator entry per multiply-add (on the shared route
+    an fp32 A entry counts half), padded rows included, and its vectors
+    once per thread, so fewer row-groups G read less; the cost
+    (:func:`_warp_cost`) counts the warps resident on the SM. A stream
+    launch has up to R - 1 more blocks (each rho's partial last one). Ties
+    go to more lanes per block. ``lanes``, ``groups`` and ``route`` force a
+    layout (ValueError if it does not fit)."""
+    B = int(B)
+    if B < 1:
+        raise ValueError(f"K5 takes at least one lane; B={B}")
+    if m * B >= 2**31:
+        raise ValueError(f"K5 indexes the (m, B) state with 32 bits; m={m}, B={B}")
+    if not k5_fits(n, m, R):
+        raise ValueError(
+            f"no K5 route for n={n}, m={m}: K5 takes n <= {MAX_N} and 1 to "
+            f"{MAX_DENSE_ROWS} rows"
+        )
+    if route not in (None,) + K5_ROUTES:
+        raise ValueError(f"K5 routes are {K5_ROUTES}, not {route!r}")
+    rs = int(refine_steps)
+    for kind in ("shared", "stream"):
+        if route not in (None, kind):
+            continue
+        grouped = kind == "stream"
+        if grouped:
+            layouts = _k5_stream_layouts(n, m, rs)
+        else:
+            layouts = [lay + (0,) for lay in _k5_layouts(n, m, R, rs)]
+        best = None
+        for L, G, rpt_n, rpt_m, smem, per_sm, panel in layouts:
+            if lanes not in (None, L) or groups not in (None, G):
+                continue
+            blocks = -(-B // L) + (R if grouped else 0)
+            used = min(blocks, (B + (R * (L - 1) if grouped else L - 1)) // L)
+            busiest = -(-used // SM_COUNT)
+            warps = min(per_sm, busiest) * L * G / 32
+            rows_n, rows_m = G * rpt_n, G * rpt_m
+            operator = rows_n * (m * (2 if grouped else 1.5) + (1 + 2 * rs) * n) + rows_m * n
+            vectors = G * ((2 if grouped else 2.5) * m + (2 + 2 * rs) * n)
+            cost = _warp_cost(busiest * L, operator + vectors, warps)
+            key = (cost, -L)
+            if best is None or key < best[0]:
+                best = (key, K5Plan(kind, L, G, rpt_n, rpt_m, blocks, smem, per_sm, panel))
+        if best is not None:
+            return best[1]
+    raise ValueError(
+        f"no layout of K5's {route or 'shared or stream'} route for n={n}, m={m}, R={R}, "
+        f"refine_steps={rs}"
+        + ("" if lanes is None and groups is None else f", lanes={lanes}, groups={groups}")
+        + f" within {SMEM_LIMIT} B of shared memory"
+    )
+
+
+def rho_order(idx: Tensor, R: int) -> Tuple[Tensor, Tensor]:
+    """The lanes sorted by rho index, stable (lane order within an index),
+    and where each index's lanes start in that order (R + 1 entries, the
+    last B), both int32 on idx's device, with no host sync: K5's stream
+    route gives each block the lanes of one index (csrc/admm_perr.cu)."""
+    values, order = torch.sort(idx, stable=True)
+    bounds = torch.arange(R + 1, dtype=idx.dtype, device=idx.device)
+    starts = torch.searchsorted(values, bounds, out_int32=True)
+    return order.to(torch.int32), starts
 
 
 def _lane_solver(op: AdmmOperator, idx: Tensor, n: int):
@@ -720,32 +932,78 @@ def _launch_k2(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
                    (float(config.sigma), float(config.alpha)))
 
 
-def _launch_dense(kernel, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config):
-    """Launch K4 (admm_dense_packed_chunk) or K5 (admm_dense_perr_chunk)."""
+def _launch_k4(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config):
+    """Launch K4 (admm_dense_packed_chunk)."""
     n, B = qT.shape
     m = lT.shape[0]
     R = int(op.rho_grid.shape[0])
     rs = int(config.refine_steps)
     if not k4_fits(n, m, R):
         raise ValueError(
-            f"{kernel} takes n <= {MAX_N}, 1 to {MAX_DENSE_ROWS} constraint rows "
+            f"K4 takes n <= {MAX_N}, 1 to {MAX_DENSE_ROWS} constraint rows "
             f"and lane buffers within {SMEM_LIMIT} B of shared memory; n={n}, "
             f"m={m}, R={R} needs {dense_smem_bytes(n, m, R)} B"
         )
     f = torch.float32
-    args = [("K_invs", op.K_invs, (R, n, n), f), ("Ks", op.Ks, (R, n, n), f)]
-    if kernel == "K4":
-        args.append(("kia", _kia(op), (R, n, m), f))
-    args += [
+    args = [
+        ("K_invs", op.K_invs, (R, n, n), f),
+        ("Ks", op.Ks, (R, n, n), f),
+        ("kia", _kia(op), (R, n, m), f),
         ("A_s", op.A_s, (m, n), f),
         ("rho_vecs", op.rho_vecs, (R, m), f),
         ("rho_invs", op.rho_invs, (R, m), f),
     ] + _state_args(n, m, B, qT, lT, uT, idx, xT, sT, yT, axT)
-    _check_args(kernel, args, qT.device)
+    _check_args("K4", args, qT.device)
     outs = [torch.empty_like(xT)] + [torch.empty_like(sT) for _ in range(3)]
-    entry = "admm_dense_packed_chunk" if kernel == "K4" else "admm_dense_perr_chunk"
-    return _launch(kernel, entry, args, outs, (n, m, B, R, int(chunk), rs),
+    return _launch("K4", "admm_dense_packed_chunk", args, outs, (n, m, B, R, int(chunk), rs),
                    (float(config.sigma), float(config.alpha)))
+
+
+def _launch_k5(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
+    """Launch K5 on the route :func:`k5_plan` picks (``plan`` forces one):
+    the shared route (admm_perr_chunk) or the stream route
+    (admm_perr_stream_chunk, with the lanes ordered by rho index)."""
+    n, B = qT.shape
+    m = lT.shape[0]
+    R = int(op.rho_grid.shape[0])
+    rs = int(config.refine_steps)
+    if plan is None:
+        plan = k5_plan(n, m, R, rs, B)
+    f, i32 = torch.float32, torch.int32
+    state = _state_args(n, m, B, qT, lT, uT, idx, xT, sT, yT, axT)
+    outs = [torch.empty_like(xT)] + [torch.empty_like(sT) for _ in range(3)]
+    ints = dict(n=n, m=m, B=B, R=R, chunk=int(chunk), refine_steps=rs, **plan._asdict())
+    floats = (float(config.sigma), float(config.alpha))
+    if plan.route == "stream":
+        # one rho's operators a block, widened once per launch: K^-1 and K
+        # transposed, A and fl(rho_r A) (one fp32 product), in fp64 with
+        # rows padded to an even stride for 16-byte copies
+        ldg = n + (n & 1)
+        f64 = lambda M: torch.nn.functional.pad(M, (0, ldg - n)).double().contiguous()
+        kinv64 = f64(op.K_invs.transpose(1, 2))
+        order, starts = rho_order(idx, R)
+        args = [
+            ("K_invs' (fp64)", kinv64, (R, n, ldg), torch.float64),
+            ("Ks' (fp64)", f64(op.Ks.transpose(1, 2)) if rs > 0 else kinv64, (R, n, ldg),
+             torch.float64),
+            ("A_s (fp64)", f64(op.A_s), (m, ldg), torch.float64),
+            ("fl(rho A_s) (fp64)", f64(op.rho_vecs[:, :, None] * op.A_s[None]), (R, m, ldg),
+             torch.float64),
+            ("rho_vecs", op.rho_vecs, (R, m), f),
+            ("rho_invs", op.rho_invs, (R, m), f),
+        ] + state[:3] + [("order", order, (B,), i32), ("starts", starts, (R + 1,), i32)] + state[4:]
+        _check_args("K5", args, qT.device)
+        return _launch("K5", "admm_perr_stream_chunk", args, outs,
+                       [ints[k] for k in K5_STREAM_INTS], floats)
+    args = [
+        ("K_invs", op.K_invs, (R, n, n), f),
+        ("Ks", op.Ks, (R, n, n), f),
+        ("A_s", op.A_s, (m, n), f),
+        ("rho_vecs", op.rho_vecs, (R, m), f),
+        ("rho_invs", op.rho_invs, (R, m), f),
+    ] + state
+    _check_args("K5", args, qT.device)
+    return _launch("K5", "admm_perr_chunk", args, outs, [ints[k] for k in K5_INTS], floats)
 
 
 def _dispatch(kernel, launch, plain, args):
@@ -821,7 +1079,7 @@ def iterate_chunk_dense_packed_T(
     CUDA tensors launch K4 (``csrc/admm_dense.cu``) and raise if it cannot
     run; CPU tensors take the plain version. The state is out of place."""
     return _dispatch(
-        "K4", lambda *a: _launch_dense("K4", *a), iterate_chunk_dense_packed_T_plain,
+        "K4", _launch_k4, iterate_chunk_dense_packed_T_plain,
         (op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config),
     )
 
@@ -841,10 +1099,11 @@ def iterate_chunk_dense_perr_T(
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """``chunk`` ADMM iterations of a dense-A QP batch on K5, lane-last.
 
-    CUDA tensors launch K5 (``csrc/admm_dense.cu``) and raise if it cannot
-    run; CPU tensors take the plain version. The state is out of place."""
+    CUDA tensors launch K5 (``csrc/admm_perr.cu``) on the route
+    :func:`k5_plan` picks and raise if it cannot run; CPU tensors take the
+    plain version. The state is out of place."""
     return _dispatch(
-        "K5", lambda *a: _launch_dense("K5", *a), iterate_chunk_dense_perr_T_plain,
+        "K5", _launch_k5, iterate_chunk_dense_perr_T_plain,
         (op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config),
     )
 

@@ -34,9 +34,10 @@ points a user calls (``proceed_controller(..., device=card)``, then
   not box-first), so the designer's operator classes are bypassed and
   ``use_packed`` picks the kernel: the h20 equality terminal on K4 (2048
   of the suite's states), the h20 state box on K5 (2048 of bench.py's
-  states) and the h50 state box on K5 (operators read from global
-  memory), through ``parallel.solve_batch_fused``, each h20 cell held to
-  the K2 solve of the same QP.
+  states; K5's shared route, laid out by ``admm_fused.k5_plan``) and the
+  h50 state box on K5 (its stream route), through
+  ``parallel.solve_batch_fused``, each h20 cell held to the K2 solve of
+  the same QP.
 
 Phases (any failure raises and exits non-zero):
 1. the card: its name, count, and power limit from nvidia-smi;
@@ -47,15 +48,16 @@ Phases (any failure raises and exits non-zero):
    main-path shapes (K1 at tier 1's 16384 lanes and the closed loop's 4096
    and at tier 2's bucket, K2 at every tail the paths give it, each with
    random rho indices and with one index for all lanes, then both at
-   ragged batches, each with its k1_plan or k2_plan line, K2 equal bit for
-   bit and K1's distance in ulps logged; K3 at h500 and at one h50
+   ragged batches, each with its k1_plan or k2_plan line; K3 at h500 and at one h50
    shape per branch of the kernel, then at the shapes that take the other
    routes of its plan: h500 with the state box, a ragged batch, longer
    horizons, an (8, 4) and a (16, 8) plant; K4 with and without
-   refinement, K5 at h20 and h50), with times from CUDA events (K1's and
-   K2's from CUDA graphs), and beside K1's and K2's their shared-memory
-   floor (smem_floor_ms) and beside K3's the time of its dependency chain
-   alone (chain_floor_ms);
+   refinement, K5 at h20 (random and one rho index, tier 2's bucket, a
+   ragged batch) and h50, with its k5_plan line), every ADMM kernel equal
+   bit for bit (max_ulps 0), with times from CUDA graphs (K3's from CUDA
+   events), and beside K1's, K2's and K5's their shared-memory floor
+   (smem_floor_ms) and beside K3's the time of its dependency chain alone
+   (chain_floor_ms);
 4. each path, with the launch counts set to 0 just before it and read
    just after, showing that it went through its kernel and never through
    a plain version;
@@ -129,7 +131,8 @@ def ptxas_summary(report: str):
                 ("riccati_admm_chunk", "K3"), ("riccati_rollout", "K3 rollout"),
                 ("riccati_certificate", "K3 certificate"),
                 ("riccati_chain_floor", "K3 chain floor"), ("dense_packed", "K4"),
-                ("dense_perr", "K5"), ("mixed", "K2"), ("", "K1"),
+                ("dense_perr", "K5"), ("perr_stream", "K5 stream"), ("admm_perr", "K5"),
+                ("mixed", "K2"), ("", "K1"),
             ) if key in name)
             targs = re.findall(r"L[ib](\d+)E", name)  # int and bool arguments
             rows.append(dict(kernel=kind, template=[int(a) for a in targs],
@@ -493,15 +496,19 @@ def kernel_inputs(ctrl, B, seed, x0s_fn, single_index=False):
     return (op, qT, lT, uT, idx, x, s, y, ax, int(cfg.check_interval), cfg)
 
 
-def smem_floor_ms(n, m, R, refine_steps, B, chunk):
-    """Least milliseconds of one K1 (m = n) or K2 chunk if its shared memory
-    delivered one operator entry per lane and multiply-add at one 32-lane
-    wavefront a clock on every SM: (1 + 2 refine) n^2 + 2 (m - n) n entries
-    per lane and iteration (the K-solves, A2 and A2'), B chunk lane-iterations, over
-    132 SMs at the card's highest SM clock. The vector loads and the
-    entries a lane of another rho index cannot share come on top. R does
-    not enter: each lane reads only its own rho's operators."""
-    entries = (1 + 2 * refine_steps) * n * n + 2 * (m - n) * n
+def smem_floor_ms(n, m, R, refine_steps, B, chunk, kernel="K2"):
+    """Least milliseconds of one K1 (m = n), K2 or K5 chunk if its shared
+    memory delivered one operator entry per lane and multiply-add at one
+    32-lane wavefront a clock on every SM, B chunk lane-iterations over 132
+    SMs at the card's highest SM clock. Entries per lane and iteration:
+    the K-solves, (1 + 2 refine) n^2, and the products with the constraint
+    rows, each entry read once for A'y and A'(rho s) together and once for
+    A x: K1 and K2 2 (m - n) n (A2), K5 2 m n (all of A). The vector loads,
+    K5's fp32 product fl(rho a) and the entries a lane of another rho index
+    cannot share come on top. R does not enter: each lane reads only its
+    own rho's operators."""
+    dense = m if kernel == "K5" else m - n
+    entries = (1 + 2 * refine_steps) * n * n + 2 * dense * n
     return entries * B * chunk / 32 / (SM_COUNT * sm_clock_hz()) * 1e3
 
 
@@ -517,13 +524,16 @@ def sm_clock_hz():
 
 def compare_kernel(ctrl, B, seed, x0s_fn, plain_reps=REPS, single_index=False):
     """A kernel against its plain version at one shape, on the card; the
-    kernel is K1, K2, K4 or K5 as the controller's operator says. K1 and K2
-    log their plans; K2 must equal it bit for bit. Returns a record."""
+    kernel is K1, K2, K4 or K5 as the controller's operator says, and must
+    equal it bit for bit (max_ulps 0). K1, K2 and K5 log their plans; every
+    kernel is timed as a CUDA graph (``ms``) and through its wrapper
+    (``wrapper_ms``). Returns a record."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
 
     op, cfg = ctrl.engine.op, ctrl.engine.config
     R = int(op.rho_grid.shape[0])
     m, n = (int(d) for d in op.A_s.shape)
+    rs = int(cfg.refine_steps)
     kernel = admm_fused.chunk_fn_for(op, config=cfg)
     plain = admm_fused.chunk_fn_for(op, plain=True, config=cfg)
     args = kernel_inputs(ctrl, B, seed, x0s_fn, single_index)
@@ -531,30 +541,30 @@ def compare_kernel(ctrl, B, seed, x0s_fn, plain_reps=REPS, single_index=False):
 
     name = _kernel_of(op, cfg)
     abs_err, rel_err, ulps = _errors(kernel(*args), plain(*args), name)
-    rs = int(cfg.refine_steps)
     rec = dict(
         kernel=name, n=n, m=m, R=R, refine_steps=rs, B=B, chunk=chunk,
         rho_index="single" if single_index else "random",
         max_abs_err=abs_err, max_rel_err=rel_err, max_ulps=ulps,
     )
-    if name in ("K4", "K5"):
-        rec["operators_in_shared_memory"] = admm_fused.dense_ops_shared(n, m, R, rs, name == "K4")
-    if name in ("K1", "K2"):
+    if name == "K4":
+        rec["operators_in_shared_memory"] = admm_fused.dense_ops_shared(n, m, R, rs)
+    else:
         if name == "K1":
             plan = admm_fused.k1_plan(n, R, rs, B)
-        else:
+        elif name == "K2":
             plan = admm_fused.k2_plan(n, m, R, rs, B)
+        else:
+            plan = admm_fused.k5_plan(n, m, R, rs, B)
         log(phase=f"{name.lower()}_plan", n=n, m=m, R=R, refine_steps=rs, B=B,
             rho_index=rec["rho_index"], **plan._asdict())
         rec["plan"] = plan._asdict()
-    if rel_err > SHAPES_OK_REL or (name == "K2" and ulps != 0):
+    if rel_err > SHAPES_OK_REL or ulps != 0:
         raise RuntimeError(f"{kernel.__name__} disagrees with its plain version: {rec}")
-    if name in ("K1", "K2"):  # 0.04-0.3 ms a launch: graph-timed, and through the wrapper
-        rec["ms"] = cuda_graph_ms(lambda: kernel(*args))
-        rec["wrapper_ms"] = cuda_ms(lambda: kernel(*args))
-        rec["smem_floor_ms"] = smem_floor_ms(n, m, R, rs, B, chunk)
-    else:
-        rec["ms"] = cuda_ms(lambda: kernel(*args))
+    # 0.04-6 ms a launch: graph-timed (device time), and through the wrapper
+    rec["ms"] = cuda_graph_ms(lambda: kernel(*args))
+    rec["wrapper_ms"] = cuda_ms(lambda: kernel(*args))
+    if name != "K4":
+        rec["smem_floor_ms"] = smem_floor_ms(n, m, R, rs, B, chunk, name)
     rec["plain_ms"] = cuda_ms(lambda: plain(*args), reps=plain_reps)
     rec["bound_ms"], rec["bound_by"] = chunk_bound(n, m, B, R, rs, chunk, name)
     return rec
@@ -785,8 +795,13 @@ def main():
         AdmmConfig(max_iter=1000, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0),
         mpc_state_constraint=True,
     ))
+    dense_fb = parallel.escalation_controller(  # tier 2 of the h20 state box
+        dense["dense-sc-h20-B2048"], rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250,
+        refine_steps=2,
+    )
     want = {"dense-eq-h20-B2048": "K4", "dense-sc-h20-B2048": "K5", "dense-sc-h50-B2048": "K5"}
-    checks = [(k, c, want[k]) for k, c in dense.items()] + [("tier-1 state box", dense_t1, "K4")]
+    checks = [(k, c, want[k]) for k, c in dense.items()] + [
+        ("tier-1 state box", dense_t1, "K4"), ("tier-2 state box", dense_fb, "K5")]
     for cell, c, kind in checks:
         if not (c.engine.op.dense_a and parallel.fused_supported(c)
                 and _kernel_of(c.engine.op, c.engine.config) == kind):
@@ -864,12 +879,21 @@ def main():
     rollout_rec, cert_rec = compare_recurrences(ctrl_h500, B_H500, 13, suite6_x0s)
     for rec in (rollout_rec, cert_rec):
         log(phase="k3_driver_vs_plain", **rec)
-    # K4 with and without refinement, K5 at h20 and h50 (plain timed less:
-    # ~10^4 small launches per chunk)
+    # K4 with and without refinement; K5 at h20 (random and one rho index,
+    # tier 2's bucket, a ragged batch: the shared route) and h50 (the stream
+    # route), each with its k5_plan line (plain timed less: ~10^4 small
+    # launches per chunk)
     k4_shapes = [compare_kernel(dense["dense-eq-h20-B2048"], B_SLICE, 14, suite_x0s),
                  compare_kernel(dense_t1, B_SLICE, 15, bench_x0s, plain_reps=5)]
-    k5_shapes = [compare_kernel(dense["dense-sc-h20-B2048"], B_SLICE, 16, bench_x0s, plain_reps=5),
+    sc20 = dense["dense-sc-h20-B2048"]
+    k5_shapes = [compare_kernel(sc20, B_SLICE, 16, bench_x0s, plain_reps=5),
+                 compare_kernel(sc20, B_SLICE, 18, bench_x0s, plain_reps=2, single_index=True),
+                 compare_kernel(dense_fb, BUCKET, 19, bench_x0s, plain_reps=2),
+                 compare_kernel(sc20, RAGGED[2], 26, bench_x0s, plain_reps=2),
                  compare_kernel(dense["dense-sc-h50-B2048"], B_SLICE, 17, suite_x0s, plain_reps=2)]
+    k5_routes = {rec["plan"]["route"] for rec in k5_shapes}
+    if k5_routes != set(admm_fused.K5_ROUTES):
+        raise RuntimeError(f"K5 routes not held to the plain version: {k5_routes}")
     for rec in k4_shapes + k5_shapes:
         log(phase="dense_vs_plain", **rec)
 
@@ -1148,8 +1172,10 @@ def main():
                      f"{TPU_RICCATI}:384", k3_counts["certificate"], [cert_rec]),
         kernel_entry("admm_dense_packed_chunk (K4)", "admm_dense.cu", f"{TPU_ADMM}:252",
                      dense_counts["K4"], k4_shapes),
-        kernel_entry("admm_dense_perr_chunk (K5)", "admm_dense.cu", f"{TPU_ADMM}:778",
-                     dense_counts["K5"], k5_shapes),
+        dict(kernel_entry("admm_perr_chunk (K5)", "admm_perr.cu", f"{TPU_ADMM}:778",
+                          dense_counts["K5"], k5_shapes),
+             smem_floor_ms=k5_shapes[0]["smem_floor_ms"],
+             routes={"shared": "admm_perr_chunk", "stream": "admm_perr_stream_chunk"}),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

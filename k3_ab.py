@@ -1,10 +1,12 @@
-"""A/B timing of K3 and the certificate kernel, or of K2 or K1, across
+"""A/B timing of K3 and the certificate kernel, or of K2, K1 or K5, across
 source trees, on one NVIDIA GPU, in one process tree (so on one card, under
 one power limit).
 
     python3 k3_ab.py NAME=TREE[:ROUTE] [NAME=TREE[:ROUTE] ...] [--sass NAME]
     python3 k3_ab.py --kernel K2 NAME=TREE[:LxG] [...] [--plain NAME] [--sass NAME]
     python3 k3_ab.py --kernel K1 NAME=TREE[:LxG] [...] [--plain NAME] [--sass NAME]
+    python3 k3_ab.py --kernel K5 NAME=TREE[:LAYOUT] [...] [--plain NAME] [--sass NAME]
+    python3 k3_ab.py --kernel K4 NAME=TREE [...] [--plain NAME] [--sass NAME]
 
 Each TREE is a directory that holds the port's package (this checkout is
 "."; an earlier commit unpacked with ``git archive`` is another). The specs
@@ -51,6 +53,24 @@ refinement) at the headline's B = 16384 and the closed loop's 4096, tier 2
 and the h50 box-only operator (n = 100) at tier 1, B = 2048; LxG forces
 ``admm_fused.k1_plan``'s layout. A tree's wrapper calls its own C entry,
 whose parameters may differ from this checkout's.
+
+``--kernel K5`` does the same for K5, the dense-A per-rho kernel, with
+each tree's K5 sources (``csrc/admm_perr.cu`` where the tree has it;
+``csrc/admm_dense.cu``, whose admm_dense_perr_chunk is the older trees'
+K5) built into one library (build/k5ab/), at the shapes of
+K5_SHAPES: the h20 state box (n = 40, m = 120, R = 5, refine 1) with its
+rows first (chip_smoke.rows_first) at B = 2048 and ragged B = 1, 33, 77,
+1000, its tier-2 escalation (R = 4, refine 2) at B = 512, and the h50
+state box (n = 100, m = 300) at B = 2048. LAYOUT forces
+``admm_fused.k5_plan``'s: ``LxG`` lanes and row-groups, with a suffix
+``h`` (the shared route) or ``s`` (the stream route; ``s/PANEL`` also
+forces the doubles of its operator panel), or a suffix alone.
+
+``--kernel K4`` times K4, the dense-A packed kernel (``csrc/admm_dense.cu``,
+into build/k4ab/), at the dense path's two K4 shapes (K4_SHAPES): the h20
+equality terminal with its rows first (n = 40, m = 44, R = 5, refine 1)
+and the h20 state box at tier 1's grid (m = 120, R = 2, no refinement),
+B = 2048; it has no plan to force.
 
 List a tree twice (first and last) to see the drift within the call. The
 last line is a JSON object of all records.
@@ -212,9 +232,31 @@ K1_SHAPES = (
     ("tier2-B1000", 20, "bench", 1000, True, 34),
     ("h50-tier1-B2048", 50, "bench", 2048, False, 35),
 )
-ADMM_KERNELS = {  # the source each tree builds alone, and its C entry
-    "K1": ("admm_diag.cu", "admm_diag_chunk"),
-    "K2": ("admm_mixed.cu", "admm_mixed_chunk"),
+# name, horizon, tier-2 fallback, B, seed: the h20 state box with its rows
+# first at the dense-sc-h20 cell's B and ragged batches, its tier-2
+# escalation's bucket (grid (0.1, 1, 10, 100), 2 refinements; off the
+# timed path) and the h50 state box (the dense-sc-h50 cell)
+K5_SHAPES = (
+    ("h20-B2048", 20, False, 2048, 50),
+    ("h20-B1", 20, False, 1, 51),
+    ("h20-B33", 20, False, 33, 52),
+    ("h20-B77", 20, False, 77, 53),
+    ("h20-B1000", 20, False, 1000, 54),
+    ("h20-tier2-B512", 20, True, 512, 55),
+    ("h50-B2048", 50, False, 2048, 56),
+)
+# name, controller options, tier-1 grid (else the suite's), initial states,
+# B, seed: the dense-eq-h20 cell's K4 and the state box without refinement
+K4_SHAPES = (
+    ("eq-h20-B2048", {"mpc_terminal_ingredient": "equality"}, False, "suite", 2048, 60),
+    ("sc-tier1-h20-B2048", {"mpc_state_constraint": True}, True, "bench", 2048, 61),
+)
+ADMM_KERNELS = {  # the sources each tree builds alone (those it has), and their C entries
+    "K1": (("admm_diag.cu",), ("admm_diag_chunk",)),
+    "K2": (("admm_mixed.cu",), ("admm_mixed_chunk",)),
+    "K4": (("admm_dense.cu",), ("admm_dense_packed_chunk",)),
+    "K5": (("admm_perr.cu", "admm_dense.cu"),
+           ("admm_perr_chunk", "admm_perr_stream_chunk", "admm_dense_perr_chunk")),
 }
 
 
@@ -224,19 +266,22 @@ def _admm_lib(tree, kernel):
 
 
 def build_admm(trees, kernel):
-    """nvcc each tree's source of the kernel (K1: csrc/admm_diag.cu, K2:
-    csrc/admm_mixed.cu) into a library of its own, all at once, with this
-    checkout's flags. Returns {tree: (seconds, report or None if it failed,
-    error text)}."""
+    """nvcc each tree's sources of the kernel (K1: csrc/admm_diag.cu, K2:
+    csrc/admm_mixed.cu, K5: those of csrc/admm_perr.cu and
+    csrc/admm_dense.cu it has) into a library of its own, one nvcc per
+    tree, all at once, with this checkout's flags. Returns {tree: (seconds,
+    report or None if it failed, error text)}."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import _build
 
     procs = {}
     for tree in trees:
-        src = os.path.join(os.path.abspath(tree), "automationlabsmodelpredictivecontrol_jl_torch",
-                           "csrc", ADMM_KERNELS[kernel][0])
+        csrc = os.path.join(os.path.abspath(tree), "automationlabsmodelpredictivecontrol_jl_torch",
+                            "csrc")
+        srcs = [os.path.join(csrc, f) for f in ADMM_KERNELS[kernel][0]
+                if os.path.exists(os.path.join(csrc, f))]
         lib = _admm_lib(tree, kernel)
         os.makedirs(os.path.dirname(lib), exist_ok=True)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib, src]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib, *srcs]
         procs[tree] = (time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
@@ -262,6 +307,22 @@ def _admm_cases(kernel, dev, shapes):
         [0.65] * 4, [1.2] * 2, admm_config=cfg, device=dev, **kw,
     )
     ctrls = {}
+    if kernel == "K4":
+        t1 = AdmmConfig(max_iter=1000, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0)
+        for name, kw, tier1, x0s_name, B, seed in K4_SHAPES:
+            if not shapes or name in shapes:
+                c = chip_smoke.rows_first(design(20, t1 if tier1 else AdmmConfig(max_iter=1000), **kw))
+                yield name, c, x0s[x0s_name], B, seed
+        return
+    if kernel == "K5":
+        for name, N, fallback, B, seed in K5_SHAPES:
+            if shapes and name not in shapes:
+                continue
+            if N not in ctrls:
+                ctrls[N] = chip_smoke.rows_first(
+                    design(N, AdmmConfig(max_iter=1000), mpc_state_constraint=True))
+            yield name, tier2(ctrls[N]) if fallback else ctrls[N], chip_smoke.bench_x0s, B, seed
+        return
     if kernel == "K1":
         cfg = AdmmConfig(max_iter=75, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0)
         for name, N, x0s_name, B, fallback, seed in K1_SHAPES:
@@ -281,9 +342,10 @@ def _admm_cases(kernel, dev, shapes):
 
 
 def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
-    """Time K1 or K2 of one tree at its shapes; print one K1_AB or K2_AB
-    line of records. Each tree's wrapper calls its own C entry with that
-    tree's signature (an older tree's entry takes other parameters)."""
+    """Time K1, K2 or K5 of one tree at its shapes; print one K1_AB, K2_AB
+    or K5_AB line of records. Each tree's wrapper calls its own C entries
+    with that tree's signatures (an older tree's entry takes other
+    parameters)."""
     sys.path.insert(0, os.path.abspath(tree))
     import ctypes
 
@@ -292,24 +354,40 @@ def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
     import chip_smoke
     from automationlabsmodelpredictivecontrol_jl_torch.ops import _build, admm_fused
 
-    entry_name = ADMM_KERNELS[kernel][1]
+    entries = [e for e in ADMM_KERNELS[kernel][1] if e in _build.SIGNATURES]
     lib = ctypes.CDLL(_admm_lib(tree, kernel))
-    entry = getattr(lib, entry_name)
-    entry.restype = ctypes.c_int
-    entry.argtypes = [_build._CTYPES[c] for c in _build.SIGNATURES[entry_name]]
+    for entry_name in entries:
+        entry = getattr(lib, entry_name)
+        entry.restype = ctypes.c_int
+        entry.argtypes = [_build._CTYPES[c] for c in _build.SIGNATURES[entry_name]]
     _build._lib = lib  # the wrappers launch from this library
     if sass:
         text = subprocess.run(["cuobjdump", "-sass", _admm_lib(tree, kernel)],
                               capture_output=True, text=True, check=True).stdout
         parts = text.split("\t\tFunction : ")
-        keep = [p for p in parts[1:] if entry_name.rsplit("_", 1)[0] in p.split("\n", 1)[0]]
+        keep = [p for p in parts[1:]
+                if any(e.rsplit("_", 1)[0] in p.split("\n", 1)[0] for e in entries)]
         os.makedirs(sass_dir, exist_ok=True)
         with open(os.path.join(sass_dir, f"sass_{sass}.txt"), "w") as f:
             f.write("\n\t\tFunction : ".join([""] + keep))
     dev = torch.device("cuda", 0)
+    force, panel = {}, ""
     if kernel == "K1":
         wrapper, plain_fn = admm_fused.iterate_chunk_diag_T, admm_fused.iterate_chunk_diag_T_plain
         plan_fn, launch = getattr(admm_fused, "k1_plan", None), getattr(admm_fused, "_launch_k1")
+    elif kernel == "K4":
+        wrapper = admm_fused.iterate_chunk_dense_packed_T
+        plain_fn = admm_fused.iterate_chunk_dense_packed_T_plain
+        plan_fn = launch = None
+    elif kernel == "K5":
+        wrapper = admm_fused.iterate_chunk_dense_perr_T
+        plain_fn = admm_fused.iterate_chunk_dense_perr_T_plain
+        plan_fn, launch = getattr(admm_fused, "k5_plan", None), getattr(admm_fused, "_launch_k5", None)
+        if layout and "s" in layout:  # LxGs[/PANEL]: the stream route, a panel forced
+            layout, _, panel = layout.partition("s")
+            force, layout = dict(route="stream"), layout or None
+        elif layout and layout[-1] == "h":
+            force, layout = dict(route="shared"), layout[:-1] or None
     else:
         wrapper, plain_fn = admm_fused.iterate_chunk_mixed_T, admm_fused.iterate_chunk_mixed_T_plain
         plan_fn, launch = getattr(admm_fused, "k2_plan", None), getattr(admm_fused, "_launch_k2")
@@ -327,10 +405,13 @@ def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
                 lanes, groups = (int(v) for v in layout.split("x")) if layout else (None, None)
                 shape = (n, R, rs, B) if kernel == "K1" else (n, m, R, rs, B)
                 try:
-                    plan = plan_fn(*shape, lanes=lanes, groups=groups)
+                    plan = plan_fn(*shape, lanes=lanes, groups=groups, **force)
                 except ValueError as err:
                     records.append(dict(rec, skipped=str(err)))
                     continue
+                if kernel == "K5" and force.get("route") == "stream" and panel:
+                    plan = plan._replace(panel=int(panel[1:]), smem_bytes=admm_fused.k5_stream_smem_bytes(
+                        m, plan.lanes, plan.groups, plan.rpt_n, plan.rpt_m, int(panel[1:])))
                 rec["plan"] = plan._asdict()
                 fn = lambda plan=plan: launch(*args, plan=plan)
             out = fn()
@@ -343,15 +424,18 @@ def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
                     for a, b in zip(out, want))
             rec["ms"] = chip_smoke.cuda_graph_ms(fn)
             rec["wrapper_ms"] = _ms(fn, 20)
-            rec["smem_floor_ms"] = chip_smoke.smem_floor_ms(n, m, R, rs, B, args[-2])
+            if kernel != "K4":
+                rec["smem_floor_ms"] = chip_smoke.smem_floor_ms(n, m, R, rs, B, args[-2], kernel)
             records.append(rec)
     print(f"{kernel}_AB " + json.dumps(records), flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("specs", nargs="*", help="NAME=TREE[:ROUTE] (K1, K2: NAME=TREE[:LxG])")
-    ap.add_argument("--kernel", choices=("K3", "K2", "K1"), default="K3", help="the kernel timed")
+    ap.add_argument("specs", nargs="*",
+                    help="NAME=TREE[:ROUTE] (K1, K2: NAME=TREE[:LxG]; K5: NAME=TREE[:LAYOUT])")
+    ap.add_argument("--kernel", choices=("K3", "K2", "K1", "K5", "K4"), default="K3",
+                    help="the kernel timed")
     ap.add_argument("--plain", default=None, help="the spec name whose outputs are held to the plain version")
     ap.add_argument("--sass", action="append", default=[], help="spec names whose K3 SASS is written out")
     ap.add_argument("--sass-dir", default=os.path.join("build", "sass"),

@@ -361,10 +361,10 @@ def test_dense_shapes_and_routing(designs):
     for n, m, R, rs in ((40, 44, 5, 1), (40, 120, 2, 0), (40, 120, 5, 1), (100, 300, 5, 1)):
         assert admm_fused.k4_fits(n, m, R) and admm_fused.k5_fits(n, m, R)
     assert admm_fused.dense_smem_bytes(40, 44, 5) == 28384
-    assert admm_fused.dense_ops_shared(40, 44, 5, 1, True)
-    assert admm_fused.dense_ops_shared(40, 120, 2, 0, True)
-    assert admm_fused.dense_ops_shared(40, 120, 5, 1, False)
-    assert not admm_fused.dense_ops_shared(100, 300, 5, 1, False)  # read from L2
+    assert admm_fused.dense_ops_shared(40, 44, 5, 1)  # K4's two shapes
+    assert admm_fused.dense_ops_shared(40, 120, 2, 0)
+    assert admm_fused.k5_plan(40, 120, 5, 1, 2048).route == "shared"
+    assert admm_fused.k5_plan(100, 300, 5, 1, 2048).route == "stream"  # 1.3 MB of fp64
     assert not admm_fused.k5_fits(129, 300, 5)
     assert not admm_fused.k5_fits(100, admm_fused.MAX_DENSE_ROWS + 1, 5)
 
@@ -390,3 +390,127 @@ def test_dense_shapes_and_routing(designs):
                 op, torch.zeros((2, n)), torch.zeros((2, m)), torch.zeros((2, m)),
                 config=dataclasses.replace(cfg, kernel_precision=mode),
             )
+
+
+K5_NS = (1, 7, 40, 64, 100, 128)
+K5_MS = (1, 13, 44, 120, 300, 512)
+K5_BS = (1, 33, 77, 512, 1000, 2048, 16384)
+
+
+@pytest.mark.parametrize("refine_steps", [0, 1, 2])
+@pytest.mark.parametrize("R", list(range(1, 9)))
+def test_k5_plan_covers_every_shape_k5_takes(R, refine_steps):
+    """Every shape k5_fits takes (n <= 128, 1 <= m <= 512, which includes
+    every shape K4 takes) gets a route at every
+    batch size from 1 to 16384, within one block's shared memory: the
+    shared route where a layout of it fits, else the stream route. A plan
+    covers the lanes and the rows with an instantiation, whole warps, no
+    more threads than it allows, and its bytes are the layout's
+    (k5_smem_bytes, k5_stream_smem_bytes: the C entries' formulas)."""
+    for n in K5_NS + (0, 129):
+        for m in K5_MS + (0, 513):
+            fits = 1 <= n <= 128 and 1 <= m <= 512
+            assert admm_fused.k5_fits(n, m, R) == fits
+            assert fits or not admm_fused.k4_fits(n, m, R)
+            if not fits:
+                with pytest.raises(ValueError):
+                    admm_fused.k5_plan(n, m, R, refine_steps, 64)
+                continue
+            shared = bool(admm_fused._k5_layouts(n, m, R, refine_steps))
+            assert shared or admm_fused._k5_stream_layouts(n, m, refine_steps)
+            for B in K5_BS:
+                p = admm_fused.k5_plan(n, m, R, refine_steps, B)
+                assert p.smem_bytes <= admm_fused.SMEM_LIMIT and p.per_sm >= 1
+                assert p.route == ("shared" if shared else "stream"), (n, m, B)
+                spare = R if p.route == "stream" else 0
+                assert p.blocks - spare == -(-B // p.lanes)
+                table = admm_fused.K5_INSTANCES if p.route == "shared" else admm_fused.K5_STREAM_INSTANCES
+                threads, *registers = table[(p.rpt_n, p.rpt_m)]
+                assert p.groups * p.rpt_n >= n and p.groups * p.rpt_m >= m
+                assert (p.lanes * p.groups) % 32 == 0 and p.lanes * p.groups <= threads
+                assert p.lanes in admm_fused.LANES
+                if p.route == "shared":
+                    assert p.panel == 0
+                    assert p.smem_bytes == admm_fused.k5_smem_bytes(
+                        n, m, R, refine_steps, p.lanes, p.groups, p.rpt_n, p.rpt_m)
+                else:
+                    assert p.panel >= 4 * (n + (n & 1))
+                    assert p.smem_bytes == admm_fused.k5_stream_smem_bytes(
+                        m, p.lanes, p.groups, p.rpt_n, p.rpt_m, p.panel)
+                assert p.per_sm == admm_fused.blocks_per_sm(
+                    p.lanes * p.groups, p.smem_bytes, registers[1 if refine_steps else 0])
+
+
+@pytest.mark.parametrize("B,R,refine_steps,lanes", [
+    (2048, 5, 1, 16),  # the dense-sc-h20 cell: 128 blocks of 16 lanes
+    (512, 4, 2, 4),    # its tier-2 bucket: 128 blocks of 4
+    (1000, 5, 1, 8),
+    (77, 5, 1, 4),
+])
+def test_k5_plan_fills_the_sms(B, R, refine_steps, lanes):
+    """At the h20 state box the fp64 operators fit shared memory and the
+    lanes per block spread the batch over the card's 132 SMs (32 lanes a
+    block would fill 64 of them at B = 2048); the h50 state box
+    (n = 100, m = 300) takes the stream route, its blocks one rho index
+    each, with room for each index's partial last block; forced layouts
+    and routes that do not fit raise."""
+    p = admm_fused.k5_plan(40, 120, R, refine_steps, B)
+    assert p.route == "shared" and p.lanes == lanes
+    assert p.blocks <= admm_fused.SM_COUNT
+    h50 = admm_fused.k5_plan(100, 300, 5, 1, B)
+    assert h50.route == "stream" and h50.blocks == -(-B // h50.lanes) + 5
+    assert admm_fused.k5_plan(40, 120, R, refine_steps, B, route="stream").route == "stream"
+    with pytest.raises(ValueError):
+        admm_fused.k5_plan(100, 300, 5, 1, B, route="shared")
+    with pytest.raises(ValueError):
+        admm_fused.k5_plan(40, 120, R, refine_steps, B, lanes=32, groups=4)  # 10 rows a thread
+    with pytest.raises(ValueError):
+        admm_fused.k5_plan(40, 120, R, refine_steps, 0)
+
+
+def _grouped_blocks(order, starts, lanes):
+    """The lanes each block of a K5 launch on the stream route takes, as
+    the kernel's prologue finds them (csrc/admm_perr.cu): block k walks the
+    rho indices' ceil(count / lanes) blocks in order; a block past them is
+    spare."""
+    R, B = starts.numel() - 1, order.numel()
+    out = []
+    for k in range(-(-B // lanes) + R):
+        first, lanes_k = 0, None
+        for r in range(R):
+            seg, cnt = int(starts[r]), int(starts[r + 1] - starts[r])
+            nb = -(-cnt // lanes)
+            if k < first + nb:
+                off = (k - first) * lanes
+                lanes_k = (r, [int(order[seg + o]) for o in range(off, min(off + lanes, cnt))])
+                break
+            first += nb
+        out.append(lanes_k)
+    return out
+
+
+@pytest.mark.parametrize("lanes", [4, 16, 32])
+@pytest.mark.parametrize("R", [1, 4, 5])
+@pytest.mark.parametrize("B,single", [(1, False), (3, False), (77, False), (2048, False),
+                                      (2048, True), (13, True)])
+def test_rho_order_covers_every_lane_once(B, single, R, lanes):
+    """rho_order, run on the device before a launch on K5's stream route:
+    its blocks take every lane exactly once, each block lanes of one rho
+    index only, in lane order, for random and single indices and for
+    B < L."""
+    rng = np.random.default_rng(B + R)
+    idx = rng.integers(0, R, size=B).astype(np.int32)
+    if single:
+        idx[:] = R // 2
+    order, starts = admm_fused.rho_order(torch.from_numpy(idx), R)
+    assert order.dtype == starts.dtype == torch.int32
+    assert starts.shape == (R + 1,) and int(starts[0]) == 0 and int(starts[-1]) == B
+    seen = []
+    for block in _grouped_blocks(order, starts, lanes):
+        if block is None:
+            continue
+        r, lane_ids = block
+        assert 1 <= len(lane_ids) <= lanes
+        assert all(idx[i] == r for i in lane_ids) and lane_ids == sorted(lane_ids)
+        seen += lane_ids
+    assert sorted(seen) == list(range(B))

@@ -9,6 +9,8 @@ import glob
 import os
 import re
 
+import pytest
+
 from automationlabsmodelpredictivecontrol_jl_torch.ops import _build
 
 _ENTRY = re.compile(r"^int\s+(\w+)\(([^)]*)\)\s*\{", re.MULTILINE)
@@ -104,3 +106,94 @@ def test_k1_instantiations_match_the_plan():
         assert planned_threads == threads
         for used, budget in zip(registers, budgets):
             assert used <= budget <= 255 and 65536 // (threads * budget) >= 1
+
+
+def test_k5_entry_takes_the_plan():
+    """admm_perr_chunk's int parameters are the ones the wrapper passes,
+    in its order (admm_fused.K5_INTS: the shape, then k5_plan's layout),
+    after its 17 arrays."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    params = _c_params("admm_perr_chunk")
+    sig = _build.SIGNATURES["admm_perr_chunk"]
+    ints = [p for p, kind in zip(params, sig) if kind == "i"]
+    assert tuple(ints) == admm_fused.K5_INTS
+    assert sig == "p" * 17 + "i" * len(admm_fused.K5_INTS) + "ff" + "p"
+
+
+@pytest.mark.parametrize("macro,table", [("MPC_K5_INSTANCES", "K5_INSTANCES"),
+                                         ("MPC_K5_STREAM_INSTANCES", "K5_STREAM_INSTANCES")])
+def test_k5_instantiations_match_the_plan(macro, table):
+    """The rows per thread K5 instantiates on its shared and stream routes
+    (csrc/admm_perr.cu) are the ones k5_plan may pick, with the same most
+    threads a block, and the registers the plan counts, without and with
+    refinement, fit the budgets that __launch_bounds__ holds them to."""
+    keys = 2
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    text = open(os.path.join(_build.CSRC_DIR, "admm_perr.cu")).read()
+    body = re.search(rf"#define {macro}\(X\)((?:.*\\\n)*.*)", text).group(1)
+    rows = [tuple(int(v) for v in m)
+            for m in re.findall(r"X\(" + ", ".join([r"(\d+)"] * (keys + 3)) + r"\)", body)]
+    planned = getattr(admm_fused, table)
+    assert sorted(row[:keys] for row in rows) == sorted(planned)
+    for row in rows:
+        threads, *budgets = row[keys:]
+        planned_threads, *registers = planned[row[:keys]]
+        assert planned_threads == threads
+        for used, budget in zip(registers, budgets):
+            assert used <= budget <= 255 and 65536 // (threads * budget) >= 1
+
+
+def test_k5_stream_entry_takes_the_plan():
+    """admm_perr_stream_chunk's int parameters are the ones the wrapper
+    passes (admm_fused.K5_STREAM_INTS), and its shared-memory bytes are
+    k5_stream_smem_bytes: the entry's two lines, read from the source."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    params = _c_params("admm_perr_stream_chunk")
+    sig = _build.SIGNATURES["admm_perr_stream_chunk"]
+    assert tuple(p for p, kind in zip(params, sig) if kind == "i") == admm_fused.K5_STREAM_INTS
+    text = open(os.path.join(_build.CSRC_DIR, "admm_perr.cu")).read()
+    exprs = [re.search(rf"const long long {name} = (.*);", text).group(1)
+             for name in ("stream_doubles", "stream_need")]
+    py = lambda e: re.sub(r"(\d+)LL", r"\1", e).replace("lay.", "")
+    for n, m, lanes, groups, rpt_n, rpt_m, panel in (
+            (100, 300, 16, 30, 4, 10, 7658), (100, 300, 8, 28, 4, 12, 10794),
+            (41, 77, 4, 40, 2, 6, 500), (128, 512, 4, 64, 2, 8, 2048)):
+        env = dict(n=n, m=m, lanes=lanes, panel=panel, nslots=(groups * rpt_n + 1) & ~1,
+                   mslots=(groups * rpt_m + 1) & ~1)
+        env["stream_doubles"] = eval(py(exprs[0]), {}, env)
+        assert eval(py(exprs[1]), {}, env) == admm_fused.k5_stream_smem_bytes(
+            m, lanes, groups, rpt_n, rpt_m, panel)
+
+
+def test_k5_shared_bytes_match_the_c_entry():
+    """admm_fused.k5_smem_bytes is the C entry's own formula: the three
+    lines of admm_perr_chunk that count the layout's doubles and floats,
+    read from the source and evaluated on the same layout."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    text = open(os.path.join(_build.CSRC_DIR, "admm_perr.cu")).read()
+    exprs = {name: re.search(rf"const long long {name} = (.*);", text).group(1)
+             for name in ("doubles", "floats", "need")}
+    py = lambda e: re.sub(r"(\d+)LL", r"\1", e).replace("lay.", "")
+    cases = 0
+    for n, m in ((40, 120), (100, 300), (7, 13), (128, 1), (41, 44)):
+        for R in (1, 4, 5, 8):
+            for rs in (0, 1, 2):
+                for lanes in admm_fused.LANES:
+                    for (rpt_n, rpt_m), _ in admm_fused.K5_INSTANCES.items():
+                        groups = max(-(-n // rpt_n), -(-m // rpt_m))
+                        ld, sk = admm_fused.row_strides(n, lanes)
+                        env = dict(
+                            n=n, m=m, R=R, lanes=lanes, ld=ld, sk=sk,
+                            nslots=(groups * rpt_n + 1) & ~1, mslots=(groups * rpt_m + 1) & ~1,
+                            mr=admm_fused.rho_stride(m), stacks=2 if rs > 0 else 1,
+                        )
+                        env["doubles"] = eval(py(exprs["doubles"]), {}, env)
+                        env["floats"] = eval(py(exprs["floats"]), {}, env)
+                        assert eval(py(exprs["need"]), {}, env) == admm_fused.k5_smem_bytes(
+                            n, m, R, rs, lanes, groups, rpt_n, rpt_m)
+                        cases += 1
+    assert cases > 1000

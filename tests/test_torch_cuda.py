@@ -301,6 +301,74 @@ def test_dense_kernels_match_plain_versions(dense_controllers, which, B):
         assert float((a - b).abs().max()) == 0.0, name
 
 
+@pytest.fixture(scope="module")
+def k5_controllers(dense_controllers):
+    """K5's controllers: the h20 state box (the shared route), its tier-2
+    escalation (R = 4, refine 2) and the h50 state box (the stream
+    route)."""
+    h20 = dense_controllers["K5-sc-h20"]
+    return {
+        "h20": h20,
+        "tier2": parallel.escalation_controller(
+            h20, rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250, refine_steps=2),
+        "h50": dense_controllers["K5-sc-h50"],
+    }
+
+
+# (controller, B, one rho index for all lanes, forced k5_plan arguments):
+# every shape of k3_ab.py's K5_SHAPES, random and single rho indices,
+# ragged batches, and forced layouts and routes
+K5_CASES = [
+    ("h20", 2048, False, None), ("h20", 2048, True, None), ("h20", 1, False, None),
+    ("h20", 33, False, None), ("h20", 77, False, None), ("h20", 1000, False, None),
+    ("tier2", 512, False, None), ("tier2", 512, True, None),
+    ("h50", 2048, False, None), ("h50", 2048, True, None),
+    ("h50", 77, False, None), ("h50", 1, True, None),
+    ("h20", 2048, False, dict(lanes=16, groups=20)), ("h20", 2048, True, dict(lanes=8, groups=40)),
+    ("h20", 2048, False, dict(route="stream")), ("h20", 2048, True, dict(route="stream")),
+    ("h20", 77, False, dict(route="stream")), ("h20", 1, False, dict(route="stream")),
+    ("h20", 33, True, dict(route="stream")), ("tier2", 512, False, dict(route="stream")),
+    ("h50", 2048, False, dict(lanes=8, groups=40)), ("h50", 1000, True, dict(lanes=4)),
+    ("h50", 2048, True, dict(lanes=8, groups=32)), ("h50", 77, False, dict(lanes=8, groups=40)),
+    ("h20", 1000, False, dict(route="stream")),
+]
+
+
+@pytest.mark.parametrize("which,B,single,force", K5_CASES)
+def test_k5_matches_plain_version(k5_controllers, which, B, single, force):
+    """K5 on the route and layout k5_plan picks (the shared route at h20,
+    the stream route at h50), or a forced one, equals its plain version bit
+    for bit; ragged batches reach every barrier."""
+    ctrl = k5_controllers[which]
+    args = _chunk_args(ctrl, B, seed=B + len(which), single_index=single)
+    op, cfg = args[0], args[-1]
+    m, n = op.A_s.shape
+    plan = admm_fused.k5_plan(n, m, int(op.rho_grid.shape[0]), int(cfg.refine_steps), B,
+                              **(force or {}))
+    assert plan.route == (force or {}).get("route", "stream" if which == "h50" else "shared")
+    launches, plain = admm_fused.LAUNCHES["K5"], admm_fused.PLAIN_CALLS["K5"]
+    if force is None:
+        out_k = admm_fused.iterate_chunk_dense_perr_T(*args)
+    else:
+        out_k = admm_fused._launch_k5(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert admm_fused.LAUNCHES["K5"] == launches + 1
+    assert admm_fused.PLAIN_CALLS["K5"] == plain
+    out_p = admm_fused.iterate_chunk_dense_perr_T_plain(*args)
+    for name, a, b in zip(("x", "s", "y", "ax"), out_k, out_p):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+
+
+def test_k5_refuses_a_layout_it_does_not_have(k5_controllers):
+    """The shared route's C entry refuses shared-memory bytes that differ
+    from its own layout (cudaError_t 1) rather than run on a wrong one."""
+    args = _chunk_args(k5_controllers["h20"], 64, seed=7)
+    plan = admm_fused.k5_plan(40, 120, 5, 1, 64)
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        admm_fused._launch_k5(*args, plan=plan._replace(smem_bytes=plan.smem_bytes + 16))
+
+
 def test_dense_solve_auto_launches_k4(dense_controllers):
     """The dense h20 equality controller through solve_batch_auto: K4
     launches, no plain version runs, every lane converges, and the result
