@@ -369,6 +369,12 @@ cudaError_t launch(const Args& a, dim3 block, const Layout& lay, size_t smem,
 // over the columns); the panels of a product go in index order, so each
 // output still sums in index order. The schedule repeats every iteration:
 // the pass, the solve, refine_steps times the residual and the solve, A xt.
+// What bounds it on this card: at the h50 state box the products alone
+// (the panels' shared-memory reads, one entry per lane and multiply-add)
+// take about 1.8 ms a chunk and the panel copies alone about 0.9 ms (L2 at
+// ~3.6 TB/s), and the two overlap only in part (PERF.md, Findings: K5's
+// redesign); two lanes a thread, which halves the entries read, gained
+// nothing.
 
 struct StreamLayout {
   int ldg;             // row stride (doubles) of the operators in device memory
