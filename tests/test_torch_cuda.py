@@ -360,6 +360,59 @@ def test_k5_matches_plain_version(k5_controllers, which, B, single, force):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
 
 
+def _synthetic_dense_op(base, n, m, R, seed):
+    """A dense operator of any shape, made as build_operator makes one from
+    P = I and a random A (no scaling): K_r = P + sigma I + A' diag(rho_r) A
+    over R rho values, one row in four an equality row at 100 rho, K_r^-1
+    in fp64; every array fp32 on base's device."""
+    rng = np.random.default_rng(seed)
+    A = (rng.standard_normal((m, n)) / np.sqrt(n)).astype(np.float32)
+    grid = np.logspace(-1, 1, R)
+    rho = grid[:, None] * np.where(np.arange(m) % 4 == 0, 100.0, 1.0)[None]
+    A64 = A.astype(np.float64)
+    K = np.eye(n) * (1 + 1e-6) + np.einsum("mi,rm,mj->rij", A64, rho, A64)
+    dev = base.A_s.device
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+    return base.replace(
+        P_s=t(np.eye(n)), A_s=t(A), Ks=t(K), K_invs=t(np.linalg.inv(K)), rho_vecs=t(rho),
+        rho_invs=t(1.0 / rho), rho_grid=t(grid), D=t(np.ones(n)), E=t(np.ones(m)), kia=None,
+    )
+
+
+@pytest.mark.parametrize("n,m,R,refine_steps,B,route", [
+    (41, 77, 3, 2, 100, None), (41, 77, 3, 2, 100, "stream"),
+    (7, 13, 1, 0, 33, None), (7, 13, 1, 0, 33, "stream"),
+    (33, 120, 8, 0, 2048, None), (1, 1, 2, 1, 5, None), (1, 1, 2, 1, 5, "stream"),
+    (127, 3, 4, 2, 64, None), (100, 301, 5, 1, 1000, None), (128, 512, 8, 1, 300, None),
+])
+def test_k5_odd_shapes_match_plain_version(k5_controllers, n, m, R, refine_steps, B, route):
+    """K5 at shapes the QTP cells never give it, on both routes: odd n (the
+    stream route's padded operator rows) and odd m (the tail row of each
+    pair loop), one rho and eight, no refinement and two, a single
+    variable and constraint row, and the widest shape k5_fits takes; equal
+    to the plain version bit for bit."""
+    op = _synthetic_dense_op(k5_controllers["h20"].engine.op, n, m, R, seed=n + m)
+    dev = op.A_s.device
+    rng = np.random.default_rng(B)
+    f32 = lambda *shape, scale=0.05: torch.from_numpy(
+        (scale * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+    qT = f32(n, B, scale=1.0)
+    lT = -f32(m, B, scale=0.5).abs() - 0.1
+    uT = f32(m, B, scale=0.5).abs() + 0.1
+    idx = torch.from_numpy(rng.integers(0, R, size=B).astype(np.int32)).to(dev)
+    x, y, ax = f32(n, B), f32(m, B), f32(m, B)
+    s = torch.clamp(ax, lT, uT).contiguous()
+    cfg = AdmmConfig(refine_steps=refine_steps)
+    args = (op, qT, lT, uT, idx, x, s, y, ax, 25, cfg)
+    plan = admm_fused.k5_plan(n, m, R, refine_steps, B, route=route)
+    out_k = admm_fused._launch_k5(*args, plan=plan)
+    torch.cuda.synchronize()
+    out_p = admm_fused.iterate_chunk_dense_perr_T_plain(*args)
+    for name, a, b in zip(("x", "s", "y", "ax"), out_k, out_p):
+        assert bool(torch.isfinite(b).all()), name
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), (name, plan)
+
+
 def test_k5_refuses_a_layout_it_does_not_have(k5_controllers):
     """The shared route's C entry refuses shared-memory bytes that differ
     from its own layout (cudaError_t 1) rather than run on a wrong one."""
