@@ -1,4 +1,4 @@
-// What K1 (admm_diag.cu), K2 (admm_mixed.cu) and K5 (admm_perr.cu) share:
+// What K1 (admm_diag.cu), K2 (admm_mixed.cu), K5 and K4 (admm_perr.cu) share:
 // the layout of the operators and lane buffers in shared memory, and the
 // fp64 matrix-vector product that reads them. Each kernel stages its operators itself: K2's
 // loop in the form of K1's ran 2% slower (PERF.md, Findings, K1's

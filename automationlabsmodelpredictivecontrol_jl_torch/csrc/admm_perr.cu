@@ -1,24 +1,37 @@
-// K5 on Hopper: `chunk` ADMM iterations of a batch of QPs whose scaled
-// constraint matrix A (m, n) is dense (rows not box-first), per rho.
+// K5 and K4 on Hopper: `chunk` ADMM iterations of a batch of QPs whose
+// scaled constraint matrix A (m, n) is dense (rows not box-first), per rho
+// (K5) or lane-packed (K4).
 //
-// Replaces ops/admm_pallas.py::_iterate_kernel_perr of the JAX package
-// (driven by _iterate_chunk). Per lane b and iteration, r the lane's rho-
-// grid index:
+// K5 replaces ops/admm_pallas.py::_iterate_kernel_perr of the JAX package,
+// K4 its _iterate_kernel (both driven by _iterate_chunk, which picks one by
+// _use_packed, ported as admm_fused.use_packed; the two round differently).
+// Per lane b and iteration, r the lane's rho-grid index:
 //
 //   rhs = sigma x - q - A'y + sum_i s_i fl(rho_r,i A_i.)
 //   xt  = rhs K_r^-1                       (row vector times matrix)
-//   refine_steps times: xt += (rhs - xt K_r) K_r^-1
-//   st  = A xt
+//   K5: refine_steps times: xt += (rhs - xt K_r) K_r^-1
+//       st  = A xt
+//   K4: st  = rhs kia_r,  kia_r = K_r^-1 A'  (the packed image, built once)
+//       refine_steps times: res = rhs - xt K_r;  xt += res K_r^-1;
+//                           st += res kia_r
 //   x = alpha xt + (1-alpha) x;  v = alpha st + (1-alpha) s
 //   s = clip(v + rho^-1 y, l, u);  y += rho (v - s);  ax = alpha st + (1-alpha) ax
 //
+// One source, two kernels (the shared and the stream route), each
+// instantiated for K5 and, with the compile-time flag PACKED, for K4: the
+// flag swaps the A xt pass for the image rhs kia_r, which the refinement
+// corrects with res kia_r; nothing else differs.
+//
 // fl(rho a) is one fp32 product, as the JAX body's atrho. Two routes, one
-// entry each; ops/admm_fused.k5_plan picks one from the shape before the
-// launch: the shared route (admm_perr_chunk, below) where every rho's fp64
-// operators fit one block's shared memory beside the lane buffers (the h20
-// state box), else the stream route (admm_perr_stream_chunk, further
-// below), which takes every shape with n <= 128 and m <= 512 (the h50
-// state box).
+// entry each per kernel; ops/admm_fused.k5_plan and k4_plan pick one from
+// the shape before the launch: the shared route (admm_perr_chunk,
+// admm_packed_chunk, below) where every rho's fp64 operators fit one
+// block's shared memory beside the lane buffers (the h20 state box on K5;
+// the h20 equality terminal, its tier 2 and the state box at tier 1's grid
+// on K4), else the stream route (admm_perr_stream_chunk,
+// admm_packed_stream_chunk, further below), which takes every shape with
+// n <= 128 and m <= 512 (the h50 state box on K5; the h20 neighborhood
+// terminal on K4).
 //
 // The shared route. What bounds it on this card: not the fp64 multiply-adds (3 m n +
 // (1 + 2 refine) n^2 per lane and iteration: 19,200 at the h20 state box)
@@ -52,16 +65,27 @@
 // - Operator rows and the lane vectors are read 16 bytes at a time.
 // - Instantiations with and without refinement, each held to a register
 //   budget by __launch_bounds__, as K1's.
+// - K4 (PACKED) keeps no fp64 A: kia_r (R copies, transposed, rows at ld,
+//   copies at (m ld) | 2) takes its room (at the h20 equality terminal,
+//   n = 40, m = 44, R = 5, one refinement, K^-1, K and kia fill 199 KB of
+//   a 16-lane block's 226 KB), so A'y reads the fp32 A and widens it: two
+//   conversions per entry and lane, each costing about what reading 8
+//   bytes does, a fifth of K4's time there (k3_ab.py --kernel K4; PERF.md,
+//   Findings: K4's redesign). One product over rhs, and one over each
+//   refinement residual, gives xt from K^-1 and the image st from kia,
+//   reading the vector once; st stays in registers through the
+//   refinement, and no barrier or A xt pass follows it.
 //
 // Precision, as in K1 and K2: the state is fp32,
 // every matrix-vector product is accumulated in fp64 from exact fp32
 // products, in index order, and rounded once to fp32; the plain version
-// (admm_fused.iterate_chunk_dense_perr_T_plain) sums in the same order, so
-// the two agree bit for bit. Built with --fmad=false so the elementwise
-// updates round like PyTorch's.
+// (admm_fused.iterate_chunk_dense_perr_T_plain, and _packed_T_plain for
+// K4) sums in the same order, so the two agree bit for bit. Built with
+// --fmad=false so the elementwise updates round like PyTorch's.
 //
 // Shared memory, fp64 first: K^-1 (and K when refining) transposed, R
-// copies at stride sk, rows at ld; A, m rows at ld; four lane buffers of
+// copies at stride sk, rows at ld; A, m rows at ld (K4: kia transposed, R
+// copies of m rows at ld); four lane buffers of
 // paired rows (admm_common.cuh): the variable rows' rhs (then the
 // refinement residual) and xt, the constraint rows' y and s. Then fp32:
 // the rho table (R rows at mr) and A (m rows at n).
@@ -69,8 +93,9 @@
 // The state is out of place. Every thread reaches every barrier; the only
 // early return (lanes past B) comes after the last one.
 //
-// Bound to PyTorch by ctypes through the plain C functions admm_perr_chunk
-// and admm_perr_stream_chunk, which return cudaGetLastError() after the
+// Bound to PyTorch by ctypes through the plain C functions admm_perr_chunk,
+// admm_perr_stream_chunk (K5), admm_packed_chunk and
+// admm_packed_stream_chunk (K4), which return cudaGetLastError() after the
 // launch (0 on success).
 
 #include <cuda_runtime.h>
@@ -102,10 +127,11 @@ inline int rho_stride(int m) {
   return mr;
 }
 
-template <int RPT_N, int RPT_M, bool REFINE, int THREADS, int REGS>
+template <int RPT_N, int RPT_M, bool REFINE, int THREADS, int REGS, bool PACKED>
 __global__ void __launch_bounds__(THREADS, 65536 / (THREADS * REGS))
 admm_perr_chunk_kernel(const float* __restrict__ kinv,
                        const float* __restrict__ kmat,
+                       const float* __restrict__ kia,  // K4: (R, n, m); K5: unused
                        const float* __restrict__ a,
                        const float* __restrict__ rho_vecs,
                        const float* __restrict__ rho_invs,
@@ -137,10 +163,11 @@ admm_perr_chunk_kernel(const float* __restrict__ kinv,
   const int r = idx[lc];
 
   const int ld = lay.ld, sk = lay.sk;
+  const int skm = (m * ld) | 2;                  // K4: the stride of the kia copies
   double* ki_sh = smem;                          // K^-1 transposed
   double* k_sh = ki_sh + R * sk;                 // K transposed
-  double* a_sh = k_sh + (REFINE ? R * sk : 0);   // A
-  double* bn0 = a_sh + m * ld;                   // rhs, then the residual
+  double* a_sh = k_sh + (REFINE ? R * sk : 0);   // A (K4: kia transposed)
+  double* bn0 = a_sh + (PACKED ? R * skm : m * ld);  // rhs, then the residual
   double* bn1 = bn0 + lay.nslots * L;            // xt
   double* bm0 = bn1 + lay.nslots * L;                 // y
   double* bm1 = bm0 + lay.mslots * L;                 // s
@@ -157,11 +184,23 @@ admm_perr_chunk_kernel(const float* __restrict__ kinv,
     ki_sh[dst] = kinv[i];
     if (REFINE) k_sh[dst] = kmat[i];
   }
-  for (int i = tid; i < m * n; i += nthreads) {
-    const int row = i / n;
-    const float av = a[i];
-    a_sh[row * ld + (i - row * n)] = av;
-    a32_sh[i] = av;
+  if constexpr (PACKED) {
+    // kia[r][j][i] to row i, column j of copy r: st_i sums over j
+    const int nm = n * m;
+    for (int i = tid; i < R * nm; i += nthreads) {
+      const int rr = i / nm;
+      const int e = i - rr * nm;
+      const int row = e / m;
+      a_sh[rr * skm + (e - row * m) * ld + row] = kia[i];
+    }
+    for (int i = tid; i < m * n; i += nthreads) a32_sh[i] = a[i];
+  } else {
+    for (int i = tid; i < m * n; i += nthreads) {
+      const int row = i / n;
+      const float av = a[i];
+      a_sh[row * ld + (i - row * n)] = av;
+      a32_sh[i] = av;
+    }
   }
   for (int i = tid; i < R * m; i += nthreads) {
     const int rr = i / m;
@@ -198,6 +237,18 @@ admm_perr_chunk_kernel(const float* __restrict__ kinv,
     rho[k] = rho_r[ic];
     rhoi[k] = rhoi_r[ic];
   }
+  // K4: the lane's rows of K^-1 and then of kia, from smem: one product
+  // with rhs (or the residual) gives xt and st, reading the vector once
+  int woff[RPT_N + RPT_M];
+  if constexpr (PACKED) {
+#pragma unroll
+    for (int k = 0; k < RPT_N; ++k) woff[k] = koff[k];  // ki_sh is smem
+#pragma unroll
+    for (int k = 0; k < RPT_M; ++k) {
+      const int i = t + k * G;
+      woff[RPT_N + k] = static_cast<int>(a_sh - smem) + r * skm + (i < m ? i : m - 1) * ld;
+    }
+  }
   __syncthreads();
 
   const float beta = 1.0f - alpha;
@@ -231,10 +282,18 @@ admm_perr_chunk_kernel(const float* __restrict__ kinv,
         const float* f0 = a32_sh + 2 * p * n;
 #pragma unroll
         for (int k = 0; k < RPT_N; ++k) {
-          acc_y[k] = fma(a0[col[k]], vy.x, acc_y[k]);
-          acc_s[k] = fma(static_cast<double>(rp.x * f0[col[k]]), vs.x, acc_s[k]);
-          acc_y[k] = fma(a0[ld + col[k]], vy.y, acc_y[k]);
-          acc_s[k] = fma(static_cast<double>(rp.y * f0[n + col[k]]), vs.y, acc_s[k]);
+          if constexpr (PACKED) {  // A'y from the fp32 A, widened
+            const float w0 = f0[col[k]], w1 = f0[n + col[k]];
+            acc_y[k] = fma(static_cast<double>(w0), vy.x, acc_y[k]);
+            acc_s[k] = fma(static_cast<double>(rp.x * w0), vs.x, acc_s[k]);
+            acc_y[k] = fma(static_cast<double>(w1), vy.y, acc_y[k]);
+            acc_s[k] = fma(static_cast<double>(rp.y * w1), vs.y, acc_s[k]);
+          } else {
+            acc_y[k] = fma(a0[col[k]], vy.x, acc_y[k]);
+            acc_s[k] = fma(static_cast<double>(rp.x * f0[col[k]]), vs.x, acc_s[k]);
+            acc_y[k] = fma(a0[ld + col[k]], vy.y, acc_y[k]);
+            acc_s[k] = fma(static_cast<double>(rp.y * f0[n + col[k]]), vs.y, acc_s[k]);
+          }
         }
       }
       if (m & 1) {
@@ -243,7 +302,10 @@ admm_perr_chunk_kernel(const float* __restrict__ kinv,
         const double* a0 = a_sh + (m - 1) * ld;
 #pragma unroll
         for (int k = 0; k < RPT_N; ++k) {
-          acc_y[k] = fma(a0[col[k]], vy, acc_y[k]);
+          if constexpr (PACKED)
+            acc_y[k] = fma(static_cast<double>(a32_sh[(m - 1) * n + col[k]]), vy, acc_y[k]);
+          else
+            acc_y[k] = fma(a0[col[k]], vy, acc_y[k]);
           const float w = rho_b[m - 1] * a32_sh[(m - 1) * n + col[k]];
           acc_s[k] = fma(static_cast<double>(w), vs, acc_s[k]);
         }
@@ -257,7 +319,17 @@ admm_perr_chunk_kernel(const float* __restrict__ kinv,
     }
     __syncthreads();
     float xt[RPT_N];
-    matvec<RPT_N>(ki_sh, bn0_b, koff, n, ps, xt);
+    float st[RPT_M];
+    if constexpr (PACKED) {
+      float w[RPT_N + RPT_M];
+      matvec<RPT_N + RPT_M>(smem, bn0_b, woff, n, ps, w);  // rhs [K_r^-1 | kia_r]
+#pragma unroll
+      for (int k = 0; k < RPT_N; ++k) xt[k] = w[k];
+#pragma unroll
+      for (int k = 0; k < RPT_M; ++k) st[k] = w[RPT_N + k];
+    } else {
+      matvec<RPT_N>(ki_sh, bn0_b, koff, n, ps, xt);
+    }
     for (int step = 0; REFINE && step < refine_steps; ++step) {
       float tmp[RPT_N];
 #pragma unroll
@@ -267,18 +339,31 @@ admm_perr_chunk_kernel(const float* __restrict__ kinv,
 #pragma unroll
       for (int k = 0; k < RPT_N; ++k) bn0[slot(t + k * G, L, b)] = rhs[k] - tmp[k];
       __syncthreads();  // also: every thread is done reading bn1
-      matvec<RPT_N>(ki_sh, bn0_b, koff, n, ps, tmp);
+      if constexpr (PACKED) {
+        float w[RPT_N + RPT_M];
+        matvec<RPT_N + RPT_M>(smem, bn0_b, woff, n, ps, w);  // res [K_r^-1 | kia_r]
 #pragma unroll
-      for (int k = 0; k < RPT_N; ++k) xt[k] += tmp[k];
-    }
+        for (int k = 0; k < RPT_N; ++k) xt[k] += w[k];
 #pragma unroll
-    for (int k = 0; k < RPT_N; ++k) {
-      bn1[slot(t + k * G, L, b)] = xt[k];
-      x[k] = alpha * xt[k] + beta * x[k];
+        for (int k = 0; k < RPT_M; ++k) st[k] += w[RPT_N + k];
+      } else {
+        matvec<RPT_N>(ki_sh, bn0_b, koff, n, ps, tmp);
+#pragma unroll
+        for (int k = 0; k < RPT_N; ++k) xt[k] += tmp[k];
+      }
     }
-    __syncthreads();  // also: every thread is done reading bn0, bm0, bm1
-    float st[RPT_M];
-    {
+    if constexpr (PACKED) {
+      // the next iteration writes bm0 and bm1 before its first barrier: no
+      // thread reads them after this iteration's second one
+#pragma unroll
+      for (int k = 0; k < RPT_N; ++k) x[k] = alpha * xt[k] + beta * x[k];
+    } else {
+#pragma unroll
+      for (int k = 0; k < RPT_N; ++k) {
+        bn1[slot(t + k * G, L, b)] = xt[k];
+        x[k] = alpha * xt[k] + beta * x[k];
+      }
+      __syncthreads();  // also: every thread is done reading bn0, bm0, bm1
       int aoff[RPT_M];
 #pragma unroll
       for (int k = 0; k < RPT_M; ++k) {
@@ -317,7 +402,7 @@ admm_perr_chunk_kernel(const float* __restrict__ kinv,
 }
 
 struct Args {
-  const float *kinv, *kmat, *a, *rho_vecs, *rho_invs, *q, *l, *u;
+  const float *kinv, *kmat, *kia, *a, *rho_vecs, *rho_invs, *q, *l, *u;
   const int* idx;
   const float *x_in, *s_in, *y_in, *ax_in;
   float *x_out, *s_out, *y_out, *ax_out;
@@ -325,17 +410,17 @@ struct Args {
   float sigma, alpha;
 };
 
-template <int RPT_N, int RPT_M, bool REFINE, int THREADS, int REGS>
+template <int RPT_N, int RPT_M, bool REFINE, int THREADS, int REGS, bool PACKED>
 cudaError_t launch(const Args& a, dim3 block, const Layout& lay, size_t smem,
                    cudaStream_t stream) {
   if (static_cast<int>(block.x * block.y) > THREADS) return cudaErrorInvalidValue;
-  auto kernel = admm_perr_chunk_kernel<RPT_N, RPT_M, REFINE, THREADS, REGS>;
+  auto kernel = admm_perr_chunk_kernel<RPT_N, RPT_M, REFINE, THREADS, REGS, PACKED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.B + block.x - 1) / block.x);
   kernel<<<grid, block, smem, stream>>>(
-      a.kinv, a.kmat, a.a, a.rho_vecs, a.rho_invs, a.q, a.l, a.u, a.idx,
+      a.kinv, a.kmat, a.kia, a.a, a.rho_vecs, a.rho_invs, a.q, a.l, a.u, a.idx,
       a.x_in, a.s_in, a.y_in, a.ax_in, a.x_out, a.s_out, a.y_out, a.ax_out,
       a.n, a.m, a.B, a.R, a.chunk, a.refine_steps, a.sigma, a.alpha, lay);
   return cudaGetLastError();
@@ -349,6 +434,65 @@ cudaError_t launch(const Args& a, dim3 block, const Layout& lay, size_t smem,
 #define MPC_K5_INSTANCES(X)                                               \
   X(1, 3, 512, 128, 128) X(2, 5, 384, 168, 168) X(2, 6, 320, 168, 168)    \
   X(3, 8, 256, 255, 255) X(3, 9, 256, 255, 255)
+// K4's, as ops/admm_fused.K4_INSTANCES: the h20 equality terminal (m = 44)
+// at 14, 20 or 40 row-groups, the state box (m = 120) at 20 or 40. (2, 6)
+// spills 20 and 32 bytes; (3, 9), (4, 5) and (4, 12) ran slower (PERF.md,
+// Findings: K4's redesign)
+#define MPC_K4_INSTANCES(X)                                               \
+  X(1, 2, 512, 128, 128) X(1, 3, 512, 128, 128) X(2, 3, 384, 168, 168)    \
+  X(2, 6, 320, 168, 168) X(3, 4, 256, 255, 255)
+
+// The shared route's entry for K5 (PACKED false) or K4: checks the shape
+// and the plan's layout, then launches the instantiation of its rows per
+// thread.
+template <bool PACKED>
+int shared_chunk(const Args& args, int lanes, int groups, int rpt_n, int rpt_m,
+                 int smem_bytes, void* stream) {
+  const int n = args.n, m = args.m, B = args.B, R = args.R;
+  if (n <= 0 || n > 128 || m < 1 || m > 512 || B <= 0 || R <= 0 ||
+      args.chunk < 0 || args.refine_steps < 0 ||
+      static_cast<long long>(m) * B > INT_MAX ||
+      (lanes != 4 && lanes != 8 && lanes != 16 && lanes != 32) ||
+      groups <= 0 || lanes * groups > 512 || rpt_n * groups < n ||
+      rpt_m * groups < m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Layout lay;
+  lay.ld = mpc_admm::row_stride(n, lanes);
+  lay.sk = mpc_admm::copy_stride(n, lay.ld);
+  lay.nslots = (groups * rpt_n + 1) & ~1;
+  lay.mslots = (groups * rpt_m + 1) & ~1;
+  lay.mr = rho_stride(m);
+  const long long stacks = args.refine_steps > 0 ? 2 : 1;
+  // the bytes of the layout above (ops/admm_fused.k5_smem_bytes and
+  // k4_smem_bytes mirror these four lines, which tests/test_torch_build.py
+  // reads): K5 keeps A in fp64, K4 kia_r
+  const long long image = PACKED ? 1LL * R * ((m * lay.ld) | 2) : 1LL * m * lay.ld;
+  const long long doubles = 2LL * (lay.nslots + lay.mslots) * lanes + stacks * R * lay.sk + image;
+  const long long floats = 1LL * R * lay.mr + 1LL * m * n;
+  const long long need = 8 * doubles + 4 * floats;
+  if (need != smem_bytes || need > static_cast<long long>(mpc_admm::kSmemLimit))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(need);
+  const dim3 block(lanes, groups);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool refine = args.refine_steps > 0;
+#define MPC_DENSE_CASE(N, M, T, REGS, REGS_REFINE)                                          \
+  case 64 * N + M:                                                                           \
+    return static_cast<int>(                                                                 \
+        refine ? launch<N, M, true, T, REGS_REFINE, PACKED>(args, block, lay, smem, st)      \
+               : launch<N, M, false, T, REGS, PACKED>(args, block, lay, smem, st));
+  if constexpr (PACKED) {
+    switch (64 * rpt_n + rpt_m) {
+      MPC_K4_INSTANCES(MPC_DENSE_CASE)
+    }
+  } else {
+    switch (64 * rpt_n + rpt_m) {
+      MPC_K5_INSTANCES(MPC_DENSE_CASE)
+    }
+  }
+#undef MPC_DENSE_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // ---------------------------------------------------------------------
 // The stream route: shapes whose fp64 operators exceed shared memory (the
@@ -369,6 +513,8 @@ cudaError_t launch(const Args& a, dim3 block, const Layout& lay, size_t smem,
 // over the columns); the panels of a product go in index order, so each
 // output still sums in index order. The schedule repeats every iteration:
 // the pass, the solve, refine_steps times the residual and the solve, A xt.
+// K4 (PACKED) has no A xt: its solves read W_r = [K_r^-1'; kia_r'] (n + m
+// rows, in place of K^-1), whose panels give xt and the image st at once.
 // What bounds it on this card: at the h50 state box the products alone
 // (the panels' shared-memory reads, one entry per lane and multiply-add)
 // take about 1.8 ms a chunk and the panel copies alone about 0.9 ms (L2 at
@@ -400,9 +546,9 @@ __device__ __forceinline__ void copy16(double* dst, const double* src) {
   __pipeline_memcpy_async(dst, src, 16);
 }
 
-template <int RPT_N, int RPT_M, bool REFINE, int THREADS, int REGS>
+template <int RPT_N, int RPT_M, bool REFINE, int THREADS, int REGS, bool PACKED>
 __global__ void __launch_bounds__(THREADS, 65536 / (THREADS * REGS))
-admm_perr_stream_kernel(const double* __restrict__ kinv,
+admm_perr_stream_kernel(const double* __restrict__ kinv,  // K4: W, n + m rows a rho
                         const double* __restrict__ kmat,
                         const double* __restrict__ a,
                         const double* __restrict__ ra,
@@ -456,7 +602,7 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,
   double* bm1 = bm0 + lay.mslots * L;          // s
   float* rho_sh = reinterpret_cast<float*>(bm1 + lay.mslots * L);  // rho_r
   float* rhoi_sh = rho_sh + m;                 // rho_r^-1
-  const double* ki_r = kinv + r * n * ldg;
+  const double* ki_r = kinv + r * (PACKED ? n + m : n) * ldg;
   const double* k_r = kmat + r * n * ldg;
   const double* ra_r = ra + r * m * ldg;
   for (int i = tid; i < m; i += nthreads) {
@@ -486,12 +632,14 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,
   }
 
   // phases of an iteration: 0 the A'y / A'rho.s pass, odd a K^-1 solve,
-  // even a K product, the last A xt
-  const int phases = 3 + 2 * (REFINE ? refine_steps : 0);
+  // even a K product, the last A xt (K4: the last a solve). A wide phase
+  // reads the operator of the pkm / skm panels: A xt (K5, the last), a
+  // solve with its image (K4, every odd one)
+  const int phases = (PACKED ? 2 : 3) + 2 * (REFINE ? refine_steps : 0);
   auto panels = [&](int ph) {
     return ph == 0 ? (m + pc - 1) / pc
-                   : ph == phases - 1 ? (n + lay.pkm - 1) / lay.pkm
-                                      : (n + lay.pkn - 1) / lay.pkn;
+                   : (PACKED ? (ph & 1) == 1 : ph == phases - 1) ? (n + lay.pkm - 1) / lay.pkm
+                                                                 : (n + lay.pkn - 1) / lay.pkn;
   };
   // start copying panel p of phase ph into dst
   auto issue = [&](int ph, int p, double* dst) {
@@ -505,9 +653,9 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,
         copy16(dst + w * pc * ldg + 2 * h, (w ? ra_r : a) + i0 * ldg + 2 * h);
       }
     } else {
-      const bool last = ph == phases - 1;
-      const double* M = last ? a : (ph & 1) ? ki_r : k_r;
-      const int rows = last ? m : n;
+      const bool last = PACKED ? (ph & 1) == 1 : ph == phases - 1;  // wide
+      const double* M = PACKED ? (last ? ki_r : k_r) : last ? a : (ph & 1) ? ki_r : k_r;
+      const int rows = last ? (PACKED ? n + m : m) : n;
       const int pk = last ? lay.pkm : lay.pkn;
       const int sk = last ? lay.skm : lay.skn;
       const int l0 = p * pk;
@@ -521,8 +669,9 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,
     }
   };
 
-  constexpr int ACC = RPT_M > 2 * RPT_N ? RPT_M : 2 * RPT_N;
-  constexpr int ROWS = RPT_M > RPT_N ? RPT_M : RPT_N;
+  constexpr int ACC = PACKED ? (RPT_M > RPT_N ? RPT_N + RPT_M : 2 * RPT_N)
+                             : RPT_M > 2 * RPT_N ? RPT_M : 2 * RPT_N;
+  constexpr int ROWS = PACKED ? RPT_N + RPT_M : RPT_M > RPT_N ? RPT_M : RPT_N;
   const float beta = 1.0f - alpha;
   const int ps = 2 * L;
   const double* bn0_b = bn0 + 2 * b;
@@ -530,16 +679,34 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,
   const double* bm0_b = bm0 + 2 * b;
   const double* bm1_b = bm1 + 2 * b;
   int buf = 0;
+  // K4: where the two panels hold all of one rho's operators (the pass's
+  // A and fl(rho A), W, and K when refining, at the panels' strides) they
+  // are copied once and stay for the chunk; ops/admm_fused.k4_resident
+  // mirrors this test
+  bool resident = false;
+  int w_at = 0, k_at = 0;  // where W and K sit then
+  if constexpr (PACKED) {
+    const bool refine = REFINE && refine_steps > 0;
+    w_at = 2 * pc * ldg;
+    k_at = w_at + (n + m) * lay.skm;
+    resident = pc >= m && lay.pkm >= n && lay.pkn >= n &&
+               k_at + (refine ? n * lay.skn : 0) <= 2 * lay.panel;
+  }
   issue(0, 0, pan);
+  if (PACKED && resident) {
+    issue(1, 0, pan + w_at);
+    if (phases > 2) issue(2, 0, pan + k_at);
+  }
   __pipeline_commit();
   for (int it = 0; it < chunk; ++it) {
-    float rhs[RPT_N], xt[RPT_N];
+    float rhs[RPT_N], xt[RPT_N], image[PACKED ? RPT_M : 1];  // image: K4's st
     for (int ph = 0; ph < phases; ++ph) {
       const int np = panels(ph);
-      const bool last = ph == phases - 1;
+      const bool end = ph == phases - 1;
+      const bool last = PACKED ? (ph & 1) == 1 : end;  // wide
       const int sk = last ? lay.skm : lay.skn;
       const int pk = last ? lay.pkm : lay.pkn;
-      const int rows = last ? RPT_M : RPT_N;
+      const int rows = last ? (PACKED ? RPT_N + RPT_M : RPT_M) : RPT_N;
       // a solve reads rhs or the residual, a K product and A xt read xt
       const double* v = (ph & 1) ? bn0_b : bn1_b;
       double acc[ACC];
@@ -548,21 +715,32 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,
       int roff[ROWS];
 #pragma unroll
       for (int k = 0; k < ROWS; ++k) {
-        const int i = t + k * G;
-        roff[k] = last ? (i < m ? i : m - 1) * sk : (i < n ? i : n - 1) * sk;
+        if constexpr (PACKED) {  // W's rows: xt's n, then the image's m
+          const int j = t + k * G;
+          const int i = t + (k - RPT_N) * G;
+          roff[k] = k < RPT_N ? (j < n ? j : n - 1) * sk : (n + (i < m ? i : m - 1)) * sk;
+        } else {
+          const int i = t + k * G;
+          roff[k] = last ? (i < m ? i : m - 1) * sk : (i < n ? i : n - 1) * sk;
+        }
       }
       for (int p = 0; p < np; ++p) {
-        // the next panel of the schedule into the other buffer
-        if (p + 1 < np)
-          issue(ph, p + 1, pan + (buf ^ 1) * lay.panel);
-        else if (!last)
-          issue(ph + 1, 0, pan + (buf ^ 1) * lay.panel);
-        else if (it + 1 < chunk)
-          issue(0, 0, pan + (buf ^ 1) * lay.panel);
-        __pipeline_commit();
-        __pipeline_wait_prior(1);
+        if (!PACKED || !resident) {
+          // the next panel of the schedule into the other buffer
+          if (p + 1 < np)
+            issue(ph, p + 1, pan + (buf ^ 1) * lay.panel);
+          else if (!end)
+            issue(ph + 1, 0, pan + (buf ^ 1) * lay.panel);
+          else if (it + 1 < chunk)
+            issue(0, 0, pan + (buf ^ 1) * lay.panel);
+          __pipeline_commit();
+          __pipeline_wait_prior(1);
+        } else if (it == 0 && ph == 0) {  // resident: one panel a phase, in place
+          __pipeline_wait_prior(0);
+        }
         __syncthreads();  // the panel and the lane buffers it meets are complete
         const double* P = pan + buf * lay.panel;
+        if (PACKED && resident) P = pan + (ph == 0 ? 0 : (ph & 1) ? w_at : k_at);
         if (ph == 0) {
           const int i0 = p * pc;
           const int i1 = (m - i0 < pc ? m : i0 + pc);
@@ -616,7 +794,9 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,
             }
           }
         }
-        __syncthreads();  // every thread is done with the panel
+        // every thread is done with the panel (a resident one stays: the
+        // next phase's first barrier orders the lane buffers)
+        if (!PACKED || !resident) __syncthreads();
         buf ^= 1;
       }
       // the phase's result; the next phase reads it after its first barrier
@@ -626,6 +806,42 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,
           rhs[k] = sigma * x[k] - qv[k] - static_cast<float>(acc[2 * k]) +
                    static_cast<float>(acc[2 * k + 1]);
           bn0[slot(t + k * G, L, b)] = rhs[k];
+        }
+      } else if constexpr (PACKED) {
+        if (ph & 1) {  // a solve: xt and st, or their corrections
+#pragma unroll
+          for (int k = 0; k < RPT_N; ++k) {
+            const float c = static_cast<float>(acc[k]);
+            xt[k] = ph == 1 ? c : xt[k] + c;
+            bn1[slot(t + k * G, L, b)] = xt[k];
+          }
+#pragma unroll
+          for (int k = 0; k < RPT_M; ++k) {
+            const float c = static_cast<float>(acc[RPT_N + k]);
+            image[k] = ph == 1 ? c : image[k] + c;
+          }
+        } else {  // the refinement residual
+#pragma unroll
+          for (int k = 0; k < RPT_N; ++k)
+            bn0[slot(t + k * G, L, b)] = rhs[k] - static_cast<float>(acc[k]);
+        }
+        if (end) {
+#pragma unroll
+          for (int k = 0; k < RPT_N; ++k) x[k] = alpha * xt[k] + beta * x[k];
+#pragma unroll
+          for (int k = 0; k < RPT_M; ++k) {
+            const int i = t + k * G;
+            const int ic = i < m ? i : m - 1;
+            const int g = ic * B + lc;
+            const int sl = slot(i, L, b);
+            const float s_old = static_cast<float>(bm1[sl]);
+            const float y_old = static_cast<float>(bm0[sl]);
+            const float vv = alpha * image[k] + beta * s_old;
+            const float s_new = clip(vv + rhoi_sh[ic] * y_old, l[g], u[g]);
+            bm0[sl] = y_old + rho_sh[ic] * (vv - s_new);
+            bm1[sl] = s_new;
+            ax[k] = alpha * image[k] + beta * ax[k];
+          }
         }
       } else if (ph == 1) {
 #pragma unroll
@@ -693,12 +909,12 @@ struct StreamArgs {
   float sigma, alpha;
 };
 
-template <int RPT_N, int RPT_M, bool REFINE, int THREADS, int REGS>
+template <int RPT_N, int RPT_M, bool REFINE, int THREADS, int REGS, bool PACKED>
 cudaError_t launch_stream(const StreamArgs& a, int lanes, int groups, const StreamLayout& lay,
                           size_t smem, cudaStream_t stream) {
   const dim3 block(lanes, groups);
   if (static_cast<int>(block.x * block.y) > THREADS) return cudaErrorInvalidValue;
-  auto kernel = admm_perr_stream_kernel<RPT_N, RPT_M, REFINE, THREADS, REGS>;
+  auto kernel = admm_perr_stream_kernel<RPT_N, RPT_M, REFINE, THREADS, REGS, PACKED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -716,12 +932,72 @@ cudaError_t launch_stream(const StreamArgs& a, int lanes, int groups, const Stre
 // (4, 10) spills 8 to 12 bytes and (3, 8) 12
 #define MPC_K5_STREAM_INSTANCES(X)                                         \
   X(2, 6, 384, 168, 168) X(3, 8, 448, 128, 128) X(4, 10, 480, 128, 128)
+// K4's (ops/admm_fused.K4_STREAM_INSTANCES): a solve holds n + m rows'
+// sums and the image through the refinement, so fewer rows a thread;
+// (3, 8) spills 20 to 24 bytes
+#define MPC_K4_STREAM_INSTANCES(X)                                         \
+  X(2, 3, 384, 168, 168) X(2, 6, 384, 168, 168) X(3, 4, 256, 255, 255)     \
+  X(3, 8, 320, 168, 168)
+
+// The stream route's entry for K5 (PACKED false) or K4, as shared_chunk.
+template <bool PACKED>
+int stream_chunk(const StreamArgs& args, int lanes, int groups, int rpt_n, int rpt_m,
+                 int panel, int smem_bytes, void* stream) {
+  const int n = args.n, m = args.m, B = args.B;
+  if (n <= 0 || n > 128 || m < 1 || m > 512 || B <= 0 || args.R <= 0 ||
+      args.chunk < 0 || args.refine_steps < 0 ||
+      static_cast<long long>(m) * B > INT_MAX ||
+      (lanes != 4 && lanes != 8 && lanes != 16 && lanes != 32) ||
+      groups <= 0 || lanes * groups > 512 || rpt_n * groups < n ||
+      rpt_m * groups < m || panel <= 0 || panel % 2 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  StreamLayout lay;
+  lay.ldg = n + (n & 1);
+  lay.nslots = (groups * rpt_n + 1) & ~1;
+  lay.mslots = (groups * rpt_m + 1) & ~1;
+  lay.panel = panel;
+  lay.pc = (panel / (2 * lay.ldg)) & ~1;
+  if (PACKED && lay.pc > m + (m & 1)) lay.pc = m + (m & 1);  // K4: room for W and K beside
+  lay.skn = panel_stride(panel, n, lay.ldg);
+  lay.skm = panel_stride(panel, PACKED ? n + m : m, lay.ldg);
+  lay.pkn = lay.skn < lay.ldg ? lay.skn : lay.ldg;
+  lay.pkm = lay.skm < lay.ldg ? lay.skm : lay.ldg;
+  if (lay.pc < 2 || lay.skn == 0 || lay.skm == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the bytes of the layout (ops/admm_fused.k5_stream_smem_bytes mirrors
+  // these two lines, which tests/test_torch_build.py reads)
+  const long long stream_doubles = 2LL * panel + 2LL * (lay.nslots + lay.mslots) * lanes;
+  const long long stream_need = 8 * stream_doubles + 4 * (2LL * m);
+  if (stream_need != smem_bytes || stream_need > static_cast<long long>(mpc_admm::kSmemLimit))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(stream_need);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool refine = args.refine_steps > 0;
+#define MPC_DENSE_STREAM_CASE(N, M, T, REGS, REGS_REFINE)                              \
+  case 64 * N + M:                                                                       \
+    return static_cast<int>(                                                             \
+        refine ? launch_stream<N, M, true, T, REGS_REFINE, PACKED>(args, lanes, groups,  \
+                                                                   lay, smem, st)        \
+               : launch_stream<N, M, false, T, REGS, PACKED>(args, lanes, groups, lay,   \
+                                                             smem, st));
+  if constexpr (PACKED) {
+    switch (64 * rpt_n + rpt_m) {
+      MPC_K4_STREAM_INSTANCES(MPC_DENSE_STREAM_CASE)
+    }
+  } else {
+    switch (64 * rpt_n + rpt_m) {
+      MPC_K5_STREAM_INSTANCES(MPC_DENSE_STREAM_CASE)
+    }
+  }
+#undef MPC_DENSE_STREAM_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 }  // namespace
 
 extern "C" {
 
-// Launch `chunk` iterations on `stream` on the shared route. All arrays
+// K5: launch `chunk` iterations on `stream` on the shared route. All arrays
 // are float32 and contiguous on one device: kinv, kmat (R, n, n) (kmat
 // unused when refine_steps == 0), a (m, n), rho_vecs, rho_invs (R, m), q,
 // x_in, x_out (n, B); l, u, s_in, y_in, ax_in, s_out, y_out, ax_out
@@ -740,49 +1016,32 @@ int admm_perr_chunk(const float* kinv, const float* kmat, const float* a,
                     int B, int R, int chunk, int refine_steps, int lanes,
                     int groups, int rpt_n, int rpt_m, int smem_bytes,
                     float sigma, float alpha, void* stream) {
-  if (n <= 0 || n > 128 || m < 1 || m > 512 || B <= 0 || R <= 0 ||
-      chunk < 0 || refine_steps < 0 ||
-      static_cast<long long>(m) * B > INT_MAX ||
-      (lanes != 4 && lanes != 8 && lanes != 16 && lanes != 32) ||
-      groups <= 0 || lanes * groups > 512 || rpt_n * groups < n ||
-      rpt_m * groups < m)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Layout lay;
-  lay.ld = mpc_admm::row_stride(n, lanes);
-  lay.sk = mpc_admm::copy_stride(n, lay.ld);
-  lay.nslots = (groups * rpt_n + 1) & ~1;
-  lay.mslots = (groups * rpt_m + 1) & ~1;
-  lay.mr = rho_stride(m);
-  const long long stacks = refine_steps > 0 ? 2 : 1;
-  // the bytes of the layout above (ops/admm_fused.k5_smem_bytes mirrors
-  // these three lines, which tests/test_torch_build.py reads)
-  const long long doubles = 2LL * (lay.nslots + lay.mslots) * lanes + stacks * R * lay.sk + 1LL * m * lay.ld;
-  const long long floats = 1LL * R * lay.mr + 1LL * m * n;
-  const long long need = 8 * doubles + 4 * floats;
-  if (need != smem_bytes || need > static_cast<long long>(mpc_admm::kSmemLimit))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(need);
-  const Args args{kinv, kmat, a, rho_vecs, rho_invs, q, l, u, idx,
+  const Args args{kinv, kmat, nullptr, a, rho_vecs, rho_invs, q, l, u, idx,
                   x_in, s_in, y_in, ax_in, x_out, s_out, y_out, ax_out,
                   n, m, B, R, chunk, refine_steps, sigma, alpha};
-  const dim3 block(lanes, groups);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool refine = refine_steps > 0;
-#define MPC_K5_CASE(N, M, T, REGS, REGS_REFINE)                                  \
-  case 64 * N + M:                                                                \
-    return static_cast<int>(                                                      \
-        refine ? launch<N, M, true, T, REGS_REFINE>(args, block, lay, smem, st)   \
-               : launch<N, M, false, T, REGS>(args, block, lay, smem, st));
-  switch (64 * rpt_n + rpt_m) {
-    MPC_K5_INSTANCES(MPC_K5_CASE)
-  }
-#undef MPC_K5_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  return shared_chunk<false>(args, lanes, groups, rpt_n, rpt_m, smem_bytes, stream);
 }
 
-// The stream route (the same arithmetic; shapes whose fp64 operators do
-// not fit shared memory): kinv, kmat (R, n, ldg) are K^-1 and K
-// transposed (row j holds column j), a (m, ldg) is A and ra (R, m, ldg)
+// K4 on the shared route: as admm_perr_chunk, with kia (R, n, m) =
+// K_r^-1 A' beside A; the layout from ops/admm_fused.k4_plan.
+int admm_packed_chunk(const float* kinv, const float* kmat, const float* kia,
+                      const float* a, const float* rho_vecs, const float* rho_invs,
+                      const float* q, const float* l, const float* u,
+                      const int* idx, const float* x_in, const float* s_in,
+                      const float* y_in, const float* ax_in, float* x_out,
+                      float* s_out, float* y_out, float* ax_out, int n, int m,
+                      int B, int R, int chunk, int refine_steps, int lanes,
+                      int groups, int rpt_n, int rpt_m, int smem_bytes,
+                      float sigma, float alpha, void* stream) {
+  const Args args{kinv, kmat, kia, a, rho_vecs, rho_invs, q, l, u, idx,
+                  x_in, s_in, y_in, ax_in, x_out, s_out, y_out, ax_out,
+                  n, m, B, R, chunk, refine_steps, sigma, alpha};
+  return shared_chunk<true>(args, lanes, groups, rpt_n, rpt_m, smem_bytes, stream);
+}
+
+// K5 on the stream route (the same arithmetic; shapes whose fp64
+// operators do not fit shared memory): kinv, kmat (R, n, ldg) are K^-1 and
+// K transposed (row j holds column j), a (m, ldg) is A and ra (R, m, ldg)
 // fl(rho_r A), all fp64 with rows padded to ldg = n rounded up to even
 // (kmat unused when refine_steps == 0); the other arrays as on the shared
 // route, with order (B), the lanes sorted by rho index (stable), and
@@ -804,47 +1063,32 @@ int admm_perr_stream_chunk(const double* kinv, const double* kmat,
                            int chunk, int refine_steps, int lanes, int groups,
                            int rpt_n, int rpt_m, int panel, int smem_bytes,
                            float sigma, float alpha, void* stream) {
-  if (n <= 0 || n > 128 || m < 1 || m > 512 || B <= 0 || R <= 0 ||
-      chunk < 0 || refine_steps < 0 ||
-      static_cast<long long>(m) * B > INT_MAX ||
-      (lanes != 4 && lanes != 8 && lanes != 16 && lanes != 32) ||
-      groups <= 0 || lanes * groups > 512 || rpt_n * groups < n ||
-      rpt_m * groups < m || panel <= 0 || panel % 2 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  StreamLayout lay;
-  lay.ldg = n + (n & 1);
-  lay.nslots = (groups * rpt_n + 1) & ~1;
-  lay.mslots = (groups * rpt_m + 1) & ~1;
-  lay.panel = panel;
-  lay.pc = (panel / (2 * lay.ldg)) & ~1;
-  lay.skn = panel_stride(panel, n, lay.ldg);
-  lay.skm = panel_stride(panel, m, lay.ldg);
-  lay.pkn = lay.skn < lay.ldg ? lay.skn : lay.ldg;
-  lay.pkm = lay.skm < lay.ldg ? lay.skm : lay.ldg;
-  if (lay.pc < 2 || lay.skn == 0 || lay.skm == 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // the bytes of the layout (ops/admm_fused.k5_stream_smem_bytes mirrors
-  // these two lines, which tests/test_torch_build.py reads)
-  const long long stream_doubles = 2LL * panel + 2LL * (lay.nslots + lay.mslots) * lanes;
-  const long long stream_need = 8 * stream_doubles + 4 * (2LL * m);
-  if (stream_need != smem_bytes || stream_need > static_cast<long long>(mpc_admm::kSmemLimit))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(stream_need);
   const StreamArgs args{kinv, kmat, a, ra, rho_vecs, rho_invs, q, l, u, order,
                         starts, x_in, s_in, y_in, ax_in, x_out, s_out, y_out,
                         ax_out, n, m, B, R, chunk, refine_steps, sigma, alpha};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool refine = refine_steps > 0;
-#define MPC_K5_STREAM_CASE(N, M, T, REGS, REGS_REFINE)                                    \
-  case 64 * N + M:                                                                          \
-    return static_cast<int>(                                                                \
-        refine ? launch_stream<N, M, true, T, REGS_REFINE>(args, lanes, groups, lay, smem, st) \
-               : launch_stream<N, M, false, T, REGS>(args, lanes, groups, lay, smem, st));
-  switch (64 * rpt_n + rpt_m) {
-    MPC_K5_STREAM_INSTANCES(MPC_K5_STREAM_CASE)
-  }
-#undef MPC_K5_STREAM_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  return stream_chunk<false>(args, lanes, groups, rpt_n, rpt_m, panel, smem_bytes, stream);
+}
+
+// K4 on the stream route: as admm_perr_stream_chunk, with w (R, n + m,
+// ldg) in place of kinv: rows 0..n-1 of w_r are K_r^-1 transposed, rows
+// n..n+m-1 kia_r = K_r^-1 A' transposed (row i holds column i); the layout
+// from ops/admm_fused.k4_plan.
+int admm_packed_stream_chunk(const double* w, const double* kmat,
+                             const double* a, const double* ra,
+                             const float* rho_vecs, const float* rho_invs,
+                             const float* q, const float* l, const float* u,
+                             const int* order, const int* starts,
+                             const float* x_in, const float* s_in,
+                             const float* y_in, const float* ax_in,
+                             float* x_out, float* s_out, float* y_out,
+                             float* ax_out, int n, int m, int B, int R,
+                             int chunk, int refine_steps, int lanes, int groups,
+                             int rpt_n, int rpt_m, int panel, int smem_bytes,
+                             float sigma, float alpha, void* stream) {
+  const StreamArgs args{w, kmat, a, ra, rho_vecs, rho_invs, q, l, u, order,
+                        starts, x_in, s_in, y_in, ax_in, x_out, s_out, y_out,
+                        ax_out, n, m, B, R, chunk, refine_steps, sigma, alpha};
+  return stream_chunk<true>(args, lanes, groups, rpt_n, rpt_m, panel, smem_bytes, stream);
 }
 
 }  // extern "C"

@@ -110,9 +110,10 @@ def build_kernels(force: bool = False) -> str:
 SIGNATURES = {
     "admm_diag_chunk": "p" * 17 + "i" * 9 + "ff" + "p",
     "admm_mixed_chunk": "p" * 18 + "i" * 11 + "ff" + "p",
-    "admm_dense_packed_chunk": "p" * 18 + "i" * 6 + "ff" + "p",
     "admm_perr_chunk": "p" * 17 + "i" * 11 + "ff" + "p",
     "admm_perr_stream_chunk": "p" * 19 + "i" * 12 + "ff" + "p",
+    "admm_packed_chunk": "p" * 18 + "i" * 11 + "ff" + "p",
+    "admm_packed_stream_chunk": "p" * 19 + "i" * 12 + "ff" + "p",
     "riccati_admm_chunk": "p" * 26 + "i" * 13 + "p",
     "riccati_rollout": "p" * 5 + "i" * 4 + "p",
     "riccati_certificate": "p" * 15 + "i" * 9 + "p",

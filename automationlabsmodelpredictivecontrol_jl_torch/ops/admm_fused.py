@@ -13,8 +13,9 @@ QPs whose scaled constraint matrix A_s is
 - dense, any other A without ball rows (``op.dense_a``: a QP whose rows
   are not box-first, such as OSQP's convention of equality and coupling
   rows above the variable bounds): :func:`iterate_chunk_dense_packed_T`,
-  kernel K4 (``csrc/admm_dense.cu``), or :func:`iterate_chunk_dense_perr_T`,
-  kernel K5 (``csrc/admm_perr.cu``), as :func:`use_packed` picks.
+  kernel K4, or :func:`iterate_chunk_dense_perr_T`, kernel K5, as
+  :func:`use_packed` picks; both are instantiations of the two kernels of
+  ``csrc/admm_perr.cu``, laid out by :func:`k4_plan` and :func:`k5_plan`.
 
 Each chunk function runs ``chunk`` ADMM iterations on the lane-last state.
 On a CUDA tensor it launches its hand-written kernel and raises if it
@@ -62,7 +63,6 @@ SMEM_LIMIT = 232448
 MAX_N = 128
 MAX_TAIL = 128
 MAX_DENSE_ROWS = 512
-_LANES = 32
 # one SM of the card: its SM count, shared memory (of which the runtime
 # keeps 1 KB per resident block), registers, threads and resident blocks
 SM_COUNT = 132
@@ -354,40 +354,18 @@ def use_packed(n: int, m: int, R: int, refine_steps: int = 1) -> bool:
     )
 
 
-def dense_smem_bytes(n: int, m: int, R: int) -> int:
-    """Shared memory that K4 needs at least: the fp32 (R, m) rho and rho^-1
-    tables and the lane buffers of y, s (m rows) and rhs, xt and the
-    refinement residual (n rows), 32 lanes each (csrc/admm_dense.cu)."""
-    return (2 * R * m + (2 * m + 3 * n) * _LANES) * 4
-
-
-def dense_ops_shared(n: int, m: int, R: int, refine_steps: int) -> bool:
-    """Whether K4 copies its fp32 operators into shared memory beside the
-    buffers (else it reads them from global memory through L2), as
-    csrc/admm_dense.cu decides: K^-1, K when refining, K^-1 A', each
-    R-stack at an odd stride, and A."""
-    odd = lambda words: words | 1
-    words = R * odd(n * n) * (2 if refine_steps > 0 else 1) + m * n + R * odd(n * m)
-    return dense_smem_bytes(n, m, R) + 4 * words <= SMEM_LIMIT
-
-
 def k4_fits(n: int, m: int, R: int) -> bool:
-    """Whether K4 takes this operator shape: n <= 128, 1 to 512 constraint
-    rows, and the rho tables and lane buffers within one block's shared
-    memory. Where the operators do not fit beside them, the kernel reads
-    them from global memory."""
-    return (
-        1 <= n <= MAX_N
-        and 1 <= m <= MAX_DENSE_ROWS
-        and dense_smem_bytes(n, m, R) <= SMEM_LIMIT
-    )
+    """Whether K4 takes this operator shape: as K5, n <= 128 and 1 to 512
+    constraint rows, at any R (:func:`k4_plan`)."""
+    return 1 <= n <= MAX_N and 1 <= m <= MAX_DENSE_ROWS
 
 
 def k5_fits(n: int, m: int, R: int) -> bool:
     """Whether K5 takes this operator shape: n <= 128 and 1 to 512
     constraint rows, at any R. Every such shape has a layout on the stream
     route, whose shared memory holds the lane buffers and two operator
-    panels whatever R is (:func:`k5_plan`)."""
+    panels whatever R is (:func:`k5_plan`). K4 takes the same
+    (:func:`k4_fits`)."""
     return 1 <= n <= MAX_N and 1 <= m <= MAX_DENSE_ROWS
 
 
@@ -400,25 +378,34 @@ K5_INSTANCES = {(1, 3): (512, 113, 108), (2, 5): (384, 157, 156), (2, 6): (320, 
                 (3, 8): (256, 236, 229), (3, 9): (256, 244, 242)}
 K5_STREAM_INSTANCES = {(2, 6): (384, 135, 129), (3, 8): (448, 128, 128),
                        (4, 10): (480, 128, 128)}
-# the C entries' int parameters, in order (the wrapper passes them so)
+# K4's instantiations of the same two kernels (PACKED: MPC_K4_INSTANCES and
+# MPC_K4_STREAM_INSTANCES), as K5's
+K4_INSTANCES = {(1, 2): (512, 87, 105), (1, 3): (512, 119, 120), (2, 3): (384, 125, 144),
+                (2, 6): (320, 168, 168), (3, 4): (256, 161, 201)}
+K4_STREAM_INSTANCES = {(2, 3): (384, 116, 125), (2, 6): (384, 153, 151), (3, 4): (256, 143, 141),
+                       (3, 8): (320, 168, 168)}
+# the C entries' int parameters, in order (the wrapper passes them so), of
+# K4's as of K5's
 K5_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "lanes", "groups", "rpt_n", "rpt_m",
            "smem_bytes")
 K5_STREAM_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "lanes", "groups", "rpt_n",
                   "rpt_m", "panel", "smem_bytes")
-# "shared": admm_perr_chunk (csrc/admm_perr.cu), every rho's fp64
-# operators in shared memory; "stream": admm_perr_stream_chunk (the same
-# file), lanes grouped by rho index, one rho's fp64 operators streamed
-# through shared panels
-K5_ROUTES = ("shared", "stream")
+# "shared": admm_perr_chunk / admm_packed_chunk (K5 / K4, csrc/admm_perr.cu),
+# every rho's fp64 operators in shared memory; "stream":
+# admm_perr_stream_chunk / admm_packed_stream_chunk (the same file), lanes
+# grouped by rho index, one rho's fp64 operators streamed through shared
+# panels
+DENSE_ROUTES = ("shared", "stream")
 
 
-class K5Plan(NamedTuple):
-    """How one K5 launch is laid out: the route, lanes and row-groups of a
-    block (blockDim.x, blockDim.y), the variable and constraint rows each
-    thread owns, the blocks of the grid (on the stream route, whose blocks take lanes of one rho index
-    each, R more: each index's partial last one), the block's dynamic
-    shared memory, how many blocks an SM holds at once, and the doubles of
-    one operator panel (the stream route; 0 else)."""
+class DensePlan(NamedTuple):
+    """How one K4 or K5 launch is laid out: the route, lanes and row-groups
+    of a block (blockDim.x, blockDim.y), the variable and constraint rows
+    each thread owns, the blocks of the grid (on the stream route, whose
+    blocks take lanes of one rho index each, R more: each index's partial
+    last one), the block's dynamic shared memory, how many blocks an SM
+    holds at once, and the doubles of one operator panel (the stream route;
+    0 else)."""
 
     route: str
     lanes: int
@@ -441,39 +428,42 @@ def rho_stride(m: int) -> int:
 
 
 def k5_smem_bytes(n: int, m: int, R: int, refine_steps: int, lanes: int, groups: int,
-                  rpt_n: int, rpt_m: int) -> int:
-    """Dynamic shared memory of one block of K5's shared route
-    (csrc/admm_perr.cu): in fp64 the K^-1 stack (and K when refining), R
-    copies at :func:`row_strides`, A with rows at the same stride, four
+                  rpt_n: int, rpt_m: int, packed: bool = False) -> int:
+    """Dynamic shared memory of one block of K5's shared route, or K4's
+    (``packed``; csrc/admm_perr.cu): in fp64 the K^-1 stack (and K when
+    refining), R copies at :func:`row_strides`, A with rows at the same
+    stride (K4: kia_r transposed, R copies of m rows, at (m ld) | 2), four
     lane buffers of ``lanes`` lanes whose rows (padded ones included) are
     rounded up to pairs; in fp32 the rho table and A."""
     ld, sk = row_strides(n, lanes)
     stacks = 2 if refine_steps > 0 else 1
     nslots, mslots = (groups * rpt_n + 1) & ~1, (groups * rpt_m + 1) & ~1
-    doubles = 2 * (nslots + mslots) * lanes + stacks * R * sk + m * ld
+    image = R * ((m * ld) | 2) if packed else m * ld
+    doubles = 2 * (nslots + mslots) * lanes + stacks * R * sk + image
     floats = R * rho_stride(m) + m * n
     return 8 * doubles + 4 * floats
 
 
 @functools.lru_cache(maxsize=256)
-def _k5_layouts(n: int, m: int, R: int, refine_steps: int) -> tuple:
+def _shared_layouts(n: int, m: int, R: int, refine_steps: int, packed: bool = False) -> tuple:
     """Every (lanes, groups, rpt_n, rpt_m, smem_bytes, per_sm) of K5's
-    shared route for this operator shape: whole warps, an instantiation
-    whose rows cover n and m, no more threads than it allows, a block
-    within the card's shared memory."""
-    return tuple(_k5_layouts_of(n, m, R, refine_steps))
+    shared route (K4's if ``packed``) for this operator shape: whole warps,
+    an instantiation whose rows cover n and m, no more threads than it
+    allows, a block within the card's shared memory."""
+    return tuple(_shared_layouts_of(n, m, R, refine_steps, packed))
 
 
-def _k5_layouts_of(n, m, R, refine_steps):
+def _shared_layouts_of(n, m, R, refine_steps, packed):
     if not (1 <= n <= MAX_N and 1 <= m <= MAX_DENSE_ROWS):
         return
+    table = K4_INSTANCES if packed else K5_INSTANCES
     for lanes in LANES:
         step = max(1, 32 // lanes)
         for groups in range(step, 512 // lanes + 1, step):
-            for (rpt_n, rpt_m), (threads, *registers) in K5_INSTANCES.items():
+            for (rpt_n, rpt_m), (threads, *registers) in table.items():
                 if groups * rpt_n < n or groups * rpt_m < m or lanes * groups > threads:
                     continue
-                smem = k5_smem_bytes(n, m, R, refine_steps, lanes, groups, rpt_n, rpt_m)
+                smem = k5_smem_bytes(n, m, R, refine_steps, lanes, groups, rpt_n, rpt_m, packed)
                 if smem <= SMEM_LIMIT:
                     per_sm = blocks_per_sm(lanes * groups, smem,
                                            registers[1 if refine_steps > 0 else 0])
@@ -482,7 +472,7 @@ def _k5_layouts_of(n, m, R, refine_steps):
 
 def k5_stream_smem_bytes(m: int, lanes: int, groups: int, rpt_n: int, rpt_m: int,
                          panel: int) -> int:
-    """Dynamic shared memory of one block of K5's stream route
+    """Dynamic shared memory of one block of K5's or K4's stream route
     (csrc/admm_perr.cu): two operator panels of ``panel`` doubles, the four
     fp64 lane buffers as on the shared route, and the block's rho and
     rho^-1 in fp32."""
@@ -490,24 +480,66 @@ def k5_stream_smem_bytes(m: int, lanes: int, groups: int, rpt_n: int, rpt_m: int
     return 8 * (2 * panel + 2 * (nslots + mslots) * lanes) + 4 * 2 * m
 
 
+def _panel_stride(panel: int, rows: int, ldg: int) -> int:
+    """The row stride (doubles) of a stream panel of ``rows`` rows within
+    ``panel`` doubles: even, odd in 16-byte units, at most ldg + 2; 0 if
+    not even 2 columns fit (csrc/admm_perr.cu, panel_stride)."""
+    s = min(panel // rows, ldg + 2) & ~1
+    if (s // 2) % 2 == 0:
+        s -= 2
+    return 0 if s < 2 else s
+
+
+def k4_resident(n: int, m: int, refine_steps: int, panel: int) -> bool:
+    """Whether K4's stream route keeps all of one rho's operators in its
+    two panels of ``panel`` doubles for the whole chunk, copied once
+    instead of once per iteration: the A'y / A'rho.s pass's m rows of A
+    and fl(rho_r A), then K^-1 with kia (n + m rows) and K when refining,
+    at the panels' strides (csrc/admm_perr.cu: stream_chunk's layout, with
+    the pass's rows capped at m for K4, and the kernel's test)."""
+    ldg = n + (n & 1)
+    pc = min((panel // (2 * ldg)) & ~1, m + (m & 1))
+    skn, skm = _panel_stride(panel, n, ldg), _panel_stride(panel, n + m, ldg)
+    k_at = 2 * pc * ldg + (n + m) * skm
+    return (pc >= m and min(skm, ldg) >= n and min(skn, ldg) >= n
+            and k_at + (n * skn if refine_steps > 0 else 0) <= 2 * panel)
+
+
+def _k4_resident_panel(n: int, m: int, refine_steps: int) -> int:
+    """The smallest panel with which :func:`k4_resident` holds."""
+    ldg, rows = n + (n & 1), m + (m & 1)
+    k_rows = n if refine_steps > 0 else 0
+    panel = max(2 * ldg * rows, -(-(2 * rows * ldg + (n + m + k_rows) * (ldg + 2)) // 2))
+    panel += panel & 1
+    while not k4_resident(n, m, refine_steps, panel):
+        panel += 2
+    return panel
+
+
 @functools.lru_cache(maxsize=256)
-def _k5_stream_layouts(n: int, m: int, refine_steps: int) -> tuple:
+def _stream_layouts(n: int, m: int, refine_steps: int, packed: bool = False) -> tuple:
     """Every (lanes, groups, rpt_n, rpt_m, smem_bytes, per_sm, panel) of
-    K5's stream route: as :func:`_k5_layouts`, with the largest panel that
-    fits beside the buffers with one or with two blocks an SM, up to what
-    a product can use (all the A'y / A'rho.s pass's rows, or every column
-    of A), and at least two rows of that pass and two columns of every
-    product."""
+    K5's stream route (K4's if ``packed``): as :func:`_shared_layouts`, with
+    the largest panel that fits beside the buffers with one or with two
+    blocks an SM, up to what a product can use (all the A'y / A'rho.s
+    pass's rows, or every column of its widest operator: A, m rows, on K5;
+    K^-1 with kia, n + m rows, on K4, or on K4 every operator of one rho
+    at once, :func:`k4_resident`), and at least two rows of that pass and
+    two columns of every product."""
     if not (1 <= n <= MAX_N and 1 <= m <= MAX_DENSE_ROWS):
         return ()
     ldg = n + (n & 1)
-    most = max(2 * (m + (m & 1)) * ldg, max(n, m) * (ldg + 2))
-    least = max(4 * ldg, 2 * max(n, m))
+    wide = n + m if packed else max(n, m)
+    most = max(2 * (m + (m & 1)) * ldg, wide * (ldg + 2))
+    if packed:
+        most = max(most, _k4_resident_panel(n, m, refine_steps))
+    least = max(4 * ldg, 2 * wide)
     out = []
+    table = K4_STREAM_INSTANCES if packed else K5_STREAM_INSTANCES
     for lanes in LANES:
         step = max(1, 32 // lanes)
         for groups in range(step, 512 // lanes + 1, step):
-            for (rpt_n, rpt_m), (threads, *registers) in K5_STREAM_INSTANCES.items():
+            for (rpt_n, rpt_m), (threads, *registers) in table.items():
                 if groups * rpt_n < n or groups * rpt_m < m or lanes * groups > threads:
                     continue
                 fixed = k5_stream_smem_bytes(m, lanes, groups, rpt_n, rpt_m, 0)
@@ -529,7 +561,7 @@ def _k5_stream_layouts(n: int, m: int, refine_steps: int) -> tuple:
 @functools.lru_cache(maxsize=256)  # the driver asks once per chunk
 def k5_plan(n: int, m: int, R: int, refine_steps: int, B: int,
             lanes: Optional[int] = None, groups: Optional[int] = None,
-            route: Optional[str] = None) -> K5Plan:
+            route: Optional[str] = None) -> DensePlan:
     """The layout of a K5 launch for ``B`` lanes, from the shape alone.
 
     The shared route where some layout of it fits (its fp64 operators and
@@ -545,27 +577,49 @@ def k5_plan(n: int, m: int, R: int, refine_steps: int, B: int,
     launch has up to R - 1 more blocks (each rho's partial last one). Ties
     go to more lanes per block. ``lanes``, ``groups`` and ``route`` force a
     layout (ValueError if it does not fit)."""
+    return _dense_plan(False, n, m, R, refine_steps, B, lanes, groups, route)
+
+
+@functools.lru_cache(maxsize=256)  # the driver asks once per chunk
+def k4_plan(n: int, m: int, R: int, refine_steps: int, B: int,
+            lanes: Optional[int] = None, groups: Optional[int] = None,
+            route: Optional[str] = None) -> DensePlan:
+    """The layout of a K4 launch for ``B`` lanes, as :func:`k5_plan` lays
+    out K5's, with K4's instantiations (``K4_INSTANCES``,
+    ``K4_STREAM_INSTANCES``) and bytes: on the shared route kia_r in place
+    of the fp64 A (the h20 equality terminal, its tier 2 and the h20 state
+    box at tier 1's grid), on the stream route panels of K_r^-1 with kia_r
+    (n + m rows; the h20 neighborhood terminal), whole where they fit
+    (:func:`k4_resident`). A lane reads per iteration the fp32 A once for
+    A'y and A'rho.s and widens it twice (each widening costs about what a
+    double's read does: k3_ab.py --kernel K4), K^-1 and kia for xt and its
+    image in one product, and K, K^-1 and kia again per refinement."""
+    return _dense_plan(True, n, m, R, refine_steps, B, lanes, groups, route)
+
+
+def _dense_plan(packed, n, m, R, refine_steps, B, lanes, groups, route) -> DensePlan:
+    name = "K4" if packed else "K5"
     B = int(B)
     if B < 1:
-        raise ValueError(f"K5 takes at least one lane; B={B}")
+        raise ValueError(f"{name} takes at least one lane; B={B}")
     if m * B >= 2**31:
-        raise ValueError(f"K5 indexes the (m, B) state with 32 bits; m={m}, B={B}")
+        raise ValueError(f"{name} indexes the (m, B) state with 32 bits; m={m}, B={B}")
     if not k5_fits(n, m, R):
         raise ValueError(
-            f"no K5 route for n={n}, m={m}: K5 takes n <= {MAX_N} and 1 to "
+            f"no {name} route for n={n}, m={m}: {name} takes n <= {MAX_N} and 1 to "
             f"{MAX_DENSE_ROWS} rows"
         )
-    if route not in (None,) + K5_ROUTES:
-        raise ValueError(f"K5 routes are {K5_ROUTES}, not {route!r}")
+    if route not in (None,) + DENSE_ROUTES:
+        raise ValueError(f"{name} routes are {DENSE_ROUTES}, not {route!r}")
     rs = int(refine_steps)
-    for kind in ("shared", "stream"):
+    for kind in DENSE_ROUTES:
         if route not in (None, kind):
             continue
         grouped = kind == "stream"
         if grouped:
-            layouts = _k5_stream_layouts(n, m, rs)
+            layouts = _stream_layouts(n, m, rs, packed)
         else:
-            layouts = [lay + (0,) for lay in _k5_layouts(n, m, R, rs)]
+            layouts = [lay + (0,) for lay in _shared_layouts(n, m, R, rs, packed)]
         best = None
         for L, G, rpt_n, rpt_m, smem, per_sm, panel in layouts:
             if lanes not in (None, L) or groups not in (None, G):
@@ -575,16 +629,21 @@ def k5_plan(n: int, m: int, R: int, refine_steps: int, B: int,
             busiest = -(-used // SM_COUNT)
             warps = min(per_sm, busiest) * L * G / 32
             rows_n, rows_m = G * rpt_n, G * rpt_m
-            operator = rows_n * (m * (2 if grouped else 1.5) + (1 + 2 * rs) * n) + rows_m * n
-            vectors = G * ((2 if grouped else 2.5) * m + (2 + 2 * rs) * n)
+            if packed:  # a widening costs as much as reading a double
+                operator = (rows_n * (m * (2 if grouped else 2.5) + (1 + 2 * rs) * n)
+                            + rows_m * (1 + rs) * n)
+                vectors = G * ((2 if grouped else 2.5) * m + (1 + 2 * rs) * n)
+            else:
+                operator = rows_n * (m * (2 if grouped else 1.5) + (1 + 2 * rs) * n) + rows_m * n
+                vectors = G * ((2 if grouped else 2.5) * m + (2 + 2 * rs) * n)
             cost = _warp_cost(busiest * L, operator + vectors, warps)
             key = (cost, -L)
             if best is None or key < best[0]:
-                best = (key, K5Plan(kind, L, G, rpt_n, rpt_m, blocks, smem, per_sm, panel))
+                best = (key, DensePlan(kind, L, G, rpt_n, rpt_m, blocks, smem, per_sm, panel))
         if best is not None:
             return best[1]
     raise ValueError(
-        f"no layout of K5's {route or 'shared or stream'} route for n={n}, m={m}, R={R}, "
+        f"no layout of {name}'s {route or 'shared or stream'} route for n={n}, m={m}, R={R}, "
         f"refine_steps={rs}"
         + ("" if lanes is None and groups is None else f", lanes={lanes}, groups={groups}")
         + f" within {SMEM_LIMIT} B of shared memory"
@@ -594,8 +653,9 @@ def k5_plan(n: int, m: int, R: int, refine_steps: int, B: int,
 def rho_order(idx: Tensor, R: int) -> Tuple[Tensor, Tensor]:
     """The lanes sorted by rho index, stable (lane order within an index),
     and where each index's lanes start in that order (R + 1 entries, the
-    last B), both int32 on idx's device, with no host sync: K5's stream
-    route gives each block the lanes of one index (csrc/admm_perr.cu)."""
+    last B), both int32 on idx's device, with no host sync: the stream
+    route of K5 and K4 gives each block the lanes of one index
+    (csrc/admm_perr.cu)."""
     values, order = torch.sort(idx, stable=True)
     bounds = torch.arange(R + 1, dtype=idx.dtype, device=idx.device)
     starts = torch.searchsorted(values, bounds, out_int32=True)
@@ -932,58 +992,48 @@ def _launch_k2(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
                    (float(config.sigma), float(config.alpha)))
 
 
-def _launch_k4(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config):
-    """Launch K4 (admm_dense_packed_chunk)."""
-    n, B = qT.shape
-    m = lT.shape[0]
-    R = int(op.rho_grid.shape[0])
-    rs = int(config.refine_steps)
-    if not k4_fits(n, m, R):
-        raise ValueError(
-            f"K4 takes n <= {MAX_N}, 1 to {MAX_DENSE_ROWS} constraint rows "
-            f"and lane buffers within {SMEM_LIMIT} B of shared memory; n={n}, "
-            f"m={m}, R={R} needs {dense_smem_bytes(n, m, R)} B"
-        )
-    f = torch.float32
-    args = [
-        ("K_invs", op.K_invs, (R, n, n), f),
-        ("Ks", op.Ks, (R, n, n), f),
-        ("kia", _kia(op), (R, n, m), f),
-        ("A_s", op.A_s, (m, n), f),
-        ("rho_vecs", op.rho_vecs, (R, m), f),
-        ("rho_invs", op.rho_invs, (R, m), f),
-    ] + _state_args(n, m, B, qT, lT, uT, idx, xT, sT, yT, axT)
-    _check_args("K4", args, qT.device)
-    outs = [torch.empty_like(xT)] + [torch.empty_like(sT) for _ in range(3)]
-    return _launch("K4", "admm_dense_packed_chunk", args, outs, (n, m, B, R, int(chunk), rs),
-                   (float(config.sigma), float(config.alpha)))
+def _launch_k4(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
+    """Launch K4 on the route :func:`k4_plan` picks (``plan`` forces one)."""
+    return _launch_dense(True, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan)
 
 
 def _launch_k5(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
-    """Launch K5 on the route :func:`k5_plan` picks (``plan`` forces one):
-    the shared route (admm_perr_chunk) or the stream route
-    (admm_perr_stream_chunk, with the lanes ordered by rho index)."""
+    """Launch K5 on the route :func:`k5_plan` picks (``plan`` forces one)."""
+    return _launch_dense(False, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan)
+
+
+def _launch_dense(packed, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan):
+    """K4 (``packed``) or K5 on the shared route (admm_packed_chunk,
+    admm_perr_chunk) or the stream route (admm_packed_stream_chunk,
+    admm_perr_stream_chunk, with the lanes ordered by rho index)."""
+    name = "K4" if packed else "K5"
     n, B = qT.shape
     m = lT.shape[0]
     R = int(op.rho_grid.shape[0])
     rs = int(config.refine_steps)
     if plan is None:
-        plan = k5_plan(n, m, R, rs, B)
+        plan = (k4_plan if packed else k5_plan)(n, m, R, rs, B)
     f, i32 = torch.float32, torch.int32
     state = _state_args(n, m, B, qT, lT, uT, idx, xT, sT, yT, axT)
     outs = [torch.empty_like(xT)] + [torch.empty_like(sT) for _ in range(3)]
     ints = dict(n=n, m=m, B=B, R=R, chunk=int(chunk), refine_steps=rs, **plan._asdict())
     floats = (float(config.sigma), float(config.alpha))
     if plan.route == "stream":
-        # one rho's operators a block, widened once per launch: K^-1 and K
-        # transposed, A and fl(rho_r A) (one fp32 product), in fp64 with
-        # rows padded to an even stride for 16-byte copies
+        # one rho's operators a block, widened once per launch: K^-1 (K4:
+        # with kia below it) and K transposed, A and fl(rho_r A) (one fp32
+        # product), in fp64 with rows padded to an even stride for 16-byte
+        # copies
         ldg = n + (n & 1)
         f64 = lambda M: torch.nn.functional.pad(M, (0, ldg - n)).double().contiguous()
         kinv64 = f64(op.K_invs.transpose(1, 2))
+        if packed:
+            first = ("[K_invs'; kia'] (fp64)",
+                     torch.cat([kinv64, f64(_kia(op).transpose(1, 2))], dim=1), (R, n + m, ldg))
+        else:
+            first = ("K_invs' (fp64)", kinv64, (R, n, ldg))
         order, starts = rho_order(idx, R)
         args = [
-            ("K_invs' (fp64)", kinv64, (R, n, ldg), torch.float64),
+            first + (torch.float64,),
             ("Ks' (fp64)", f64(op.Ks.transpose(1, 2)) if rs > 0 else kinv64, (R, n, ldg),
              torch.float64),
             ("A_s (fp64)", f64(op.A_s), (m, ldg), torch.float64),
@@ -992,18 +1042,20 @@ def _launch_k5(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
             ("rho_vecs", op.rho_vecs, (R, m), f),
             ("rho_invs", op.rho_invs, (R, m), f),
         ] + state[:3] + [("order", order, (B,), i32), ("starts", starts, (R + 1,), i32)] + state[4:]
-        _check_args("K5", args, qT.device)
-        return _launch("K5", "admm_perr_stream_chunk", args, outs,
-                       [ints[k] for k in K5_STREAM_INTS], floats)
+        _check_args(name, args, qT.device)
+        entry = "admm_packed_stream_chunk" if packed else "admm_perr_stream_chunk"
+        return _launch(name, entry, args, outs, [ints[k] for k in K5_STREAM_INTS], floats)
     args = [
         ("K_invs", op.K_invs, (R, n, n), f),
         ("Ks", op.Ks, (R, n, n), f),
+    ] + ([("kia", _kia(op), (R, n, m), f)] if packed else []) + [
         ("A_s", op.A_s, (m, n), f),
         ("rho_vecs", op.rho_vecs, (R, m), f),
         ("rho_invs", op.rho_invs, (R, m), f),
     ] + state
-    _check_args("K5", args, qT.device)
-    return _launch("K5", "admm_perr_chunk", args, outs, [ints[k] for k in K5_INTS], floats)
+    _check_args(name, args, qT.device)
+    entry = "admm_packed_chunk" if packed else "admm_perr_chunk"
+    return _launch(name, entry, args, outs, [ints[k] for k in K5_INTS], floats)
 
 
 def _dispatch(kernel, launch, plain, args):
@@ -1076,8 +1128,9 @@ def iterate_chunk_dense_packed_T(
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """``chunk`` ADMM iterations of a dense-A QP batch on K4, lane-last.
 
-    CUDA tensors launch K4 (``csrc/admm_dense.cu``) and raise if it cannot
-    run; CPU tensors take the plain version. The state is out of place."""
+    CUDA tensors launch K4 (``csrc/admm_perr.cu``) on the route
+    :func:`k4_plan` picks and raise if it cannot run; CPU tensors take the
+    plain version. The state is out of place."""
     return _dispatch(
         "K4", _launch_k4, iterate_chunk_dense_packed_T_plain,
         (op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config),
@@ -1151,8 +1204,7 @@ def chunk_fn_for(
         raise ValueError(
             f"no kernel takes this dense operator: use_packed picks {name} for "
             f"n={n}, m={m}, R={R}, refine_steps={rs}, and {name} takes n <= "
-            f"{MAX_N}, 1 to {MAX_DENSE_ROWS} rows and lane buffers within "
-            f"{SMEM_LIMIT} B of shared memory ({dense_smem_bytes(n, m, R)} B here)"
+            f"{MAX_N} and 1 to {MAX_DENSE_ROWS} rows"
         )
     if packed:
         return iterate_chunk_dense_packed_T_plain if plain else iterate_chunk_dense_packed_T

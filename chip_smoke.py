@@ -33,11 +33,13 @@ points a user calls (``proceed_controller(..., device=card)``, then
   terminal rows moved above the input-box rows (OSQP's convention, rows
   not box-first), so the designer's operator classes are bypassed and
   ``use_packed`` picks the kernel: the h20 equality terminal on K4 (2048
-  of the suite's states), the h20 state box on K5 (2048 of bench.py's
+  of the suite's states; K4's shared route, laid out by
+  ``admm_fused.k4_plan``), the h20 state box on K5 (2048 of bench.py's
   states; K5's shared route, laid out by ``admm_fused.k5_plan``) and the
   h50 state box on K5 (its stream route), through
   ``parallel.solve_batch_fused``, each h20 cell held to the K2 solve of
-  the same QP.
+  the same QP. K4 and K5 are two instantiations of the kernels of
+  ``csrc/admm_perr.cu``.
 
 Phases (any failure raises and exits non-zero):
 1. the card: its name, count, and power limit from nvidia-smi;
@@ -51,11 +53,14 @@ Phases (any failure raises and exits non-zero):
    ragged batches, each with its k1_plan or k2_plan line; K3 at h500 and at one h50
    shape per branch of the kernel, then at the shapes that take the other
    routes of its plan: h500 with the state box, a ragged batch, longer
-   horizons, an (8, 4) and a (16, 8) plant; K4 with and without
-   refinement, K5 at h20 (random and one rho index, tier 2's bucket, a
-   ragged batch) and h50, with its k5_plan line), every ADMM kernel equal
+   horizons, an (8, 4) and a (16, 8) plant; K4 at the h20 equality
+   terminal (random and one rho index, tier 2's bucket, a ragged batch),
+   the state box at tier 1's grid (no refinement) and the neighborhood
+   terminal (its stream route), K5 at h20 (random and one rho index, tier
+   2's bucket, a ragged batch) and h50, each with its k4_plan or k5_plan
+   line), every ADMM kernel equal
    bit for bit (max_ulps 0), with times from CUDA graphs (K3's from CUDA
-   events), and beside K1's, K2's and K5's their shared-memory floor
+   events), and beside K1's, K2's, K4's and K5's their shared-memory floor
    (smem_floor_ms) and beside K3's the time of its dependency chain alone
    (chain_floor_ms);
 4. each path, with the launch counts set to 0 just before it and read
@@ -130,11 +135,12 @@ def ptxas_summary(report: str):
             kind = next(k for key, k in (
                 ("riccati_admm_chunk", "K3"), ("riccati_rollout", "K3 rollout"),
                 ("riccati_certificate", "K3 certificate"),
-                ("riccati_chain_floor", "K3 chain floor"), ("dense_packed", "K4"),
-                ("dense_perr", "K5"), ("perr_stream", "K5 stream"), ("admm_perr", "K5"),
-                ("mixed", "K2"), ("", "K1"),
+                ("riccati_chain_floor", "K3 chain floor"), ("perr_stream", "K5 stream"),
+                ("admm_perr", "K5"), ("mixed", "K2"), ("", "K1"),
             ) if key in name)
             targs = re.findall(r"L[ib](\d+)E", name)  # int and bool arguments
+            if kind.startswith("K5") and targs[-1] == "1":  # PACKED: K4
+                kind = kind.replace("K5", "K4")
             rows.append(dict(kernel=kind, template=[int(a) for a in targs],
                              registers=int(m.group(1)), spill_bytes=spill))
             name, spill = None, 0
@@ -497,18 +503,19 @@ def kernel_inputs(ctrl, B, seed, x0s_fn, single_index=False):
 
 
 def smem_floor_ms(n, m, R, refine_steps, B, chunk, kernel="K2"):
-    """Least milliseconds of one K1 (m = n), K2 or K5 chunk if its shared
-    memory delivered one operator entry per lane and multiply-add at one
-    32-lane wavefront a clock on every SM, B chunk lane-iterations over 132
-    SMs at the card's highest SM clock. Entries per lane and iteration:
+    """Least milliseconds of one K1 (m = n), K2, K4 or K5 chunk if its
+    shared memory delivered one operator entry per lane and multiply-add at
+    one 32-lane wavefront a clock on every SM, B chunk lane-iterations over
+    132 SMs at the card's highest SM clock. Entries per lane and iteration:
     the K-solves, (1 + 2 refine) n^2, and the products with the constraint
     rows, each entry read once for A'y and A'(rho s) together and once for
-    A x: K1 and K2 2 (m - n) n (A2), K5 2 m n (all of A). The vector loads,
-    K5's fp32 product fl(rho a) and the entries a lane of another rho index
-    cannot share come on top. R does not enter: each lane reads only its
-    own rho's operators."""
-    dense = m if kernel == "K5" else m - n
-    entries = (1 + 2 * refine_steps) * n * n + 2 * dense * n
+    A x: K1 and K2 2 (m - n) n (A2), K5 2 m n (all of A); K4 m n for the
+    pass and n m for the image rhs kia and again per refinement, (2 +
+    refine) m n. The vector loads, the fp32 product fl(rho a) and the
+    entries a lane of another rho index cannot share come on top. R does
+    not enter: each lane reads only its own rho's operators."""
+    dense = {"K5": 2 * m, "K4": (2 + refine_steps) * m}.get(kernel, 2 * (m - n))
+    entries = (1 + 2 * refine_steps) * n * n + dense * n
     return entries * B * chunk / 32 / (SM_COUNT * sm_clock_hz()) * 1e3
 
 
@@ -525,8 +532,8 @@ def sm_clock_hz():
 def compare_kernel(ctrl, B, seed, x0s_fn, plain_reps=REPS, single_index=False):
     """A kernel against its plain version at one shape, on the card; the
     kernel is K1, K2, K4 or K5 as the controller's operator says, and must
-    equal it bit for bit (max_ulps 0). K1, K2 and K5 log their plans; every
-    kernel is timed as a CUDA graph (``ms``) and through its wrapper
+    equal it bit for bit (max_ulps 0). Each logs its plan; every kernel is
+    timed as a CUDA graph (``ms``) and through its wrapper
     (``wrapper_ms``). Returns a record."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
 
@@ -546,25 +553,21 @@ def compare_kernel(ctrl, B, seed, x0s_fn, plain_reps=REPS, single_index=False):
         rho_index="single" if single_index else "random",
         max_abs_err=abs_err, max_rel_err=rel_err, max_ulps=ulps,
     )
-    if name == "K4":
-        rec["operators_in_shared_memory"] = admm_fused.dense_ops_shared(n, m, R, rs)
+    if name == "K1":
+        plan = admm_fused.k1_plan(n, R, rs, B)
+    elif name == "K2":
+        plan = admm_fused.k2_plan(n, m, R, rs, B)
     else:
-        if name == "K1":
-            plan = admm_fused.k1_plan(n, R, rs, B)
-        elif name == "K2":
-            plan = admm_fused.k2_plan(n, m, R, rs, B)
-        else:
-            plan = admm_fused.k5_plan(n, m, R, rs, B)
-        log(phase=f"{name.lower()}_plan", n=n, m=m, R=R, refine_steps=rs, B=B,
-            rho_index=rec["rho_index"], **plan._asdict())
-        rec["plan"] = plan._asdict()
+        plan = (admm_fused.k4_plan if name == "K4" else admm_fused.k5_plan)(n, m, R, rs, B)
+    log(phase=f"{name.lower()}_plan", n=n, m=m, R=R, refine_steps=rs, B=B,
+        rho_index=rec["rho_index"], **plan._asdict())
+    rec["plan"] = plan._asdict()
     if rel_err > SHAPES_OK_REL or ulps != 0:
         raise RuntimeError(f"{kernel.__name__} disagrees with its plain version: {rec}")
     # 0.04-6 ms a launch: graph-timed (device time), and through the wrapper
     rec["ms"] = cuda_graph_ms(lambda: kernel(*args))
     rec["wrapper_ms"] = cuda_ms(lambda: kernel(*args))
-    if name != "K4":
-        rec["smem_floor_ms"] = smem_floor_ms(n, m, R, rs, B, chunk, name)
+    rec["smem_floor_ms"] = smem_floor_ms(n, m, R, rs, B, chunk, name)
     rec["plain_ms"] = cuda_ms(lambda: plain(*args), reps=plain_reps)
     rec["bound_ms"], rec["bound_by"] = chunk_bound(n, m, B, R, rs, chunk, name)
     return rec
@@ -781,8 +784,9 @@ def main():
         raise RuntimeError("the h50 controllers are expected to take K3's three branches")
 
     # the dense path's controllers: the h20 equality and state-box QPs and
-    # the h50 state-box QP with their state or terminal rows first; and the
-    # state-box QP at tier 1's grid (K4's branch without refinement)
+    # the h50 state-box QP with their state or terminal rows first; and, on
+    # K4, the state-box QP at tier 1's grid (no refinement), the equality
+    # QP's tier 2 and the neighborhood QP (K4's stream route)
     dense = {
         "dense-eq-h20-B2048": rows_first(ctrl_eq),
         "dense-sc-h20-B2048": rows_first(ctrl_sc),
@@ -795,13 +799,15 @@ def main():
         AdmmConfig(max_iter=1000, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0),
         mpc_state_constraint=True,
     ))
-    dense_fb = parallel.escalation_controller(  # tier 2 of the h20 state box
-        dense["dense-sc-h20-B2048"], rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250,
-        refine_steps=2,
-    )
+    tier2 = lambda c: parallel.escalation_controller(
+        c, rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250, refine_steps=2)
+    dense_fb = tier2(dense["dense-sc-h20-B2048"])  # tier 2 of the h20 state box
+    dense_eq_fb = tier2(dense["dense-eq-h20-B2048"])  # and of the equality terminal
+    dense_nb = rows_first(ctrl_nb)
     want = {"dense-eq-h20-B2048": "K4", "dense-sc-h20-B2048": "K5", "dense-sc-h50-B2048": "K5"}
     checks = [(k, c, want[k]) for k, c in dense.items()] + [
-        ("tier-1 state box", dense_t1, "K4"), ("tier-2 state box", dense_fb, "K5")]
+        ("tier-1 state box", dense_t1, "K4"), ("tier-2 state box", dense_fb, "K5"),
+        ("tier-2 equality", dense_eq_fb, "K4"), ("neighborhood", dense_nb, "K4")]
     for cell, c, kind in checks:
         if not (c.engine.op.dense_a and parallel.fused_supported(c)
                 and _kernel_of(c.engine.op, c.engine.config) == kind):
@@ -879,12 +885,22 @@ def main():
     rollout_rec, cert_rec = compare_recurrences(ctrl_h500, B_H500, 13, suite6_x0s)
     for rec in (rollout_rec, cert_rec):
         log(phase="k3_driver_vs_plain", **rec)
-    # K4 with and without refinement; K5 at h20 (random and one rho index,
-    # tier 2's bucket, a ragged batch: the shared route) and h50 (the stream
-    # route), each with its k5_plan line (plain timed less: ~10^4 small
-    # launches per chunk)
-    k4_shapes = [compare_kernel(dense["dense-eq-h20-B2048"], B_SLICE, 14, suite_x0s),
-                 compare_kernel(dense_t1, B_SLICE, 15, bench_x0s, plain_reps=5)]
+    # K4 at the equality terminal (random and one rho index, tier 2's
+    # bucket, a ragged batch), the state box at tier 1's grid: the shared
+    # route; the neighborhood terminal: the stream route. K5 at h20 (random
+    # and one rho index, tier 2's bucket, a ragged batch: the shared route)
+    # and h50 (the stream route). Each with its plan line (plain timed
+    # less: ~10^4 small launches per chunk)
+    eq20 = dense["dense-eq-h20-B2048"]
+    k4_shapes = [compare_kernel(eq20, B_SLICE, 14, suite_x0s),
+                 compare_kernel(eq20, B_SLICE, 27, suite_x0s, plain_reps=5, single_index=True),
+                 compare_kernel(dense_eq_fb, BUCKET, 28, suite_x0s, plain_reps=5),
+                 compare_kernel(eq20, RAGGED[2], 29, suite_x0s, plain_reps=5),
+                 compare_kernel(dense_t1, B_SLICE, 15, bench_x0s, plain_reps=5),
+                 compare_kernel(dense_nb, B_SLICE, 30, suite_x0s, plain_reps=5)]
+    k4_routes = {rec["plan"]["route"] for rec in k4_shapes}
+    if k4_routes != set(admm_fused.DENSE_ROUTES):
+        raise RuntimeError(f"K4 routes not held to the plain version: {k4_routes}")
     sc20 = dense["dense-sc-h20-B2048"]
     k5_shapes = [compare_kernel(sc20, B_SLICE, 16, bench_x0s, plain_reps=5),
                  compare_kernel(sc20, B_SLICE, 18, bench_x0s, plain_reps=2, single_index=True),
@@ -892,7 +908,7 @@ def main():
                  compare_kernel(sc20, RAGGED[2], 26, bench_x0s, plain_reps=2),
                  compare_kernel(dense["dense-sc-h50-B2048"], B_SLICE, 17, suite_x0s, plain_reps=2)]
     k5_routes = {rec["plan"]["route"] for rec in k5_shapes}
-    if k5_routes != set(admm_fused.K5_ROUTES):
+    if k5_routes != set(admm_fused.DENSE_ROUTES):
         raise RuntimeError(f"K5 routes not held to the plain version: {k5_routes}")
     for rec in k4_shapes + k5_shapes:
         log(phase="dense_vs_plain", **rec)
@@ -1170,8 +1186,10 @@ def main():
                      k3_counts["rollout"], [rollout_rec]),
         kernel_entry("riccati_certificate (K3 driver)", "riccati_admm.cu",
                      f"{TPU_RICCATI}:384", k3_counts["certificate"], [cert_rec]),
-        kernel_entry("admm_dense_packed_chunk (K4)", "admm_dense.cu", f"{TPU_ADMM}:252",
-                     dense_counts["K4"], k4_shapes),
+        dict(kernel_entry("admm_packed_chunk (K4)", "admm_perr.cu", f"{TPU_ADMM}:252",
+                          dense_counts["K4"], k4_shapes),
+             smem_floor_ms=k4_shapes[0]["smem_floor_ms"],
+             routes={"shared": "admm_packed_chunk", "stream": "admm_packed_stream_chunk"}),
         dict(kernel_entry("admm_perr_chunk (K5)", "admm_perr.cu", f"{TPU_ADMM}:778",
                           dense_counts["K5"], k5_shapes),
              smem_floor_ms=k5_shapes[0]["smem_floor_ms"],

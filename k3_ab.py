@@ -6,7 +6,7 @@ one power limit).
     python3 k3_ab.py --kernel K2 NAME=TREE[:LxG] [...] [--plain NAME] [--sass NAME]
     python3 k3_ab.py --kernel K1 NAME=TREE[:LxG] [...] [--plain NAME] [--sass NAME]
     python3 k3_ab.py --kernel K5 NAME=TREE[:LAYOUT] [...] [--plain NAME] [--sass NAME]
-    python3 k3_ab.py --kernel K4 NAME=TREE [...] [--plain NAME] [--sass NAME]
+    python3 k3_ab.py --kernel K4 NAME=TREE[:LAYOUT] [...] [--plain NAME] [--sass NAME]
 
 Each TREE is a directory that holds the port's package (this checkout is
 "."; an earlier commit unpacked with ``git archive`` is another). The specs
@@ -66,11 +66,18 @@ state box (n = 100, m = 300) at B = 2048. LAYOUT forces
 ``h`` (the shared route) or ``s`` (the stream route; ``s/PANEL`` also
 forces the doubles of its operator panel), or a suffix alone.
 
-``--kernel K4`` times K4, the dense-A packed kernel (``csrc/admm_dense.cu``,
-into build/k4ab/), at the dense path's two K4 shapes (K4_SHAPES): the h20
-equality terminal with its rows first (n = 40, m = 44, R = 5, refine 1)
-and the h20 state box at tier 1's grid (m = 120, R = 2, no refinement),
-B = 2048; it has no plan to force.
+``--kernel K4`` does the same for K4, the dense-A packed kernel (each
+tree's ``csrc/admm_perr.cu``, whose PACKED instantiations are K4, and
+``csrc/admm_dense.cu``, the older trees' K4, into build/k4ab/), at the
+shapes of K4_SHAPES, each with its rows first: the h20 equality terminal
+(n = 40, m = 44, R = 5, refine 1) at B = 2048 and 77, its tier-2
+escalation (R = 4, refine 2) at B = 512, the h20 state box at tier 1's
+grid (m = 120, R = 2, no refinement) and the neighborhood terminal (m =
+52, K4's stream route), B = 2048. LAYOUT forces ``admm_fused.k4_plan``'s
+as K5's. In a tree that has K5's wrapper each shape also times K5 on the
+same inputs and operator (``k5_ms``): the two kernels' view of the packed
+/ per-rho split on this card (they round differently, so only the time
+per chunk compares).
 
 List a tree twice (first and last) to see the drift within the call. The
 last line is a JSON object of all records.
@@ -245,16 +252,23 @@ K5_SHAPES = (
     ("h20-tier2-B512", 20, True, 512, 55),
     ("h50-B2048", 50, False, 2048, 56),
 )
-# name, controller options, tier-1 grid (else the suite's), initial states,
-# B, seed: the dense-eq-h20 cell's K4 and the state box without refinement
+# name, controller options, grid (the suite's, tier 1's (1, 10) without
+# refinement, or tier 2's escalation), initial states, B, seed: the
+# dense-eq-h20 cell's K4, a ragged batch and its tier 2, the state box
+# without refinement, the neighborhood terminal (the stream route)
 K4_SHAPES = (
-    ("eq-h20-B2048", {"mpc_terminal_ingredient": "equality"}, False, "suite", 2048, 60),
-    ("sc-tier1-h20-B2048", {"mpc_state_constraint": True}, True, "bench", 2048, 61),
+    ("eq-h20-B2048", {"mpc_terminal_ingredient": "equality"}, "suite", "suite", 2048, 60),
+    ("eq-h20-B77", {"mpc_terminal_ingredient": "equality"}, "suite", "suite", 77, 62),
+    ("eq-tier2-B512", {"mpc_terminal_ingredient": "equality"}, "tier2", "suite", 512, 63),
+    ("sc-tier1-h20-B2048", {"mpc_state_constraint": True}, "tier1", "bench", 2048, 61),
+    ("nb-h20-B2048", {"mpc_terminal_ingredient": "neighborhood"}, "suite", "suite", 2048, 64),
 )
 ADMM_KERNELS = {  # the sources each tree builds alone (those it has), and their C entries
     "K1": (("admm_diag.cu",), ("admm_diag_chunk",)),
     "K2": (("admm_mixed.cu",), ("admm_mixed_chunk",)),
-    "K4": (("admm_dense.cu",), ("admm_dense_packed_chunk",)),
+    "K4": (("admm_perr.cu", "admm_dense.cu"),
+           ("admm_packed_chunk", "admm_packed_stream_chunk", "admm_dense_packed_chunk",
+            "admm_perr_chunk", "admm_perr_stream_chunk")),
     "K5": (("admm_perr.cu", "admm_dense.cu"),
            ("admm_perr_chunk", "admm_perr_stream_chunk", "admm_dense_perr_chunk")),
 }
@@ -267,7 +281,7 @@ def _admm_lib(tree, kernel):
 
 def build_admm(trees, kernel):
     """nvcc each tree's sources of the kernel (K1: csrc/admm_diag.cu, K2:
-    csrc/admm_mixed.cu, K5: those of csrc/admm_perr.cu and
+    csrc/admm_mixed.cu, K4 and K5: those of csrc/admm_perr.cu and
     csrc/admm_dense.cu it has) into a library of its own, one nvcc per
     tree, all at once, with this checkout's flags. Returns {tree: (seconds,
     report or None if it failed, error text)}."""
@@ -309,10 +323,15 @@ def _admm_cases(kernel, dev, shapes):
     ctrls = {}
     if kernel == "K4":
         t1 = AdmmConfig(max_iter=1000, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0)
-        for name, kw, tier1, x0s_name, B, seed in K4_SHAPES:
-            if not shapes or name in shapes:
-                c = chip_smoke.rows_first(design(20, t1 if tier1 else AdmmConfig(max_iter=1000), **kw))
-                yield name, c, x0s[x0s_name], B, seed
+        for name, kw, grid, x0s_name, B, seed in K4_SHAPES:
+            if shapes and name not in shapes:
+                continue
+            key = (tuple(sorted(kw.items())), grid == "tier1")
+            if key not in ctrls:
+                ctrls[key] = chip_smoke.rows_first(
+                    design(20, t1 if grid == "tier1" else AdmmConfig(max_iter=1000), **kw))
+            c = ctrls[key]
+            yield name, tier2(c) if grid == "tier2" else c, x0s[x0s_name], B, seed
         return
     if kernel == "K5":
         for name, N, fallback, B, seed in K5_SHAPES:
@@ -342,10 +361,10 @@ def _admm_cases(kernel, dev, shapes):
 
 
 def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
-    """Time K1, K2 or K5 of one tree at its shapes; print one K1_AB, K2_AB
-    or K5_AB line of records. Each tree's wrapper calls its own C entries
-    with that tree's signatures (an older tree's entry takes other
-    parameters)."""
+    """Time K1, K2, K4 or K5 of one tree at its shapes; print one K1_AB,
+    K2_AB, K4_AB or K5_AB line of records. Each tree's wrapper calls its
+    own C entries with that tree's signatures (an older tree's entry takes
+    other parameters)."""
     sys.path.insert(0, os.path.abspath(tree))
     import ctypes
 
@@ -375,14 +394,15 @@ def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
     if kernel == "K1":
         wrapper, plain_fn = admm_fused.iterate_chunk_diag_T, admm_fused.iterate_chunk_diag_T_plain
         plan_fn, launch = getattr(admm_fused, "k1_plan", None), getattr(admm_fused, "_launch_k1")
-    elif kernel == "K4":
-        wrapper = admm_fused.iterate_chunk_dense_packed_T
-        plain_fn = admm_fused.iterate_chunk_dense_packed_T_plain
-        plan_fn = launch = None
-    elif kernel == "K5":
-        wrapper = admm_fused.iterate_chunk_dense_perr_T
-        plain_fn = admm_fused.iterate_chunk_dense_perr_T_plain
-        plan_fn, launch = getattr(admm_fused, "k5_plan", None), getattr(admm_fused, "_launch_k5", None)
+    elif kernel in ("K4", "K5"):
+        if kernel == "K4":
+            wrapper = admm_fused.iterate_chunk_dense_packed_T
+            plain_fn = admm_fused.iterate_chunk_dense_packed_T_plain
+        else:
+            wrapper = admm_fused.iterate_chunk_dense_perr_T
+            plain_fn = admm_fused.iterate_chunk_dense_perr_T_plain
+        plan_fn = getattr(admm_fused, f"{kernel.lower()}_plan", None)
+        launch = getattr(admm_fused, f"_launch_{kernel.lower()}", None)
         if layout and "s" in layout:  # LxGs[/PANEL]: the stream route, a panel forced
             layout, _, panel = layout.partition("s")
             force, layout = dict(route="stream"), layout or None
@@ -409,7 +429,7 @@ def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
                 except ValueError as err:
                     records.append(dict(rec, skipped=str(err)))
                     continue
-                if kernel == "K5" and force.get("route") == "stream" and panel:
+                if kernel in ("K4", "K5") and force.get("route") == "stream" and panel:
                     plan = plan._replace(panel=int(panel[1:]), smem_bytes=admm_fused.k5_stream_smem_bytes(
                         m, plan.lanes, plan.groups, plan.rpt_n, plan.rpt_m, int(panel[1:])))
                 rec["plan"] = plan._asdict()
@@ -424,8 +444,11 @@ def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
                     for a, b in zip(out, want))
             rec["ms"] = chip_smoke.cuda_graph_ms(fn)
             rec["wrapper_ms"] = _ms(fn, 20)
-            if kernel != "K4":
-                rec["smem_floor_ms"] = chip_smoke.smem_floor_ms(n, m, R, rs, B, args[-2], kernel)
+            rec["smem_floor_ms"] = chip_smoke.smem_floor_ms(n, m, R, rs, B, args[-2], kernel)
+            if kernel == "K4" and hasattr(admm_fused, "k5_plan"):  # the split: K5 on K4's inputs
+                k5 = lambda: admm_fused._launch_k5(*args)
+                rec["k5_plan"] = admm_fused.k5_plan(n, m, R, rs, B)._asdict()
+                rec["k5_ms"] = chip_smoke.cuda_graph_ms(k5)
             records.append(rec)
     print(f"{kernel}_AB " + json.dumps(records), flush=True)
 
@@ -433,7 +456,7 @@ def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("specs", nargs="*",
-                    help="NAME=TREE[:ROUTE] (K1, K2: NAME=TREE[:LxG]; K5: NAME=TREE[:LAYOUT])")
+                    help="NAME=TREE[:ROUTE] (K1, K2: NAME=TREE[:LxG]; K4, K5: NAME=TREE[:LAYOUT])")
     ap.add_argument("--kernel", choices=("K3", "K2", "K1", "K5", "K4"), default="K3",
                     help="the kernel timed")
     ap.add_argument("--plain", default=None, help="the spec name whose outputs are held to the plain version")

@@ -51,6 +51,16 @@ SHAPES = {
     "sc": (dict(mpc_state_constraint=True), dict(max_iter=1000)),
 }
 KERNEL = {"eq": "K4", "sc-t1": "K4", "sc": "K5"}
+# two more QPs on K4, held to the JAX body at its chunk: the neighborhood
+# terminal (m = 52, the shape K4's stream route takes) and the equality
+# terminal at tier 2's grid (R = 4, 2 refinements)
+K4_MORE = {
+    "nb": (dict(mpc_terminal_ingredient="neighborhood"), dict(max_iter=1000)),
+    "eq-t2": (
+        dict(mpc_terminal_ingredient="equality"),
+        dict(max_iter=250, rho_grid=(0.1, 1.0, 10.0, 100.0), refine_steps=2),
+    ),
+}
 # K2's bars (tests/test_torch_admm_mixed.py)
 RTOL, ATOL = 1e-4, 1e-5
 EPS_ABOVE_FLOOR = dict(eps_abs=1e-4, eps_rel=1e-4, check_interval=5, adapt_interval=5)
@@ -205,18 +215,37 @@ def test_plain_chunk_matches_jax_interpret(designs, key, B, chunk):
     kernel's own, within the same bar. CPU tensors take the plain version
     of the kernel that both packages' variant rule picks."""
     _, _, jd, td, _ = designs[key]
+    _hold_plain_to_jax(jd, td, KERNEL[key], B, chunk, seed=B + len(key))
+
+
+@pytest.fixture(scope="module")
+def more_designs():
+    return {k: dense_pair(20, rows, cfg) for k, (rows, cfg) in K4_MORE.items()}
+
+
+@pytest.mark.parametrize("chunk", [1, 25])
+@pytest.mark.parametrize("key", list(K4_MORE))
+def test_plain_k4_matches_jax_interpret_on_more_qps(more_designs, key, chunk):
+    """The plain K4 against the JAX body, as above, on the neighborhood QP
+    with its rows first (m = 52) and on the equality QP at tier 2's grid
+    (R = 4, refine 2)."""
+    _, _, jd, td, _ = more_designs[key]
+    assert td.engine.op.A_s.shape[0] == (52 if key == "nb" else 44)
+    _hold_plain_to_jax(jd, td, "K4", 8, chunk, seed=30 + len(key))
+
+
+def _hold_plain_to_jax(jd, td, want, B, chunk, seed):
     op, cfg = td.engine.op, td.engine.config
-    args = _chunk_inputs(td, B, seed=B + len(key))
+    args = _chunk_inputs(td, B, seed=seed)
     m, n = op.A_s.shape
     R = int(op.rho_grid.shape[0])
-    packed = KERNEL[key] == "K4"
+    packed = want == "K4"
     assert admm_fused.use_packed(n, m, R, cfg.refine_steps) is packed
     assert admm_pallas._use_packed(n, m, R, cfg.refine_steps) is packed
     calls = dict(admm_fused.PLAIN_CALLS)
     out_t = admm_fused.chunk_fn_for(op, config=cfg)(
         op, *[torch.from_numpy(a) for a in args], chunk, cfg
     )
-    want = KERNEL[key]
     assert admm_fused.PLAIN_CALLS == dict(calls, **{want: calls[want] + 1})
     qT, lT, uT, idx, x, s, y, ax = args
     out_j = admm_pallas._iterate_chunk(
@@ -360,9 +389,11 @@ def test_dense_shapes_and_routing(designs):
     routing and its refusals; the unported precisions."""
     for n, m, R, rs in ((40, 44, 5, 1), (40, 120, 2, 0), (40, 120, 5, 1), (100, 300, 5, 1)):
         assert admm_fused.k4_fits(n, m, R) and admm_fused.k5_fits(n, m, R)
-    assert admm_fused.dense_smem_bytes(40, 44, 5) == 28384
-    assert admm_fused.dense_ops_shared(40, 44, 5, 1)  # K4's two shapes
-    assert admm_fused.dense_ops_shared(40, 120, 2, 0)
+    # K4's operators in shared memory in fp64 at its two cell shapes: K^-1,
+    # K and kia at (40, 44, 5, 1) fill all but 760 B of a block's
+    p = admm_fused.k4_plan(40, 44, 5, 1, 2048)
+    assert (p.route, p.lanes, p.groups, p.smem_bytes) == ("shared", 16, 14, 231688)
+    assert admm_fused.k4_plan(40, 120, 2, 0, 2048).route == "shared"
     assert admm_fused.k5_plan(40, 120, 5, 1, 2048).route == "shared"
     assert admm_fused.k5_plan(100, 300, 5, 1, 2048).route == "stream"  # 1.3 MB of fp64
     assert not admm_fused.k5_fits(129, 300, 5)
@@ -407,24 +438,44 @@ def test_k5_plan_covers_every_shape_k5_takes(R, refine_steps):
     covers the lanes and the rows with an instantiation, whole warps, no
     more threads than it allows, and its bytes are the layout's
     (k5_smem_bytes, k5_stream_smem_bytes: the C entries' formulas)."""
+    _assert_plans_cover(False, R, refine_steps)
+
+
+@pytest.mark.parametrize("refine_steps", [0, 1, 2])
+@pytest.mark.parametrize("R", list(range(1, 9)))
+def test_k4_plan_covers_every_shape_k4_takes(R, refine_steps):
+    """The same for K4 (k4_fits: every packed shape with n <= 128 and at
+    most 512 rows, and the other shapes of that range): a route at every
+    batch size, a layout of its own instantiations (K4_INSTANCES,
+    K4_STREAM_INSTANCES) within one block's shared memory, its bytes the
+    C entries' (k5_smem_bytes with packed, k5_stream_smem_bytes)."""
+    _assert_plans_cover(True, R, refine_steps)
+
+
+def _assert_plans_cover(packed, R, refine_steps):
+    fits_fn, plan_fn = ((admm_fused.k4_fits, admm_fused.k4_plan) if packed
+                        else (admm_fused.k5_fits, admm_fused.k5_plan))
+    shared_table, stream_table = (
+        (admm_fused.K4_INSTANCES, admm_fused.K4_STREAM_INSTANCES) if packed
+        else (admm_fused.K5_INSTANCES, admm_fused.K5_STREAM_INSTANCES))
     for n in K5_NS + (0, 129):
         for m in K5_MS + (0, 513):
             fits = 1 <= n <= 128 and 1 <= m <= 512
-            assert admm_fused.k5_fits(n, m, R) == fits
+            assert fits_fn(n, m, R) == fits
             assert fits or not admm_fused.k4_fits(n, m, R)
             if not fits:
                 with pytest.raises(ValueError):
-                    admm_fused.k5_plan(n, m, R, refine_steps, 64)
+                    plan_fn(n, m, R, refine_steps, 64)
                 continue
-            shared = bool(admm_fused._k5_layouts(n, m, R, refine_steps))
-            assert shared or admm_fused._k5_stream_layouts(n, m, refine_steps)
+            shared = bool(admm_fused._shared_layouts(n, m, R, refine_steps, packed))
+            assert shared or admm_fused._stream_layouts(n, m, refine_steps, packed)
             for B in K5_BS:
-                p = admm_fused.k5_plan(n, m, R, refine_steps, B)
+                p = plan_fn(n, m, R, refine_steps, B)
                 assert p.smem_bytes <= admm_fused.SMEM_LIMIT and p.per_sm >= 1
                 assert p.route == ("shared" if shared else "stream"), (n, m, B)
                 spare = R if p.route == "stream" else 0
                 assert p.blocks - spare == -(-B // p.lanes)
-                table = admm_fused.K5_INSTANCES if p.route == "shared" else admm_fused.K5_STREAM_INSTANCES
+                table = shared_table if p.route == "shared" else stream_table
                 threads, *registers = table[(p.rpt_n, p.rpt_m)]
                 assert p.groups * p.rpt_n >= n and p.groups * p.rpt_m >= m
                 assert (p.lanes * p.groups) % 32 == 0 and p.lanes * p.groups <= threads
@@ -432,9 +483,9 @@ def test_k5_plan_covers_every_shape_k5_takes(R, refine_steps):
                 if p.route == "shared":
                     assert p.panel == 0
                     assert p.smem_bytes == admm_fused.k5_smem_bytes(
-                        n, m, R, refine_steps, p.lanes, p.groups, p.rpt_n, p.rpt_m)
+                        n, m, R, refine_steps, p.lanes, p.groups, p.rpt_n, p.rpt_m, packed)
                 else:
-                    assert p.panel >= 4 * (n + (n & 1))
+                    assert p.panel >= max(4 * (n + (n & 1)), 2 * (n + m if packed else max(n, m)))
                     assert p.smem_bytes == admm_fused.k5_stream_smem_bytes(
                         m, p.lanes, p.groups, p.rpt_n, p.rpt_m, p.panel)
                 assert p.per_sm == admm_fused.blocks_per_sm(
@@ -466,6 +517,35 @@ def test_k5_plan_fills_the_sms(B, R, refine_steps, lanes):
         admm_fused.k5_plan(40, 120, R, refine_steps, B, lanes=32, groups=4)  # 10 rows a thread
     with pytest.raises(ValueError):
         admm_fused.k5_plan(40, 120, R, refine_steps, 0)
+
+
+@pytest.mark.parametrize("n,m,R,refine_steps,B,lanes", [
+    (40, 44, 5, 1, 2048, 16),  # the dense-eq-h20 cell: 128 blocks of 16 lanes
+    (40, 44, 4, 2, 512, 4),    # its tier-2 bucket: 128 blocks of 4
+    (40, 44, 5, 1, 77, 4),
+    (40, 120, 2, 0, 2048, 16),  # the state box at tier 1's grid
+])
+def test_k4_plan_fills_the_sms(n, m, R, refine_steps, B, lanes):
+    """K4's fp64 operators fit shared memory at the dense cells' shapes and
+    the lanes per block spread the batch over the card's 132 SMs (the old
+    kernel's 32 lanes a block filled 64 of them at B = 2048); the
+    neighborhood terminal with its rows first (m = 52) takes the stream
+    route, one rho index a block; forced layouts that do not fit raise."""
+    p = admm_fused.k4_plan(n, m, R, refine_steps, B)
+    assert p.route == "shared" and p.lanes == lanes
+    assert p.blocks <= admm_fused.SM_COUNT
+    nb = admm_fused.k4_plan(40, 52, 5, 1, B)
+    assert nb.route == "stream" and nb.blocks == -(-B // nb.lanes) + 5
+    assert not admm_fused._shared_layouts(40, 52, 5, 1, True)
+    # one rho's operators (75 KB in fp64) stay whole in the two panels
+    assert admm_fused.k4_resident(40, 52, 1, nb.panel)
+    assert not admm_fused.k4_resident(40, 52, 1, nb.panel // 2)
+    assert not admm_fused.k4_resident(100, 301, 1, admm_fused.k4_plan(100, 301, 5, 1, B).panel)
+    assert admm_fused.k4_plan(n, m, R, refine_steps, B, route="stream").route == "stream"
+    with pytest.raises(ValueError):
+        admm_fused.k4_plan(n, m, R, refine_steps, B, lanes=32, groups=4)  # 10 rows a thread
+    with pytest.raises(ValueError):
+        admm_fused.k4_plan(n, m, R, refine_steps, 0)
 
 
 def _grouped_blocks(order, starts, lanes):

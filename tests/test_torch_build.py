@@ -122,12 +122,15 @@ def test_k5_entry_takes_the_plan():
 
 
 @pytest.mark.parametrize("macro,table", [("MPC_K5_INSTANCES", "K5_INSTANCES"),
-                                         ("MPC_K5_STREAM_INSTANCES", "K5_STREAM_INSTANCES")])
+                                         ("MPC_K5_STREAM_INSTANCES", "K5_STREAM_INSTANCES"),
+                                         ("MPC_K4_INSTANCES", "K4_INSTANCES"),
+                                         ("MPC_K4_STREAM_INSTANCES", "K4_STREAM_INSTANCES")])
 def test_k5_instantiations_match_the_plan(macro, table):
-    """The rows per thread K5 instantiates on its shared and stream routes
-    (csrc/admm_perr.cu) are the ones k5_plan may pick, with the same most
-    threads a block, and the registers the plan counts, without and with
-    refinement, fit the budgets that __launch_bounds__ holds them to."""
+    """The rows per thread K5 and K4 instantiate on their shared and stream
+    routes (csrc/admm_perr.cu) are the ones k5_plan and k4_plan may pick,
+    with the same most threads a block, and the registers the plan counts,
+    without and with refinement, fit the budgets that __launch_bounds__
+    holds them to."""
     keys = 2
     from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
 
@@ -168,32 +171,63 @@ def test_k5_stream_entry_takes_the_plan():
             m, lanes, groups, rpt_n, rpt_m, panel)
 
 
-def test_k5_shared_bytes_match_the_c_entry():
-    """admm_fused.k5_smem_bytes is the C entry's own formula: the three
-    lines of admm_perr_chunk that count the layout's doubles and floats,
-    read from the source and evaluated on the same layout."""
+def _shared_bytes_cases(packed):
+    """admm_fused.k5_smem_bytes (K4's with ``packed``) against the C
+    entries' own formula: the four lines of shared_chunk that count the
+    layout's doubles and floats, read from the source and evaluated on the
+    same layouts, the ternary on PACKED as Python's. Returns the cases."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
 
     text = open(os.path.join(_build.CSRC_DIR, "admm_perr.cu")).read()
     exprs = {name: re.search(rf"const long long {name} = (.*);", text).group(1)
-             for name in ("doubles", "floats", "need")}
-    py = lambda e: re.sub(r"(\d+)LL", r"\1", e).replace("lay.", "")
+             for name in ("image", "doubles", "floats", "need")}
+    py = lambda e: re.sub(r"^(.*) \? (.*) : (.*)$", r"(\2) if (\1) else (\3)",
+                          re.sub(r"(\d+)LL", r"\1", e).replace("lay.", ""))
+    table = admm_fused.K4_INSTANCES if packed else admm_fused.K5_INSTANCES
     cases = 0
     for n, m in ((40, 120), (100, 300), (7, 13), (128, 1), (41, 44)):
         for R in (1, 4, 5, 8):
             for rs in (0, 1, 2):
                 for lanes in admm_fused.LANES:
-                    for (rpt_n, rpt_m), _ in admm_fused.K5_INSTANCES.items():
+                    for (rpt_n, rpt_m), _ in table.items():
                         groups = max(-(-n // rpt_n), -(-m // rpt_m))
                         ld, sk = admm_fused.row_strides(n, lanes)
                         env = dict(
-                            n=n, m=m, R=R, lanes=lanes, ld=ld, sk=sk,
+                            n=n, m=m, R=R, lanes=lanes, ld=ld, sk=sk, PACKED=packed,
                             nslots=(groups * rpt_n + 1) & ~1, mslots=(groups * rpt_m + 1) & ~1,
                             mr=admm_fused.rho_stride(m), stacks=2 if rs > 0 else 1,
                         )
-                        env["doubles"] = eval(py(exprs["doubles"]), {}, env)
-                        env["floats"] = eval(py(exprs["floats"]), {}, env)
+                        for name in ("image", "doubles", "floats"):
+                            env[name] = eval(py(exprs[name]), {}, env)
                         assert eval(py(exprs["need"]), {}, env) == admm_fused.k5_smem_bytes(
-                            n, m, R, rs, lanes, groups, rpt_n, rpt_m)
+                            n, m, R, rs, lanes, groups, rpt_n, rpt_m, packed)
                         cases += 1
-    assert cases > 1000
+    return cases
+
+
+def test_k5_shared_bytes_match_the_c_entry():
+    """admm_fused.k5_smem_bytes is the C entry's own formula."""
+    assert _shared_bytes_cases(False) > 1000
+
+
+def test_k4_shared_bytes_match_the_c_entry():
+    """K4's shared-route bytes (k5_smem_bytes, packed: kia_r in place of the
+    fp64 A) are the same entry's formula with PACKED true."""
+    assert _shared_bytes_cases(True) > 1000
+
+
+@pytest.mark.parametrize("entry,ints", [("admm_packed_chunk", "K5_INTS"),
+                                        ("admm_packed_stream_chunk", "K5_STREAM_INTS")])
+def test_k4_entries_take_the_plan(entry, ints):
+    """K4's C entries take the same ints as K5's, in the wrapper's order:
+    the shared route after its 18 arrays (kia beside A), the stream route
+    after 19, as K5's."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    params = _c_params(entry)
+    sig = _build.SIGNATURES[entry]
+    assert tuple(p for p, kind in zip(params, sig) if kind == "i") == getattr(admm_fused, ints)
+    arrays = 18 if entry == "admm_packed_chunk" else 19
+    assert sig == "p" * arrays + "i" * len(getattr(admm_fused, ints)) + "ff" + "p"
+    if entry == "admm_packed_chunk":
+        assert params[:4] == ["kinv", "kmat", "kia", "a"]

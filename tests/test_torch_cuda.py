@@ -263,7 +263,7 @@ def _rows_first(c):
 def dense_controllers(card):
     """The dense cells' controllers: h20 equality terminal (K4, refine 1),
     h20 state box at tier 1's grid (K4, no refinement) and at the suite's
-    (K5), and h50 state box (K5, operators read from global memory)."""
+    (K5), and h50 state box (K5, its stream route)."""
     design = lambda N, cfg, **kw: _rows_first(proceed_controller(
         qtp.linearized_discrete_system(), "model_predictive_control", N, 5.0,
         [0.65] * 4, [1.2] * 2, admm_config=cfg, device=card, **kw,
@@ -420,6 +420,127 @@ def test_k5_refuses_a_layout_it_does_not_have(k5_controllers):
     plan = admm_fused.k5_plan(40, 120, 5, 1, 64)
     with pytest.raises(RuntimeError, match="cudaError_t 1"):
         admm_fused._launch_k5(*args, plan=plan._replace(smem_bytes=plan.smem_bytes + 16))
+
+
+@pytest.fixture(scope="module")
+def k4_controllers(card, dense_controllers):
+    """K4's controllers: the h20 equality terminal (the shared route), its
+    tier-2 escalation (R = 4, refine 2), the state box at tier 1's grid (no
+    refinement) and the neighborhood terminal (m = 52, the stream route),
+    each with its rows first."""
+    eq = dense_controllers["K4-eq-h20"]
+    return {
+        "eq": eq,
+        "tier2": parallel.escalation_controller(
+            eq, rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250, refine_steps=2),
+        "sc-t1": dense_controllers["K4-sc-h20"],
+        "nb": _rows_first(proceed_controller(
+            qtp.linearized_discrete_system(), "model_predictive_control", 20, 5.0,
+            [0.65] * 4, [1.2] * 2, admm_config=AdmmConfig(max_iter=1000), device=card,
+            mpc_terminal_ingredient="neighborhood")),
+    }
+
+
+# (controller, B, one rho index for all lanes, forced k4_plan arguments):
+# every shape of k3_ab.py's K4_SHAPES, random and single rho indices,
+# ragged batches, and forced layouts and routes
+K4_CASES = [
+    ("eq", 2048, False, None), ("eq", 2048, True, None), ("eq", 1, False, None),
+    ("eq", 33, False, None), ("eq", 77, False, None), ("eq", 77, True, None),
+    ("eq", 1000, False, None), ("tier2", 512, False, None), ("tier2", 512, True, None),
+    ("tier2", 33, False, None), ("sc-t1", 2048, False, None), ("sc-t1", 2048, True, None),
+    ("sc-t1", 77, False, None), ("nb", 2048, False, None), ("nb", 2048, True, None),
+    ("nb", 77, False, None), ("nb", 1, True, None), ("nb", 1000, False, None),
+    ("eq", 2048, False, dict(lanes=16, groups=20)), ("eq", 2048, True, dict(lanes=4, groups=40)),
+    ("sc-t1", 2048, False, dict(lanes=16, groups=20)), ("sc-t1", 1000, True, dict(lanes=4, groups=40)),
+    ("eq", 2048, False, dict(route="stream")), ("eq", 77, True, dict(route="stream")),
+    ("eq", 1, False, dict(route="stream")), ("tier2", 512, False, dict(route="stream")),
+    ("sc-t1", 2048, False, dict(route="stream")), ("sc-t1", 33, True, dict(route="stream")),
+    ("nb", 2048, False, dict(lanes=8, groups=20)), ("nb", 1000, True, dict(lanes=4)),
+    ("nb", 2048, False, dict(panel=1000)), ("nb", 77, True, dict(panel=2000)),
+    ("eq", 512, False, dict(route="stream", panel=800)),
+]
+
+
+@pytest.mark.parametrize("which,B,single,force", K4_CASES)
+def test_k4_matches_plain_version(k4_controllers, which, B, single, force):
+    """K4 on the route and layout k4_plan picks (the shared route at the
+    equality terminal, its tier 2 and the state box at tier 1's grid, the
+    stream route at the neighborhood terminal), or a forced one, equals its
+    plain version bit for bit; ragged batches reach every barrier."""
+    ctrl = k4_controllers[which]
+    args = _chunk_args(ctrl, B, seed=B + len(which), single_index=single)
+    op, cfg = args[0], args[-1]
+    m, n = op.A_s.shape
+    R, rs = int(op.rho_grid.shape[0]), int(cfg.refine_steps)
+    assert admm_fused.use_packed(n, m, R, rs)
+    force = dict(force or {})
+    panel = force.pop("panel", None)
+    plan = admm_fused.k4_plan(n, m, R, rs, B, **force)
+    assert plan.route == force.get("route", "stream" if which == "nb" else "shared")
+    if panel is not None:  # operators streamed, not resident
+        plan = plan._replace(panel=panel, smem_bytes=admm_fused.k5_stream_smem_bytes(
+            m, plan.lanes, plan.groups, plan.rpt_n, plan.rpt_m, panel))
+        assert not admm_fused.k4_resident(n, m, rs, panel)
+    elif plan.route == "stream":
+        assert admm_fused.k4_resident(n, m, rs, plan.panel)
+    launches, plain = admm_fused.LAUNCHES["K4"], admm_fused.PLAIN_CALLS["K4"]
+    if not force and panel is None:
+        out_k = admm_fused.iterate_chunk_dense_packed_T(*args)
+    else:
+        out_k = admm_fused._launch_k4(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert admm_fused.LAUNCHES["K4"] == launches + 1
+    assert admm_fused.PLAIN_CALLS["K4"] == plain
+    out_p = admm_fused.iterate_chunk_dense_packed_T_plain(*args)
+    for name, a, b in zip(("x", "s", "y", "ax"), out_k, out_p):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+
+
+@pytest.mark.parametrize("n,m,R,refine_steps,B,route", [
+    (41, 77, 3, 2, 100, None), (41, 77, 3, 2, 100, "stream"),
+    (7, 13, 1, 0, 33, None), (7, 13, 1, 0, 33, "stream"),
+    (33, 120, 8, 0, 2048, None), (1, 1, 2, 1, 5, None), (1, 1, 2, 1, 5, "stream"),
+    (127, 3, 4, 2, 64, None), (100, 301, 5, 1, 1000, None), (128, 512, 8, 1, 300, None),
+])
+def test_k4_odd_shapes_match_plain_version(k5_controllers, n, m, R, refine_steps, B, route):
+    """K4 at shapes the QTP cells never give it, on both routes (as K5's
+    odd shapes), with its packed image kia built as build_operator builds
+    it; equal to the plain version bit for bit."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import packed_kia
+
+    op = _synthetic_dense_op(k5_controllers["h20"].engine.op, n, m, R, seed=n + m)
+    op = op.replace(kia=packed_kia(op.K_invs, op.A_s))
+    dev = op.A_s.device
+    rng = np.random.default_rng(B + 1)
+    f32 = lambda *shape, scale=0.05: torch.from_numpy(
+        (scale * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+    qT = f32(n, B, scale=1.0)
+    lT = -f32(m, B, scale=0.5).abs() - 0.1
+    uT = f32(m, B, scale=0.5).abs() + 0.1
+    idx = torch.from_numpy(rng.integers(0, R, size=B).astype(np.int32)).to(dev)
+    x, y, ax = f32(n, B), f32(m, B), f32(m, B)
+    s = torch.clamp(ax, lT, uT).contiguous()
+    cfg = AdmmConfig(refine_steps=refine_steps)
+    args = (op, qT, lT, uT, idx, x, s, y, ax, 25, cfg)
+    plan = admm_fused.k4_plan(n, m, R, refine_steps, B, route=route)
+    out_k = admm_fused._launch_k4(*args, plan=plan)
+    torch.cuda.synchronize()
+    out_p = admm_fused.iterate_chunk_dense_packed_T_plain(*args)
+    for name, a, b in zip(("x", "s", "y", "ax"), out_k, out_p):
+        assert bool(torch.isfinite(b).all()), name
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), (name, plan)
+
+
+def test_k4_refuses_a_layout_it_does_not_have(k4_controllers):
+    """K4's C entries refuse shared-memory bytes that differ from their own
+    layout (cudaError_t 1) rather than run on a wrong one."""
+    args = _chunk_args(k4_controllers["eq"], 64, seed=7)
+    for route in admm_fused.DENSE_ROUTES:
+        plan = admm_fused.k4_plan(40, 44, 5, 1, 64, route=route)
+        with pytest.raises(RuntimeError, match="cudaError_t 1"):
+            admm_fused._launch_k4(*args, plan=plan._replace(smem_bytes=plan.smem_bytes + 16))
 
 
 def test_dense_solve_auto_launches_k4(dense_controllers):
