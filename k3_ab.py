@@ -25,8 +25,8 @@ of ``riccati_fused.K3_ROUTES`` in a tree that has them; a shape the route
 does not fit is skipped. Times are CUDA-event means over 20 launches after
 a warm-up (5 at h500). Each child also prints a SHA-256 of every output, so
 that trees can be held to each other bit for bit without the plain version;
-``--plain NAME`` also runs the plain version once per shape in that tree and
-compares. A spec that fails is reported and the next one runs; the exit
+``--plain NAME`` also runs the plain version once per shape in that tree,
+compares, and (``--kernel``) times it (``plain_ms``, 2 calls after one). A spec that fails is reported and the next one runs; the exit
 code is 1 if any failed. ``--sass NAME`` writes the SASS of that tree's (4, 2) K3 kernels to
 sass_NAME.txt under ``--sass-dir`` (default build/sass; cuobjdump). ``--shapes`` keeps only the named
 shapes. A tree that has the chain-floor probe (riccati_chain_floor: one warp
@@ -442,6 +442,7 @@ def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
                 rec["max_ulps_vs_plain"] = max(
                     int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
                     for a, b in zip(out, want))
+                rec["plain_ms"] = _ms(lambda: plain_fn(*args), 2)
             rec["ms"] = chip_smoke.cuda_graph_ms(fn)
             rec["wrapper_ms"] = _ms(fn, 20)
             rec["smem_floor_ms"] = chip_smoke.smem_floor_ms(n, m, R, rs, B, args[-2], kernel)
