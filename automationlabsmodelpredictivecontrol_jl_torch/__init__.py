@@ -5,12 +5,13 @@ The port of ``automationlabsmodelpredictivecontrol_jl_tpu`` (JAX/Pallas),
 which stays beside it as the reference. This package imports torch, numpy
 and scipy, and never jax. Ported so far: controller design for linear
 plants (condensed QP, ADMM operator; the Riccati factorization), the
-batched fused ADMM solve on the diagonal-A kernel K1
-(``csrc/admm_diag.cu``) and the mixed-A kernel K2 (``csrc/admm_mixed.cu``),
-the long-horizon Riccati-ADMM solve on K3 (``csrc/riccati_admm.cu``),
+runtime (``solve_once``, ``step``, ``calculate``, the reference updates)
+on the general ADMM engine and the per-lane Riccati engine, the batched
+fused ADMM solves on the kernels K1 (``csrc/admm_diag.cu``), K2
+(``csrc/admm_mixed.cu``), K4 and K5 (``csrc/admm_perr.cu``), the
+long-horizon Riccati-ADMM solve on K3 (``csrc/riccati_chunk.cuh``),
 tiered straggler escalation with the native f64 oracle, and batched closed
-loops. See ROADMAP.md for
-what remains.
+loops. See ROADMAP.md for what remains.
 
 Importing the package pins float32 matmuls to IEEE fp32 (no TF32): the
 solver's certificates sit at 1e-6, far below what TF32 keeps.
@@ -52,6 +53,14 @@ from .design import (  # noqa: E402
 from .main import DEFAULT_PARAMETERS, proceed_controller  # noqa: E402
 from .ops.admm import AdmmConfig  # noqa: E402
 from .ops.riccati import RiccatiConfig  # noqa: E402
+from .runtime import (  # noqa: E402
+    calculate,
+    solve_once,
+    step,
+    update_and_compute,
+    update_initialization,
+    update_references,
+)
 from .terminal import create_terminal_ingredient  # noqa: E402
 
 __all__ = [
@@ -76,6 +85,7 @@ __all__ = [
     "TerminalIngredient",
     "Weights",
     "as_discrete",
+    "calculate",
     "create_terminal_ingredient",
     "create_weights",
     "design_controller",
@@ -83,4 +93,9 @@ __all__ = [
     "discretize",
     "linearize",
     "proceed_controller",
+    "solve_once",
+    "step",
+    "update_and_compute",
+    "update_initialization",
+    "update_references",
 ]

@@ -10,9 +10,10 @@ Scaling conventions (OSQP section 5): P_s = c D P D, q_s = c D q,
 A_s = E A D, l_s = E l, u_s = E u; unscale with z = D z_s, y = E y_s / c.
 
 The host part is the JAX package's numpy f64 code, so the stored f32
-operator agrees with it bit for bit. The general per-solve engine
-(``solve``) is not ported yet (ROADMAP Queue 1, item 4); batched solves
-run on the fused kernel (``ops/admm_fused.py``).
+operator agrees with it bit for bit. :func:`solve` is the general engine:
+plain fp32 PyTorch over a batch of lanes, for every QP the designer makes
+(box, soft and ball rows, any rho grid), with infeasibility certificates.
+The fused kernels (``ops/admm_fused.py``) take the shapes they fit.
 """
 
 from __future__ import annotations
@@ -23,7 +24,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..types import TensorRecord, f32
+from ..types import (
+    STATUS_CONVERGED,
+    STATUS_DUAL_INFEASIBLE,
+    STATUS_MAX_ITER,
+    STATUS_NUMERIC_ERROR,
+    STATUS_PRIMAL_INFEASIBLE,
+    TensorRecord,
+    f32,
+)
+from ..utils.precision import assert_ieee_fp32
 
 Tensor = torch.Tensor
 
@@ -84,6 +94,19 @@ class AdmmOperator(TensorRecord):
         """Neither diagonal nor mixed, and no ball rows: the dense kernels'
         operator (K4/K5, ``ops/admm_fused.py``)."""
         return self.n_ball == 0 and not self.diag_a and not self.mixed_a
+
+
+@dataclasses.dataclass(frozen=True)
+class AdmmResult(TensorRecord):
+    """A batch of solves, each field with a leading batch axis B."""
+
+    z: Tensor  # (B, n) primal solution (unscaled)
+    y: Tensor  # (B, m) dual solution (unscaled)
+    s: Tensor  # (B, m) constraint-space solution (unscaled)
+    status: Tensor  # (B,) int32
+    iterations: Tensor  # (B,) int32
+    primal_residual: Tensor  # (B,)
+    dual_residual: Tensor  # (B,)
 
 
 def packed_kia(K_invs: Tensor, A_s: Tensor) -> Tensor:
@@ -194,3 +217,252 @@ def build_operator(
     if op.dense_a:
         op = op.replace(kia=packed_kia(op.K_invs, op.A_s))
     return op
+
+
+def _project(
+    op: AdmmOperator,
+    v: Tensor,  # (m, B)
+    l_s: Tensor,  # (m, B)
+    u_s: Tensor,
+    ball_c_s: Tensor,  # (n_ball, B)
+    ball_r_s: Tensor,  # (B,)
+    soft_shrink_s: Optional[Tensor] = None,  # (m, B); inf on hard rows
+) -> Tensor:
+    """Prox step onto the scaled constraint set, lane-last: interval clip on
+    box rows (on soft rows the prox of a penalized L1 distance, a shrink
+    toward the interval) and a Euclidean-ball projection of the trailing
+    ball block, per lane."""
+    clipped = torch.clamp(v, l_s, u_s)
+    if soft_shrink_s is None:
+        out = clipped
+    else:
+        # prox of mu dist_1(s, [l, u]) at v: above, max(u, v - mu/rho);
+        # below, min(l, v + mu/rho); hard rows shrink by inf, a clip
+        above = torch.maximum(u_s, v - soft_shrink_s)
+        below = torch.minimum(l_s, v + soft_shrink_s)
+        out = torch.where(v > u_s, above, torch.where(v < l_s, below, v))
+    if op.n_ball:
+        nb = op.n_ball
+        w = v[-nb:] + ball_c_s
+        nrm = torch.linalg.vector_norm(w, dim=0)
+        scale = torch.where(nrm > ball_r_s, ball_r_s / torch.clamp_min(nrm, 1e-30), 1.0)
+        out = torch.cat([out[:-nb], w * scale - ball_c_s])
+    return out
+
+
+def solve(
+    op: AdmmOperator,
+    q: Tensor,  # (B, n) unscaled
+    l: Tensor,  # (B, m)
+    u: Tensor,  # (B, m)
+    ball_c: Tensor,  # (B, n_ball)
+    ball_r: Tensor,  # (B,)
+    z0: Optional[Tensor] = None,  # (B, n) unscaled warm primal
+    y0: Optional[Tensor] = None,  # (B, m) unscaled warm dual
+    config: AdmmConfig = AdmmConfig(),
+    soft_mu: Optional[Tensor] = None,  # (m,) L1 penalty of soft rows, inf on hard
+) -> AdmmResult:
+    """The general engine: a batch of QP solves on the device of ``q``, the
+    JAX package's ``solve`` for every lane at once (its ``vmap``), in fp32.
+
+    Per lane, as there: the x-update through the prefactorized K_r^-1 of
+    the lane's grid rho (for R > 1 every candidate by products shared by
+    all lanes, then a select; for R = 1 with ``refine_steps`` corrections
+    through K), relaxation, the projection (box, soft and ball rows), dual
+    ascent; every ``check_interval`` iterations exact unscaled residuals,
+    the primal and dual infeasibility certificates, the NaN/inf guard and
+    the OSQP rho rule. A lane that is done keeps its state, status and
+    iteration count while the others go on (the batched ``while_loop``);
+    the loop ends when every lane is done or at ``max_iter``, reading the
+    host once per check. ``adaptive=False`` runs ``max_iter`` iterations
+    at the starting rho and one check against the iterate one step
+    before. ``kernel_precision`` is not read: no kernel runs here."""
+    B, n = q.shape
+    m = int(op.A_s.shape[0])
+    R = int(op.rho_grid.shape[0])
+    dev, f = q.device, torch.float32
+    if dev.type == "cuda":
+        assert_ieee_fp32()
+    sigma = torch.tensor(config.sigma, dtype=f, device=dev)
+    alpha = torch.tensor(config.alpha, dtype=f, device=dev)
+    one_m_alpha = 1.0 - alpha
+    D, E, c = op.D[:, None], op.E[:, None], op.c
+    D_inv, E_inv, c_inv = 1.0 / D, 1.0 / E, 1.0 / c
+    lT, uT = l.T, u.T
+    q_s = (c * op.D)[:, None] * q.T
+    l_s = E * lT
+    u_s = E * uT
+    if op.n_ball:
+        E_ball = op.E[m - op.n_ball]  # one scale for the ball rows
+        ball_c_s = E_ball * ball_c.T
+        ball_r_s = E_ball * ball_r
+    else:
+        ball_c_s = ball_r_s = None
+
+    def shrink_for(rho_vec):
+        return None if soft_mu is None else soft_mu[:, None] / (E * rho_vec)
+
+    def rho_parts(idx):  # the lanes' rho rows, (m, B) (R = 1: (m, 1))
+        if R == 1:
+            return op.rho_vecs[0][:, None], op.rho_invs[0][:, None]
+        i = idx.long()
+        return op.rho_vecs[i].T, op.rho_invs[i].T
+
+    idx0 = start_rho_index(config) if R > 1 else 0
+    log_grid = torch.log(op.rho_grid)
+    x = torch.zeros((n, B), dtype=f, device=dev) if z0 is None else z0.T / D
+    y = torch.zeros((m, B), dtype=f, device=dev) if y0 is None else (c * y0.T) / E
+    ax = op.A_s @ x
+    idx = torch.full((B,), idx0, dtype=torch.int32, device=dev)
+    rho_vec, rho_inv = rho_parts(idx)
+    s = _project(op, ax + rho_inv * y, l_s, u_s, ball_c_s, ball_r_s, shrink_for(rho_vec))
+
+    # A_s' diag(rho_r), (R, n, m): every candidate x-update from products
+    # that all lanes share, in place of a gathered (B, n, n) K^-1
+    AtRho = op.A_s.T[None] * op.rho_vecs[:, None, :]
+
+    def step(x, s, y, ax, sel, rho_vec, rho_inv, shrink):
+        if R == 1:
+            rhs = sigma * x - q_s + op.A_s.T @ (rho_vec * s - y)
+            xt = op.K_invs[0] @ rhs
+            for _ in range(config.refine_steps):
+                xt = xt + op.K_invs[0] @ (rhs - op.Ks[0] @ xt)
+        else:
+            base = sigma * x - q_s - op.A_s.T @ y
+            rhs_r = base[None] + AtRho @ s  # (R, n, B)
+            xt_r = op.K_invs @ rhs_r
+            for _ in range(config.refine_steps):
+                xt_r = xt_r + op.K_invs @ (rhs_r - op.Ks @ xt_r)
+            xt = torch.gather(xt_r, 0, sel.expand(1, n, B))[0]
+        st = op.A_s @ xt
+        x_new = alpha * xt + one_m_alpha * x
+        v = alpha * st + one_m_alpha * s  # relaxed with the projected variable
+        s_new = _project(op, v + rho_inv * y, l_s, u_s, ball_c_s, ball_r_s, shrink)
+        y_new = y + rho_vec * (v - s_new)
+        ax_new = alpha * st + one_m_alpha * ax  # A x_new, for the residuals
+        return x_new, s_new, y_new, ax_new
+
+    amax = lambda t: t.abs().amax(0)
+    dual_norm_q = amax(D_inv * q_s)
+    eps_i = config.eps_infeas
+    inf = torch.tensor(float("inf"), dtype=f, device=dev)
+    fin_l, fin_u = torch.isfinite(lT), torch.isfinite(uT)
+
+    def diagnostics(x, s, y, ax, x_prev, y_prev):
+        """Unscaled residuals, convergence, the infeasibility certificates
+        and the NaN guard per lane; the normalized residual ratio for the
+        rho rule."""
+        r_prim = amax(E_inv * (ax - s))
+        Px = op.P_s @ x
+        Aty = op.A_s.T @ y
+        r_dual = c_inv * amax(D_inv * (Px + q_s + Aty))
+        prim_norm = torch.maximum(amax(E_inv * ax), amax(E_inv * s))
+        dual_norm = c_inv * torch.maximum(
+            torch.maximum(amax(D_inv * Px), amax(D_inv * Aty)), dual_norm_q
+        )
+        converged = (r_prim <= config.eps_abs + config.eps_rel * prim_norm) & (
+            r_dual <= config.eps_abs + config.eps_rel * dual_norm
+        )
+        # OSQP section 5.2: rho <- rho sqrt(normalized rp / normalized rd)
+        ratio = (r_prim / torch.clamp_min(prim_norm, 1e-12)) / torch.clamp_min(
+            r_dual / torch.clamp_min(dual_norm, 1e-12), 1e-12
+        )
+        # primal infeasibility certificate from the dual delta (OSQP 3.4)
+        dys = y - y_prev
+        dy = E * dys * c_inv
+        dy_norm = amax(dy)
+        Atdy = c_inv * amax(D_inv * (op.A_s.T @ dys))
+        dy_plus = torch.clamp_min(dy, 0.0)
+        dy_minus = torch.clamp_max(dy, 0.0)
+        support = (
+            torch.where(dy_plus > 0, torch.where(fin_u, uT * dy_plus, inf), 0.0)
+            + torch.where(dy_minus < 0, torch.where(fin_l, lT * dy_minus, inf), 0.0)
+        ).sum(0)
+        prim_infeas = (
+            (dy_norm > 1e-12) & (Atdy <= eps_i * dy_norm) & (support <= -eps_i * dy_norm)
+        )
+        # dual infeasibility certificate from the primal delta
+        dxs = x - x_prev
+        dx_norm = amax(D * dxs)
+        Pdx = c_inv * amax(D_inv * (op.P_s @ dxs))
+        qdx = c_inv * (q_s * dxs).sum(0)
+        Adx = E_inv * (op.A_s @ dxs)
+        dir_ok = (
+            (~fin_u | (Adx <= eps_i * dx_norm)) & (~fin_l | (Adx >= -eps_i * dx_norm))
+        ).all(0)
+        dual_infeas = (
+            (dx_norm > 1e-12) & (Pdx <= eps_i * dx_norm) & (qdx <= -eps_i * dx_norm) & dir_ok
+        )
+        # a poisoned iterate surfaces as its own status (NaN compares false,
+        # so it cannot pass as converged)
+        finite = torch.isfinite(x.sum(0) + y.sum(0) + s.sum(0))
+        status = torch.where(
+            ~finite, STATUS_NUMERIC_ERROR,
+            torch.where(converged, STATUS_CONVERGED,
+                        torch.where(prim_infeas, STATUS_PRIMAL_INFEASIBLE,
+                                    torch.where(dual_infeas, STATUS_DUAL_INFEASIBLE,
+                                                STATUS_MAX_ITER))),
+        ).to(torch.int32)
+        done = converged | prim_infeas | dual_infeas | ~finite
+        return r_prim, r_dual, done, status, ratio
+
+    def adapt_rho(idx, ratio, it, done):
+        """The grid rho nearest rho sqrt(ratio), on the first check at or
+        after each ``adapt_interval`` boundary."""
+        if R == 1 or not config.adapt_interval:
+            return idx
+        if it % config.adapt_interval >= config.check_interval:
+            return idx
+        log_target = log_grid[idx.long()] + 0.5 * torch.log(torch.clamp(ratio, 1e-8, 1e8))
+        # argmin returns the first minimum, as jnp.argmin does
+        idx_new = torch.argmin((log_grid[None, :] - log_target[:, None]).abs(), dim=1)
+        return torch.where(done, idx, idx_new.to(torch.int32))
+
+    if config.adaptive:
+        ck = max(1, int(config.check_interval))
+        iters = torch.zeros((B,), dtype=torch.int32, device=dev)
+        rp = torch.full((B,), float("inf"), dtype=f, device=dev)
+        rd = torch.full_like(rp, float("inf"))
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        status = torch.full((B,), STATUS_MAX_ITER, dtype=torch.int32, device=dev)
+        it = 0
+        while it < config.max_iter and not bool(done.all()):
+            rho_vec, rho_inv = rho_parts(idx)
+            shrink = shrink_for(rho_vec)
+            sel = idx.long()[None, None, :]
+            xn, sn, yn, axn = x, s, y, ax
+            for _ in range(ck):
+                xn, sn, yn, axn = step(xn, sn, yn, axn, sel, rho_vec, rho_inv, shrink)
+            rp2, rd2, done2, status2, ratio = diagnostics(xn, sn, yn, axn, x, y)
+            idx2 = adapt_rho(idx, ratio, it + ck, done2)
+            # lanes already done keep everything
+            keep = done
+            x, s, y, ax = (torch.where(keep[None], a, b) for a, b in ((x, xn), (s, sn), (y, yn), (ax, axn)))
+            idx = torch.where(keep, idx, idx2)
+            iters = torch.where(keep, iters, it + ck).to(torch.int32)
+            rp = torch.where(keep, rp, rp2)
+            rd = torch.where(keep, rd, rd2)
+            status = torch.where(keep, status, status2)
+            done = keep | done2
+            it += ck
+    else:
+        # fixed cost: no checks inside, the starting rho, one check at the
+        # end against the iterate one step before
+        shrink = shrink_for(rho_vec)
+        sel = idx.long()[None, None, :]
+        for _ in range(config.max_iter - 1):
+            x, s, y, ax = step(x, s, y, ax, sel, rho_vec, rho_inv, shrink)
+        x_p, y_p = x, y
+        x, s, y, ax = step(x, s, y, ax, sel, rho_vec, rho_inv, shrink)
+        rp, rd, _, status, _ = diagnostics(x, s, y, ax, x_p, y_p)
+        iters = torch.full((B,), config.max_iter, dtype=torch.int32, device=dev)
+
+    return AdmmResult(
+        z=(D * x).T.contiguous(),
+        y=(E * y * c_inv).T.contiguous(),
+        s=(E_inv * s).T.contiguous(),
+        status=status,
+        iterations=iters,
+        primal_residual=rp,
+        dual_residual=rd,
+    )

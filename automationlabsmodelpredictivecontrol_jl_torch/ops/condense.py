@@ -170,6 +170,13 @@ def condense_np(
     )
 
 
+def runtime_qp_vectors(qp: CondensedQpData, e0: Tensor):
+    """Per-solve QP vectors of one initial deviation e0 (nx,): the batch
+    form at B = 1. Returns (q (n,), l (m,), u (m,), ball_c (n_ball,),
+    ball_r ())."""
+    return tuple(v[0] for v in runtime_qp_vectors_batch(qp, e0[None]))
+
+
 def runtime_qp_vectors_batch(qp: CondensedQpData, e0s: Tensor):
     """Per-solve QP vectors for a batch of initial deviations e0s (B, nx):
     three fp32 matmuls against the shared design matrices.

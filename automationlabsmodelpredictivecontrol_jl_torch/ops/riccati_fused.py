@@ -19,7 +19,9 @@ and a forward rollout over the horizon with the factors of the current rho
 - :func:`solve_sparse_fused` is the driver: a Python loop over chunks that,
   between chunks, computes the residuals, the certificate, the stall
   escalation and the batch-global rho adaptation, and freezes converged
-  lanes.
+  lanes. Its start (:func:`start`), residuals (:func:`block_residuals`)
+  and rho rule's ratio (:func:`log_ratio`) serve the per-lane engine
+  (``ops/riccati.solve_sparse``) too.
 
 On a CUDA tensor each wrapper launches its kernel and raises if it cannot;
 on a CPU tensor it runs its plain PyTorch version, which forms the same
@@ -66,7 +68,8 @@ Tensor = torch.Tensor
 __all__ = [
     "LAUNCHES", "PLAIN_CALLS", "MAX_NX", "MAX_NU", "k3_fits", "K3_ROUTES", "K3Plan",
     "k3_plan", "certificate_plan", "iterate_chunk_riccati", "iterate_chunk_riccati_plain", "rollout",
-    "certificate_terms", "certificate_terms_plain", "solve_sparse_fused",
+    "certificate_terms", "certificate_terms_plain", "start", "block_residuals", "log_ratio",
+    "solve_sparse_fused",
 ]
 
 # the widest plant the kernels' register arrays take (csrc/riccati_chunk.cuh)
@@ -495,6 +498,66 @@ def _lane_first(t: Tensor) -> Tensor:
     return t.permute(2, 0, 1).contiguous()
 
 
+def start(op: RiccatiOperator, e0s: Tensor, warm_U: Optional[Tensor],
+          warm_lam: Optional[Tuple[Tensor, Tensor]]):
+    """Both Riccati drivers' start, lane-last: e0T (nx, B), the terminal
+    ball's radius, the zero-input rollout Xbar (the certificate's anchor
+    on the dynamics), and the state (X, U, vX, vU, lamX, lamU): the warm
+    input plan (zeros where none) and its rollout, the warm duals, and the
+    projected copies."""
+    N, nu = op.N, op.nu
+    f = torch.float32
+    zeros = lambda: torch.zeros((N, nu, e0s.shape[0]), dtype=f, device=e0s.device)
+    e0T = e0s.to(f).T.contiguous()
+    ballr = ball_radius(op, e0T)
+    U = zeros() if warm_U is None else _lane_last(warm_U)
+    X = rollout(op, e0T, U)
+    if warm_lam is None:
+        lamX, lamU = torch.zeros_like(X), torch.zeros_like(U)
+    else:
+        lamX, lamU = (_lane_last(t) for t in warm_lam)
+    vX = project_X(op, X, ballr)
+    vU = torch.clamp(U, op.u_lo[:, None], op.u_hi[:, None])
+    Xbar = rollout(op, e0T, zeros())
+    return e0T, ballr, Xbar, (X, U, vX, vU, lamX, lamU)
+
+
+def _amax(t: Tensor) -> Tensor:
+    return t.abs().amax(dim=(0, 1))
+
+
+def block_residuals(op: RiccatiOperator, config: RiccatiConfig, new, vX_prev, vU_prev, rho):
+    """Per lane, after a check block that ended in ``new`` (X, U, vX, vU,
+    ...) from the copies vX_prev, vU_prev at rho (one, or one a lane): the
+    primal and dual residuals, the tolerance, and whether X and U are
+    finite."""
+    X, U, vX, vU = new[:4]
+    rp = _amax(U - vU)
+    rd = rho * _amax(vU - vU_prev)
+    if op.split_interior or op.split_terminal:
+        rp = torch.maximum(_amax(X - vX), rp)
+        rd = torch.maximum(rho * _amax(vX - vX_prev), rd)
+    scale = torch.maximum(_amax(U), torch.clamp_min(_amax(X), 1e-6))
+    tol = config.eps_abs + config.eps_rel * scale
+    finite = torch.isfinite(U.sum(dim=(0, 1)) + X.sum(dim=(0, 1)))
+    return rp, rd, tol, finite
+
+
+def log_ratio(op: RiccatiOperator, new, rp: Tensor, rd: Tensor) -> Tensor:
+    """The OSQP rule's log of (rp / prim_norm) / (rd / dual_norm) per lane,
+    clamped to [1e-8, 1e8] before the log."""
+    X, U, vX, vU, lamX, lamU = new
+    prim_norm = torch.maximum(_amax(U), _amax(vU))
+    dual_norm = _amax(lamU)
+    if op.split_interior or op.split_terminal:
+        prim_norm = torch.maximum(prim_norm, torch.maximum(_amax(X), _amax(vX)))
+        dual_norm = torch.maximum(dual_norm, _amax(lamX))
+    ratio = (rp / torch.clamp_min(prim_norm, 1e-6)) / torch.clamp_min(
+        rd / torch.clamp_min(dual_norm, 1e-6), 1e-12
+    )
+    return torch.log(torch.clamp(ratio, 1e-8, 1e8))
+
+
 def solve_sparse_fused(
     op: RiccatiOperator,
     e0s: Tensor,  # (B, nx)
@@ -513,38 +576,20 @@ def solve_sparse_fused(
     escalation and the OSQP rho rule, both batch-global, and the freezing
     of finished lanes; one host read (all lanes done?) per chunk."""
     fn = iterate_chunk_riccati if chunk_fn is None else chunk_fn
-    N, nu = op.N, op.nu
     dev = e0s.device
     B = e0s.shape[0]
-    f = torch.float32
     R = len(op.rho_grid)
     top = R - 1
     adapt = int(config.adapt_interval or 0)
     ck = max(1, int(config.check_interval))
-    split_x = op.split_interior or op.split_terminal
     grid = op.rho_tab[0]  # (R,) float32
     log_grid = torch.log(grid)
-    ulo, uhi = op.u_lo[:, None], op.u_hi[:, None]
 
-    e0T = e0s.to(f).T.contiguous()  # (nx, B)
-    ballr = ball_radius(op, e0T)
-    U0 = torch.zeros((N, nu, B), dtype=f, device=dev) if warm_U is None else _lane_last(warm_U)
-    X0 = rollout(op, e0T, U0)
-    if warm_lam is None:
-        lamX0 = torch.zeros_like(X0)
-        lamU0 = torch.zeros_like(U0)
-    else:
-        lamX0, lamU0 = (_lane_last(t) for t in warm_lam)
-    vX0 = project_X(op, X0, ballr)
-    vU0 = torch.clamp(U0, ulo, uhi)
-    # the zero-input rollouts: the certificate's anchor on the dynamics
-    Xbar = rollout(op, e0T, torch.zeros((N, nu, B), dtype=f, device=dev))
-
-    amax = lambda t: t.abs().amax(dim=(0, 1))
-    X, U, vX, vU, lamX, lamU = X0, U0, vX0, vU0, lamX0, lamU0
+    e0T, ballr, Xbar, state = start(op, e0s, warm_U, warm_lam)
+    X, U, vX, vU, lamX, lamU = state
     ridx = torch.full((1,), _initial_ridx(op, config), dtype=torch.int32, device=dev)
     iters = torch.zeros((B,), dtype=torch.int32, device=dev)
-    rp = torch.full((B,), float("inf"), dtype=f, device=dev)
+    rp = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
     rd = torch.full_like(rp, float("inf"))
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     stall = torch.zeros_like(iters)
@@ -552,25 +597,13 @@ def solve_sparse_fused(
     infeas = torch.zeros_like(done)
     it = 0
     while it < config.max_iter and not bool(done.all()):
-        vX_prev, vU_prev = vX, vU
         rho = grid[ridx.long()]  # (1,)
-        Xn, Un, vXn, vUn, lamXn, lamUn = fn(op, ridx, e0T, ballr, vX, vU, lamX, lamU, ck)
+        out = fn(op, ridx, e0T, ballr, vX, vU, lamX, lamU, ck)
         keep = done[None, None, :]
-        Xn = torch.where(keep, X, Xn)
-        Un = torch.where(keep, U, Un)
-        vXn = torch.where(keep, vX, vXn)
-        vUn = torch.where(keep, vU, vUn)
-        lamXn = torch.where(keep, lamX, lamXn)
-        lamUn = torch.where(keep, lamU, lamUn)
+        new = [torch.where(keep, a, b) for a, b in zip((X, U, vX, vU, lamX, lamU), out)]
+        Xn, Un, vXn, vUn, lamXn, lamUn = new
 
-        rp2 = amax(Un - vUn)
-        rd2 = rho * amax(vUn - vU_prev)
-        if split_x:
-            rp2 = torch.maximum(amax(Xn - vXn), rp2)
-            rd2 = torch.maximum(rho * amax(vXn - vX_prev), rd2)
-        scale = torch.maximum(amax(Un), torch.clamp_min(amax(Xn), 1e-6))
-        tol = config.eps_abs + config.eps_rel * scale
-        finite = torch.isfinite(Un.sum(dim=(0, 1)) + Xn.sum(dim=(0, 1)))
+        rp2, rd2, tol, finite = block_residuals(op, config, new, vX, vU, rho)
         # the per-lane certificate verdict; a stall only escalates rho
         ortho, support, dnorm = certificate_terms(op, lamXn, lamX, lamUn, lamU, Xbar, ballr)
         eps = config.eps_infeas
@@ -589,25 +622,16 @@ def solve_sparse_fused(
         # log-ratio over the lanes still active picks the next grid entry
         ridx2 = ridx
         if R > 1 and adapt and (it + ck) % adapt < ck:
-            prim_norm = torch.maximum(amax(Un), amax(vUn))
-            dual_norm = amax(lamUn)
-            if split_x:
-                prim_norm = torch.maximum(prim_norm, torch.maximum(amax(Xn), amax(vXn)))
-                dual_norm = torch.maximum(dual_norm, amax(lamXn))
-            ratio = (rp2 / torch.clamp_min(prim_norm, 1e-6)) / torch.clamp_min(
-                rd2 / torch.clamp_min(dual_norm, 1e-6), 1e-12
-            )
-            log_ratio = torch.log(torch.clamp(ratio, 1e-8, 1e8))
             active = ~done2
             n_act = torch.clamp_min(active.sum(), 1)
-            mean_lr = torch.where(active, log_ratio, 0.0).sum() / n_act
+            mean_lr = torch.where(active, log_ratio(op, new, rp2, rd2), 0.0).sum() / n_act
             log_t = torch.log(rho) + 0.5 * mean_lr
             ridx_t = torch.argmin((log_grid - log_t).abs()).to(torch.int32).view(1)
             ridx2 = torch.where(active.any(), ridx_t, ridx)
         # stall escalation wins the block over the adaptation rule
         ridx = torch.where(esc, torch.clamp_max(ridx2 + 1, top), ridx2)
 
-        X, U, vX, vU, lamX, lamU = Xn, Un, vXn, vUn, lamXn, lamUn
+        X, U, vX, vU, lamX, lamU = new
         rp, rd, done = rp2, rd2, done2
         it += ck
 
@@ -616,7 +640,7 @@ def solve_sparse_fused(
         STATUS_NUMERIC_ERROR,
         torch.where(infeas, STATUS_PRIMAL_INFEASIBLE, torch.where(done, STATUS_CONVERGED, STATUS_MAX_ITER)),
     ).to(torch.int32)
-    U_out = torch.clamp(U, ulo, uhi)
+    U_out = torch.clamp(U, op.u_lo[:, None], op.u_hi[:, None])
     return (
         _lane_first(X),
         _lane_first(U_out),

@@ -5,6 +5,7 @@ from .scenarios import (
     fused_supported,
     init_warm_batch,
     make_escalated_solver,
+    solve_batch,
     solve_batch_auto,
     solve_batch_escalated,
     solve_batch_fused,
@@ -17,6 +18,7 @@ __all__ = [
     "fused_supported",
     "init_warm_batch",
     "make_escalated_solver",
+    "solve_batch",
     "solve_batch_auto",
     "solve_batch_escalated",
     "solve_batch_fused",

@@ -8,14 +8,17 @@ linear engine and the Riccati engine on one device:
   terminal rows after the input boxes), K4 or K5 for a dense one (rows
   that are not box-first), K3 for a Riccati engine (the long-horizon
   sparse solve);
+- :func:`solve_batch` solves a batch on the engines themselves
+  (``runtime.solve_lanes``): the general ADMM engine for a condensed
+  engine, the per-lane Riccati engine (on K3) for a Riccati one;
 - :func:`solve_batch_auto` routes a batch to the fused path wherever a
-  kernel takes the shape (the vmapped general engine ``solve_batch`` is
-  ROADMAP Queue 1, so other shapes raise NotImplementedError);
+  kernel takes the shape and to :func:`solve_batch` elsewhere (soft or
+  ball rows, operators wider than the kernels take);
 - :func:`solve_batch_escalated` and :func:`make_escalated_solver` close the
   straggler tail in tiers: the controller's config on the fused kernel,
   then the unconverged lanes gathered on the device into a static bucket
-  and continued on a wider rho grid with refinement, then the host f64
-  oracle;
+  and continued on a wider rho grid with refinement (a Riccati engine's
+  lanes restarted on the per-lane engine), then the host f64 oracle;
 - :func:`closed_loop_batch` runs the receding-horizon loop over a plant.
 """
 
@@ -32,12 +35,12 @@ from ..design import LinearEngine, MpcController, RiccatiEngine
 from ..ops import admm as admm_ops
 from ..ops import admm_fused, riccati_fused
 from ..ops.condense import runtime_qp_vectors_batch
+from ..runtime import linear_solution, riccati_solution, riccati_warm, solve_lanes
 from ..solvers.sqp import true_objective
 from ..types import (
     STATUS_CONVERGED,
     STATUS_MAX_ITER,
     STATUS_NUMERIC_ERROR,
-    STATUS_PRIMAL_INFEASIBLE,
     MpcSolution,
     TensorRecord,
 )
@@ -88,19 +91,20 @@ def _redispatch(status: Tensor) -> Tensor:
     return (status == STATUS_MAX_ITER) | (status == STATUS_NUMERIC_ERROR)
 
 
-def _x0_outside_state_box(controller: MpcController, x0s: Tensor) -> Tensor:
-    """Lanes whose x0 lies outside the plant's state box. The reference
-    also poses the box row on the (fixed) first state; with x0 pinned it
-    is a pure feasibility check, applied wherever the state constraint is
-    hard (the JAX package's runtime and fused Riccati paths; its fused
-    condensed path skips it, ROADMAP Queue 3)."""
-    if controller.system is None:
-        raise ValueError(
-            "a state-constrained controller without a plant: the state box "
-            "that x0 is checked against is unknown"
-        )
-    X = controller.system.X
-    return ~torch.all((x0s >= X.lo) & (x0s <= X.hi), dim=1)
+def solve_batch(
+    controller: MpcController,
+    x0s: Tensor,  # (B, nx)
+    warm_z: Optional[Tensor] = None,  # (B, n)
+    warm_y: Optional[Tensor] = None,  # (B, m)
+) -> Tuple[MpcSolution, Tensor, Tensor, BatchDiagnostics]:
+    """Batched solves on the controller's engine itself, on the device of
+    ``x0s``: the general ADMM engine (a condensed engine) or the per-lane
+    Riccati engine (a Riccati one), the JAX package's vmapped
+    ``solve_once``. Same contract as :func:`solve_batch_fused`."""
+    if warm_z is None or warm_y is None:
+        warm_z, warm_y = init_warm_batch(controller, x0s.shape[0])
+    sol, wz, wy = solve_lanes(controller, x0s, warm_z, warm_y)
+    return sol, wz, wy, _diagnostics(sol)
 
 
 def solve_batch_fused(
@@ -134,40 +138,13 @@ def solve_batch_fused(
     if warm_z is None or warm_y is None:
         warm_z, warm_y = init_warm_batch(controller, B)
 
-    qp = engine.qp
-    tuning = controller.tuning
-    refs = tuning.references
-    e0s = x0s - refs.x[:, 0][None]
-    qv, lv, uv, _, _ = runtime_qp_vectors_batch(qp, e0s)
-
+    e0s = x0s - controller.tuning.references.x[:, 0][None]
+    qv, lv, uv, _, _ = runtime_qp_vectors_batch(engine.qp, e0s)
     z, y, _, status, iters, rp, rd = admm_fused.solve_batch_fused(
         engine.op, qv, lv, uv, warm_z, warm_y, config=engine.config,
         chunk_fn=chunk_fn,
     )
-    if tuning.state_constraint:
-        status = torch.where(
-            _x0_outside_state_box(controller, x0s),
-            STATUS_PRIMAL_INFEASIBLE, status,
-        ).to(torch.int32)
-
-    N, nx, nu = qp.N, qp.nx, qp.nu
-    ex_tail = (z @ qp.G_flat.T + e0s @ qp.F.reshape(N * nx, nx).T).reshape(B, N, nx)
-    ex = torch.cat([e0s[:, None], ex_tail], dim=1)  # (B, N+1, nx)
-    eu = z.reshape(B, N, nu)
-    xs = ex + refs.x.T[None]
-    us = eu + refs.u.T[None]
-    sol = MpcSolution(
-        x=xs.transpose(1, 2),
-        e_x=ex.transpose(1, 2),
-        u=us.transpose(1, 2),
-        e_u=eu.transpose(1, 2),
-        status=status,
-        iterations=iters,
-        primal_residual=rp,
-        dual_residual=rd,
-        objective=true_objective(tuning, xs, us),
-    )
-    wz_next = torch.cat([eu[:, 1:], eu[:, -1:]], dim=1).reshape(B, -1)
+    sol, wz_next = linear_solution(controller, x0s, z, status, iters, rp, rd)
     return sol, wz_next, y, _diagnostics(sol)
 
 
@@ -181,38 +158,13 @@ def _solve_batch_fused_riccati(
     """Batched sparse solves on K3: the deviation shift, the x0-box
     status, the objective, and the shifted warm carry of U, lamX, lamU."""
     engine = controller.engine
-    op = engine.op
-    N, nx, nu = op.N, op.nx, op.nu
-    B = x0s.shape[0]
-    tuning = controller.tuning
-    refs = tuning.references
-    e0s = x0s - refs.x[:, 0][None]
-    lamX = warm_y[:, : (N + 1) * nx].reshape(B, N + 1, nx)
-    lamU = warm_y[:, (N + 1) * nx :].reshape(B, N, nu)
-    X, U, status, iters, rp, rd, (lamX_f, lamU_f) = riccati_fused.solve_sparse_fused(
-        op, e0s, warm_U=warm_z.reshape(B, N, nu), warm_lam=(lamX, lamU),
-        config=engine.config, chunk_fn=chunk_fn,
+    e0s = x0s - controller.tuning.references.x[:, 0][None]
+    U0, lams0 = riccati_warm(engine.op, warm_z, warm_y)
+    X, U, status, iters, rp, rd, lams = riccati_fused.solve_sparse_fused(
+        engine.op, e0s, warm_U=U0, warm_lam=lams0, config=engine.config, chunk_fn=chunk_fn,
     )
-    if tuning.state_constraint:
-        status = torch.where(
-            _x0_outside_state_box(controller, x0s), STATUS_PRIMAL_INFEASIBLE, status
-        ).to(torch.int32)
-    xs = X + refs.x.T[None]  # (B, N+1, nx)
-    us = U + refs.u.T[None]  # (B, N, nu)
-    sol = MpcSolution(
-        x=xs.transpose(1, 2),
-        e_x=X.transpose(1, 2),
-        u=us.transpose(1, 2),
-        e_u=U.transpose(1, 2),
-        status=status,
-        iterations=iters,
-        primal_residual=rp,
-        dual_residual=rd,
-        objective=true_objective(tuning, xs, us),
-    )
-    shift = lambda t: torch.cat([t[:, 1:], t[:, -1:]], dim=1).reshape(B, -1)
-    wy = torch.cat([shift(lamX_f), shift(lamU_f)], dim=1)
-    return sol, shift(U), wy, _diagnostics(sol)
+    sol, wz, wy = riccati_solution(controller, x0s, X, U, status, iters, rp, rd, lams)
+    return sol, wz, wy, _diagnostics(sol)
 
 
 def fused_supported(controller: MpcController) -> bool:
@@ -245,24 +197,18 @@ def fused_supported(controller: MpcController) -> bool:
     return admm_fused.k5_fits(n, m, R)
 
 
-_NO_KERNEL = (
-    "no ported kernel takes this controller's QP (soft or ball rows, or an "
-    "operator wider than its kernel takes); the general batched engine "
-    "solve_batch is not ported yet (ROADMAP Queue 1)"
-)
-
-
 def solve_batch_auto(
     controller: MpcController,
     x0s: Tensor,
     warm_z: Optional[Tensor] = None,
     warm_y: Optional[Tensor] = None,
 ) -> Tuple[MpcSolution, Tensor, Tensor, BatchDiagnostics]:
-    """Batch solve on the fused kernel where :func:`fused_supported`;
-    same contract as :func:`solve_batch_fused`."""
-    if not fused_supported(controller):
-        raise NotImplementedError(_NO_KERNEL)
-    return solve_batch_fused(controller, x0s, warm_z, warm_y)
+    """Batch solve on the fused kernel where :func:`fused_supported`, on
+    :func:`solve_batch` elsewhere; same contract as
+    :func:`solve_batch_fused`."""
+    if fused_supported(controller):
+        return solve_batch_fused(controller, x0s, warm_z, warm_y)
+    return solve_batch(controller, x0s, warm_z, warm_y)
 
 
 def escalation_controller(
@@ -359,23 +305,18 @@ def solve_batch_escalated(
 ) -> Tuple[MpcSolution, Tensor, Tensor, BatchDiagnostics]:
     """Two-tier batch solve on the device.
 
-    Tier 1 runs the controller's config on its fused kernel (K1, K2, K4 or
-    K5).
-    The straggler lanes
-    (MAX_ITER / NUMERIC_ERROR) are gathered on the device into a static
-    ``bucket`` (a stable partition: stragglers first, in lane order) and
-    re-solved on the fallback's operator on the same kernel, continuing
-    from the tier-1
-    iterate. Results are written back only over lanes that were
-    stragglers; their iteration counts continue tier 1's. Stragglers beyond
-    the bucket stay MAX_ITER for the host tier of make_escalated_solver.
+    Tier 1 runs the controller's config through :func:`solve_batch_auto`.
+    The straggler lanes (MAX_ITER / NUMERIC_ERROR) are gathered on the
+    device into a static ``bucket`` (a stable partition: stragglers first,
+    in lane order) and re-solved on the fallback: a condensed engine's
+    lanes continue from the tier-1 iterate on the fallback's fused kernel
+    where one takes it, else on :func:`solve_batch`; a Riccati engine's
+    lanes (whose warm pair is a shifted carry, not an iterate) restart from
+    the original warm pair on the per-lane engine. Results are written back
+    only over lanes that were stragglers; their iteration counts continue
+    tier 1's. Stragglers beyond the bucket stay MAX_ITER for the host tier
+    of make_escalated_solver.
     """
-    if isinstance(controller.engine, RiccatiEngine):
-        raise NotImplementedError(
-            "escalation of a Riccati engine: its tier 2 is the vmapped "
-            "per-lane engine solve_batch (solve_sparse), which is not ported "
-            "yet (ROADMAP Queue 1, 'Riccati engine'); use solve_batch_auto"
-        )
     B = x0s.shape[0]
     bucket = min(bucket, B)
     sol, wz, wy, _ = solve_batch_auto(controller, x0s, warm_z, warm_y)
@@ -385,10 +326,12 @@ def solve_batch_escalated(
     gidx = torch.argsort((~bad).to(torch.int8), stable=True)[:bucket]
     bad_g = bad[gidx]
 
-    z0, y0 = _gather_iterate(sol, wy, warm_z, warm_y, gidx)
-    if not fused_supported(fallback):
-        raise NotImplementedError(f"the fallback: {_NO_KERNEL}")
-    sol2, wz2, wy2, _ = solve_batch_fused(fallback, x0s[gidx], z0, y0)
+    if isinstance(controller.engine, RiccatiEngine):
+        sol2, wz2, wy2, _ = solve_batch(fallback, x0s[gidx], warm_z[gidx], warm_y[gidx])
+    else:
+        z0, y0 = _gather_iterate(sol, wy, warm_z, warm_y, gidx)
+        tier2 = solve_batch_fused if fused_supported(fallback) else solve_batch
+        sol2, wz2, wy2, _ = tier2(fallback, x0s[gidx], z0, y0)
     sol2 = sol2.replace(iterations=sol2.iterations + sol.iterations[gidx])
 
     def merge(old, new):

@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's three kernel paths at full size, through the entry
-points a user calls (``proceed_controller(..., device=card)``, then
-``parallel``):
+Drives the port's kernel paths and its general engines at full size,
+through the entry points a user calls (``proceed_controller(...,
+device=card)``, then ``parallel`` and ``step``):
 
 - K1, the box-only main path: the QTP plant at horizon 20 (n = m = 40),
   16384 scenarios, tier 1 on the diagonal-A kernel K1 (rho grid (1, 10), no
@@ -39,7 +39,16 @@ points a user calls (``proceed_controller(..., device=card)``, then
   h50 state box on K5 (its stream route), through
   ``parallel.solve_batch_fused``, each h20 cell held to the K2 solve of
   the same QP. K4 and K5 are two instantiations of the kernels of
-  ``csrc/admm_perr.cu``.
+  ``csrc/admm_perr.cu``;
+- the general engines and the runtime: the verify skill's closed loop of
+  ``step`` (h20, input boxes, the default AdmmConfig, 50 steps on the true
+  plant) on the general ADMM engine, ``parallel.solve_batch`` at B = 1, 8
+  and 128 against the QTP's 5 s sample time, fused against general at
+  B = 4096 (the default config) and 16384 (tier 1's), the contractive
+  terminal and soft state rows (no kernel takes them) through
+  ``solve_batch_auto``, the per-lane Riccati engine on K3 (``step`` at
+  h500 and B = 1, and tier 2 of ``solve_batch_escalated`` on the h500
+  cell), and the general engine on the card against the CPU.
 
 Phases (any failure raises and exits non-zero):
 1. the card: its name, count, and power limit from nvidia-smi;
@@ -50,7 +59,9 @@ Phases (any failure raises and exits non-zero):
    main-path shapes (K1 at tier 1's 16384 lanes and the closed loop's 4096
    and at tier 2's bucket, K2 at every tail the paths give it, each with
    random rho indices and with one index for all lanes, then both at
-   ragged batches, each with its k1_plan or k2_plan line; K3 at h500 and at one h50
+   ragged batches, each with its k1_plan or k2_plan line, and K1 at the
+   default config's R = 5 with one refinement (the general phase's A/B);
+   K3 at h500 (1024 lanes, and the runtime's one lane) and at one h50
    shape per branch of the kernel, then at the shapes that take the other
    routes of its plan: h500 with the state box, a ragged batch, longer
    horizons, an (8, 4) and a (16, 8) plant; K4 at the h20 equality
@@ -65,7 +76,8 @@ Phases (any failure raises and exits non-zero):
    (chain_floor_ms);
 4. each path, with the launch counts set to 0 just before it and read
    just after, showing that it went through its kernel and never through
-   a plain version;
+   a plain version (the general engines' phase: K1 on the fused side of
+   its A/B, K3 and its recurrence kernels in the per-lane engine);
 5. where the time goes in each path's cells (torch.profiler: device time
    per solve, the kernels' share of it, the card's idle share); then
    re-solves of 256 lanes with the plain versions (K3's at h50, K4's at
@@ -105,6 +117,7 @@ B_MAIN, BUCKET, B_CL, CL_STEPS = 16384, 512, 4096, 5
 B_SLICE, B_RESOLVE, REPS, REPS_SC = 2048, 256, 20, 5
 B_H500, B_H50, REPS_RICCATI = 1024, 4096, 10
 RAGGED = (1, 33, 77, 1000)  # tier-2 buckets of K1 and K2
+VERIFY_STEPS, RICCATI_STEPS, REPS_AB = 50, 5, 5  # the general engine's phase
 
 
 def log(**kv):
@@ -691,6 +704,169 @@ def kernel_entry(name, source, replaces, launches, shapes):
     }
 
 
+def percentiles_ms(lat):
+    import numpy as np
+
+    return float(np.percentile(lat, 50)) * 1e3, float(np.percentile(lat, 99)) * 1e3
+
+
+def general_phase(dev, plant, ctrl, ctrl_def, ctrl_sc, ctrl_h500, suite_cfg, x0s, x_h500,
+                  x_suite):
+    """The general ADMM engine, the per-lane Riccati engine and the runtime
+    on the card, counted from zero by the caller:
+
+    - the verify skill's drive: ``step`` 50 times on the true plant at h20
+      (input boxes, the default AdmmConfig), every step converged, latency
+      at B = 1;
+    - ``parallel.solve_batch`` (the general engine) at B = 1, 8 and 128,
+      p50 and p99 against the QTP's 5 s sample time;
+    - fused against general on the same inputs: the h20 box-only
+      controller at the default config (R = 5, one refinement) at B =
+      4096, the tier-1 headline config at B = 16384, and the h500 Riccati
+      cell (K3's fused driver, one rho for the batch, against the per-lane
+      engine);
+    - the shapes no kernel takes (the contractive terminal, soft state
+      rows) through ``solve_batch_auto`` on 2048 of the suite's states;
+    - the per-lane Riccati engine on K3: ``step`` 5 times at h500 and B = 1,
+      and ``solve_batch_escalated`` on the h500 cell's 1024 states (tier 2
+      restarts a 256-lane bucket on the per-lane engine);
+    - the general engine on the card against the same function on the CPU
+      (256 lanes of the h20 state box): the check that catches a TF32
+      product. Returns the K3 launches of each Riccati path."""
+    import numpy as np
+    import torch
+
+    from automationlabsmodelpredictivecontrol_jl_torch import parallel, proceed_controller, runtime
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+    from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig
+
+    design = lambda cfg, **kw: proceed_controller(
+        plant, "model_predictive_control", 20, 5.0, [0.65] * 4, [1.2] * 2,
+        admm_config=cfg, device=dev, **kw,
+    )
+
+    def drive(c, x, steps):
+        """step in a closed loop on the true plant: statuses, iterations,
+        seconds per step (host clock, the status read ends each)."""
+        st, its, lat = [], [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            c, sol = runtime.step(c, x)
+            st.append(int(sol.status))
+            lat.append(time.perf_counter() - t0)
+            its.append(int(sol.iterations))
+            x = qtp.qtp_discrete_step(x, sol.u[:, 0])
+        if not bool(torch.isfinite(x).all()):
+            raise RuntimeError("the closed loop of step left the plant's state non-finite")
+        return st, its, np.asarray(lat), x
+
+    seconds, t_part = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t_part
+        now = time.perf_counter()
+        seconds[part] = now - t_part
+        t_part = now
+
+    st, its, lat, x_end = drive(ctrl_def, torch.full((4,), 0.6, device=dev), VERIFY_STEPS)
+    p50, p99 = percentiles_ms(lat)
+    log(phase="step_loop", engine="general (condensed h20, default config)", B=1,
+        steps=VERIFY_STEPS, statuses=st, iterations=its, step_p50_ms=p50, step_p99_ms=p99,
+        sample_time_ms=5000.0, x_end=x_end.cpu().tolist())
+    if any(s != 0 for s in st):
+        raise RuntimeError(f"a step of the verify drive did not converge: {st}")
+
+    for B in (1, 8, 128):
+        x = torch.from_numpy(bench_x0s(B)).to(dev)
+        (sol, _, _, d), lat = timed(lambda x=x: parallel.solve_batch(ctrl_def, x), REPS)
+        check_solution(sol, B, 20, f"the general engine at B={B}")
+        p50, p99 = percentiles_ms(lat)
+        log(phase="latency", engine="general", B=B, batch_p50_ms=p50, batch_p99_ms=p99,
+            sample_time_ms=5000.0, p99_share_of_sample_time=p99 / 5000.0,
+            converged_fraction=int(d.n_converged) / B, mean_iterations=float(d.mean_iterations))
+
+    lap("step_loop and latency")
+    for cell, c, x, N in (("h20-default-B4096", ctrl_def, x0s[:B_CL], 20),
+                          ("h20-tier1-B16384", ctrl, x0s[:B_MAIN], 20),
+                          ("riccati-h500-B1024", ctrl_h500, x_h500, 500)):
+        B = int(x.shape[0])
+        if not parallel.fused_supported(c):
+            raise RuntimeError(f"{cell}: expected a kernel to take the fused side")
+        for path, fn in (("fused", parallel.solve_batch_fused), ("general", parallel.solve_batch),
+                         ("general", parallel.solve_batch), ("fused", parallel.solve_batch_fused)):
+            (sol, _, _, d), lat = timed(lambda c=c, x=x, fn=fn: fn(c, x), REPS_AB)
+            check_solution(sol, B, N, f"{cell} {path}")
+            p50, p99 = percentiles_ms(lat)
+            log(phase="fused_vs_general", cell=cell, path=path, B=B,
+                R=len(c.engine.op.rho_grid), solves_per_s=B / float(np.median(lat)),
+                batch_p50_ms=p50, batch_p99_ms=p99, mean_iterations=float(d.mean_iterations),
+                converged_fraction=int(d.n_converged) / B)
+    lap("fused_vs_general")
+
+    for kind, kw in (("contractive", dict(mpc_terminal_ingredient="contractive")),
+                     ("soft", dict(mpc_soft_state_constraint=1e3))):
+        c = design(suite_cfg, **kw)
+        if parallel.fused_supported(c):
+            raise RuntimeError(f"the {kind} controller is expected to take no kernel")
+        before = dict(admm_fused.LAUNCHES)
+        (sol, _, _, d), lat = timed(lambda c=c: parallel.solve_batch_auto(c, x_suite), REPS_SC)
+        check_solution(sol, B_SLICE, 20, f"the {kind} controller")
+        if admm_fused.LAUNCHES != before:
+            raise RuntimeError(f"the {kind} controller launched a kernel")
+        p50, p99 = percentiles_ms(lat)
+        log(phase="no_kernel", controller=kind, B=B_SLICE, m=int(c.engine.op.A_s.shape[0]),
+            converged_fraction=int(d.n_converged) / B_SLICE,
+            mean_iterations=float(d.mean_iterations), batch_p50_ms=p50, batch_p99_ms=p99)
+
+    lap("no_kernel")
+    k3 = {}
+    before = admm_fused.LAUNCHES["K3"]
+    x = torch.from_numpy(suite6_x0s(1)[0]).to(dev)
+    st, its, lat, _ = drive(ctrl_h500, x, RICCATI_STEPS)
+    k3["h500 step x5 (B=1)"] = admm_fused.LAUNCHES["K3"] - before
+    p50, p99 = percentiles_ms(lat)
+    log(phase="step_loop", engine="per-lane Riccati (h500, K3)", B=1, steps=RICCATI_STEPS,
+        statuses=st, iterations=its, step_p50_ms=p50, step_p99_ms=p99,
+        k3_launches=k3["h500 step x5 (B=1)"])
+    if any(s != 0 for s in st):
+        raise RuntimeError(f"a step of the h500 drive did not converge: {st}")
+
+    fb = parallel.escalation_controller(ctrl_h500)
+    wz, wy = parallel.init_warm_batch(ctrl_h500, B_H500)
+    before = admm_fused.LAUNCHES["K3"]
+    (sol, _, _, d), lat = timed(
+        lambda: parallel.solve_batch_escalated(ctrl_h500, fb, x_h500, wz, wy), REPS_SC)
+    k3["h500 escalated (B=1024)"] = (admm_fused.LAUNCHES["K3"] - before) / (REPS_SC + 1)
+    check_solution(sol, B_H500, 500, "the escalated h500 solve")
+    p50, p99 = percentiles_ms(lat)
+    log(phase="riccati_escalated", B=B_H500, bucket=256,
+        converged_fraction=int(d.n_converged) / B_H500, mean_iterations=float(d.mean_iterations),
+        batch_p50_ms=p50, batch_p99_ms=p99,
+        k3_launches_per_solve=k3["h500 escalated (B=1024)"])
+    if int(d.n_converged) / B_H500 < CONV_OK:
+        raise RuntimeError(f"the escalated h500 solve converged too little: {int(d.n_converged)}")
+
+    lap("riccati per-lane")
+    x = x0s[:B_RESOLVE]
+    s_card, _, _, _ = parallel.solve_batch(ctrl_sc, x)
+    s_cpu, _, _, _ = parallel.solve_batch(ctrl_sc.to("cpu"), x.cpu())
+    st_card, st_cpu = s_card.status.cpu(), s_cpu.status
+    both = (st_card == 0) & (st_cpu == 0)
+    limit = (st_card == 1) | (st_cpu == 1)
+    du = float((s_card.u.cpu() - s_cpu.u).abs()[both].max()) if bool(both.any()) else 0.0
+    same = bool(torch.equal(st_card[~limit], st_cpu[~limit]))
+    log(phase="card_vs_cpu", engine="general", controller="h20 state box", lanes=B_RESOLVE,
+        converged_card=int((st_card == 0).sum()), converged_cpu=int((st_cpu == 0).sum()),
+        at_iteration_limit=int(limit.sum()), max_abs_u_diff=du,
+        statuses_equal_off_the_limit=same)
+    if du > U_OK or not same or not bool(both.any()):
+        raise RuntimeError("the general engine on the card disagrees with the CPU")
+    lap("card_vs_cpu")
+    log(phase="general_seconds", **seconds)
+    return k3
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke.py: the {PKG} package is not beside this script", file=sys.stderr)
@@ -711,6 +887,7 @@ def main():
     from automationlabsmodelpredictivecontrol_jl_torch.utils.devices import require_cuda
 
     # 1. the card
+    t_start = time.perf_counter()
     dev = require_cuda()
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -746,6 +923,9 @@ def main():
     )
     if not (ctrl.engine.op.diag_a and fb.engine.op.diag_a):
         raise RuntimeError("the h20 box-only operator is expected to be diagonal")
+    # the verify skill's controller, the default AdmmConfig (R = 5, one
+    # refinement): the general engine's phase, and K1 at its shape
+    ctrl_def = design(None)
 
     # the K2 path's controllers: the suite's config, and its state-
     # constrained counterpart; tier 2 of the latter at R=4/refine 2
@@ -822,6 +1002,7 @@ def main():
                  for c, B, seed in k1_cases for single in (False, True)]
     k1_shapes += [compare_kernel(fb, B, 25 + i, bench_x0s, plain_reps=2)
                   for i, B in enumerate(RAGGED)]
+    k1_shapes.append(compare_kernel(ctrl_def, B_CL, 32, bench_x0s, plain_reps=5))
     k1_layouts = {(r["plan"]["lanes"], r["plan"]["groups"]) for r in k1_shapes}
     for rec in k1_shapes:
         log(phase="k1_vs_plain", **rec)
@@ -846,6 +1027,8 @@ def main():
         500, 4, 2, int(ctrl_h500.engine.config.check_interval), dev)
     k3_shapes += [compare_k3(c, k, B_H500, 9 + i, suite6_x0s, plain_reps=2)
                   for i, (k, c) in enumerate(branches_h50.items())]
+    # the runtime's step on the per-lane engine: h500 at one lane
+    k3_shapes.append(compare_k3(ctrl_h500, "none", 1, 31, suite6_x0s, plain_reps=1))
     # the shapes that take the other routes of K3's plan: fewer lanes beside
     # the fp64 factors (h500 with the state box), a ragged batch, fp32
     # factors read through L1/L2 (h800) or in shared memory (h1000 at 256
@@ -1130,6 +1313,20 @@ def main():
         if not same_ok or rec["max_abs_u_diff_vs_k2"] > U_OK:
             raise RuntimeError(f"the dense solve disagrees with K2 on the same QP: {rec}")
 
+    # 4e. the general engine, the per-lane Riccati engine and the runtime,
+    # counted from zero
+    admm_fused.reset_counts()
+    k3_general = general_phase(dev, plant, ctrl, ctrl_def, ctrl_sc, ctrl_h500, suite, x0s,
+                               x_h500, x_suite)
+    general_counts = dict(admm_fused.LAUNCHES)
+    plain_general = dict(admm_fused.PLAIN_CALLS)
+    log(phase="counts", path="general", launches=general_counts,
+        k3_launches_by_riccati_path=k3_general, plain_calls=plain_general)
+    if min(general_counts[k] for k in ("K1", "K3", "rollout", "certificate")) <= 0:
+        raise RuntimeError(f"the general phase left a kernel unlaunched: {general_counts}")
+    if any(plain_general.values()):
+        raise RuntimeError("the general phase ran a plain version")
+
     # where the time goes in each cell (after the counts: these launches
     # are not the paths' runs)
     for cell, fn, reps in (
@@ -1141,6 +1338,8 @@ def main():
         ("riccati-h50-B4096", lambda: parallel.solve_batch_auto(ctrl_h50, x_h50), 3),
         *((cell, lambda c=c, x=dense_x0s[cell][0]: parallel.solve_batch_fused(c, x), 3)
           for cell, c in dense.items()),
+        ("general-h20-default-B4096", lambda: parallel.solve_batch(ctrl_def, x0s[:B_CL]), 3),
+        ("general-h20-default-B1", lambda: parallel.solve_batch(ctrl_def, x0s[:1]), 5),
     ):
         rec = profile(fn, reps)
         if cell in ricc_recs:  # the driver's device operations around each K3 launch
@@ -1169,9 +1368,10 @@ def main():
         plain_resolve(parallel, c, dense_x0s[cell][0][:B_RESOLVE], label,
                       admm_fused.chunk_fn_for(c.engine.op, plain=True, config=c.engine.config))
 
+    log(phase="seconds", total=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [
         dict(kernel_entry("admm_diag_chunk (K1)", "admm_diag.cu", f"{TPU_ADMM}:348",
-                          k1_launches, k1_shapes),
+                          k1_launches + general_counts["K1"], k1_shapes),
              smem_floor_ms=k1_shapes[0]["smem_floor_ms"],
              layouts=sorted(k1_layouts)),
         dict(kernel_entry("admm_mixed_chunk (K2)", "admm_mixed.cu", f"{TPU_ADMM}:580",
@@ -1179,13 +1379,13 @@ def main():
              smem_floor_ms=k2_shapes[0]["smem_floor_ms"],
              layouts=sorted(k2_layouts)),
         dict(kernel_entry("riccati_admm_chunk (K3)", "riccati_chunk.cuh", f"{TPU_RICCATI}:60",
-                          k3_counts["K3"], k3_shapes),
+                          k3_counts["K3"] + general_counts["K3"], k3_shapes),
              routes=sorted({rec["route"] for rec in k3_shapes})),
         # the driver's rollouts and certificate recursion (lax.scan there)
         kernel_entry("riccati_rollout (K3 driver)", "riccati_admm.cu", f"{TPU_RICCATI}:352",
-                     k3_counts["rollout"], [rollout_rec]),
-        kernel_entry("riccati_certificate (K3 driver)", "riccati_admm.cu",
-                     f"{TPU_RICCATI}:384", k3_counts["certificate"], [cert_rec]),
+                     k3_counts["rollout"] + general_counts["rollout"], [rollout_rec]),
+        kernel_entry("riccati_certificate (K3 driver)", "riccati_admm.cu", f"{TPU_RICCATI}:384",
+                     k3_counts["certificate"] + general_counts["certificate"], [cert_rec]),
         dict(kernel_entry("admm_packed_chunk (K4)", "admm_perr.cu", f"{TPU_ADMM}:252",
                           dense_counts["K4"], k4_shapes),
              smem_floor_ms=k4_shapes[0]["smem_floor_ms"],

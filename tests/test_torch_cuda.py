@@ -732,3 +732,37 @@ def test_riccati_solve_auto_launches_k3(riccati_controllers):
     s_cpu, _, _, d_cpu = parallel.solve_batch_auto(ctrl.to("cpu"), x0)
     assert torch.equal(s_gpu.status.cpu(), s_cpu.status)
     np.testing.assert_allclose(s_gpu.u.cpu().numpy(), s_cpu.u.numpy(), atol=5e-4)
+
+
+def test_per_lane_riccati_engine_on_k3_equals_its_plain_version(card):
+    """The per-lane Riccati engine at h50 (state box, the rho rule at every
+    check, so that lanes split over the grid): its K3 launches, one per rho
+    with open lanes a check, against the same engine with K3's plain
+    version on the card. K3 equals its plain version bit for bit and the
+    rest of the two runs is the same code, so the solves are equal."""
+    ctrl = proceed_controller(
+        qtp.linearized_discrete_system(), "model_predictive_control", 50, 5.0,
+        [0.65] * 4, [1.2] * 2, engine="riccati", mpc_state_constraint=True, device=card,
+        riccati_config=riccati.RiccatiConfig(max_iter=1000, adapt_interval=25),
+    )
+    op, cfg = ctrl.engine.op, ctrl.engine.config
+    rng = np.random.default_rng(7)
+    x0 = np.clip(0.65 + 0.15 * rng.standard_normal((200, 4)), 0.3, 1.3)
+    e0s = torch.from_numpy((x0 - 0.65).astype(np.float32)).to(card)
+    groups = []
+
+    def k3(op, ridx, e0T, *rest):
+        groups.append(int(e0T.shape[1]))
+        return riccati_fused.iterate_chunk_riccati(op, ridx, e0T, *rest)
+
+    launches, plain = dict(admm_fused.LAUNCHES), dict(admm_fused.PLAIN_CALLS)
+    out_k = riccati.solve_sparse(op, e0s, config=cfg, chunk_fn=k3)
+    torch.cuda.synchronize()
+    assert admm_fused.LAUNCHES["K3"] - launches["K3"] == len(groups)
+    assert admm_fused.PLAIN_CALLS == plain
+    assert min(groups) < 200  # lanes on more than one rho in some check
+    out_p = riccati.solve_sparse(op, e0s, config=cfg,
+                                 chunk_fn=riccati_fused.iterate_chunk_riccati_plain)
+    assert bool((out_k[2] == 0).all())
+    for name, a, b in zip(("X", "U", "status", "iterations"), out_k[:4], out_p[:4]):
+        assert torch.equal(a, b), name

@@ -264,14 +264,18 @@ def test_slice_matches_jax_through_entry_points():
     np.testing.assert_allclose(ts2.u.numpy(), np.asarray(js2.u), atol=TOL_WIDE)
     assert float(td2.mean_iterations) <= float(td.mean_iterations)
 
-    # the receding-horizon loop carries the same warm pair; escalation has
-    # no Riccati tier 2 yet
+    # the receding-horizon loop carries the same warm pair; escalation keeps
+    # the controller and restarts stragglers on the per-lane engine (none
+    # here: the statuses and solutions are tier 1's, as in JAX)
     xs, us, sts = tpar.closed_loop_batch(tc, tqtp.qtp_discrete_step, torch.from_numpy(x0[:4]), 2)
     assert xs.shape == (3, 4, 4) and bool(torch.isfinite(xs).all())
     np.testing.assert_allclose(us[0].numpy(), ts.u[:4, :, 0].numpy(), atol=0)
     assert tpar.escalation_controller(tc) is tc
-    with pytest.raises(NotImplementedError, match="vmapped"):
-        tpar.solve_batch_escalated(tc, tc, torch.from_numpy(x0), twz, twy)
+    te, _, _, _ = tpar.solve_batch_escalated(tc, tc, torch.from_numpy(x0), twz, twy)
+    je, _, _, _ = jpar.solve_batch_escalated(jc, jc, jnp.asarray(x0), jwz, jwy)
+    np.testing.assert_array_equal(te.status.numpy(), np.asarray(je.status))
+    np.testing.assert_array_equal(te.status.numpy(), ts2.status.numpy())
+    np.testing.assert_allclose(te.u.numpy(), np.asarray(je.u), atol=TOL_WIDE)
 
 
 def _export(jc):
