@@ -20,10 +20,10 @@ box- or ball-representable per state block: the condensed engine takes
 them.
 
 The design is the JAX package's numpy f64 code, so the stored f32 factors
-agree with it bit for bit. Two solves run on the kernel K3
-(``ops/riccati_fused.py``): the fused driver there, with one rho for the
-whole batch, and :func:`solve_sparse` here, the per-lane engine, whose
-every lane adapts its own rho. Not ported yet (ROADMAP Queue 1): the
+agree with it bit for bit. Two solves run on the kernel K3, both in
+``ops/riccati_fused.py``: the fused driver, with one rho for the whole
+batch, and the per-lane engine ``solve_sparse``, whose every lane adapts
+its own rho. Not ported yet (ROADMAP Queue 1): the
 parallel-in-time sweeps (``parallel_sweeps``: ``_scan_levels``,
 ``_lqr_affine_solve_pscan``) and a per-lane engine for plants wider than
 K3 takes.
@@ -35,20 +35,12 @@ The helpers below work on the lane-last layout of the drivers: states
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ..types import (
-    CONTRACTIVE_FACTOR,
-    STATUS_CONVERGED,
-    STATUS_MAX_ITER,
-    STATUS_NUMERIC_ERROR,
-    STATUS_PRIMAL_INFEASIBLE,
-    TensorRecord,
-    f32,
-)
+from ..types import CONTRACTIVE_FACTOR, TensorRecord, f32
 
 Tensor = torch.Tensor
 
@@ -65,7 +57,7 @@ class RiccatiConfig:
     walk it one grid entry up. The equality terminal's consensus runs at
     ``rho_eq_scale * rho`` (capped at 1e3). ``eps_infeas`` is the
     tolerance of the primal-infeasibility certificate. The per-lane engine
-    (:func:`solve_sparse`) adapts each lane's rho and escalates each
+    (``riccati_fused.solve_sparse``) adapts each lane's rho and escalates each
     lane's stall. ``parallel_sweeps`` selects the per-lane engine's
     doubling sweeps, which are not ported (neither engine here reads
     it)."""
@@ -357,127 +349,3 @@ def box_support(d: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
     neg = torch.where(d < 0, torch.where(torch.isfinite(lo), lo * d, inf), 0.0)
     return (pos + neg).double().sum(dim=(0, 1)).float()
 
-
-def solve_sparse(
-    op: RiccatiOperator,
-    e0s: Tensor,  # (B, nx) initial deviations
-    warm_U: Optional[Tensor] = None,  # (B, N, nu)
-    warm_lam: Optional[Tuple[Tensor, Tensor]] = None,  # ((B, N+1, nx), (B, N, nu))
-    config: RiccatiConfig = RiccatiConfig(),
-    chunk_fn=None,
-):
-    """The per-lane engine: the JAX package's ``solve_sparse`` for every
-    lane of a batch (its ``vmap``), on the device of ``e0s``. Returns (X
-    (B, N+1, nx), U (B, N, nu), status, iterations, rp, rd, (lamX,
-    lamU)), U projected onto its box.
-
-    Each lane keeps its own grid rho: every ``adapt_interval`` iterations
-    the OSQP rule moves it, and ``stall_checks`` stalled checks move it one
-    entry up. The w-update is K3's iteration (``riccati_fused.
-    iterate_chunk_riccati``, or ``chunk_fn``), which takes one rho for its
-    whole launch, so each check runs one launch per rho that open lanes
-    hold, on those lanes gathered along the lane axis: at most R launches,
-    and no loop over the horizon in Python. Between checks, per lane:
-    residuals, the infeasibility certificate (the certificate kernel), the
-    stall escalation and the rho rule. A lane that is done keeps its
-    state; the loop ends when every lane is done or at ``max_iter``, with
-    one host read per check (that every lane is done, and the lanes in
-    each rho group). The status comes from the last finite test, the
-    certificates and the convergence tests. Plants wider than K3 takes
-    raise ValueError."""
-    from . import riccati_fused as rf  # which imports this module
-
-    rf._require_fits("the per-lane Riccati engine (K3)", op)
-    fn = rf.iterate_chunk_riccati if chunk_fn is None else chunk_fn
-    dev = e0s.device
-    B = e0s.shape[0]
-    R = len(op.rho_grid)
-    top = R - 1
-    adapt = int(config.adapt_interval or 0)
-    ck = max(1, int(config.check_interval))
-    grid = op.rho_tab[0]  # (R,) float32
-    log_grid = torch.log(grid)
-
-    e0T, ballr, Xbar, state = rf.start(op, e0s, warm_U, warm_lam)
-    X, U, vX, vU, lamX, lamU = state
-    group_idx = [torch.full((1,), r, dtype=torch.int32, device=dev) for r in range(R)]
-    ridx = torch.full((B,), _initial_ridx(op, config), dtype=torch.int32, device=dev)
-    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
-    rp = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
-    rd = torch.full_like(rp, float("inf"))
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    stall = torch.zeros_like(iters)
-    infeas = torch.zeros_like(done)
-    it = 0
-    while it < config.max_iter:
-        # open lanes by rho index, done lanes last: the one host read
-        key = torch.where(done, R, ridx).long()
-        counts = torch.bincount(key, minlength=R + 1).tolist()
-        if counts[R] == B:
-            break
-        order = torch.argsort(key, stable=True)
-        state = (vX, vU, lamX, lamU)
-        new = [X, U, *state]
-        start = 0
-        for r in range(R):
-            cnt = counts[r]
-            if cnt == B:  # one group holds every lane: no gather
-                new = list(fn(op, group_idx[r], e0T, ballr, *state, ck))
-            elif cnt:
-                lanes = order[start:start + cnt]
-                pick = lambda t: t.index_select(t.dim() - 1, lanes)
-                out = fn(op, group_idx[r], pick(e0T), ballr[lanes], *map(pick, state), ck)
-                new = [t.index_copy(t.dim() - 1, lanes, o) for t, o in zip(new, out)]
-            start += cnt
-
-        rho = grid[ridx.long()]  # (B,)
-        rp2, rd2, tol, finite = rf.block_residuals(op, config, new, vX, vU, rho)
-        # the infeasibility verdict: a separating functional on the block's
-        # dual delta, never a guess from slow progress
-        ortho, support, dnorm = rf.certificate_terms(op, new[4], lamX, new[5], lamU, Xbar, ballr)
-        eps = config.eps_infeas
-        cert = (dnorm > 1e-9) & (ortho <= eps * dnorm) & (support <= -eps * dnorm)
-        # a stall only walks the lane's rho up the grid
-        stalled = (rp2 > 10.0 * tol) & ((rp - rp2).abs() <= 1e-3 * rp2)
-        stall_tmp = torch.where(stalled, stall + 1, 0)
-        esc = (stall_tmp >= config.stall_checks) & (ridx < top)
-        stall2 = torch.where(esc, 0, stall_tmp)
-        done2 = ((rp2 <= tol) & (rd2 <= tol * rho)) | ~finite | cert
-        ridx2 = ridx
-        if R > 1 and adapt and (it + ck) % adapt < ck:
-            # OSQP section 5.2 per lane: the grid entry nearest
-            # rho sqrt(rp_n / rd_n)
-            log_t = torch.log(rho) + 0.5 * rf.log_ratio(op, new, rp2, rd2)
-            near = torch.argmin((log_grid[None, :] - log_t[:, None]).abs(), dim=1)
-            ridx2 = torch.where(done2, ridx, near.to(torch.int32))
-        ridx3 = torch.where(esc, torch.clamp_max(ridx2 + 1, top), ridx2)
-
-        # lanes done before this check kept their state above; they keep
-        # their counters here
-        keep = done
-        X, U, vX, vU, lamX, lamU = new
-        ridx = torch.where(keep, ridx, ridx3).to(torch.int32)
-        iters = torch.where(keep, iters, it + ck).to(torch.int32)
-        rp = torch.where(keep, rp, rp2)
-        rd = torch.where(keep, rd, rd2)
-        stall = torch.where(keep, stall, stall2).to(torch.int32)
-        infeas = infeas | (cert & ~keep)
-        done = keep | done2
-        it += ck
-
-    finite = torch.isfinite(U.sum(dim=(0, 1)) + X.sum(dim=(0, 1)))
-    status = torch.where(
-        ~finite,
-        STATUS_NUMERIC_ERROR,
-        torch.where(infeas, STATUS_PRIMAL_INFEASIBLE, torch.where(done, STATUS_CONVERGED, STATUS_MAX_ITER)),
-    ).to(torch.int32)
-    U_out = torch.clamp(U, op.u_lo[:, None], op.u_hi[:, None])
-    return (
-        rf._lane_first(X),
-        rf._lane_first(U_out),
-        status,
-        iters,
-        rp,
-        rd,
-        (rf._lane_first(lamX), rf._lane_first(lamU)),
-    )

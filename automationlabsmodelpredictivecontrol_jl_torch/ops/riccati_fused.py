@@ -19,9 +19,11 @@ and a forward rollout over the horizon with the factors of the current rho
 - :func:`solve_sparse_fused` is the driver: a Python loop over chunks that,
   between chunks, computes the residuals, the certificate, the stall
   escalation and the batch-global rho adaptation, and freezes converged
-  lanes. Its start (:func:`start`), residuals (:func:`block_residuals`)
-  and rho rule's ratio (:func:`log_ratio`) serve the per-lane engine
-  (``ops/riccati.solve_sparse``) too.
+  lanes;
+- :func:`solve_sparse` is the per-lane engine (the JAX package's
+  ``ops/riccati.solve_sparse``): the same start and tests between checks,
+  with each lane's own rho, K3 launched once per rho that open lanes
+  hold.
 
 On a CUDA tensor each wrapper launches its kernel and raises if it cannot;
 on a CPU tensor it runs its plain PyTorch version, which forms the same
@@ -68,8 +70,7 @@ Tensor = torch.Tensor
 __all__ = [
     "LAUNCHES", "PLAIN_CALLS", "MAX_NX", "MAX_NU", "k3_fits", "K3_ROUTES", "K3Plan",
     "k3_plan", "certificate_plan", "iterate_chunk_riccati", "iterate_chunk_riccati_plain", "rollout",
-    "certificate_terms", "certificate_terms_plain", "start", "block_residuals", "log_ratio",
-    "solve_sparse_fused",
+    "certificate_terms", "certificate_terms_plain", "solve_sparse_fused", "solve_sparse",
 ]
 
 # the widest plant the kernels' register arrays take (csrc/riccati_chunk.cuh)
@@ -498,12 +499,12 @@ def _lane_first(t: Tensor) -> Tensor:
     return t.permute(2, 0, 1).contiguous()
 
 
-def start(op: RiccatiOperator, e0s: Tensor, warm_U: Optional[Tensor],
-          warm_lam: Optional[Tuple[Tensor, Tensor]]):
-    """Both Riccati drivers' start, lane-last: e0T (nx, B), the terminal
-    ball's radius, the zero-input rollout Xbar (the certificate's anchor
-    on the dynamics), and the state (X, U, vX, vU, lamX, lamU): the warm
-    input plan (zeros where none) and its rollout, the warm duals, and the
+def _start(op: RiccatiOperator, e0s: Tensor, warm_U: Optional[Tensor],
+           warm_lam: Optional[Tuple[Tensor, Tensor]]):
+    """Both drivers' start, lane-last: e0T (nx, B), the terminal ball's
+    radius, the zero-input rollout Xbar (the certificate's anchor on the
+    dynamics), and the state (X, U, vX, vU, lamX, lamU): the warm input
+    plan (zeros where none) and its rollout, the warm duals, and the
     projected copies."""
     N, nu = op.N, op.nu
     f = torch.float32
@@ -526,24 +527,32 @@ def _amax(t: Tensor) -> Tensor:
     return t.abs().amax(dim=(0, 1))
 
 
-def block_residuals(op: RiccatiOperator, config: RiccatiConfig, new, vX_prev, vU_prev, rho):
-    """Per lane, after a check block that ended in ``new`` (X, U, vX, vU,
-    ...) from the copies vX_prev, vU_prev at rho (one, or one a lane): the
-    primal and dual residuals, the tolerance, and whether X and U are
-    finite."""
-    X, U, vX, vU = new[:4]
+def _check(op: RiccatiOperator, config: RiccatiConfig, new, old, rp_prev, rho, Xbar, ballr):
+    """Both drivers' tests per lane after a check block that ended in
+    ``new`` (X, U, vX, vU, lamX, lamU) from ``old`` at rho (one, or one a
+    lane): the primal and dual residuals, whether X and U are finite, the
+    infeasibility certificate (a separating functional on the block's dual
+    delta, never a guess from slow progress), whether the primal residual
+    stalled against the last check's ``rp_prev``, and convergence."""
+    X, U, vX, vU, lamX, lamU = new
+    vX0, vU0, lamX0, lamU0 = old[2:]
     rp = _amax(U - vU)
-    rd = rho * _amax(vU - vU_prev)
+    rd = rho * _amax(vU - vU0)
     if op.split_interior or op.split_terminal:
         rp = torch.maximum(_amax(X - vX), rp)
-        rd = torch.maximum(rho * _amax(vX - vX_prev), rd)
+        rd = torch.maximum(rho * _amax(vX - vX0), rd)
     scale = torch.maximum(_amax(U), torch.clamp_min(_amax(X), 1e-6))
     tol = config.eps_abs + config.eps_rel * scale
     finite = torch.isfinite(U.sum(dim=(0, 1)) + X.sum(dim=(0, 1)))
-    return rp, rd, tol, finite
+    ortho, support, dnorm = certificate_terms(op, lamX, lamX0, lamU, lamU0, Xbar, ballr)
+    eps = config.eps_infeas
+    cert = (dnorm > 1e-9) & (ortho <= eps * dnorm) & (support <= -eps * dnorm)
+    stalled = (rp > 10.0 * tol) & ((rp_prev - rp).abs() <= 1e-3 * rp)
+    conv = (rp <= tol) & (rd <= tol * rho)
+    return rp, rd, finite, cert, stalled, conv
 
 
-def log_ratio(op: RiccatiOperator, new, rp: Tensor, rd: Tensor) -> Tensor:
+def _log_ratio(op: RiccatiOperator, new, rp: Tensor, rd: Tensor) -> Tensor:
     """The OSQP rule's log of (rp / prim_norm) / (rd / dual_norm) per lane,
     clamped to [1e-8, 1e8] before the log."""
     X, U, vX, vU, lamX, lamU = new
@@ -556,6 +565,27 @@ def log_ratio(op: RiccatiOperator, new, rp: Tensor, rd: Tensor) -> Tensor:
         rd / torch.clamp_min(dual_norm, 1e-6), 1e-12
     )
     return torch.log(torch.clamp(ratio, 1e-8, 1e8))
+
+
+def _result(op: RiccatiOperator, state, bad, infeas, done, iters, rp, rd):
+    """Both drivers' return, lane first: U projected onto its box, the
+    status from the numeric, certificate and convergence flags."""
+    X, U, _, _, lamX, lamU = state
+    status = torch.where(
+        bad,
+        STATUS_NUMERIC_ERROR,
+        torch.where(infeas, STATUS_PRIMAL_INFEASIBLE, torch.where(done, STATUS_CONVERGED, STATUS_MAX_ITER)),
+    ).to(torch.int32)
+    U_out = torch.clamp(U, op.u_lo[:, None], op.u_hi[:, None])
+    return (
+        _lane_first(X),
+        _lane_first(U_out),
+        status,
+        iters,
+        rp,
+        rd,
+        (_lane_first(lamX), _lane_first(lamU)),
+    )
 
 
 def solve_sparse_fused(
@@ -585,8 +615,7 @@ def solve_sparse_fused(
     grid = op.rho_tab[0]  # (R,) float32
     log_grid = torch.log(grid)
 
-    e0T, ballr, Xbar, state = start(op, e0s, warm_U, warm_lam)
-    X, U, vX, vU, lamX, lamU = state
+    e0T, ballr, Xbar, state = _start(op, e0s, warm_U, warm_lam)
     ridx = torch.full((1,), _initial_ridx(op, config), dtype=torch.int32, device=dev)
     iters = torch.zeros((B,), dtype=torch.int32, device=dev)
     rp = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
@@ -598,23 +627,18 @@ def solve_sparse_fused(
     it = 0
     while it < config.max_iter and not bool(done.all()):
         rho = grid[ridx.long()]  # (1,)
-        out = fn(op, ridx, e0T, ballr, vX, vU, lamX, lamU, ck)
+        out = fn(op, ridx, e0T, ballr, *state[2:], ck)
         keep = done[None, None, :]
-        new = [torch.where(keep, a, b) for a, b in zip((X, U, vX, vU, lamX, lamU), out)]
-        Xn, Un, vXn, vUn, lamXn, lamUn = new
+        new = [torch.where(keep, a, b) for a, b in zip(state, out)]
 
-        rp2, rd2, tol, finite = block_residuals(op, config, new, vX, vU, rho)
-        # the per-lane certificate verdict; a stall only escalates rho
-        ortho, support, dnorm = certificate_terms(op, lamXn, lamX, lamUn, lamU, Xbar, ballr)
-        eps = config.eps_infeas
-        cert = (dnorm > 1e-9) & (ortho <= eps * dnorm) & (support <= -eps * dnorm) & ~done
-        stalled = (rp2 > 10.0 * tol) & ((rp - rp2).abs() <= 1e-3 * rp2)
+        rp2, rd2, finite, cert, stalled, conv = _check(op, config, new, state, rp, rho, Xbar, ballr)
+        # a stall only escalates rho
+        cert = cert & ~done
         stall_tmp = torch.where(done, stall, torch.where(stalled, stall + 1, 0))
         esc = (~done & (stall_tmp >= config.stall_checks)).any() & (ridx < top)  # (1,)
         stall = torch.where(esc, 0, stall_tmp)
         bad = bad | (~finite & ~done)
         infeas = infeas | cert
-        conv = (rp2 <= tol) & (rd2 <= tol * rho)
         done2 = done | conv | ~finite | cert
         iters = torch.where(done, iters, it + ck).to(torch.int32)
 
@@ -624,29 +648,113 @@ def solve_sparse_fused(
         if R > 1 and adapt and (it + ck) % adapt < ck:
             active = ~done2
             n_act = torch.clamp_min(active.sum(), 1)
-            mean_lr = torch.where(active, log_ratio(op, new, rp2, rd2), 0.0).sum() / n_act
+            mean_lr = torch.where(active, _log_ratio(op, new, rp2, rd2), 0.0).sum() / n_act
             log_t = torch.log(rho) + 0.5 * mean_lr
             ridx_t = torch.argmin((log_grid - log_t).abs()).to(torch.int32).view(1)
             ridx2 = torch.where(active.any(), ridx_t, ridx)
         # stall escalation wins the block over the adaptation rule
         ridx = torch.where(esc, torch.clamp_max(ridx2 + 1, top), ridx2)
 
-        X, U, vX, vU, lamX, lamU = new
+        state = new
         rp, rd, done = rp2, rd2, done2
         it += ck
 
-    status = torch.where(
-        bad,
-        STATUS_NUMERIC_ERROR,
-        torch.where(infeas, STATUS_PRIMAL_INFEASIBLE, torch.where(done, STATUS_CONVERGED, STATUS_MAX_ITER)),
-    ).to(torch.int32)
-    U_out = torch.clamp(U, op.u_lo[:, None], op.u_hi[:, None])
-    return (
-        _lane_first(X),
-        _lane_first(U_out),
-        status,
-        iters,
-        rp,
-        rd,
-        (_lane_first(lamX), _lane_first(lamU)),
-    )
+    return _result(op, state, bad, infeas, done, iters, rp, rd)
+
+
+def solve_sparse(
+    op: RiccatiOperator,
+    e0s: Tensor,  # (B, nx) initial deviations
+    warm_U: Optional[Tensor] = None,  # (B, N, nu)
+    warm_lam: Optional[Tuple[Tensor, Tensor]] = None,  # ((B, N+1, nx), (B, N, nu))
+    config: RiccatiConfig = RiccatiConfig(),
+    chunk_fn: Optional[ChunkFn] = None,
+):
+    """The per-lane engine: the JAX package's ``solve_sparse`` for every
+    lane of a batch (its ``vmap``), on the device of ``e0s``. Returns what
+    :func:`solve_sparse_fused` returns.
+
+    Each lane keeps its own grid rho: every ``adapt_interval`` iterations
+    the OSQP rule moves it, and ``stall_checks`` stalled checks move it one
+    entry up. K3 (or ``chunk_fn``) takes one rho for its whole launch, so
+    each check runs one launch per rho that open lanes hold, on those
+    lanes gathered along the lane axis: at most R launches, and no loop
+    over the horizon in Python. The tests between checks are the fused
+    driver's, per lane. A lane that is done keeps its state; the loop ends
+    when every lane is done or at ``max_iter``, with one host read per
+    check (the lanes in each rho group, and the done lanes). The status
+    comes from the last finite test, the certificates and the convergence
+    tests. Plants wider than K3 takes raise ValueError."""
+    _require_fits("the per-lane Riccati engine (K3)", op)
+    fn = iterate_chunk_riccati if chunk_fn is None else chunk_fn
+    dev = e0s.device
+    B = e0s.shape[0]
+    R = len(op.rho_grid)
+    top = R - 1
+    adapt = int(config.adapt_interval or 0)
+    ck = max(1, int(config.check_interval))
+    grid = op.rho_tab[0]  # (R,) float32
+    log_grid = torch.log(grid)
+
+    e0T, ballr, Xbar, state = _start(op, e0s, warm_U, warm_lam)
+    group_idx = [torch.full((1,), r, dtype=torch.int32, device=dev) for r in range(R)]
+    ridx = torch.full((B,), _initial_ridx(op, config), dtype=torch.int32, device=dev)
+    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
+    rp = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
+    rd = torch.full_like(rp, float("inf"))
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    stall = torch.zeros_like(iters)
+    infeas = torch.zeros_like(done)
+    it = 0
+    while it < config.max_iter:
+        # open lanes by rho index, done lanes last: the one host read
+        key = torch.where(done, R, ridx).long()
+        counts = torch.bincount(key, minlength=R + 1).tolist()
+        if counts[R] == B:
+            break
+        order = torch.argsort(key, stable=True)
+        new = list(state)
+        start = 0
+        for r in range(R):
+            cnt = counts[r]
+            if cnt == B:  # one group holds every lane: no gather
+                new = list(fn(op, group_idx[r], e0T, ballr, *state[2:], ck))
+            elif cnt:
+                lanes = order[start:start + cnt]
+                pick = lambda t: t.index_select(t.dim() - 1, lanes)
+                out = fn(op, group_idx[r], pick(e0T), ballr[lanes], *map(pick, state[2:]), ck)
+                new = [t.index_copy(t.dim() - 1, lanes, o) for t, o in zip(new, out)]
+            start += cnt
+
+        rho = grid[ridx.long()]  # (B,)
+        rp2, rd2, finite, cert, stalled, conv = _check(op, config, new, state, rp, rho, Xbar, ballr)
+        # a stall only walks the lane's rho up the grid
+        stall_tmp = torch.where(stalled, stall + 1, 0)
+        esc = (stall_tmp >= config.stall_checks) & (ridx < top)
+        stall2 = torch.where(esc, 0, stall_tmp)
+        done2 = conv | ~finite | cert
+        ridx2 = ridx
+        if R > 1 and adapt and (it + ck) % adapt < ck:
+            # OSQP section 5.2 per lane: the grid entry nearest
+            # rho sqrt(rp_n / rd_n)
+            log_t = torch.log(rho) + 0.5 * _log_ratio(op, new, rp2, rd2)
+            near = torch.argmin((log_grid[None, :] - log_t[:, None]).abs(), dim=1)
+            ridx2 = torch.where(done2, ridx, near.to(torch.int32))
+        ridx3 = torch.where(esc, torch.clamp_max(ridx2 + 1, top), ridx2)
+
+        # lanes done before this check kept their state above; they keep
+        # their counters here
+        keep = done
+        state = new
+        ridx = torch.where(keep, ridx, ridx3).to(torch.int32)
+        iters = torch.where(keep, iters, it + ck).to(torch.int32)
+        rp = torch.where(keep, rp, rp2)
+        rd = torch.where(keep, rd, rd2)
+        stall = torch.where(keep, stall, stall2).to(torch.int32)
+        infeas = infeas | (cert & ~keep)
+        done = keep | done2
+        it += ck
+
+    X, U = state[:2]
+    bad = ~torch.isfinite(U.sum(dim=(0, 1)) + X.sum(dim=(0, 1)))
+    return _result(op, state, bad, infeas, done, iters, rp, rd)

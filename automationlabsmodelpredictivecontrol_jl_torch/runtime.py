@@ -14,7 +14,7 @@ The port of the JAX package's ``runtime.py``:
 
 :func:`solve_lanes` is the engines' batched solve: the condensed engine on
 the general ADMM engine (``ops/admm.solve``), the Riccati engine on its
-per-lane engine (``ops/riccati.solve_sparse``, which runs K3).
+per-lane engine (``ops/riccati_fused.solve_sparse``, which runs K3).
 :func:`solve_once` is its batch of one with the JAX package's unbatched
 shapes, and ``parallel.solve_batch`` its fleet form. The SQP, economic and
 MILP engines are not ported (ROADMAP Queue 1).
@@ -30,7 +30,7 @@ import torch
 
 from .design import LinearEngine, MpcController, RiccatiEngine, design_controller
 from .ops import admm as admm_ops
-from .ops import riccati as riccati_ops
+from .ops import riccati_fused
 from .ops.condense import runtime_qp_vectors_batch
 from .solvers.sqp import true_objective
 from .types import STATUS_PRIMAL_INFEASIBLE, MpcSolution
@@ -163,7 +163,7 @@ def riccati_warm(op, warm_z: Tensor, warm_y: Tensor):
 def _solve_riccati(controller, x0s, warm_z, warm_y):
     e0s = x0s - controller.tuning.references.x[:, 0][None]
     U0, lams0 = riccati_warm(controller.engine.op, warm_z, warm_y)
-    X, U, status, iters, rp, rd, lams = riccati_ops.solve_sparse(
+    X, U, status, iters, rp, rd, lams = riccati_fused.solve_sparse(
         controller.engine.op, e0s, warm_U=U0, warm_lam=lams0, config=controller.engine.config,
     )
     return riccati_solution(controller, x0s, X, U, status, iters, rp, rd, lams)

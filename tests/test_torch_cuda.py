@@ -756,13 +756,13 @@ def test_per_lane_riccati_engine_on_k3_equals_its_plain_version(card):
         return riccati_fused.iterate_chunk_riccati(op, ridx, e0T, *rest)
 
     launches, plain = dict(admm_fused.LAUNCHES), dict(admm_fused.PLAIN_CALLS)
-    out_k = riccati.solve_sparse(op, e0s, config=cfg, chunk_fn=k3)
+    out_k = riccati_fused.solve_sparse(op, e0s, config=cfg, chunk_fn=k3)
     torch.cuda.synchronize()
     assert admm_fused.LAUNCHES["K3"] - launches["K3"] == len(groups)
     assert admm_fused.PLAIN_CALLS == plain
     assert min(groups) < 200  # lanes on more than one rho in some check
-    out_p = riccati.solve_sparse(op, e0s, config=cfg,
-                                 chunk_fn=riccati_fused.iterate_chunk_riccati_plain)
+    out_p = riccati_fused.solve_sparse(op, e0s, config=cfg,
+                                       chunk_fn=riccati_fused.iterate_chunk_riccati_plain)
     assert bool((out_k[2] == 0).all())
     for name, a, b in zip(("X", "U", "status", "iterations"), out_k[:4], out_p[:4]):
         assert torch.equal(a, b), name

@@ -1,4 +1,4 @@
-"""The per-lane Riccati engine (``ops.riccati.solve_sparse``), port vs the
+"""The per-lane Riccati engine (``ops.riccati_fused.solve_sparse``), port vs the
 JAX package's ``jax.vmap(solve_sparse)``, and Riccati escalation.
 
 Each lane adapts its own rho, so a check runs K3 (its plain version here)
@@ -72,17 +72,17 @@ def _solve_pair(jc, tc, e0s, warm=None):
     groups = _Groups()
     if warm is None:
         j = jax.vmap(lambda e: jric.solve_sparse(jop, e, config=jcfg))(jnp.asarray(e0s))
-        t = tric.solve_sparse(tc.engine.op, torch.from_numpy(e0s), config=tc.engine.config,
-                              chunk_fn=groups)
+        t = riccati_fused.solve_sparse(tc.engine.op, torch.from_numpy(e0s),
+                                       config=tc.engine.config, chunk_fn=groups)
     else:
         U, lamX, lamU = warm
         j = jax.vmap(lambda e, u, lx, lu: jric.solve_sparse(
             jop, e, warm_U=u, warm_lam=(lx, lu), config=jcfg))(
                 *map(jnp.asarray, (e0s, U, lamX, lamU)))
-        t = tric.solve_sparse(tc.engine.op, torch.from_numpy(e0s),
-                              warm_U=torch.from_numpy(U),
-                              warm_lam=(torch.from_numpy(lamX), torch.from_numpy(lamU)),
-                              config=tc.engine.config, chunk_fn=groups)
+        t = riccati_fused.solve_sparse(tc.engine.op, torch.from_numpy(e0s),
+                                       warm_U=torch.from_numpy(U),
+                                       warm_lam=(torch.from_numpy(lamX), torch.from_numpy(lamU)),
+                                       config=tc.engine.config, chunk_fn=groups)
     return j, t, groups
 
 
@@ -213,4 +213,4 @@ def test_wide_plant_raises():
     op = tc.engine.op
     wide = op.replace(nx=riccati_fused.MAX_NX + 1)
     with pytest.raises(ValueError, match="nx <="):
-        tric.solve_sparse(wide, torch.zeros((2, op.nx)))
+        riccati_fused.solve_sparse(wide, torch.zeros((2, op.nx)))
