@@ -4,9 +4,12 @@ NVIDIA Hopper.
 The port of ``automationlabsmodelpredictivecontrol_jl_tpu`` (JAX/Pallas),
 which stays beside it as the reference. This package imports torch, numpy
 and scipy, and never jax. Ported so far: controller design for linear
-plants (condensed QP, ADMM operator; the Riccati factorization), the
-runtime (``solve_once``, ``step``, ``calculate``, the reference updates)
-on the general ADMM engine and the per-lane Riccati engine, the batched
+plants (condensed QP, ADMM operator; the Riccati factorization) and for
+learned plants (the model zoo, ``models/zoo.py``; the SQP engine, single
+and multiple shooting, ``solvers/sqp.py``; or the linear engines on the
+plant's linearization), checkpoints (``io.py``), the runtime
+(``solve_once``, ``step``, ``calculate``, the reference updates) on the
+general ADMM engine, the per-lane Riccati engine and the SQP, the batched
 fused ADMM solves on the kernels K1 (``csrc/admm_diag.cu``), K2
 (``csrc/admm_mixed.cu``), K4 and K5 (``csrc/admm_perr.cu``), the
 long-horizon Riccati-ADMM solve on K3 (``csrc/riccati_chunk.cuh``),
@@ -38,9 +41,13 @@ from .types import (  # noqa: E402
 from .systems import (  # noqa: E402
     LinearContinuousSystem,
     LinearDiscreteSystem,
+    NeuralContinuousSystem,
+    NeuralDiscreteSystem,
     as_discrete,
     discretize,
     linearize,
+    linearize_to_system,
+    user_function_system,
 )
 from .design import (  # noqa: E402
     LinearEngine,
@@ -53,6 +60,9 @@ from .design import (  # noqa: E402
 from .main import DEFAULT_PARAMETERS, proceed_controller  # noqa: E402
 from .ops.admm import AdmmConfig  # noqa: E402
 from .ops.riccati import RiccatiConfig  # noqa: E402
+from .solvers.sqp import SqpConfig, SqpEngine  # noqa: E402
+from .models.zoo import MODEL_FAMILIES, init_model, make_system  # noqa: E402
+from .io import load_controller, save_controller  # noqa: E402
 from .runtime import (  # noqa: E402
     calculate,
     solve_once,
@@ -70,9 +80,12 @@ __all__ = [
     "LinearContinuousSystem",
     "LinearDiscreteSystem",
     "LinearEngine",
+    "MODEL_FAMILIES",
     "MpcController",
     "MpcSolution",
     "MpcTuning",
+    "NeuralContinuousSystem",
+    "NeuralDiscreteSystem",
     "References",
     "RiccatiConfig",
     "RiccatiEngine",
@@ -82,6 +95,8 @@ __all__ = [
     "STATUS_NAMES",
     "STATUS_NUMERIC_ERROR",
     "STATUS_PRIMAL_INFEASIBLE",
+    "SqpConfig",
+    "SqpEngine",
     "TerminalIngredient",
     "Weights",
     "as_discrete",
@@ -91,11 +106,17 @@ __all__ = [
     "design_controller",
     "design_references",
     "discretize",
+    "init_model",
     "linearize",
+    "linearize_to_system",
+    "load_controller",
+    "make_system",
     "proceed_controller",
+    "save_controller",
     "solve_once",
     "step",
     "update_and_compute",
     "update_initialization",
     "update_references",
+    "user_function_system",
 ]

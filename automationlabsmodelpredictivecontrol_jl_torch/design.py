@@ -5,9 +5,12 @@ exactly as the JAX package does: the condensed QP matrices and the
 factorized ADMM KKT system. The finished controller is then moved to the
 device the caller names.
 
-Ported: the condensed linear branch and the Riccati branch (the O(N)
-long-horizon engine). The SQP, economic-MPC and MILP branches raise
-NotImplementedError naming their ROADMAP item.
+Ported: the condensed linear branch, the Riccati branch (the O(N)
+long-horizon engine) and the learned-plant branches: the SQP engine
+(``programming_type="non_linear"``, the default for a learned plant) and
+"linear" programming, which linearizes the plant at the first reference
+and designs the linear engines on that. The economic-MPC and MILP
+branches raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,8 +24,15 @@ import torch
 from .ops import admm as admm_ops
 from .ops import riccati as riccati_ops
 from .ops.condense import CondensedQpData, condense_np
+from .solvers import sqp as sqp_mod
 from .solvers.registry import engine_for, resolve_solver
-from .systems import LinearDiscreteSystem, as_discrete
+from .systems import (
+    LinearDiscreteSystem,
+    NeuralContinuousSystem,
+    NeuralDiscreteSystem,
+    as_discrete,
+    linearize_to_system,
+)
 from .terminal import create_terminal_ingredient
 from .utils.devices import resolve_device
 from .types import (
@@ -210,6 +220,7 @@ def design_controller(
     economic_cost: Optional[Any] = None,
     engine: str = "auto",
     riccati_config: Optional[riccati_ops.RiccatiConfig] = None,
+    sqp_config: Optional[sqp_mod.SqpConfig] = None,
     device: Any = None,
 ) -> MpcController:
     """Design an MPC controller on the host and move it to ``device``
@@ -221,6 +232,12 @@ def design_controller(
     S = 0, hard constraints and a none/equality/contractive terminal), or
     "auto": Riccati at ``horizon >= RICCATI_AUTO_HORIZON`` where it is
     supported, condensed otherwise, as in the JAX package.
+
+    A learned plant (``NeuralDiscreteSystem``, or a continuous one,
+    integrated by RK4) gets the SQP engine (``sqp_config``) by default
+    (``programming_type="non_linear"``); ``programming_type="linear"``
+    linearizes it at the first reference point and designs the linear
+    engines on that.
     """
     dev = resolve_device(device)  # before the design: no card, no work
     if economic_cost is not None:
@@ -228,17 +245,26 @@ def design_controller(
             "economic MPC is not ported yet (ROADMAP Queue 1, 'Economic MPC "
             "and fuzzy control')"
         )
+    if isinstance(system, (NeuralDiscreteSystem, NeuralContinuousSystem)):
+        system = system.to("cpu")  # design runs on the host
     sys_d = as_discrete(system, sample_time)
+    is_neural = isinstance(sys_d, NeuralDiscreteSystem)
     if programming_type is None:
-        programming_type = "linear"
+        programming_type = "non_linear" if is_neural else "linear"
     solver_name = resolve_solver(programming_type, solver)
     engine_kind = engine_for(programming_type)
     if engine_kind == "milp":
-        raise ValueError(
-            "mixed_linear programming requires a learned ReLU-network system"
+        if not is_neural:
+            raise ValueError(
+                "mixed_linear programming requires a learned ReLU-network system"
+            )
+        raise NotImplementedError(
+            "the MILP engine is not ported yet (ROADMAP Queue 1)"
         )
-    # nonlinear programming over a linear model degenerates to the QP
-    programming_type = "linear"
+    if not is_neural and engine_kind == "sqp":
+        # nonlinear programming over a linear model degenerates to the QP
+        engine_kind = "admm"
+        programming_type = "linear"
 
     if engine not in ("auto", "condensed", "riccati"):
         raise ValueError(f"unknown engine {engine!r}; available: auto|condensed|riccati")
@@ -258,6 +284,26 @@ def design_controller(
         solver_name=solver_name,
         state_constraint=bool(state_constraint),
     )
+    if engine_kind == "sqp":
+        eng = sqp_mod.build_engine(sys_d, tuning, sqp_config, soft_state_penalty=soft_state_penalty)
+        warm_z, warm_y = sqp_mod.initial_warm_state(eng, tuning)
+        return MpcController(
+            system=sys_d,
+            tuning=tuning,
+            engine=eng,
+            initialization=torch.zeros((nx,), dtype=torch.float32),
+            warm_z=warm_z,
+            warm_y=warm_y,
+            results=None,
+        ).to(dev)
+
+    # "linear" programming on a learned plant: linearize at the first
+    # reference point, then the linear engines
+    lin_sys = (
+        linearize_to_system(sys_d, references.x[:, 0], references.u[:, 0])
+        if is_neural
+        else sys_d
+    )
     use_riccati = engine == "riccati" or (
         engine == "auto"
         and horizon >= RICCATI_AUTO_HORIZON
@@ -270,11 +316,11 @@ def design_controller(
                 "none/equality/contractive terminal kind; use "
                 "engine='condensed' for this configuration"
             )
-        eng = _riccati_engine(sys_d, tuning, riccati_config or riccati_ops.RiccatiConfig())
+        eng = _riccati_engine(lin_sys, tuning, riccati_config or riccati_ops.RiccatiConfig())
         n, m = horizon * nu, (horizon + 1) * nx + horizon * nu
     else:
         eng = _linear_engine(
-            sys_d, tuning, admm_config or admm_ops.AdmmConfig(), soft_state_penalty
+            lin_sys, tuning, admm_config or admm_ops.AdmmConfig(), soft_state_penalty
         )
         m, n = eng.op.A_s.shape
     return MpcController(

@@ -1,9 +1,12 @@
-"""Carry a designed controller across from numpy arrays.
+"""Carry designed controllers and learned weights across from numpy.
 
 ``controller_from_numpy`` takes a controller's designed arrays as numpy
 (for example those of the JAX package's controller) and returns this
 package's ``MpcController`` on a given device, so both packages can be
-driven from the very same operator.
+driven from the very same operator. ``params_from_numpy`` and
+``unravel_params`` carry a learned model's weights: a parameter tree of
+numpy arrays, or the flat vector that ``jax.flatten_util.ravel_pytree``
+makes of one.
 """
 
 from __future__ import annotations
@@ -24,6 +27,75 @@ from .utils.devices import resolve_device
 
 def _f32(v: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(v, np.float32))
+
+
+def params_from_numpy(family: str, tree: Any) -> Any:
+    """A zoo family's parameter tree from numpy (dicts, lists, arrays):
+    the same tree of float32 CPU tensors, leaf for leaf (the JAX package's
+    names and shapes are the port's)."""
+    from .models import zoo
+
+    if family not in zoo._APPLIES:
+        raise ValueError(f"unknown model family {family!r}; see zoo.MODEL_FAMILIES")
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(family, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(family, v) for v in tree]
+    return _f32(tree)
+
+
+def _ravel_leaves(tree: Any):
+    """The leaves of a parameter tree in ``ravel_pytree``'s order: a
+    dict's entries by sorted key (so "W" < "W_in" < "W_out" < "b" < "b_in"),
+    a list's in order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _ravel_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in _ravel_leaves(v)]
+    return [tree]
+
+
+def _fill(tree: Any, values) -> Any:
+    if isinstance(tree, dict):
+        return {k: _fill(tree[k], values) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_fill(v, values) for v in tree]
+    return next(values)
+
+
+def unravel_params(
+    family: str,
+    nx: int,
+    nu: int,
+    hidden: int,
+    depth: int,
+    flat: Any,
+    sample_time: float = 1.0,
+) -> Any:
+    """The parameter tree of a zoo model from the flat vector that
+    ``ravel_pytree`` made of it (float32 CPU tensors). The tree's
+    structure is the family's at (nx, nu, hidden, depth); the leaves are
+    cut from ``flat`` in ravel order (:func:`_ravel_leaves`). For the
+    golden fnn (4, 2, 8, 1) that is W (1, 8, 8), W_in (8, 6), W_out
+    (4, 8), b (1, 8), b_in (8,): 160 floats."""
+    from .models import zoo
+
+    _, template = zoo.init_model(
+        family, 0, nx, nu, hidden=hidden, depth=depth, sample_time=sample_time
+    )
+    flat = np.asarray(flat).reshape(-1)
+    sizes = [int(leaf.numel()) for leaf in _ravel_leaves(template)]
+    if flat.size != sum(sizes):
+        raise ValueError(
+            f"{family} at nx={nx}, nu={nu}, hidden={hidden}, depth={depth} has "
+            f"{sum(sizes)} parameters, the vector {flat.size}"
+        )
+    offsets = np.cumsum([0] + sizes)
+    pieces = iter(
+        _f32(flat[o : o + leaf.numel()]).reshape(leaf.shape)
+        for o, leaf in zip(offsets, _ravel_leaves(template))
+    )
+    return _fill(template, pieces)
 
 
 def _record(cls, values: Mapping[str, Any]):

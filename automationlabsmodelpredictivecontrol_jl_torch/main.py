@@ -41,7 +41,10 @@ def proceed_controller(
 
     ``"model_predictive_control"``: quadratic tracking MPC, on the condensed
     engine or, with ``engine="riccati"`` or at long horizons, the Riccati
-    engine (``riccati_config=``).
+    engine (``riccati_config=``). On a learned plant
+    (``NeuralDiscreteSystem``) the SQP engine (``sqp_config=SqpConfig(...)``,
+    single or multiple shooting), or with ``mpc_programming_type="linear"``
+    the linear engines on its linearization at the first reference.
     ``"economic_model_predictive_control"`` is not ported yet and raises
     NotImplementedError (ROADMAP Queue 1, 'Economic MPC and fuzzy control').
     """
@@ -61,7 +64,7 @@ def proceed_controller(
             "mpc_cost_function is only accepted with "
             "mpc_controller_type='economic_model_predictive_control'"
         )
-    for key in ("sqp_config", "empc_config", "mpc_terminal_cost_function"):
+    for key in ("empc_config", "mpc_terminal_cost_function"):
         if kws.get(key) is not None:
             raise NotImplementedError(
                 f"{key}: its engine is not ported yet (see ROADMAP Queue 1)"
@@ -96,6 +99,7 @@ def proceed_controller(
         admm_config=kws.get("admm_config"),
         engine=kws.get("engine", "auto"),
         riccati_config=kws.get("riccati_config"),
+        sqp_config=kws.get("sqp_config"),
         economic_cost=kws.get("mpc_cost_function"),
         device=device,
     )

@@ -219,6 +219,114 @@ def build_operator(
     return op
 
 
+def newton_schulz_inverse(K: Tensor, iters: int = 40) -> Tensor:
+    """Inverse of a batch of small well-posed matrices K (..., n, n) by the
+    Newton-Schulz iteration X <- X (2I - K X) from X0 = K' / (||K||_1
+    ||K||_inf), products only (the JAX package's MXU inverse, kept for
+    parity: the SQP's traced operators are factorized with it).
+
+    In fp32 the iteration saturates at a residual floor of ~kappa eps
+    (3e-4 at kappa = 1e3, 1.9e-2 at 1e4, measured by the JAX package);
+    40 iterations reach it. Pair it with at least one refinement step
+    against the exact K (``AdmmConfig.refine_steps``; ``SqpConfig`` keeps
+    1), which contracts the K-solve error by that floor per step."""
+    n = K.shape[-1]
+    eye = torch.eye(n, dtype=K.dtype, device=K.device)
+    n1 = K.abs().sum(-2).amax(-1)
+    ninf = K.abs().sum(-1).amax(-1)
+    X = K.transpose(-1, -2) / torch.clamp_min(n1 * ninf, 1e-30)[..., None, None]
+    for _ in range(iters):
+        X = X @ (2.0 * eye - K @ X)
+    return X
+
+
+def build_operator_traced(
+    P: Tensor,  # (B, n, n)
+    A: Tensor,  # (B, m, n)
+    eq_row_mask,
+    n_ball: int = 0,
+    config: AdmmConfig = AdmmConfig(),
+    scaling_iters: int = 3,
+    identity_A: bool = False,
+) -> AdmmOperator:
+    """An operator per lane, built on the device in fp32: the JAX package's
+    ``build_operator_traced`` over a batch of QPs whose matrices are
+    themselves per-lane values (the SQP's Gauss-Newton subproblems, rebuilt
+    every outer iteration). A few Ruiz sweeps, then K = P_s + sigma I +
+    A_s' diag(rho) A_s at the single rho ``config.rho`` (R = 1), inverted by
+    :func:`newton_schulz_inverse`. ``eq_row_mask`` is a static numpy bool
+    array (the rows' structure is the same in every lane).
+
+    The operator's fields carry a leading lane axis: P_s (B, n, n), A_s
+    (B, m, n), Ks and K_invs (B, 1, n, n), D (B, n), E (B, m), c (B,);
+    rho_vecs, rho_invs (1, m) and rho_grid (1,) are shared.
+
+    ``identity_A=True`` declares A == I (input boxes only): Ruiz is
+    skipped, P keeps the cost normalization gamma, and K is formed
+    without the product. ``diag_a`` is set only with ``n_ball == 0``, as
+    ``build_operator`` sets it."""
+    dev, f = P.device, torch.float32
+    P_s = P.to(f)
+    A_s = A.to(f)
+    Bt, m, n = A_s.shape
+    D = P_s.new_ones((Bt, n))
+    E = P_s.new_ones((Bt, m))
+    c = P_s.new_ones((Bt,))
+
+    def gamma_of(P_s):
+        return torch.clamp(
+            1.0 / torch.clamp_min(P_s.abs().amax(-2).mean(-1), 1e-8), max=1e8
+        )
+
+    for _ in range(0 if identity_A else scaling_iters):
+        col_norm = torch.maximum(P_s.abs().amax(-2), A_s.abs().amax(-2))
+        row_norm = A_s.abs().amax(-1)
+        if n_ball:
+            gm = torch.exp(torch.log(torch.clamp_min(row_norm[:, m - n_ball :], 1e-12)).mean(-1))
+            row_norm = torch.cat([row_norm[:, : m - n_ball], gm[:, None].expand(Bt, n_ball)], 1)
+        d = torch.where(col_norm > 1e-12, 1.0 / torch.sqrt(torch.clamp(col_norm, 1e-8, 1e8)), 1.0)
+        e = torch.where(row_norm > 1e-12, 1.0 / torch.sqrt(torch.clamp(row_norm, 1e-8, 1e8)), 1.0)
+        P_s = d[:, :, None] * P_s * d[:, None, :]
+        A_s = e[:, :, None] * A_s * d[:, None, :]
+        D = D * d
+        E = E * e
+        gamma = gamma_of(P_s)
+        P_s = P_s * gamma[:, None, None]
+        c = c * gamma
+    if identity_A:
+        # one rho and no grid to absorb P's scale: keep the cost normalization
+        gamma = gamma_of(P_s)
+        P_s = P_s * gamma[:, None, None]
+        c = c * gamma
+
+    eq = np.asarray(eq_row_mask, bool)
+    rho_vec = torch.from_numpy(
+        np.minimum(np.where(eq, config.rho * config.rho_eq_scale, config.rho), 1e3).astype(
+            np.float32
+        )
+    ).to(dev)
+    eye = torch.eye(n, dtype=f, device=dev)
+    if identity_A:
+        K = P_s + (config.sigma + rho_vec) * eye
+    else:
+        K = P_s + config.sigma * eye + (A_s.transpose(1, 2) * rho_vec) @ A_s
+    K_inv = newton_schulz_inverse(K)
+    return AdmmOperator(
+        P_s=P_s,
+        A_s=A_s,
+        Ks=K[:, None],
+        K_invs=K_inv[:, None],
+        rho_vecs=rho_vec[None],
+        rho_invs=(1.0 / rho_vec)[None],
+        rho_grid=torch.tensor([config.rho], dtype=f, device=dev),
+        D=D,
+        E=E,
+        c=c,
+        n_ball=n_ball,
+        diag_a=bool(identity_A and n_ball == 0),
+    )
+
+
 def _project(
     op: AdmmOperator,
     v: Tensor,  # (m, B)
@@ -276,24 +384,42 @@ def solve(
     the loop ends when every lane is done or at ``max_iter``, reading the
     host once per check. ``adaptive=False`` runs ``max_iter`` iterations
     at the starting rho and one check against the iterate one step
-    before. ``kernel_precision`` is not read: no kernel runs here."""
+    before. ``kernel_precision`` is not read: no kernel runs here.
+
+    An operator with a leading lane axis (``build_operator_traced``: each
+    lane its own P, A, K and K^-1, at one rho) takes the same iteration
+    with batched products over the lanes' matrices."""
     B, n = q.shape
-    m = int(op.A_s.shape[0])
+    lanes = op.P_s.dim() == 3
+    m = int(op.A_s.shape[-2])
     R = int(op.rho_grid.shape[0])
     dev, f = q.device, torch.float32
     if dev.type == "cuda":
         assert_ieee_fp32()
+    if lanes:
+        if R != 1:
+            raise ValueError("an operator per lane has one rho (R = 1)")
+        # (B, r, k) @ (k, B): each lane's matrix against its own column
+        mv = lambda M, v: torch.einsum("bik,kb->ib", M, v)
+        D, E, c = op.D.T, op.E.T, op.c[None, :]
+        P_s, A_s, AT_s = op.P_s, op.A_s, op.A_s.transpose(1, 2)
+        K0, K_inv0 = op.Ks[:, 0], op.K_invs[:, 0]
+    else:
+        mv = lambda M, v: M @ v
+        D, E, c = op.D[:, None], op.E[:, None], op.c
+        P_s, A_s, AT_s = op.P_s, op.A_s, op.A_s.T
+        K0, K_inv0 = op.Ks[0], op.K_invs[0]
     sigma = torch.tensor(config.sigma, dtype=f, device=dev)
     alpha = torch.tensor(config.alpha, dtype=f, device=dev)
     one_m_alpha = 1.0 - alpha
-    D, E, c = op.D[:, None], op.E[:, None], op.c
     D_inv, E_inv, c_inv = 1.0 / D, 1.0 / E, 1.0 / c
+    c_inv_b = c_inv.reshape(-1) if lanes else c_inv  # against per-lane reductions
     lT, uT = l.T, u.T
-    q_s = (c * op.D)[:, None] * q.T
+    q_s = (c * D) * q.T
     l_s = E * lT
     u_s = E * uT
     if op.n_ball:
-        E_ball = op.E[m - op.n_ball]  # one scale for the ball rows
+        E_ball = E[m - op.n_ball]  # one scale for the ball rows
         ball_c_s = E_ball * ball_c.T
         ball_r_s = E_ball * ball_r
     else:
@@ -312,21 +438,21 @@ def solve(
     log_grid = torch.log(op.rho_grid)
     x = torch.zeros((n, B), dtype=f, device=dev) if z0 is None else z0.T / D
     y = torch.zeros((m, B), dtype=f, device=dev) if y0 is None else (c * y0.T) / E
-    ax = op.A_s @ x
+    ax = mv(A_s, x)
     idx = torch.full((B,), idx0, dtype=torch.int32, device=dev)
     rho_vec, rho_inv = rho_parts(idx)
     s = _project(op, ax + rho_inv * y, l_s, u_s, ball_c_s, ball_r_s, shrink_for(rho_vec))
 
     # A_s' diag(rho_r), (R, n, m): every candidate x-update from products
     # that all lanes share, in place of a gathered (B, n, n) K^-1
-    AtRho = op.A_s.T[None] * op.rho_vecs[:, None, :]
+    AtRho = None if lanes else op.A_s.T[None] * op.rho_vecs[:, None, :]
 
     def step(x, s, y, ax, sel, rho_vec, rho_inv, shrink):
         if R == 1:
-            rhs = sigma * x - q_s + op.A_s.T @ (rho_vec * s - y)
-            xt = op.K_invs[0] @ rhs
+            rhs = sigma * x - q_s + mv(AT_s, rho_vec * s - y)
+            xt = mv(K_inv0, rhs)
             for _ in range(config.refine_steps):
-                xt = xt + op.K_invs[0] @ (rhs - op.Ks[0] @ xt)
+                xt = xt + mv(K_inv0, rhs - mv(K0, xt))
         else:
             base = sigma * x - q_s - op.A_s.T @ y
             rhs_r = base[None] + AtRho @ s  # (R, n, B)
@@ -334,7 +460,7 @@ def solve(
             for _ in range(config.refine_steps):
                 xt_r = xt_r + op.K_invs @ (rhs_r - op.Ks @ xt_r)
             xt = torch.gather(xt_r, 0, sel.expand(1, n, B))[0]
-        st = op.A_s @ xt
+        st = mv(A_s, xt)
         x_new = alpha * xt + one_m_alpha * x
         v = alpha * st + one_m_alpha * s  # relaxed with the projected variable
         s_new = _project(op, v + rho_inv * y, l_s, u_s, ball_c_s, ball_r_s, shrink)
@@ -353,11 +479,11 @@ def solve(
         and the NaN guard per lane; the normalized residual ratio for the
         rho rule."""
         r_prim = amax(E_inv * (ax - s))
-        Px = op.P_s @ x
-        Aty = op.A_s.T @ y
-        r_dual = c_inv * amax(D_inv * (Px + q_s + Aty))
+        Px = mv(P_s, x)
+        Aty = mv(AT_s, y)
+        r_dual = c_inv_b * amax(D_inv * (Px + q_s + Aty))
         prim_norm = torch.maximum(amax(E_inv * ax), amax(E_inv * s))
-        dual_norm = c_inv * torch.maximum(
+        dual_norm = c_inv_b * torch.maximum(
             torch.maximum(amax(D_inv * Px), amax(D_inv * Aty)), dual_norm_q
         )
         converged = (r_prim <= config.eps_abs + config.eps_rel * prim_norm) & (
@@ -371,7 +497,7 @@ def solve(
         dys = y - y_prev
         dy = E * dys * c_inv
         dy_norm = amax(dy)
-        Atdy = c_inv * amax(D_inv * (op.A_s.T @ dys))
+        Atdy = c_inv_b * amax(D_inv * mv(AT_s, dys))
         dy_plus = torch.clamp_min(dy, 0.0)
         dy_minus = torch.clamp_max(dy, 0.0)
         support = (
@@ -384,9 +510,9 @@ def solve(
         # dual infeasibility certificate from the primal delta
         dxs = x - x_prev
         dx_norm = amax(D * dxs)
-        Pdx = c_inv * amax(D_inv * (op.P_s @ dxs))
-        qdx = c_inv * (q_s * dxs).sum(0)
-        Adx = E_inv * (op.A_s @ dxs)
+        Pdx = c_inv_b * amax(D_inv * mv(P_s, dxs))
+        qdx = c_inv_b * (q_s * dxs).sum(0)
+        Adx = E_inv * mv(A_s, dxs)
         dir_ok = (
             (~fin_u | (Adx <= eps_i * dx_norm)) & (~fin_l | (Adx >= -eps_i * dx_norm))
         ).all(0)

@@ -195,3 +195,30 @@ def runtime_qp_vectors_batch(qp: CondensedQpData, e0s: Tensor):
         ball_c = e0s.new_zeros((B, 0))
         ball_r = e0s.new_zeros((B,))
     return q, l, u, ball_c, ball_r
+
+
+def ltv_prediction_matrices(As: Tensor, Bs: Tensor, cs: Tensor = None):
+    """Prediction operators of e_{k+1} = A_k e_k + B_k du_k + c_k over a
+    batch of lanes: As (B, N, nx, nx), Bs (B, N, nx, nu), cs (B, N, nx) or
+    None. Returns F (B, N, nx, nx) with e_pred[i] += F[i] e_0, G (B, N, N,
+    nx, nu) lower block triangular with e_pred[i] += sum_j G[i, j] du_j,
+    and h (B, N, nx), the offset from cs; e_pred[i] is the state at step
+    i + 1 (steps 2..N+1 of the reference's 1-based indexing). One batched
+    product per horizon step (the JAX package's ``lax.scan``)."""
+    Bt, N, nx, nu = Bs.shape
+    if cs is None:
+        cs = Bs.new_zeros((Bt, N, nx))
+    Fk = torch.eye(nx, dtype=Bs.dtype, device=Bs.device).expand(Bt, nx, nx)
+    Gk = Bs.new_zeros((Bt, N, nx, nu))
+    hk = Bs.new_zeros((Bt, nx))
+    Fs, Gs, hs = [], [], []
+    for k in range(N):
+        A_k = As[:, k]
+        Gk = torch.einsum("bij,bnjc->bnic", A_k, Gk)
+        Gk[:, k] = Bs[:, k]
+        Fk = A_k @ Fk
+        hk = (A_k @ hk[..., None])[..., 0] + cs[:, k]
+        Fs.append(Fk)
+        Gs.append(Gk)
+        hs.append(hk)
+    return torch.stack(Fs, 1), torch.stack(Gs, 1), torch.stack(hs, 1)

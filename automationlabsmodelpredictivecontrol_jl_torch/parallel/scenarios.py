@@ -10,7 +10,8 @@ linear engine and the Riccati engine on one device:
   sparse solve);
 - :func:`solve_batch` solves a batch on the engines themselves
   (``runtime.solve_lanes``): the general ADMM engine for a condensed
-  engine, the per-lane Riccati engine (on K3) for a Riccati one;
+  engine, the per-lane Riccati engine (on K3) for a Riccati one, one
+  batched SQP over all lanes for an SQP engine (a learned plant);
 - :func:`solve_batch_auto` routes a batch to the fused path wherever a
   kernel takes the shape and to :func:`solve_batch` elsewhere (soft or
   ball rows, operators wider than the kernels take);
@@ -98,9 +99,10 @@ def solve_batch(
     warm_y: Optional[Tensor] = None,  # (B, m)
 ) -> Tuple[MpcSolution, Tensor, Tensor, BatchDiagnostics]:
     """Batched solves on the controller's engine itself, on the device of
-    ``x0s``: the general ADMM engine (a condensed engine) or the per-lane
-    Riccati engine (a Riccati one), the JAX package's vmapped
-    ``solve_once``. Same contract as :func:`solve_batch_fused`."""
+    ``x0s``: the general ADMM engine (a condensed engine), the per-lane
+    Riccati engine (a Riccati one) or the SQP over all lanes at once (an
+    SQP engine), the JAX package's vmapped ``solve_once``. Same contract
+    as :func:`solve_batch_fused`."""
     if warm_z is None or warm_y is None:
         warm_z, warm_y = init_warm_batch(controller, x0s.shape[0])
     sol, wz, wy = solve_lanes(controller, x0s, warm_z, warm_y)
@@ -174,7 +176,8 @@ def fused_supported(controller: MpcController) -> bool:
     at most 128 rows), or dense and fits the kernel that ``use_packed``
     picks, K4 or K5 (n <= 128, at most 512 rows), as the JAX package's
     ``_kernel_viable`` takes a dense operator. A Riccati engine whose
-    plant K3 takes (nx <= 16, nu <= 8). The JAX package's bands were measured on other hardware and
+    plant K3 takes (nx <= 16, nu <= 8); never an SQP engine (no kernel
+    takes its per-lane operators). The JAX package's bands were measured on other hardware and
     are not copied (it routes its Riccati engine to the vmapped engine);
     bands for this card come from its own A/B runs."""
     eng = controller.engine
@@ -408,7 +411,10 @@ def closed_loop_batch(
     n_steps: int,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Batched receding-horizon closed loop, a Python loop over steps with
-    the warm start carried from step to step.
+    the warm start carried from step to step. ``plant_step`` takes the
+    whole batch at once (the JAX package vmaps a one-state plant): the
+    QTP's ``qtp_discrete_step``, or a learned plant's ``system.step`` (a
+    zoo model takes (B, nx) and (B, nu)).
 
     Returns (states (n_steps+1, B, nx), inputs (n_steps, B, nu),
     statuses (n_steps, B))."""

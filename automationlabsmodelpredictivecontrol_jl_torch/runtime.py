@@ -14,9 +14,10 @@ The port of the JAX package's ``runtime.py``:
 
 :func:`solve_lanes` is the engines' batched solve: the condensed engine on
 the general ADMM engine (``ops/admm.solve``), the Riccati engine on its
-per-lane engine (``ops/riccati_fused.solve_sparse``, which runs K3).
+per-lane engine (``ops/riccati_fused.solve_sparse``, which runs K3), the
+SQP engine on ``solvers/sqp.py`` (single or multiple shooting).
 :func:`solve_once` is its batch of one with the JAX package's unbatched
-shapes, and ``parallel.solve_batch`` its fleet form. The SQP, economic and
+shapes, and ``parallel.solve_batch`` its fleet form. The economic and
 MILP engines are not ported (ROADMAP Queue 1).
 """
 
@@ -32,14 +33,15 @@ from .design import LinearEngine, MpcController, RiccatiEngine, design_controlle
 from .ops import admm as admm_ops
 from .ops import riccati_fused
 from .ops.condense import runtime_qp_vectors_batch
-from .solvers.sqp import true_objective
+from .solvers import sqp as sqp_mod
+from .solvers.sqp import SqpEngine, true_objective
 from .types import STATUS_PRIMAL_INFEASIBLE, MpcSolution
 
 Tensor = torch.Tensor
 
 _NOT_PORTED = (
-    "only the condensed and Riccati engines are ported; the SQP (ROADMAP "
-    "Queue 1 item 6), economic-MPC (item 7) and MILP (item 8) engines are not"
+    "only the condensed, Riccati and SQP engines are ported; the economic-MPC "
+    "and MILP engines are not (ROADMAP Queue 1)"
 )
 
 
@@ -169,6 +171,18 @@ def _solve_riccati(controller, x0s, warm_z, warm_y):
     return riccati_solution(controller, x0s, X, U, status, iters, rp, rd, lams)
 
 
+def _solve_sqp(controller, x0s, warm_z, warm_y):
+    """The SQP engine over the lanes, and its shifted warm carry."""
+    system, tuning, engine = controller.system, controller.tuning, controller.engine
+    N, nx, nu = tuning.horizon, system.nx, system.nu
+    if engine.shooting == "multiple":
+        sol, z_f, y_f = sqp_mod.solve_nonlinear_ms(system, tuning, engine, x0s, warm_z, warm_y)
+        z_next, y_next = sqp_mod.shift_warm_ms(z_f, y_f, N, nx, nu)
+        return sol, z_next, y_next
+    sol, u_f, y_f = sqp_mod.solve_nonlinear(system, tuning, engine, x0s, warm_z, warm_y)
+    return sol, sqp_mod.shift_warm(u_f, N, nu), y_f
+
+
 def solve_lanes(
     controller: MpcController,
     x0s: Tensor,  # (B, nx)
@@ -186,6 +200,8 @@ def solve_lanes(
         return _solve_linear(controller, x0s, warm_z, warm_y)
     if isinstance(engine, RiccatiEngine):
         return _solve_riccati(controller, x0s, warm_z, warm_y)
+    if isinstance(engine, SqpEngine):
+        return _solve_sqp(controller, x0s, warm_z, warm_y)
     raise NotImplementedError(_NOT_PORTED)
 
 
@@ -236,7 +252,8 @@ def update_references(controller: MpcController, x_ref: Any, u_ref: Any) -> MpcC
     endpoint) and the operators, on the host, then back to the
     controller's device. The engine's configuration carries over (the ADMM
     or Riccati config, the soft state penalty), the weight matrices pass
-    through as they are, and so do the pinned state and the warm pair."""
+    through as they are, and so do the pinned state and the warm pair.
+    An SQP engine keeps its SqpConfig and its soft boxes."""
     t = controller.tuning
     eng = controller.engine
     kwargs = {}
@@ -251,6 +268,11 @@ def update_references(controller: MpcController, x_ref: Any, u_ref: Any) -> MpcC
     elif isinstance(eng, RiccatiEngine):
         kwargs["engine"] = "riccati"
         kwargs["riccati_config"] = eng.config
+    elif isinstance(eng, SqpEngine):
+        kwargs["sqp_config"] = eng.config
+        if eng.soft_boxes:
+            # keep the user-soft boxes (and their status gate) across the re-design
+            kwargs["soft_state_penalty"] = eng.config.soft_state_penalty
     else:
         raise NotImplementedError(_NOT_PORTED)
     w = t.weights

@@ -1,14 +1,18 @@
-"""Linear system types, discretization and linearization.
+"""System types, discretization and linearization.
 
-The linear half of the JAX package's ``systems.py``. Learned (neural)
-dynamics are not ported yet: ``linearize`` raises ``NotImplementedError``
-for them (ROADMAP Queue 1, "Learned dynamics").
+The JAX package's ``systems.py``: linear discrete and continuous plants
+(exact zero-order-hold discretization), learned plants
+(:class:`NeuralDiscreteSystem`, :class:`NeuralContinuousSystem`, RK4
+integration) and Jacobian linearization by ``torch.func.jacfwd``. A
+learned plant's ``apply_fn(params, x, u)`` takes batches: x (..., nx),
+u (..., nu). The fuzzy ``takagi_sugeno_system`` is not ported yet
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import scipy.linalg as sla
@@ -59,6 +63,45 @@ class LinearContinuousSystem(TensorRecord):
         return self.B.shape[-1]
 
 
+@dataclasses.dataclass(frozen=True)
+class NeuralDiscreteSystem(TensorRecord):
+    """x_{k+1} = f(params, x_k, u_k), f a learned model of a zoo family
+    (``models/zoo.py``) or a user function. ``activation`` records the
+    activation name of a zoo model (checkpoints rebuild apply_fn from
+    (family, activation)); None for an opaque callable. ``.to(device)``
+    moves the parameter tree."""
+
+    apply_fn: Callable[..., Tensor]
+    family: str
+    nx: int
+    nu: int
+    params: Any
+    X: Box
+    U: Box
+    activation: Optional[str] = None
+
+    def step(self, x: Tensor, u: Tensor) -> Tensor:
+        """Batched step: x (..., nx), u (..., nu)."""
+        return self.apply_fn(self.params, x, u)
+
+
+@dataclasses.dataclass(frozen=True)
+class NeuralContinuousSystem(TensorRecord):
+    """dx/dt = f(params, x, u); integrated with RK4 by :func:`as_discrete`."""
+
+    apply_fn: Callable[..., Tensor]
+    family: str
+    nx: int
+    nu: int
+    params: Any
+    X: Box
+    U: Box
+    activation: Optional[str] = None
+
+    def deriv(self, x: Tensor, u: Tensor) -> Tensor:
+        return self.apply_fn(self.params, x, u)
+
+
 def discretize(system: LinearContinuousSystem, sample_time: float) -> LinearDiscreteSystem:
     """Exact zero-order-hold discretization: one matrix exponential of the
     augmented matrix [[A, B], [0, 0]] * Ts, in f64 on the host, stored f32."""
@@ -83,24 +126,66 @@ def rk4_step(
     return x + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
 
 
-def as_discrete(system: Any, sample_time: float) -> Any:
-    """Continuous linear systems are discretized (ZOH); discrete ones pass
-    through unchanged."""
+def as_discrete(system: Any, sample_time: float, substeps: int = 1) -> Any:
+    """Any system as a discrete one: a continuous linear plant by exact
+    ZOH, a continuous learned one by ``substeps`` RK4 steps over the sample
+    time; discrete systems pass through unchanged."""
     if isinstance(system, LinearContinuousSystem):
         return discretize(system, sample_time)
-    if isinstance(system, LinearDiscreteSystem):
+    if isinstance(system, NeuralContinuousSystem):
+        dt = sample_time / substeps
+        cont = system
+
+        def stepped(params, x, u):
+            for _ in range(substeps):
+                x = rk4_step(lambda xx, uu: cont.apply_fn(params, xx, uu), x, u, dt)
+            return x
+
+        return NeuralDiscreteSystem(
+            apply_fn=stepped, family=cont.family, nx=cont.nx, nu=cont.nu,
+            params=cont.params, X=cont.X, U=cont.U, activation=cont.activation,
+        )
+    if isinstance(system, (LinearDiscreteSystem, NeuralDiscreteSystem)):
         return system
-    raise NotImplementedError(
-        f"{type(system).__name__}: only linear systems are ported so far "
-        "(learned dynamics: ROADMAP Queue 1, 'Learned dynamics')"
-    )
+    raise TypeError(f"not a system: {type(system).__name__}")
+
+
+def user_function_system(
+    f: Callable[[Tensor, Tensor], Tensor],
+    nx: int,
+    nu: int,
+    X: Box,
+    U: Box,
+    *,
+    discrete: bool = True,
+) -> Any:
+    """A user's dynamics f(x, u) -> x_next (discrete) or dx/dt (continuous),
+    batched over leading axes, as a system of the "physical" family."""
+
+    def apply_fn(params, x, u):
+        return f(x, u)
+
+    cls = NeuralDiscreteSystem if discrete else NeuralContinuousSystem
+    return cls(apply_fn=apply_fn, family="physical", nx=nx, nu=nu, params=None, X=X, U=U)
 
 
 def linearize(system: Any, x0: Any = None, u0: Any = None) -> Tuple[Tensor, Tensor]:
-    """Jacobians (A, B) of a linear system: the system's own matrices."""
+    """Jacobians A = df/dx, B = df/du at (x0, u0): a linear system's own
+    matrices, a learned one's by forward-mode ``torch.func.jacfwd`` of its
+    apply_fn (a relu's derivative at exactly 0 is 0, as jax.nn.relu's)."""
     if isinstance(system, (LinearDiscreteSystem, LinearContinuousSystem)):
         return system.A, system.B
-    raise NotImplementedError(
-        f"linearize({type(system).__name__}): neural systems are not ported "
-        "yet (ROADMAP Queue 1, 'Learned dynamics')"
-    )
+    if isinstance(system, (NeuralDiscreteSystem, NeuralContinuousSystem)):
+        x0 = torch.as_tensor(x0, dtype=torch.float32)
+        u0 = torch.as_tensor(u0, dtype=torch.float32)
+        f = lambda x, u: system.apply_fn(system.params, x, u)
+        return torch.func.jacfwd(f, argnums=(0, 1))(x0, u0)
+    raise TypeError(f"not a system: {type(system).__name__}")
+
+
+def linearize_to_system(system: Any, x0: Any, u0: Any) -> LinearDiscreteSystem:
+    """A (discrete) learned system linearized at (x0, u0) as a
+    LinearDiscreteSystem with the same constraint sets: the "linear"
+    programming type on a learned plant."""
+    A, B = linearize(system, x0, u0)
+    return LinearDiscreteSystem(A=A.detach(), B=B.detach(), X=system.X, U=system.U)

@@ -37,6 +37,10 @@ def _move(value: Any, device) -> Any:
         return value.to(device)
     if isinstance(value, TensorRecord):
         return value.to(device)
+    if isinstance(value, dict):  # a learned model's parameter tree
+        return {k: _move(v, device) for k, v in value.items()}
+    if isinstance(value, list):
+        return [_move(v, device) for v in value]
     return value
 
 

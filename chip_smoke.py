@@ -48,7 +48,16 @@ device=card)``, then ``parallel`` and ``step``):
   terminal and soft state rows (no kernel takes them) through
   ``solve_batch_auto``, the per-lane Riccati engine on K3 (``step`` at
   h500 and B = 1, and tier 2 of ``solve_batch_escalated`` on the h500
-  cell), and the general engine on the card against the CPU.
+  cell), and the general engine on the card against the CPU;
+- learned plants (``learned_phase``): the golden's frozen fnn
+  (tests/golden/qtp_nl_golden.npz) and a resnet trained on the card by
+  ``benchmarks/training.py`` as QTP plants (benchmarks_suite.py configs 3
+  and 4: h10, 256 states): the SQP controller, single and multiple
+  shooting and with soft state boxes, through ``parallel.solve_batch``;
+  ``step`` on the frozen NL goldens and the wide plant, and at B = 1 over
+  the true plant; the SQP on the card against the CPU; and the fnn
+  linearized at the reference (programming type "linear") on K1 through
+  ``solve_batch_escalated`` at bench.py's tiers and 16384 states.
 
 Phases (any failure raises and exits non-zero):
 1. the card: its name, count, and power limit from nvidia-smi;
@@ -79,7 +88,9 @@ Phases (any failure raises and exits non-zero):
 4. each path, with the launch counts set to 0 just before it and read
    just after, showing that it went through its kernel and never through
    a plain version (the general engines' phase: K1 on the fused side of
-   its A/B, K3 and its recurrence kernels in the per-lane engine);
+   its A/B, K3 and its recurrence kernels in the per-lane engine; the
+   learned phase: no kernel on the SQP cells, K1 on the learned-linear
+   cell, held to its plain version on that operator first);
 5. where the time goes in each path's cells (torch.profiler: device time
    per solve, the kernels' share of it, the card's idle share); then
    re-solves of 256 lanes with the plain versions (K3's at h50, K4's at
@@ -122,6 +133,11 @@ RAGGED = (1, 33, 77, 1000)  # tier-2 buckets of K1 and K2
 VERIFY_STEPS, RICCATI_STEPS, REPS_AB = 50, 5, 5  # the general engine's phase
 ESC_TIER1_ITERS = 100  # leaves ~20% of the h500 cell's lanes to tier 2
 CARD_CPU_COMPARED = 0.85  # least share of lanes converged on the card and on the CPU
+# the learned-plant phase: suite configs 3 and 4 at their width
+B_SQP, REPS_SQP, B_SQP_CPU, SQP_STEPS = 256, 10, 64, 20
+SQP_CONV_OK = 0.99  # converged fraction of the fnn SQP cells
+SQP_STATUS_OK = 0.98  # least share of equal statuses, card against CPU
+NL_U_OK, WIDE_OK = 1e-3, 1e-4  # the frozen NL goldens' bars (tests/test_golden_nl.py)
 
 
 def log(**kv):
@@ -180,6 +196,20 @@ def cuda_ms(fn, reps=20, warm_up=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_once(fn):
+    """(fn(), its milliseconds from CUDA events around the one call)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_graph_ms(fn, reps=20, repeats=5):
@@ -425,7 +455,10 @@ def compare_k3_args(args, branch, plain_reps):
     plan = riccati_fused.k3_plan(op, B)
     log(phase="k3_plan", branch=branch, N=op.N, nx=op.nx, nu=op.nu, B=B, **plan._asdict())
     kernel, plain = riccati_fused.iterate_chunk_riccati, riccati_fused.iterate_chunk_riccati_plain
-    abs_err, rel_err, ulps = _errors(kernel(*args), plain(*args), "K3")
+    # the plain version's compared run is also its timed one where one run
+    # is timed (seconds a run at h500: each repetition costs the script that)
+    out_p, plain_once_ms = cuda_ms_once(lambda: plain(*args))
+    abs_err, rel_err, ulps = _errors(kernel(*args), out_p, "K3")
     rec = dict(branch=branch, N=op.N, nx=op.nx, nu=op.nu, B=B, chunk=chunk,
                rho_index=int(args[1][0]), route=plan.route, lanes=plan.lanes,
                blocks=plan.blocks, smem_bytes=plan.smem_bytes,
@@ -435,7 +468,8 @@ def compare_k3_args(args, branch, plain_reps):
     if rel_err > SHAPES_OK_REL or ulps != 0:
         raise RuntimeError(f"K3 disagrees with its plain version: {rec}")
     rec["ms"] = cuda_ms(lambda: kernel(*args))
-    rec["plain_ms"] = cuda_ms(lambda: plain(*args), reps=plain_reps, warm_up=False)
+    rec["plain_ms"] = (plain_once_ms if plain_reps == 1 else
+                       cuda_ms(lambda: plain(*args), reps=plain_reps, warm_up=False))
     rec["bound_ms"], rec["bound_by"] = riccati_chunk_bound(
         op.N, op.nx, op.nu, B, chunk, op.split_interior
     )
@@ -630,11 +664,13 @@ def timed(fn, reps):
     return out, np.asarray(lat)
 
 
-def profile(fn, reps):
+def profile(fn, reps, cpu=True):
     """torch.profiler over reps calls of fn() after one warm-up: device
     milliseconds per call (all kernels and copies; those of the port's own
     kernels apart), kernels per call, and the share of the wall time in
-    which the card ran nothing."""
+    which the card ran nothing. ``cpu=False`` traces the card alone: the
+    host's operator events of a solve of 10^5 small operations take
+    minutes to collect."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -642,7 +678,8 @@ def profile(fn, reps):
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with torch_profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -712,6 +749,252 @@ def percentiles_ms(lat):
     import numpy as np
 
     return float(np.percentile(lat, 50)) * 1e3, float(np.percentile(lat, 99)) * 1e3
+
+
+def sqp_x0s(B):
+    """benchmarks_suite.py config 3's initial states: default_rng(0),
+    clip(0.65 + 0.05 N(0, 1), 0.3, 1.3), shape (B, 4)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return np.clip(0.65 + 0.05 * rng.standard_normal((B, 4)), 0.3, 1.3).astype(np.float32)
+
+
+def golden_fnn(dev):
+    """The frozen golden fnn (hidden 8, depth 1, relu; 160 floats in
+    tests/golden/qtp_nl_golden.npz, read with numpy) as a learned QTP
+    plant on ``dev``, and the golden file's metadata."""
+    import numpy as np
+
+    from automationlabsmodelpredictivecontrol_jl_torch import interop
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp
+    from automationlabsmodelpredictivecontrol_jl_torch.models import zoo
+    from automationlabsmodelpredictivecontrol_jl_torch.systems import NeuralDiscreteSystem
+
+    golden = os.path.join(HERE, "tests", "golden")
+    data = np.load(os.path.join(golden, "qtp_nl_golden.npz"))
+    with open(os.path.join(golden, "qtp_nl_golden_meta.json")) as f:
+        meta = json.load(f)
+    apply_fn, act = zoo.make_apply("fnn")
+    plant = NeuralDiscreteSystem(
+        apply_fn=apply_fn, family="fnn", nx=4, nu=2,
+        params=interop.unravel_params("fnn", 4, 2, 8, 1, data["fnn_params"]),
+        X=qtp.x_box(), U=qtp.u_box(), activation=act,
+    ).to(dev)
+    return plant, data, meta
+
+
+def admm_iterations(fn):
+    """fn() once with the general ADMM engine's solves counted: the calls,
+    and per call the iterations of its slowest lane (the batch runs until
+    then) and the lanes' mean."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm
+
+    calls, orig = [], admm.solve
+
+    def counted(*args, **kwargs):
+        res = orig(*args, **kwargs)
+        calls.append((int(res.iterations.max()), float(res.iterations.float().mean())))
+        return res
+
+    admm.solve = counted
+    try:
+        fn()
+    finally:
+        admm.solve = orig
+    n = max(len(calls), 1)
+    return dict(admm_calls_per_solve=len(calls),
+                admm_iterations_per_call_slowest_lane=sum(c[0] for c in calls) / n,
+                admm_iterations_per_call_lane_mean=sum(c[1] for c in calls) / n)
+
+
+def learned_phase(dev, tier1, tier2):
+    """Learned plants on the card (benchmarks_suite.py configs 3 and 4 at
+    their width, h10, sample time 5 s, references 0.65 / 1.2):
+
+    - sqp-fnn-single-B256 and sqp-fnn-multiple-B256: the golden fnn,
+      SqpConfig(max_sqp_iter=8) and (12, multiple shooting), 256 states,
+      10 timed batch solves through ``parallel.solve_batch``; the SQP path
+      launches none of the port's kernels;
+    - sqp-resnet-soft-B256: a resnet (hidden 8, depth 1) trained on the
+      card by ``benchmarks/training.py`` (48 x 30 QTP transitions, seed 1,
+      600 Adam steps), soft state boxes at 10;
+    - nl-golden-on-card: ``step`` on the four frozen NL configs, both
+      transcriptions, within 1e-3 of the golden u and x, and the wide
+      linear plant (nx 16, nu 8) within 1e-4;
+    - sqp-card-vs-cpu: the single-shooting fleet on 64 lanes on both
+      devices;
+    - sqp-step-loop: ``step`` at B = 1, 20 times, on the true QTP plant;
+    - learned-linear-h20-B16384: the fnn linearized at the reference
+      (programming type "linear"), bench.py's tier-1 and tier-2 configs,
+      ``solve_batch_escalated`` over 16384 states, counted from zero: K1
+      launched, no plain version; K1 held to its plain version on this
+      operator first (max_ulps 0).
+    Returns the K1 launches of the learned-linear path and K1's record on
+    its operator."""
+    import numpy as np
+    import torch
+
+    from automationlabsmodelpredictivecontrol_jl_torch import (
+        SqpConfig, parallel, proceed_controller, runtime,
+    )
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import big, qtp, training
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    plant, golden, meta = golden_fnn(dev)
+    design = lambda system, cfg, **kw: proceed_controller(
+        system, "model_predictive_control", 10, 5.0, [0.65] * 4, [1.2] * 2,
+        sqp_config=cfg, device=dev, **kw,
+    )
+    seconds, t_part = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t_part
+        now = time.perf_counter()
+        seconds[part] = now - t_part
+        t_part = now
+
+    t0 = time.perf_counter()
+    data = training.generate_qtp_dataset(n_traj=48, n_steps=30, seed=0, device=dev)
+    resnet, rmse_res = training.trained_system("resnet", data, seed=1)
+    torch.cuda.synchronize()
+    log(phase="training", family="resnet", seed=1, steps=600, samples=int(data[0].shape[0]),
+        rmse=rmse_res, seconds=time.perf_counter() - t0)
+    single = design(plant, SqpConfig(max_sqp_iter=8))
+    cells = {
+        "sqp-fnn-single-B256": (single, None),
+        "sqp-fnn-multiple-B256": (design(plant, SqpConfig(max_sqp_iter=12, shooting="multiple")),
+                                  None),
+        "sqp-resnet-soft-B256": (design(resnet, SqpConfig(max_sqp_iter=8),
+                                        mpc_soft_state_constraint=10.0), rmse_res),
+    }
+    x = torch.from_numpy(sqp_x0s(B_SQP)).to(dev)
+    recs = {}
+    for cell, (c, rmse) in cells.items():
+        admm_fused.reset_counts()
+        fn = lambda c=c: parallel.solve_batch(c, x)
+        (sol, _, _, d), lat = timed(fn, REPS_SQP)
+        check_solution(sol, B_SQP, 10, cell)
+        if any(admm_fused.LAUNCHES.values()) or any(admm_fused.PLAIN_CALLS.values()):
+            raise RuntimeError(f"{cell}: the SQP path ran a kernel or a plain version")
+        p50, p99 = percentiles_ms(lat)
+        cfg = c.engine.config
+        rec = dict(cell=cell, B=B_SQP, shooting=cfg.shooting, max_sqp_iter=cfg.max_sqp_iter,
+                   batch_p50_ms=p50, batch_p99_ms=p99, solves_per_s=B_SQP / float(np.median(lat)),
+                   converged_fraction=int(d.n_converged) / B_SQP,
+                   mean_sqp_iterations=float(d.mean_iterations),
+                   max_sqp_iterations=int(d.max_iterations),
+                   max_primal_residual=float(d.max_primal_residual), model_rmse=rmse)
+        if cfg.shooting == "single":
+            rec.update(admm_iterations(fn))
+        else:
+            rec["inner_admm_iterations_per_sqp_iteration"] = cfg.ms_admm_iters
+        t0 = time.perf_counter()
+        rec.update(profile(fn, 1, cpu=False), profile_seconds=time.perf_counter() - t0)
+        log(phase="sqp", **rec)
+        recs[cell] = rec
+    for cell in ("sqp-fnn-single-B256", "sqp-fnn-multiple-B256"):
+        if recs[cell]["converged_fraction"] < SQP_CONV_OK:
+            raise RuntimeError(f"{cell}: converged fraction too low: {recs[cell]}")
+    lap("sqp cells")
+
+    for cfg in meta["nl_configs"]:
+        for shooting in ("single", "multiple"):
+            kw = {}
+            if cfg["soft"] is not None:
+                kw["mpc_soft_state_constraint"] = cfg["soft"]
+            elif cfg["state_constraint"]:
+                kw["mpc_state_constraint"] = True
+            c = proceed_controller(plant, "model_predictive_control", cfg["horizon"], 5.0,
+                                   [0.65] * 4, [1.2] * 2, device=dev,
+                                   sqp_config=SqpConfig(shooting=shooting, max_sqp_iter=80), **kw)
+            t0 = time.perf_counter()
+            _, sol = runtime.step(c, torch.tensor(cfg.get("x0", meta["x0"]), device=dev))
+            key = f"{cfg['key']}__{shooting}"
+            du = float(np.abs(sol.u.cpu().numpy().T - golden[key + "__u"]).max())
+            dx = float(np.abs(sol.x.cpu().numpy().T - golden[key + "__x"]).max())
+            log(phase="nl_golden", config=key, status=int(sol.status),
+                iterations=int(sol.iterations), max_abs_u_diff=du, max_abs_x_diff=dx,
+                objective=float(sol.objective), golden_objective=cfg["objective"][shooting],
+                seconds=time.perf_counter() - t0)
+            if int(sol.status) != 0 or du > NL_U_OK or dx > NL_U_OK:
+                raise RuntimeError(f"{key}: off the frozen golden on the card")
+    w = meta["wide"]
+    c = proceed_controller(big.random_stable_system(w["nx"], w["nu"], seed=w["seed"]),
+                           "model_predictive_control", w["horizon"], 1.0, np.zeros(w["nx"]),
+                           np.zeros(w["nu"]), mpc_state_constraint=True, device=dev)
+    _, sol = runtime.step(c, torch.tensor(w["x0"], dtype=torch.float32, device=dev))
+    du = float(np.abs(sol.u.cpu().numpy().T - golden["wide__u"]).max())
+    dx = float(np.abs(sol.x.cpu().numpy().T - golden["wide__x"]).max())
+    log(phase="nl_golden", config="wide nx16 nu8 h10", status=int(sol.status),
+        iterations=int(sol.iterations), max_abs_u_diff=du, max_abs_x_diff=dx)
+    if int(sol.status) != 0 or du > WIDE_OK or dx > WIDE_OK:
+        raise RuntimeError("the wide plant is off its frozen oracle on the card")
+    lap("nl goldens")
+
+    xs = torch.from_numpy(sqp_x0s(B_SQP_CPU))
+    s_card, _, _, _ = parallel.solve_batch(single, xs.to(dev))
+    s_cpu, _, _, _ = parallel.solve_batch(single.to("cpu"), xs)
+    st_card, st_cpu = s_card.status.cpu(), s_cpu.status
+    both = (st_card == 0) & (st_cpu == 0)
+    du = float((s_card.u.cpu() - s_cpu.u).abs()[both].max()) if bool(both.any()) else float("inf")
+    same = float((st_card == st_cpu).float().mean())
+    log(phase="card_vs_cpu", engine="sqp single shooting", lanes=B_SQP_CPU,
+        converged_card=int((st_card == 0).sum()), converged_cpu=int((st_cpu == 0).sum()),
+        statuses_equal_fraction=same, max_abs_u_diff=du,
+        iterations_equal_fraction=float((s_card.iterations.cpu() == s_cpu.iterations)
+                                        .float().mean()))
+    if same < SQP_STATUS_OK or du > NL_U_OK:
+        raise RuntimeError("the SQP on the card disagrees with the CPU")
+    lap("card_vs_cpu")
+
+    c, xk, st, its, lat = single, torch.full((4,), 0.6, device=dev), [], [], []
+    for _ in range(SQP_STEPS):
+        t0 = time.perf_counter()
+        c, sol = runtime.step(c, xk)
+        st.append(int(sol.status))
+        lat.append(time.perf_counter() - t0)
+        its.append(int(sol.iterations))
+        xk = qtp.qtp_discrete_step(xk, sol.u[:, 0])
+    p50, p99 = percentiles_ms(np.asarray(lat))
+    log(phase="step_loop", engine="sqp single shooting (golden fnn, h10)", B=1,
+        steps=SQP_STEPS, statuses=st, iterations=its, step_p50_ms=p50, step_p99_ms=p99,
+        sample_time_ms=5000.0, p99_share_of_sample_time=p99 / 5000.0,
+        x_end=xk.cpu().tolist())
+    if not bool(torch.isfinite(xk).all()):
+        raise RuntimeError("the SQP closed loop left the plant's state non-finite")
+    lap("sqp step loop")
+
+    lin = lambda cfg: proceed_controller(
+        plant, "model_predictive_control", 20, 5.0, [0.65] * 4, [1.2] * 2,
+        mpc_programming_type="linear", admm_config=cfg, device=dev,
+    )
+    ctrl = lin(tier1)
+    fb = parallel.escalation_controller(ctrl, **tier2)
+    if not (ctrl.engine.op.diag_a and parallel.fused_supported(ctrl)):
+        raise RuntimeError("the linearized fnn's h20 operator is expected on K1")
+    k1_rec = compare_kernel(ctrl, B_MAIN, 33, bench_x0s)
+    k1_rec["operator"] = "fnn linearized at the reference"
+    log(phase="k1_vs_plain", **k1_rec)
+    x0s = torch.from_numpy(bench_x0s(B_MAIN)).to(dev)
+    wz, wy = parallel.init_warm_batch(ctrl, B_MAIN)
+    admm_fused.reset_counts()
+    (sol, _, _, d), lat = timed(
+        lambda: parallel.solve_batch_escalated(ctrl, fb, x0s, wz, wy, bucket=BUCKET), REPS_SC)
+    k1 = admm_fused.LAUNCHES["K1"]
+    plain = dict(admm_fused.PLAIN_CALLS)
+    check_solution(sol, B_MAIN, 20, "learned-linear-h20-B16384")
+    p50, p99 = percentiles_ms(lat)
+    log(phase="learned_linear", cell="learned-linear-h20-B16384", B=B_MAIN, bucket=BUCKET,
+        converged_fraction=int(d.n_converged) / B_MAIN,
+        mean_iterations=float(d.mean_iterations), max_iterations=int(d.max_iterations),
+        batch_p50_ms=p50, batch_p99_ms=p99, solves_per_s=B_MAIN / float(np.median(lat)),
+        k1_launches=k1, k1_launches_per_solve=k1 / (REPS_SC + 1), plain_calls=plain)
+    if k1 <= 0 or any(plain.values()):
+        raise RuntimeError("the learned-linear path did not run on K1 alone")
+    lap("learned-linear")
+    log(phase="learned_seconds", **seconds)
+    return k1, k1_rec
 
 
 def general_phase(dev, plant, ctrl, ctrl_def, ctrl_h500, suite_cfg, x0s, x_h500, x_suite):
@@ -1363,6 +1646,12 @@ def main():
     if any(plain_general.values()):
         raise RuntimeError("the general phase ran a plain version")
 
+    # 4f. learned plants: the SQP and the linearized learned controller on
+    # K1, counted from zero cell by cell
+    k1_learned, k1_learned_rec = learned_phase(
+        dev, tier1, dict(rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250, refine_steps=2))
+    k1_shapes.append(k1_learned_rec)
+
     # where the time goes in each cell (after the counts: these launches
     # are not the paths' runs)
     for cell, fn, reps in (
@@ -1407,7 +1696,7 @@ def main():
     log(phase="seconds", total=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [
         dict(kernel_entry("admm_diag_chunk (K1)", "admm_diag.cu", f"{TPU_ADMM}:348",
-                          k1_launches + general_counts["K1"], k1_shapes),
+                          k1_launches + general_counts["K1"] + k1_learned, k1_shapes),
              smem_floor_ms=k1_shapes[0]["smem_floor_ms"],
              layouts=sorted(k1_layouts)),
         dict(kernel_entry("admm_mixed_chunk (K2)", "admm_mixed.cu", f"{TPU_ADMM}:580",

@@ -766,3 +766,66 @@ def test_per_lane_riccati_engine_on_k3_equals_its_plain_version(card):
     assert bool((out_k[2] == 0).all())
     for name, a, b in zip(("X", "U", "status", "iterations"), out_k[:4], out_p[:4]):
         assert torch.equal(a, b), name
+
+
+# ------------------------------------------------ learned plants and the SQP
+
+
+def _golden_fnn(dev):
+    """The frozen golden fnn (tests/golden/qtp_nl_golden.npz) on ``dev``."""
+    from automationlabsmodelpredictivecontrol_jl_torch import interop
+    from automationlabsmodelpredictivecontrol_jl_torch.models import zoo
+    from automationlabsmodelpredictivecontrol_jl_torch.systems import NeuralDiscreteSystem
+
+    flat = np.load(os.path.join(os.path.dirname(__file__), "golden", "qtp_nl_golden.npz"))["fnn_params"]
+    apply_fn, act = zoo.make_apply("fnn")
+    return NeuralDiscreteSystem(
+        apply_fn=apply_fn, family="fnn", nx=4, nu=2,
+        params=interop.unravel_params("fnn", 4, 2, 8, 1, flat),
+        X=qtp.x_box(), U=qtp.u_box(), activation=act,
+    ).to(dev)
+
+
+@pytest.mark.parametrize("shooting", ["single", "multiple"])
+def test_sqp_fleet_on_the_card_matches_the_cpu(card, shooting):
+    """The SQP over 16 lanes of suite config 3's states on the card and on
+    the CPU: statuses equal on at least 15 lanes, u within 1e-3 where both
+    converged (the line search's ties follow each device's roundoff)."""
+    from automationlabsmodelpredictivecontrol_jl_torch import SqpConfig
+
+    plant = _golden_fnn("cpu")
+    it = 8 if shooting == "single" else 12
+    c = proceed_controller(plant, "model_predictive_control", 10, 5.0, [0.65] * 4, [1.2] * 2,
+                           sqp_config=SqpConfig(shooting=shooting, max_sqp_iter=it), device=card)
+    rng = np.random.default_rng(0)
+    x0 = torch.from_numpy(np.clip(0.65 + 0.05 * rng.standard_normal((16, 4)), 0.3, 1.3)
+                          .astype(np.float32))
+    s_card, _, _, d = parallel.solve_batch(c, x0.to(card))
+    s_cpu, _, _, _ = parallel.solve_batch(c.to("cpu"), x0)
+    assert s_card.u.is_cuda and int(d.n_converged) == 16
+    st_card, st_cpu = s_card.status.cpu(), s_cpu.status
+    assert int((st_card == st_cpu).sum()) >= 15
+    both = (st_card == 0) & (st_cpu == 0)
+    assert float((s_card.u.cpu() - s_cpu.u).abs()[both].max()) <= 1e-3
+
+
+@pytest.mark.parametrize("family", ["fnn", "icnn", "resnet", "densenet", "rbf", "polynet",
+                                    "neuralode", "rknn1", "rknn2", "rknn4", "rnn", "gru", "lstm"])
+def test_zoo_forward_and_jacobian_on_the_card(card, family):
+    """Each family's forward and jacfwd linearization on the card against
+    the CPU, in IEEE fp32 (1e-5 of max(1, |CPU|))."""
+    from automationlabsmodelpredictivecontrol_jl_torch import systems
+    from automationlabsmodelpredictivecontrol_jl_torch.models import zoo
+
+    sys_cpu = zoo.make_system(family, 3, 4, 2, qtp.x_box(), qtp.u_box(), hidden=8, depth=2,
+                              sample_time=0.5)
+    sys_card = sys_cpu.to(card)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.uniform(0.2, 1.2, (64, 4)).astype(np.float32))
+    u = torch.from_numpy(rng.uniform(0.0, 3.0, (64, 2)).astype(np.float32))
+    ref = sys_cpu.step(x, u)
+    out = sys_card.step(x.to(card), u.to(card)).cpu()
+    assert float((out - ref).abs().max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
+    for a, b in zip(systems.linearize(sys_card, x[0].to(card), u[0].to(card)),
+                    systems.linearize(sys_cpu, x[0], u[0])):
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max()))

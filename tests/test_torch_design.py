@@ -142,18 +142,26 @@ def test_escalation_operator_bitwise(pair):
 
 def test_unported_branches_raise():
     """Engines not ported yet raise NotImplementedError (the Riccati engine
-    is ported: tests/test_torch_riccati.py)."""
+    is ported: tests/test_torch_riccati.py; the SQP: tests/test_torch_sqp.py,
+    and an sqp_config on a linear plant designs the QP, as in the JAX
+    package)."""
     sys = tqtp.linearized_discrete_system()
     with pytest.raises(NotImplementedError):
         tmpc.proceed_controller(
             sys, "economic_model_predictive_control", 5, 5.0, X_REF, U_REF,
             mpc_cost_function=lambda x, u: 0.0, device="cpu",
         )
-    with pytest.raises(NotImplementedError):
-        tmpc.proceed_controller(
-            sys, "model_predictive_control", 5, 5.0, X_REF, U_REF, sqp_config=object(),
-            device="cpu",
-        )
+    for key in ("empc_config", "mpc_terminal_cost_function"):
+        with pytest.raises(NotImplementedError):
+            tmpc.proceed_controller(
+                sys, "model_predictive_control", 5, 5.0, X_REF, U_REF, device="cpu",
+                **{key: object()},
+            )
+    c = tmpc.proceed_controller(
+        sys, "model_predictive_control", 5, 5.0, X_REF, U_REF, sqp_config=tmpc.SqpConfig(),
+        device="cpu",
+    )
+    assert isinstance(c.engine, tmpc.LinearEngine) and c.tuning.programming_type == "linear"
     with pytest.raises(ValueError):
         tmpc.proceed_controller(sys, "nonsense", 5, 5.0, X_REF, U_REF, device="cpu")
 
