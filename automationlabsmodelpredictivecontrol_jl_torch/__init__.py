@@ -7,14 +7,17 @@ and scipy, and never jax. Ported so far: controller design for linear
 plants (condensed QP, ADMM operator; the Riccati factorization) and for
 learned plants (the model zoo, ``models/zoo.py``; the SQP engine, single
 and multiple shooting, ``solvers/sqp.py``; or the linear engines on the
-plant's linearization), checkpoints (``io.py``), the runtime
+plant's linearization), Takagi-Sugeno fuzzy plants (the SQP), economic
+MPC (``solvers/empc.py``), exact-ReLU MILP control on the host's native
+branch and bound (``solvers/milp.py``), checkpoints (``io.py``), the runtime
 (``solve_once``, ``step``, ``calculate``, the reference updates) on the
 general ADMM engine, the per-lane Riccati engine and the SQP, the batched
 fused ADMM solves on the kernels K1 (``csrc/admm_diag.cu``), K2
 (``csrc/admm_mixed.cu``), K4 and K5 (``csrc/admm_perr.cu``), the
 long-horizon Riccati-ADMM solve on K3 (``csrc/riccati_chunk.cuh``),
 tiered straggler escalation with the native f64 oracle, and batched closed
-loops. See ROADMAP.md for what remains.
+loops. Every controller the JAX package designs, this package designs
+and solves; see ROADMAP.md for what remains.
 
 Importing the package pins float32 matmuls to IEEE fp32 (no TF32): the
 solver's certificates sit at 1e-6, far below what TF32 keeps.
@@ -47,6 +50,7 @@ from .systems import (  # noqa: E402
     discretize,
     linearize,
     linearize_to_system,
+    takagi_sugeno_system,
     user_function_system,
 )
 from .design import (  # noqa: E402
@@ -60,6 +64,7 @@ from .design import (  # noqa: E402
 from .main import DEFAULT_PARAMETERS, proceed_controller  # noqa: E402
 from .ops.admm import AdmmConfig  # noqa: E402
 from .ops.riccati import RiccatiConfig  # noqa: E402
+from .solvers.empc import EmpcConfig, EmpcEngine  # noqa: E402
 from .solvers.sqp import SqpConfig, SqpEngine  # noqa: E402
 from .models.zoo import MODEL_FAMILIES, init_model, make_system  # noqa: E402
 from .io import load_controller, save_controller  # noqa: E402
@@ -77,6 +82,8 @@ __all__ = [
     "AdmmConfig",
     "Box",
     "DEFAULT_PARAMETERS",
+    "EmpcConfig",
+    "EmpcEngine",
     "LinearContinuousSystem",
     "LinearDiscreteSystem",
     "LinearEngine",
@@ -115,6 +122,7 @@ __all__ = [
     "save_controller",
     "solve_once",
     "step",
+    "takagi_sugeno_system",
     "update_and_compute",
     "update_initialization",
     "update_references",

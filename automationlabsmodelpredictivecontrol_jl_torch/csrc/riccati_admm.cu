@@ -2,9 +2,10 @@
 // riccati_admm_chunk (K3, in riccati_chunk.cuh, which describes the design
 // and the precision of all of them), riccati_rollout, riccati_certificate and
 // riccati_chain_floor. K3's instantiations for the (4, 2) register tier are
-// built here, those for (8, 4) in riccati_admm_t1.cu and those for (16, 8),
-// the longest to compile, one route each in riccati_admm_t2r0.cu, _t2r1.cu
-// and _t2r2.cu.
+// built here, those for (8, 4) in riccati_admm_t1.cu, and those for (16, 8)
+// and (32, 16), the longest to compile, one route each in
+// riccati_admm_t2r0.cu, _t2r1.cu, _t2r2.cu and riccati_admm_t3r0.cu, _t3r1.cu,
+// _t3r2.cu.
 //
 // Bound to PyTorch by ctypes through plain C functions that return
 // cudaGetLastError() after the launch (0 on success).
@@ -20,7 +21,7 @@ namespace {
 constexpr int kLanes = 32;  // the rollout: threads (= lanes) per block
 // The rollout and the certificate read the fp32 plant itself: fully unrolled
 // at (16, 8) they would hoist its 384 widened entries into registers and
-// spill, so that tier keeps their predicated instantiation.
+// spill, so that tier and (32, 16) keep their predicated instantiation.
 constexpr int kFullTierMax = 8;
 
 template <int MX, int MU, bool FULL>
@@ -229,6 +230,7 @@ int tier(int nx, int nu) {
   if (nx <= 4 && nu <= 2) return 0;
   if (nx <= 8 && nu <= 4) return 1;
   if (nx <= 16 && nu <= 8) return 2;
+  if (nx <= 32 && nu <= 16) return 3;
   return -1;
 }
 
@@ -261,6 +263,9 @@ auto certificate_kernel(int nx, int nu) {
       break;                  \
     case 2:                   \
       LAUNCH(16, 8);          \
+      break;                  \
+    case 3:                   \
+      LAUNCH(32, 16);         \
       break;                  \
     default:                  \
       return static_cast<int>(cudaErrorInvalidValue); \
@@ -320,6 +325,7 @@ int riccati_admm_chunk(const float* Kf, const float* Gf, const float* AmBKf,
     MPC_K3_CASE(0, 0) MPC_K3_CASE(0, 1) MPC_K3_CASE(0, 2)
     MPC_K3_CASE(1, 0) MPC_K3_CASE(1, 1) MPC_K3_CASE(1, 2)
     MPC_K3_CASE(2, 0) MPC_K3_CASE(2, 1) MPC_K3_CASE(2, 2)
+    MPC_K3_CASE(3, 0) MPC_K3_CASE(3, 1) MPC_K3_CASE(3, 2)
   }
 #undef MPC_K3_CASE
   return static_cast<int>(cudaErrorInvalidValue);

@@ -65,7 +65,9 @@
 // - The kernel has barriers (cooperative staging), so no thread returns
 //   early: a partial last block masks its work.
 // - Template arguments MX, MU bound nx, nu (register arrays); the C entry
-//   picks the smallest of (4, 2), (8, 4), (16, 8) that holds the plant. A
+//   picks the smallest of (4, 2), (8, 4), (16, 8), (32, 16) that holds the
+//   plant. At (32, 16) a lane's fp64 rows do not fit in registers and spill
+//   to local memory (the ptxas report says how much). A
 //   plant that fills its tier (the QTP: 4 states, 2 inputs) takes an
 //   instantiation with nx and nu fixed, so no sum is predicated and a row
 //   moves as one vector; others take the predicated one.
@@ -112,12 +114,12 @@ struct ChunkArgs {
   int lanes, fac_shared;
 };
 
-// Launch K3 at register tier TIER (0: (4, 2), 1: (8, 4), 2: (16, 8)) on
+// Launch K3 at register tier TIER (0: (4, 2), 1: (8, 4), 2: (16, 8), 3: (32, 16)) on
 // ROUTE (0: the lanes' rows and fp64 factors in shared memory; 1: the rows in
 // shared memory, fp32 factors in shared or device memory as p.fac_shared
 // says; 2: the rows in device memory). Each pair is specialised by
-// MPC_K3_TIER_ROUTE in some translation unit; the (16, 8) tier's routes have
-// one each, so that nvcc builds the long ones side by side.
+// MPC_K3_TIER_ROUTE in some translation unit; the (16, 8) and (32, 16)
+// tiers' routes have one each, so that nvcc builds the long ones side by side.
 template <int TIER, int ROUTE>
 cudaError_t launch_tier(ChunkArgs p, size_t smem_bytes, cudaStream_t st);
 #define MPC_K3_DECLARE(TIER)                                                    \
@@ -130,6 +132,7 @@ cudaError_t launch_tier(ChunkArgs p, size_t smem_bytes, cudaStream_t st);
 MPC_K3_DECLARE(0)
 MPC_K3_DECLARE(1)
 MPC_K3_DECLARE(2)
+MPC_K3_DECLARE(3)
 #undef MPC_K3_DECLARE
 
 }  // namespace mpc_k3
@@ -179,13 +182,19 @@ __device__ __forceinline__ void widen(const float (&v)[W], double (&out)[W]) {
   for (int j = 0; j < W; ++j) out[j] = static_cast<double>(v[j]);
 }
 
+// A product of more than kUnrolledMax entries (the (32, 16) tier's, all but
+// G's) walks its outer loop instead of unrolling it: unrolled, K3 at that
+// tier is ~10^4 straight-line instructions that ptxas takes minutes to
+// allocate, and spills all the same. Each sum keeps its order.
+constexpr int kUnrolledMax = 256;
+
 // out[i] = sum_j M[i*ld + j] v[j] for i < a, j < n: exact fp32 products
 // summed in fp64 in order j = 0..n-1, rounded once to fp32
 template <int MA, int MN, typename T>
 __device__ __forceinline__ void mv(const T* __restrict__ M, int ld, int a,
                                    int n, const double (&v)[MN],
                                    float (&out)[MA]) {
-#pragma unroll
+#pragma unroll(MA * MN <= kUnrolledMax ? MA : 1)
   for (int i = 0; i < MA; ++i) {
     out[i] = 0.0f;
     if (i < a) {
@@ -209,7 +218,7 @@ __device__ __forceinline__ void mtv(const T* __restrict__ M, int ld, int a,
   double acc[MA];
 #pragma unroll
   for (int i = 0; i < MA; ++i) acc[i] = 0.0;
-#pragma unroll
+#pragma unroll(MA * MN <= kUnrolledMax ? MN : 1)
   for (int j = 0; j < MN; ++j) {
     if (j < n) {
       double row[MA];

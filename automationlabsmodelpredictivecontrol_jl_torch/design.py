@@ -5,12 +5,13 @@ exactly as the JAX package does: the condensed QP matrices and the
 factorized ADMM KKT system. The finished controller is then moved to the
 device the caller names.
 
-Ported: the condensed linear branch, the Riccati branch (the O(N)
-long-horizon engine) and the learned-plant branches: the SQP engine
-(``programming_type="non_linear"``, the default for a learned plant) and
-"linear" programming, which linearizes the plant at the first reference
-and designs the linear engines on that. The economic-MPC and MILP
-branches raise NotImplementedError naming their ROADMAP item.
+Every branch of the JAX package: the condensed linear branch, the
+Riccati branch (the O(N) long-horizon engine), the learned-plant branches
+(the SQP engine, ``programming_type="non_linear"``, the default for a
+learned plant and for a Takagi-Sugeno one under "fuzzy_linear"; "linear"
+programming, which linearizes the plant at the first reference and designs
+the linear engines on that), the economic-MPC engine (``economic_cost``)
+and the exact-ReLU MILP engine (``programming_type="mixed_linear"``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import torch
 from .ops import admm as admm_ops
 from .ops import riccati as riccati_ops
 from .ops.condense import CondensedQpData, condense_np
+from .solvers import empc as empc_mod
+from .solvers import milp as milp_mod
 from .solvers import sqp as sqp_mod
 from .solvers.registry import engine_for, resolve_solver
 from .systems import (
@@ -218,6 +221,8 @@ def design_controller(
     soft_state_penalty: Optional[float] = None,
     admm_config: Optional[admm_ops.AdmmConfig] = None,
     economic_cost: Optional[Any] = None,
+    economic_terminal_cost: Optional[Any] = None,
+    empc_config: Optional[empc_mod.EmpcConfig] = None,
     engine: str = "auto",
     riccati_config: Optional[riccati_ops.RiccatiConfig] = None,
     sqp_config: Optional[sqp_mod.SqpConfig] = None,
@@ -238,33 +243,41 @@ def design_controller(
     (``programming_type="non_linear"``); ``programming_type="linear"``
     linearizes it at the first reference point and designs the linear
     engines on that.
+
+    ``economic_cost``, a stage cost ``l(x, u) -> scalar`` of torch tensors
+    that ``torch.func`` can trace, switches to the economic-MPC engine
+    (``solvers/empc.py``, ``empc_config``; ``economic_terminal_cost`` an
+    optional ``Vf(x) -> scalar``), always the NLP route, even over a linear
+    plant. ``programming_type="mixed_linear"`` on a ReLU-network plant
+    designs the exact-ReLU MILP engine (``solvers/milp.py``), which solves
+    on the host.
     """
     dev = resolve_device(device)  # before the design: no card, no work
-    if economic_cost is not None:
-        raise NotImplementedError(
-            "economic MPC is not ported yet (ROADMAP Queue 1, 'Economic MPC "
-            "and fuzzy control')"
-        )
     if isinstance(system, (NeuralDiscreteSystem, NeuralContinuousSystem)):
         system = system.to("cpu")  # design runs on the host
     sys_d = as_discrete(system, sample_time)
     is_neural = isinstance(sys_d, NeuralDiscreteSystem)
-    if programming_type is None:
-        programming_type = "non_linear" if is_neural else "linear"
-    solver_name = resolve_solver(programming_type, solver)
-    engine_kind = engine_for(programming_type)
-    if engine_kind == "milp":
-        if not is_neural:
+    if economic_cost is not None:
+        # economic objectives are generically not quadratic: always the
+        # NLP route, even over a linear plant
+        if programming_type is None:
+            programming_type = "non_linear"
+        solver_name = resolve_solver(programming_type, solver)
+        engine_kind = "empc"
+    else:
+        if programming_type is None:
+            programming_type = "non_linear" if is_neural else "linear"
+        solver_name = resolve_solver(programming_type, solver)
+        engine_kind = engine_for(programming_type)
+        if engine_kind == "milp" and not is_neural:
             raise ValueError(
-                "mixed_linear programming requires a learned ReLU-network system"
+                "mixed_linear programming requires a learned ReLU-network system "
+                "(the MILP transcription exists for fnn/icnn/resnet/densenet/polynet)"
             )
-        raise NotImplementedError(
-            "the MILP engine is not ported yet (ROADMAP Queue 1)"
-        )
-    if not is_neural and engine_kind == "sqp":
-        # nonlinear programming over a linear model degenerates to the QP
-        engine_kind = "admm"
-        programming_type = "linear"
+        if not is_neural and engine_kind == "sqp":
+            # nonlinear programming over a linear model degenerates to the QP
+            engine_kind = "admm"
+            programming_type = "linear"
 
     if engine not in ("auto", "condensed", "riccati"):
         raise ValueError(f"unknown engine {engine!r}; available: auto|condensed|riccati")
@@ -284,9 +297,20 @@ def design_controller(
         solver_name=solver_name,
         state_constraint=bool(state_constraint),
     )
-    if engine_kind == "sqp":
-        eng = sqp_mod.build_engine(sys_d, tuning, sqp_config, soft_state_penalty=soft_state_penalty)
-        warm_z, warm_y = sqp_mod.initial_warm_state(eng, tuning)
+    if engine_kind in ("sqp", "empc", "milp"):
+        if engine_kind == "sqp":
+            eng = sqp_mod.build_engine(
+                sys_d, tuning, sqp_config, soft_state_penalty=soft_state_penalty
+            )
+            warm_z, warm_y = sqp_mod.initial_warm_state(eng, tuning)
+        elif engine_kind == "empc":
+            eng = empc_mod.build_engine(
+                sys_d, tuning, economic_cost, economic_terminal_cost, empc_config
+            )
+            warm_z, warm_y = empc_mod.initial_warm_state(eng, tuning)
+        else:
+            eng = milp_mod.build_engine(sys_d, tuning)
+            warm_z, warm_y = torch.zeros((eng.n,)), torch.zeros((eng.m,))
         return MpcController(
             system=sys_d,
             tuning=tuning,

@@ -9,7 +9,9 @@ the pinned state and the warm pair. Loading re-runs the design on the
 host and restores the runtime state, so a receding-horizon loop resumes
 where it stopped. The format (version 2: arrays plus one JSON ``__meta__``
 entry) is the JAX package's, so each package loads the other's files.
-Economic controllers carry Python cost callables and are refused.
+Economic controllers carry Python cost callables and are refused, as is a
+plant of a family the zoo does not register (a Takagi-Sugeno system); a
+MILP controller is re-designed from its plant and tuning.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from .design import LinearEngine, MpcController, RiccatiEngine, design_controlle
 from .models import zoo
 from .ops.admm import AdmmConfig
 from .ops.riccati import RiccatiConfig
+from .solvers.empc import EmpcEngine
 from .solvers.sqp import SqpConfig, SqpEngine
 from .systems import LinearDiscreteSystem, NeuralDiscreteSystem
 from .types import Box
@@ -119,11 +122,13 @@ def _engine_spec(controller: MpcController) -> Dict[str, Any]:
         spec["sqp_config"] = _config_to_json(eng.config)
         if eng.soft_boxes:
             spec["soft_state_penalty"] = float(eng.config.soft_state_penalty)
-    else:
+    elif isinstance(eng, EmpcEngine):
         raise ValueError(
-            f"cannot checkpoint a {type(eng).__name__}: economic controllers carry "
-            "Python cost callables; rebuild them with the cost function in hand"
+            "economic controllers carry arbitrary Python cost callables and "
+            "cannot be checkpointed; rebuild with design_controller("
+            "economic_cost=...) and restore warm state manually"
         )
+    # a MILP engine rebuilds from (system, tuning): nothing more to keep
     return spec
 
 

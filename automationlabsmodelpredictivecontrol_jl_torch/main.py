@@ -44,9 +44,16 @@ def proceed_controller(
     engine (``riccati_config=``). On a learned plant
     (``NeuralDiscreteSystem``) the SQP engine (``sqp_config=SqpConfig(...)``,
     single or multiple shooting), or with ``mpc_programming_type="linear"``
-    the linear engines on its linearization at the first reference.
-    ``"economic_model_predictive_control"`` is not ported yet and raises
-    NotImplementedError (ROADMAP Queue 1, 'Economic MPC and fuzzy control').
+    the linear engines on its linearization at the first reference; with
+    ``mpc_programming_type="mixed_linear"`` on a ReLU network, the exact
+    MILP engine (host branch and bound); a ``takagi_sugeno_system`` with
+    ``mpc_programming_type="fuzzy_linear"``, the SQP engine.
+
+    ``"economic_model_predictive_control"``: economic MPC over a generic
+    stage cost. Requires ``mpc_cost_function``, ``l(x, u) -> scalar`` of
+    torch tensors that ``torch.func`` can trace; optional
+    ``mpc_terminal_cost_function``, ``Vf(x) -> scalar`` (default: the
+    quadratic e_N' P e_N, P from the DARE), and ``empc_config``.
     """
     if mpc_controller_type not in IMPLEMENTATION_CONTROLLER_LIST:
         raise ValueError(
@@ -64,11 +71,6 @@ def proceed_controller(
             "mpc_cost_function is only accepted with "
             "mpc_controller_type='economic_model_predictive_control'"
         )
-    for key in ("empc_config", "mpc_terminal_cost_function"):
-        if kws.get(key) is not None:
-            raise NotImplementedError(
-                f"{key}: its engine is not ported yet (see ROADMAP Queue 1)"
-            )
     p = dict(DEFAULT_PARAMETERS)
     return design_controller(
         system,
@@ -101,5 +103,7 @@ def proceed_controller(
         riccati_config=kws.get("riccati_config"),
         sqp_config=kws.get("sqp_config"),
         economic_cost=kws.get("mpc_cost_function"),
+        economic_terminal_cost=kws.get("mpc_terminal_cost_function"),
+        empc_config=kws.get("empc_config"),
         device=device,
     )

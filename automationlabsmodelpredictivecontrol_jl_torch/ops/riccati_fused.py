@@ -74,7 +74,7 @@ __all__ = [
 ]
 
 # the widest plant the kernels' register arrays take (csrc/riccati_chunk.cuh)
-MAX_NX, MAX_NU = 16, 8
+MAX_NX, MAX_NU = 32, 16
 
 
 def k3_fits(op: RiccatiOperator) -> bool:
@@ -119,7 +119,7 @@ class K3Plan(NamedTuple):
 
 def _tier(nx: int, nu: int) -> Tuple[int, int]:
     """The kernels' register tier (MX, MU) of a plant."""
-    for mx, mu in ((4, 2), (8, 4), (MAX_NX, MAX_NU)):
+    for mx, mu in ((4, 2), (8, 4), (16, 8), (MAX_NX, MAX_NU)):
         if nx <= mx and nu <= mu:
             return mx, mu
     raise ValueError(f"K3 takes nx <= {MAX_NX} and nu <= {MAX_NU}; nx={nx}, nu={nu}")

@@ -11,7 +11,9 @@ linear engine and the Riccati engine on one device:
 - :func:`solve_batch` solves a batch on the engines themselves
   (``runtime.solve_lanes``): the general ADMM engine for a condensed
   engine, the per-lane Riccati engine (on K3) for a Riccati one, one
-  batched SQP over all lanes for an SQP engine (a learned plant);
+  batched SQP over all lanes for an SQP engine (a learned or fuzzy plant),
+  one batched EMPC for an economic engine, and the MILP engine's fleet of
+  host threads;
 - :func:`solve_batch_auto` routes a batch to the fused path wherever a
   kernel takes the shape and to :func:`solve_batch` elsewhere (soft or
   ball rows, operators wider than the kernels take);
@@ -37,6 +39,7 @@ from ..ops import admm as admm_ops
 from ..ops import admm_fused, riccati_fused
 from ..ops.condense import runtime_qp_vectors_batch
 from ..runtime import linear_solution, riccati_solution, riccati_warm, solve_lanes
+from ..solvers.milp import MilpEngine
 from ..solvers.sqp import true_objective
 from ..types import (
     STATUS_CONVERGED,
@@ -100,9 +103,11 @@ def solve_batch(
 ) -> Tuple[MpcSolution, Tensor, Tensor, BatchDiagnostics]:
     """Batched solves on the controller's engine itself, on the device of
     ``x0s``: the general ADMM engine (a condensed engine), the per-lane
-    Riccati engine (a Riccati one) or the SQP over all lanes at once (an
-    SQP engine), the JAX package's vmapped ``solve_once``. Same contract
-    as :func:`solve_batch_fused`."""
+    Riccati engine (a Riccati one), the SQP or the EMPC over all lanes at
+    once, the JAX package's vmapped ``solve_once``; a MILP engine's lanes
+    run on the host, in threads (``solvers/milp.solve_milp_batch``), and
+    its warm pair comes back as it went in. Same contract as
+    :func:`solve_batch_fused`."""
     if warm_z is None or warm_y is None:
         warm_z, warm_y = init_warm_batch(controller, x0s.shape[0])
     sol, wz, wy = solve_lanes(controller, x0s, warm_z, warm_y)
@@ -176,8 +181,8 @@ def fused_supported(controller: MpcController) -> bool:
     at most 128 rows), or dense and fits the kernel that ``use_packed``
     picks, K4 or K5 (n <= 128, at most 512 rows), as the JAX package's
     ``_kernel_viable`` takes a dense operator. A Riccati engine whose
-    plant K3 takes (nx <= 16, nu <= 8); never an SQP engine (no kernel
-    takes its per-lane operators). The JAX package's bands were measured on other hardware and
+    plant K3 takes (nx <= 32, nu <= 16); never an SQP, economic or MILP
+    engine (no kernel takes their per-lane operators or host search). The JAX package's bands were measured on other hardware and
     are not copied (it routes its Riccati engine to the vmapped engine);
     bands for this card come from its own A/B runs."""
     eng = controller.engine
@@ -417,7 +422,14 @@ def closed_loop_batch(
     zoo model takes (B, nx) and (B, nu)).
 
     Returns (states (n_steps+1, B, nx), inputs (n_steps, B, nu),
-    statuses (n_steps, B))."""
+    statuses (n_steps, B)). A MILP engine is refused with TypeError, as the
+    JAX package's traced loop refuses its host branch and bound: loop over
+    :func:`solve_batch` instead."""
+    if isinstance(controller.engine, MilpEngine):
+        raise TypeError(
+            "closed_loop_batch does not take a MILP engine: its branch and bound "
+            "runs on the host; call solve_batch once per step instead"
+        )
     wz, wy = init_warm_batch(controller, x0s.shape[0])
     x = x0s
     xs, us, statuses = [x0s], [], []

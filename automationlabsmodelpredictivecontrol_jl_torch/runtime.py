@@ -15,10 +15,11 @@ The port of the JAX package's ``runtime.py``:
 :func:`solve_lanes` is the engines' batched solve: the condensed engine on
 the general ADMM engine (``ops/admm.solve``), the Riccati engine on its
 per-lane engine (``ops/riccati_fused.solve_sparse``, which runs K3), the
-SQP engine on ``solvers/sqp.py`` (single or multiple shooting).
-:func:`solve_once` is its batch of one with the JAX package's unbatched
-shapes, and ``parallel.solve_batch`` its fleet form. The economic and
-MILP engines are not ported (ROADMAP Queue 1).
+SQP engine on ``solvers/sqp.py`` (single or multiple shooting), the
+economic engine on ``solvers/empc.py``, and the MILP engine on the host
+(``solvers/milp.solve_milp_batch``, a thread per lane). :func:`solve_once`
+is its batch of one with the JAX package's unbatched shapes, and
+``parallel.solve_batch`` its fleet form.
 """
 
 from __future__ import annotations
@@ -33,16 +34,14 @@ from .design import LinearEngine, MpcController, RiccatiEngine, design_controlle
 from .ops import admm as admm_ops
 from .ops import riccati_fused
 from .ops.condense import runtime_qp_vectors_batch
+from .solvers import empc as empc_mod
 from .solvers import sqp as sqp_mod
+from .solvers.empc import EmpcEngine
+from .solvers.milp import MilpEngine, solve_milp_batch
 from .solvers.sqp import SqpEngine, true_objective
 from .types import STATUS_PRIMAL_INFEASIBLE, MpcSolution
 
 Tensor = torch.Tensor
-
-_NOT_PORTED = (
-    "only the condensed, Riccati and SQP engines are ported; the economic-MPC "
-    "and MILP engines are not (ROADMAP Queue 1)"
-)
 
 
 def _infeasible_x0(controller: MpcController, x0s: Tensor, status: Tensor) -> Tensor:
@@ -183,6 +182,13 @@ def _solve_sqp(controller, x0s, warm_z, warm_y):
     return sol, sqp_mod.shift_warm(u_f, N, nu), y_f
 
 
+def _solve_empc(controller, x0s, warm_z, warm_y):
+    """The economic engine over the lanes, and the shifted warm input."""
+    system, tuning = controller.system, controller.tuning
+    sol, u_f, y_f = empc_mod.solve_economic(system, tuning, controller.engine, x0s, warm_z, warm_y)
+    return sol, sqp_mod.shift_warm(u_f, tuning.horizon, system.nu), y_f
+
+
 def solve_lanes(
     controller: MpcController,
     x0s: Tensor,  # (B, nx)
@@ -191,10 +197,12 @@ def solve_lanes(
 ) -> Tuple[MpcSolution, Tensor, Tensor]:
     """Solve a batch of states on the controller's engine, on the device of
     ``x0s``: the general ADMM engine for a condensed engine, the per-lane
-    Riccati engine for a Riccati one. Returns (solutions with a leading
-    batch axis, next warm_z, next warm_y): for a condensed engine the
-    shifted primal and the raw dual, for a Riccati engine the shifted
-    carries of U and of (lamX, lamU)."""
+    Riccati engine for a Riccati one, the batched SQP or EMPC for those,
+    the host's branch and bound for a MILP engine. Returns (solutions with
+    a leading batch axis, next warm_z, next warm_y): for a condensed engine
+    the shifted primal and the raw dual, for a Riccati engine the shifted
+    carries of U and of (lamX, lamU); a MILP engine carries no warm state
+    (the pair comes back as it went in)."""
     engine = controller.engine
     if isinstance(engine, LinearEngine):
         return _solve_linear(controller, x0s, warm_z, warm_y)
@@ -202,7 +210,11 @@ def solve_lanes(
         return _solve_riccati(controller, x0s, warm_z, warm_y)
     if isinstance(engine, SqpEngine):
         return _solve_sqp(controller, x0s, warm_z, warm_y)
-    raise NotImplementedError(_NOT_PORTED)
+    if isinstance(engine, EmpcEngine):
+        return _solve_empc(controller, x0s, warm_z, warm_y)
+    if isinstance(engine, MilpEngine):
+        return solve_milp_batch(engine, controller.tuning, x0s), warm_z, warm_y
+    raise TypeError(f"not an engine: {type(engine).__name__}")
 
 
 def solve_once(
@@ -253,7 +265,9 @@ def update_references(controller: MpcController, x_ref: Any, u_ref: Any) -> MpcC
     controller's device. The engine's configuration carries over (the ADMM
     or Riccati config, the soft state penalty), the weight matrices pass
     through as they are, and so do the pinned state and the warm pair.
-    An SQP engine keeps its SqpConfig and its soft boxes."""
+    An SQP engine keeps its SqpConfig and its soft boxes, an economic one
+    its cost functions and EmpcConfig; a MILP engine is rebuilt from the
+    plant and the tuning."""
     t = controller.tuning
     eng = controller.engine
     kwargs = {}
@@ -273,8 +287,10 @@ def update_references(controller: MpcController, x_ref: Any, u_ref: Any) -> MpcC
         if eng.soft_boxes:
             # keep the user-soft boxes (and their status gate) across the re-design
             kwargs["soft_state_penalty"] = eng.config.soft_state_penalty
-    else:
-        raise NotImplementedError(_NOT_PORTED)
+    elif isinstance(eng, EmpcEngine):
+        kwargs["economic_cost"] = eng.cost_fn
+        kwargs["economic_terminal_cost"] = eng.terminal_cost_fn
+        kwargs["empc_config"] = eng.config
     w = t.weights
     new = design_controller(
         controller.system.to("cpu"),

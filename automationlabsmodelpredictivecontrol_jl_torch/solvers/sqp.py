@@ -212,8 +212,13 @@ def _violation(engine: SqpEngine, tuning, system, xs: Tensor) -> Tensor:
 def _merit(engine: SqpEngine, tuning, system, xs: Tensor, us: Tensor) -> Tensor:
     """Line-search merit per lane: the true objective plus L1 penalties on
     state-box and terminal-set violation."""
+    return _add_penalties(engine, tuning, system, xs, true_objective(tuning, xs, us))
+
+
+def _add_penalties(engine, tuning, system, xs: Tensor, J: Tensor) -> Tensor:
+    """J plus the merit's L1 penalties on state-box and terminal-set
+    violation, added in that order (an SQP or economic engine's config)."""
     cfg = engine.config
-    J = true_objective(tuning, xs, us)
     if engine.state_rows:
         J = J + cfg.soft_state_penalty * _box_excess(system, xs).flatten(1).sum(1)
     refs = tuning.references.x

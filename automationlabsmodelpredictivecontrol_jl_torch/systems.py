@@ -3,10 +3,9 @@
 The JAX package's ``systems.py``: linear discrete and continuous plants
 (exact zero-order-hold discretization), learned plants
 (:class:`NeuralDiscreteSystem`, :class:`NeuralContinuousSystem`, RK4
-integration) and Jacobian linearization by ``torch.func.jacfwd``. A
-learned plant's ``apply_fn(params, x, u)`` takes batches: x (..., nx),
-u (..., nu). The fuzzy ``takagi_sugeno_system`` is not ported yet
-(ROADMAP Queue 1).
+integration), the fuzzy :func:`takagi_sugeno_system`, and Jacobian
+linearization by ``torch.func.jacfwd``. A learned plant's
+``apply_fn(params, x, u)`` takes batches: x (..., nx), u (..., nu).
 """
 
 from __future__ import annotations
@@ -148,6 +147,43 @@ def as_discrete(system: Any, sample_time: float, substeps: int = 1) -> Any:
     if isinstance(system, (LinearDiscreteSystem, NeuralDiscreteSystem)):
         return system
     raise TypeError(f"not a system: {type(system).__name__}")
+
+
+def takagi_sugeno_system(
+    As: Any,  # (M, nx, nx) local models
+    Bs: Any,  # (M, nx, nu)
+    centers: Any,  # (M, nx) membership centers
+    widths: Any,  # (M,) or (M, nx) Gaussian membership widths
+    X: Box,
+    U: Box,
+) -> NeuralDiscreteSystem:
+    """Takagi-Sugeno multi-model system: x+ = sum_i mu_i(x) (A_i x + B_i u)
+    with normalized Gaussian memberships mu_i = softmax_i(-d_i^2 / 2), d_i
+    the distance of x from center i in units of its widths. The blend is a
+    smooth model like any learned one: ``mpc_programming_type=
+    "fuzzy_linear"`` routes it to the SQP engine (``solvers/registry.py``).
+    ``apply_fn`` takes batches: x (..., nx), u (..., nu)."""
+    params = {
+        k: torch.as_tensor(np.asarray(v, np.float32))
+        for k, v in (("As", As), ("Bs", Bs), ("centers", centers), ("widths", widths))
+    }
+    nx = params["As"].shape[-1]
+    nu = params["Bs"].shape[-1]
+
+    def apply_fn(p, x, u):
+        c = p["centers"]
+        w = p["widths"].reshape(c.shape[0], -1)  # (M, 1) or (M, nx)
+        d2 = (((x[..., None, :] - c) / w) ** 2).sum(-1)  # (..., M)
+        mu = torch.softmax(-0.5 * d2, dim=-1)
+        xs = torch.einsum("mij,...j->...mi", p["As"], x) + torch.einsum(
+            "mij,...j->...mi", p["Bs"], u
+        )
+        return torch.einsum("...m,...mi->...i", mu, xs)
+
+    return NeuralDiscreteSystem(
+        apply_fn=apply_fn, family="takagi_sugeno", nx=int(nx), nu=int(nu),
+        params=params, X=X, U=U,
+    )
 
 
 def user_function_system(

@@ -57,7 +57,14 @@ device=card)``, then ``parallel`` and ``step``):
   ``step`` on the frozen NL goldens and the wide plant, and at B = 1 over
   the true plant; the SQP on the card against the CPU; and the fnn
   linearized at the reference (programming type "linear") on K1 through
-  ``solve_batch_escalated`` at bench.py's tiers and 16384 states.
+  ``solve_batch_escalated`` at bench.py's tiers and 16384 states;
+- the controller types (``controllers_phase``): a Riccati controller on a
+  wide plant (32 states, 16 inputs, h30, 2048 states: K3's (32, 16)
+  register tier, with its rollout and certificate, through
+  ``solve_batch_auto``), the Takagi-Sugeno fuzzy QTP and the economic QTP
+  (h10, 256 states, ``parallel.solve_batch`` and ``step``; the economic
+  engine also on the card against the CPU) and the exact-ReLU MILP fleet
+  on a relu fnn trained on the card (h5, 32 states, host threads).
 
 Phases (any failure raises and exits non-zero):
 1. the card: its name, count, and power limit from nvidia-smi;
@@ -73,7 +80,8 @@ Phases (any failure raises and exits non-zero):
    K3 at h500 (1024 lanes, and the runtime's one lane) and at one h50
    shape per branch of the kernel, then at the shapes that take the other
    routes of its plan: h500 with the state box, a ragged batch, longer
-   horizons, an (8, 4) and a (16, 8) plant; K3's rollout and certificate
+   horizons, an (8, 4) and a (16, 8) plant, and in the controllers' phase
+   the (32, 16) tier on each of its routes; K3's rollout and certificate
    kernels at h500 (1024 lanes, one lane, and the 256-lane bucket of the
    escalated solve's tier 2); K4 at the h20 equality
    terminal (random and one rho index, tier 2's bucket, a ragged batch),
@@ -90,7 +98,9 @@ Phases (any failure raises and exits non-zero):
    a plain version (the general engines' phase: K1 on the fused side of
    its A/B, K3 and its recurrence kernels in the per-lane engine; the
    learned phase: no kernel on the SQP cells, K1 on the learned-linear
-   cell, held to its plain version on that operator first);
+   cell, held to its plain version on that operator first; the
+   controllers' phase: K3 and its recurrences on the wide Riccati cell,
+   no kernel on the fuzzy, economic and MILP cells);
 5. where the time goes in each path's cells (torch.profiler: device time
    per solve, the kernels' share of it, the card's idle share); then
    re-solves of 256 lanes with the plain versions (K3's at h50, K4's at
@@ -138,6 +148,11 @@ B_SQP, REPS_SQP, B_SQP_CPU, SQP_STEPS = 256, 10, 64, 20
 SQP_CONV_OK = 0.99  # converged fraction of the fnn SQP cells
 SQP_STATUS_OK = 0.98  # least share of equal statuses, card against CPU
 NL_U_OK, WIDE_OK = 1e-3, 1e-4  # the frozen NL goldens' bars (tests/test_golden_nl.py)
+# the controller types' phase: the wide Riccati row and the extra
+# benchmarks' fuzzy and economic rows, and the suite's MILP fleet
+B_WIDE, REPS_WIDE, B_CTRL, REPS_CTRL, B_CTRL_CPU, CTRL_STEPS = 2048, 5, 256, 5, 64, 10
+B_MILP, REPS_MILP = 32, 3
+CTRL_CONV_OK = 0.99  # converged fraction of the fuzzy and economic cells
 
 
 def log(**kv):
@@ -446,15 +461,17 @@ def compare_k3(ctrl, branch, B, seed, x0s_fn, plain_reps):
     return compare_k3_args(riccati_inputs(ctrl, B, seed, x0s_fn) + (chunk,), branch, plain_reps)
 
 
-def compare_k3_args(args, branch, plain_reps):
-    """K3, laid out as its plan says for the shape, against its plain
-    version on one chunk's inputs."""
+def compare_k3_args(args, branch, plain_reps, route=None):
+    """K3, laid out as its plan says for the shape (or on a forced
+    ``route``), against its plain version on one chunk's inputs."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati_fused
 
     op, B, chunk = args[0], int(args[2].shape[1]), args[-1]
-    plan = riccati_fused.k3_plan(op, B)
+    plan = riccati_fused.k3_plan(op, B, route)
     log(phase="k3_plan", branch=branch, N=op.N, nx=op.nx, nu=op.nu, B=B, **plan._asdict())
     kernel, plain = riccati_fused.iterate_chunk_riccati, riccati_fused.iterate_chunk_riccati_plain
+    if route is not None:
+        kernel = lambda *a: riccati_fused._launch_k3(*a, route=route)
     # the plain version's compared run is also its timed one where one run
     # is timed (seconds a run at h500: each repetition costs the script that)
     out_p, plain_once_ms = cuda_ms_once(lambda: plain(*args))
@@ -698,13 +715,13 @@ def profile(fn, reps, cpu=True):
     )
 
 
-def check_solution(sol, B, N, tag):
+def check_solution(sol, B, N, tag, nx=4, nu=2):
     import torch
 
     for f in ("x", "u", "objective"):
         if not bool(torch.isfinite(getattr(sol, f)).all()):
             raise RuntimeError(f"non-finite {f} in {tag}")
-    if tuple(sol.u.shape) != (B, 2, N) or tuple(sol.x.shape) != (B, 4, N + 1):
+    if tuple(sol.u.shape) != (B, nu, N) or tuple(sol.x.shape) != (B, nx, N + 1):
         raise RuntimeError(
             f"{tag}: unexpected shapes u {tuple(sol.u.shape)}, x {tuple(sol.x.shape)}"
         )
@@ -995,6 +1012,239 @@ def learned_phase(dev, tier1, tier2):
     lap("learned-linear")
     log(phase="learned_seconds", **seconds)
     return k1, k1_rec
+
+
+def wide_x0s(B):
+    """The wide row's initial states (benchmarks_extra.py): default_rng(0),
+    clip(0.4 N(0, 1), -0.95, 0.95), shape (B, 32)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return np.clip(0.4 * rng.standard_normal((B, 32)), -0.95, 0.95).astype(np.float32)
+
+
+def fuzzy_qtp_plant():
+    """benchmarks_extra.py's Takagi-Sugeno plant: the QTP linearized at the
+    levels 0.4 and 0.9, Gaussian memberships of width 0.25 around them."""
+    import numpy as np
+
+    from automationlabsmodelpredictivecontrol_jl_torch import takagi_sugeno_system
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp
+
+    lo = qtp.linearized_discrete_system(x_op=np.full(4, 0.4))
+    hi = qtp.linearized_discrete_system(x_op=np.full(4, 0.9))
+    return takagi_sugeno_system(
+        As=np.stack([lo.A.numpy(), hi.A.numpy()]), Bs=np.stack([lo.B.numpy(), hi.B.numpy()]),
+        centers=[[0.4] * 4, [0.9] * 4], widths=[0.25, 0.25], X=qtp.x_box(), U=qtp.u_box(),
+    )
+
+
+def economic_cost(dev):
+    """benchmarks_extra.py's economic stage cost in torch: an input-weighted
+    operating cost with a soft pull toward the level reference 0.65."""
+    import torch
+
+    xr = torch.full((4,), 0.65, device=dev)
+    return lambda x, u: 10.0 * (u @ u) + 50.0 * (x - xr) @ (x - xr)
+
+
+def controllers_phase(dev):
+    """The wide Riccati plant and the fuzzy, economic and MILP controllers
+    on the card, each cell counted from zero:
+
+    - riccati-wide-nx32-h30-B2048: ``big.random_stable_system(32, 16,
+      seed=0)`` at h30 with ``engine="riccati"`` (Q 10, R 0.1; the wide row
+      of benchmarks_extra.py), K3's (32, 16) register tier: K3 against its
+      plain version at B = 2048, 256 and 1 (max_ulps 0), on every route of
+      the tier (the fp64 factors only fit up to h15: an h10 operator of the
+      same plant), the rollout and the certificate likewise; then
+      ``solve_batch_auto`` over 2048 states, K3 and both recurrence
+      kernels launched, no plain version, converged >= 0.999;
+    - fuzzy-ts-h10-B256: the Takagi-Sugeno QTP (benchmarks_extra.py lines
+      77-92), ``mpc_programming_type="fuzzy_linear"``, the SQP over 256
+      states through ``parallel.solve_batch``, and ``step`` at B = 1;
+    - economic-h10-B256: the QTP's linearization with the extra
+      benchmarks' economic stage cost, EmpcConfig(max_sqp_iter=15), 256
+      states, ``step`` at B = 1, and 64 lanes on the card against the CPU;
+    - milp-relu-fleet-h5-B32: a relu fnn (hidden 4) trained on the card by
+      ``benchmarks/training.py`` (benchmarks_suite.py config 7), the exact
+      MILP engine at h5 over 32 states: host threads by design, converged
+      1.0.
+    The fuzzy, economic and MILP paths run no kernel and no plain version.
+    Returns K3's records at the tier, the recurrences' records, and the
+    launches of K3, the rollout and the certificate on the wide cell."""
+    import numpy as np
+    import torch
+
+    from automationlabsmodelpredictivecontrol_jl_torch import (
+        EmpcConfig, RiccatiEngine, parallel, proceed_controller, runtime,
+    )
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import big, qtp, training
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused, riccati_fused
+    from automationlabsmodelpredictivecontrol_jl_torch.solvers import milp
+
+    seconds, t_part = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t_part
+        now = time.perf_counter()
+        seconds[part] = now - t_part
+        t_part = now
+
+    # riccati-wide-nx32-h30-B2048
+    wide = proceed_controller(
+        big.random_stable_system(32, 16, seed=0), "model_predictive_control", 30, 1.0,
+        np.zeros(32, np.float32), np.zeros(16, np.float32), mpc_Q=10.0, mpc_R=0.1,
+        engine="riccati", device=dev,
+    )
+    if not (isinstance(wide.engine, RiccatiEngine) and parallel.fused_supported(wide)):
+        raise RuntimeError("the wide Riccati controller is expected on K3")
+    chunk = int(wide.engine.config.check_interval)
+    shapes = [compare_k3(wide, "(32, 16) plant, h30", B, 50 + i, wide_x0s, plain_reps=1)
+              for i, B in enumerate((B_WIDE, 256, 1))]
+    shapes[0]["chain_floor_ms"] = chain_floor_ms(30, 32, 16, chunk, dev)
+    ridx = shapes[0]["rho_index"]
+    for i, (branch, op, route) in enumerate((
+        ("(32, 16) plant, h30, fp32 factors in shared memory", wide.engine.op, "shared-fp32"),
+        ("(32, 16) plant, h30, rows streamed", wide.engine.op, "stream"),
+        ("(32, 16) plant, h10", operator_like(wide.engine.op, 10, False), None),
+    )):
+        e0T = torch.from_numpy(wide_x0s(256).T.copy()).to(dev)
+        args = operator_inputs(op, ridx, e0T, 60 + i) + (chunk,)
+        shapes.append(compare_k3_args(args, branch, plain_reps=1, route=route))
+    tier_routes = {rec["route"] for rec in shapes}
+    if tier_routes != set(riccati_fused.K3_ROUTES):
+        raise RuntimeError(f"K3's (32, 16) tier not held on every route: {tier_routes}")
+    recurrences = [compare_recurrences(wide, B, 70 + i, wide_x0s)
+                   for i, B in enumerate((B_WIDE, 256, 1))]
+    rollout_recs = [r for r, _ in recurrences]
+    cert_recs = [c for _, c in recurrences]
+    for rec in shapes:
+        log(phase="k3_vs_plain", **rec)
+    for rec in rollout_recs + cert_recs:
+        if rec["max_ulps"] != 0:
+            raise RuntimeError(f"the (32, 16) {rec['kernel']} differs from its plain version: {rec}")
+        log(phase="k3_driver_vs_plain", **rec)
+    lap("wide kernels")
+
+    x_w = torch.from_numpy(wide_x0s(B_WIDE)).to(dev)
+    admm_fused.reset_counts()
+    fn = lambda: parallel.solve_batch_auto(wide, x_w)
+    (sol, _, _, d), lat = timed(fn, REPS_WIDE)
+    counts = {k: admm_fused.LAUNCHES[k] for k in ("K3", "rollout", "certificate")}
+    plain = dict(admm_fused.PLAIN_CALLS)
+    check_solution(sol, B_WIDE, 30, "riccati-wide-nx32-h30-B2048", nx=32, nu=16)
+    p50, p99 = percentiles_ms(lat)
+    rec = dict(cell="riccati-wide-nx32-h30-B2048", B=B_WIDE, route=shapes[0]["route"],
+               converged_fraction=int(d.n_converged) / B_WIDE,
+               mean_iterations=float(d.mean_iterations), max_iterations=int(d.max_iterations),
+               batch_p50_ms=p50, batch_p99_ms=p99, solves_per_s=B_WIDE / float(np.median(lat)),
+               launches=counts, k3_launches_per_solve=counts["K3"] / (REPS_WIDE + 1),
+               k3_ms_per_chunk=shapes[0]["ms"], bound_ms=shapes[0]["bound_ms"],
+               chain_floor_ms=shapes[0]["chain_floor_ms"], plain_calls=plain)
+    rec.update(profile(fn, 2))
+    log(phase="riccati_wide", **rec)
+    if min(counts.values()) <= 0 or any(plain.values()):
+        raise RuntimeError(f"the wide Riccati path did not run on its kernels alone: {rec}")
+    if rec["converged_fraction"] < CONV_OK:
+        raise RuntimeError(f"the wide Riccati cell converged too little: {rec}")
+    lap("wide cell")
+
+    x_ref, u_ref = [0.65] * 4, [1.2] * 2
+    x0s = torch.from_numpy(suite6_x0s(B_CTRL)).to(dev)
+    cells = {
+        "fuzzy-ts-h10-B256": proceed_controller(
+            fuzzy_qtp_plant(), "model_predictive_control", 10, 5.0, x_ref, u_ref,
+            mpc_programming_type="fuzzy_linear", device=dev),
+        "economic-h10-B256": proceed_controller(
+            qtp.linearized_discrete_system(), "economic_model_predictive_control", 10, 5.0,
+            x_ref, u_ref, mpc_cost_function=economic_cost(dev),
+            empc_config=EmpcConfig(max_sqp_iter=15), device=dev),
+    }
+    for cell, c in cells.items():
+        admm_fused.reset_counts()
+        fn = lambda c=c: parallel.solve_batch(c, x0s)
+        (sol, _, _, d), lat = timed(fn, REPS_CTRL)
+        check_solution(sol, B_CTRL, 10, cell)
+        if any(admm_fused.LAUNCHES.values()) or any(admm_fused.PLAIN_CALLS.values()):
+            raise RuntimeError(f"{cell}: a kernel or a plain version ran on a path that has none")
+        p50, p99 = percentiles_ms(lat)
+        rec = dict(cell=cell, B=B_CTRL, engine=type(c.engine).__name__,
+                   converged_fraction=int(d.n_converged) / B_CTRL,
+                   mean_sqp_iterations=float(d.mean_iterations),
+                   max_sqp_iterations=int(d.max_iterations), batch_p50_ms=p50,
+                   batch_p99_ms=p99, solves_per_s=B_CTRL / float(np.median(lat)))
+        rec.update(admm_iterations(fn))
+        t0 = time.perf_counter()
+        rec.update(profile(fn, 1, cpu=False), profile_seconds=time.perf_counter() - t0)
+        ck, xk, st, step_lat = c, torch.full((4,), 0.6, device=dev), [], []
+        for _ in range(CTRL_STEPS):
+            t0 = time.perf_counter()
+            ck, s1 = runtime.step(ck, xk)
+            torch.cuda.synchronize()
+            step_lat.append(time.perf_counter() - t0)
+            st.append(int(s1.status))
+            xk = qtp.qtp_discrete_step(xk, s1.u[:, 0])
+        sp50, sp99 = percentiles_ms(np.asarray(step_lat))
+        rec.update(step_statuses=st, step_p50_ms=sp50, step_p99_ms=sp99,
+                   p99_share_of_sample_time=sp99 / 5000.0, x_end=xk.cpu().tolist())
+        log(phase="controllers", **rec)
+        if rec["converged_fraction"] < CTRL_CONV_OK or not bool(torch.isfinite(xk).all()):
+            raise RuntimeError(f"{cell}: converged too little: {rec}")
+        lap(cell)
+
+    # the economic engine on the card against the CPU (its cost's
+    # constants on each device)
+    xs = torch.from_numpy(suite6_x0s(B_CTRL_CPU))
+    c_cpu = proceed_controller(
+        qtp.linearized_discrete_system(), "economic_model_predictive_control", 10, 5.0, x_ref,
+        u_ref, mpc_cost_function=economic_cost("cpu"), empc_config=EmpcConfig(max_sqp_iter=15),
+        device="cpu")
+    s_card, _, _, _ = parallel.solve_batch(cells["economic-h10-B256"], xs.to(dev))
+    s_cpu, _, _, _ = parallel.solve_batch(c_cpu, xs)
+    st_card, st_cpu = s_card.status.cpu(), s_cpu.status
+    both = (st_card == 0) & (st_cpu == 0)
+    du = float((s_card.u.cpu() - s_cpu.u).abs()[both].max()) if bool(both.any()) else float("inf")
+    same = float((st_card == st_cpu).float().mean())
+    log(phase="card_vs_cpu", engine="economic", lanes=B_CTRL_CPU,
+        converged_card=int((st_card == 0).sum()), converged_cpu=int((st_cpu == 0).sum()),
+        statuses_equal_fraction=same, max_abs_u_diff=du,
+        iterations_equal_fraction=float((s_card.iterations.cpu() == s_cpu.iterations)
+                                        .float().mean()))
+    if same < SQP_STATUS_OK or du > NL_U_OK:
+        raise RuntimeError("the economic engine on the card disagrees with the CPU")
+    lap("economic card_vs_cpu")
+
+    # milp-relu-fleet-h5-B32
+    t0 = time.perf_counter()
+    data = training.generate_qtp_dataset(n_traj=48, n_steps=30, seed=0, device=dev)
+    relu, rmse = training.trained_system("fnn", data, hidden=4, activation="relu")
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    c_m = proceed_controller(relu, "model_predictive_control", 5, 5.0, x_ref, u_ref,
+                             mpc_programming_type="mixed_linear", device=dev)
+    if not isinstance(c_m.engine, milp.MilpEngine):
+        raise RuntimeError("the relu fnn's mixed_linear controller is expected on the MILP engine")
+    x_m = torch.from_numpy(sqp_x0s(B_MILP)).to(dev)
+    admm_fused.reset_counts()
+    (sol, _, _, d), lat = timed(lambda: parallel.solve_batch(c_m, x_m), REPS_MILP)
+    check_solution(sol, B_MILP, 5, "milp-relu-fleet-h5-B32")
+    if any(admm_fused.LAUNCHES.values()) or any(admm_fused.PLAIN_CALLS.values()):
+        raise RuntimeError("the MILP fleet ran a kernel or a plain version")
+    p50, p99 = percentiles_ms(lat)
+    cpus = os.cpu_count() or 1
+    rec = dict(cell="milp-relu-fleet-h5-B32", B=B_MILP, model_rmse=rmse, train_seconds=t_train,
+               converged_fraction=int(d.n_converged) / B_MILP,
+               mean_nodes_per_solve=float(d.mean_iterations), max_nodes=int(d.max_iterations),
+               n_binary=c_m.engine.n_binary, batch_p50_ms=p50, batch_p99_ms=p99,
+               solves_per_s=B_MILP / float(np.median(lat)), host_cpu_count=cpus,
+               threads=min(B_MILP, cpus), solution_device=str(sol.u.device))
+    log(phase="milp_fleet", **rec)
+    if rec["converged_fraction"] != 1.0:
+        raise RuntimeError(f"the MILP fleet left a lane unsolved: {rec}")
+    lap("milp fleet")
+    log(phase="controllers_seconds", **seconds)
+    return shapes, rollout_recs, cert_recs, counts
 
 
 def general_phase(dev, plant, ctrl, ctrl_def, ctrl_h500, suite_cfg, x0s, x_h500, x_suite):
@@ -1652,6 +1902,13 @@ def main():
         dev, tier1, dict(rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250, refine_steps=2))
     k1_shapes.append(k1_learned_rec)
 
+    # 4g. the controller types: K3's (32, 16) tier on the wide Riccati
+    # cell, the fuzzy, economic and MILP cells, counted from zero cell by cell
+    k3_wide, rollout_wide, cert_wide, wide_counts = controllers_phase(dev)
+    k3_shapes += k3_wide
+    rollout_recs += rollout_wide
+    cert_recs += cert_wide
+
     # where the time goes in each cell (after the counts: these launches
     # are not the paths' runs)
     for cell, fn, reps in (
@@ -1704,13 +1961,16 @@ def main():
              smem_floor_ms=k2_shapes[0]["smem_floor_ms"],
              layouts=sorted(k2_layouts)),
         dict(kernel_entry("riccati_admm_chunk (K3)", "riccati_chunk.cuh", f"{TPU_RICCATI}:60",
-                          k3_counts["K3"] + general_counts["K3"], k3_shapes),
-             routes=sorted({rec["route"] for rec in k3_shapes})),
+                          k3_counts["K3"] + general_counts["K3"] + wide_counts["K3"], k3_shapes),
+             routes=sorted({rec["route"] for rec in k3_shapes}),
+             tiers=sorted({(rec["nx"], rec["nu"]) for rec in k3_shapes})),
         # the driver's rollouts and certificate recursion (lax.scan there)
         kernel_entry("riccati_rollout (K3 driver)", "riccati_admm.cu", f"{TPU_RICCATI}:352",
-                     k3_counts["rollout"] + general_counts["rollout"], rollout_recs),
+                     k3_counts["rollout"] + general_counts["rollout"] + wide_counts["rollout"],
+                     rollout_recs),
         kernel_entry("riccati_certificate (K3 driver)", "riccati_admm.cu", f"{TPU_RICCATI}:384",
-                     k3_counts["certificate"] + general_counts["certificate"], cert_recs),
+                     k3_counts["certificate"] + general_counts["certificate"]
+                     + wide_counts["certificate"], cert_recs),
         dict(kernel_entry("admm_packed_chunk (K4)", "admm_perr.cu", f"{TPU_ADMM}:252",
                           dense_counts["K4"], k4_shapes),
              smem_floor_ms=k4_shapes[0]["smem_floor_ms"],

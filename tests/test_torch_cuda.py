@@ -8,6 +8,7 @@ JAX it runs as
     python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 """
 
+import glob
 import os
 
 import numpy as np
@@ -222,7 +223,9 @@ def test_cuda_tensor_raises_without_library(controllers, tmp_path, monkeypatch):
     plain version is not called."""
     bad = tmp_path / "libmpc_kernels.so"
     bad.write_bytes(b"not a shared library")
-    future = max(os.path.getmtime(s) for s in _build._sources()) + 60
+    # newer than every source and header, so that nothing rebuilds over it
+    headers = glob.glob(os.path.join(_build.CSRC_DIR, "*.cuh"))
+    future = max(os.path.getmtime(s) for s in _build._sources() + headers) + 60
     os.utime(bad, (future, future))
     monkeypatch.setattr(_build, "LIB_PATH", str(bad))
     monkeypatch.setattr(_build, "_lib", None)
@@ -662,10 +665,10 @@ def test_k3_short_horizons_and_ragged_batches(card, N, B, branch):
 
 
 @pytest.mark.parametrize("route", list(riccati_fused.K3_ROUTES))
-@pytest.mark.parametrize("nx,nu", [(8, 4), (16, 8), (3, 1), (7, 3)])
+@pytest.mark.parametrize("nx,nu", [(8, 4), (16, 8), (3, 1), (7, 3), (32, 16), (20, 9)])
 def test_k3_wider_plants_match_plain_version(card, nx, nu, route):
-    """The (8, 4) and (16, 8) register tiers, and plants narrower than
-    their tier (padded factors), on every route."""
+    """The (8, 4), (16, 8) and (32, 16) register tiers, and plants narrower
+    than their tier (padded factors), on every route."""
     op = _synthetic_op(12, nx, nu, "state", card, seed=nx)
     _assert_k3_equals_plain(_op_args(op, card, 77, nx + nu) + (5,), route)
 
@@ -694,7 +697,7 @@ def test_certificate_horizons_batches_and_tiles(card, N, B, tile, branch):
     _assert_certificate_equals_plain(_synthetic_op(N, 4, 2, branch, card, seed=N), card, B, N + B, tile)
 
 
-@pytest.mark.parametrize("nx,nu", [(8, 4), (16, 8), (3, 1)])
+@pytest.mark.parametrize("nx,nu", [(8, 4), (16, 8), (3, 1), (32, 16), (20, 9)])
 def test_certificate_wider_plants(card, nx, nu):
     _assert_certificate_equals_plain(_synthetic_op(12, nx, nu, "state", card, seed=nx), card, 77, nx, tile=5)
 
@@ -829,3 +832,34 @@ def test_zoo_forward_and_jacobian_on_the_card(card, family):
     for a, b in zip(systems.linearize(sys_card, x[0].to(card), u[0].to(card)),
                     systems.linearize(sys_cpu, x[0], u[0])):
         assert float((a.cpu() - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("B", [1, 256])
+def test_wide_riccati_plant_on_k3(card, B):
+    """A Riccati controller on an (nx 32, nu 16) plant, K3's widest tier:
+    solve_batch_auto launches K3 and both recurrence kernels, runs no plain
+    version, and agrees with the same solve on the CPU; the rollout equals
+    its plain version at the tier."""
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import big
+
+    design = lambda dev: proceed_controller(
+        big.random_stable_system(32, 16, seed=0), "model_predictive_control", 10, 1.0,
+        np.zeros(32, np.float32), np.zeros(16, np.float32), mpc_Q=10.0, mpc_R=0.1,
+        engine="riccati", riccati_config=riccati.RiccatiConfig(max_iter=1000), device=dev)
+    ctrl, ctrl_cpu = design(card), design("cpu")
+    rng = np.random.default_rng(B)
+    x0 = torch.from_numpy(np.clip(0.4 * rng.standard_normal((B, 32)), -0.95, 0.95).astype(np.float32))
+    launches, plain = dict(admm_fused.LAUNCHES), dict(admm_fused.PLAIN_CALLS)
+    s_gpu, _, _, d_gpu = parallel.solve_batch_auto(ctrl, x0.to(card))
+    torch.cuda.synchronize()
+    for key in ("K3", "rollout", "certificate"):
+        assert admm_fused.LAUNCHES[key] > launches[key], key
+    assert admm_fused.PLAIN_CALLS == plain
+    s_cpu, _, _, d_cpu = parallel.solve_batch_auto(ctrl_cpu, x0)
+    assert int(d_gpu.n_converged) == int(d_cpu.n_converged) == B
+    assert torch.equal(s_gpu.status.cpu(), s_cpu.status)
+    assert float((s_gpu.u.cpu() - s_cpu.u).abs().max()) <= 1e-4
+    op = ctrl.engine.op
+    e0T = (x0.to(card) - ctrl.tuning.references.x[:, 0]).T.contiguous()
+    U = torch.from_numpy((0.05 * rng.standard_normal((op.N, 16, B))).astype(np.float32)).to(card)
+    assert torch.equal(riccati_fused.rollout(op, e0T, U), riccati.rollout_warm(op, e0T, U))

@@ -141,21 +141,37 @@ def test_escalation_operator_bitwise(pair):
 
 
 def test_unported_branches_raise():
-    """Engines not ported yet raise NotImplementedError (the Riccati engine
-    is ported: tests/test_torch_riccati.py; the SQP: tests/test_torch_sqp.py,
-    and an sqp_config on a linear plant designs the QP, as in the JAX
-    package)."""
+    """Every branch is ported and designs what the JAX package designs for
+    the same call: the economic engine over a linear plant (always the NLP
+    route), the tracking QP where an EmpcConfig or a terminal cost comes
+    without a stage cost, the QP for an sqp_config on a linear plant, and a
+    ValueError for mixed_linear on a linear plant and for an unknown
+    controller type."""
     sys = tqtp.linearized_discrete_system()
-    with pytest.raises(NotImplementedError):
-        tmpc.proceed_controller(
-            sys, "economic_model_predictive_control", 5, 5.0, X_REF, U_REF,
-            mpc_cost_function=lambda x, u: 0.0, device="cpu",
-        )
+    jsys = jqtp.linearized_discrete_system()
+    c = tmpc.proceed_controller(
+        sys, "economic_model_predictive_control", 5, 5.0, X_REF, U_REF,
+        mpc_cost_function=lambda x, u: 0.0, device="cpu",
+    )
+    jc = jmpc.proceed_controller(
+        jsys, "economic_model_predictive_control", 5, 5.0, np.asarray(X_REF),
+        np.asarray(U_REF), mpc_cost_function=lambda x, u: 0.0,
+    )
+    assert type(c.engine).__name__ == type(jc.engine).__name__ == "EmpcEngine"
+    assert c.tuning.programming_type == jc.tuning.programming_type == "non_linear"
+    assert c.engine.m_total == jc.engine.m_total
     for key in ("empc_config", "mpc_terminal_cost_function"):
-        with pytest.raises(NotImplementedError):
-            tmpc.proceed_controller(
-                sys, "model_predictive_control", 5, 5.0, X_REF, U_REF, device="cpu",
-                **{key: object()},
+        c = tmpc.proceed_controller(
+            sys, "model_predictive_control", 5, 5.0, X_REF, U_REF, device="cpu",
+            **{key: object()},
+        )
+        assert isinstance(c.engine, tmpc.LinearEngine)
+    for m in (tmpc, jmpc):
+        with pytest.raises(ValueError, match="ReLU-network"):
+            m.proceed_controller(
+                tqtp.linearized_discrete_system() if m is tmpc else jsys,
+                "model_predictive_control", 5, 5.0, np.asarray(X_REF), np.asarray(U_REF),
+                mpc_programming_type="mixed_linear", **({"device": "cpu"} if m is tmpc else {}),
             )
     c = tmpc.proceed_controller(
         sys, "model_predictive_control", 5, 5.0, X_REF, U_REF, sqp_config=tmpc.SqpConfig(),

@@ -21,10 +21,13 @@ def test_port_imports_without_jax():
         "from automationlabsmodelpredictivecontrol_jl_torch.utils import devices\n"
         "from automationlabsmodelpredictivecontrol_jl_torch import io, systems\n"
         "from automationlabsmodelpredictivecontrol_jl_torch.models import activations, zoo\n"
-        "from automationlabsmodelpredictivecontrol_jl_torch.solvers import sqp\n"
+        "from automationlabsmodelpredictivecontrol_jl_torch.solvers import empc, milp, sqp\n"
+        "from automationlabsmodelpredictivecontrol_jl_torch import native_qp\n"
         "from automationlabsmodelpredictivecontrol_jl_torch.ops import dare, riccati_ltv\n"
         "from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import big, training, unstable\n"
         "assert callable(sqp.solve_nonlinear_ms) and callable(io.load_controller)\n"
+        "assert callable(empc.solve_economic) and callable(milp.solve_milp_batch)\n"
+        "assert callable(native_qp.solve_relu_bb) and callable(m.takagi_sugeno_system)\n"
         "assert callable(admm_fused.iterate_chunk_mixed_T) and callable(terminal.invariant_terminal_set)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('automationlabsmodelpredictivecontrol_jl_tpu'))\n"

@@ -171,12 +171,27 @@ def test_port_checkpoint_round_trip(plants, tmp_path, name, neural, jkw, tkw):
 
 
 def test_refuses_what_cannot_be_rebuilt(tmp_path):
-    """A controller whose engine the port cannot re-design (an economic
-    one carries Python cost callables) and one without a plant are
-    refused at save, as the JAX package refuses economic controllers."""
-    c = tmpc.proceed_controller(tqtp.linearized_discrete_system(), "model_predictive_control",
-                                5, 5.0, X_REF, U_REF, device="cpu")
-    with pytest.raises(ValueError):
-        tio.save_controller(str(tmp_path / "e.npz"), c.replace(engine=object()))
+    """What cannot be re-designed on load is refused at save, as the JAX
+    package refuses it: an economic controller (its cost is a Python
+    callable), a Takagi-Sugeno plant (a family the zoo does not register),
+    and a controller without a plant."""
+    plant = tqtp.linearized_discrete_system()
+    c = tmpc.proceed_controller(plant, "model_predictive_control", 5, 5.0, X_REF, U_REF,
+                                device="cpu")
+    e = tmpc.proceed_controller(plant, "economic_model_predictive_control", 5, 5.0, X_REF,
+                                U_REF, mpc_cost_function=lambda x, u: u @ u, device="cpu")
+    je = jmpc.proceed_controller(jqtp.linearized_discrete_system(),
+                                 "economic_model_predictive_control", 5, 5.0,
+                                 np.asarray(X_REF), np.asarray(U_REF),
+                                 mpc_cost_function=lambda x, u: u @ u)
+    with pytest.raises(ValueError, match="economic controllers"):
+        tio.save_controller(str(tmp_path / "e.npz"), e)
+    with pytest.raises(ValueError, match="economic controllers"):
+        jio.save_controller(str(tmp_path / "je.npz"), je)
+    A, B = plant.A.numpy(), plant.B.numpy()
+    ts = tmpc.takagi_sugeno_system(np.stack([A, A]), np.stack([B, B]), np.full((2, 4), 0.65),
+                                   np.full(2, 0.25), plant.X, plant.U)
+    with pytest.raises(ValueError, match="unregistered family"):
+        tio.save_controller(str(tmp_path / "t.npz"), c.replace(system=ts))
     with pytest.raises(ValueError):
         tio.save_controller(str(tmp_path / "n.npz"), c.replace(system=None))

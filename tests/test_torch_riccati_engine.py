@@ -207,8 +207,8 @@ def test_solve_batch_runs_the_per_lane_engine():
 
 
 def test_wide_plant_raises():
-    """Plants wider than K3 takes have no per-lane engine yet (ROADMAP
-    Queue 1): a ValueError, on every device."""
+    """Plants wider than K3's widest register tier (32, 16) have no
+    per-lane engine: a ValueError, on every device."""
     _, tc = _pair(5, dict(max_iter=100))
     op = tc.engine.op
     wide = op.replace(nx=riccati_fused.MAX_NX + 1)

@@ -324,7 +324,8 @@ def test_k3_fits_and_wrapper_guards(branch_ops):
     _, tc = branch_ops["none"]
     op = tc.engine.op
     assert riccati_fused.k3_fits(op)
-    wide = dataclasses.replace(op, nx=17)
+    assert riccati_fused.k3_fits(dataclasses.replace(op, nx=32, nu=16))
+    wide = dataclasses.replace(op, nx=riccati_fused.MAX_NX + 1)
     assert not riccati_fused.k3_fits(wide)
     assert not tpar.fused_supported(tc.replace(engine=tc.engine.replace(op=wide)))
     with pytest.raises(ValueError, match="runs on CUDA"):
@@ -347,7 +348,7 @@ def _shape(op, N, nx=4, nu=2, branch="none"):
 def _k3_bytes(op, plan):
     """The shared memory csrc/riccati_chunk.cuh lays out for a plan (its
     launch_chunk refuses a launch whose bytes differ)."""
-    mx, mu = next(t for t in ((4, 2), (8, 4), (16, 8)) if op.nx <= t[0] and op.nu <= t[1])
+    mx, mu = next(t for t in ((4, 2), (8, 4), (16, 8), (32, 16)) if op.nx <= t[0] and op.nu <= t[1])
     N, nx, nu = op.N, op.nx, op.nu
     fac = {0: 8 * (N * (mu * mx + mu * mu + mx * mx) + mx * mx + mx * mu),
            1: (4 * (N * (nu * nx + nu * nu + nx * nx) + nx * nx + nx * nu) + 15) // 16 * 16,
@@ -402,8 +403,8 @@ def test_k3_plan_routes_by_shape(branch_ops):
         plan(_shape(op0, 5000, branch="state"), 1024, "shared-l2")
     with pytest.raises(ValueError, match="unknown K3 route"):
         plan(_shape(op0, 50), 77, "registers")
-    with pytest.raises(ValueError, match="nx <= 16"):
-        plan(_shape(op0, 50, nx=17), 77)
+    with pytest.raises(ValueError, match="nx <= 32"):
+        plan(_shape(op0, 50, nx=33), 77)
 
 
 @pytest.mark.parametrize("N,nx,nu,B", [(500, 4, 2, 1024), (50, 4, 2, 4096), (800, 16, 8, 1),
@@ -412,7 +413,7 @@ def test_certificate_plan_fits(branch_ops, N, nx, nu, B):
     op = _shape(branch_ops["none"][1].engine.op, N, nx, nu, "state")
     lanes, tile, smem = riccati_fused.certificate_plan(op, B)
     assert 1 <= lanes <= 128 and 1 <= tile <= N and smem <= 232448
-    mx, mu = next(t for t in ((4, 2), (8, 4), (16, 8)) if nx <= t[0] and nu <= t[1])
+    mx, mu = next(t for t in ((4, 2), (8, 4), (16, 8), (32, 16)) if nx <= t[0] and nu <= t[1])
     assert smem == 8 * mx * (mx + mu) + 4 * tile * lanes * (2 * nx + nu)
     if (N, B) == (500, 1024):  # the h500 cell: the whole horizon in one tile
         assert (lanes, tile) == (8, 500)

@@ -277,10 +277,16 @@ def test_update_references_and_update_and_compute(engine):
 
 
 def test_unported_engines_raise():
-    _, tc = _pair(5)
-    odd = tc.replace(engine=object())
+    """Every engine of the JAX package is ported; an object that is no
+    engine raises at the solve in both packages, and update_references
+    re-designs from the tuning as the JAX package's does."""
+    jc, tc = _pair(5)
+    odd, jodd = tc.replace(engine=object()), jc.replace(engine=object())
     x0 = torch.tensor([0.6] * 4)
-    with pytest.raises(NotImplementedError, match="SQP"):
+    with pytest.raises(TypeError, match="not an engine"):
         tmpc.step(odd, x0)
-    with pytest.raises(NotImplementedError, match="SQP"):
-        tmpc.update_references(odd, X_REF, U_REF)
+    with pytest.raises(AttributeError):
+        jmpc.step(jodd, jnp.asarray(x0.numpy()))
+    tn = tmpc.update_references(odd, X_REF, U_REF)
+    jn = jmpc.update_references(jodd, np.asarray(X_REF), np.asarray(U_REF))
+    assert type(tn.engine).__name__ == type(jn.engine).__name__ == "LinearEngine"

@@ -198,12 +198,19 @@ def test_sqp_design_guards(plants):
     with pytest.raises(ValueError):
         tmpc.proceed_controller(ts, "model_predictive_control", 5, 5.0, X_REF, U_REF,
                                 sqp_config=tmpc.SqpConfig(shooting="triple"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tmpc.proceed_controller(ts, "model_predictive_control", 5, 5.0, X_REF, U_REF,
+    # as in the JAX package: an EmpcConfig without a cost function leaves
+    # the tracking SQP, and mixed_linear on the (relu) fnn designs the MILP
+    # engine with the same search dimension
+    js, _ = plants
+    c = tmpc.proceed_controller(ts, "model_predictive_control", 5, 5.0, X_REF, U_REF,
                                 empc_config=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tmpc.proceed_controller(ts, "model_predictive_control", 5, 5.0, X_REF, U_REF,
+    assert isinstance(c.engine, tmpc.SqpEngine)
+    c = tmpc.proceed_controller(ts, "model_predictive_control", 5, 5.0, X_REF, U_REF,
                                 mpc_programming_type="mixed_linear", device="cpu")
+    jc = jmpc.proceed_controller(js, "model_predictive_control", 5, 5.0, np.asarray(X_REF),
+                                 np.asarray(U_REF), mpc_programming_type="mixed_linear")
+    assert type(c.engine).__name__ == type(jc.engine).__name__ == "MilpEngine"
+    assert c.engine.n_binary == jc.engine.n_binary
 
 
 def test_learned_entry_points_default_to_the_card(plants, tmp_path):
