@@ -113,11 +113,13 @@ def _record(cls, values: Mapping[str, Any]):
 
 def _riccati_engine(op: Mapping[str, Any], config: Mapping[str, Any]) -> RiccatiEngine:
     """A Riccati engine from the operator's fields (``factors`` a mapping
-    of K, G, AmBK, A, B; other keys, such as the JAX operator's doubling
-    levels, are not read) and the config's values."""
+    of K, G, AmBK, A, B; the doubling levels ``bwd_levels``, ``bwd_full``,
+    ``fwd_levels``, ``fwd_full`` carried as they are) and the config's
+    values."""
     grid = tuple(float(r) for r in op["rho_grid"])
     scale = float(op["term_rho_scale"])
-    arrays = ("Q", "P_term", "R_in", "x_lo", "x_hi", "xN_lo", "xN_hi", "u_lo", "u_hi")
+    arrays = ("Q", "P_term", "R_in", "x_lo", "x_hi", "xN_lo", "xN_hi", "u_lo", "u_hi",
+              "bwd_levels", "bwd_full", "fwd_levels", "fwd_full")
     operator = RiccatiOperator(
         factors=_record(RiccatiFactors, op["factors"]),
         rho_grid=grid,

@@ -5,7 +5,8 @@ Each source in ``csrc/*.cu`` compiles with its own ``nvcc`` for
 into one shared library with a plain C interface,
 ``build/kernels/libmpc_kernels.so`` at the root of the checkout (K3's
 register tiers, and the widest tier's routes, are sources of their own
-over one header, so that they build side by side). That happens on first use, or when a source or a
+over one header, so that they build side by side; K3W, the width-general
+Riccati chunk, and its rollout and certificate are ``riccati_wide.cu``). That happens on first use, or when a source or a
 header is newer than the library. The
 library is loaded with ctypes. Nothing here runs at import time: the CPU
 tests import every module on a machine with no nvcc.
@@ -118,6 +119,9 @@ SIGNATURES = {
     "riccati_rollout": "p" * 5 + "i" * 4 + "p",
     "riccati_certificate": "p" * 15 + "i" * 9 + "p",
     "riccati_chain_floor": "p" + "i" * 4 + "p",
+    "riccati_wide_chunk": "p" * 30 + "i" * 15 + "p",
+    "riccati_wide_rollout": "p" * 5 + "i" * 5 + "p",
+    "riccati_wide_certificate": "p" * 15 + "i" * 8 + "p",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -46,7 +46,8 @@ from ..utils.precision import assert_ieee_fp32
 
 Tensor = torch.Tensor
 
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "rollout": 0, "certificate": 0, "K4": 0, "K5": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "rollout": 0, "certificate": 0, "K4": 0, "K5": 0,
+            "K3W": 0, "K3W-doubling": 0, "rollout-wide": 0, "certificate-wide": 0}
 PLAIN_CALLS = dict(LAUNCHES)
 
 

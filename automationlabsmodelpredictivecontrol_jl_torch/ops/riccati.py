@@ -20,13 +20,16 @@ box- or ball-representable per state block: the condensed engine takes
 them.
 
 The design is the JAX package's numpy f64 code, so the stored f32 factors
-agree with it bit for bit. Two solves run on the kernel K3, both in
-``ops/riccati_fused.py``: the fused driver, with one rho for the whole
-batch, and the per-lane engine ``solve_sparse``, whose every lane adapts
-its own rho. Not ported yet (ROADMAP Queue 1): the
-parallel-in-time sweeps (``parallel_sweeps``: ``_scan_levels``,
-``_lqr_affine_solve_pscan``) and a per-lane engine for plants wider than
-K3 takes.
+and doubling levels agree with it bit for bit. The two sweeps of a
+w-update come in two forms: sequential (a recurrence over the horizon) and
+parallel in time (``RiccatiConfig.parallel_sweeps``): the recurrences'
+matrices are design-time constants, so :func:`_scan_levels` precomputes
+Hillis-Steele doubling levels per rho and each sweep runs as ceil(log2 N)
+combine levels (:func:`affine_prefix`, :func:`lqr_affine_solve_pscan`).
+The solves run in ``ops/riccati_fused.py``: the fused driver, with one rho
+for the whole batch, and the per-lane engine ``solve_sparse``, whose every
+lane adapts its own rho, each on the Riccati kernel that takes the plant
+and the sweeps (``riccati_fused.riccati_chunk_fn``).
 
 The helpers below work on the lane-last layout of the drivers: states
 (N+1, nx, B), inputs (N, nu, B).
@@ -35,7 +38,7 @@ The helpers below work on the lane-last layout of the drivers: states
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,9 +61,11 @@ class RiccatiConfig:
     ``rho_eq_scale * rho`` (capped at 1e3). ``eps_infeas`` is the
     tolerance of the primal-infeasibility certificate. The per-lane engine
     (``riccati_fused.solve_sparse``) adapts each lane's rho and escalates each
-    lane's stall. ``parallel_sweeps`` selects the per-lane engine's
-    doubling sweeps, which are not ported (neither engine here reads
-    it)."""
+    lane's stall. ``parallel_sweeps`` makes the per-lane engine run each
+    w-update's sweeps in doubling form (:func:`lqr_affine_solve_pscan`:
+    ceil(log2 N) combine levels over the horizon) where the sequential
+    form runs N dependent steps; the fused driver does not read it, as the
+    JAX package's fused kernel does not."""
 
     max_iter: int = 2000
     rho: Optional[float] = None
@@ -127,6 +132,14 @@ class RiccatiOperator(TensorRecord):
     split_interior: bool
     split_terminal: bool
     terminal_ball: bool  # contractive: ball-project e_{N+1}
+    # the doubling levels and full prefix products of the backward
+    # (reversed (A - B K)' sequence) and forward (A - B K in order)
+    # recurrences, per grid entry (:func:`_scan_levels`; L = max(1,
+    # ceil(log2 N)))
+    bwd_levels: Tensor  # (R, L, N, nx, nx)
+    bwd_full: Tensor  # (R, N, nx, nx)
+    fwd_levels: Tensor  # (R, L, N, nx, nx)
+    fwd_full: Tensor  # (R, N, nx, nx)
     # equality kind: the terminal consensus runs at term_rho_scale * rho
     # (config.rho_eq_scale; 1.0 for every other kind)
     term_rho_scale: float = 1.0
@@ -148,6 +161,28 @@ def _factorize_one(A, B, Qb, Rb, Qb_term, N):
         AmBKs.append(AmBK)
     # reverse to time order k=0..N-1 (built from the tail)
     return np.stack(Ks[::-1]), np.stack(Gs[::-1]), np.stack(AmBKs[::-1])
+
+
+def _scan_levels(Ms: np.ndarray):
+    """Hillis-Steele doubling levels of the affine prefix recurrence y_i =
+    M_i y_{i-1} + b_i (host, f64; the JAX package's code line for line).
+
+    Returns (levels (L, N, nx, nx), full (N, nx, nx)): level l, of stride s
+    = 2^l, updates b[s:] += levels[l][s:] @ b[:-s]; after every level y_i =
+    b_i + full_i @ y_init (full_i = M_i ... M_0)."""
+    N = Ms.shape[0]
+    C = Ms.copy()
+    levels = []
+    s = 1
+    while s < N:
+        levels.append(C.copy())
+        Cn = C.copy()
+        Cn[s:] = np.einsum("nij,njk->nik", C[s:], C[:-s])
+        C = Cn
+        s *= 2
+    if not levels:  # N == 1: no combine levels needed
+        levels = [np.zeros_like(Ms)]
+    return np.stack(levels), C
 
 
 def resolve_config(config: RiccatiConfig, R) -> RiccatiConfig:
@@ -232,6 +267,7 @@ def build_riccati_operator(
 
     grid = sorted(set(float(r) for r in config.rho_grid) | {float(config.rho)})
     Ks, Gs, AmBKs = [], [], []
+    bwd_lv, bwd_fu, fwd_lv, fwd_fu = [], [], [], []
     for rho in grid:
         reg_u = (config.sigma + rho) * np.eye(nu)
         # rho joins a state block's cost only where that block is split
@@ -244,6 +280,14 @@ def build_riccati_operator(
         Ks.append(K)
         Gs.append(G)
         AmBKs.append(AmBK)
+        # the backward g-recursion runs the reversed (A - B K)' sequence,
+        # the forward rollout A - B K in order
+        lv, fu = _scan_levels(np.transpose(AmBK, (0, 2, 1))[::-1].copy())
+        bwd_lv.append(lv)
+        bwd_fu.append(fu)
+        lv, fu = _scan_levels(AmBK.copy())
+        fwd_lv.append(lv)
+        fwd_fu.append(fu)
 
     return RiccatiOperator(
         factors=RiccatiFactors(
@@ -271,6 +315,10 @@ def build_riccati_operator(
         split_interior=split_interior,
         split_terminal=split_terminal,
         terminal_ball=terminal_ball,
+        bwd_levels=f32(np.stack(bwd_lv)),
+        bwd_full=f32(np.stack(bwd_fu)),
+        fwd_levels=f32(np.stack(fwd_lv)),
+        fwd_full=f32(np.stack(fwd_fu)),
         term_rho_scale=term_scale,
     )
 
@@ -285,6 +333,18 @@ def dot64(M: Tensor, v: Tensor) -> Tensor:
     acc = M64[:, :1] * v64[:1]
     for j in range(1, M64.shape[1]):
         acc = torch.addcmul(acc, M64[:, j : j + 1], v64[j : j + 1])
+    return acc.float()
+
+
+def bdot64(M: Tensor, v: Tensor) -> Tensor:
+    """M_k v_k for a stack of small matrices M (N, a, n) and lane-last
+    vectors v (N, n, B) (or (1, n, B), shared by every k): each row summed
+    as :func:`dot64` sums it, in column order j = 0..n-1."""
+    M64 = M.double()
+    v64 = v.double()
+    acc = M64[:, :, :1] * v64[:, :1]
+    for j in range(1, M64.shape[2]):
+        acc = torch.addcmul(acc, M64[:, :, j : j + 1], v64[:, j : j + 1])
     return acc.float()
 
 
@@ -320,6 +380,58 @@ def rollout_warm(op: RiccatiOperator, e0T: Tensor, U: Tensor) -> Tensor:
         e = dot64(A, e) + dot64(Bm, U[k])
         X[k + 1] = e
     return X
+
+
+def affine_prefix(levels: Tensor, full: Tensor, b: Tensor, y_init: Tensor) -> Tensor:
+    """y_i = M_i y_{i-1} + b_i (y_{-1} = y_init) for every i at once, lane-
+    last, from the doubling levels of M (the JAX package's
+    ``_affine_prefix``): level l, of stride s = 2^l, adds levels[l][i] @
+    b[i - s] to every b[i] with i >= s, then y = b + full @ y_init. levels
+    (L, N, nx, nx), full (N, nx, nx), b (N, nx, B), y_init (nx, B). Each
+    product is summed as :func:`dot64` sums it, which is the order the
+    doubling kernel (``csrc/riccati_wide.cu``) follows."""
+    N = b.shape[0]
+    s, lvl = 1, 0
+    while s < N:
+        contrib = bdot64(levels[lvl, s:], b[:-s])
+        b = torch.cat([b[:s], b[s:] + contrib])
+        s *= 2
+        lvl += 1
+    return b + bdot64(full, y_init[None])
+
+
+def lqr_affine_solve_pscan(
+    op: RiccatiOperator,
+    ridx,
+    e0T: Tensor,  # (nx, B)
+    lin_int: Tensor,  # (N-1, nx, B): linear terms on the interior states e_2..e_N
+    lin_xN: Tensor,  # (nx, B): on the terminal state
+    lin_u: Tensor,  # (N, nu, B)
+) -> Tuple[Tensor, Tensor]:
+    """The w-update's affine LQR solve with the sweeps in doubling form
+    (the JAX package's ``_lqr_affine_solve_pscan``, lane-last), at grid
+    entry ``ridx`` (an int or a (1,) tensor): the backward recursion g_k =
+    (A - B K_k)' g_{k+1} + (lpre_k - K_k' lu_k) from g_N = lin_xN as a
+    prefix over the reversed horizon, ff_k = G_k (B' g_{k+1} + lu_k), and
+    the forward rollout e_{k+1} = (A - B K_k) e_k - B ff_k as a prefix.
+    Returns (X (N+1, nx, B) with e0 in row 0, U (N, nu, B)). Only the
+    lane's own rho is computed; JAX selects it by a masked sum over every
+    grid entry, so an inf in another entry's solve makes JAX's lane NaN
+    and not the port's."""
+    i = torch.as_tensor(ridx).long().reshape(1).to(op.factors.K.device)
+    f = op.factors
+    K, G = f.K[i][0], f.G[i][0]
+    N = op.N
+    lpre = torch.cat([torch.zeros_like(e0T)[None], lin_int])  # (N, nx, B)
+    bb = lpre - bdot64(K.transpose(1, 2), lin_u)
+    g = affine_prefix(op.bwd_levels[i][0], op.bwd_full[i][0], bb.flip(0), lin_xN).flip(0)
+    gnext = torch.cat([g[1:], lin_xN[None]])  # g_{k+1}
+    ff = bdot64(G, bdot64(f.B.T[None], gnext) + lin_u)
+    bf = -bdot64(f.B[None], ff)
+    e_next = affine_prefix(op.fwd_levels[i][0], op.fwd_full[i][0], bf, e0T)
+    X = torch.cat([e0T[None], e_next])
+    U = -bdot64(K, X[:N]) - ff
+    return X, U
 
 
 def project_X(op: RiccatiOperator, V: Tensor, ball_r: Tensor) -> Tensor:

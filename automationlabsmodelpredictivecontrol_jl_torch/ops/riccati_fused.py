@@ -1,35 +1,47 @@
-"""Batched Riccati-ADMM on the fused kernel K3, and its driver.
+"""Batched Riccati-ADMM on the Riccati kernels, and their two drivers.
 
-The counterpart of the JAX package's ``ops/riccati_pallas.py``: the
-long-horizon sparse MPC engine, whose w-update is an affine backward sweep
-and a forward rollout over the horizon with the factors of the current rho
-(``ops/riccati.py``).
+The counterpart of the JAX package's ``ops/riccati_pallas.py`` and of its
+``ops/riccati.solve_sparse``: the long-horizon sparse MPC engine, whose
+w-update is an affine backward sweep and a forward rollout over the horizon
+with the factors of the current rho (``ops/riccati.py``).
 
 - :func:`iterate_chunk_riccati` runs ``chunk`` ADMM iterations on the
   lane-last state, kernel K3 (``csrc/riccati_chunk.cuh``), laid out for the
   shape by :func:`k3_plan`: the lanes' rows in shared memory for the whole
   chunk beside the current rho's factors (widened to fp64 where they fit,
   else fp32 in shared or device memory), or the rows streamed from device
-  memory where not even one lane's fit;
+  memory where not even one lane's fit. K3 keeps a lane's vectors in
+  registers, so it takes plants up to (32, 16) (:func:`k3_fits`);
+- :func:`iterate_chunk_riccati_wide` and :func:`iterate_chunk_riccati_doubling`
+  run the same iterations on K3W (``csrc/riccati_wide.cu``), laid out by
+  :func:`k3w_plan`: a lane's threads over the rows of each small product,
+  the plant's width a runtime value, the sweeps sequential (the JAX
+  package's ``_lqr_affine_solve``) or in doubling form
+  (``_lqr_affine_solve_pscan``: ceil(log2 N) combine levels a sweep);
 - :func:`rollout` and :func:`certificate_terms` are the driver's two O(N)
   recurrences (the warm and zero-input rollouts, once per solve; the
   infeasibility certificate's adjoint recursion, every chunk), each a small
-  per-lane kernel in the same source, so that no Python loop over the
-  horizon runs between chunks;
-- :func:`solve_sparse_fused` is the driver: a Python loop over chunks that,
-  between chunks, computes the residuals, the certificate, the stall
+  per-lane kernel, K3's up to (32, 16) and the wide ones
+  (:func:`rollout_wide`, :func:`certificate_terms_wide`) past it, so that
+  no Python loop over the horizon runs between chunks;
+- :func:`riccati_chunk_fn` routes a driver's chunks: K3 where it fits, K3W
+  past it, and, on the per-lane engine under ``parallel_sweeps``, K3W's
+  doubling form;
+- :func:`solve_sparse_fused` is the fused driver: a Python loop over chunks
+  that, between chunks, computes the residuals, the certificate, the stall
   escalation and the batch-global rho adaptation, and freezes converged
   lanes;
 - :func:`solve_sparse` is the per-lane engine (the JAX package's
   ``ops/riccati.solve_sparse``): the same start and tests between checks,
-  with each lane's own rho, K3 launched once per rho that open lanes
-  hold.
+  with each lane's own rho, its chunk launched once per rho that open
+  lanes hold.
 
 On a CUDA tensor each wrapper launches its kernel and raises if it cannot;
 on a CPU tensor it runs its plain PyTorch version, which forms the same
 sums in the same order. Launches and plain calls are counted in
-``admm_fused.LAUNCHES`` / ``PLAIN_CALLS`` under "K3", "rollout" and
-"certificate".
+``admm_fused.LAUNCHES`` / ``PLAIN_CALLS`` under "K3", "rollout",
+"certificate", "K3W", "K3W-doubling", "rollout-wide" and
+"certificate-wide".
 
 The rho index is batch-global and stays on the device: the kernel takes
 the whole factor stacks and reads the index itself, where the JAX driver
@@ -54,6 +66,7 @@ from .riccati import (
     ball_radius,
     box_support,
     dot64,
+    lqr_affine_solve_pscan,
     norm64,
     project_X,
     rollout_warm,
@@ -70,7 +83,10 @@ Tensor = torch.Tensor
 __all__ = [
     "LAUNCHES", "PLAIN_CALLS", "MAX_NX", "MAX_NU", "k3_fits", "K3_ROUTES", "K3Plan",
     "k3_plan", "certificate_plan", "iterate_chunk_riccati", "iterate_chunk_riccati_plain", "rollout",
-    "certificate_terms", "certificate_terms_plain", "solve_sparse_fused", "solve_sparse",
+    "certificate_terms", "certificate_terms_plain", "K3WPlan", "k3w_plan",
+    "iterate_chunk_riccati_wide", "iterate_chunk_riccati_doubling",
+    "iterate_chunk_riccati_doubling_plain", "rollout_wide", "certificate_terms_wide",
+    "riccati_chunk_fn", "solve_sparse_fused", "solve_sparse",
 ]
 
 # the widest plant the kernels' register arrays take (csrc/riccati_chunk.cuh)
@@ -207,22 +223,14 @@ def _grid_entry(op: RiccatiOperator, ridx: Tensor):
     return f.K[i][0], f.G[i][0], f.AmBK[i][0], op.rho_tab[:, i]
 
 
-def iterate_chunk_riccati_plain(
-    op: RiccatiOperator,
-    ridx: Tensor,  # (1,) int32 grid index
-    e0T: Tensor,  # (nx, B)
-    ballr: Tensor,  # (B,)
-    vX: Tensor,  # (N+1, nx, B)
-    vU: Tensor,  # (N, nu, B)
-    lamX: Tensor,
-    lamU: Tensor,
-    chunk: int,
-) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
-    """Plain PyTorch version of K3, with a Python loop over the horizon:
-    the JAX kernel's iteration, each small product summed as
+def _chunk_plain(op, ridx, e0T, ballr, vX, vU, lamX, lamU, chunk, doubling):
+    """``chunk`` iterations of the per-lane engine's ADMM iteration (the
+    JAX package's ``admm_iter``), lane-last, at grid index ``ridx``: the
+    w-update's sweeps sequential (a Python loop over the horizon) or in
+    doubling form (``riccati.lqr_affine_solve_pscan``), then the
+    projections and dual ascent. Each small product is summed as
     ``riccati.dot64`` does. Returns (X, U, vX, vU, lamX, lamU), out of
     place."""
-    PLAIN_CALLS["K3"] += 1
     N, nu = op.N, op.nu
     K, G, AmBK, (rho, rho_inv, rho_t, rho_t_inv) = _grid_entry(op, ridx)
     A, Bm = op.factors.A, op.factors.B
@@ -246,25 +254,29 @@ def iterate_chunk_riccati_plain(
         if not si and N > 1:
             lamX[1:N] = 0.0
     for _ in range(int(chunk)):
-        # backward affine sweep
         g = (-rho_t) * vX[N] + lamX[N] if st else torch.zeros_like(e0T)
-        ffs = [None] * N
-        for k in range(N - 1, -1, -1):
-            lu = nrho * vU[k] + lamU[k]
-            bg_ag = dot64(BtAmBKT[k], g)
-            ffs[k] = dot64(G64[k], bg_ag[:nu] + lu)
-            g = bg_ag[nu:] - dot64(KT64[k], lu)
-            if si and k >= 1:
-                g = g + (nrho * vX[k] + lamX[k])
-        # forward rollout
-        e, xs, us = e0T, [e0T], []
-        for k in range(N):
-            ke_ae = dot64(KA[k], e)
-            u = -ke_ae[:nu] - ffs[k]
-            e = ke_ae[nu:] + dot64(B64, u)
-            xs.append(e)
-            us.append(u)
-        X, U = torch.stack(xs), torch.stack(us)
+        if doubling:
+            lin_int = nrho * vX[1:N] + lamX[1:N] if si else torch.zeros_like(vX[1:N])
+            X, U = lqr_affine_solve_pscan(op, ridx, e0T, lin_int, g, nrho * vU + lamU)
+        else:
+            # backward affine sweep
+            ffs = [None] * N
+            for k in range(N - 1, -1, -1):
+                lu = nrho * vU[k] + lamU[k]
+                bg_ag = dot64(BtAmBKT[k], g)
+                ffs[k] = dot64(G64[k], bg_ag[:nu] + lu)
+                g = bg_ag[nu:] - dot64(KT64[k], lu)
+                if si and k >= 1:
+                    g = g + (nrho * vX[k] + lamX[k])
+            # forward rollout
+            e, xs, us = e0T, [e0T], []
+            for k in range(N):
+                ke_ae = dot64(KA[k], e)
+                u = -ke_ae[:nu] - ffs[k]
+                e = ke_ae[nu:] + dot64(B64, u)
+                xs.append(e)
+                us.append(u)
+            X, U = torch.stack(xs), torch.stack(us)
         # projections and dual ascent: U, the interior X, the terminal row
         vU_new = torch.clamp(U + rho_inv * lamU, col(op.u_lo), col(op.u_hi))
         lamU = lamU + rho * (U - vU_new)
@@ -293,6 +305,51 @@ def iterate_chunk_riccati_plain(
         if not si and N > 1:
             vX[1:N] = X[1:N]
     return X, U, vX, vU, lamX, lamU
+
+
+def iterate_chunk_riccati_plain(
+    op: RiccatiOperator,
+    ridx: Tensor,  # (1,) int32 grid index
+    e0T: Tensor,  # (nx, B)
+    ballr: Tensor,  # (B,)
+    vX: Tensor,  # (N+1, nx, B)
+    vU: Tensor,  # (N, nu, B)
+    lamX: Tensor,
+    lamU: Tensor,
+    chunk: int,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of K3, with a Python loop over the horizon:
+    the JAX kernel's iteration, each small product summed as
+    ``riccati.dot64`` does. Returns (X, U, vX, vU, lamX, lamU), out of
+    place. K3W's sequential form has the same plain version, counted
+    under "K3W" (:func:`iterate_chunk_riccati_wide` on a CPU tensor)."""
+    PLAIN_CALLS["K3"] += 1
+    return _chunk_plain(op, ridx, e0T, ballr, vX, vU, lamX, lamU, chunk, False)
+
+
+def _k3w_plain(op, ridx, e0T, ballr, vX, vU, lamX, lamU, chunk):
+    PLAIN_CALLS["K3W"] += 1
+    return _chunk_plain(op, ridx, e0T, ballr, vX, vU, lamX, lamU, chunk, False)
+
+
+def iterate_chunk_riccati_doubling_plain(
+    op: RiccatiOperator,
+    ridx: Tensor,
+    e0T: Tensor,
+    ballr: Tensor,
+    vX: Tensor,
+    vU: Tensor,
+    lamX: Tensor,
+    lamU: Tensor,
+    chunk: int,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of K3W's doubling form: the projections and
+    dual ascent of :func:`iterate_chunk_riccati_plain`, each w-update by
+    ``riccati.lqr_affine_solve_pscan`` (the JAX package's
+    ``_lqr_affine_solve_pscan``), whose summation order the kernel
+    follows."""
+    PLAIN_CALLS["K3W-doubling"] += 1
+    return _chunk_plain(op, ridx, e0T, ballr, vX, vU, lamX, lamU, chunk, True)
 
 
 def _shape_args(op: RiccatiOperator, B: int):
@@ -384,6 +441,187 @@ def iterate_chunk_riccati(
     )
 
 
+# K3W's block: at most this many threads serve one lane, and a block takes
+# lanes until it holds this many threads; no block of csrc/riccati_wide.cu
+# has more than 256 threads (its kMaxThreads)
+K3W_LANE_THREADS, K3W_BLOCK_THREADS = 256, 128
+
+
+class K3WPlan(NamedTuple):
+    """How one K3W launch is laid out: the lanes of a block, the threads
+    that serve each lane, the floats of a lane's scratch (its rows and the
+    iteration's buffers), where the scratch lies ("shared" memory, or
+    "device" memory where a lane's does not fit), the block's dynamic
+    shared memory and the blocks of the grid."""
+
+    lanes: int
+    lane_threads: int
+    lane_floats: int
+    route: str
+    smem_bytes: int
+    blocks: int
+
+
+def _ceil32(n: int) -> int:
+    return -(-int(n) // 32) * 32
+
+
+def k3w_lane_floats(op: RiccatiOperator, doubling: bool) -> int:
+    """The floats of one lane's scratch in K3W (``wide_lane_floats`` of
+    csrc/riccati_wide.cu, which refuses a launch that differs): vU, lamU
+    and the split rows of vX, lamX, e0 and the terminal linear term; then
+    the sequential form's ffs, U, X and step vectors, or the doubling
+    form's linear terms, ffs and two horizon buffers of nx rows; a multiple
+    of 4."""
+    N, nx, nu = op.N, op.nx, op.nu
+    n = 2 * N * nu + 2 * _split_x_rows(op) * nx + 2 * nx
+    if doubling:
+        n += 2 * N * nu + 2 * N * nx
+    else:
+        n += 2 * N * nu + N * nx + 3 * nx + 3 * nu
+    return -(-n // 4) * 4
+
+
+def k3w_plan(op: RiccatiOperator, B: int, doubling: bool, route: Optional[str] = None) -> K3WPlan:
+    """The layout of a K3W launch for ``B`` lanes, from the shape alone.
+
+    A lane's threads run over the rows of each small product: nx + nu of
+    them in the sequential form (a step's [B'; (A - B K)'] g, then its
+    feedforward and next g), and the (step, row) pairs of a combine level
+    in the doubling form, about 16 a thread; at most
+    ``K3W_LANE_THREADS``, a multiple of 32. Lanes share a block (and its
+    reads of one rho's factors and levels) up to ``K3W_BLOCK_THREADS``
+    threads, but no more than spread the batch over every SM. A lane's
+    scratch sits in shared memory where it fits beside the block's other
+    lanes ("shared"), else in a device-memory scratch with the same
+    barriers ("device"), which takes any shape. ``route`` forces one
+    (ValueError where "shared" does not fit)."""
+    N, nx, nu = op.N, op.nx, op.nu
+    B = int(B)
+    if B < 1 or nx < 1 or nu < 1:
+        raise ValueError(f"K3W takes at least one lane, state and input; B={B}, nx={nx}, nu={nu}")
+    if route not in (None, "shared", "device"):
+        raise ValueError(f"unknown K3W route {route!r}; one of ['device', 'shared']")
+    rows = nx + nu
+    if doubling:
+        rows = max(rows, -(-N * nx // 16))
+    threads = min(_ceil32(rows), K3W_LANE_THREADS)
+    floats = k3w_lane_floats(op, doubling)
+    lanes = max(1, min(K3W_BLOCK_THREADS // threads, math.ceil(B / SM_COUNT)))
+    fit = SMEM_LIMIT // (4 * floats)
+    if route == "shared" and fit < 1:
+        raise ValueError(f"K3W's shared route does not fit N={N}, nx={nx}, nu={nu}")
+    if fit >= 1 and route != "device":
+        lanes = min(lanes, fit)
+        where, smem = "shared", 4 * floats * lanes
+    else:
+        where, smem = "device", 0
+    return K3WPlan(lanes, threads, floats, where, smem, math.ceil(B / lanes))
+
+
+def _level_args(op: RiccatiOperator):
+    N, nx = op.N, op.nx
+    R, L = op.bwd_levels.shape[:2]
+    f = torch.float32
+    return [
+        ("bwd_levels", op.bwd_levels, (R, L, N, nx, nx), f),
+        ("bwd_full", op.bwd_full, (R, N, nx, nx), f),
+        ("fwd_levels", op.fwd_levels, (R, L, N, nx, nx), f),
+        ("fwd_full", op.fwd_full, (R, N, nx, nx), f),
+    ]
+
+
+def _launch_k3w(op, ridx, e0T, ballr, vX, vU, lamX, lamU, chunk, doubling=False, route=None):
+    """Launch K3W, sequential or in doubling form, as :func:`k3w_plan`
+    lays it out (``route`` forces "shared" or "device")."""
+    kernel = "K3W-doubling" if doubling else "K3W"
+    if int(chunk) < 1:
+        raise ValueError(f"{kernel} runs at least one iteration; chunk={chunk}")
+    N, nx, nu = op.N, op.nx, op.nu
+    B = e0T.shape[1]
+    plan = k3w_plan(op, B, doubling, route)
+    R = len(op.rho_grid)
+    L = int(op.bwd_levels.shape[1])
+    f = torch.float32
+    stacks, plant, boxes = _shape_args(op, B)
+    args = stacks + plant + _level_args(op) + boxes + [
+        ("rho_tab", op.rho_tab, (4, R), f),
+        ("ridx", ridx, (1,), torch.int32),
+        ("e0T", e0T, (nx, B), f),
+        ("ballr", ballr, (B,), f),
+        ("vX", vX, (N + 1, nx, B), f),
+        ("vU", vU, (N, nu, B), f),
+        ("lamX", lamX, (N + 1, nx, B), f),
+        ("lamU", lamU, (N, nu, B), f),
+    ]
+    _check_args(kernel, args, e0T.device)
+    # X, U, vX, vU, lamX, lamU, then the lanes' scratch where it is not in
+    # shared memory
+    outs = [torch.empty_like(t) for t in (vX, vU) * 3]
+    outs.append(e0T.new_empty(plan.blocks * plan.lanes * plan.lane_floats)
+                if plan.route == "device" else e0T.new_empty(0))
+    out = _launch(
+        kernel, "riccati_wide_chunk", args, outs,
+        (N, nx, nu, B, R, L, int(chunk), *_flags(op), int(doubling), plan.lanes,
+         plan.lane_threads, plan.lane_floats, plan.smem_bytes),
+    )
+    return out[:6]
+
+
+def iterate_chunk_riccati_wide(
+    op: RiccatiOperator,
+    ridx: Tensor,
+    e0T: Tensor,
+    ballr: Tensor,
+    vX: Tensor,
+    vU: Tensor,
+    lamX: Tensor,
+    lamU: Tensor,
+    chunk: int,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """:func:`iterate_chunk_riccati` for a plant of any width: K3W's
+    sequential form on CUDA tensors (raises if it cannot run), the plain
+    version on CPU ones."""
+    return _dispatch(
+        "K3W", _launch_k3w, _k3w_plain, (op, ridx, e0T, ballr, vX, vU, lamX, lamU, chunk),
+    )
+
+
+def iterate_chunk_riccati_doubling(
+    op: RiccatiOperator,
+    ridx: Tensor,
+    e0T: Tensor,
+    ballr: Tensor,
+    vX: Tensor,
+    vU: Tensor,
+    lamX: Tensor,
+    lamU: Tensor,
+    chunk: int,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """The same iterations with the sweeps in doubling form (the JAX
+    package's ``parallel_sweeps``): K3W-doubling on CUDA tensors (raises if
+    it cannot run), :func:`iterate_chunk_riccati_doubling_plain` on CPU
+    ones."""
+    launch = lambda *a: _launch_k3w(*a, doubling=True)
+    return _dispatch(
+        "K3W-doubling", launch, iterate_chunk_riccati_doubling_plain,
+        (op, ridx, e0T, ballr, vX, vU, lamX, lamU, chunk),
+    )
+
+
+def riccati_chunk_fn(op: RiccatiOperator, config: RiccatiConfig, driver: str) -> "ChunkFn":
+    """The chunk a driver launches: on the per-lane engine (``driver=
+    "per-lane"``) K3W's doubling form under ``config.parallel_sweeps``;
+    otherwise (and on the fused driver, ``"fused"``, which does not read
+    ``parallel_sweeps``, as the JAX package's fused kernel does not) K3
+    where it takes the plant and K3W's sequential form past it."""
+    if driver not in ("per-lane", "fused"):
+        raise ValueError(f"unknown Riccati driver {driver!r}; one of ['fused', 'per-lane']")
+    if driver == "per-lane" and config.parallel_sweeps:
+        return iterate_chunk_riccati_doubling
+    return iterate_chunk_riccati if k3_fits(op) else iterate_chunk_riccati_wide
+
+
 def _rollout_plain(op, e0T, U):
     PLAIN_CALLS["rollout"] += 1
     return rollout_warm(op, e0T, U)
@@ -411,8 +649,13 @@ def rollout(op: RiccatiOperator, e0T: Tensor, U: Tensor) -> Tensor:
 def certificate_terms_plain(op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ballr):
     """Plain PyTorch version of the certificate kernel (the JAX driver's
     ``infeas_cert`` up to its final comparisons): (3, B) rows max_k |r_k|,
-    the support value, max |dlam|."""
+    the support value, max |dlam|. Also the wide certificate's plain
+    version, counted under "certificate-wide"."""
     PLAIN_CALLS["certificate"] += 1
+    return _certificate_plain(op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ballr)
+
+
+def _certificate_plain(op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ballr):
     dlx = lamX_new - lamX_old
     dlu = lamU_new - lamU_old
     nu = op.nu
@@ -488,6 +731,78 @@ def certificate_terms(
     )
 
 
+def _rollout_wide_plain(op, e0T, U):
+    PLAIN_CALLS["rollout-wide"] += 1
+    return rollout_warm(op, e0T, U)
+
+
+def _wide_threads(rows: int) -> int:
+    """Threads of the wide rollout's and certificate's one-lane blocks."""
+    return min(_ceil32(rows), K3W_LANE_THREADS)
+
+
+def _launch_rollout_wide(op, e0T, U):
+    N, nx, nu = op.N, op.nx, op.nu
+    B = e0T.shape[1]
+    f = torch.float32
+    _, plant, _ = _shape_args(op, B)
+    args = plant + [("e0T", e0T, (nx, B), f), ("U", U, (N, nu, B), f)]
+    _check_args("rollout-wide", args, e0T.device)
+    X = torch.empty((N + 1, nx, B), dtype=f, device=e0T.device)
+    return _launch("rollout-wide", "riccati_wide_rollout", args, [X],
+                   (N, nx, nu, B, _wide_threads(nx)))[0]
+
+
+def rollout_wide(op: RiccatiOperator, e0T: Tensor, U: Tensor) -> Tensor:
+    """:func:`rollout` for a plant of any width: the wide rollout kernel
+    (csrc/riccati_wide.cu) on a CUDA tensor, ``riccati.rollout_warm`` on a
+    CPU one."""
+    return _dispatch("rollout-wide", _launch_rollout_wide, _rollout_wide_plain, (op, e0T, U))
+
+
+def _certificate_wide_plain(op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ballr):
+    PLAIN_CALLS["certificate-wide"] += 1
+    return _certificate_plain(op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ballr)
+
+
+def _launch_certificate_wide(op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ballr):
+    N, nx, nu = op.N, op.nx, op.nu
+    B = ballr.shape[0]
+    f = torch.float32
+    _, plant, boxes = _shape_args(op, B)
+    args = plant + boxes + [
+        ("lamX_new", lamX_new, (N + 1, nx, B), f),
+        ("lamX_old", lamX_old, (N + 1, nx, B), f),
+        ("lamU_new", lamU_new, (N, nu, B), f),
+        ("lamU_old", lamU_old, (N, nu, B), f),
+        ("Xbar", Xbar, (N + 1, nx, B), f),
+        ("ballr", ballr, (B,), f),
+    ]
+    _check_args("certificate-wide", args, ballr.device)
+    out = torch.empty((3, B), dtype=f, device=ballr.device)
+    return _launch(
+        "certificate-wide", "riccati_wide_certificate", args, [out],
+        (N, nx, nu, B, *_flags(op), _wide_threads(nx + nu)),
+    )[0]
+
+
+def certificate_terms_wide(
+    op: RiccatiOperator,
+    lamX_new: Tensor,
+    lamX_old: Tensor,
+    lamU_new: Tensor,
+    lamU_old: Tensor,
+    Xbar: Tensor,
+    ballr: Tensor,
+) -> Tensor:
+    """:func:`certificate_terms` for a plant of any width: the wide
+    certificate kernel on CUDA tensors, the plain version on CPU ones."""
+    return _dispatch(
+        "certificate-wide", _launch_certificate_wide, _certificate_wide_plain,
+        (op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ballr),
+    )
+
+
 ChunkFn = Callable[..., Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]]
 
 
@@ -511,15 +826,16 @@ def _start(op: RiccatiOperator, e0s: Tensor, warm_U: Optional[Tensor],
     zeros = lambda: torch.zeros((N, nu, e0s.shape[0]), dtype=f, device=e0s.device)
     e0T = e0s.to(f).T.contiguous()
     ballr = ball_radius(op, e0T)
+    roll = rollout if k3_fits(op) else rollout_wide
     U = zeros() if warm_U is None else _lane_last(warm_U)
-    X = rollout(op, e0T, U)
+    X = roll(op, e0T, U)
     if warm_lam is None:
         lamX, lamU = torch.zeros_like(X), torch.zeros_like(U)
     else:
         lamX, lamU = (_lane_last(t) for t in warm_lam)
     vX = project_X(op, X, ballr)
     vU = torch.clamp(U, op.u_lo[:, None], op.u_hi[:, None])
-    Xbar = rollout(op, e0T, zeros())
+    Xbar = roll(op, e0T, zeros())
     return e0T, ballr, Xbar, (X, U, vX, vU, lamX, lamU)
 
 
@@ -544,7 +860,8 @@ def _check(op: RiccatiOperator, config: RiccatiConfig, new, old, rp_prev, rho, X
     scale = torch.maximum(_amax(U), torch.clamp_min(_amax(X), 1e-6))
     tol = config.eps_abs + config.eps_rel * scale
     finite = torch.isfinite(U.sum(dim=(0, 1)) + X.sum(dim=(0, 1)))
-    ortho, support, dnorm = certificate_terms(op, lamX, lamX0, lamU, lamU0, Xbar, ballr)
+    terms = certificate_terms if k3_fits(op) else certificate_terms_wide
+    ortho, support, dnorm = terms(op, lamX, lamX0, lamU, lamU0, Xbar, ballr)
     eps = config.eps_infeas
     cert = (dnorm > 1e-9) & (ortho <= eps * dnorm) & (support <= -eps * dnorm)
     stalled = (rp > 10.0 * tol) & ((rp_prev - rp).abs() <= 1e-3 * rp)
@@ -596,16 +913,17 @@ def solve_sparse_fused(
     config: RiccatiConfig = RiccatiConfig(),
     chunk_fn: Optional[ChunkFn] = None,
 ):
-    """Batched sparse solves on K3, on the device of ``e0s``. Returns (X
-    (B, N+1, nx), U (B, N, nu), status (B,), iterations (B,), rp (B,), rd
-    (B,), (lamX, lamU)), as the JAX package's ``solve_sparse_fused``.
-    ``chunk_fn`` defaults to :func:`iterate_chunk_riccati`; its plain
-    version may be passed to re-solve on the card for comparison.
+    """Batched sparse solves on K3 (K3W past (32, 16)), on the device of
+    ``e0s``. Returns (X (B, N+1, nx), U (B, N, nu), status (B,),
+    iterations (B,), rp (B,), rd (B,), (lamX, lamU)), as the JAX package's
+    ``solve_sparse_fused``. ``chunk_fn`` defaults to
+    ``riccati_chunk_fn(op, config, "fused")``; a plain version may be
+    passed to re-solve on the card for comparison.
 
     Between chunks: residuals, the per-lane certificate verdict, the stall
     escalation and the OSQP rho rule, both batch-global, and the freezing
     of finished lanes; one host read (all lanes done?) per chunk."""
-    fn = iterate_chunk_riccati if chunk_fn is None else chunk_fn
+    fn = riccati_chunk_fn(op, config, "fused") if chunk_fn is None else chunk_fn
     dev = e0s.device
     B = e0s.shape[0]
     R = len(op.rho_grid)
@@ -676,7 +994,9 @@ def solve_sparse(
 
     Each lane keeps its own grid rho: every ``adapt_interval`` iterations
     the OSQP rule moves it, and ``stall_checks`` stalled checks move it one
-    entry up. K3 (or ``chunk_fn``) takes one rho for its whole launch, so
+    entry up. The chunk (``riccati_chunk_fn(op, config, "per-lane")``: K3,
+    K3W past (32, 16), K3W's doubling form under ``parallel_sweeps``; or
+    ``chunk_fn``) takes one rho for its whole launch, so
     each check runs one launch per rho that open lanes hold, on those
     lanes gathered along the lane axis: at most R launches, and no loop
     over the horizon in Python. The tests between checks are the fused
@@ -684,9 +1004,8 @@ def solve_sparse(
     when every lane is done or at ``max_iter``, with one host read per
     check (the lanes in each rho group, and the done lanes). The status
     comes from the last finite test, the certificates and the convergence
-    tests. Plants wider than K3 takes raise ValueError."""
-    _require_fits("the per-lane Riccati engine (K3)", op)
-    fn = iterate_chunk_riccati if chunk_fn is None else chunk_fn
+    tests."""
+    fn = riccati_chunk_fn(op, config, "per-lane") if chunk_fn is None else chunk_fn
     dev = e0s.device
     B = e0s.shape[0]
     R = len(op.rho_grid)

@@ -7,10 +7,11 @@ linear engine and the Riccati engine on one device:
   diagonal A (input boxes only), K2 for a mixed one (state-box or
   terminal rows after the input boxes), K4 or K5 for a dense one (rows
   that are not box-first), K3 for a Riccati engine (the long-horizon
-  sparse solve);
+  sparse solve; K3W past K3's (32, 16));
 - :func:`solve_batch` solves a batch on the engines themselves
   (``runtime.solve_lanes``): the general ADMM engine for a condensed
-  engine, the per-lane Riccati engine (on K3) for a Riccati one, one
+  engine, the per-lane Riccati engine (on K3, K3W past (32, 16), K3W's
+  doubling form under ``parallel_sweeps``) for a Riccati one, one
   batched SQP over all lanes for an SQP engine (a learned or fuzzy plant),
   one batched EMPC for an economic engine, and the MILP engine's fleet of
   host threads;
@@ -122,7 +123,7 @@ def solve_batch_fused(
     chunk_fn: Optional[Callable] = None,
 ) -> Tuple[MpcSolution, Tensor, Tensor, BatchDiagnostics]:
     """Batched linear-MPC solves on K1, K2, K4 or K5 (a condensed engine) or
-    K3 (a Riccati engine), on the device of ``x0s``.
+    K3 or K3W (a Riccati engine), on the device of ``x0s``.
 
     Returns (solutions with a leading batch axis, next warm_z, next
     warm_y, diagnostics). For a condensed engine warm_z is the shifted
@@ -162,7 +163,7 @@ def _solve_batch_fused_riccati(
     warm_y: Tensor,  # (B, (N+1)*nx + N*nu)
     chunk_fn: Optional[Callable],
 ) -> Tuple[MpcSolution, Tensor, Tensor, BatchDiagnostics]:
-    """Batched sparse solves on K3: the deviation shift, the x0-box
+    """Batched sparse solves on K3 or K3W: the deviation shift, the x0-box
     status, the objective, and the shifted warm carry of U, lamX, lamU."""
     engine = controller.engine
     e0s = x0s - controller.tuning.references.x[:, 0][None]
@@ -180,14 +181,16 @@ def fused_supported(controller: MpcController) -> bool:
     fits K1, or mixed and fits K2 (shared memory, n <= 128, a dense tail of
     at most 128 rows), or dense and fits the kernel that ``use_packed``
     picks, K4 or K5 (n <= 128, at most 512 rows), as the JAX package's
-    ``_kernel_viable`` takes a dense operator. A Riccati engine whose
-    plant K3 takes (nx <= 32, nu <= 16); never an SQP, economic or MILP
-    engine (no kernel takes their per-lane operators or host search). The JAX package's bands were measured on other hardware and
-    are not copied (it routes its Riccati engine to the vmapped engine);
-    bands for this card come from its own A/B runs."""
+    ``_kernel_viable`` takes a dense operator. A Riccati engine on any
+    plant: K3 takes it up to (32, 16), K3W (``csrc/riccati_wide.cu``, the
+    plant's width a runtime value) past that. Never an SQP, economic or
+    MILP engine (no kernel takes their per-lane operators or host search).
+    The JAX package's bands were measured on other hardware and are not
+    copied (it routes its Riccati engine to the vmapped engine); bands for
+    this card come from its own A/B runs."""
     eng = controller.engine
     if isinstance(eng, RiccatiEngine):
-        return riccati_fused.k3_fits(eng.op)
+        return True
     if not isinstance(eng, LinearEngine):
         return False
     op = eng.op

@@ -14,7 +14,8 @@ The port of the JAX package's ``runtime.py``:
 
 :func:`solve_lanes` is the engines' batched solve: the condensed engine on
 the general ADMM engine (``ops/admm.solve``), the Riccati engine on its
-per-lane engine (``ops/riccati_fused.solve_sparse``, which runs K3), the
+per-lane engine (``ops/riccati_fused.solve_sparse``, which runs K3, K3W
+past (32, 16), or K3W's doubling form under ``parallel_sweeps``), the
 SQP engine on ``solvers/sqp.py`` (single or multiple shooting), the
 economic engine on ``solvers/empc.py``, and the MILP engine on the host
 (``solvers/milp.solve_milp_batch``, a thread per lane). :func:`solve_once`

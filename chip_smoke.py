@@ -64,7 +64,15 @@ device=card)``, then ``parallel`` and ``step``):
   ``solve_batch_auto``), the Takagi-Sugeno fuzzy QTP and the economic QTP
   (h10, 256 states, ``parallel.solve_batch`` and ``step``; the economic
   engine also on the card against the CPU) and the exact-ReLU MILP fleet
-  on a relu fnn trained on the card (h5, 32 states, host threads).
+  on a relu fnn trained on the card (h5, 32 states, host threads);
+- the Riccati sweeps (``riccati_sweeps_phase``): K3W, the width-general
+  Riccati chunk (``csrc/riccati_wide.cu``), with its wide rollout and
+  certificate, on a (64, 32) plant at h30 past K3's (32, 16)
+  (``solve_batch_auto``, ``parallel.solve_batch`` over 1024 states, 10
+  ``step``s, the card against the CPU), and its doubling form under
+  ``RiccatiConfig(parallel_sweeps=True)`` on suite config 6 (h500, 1024
+  states, the per-lane engine against itself on K3) and in a 20-step h500
+  closed loop at B = 1.
 
 Phases (any failure raises and exits non-zero):
 1. the card: its name, count, and power limit from nvidia-smi;
@@ -83,7 +91,10 @@ Phases (any failure raises and exits non-zero):
    horizons, an (8, 4) and a (16, 8) plant, and in the controllers' phase
    the (32, 16) tier on each of its routes; K3's rollout and certificate
    kernels at h500 (1024 lanes, one lane, and the 256-lane bucket of the
-   escalated solve's tier 2); K4 at the h20 equality
+   escalated solve's tier 2); in the sweeps' phase K3W sequential at
+   (64, 32) h30 and (40, 20) h10, K3W-doubling at the QTP's h500, h50 and
+   h24, on both of their scratch routes, and the wide rollout and
+   certificate at (64, 32) h30, each with its k3w_plan line; K4 at the h20 equality
    terminal (random and one rho index, tier 2's bucket, a ragged batch),
    the state box at tier 1's grid (no refinement) and the neighborhood
    terminal (its stream route), K5 at h20 (random and one rho index, tier
@@ -100,7 +111,10 @@ Phases (any failure raises and exits non-zero):
    learned phase: no kernel on the SQP cells, K1 on the learned-linear
    cell, held to its plain version on that operator first; the
    controllers' phase: K3 and its recurrences on the wide Riccati cell,
-   no kernel on the fuzzy, economic and MILP cells);
+   no kernel on the fuzzy, economic and MILP cells; the sweeps' phase:
+   K3W and the wide recurrences on the (64, 32) cell and never K3,
+   K3W-doubling and never K3 on the per-lane engine under
+   parallel_sweeps);
 5. where the time goes in each path's cells (torch.profiler: device time
    per solve, the kernels' share of it, the card's idle share); then
    re-solves of 256 lanes with the plain versions (K3's at h50, K4's at
@@ -153,6 +167,8 @@ NL_U_OK, WIDE_OK = 1e-3, 1e-4  # the frozen NL goldens' bars (tests/test_golden_
 B_WIDE, REPS_WIDE, B_CTRL, REPS_CTRL, B_CTRL_CPU, CTRL_STEPS = 2048, 5, 256, 5, 64, 10
 B_MILP, REPS_MILP = 32, 3
 CTRL_CONV_OK = 0.99  # converged fraction of the fuzzy and economic cells
+# the Riccati sweeps' phase: K3W past (32, 16) and the doubling sweeps
+REPS_SWEEPS, WIDE_STEPS, H500_STEPS, B_SWEEPS_CPU, H_SWEEPS = 3, 10, 20, 64, 500
 
 
 def log(**kv):
@@ -181,6 +197,8 @@ def ptxas_summary(report: str):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             kind = next(k for key, k in (
+                ("riccati_wide_rollout", "rollout-wide"),
+                ("riccati_wide_certificate", "certificate-wide"), ("riccati_wide", "K3W"),
                 ("riccati_admm_chunk", "K3"), ("riccati_rollout", "K3 rollout"),
                 ("riccati_certificate", "K3 certificate"),
                 ("riccati_chain_floor", "K3 chain floor"), ("perr_stream", "K5 stream"),
@@ -1247,6 +1265,353 @@ def controllers_phase(dev):
     return shapes, rollout_recs, cert_recs, counts
 
 
+TPU_RICCATI_XLA = "automationlabsmodelpredictivecontrol_jl_tpu/ops/riccati.py"
+
+
+def wide64_x0s(B):
+    """riccati-wide-nx64-h30's initial states: default_rng(0),
+    clip(0.4 N(0, 1), -0.95, 0.95), shape (B, 64)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return np.clip(0.4 * rng.standard_normal((B, 64)), -0.95, 0.95).astype(np.float32)
+
+
+def k3w_bound(N, nx, nu, B, chunk, split_interior, doubling, L):
+    """Least milliseconds of one K3W chunk: one rho's factors (K, G, and
+    A - B K for the sequential form, the two level stacks and prefix
+    products for the doubling form), A, B and the boxes, each lane's
+    inputs and outputs once over HBM, against 2 operations per fp64
+    multiply-add over the fp64 peak and the fp32 elementwise steps over the
+    fp32 peak. The sequential form's multiply-adds are K3's; the doubling
+    form's are K' lu, the levels' (sum over levels of (N - 2^l) nx^2, both
+    sweeps), the prefix products' (N nx^2 each sweep), B' g, G (.), B ff
+    and K e."""
+    if not doubling:
+        return riccati_chunk_bound(N, nx, nu, B, chunk, split_interior)
+    level_rows = sum(max(N - 2 ** l, 0) for l in range(L)) if N > 1 else 0
+    factors = ((nu * nx + nu * nu) * N + 2 * (L + 1) * N * nx * nx + nx * nx + nx * nu
+               + 4 * nx + 2 * nu + 4)
+    lane = (nx + 1 + 2 * (N + 1) * nx + 2 * N * nu) + (3 * (N + 1) * nx + 3 * N * nu)
+    macs = 3 * N * nu * nx + N * nu * nu + N * nx * nu + 2 * (level_rows + N) * nx * nx
+    elementwise = (12 * nu + 2 * nx + (10 * nx if split_interior else 0)) * N + 8 * nx
+    return _bound(4 * (factors + lane * B), 2 * macs * B * chunk, elementwise * B * chunk)
+
+
+def compare_k3w(op, B, seed, chunk, doubling, label, plain_reps=1, route=None):
+    """K3W (sequential or doubling) against its plain version on one
+    chunk's seeded inputs at a real shape, on the card: max_ulps 0, a
+    k3w_plan line, CUDA-event time over 20 launches beside its bound."""
+    import numpy as np
+    import torch
+
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati, riccati_fused
+
+    dev = op.rho_tab.device
+    e0T = torch.from_numpy(
+        (0.1 * np.random.default_rng(seed).standard_normal((op.nx, B))).astype(np.float32)).to(dev)
+    ridx = riccati._initial_ridx(op, riccati.RiccatiConfig())
+    args = operator_inputs(op, ridx, e0T, seed + 1) + (chunk,)
+    name = "K3W-doubling" if doubling else "K3W"
+    plan = riccati_fused.k3w_plan(op, B, doubling, route)
+    log(phase="k3w_plan", kernel=name, cell=label, N=op.N, nx=op.nx, nu=op.nu, B=B,
+        **plan._asdict())
+    kernel = lambda: riccati_fused._launch_k3w(*args, doubling=doubling, route=route)
+    plain_fn = (riccati_fused.iterate_chunk_riccati_doubling_plain if doubling
+                else riccati_fused.iterate_chunk_riccati_plain)
+    out_p, plain_once_ms = cuda_ms_once(lambda: plain_fn(*args))
+    abs_err, rel_err, ulps = _errors(kernel(), out_p, name)
+    rec = dict(kernel=name, cell=label, N=op.N, nx=op.nx, nu=op.nu, B=B, chunk=chunk,
+               route=plan.route, lanes=plan.lanes, lane_threads=plan.lane_threads,
+               smem_bytes=plan.smem_bytes, split_interior=op.split_interior,
+               terminal_ball=op.terminal_ball, max_abs_err=abs_err, max_rel_err=rel_err,
+               max_ulps=ulps)
+    if ulps != 0:
+        raise RuntimeError(f"{name} disagrees with its plain version: {rec}")
+    rec["ms"] = cuda_ms(kernel)
+    rec["plain_ms"] = (plain_once_ms if plain_reps == 1 else
+                       cuda_ms(lambda: plain_fn(*args), reps=plain_reps, warm_up=False))
+    rec["bound_ms"], rec["bound_by"] = k3w_bound(
+        op.N, op.nx, op.nu, B, chunk, op.split_interior, doubling, int(op.bwd_levels.shape[1]))
+    log(phase="k3w_vs_plain", **rec)
+    return rec
+
+
+def compare_wide_recurrences(op, B, seed):
+    """The wide rollout and certificate kernels against their plain
+    versions at one shape (the certificate on a chunk's worth of dual
+    change), max_ulps 0, CUDA-event times beside their bounds."""
+    import numpy as np
+    import torch
+
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati, riccati_fused
+
+    dev = op.rho_tab.device
+    e0T = torch.from_numpy(
+        (0.1 * np.random.default_rng(seed).standard_normal((op.nx, B))).astype(np.float32)).to(dev)
+    _, _, e0T, ballr, _, vU, lamX, lamU = operator_inputs(op, 0, e0T, seed + 1)
+    lamX2, lamU2 = lamX + 0.01 * lamX.flip(0), lamU - 0.02 * lamU.flip(0)
+    N, nx, nu = op.N, op.nx, op.nu
+    Xbar = riccati.rollout_warm(op, e0T, vU)
+    recs = []
+    for name, kernel, plain, args, bound in (
+        ("rollout-wide", riccati_fused.rollout_wide, riccati_fused._rollout_wide_plain,
+         (op, e0T, vU), rollout_bound(N, nx, nu, B)),
+        ("certificate-wide", riccati_fused.certificate_terms_wide,
+         riccati_fused._certificate_wide_plain, (op, lamX2, lamX, lamU2, lamU, Xbar, ballr),
+         certificate_bound(N, nx, nu, B)),
+    ):
+        abs_err, rel_err, ulps = _errors([kernel(*args)], [plain(*args)], name)
+        rec = dict(kernel=name, N=N, nx=nx, nu=nu, B=B, max_abs_err=abs_err,
+                   max_rel_err=rel_err, max_ulps=ulps)
+        if ulps != 0:
+            raise RuntimeError(f"the {name} kernel disagrees with its plain version: {rec}")
+        rec["ms"] = cuda_ms(lambda: kernel(*args))
+        rec["plain_ms"] = cuda_ms(lambda: plain(*args), reps=2, warm_up=False)
+        rec["bound_ms"], rec["bound_by"] = bound
+        log(phase="wide_recurrence_vs_plain", **rec)
+        recs.append(rec)
+    return recs
+
+
+def riccati_sweeps_phase(dev):
+    """K3W, the width-general Riccati chunk, in its two forms (plants past
+    K3's (32, 16), and ``parallel_sweeps``), with the wide rollout and
+    certificate, on the card; each path counted from zero:
+
+    - each kernel against its plain version, max_ulps 0, a k3w_plan line a
+      shape: K3W sequential at (64, 32) h30 (B = 1024 and 1), (40, 20)
+      h10 with the state box, and beside K3 at its widest tier's cell
+      ((32, 16) h30, B = 2048); K3W-doubling at the QTP's h500 (B = 1024 and
+      1), h50 with the state box and with the contractive ball, and h24;
+      the wide rollout and certificate at (64, 32) h30 (B = 1024 and 1);
+    - riccati-wide-nx64-h30-B1024: ``big.random_stable_system(64, 32,
+      seed=0)`` at h30, ``engine="riccati"``, Q 10, R 0.1 (the extra
+      benchmarks' wide row at twice its width), 1024 states through
+      ``solve_batch_auto`` (the fused driver on K3W) and
+      ``parallel.solve_batch`` (the per-lane engine), then 10 ``step``s at
+      B = 1; converged >= 0.999 on both, the first 64 lanes held to the
+      port's CPU solve (statuses equal, |du| <= 1e-3), no K3 launch and no
+      plain call;
+    - riccati-h500-B1024-doubling: suite config 6 (the QTP at h500,
+      ``RiccatiConfig(max_iter=1000)``) through ``parallel.solve_batch``
+      with ``parallel_sweeps`` True against False (K3) on the same 1024
+      states: converged >= 0.999 on both, statuses equal on >= 0.999 of
+      lanes, |du| <= 5e-4 where both converged, K3W-doubling launched and
+      K3 not on the doubling side;
+    - riccati-h500-step-doubling: 20 closed-loop ``step``s at B = 1 on the
+      QTP plant, ``parallel_sweeps`` True against False, p50/p99 against
+      the 5 s sample time.
+    Returns the records of each kernel's shapes and the launches of each
+    on the phase's paths."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from automationlabsmodelpredictivecontrol_jl_torch import parallel, proceed_controller, runtime
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import big, qtp
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused, riccati_fused
+    from automationlabsmodelpredictivecontrol_jl_torch.ops.riccati import RiccatiConfig
+
+    seconds, t_part = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t_part
+        now = time.perf_counter()
+        seconds[part] = now - t_part
+        t_part = now
+
+    wide_design = lambda d: proceed_controller(
+        big.random_stable_system(64, 32, seed=0), "model_predictive_control", 30, 1.0,
+        np.zeros(64, np.float32), np.zeros(32, np.float32), mpc_Q=10.0, mpc_R=0.1,
+        engine="riccati", device=d)
+    wide = wide_design(dev)
+    if riccati_fused.k3_fits(wide.engine.op) or not parallel.fused_supported(wide):
+        raise RuntimeError("the (64, 32) Riccati controller is expected past K3, on K3W")
+    long = lambda N, **kw: proceed_controller(
+        qtp.linearized_discrete_system(), "model_predictive_control", N, 5.0, [0.65] * 4,
+        [1.2] * 2, riccati_config=RiccatiConfig(max_iter=1000, parallel_sweeps=True),
+        device=dev, **kw)
+    h500 = long(H_SWEEPS, engine="riccati")  # what engine="auto" designs at h500
+    h50_state = long(50, engine="riccati", mpc_state_constraint=True).engine.op
+    h50_ball = long(50, engine="riccati", mpc_terminal_ingredient="contractive").engine.op
+    h24 = long(24, engine="riccati").engine.op
+    wide_op = wide.engine.op
+    w40 = wide_operator(40, 20, 10, dev, 21)
+    # K3's widest tier's cell (controllers_phase), for K3W beside K3 there
+    w32_op = proceed_controller(
+        big.random_stable_system(32, 16, seed=0), "model_predictive_control", 30, 1.0,
+        np.zeros(32, np.float32), np.zeros(16, np.float32), mpc_Q=10.0, mpc_R=0.1,
+        engine="riccati", device=dev).engine.op
+    lap("design")
+
+    # each kernel against its plain version at the phase's shapes
+    seq = [compare_k3w(wide_op, B_H500, 80, 25, False, "(64, 32) h30", plain_reps=1),
+           compare_k3w(wide_op, 1, 81, 25, False, "(64, 32) h30, one lane"),
+           compare_k3w(w40, 77, 82, 25, False, "(40, 20) h10 state box"),
+           compare_k3w(w40, 77, 83, 25, False, "(40, 20) h10 state box, device scratch",
+                       route="device"),
+           compare_k3w(w32_op, B_WIDE, 79, 25, False, "(32, 16) h30, K3's widest tier")]
+    dbl = [compare_k3w(h500.engine.op, B_H500, 84, 25, True, "QTP h500", plain_reps=2),
+           compare_k3w(h500.engine.op, 1, 85, 25, True, "QTP h500, one lane", plain_reps=2),
+           compare_k3w(h50_state, B_H500, 86, 25, True, "QTP h50 state box", plain_reps=2),
+           compare_k3w(h50_ball, B_H500, 87, 25, True, "QTP h50 contractive ball", plain_reps=2),
+           compare_k3w(h24, 77, 88, 25, True, "QTP h24", plain_reps=2),
+           compare_k3w(h50_state, 77, 89, 25, True, "QTP h50 state box, device scratch",
+                       plain_reps=2, route="device")]
+    rec_w = [compare_wide_recurrences(wide_op, B, 90 + i) for i, B in enumerate((B_H500, 1))]
+    rollout_recs = [r for r, _ in rec_w]
+    cert_recs = [c for _, c in rec_w]
+    lap("kernels")
+
+    # riccati-wide-nx64-h30-B1024: the fused driver, then the per-lane engine
+    x_w = torch.from_numpy(wide64_x0s(B_H500)).to(dev)
+    wide_counts, wide_sols = {}, {}
+    for path, solve in (("solve_batch_auto", parallel.solve_batch_auto),
+                        ("solve_batch", parallel.solve_batch)):
+        admm_fused.reset_counts()
+        fn = lambda solve=solve: solve(wide, x_w)
+        (sol, _, _, d), lat = timed(fn, REPS_SWEEPS)
+        counts = {k: admm_fused.LAUNCHES[k] for k in ("K3W", "rollout-wide", "certificate-wide")}
+        others = {k: v for k, v in admm_fused.LAUNCHES.items() if k not in counts and v}
+        plain = {k: v for k, v in admm_fused.PLAIN_CALLS.items() if v}
+        check_solution(sol, B_H500, 30, "riccati-wide-nx64-h30-B1024", nx=64, nu=32)
+        p50, p99 = percentiles_ms(lat)
+        rec = dict(cell="riccati-wide-nx64-h30-B1024", path=path, B=B_H500,
+                   converged_fraction=int(d.n_converged) / B_H500,
+                   mean_iterations=float(d.mean_iterations), max_iterations=int(d.max_iterations),
+                   batch_p50_ms=p50, batch_p99_ms=p99, solves_per_s=B_H500 / float(np.median(lat)),
+                   launches=counts, k3w_launches_per_solve=counts["K3W"] / (REPS_SWEEPS + 1),
+                   other_launches=others, plain_calls=plain)
+        rec.update(profile(fn, 1))
+        log(phase="riccati_sweeps", **rec)
+        if min(counts.values()) <= 0 or others or plain:
+            raise RuntimeError(f"the wide Riccati path did not run on K3W alone: {rec}")
+        if rec["converged_fraction"] < CONV_OK:
+            raise RuntimeError(f"the wide Riccati cell converged too little: {rec}")
+        wide_counts[path], wide_sols[path] = counts, sol
+    # 10 closed-loop steps at B = 1 on the per-lane engine
+    admm_fused.reset_counts()
+    plant = big.random_stable_system(64, 32, seed=0).to(dev)
+    ck, xk, st, step_lat = wide, x_w[0], [], []
+    for _ in range(WIDE_STEPS):
+        t0 = time.perf_counter()
+        ck, s1 = runtime.step(ck, xk)
+        torch.cuda.synchronize()
+        step_lat.append(time.perf_counter() - t0)
+        st.append(int(s1.status))
+        xk = plant.step(xk, s1.u[:, 0])
+    step_counts = {k: admm_fused.LAUNCHES[k] for k in ("K3W", "rollout-wide", "certificate-wide")}
+    sp50, sp99 = percentiles_ms(np.asarray(step_lat))
+    log(phase="riccati_sweeps", cell="riccati-wide-nx64-h30-B1024", path="step", steps=WIDE_STEPS,
+        statuses=st, step_p50_ms=sp50, step_p99_ms=sp99, launches=step_counts,
+        k3_launches=admm_fused.LAUNCHES["K3"], plain_calls=sum(admm_fused.PLAIN_CALLS.values()),
+        x_end_inf_norm=float(xk.abs().max()))
+    if (min(step_counts.values()) <= 0 or admm_fused.LAUNCHES["K3"]
+            or any(admm_fused.PLAIN_CALLS.values()) or any(s != 0 for s in st)):
+        raise RuntimeError("the wide closed loop did not converge on K3W alone")
+    lap("wide cell")
+    # the card against the port's CPU solve of the first 64 lanes (the
+    # JAX package on the CPU converges all 64 at this config, PERF.md)
+    wide_cpu = wide_design("cpu")
+    x_cpu = x_w[:B_SWEEPS_CPU].cpu()
+    for path, solve in (("solve_batch_auto", parallel.solve_batch_auto),
+                        ("solve_batch", parallel.solve_batch)):
+        s_cpu, _, _, _ = solve(wide_cpu, x_cpu)
+        s_card = wide_sols[path]
+        st_card = s_card.status[:B_SWEEPS_CPU].cpu()
+        du = float((s_card.u[:B_SWEEPS_CPU].cpu() - s_cpu.u).abs().max())
+        rec = dict(engine=f"riccati K3W ({path})", lanes=B_SWEEPS_CPU,
+                   converged_card=int((st_card == 0).sum()),
+                   converged_cpu=int((s_cpu.status == 0).sum()),
+                   statuses_equal=bool(torch.equal(st_card, s_cpu.status)), max_abs_u_diff=du,
+                   iterations_equal_fraction=float(
+                       (s_card.iterations[:B_SWEEPS_CPU].cpu() == s_cpu.iterations).float().mean()))
+        log(phase="card_vs_cpu", **rec)
+        if not rec["statuses_equal"] or du > NL_U_OK:
+            raise RuntimeError(f"K3W on the card disagrees with the CPU: {rec}")
+    lap("wide card_vs_cpu")
+
+    # riccati-h500-B1024-doubling: the per-lane engine, doubling against K3
+    x_h = torch.from_numpy(suite6_x0s(B_H500)).to(dev)
+    cfg = h500.engine.config
+    variants = {
+        True: h500,
+        False: h500.replace(engine=h500.engine.replace(
+            config=dataclasses.replace(cfg, parallel_sweeps=False))),
+    }
+    sols, dbl_counts = {}, {}
+    for ps, c in variants.items():
+        admm_fused.reset_counts()
+        fn = lambda c=c: parallel.solve_batch(c, x_h)
+        (sol, _, _, d), lat = timed(fn, REPS_SWEEPS)
+        counts = {k: v for k, v in admm_fused.LAUNCHES.items() if v}
+        plain = {k: v for k, v in admm_fused.PLAIN_CALLS.items() if v}
+        check_solution(sol, B_H500, H_SWEEPS, "riccati-h500-B1024-doubling")
+        p50, p99 = percentiles_ms(lat)
+        rec = dict(cell="riccati-h500-B1024-doubling", parallel_sweeps=ps, B=B_H500,
+                   converged_fraction=int(d.n_converged) / B_H500,
+                   mean_iterations=float(d.mean_iterations), max_iterations=int(d.max_iterations),
+                   batch_p50_ms=p50, batch_p99_ms=p99, solves_per_s=B_H500 / float(np.median(lat)),
+                   launches=counts, plain_calls=plain,
+                   chunk_launches_per_solve=counts.get("K3W-doubling" if ps else "K3", 0)
+                   / (REPS_SWEEPS + 1))
+        rec.update(profile(fn, 1))
+        log(phase="riccati_sweeps", **rec)
+        chunk_key, other_key = ("K3W-doubling", "K3") if ps else ("K3", "K3W-doubling")
+        if counts.get(chunk_key, 0) <= 0 or counts.get(other_key, 0) or plain:
+            raise RuntimeError(f"the h500 per-lane path ran the wrong chunk: {rec}")
+        if rec["converged_fraction"] < CONV_OK:
+            raise RuntimeError(f"h500 convergence too low: {rec}")
+        sols[ps], dbl_counts[ps] = sol, counts
+    same = float((sols[True].status == sols[False].status).float().mean())
+    both = (sols[True].status == 0) & (sols[False].status == 0)
+    du = float((sols[True].u - sols[False].u).abs()[both].max())
+    log(phase="riccati_sweeps", cell="riccati-h500-B1024-doubling", statuses_equal_fraction=same,
+        max_abs_u_diff_where_both_converged=du,
+        iterations_equal_fraction=float((sols[True].iterations == sols[False].iterations)
+                                        .float().mean()))
+    if same < CONV_OK or du > U_OK:
+        raise RuntimeError(f"doubling and sequential sweeps disagree at h500: {same}, {du}")
+    lap("h500 doubling cell")
+
+    # riccati-h500-step-doubling: 20 steps at B = 1, doubling against K3
+    for ps, c in variants.items():
+        admm_fused.reset_counts()
+        ck, xk, st, step_lat = c, torch.full((4,), 0.6, device=dev), [], []
+        for _ in range(H500_STEPS):
+            t0 = time.perf_counter()
+            ck, s1 = runtime.step(ck, xk)
+            torch.cuda.synchronize()
+            step_lat.append(time.perf_counter() - t0)
+            st.append(int(s1.status))
+            xk = qtp.qtp_discrete_step(xk, s1.u[:, 0])
+        sp50, sp99 = percentiles_ms(np.asarray(step_lat))
+        counts = {k: v for k, v in admm_fused.LAUNCHES.items() if v}
+        rec = dict(cell="riccati-h500-step-doubling", parallel_sweeps=ps, steps=H500_STEPS,
+                   converged_steps=sum(s == 0 for s in st), step_p50_ms=sp50, step_p99_ms=sp99,
+                   p99_share_of_sample_time=sp99 / 5000.0, launches=counts,
+                   plain_calls=sum(admm_fused.PLAIN_CALLS.values()), x_end=xk.cpu().tolist())
+        log(phase="riccati_sweeps", **rec)
+        chunk_key = "K3W-doubling" if ps else "K3"
+        if counts.get(chunk_key, 0) <= 0 or rec["plain_calls"] or not bool(torch.isfinite(xk).all()):
+            raise RuntimeError(f"the h500 step loop did not run on its chunk: {rec}")
+        if ps:
+            dbl_counts["step"] = counts
+    lap("h500 step cell")
+    log(phase="riccati_sweeps_seconds", **seconds)
+    launches = {
+        "K3W": sum(c["K3W"] for c in wide_counts.values()) + step_counts["K3W"],
+        "K3W-doubling": dbl_counts[True]["K3W-doubling"] + dbl_counts["step"]["K3W-doubling"],
+        "rollout-wide": sum(c["rollout-wide"] for c in wide_counts.values())
+        + step_counts["rollout-wide"],
+        "certificate-wide": sum(c["certificate-wide"] for c in wide_counts.values())
+        + step_counts["certificate-wide"],
+    }
+    return seq, dbl, rollout_recs, cert_recs, launches
+
+
 def general_phase(dev, plant, ctrl, ctrl_def, ctrl_h500, suite_cfg, x0s, x_h500, x_suite):
     """The general ADMM engine, the per-lane Riccati engine and the runtime
     on the card, counted from zero by the caller:
@@ -1909,6 +2274,10 @@ def main():
     rollout_recs += rollout_wide
     cert_recs += cert_wide
 
+    # 4h. the Riccati sweeps: K3W past (32, 16) and under parallel_sweeps,
+    # with the wide rollout and certificate, counted from zero path by path
+    k3w_seq, k3w_dbl, rollout_w, cert_w, k3w_counts = riccati_sweeps_phase(dev)
+
     # where the time goes in each cell (after the counts: these launches
     # are not the paths' runs)
     for cell, fn, reps in (
@@ -1979,6 +2348,17 @@ def main():
                           dense_counts["K5"], k5_shapes),
              smem_floor_ms=k5_shapes[0]["smem_floor_ms"],
              routes={"shared": "admm_perr_chunk", "stream": "admm_perr_stream_chunk"}),
+        # the per-lane engine's XLA sweeps (no pallas_call there): K3W
+        # past (32, 16), its doubling form under parallel_sweeps, and the
+        # wide recurrences
+        kernel_entry("riccati_wide_chunk (K3W)", "riccati_wide.cu", f"{TPU_RICCATI_XLA}:377",
+                     k3w_counts["K3W"], k3w_seq),
+        kernel_entry("riccati_wide_chunk (K3W-doubling)", "riccati_wide.cu",
+                     f"{TPU_RICCATI_XLA}:444", k3w_counts["K3W-doubling"], k3w_dbl),
+        kernel_entry("riccati_wide_rollout", "riccati_wide.cu", f"{TPU_RICCATI_XLA}:562",
+                     k3w_counts["rollout-wide"], rollout_w),
+        kernel_entry("riccati_wide_certificate", "riccati_wide.cu", f"{TPU_RICCATI_XLA}:515",
+                     k3w_counts["certificate-wide"], cert_w),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

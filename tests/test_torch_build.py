@@ -52,6 +52,49 @@ def _c_params(entry):
     raise AssertionError(f"no C entry {entry}")
 
 
+def test_k3w_entries_take_the_wrappers_arguments():
+    """riccati_wide_chunk's parameters are the ones _launch_k3w passes, in
+    its order: the factor stacks, the plant, the four doubling-level
+    arrays, the boxes and the lane state, the outputs and the scratch, then
+    the shape, the flags and k3w_plan's layout; the wide rollout and
+    certificate take K3's recurrences' tensors and their block's threads."""
+    params = _c_params("riccati_wide_chunk")
+    sig = _build.SIGNATURES["riccati_wide_chunk"]
+    assert params[5:9] == ["bwdL", "bwdF", "fwdL", "fwdF"]
+    assert params[29] == "scratch"
+    assert [p for p, kind in zip(params, sig) if kind == "i"] == [
+        "N", "nx", "nu", "B", "R", "L", "chunk", "split_interior", "split_terminal",
+        "terminal_ball", "doubling", "lanes", "lane_threads", "lane_floats", "smem_bytes"]
+    for entry, k3_entry in (("riccati_wide_rollout", "riccati_rollout"),
+                            ("riccati_wide_certificate", "riccati_certificate")):
+        wide, k3 = _c_params(entry), _c_params(k3_entry)
+        n_ptr = _build.SIGNATURES[k3_entry].count("p") - 1
+        assert wide[:n_ptr] == k3[:n_ptr] and wide[-2:] == ["threads", "stream"]
+
+
+def test_k3w_lane_floats_match_the_source():
+    """k3w_lane_floats is csrc/riccati_wide.cu's wide_lane_floats: the same
+    terms, read from the source, at several shapes and both forms."""
+    import dataclasses
+
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati, riccati_fused
+
+    text = open(os.path.join(_build.CSRC_DIR, "riccati_wide.cu")).read()
+    body = text[text.index("wide_lane_floats(int N"):]
+    body = body[:body.index("}")]
+    assert "size_t f = 2 * n * u + 2 * static_cast<size_t>(xrows) * x + 2 * x;" in body
+    assert "f += doubling ? 2 * n * u + 2 * n * x : 2 * n * u + n * x + 3 * x + 3 * u;" in body
+    op0 = riccati.build_riccati_operator(
+        [[0.9]], [[1.0]], [[1.0]], [[1.0]], [[1.0]], 3, [-1.0], [1.0], [-1.0], [1.0], True)
+    for N, nx, nu, si in ((1, 1, 1, True), (30, 64, 32, False), (500, 4, 2, True)):
+        op = dataclasses.replace(op0, N=N, nx=nx, nu=nu, split_interior=si)
+        xrows = N if si else 1
+        for d in (0, 1):
+            f = 2 * N * nu + 2 * xrows * nx + 2 * nx
+            f += 2 * N * nu + 2 * N * nx if d else 2 * N * nu + N * nx + 3 * nx + 3 * nu
+            assert riccati_fused.k3w_lane_floats(op, bool(d)) == (f + 3) // 4 * 4
+
+
 def test_k2_entry_takes_the_plan():
     """admm_mixed_chunk's int parameters are the ones the wrapper passes,
     in its order (admm_fused.K2_INTS: the shape, then k2_plan's layout)."""

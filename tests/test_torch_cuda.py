@@ -1,4 +1,4 @@
-"""K1, K2, K3, K4 and K5 on the card: each CUDA kernel against its plain
+"""K1, K2, K3, K3W, K4 and K5 on the card: each CUDA kernel against its plain
 PyTorch version.
 
 Marked ``cuda``; each test decides in a fixture whether a card is present
@@ -863,3 +863,148 @@ def test_wide_riccati_plant_on_k3(card, B):
     e0T = (x0.to(card) - ctrl.tuning.references.x[:, 0]).T.contiguous()
     U = torch.from_numpy((0.05 * rng.standard_normal((op.N, 16, B))).astype(np.float32)).to(card)
     assert torch.equal(riccati_fused.rollout(op, e0T, U), riccati.rollout_warm(op, e0T, U))
+
+
+# ------------------------------- K3W: plants of any width, the doubling sweeps
+
+
+def _assert_k3w_equals_plain(args, doubling, route=None):
+    """One K3W launch (sequential or doubling, on ``route`` or as
+    k3w_plan lays it out) against its plain version: equal to the last
+    bit."""
+    key = "K3W-doubling" if doubling else "K3W"
+    launches, plain = admm_fused.LAUNCHES[key], admm_fused.PLAIN_CALLS[key]
+    out_k = riccati_fused._launch_k3w(*args, doubling=doubling, route=route)
+    torch.cuda.synchronize()
+    assert admm_fused.LAUNCHES[key] == launches + 1
+    assert admm_fused.PLAIN_CALLS[key] == plain
+    plain_fn = (riccati_fused.iterate_chunk_riccati_doubling_plain if doubling
+                else riccati_fused.iterate_chunk_riccati_plain)
+    out_p = plain_fn(*args)
+    for name, a, b in zip(("X", "U", "vX", "vU", "lamX", "lamU"), out_k, out_p):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+
+
+@pytest.mark.parametrize("route", ["shared", "device"])
+@pytest.mark.parametrize("N,nx,nu,B,chunk", [(1, 4, 2, 1, 25), (2, 4, 2, 33, 25), (5, 4, 2, 77, 25),
+                                              (24, 4, 2, 130, 5), (10, 40, 20, 8, 3),
+                                              (6, 64, 32, 3, 2)])
+@pytest.mark.parametrize("branch", list(RICCATI_BRANCHES))
+@pytest.mark.parametrize("doubling", [False, True])
+def test_k3w_matches_plain_version(card, doubling, branch, N, nx, nu, B, chunk, route):
+    """K3W in both forms on every branch, at horizons that are not powers
+    of two and N = 1 (the backward levels run in reversed time), ragged
+    batches and plants past K3's (32, 16), with the lanes' scratch in
+    shared and in device memory."""
+    op = _synthetic_op(N, nx, nu, branch, card, seed=N + nx)
+    _assert_k3w_equals_plain(_op_args(op, card, B, N + B) + (chunk,), doubling, route)
+
+
+def _assert_wide_recurrences_equal_plain(op, dev, B, seed):
+    _, _, e0T, ballr, lamX0, lamU0, lamX1, lamU1 = _op_args(op, dev, B, seed)
+    launches = dict(admm_fused.LAUNCHES)
+    X = riccati_fused.rollout_wide(op, e0T, lamU1)
+    args = (op, lamX1, lamX0, lamU1, lamU0, X, ballr)
+    terms = riccati_fused.certificate_terms_wide(*args)
+    torch.cuda.synchronize()
+    for key in ("rollout-wide", "certificate-wide"):
+        assert admm_fused.LAUNCHES[key] == launches[key] + 1, key
+    assert torch.equal(X.view(torch.int32), riccati.rollout_warm(op, e0T, lamU1).view(torch.int32))
+    want = riccati_fused.certificate_terms_plain(*args)
+    # the adjoint and max|dlam| in the same order; the support's long fp64
+    # sums in another order, each rounded once
+    assert torch.equal(terms[0], want[0]) and torch.equal(terms[2], want[2])
+    finite = torch.isfinite(want[1])
+    assert torch.equal(torch.isfinite(terms[1]), finite)
+    err = (terms[1][finite] - want[1][finite]).abs()
+    assert bool((err <= 1e-6 * want[1][finite].abs().clamp_min(1.0)).all())
+
+
+@pytest.mark.parametrize("branch", list(RICCATI_BRANCHES))
+@pytest.mark.parametrize("N,nx,nu,B", [(1, 3, 1, 1), (12, 40, 20, 77), (30, 64, 32, 33),
+                                        (50, 4, 2, 300)])
+def test_wide_recurrences_match_plain_versions(card, branch, N, nx, nu, B):
+    _assert_wide_recurrences_equal_plain(_synthetic_op(N, nx, nu, branch, card, seed=nx), card,
+                                         B, N + B)
+
+
+def test_k3w_wrappers_reject_wrong_dtypes_and_strides(card):
+    op = _synthetic_op(6, 5, 3, "state", card)
+    args = list(_op_args(op, card, 8, 1)) + [2]
+    bad = list(args)
+    bad[4] = args[4].double()
+    with pytest.raises(ValueError, match="dtype"):
+        riccati_fused.iterate_chunk_riccati_wide(*bad)
+    bad = list(args)
+    bad[5] = torch.empty(tuple(reversed(args[5].shape)), device=card).permute(2, 1, 0)
+    with pytest.raises(ValueError, match="not contiguous"):
+        riccati_fused.iterate_chunk_riccati_doubling(*bad)
+    bad = list(args)
+    bad[1] = args[1].long()
+    with pytest.raises(ValueError, match="dtype"):
+        riccati_fused.iterate_chunk_riccati_doubling(*bad)
+    _, _, e0T, ballr, lamX, lamU, _, _ = args[:8]
+    with pytest.raises(ValueError, match="not contiguous"):
+        riccati_fused.rollout_wide(op, e0T.T.contiguous().T, lamU)
+    with pytest.raises(ValueError, match="dtype"):
+        riccati_fused.certificate_terms_wide(op, lamX, lamX, lamU, lamU, lamX.half(), ballr)
+    with pytest.raises(ValueError, match="runs at least one iteration"):
+        riccati_fused._launch_k3w(*args[:8], 0)
+
+
+def test_per_lane_engine_on_k3w_doubling_equals_its_plain_version(card):
+    """The per-lane engine under parallel_sweeps at h50 with the state box
+    and the rho rule at every check: its K3W-doubling launches against the
+    same engine with the doubling form's plain version on the card, equal
+    solves (the rest of the two runs is the same code)."""
+    ctrl = proceed_controller(
+        qtp.linearized_discrete_system(), "model_predictive_control", 50, 5.0,
+        [0.65] * 4, [1.2] * 2, engine="riccati", mpc_state_constraint=True, device=card,
+        riccati_config=riccati.RiccatiConfig(max_iter=1000, adapt_interval=25,
+                                             parallel_sweeps=True),
+    )
+    op, cfg = ctrl.engine.op, ctrl.engine.config
+    rng = np.random.default_rng(7)
+    x0 = np.clip(0.65 + 0.15 * rng.standard_normal((200, 4)), 0.3, 1.3)
+    e0s = torch.from_numpy((x0 - 0.65).astype(np.float32)).to(card)
+    launches, plain = dict(admm_fused.LAUNCHES), dict(admm_fused.PLAIN_CALLS)
+    out_k = riccati_fused.solve_sparse(op, e0s, config=cfg)
+    torch.cuda.synchronize()
+    assert admm_fused.LAUNCHES["K3W-doubling"] > launches["K3W-doubling"]
+    assert admm_fused.LAUNCHES["K3"] == launches["K3"]
+    assert admm_fused.PLAIN_CALLS == plain
+    out_p = riccati_fused.solve_sparse(op, e0s, config=cfg,
+                                       chunk_fn=riccati_fused.iterate_chunk_riccati_doubling_plain)
+    assert bool((out_k[2] == 0).all())
+    for name, a, b in zip(("X", "U", "status", "iterations"), out_k[:4], out_p[:4]):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("B", [1, 64])
+def test_wider_riccati_plant_on_k3w(card, B):
+    """A (40, 20) Riccati controller: solve_batch_auto and solve_batch
+    launch K3W and the wide recurrences, never K3 or a plain version, and
+    agree with the same solves on the CPU."""
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import big
+
+    design = lambda dev: proceed_controller(
+        big.random_stable_system(40, 20, seed=0), "model_predictive_control", 10, 1.0,
+        np.zeros(40, np.float32), np.zeros(20, np.float32), mpc_Q=10.0, mpc_R=0.1,
+        engine="riccati", riccati_config=riccati.RiccatiConfig(max_iter=1000), device=dev)
+    ctrl, ctrl_cpu = design(card), design("cpu")
+    rng = np.random.default_rng(B)
+    x0 = torch.from_numpy(np.clip(0.4 * rng.standard_normal((B, 40)), -0.95, 0.95).astype(np.float32))
+    for solve in (parallel.solve_batch_auto, parallel.solve_batch):
+        launches, plain = dict(admm_fused.LAUNCHES), dict(admm_fused.PLAIN_CALLS)
+        s_gpu, _, _, d_gpu = solve(ctrl, x0.to(card))
+        torch.cuda.synchronize()
+        for key in ("K3W", "rollout-wide", "certificate-wide"):
+            assert admm_fused.LAUNCHES[key] > launches[key], key
+        for key in ("K3", "rollout", "certificate"):
+            assert admm_fused.LAUNCHES[key] == launches[key], key
+        assert admm_fused.PLAIN_CALLS == plain
+        s_cpu, _, _, d_cpu = solve(ctrl_cpu, x0)
+        assert int(d_gpu.n_converged) == int(d_cpu.n_converged) == B
+        assert torch.equal(s_gpu.status.cpu(), s_cpu.status)
+        assert float((s_gpu.u.cpu() - s_cpu.u).abs().max()) <= 1e-4

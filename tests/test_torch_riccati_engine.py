@@ -207,10 +207,13 @@ def test_solve_batch_runs_the_per_lane_engine():
 
 
 def test_wide_plant_raises():
-    """Plants wider than K3's widest register tier (32, 16) have no
-    per-lane engine: a ValueError, on every device."""
+    """Plants wider than K3's widest register tier (32, 16): K3's own plan
+    raises ValueError, and the per-lane engine routes them to K3W
+    (``tests/test_torch_riccati_wider.py`` solves one)."""
     _, tc = _pair(5, dict(max_iter=100))
     op = tc.engine.op
     wide = op.replace(nx=riccati_fused.MAX_NX + 1)
     with pytest.raises(ValueError, match="nx <="):
-        riccati_fused.solve_sparse(wide, torch.zeros((2, op.nx)))
+        riccati_fused.k3_plan(wide, 2)
+    chunk = riccati_fused.riccati_chunk_fn(wide, tc.engine.config, "per-lane")
+    assert chunk is riccati_fused.iterate_chunk_riccati_wide

@@ -327,7 +327,8 @@ def test_k3_fits_and_wrapper_guards(branch_ops):
     assert riccati_fused.k3_fits(dataclasses.replace(op, nx=32, nu=16))
     wide = dataclasses.replace(op, nx=riccati_fused.MAX_NX + 1)
     assert not riccati_fused.k3_fits(wide)
-    assert not tpar.fused_supported(tc.replace(engine=tc.engine.replace(op=wide)))
+    # fused past K3 too: K3W takes plants of any width
+    assert tpar.fused_supported(tc.replace(engine=tc.engine.replace(op=wide)))
     with pytest.raises(ValueError, match="runs on CUDA"):
         riccati_fused.iterate_chunk_riccati(
             op, torch.zeros(1, dtype=torch.int32, device="meta"), *([None] * 6), 25
