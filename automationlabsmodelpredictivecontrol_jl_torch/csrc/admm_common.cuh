@@ -1,8 +1,25 @@
 // What K1 (admm_diag.cu), K2 (admm_mixed.cu), K5 and K4 (admm_perr.cu) share:
-// the layout of the operators and lane buffers in shared memory, and the
-// fp64 matrix-vector product that reads them. Each kernel stages its operators itself: K2's
+// the layout of the operators and lane buffers in shared memory, the
+// precisions of their products, and the matrix-vector product that reads
+// them. Each kernel stages its operators itself: K2's
 // loop in the form of K1's ran 2% slower (PERF.md, Findings, K1's
 // redesign).
+//
+// Precisions (AdmmConfig.kernel_precision, the C entries' `mode`; the JAX
+// package's admm_pallas._make_dot / _make_opdot), as a template parameter
+// MODE of every kernel, so that "highest" compiles apart from the others:
+// - kHighest: an entry is the fp64 value of an fp32 operand; each product
+//   sums exact fp32 products in fp64 in index order, rounded once.
+// - kBf16x3: an entry is the pair (hi, lo) of bf16 values held in fp32,
+//   hi = bf16(a), lo = bf16(a - hi), rounded to nearest even; three
+//   passes hi.hi, lo.hi and hi.lo (lo.lo left out, as in JAX), each an
+//   fp32 sum in index order, combined hh + (lh + hl).
+// - kDefault: an entry is (bf16(a), 0); one pass hi.hi, an fp32 sum.
+// A bf16 x bf16 product is exact in fp32, so an fp32 fma rounds a pass's
+// sum as an add does: ops/admm_fused.dot_bf16, which sums in the same
+// order, equals these bit for bit. Every precision's entry takes 8 bytes,
+// so the layouts below, the plans and their bytes are the same in each:
+// the pair is staged once per launch, and a multiply-add converts nothing.
 //
 // - Operators: the R rho copies of K^-1 (and of K), rows at a stride ld
 //   (row_stride), copies at a stride sk = (n ld) | 2, odd in 16-byte
@@ -16,6 +33,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace mpc_admm {
@@ -38,36 +56,113 @@ __device__ __forceinline__ int slot(int i, int L, int b) {
   return (((i >> 1) * L + b) << 1) | (i & 1);
 }
 
-// out[k] = sum_j M[off[k] + j] v[j] over j < len, in index order: fp64 sums
-// of exact fp32 products, rounded once. v is the lane's column of a paired
-// buffer (rows j, j+1 at v + (j / 2) * pair_stride); both are read two
-// entries at a time.
-template <int RPT>
+constexpr int kHighest = 0, kBf16x3 = 1, kDefault = 2;
+
+// bf16(v), rounded to nearest even, as fp32 (exactly)
+__device__ __forceinline__ float bf16_rn(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Prec<MODE>: an operand's 8-byte entry (entry), its loads and stores at
+// an 8-byte slot of the fp64-typed buffers (load, load2: two neighbouring
+// slots, one 16-byte load; store), a product's sum (Acc: zero, mac) and
+// its fp32 result.
+template <int MODE>
+struct Prec;
+
+template <>
+struct Prec<kHighest> {
+  using Entry = double;
+  using Acc = double;
+  static __device__ __forceinline__ Entry entry(float v) { return v; }
+  static __device__ __forceinline__ Entry load(const double* p) { return *p; }
+  static __device__ __forceinline__ void load2(const double* p, Entry& e0, Entry& e1) {
+    const double2 d = mpc_admm::load2(p);
+    e0 = d.x;
+    e1 = d.y;
+  }
+  static __device__ __forceinline__ void store(double* p, Entry e) { *p = e; }
+  static __device__ __forceinline__ void zero(Acc& a) { a = 0.0; }
+  static __device__ __forceinline__ void mac(Acc& a, Entry m, Entry v) { a = fma(m, v, a); }
+  static __device__ __forceinline__ float result(const Acc& a) { return static_cast<float>(a); }
+};
+
+// the bf16 precisions' common part: (hi, lo) pairs in fp32
+struct PairEntries {
+  using Entry = float2;
+  static __device__ __forceinline__ Entry load(const double* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  static __device__ __forceinline__ void load2(const double* p, Entry& e0, Entry& e1) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    e0 = make_float2(f.x, f.y);
+    e1 = make_float2(f.z, f.w);
+  }
+  static __device__ __forceinline__ void store(double* p, Entry e) {
+    *reinterpret_cast<float2*>(p) = e;
+  }
+};
+
+template <>
+struct Prec<kBf16x3> : PairEntries {
+  struct Acc {
+    float hh, lh, hl;
+  };
+  static __device__ __forceinline__ Entry entry(float v) {
+    const float hi = bf16_rn(v);
+    return make_float2(hi, bf16_rn(v - hi));
+  }
+  static __device__ __forceinline__ void zero(Acc& a) { a.hh = a.lh = a.hl = 0.0f; }
+  static __device__ __forceinline__ void mac(Acc& a, Entry m, Entry v) {
+    a.hh = fmaf(m.x, v.x, a.hh);
+    a.lh = fmaf(m.y, v.x, a.lh);
+    a.hl = fmaf(m.x, v.y, a.hl);
+  }
+  static __device__ __forceinline__ float result(const Acc& a) { return a.hh + (a.lh + a.hl); }
+};
+
+template <>
+struct Prec<kDefault> : PairEntries {
+  using Acc = float;
+  static __device__ __forceinline__ Entry entry(float v) { return make_float2(bf16_rn(v), 0.0f); }
+  static __device__ __forceinline__ void zero(Acc& a) { a = 0.0f; }
+  static __device__ __forceinline__ void mac(Acc& a, Entry m, Entry v) { a = fmaf(m.x, v.x, a); }
+  static __device__ __forceinline__ float result(const Acc& a) { return a; }
+};
+
+// out[k] = sum_j M[off[k] + j] v[j] over j < len, in index order, at
+// precision MODE ("highest": fp64 sums of exact fp32 products, rounded
+// once). v is the lane's column of a paired buffer (rows j, j+1 at
+// v + (j / 2) * pair_stride); both are read two entries at a time.
+template <int MODE, int RPT>
 __device__ __forceinline__ void matvec(const double* __restrict__ M,
                                        const double* __restrict__ v,
                                        const int (&off)[RPT], int len,
                                        int pair_stride, float (&out)[RPT]) {
-  double acc[RPT];
+  using P = Prec<MODE>;
+  typename P::Acc acc[RPT];
 #pragma unroll
-  for (int k = 0; k < RPT; ++k) acc[k] = 0.0;
+  for (int k = 0; k < RPT; ++k) P::zero(acc[k]);
   const int pairs = len >> 1;
 #pragma unroll 2
   for (int p = 0; p < pairs; ++p) {
-    const double2 vj = load2(v + p * pair_stride);
+    typename P::Entry v0, v1;
+    P::load2(v + p * pair_stride, v0, v1);
 #pragma unroll
     for (int k = 0; k < RPT; ++k) {
-      const double2 a = load2(M + off[k] + 2 * p);
-      acc[k] = fma(a.x, vj.x, acc[k]);
-      acc[k] = fma(a.y, vj.y, acc[k]);
+      typename P::Entry a0, a1;
+      P::load2(M + off[k] + 2 * p, a0, a1);
+      P::mac(acc[k], a0, v0);
+      P::mac(acc[k], a1, v1);
     }
   }
   if (len & 1) {
-    const double vj = v[pairs * pair_stride];
+    const typename P::Entry vj = P::load(v + pairs * pair_stride);
 #pragma unroll
-    for (int k = 0; k < RPT; ++k) acc[k] = fma(M[off[k] + len - 1], vj, acc[k]);
+    for (int k = 0; k < RPT; ++k) P::mac(acc[k], P::load(M + off[k] + len - 1), vj);
   }
 #pragma unroll
-  for (int k = 0; k < RPT; ++k) out[k] = static_cast<float>(acc[k]);
+  for (int k = 0; k < RPT; ++k) out[k] = P::result(acc[k]);
 }
 
 // The row stride (in doubles) of an operator read two entries at a time by

@@ -37,15 +37,18 @@
 //   two lane buffers, so a buffer is written again only after the barrier
 //   that follows every read of it.
 //
-// Precision: the state is fp32, but every matrix-vector product is
-// accumulated in fp64 (exact fp32 products, fp64 sums in index order) and
-// rounded once to fp32. Accumulated in fp32, the K-solve's roundoff leaves
+// Precision: the state is fp32, and at "highest" every matrix-vector
+// product is accumulated in fp64 (exact fp32 products, fp64 sums in index
+// order) and rounded once to fp32. Accumulated in fp32, the K-solve's roundoff leaves
 // 8.1% of the h20 main-path lanes (16384, the benchmark's initial states)
 // above the 1e-6 certificate after tier 1's 75 iterations, more than the
 // 512-lane tier-2 bucket holds; accumulated in fp64, 2.5% (counted with
-// the plain version on the CPU). The file is built with --fmad=false so
-// that the elementwise updates round after every operation, as PyTorch's
-// do.
+// the plain version on the CPU). At "bf16x3" and "default" (the template
+// parameter MODE, admm_common.cuh) the operators are staged as bf16 pairs
+// and the lane vectors split when they are written to the lane buffers;
+// the layout and the plans are the same. The file is built with
+// --fmad=false so that the elementwise updates round after every
+// operation, as PyTorch's do.
 //
 // Layout:
 // - Lane-last state in device memory, (n, B) row-major: neighbouring
@@ -76,6 +79,7 @@ namespace {
 
 using mpc_admm::clip;
 using mpc_admm::matvec;
+using mpc_admm::Prec;
 using mpc_admm::slot;
 
 struct Layout {
@@ -83,10 +87,11 @@ struct Layout {
 };
 
 // Copy the R stacked (n, n) fp32 operators K^-1 (and K, when kmat is
-// given) into shared memory as fp64, rows at ld and copies at sk, with all
-// `nthreads` threads of the block, both stacks in one pass. Widening at use
-// would cost a conversion per multiply-add, at a quarter of the fp64 FMA
-// rate.
+// given) into shared memory as MODE's entries (fp64 at "highest"), rows at
+// ld and copies at sk, with all `nthreads` threads of the block, both
+// stacks in one pass. Widening at use would cost a conversion per
+// multiply-add, at a quarter of the fp64 FMA rate.
+template <int MODE>
 __device__ __forceinline__ void stage_operators(double* __restrict__ ki_sh,
                                                 double* __restrict__ k_sh,
                                                 const float* __restrict__ kinv,
@@ -98,16 +103,16 @@ __device__ __forceinline__ void stage_operators(double* __restrict__ ki_sh,
     const int rr = i / nn;
     const int row = (i - rr * nn) / n;
     const int dst = rr * sk + row * ld + (i - rr * nn - row * n);
-    ki_sh[dst] = kinv[i];
-    if (kmat != nullptr) k_sh[dst] = kmat[i];
+    Prec<MODE>::store(ki_sh + dst, Prec<MODE>::entry(kinv[i]));
+    if (kmat != nullptr) Prec<MODE>::store(k_sh + dst, Prec<MODE>::entry(kmat[i]));
   }
 }
 
-// out = M v for the thread's rows t + k G: v into the buffer at `cur`, a
-// barrier, the product; the next product writes the other buffer, which
-// nobody reads after this barrier. The slots are computed here, not held
-// in registers across the chunk.
-template <int RPT>
+// out = M v for the thread's rows t + k G: v into the buffer at `cur` (as
+// MODE's entries), a barrier, the product; the next product writes the
+// other buffer, which nobody reads after this barrier. The slots are
+// computed here, not held in registers across the chunk.
+template <int MODE, int RPT>
 __device__ __forceinline__ void product(const double* __restrict__ M,
                                         double* __restrict__ bufs, int& cur,
                                         int other, const int (&koff)[RPT],
@@ -116,17 +121,18 @@ __device__ __forceinline__ void product(const double* __restrict__ M,
                                         float (&out)[RPT]) {
   double* w = bufs + cur;
 #pragma unroll
-  for (int k = 0; k < RPT; ++k) w[slot(t + k * G, L, b)] = v[k];
+  for (int k = 0; k < RPT; ++k)
+    Prec<MODE>::store(w + slot(t + k * G, L, b), Prec<MODE>::entry(v[k]));
   __syncthreads();
-  matvec<RPT>(M, w + 2 * b, koff, n, 2 * L, out);
+  matvec<MODE, RPT>(M, w + 2 * b, koff, n, 2 * L, out);
   cur = other - cur;
 }
 
 // REFINE: refine_steps > 0 (without it the right-hand side dies after the
 // first product, and tier 1's rows fit fewer registers); THREADS: the most
 // threads a block may have; REGS: the registers a thread is held to, so
-// that 65536 / (THREADS REGS) such blocks fit an SM.
-template <int RPT, bool REFINE, int THREADS, int REGS>
+// that 65536 / (THREADS REGS) such blocks fit an SM; MODE: the precision.
+template <int RPT, bool REFINE, int THREADS, int REGS, int MODE>
 __global__ void __launch_bounds__(THREADS, 65536 / (THREADS * REGS))
 admm_diag_chunk_kernel(const float* __restrict__ kinv,
                        const float* __restrict__ kmat,
@@ -161,8 +167,8 @@ admm_diag_chunk_kernel(const float* __restrict__ kinv,
   const bool live = lane < B;
   const int lc = live ? lane : B - 1;  // lanes past B run on lane B-1's data
 
-  stage_operators(ki_sh, k_sh, kinv, REFINE ? kmat : nullptr, R, n, lay.ld, sk,
-                            tid, nthreads);
+  stage_operators<MODE>(ki_sh, k_sh, kinv, REFINE ? kmat : nullptr, R, n, lay.ld, sk,
+                        tid, nthreads);
 
   const int r = idx[lc];
   const float* rho_r = rho_vecs + r * n;
@@ -199,13 +205,13 @@ admm_diag_chunk_kernel(const float* __restrict__ kinv,
 #pragma unroll
     for (int k = 0; k < RPT; ++k)
       rhs[k] = sigma * x[k] - qv[k] - d[k] * y[k] + d[k] * (rho[k] * s[k]);
-    product<RPT>(ki_sh, bufs, cur, other, koff, rhs, n, t, G, L, b, xt);
+    product<MODE, RPT>(ki_sh, bufs, cur, other, koff, rhs, n, t, G, L, b, xt);
     for (int step = 0; REFINE && step < refine_steps; ++step) {
       float tmp[RPT], res[RPT];
-      product<RPT>(k_sh, bufs, cur, other, koff, xt, n, t, G, L, b, tmp);
+      product<MODE, RPT>(k_sh, bufs, cur, other, koff, xt, n, t, G, L, b, tmp);
 #pragma unroll
       for (int k = 0; k < RPT; ++k) res[k] = rhs[k] - tmp[k];
-      product<RPT>(ki_sh, bufs, cur, other, koff, res, n, t, G, L, b, tmp);
+      product<MODE, RPT>(ki_sh, bufs, cur, other, koff, res, n, t, G, L, b, tmp);
 #pragma unroll
       for (int k = 0; k < RPT; ++k) xt[k] += tmp[k];
     }
@@ -243,11 +249,11 @@ struct Args {
   float sigma, alpha;
 };
 
-template <int RPT, bool REFINE, int THREADS, int REGS>
+template <int RPT, bool REFINE, int THREADS, int REGS, int MODE>
 cudaError_t launch(const Args& a, dim3 block, const Layout& lay, size_t smem,
                    cudaStream_t stream) {
   if (static_cast<int>(block.x * block.y) > THREADS) return cudaErrorInvalidValue;
-  auto kernel = admm_diag_chunk_kernel<RPT, REFINE, THREADS, REGS>;
+  auto kernel = admm_diag_chunk_kernel<RPT, REFINE, THREADS, REGS, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -261,23 +267,41 @@ cudaError_t launch(const Args& a, dim3 block, const Layout& lay, size_t smem,
 
 // the instantiated rows per thread, each with the most threads its block
 // may have and the registers a thread is held to without and with
-// refinement (none spills; 5 rows without it fit 128, so that two 256-
-// thread blocks share an SM at tier 1); ops/admm_fused.K1_INSTANCES plans
-// only these
+// refinement (none spills at "highest"; 5 rows without it fit 128, so
+// that two 256-thread blocks share an SM at tier 1), the same budgets at
+// every precision; ops/admm_fused.K1_INSTANCES plans only these
 #define MPC_K1_INSTANCES(X)                                                \
   X(1, 512, 64, 64) X(2, 512, 128, 128) X(3, 512, 128, 128)              \
   X(4, 512, 128, 128) X(5, 256, 128, 255) X(6, 256, 255, 255)            \
   X(7, 256, 255, 255) X(8, 256, 255, 255)
 
+// the instantiation of rows per thread `rpt` at precision MODE
+template <int MODE>
+int dispatch(const Args& a, dim3 block, const Layout& lay, size_t smem, cudaStream_t st,
+             int rpt) {
+#define MPC_K1_CASE(N, T, REGS, REGS_REFINE)                                     \
+  case N:                                                                         \
+    return static_cast<int>(                                                      \
+        a.refine_steps > 0                                                        \
+            ? launch<N, true, T, REGS_REFINE, MODE>(a, block, lay, smem, st)      \
+            : launch<N, false, T, REGS, MODE>(a, block, lay, smem, st));
+  switch (rpt) {
+    MPC_K1_INSTANCES(MPC_K1_CASE)
+  }
+#undef MPC_K1_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launch `chunk` iterations on `stream`. All arrays are float32 and
-// contiguous on one device: kinv, kmat (R, n, n) (kmat unused when
-// refine_steps == 0), dvec (n), rho_vecs, rho_invs (R, n), q, l, u, x_in,
-// s_in, y_in, ax_in and the outputs (n, B); idx (B) int32 in [0, R). Takes
-// n <= 128 and n B < 2^31. The layout comes from ops/admm_fused.k1_plan:
+// Launch `chunk` iterations on `stream` at precision `mode` (0 "highest",
+// 1 "bf16x3", 2 "default"; ops/admm_fused.PRECISIONS). All arrays are
+// float32 and contiguous on one device: kinv, kmat (R, n, n) (kmat unused
+// when refine_steps == 0), dvec (n), rho_vecs, rho_invs (R, n), q, l, u,
+// x_in, s_in, y_in, ax_in and the outputs (n, B); idx (B) int32 in [0, R).
+// Takes n <= 128 and n B < 2^31. The layout comes from ops/admm_fused.k1_plan:
 // lanes (4, 8, 16 or 32) and groups per block, rows per thread (rpt), and
 // the dynamic shared memory they take, which must equal what the kernel's
 // layout needs.
@@ -288,8 +312,8 @@ int admm_diag_chunk(const float* kinv, const float* kmat, const float* dvec,
                     const int* idx, const float* x_in, const float* s_in,
                     const float* y_in, const float* ax_in, float* x_out,
                     float* s_out, float* y_out, float* ax_out, int n, int B,
-                    int R, int chunk, int refine_steps, int lanes, int groups,
-                    int rpt, int smem_bytes, float sigma, float alpha,
+                    int R, int chunk, int refine_steps, int mode, int lanes,
+                    int groups, int rpt, int smem_bytes, float sigma, float alpha,
                     void* stream) {
   if (n <= 0 || n > 128 || B <= 0 || R <= 0 || chunk < 0 || refine_steps < 0 ||
       static_cast<long long>(n) * B > INT_MAX ||
@@ -311,16 +335,14 @@ int admm_diag_chunk(const float* kinv, const float* kmat, const float* dvec,
                n, B, R, chunk, refine_steps, sigma, alpha};
   const dim3 block(lanes, groups);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MPC_K1_CASE(N, T, REGS, REGS_REFINE)                              \
-  case N:                                                                  \
-    return static_cast<int>(                                               \
-        refine_steps > 0                                                   \
-            ? launch<N, true, T, REGS_REFINE>(a, block, lay, smem, st)     \
-            : launch<N, false, T, REGS>(a, block, lay, smem, st));
-  switch (rpt) {
-    MPC_K1_INSTANCES(MPC_K1_CASE)
+  switch (mode) {
+    case mpc_admm::kHighest:
+      return dispatch<mpc_admm::kHighest>(a, block, lay, smem, st, rpt);
+    case mpc_admm::kBf16x3:
+      return dispatch<mpc_admm::kBf16x3>(a, block, lay, smem, st, rpt);
+    case mpc_admm::kDefault:
+      return dispatch<mpc_admm::kDefault>(a, block, lay, smem, st, rpt);
   }
-#undef MPC_K1_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -37,11 +37,15 @@
 // - Operator rows and the lane vectors are read two entries at a time
 //   (16-byte loads): half the load instructions.
 //
-// Precision, as in K1 (csrc/admm_diag.cu): the state is fp32, every
-// matrix-vector product (the K-solves and the three A2 products) is
-// accumulated in fp64 from exact fp32 products, in index order, and rounded
-// once to fp32. Built with --fmad=false so the elementwise updates round
-// like PyTorch's.
+// Precision, as in K1 (csrc/admm_diag.cu): the state is fp32; at
+// "highest" every matrix-vector product (the K-solves and the three A2
+// products) is accumulated in fp64 from exact fp32 products, in index
+// order, and rounded once to fp32; at "bf16x3" and "default" (the template
+// parameter MODE, admm_common.cuh) each is that precision's passes over
+// operators staged as bf16 pairs and lane vectors split when they are
+// written to the lane buffers (the tail of rho.s split after its fp32
+// product, as JAX's rs_all), in the same layout. Built with --fmad=false so
+// the elementwise updates round like PyTorch's.
 //
 // Layout:
 // - Lane-last state in device memory: x, q (n, B); s, y, ax, l, u (m, B),
@@ -79,6 +83,7 @@ namespace {
 using mpc_admm::clip;
 using mpc_admm::load2;
 using mpc_admm::matvec;
+using mpc_admm::Prec;
 using mpc_admm::slot;
 
 // The most threads (L x G) a block of an instantiation may have: 512 where
@@ -92,7 +97,7 @@ struct Layout {
   int ld, sk, nslots, tslots;  // row and copy strides, buffer rows
 };
 
-template <int RPT_N, int RPT_T>
+template <int RPT_N, int RPT_T, int MODE>
 __global__ void __launch_bounds__(max_threads(RPT_N, RPT_T), 1)
 admm_mixed_chunk_kernel(const float* __restrict__ kinv,
                         const float* __restrict__ kmat,
@@ -113,6 +118,12 @@ admm_mixed_chunk_kernel(const float* __restrict__ kinv,
                         int n, int m, int B, int R, int chunk,
                         int refine_steps, float sigma, float alpha,
                         Layout lay) {
+  using P = Prec<MODE>;
+  // "highest" is written out in plain fp64 stores and sums: the same
+  // operations through Prec<kHighest> compiled to code 2-4% slower at the
+  // state box's shape on an H100 80GB HBM3 at 700 W (k3_ab.py --kernel
+  // K2; PERF.md, Findings)
+  constexpr bool kHi = MODE == mpc_admm::kHighest;
   extern __shared__ __align__(16) double smem[];
   const int L = blockDim.x;
   const int G = blockDim.y;
@@ -139,12 +150,20 @@ admm_mixed_chunk_kernel(const float* __restrict__ kinv,
     const int rr = i / nn;
     const int row = (i - rr * nn) / n;
     const int dst = rr * sk + row * ld + (i - rr * nn - row * n);
-    ki_sh[dst] = kinv[i];
-    if (refine_steps > 0) k_sh[dst] = kmat[i];
+    if constexpr (kHi) {
+      ki_sh[dst] = kinv[i];
+      if (refine_steps > 0) k_sh[dst] = kmat[i];
+    } else {
+      P::store(ki_sh + dst, P::entry(kinv[i]));
+      if (refine_steps > 0) P::store(k_sh + dst, P::entry(kmat[i]));
+    }
   }
   for (int i = tid; i < ms * n; i += nthreads) {
     const int row = i / n;
-    a2_sh[row * ld + (i - row * n)] = a2[i];
+    if constexpr (kHi)
+      a2_sh[row * ld + (i - row * n)] = a2[i];
+    else
+      P::store(a2_sh + row * ld + (i - row * n), P::entry(a2[i]));
   }
 
   const int r = idx[lc];
@@ -216,12 +235,17 @@ admm_mixed_chunk_kernel(const float* __restrict__ kinv,
     // the tail of y and of rho.s, for both A2' products in one pass
 #pragma unroll
     for (int k = 0; k < RPT_T; ++k) {
-      bt0[stl[k]] = yt[k];
-      bt1[stl[k]] = rhot[k] * st[k];
+      if constexpr (kHi) {
+        bt0[stl[k]] = yt[k];
+        bt1[stl[k]] = rhot[k] * st[k];
+      } else {
+        P::store(bt0 + stl[k], P::entry(yt[k]));
+        P::store(bt1 + stl[k], P::entry(rhot[k] * st[k]));
+      }
     }
     __syncthreads();
     float aty2[RPT_N], ars2[RPT_N];
-    {
+    if constexpr (kHi) {
       double acc_y[RPT_N], acc_r[RPT_N];
 #pragma unroll
       for (int k = 0; k < RPT_N; ++k) acc_y[k] = acc_r[k] = 0.0;
@@ -257,6 +281,46 @@ admm_mixed_chunk_kernel(const float* __restrict__ kinv,
         aty2[k] = static_cast<float>(acc_y[k]);
         ars2[k] = static_cast<float>(acc_r[k]);
       }
+    } else {
+      typename P::Acc acc_y[RPT_N], acc_r[RPT_N];
+#pragma unroll
+      for (int k = 0; k < RPT_N; ++k) {
+        P::zero(acc_y[k]);
+        P::zero(acc_r[k]);
+      }
+      const int pairs = ms >> 1;
+#pragma unroll 2
+      for (int p = 0; p < pairs; ++p) {
+        typename P::Entry vy0, vy1, vr0, vr1;
+        P::load2(bt0_b + p * ps, vy0, vy1);
+        P::load2(bt1_b + p * ps, vr0, vr1);
+        const double* a0 = a2_sh + 2 * p * ld;  // A2 rows 2p and 2p + 1
+#pragma unroll
+        for (int k = 0; k < RPT_N; ++k) {
+          const typename P::Entry c0 = P::load(a0 + acol[k]);
+          const typename P::Entry c1 = P::load(a0 + ld + acol[k]);
+          P::mac(acc_y[k], c0, vy0);
+          P::mac(acc_r[k], c0, vr0);
+          P::mac(acc_y[k], c1, vy1);
+          P::mac(acc_r[k], c1, vr1);
+        }
+      }
+      if (ms & 1) {
+        const typename P::Entry vy = P::load(bt0_b + pairs * ps);
+        const typename P::Entry vr = P::load(bt1_b + pairs * ps);
+        const double* a0 = a2_sh + (ms - 1) * ld;
+#pragma unroll
+        for (int k = 0; k < RPT_N; ++k) {
+          const typename P::Entry c0 = P::load(a0 + acol[k]);
+          P::mac(acc_y[k], c0, vy);
+          P::mac(acc_r[k], c0, vr);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < RPT_N; ++k) {
+        aty2[k] = P::result(acc_y[k]);
+        ars2[k] = P::result(acc_r[k]);
+      }
     }
     float rhs[RPT_N], xt[RPT_N];
 #pragma unroll
@@ -264,28 +328,43 @@ admm_mixed_chunk_kernel(const float* __restrict__ kinv,
       const float aty = d[k] * yb[k] + aty2[k];
       const float w = d[k] * (rhob[k] * sb[k]) + ars2[k];
       rhs[k] = sigma * x[k] - qv[k] - aty + w;
-      bn0[sn[k]] = rhs[k];
+      if constexpr (kHi)
+        bn0[sn[k]] = rhs[k];
+      else
+        P::store(bn0 + sn[k], P::entry(rhs[k]));
     }
     __syncthreads();
-    matvec<RPT_N>(ki_sh, bn0_b, koff, n, ps, xt);
+    matvec<MODE, RPT_N>(ki_sh, bn0_b, koff, n, ps, xt);
     for (int step = 0; step < refine_steps; ++step) {
       float tmp[RPT_N];
 #pragma unroll
-      for (int k = 0; k < RPT_N; ++k) bn1[sn[k]] = xt[k];
+      for (int k = 0; k < RPT_N; ++k)
+        if constexpr (kHi)
+          bn1[sn[k]] = xt[k];
+        else
+          P::store(bn1 + sn[k], P::entry(xt[k]));
       __syncthreads();  // also: every thread is done reading bn0
-      matvec<RPT_N>(k_sh, bn1_b, koff, n, ps, tmp);
+      matvec<MODE, RPT_N>(k_sh, bn1_b, koff, n, ps, tmp);
 #pragma unroll
-      for (int k = 0; k < RPT_N; ++k) bn0[sn[k]] = rhs[k] - tmp[k];
+      for (int k = 0; k < RPT_N; ++k)
+        if constexpr (kHi)
+          bn0[sn[k]] = rhs[k] - tmp[k];
+        else
+          P::store(bn0 + sn[k], P::entry(rhs[k] - tmp[k]));
       __syncthreads();  // also: every thread is done reading bn1
-      matvec<RPT_N>(ki_sh, bn0_b, koff, n, ps, tmp);
+      matvec<MODE, RPT_N>(ki_sh, bn0_b, koff, n, ps, tmp);
 #pragma unroll
       for (int k = 0; k < RPT_N; ++k) xt[k] += tmp[k];
     }
 #pragma unroll
-    for (int k = 0; k < RPT_N; ++k) bn1[sn[k]] = xt[k];
+    for (int k = 0; k < RPT_N; ++k)
+      if constexpr (kHi)
+        bn1[sn[k]] = xt[k];
+      else
+        P::store(bn1 + sn[k], P::entry(xt[k]));
     __syncthreads();  // also: every thread is done reading bn0 and bn1
     float st2[RPT_T];
-    matvec<RPT_T>(a2_sh, bn1_b, aoff, n, ps, st2);  // A2 xt for the tail rows
+    matvec<MODE, RPT_T>(a2_sh, bn1_b, aoff, n, ps, st2);  // A2 xt for the tail rows
 
 #pragma unroll
     for (int k = 0; k < RPT_N; ++k) {
@@ -324,17 +403,17 @@ struct Args {
   float sigma, alpha;
 };
 
-template <int RPT_N, int RPT_T>
+template <int RPT_N, int RPT_T, int MODE>
 cudaError_t launch(const Args& a, dim3 block, const Layout& lay, size_t smem,
                    cudaStream_t stream) {
   if (static_cast<int>(block.x * block.y) > max_threads(RPT_N, RPT_T))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      admm_mixed_chunk_kernel<RPT_N, RPT_T>,
+      admm_mixed_chunk_kernel<RPT_N, RPT_T, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.B + block.x - 1) / block.x);
-  admm_mixed_chunk_kernel<RPT_N, RPT_T><<<grid, block, smem, stream>>>(
+  admm_mixed_chunk_kernel<RPT_N, RPT_T, MODE><<<grid, block, smem, stream>>>(
       a.kinv, a.kmat, a.a2, a.dvec, a.rho_vecs, a.rho_invs, a.q, a.l, a.u,
       a.idx, a.x_in, a.s_in, a.y_in, a.ax_in, a.x_out, a.s_out, a.y_out,
       a.ax_out, a.n, a.m, a.B, a.R, a.chunk, a.refine_steps, a.sigma,
@@ -347,13 +426,30 @@ cudaError_t launch(const Args& a, dim3 block, const Layout& lay, size_t smem,
 #define MPC_K2_RPT_N(X) X(1) X(2) X(3) X(4)
 #define MPC_K2_RPT_T(N, X) X(N, 1) X(N, 2) X(N, 3) X(N, 4) X(N, 5) X(N, 6) X(N, 8)
 
+// the instantiation of rows per thread (rpt_n, rpt_t) at precision MODE
+template <int MODE>
+int dispatch(const Args& a, dim3 block, const Layout& lay, size_t smem, cudaStream_t st,
+             int rpt_n, int rpt_t) {
+#define MPC_K2_CASE(N, T) \
+  case 16 * N + T:        \
+    return static_cast<int>(launch<N, T, MODE>(a, block, lay, smem, st));
+#define MPC_K2_TAILS(N) MPC_K2_RPT_T(N, MPC_K2_CASE)
+  switch (16 * rpt_n + rpt_t) {
+    MPC_K2_RPT_N(MPC_K2_TAILS)
+  }
+#undef MPC_K2_TAILS
+#undef MPC_K2_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launch `chunk` iterations on `stream`. All arrays are float32 and
-// contiguous on one device: kinv, kmat (R, n, n) (kmat unused when
-// refine_steps == 0), a2 (m - n, n), dvec (n), rho_vecs, rho_invs (R, m),
+// Launch `chunk` iterations on `stream` at precision `mode` (0 "highest",
+// 1 "bf16x3", 2 "default"; ops/admm_fused.PRECISIONS). All arrays are
+// float32 and contiguous on one device: kinv, kmat (R, n, n) (kmat unused
+// when refine_steps == 0), a2 (m - n, n), dvec (n), rho_vecs, rho_invs (R, m),
 // q, x_in, x_out (n, B); l, u, s_in, y_in, ax_in, s_out, y_out, ax_out
 // (m, B); idx (B) int32 in [0, R). Takes n <= 128, 1 <= m - n <= 128 and
 // m B < 2^31. The layout comes from ops/admm_fused.k2_plan: lanes (4, 8, 16
@@ -369,7 +465,7 @@ int admm_mixed_chunk(const float* kinv, const float* kmat, const float* a2,
                      const float* s_in, const float* y_in, const float* ax_in,
                      float* x_out, float* s_out, float* y_out, float* ax_out,
                      int n, int m, int B, int R, int chunk, int refine_steps,
-                     int lanes, int groups, int rpt_n, int rpt_t,
+                     int mode, int lanes, int groups, int rpt_n, int rpt_t,
                      int smem_bytes, float sigma, float alpha, void* stream) {
   const int ms = m - n;
   if (n <= 0 || n > 128 || ms < 1 || ms > 128 || B <= 0 || R <= 0 ||
@@ -396,15 +492,14 @@ int admm_mixed_chunk(const float* kinv, const float* kmat, const float* a2,
                n, m, B, R, chunk, refine_steps, sigma, alpha};
   const dim3 block(lanes, groups);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MPC_K2_CASE(N, T) \
-  case 16 * N + T:        \
-    return static_cast<int>(launch<N, T>(a, block, lay, smem, st));
-#define MPC_K2_TAILS(N) MPC_K2_RPT_T(N, MPC_K2_CASE)
-  switch (16 * rpt_n + rpt_t) {
-    MPC_K2_RPT_N(MPC_K2_TAILS)
+  switch (mode) {
+    case mpc_admm::kHighest:
+      return dispatch<mpc_admm::kHighest>(a, block, lay, smem, st, rpt_n, rpt_t);
+    case mpc_admm::kBf16x3:
+      return dispatch<mpc_admm::kBf16x3>(a, block, lay, smem, st, rpt_n, rpt_t);
+    case mpc_admm::kDefault:
+      return dispatch<mpc_admm::kDefault>(a, block, lay, smem, st, rpt_n, rpt_t);
   }
-#undef MPC_K2_TAILS
-#undef MPC_K2_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

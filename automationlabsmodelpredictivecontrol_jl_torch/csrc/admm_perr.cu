@@ -76,12 +76,19 @@
 //   reading the vector once; st stays in registers through the
 //   refinement, and no barrier or A xt pass follows it.
 //
-// Precision, as in K1 and K2: the state is fp32,
+// Precision, as in K1 and K2: the state is fp32; at "highest"
 // every matrix-vector product is accumulated in fp64 from exact fp32
 // products, in index order, and rounded once to fp32; the plain version
 // (admm_fused.iterate_chunk_dense_perr_T_plain, and _packed_T_plain for
-// K4) sums in the same order, so the two agree bit for bit. Built with
-// --fmad=false so the elementwise updates round like PyTorch's.
+// K4) sums in the same order, so the two agree bit for bit. At "bf16x3"
+// and "default" (the template parameter MODE, admm_common.cuh) each
+// product is that precision's passes over the same 8-byte slots: the
+// operators staged (shared route) or handed over (stream route) as bf16
+// pairs, fl(rho a) and, on K4's shared route, A split at use, the lane
+// vectors split when written to the lane buffers; the stream route then
+// keeps s and y in registers, since a buffer's pair no longer holds them
+// exactly. Built with --fmad=false so the elementwise updates round like
+// PyTorch's.
 //
 // Shared memory, fp64 first: K^-1 (and K when refining) transposed, R
 // copies at stride sk, rows at ld; A, m rows at ld (K4: kia transposed, R
@@ -110,8 +117,8 @@
 namespace {
 
 using mpc_admm::clip;
-using mpc_admm::load2;
 using mpc_admm::matvec;
+using mpc_admm::Prec;
 using mpc_admm::slot;
 
 struct Layout {
@@ -127,7 +134,7 @@ inline int rho_stride(int m) {
   return mr;
 }
 
-template <int RPT_N, int RPT_M, bool REFINE, int THREADS, int REGS, bool PACKED>
+template <int RPT_N, int RPT_M, bool REFINE, int THREADS, int REGS, bool PACKED, int MODE>
 __global__ void __launch_bounds__(THREADS, 65536 / (THREADS * REGS))
 admm_perr_chunk_kernel(const float* __restrict__ kinv,
                        const float* __restrict__ kmat,
@@ -148,6 +155,7 @@ admm_perr_chunk_kernel(const float* __restrict__ kinv,
                        int n, int m, int B, int R, int chunk,
                        int refine_steps, float sigma, float alpha,
                        Layout lay) {
+  using P = Prec<MODE>;
   extern __shared__ __align__(16) double smem[];
   const int L = blockDim.x;
   const int G = blockDim.y;
@@ -181,8 +189,8 @@ admm_perr_chunk_kernel(const float* __restrict__ kinv,
     const int e = i - rr * nn;
     const int row = e / n;
     const int dst = rr * sk + (e - row * n) * ld + row;
-    ki_sh[dst] = kinv[i];
-    if (REFINE) k_sh[dst] = kmat[i];
+    P::store(ki_sh + dst, P::entry(kinv[i]));
+    if (REFINE) P::store(k_sh + dst, P::entry(kmat[i]));
   }
   if constexpr (PACKED) {
     // kia[r][j][i] to row i, column j of copy r: st_i sums over j
@@ -191,14 +199,14 @@ admm_perr_chunk_kernel(const float* __restrict__ kinv,
       const int rr = i / nm;
       const int e = i - rr * nm;
       const int row = e / m;
-      a_sh[rr * skm + (e - row * m) * ld + row] = kia[i];
+      P::store(a_sh + rr * skm + (e - row * m) * ld + row, P::entry(kia[i]));
     }
     for (int i = tid; i < m * n; i += nthreads) a32_sh[i] = a[i];
   } else {
     for (int i = tid; i < m * n; i += nthreads) {
       const int row = i / n;
       const float av = a[i];
-      a_sh[row * ld + (i - row * n)] = av;
+      P::store(a_sh + row * ld + (i - row * n), P::entry(av));
       a32_sh[i] = av;
     }
   }
@@ -263,58 +271,61 @@ admm_perr_chunk_kernel(const float* __restrict__ kinv,
 #pragma unroll
     for (int k = 0; k < RPT_M; ++k) {
       const int sl = slot(t + k * G, L, b);
-      bm0[sl] = y[k];
-      bm1[sl] = s[k];
+      P::store(bm0 + sl, P::entry(y[k]));
+      P::store(bm1 + sl, P::entry(s[k]));
     }
     __syncthreads();
     // A'y and sum_i s_i fl(rho_i A_i.) in one pass over the constraint rows
     float rhs[RPT_N];
     {
-      double acc_y[RPT_N], acc_s[RPT_N];
+      typename P::Acc acc_y[RPT_N], acc_s[RPT_N];
 #pragma unroll
-      for (int k = 0; k < RPT_N; ++k) acc_y[k] = acc_s[k] = 0.0;
+      for (int k = 0; k < RPT_N; ++k) {
+        P::zero(acc_y[k]);
+        P::zero(acc_s[k]);
+      }
 #pragma unroll 2
       for (int p = 0; p < pairs; ++p) {
-        const double2 vy = load2(bm0_b + p * ps);
-        const double2 vs = load2(bm1_b + p * ps);
+        typename P::Entry vy0, vy1, vs0, vs1;
+        P::load2(bm0_b + p * ps, vy0, vy1);
+        P::load2(bm1_b + p * ps, vs0, vs1);
         const double* a0 = a_sh + 2 * p * ld;  // rows 2p and 2p + 1
         const float2 rp = *reinterpret_cast<const float2*>(rho_b + 2 * p);
         const float* f0 = a32_sh + 2 * p * n;
 #pragma unroll
         for (int k = 0; k < RPT_N; ++k) {
-          if constexpr (PACKED) {  // A'y from the fp32 A, widened
+          if constexpr (PACKED) {  // A'y from the fp32 A, widened (split)
             const float w0 = f0[col[k]], w1 = f0[n + col[k]];
-            acc_y[k] = fma(static_cast<double>(w0), vy.x, acc_y[k]);
-            acc_s[k] = fma(static_cast<double>(rp.x * w0), vs.x, acc_s[k]);
-            acc_y[k] = fma(static_cast<double>(w1), vy.y, acc_y[k]);
-            acc_s[k] = fma(static_cast<double>(rp.y * w1), vs.y, acc_s[k]);
+            P::mac(acc_y[k], P::entry(w0), vy0);
+            P::mac(acc_s[k], P::entry(rp.x * w0), vs0);
+            P::mac(acc_y[k], P::entry(w1), vy1);
+            P::mac(acc_s[k], P::entry(rp.y * w1), vs1);
           } else {
-            acc_y[k] = fma(a0[col[k]], vy.x, acc_y[k]);
-            acc_s[k] = fma(static_cast<double>(rp.x * f0[col[k]]), vs.x, acc_s[k]);
-            acc_y[k] = fma(a0[ld + col[k]], vy.y, acc_y[k]);
-            acc_s[k] = fma(static_cast<double>(rp.y * f0[n + col[k]]), vs.y, acc_s[k]);
+            P::mac(acc_y[k], P::load(a0 + col[k]), vy0);
+            P::mac(acc_s[k], P::entry(rp.x * f0[col[k]]), vs0);
+            P::mac(acc_y[k], P::load(a0 + ld + col[k]), vy1);
+            P::mac(acc_s[k], P::entry(rp.y * f0[n + col[k]]), vs1);
           }
         }
       }
       if (m & 1) {
-        const double vy = bm0_b[pairs * ps];
-        const double vs = bm1_b[pairs * ps];
+        const typename P::Entry vy = P::load(bm0_b + pairs * ps);
+        const typename P::Entry vs = P::load(bm1_b + pairs * ps);
         const double* a0 = a_sh + (m - 1) * ld;
 #pragma unroll
         for (int k = 0; k < RPT_N; ++k) {
           if constexpr (PACKED)
-            acc_y[k] = fma(static_cast<double>(a32_sh[(m - 1) * n + col[k]]), vy, acc_y[k]);
+            P::mac(acc_y[k], P::entry(a32_sh[(m - 1) * n + col[k]]), vy);
           else
-            acc_y[k] = fma(a0[col[k]], vy, acc_y[k]);
+            P::mac(acc_y[k], P::load(a0 + col[k]), vy);
           const float w = rho_b[m - 1] * a32_sh[(m - 1) * n + col[k]];
-          acc_s[k] = fma(static_cast<double>(w), vs, acc_s[k]);
+          P::mac(acc_s[k], P::entry(w), vs);
         }
       }
 #pragma unroll
       for (int k = 0; k < RPT_N; ++k) {
-        rhs[k] = sigma * x[k] - qv[k] - static_cast<float>(acc_y[k]) +
-                 static_cast<float>(acc_s[k]);
-        bn0[slot(t + k * G, L, b)] = rhs[k];
+        rhs[k] = sigma * x[k] - qv[k] - P::result(acc_y[k]) + P::result(acc_s[k]);
+        P::store(bn0 + slot(t + k * G, L, b), P::entry(rhs[k]));
       }
     }
     __syncthreads();
@@ -322,32 +333,33 @@ admm_perr_chunk_kernel(const float* __restrict__ kinv,
     float st[RPT_M];
     if constexpr (PACKED) {
       float w[RPT_N + RPT_M];
-      matvec<RPT_N + RPT_M>(smem, bn0_b, woff, n, ps, w);  // rhs [K_r^-1 | kia_r]
+      matvec<MODE, RPT_N + RPT_M>(smem, bn0_b, woff, n, ps, w);  // rhs [K_r^-1 | kia_r]
 #pragma unroll
       for (int k = 0; k < RPT_N; ++k) xt[k] = w[k];
 #pragma unroll
       for (int k = 0; k < RPT_M; ++k) st[k] = w[RPT_N + k];
     } else {
-      matvec<RPT_N>(ki_sh, bn0_b, koff, n, ps, xt);
+      matvec<MODE, RPT_N>(ki_sh, bn0_b, koff, n, ps, xt);
     }
     for (int step = 0; REFINE && step < refine_steps; ++step) {
       float tmp[RPT_N];
 #pragma unroll
-      for (int k = 0; k < RPT_N; ++k) bn1[slot(t + k * G, L, b)] = xt[k];
+      for (int k = 0; k < RPT_N; ++k) P::store(bn1 + slot(t + k * G, L, b), P::entry(xt[k]));
       __syncthreads();  // also: every thread is done reading bn0
-      matvec<RPT_N>(k_sh, bn1_b, koff, n, ps, tmp);
+      matvec<MODE, RPT_N>(k_sh, bn1_b, koff, n, ps, tmp);
 #pragma unroll
-      for (int k = 0; k < RPT_N; ++k) bn0[slot(t + k * G, L, b)] = rhs[k] - tmp[k];
+      for (int k = 0; k < RPT_N; ++k)
+        P::store(bn0 + slot(t + k * G, L, b), P::entry(rhs[k] - tmp[k]));
       __syncthreads();  // also: every thread is done reading bn1
       if constexpr (PACKED) {
         float w[RPT_N + RPT_M];
-        matvec<RPT_N + RPT_M>(smem, bn0_b, woff, n, ps, w);  // res [K_r^-1 | kia_r]
+        matvec<MODE, RPT_N + RPT_M>(smem, bn0_b, woff, n, ps, w);  // res [K_r^-1 | kia_r]
 #pragma unroll
         for (int k = 0; k < RPT_N; ++k) xt[k] += w[k];
 #pragma unroll
         for (int k = 0; k < RPT_M; ++k) st[k] += w[RPT_N + k];
       } else {
-        matvec<RPT_N>(ki_sh, bn0_b, koff, n, ps, tmp);
+        matvec<MODE, RPT_N>(ki_sh, bn0_b, koff, n, ps, tmp);
 #pragma unroll
         for (int k = 0; k < RPT_N; ++k) xt[k] += tmp[k];
       }
@@ -360,7 +372,7 @@ admm_perr_chunk_kernel(const float* __restrict__ kinv,
     } else {
 #pragma unroll
       for (int k = 0; k < RPT_N; ++k) {
-        bn1[slot(t + k * G, L, b)] = xt[k];
+        P::store(bn1 + slot(t + k * G, L, b), P::entry(xt[k]));
         x[k] = alpha * xt[k] + beta * x[k];
       }
       __syncthreads();  // also: every thread is done reading bn0, bm0, bm1
@@ -370,7 +382,7 @@ admm_perr_chunk_kernel(const float* __restrict__ kinv,
         const int i = t + k * G;
         aoff[k] = (i < m ? i : m - 1) * ld;
       }
-      matvec<RPT_M>(a_sh, bn1_b, aoff, n, ps, st);  // A xt
+      matvec<MODE, RPT_M>(a_sh, bn1_b, aoff, n, ps, st);  // A xt
     }
 #pragma unroll
     for (int k = 0; k < RPT_M; ++k) {
@@ -410,11 +422,11 @@ struct Args {
   float sigma, alpha;
 };
 
-template <int RPT_N, int RPT_M, bool REFINE, int THREADS, int REGS, bool PACKED>
+template <int RPT_N, int RPT_M, bool REFINE, int THREADS, int REGS, bool PACKED, int MODE>
 cudaError_t launch(const Args& a, dim3 block, const Layout& lay, size_t smem,
                    cudaStream_t stream) {
   if (static_cast<int>(block.x * block.y) > THREADS) return cudaErrorInvalidValue;
-  auto kernel = admm_perr_chunk_kernel<RPT_N, RPT_M, REFINE, THREADS, REGS, PACKED>;
+  auto kernel = admm_perr_chunk_kernel<RPT_N, RPT_M, REFINE, THREADS, REGS, PACKED, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -442,11 +454,36 @@ cudaError_t launch(const Args& a, dim3 block, const Layout& lay, size_t smem,
   X(1, 2, 512, 128, 128) X(1, 3, 512, 128, 128) X(2, 3, 384, 168, 168)    \
   X(2, 6, 320, 168, 168) X(3, 4, 256, 255, 255)
 
+// the shared route's instantiation of rows per thread (rpt_n, rpt_m) for
+// K5 (PACKED false) or K4 at precision MODE
+template <bool PACKED, int MODE>
+int shared_dispatch(const Args& args, dim3 block, const Layout& lay, size_t smem,
+                    cudaStream_t st, int rpt_n, int rpt_m) {
+  const bool refine = args.refine_steps > 0;
+#define MPC_DENSE_CASE(N, M, T, REGS, REGS_REFINE)                                     \
+  case 64 * N + M:                                                                      \
+    return static_cast<int>(                                                            \
+        refine ? launch<N, M, true, T, REGS_REFINE, PACKED, MODE>(args, block, lay, smem, \
+                                                                  st)                   \
+               : launch<N, M, false, T, REGS, PACKED, MODE>(args, block, lay, smem, st));
+  if constexpr (PACKED) {
+    switch (64 * rpt_n + rpt_m) {
+      MPC_K4_INSTANCES(MPC_DENSE_CASE)
+    }
+  } else {
+    switch (64 * rpt_n + rpt_m) {
+      MPC_K5_INSTANCES(MPC_DENSE_CASE)
+    }
+  }
+#undef MPC_DENSE_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // The shared route's entry for K5 (PACKED false) or K4: checks the shape
 // and the plan's layout, then launches the instantiation of its rows per
-// thread.
+// thread at precision `mode`.
 template <bool PACKED>
-int shared_chunk(const Args& args, int lanes, int groups, int rpt_n, int rpt_m,
+int shared_chunk(const Args& args, int mode, int lanes, int groups, int rpt_n, int rpt_m,
                  int smem_bytes, void* stream) {
   const int n = args.n, m = args.m, B = args.B, R = args.R;
   if (n <= 0 || n > 128 || m < 1 || m > 512 || B <= 0 || R <= 0 ||
@@ -475,22 +512,14 @@ int shared_chunk(const Args& args, int lanes, int groups, int rpt_n, int rpt_m,
   const size_t smem = static_cast<size_t>(need);
   const dim3 block(lanes, groups);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool refine = args.refine_steps > 0;
-#define MPC_DENSE_CASE(N, M, T, REGS, REGS_REFINE)                                          \
-  case 64 * N + M:                                                                           \
-    return static_cast<int>(                                                                 \
-        refine ? launch<N, M, true, T, REGS_REFINE, PACKED>(args, block, lay, smem, st)      \
-               : launch<N, M, false, T, REGS, PACKED>(args, block, lay, smem, st));
-  if constexpr (PACKED) {
-    switch (64 * rpt_n + rpt_m) {
-      MPC_K4_INSTANCES(MPC_DENSE_CASE)
-    }
-  } else {
-    switch (64 * rpt_n + rpt_m) {
-      MPC_K5_INSTANCES(MPC_DENSE_CASE)
-    }
+  switch (mode) {
+    case mpc_admm::kHighest:
+      return shared_dispatch<PACKED, mpc_admm::kHighest>(args, block, lay, smem, st, rpt_n, rpt_m);
+    case mpc_admm::kBf16x3:
+      return shared_dispatch<PACKED, mpc_admm::kBf16x3>(args, block, lay, smem, st, rpt_n, rpt_m);
+    case mpc_admm::kDefault:
+      return shared_dispatch<PACKED, mpc_admm::kDefault>(args, block, lay, smem, st, rpt_n, rpt_m);
   }
-#undef MPC_DENSE_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -546,7 +575,7 @@ __device__ __forceinline__ void copy16(double* dst, const double* src) {
   __pipeline_memcpy_async(dst, src, 16);
 }
 
-template <int RPT_N, int RPT_M, bool REFINE, int THREADS, int REGS, bool PACKED>
+template <int RPT_N, int RPT_M, bool REFINE, int THREADS, int REGS, bool PACKED, int MODE>
 __global__ void __launch_bounds__(THREADS, 65536 / (THREADS * REGS))
 admm_perr_stream_kernel(const double* __restrict__ kinv,  // K4: W, n + m rows a rho
                         const double* __restrict__ kmat,
@@ -568,6 +597,8 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,  // K4: W, n + m rows a
                         int n, int m, int B, int R, int chunk,
                         int refine_steps, float sigma, float alpha,
                         StreamLayout lay) {
+  using P = Prec<MODE>;
+  constexpr bool EXACT = MODE == mpc_admm::kHighest;  // buffers hold s and y exactly
   extern __shared__ __align__(16) double smem[];
   const int L = blockDim.x;
   const int G = blockDim.y;
@@ -611,8 +642,10 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,  // K4: W, n + m rows a
   }
 
   // x, q and ax in registers; s and y only in their lane buffers (fp64,
-  // exact), so that a thread's rows fit the register budget
+  // exact), so that a thread's rows fit the register budget; at a bf16
+  // precision the buffers hold their split, and s and y stay in registers
   float x[RPT_N], qv[RPT_N], ax[RPT_M];
+  float sv[EXACT ? 1 : RPT_M], yv[EXACT ? 1 : RPT_M];
   int col[RPT_N];
 #pragma unroll
   for (int k = 0; k < RPT_N; ++k) {
@@ -627,8 +660,15 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,  // K4: W, n + m rows a
     const int g = (i < m ? i : m - 1) * B + lc;
     ax[k] = ax_in[g];
     const int sl = slot(i, L, b);
-    bm0[sl] = y_in[g];
-    bm1[sl] = s_in[g];
+    if constexpr (EXACT) {
+      bm0[sl] = y_in[g];
+      bm1[sl] = s_in[g];
+    } else {
+      yv[k] = y_in[g];
+      sv[k] = s_in[g];
+      P::store(bm0 + sl, P::entry(yv[k]));
+      P::store(bm1 + sl, P::entry(sv[k]));
+    }
   }
 
   // phases of an iteration: 0 the A'y / A'rho.s pass, odd a K^-1 solve,
@@ -709,9 +749,9 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,  // K4: W, n + m rows a
       const int rows = last ? (PACKED ? RPT_N + RPT_M : RPT_M) : RPT_N;
       // a solve reads rhs or the residual, a K product and A xt read xt
       const double* v = (ph & 1) ? bn0_b : bn1_b;
-      double acc[ACC];
+      typename P::Acc acc[ACC];
 #pragma unroll
-      for (int k = 0; k < ACC; ++k) acc[k] = 0.0;
+      for (int k = 0; k < ACC; ++k) P::zero(acc[k]);
       int roff[ROWS];
 #pragma unroll
       for (int k = 0; k < ROWS; ++k) {
@@ -739,35 +779,36 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,  // K4: W, n + m rows a
           __pipeline_wait_prior(0);
         }
         __syncthreads();  // the panel and the lane buffers it meets are complete
-        const double* P = pan + buf * lay.panel;
-        if (PACKED && resident) P = pan + (ph == 0 ? 0 : (ph & 1) ? w_at : k_at);
+        const double* Pn = pan + buf * lay.panel;  // the panel
+        if (PACKED && resident) Pn = pan + (ph == 0 ? 0 : (ph & 1) ? w_at : k_at);
         if (ph == 0) {
           const int i0 = p * pc;
           const int i1 = (m - i0 < pc ? m : i0 + pc);
           int i = i0;
 #pragma unroll 2
           for (; i + 1 < i1; i += 2) {
-            const double2 vy = load2(bm0_b + (i >> 1) * ps);
-            const double2 vs = load2(bm1_b + (i >> 1) * ps);
-            const double* a0 = P + (i - i0) * ldg;
+            typename P::Entry vy0, vy1, vs0, vs1;
+            P::load2(bm0_b + (i >> 1) * ps, vy0, vy1);
+            P::load2(bm1_b + (i >> 1) * ps, vs0, vs1);
+            const double* a0 = Pn + (i - i0) * ldg;
             const double* w0 = a0 + pc * ldg;
 #pragma unroll
             for (int k = 0; k < RPT_N; ++k) {
-              acc[2 * k] = fma(a0[col[k]], vy.x, acc[2 * k]);
-              acc[2 * k + 1] = fma(w0[col[k]], vs.x, acc[2 * k + 1]);
-              acc[2 * k] = fma(a0[ldg + col[k]], vy.y, acc[2 * k]);
-              acc[2 * k + 1] = fma(w0[ldg + col[k]], vs.y, acc[2 * k + 1]);
+              P::mac(acc[2 * k], P::load(a0 + col[k]), vy0);
+              P::mac(acc[2 * k + 1], P::load(w0 + col[k]), vs0);
+              P::mac(acc[2 * k], P::load(a0 + ldg + col[k]), vy1);
+              P::mac(acc[2 * k + 1], P::load(w0 + ldg + col[k]), vs1);
             }
           }
           if (i < i1) {
-            const double vy = bm0_b[(i >> 1) * ps];
-            const double vs = bm1_b[(i >> 1) * ps];
-            const double* a0 = P + (i - i0) * ldg;
+            const typename P::Entry vy = P::load(bm0_b + (i >> 1) * ps);
+            const typename P::Entry vs = P::load(bm1_b + (i >> 1) * ps);
+            const double* a0 = Pn + (i - i0) * ldg;
             const double* w0 = a0 + pc * ldg;
 #pragma unroll
             for (int k = 0; k < RPT_N; ++k) {
-              acc[2 * k] = fma(a0[col[k]], vy, acc[2 * k]);
-              acc[2 * k + 1] = fma(w0[col[k]], vs, acc[2 * k + 1]);
+              P::mac(acc[2 * k], P::load(a0 + col[k]), vy);
+              P::mac(acc[2 * k + 1], P::load(w0 + col[k]), vs);
             }
           }
         } else {
@@ -776,21 +817,23 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,  // K4: W, n + m rows a
           int j = l0;
 #pragma unroll 2
           for (; j + 1 < l1; j += 2) {
-            const double2 vj = load2(v + (j >> 1) * ps);
+            typename P::Entry v0, v1;
+            P::load2(v + (j >> 1) * ps, v0, v1);
 #pragma unroll
             for (int k = 0; k < ROWS; ++k) {
               if (k >= rows) break;
-              const double2 c = load2(P + roff[k] + (j - l0));
-              acc[k] = fma(c.x, vj.x, acc[k]);
-              acc[k] = fma(c.y, vj.y, acc[k]);
+              typename P::Entry c0, c1;
+              P::load2(Pn + roff[k] + (j - l0), c0, c1);
+              P::mac(acc[k], c0, v0);
+              P::mac(acc[k], c1, v1);
             }
           }
           if (j < l1) {
-            const double vj = v[(j >> 1) * ps];
+            const typename P::Entry vj = P::load(v + (j >> 1) * ps);
 #pragma unroll
             for (int k = 0; k < ROWS; ++k) {
               if (k >= rows) break;
-              acc[k] = fma(P[roff[k] + (j - l0)], vj, acc[k]);
+              P::mac(acc[k], P::load(Pn + roff[k] + (j - l0)), vj);
             }
           }
         }
@@ -803,27 +846,26 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,  // K4: W, n + m rows a
       if (ph == 0) {
 #pragma unroll
         for (int k = 0; k < RPT_N; ++k) {
-          rhs[k] = sigma * x[k] - qv[k] - static_cast<float>(acc[2 * k]) +
-                   static_cast<float>(acc[2 * k + 1]);
-          bn0[slot(t + k * G, L, b)] = rhs[k];
+          rhs[k] = sigma * x[k] - qv[k] - P::result(acc[2 * k]) + P::result(acc[2 * k + 1]);
+          P::store(bn0 + slot(t + k * G, L, b), P::entry(rhs[k]));
         }
       } else if constexpr (PACKED) {
         if (ph & 1) {  // a solve: xt and st, or their corrections
 #pragma unroll
           for (int k = 0; k < RPT_N; ++k) {
-            const float c = static_cast<float>(acc[k]);
+            const float c = P::result(acc[k]);
             xt[k] = ph == 1 ? c : xt[k] + c;
-            bn1[slot(t + k * G, L, b)] = xt[k];
+            P::store(bn1 + slot(t + k * G, L, b), P::entry(xt[k]));
           }
 #pragma unroll
           for (int k = 0; k < RPT_M; ++k) {
-            const float c = static_cast<float>(acc[RPT_N + k]);
+            const float c = P::result(acc[RPT_N + k]);
             image[k] = ph == 1 ? c : image[k] + c;
           }
         } else {  // the refinement residual
 #pragma unroll
           for (int k = 0; k < RPT_N; ++k)
-            bn0[slot(t + k * G, L, b)] = rhs[k] - static_cast<float>(acc[k]);
+            P::store(bn0 + slot(t + k * G, L, b), P::entry(rhs[k] - P::result(acc[k])));
         }
         if (end) {
 #pragma unroll
@@ -834,30 +876,38 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,  // K4: W, n + m rows a
             const int ic = i < m ? i : m - 1;
             const int g = ic * B + lc;
             const int sl = slot(i, L, b);
-            const float s_old = static_cast<float>(bm1[sl]);
-            const float y_old = static_cast<float>(bm0[sl]);
+            const float s_old = EXACT ? static_cast<float>(bm1[sl]) : sv[EXACT ? 0 : k];
+            const float y_old = EXACT ? static_cast<float>(bm0[sl]) : yv[EXACT ? 0 : k];
             const float vv = alpha * image[k] + beta * s_old;
             const float s_new = clip(vv + rhoi_sh[ic] * y_old, l[g], u[g]);
-            bm0[sl] = y_old + rho_sh[ic] * (vv - s_new);
-            bm1[sl] = s_new;
+            const float y_new = y_old + rho_sh[ic] * (vv - s_new);
+            if constexpr (EXACT) {
+              bm0[sl] = y_new;
+              bm1[sl] = s_new;
+            } else {
+              yv[k] = y_new;
+              sv[k] = s_new;
+              P::store(bm0 + sl, P::entry(y_new));
+              P::store(bm1 + sl, P::entry(s_new));
+            }
             ax[k] = alpha * image[k] + beta * ax[k];
           }
         }
       } else if (ph == 1) {
 #pragma unroll
         for (int k = 0; k < RPT_N; ++k) {
-          xt[k] = static_cast<float>(acc[k]);
-          bn1[slot(t + k * G, L, b)] = xt[k];
+          xt[k] = P::result(acc[k]);
+          P::store(bn1 + slot(t + k * G, L, b), P::entry(xt[k]));
         }
       } else if (!last && (ph & 1) == 0) {  // the refinement residual
 #pragma unroll
         for (int k = 0; k < RPT_N; ++k)
-          bn0[slot(t + k * G, L, b)] = rhs[k] - static_cast<float>(acc[k]);
+          P::store(bn0 + slot(t + k * G, L, b), P::entry(rhs[k] - P::result(acc[k])));
       } else if (!last) {  // the refinement's correction
 #pragma unroll
         for (int k = 0; k < RPT_N; ++k) {
-          xt[k] += static_cast<float>(acc[k]);
-          bn1[slot(t + k * G, L, b)] = xt[k];
+          xt[k] += P::result(acc[k]);
+          P::store(bn1 + slot(t + k * G, L, b), P::entry(xt[k]));
         }
       } else {
 #pragma unroll
@@ -868,13 +918,21 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,  // K4: W, n + m rows a
           const int ic = i < m ? i : m - 1;
           const int g = ic * B + lc;
           const int sl = slot(i, L, b);
-          const float st = static_cast<float>(acc[k]);
-          const float s_old = static_cast<float>(bm1[sl]);
-          const float y_old = static_cast<float>(bm0[sl]);
+          const float st = P::result(acc[k]);
+          const float s_old = EXACT ? static_cast<float>(bm1[sl]) : sv[EXACT ? 0 : k];
+          const float y_old = EXACT ? static_cast<float>(bm0[sl]) : yv[EXACT ? 0 : k];
           const float vv = alpha * st + beta * s_old;
           const float s_new = clip(vv + rhoi_sh[ic] * y_old, l[g], u[g]);
-          bm0[sl] = y_old + rho_sh[ic] * (vv - s_new);
-          bm1[sl] = s_new;
+          const float y_new = y_old + rho_sh[ic] * (vv - s_new);
+          if constexpr (EXACT) {
+            bm0[sl] = y_new;
+            bm1[sl] = s_new;
+          } else {
+            yv[k] = y_new;
+            sv[k] = s_new;
+            P::store(bm0 + sl, P::entry(y_new));
+            P::store(bm1 + sl, P::entry(s_new));
+          }
           ax[k] = alpha * st + beta * ax[k];
         }
       }
@@ -893,8 +951,8 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,  // K4: W, n + m rows a
     if (i >= m) continue;
     const int g = i * B + lc;
     const int sl = slot(i, L, b);  // the thread's own slots: no barrier needed
-    s_out[g] = static_cast<float>(bm1[sl]);
-    y_out[g] = static_cast<float>(bm0[sl]);
+    s_out[g] = EXACT ? static_cast<float>(bm1[sl]) : sv[EXACT ? 0 : k];
+    y_out[g] = EXACT ? static_cast<float>(bm0[sl]) : yv[EXACT ? 0 : k];
     ax_out[g] = ax[k];
   }
 }
@@ -909,12 +967,12 @@ struct StreamArgs {
   float sigma, alpha;
 };
 
-template <int RPT_N, int RPT_M, bool REFINE, int THREADS, int REGS, bool PACKED>
+template <int RPT_N, int RPT_M, bool REFINE, int THREADS, int REGS, bool PACKED, int MODE>
 cudaError_t launch_stream(const StreamArgs& a, int lanes, int groups, const StreamLayout& lay,
                           size_t smem, cudaStream_t stream) {
   const dim3 block(lanes, groups);
   if (static_cast<int>(block.x * block.y) > THREADS) return cudaErrorInvalidValue;
-  auto kernel = admm_perr_stream_kernel<RPT_N, RPT_M, REFINE, THREADS, REGS, PACKED>;
+  auto kernel = admm_perr_stream_kernel<RPT_N, RPT_M, REFINE, THREADS, REGS, PACKED, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -939,9 +997,36 @@ cudaError_t launch_stream(const StreamArgs& a, int lanes, int groups, const Stre
   X(2, 3, 384, 168, 168) X(2, 6, 384, 168, 168) X(3, 4, 256, 255, 255)     \
   X(3, 8, 320, 168, 168)
 
+// the stream route's instantiation of rows per thread (rpt_n, rpt_m) for
+// K5 (PACKED false) or K4 at precision MODE
+template <bool PACKED, int MODE>
+int stream_dispatch(const StreamArgs& args, int lanes, int groups, const StreamLayout& lay,
+                    size_t smem, cudaStream_t st, int rpt_n, int rpt_m) {
+  const bool refine = args.refine_steps > 0;
+#define MPC_DENSE_STREAM_CASE(N, M, T, REGS, REGS_REFINE)                               \
+  case 64 * N + M:                                                                        \
+    return static_cast<int>(                                                              \
+        refine ? launch_stream<N, M, true, T, REGS_REFINE, PACKED, MODE>(args, lanes,     \
+                                                                         groups, lay,     \
+                                                                         smem, st)        \
+               : launch_stream<N, M, false, T, REGS, PACKED, MODE>(args, lanes, groups,   \
+                                                                   lay, smem, st));
+  if constexpr (PACKED) {
+    switch (64 * rpt_n + rpt_m) {
+      MPC_K4_STREAM_INSTANCES(MPC_DENSE_STREAM_CASE)
+    }
+  } else {
+    switch (64 * rpt_n + rpt_m) {
+      MPC_K5_STREAM_INSTANCES(MPC_DENSE_STREAM_CASE)
+    }
+  }
+#undef MPC_DENSE_STREAM_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // The stream route's entry for K5 (PACKED false) or K4, as shared_chunk.
 template <bool PACKED>
-int stream_chunk(const StreamArgs& args, int lanes, int groups, int rpt_n, int rpt_m,
+int stream_chunk(const StreamArgs& args, int mode, int lanes, int groups, int rpt_n, int rpt_m,
                  int panel, int smem_bytes, void* stream) {
   const int n = args.n, m = args.m, B = args.B;
   if (n <= 0 || n > 128 || m < 1 || m > 512 || B <= 0 || args.R <= 0 ||
@@ -972,24 +1057,17 @@ int stream_chunk(const StreamArgs& args, int lanes, int groups, int rpt_n, int r
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(stream_need);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool refine = args.refine_steps > 0;
-#define MPC_DENSE_STREAM_CASE(N, M, T, REGS, REGS_REFINE)                              \
-  case 64 * N + M:                                                                       \
-    return static_cast<int>(                                                             \
-        refine ? launch_stream<N, M, true, T, REGS_REFINE, PACKED>(args, lanes, groups,  \
-                                                                   lay, smem, st)        \
-               : launch_stream<N, M, false, T, REGS, PACKED>(args, lanes, groups, lay,   \
-                                                             smem, st));
-  if constexpr (PACKED) {
-    switch (64 * rpt_n + rpt_m) {
-      MPC_K4_STREAM_INSTANCES(MPC_DENSE_STREAM_CASE)
-    }
-  } else {
-    switch (64 * rpt_n + rpt_m) {
-      MPC_K5_STREAM_INSTANCES(MPC_DENSE_STREAM_CASE)
-    }
+  switch (mode) {
+    case mpc_admm::kHighest:
+      return stream_dispatch<PACKED, mpc_admm::kHighest>(args, lanes, groups, lay, smem, st,
+                                                         rpt_n, rpt_m);
+    case mpc_admm::kBf16x3:
+      return stream_dispatch<PACKED, mpc_admm::kBf16x3>(args, lanes, groups, lay, smem, st,
+                                                        rpt_n, rpt_m);
+    case mpc_admm::kDefault:
+      return stream_dispatch<PACKED, mpc_admm::kDefault>(args, lanes, groups, lay, smem, st,
+                                                         rpt_n, rpt_m);
   }
-#undef MPC_DENSE_STREAM_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -997,8 +1075,10 @@ int stream_chunk(const StreamArgs& args, int lanes, int groups, int rpt_n, int r
 
 extern "C" {
 
-// K5: launch `chunk` iterations on `stream` on the shared route. All arrays
-// are float32 and contiguous on one device: kinv, kmat (R, n, n) (kmat
+// K5: launch `chunk` iterations on `stream` on the shared route at
+// precision `mode` (0 "highest", 1 "bf16x3", 2 "default";
+// ops/admm_fused.PRECISIONS). All arrays are float32 and contiguous on one
+// device: kinv, kmat (R, n, n) (kmat
 // unused when refine_steps == 0), a (m, n), rho_vecs, rho_invs (R, m), q,
 // x_in, x_out (n, B); l, u, s_in, y_in, ax_in, s_out, y_out, ax_out
 // (m, B); idx (B) int32 in [0, R). Takes n <= 128, 1 <= m <= 512 and
@@ -1013,13 +1093,13 @@ int admm_perr_chunk(const float* kinv, const float* kmat, const float* a,
                     const int* idx, const float* x_in, const float* s_in,
                     const float* y_in, const float* ax_in, float* x_out,
                     float* s_out, float* y_out, float* ax_out, int n, int m,
-                    int B, int R, int chunk, int refine_steps, int lanes,
+                    int B, int R, int chunk, int refine_steps, int mode, int lanes,
                     int groups, int rpt_n, int rpt_m, int smem_bytes,
                     float sigma, float alpha, void* stream) {
   const Args args{kinv, kmat, nullptr, a, rho_vecs, rho_invs, q, l, u, idx,
                   x_in, s_in, y_in, ax_in, x_out, s_out, y_out, ax_out,
                   n, m, B, R, chunk, refine_steps, sigma, alpha};
-  return shared_chunk<false>(args, lanes, groups, rpt_n, rpt_m, smem_bytes, stream);
+  return shared_chunk<false>(args, mode, lanes, groups, rpt_n, rpt_m, smem_bytes, stream);
 }
 
 // K4 on the shared route: as admm_perr_chunk, with kia (R, n, m) =
@@ -1030,20 +1110,22 @@ int admm_packed_chunk(const float* kinv, const float* kmat, const float* kia,
                       const int* idx, const float* x_in, const float* s_in,
                       const float* y_in, const float* ax_in, float* x_out,
                       float* s_out, float* y_out, float* ax_out, int n, int m,
-                      int B, int R, int chunk, int refine_steps, int lanes,
+                      int B, int R, int chunk, int refine_steps, int mode, int lanes,
                       int groups, int rpt_n, int rpt_m, int smem_bytes,
                       float sigma, float alpha, void* stream) {
   const Args args{kinv, kmat, kia, a, rho_vecs, rho_invs, q, l, u, idx,
                   x_in, s_in, y_in, ax_in, x_out, s_out, y_out, ax_out,
                   n, m, B, R, chunk, refine_steps, sigma, alpha};
-  return shared_chunk<true>(args, lanes, groups, rpt_n, rpt_m, smem_bytes, stream);
+  return shared_chunk<true>(args, mode, lanes, groups, rpt_n, rpt_m, smem_bytes, stream);
 }
 
 // K5 on the stream route (the same arithmetic; shapes whose fp64
 // operators do not fit shared memory): kinv, kmat (R, n, ldg) are K^-1 and
 // K transposed (row j holds column j), a (m, ldg) is A and ra (R, m, ldg)
-// fl(rho_r A), all fp64 with rows padded to ldg = n rounded up to even
-// (kmat unused when refine_steps == 0); the other arrays as on the shared
+// fl(rho_r A), all as the precision's 8-byte entries (fp64 at "highest",
+// the fp32 pair (hi, lo) at "bf16x3", (hi, 0) at "default":
+// ops/admm_fused.operator_entries) with rows padded to ldg = n rounded up
+// to even (kmat unused when refine_steps == 0); the other arrays as on the shared
 // route, with order (B), the lanes sorted by rho index (stable), and
 // starts (R + 1), where each index's lanes start in that order
 // (admm_fused.rho_order), in place of idx. The layout comes from
@@ -1060,13 +1142,14 @@ int admm_perr_stream_chunk(const double* kinv, const double* kmat,
                            const float* y_in, const float* ax_in,
                            float* x_out, float* s_out, float* y_out,
                            float* ax_out, int n, int m, int B, int R,
-                           int chunk, int refine_steps, int lanes, int groups,
+                           int chunk, int refine_steps, int mode, int lanes, int groups,
                            int rpt_n, int rpt_m, int panel, int smem_bytes,
                            float sigma, float alpha, void* stream) {
   const StreamArgs args{kinv, kmat, a, ra, rho_vecs, rho_invs, q, l, u, order,
                         starts, x_in, s_in, y_in, ax_in, x_out, s_out, y_out,
                         ax_out, n, m, B, R, chunk, refine_steps, sigma, alpha};
-  return stream_chunk<false>(args, lanes, groups, rpt_n, rpt_m, panel, smem_bytes, stream);
+  return stream_chunk<false>(args, mode, lanes, groups, rpt_n, rpt_m, panel, smem_bytes,
+                             stream);
 }
 
 // K4 on the stream route: as admm_perr_stream_chunk, with w (R, n + m,
@@ -1082,13 +1165,14 @@ int admm_packed_stream_chunk(const double* w, const double* kmat,
                              const float* y_in, const float* ax_in,
                              float* x_out, float* s_out, float* y_out,
                              float* ax_out, int n, int m, int B, int R,
-                             int chunk, int refine_steps, int lanes, int groups,
-                             int rpt_n, int rpt_m, int panel, int smem_bytes,
+                             int chunk, int refine_steps, int mode, int lanes,
+                             int groups, int rpt_n, int rpt_m, int panel, int smem_bytes,
                              float sigma, float alpha, void* stream) {
   const StreamArgs args{w, kmat, a, ra, rho_vecs, rho_invs, q, l, u, order,
                         starts, x_in, s_in, y_in, ax_in, x_out, s_out, y_out,
                         ax_out, n, m, B, R, chunk, refine_steps, sigma, alpha};
-  return stream_chunk<true>(args, lanes, groups, rpt_n, rpt_m, panel, smem_bytes, stream);
+  return stream_chunk<true>(args, mode, lanes, groups, rpt_n, rpt_m, panel, smem_bytes,
+                            stream);
 }
 
 }  // extern "C"

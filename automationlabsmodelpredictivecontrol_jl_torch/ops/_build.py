@@ -109,12 +109,12 @@ def build_kernels(force: bool = False) -> str:
 # (the last one is the stream), "i" an int, "f" a float. Every entry
 # returns its cudaError_t as an int.
 SIGNATURES = {
-    "admm_diag_chunk": "p" * 17 + "i" * 9 + "ff" + "p",
-    "admm_mixed_chunk": "p" * 18 + "i" * 11 + "ff" + "p",
-    "admm_perr_chunk": "p" * 17 + "i" * 11 + "ff" + "p",
-    "admm_perr_stream_chunk": "p" * 19 + "i" * 12 + "ff" + "p",
-    "admm_packed_chunk": "p" * 18 + "i" * 11 + "ff" + "p",
-    "admm_packed_stream_chunk": "p" * 19 + "i" * 12 + "ff" + "p",
+    "admm_diag_chunk": "p" * 17 + "i" * 10 + "ff" + "p",
+    "admm_mixed_chunk": "p" * 18 + "i" * 12 + "ff" + "p",
+    "admm_perr_chunk": "p" * 17 + "i" * 12 + "ff" + "p",
+    "admm_perr_stream_chunk": "p" * 19 + "i" * 13 + "ff" + "p",
+    "admm_packed_chunk": "p" * 18 + "i" * 12 + "ff" + "p",
+    "admm_packed_stream_chunk": "p" * 19 + "i" * 13 + "ff" + "p",
     "riccati_admm_chunk": "p" * 26 + "i" * 13 + "p",
     "riccati_rollout": "p" * 5 + "i" * 4 + "p",
     "riccati_certificate": "p" * 15 + "i" * 9 + "p",

@@ -58,9 +58,12 @@ class AdmmConfig:
     refine_steps: int = 1
     scaling_iters: int = 10
     adaptive: bool = True
-    # matmul precision inside the fused kernel. Only "highest" (IEEE fp32)
-    # is ported; "bf16x3", "default" and "hybrid" raise NotImplementedError
-    # (ROADMAP Queue 2, kernel precisions).
+    # the products inside the fused kernels K1, K2, K4, K5 (the general
+    # engine reads none): "highest" (fp32 operands, fp64 sums), "bf16x3"
+    # (three bf16 passes on a hi/lo split of both operands), "default" (one
+    # bf16 pass), "hybrid" (bf16x3 chunks until the worst open lane's
+    # residual is at most hybrid_switch_residual, then highest); the
+    # between-chunk diagnostics are exact fp32 in every precision
     kernel_precision: str = "highest"
     hybrid_switch_residual: float = 2e-3
 

@@ -17,7 +17,9 @@ QPs whose scaled constraint matrix A_s is
   :func:`use_packed` picks; both are instantiations of the two kernels of
   ``csrc/admm_perr.cu``, laid out by :func:`k4_plan` and :func:`k5_plan`.
 
-Each chunk function runs ``chunk`` ADMM iterations on the lane-last state.
+Each chunk function runs ``chunk`` ADMM iterations on the lane-last state,
+its products at ``config.kernel_precision`` (``PRECISIONS``: the JAX
+package's ``_make_dot``; "hybrid" is the driver's per-chunk schedule).
 On a CUDA tensor it launches its hand-written kernel and raises if it
 cannot; on a CPU tensor it runs its plain PyTorch version, the same chunk
 math, which the CPU tests hold against the JAX kernel in interpret mode.
@@ -33,6 +35,7 @@ K3 and the two recurrences of its driver, "rollout" and "certificate".
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -46,8 +49,15 @@ from ..utils.precision import assert_ieee_fp32
 
 Tensor = torch.Tensor
 
+# the kernel precisions the fused kernels compute (AdmmConfig.kernel_precision
+# but "hybrid", which the driver resolves per chunk into "bf16x3" or
+# "highest"), by the code their C entries take
+PRECISIONS = ("highest", "bf16x3", "default")
+
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "rollout": 0, "certificate": 0, "K4": 0, "K5": 0,
             "K3W": 0, "K3W-doubling": 0, "rollout-wide": 0, "certificate-wide": 0}
+# the bf16 precisions of K1, K2, K4 and K5 count apart ("K1-bf16x3", ...)
+LAUNCHES.update({f"{k}-{mode}": 0 for k in ("K1", "K2", "K4", "K5") for mode in PRECISIONS[1:]})
 PLAIN_CALLS = dict(LAUNCHES)
 
 
@@ -105,7 +115,8 @@ def _warp_cost(per_sm_lanes: int, lane_reads: int, warps: float) -> float:
 K1_INSTANCES = {1: (512, 45, 57), 2: (512, 70, 80), 3: (512, 94, 108), 4: (512, 121, 128),
                 5: (256, 126, 163), 6: (256, 164, 192), 7: (256, 186, 216), 8: (256, 208, 243)}
 # the C entry's int parameters, in order (the wrapper passes them so)
-K1_INTS = ("n", "B", "R", "chunk", "refine_steps", "lanes", "groups", "rpt", "smem_bytes")
+K1_INTS = ("n", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups", "rpt",
+           "smem_bytes")
 
 
 class K1Plan(NamedTuple):
@@ -144,10 +155,11 @@ def blocks_per_sm(threads: int, smem_bytes: int, registers: int) -> int:
                SM_REGISTERS // (warps * per_warp), SM_BLOCKS)
 
 
-def _k1_layouts(n: int, R: int, refine_steps: int):
+def _k1_layouts(n: int, R: int, refine_steps: int, mode: str = "highest"):
     """Every (lanes, groups, rpt, smem_bytes, per_sm) K1 can launch for this
-    operator shape: whole warps, an instantiated row count, no more threads
-    than it allows, a block within the card's shared memory."""
+    operator shape at precision ``mode``: whole warps, an instantiated row
+    count, no more threads than it allows, a block within the card's
+    shared memory (the same bytes at every precision)."""
     if not 1 <= n <= MAX_N:
         return
     for lanes in LANES:
@@ -157,7 +169,7 @@ def _k1_layouts(n: int, R: int, refine_steps: int):
             if rpt not in K1_INSTANCES:
                 continue
             threads = K1_INSTANCES[rpt][0]
-            registers = K1_INSTANCES[rpt][2 if refine_steps > 0 else 1]
+            registers = _registers("K1", K1_INSTANCES, rpt, refine_steps, mode)
             if lanes * groups > threads:
                 continue
             smem = k1_smem_bytes(n, R, refine_steps, lanes, groups, rpt)
@@ -167,7 +179,8 @@ def _k1_layouts(n: int, R: int, refine_steps: int):
 
 @functools.lru_cache(maxsize=256)  # the driver asks once per chunk
 def k1_plan(n: int, R: int, refine_steps: int, B: int,
-            lanes: Optional[int] = None, groups: Optional[int] = None) -> K1Plan:
+            lanes: Optional[int] = None, groups: Optional[int] = None,
+            mode: str = "highest") -> K1Plan:
     """The layout of a K1 launch for ``B`` lanes, from the shape alone.
 
     The busiest SM runs ceil(ceil(B / L) / 132) blocks of L lanes; several
@@ -178,15 +191,18 @@ def k1_plan(n: int, R: int, refine_steps: int, B: int,
     once per thread, so fewer row-groups G read less; the cost
     (:func:`_warp_cost`) counts the warps resident on the SM, not those of
     one block. Ties go to more lanes per block. ``lanes`` and ``groups``
-    force a layout (ValueError if it does not fit)."""
+    force a layout (ValueError if it does not fit). ``mode``, a precision
+    of ``PRECISIONS``, sets the registers the instantiations take; the
+    bytes are the same at every precision."""
     B = int(B)
+    _check_mode(mode)
     if B < 1:
         raise ValueError(f"K1 takes at least one lane; B={B}")
     if n * B >= 2**31:
         raise ValueError(f"K1 indexes the (n, B) state with 32 bits; n={n}, B={B}")
     products = 1 + 2 * int(refine_steps)
     best = None
-    for L, G, rpt, smem, per_sm in _k1_layouts(n, R, int(refine_steps)):
+    for L, G, rpt, smem, per_sm in _k1_layouts(n, R, int(refine_steps), mode):
         if lanes not in (None, L) or groups not in (None, G):
             continue
         blocks = -(-B // L)
@@ -217,7 +233,7 @@ def k1_fits(n: int, R: int, refine_steps: int) -> bool:
 K2_RPT_N = (1, 2, 3, 4)
 K2_RPT_T = (1, 2, 3, 4, 5, 6, 8)
 # the C entry's int parameters, in order (the wrapper passes them so)
-K2_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "lanes", "groups", "rpt_n",
+K2_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups", "rpt_n",
            "rpt_t", "smem_bytes")
 
 
@@ -277,7 +293,8 @@ def _k2_layouts(n: int, m: int, R: int, refine_steps: int):
 
 @functools.lru_cache(maxsize=256)  # the driver asks once per chunk
 def k2_plan(n: int, m: int, R: int, refine_steps: int, B: int,
-            lanes: Optional[int] = None, groups: Optional[int] = None) -> K2Plan:
+            lanes: Optional[int] = None, groups: Optional[int] = None,
+            mode: str = "highest") -> K2Plan:
     """The layout of a K2 launch for ``B`` lanes, from the shape alone.
 
     One block per SM (its shared memory holds every rho's operators), so
@@ -286,8 +303,11 @@ def k2_plan(n: int, m: int, R: int, refine_steps: int, B: int,
     operator entry per multiply-add, padded rows included, and the lane
     vectors once per thread, so fewer row-groups G read less; the warps
     are those of one block. Ties go to more lanes per block. ``lanes`` and
-    ``groups`` force a layout (ValueError if it does not fit)."""
+    ``groups`` force a layout (ValueError if it does not fit). Every
+    precision ``mode`` has the same layouts: the same bytes, and one block
+    an SM whatever its registers."""
     B = int(B)
+    _check_mode(mode)
     if B < 1:
         raise ValueError(f"K2 takes at least one lane; B={B}")
     if m * B >= 2**31:
@@ -385,12 +405,56 @@ K4_INSTANCES = {(1, 2): (512, 87, 105), (1, 3): (512, 119, 120), (2, 3): (384, 1
                 (2, 6): (320, 168, 168), (3, 4): (256, 161, 201)}
 K4_STREAM_INSTANCES = {(2, 3): (384, 116, 125), (2, 6): (384, 153, 151), (3, 4): (256, 143, 141),
                        (3, 8): (320, 168, 168)}
+# the registers a thread of each instantiation takes, without and with
+# refinement, at the bf16 precisions (K1, K4 and K5 on each route; the
+# tables above hold "highest"'s), within the same budgets (nvcc 12.9's
+# -Xptxas -v report on the H100; K5-stream (4, 10) spills 156 bytes at
+# bf16x3, 24 at default)
+PRECISION_REGISTERS = {
+    "bf16x3": {
+        "K1": {1: (46, 54), 2: (72, 84), 3: (101, 113), 4: (121, 128), 5: (128, 162),
+               6: (157, 182), 7: (172, 204), 8: (191, 224)},
+        "K5": {(1, 3): (101, 101), (2, 5): (161, 145), (2, 6): (161, 149), (3, 8): (179, 181),
+               (3, 9): (190, 191)},
+        "K5-stream": {(2, 6): (151, 151), (3, 8): (128, 128), (4, 10): (128, 128)},
+        "K4": {(1, 2): (91, 95), (1, 3): (107, 128), (2, 3): (124, 136), (2, 6): (167, 168),
+               (3, 4): (172, 171)},
+        "K4-stream": {(2, 3): (129, 128), (2, 6): (168, 167), (3, 4): (158, 157),
+                      (3, 8): (168, 168)},
+    },
+    "default": {
+        "K1": {1: (37, 50), 2: (56, 72), 3: (72, 94), 4: (96, 115), 5: (127, 139),
+               6: (128, 168), 7: (160, 190), 8: (168, 216)},
+        "K5": {(1, 3): (104, 95), (2, 5): (142, 128), (2, 6): (158, 162), (3, 8): (208, 191),
+               (3, 9): (216, 201)},
+        "K5-stream": {(2, 6): (128, 128), (3, 8): (127, 127), (4, 10): (128, 128)},
+        "K4": {(1, 2): (69, 89), (1, 3): (96, 94), (2, 3): (96, 119), (2, 6): (168, 168),
+               (3, 4): (121, 161)},
+        "K4-stream": {(2, 3): (111, 109), (2, 6): (146, 146), (3, 4): (135, 127),
+                      (3, 8): (168, 168)},
+    },
+}
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in PRECISIONS:
+        raise ValueError(f"unknown kernel_precision {mode!r}: the fused kernels compute "
+                         f"{PRECISIONS}, and their driver the schedule 'hybrid'")
+
+
+def _registers(name: str, table: dict, key, refine_steps: int, mode: str) -> int:
+    """The registers a thread of instantiation ``key`` of kernel ``name``
+    (K1, K5, K5-stream, K4, K4-stream) takes at precision ``mode``."""
+    regs = table[key][1:] if mode == "highest" else PRECISION_REGISTERS[mode][name][key]
+    return regs[1 if refine_steps > 0 else 0]
+
+
 # the C entries' int parameters, in order (the wrapper passes them so), of
 # K4's as of K5's
-K5_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "lanes", "groups", "rpt_n", "rpt_m",
-           "smem_bytes")
-K5_STREAM_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "lanes", "groups", "rpt_n",
-                  "rpt_m", "panel", "smem_bytes")
+K5_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups", "rpt_n",
+           "rpt_m", "smem_bytes")
+K5_STREAM_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups",
+                  "rpt_n", "rpt_m", "panel", "smem_bytes")
 # "shared": admm_perr_chunk / admm_packed_chunk (K5 / K4, csrc/admm_perr.cu),
 # every rho's fp64 operators in shared memory; "stream":
 # admm_perr_stream_chunk / admm_packed_stream_chunk (the same file), lanes
@@ -446,28 +510,30 @@ def k5_smem_bytes(n: int, m: int, R: int, refine_steps: int, lanes: int, groups:
 
 
 @functools.lru_cache(maxsize=256)
-def _shared_layouts(n: int, m: int, R: int, refine_steps: int, packed: bool = False) -> tuple:
+def _shared_layouts(n: int, m: int, R: int, refine_steps: int, packed: bool = False,
+                    mode: str = "highest") -> tuple:
     """Every (lanes, groups, rpt_n, rpt_m, smem_bytes, per_sm) of K5's
-    shared route (K4's if ``packed``) for this operator shape: whole warps,
-    an instantiation whose rows cover n and m, no more threads than it
-    allows, a block within the card's shared memory."""
-    return tuple(_shared_layouts_of(n, m, R, refine_steps, packed))
+    shared route (K4's if ``packed``) for this operator shape at precision
+    ``mode``: whole warps, an instantiation whose rows cover n and m, no
+    more threads than it allows, a block within the card's shared memory."""
+    return tuple(_shared_layouts_of(n, m, R, refine_steps, packed, mode))
 
 
-def _shared_layouts_of(n, m, R, refine_steps, packed):
+def _shared_layouts_of(n, m, R, refine_steps, packed, mode):
     if not (1 <= n <= MAX_N and 1 <= m <= MAX_DENSE_ROWS):
         return
     table = K4_INSTANCES if packed else K5_INSTANCES
     for lanes in LANES:
         step = max(1, 32 // lanes)
         for groups in range(step, 512 // lanes + 1, step):
-            for (rpt_n, rpt_m), (threads, *registers) in table.items():
+            for (rpt_n, rpt_m), (threads, *_) in table.items():
                 if groups * rpt_n < n or groups * rpt_m < m or lanes * groups > threads:
                     continue
                 smem = k5_smem_bytes(n, m, R, refine_steps, lanes, groups, rpt_n, rpt_m, packed)
                 if smem <= SMEM_LIMIT:
-                    per_sm = blocks_per_sm(lanes * groups, smem,
-                                           registers[1 if refine_steps > 0 else 0])
+                    registers = _registers("K4" if packed else "K5", table, (rpt_n, rpt_m),
+                                           refine_steps, mode)
+                    per_sm = blocks_per_sm(lanes * groups, smem, registers)
                     yield lanes, groups, rpt_n, rpt_m, smem, per_sm
 
 
@@ -518,7 +584,8 @@ def _k4_resident_panel(n: int, m: int, refine_steps: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _stream_layouts(n: int, m: int, refine_steps: int, packed: bool = False) -> tuple:
+def _stream_layouts(n: int, m: int, refine_steps: int, packed: bool = False,
+                    mode: str = "highest") -> tuple:
     """Every (lanes, groups, rpt_n, rpt_m, smem_bytes, per_sm, panel) of
     K5's stream route (K4's if ``packed``): as :func:`_shared_layouts`, with
     the largest panel that fits beside the buffers with one or with two
@@ -540,9 +607,11 @@ def _stream_layouts(n: int, m: int, refine_steps: int, packed: bool = False) -> 
     for lanes in LANES:
         step = max(1, 32 // lanes)
         for groups in range(step, 512 // lanes + 1, step):
-            for (rpt_n, rpt_m), (threads, *registers) in table.items():
+            for (rpt_n, rpt_m), (threads, *_) in table.items():
                 if groups * rpt_n < n or groups * rpt_m < m or lanes * groups > threads:
                     continue
+                registers = _registers("K4-stream" if packed else "K5-stream", table,
+                                       (rpt_n, rpt_m), refine_steps, mode)
                 fixed = k5_stream_smem_bytes(m, lanes, groups, rpt_n, rpt_m, 0)
                 panels = set()
                 for per in (1, 2):  # the largest panel with `per` blocks an SM
@@ -552,8 +621,7 @@ def _stream_layouts(n: int, m: int, refine_steps: int, packed: bool = False) -> 
                     if panel < least:
                         continue
                     smem = k5_stream_smem_bytes(m, lanes, groups, rpt_n, rpt_m, panel)
-                    per_sm = blocks_per_sm(lanes * groups, smem,
-                                           registers[1 if refine_steps > 0 else 0])
+                    per_sm = blocks_per_sm(lanes * groups, smem, registers)
                     if per_sm >= per or panel == max(panels):
                         out.append((lanes, groups, rpt_n, rpt_m, smem, per_sm, panel))
     return tuple(out)
@@ -562,7 +630,7 @@ def _stream_layouts(n: int, m: int, refine_steps: int, packed: bool = False) -> 
 @functools.lru_cache(maxsize=256)  # the driver asks once per chunk
 def k5_plan(n: int, m: int, R: int, refine_steps: int, B: int,
             lanes: Optional[int] = None, groups: Optional[int] = None,
-            route: Optional[str] = None) -> DensePlan:
+            route: Optional[str] = None, mode: str = "highest") -> DensePlan:
     """The layout of a K5 launch for ``B`` lanes, from the shape alone.
 
     The shared route where some layout of it fits (its fp64 operators and
@@ -577,14 +645,16 @@ def k5_plan(n: int, m: int, R: int, refine_steps: int, B: int,
     (:func:`_warp_cost`) counts the warps resident on the SM. A stream
     launch has up to R - 1 more blocks (each rho's partial last one). Ties
     go to more lanes per block. ``lanes``, ``groups`` and ``route`` force a
-    layout (ValueError if it does not fit)."""
-    return _dense_plan(False, n, m, R, refine_steps, B, lanes, groups, route)
+    layout (ValueError if it does not fit). ``mode``, a precision of
+    ``PRECISIONS``, sets the registers the instantiations take; bytes,
+    panels and routes are the same at every precision (8-byte entries)."""
+    return _dense_plan(False, n, m, R, refine_steps, B, lanes, groups, route, mode)
 
 
 @functools.lru_cache(maxsize=256)  # the driver asks once per chunk
 def k4_plan(n: int, m: int, R: int, refine_steps: int, B: int,
             lanes: Optional[int] = None, groups: Optional[int] = None,
-            route: Optional[str] = None) -> DensePlan:
+            route: Optional[str] = None, mode: str = "highest") -> DensePlan:
     """The layout of a K4 launch for ``B`` lanes, as :func:`k5_plan` lays
     out K5's, with K4's instantiations (``K4_INSTANCES``,
     ``K4_STREAM_INSTANCES``) and bytes: on the shared route kia_r in place
@@ -594,12 +664,14 @@ def k4_plan(n: int, m: int, R: int, refine_steps: int, B: int,
     (:func:`k4_resident`). A lane reads per iteration the fp32 A once for
     A'y and A'rho.s and widens it twice (each widening costs about what a
     double's read does: k3_ab.py --kernel K4), K^-1 and kia for xt and its
-    image in one product, and K, K^-1 and kia again per refinement."""
-    return _dense_plan(True, n, m, R, refine_steps, B, lanes, groups, route)
+    image in one product, and K, K^-1 and kia again per refinement.
+    ``mode`` as in :func:`k5_plan`."""
+    return _dense_plan(True, n, m, R, refine_steps, B, lanes, groups, route, mode)
 
 
-def _dense_plan(packed, n, m, R, refine_steps, B, lanes, groups, route) -> DensePlan:
+def _dense_plan(packed, n, m, R, refine_steps, B, lanes, groups, route, mode) -> DensePlan:
     name = "K4" if packed else "K5"
+    _check_mode(mode)
     B = int(B)
     if B < 1:
         raise ValueError(f"{name} takes at least one lane; B={B}")
@@ -618,9 +690,9 @@ def _dense_plan(packed, n, m, R, refine_steps, B, lanes, groups, route) -> Dense
             continue
         grouped = kind == "stream"
         if grouped:
-            layouts = _stream_layouts(n, m, rs, packed)
+            layouts = _stream_layouts(n, m, rs, packed, mode)
         else:
-            layouts = [lay + (0,) for lay in _shared_layouts(n, m, R, rs, packed)]
+            layouts = [lay + (0,) for lay in _shared_layouts(n, m, R, rs, packed, mode)]
         best = None
         for L, G, rpt_n, rpt_m, smem, per_sm, panel in layouts:
             if lanes not in (None, L) or groups not in (None, G):
@@ -663,12 +735,63 @@ def rho_order(idx: Tensor, R: int) -> Tuple[Tensor, Tensor]:
     return order.to(torch.int32), starts
 
 
-def _lane_solver(op: AdmmOperator, idx: Tensor, n: int):
-    """The lane's own K_r^-1 v (or K_r v): all R candidates as one fp64
-    (R*n, n) @ (n, B) matmul, then a per-lane gather, rounded once to
-    fp32."""
+def kernel_mode(config: AdmmConfig) -> str:
+    """The precision a chunk of K1, K2, K4 or K5 computes under ``config``:
+    one of ``PRECISIONS``. "hybrid" is the driver's schedule, resolved per
+    chunk into "bf16x3" or "highest" (:func:`solve_batch_fused`), and never
+    reaches a chunk, as in the JAX package (``admm_pallas._make_dot``);
+    ValueError for it and for an unknown value."""
+    mode = str(config.kernel_precision)
+    if mode == "hybrid":
+        raise ValueError("kernel_precision 'hybrid' is resolved per chunk by the driver")
+    _check_mode(mode)
+    return mode
+
+
+def _count_key(kernel: str, mode: str) -> str:
+    return kernel if mode == "highest" else f"{kernel}-{mode}"
+
+
+def bf16_split(t: Tensor) -> Tuple[Tensor, Tensor]:
+    """The JAX body's split of an fp32 operand for bf16x3: hi = bf16(t),
+    lo = bf16(t - hi), each rounded to nearest even and held (exactly) in
+    fp32; t - hi is exact."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def dot_bf16(M: Tensor, v: Tensor, mode: str) -> Tensor:
+    """M v for a small M (a, K) and lane-last v (K, B) in a bf16 precision,
+    as K1, K2, K4 and K5 form it: "default" one pass bf16(M) bf16(v);
+    "bf16x3" the passes hi.hi, lo.hi and hi.lo of both operands' splits
+    (:func:`bf16_split`; lo.lo is left out), combined hh + (lh + hl) in
+    fp32 as ``admm_pallas._make_dot`` combines them. A product of two bf16
+    values is exact in fp32, so each pass is a sum of exact terms: taken in
+    fp32 from +0 in column order j = 0..K-1, as the kernels take it, the
+    two agree bit for bit."""
+    if mode == "default":
+        ops, vs = M.to(torch.bfloat16).float()[None], v.to(torch.bfloat16).float()[None]
+    elif mode == "bf16x3":
+        (mh, ml), (vh, vl) = bf16_split(M), bf16_split(v)
+        ops, vs = torch.stack([mh, ml, mh]), torch.stack([vh, vh, vl])
+    else:
+        raise ValueError(f"dot_bf16 computes 'bf16x3' or 'default', not {mode!r}")
+    acc = torch.zeros((ops.shape[0], M.shape[0], v.shape[1]), dtype=torch.float32,
+                      device=v.device)
+    for j in range(M.shape[1]):
+        acc = torch.addcmul(acc, ops[:, :, j : j + 1], vs[:, j : j + 1])
+    return acc[0] if mode == "default" else acc[0] + (acc[1] + acc[2])
+
+
+def _lane_solver(op: AdmmOperator, idx: Tensor, n: int, mode: str = "highest"):
+    """The lane's own K_r^-1 v (or K_r v): all R candidates, then a per-lane
+    gather; "highest" as one fp64 (R*n, n) @ (n, B) matmul rounded once to
+    fp32, a bf16 precision by :func:`dot_bf16`."""
     R = int(op.rho_grid.shape[0])
     B = idx.shape[0]
+    if mode != "highest":
+        solve = lambda M, v: _own(dot_bf16(M, v, mode), idx, R)
+        return solve, op.K_invs.reshape(R * n, n), op.Ks.reshape(R * n, n)
     kicat = op.K_invs.reshape(R * n, n).double()
     kcat = op.Ks.reshape(R * n, n).double()
     pick = idx.long().view(1, 1, B).expand(1, n, B)
@@ -695,13 +818,16 @@ def iterate_chunk_diag_T_plain(
     """Plain PyTorch version of K1: all R candidates K_r^-1 rhs as one
     (R*n, n) @ (n, B) matmul, then a per-lane select.
 
-    Like K1, every matrix-vector product is accumulated in fp64 and rounded
-    once to fp32 (the state stays fp32): fp32 accumulation leaves about
-    three times as many h20 lanes above the 1e-6 certificate after tier 1
-    (csrc/admm_diag.cu, "Precision")."""
-    PLAIN_CALLS["K1"] += 1
+    Like K1, at ``config.kernel_precision`` "highest" every matrix-vector
+    product is accumulated in fp64 and rounded once to fp32 (the state
+    stays fp32): fp32 accumulation leaves about three times as many h20
+    lanes above the 1e-6 certificate after tier 1 (csrc/admm_diag.cu,
+    "Precision"); at "bf16x3" or "default" each product is
+    :func:`dot_bf16`'s."""
+    mode = kernel_mode(config)
+    PLAIN_CALLS[_count_key("K1", mode)] += 1
     n = qT.shape[0]
-    solve, kicat, kcat = _lane_solver(op, idx, n)
+    solve, kicat, kcat = _lane_solver(op, idx, n, mode)
     d = torch.diagonal(op.A_s)[:, None]
     il = idx.long()
     rho = op.rho_vecs[il].T  # (n, B)
@@ -740,20 +866,24 @@ def iterate_chunk_mixed_T_plain(
     """Plain PyTorch version of K2, for A_s = [diag(d); A2].
 
     A'y = d.y[:n] + A2' y[n:] and A'(rho.s) split the same way; the
-    K-solve as in K1; st = [d.xt; A2 xt]. Every matrix-vector product (the
-    K-solves and the three A2 products) is accumulated in fp64 and rounded
-    once to fp32, as in K2."""
-    PLAIN_CALLS["K2"] += 1
+    K-solve as in K1; st = [d.xt; A2 xt]. At "highest" every matrix-vector
+    product (the K-solves and the three A2 products) is accumulated in fp64
+    and rounded once to fp32, as in K2; at "bf16x3" or "default" each is
+    :func:`dot_bf16`'s."""
+    mode = kernel_mode(config)
+    PLAIN_CALLS[_count_key("K2", mode)] += 1
     n = qT.shape[0]
-    solve, kicat, kcat = _lane_solver(op, idx, n)
+    solve, kicat, kcat = _lane_solver(op, idx, n, mode)
     d = torch.diagonal(op.A_s[:n, :n])[:, None]
-    a2 = op.A_s[n:].double()  # (m - n, n)
+    a2 = op.A_s[n:] if mode != "highest" else op.A_s[n:].double()  # (m - n, n)
     a2t = a2.T
     il = idx.long()
     rho = op.rho_vecs[il].T  # (m, B)
     rho_inv = op.rho_invs[il].T
 
     def prod(M, v):  # fp64 sums of exact fp32 products, rounded once
+        if mode != "highest":
+            return dot_bf16(M, v, mode)
         return (M @ v.double()).float()
 
     sigma, alpha = float(config.sigma), float(config.alpha)
@@ -817,10 +947,16 @@ def _own(cand: Tensor, idx: Tensor, R: int) -> Tensor:
 
 
 def _iterate_dense_plain(packed, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config):
-    """K4's (packed) or K5's chunk math, lane-last. Each product sums exact
-    fp32 products in fp64 in the kernel's index order and rounds once
-    (``riccati.dot64``); each lane takes its own rho's block of all R
-    candidates. The two differ only in the constraint image st."""
+    """K4's (packed) or K5's chunk math, lane-last. At "highest" each
+    product sums exact fp32 products in fp64 in the kernel's index order
+    and rounds once (``riccati.dot64``), at "bf16x3" or "default" it is
+    :func:`dot_bf16`'s (the operators' entries split as the JAX body
+    splits them: the packed ones, fl(rho_r A) and kia, as entries); each
+    lane takes its own rho's block of all R candidates. The two differ only
+    in the constraint image st."""
+    mode = kernel_mode(config)
+    PLAIN_CALLS[_count_key("K4" if packed else "K5", mode)] += 1
+    dot = dot64 if mode == "highest" else functools.partial(dot_bf16, mode=mode)
     n, m = qT.shape[0], lT.shape[0]
     R = int(op.rho_grid.shape[0])
     if packed:
@@ -833,9 +969,8 @@ def _iterate_dense_plain(packed, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, co
         sat = (op.A_s.T[None] * op.rho_vecs[:, None, :]).reshape(R * n, m)
         kit = op.K_invs.transpose(1, 2).reshape(R * n, n)  # rhs -> xt
         kt = op.Ks.transpose(1, 2).reshape(R * n, n)
-        a = op.A_s.double()
-    at, sat, kit, kt = (M.double() for M in (at, sat, kit, kt))
-    own = lambda M, v: _own(dot64(M, v), idx, R)
+        a = op.A_s
+    own = lambda M, v: _own(dot(M, v), idx, R)
     il = idx.long()
     rho = op.rho_vecs[il].T  # (m, B)
     rho_inv = op.rho_invs[il].T
@@ -843,7 +978,7 @@ def _iterate_dense_plain(packed, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, co
     sigma, alpha = float(config.sigma), float(config.alpha)
     x, s, y, ax = xT, sT, yT, axT
     for _ in range(int(chunk)):
-        rhs = sigma * x - qT - dot64(at, y) + own(sat, s)
+        rhs = sigma * x - qT - dot(at, y) + own(sat, s)
         cs = own(kit, rhs)
         xt, st = cs[:n], cs[n:]
         for _ in range(int(config.refine_steps)):
@@ -852,7 +987,7 @@ def _iterate_dense_plain(packed, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, co
             if packed:
                 st = st + corr[n:]
         if not packed:
-            st = dot64(a, xt)
+            st = dot(a, xt)
         x_new = alpha * xt + (1.0 - alpha) * x
         v = alpha * st + (1.0 - alpha) * s
         s_new = torch.clamp(v + rho_inv * y, lT, uT)
@@ -879,7 +1014,6 @@ def iterate_chunk_dense_packed_T_plain(
     dense A_s: GEMM 1 gives A'y and A' diag(rho_r) s from rhs1, GEMM 2 the
     lane's xt and its image st = rhs K_r^-1 A' from wrow's blocks; the
     refinement corrects both through K_r (kcat) and wrow."""
-    PLAIN_CALLS["K4"] += 1
     return _iterate_dense_plain(True, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config)
 
 
@@ -899,7 +1033,6 @@ def iterate_chunk_dense_perr_T_plain(
     """Plain PyTorch version of K5 (``admm_pallas._iterate_kernel_perr``),
     for a dense A_s: A'y, A' diag(rho_r) s, xt = rhs K_r^-1, the refinement
     through K_r, then st = A xt."""
-    PLAIN_CALLS["K5"] += 1
     return _iterate_dense_plain(False, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config)
 
 
@@ -932,7 +1065,8 @@ def _state_args(n, m, B, qT, lT, uT, idx, xT, sT, yT, axT):
 def _launch(kernel: str, entry: str, args, outs, ints, floats=()):
     """Call the C entry ``entry`` with the tensors' pointers, ``ints`` and
     ``floats`` on the current stream; raise on a non-zero cudaError_t,
-    count the launch otherwise."""
+    count the launch under ``kernel`` (with its precision: "K1-bf16x3")
+    otherwise."""
     dev = args[0][1].device
     lib = _build.load_kernels()
     with torch.cuda.device(dev):
@@ -952,8 +1086,9 @@ def _launch_k1(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
     n, B = qT.shape
     R = int(op.rho_grid.shape[0])
     rs = int(config.refine_steps)
+    mode = kernel_mode(config)
     if plan is None:
-        plan = k1_plan(n, R, rs, B)
+        plan = k1_plan(n, R, rs, B, mode=mode)
     f = torch.float32
     args = [
         ("K_invs", op.K_invs, (R, n, n), f),
@@ -964,9 +1099,10 @@ def _launch_k1(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
     ] + _state_args(n, n, B, qT, lT, uT, idx, xT, sT, yT, axT)
     _check_args("K1", args, qT.device)
     outs = [torch.empty_like(xT) for _ in range(4)]
-    ints = dict(n=n, B=B, R=R, chunk=int(chunk), refine_steps=rs, **plan._asdict())
-    return _launch("K1", "admm_diag_chunk", args, outs, [ints[k] for k in K1_INTS],
-                   (float(config.sigma), float(config.alpha)))
+    ints = dict(n=n, B=B, R=R, chunk=int(chunk), refine_steps=rs,
+                mode=PRECISIONS.index(mode), **plan._asdict())
+    return _launch(_count_key("K1", mode), "admm_diag_chunk", args, outs,
+                   [ints[k] for k in K1_INTS], (float(config.sigma), float(config.alpha)))
 
 
 def _launch_k2(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
@@ -975,8 +1111,9 @@ def _launch_k2(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
     m = lT.shape[0]
     R = int(op.rho_grid.shape[0])
     rs = int(config.refine_steps)
+    mode = kernel_mode(config)
     if plan is None:
-        plan = k2_plan(n, m, R, rs, B)
+        plan = k2_plan(n, m, R, rs, B, mode=mode)
     f = torch.float32
     args = [
         ("K_invs", op.K_invs, (R, n, n), f),
@@ -988,9 +1125,10 @@ def _launch_k2(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
     ] + _state_args(n, m, B, qT, lT, uT, idx, xT, sT, yT, axT)
     _check_args("K2", args, qT.device)
     outs = [torch.empty_like(xT)] + [torch.empty_like(sT) for _ in range(3)]
-    ints = dict(n=n, m=m, B=B, R=R, chunk=int(chunk), refine_steps=rs, **plan._asdict())
-    return _launch("K2", "admm_mixed_chunk", args, outs, [ints[k] for k in K2_INTS],
-                   (float(config.sigma), float(config.alpha)))
+    ints = dict(n=n, m=m, B=B, R=R, chunk=int(chunk), refine_steps=rs,
+                mode=PRECISIONS.index(mode), **plan._asdict())
+    return _launch(_count_key("K2", mode), "admm_mixed_chunk", args, outs,
+                   [ints[k] for k in K2_INTS], (float(config.sigma), float(config.alpha)))
 
 
 def _launch_k4(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
@@ -1012,34 +1150,40 @@ def _launch_dense(packed, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, p
     m = lT.shape[0]
     R = int(op.rho_grid.shape[0])
     rs = int(config.refine_steps)
+    mode = kernel_mode(config)
     if plan is None:
-        plan = (k4_plan if packed else k5_plan)(n, m, R, rs, B)
+        plan = (k4_plan if packed else k5_plan)(n, m, R, rs, B, mode=mode)
     f, i32 = torch.float32, torch.int32
     state = _state_args(n, m, B, qT, lT, uT, idx, xT, sT, yT, axT)
     outs = [torch.empty_like(xT)] + [torch.empty_like(sT) for _ in range(3)]
-    ints = dict(n=n, m=m, B=B, R=R, chunk=int(chunk), refine_steps=rs, **plan._asdict())
+    ints = dict(n=n, m=m, B=B, R=R, chunk=int(chunk), refine_steps=rs,
+                mode=PRECISIONS.index(mode), **plan._asdict())
     floats = (float(config.sigma), float(config.alpha))
+    name = _count_key(name, mode)
     if plan.route == "stream":
-        # one rho's operators a block, widened once per launch: K^-1 (K4:
-        # with kia below it) and K transposed, A and fl(rho_r A) (one fp32
-        # product), in fp64 with rows padded to an even stride for 16-byte
-        # copies
+        # one rho's operators a block, as the kernel's 8-byte entries
+        # (:func:`operator_entries`), once per launch: K^-1 (K4: with kia
+        # below it) and K transposed, A and fl(rho_r A) (one fp32 product),
+        # rows padded to an even stride for 16-byte copies
         ldg = n + (n & 1)
-        f64 = lambda M: torch.nn.functional.pad(M, (0, ldg - n)).double().contiguous()
-        kinv64 = f64(op.K_invs.transpose(1, 2))
+        ent = lambda M: operator_entries(torch.nn.functional.pad(M, (0, ldg - n)), mode)
+        shape = lambda *dims: dims if mode == "highest" else dims + (2,)
+        dt = torch.float64 if mode == "highest" else f
+        kinv_e = ent(op.K_invs.transpose(1, 2))
         if packed:
-            first = ("[K_invs'; kia'] (fp64)",
-                     torch.cat([kinv64, f64(_kia(op).transpose(1, 2))], dim=1), (R, n + m, ldg))
+            first = ("[K_invs'; kia'] (entries)",
+                     torch.cat([kinv_e, ent(_kia(op).transpose(1, 2))], dim=1),
+                     shape(R, n + m, ldg))
         else:
-            first = ("K_invs' (fp64)", kinv64, (R, n, ldg))
+            first = ("K_invs' (entries)", kinv_e, shape(R, n, ldg))
         order, starts = rho_order(idx, R)
         args = [
-            first + (torch.float64,),
-            ("Ks' (fp64)", f64(op.Ks.transpose(1, 2)) if rs > 0 else kinv64, (R, n, ldg),
-             torch.float64),
-            ("A_s (fp64)", f64(op.A_s), (m, ldg), torch.float64),
-            ("fl(rho A_s) (fp64)", f64(op.rho_vecs[:, :, None] * op.A_s[None]), (R, m, ldg),
-             torch.float64),
+            first + (dt,),
+            ("Ks' (entries)", ent(op.Ks.transpose(1, 2)) if rs > 0 else kinv_e,
+             shape(R, n, ldg), dt),
+            ("A_s (entries)", ent(op.A_s), shape(m, ldg), dt),
+            ("fl(rho A_s) (entries)", ent(op.rho_vecs[:, :, None] * op.A_s[None]),
+             shape(R, m, ldg), dt),
             ("rho_vecs", op.rho_vecs, (R, m), f),
             ("rho_invs", op.rho_invs, (R, m), f),
         ] + state[:3] + [("order", order, (B,), i32), ("starts", starts, (R + 1,), i32)] + state[4:]
@@ -1057,6 +1201,20 @@ def _launch_dense(packed, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, p
     _check_args(name, args, qT.device)
     entry = "admm_packed_chunk" if packed else "admm_perr_chunk"
     return _launch(name, entry, args, outs, [ints[k] for k in K5_INTS], floats)
+
+
+def operator_entries(M: Tensor, mode: str) -> Tensor:
+    """An fp32 operator as the 8-byte entries K4's and K5's stream route
+    reads from device memory: fp64 at "highest"; at "bf16x3" the pair
+    (hi, lo) of :func:`bf16_split`, at "default" (bf16(M), 0), as fp32 in
+    a trailing axis of 2. Every precision's entry takes 8 bytes, so the
+    panels and their strides are the same in each."""
+    if mode == "highest":
+        return M.double().contiguous()
+    hi, lo = bf16_split(M)
+    if mode == "default":
+        lo = torch.zeros_like(hi)
+    return torch.stack([hi, lo], dim=-1).contiguous()
 
 
 def _dispatch(kernel, launch, plain, args):
@@ -1164,16 +1322,8 @@ def iterate_chunk_dense_perr_T(
 
 def _check_precision(config: AdmmConfig) -> None:
     mode = str(config.kernel_precision)
-    if mode in ("bf16x3", "default", "hybrid"):
-        raise NotImplementedError(
-            f"kernel_precision={mode!r} is not ported yet (ROADMAP Queue 2, "
-            "'bf16x3 / default / hybrid kernel precisions'); use 'highest'"
-        )
-    if mode != "highest":
-        raise ValueError(
-            f"unknown kernel_precision {mode!r}; valid: 'highest' (ported), "
-            "'bf16x3', 'default', 'hybrid'"
-        )
+    if mode != "hybrid":  # the driver's schedule over "bf16x3" and "highest"
+        _check_mode(mode)
 
 
 ChunkFn = Callable[..., Tuple[Tensor, Tensor, Tensor, Tensor]]
@@ -1227,7 +1377,17 @@ def _solve_batch_fused_T(
     matmul; the box block of A'y and Ax is elementwise, the dense tail A2,
     or a dense A whole, an fp32 matmul), the OSQP per-lane rho rule, the
     NaN guard and the freezing of converged lanes. One host read of
-    ``done`` per chunk."""
+    ``done`` per chunk.
+
+    Under ``kernel_precision="hybrid"`` (``admm_pallas.py:1093-1115`` and
+    ``:1272-1300``) a chunk runs "highest" when the worst open lane's
+    max(r_prim, r_dual), +inf before the first check, is at most
+    ``hybrid_switch_residual``, else "bf16x3"; the same host read carries
+    that switch. The diagnostics are fp32 in every precision; at any but
+    "highest" a lane is certified only where the primal test also holds
+    on the exact image A x, not only on the chunks' running image ax (a
+    divergence from the JAX driver, which tests ax alone: ROADMAP Queue
+    3). The rho rule and the reported residuals are JAX's."""
     B = q.shape[0]
     n = op.A_s.shape[1]
     R = int(op.rho_grid.shape[0])
@@ -1287,6 +1447,10 @@ def _solve_batch_fused_T(
         conv = (r_prim <= config.eps_abs + config.eps_rel * prim_norm) & (
             r_dual <= config.eps_abs + config.eps_rel * dual_norm
         )
+        if bf16_image:  # the certificate also holds on the exact image A x
+            Ax = a_apply(x)
+            conv = conv & ((E_inv * (Ax - s)).abs().amax(0) <= config.eps_abs + config.eps_rel
+                           * torch.maximum((E_inv * Ax).abs().amax(0), (E_inv * s).abs().amax(0)))
         ratio = (r_prim / prim_norm.clamp_min(1e-12)) / (
             r_dual / dual_norm.clamp_min(1e-12)
         ).clamp_min(1e-12)
@@ -1308,9 +1472,28 @@ def _solve_batch_fused_T(
     done = torch.zeros((B,), dtype=torch.bool, device=q.device)
     bad = torch.zeros_like(done)
     iters = torch.zeros((B,), dtype=torch.int32, device=q.device)
+    # a bf16 precision's chunks carry the constraint image ax from their
+    # bf16 products, and JAX's test of r_prim on it certified lanes whose
+    # A x - s was 3.3 x the bar (dense h20 equality QP, bf16x3; PERF.md
+    # section 6): there the test also holds on A x in fp32
+    bf16_image = str(config.kernel_precision) != "highest"
+    hybrid = str(config.kernel_precision) == "hybrid"
+    if hybrid:  # the chunk's config by whether the open lanes reached the switch
+        by_switch = {flag: dataclasses.replace(config, kernel_precision=mode)
+                     for flag, mode in ((True, "highest"), (False, "bf16x3"))}
+    cfg = config
     it = 0
-    while it < config.max_iter and not bool(done.all()):
-        x2, s2, y2, ax2 = chunk_fn(op, qT, lT, uT, idx, x, s, y, ax, ck, config)
+    while it < config.max_iter:
+        if hybrid:
+            r_active = torch.where(done, 0.0, torch.maximum(rp, rd)).amax()
+            finished, below = torch.stack(
+                [done.all(), r_active <= config.hybrid_switch_residual]).tolist()
+            cfg = by_switch[below]
+        else:
+            finished = bool(done.all())
+        if finished:
+            break
+        x2, s2, y2, ax2 = chunk_fn(op, qT, lT, uT, idx, x, s, y, ax, ck, cfg)
         # frozen lanes keep their first-converged state (exact iteration counts)
         keep = done[None, :]
         x2 = torch.where(keep, x, x2)

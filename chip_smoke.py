@@ -72,7 +72,15 @@ device=card)``, then ``parallel`` and ``step``):
   ``step``s, the card against the CPU), and its doubling form under
   ``RiccatiConfig(parallel_sweeps=True)`` on suite config 6 (h500, 1024
   states, the per-lane engine against itself on K3) and in a 20-step h500
-  closed loop at B = 1.
+  closed loop at B = 1;
+- the kernel precisions (``precision_phase``): K1, K2, K4 and K5 at
+  "bf16x3" and "default" against their plain versions at the main path's
+  shapes and on both dense routes, each timed beside "highest"; the
+  headline tier-1 cell, the K2 state box and the dense cells solved under
+  every ``kernel_precision``, each certified lane's residuals recomputed in
+  fp64 from the timed solve's own z, y and s. A bf16 precision's bound
+  takes its passes at the bf16 tensor-core rate; ``fp32_floor_ms`` beside
+  it is this design's floor, the passes as fp32 multiply-adds.
 
 Phases (any failure raises and exits non-zero):
 1. the card: its name, count, and power limit from nvidia-smi;
@@ -127,6 +135,7 @@ printing them when no card is visible or when the script stands outside
 its repository.
 """
 
+import contextlib
 import functools
 import json
 import os
@@ -148,6 +157,7 @@ CONV_OK = 0.999  # in-program converged fraction of the h20 and h500 paths
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 67e12
 FP32_OPS_PER_S = 67e12  # outside the tensor cores
+BF16_OPS_PER_S = 989e12  # bf16 products summed in fp32, on the tensor cores
 SM_COUNT = 132
 
 B_MAIN, BUCKET, B_CL, CL_STEPS = 16384, 512, 4096, 5
@@ -169,6 +179,12 @@ B_MILP, REPS_MILP = 32, 3
 CTRL_CONV_OK = 0.99  # converged fraction of the fuzzy and economic cells
 # the Riccati sweeps' phase: K3W past (32, 16) and the doubling sweeps
 REPS_SWEEPS, WIDE_STEPS, H500_STEPS, B_SWEEPS_CPU, H_SWEEPS = 3, 10, 20, 64, 500
+# the kernel precisions' phase: bf16x3 u against highest on the headline
+# (the JAX package's own bar, tests/test_pallas_fused.py), and the slack on
+# a certified lane's residuals recomputed in fp64 from the returned fp32
+# solution (highest's own reach 1.19 x the bar there: its running image
+# ax against A z)
+PRECISIONS, REPS_PREC, U_BF16X3, CERT_SLACK = ("highest", "bf16x3", "default", "hybrid"), 3, 5e-3, 2.0
 
 
 def log(**kv):
@@ -205,8 +221,15 @@ def ptxas_summary(report: str):
                 ("admm_perr", "K5"), ("mixed", "K2"), ("", "K1"),
             ) if key in name)
             targs = re.findall(r"L[ib](\d+)E", name)  # int and bool arguments
-            if kind.startswith("K5") and targs[-1] == "1":  # PACKED: K4
-                kind = kind.replace("K5", "K4")
+            if kind in ("K1", "K2", "K5", "K5 stream"):
+                # the precision comes last (sources before it have none)
+                flags, precision = targs, "highest"
+                if len(targs) == {"K1": 5, "K2": 3}.get(kind, 7):
+                    flags, precision = targs[:-1], ("highest", "bf16x3", "default")[int(targs[-1])]
+                if kind.startswith("K5") and flags[-1] == "1":  # PACKED: K4
+                    kind = kind.replace("K5", "K4")
+                if precision != "highest":
+                    kind = f"{kind} {precision}"
             rows.append(dict(kernel=kind, template=[int(a) for a in targs],
                              registers=int(m.group(1)), spill_bytes=spill))
             name, spill = None, 0
@@ -301,16 +324,22 @@ def suite6_x0s(B):
     return np.clip(0.65 + 0.1 * rng.standard_normal((B, 4)), 0.3, 1.3).astype(np.float32)
 
 
-def chunk_bound(n, m, B, R, refine_steps, chunk, kernel):
+def chunk_bound(n, m, B, R, refine_steps, chunk, kernel, mode="highest"):
     """Least milliseconds of one chunk of K1, K2, K4 or K5 on the card: each
     input read and each output written once (the operators once, q, l, u,
     idx and the state x, s, y, ax in, the state out) over HBM bandwidth,
-    against the fp64 multiply-adds of its products over the fp64 peak,
-    per lane and iteration: K1 the K-solves, (1 + 2 refine) n^2; K2 those
-    and the three A2 products, 3 (m - n) n; K5 A'y, A' rho s, A xt and the
-    K-solves, 3 m n + (1 + 2 refine) n^2; K4 A'y, A' rho s and the packed
-    solve with its image, 2 m n + n (n + m) + refine (n^2 + n (n + m)).
-    Returns (bound_ms, bound_by)."""
+    against the multiply-adds of its products, per lane and iteration: K1
+    the K-solves, (1 + 2 refine) n^2; K2 those and the three A2 products,
+    3 (m - n) n; K5 A'y, A' rho s, A xt and the K-solves, 3 m n + (1 + 2
+    refine) n^2; K4 A'y, A' rho s and the packed solve with its image, 2 m
+    n + n (n + m) + refine (n^2 + n (n + m)). At "highest" they are fp64
+    multiply-adds over the fp64 peak; at "bf16x3" three bf16 multiply-adds
+    each (its passes) and at "default" one, summed in fp32, over the bf16
+    tensor-core peak, the rate the TPU body's MXU passes have on this card.
+    Returns (bound_ms, bound_by, floor_ms): floor_ms is this design's
+    floor at a bf16 precision, its passes as fp32 multiply-adds outside
+    the tensor cores (as the kernels take them) against the same bytes,
+    else None."""
     stacks = 2 if refine_steps else 1
     if kernel in ("K1", "K2"):
         ms = m - n
@@ -324,9 +353,11 @@ def chunk_bound(n, m, B, R, refine_steps, chunk, kernel):
             macs = 3 * m * n + (1 + 2 * refine_steps) * n * n
     lane = (2 * n + 5 * m + 1) + (n + 3 * m)
     nbytes = 4 * (operator + lane * B)
-    ops = 2 * macs * B * chunk
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP64_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+    ops = 2 * macs * B * chunk * {"highest": 1, "bf16x3": 3, "default": 1}[mode]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / (FP64_OPS_PER_S if mode == "highest" else BF16_OPS_PER_S)
+    floor = None if mode == "highest" else max(t_bytes, ops / FP32_OPS_PER_S) * 1e3
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations"), floor
 
 
 def _bound(nbytes, fp64_ops, fp32_ops=0):
@@ -617,16 +648,18 @@ def sm_clock_hz():
 
 def compare_kernel(ctrl, B, seed, x0s_fn, plain_reps=REPS, single_index=False):
     """A kernel against its plain version at one shape, on the card; the
-    kernel is K1, K2, K4 or K5 as the controller's operator says, and must
-    equal it bit for bit (max_ulps 0). Each logs its plan; every kernel is
-    timed as a CUDA graph (``ms``) and through its wrapper
-    (``wrapper_ms``). Returns a record."""
+    kernel is K1, K2, K4 or K5 as the controller's operator says, at the
+    precision its config's kernel_precision names, and must equal it bit
+    for bit (max_ulps 0). Each logs its plan; every kernel is timed as a
+    CUDA graph (``ms``) and through its wrapper (``wrapper_ms``). Returns
+    a record."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
 
     op, cfg = ctrl.engine.op, ctrl.engine.config
     R = int(op.rho_grid.shape[0])
     m, n = (int(d) for d in op.A_s.shape)
     rs = int(cfg.refine_steps)
+    mode = admm_fused.kernel_mode(cfg)
     kernel = admm_fused.chunk_fn_for(op, config=cfg)
     plain = admm_fused.chunk_fn_for(op, plain=True, config=cfg)
     args = kernel_inputs(ctrl, B, seed, x0s_fn, single_index)
@@ -639,14 +672,18 @@ def compare_kernel(ctrl, B, seed, x0s_fn, plain_reps=REPS, single_index=False):
         rho_index="single" if single_index else "random",
         max_abs_err=abs_err, max_rel_err=rel_err, max_ulps=ulps,
     )
+    if mode != "highest":
+        rec["precision"] = mode
     if name == "K1":
-        plan = admm_fused.k1_plan(n, R, rs, B)
+        plan = admm_fused.k1_plan(n, R, rs, B, mode=mode)
     elif name == "K2":
-        plan = admm_fused.k2_plan(n, m, R, rs, B)
+        plan = admm_fused.k2_plan(n, m, R, rs, B, mode=mode)
     else:
-        plan = (admm_fused.k4_plan if name == "K4" else admm_fused.k5_plan)(n, m, R, rs, B)
+        plan = (admm_fused.k4_plan if name == "K4" else admm_fused.k5_plan)(n, m, R, rs, B,
+                                                                           mode=mode)
     log(phase=f"{name.lower()}_plan", n=n, m=m, R=R, refine_steps=rs, B=B,
-        rho_index=rec["rho_index"], **plan._asdict())
+        rho_index=rec["rho_index"], **({} if mode == "highest" else dict(precision=mode)),
+        **plan._asdict())
     rec["plan"] = plan._asdict()
     if rel_err > SHAPES_OK_REL or ulps != 0:
         raise RuntimeError(f"{kernel.__name__} disagrees with its plain version: {rec}")
@@ -655,7 +692,9 @@ def compare_kernel(ctrl, B, seed, x0s_fn, plain_reps=REPS, single_index=False):
     rec["wrapper_ms"] = cuda_ms(lambda: kernel(*args))
     rec["smem_floor_ms"] = smem_floor_ms(n, m, R, rs, B, chunk, name)
     rec["plain_ms"] = cuda_ms(lambda: plain(*args), reps=plain_reps)
-    rec["bound_ms"], rec["bound_by"] = chunk_bound(n, m, B, R, rs, chunk, name)
+    rec["bound_ms"], rec["bound_by"], floor = chunk_bound(n, m, B, R, rs, chunk, name, mode)
+    if floor is not None:
+        rec["fp32_floor_ms"] = floor
     return rec
 
 
@@ -1635,7 +1674,8 @@ def general_phase(dev, plant, ctrl, ctrl_def, ctrl_h500, suite_cfg, x0s, x_h500,
     - the general engine on the card against the same function on the CPU
       (256 lanes of the h20 state box, at least 85% of them converged on
       both): the check that catches a TF32 product. Returns the K3
-      launches of each Riccati path."""
+      launches of each Riccati path and the last fused solve of each
+      fused-against-general cell."""
     import dataclasses
 
     import numpy as np
@@ -1693,6 +1733,7 @@ def general_phase(dev, plant, ctrl, ctrl_def, ctrl_h500, suite_cfg, x0s, x_h500,
             converged_fraction=int(d.n_converged) / B, mean_iterations=float(d.mean_iterations))
 
     lap("step_loop and latency")
+    fused_sols = {}
     for cell, c, x, N in (("h20-default-B4096", ctrl_def, x0s[:B_CL], 20),
                           ("h20-tier1-B16384", ctrl, x0s[:B_MAIN], 20),
                           ("riccati-h500-B1024", ctrl_h500, x_h500, 500)):
@@ -1703,6 +1744,8 @@ def general_phase(dev, plant, ctrl, ctrl_def, ctrl_h500, suite_cfg, x0s, x_h500,
                          ("general", parallel.solve_batch), ("fused", parallel.solve_batch_fused)):
             (sol, _, _, d), lat = timed(lambda c=c, x=x, fn=fn: fn(c, x), REPS_AB)
             check_solution(sol, B, N, f"{cell} {path}")
+            if path == "fused":
+                fused_sols[cell] = sol
             p50, p99 = percentiles_ms(lat)
             log(phase="fused_vs_general", cell=cell, path=path, B=B,
                 R=len(c.engine.op.rho_grid), solves_per_s=B / float(np.median(lat)),
@@ -1793,7 +1836,147 @@ def general_phase(dev, plant, ctrl, ctrl_def, ctrl_h500, suite_cfg, x0s, x_h500,
         raise RuntimeError("the general engine on the card disagrees with the CPU")
     lap("card_vs_cpu")
     log(phase="general_seconds", **seconds)
-    return k3
+    return k3, fused_sols
+
+
+def with_precision(ctrl, mode):
+    """The controller with its AdmmConfig's kernel_precision set."""
+    import dataclasses
+
+    cfg = dataclasses.replace(ctrl.engine.config, kernel_precision=mode)
+    return ctrl.replace(engine=dataclasses.replace(ctrl.engine, config=cfg))
+
+
+@contextlib.contextmanager
+def first_fused_solve():
+    """A context in which ``ops.admm_fused.solve_batch_fused``, the fused
+    solve under parallel.solve_batch_fused and solve_batch_auto, keeps the QP
+    vectors (q, l, u) and the solution (z, y, s, status) of its first call
+    in the dict it yields, and returns as before: those of the solve that
+    ``timed`` returns."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    inner, first = admm_fused.solve_batch_fused, {}
+
+    def solve(op, q, l, u, *args, **kwargs):
+        out = inner(op, q, l, u, *args, **kwargs)
+        if not first:
+            first.update(q=q, l=l, u=u, z=out[0], y=out[1], s=out[2], status=out[3])
+        return out
+
+    admm_fused.solve_batch_fused = solve
+    try:
+        yield first
+    finally:
+        admm_fused.solve_batch_fused = inner
+
+
+def certificate_ratios(ctrl, solved):
+    """For each lane the fused solve ``solved`` (a :func:`first_fused_solve`
+    record) certifies, its primal and dual residuals recomputed in fp64
+    from the returned z, y and s, over the bar the driver holds them to
+    (eps_abs + eps_rel times the norms). Returns (certified lanes, the
+    worst ratio of either)."""
+    import torch
+
+    qp, cfg = ctrl.engine.qp, ctrl.engine.config
+    P, A = qp.P.double(), qp.A.double()
+    z, y, s, q = (solved[k].double() for k in ("z", "y", "s", "q"))
+    Az, Pz, Aty = z @ A.T, z @ P, y @ A
+    amax = lambda t: t.abs().amax(1)
+    bar_p = cfg.eps_abs + cfg.eps_rel * torch.maximum(amax(Az), amax(s))
+    bar_d = cfg.eps_abs + cfg.eps_rel * torch.maximum(torch.maximum(amax(Pz), amax(Aty)),
+                                                      amax(q))
+    ratio = torch.maximum(amax(Az - s) / bar_p, amax(Pz + q + Aty) / bar_d)
+    ok = solved["status"] == 0
+    return int(ok.sum()), float(ratio[ok].max()) if bool(ok.any()) else 0.0
+
+
+def precision_phase(dev, kernels, cells):
+    """The kernel precisions of K1, K2, K4 and K5 on the card
+    (AdmmConfig.kernel_precision: "bf16x3", "default" and the driver's
+    "hybrid" schedule beside "highest").
+
+    - Each kernel at "bf16x3" and "default" against its plain version, bit
+      for bit (max_ulps 0), at the shapes of the "highest" rows of PERF.md
+      section 6 and on both routes of K4 and K5: ``kernels`` maps a label
+      to (controller, B, initial states); each is graph-timed beside
+      "highest"'s time at the same shape in the same call, with its bound.
+    - Every cell of ``cells`` (label -> (controller, initial states, solve
+      function, the earlier phases' "highest" solution of the same QPs))
+      solved under each precision, counted from zero: converged fraction at
+      the config's eps, mean and max iterations, p50, the chunks run at each
+      precision a solve, max |u - u_highest|, and the lanes certified with
+      their residuals recomputed in fp64.
+    Fails if a kernel differs from its plain version, if bf16x3's u lies
+    more than 5e-3 from highest's on the headline cell, if a "highest"
+    solve's statuses or iteration counts differ from the earlier phases'
+    same solve, or if any precision certifies a lane whose recomputed
+    residual exceeds twice its bar. Returns (the kernel records by
+    kernel and precision, the launches by count key)."""
+    import numpy as np
+    import torch
+
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    t0 = time.perf_counter()
+    records = {}
+    for label, (ctrl, B, x0s_fn) in kernels.items():
+        hi_args = kernel_inputs(ctrl, B, 50, x0s_fn)
+        hi_fn = admm_fused.chunk_fn_for(ctrl.engine.op, config=ctrl.engine.config)
+        highest_ms = cuda_graph_ms(lambda: hi_fn(*hi_args))
+        for mode in ("bf16x3", "default"):
+            rec = compare_kernel(with_precision(ctrl, mode), B, 50, x0s_fn, plain_reps=1)
+            rec.update(shape=label, highest_ms=highest_ms)
+            log(phase="precision_vs_plain", **rec)
+            records.setdefault((rec["kernel"], mode), []).append(rec)
+    t_kernels = time.perf_counter() - t0
+
+    admm_fused.reset_counts()
+    for cell, (ctrl, x0s, solve, ref) in cells.items():
+        B = int(x0s.shape[0])
+        u_hi = None
+        for mode in PRECISIONS:
+            c = with_precision(ctrl, mode)
+            before = dict(admm_fused.LAUNCHES)
+            with first_fused_solve() as solved:
+                (sol, _, _, diag), lat = timed(lambda c=c: solve(c, x0s), REPS_PREC)
+            check_solution(sol, B, c.engine.qp.N, f"{cell} {mode}")
+            chunks = {k: (admm_fused.LAUNCHES[k] - before[k]) / (REPS_PREC + 1)
+                      for k in before if admm_fused.LAUNCHES[k] > before[k]}
+            if mode == "highest":
+                u_hi = sol.u
+                same = bool(torch.equal(sol.status, ref.status)
+                            and torch.equal(sol.iterations, ref.iterations))
+                if not same:
+                    raise RuntimeError(f"{cell}: the highest solve differs from the earlier "
+                                       "phases' same solve")
+            certified, worst = certificate_ratios(c, solved)
+            du = float((sol.u - u_hi).abs().max())
+            rec = dict(phase="precision_solve", cell=cell, precision=mode, B=B,
+                       converged_fraction=int(diag.n_converged) / B,
+                       mean_iterations=float(diag.mean_iterations),
+                       max_iterations=int(diag.max_iterations),
+                       batch_p50_ms=float(np.percentile(lat, 50)) * 1e3,
+                       chunks_per_solve=chunks, max_abs_u_diff_vs_highest=du,
+                       certified=certified, worst_certified_residual_over_bar=worst)
+            log(**rec)
+            if worst > CERT_SLACK:
+                raise RuntimeError(f"{cell} {mode} certifies a lane above its bar: {rec}")
+            if cell.startswith("h20-tier1") and mode == "bf16x3" and du > U_BF16X3:
+                raise RuntimeError(f"bf16x3 u lies {du} from highest on the headline: {rec}")
+    counts = dict(admm_fused.LAUNCHES)
+    plain = dict(admm_fused.PLAIN_CALLS)
+    log(phase="counts", path="precisions", launches={k: v for k, v in counts.items() if v},
+        plain_calls=plain)
+    if any(plain.values()):
+        raise RuntimeError("the precisions' solves ran a plain version")
+    for kernel in ("K1", "K2", "K4", "K5"):
+        for mode in ("bf16x3", "default"):
+            if counts[f"{kernel}-{mode}"] <= 0:
+                raise RuntimeError(f"the precisions' solves never launched {kernel} at {mode}")
+    log(phase="precision_seconds", kernels=t_kernels, total=time.perf_counter() - t0)
+    return records, counts
 
 
 def main():
@@ -2195,7 +2378,7 @@ def main():
         "dense-sc-h50-B2048": (torch.from_numpy(suite_x0s(B_SLICE)).to(dev), None),
     }
     admm_fused.reset_counts()
-    dense_recs = {}
+    dense_recs, dense_sols = {}, {}
     for cell, c in dense.items():
         x, ref = dense_x0s[cell]
         kind = want[cell]
@@ -2225,6 +2408,7 @@ def main():
             )
         log(**rec)
         dense_recs[cell] = rec
+        dense_sols[cell] = sol_d
 
     dense_counts = {k: admm_fused.LAUNCHES[k] for k in ("K4", "K5")}
     plain_dense = dict(admm_fused.PLAIN_CALLS)
@@ -2250,8 +2434,8 @@ def main():
     # 4e. the general engine, the per-lane Riccati engine and the runtime,
     # counted from zero
     admm_fused.reset_counts()
-    k3_general = general_phase(dev, plant, ctrl, ctrl_def, ctrl_h500, suite, x0s, x_h500,
-                               x_suite)
+    k3_general, fused_sols = general_phase(dev, plant, ctrl, ctrl_def, ctrl_h500, suite, x0s,
+                                           x_h500, x_suite)
     general_counts = dict(admm_fused.LAUNCHES)
     plain_general = dict(admm_fused.PLAIN_CALLS)
     log(phase="counts", path="general", launches=general_counts,
@@ -2277,6 +2461,26 @@ def main():
     # 4h. the Riccati sweeps: K3W past (32, 16) and under parallel_sweeps,
     # with the wide rollout and certificate, counted from zero path by path
     k3w_seq, k3w_dbl, rollout_w, cert_w, k3w_counts = riccati_sweeps_phase(dev)
+
+    # 4i. the kernel precisions: each kernel at bf16x3 and default against
+    # its plain version at the main-path shapes and routes, then the
+    # headline tier 1, the K2 state box and the dense cells under each
+    # precision, counted from zero
+    prec_kernels = {
+        "K1 tier 1": (ctrl, B_MAIN, bench_x0s), "K1 tier 2": (fb, BUCKET, bench_x0s),
+        "K2 state box": (ctrl_sc, B_SLICE, bench_x0s),
+        "K4 equality (shared)": (dense["dense-eq-h20-B2048"], B_SLICE, suite_x0s),
+        "K4 neighborhood (stream)": (dense_nb, B_SLICE, suite_x0s),
+        "K5 h20 state box (shared)": (dense["dense-sc-h20-B2048"], B_SLICE, bench_x0s),
+        "K5 h50 state box (stream)": (dense["dense-sc-h50-B2048"], B_SLICE, suite_x0s),
+    }
+    fused = lambda c, x: parallel.solve_batch_fused(c, x)
+    prec_cells = {
+        "h20-tier1-B16384": (ctrl, x0s, fused, fused_sols["h20-tier1-B16384"]),
+        "state-constrained-B2048": (ctrl_sc, x_bench, parallel.solve_batch_auto, sol_sc),
+        **{cell: (c, dense_x0s[cell][0], fused, dense_sols[cell]) for cell, c in dense.items()},
+    }
+    prec_recs, prec_counts = precision_phase(dev, prec_kernels, prec_cells)
 
     # where the time goes in each cell (after the counts: these launches
     # are not the paths' runs)
@@ -2359,6 +2563,20 @@ def main():
                      k3w_counts["rollout-wide"], rollout_w),
         kernel_entry("riccati_wide_certificate", "riccati_wide.cu", f"{TPU_RICCATI_XLA}:515",
                      k3w_counts["certificate-wide"], cert_w),
+        # the bf16 precisions' instantiations of K1, K2, K4 and K5 (the
+        # precisions' phase)
+        *(dict(kernel_entry(f"{entry} ({kernel}, {mode})", source, f"{TPU_ADMM}:{line}",
+                            prec_counts[f"{kernel}-{mode}"], prec_recs[(kernel, mode)]),
+               highest_ms=prec_recs[(kernel, mode)][0]["highest_ms"],
+               fp32_floor_ms=prec_recs[(kernel, mode)][0]["fp32_floor_ms"],
+               **({"routes": sorted({r["plan"]["route"] for r in prec_recs[(kernel, mode)]})}
+                  if kernel in ("K4", "K5") else {}))
+          for kernel, entry, source, line in (
+              ("K1", "admm_diag_chunk", "admm_diag.cu", 348),
+              ("K2", "admm_mixed_chunk", "admm_mixed.cu", 580),
+              ("K4", "admm_packed_chunk", "admm_perr.cu", 252),
+              ("K5", "admm_perr_chunk", "admm_perr.cu", 778))
+          for mode in ("bf16x3", "default")),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

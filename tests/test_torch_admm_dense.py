@@ -415,12 +415,16 @@ def test_dense_shapes_and_routing(designs):
     with pytest.raises(ValueError, match="kia"):
         admm_fused.packed_operators(op.replace(kia=None))
     m, n = op.A_s.shape
-    for mode in ("bf16x3", "default", "hybrid"):
-        with pytest.raises(NotImplementedError):
-            admm_fused.solve_batch_fused(
-                op, torch.zeros((2, n)), torch.zeros((2, m)), torch.zeros((2, m)),
-                config=dataclasses.replace(cfg, kernel_precision=mode),
-            )
+    for mode in ("bf16x3", "default", "hybrid", "tf32"):  # K5 takes every precision
+        solve = lambda: admm_fused.solve_batch_fused(
+            op, torch.zeros((2, n)), torch.zeros((2, m)), torch.zeros((2, m)),
+            config=dataclasses.replace(cfg, kernel_precision=mode, max_iter=50),
+        )
+        if mode == "tf32":
+            with pytest.raises(ValueError):
+                solve()
+        else:
+            assert bool(torch.isfinite(solve()[0]).all())
 
 
 K5_NS = (1, 7, 40, 64, 100, 128)

@@ -144,10 +144,12 @@ def test_wrapper_rejects_other_precisions_and_shapes(designs):
     _, tc = designs[(40, "R2")]
     op = tc.engine.op
     q = torch.zeros((2, 40))
-    for mode in ("bf16x3", "default", "hybrid"):
-        cfg = TConfig(**CONFIGS["R2"], kernel_precision=mode)
-        with pytest.raises(NotImplementedError):
-            admm_fused.solve_batch_fused(op, q, q, q, config=cfg)
+    # every precision solves (tests/test_torch_admm_precision.py holds them
+    # to JAX); "hybrid" is the driver's schedule, refused by a chunk
+    hybrid = TConfig(**CONFIGS["R2"], kernel_precision="hybrid")
+    idx = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="hybrid"):
+        admm_fused.iterate_chunk_diag_T(op, q.T, q.T, q.T, idx, q.T, q.T, q.T, q.T, 1, hybrid)
     with pytest.raises(ValueError):
         admm_fused.solve_batch_fused(
             op, q, q, q, config=TConfig(**CONFIGS["R2"], kernel_precision="tf32")

@@ -207,10 +207,13 @@ def test_k2_shapes_and_precisions(designs):
     m, n = op.A_s.shape
     q = torch.zeros((2, n))
     lu = torch.zeros((2, m))
-    for mode in ("bf16x3", "default", "hybrid"):
+    for mode in ("bf16x3", "default", "hybrid"):  # K2 takes every precision
         cfg = TConfig(**CONFIGS["R5"], kernel_precision=mode)
-        with pytest.raises(NotImplementedError):
-            admm_fused.solve_batch_fused(op, q, lu, lu, config=cfg)
+        z, *_ = admm_fused.solve_batch_fused(op, q, lu, lu, config=cfg)
+        assert bool(torch.isfinite(z).all())
+    with pytest.raises(ValueError):
+        admm_fused.solve_batch_fused(op, q, lu, lu,
+                                     config=TConfig(**CONFIGS["R5"], kernel_precision="tf32"))
     # the slice's shapes (n = 40; m = 44, 52, 120, 132 at R=5/refine 1;
     # m = 120 at tier 2's R=4/refine 2) fit one block's shared memory
     for m2 in (44, 52, 120, 132):

@@ -274,3 +274,31 @@ def test_k4_entries_take_the_plan(entry, ints):
     assert sig == "p" * arrays + "i" * len(getattr(admm_fused, ints)) + "ff" + "p"
     if entry == "admm_packed_chunk":
         assert params[:4] == ["kinv", "kmat", "kia", "a"]
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "default"])
+@pytest.mark.parametrize("name,source,macro,keys", [
+    ("K1", "admm_diag.cu", "MPC_K1_INSTANCES", 1),
+    ("K5", "admm_perr.cu", "MPC_K5_INSTANCES", 2),
+    ("K5-stream", "admm_perr.cu", "MPC_K5_STREAM_INSTANCES", 2),
+    ("K4", "admm_perr.cu", "MPC_K4_INSTANCES", 2),
+    ("K4-stream", "admm_perr.cu", "MPC_K4_STREAM_INSTANCES", 2),
+])
+def test_precision_registers_fit_the_budgets(name, source, macro, keys, mode):
+    """Each bf16 precision instantiates the same rows per thread under the
+    same __launch_bounds__ budgets as "highest": the registers the plans
+    count at that precision (admm_fused.PRECISION_REGISTERS) cover every
+    instantiation and fit its budgets."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    text = open(os.path.join(_build.CSRC_DIR, source)).read()
+    body = re.search(rf"#define {macro}\(X\)((?:.*\\\n)*.*)", text).group(1)
+    rows = [tuple(int(v) for v in m)
+            for m in re.findall(r"X\(" + ", ".join([r"(\d+)"] * (keys + 3)) + r"\)", body)]
+    table = admm_fused.PRECISION_REGISTERS[mode][name]
+    key = (lambda row: row[0]) if keys == 1 else (lambda row: row[:keys])
+    assert sorted(table) == sorted(key(row) for row in rows)
+    for row in rows:
+        threads, *budgets = row[keys:]
+        for used, budget in zip(table[key(row)], budgets):
+            assert used <= budget <= 255 and 65536 // (threads * budget) >= 1

@@ -1,5 +1,5 @@
 """K1, K2, K3, K3W, K4 and K5 on the card: each CUDA kernel against its plain
-PyTorch version.
+PyTorch version (K1, K2, K4 and K5 at each kernel precision).
 
 Marked ``cuda``; each test decides in a fixture whether a card is present
 and skips otherwise. Needs no JAX, so on a machine with a card and without
@@ -8,6 +8,7 @@ JAX it runs as
     python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 """
 
+import dataclasses
 import glob
 import os
 
@@ -27,6 +28,24 @@ from automationlabsmodelpredictivecontrol_jl_torch.ops.condense import runtime_q
 pytestmark = pytest.mark.cuda
 
 TIER1 = AdmmConfig(max_iter=75, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0)
+# the precisions of K1, K2, K4 and K5 (AdmmConfig.kernel_precision)
+MODES = admm_fused.PRECISIONS
+
+
+def _in_mode(args, mode):
+    """A chunk's arguments with the config's kernel_precision set."""
+    return args[:-1] + (dataclasses.replace(args[-1], kernel_precision=mode),)
+
+
+def _key(kernel, mode):
+    """The launch and plain-call count of a kernel at a precision."""
+    return kernel if mode == "highest" else f"{kernel}-{mode}"
+
+
+def _assert_equal_bits(out_k, out_p, what=""):
+    for name, a, b in zip(("x", "s", "y", "ax"), out_k, out_p):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), (name, what)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), (name, what)
 
 
 @pytest.fixture(scope="module")
@@ -84,25 +103,30 @@ def _chunk_args(ctrl, B, seed, single_index=False):
     ("tier2", 77, False, None), ("tier2", 33, False, None), ("tier2", 1, False, None),
     ("tier1", 1000, False, (16, 10)), ("tier2", 77, True, (8, 24)),
 ])
-def test_k1_matches_plain_version(controllers, which, B, single, layout):
+@pytest.mark.parametrize("mode", MODES)
+def test_k1_matches_plain_version(controllers, which, B, single, layout, mode):
     """K1 as k1_plan lays it out (32 lanes a block at tier 1, 4 at tier 2's
     bucket, 8 at B=1000), or in a forced layout, against its plain version,
-    with random rho indices or one index for all lanes; ragged batches
-    reach every barrier with a partial last block."""
+    with random rho indices or one index for all lanes, at each precision;
+    ragged batches reach every barrier with a partial last block."""
     ctrl = controllers[0] if which == "tier1" else controllers[1]
-    args = _chunk_args(ctrl, B, seed=B, single_index=single)
-    launches, plain = admm_fused.LAUNCHES["K1"], admm_fused.PLAIN_CALLS["K1"]
+    args = _in_mode(_chunk_args(ctrl, B, seed=B, single_index=single), mode)
+    key = _key("K1", mode)
+    launches, plain = admm_fused.LAUNCHES[key], admm_fused.PLAIN_CALLS[key]
     if layout is None:
         out_k = admm_fused.iterate_chunk_diag_T(*args)
     else:
         op, cfg = args[0], args[-1]
         plan = admm_fused.k1_plan(40, int(op.rho_grid.shape[0]), int(cfg.refine_steps), B,
-                                  lanes=layout[0], groups=layout[1])
+                                  lanes=layout[0], groups=layout[1], mode=mode)
         out_k = admm_fused._launch_k1(*args, plan=plan)
     torch.cuda.synchronize()
-    assert admm_fused.LAUNCHES["K1"] == launches + 1
-    assert admm_fused.PLAIN_CALLS["K1"] == plain
+    assert admm_fused.LAUNCHES[key] == launches + 1
+    assert admm_fused.PLAIN_CALLS[key] == plain
     out_p = admm_fused.iterate_chunk_diag_T_plain(*args)
+    if mode != "highest":  # fp32 sums in the plain version's order
+        _assert_equal_bits(out_k, out_p, mode)
+        return
     for name, a, b in zip(("x", "s", "y", "ax"), out_k, out_p):
         assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
         # both sum the K-solve in fp64 and round once; the fp64 sums run in
@@ -142,15 +166,19 @@ def mixed_controllers(card):
 
 
 def _k2_held_to_plain(args, plan=None):
-    launches, plain = admm_fused.LAUNCHES["K2"], admm_fused.PLAIN_CALLS["K2"]
+    key = _key("K2", args[-1].kernel_precision)
+    launches, plain = admm_fused.LAUNCHES[key], admm_fused.PLAIN_CALLS[key]
     if plan is None:
         out_k = admm_fused.iterate_chunk_mixed_T(*args)
     else:
         out_k = admm_fused._launch_k2(*args, plan=plan)
     torch.cuda.synchronize()
-    assert admm_fused.LAUNCHES["K2"] == launches + 1
-    assert admm_fused.PLAIN_CALLS["K2"] == plain
+    assert admm_fused.LAUNCHES[key] == launches + 1
+    assert admm_fused.PLAIN_CALLS[key] == plain
     out_p = admm_fused.iterate_chunk_mixed_T_plain(*args)
+    if key != "K2":  # fp32 sums in the plain version's order
+        _assert_equal_bits(out_k, out_p, key)
+        return
     for name, a, b in zip(("x", "s", "y", "ax"), out_k, out_p):
         assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
         # fp64 sums in another order than the plain version's matmuls
@@ -162,23 +190,27 @@ def _k2_held_to_plain(args, plan=None):
     ("suite", 2048), ("suite", 1000), ("tier2", 512), ("tier2", 77), ("m44", 2048),
     ("m52", 2048), ("m132", 2048), ("suite", 1), ("suite", 33), ("suite", 77),
 ])
-def test_k2_matches_plain_version(mixed_controllers, which, B):
+@pytest.mark.parametrize("mode", MODES)
+def test_k2_matches_plain_version(mixed_controllers, which, B, mode):
     """K2 as k2_plan lays it out (4, 8 and 16 lanes a block among these
-    shapes, and the row-groups of each tail) against its plain version."""
+    shapes, and the row-groups of each tail) against its plain version, at
+    each precision."""
     ctrl = mixed_controllers[which]
     m = {"suite": 120, "tier2": 120, "m44": 44, "m52": 52, "m132": 132}[which]
     assert ctrl.engine.op.mixed_a and ctrl.engine.op.A_s.shape == (m, 40)
-    _k2_held_to_plain(_chunk_args(ctrl, B, seed=B))
+    _k2_held_to_plain(_in_mode(_chunk_args(ctrl, B, seed=B), mode))
 
 
 @pytest.mark.parametrize("which,lanes", [("suite", 16), ("suite", 8), ("suite", 4), ("m44", 32)])
-def test_k2_forced_layouts_match_plain_version(mixed_controllers, which, lanes):
-    """Every lanes-per-block K2 takes, at a ragged batch: a partial last
-    block reaches every barrier (32 lanes fit only the short tail)."""
+@pytest.mark.parametrize("mode", MODES)
+def test_k2_forced_layouts_match_plain_version(mixed_controllers, which, lanes, mode):
+    """Every lanes-per-block K2 takes, at a ragged batch and each
+    precision: a partial last block reaches every barrier (32 lanes fit
+    only the short tail)."""
     ctrl = mixed_controllers[which]
     m = int(ctrl.engine.op.A_s.shape[0])
-    args = _chunk_args(ctrl, 1000, seed=5)
-    plan = admm_fused.k2_plan(40, m, 5, 1, 1000, lanes=lanes)
+    args = _in_mode(_chunk_args(ctrl, 1000, seed=5), mode)
+    plan = admm_fused.k2_plan(40, m, 5, 1, 1000, lanes=lanes, mode=mode)
     _k2_held_to_plain(args, plan)
 
 
@@ -208,10 +240,18 @@ def test_mixed_solve_auto_launches_k2(mixed_controllers):
     np.testing.assert_allclose(s_gpu.u.cpu().numpy(), s_cpu.u.numpy(), atol=5e-4)
 
 
-def test_fused_solve_on_card_matches_cpu(controllers):
+@pytest.mark.parametrize("mode", MODES + ("hybrid",))
+def test_fused_solve_on_card_matches_cpu(controllers, mode):
+    """Tier 1's solve on the card against the CPU at each precision and the
+    hybrid schedule (which launches bf16x3 and highest chunks)."""
     ctrl, _ = controllers
+    ctrl = ctrl.replace(engine=dataclasses.replace(ctrl.engine, config=dataclasses.replace(
+        ctrl.engine.config, kernel_precision=mode)))
     x0 = torch.from_numpy(_x0s(300, seed=9))
+    launches = dict(admm_fused.LAUNCHES)
     s_gpu, _, _, d_gpu = parallel.solve_batch_fused(ctrl, x0.to(ctrl.device))
+    ran = {k for k in launches if admm_fused.LAUNCHES[k] > launches[k]}
+    assert _key("K1", "bf16x3" if mode == "hybrid" else mode) in ran
     cpu = ctrl.to("cpu")
     s_cpu, _, _, d_cpu = parallel.solve_batch_fused(cpu, x0)
     np.testing.assert_allclose(s_gpu.u.cpu().numpy(), s_cpu.u.numpy(), atol=5e-4)
@@ -338,25 +378,27 @@ K5_CASES = [
 
 
 @pytest.mark.parametrize("which,B,single,force", K5_CASES)
-def test_k5_matches_plain_version(k5_controllers, which, B, single, force):
+@pytest.mark.parametrize("mode", MODES)
+def test_k5_matches_plain_version(k5_controllers, which, B, single, force, mode):
     """K5 on the route and layout k5_plan picks (the shared route at h20,
     the stream route at h50), or a forced one, equals its plain version bit
-    for bit; ragged batches reach every barrier."""
+    for bit at each precision; ragged batches reach every barrier."""
     ctrl = k5_controllers[which]
-    args = _chunk_args(ctrl, B, seed=B + len(which), single_index=single)
+    args = _in_mode(_chunk_args(ctrl, B, seed=B + len(which), single_index=single), mode)
     op, cfg = args[0], args[-1]
     m, n = op.A_s.shape
     plan = admm_fused.k5_plan(n, m, int(op.rho_grid.shape[0]), int(cfg.refine_steps), B,
-                              **(force or {}))
+                              mode=mode, **(force or {}))
     assert plan.route == (force or {}).get("route", "stream" if which == "h50" else "shared")
-    launches, plain = admm_fused.LAUNCHES["K5"], admm_fused.PLAIN_CALLS["K5"]
+    key = _key("K5", mode)
+    launches, plain = admm_fused.LAUNCHES[key], admm_fused.PLAIN_CALLS[key]
     if force is None:
         out_k = admm_fused.iterate_chunk_dense_perr_T(*args)
     else:
         out_k = admm_fused._launch_k5(*args, plan=plan)
     torch.cuda.synchronize()
-    assert admm_fused.LAUNCHES["K5"] == launches + 1
-    assert admm_fused.PLAIN_CALLS["K5"] == plain
+    assert admm_fused.LAUNCHES[key] == launches + 1
+    assert admm_fused.PLAIN_CALLS[key] == plain
     out_p = admm_fused.iterate_chunk_dense_perr_T_plain(*args)
     for name, a, b in zip(("x", "s", "y", "ax"), out_k, out_p):
         assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
@@ -388,12 +430,14 @@ def _synthetic_dense_op(base, n, m, R, seed):
     (33, 120, 8, 0, 2048, None), (1, 1, 2, 1, 5, None), (1, 1, 2, 1, 5, "stream"),
     (127, 3, 4, 2, 64, None), (100, 301, 5, 1, 1000, None), (128, 512, 8, 1, 300, None),
 ])
-def test_k5_odd_shapes_match_plain_version(k5_controllers, n, m, R, refine_steps, B, route):
+@pytest.mark.parametrize("mode", MODES)
+def test_k5_odd_shapes_match_plain_version(k5_controllers, n, m, R, refine_steps, B, route,
+                                           mode):
     """K5 at shapes the QTP cells never give it, on both routes: odd n (the
     stream route's padded operator rows) and odd m (the tail row of each
     pair loop), one rho and eight, no refinement and two, a single
     variable and constraint row, and the widest shape k5_fits takes; equal
-    to the plain version bit for bit."""
+    to the plain version bit for bit at each precision."""
     op = _synthetic_dense_op(k5_controllers["h20"].engine.op, n, m, R, seed=n + m)
     dev = op.A_s.device
     rng = np.random.default_rng(B)
@@ -405,9 +449,9 @@ def test_k5_odd_shapes_match_plain_version(k5_controllers, n, m, R, refine_steps
     idx = torch.from_numpy(rng.integers(0, R, size=B).astype(np.int32)).to(dev)
     x, y, ax = f32(n, B), f32(m, B), f32(m, B)
     s = torch.clamp(ax, lT, uT).contiguous()
-    cfg = AdmmConfig(refine_steps=refine_steps)
+    cfg = AdmmConfig(refine_steps=refine_steps, kernel_precision=mode)
     args = (op, qT, lT, uT, idx, x, s, y, ax, 25, cfg)
-    plan = admm_fused.k5_plan(n, m, R, refine_steps, B, route=route)
+    plan = admm_fused.k5_plan(n, m, R, refine_steps, B, route=route, mode=mode)
     out_k = admm_fused._launch_k5(*args, plan=plan)
     torch.cuda.synchronize()
     out_p = admm_fused.iterate_chunk_dense_perr_T_plain(*args)
@@ -466,20 +510,22 @@ K4_CASES = [
 
 
 @pytest.mark.parametrize("which,B,single,force", K4_CASES)
-def test_k4_matches_plain_version(k4_controllers, which, B, single, force):
+@pytest.mark.parametrize("mode", MODES)
+def test_k4_matches_plain_version(k4_controllers, which, B, single, force, mode):
     """K4 on the route and layout k4_plan picks (the shared route at the
     equality terminal, its tier 2 and the state box at tier 1's grid, the
     stream route at the neighborhood terminal), or a forced one, equals its
-    plain version bit for bit; ragged batches reach every barrier."""
+    plain version bit for bit at each precision; ragged batches reach every
+    barrier."""
     ctrl = k4_controllers[which]
-    args = _chunk_args(ctrl, B, seed=B + len(which), single_index=single)
+    args = _in_mode(_chunk_args(ctrl, B, seed=B + len(which), single_index=single), mode)
     op, cfg = args[0], args[-1]
     m, n = op.A_s.shape
     R, rs = int(op.rho_grid.shape[0]), int(cfg.refine_steps)
     assert admm_fused.use_packed(n, m, R, rs)
     force = dict(force or {})
     panel = force.pop("panel", None)
-    plan = admm_fused.k4_plan(n, m, R, rs, B, **force)
+    plan = admm_fused.k4_plan(n, m, R, rs, B, mode=mode, **force)
     assert plan.route == force.get("route", "stream" if which == "nb" else "shared")
     if panel is not None:  # operators streamed, not resident
         plan = plan._replace(panel=panel, smem_bytes=admm_fused.k5_stream_smem_bytes(
@@ -487,14 +533,15 @@ def test_k4_matches_plain_version(k4_controllers, which, B, single, force):
         assert not admm_fused.k4_resident(n, m, rs, panel)
     elif plan.route == "stream":
         assert admm_fused.k4_resident(n, m, rs, plan.panel)
-    launches, plain = admm_fused.LAUNCHES["K4"], admm_fused.PLAIN_CALLS["K4"]
+    key = _key("K4", mode)
+    launches, plain = admm_fused.LAUNCHES[key], admm_fused.PLAIN_CALLS[key]
     if not force and panel is None:
         out_k = admm_fused.iterate_chunk_dense_packed_T(*args)
     else:
         out_k = admm_fused._launch_k4(*args, plan=plan)
     torch.cuda.synchronize()
-    assert admm_fused.LAUNCHES["K4"] == launches + 1
-    assert admm_fused.PLAIN_CALLS["K4"] == plain
+    assert admm_fused.LAUNCHES[key] == launches + 1
+    assert admm_fused.PLAIN_CALLS[key] == plain
     out_p = admm_fused.iterate_chunk_dense_packed_T_plain(*args)
     for name, a, b in zip(("x", "s", "y", "ax"), out_k, out_p):
         assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
@@ -507,10 +554,12 @@ def test_k4_matches_plain_version(k4_controllers, which, B, single, force):
     (33, 120, 8, 0, 2048, None), (1, 1, 2, 1, 5, None), (1, 1, 2, 1, 5, "stream"),
     (127, 3, 4, 2, 64, None), (100, 301, 5, 1, 1000, None), (128, 512, 8, 1, 300, None),
 ])
-def test_k4_odd_shapes_match_plain_version(k5_controllers, n, m, R, refine_steps, B, route):
+@pytest.mark.parametrize("mode", MODES)
+def test_k4_odd_shapes_match_plain_version(k5_controllers, n, m, R, refine_steps, B, route,
+                                           mode):
     """K4 at shapes the QTP cells never give it, on both routes (as K5's
     odd shapes), with its packed image kia built as build_operator builds
-    it; equal to the plain version bit for bit."""
+    it; equal to the plain version bit for bit at each precision."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import packed_kia
 
     op = _synthetic_dense_op(k5_controllers["h20"].engine.op, n, m, R, seed=n + m)
@@ -525,9 +574,9 @@ def test_k4_odd_shapes_match_plain_version(k5_controllers, n, m, R, refine_steps
     idx = torch.from_numpy(rng.integers(0, R, size=B).astype(np.int32)).to(dev)
     x, y, ax = f32(n, B), f32(m, B), f32(m, B)
     s = torch.clamp(ax, lT, uT).contiguous()
-    cfg = AdmmConfig(refine_steps=refine_steps)
+    cfg = AdmmConfig(refine_steps=refine_steps, kernel_precision=mode)
     args = (op, qT, lT, uT, idx, x, s, y, ax, 25, cfg)
-    plan = admm_fused.k4_plan(n, m, R, refine_steps, B, route=route)
+    plan = admm_fused.k4_plan(n, m, R, refine_steps, B, route=route, mode=mode)
     out_k = admm_fused._launch_k4(*args, plan=plan)
     torch.cuda.synchronize()
     out_p = admm_fused.iterate_chunk_dense_packed_T_plain(*args)

@@ -143,6 +143,38 @@ def test_loads_jax_checkpoint(plants, tmp_path, name, neural, jkw, tkw):
     assert int(s1.status) == int(s2.status)
 
 
+@pytest.mark.parametrize("mode", ["hybrid", "bf16x3"])
+def test_loads_jax_checkpoint_with_kernel_precision(tmp_path, mode):
+    """A JAX-written checkpoint of a controller designed with
+    kernel_precision "hybrid" or "bf16x3" loads with the field kept, and
+    solves on the fused kernel (K2, the state box; its plain version here)
+    in that precision, as the port's own controller of the same design
+    does, to the bit."""
+    from automationlabsmodelpredictivecontrol_jl_torch import parallel as tpar
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    kw = dict(max_iter=300, kernel_precision=mode)
+    jc = jmpc.proceed_controller(jqtp.linearized_discrete_system(), "model_predictive_control",
+                                 12, 5.0, np.asarray(X_REF), np.asarray(U_REF),
+                                 admm_config=JAdmm(**kw), mpc_state_constraint=True)
+    path = str(tmp_path / f"{mode}.npz")
+    jio.save_controller(path, jc)
+    c = tio.load_controller(path, device="cpu")
+    ref = tmpc.proceed_controller(tqtp.linearized_discrete_system(), "model_predictive_control",
+                                  12, 5.0, X_REF, U_REF, admm_config=TAdmm(**kw), device="cpu",
+                                  mpc_state_constraint=True)
+    assert c.engine.config.kernel_precision == mode
+    assert c.engine.config == ref.engine.config
+    x0 = torch.from_numpy(
+        (0.65 + 0.05 * np.random.default_rng(3).standard_normal((8, 4))).astype(np.float32))
+    calls = admm_fused.PLAIN_CALLS["K2-bf16x3"]
+    s1, _, _, _ = tpar.solve_batch_fused(c, x0)
+    assert admm_fused.PLAIN_CALLS["K2-bf16x3"] > calls
+    s2, _, _, _ = tpar.solve_batch_fused(ref, x0)
+    assert torch.equal(s1.status, s2.status)
+    torch.testing.assert_close(s1.u, s2.u, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("name,neural,jkw,tkw", CASES, ids=[c[0] for c in CASES])
 def test_port_checkpoint_round_trip(plants, tmp_path, name, neural, jkw, tkw):
     """The port's file loads back into the same controller (arrays bit for
