@@ -30,10 +30,16 @@
 //   16-byte load and the L lanes of a warp read L neighbouring ones.
 // ops/admm_fused.row_strides and the plans' shared-memory bytes mirror
 // these formulas.
+//
+// The stream routes (K5 and K4 in admm_perr.cu, K1 and K2 in
+// admm_diag_stream.cu) stream one rho's operators from device memory
+// through two shared panels with cp.async: StreamLayout is K5's and K4's
+// layout, panel_stride the row stride of a panel, copy16 one 16-byte copy.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace mpc_admm {
@@ -179,5 +185,32 @@ inline int row_stride(int n, int lanes) {
 
 // the stride (in doubles) of the rho copies of an (n, n) operator
 inline int copy_stride(int n, int ld) { return (n * ld) | 2; }
+
+// K5's and K4's stream layout (admm_perr.cu, stream_chunk)
+struct StreamLayout {
+  int ldg;             // row stride (doubles) of the operators in device memory
+  int nslots, mslots;  // lane buffer rows
+  int panel;           // doubles of one panel
+  int pc;              // constraint rows a panel of the A'y / A'rho.s pass holds
+  int pkn, skn;        // columns a panel of the K-solves holds, its row stride
+  int pkm, skm;        // the same for A xt
+};
+
+// The row stride (doubles) of a panel of `rows` rows within `panel`
+// doubles: even, odd in 16-byte units (so the 32 / L rows a warp reads lie
+// in distinct bank groups), at most ldg + 2; 0 if not even 2 columns fit.
+// ops/admm_fused._panel_stride mirrors it.
+inline int panel_stride(int panel, int rows, int ldg) {
+  int s = panel / rows;
+  if (s > ldg + 2) s = ldg + 2;
+  s &= ~1;
+  if ((s / 2) % 2 == 0) s -= 2;
+  return s < 2 ? 0 : s;
+}
+
+// one 16-byte asynchronous copy from device to shared memory
+__device__ __forceinline__ void copy16(double* dst, const double* src) {
+  __pipeline_memcpy_async(dst, src, 16);
+}
 
 }  // namespace mpc_admm

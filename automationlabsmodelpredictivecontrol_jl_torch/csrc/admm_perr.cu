@@ -107,8 +107,6 @@
 
 #include <cuda_runtime.h>
 
-#include <cuda_pipeline.h>
-
 #include <climits>
 #include <cstddef>
 
@@ -117,9 +115,12 @@
 namespace {
 
 using mpc_admm::clip;
+using mpc_admm::copy16;
 using mpc_admm::matvec;
+using mpc_admm::panel_stride;
 using mpc_admm::Prec;
 using mpc_admm::slot;
+using mpc_admm::StreamLayout;
 
 struct Layout {
   int ld, sk, nslots, mslots, mr;  // strides and buffer rows
@@ -550,30 +551,6 @@ int shared_chunk(const Args& args, int mode, int lanes, int groups, int rpt_n, i
 // ~3.6 TB/s), and the two overlap only in part (PERF.md, Findings: K5's
 // redesign); two lanes a thread, which halves the entries read, gained
 // nothing.
-
-struct StreamLayout {
-  int ldg;             // row stride (doubles) of the operators in device memory
-  int nslots, mslots;  // lane buffer rows
-  int panel;           // doubles of one panel
-  int pc;              // constraint rows a panel of the A'y / A'rho.s pass holds
-  int pkn, skn;        // columns a panel of the K-solves holds, its row stride
-  int pkm, skm;        // the same for A xt
-};
-
-// The row stride (doubles) of a panel of `rows` rows within `panel`
-// doubles: even, odd in 16-byte units (so the 32 / L rows a warp reads lie
-// in distinct bank groups), at most ldg + 2; 0 if not even 2 columns fit.
-inline int panel_stride(int panel, int rows, int ldg) {
-  int s = panel / rows;
-  if (s > ldg + 2) s = ldg + 2;
-  s &= ~1;
-  if ((s / 2) % 2 == 0) s -= 2;
-  return s < 2 ? 0 : s;
-}
-
-__device__ __forceinline__ void copy16(double* dst, const double* src) {
-  __pipeline_memcpy_async(dst, src, 16);
-}
 
 template <int RPT_N, int RPT_M, bool REFINE, int THREADS, int REGS, bool PACKED, int MODE>
 __global__ void __launch_bounds__(THREADS, 65536 / (THREADS * REGS))

@@ -6,8 +6,9 @@ into one shared library with a plain C interface,
 ``build/kernels/libmpc_kernels.so`` at the root of the checkout (K3's
 register tiers, and the widest tier's routes, are sources of their own
 over one header, so that they build side by side; K3W, the width-general
-Riccati chunk, and its rollout and certificate are ``riccati_wide.cu``). That happens on first use, or when a source or a
-header is newer than the library. The
+Riccati chunk, and its rollout and certificate are ``riccati_wide.cu``;
+the stream route of K1 and K2, ``admm_diag_stream.cu``). That happens on
+first use, or when a source or a header is newer than the library. The
 library is loaded with ctypes. Nothing here runs at import time: the CPU
 tests import every module on a machine with no nvcc.
 """
@@ -111,6 +112,8 @@ def build_kernels(force: bool = False) -> str:
 SIGNATURES = {
     "admm_diag_chunk": "p" * 17 + "i" * 10 + "ff" + "p",
     "admm_mixed_chunk": "p" * 18 + "i" * 12 + "ff" + "p",
+    "admm_diag_stream_chunk": "p" * 18 + "i" * 10 + "ff" + "p",
+    "admm_mixed_stream_chunk": "p" * 20 + "i" * 11 + "ff" + "p",
     "admm_perr_chunk": "p" * 17 + "i" * 12 + "ff" + "p",
     "admm_perr_stream_chunk": "p" * 19 + "i" * 13 + "ff" + "p",
     "admm_packed_chunk": "p" * 18 + "i" * 12 + "ff" + "p",

@@ -10,6 +10,9 @@ QPs whose scaled constraint matrix A_s is
 - mixed, A_s = [diag(d); A2] with a dense tail A2 of state-box and terminal
   rows (``op.mixed_a``: every condensed MPC with state or terminal rows):
   :func:`iterate_chunk_mixed_T`, kernel K2 (``csrc/admm_mixed.cu``);
+  K1 and K2 take wider operators than these shared routes hold on their
+  stream route (``csrc/admm_diag_stream.cu``; :func:`k1_plan`,
+  :func:`k2_plan`);
 - dense, any other A without ball rows (``op.dense_a``: a QP whose rows
   are not box-first, such as OSQP's convention of equality and coupling
   rows above the variable bounds): :func:`iterate_chunk_dense_packed_T`,
@@ -69,11 +72,21 @@ def reset_counts() -> None:
 
 
 # shared memory one block may use on Hopper (227 KB), the widest n the
-# kernels take, K2's widest dense tail and K4/K5's most constraint rows
+# shared routes of K1 and K2 and the kernels K4 and K5 take, K2's shared
+# route's widest dense tail and K4/K5's most constraint rows
 SMEM_LIMIT = 232448
 MAX_N = 128
 MAX_TAIL = 128
 MAX_DENSE_ROWS = 512
+# K1's and K2's stream route (csrc/admm_diag_stream.cu): the widest n and
+# K2's longest tail, the rows a thread takes in each tile of a product, the
+# most threads a block and the registers a thread is held to (its
+# __launch_bounds__)
+MAX_STREAM_N = 1024
+MAX_STREAM_TAIL = 1024
+STREAM_ROWS = 4
+STREAM_THREADS = 512
+STREAM_REGISTERS = 128
 # one SM of the card: its SM count, shared memory (of which the runtime
 # keeps 1 KB per resident block), registers, threads and resident blocks
 SM_COUNT = 132
@@ -114,16 +127,28 @@ def _warp_cost(per_sm_lanes: int, lane_reads: int, warps: float) -> float:
 # on the H100; none spills)
 K1_INSTANCES = {1: (512, 45, 57), 2: (512, 70, 80), 3: (512, 94, 108), 4: (512, 121, 128),
                 5: (256, 126, 163), 6: (256, 164, 192), 7: (256, 186, 216), 8: (256, 208, 243)}
-# the C entry's int parameters, in order (the wrapper passes them so)
+# the C entries' int parameters, in order (the wrapper passes them so): the
+# shared route's (admm_diag_chunk) and the stream route's
+# (admm_diag_stream_chunk)
 K1_INTS = ("n", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups", "rpt",
            "smem_bytes")
+K1_STREAM_INTS = ("n", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups", "panel",
+                  "smem_bytes")
+# "shared": admm_diag_chunk / admm_mixed_chunk, every rho's fp64 operators in
+# one block's shared memory; "stream": admm_diag_stream_chunk /
+# admm_mixed_stream_chunk (csrc/admm_diag_stream.cu), lanes grouped by rho
+# index, one rho's operators resident in two shared panels or streamed
+# through them, where the shared route has no layout
+K12_ROUTES = ("shared", "stream")
 
 
 class K1Plan(NamedTuple):
     """How one K1 launch is laid out: lanes and row-groups of a block
-    (blockDim.x, blockDim.y), the rows each thread owns, the blocks of the
-    grid, the block's dynamic shared memory and how many blocks an SM
-    holds at once."""
+    (blockDim.x, blockDim.y), the rows each thread owns (on the stream
+    route in each tile of a product), the blocks of the grid (the stream
+    route's has R more: each rho index's partial last block), the block's
+    dynamic shared memory, how many blocks an SM holds at once, the route
+    and the doubles of one operator panel (the stream route; 0 else)."""
 
     lanes: int
     groups: int
@@ -131,6 +156,8 @@ class K1Plan(NamedTuple):
     blocks: int
     smem_bytes: int
     per_sm: int
+    route: str = "shared"
+    panel: int = 0
 
 
 def k1_smem_bytes(n: int, R: int, refine_steps: int, lanes: int, groups: int, rpt: int) -> int:
@@ -180,30 +207,37 @@ def _k1_layouts(n: int, R: int, refine_steps: int, mode: str = "highest"):
 @functools.lru_cache(maxsize=256)  # the driver asks once per chunk
 def k1_plan(n: int, R: int, refine_steps: int, B: int,
             lanes: Optional[int] = None, groups: Optional[int] = None,
-            mode: str = "highest") -> K1Plan:
+            mode: str = "highest", route: Optional[str] = None) -> K1Plan:
     """The layout of a K1 launch for ``B`` lanes, from the shape alone.
 
-    The busiest SM runs ceil(ceil(B / L) / 132) blocks of L lanes; several
-    of them at once where its shared memory, threads and the
-    instantiation's registers allow (tier 1's operators take 25 KB, so up
-    to 4 blocks of 32 lanes share an SM). A lane reads per iteration an
-    operator entry per multiply-add, padded rows included, and its vector
-    once per thread, so fewer row-groups G read less; the cost
-    (:func:`_warp_cost`) counts the warps resident on the SM, not those of
-    one block. Ties go to more lanes per block. ``lanes`` and ``groups``
-    force a layout (ValueError if it does not fit). ``mode``, a precision
-    of ``PRECISIONS``, sets the registers the instantiations take; the
-    bytes are the same at every precision."""
+    The shared route where some layout of it fits (every rho's fp64 K^-1,
+    and K when refining, in one block's shared memory), else the stream
+    route (:func:`k12_stream_plan`), so that every shape the shared route
+    takes keeps its plan. On the shared route the busiest SM runs
+    ceil(ceil(B / L) / 132) blocks of L lanes; several of them at once
+    where its shared memory, threads and the instantiation's registers
+    allow (tier 1's operators take 25 KB, so up to 4 blocks of 32 lanes
+    share an SM). A lane reads per iteration an operator entry per
+    multiply-add, padded rows included, and its vector once per thread, so
+    fewer row-groups G read less; the cost (:func:`_warp_cost`) counts the
+    warps resident on the SM, not those of one block. Ties go to more lanes
+    per block. ``lanes`` and ``groups`` force a layout, ``route`` a route
+    of ``K12_ROUTES`` (ValueError if it does not fit). ``mode``, a
+    precision of ``PRECISIONS``, sets the registers the shared route's
+    instantiations take; the bytes are the same at every precision."""
     B = int(B)
     _check_mode(mode)
     if B < 1:
         raise ValueError(f"K1 takes at least one lane; B={B}")
     if n * B >= 2**31:
         raise ValueError(f"K1 indexes the (n, B) state with 32 bits; n={n}, B={B}")
+    if route not in (None,) + K12_ROUTES:
+        raise ValueError(f"K1 routes are {K12_ROUTES}, not {route!r}")
     products = 1 + 2 * int(refine_steps)
-    best = None
+    best, shared = None, False
     for L, G, rpt, smem, per_sm in _k1_layouts(n, R, int(refine_steps), mode):
-        if lanes not in (None, L) or groups not in (None, G):
+        shared = True
+        if route == "stream" or lanes not in (None, L) or groups not in (None, G):
             continue
         blocks = -(-B // L)
         busiest = -(-blocks // SM_COUNT)
@@ -212,20 +246,29 @@ def k1_plan(n: int, R: int, refine_steps: int, B: int,
         key = (cost, -L)
         if best is None or key < best[0]:
             best = (key, K1Plan(L, G, rpt, blocks, smem, per_sm))
-    if best is None:
+    if best is not None:
+        return best[1]
+    stream = None
+    if route == "stream" or (route is None and not shared):
+        stream = k12_stream_plan(n, 0, R, refine_steps, B, lanes, groups)
+    if stream is None:
         raise ValueError(
             f"no K1 layout for n={n}, R={R}, refine_steps={refine_steps}"
             + ("" if lanes is None and groups is None else f", lanes={lanes}, groups={groups}")
-            + f": K1 takes n <= {MAX_N} and a block within {SMEM_LIMIT} B of shared memory"
+            + ("" if route is None else f" on the {route} route")
+            + f": K1 takes n <= {MAX_N} with every rho's operators in a block's "
+            f"{SMEM_LIMIT} B of shared memory, or n <= {MAX_STREAM_N} on its stream route"
         )
-    return best[1]
+    L, G, smem, per_sm, panel = stream
+    return K1Plan(L, G, STREAM_ROWS, -(-B // L) + R, smem, per_sm, "stream", panel)
 
 
 def k1_fits(n: int, R: int, refine_steps: int) -> bool:
-    """Whether K1 takes this operator shape: n <= 128 and some layout
-    within the card's shared memory (tiling K for larger n is later work,
-    ROADMAP Queue 2)."""
-    return next(_k1_layouts(n, R, refine_steps), None) is not None
+    """Whether K1 takes this operator shape: a layout of its shared route
+    (n <= 128, every rho's operators within the card's shared memory) or
+    of its stream route (n <= 1024)."""
+    return (next(_k1_layouts(n, R, refine_steps), None) is not None
+            or bool(_k12_stream_layouts(n, 0, int(refine_steps))))
 
 
 # K2's instantiated rows per thread of the box and of the tail
@@ -235,12 +278,17 @@ K2_RPT_T = (1, 2, 3, 4, 5, 6, 8)
 # the C entry's int parameters, in order (the wrapper passes them so)
 K2_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups", "rpt_n",
            "rpt_t", "smem_bytes")
+K2_STREAM_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups",
+                  "panel", "smem_bytes")
 
 
 class K2Plan(NamedTuple):
     """How one K2 launch is laid out: lanes and row-groups of a block
-    (blockDim.x, blockDim.y), the box and tail rows each thread owns, the
-    blocks of the grid and the block's dynamic shared memory."""
+    (blockDim.x, blockDim.y), the box and tail rows each thread owns (on
+    the stream route in each tile of a product), the blocks of the grid
+    (the stream route's has R more), the block's dynamic shared memory,
+    the route and the doubles of one operator panel (the stream route; 0
+    else)."""
 
     lanes: int
     groups: int
@@ -248,6 +296,8 @@ class K2Plan(NamedTuple):
     rpt_t: int
     blocks: int
     smem_bytes: int
+    route: str = "shared"
+    panel: int = 0
 
 
 def k2_max_threads(rpt_n: int, rpt_t: int) -> int:
@@ -294,28 +344,34 @@ def _k2_layouts(n: int, m: int, R: int, refine_steps: int):
 @functools.lru_cache(maxsize=256)  # the driver asks once per chunk
 def k2_plan(n: int, m: int, R: int, refine_steps: int, B: int,
             lanes: Optional[int] = None, groups: Optional[int] = None,
-            mode: str = "highest") -> K2Plan:
+            mode: str = "highest", route: Optional[str] = None) -> K2Plan:
     """The layout of a K2 launch for ``B`` lanes, from the shape alone.
 
-    One block per SM (its shared memory holds every rho's operators), so
-    the time is the lanes an SM runs, ceil(ceil(B / L) / 132) L (16 at
-    B = 2048, 4 at B = 512), times a lane's reads (:func:`_warp_cost`): an
-    operator entry per multiply-add, padded rows included, and the lane
-    vectors once per thread, so fewer row-groups G read less; the warps
-    are those of one block. Ties go to more lanes per block. ``lanes`` and
-    ``groups`` force a layout (ValueError if it does not fit). Every
-    precision ``mode`` has the same layouts: the same bytes, and one block
-    an SM whatever its registers."""
+    The shared route where some layout of it fits (every rho's fp64 K^-1,
+    K when refining, and A2 in one block's shared memory), else the stream
+    route (:func:`k12_stream_plan`). On the shared route one block per SM
+    (its shared memory holds every rho's operators), so the time is the
+    lanes an SM runs, ceil(ceil(B / L) / 132) L (16 at B = 2048, 4 at
+    B = 512), times a lane's reads (:func:`_warp_cost`): an operator entry
+    per multiply-add, padded rows included, and the lane vectors once per
+    thread, so fewer row-groups G read less; the warps are those of one
+    block. Ties go to more lanes per block. ``lanes`` and
+    ``groups`` force a layout, ``route`` a route of ``K12_ROUTES``
+    (ValueError if it does not fit). Every precision ``mode`` has the same
+    layouts: the same bytes, and one block an SM whatever its registers."""
     B = int(B)
     _check_mode(mode)
     if B < 1:
         raise ValueError(f"K2 takes at least one lane; B={B}")
     if m * B >= 2**31:
         raise ValueError(f"K2 indexes the (m, B) state with 32 bits; m={m}, B={B}")
+    if route not in (None,) + K12_ROUTES:
+        raise ValueError(f"K2 routes are {K12_ROUTES}, not {route!r}")
     ms, rs = m - n, int(refine_steps)
-    best = None
+    best, shared = None, False
     for L, G, rpt_n, rpt_t, smem in _k2_layouts(n, m, R, rs):
-        if lanes not in (None, L) or groups not in (None, G):
+        shared = True
+        if route == "stream" or lanes not in (None, L) or groups not in (None, G):
             continue
         blocks = -(-B // L)
         box, tail = G * rpt_n, G * rpt_t
@@ -325,20 +381,192 @@ def k2_plan(n: int, m: int, R: int, refine_steps: int, B: int,
         key = (cost, -L)
         if best is None or key < best[0]:
             best = (key, K2Plan(L, G, rpt_n, rpt_t, blocks, smem))
-    if best is None:
+    if best is not None:
+        return best[1]
+    stream = None
+    if ms >= 1 and (route == "stream" or (route is None and not shared)):
+        stream = k12_stream_plan(n, ms, R, rs, B, lanes, groups)
+    if stream is None:
         raise ValueError(
             f"no K2 layout for n={n}, m={m}, R={R}, refine_steps={rs}"
             + ("" if lanes is None and groups is None else f", lanes={lanes}, groups={groups}")
-            + f": K2 takes n <= {MAX_N}, 1 to {MAX_TAIL} dense rows and a block within "
-            f"{SMEM_LIMIT} B of shared memory"
+            + ("" if route is None else f" on the {route} route")
+            + f": K2 takes n <= {MAX_N} and 1 to {MAX_TAIL} dense rows with every rho's "
+            f"operators in a block's {SMEM_LIMIT} B of shared memory, or n <= {MAX_STREAM_N} "
+            f"and 1 to {MAX_STREAM_TAIL} dense rows on its stream route"
         )
-    return best[1]
+    L, G, smem, _, panel = stream
+    return K2Plan(L, G, STREAM_ROWS, STREAM_ROWS, -(-B // L) + R, smem, "stream", panel)
 
 
 def k2_fits(n: int, m: int, R: int, refine_steps: int) -> bool:
-    """Whether K2 takes this operator shape: n <= 128, a dense tail of 1 to
-    128 rows, and some layout within the card's shared memory."""
-    return next(_k2_layouts(n, m, R, refine_steps), None) is not None
+    """Whether K2 takes this operator shape: a dense tail of at least one
+    row and a layout of its shared route (n <= 128, a tail of at most 128
+    rows, every rho's operators within the card's shared memory) or of its
+    stream route (n <= 1024, a tail of at most 1024 rows)."""
+    return m > n and (next(_k2_layouts(n, m, R, refine_steps), None) is not None
+                      or bool(_k12_stream_layouts(n, m - n, int(refine_steps))))
+
+
+# K1's and K2's stream route, for ranking its layouts, in lane reads of a
+# panel entry (32 a clock at 1980 MHz): one double's copy from L2 into a
+# panel costs about 12 (the copies and the reads of K5's stream route at
+# the h50 state box, PERF.md); a panel's wait when its copy takes longer
+# than the other panel's products, about 0.6 us; and each streamed panel's
+# two barriers and copy issue, fit to k3_ab.py --kernel K1 at n = 100, R =
+# 5, B = 4096 (H100, PERF.md section 6: the resident 16 x 26 layout ran
+# 1.063 ms a chunk, the streamed 32 x 13 1.196, which the reads and copies
+# alone rank equal)
+STREAM_COPY_COST = 12
+STREAM_LATENCY = 40000
+STREAM_STEP = 20000
+
+
+def k12_stream_smem_bytes(n: int, ms: int, refine_steps: int, lanes: int, panel: int) -> int:
+    """Dynamic shared memory of one block of K1's (ms = 0) or K2's stream
+    route (csrc/admm_diag_stream.cu): two operator panels of ``panel``
+    doubles; the box rows' two lane buffers and K2's tail rows' two, fp64,
+    of ``lanes`` lanes, their rows rounded up to pairs; and when refining,
+    rhs and xt in fp32."""
+    nslots, tslots = (n + 1) & ~1, (ms + 1) & ~1
+    refine = 8 * n * lanes if refine_steps > 0 else 0
+    return 8 * (2 * panel + 2 * (nslots + tslots) * lanes) + refine
+
+
+def _full_stride(ld: int) -> int:
+    """The least row stride, at least ld, whose rows a warp reads without
+    bank conflicts: a whole row of a resident operator."""
+    return _panel_stride(ld + 2, 1, ld)
+
+
+def _k12_resident_doubles(n: int, ms: int, refine_steps: int) -> int:
+    """The doubles one rho's operators take whole in shared memory on K1's
+    and K2's stream route: K^-1, K when refining, and for K2 A2' and A2."""
+    fn = _full_stride(n + (n & 1))
+    ft = _full_stride(ms + (ms & 1)) if ms else 0
+    return n * fn * (2 if refine_steps > 0 else 1) + n * ft + ms * fn
+
+
+class K12StreamLayout(NamedTuple):
+    """The stream route's layout of one K1 or K2 launch
+    (csrc/admm_diag_stream.cu, make_layout): whether one rho's operators
+    stay whole in the two panels for the chunk, and the row stride and
+    columns of a panel of an n-column operator (K^-1, K, A2) and of A2'."""
+
+    resident: bool
+    sn: int
+    pn: int
+    st: int
+    pt: int
+
+
+def k12_stream_layout(n: int, ms: int, refine_steps: int, groups: int,
+                      panel: int) -> Optional[K12StreamLayout]:
+    """The layout the C entry derives from a plan (csrc/admm_diag_stream.cu,
+    make_layout): resident where every operator fits the two panels whole,
+    else panels of 4 ``groups`` rows; None where a panel holds fewer than 2
+    columns."""
+    ldn, ldm = n + (n & 1), ms + (ms & 1)
+    if _k12_resident_doubles(n, ms, refine_steps) <= 2 * panel:
+        return K12StreamLayout(True, _full_stride(ldn), ldn, _full_stride(ldm) if ms else 0, ldm)
+    H = STREAM_ROWS * groups
+    sn = _panel_stride(panel, H, ldn)
+    st = _panel_stride(panel, H, ldm) if ms else 0
+    if sn == 0 or (ms and st == 0):
+        return None
+    return K12StreamLayout(False, sn, min(sn, ldn), st, min(st, ldm))
+
+
+@functools.lru_cache(maxsize=256)
+def _k12_stream_layouts(n: int, ms: int, refine_steps: int) -> tuple:
+    """Every (lanes, groups, smem_bytes, per_sm, panel) of K1's (ms = 0) or
+    K2's stream route for this operator shape: whole warps of at most 512
+    threads, tiles of 4 groups rows no taller than the rows need, the
+    largest panel that fits beside the lane buffers with one or with two
+    blocks an SM, up to what the operators can use (all of one rho's
+    operators whole, or whole rows of a tile), and at least 8 columns of a
+    tile."""
+    if not (1 <= n <= MAX_STREAM_N and 0 <= ms <= MAX_STREAM_TAIL):
+        return ()
+    rows = max(n, ms)
+    ld = max(n + (n & 1), ms + (ms & 1))
+    whole = _k12_resident_doubles(n, ms, refine_steps)
+    out = []
+    for lanes in LANES:
+        step = max(1, 32 // lanes)
+        fixed = k12_stream_smem_bytes(n, ms, refine_steps, lanes, 0)
+        for groups in range(step, STREAM_THREADS // lanes + 1, step):
+            H = STREAM_ROWS * groups
+            if H - STREAM_ROWS * step >= rows:
+                break  # fewer groups cover the rows in one tile
+            most = max(-(-whole // 2), H * (ld + 2))
+            most += most & 1
+            panels = set()
+            for per in (1, 2):  # the largest panel with `per` blocks an SM
+                room = min(SMEM_LIMIT, SM_SMEM // per - SM_SMEM_PER_BLOCK) - fixed
+                panels.add(min(most, max(room, 0) // 16) & ~1)
+            for panel in sorted(panels, reverse=True):
+                if panel < 8 * H and 2 * panel < whole:
+                    continue
+                if k12_stream_layout(n, ms, refine_steps, groups, panel) is None:
+                    continue
+                smem = k12_stream_smem_bytes(n, ms, refine_steps, lanes, panel)
+                per_sm = blocks_per_sm(lanes * groups, smem, STREAM_REGISTERS)
+                out.append((lanes, groups, smem, per_sm, panel))
+    return tuple(out)
+
+
+def _k12_stream_cost(n: int, ms: int, R: int, refine_steps: int, B: int, lanes: int,
+                     groups: int, per_sm: int, panel: int) -> float:
+    """The stream route's cost of a layout, for ranking: the busiest SM's
+    blocks (each rho index's partial last one counted), each taking per
+    iteration its products' panels in turn. A panel's products read per
+    lane an operator entry per multiply-add of the tile's rows (padded ones
+    included) and the lane's vectors once per 4 rows, with
+    :func:`_warp_cost`'s penalty below 7 resident warps; unless the
+    operators are resident, a panel takes at least its copy from L2
+    (``STREAM_COPY_COST`` a double) and the wait for it
+    (``STREAM_LATENCY``, shared by the blocks an SM runs at once), and
+    ``STREAM_STEP`` more."""
+    lay = k12_stream_layout(n, ms, refine_steps, groups, panel)
+    H = STREAM_ROWS * groups
+    products = [(n, n, lay.pn, 1)] * (1 + 2 * int(refine_steps))
+    if ms:
+        products += [(n, ms, lay.pt, 2), (ms, n, lay.pn, 1)]
+    blocks = -(-B // lanes) + R
+    used = min(blocks, (B + R * (lanes - 1)) // lanes)
+    busiest = -(-used // SM_COUNT)
+    at_once = min(per_sm, busiest)
+    penalty = max(1.0, 7 / (at_once * lanes * groups / 32))
+    cost = 0.0
+    for rows, cols, pk, vectors in products:
+        panels = -(-rows // H) * -(-cols // pk)
+        width = cols / -(-cols // pk)
+        reads = lanes * H * width * (1 + vectors / STREAM_ROWS) * penalty
+        if lay.resident:
+            cost += panels * reads
+        else:
+            copy = STREAM_COPY_COST * H * width + STREAM_LATENCY / at_once
+            cost += panels * (max(reads, copy) + STREAM_STEP)
+    return busiest * cost
+
+
+@functools.lru_cache(maxsize=256)
+def k12_stream_plan(n: int, ms: int, R: int, refine_steps: int, B: int,
+                    lanes: Optional[int] = None,
+                    groups: Optional[int] = None) -> Optional[tuple]:
+    """The (lanes, groups, smem_bytes, per_sm, panel) of the cheapest
+    layout of K1's (ms = 0) or K2's stream route for ``B`` lanes
+    (:func:`_k12_stream_cost`; ties go to more lanes a block), or None
+    where none fits. ``lanes`` and ``groups`` force a layout."""
+    best = None
+    for L, G, smem, per_sm, panel in _k12_stream_layouts(n, ms, int(refine_steps)):
+        if lanes not in (None, L) or groups not in (None, G):
+            continue
+        key = (_k12_stream_cost(n, ms, R, refine_steps, B, L, G, per_sm, panel), -L, -panel)
+        if best is None or key < best[0]:
+            best = (key, (L, G, smem, per_sm, panel))
+    return None if best is None else best[1]
 
 
 def _padded_flops_per_lane(n: int, m: int, R: int, rs: int, packed: bool) -> int:
@@ -1082,13 +1310,16 @@ def _launch(kernel: str, entry: str, args, outs, ints, floats=()):
 
 
 def _launch_k1(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
-    """Launch K1 as :func:`k1_plan` lays it out (``plan`` forces one)."""
+    """Launch K1 on the route :func:`k1_plan` picks (``plan`` forces one)."""
     n, B = qT.shape
     R = int(op.rho_grid.shape[0])
     rs = int(config.refine_steps)
     mode = kernel_mode(config)
     if plan is None:
         plan = k1_plan(n, R, rs, B, mode=mode)
+    if plan.route == "stream":
+        return _launch_k12_stream(False, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config,
+                                  plan)
     f = torch.float32
     args = [
         ("K_invs", op.K_invs, (R, n, n), f),
@@ -1106,7 +1337,7 @@ def _launch_k1(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
 
 
 def _launch_k2(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
-    """Launch K2 as :func:`k2_plan` lays it out (``plan`` forces one)."""
+    """Launch K2 on the route :func:`k2_plan` picks (``plan`` forces one)."""
     n, B = qT.shape
     m = lT.shape[0]
     R = int(op.rho_grid.shape[0])
@@ -1114,6 +1345,9 @@ def _launch_k2(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
     mode = kernel_mode(config)
     if plan is None:
         plan = k2_plan(n, m, R, rs, B, mode=mode)
+    if plan.route == "stream":
+        return _launch_k12_stream(True, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config,
+                                  plan)
     f = torch.float32
     args = [
         ("K_invs", op.K_invs, (R, n, n), f),
@@ -1129,6 +1363,64 @@ def _launch_k2(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
                 mode=PRECISIONS.index(mode), **plan._asdict())
     return _launch(_count_key("K2", mode), "admm_mixed_chunk", args, outs,
                    [ints[k] for k in K2_INTS], (float(config.sigma), float(config.alpha)))
+
+
+def stream_operators(op: AdmmOperator, mode: str) -> dict:
+    """The operators of K1's and K2's stream route as the kernel reads them
+    from device memory (csrc/admm_diag_stream.cu): K^-1 and K (R, n, ldn),
+    and for a mixed operator A2' (n, ldm) and A2 (m - n, ldn), as
+    :func:`operator_entries` at precision ``mode``, rows padded to an even
+    stride for 16-byte copies. Built once per operator and precision and
+    kept on the operator (a new operator, as ``op.to`` or ``replace`` make,
+    builds its own)."""
+    cache = op.__dict__.setdefault("_stream_operators", {})
+    if mode not in cache:
+        n = int(op.A_s.shape[1])
+        pad = lambda M: torch.nn.functional.pad(M, (0, M.shape[-1] & 1))
+        ops = {"kinv": operator_entries(pad(op.K_invs), mode),
+               "k": operator_entries(pad(op.Ks), mode)}
+        if op.mixed_a:
+            a2 = op.A_s[n:]
+            ops.update(a2t=operator_entries(pad(a2.T), mode), a2=operator_entries(pad(a2), mode))
+        cache[mode] = ops
+    return cache[mode]
+
+
+def _launch_k12_stream(tail, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan):
+    """K1 (``tail`` false: admm_diag_stream_chunk) or K2
+    (admm_mixed_stream_chunk) on the stream route, with the lanes ordered
+    by rho index and the operators of :func:`stream_operators`."""
+    name = "K2" if tail else "K1"
+    n, B = qT.shape
+    m = lT.shape[0]
+    R = int(op.rho_grid.shape[0])
+    rs = int(config.refine_steps)
+    mode = kernel_mode(config)
+    ops = stream_operators(op, mode)
+    ldn, ldm = n + (n & 1), (m - n) + ((m - n) & 1)
+    shape = lambda *dims: dims if mode == "highest" else dims + (2,)
+    f, i32 = torch.float32, torch.int32
+    dt = torch.float64 if mode == "highest" else f
+    order, starts = rho_order(idx, R)
+    args = [("K_invs (entries)", ops["kinv"], shape(R, n, ldn), dt),
+            ("Ks (entries)", ops["k"], shape(R, n, ldn), dt)]
+    if tail:
+        args += [("A2' (entries)", ops["a2t"], shape(n, ldm), dt),
+                 ("A2 (entries)", ops["a2"], shape(m - n, ldn), dt)]
+    state = _state_args(n, m, B, qT, lT, uT, idx, xT, sT, yT, axT)
+    args += [
+        ("diag(A_s[:n])", torch.diagonal(op.A_s[:n, :n]).contiguous(), (n,), f),
+        ("rho_vecs", op.rho_vecs, (R, m), f),
+        ("rho_invs", op.rho_invs, (R, m), f),
+    ] + state[:3] + [("order", order, (B,), i32), ("starts", starts, (R + 1,), i32)] + state[4:]
+    _check_args(name, args, qT.device)
+    outs = [torch.empty_like(xT)] + [torch.empty_like(sT) for _ in range(3)]
+    ints = dict(n=n, m=m, B=B, R=R, chunk=int(chunk), refine_steps=rs,
+                mode=PRECISIONS.index(mode), **plan._asdict())
+    keys, entry = ((K2_STREAM_INTS, "admm_mixed_stream_chunk") if tail
+                   else (K1_STREAM_INTS, "admm_diag_stream_chunk"))
+    return _launch(_count_key(name, mode), entry, args, outs, [ints[k] for k in keys],
+                   (float(config.sigma), float(config.alpha)))
 
 
 def _launch_k4(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
@@ -1241,8 +1533,10 @@ def iterate_chunk_diag_T(
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """``chunk`` ADMM iterations of a diag-A QP batch, lane-last (n, B).
 
-    CUDA tensors launch K1 (``csrc/admm_diag.cu``) and raise if it cannot
-    run; CPU tensors take the plain version. The state is out of place."""
+    CUDA tensors launch K1 on the route :func:`k1_plan` picks
+    (``csrc/admm_diag.cu``, or ``csrc/admm_diag_stream.cu`` where the
+    shared route has no layout) and raise if it cannot run; CPU tensors
+    take the plain version. The state is out of place."""
     return _dispatch(
         "K1", _launch_k1, iterate_chunk_diag_T_plain,
         (op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config),
@@ -1264,8 +1558,10 @@ def iterate_chunk_mixed_T(
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """``chunk`` ADMM iterations of a mixed-A QP batch, lane-last.
 
-    CUDA tensors launch K2 (``csrc/admm_mixed.cu``) and raise if it cannot
-    run; CPU tensors take the plain version. The state is out of place."""
+    CUDA tensors launch K2 on the route :func:`k2_plan` picks
+    (``csrc/admm_mixed.cu``, or ``csrc/admm_diag_stream.cu`` where the
+    shared route has no layout) and raise if it cannot run; CPU tensors
+    take the plain version. The state is out of place."""
     return _dispatch(
         "K2", _launch_k2, iterate_chunk_mixed_T_plain,
         (op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config),

@@ -178,8 +178,10 @@ def _solve_batch_fused_riccati(
 def fused_supported(controller: MpcController) -> bool:
     """The port's routing rule: fused wherever a kernel takes the shape. A
     linear engine without soft or ball rows whose operator is diagonal and
-    fits K1, or mixed and fits K2 (shared memory, n <= 128, a dense tail of
-    at most 128 rows), or dense and fits the kernel that ``use_packed``
+    fits K1, or mixed and fits K2 (on their shared route, every rho's
+    operators in one block's shared memory, or on their stream route, n and
+    a dense tail of up to 1024 rows: every width the JAX package's
+    ``fused_fits`` takes), or dense and fits the kernel that ``use_packed``
     picks, K4 or K5 (n <= 128, at most 512 rows), as the JAX package's
     ``_kernel_viable`` takes a dense operator. A Riccati engine on any
     plant: K3 takes it up to (32, 16), K3W (``csrc/riccati_wide.cu``, the

@@ -80,7 +80,14 @@ device=card)``, then ``parallel`` and ``step``):
   every ``kernel_precision``, each certified lane's residuals recomputed in
   fp64 from the timed solve's own z, y and s. A bf16 precision's bound
   takes its passes at the bf16 tensor-core rate; ``fp32_floor_ms`` beside
-  it is this design's floor, the passes as fp32 multiply-adds.
+  it is this design's floor, the passes as fp32 multiply-adds;
+- K1's and K2's stream route (``stream_phase``, ``csrc/admm_diag_stream.cu``):
+  each kernel against its plain version at the widths the Pallas bodies
+  take past the shared routes (the QTP at h50 and its tier 2, h100 and
+  h264 box-only, the (16, 8) plant at h30, the h50 state box at every
+  precision), then the cells qtp-h50-default-B4096, qtp-sc-h50-B2048 and
+  wide16x8-h30-B4096 through ``parallel.solve_batch_fused`` against the
+  general engine on the same states.
 
 Phases (any failure raises and exits non-zero):
 1. the card: its name, count, and power limit from nvidia-smi;
@@ -185,6 +192,9 @@ REPS_SWEEPS, WIDE_STEPS, H500_STEPS, B_SWEEPS_CPU, H_SWEEPS = 3, 10, 20, 64, 500
 # solution (highest's own reach 1.19 x the bar there: its running image
 # ax against A z)
 PRECISIONS, REPS_PREC, U_BF16X3, CERT_SLACK = ("highest", "bf16x3", "default", "hybrid"), 3, 5e-3, 2.0
+# the stream route's phase: K1 and K2 past their shared routes, the solve
+# cells' repetitions and batches
+REPS_STREAM, B_STREAM = 3, 4096
 
 
 def log(**kv):
@@ -217,11 +227,15 @@ def ptxas_summary(report: str):
                 ("riccati_wide_certificate", "certificate-wide"), ("riccati_wide", "K3W"),
                 ("riccati_admm_chunk", "K3"), ("riccati_rollout", "K3 rollout"),
                 ("riccati_certificate", "K3 certificate"),
-                ("riccati_chain_floor", "K3 chain floor"), ("perr_stream", "K5 stream"),
+                ("riccati_chain_floor", "K3 chain floor"), ("admm_stream_kernel", "stream"),
+                ("perr_stream", "K5 stream"),
                 ("admm_perr", "K5"), ("mixed", "K2"), ("", "K1"),
             ) if key in name)
             targs = re.findall(r"L[ib](\d+)E", name)  # int and bool arguments
-            if kind in ("K1", "K2", "K5", "K5 stream"):
+            if kind == "stream":  # K1's and K2's stream route: TAIL, the precision
+                kind = ("K2 stream" if targs[0] == "1" else "K1 stream") + (
+                    "" if targs[1] == "0" else f" {('bf16x3', 'default')[int(targs[1]) - 1]}")
+            elif kind in ("K1", "K2", "K5", "K5 stream"):
                 # the precision comes last (sources before it have none)
                 flags, precision = targs, "highest"
                 if len(targs) == {"K1": 5, "K2": 3}.get(kind, 7):
@@ -1979,6 +1993,148 @@ def precision_phase(dev, kernels, cells):
     return records, counts
 
 
+def wide16_x0s(B):
+    """The routing audit's wide-plant states (benchmarks_routing_audit.py):
+    default_rng(0), 0.5 clip(N(0, 1), -1, 1), shape (B, 16)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return (0.5 * rng.standard_normal((B, 16)).clip(-1, 1)).astype(np.float32)
+
+
+def stream_phase(dev):
+    """K1's and K2's stream route on the card (csrc/admm_diag_stream.cu):
+    the operator widths their Pallas bodies take and their shared routes do
+    not, on the routing audit's config (``AdmmConfig(max_iter=1000)``: the
+    default grid of 5 with one refinement) unless named.
+
+    - Each kernel against its plain version, bit for bit (max_ulps 0), as
+      k1_plan or k2_plan lays it out on the stream route, graph-timed with
+      its bound, shared-memory floor and plain time: K1 at the QTP's h50
+      (n = 100, B = 4096) and its tier 2 (R = 4, 2 refinements, B = 512),
+      h100 (n = 200, B = 4096), the (16, 8) plant at h30 (n = 240, B =
+      4096) and h264 at tier 1's grid (n = 528, the widest the Pallas K1
+      fuses; B = 2048); K2 at the h50 state box (n = 100, m = 300, B =
+      2048) at each precision.
+    - The cells qtp-h50-default-B4096, qtp-sc-h50-B2048 and
+      wide16x8-h30-B4096 through ``parallel.solve_batch_fused`` (which
+      raised ValueError on the card before the stream route) and the
+      general engine (``parallel.solve_batch``) on the same states,
+      counted from zero: launches per solve, statuses, converged
+      fractions, |du| where both converged (U_OK), p50 of each side, and
+      each cell's fused solve under torch.profiler.
+    Fails if a kernel differs from its plain version, if a cell's fused
+    solve launches no stream-route kernel, runs a plain version, leaves a
+    lane non-finite or lies more than U_OK from the general engine where
+    both converged. Returns (the kernel records by kernel, the launches by
+    count key)."""
+    import numpy as np
+    import torch
+
+    from automationlabsmodelpredictivecontrol_jl_torch import parallel, proceed_controller
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import big, qtp
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+    from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig
+    from automationlabsmodelpredictivecontrol_jl_torch.types import STATUS_NUMERIC_ERROR
+
+    t0 = time.perf_counter()
+    audit = AdmmConfig(max_iter=1000)
+    tier1 = AdmmConfig(max_iter=75, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0)
+    design = lambda N, cfg, **kw: proceed_controller(
+        qtp.linearized_discrete_system(), "model_predictive_control", N, 5.0, [0.65] * 4,
+        [1.2] * 2, admm_config=cfg, device=dev, **kw)
+    h50 = design(50, audit)
+    sc50 = design(50, audit, mpc_state_constraint=True)
+    wide = proceed_controller(
+        big.random_stable_system(16, 8, seed=0), "model_predictive_control", 30, 5.0,
+        [0.0] * 16, [0.0] * 8, admm_config=audit, device=dev)
+    shapes = [
+        ("K1 h50 default", h50, B_STREAM, bench_x0s),
+        ("K1 h50 tier 2", parallel.escalation_controller(
+            h50, rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250, refine_steps=2),
+         BUCKET, bench_x0s),
+        ("K1 h100 default", design(100, audit), B_STREAM, bench_x0s),
+        ("K1 wide16x8 h30", wide, B_STREAM, wide16_x0s),
+        ("K1 h264 tier 1", design(264, tier1), B_SLICE, bench_x0s),
+        *((f"K2 h50 state box {mode}", with_precision(sc50, mode), B_SLICE, bench_x0s)
+          for mode in PRECISIONS[:3]),
+    ]
+    t_design = time.perf_counter() - t0
+    records = {"K1": [], "K2": []}
+    for label, c, B, x0s_fn in shapes:
+        rec = compare_kernel(c, B, 60, x0s_fn, plain_reps=1)
+        rec.update(shape=label)
+        log(phase="stream_vs_plain", **rec)
+        if rec["plan"]["route"] != "stream":
+            raise RuntimeError(f"{label}: expected the stream route: {rec['plan']}")
+        records[rec["kernel"]].append(rec)
+    t_kernels = time.perf_counter() - t0 - t_design
+
+    cells = {
+        "qtp-h50-default-B4096": (h50, bench_x0s(B_STREAM), "K1", (4, 2)),
+        "qtp-sc-h50-B2048": (sc50, bench_x0s(B_SLICE), "K2", (4, 2)),
+        "wide16x8-h30-B4096": (wide, wide16_x0s(B_STREAM), "K1", (16, 8)),
+    }
+    admm_fused.reset_counts()
+    solves = {}
+    for cell, (c, x0s, kernel, (nx, nu)) in cells.items():
+        op = c.engine.op
+        m, n = (int(d) for d in op.A_s.shape)
+        B, N = int(x0s.shape[0]), c.engine.qp.N
+        R, rs = int(op.rho_grid.shape[0]), int(c.engine.config.refine_steps)
+        plan = (admm_fused.k1_plan(n, R, rs, B) if op.diag_a
+                else admm_fused.k2_plan(n, m, R, rs, B))
+        if plan.route != "stream" or not parallel.fused_supported(c):
+            raise RuntimeError(f"{cell}: expected the fused path on the stream route: {plan}")
+        x = torch.from_numpy(x0s).to(dev)
+        before = admm_fused.LAUNCHES[kernel]
+        (sol_f, _, _, d_f), lat_f = timed(lambda c=c, x=x: parallel.solve_batch_fused(c, x),
+                                          REPS_STREAM)
+        launches = (admm_fused.LAUNCHES[kernel] - before) / (REPS_STREAM + 1)
+        (sol_g, _, _, d_g), lat_g = timed(lambda c=c, x=x: parallel.solve_batch(c, x),
+                                          REPS_STREAM)
+        for tag, sol in (("fused", sol_f), ("general", sol_g)):
+            check_solution(sol, B, N, f"{cell} {tag}", nx=nx, nu=nu)
+        both = (sol_f.status == 0) & (sol_g.status == 0)
+        du = float((sol_f.u - sol_g.u).abs()[both].max()) if bool(both.any()) else 0.0
+        rec = dict(
+            phase="stream_solve", cell=cell, kernel=kernel, n=n, m=m, B=B, plan=plan._asdict(),
+            launches_per_solve=launches,
+            converged_fraction_fused=int(d_f.n_converged) / B,
+            converged_fraction_general=int(d_g.n_converged) / B,
+            statuses_equal_fraction=float((sol_f.status == sol_g.status).float().mean()),
+            converged_both=int(both.sum()), max_abs_u_diff_vs_general=du,
+            numeric_errors_fused=int((sol_f.status == STATUS_NUMERIC_ERROR).sum()),
+            mean_iterations_fused=float(d_f.mean_iterations),
+            mean_iterations_general=float(d_g.mean_iterations),
+            max_iterations_fused=int(d_f.max_iterations),
+            batch_p50_ms_fused=float(np.percentile(lat_f, 50)) * 1e3,
+            batch_p50_ms_general=float(np.percentile(lat_g, 50)) * 1e3,
+        )
+        log(**rec)
+        if rec["numeric_errors_fused"] or du > U_OK or not bool(both.any()):
+            raise RuntimeError(f"{cell}: the fused solve disagrees with the general engine: {rec}")
+        solves[cell] = rec
+    counts = dict(admm_fused.LAUNCHES)
+    plain = dict(admm_fused.PLAIN_CALLS)
+    log(phase="counts", path="stream route", launches={k: v for k, v in counts.items() if v},
+        plain_calls=plain)
+    if any(plain.values()):
+        raise RuntimeError("the stream route's solves ran a plain version")
+    if min(counts["K1"], counts["K2"]) <= 0:
+        raise RuntimeError(f"the stream route's solves left a kernel unlaunched: {counts}")
+    t_solves = time.perf_counter() - t0 - t_design - t_kernels
+    for cell, (c, x0s, kernel, _) in cells.items():
+        x = torch.from_numpy(x0s).to(dev)
+        rec = profile(lambda c=c, x=x: parallel.solve_batch_fused(c, x), 2)
+        per_solve = solves[cell]["launches_per_solve"]
+        rec["device_ops_per_chunk"] = rec["device_ops_per_call"] / per_solve
+        log(phase="profile", cell=cell, reps=2, **rec)
+    log(phase="stream_seconds", design=t_design, kernels=t_kernels, solves=t_solves,
+        total=time.perf_counter() - t0)
+    return records, counts
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke.py: the {PKG} package is not beside this script", file=sys.stderr)
@@ -2482,6 +2638,12 @@ def main():
     }
     prec_recs, prec_counts = precision_phase(dev, prec_kernels, prec_cells)
 
+    # 4j. K1's and K2's stream route: each kernel against its plain version
+    # at the widths past the shared routes, then the three cells that
+    # raised on the card before it, fused against the general engine,
+    # counted from zero
+    stream_recs, stream_counts = stream_phase(dev)
+
     # where the time goes in each cell (after the counts: these launches
     # are not the paths' runs)
     for cell, fn, reps in (
@@ -2577,6 +2739,15 @@ def main():
               ("K4", "admm_packed_chunk", "admm_perr.cu", 252),
               ("K5", "admm_perr_chunk", "admm_perr.cu", 778))
           for mode in ("bf16x3", "default")),
+        # K1's and K2's stream route (the stream route's phase): the widths
+        # the Pallas bodies take past the shared routes
+        *(dict(kernel_entry(f"{entry} ({kernel}, stream route)", "admm_diag_stream.cu",
+                            f"{TPU_ADMM}:{line}", stream_counts[kernel], stream_recs[kernel]),
+               smem_floor_ms=stream_recs[kernel][0]["smem_floor_ms"],
+               layouts=sorted({(r["plan"]["lanes"], r["plan"]["groups"], r["plan"]["panel"])
+                               for r in stream_recs[kernel]}))
+          for kernel, entry, line in (("K1", "admm_diag_stream_chunk", 348),
+                                      ("K2", "admm_mixed_stream_chunk", 580))),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -54,6 +54,14 @@ and the h50 box-only operator (n = 100) at tier 1, B = 2048; LxG forces
 ``admm_fused.k1_plan``'s layout. A tree's wrapper calls its own C entry,
 whose parameters may differ from this checkout's.
 
+Both also time their stream route (``csrc/admm_diag_stream.cu``, built
+beside each into the same library where a tree has it) at the shapes past
+their shared routes: K1_STREAM_SHAPES (the QTP at h50 at the routing
+audit's config and its tier 2, h100, the (16, 8) plant at h30, h264 at
+tier 1's grid) and K2_STREAM_SHAPES (the h50 state box); a tree without
+it has no layout there and reports them skipped. LxG forces the stream
+route's lanes and row-groups there too.
+
 ``--kernel K5`` does the same for K5, the dense-A per-rho kernel, with
 each tree's K5 sources (``csrc/admm_perr.cu`` where the tree has it;
 ``csrc/admm_dense.cu``, whose admm_dense_perr_chunk is the older trees'
@@ -239,6 +247,21 @@ K1_SHAPES = (
     ("tier2-B1000", 20, "bench", 1000, True, 34),
     ("h50-tier1-B2048", 50, "bench", 2048, False, 35),
 )
+# the stream route's K1 shapes (csrc/admm_diag_stream.cu; an older tree
+# has no layout there and skips them): name, plant, horizon, config (the
+# routing audit's AdmmConfig(max_iter=1000), or tier 1's), B, tier-2
+# fallback, seed
+K1_STREAM_SHAPES = (
+    ("h50-default-B4096", "qtp", 50, "audit", 4096, False, 36),
+    ("h50-tier2-B512", "qtp", 50, "audit", 512, True, 37),
+    ("h100-default-B4096", "qtp", 100, "audit", 4096, False, 38),
+    ("wide16x8-h30-B4096", "wide16x8", 30, "audit", 4096, False, 39),
+    ("h264-tier1-B2048", "qtp", 264, "tier1", 2048, False, 40),
+)
+# and K2's: name, horizon, controller options, initial states, B, seed
+K2_STREAM_SHAPES = (
+    ("sc-h50-B2048", 50, {"mpc_state_constraint": True}, "bench", 2048, 41),
+)
 # name, horizon, tier-2 fallback, B, seed: the h20 state box with its rows
 # first at the dense-sc-h20 cell's B and ragged batches, its tier-2
 # escalation's bucket (grid (0.1, 1, 10, 100), 2 refinements; off the
@@ -264,8 +287,9 @@ K4_SHAPES = (
     ("nb-h20-B2048", {"mpc_terminal_ingredient": "neighborhood"}, "suite", "suite", 2048, 64),
 )
 ADMM_KERNELS = {  # the sources each tree builds alone (those it has), and their C entries
-    "K1": (("admm_diag.cu",), ("admm_diag_chunk",)),
-    "K2": (("admm_mixed.cu",), ("admm_mixed_chunk",)),
+    "K1": (("admm_diag.cu", "admm_diag_stream.cu"), ("admm_diag_chunk", "admm_diag_stream_chunk")),
+    "K2": (("admm_mixed.cu", "admm_diag_stream.cu"),
+           ("admm_mixed_chunk", "admm_mixed_stream_chunk")),
     "K4": (("admm_perr.cu", "admm_dense.cu"),
            ("admm_packed_chunk", "admm_packed_stream_chunk", "admm_dense_packed_chunk",
             "admm_perr_chunk", "admm_perr_stream_chunk")),
@@ -310,10 +334,11 @@ def _admm_cases(kernel, dev, shapes):
     kernel's table that ``shapes`` keeps, on the card."""
     import chip_smoke
     from automationlabsmodelpredictivecontrol_jl_torch import parallel, proceed_controller
-    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import big, qtp
     from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig
 
-    x0s = {"bench": chip_smoke.bench_x0s, "suite": chip_smoke.suite_x0s}
+    x0s = {"bench": chip_smoke.bench_x0s, "suite": chip_smoke.suite_x0s,
+           "wide16x8": chip_smoke.wide16_x0s}
     tier2 = lambda c: parallel.escalation_controller(
         c, rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250, refine_steps=2)
     design = lambda N, cfg, **kw: proceed_controller(
@@ -350,13 +375,28 @@ def _admm_cases(kernel, dev, shapes):
             if N not in ctrls:
                 ctrls[N] = design(N, cfg)
             yield name, tier2(ctrls[N]) if fallback else ctrls[N], x0s[x0s_name], B, seed
+        configs = {"audit": AdmmConfig(max_iter=1000), "tier1": cfg}
+        for name, plant, N, config, B, fallback, seed in K1_STREAM_SHAPES:
+            if shapes and name not in shapes:
+                continue
+            key = (plant, N, config)
+            if key not in ctrls:
+                ctrls[key] = design(N, configs[config]) if plant == "qtp" else proceed_controller(
+                    big.random_stable_system(16, 8, seed=0), "model_predictive_control", N, 5.0,
+                    [0.0] * 16, [0.0] * 8, admm_config=configs[config], device=dev)
+            c = tier2(ctrls[key]) if fallback else ctrls[key]
+            yield name, c, x0s["bench" if plant == "qtp" else plant], B, seed
         return
-    for name, kw, x0s_name, B, fallback, seed in K2_SHAPES:
+    cases = [(name, 20, kw, x0s_name, B, fallback, seed)
+             for name, kw, x0s_name, B, fallback, seed in K2_SHAPES]
+    cases += [(name, N, kw, x0s_name, B, False, seed)
+              for name, N, kw, x0s_name, B, seed in K2_STREAM_SHAPES]
+    for name, N, kw, x0s_name, B, fallback, seed in cases:
         if shapes and name not in shapes:
             continue
-        key = tuple(sorted(kw.items()))
+        key = (N,) + tuple(sorted(kw.items()))
         if key not in ctrls:
-            ctrls[key] = design(20, AdmmConfig(max_iter=1000), **kw)
+            ctrls[key] = design(N, AdmmConfig(max_iter=1000), **kw)
         yield name, tier2(ctrls[key]) if fallback else ctrls[key], x0s[x0s_name], B, seed
 
 

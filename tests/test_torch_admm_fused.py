@@ -155,8 +155,12 @@ def test_wrapper_rejects_other_precisions_and_shapes(designs):
             op, q, q, q, config=TConfig(**CONFIGS["R2"], kernel_precision="tf32")
         )
     assert admm_fused.k1_fits(40, 4, 2) and admm_fused.k1_fits(40, 2, 0)
-    assert not admm_fused.k1_fits(200, 5, 1)  # 800 KB stack: tiling is later work
-    assert not admm_fused.k1_fits(130, 1, 0)
+    # an 800 KB stack (n = 200, R = 5) and n = 130 fit no shared layout: the
+    # stream route takes them, and nothing takes n past its widest
+    for n, R, rs in ((200, 5, 1), (130, 1, 0)):
+        assert admm_fused.k1_fits(n, R, rs) and not any(admm_fused._k1_layouts(n, R, rs))
+        assert admm_fused.k1_plan(n, R, rs, 64).route == "stream"
+    assert not admm_fused.k1_fits(admm_fused.MAX_STREAM_N + 1, 1, 0)
 
 
 def _k1_fit_before_plans(n, R, refine_steps):
@@ -182,6 +186,14 @@ def test_k1_plan_covers_batch_and_rows(n, R, refine_steps):
                 admm_fused.k1_plan(n, R, refine_steps, B)
             continue
         p = admm_fused.k1_plan(n, R, refine_steps, B)
+        if p.route == "stream":  # no shared layout: the stream route's plan
+            assert not any(admm_fused._k1_layouts(n, R, refine_steps))
+            assert p.blocks == -(-B // p.lanes) + R and p.rpt == admm_fused.STREAM_ROWS
+            assert p.smem_bytes == admm_fused.k12_stream_smem_bytes(
+                n, 0, refine_steps, p.lanes, p.panel) <= admm_fused.SMEM_LIMIT
+            assert (p.lanes * p.groups) % 32 == 0
+            assert p.lanes * p.groups <= admm_fused.STREAM_THREADS
+            continue
         assert p.blocks * p.lanes >= B > (p.blocks - 1) * p.lanes
         assert p.groups * p.rpt >= n > p.groups * (p.rpt - 1)
         assert p.rpt in admm_fused.K1_INSTANCES and p.lanes in admm_fused.LANES

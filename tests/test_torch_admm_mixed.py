@@ -225,8 +225,12 @@ def test_k2_shapes_and_precisions(designs):
         40, 132, 5, 1, plan.lanes, plan.groups, plan.rpt_n, plan.rpt_t
     ) <= admm_fused.SMEM_LIMIT
     assert not admm_fused.k2_fits(40, 40, 5, 1)  # no dense tail: K1's shape
-    assert not admm_fused.k2_fits(40, 40 + 129, 1, 0)  # tail past 128 rows
-    assert not admm_fused.k2_fits(100, 300, 5, 1)  # h50 state rows: 400 KB
+    # a tail past 128 rows and the h50 state rows (400 KB) fit no shared
+    # layout: the stream route takes them, and nothing takes a longer tail
+    for n, m, R, rs in ((40, 40 + 129, 1, 0), (100, 300, 5, 1)):
+        assert admm_fused.k2_fits(n, m, R, rs) and not any(admm_fused._k2_layouts(n, m, R, rs))
+        assert admm_fused.k2_plan(n, m, R, rs, 64).route == "stream"
+    assert not admm_fused.k2_fits(40, 40 + admm_fused.MAX_STREAM_TAIL + 1, 1, 0)
     assert admm_fused.chunk_fn_for(op) is admm_fused.iterate_chunk_mixed_T
     assert admm_fused.chunk_fn_for(op, plain=True) is admm_fused.iterate_chunk_mixed_T_plain
 
@@ -256,6 +260,12 @@ def test_k2_plan_covers_batch_and_rows(m, R, refine_steps):
                 admm_fused.k2_plan(n, m, R, refine_steps, B)
             continue
         p = admm_fused.k2_plan(n, m, R, refine_steps, B)
+        if p.route == "stream":  # no shared layout: the stream route's plan
+            assert not any(admm_fused._k2_layouts(n, m, R, refine_steps))
+            assert p.blocks == -(-B // p.lanes) + R
+            assert p.smem_bytes == admm_fused.k12_stream_smem_bytes(
+                n, m - n, refine_steps, p.lanes, p.panel) <= admm_fused.SMEM_LIMIT
+            continue
         assert p.smem_bytes == admm_fused.k2_smem_bytes(
             n, m, R, refine_steps, p.lanes, p.groups, p.rpt_n, p.rpt_t
         )

@@ -430,8 +430,13 @@ def test_every_shape_has_a_plan_at_every_precision(kernel, mode):
                     continue
                 hi = admm_fused.k1_plan(n, R, rs, B)
                 lo = admm_fused.k1_plan(n, R, rs, B, mode=mode)
-                assert lo.smem_bytes == admm_fused.k1_smem_bytes(
-                    n, R, rs, lo.lanes, lo.groups, lo.rpt)
+                assert lo.route == hi.route
+                if lo.route == "shared":
+                    assert lo.smem_bytes == admm_fused.k1_smem_bytes(
+                        n, R, rs, lo.lanes, lo.groups, lo.rpt)
+                else:
+                    assert lo == hi and lo.smem_bytes == admm_fused.k12_stream_smem_bytes(
+                        n, 0, rs, lo.lanes, lo.panel)
             elif kernel == "K2":
                 if m <= n or not admm_fused.k2_fits(n, m, R, rs):
                     continue

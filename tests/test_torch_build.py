@@ -302,3 +302,65 @@ def test_precision_registers_fit_the_budgets(name, source, macro, keys, mode):
         threads, *budgets = row[keys:]
         for used, budget in zip(table[key(row)], budgets):
             assert used <= budget <= 255 and 65536 // (threads * budget) >= 1
+
+
+@pytest.mark.parametrize("entry,ints,arrays", [
+    ("admm_diag_stream_chunk", "K1_STREAM_INTS", 18),
+    ("admm_mixed_stream_chunk", "K2_STREAM_INTS", 20),
+])
+def test_k12_stream_entries_take_the_plan(entry, ints, arrays):
+    """The stream route's C entries take the ints the wrapper passes, in
+    its order (admm_fused.K1_STREAM_INTS / K2_STREAM_INTS: the shape, then
+    the plan's lanes, groups, panel and bytes), after their arrays: K^-1
+    and K (K2: A2' and A2) as entries, then the vectors, the rho order and
+    the lane state."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    params = _c_params(entry)
+    sig = _build.SIGNATURES[entry]
+    assert tuple(p for p, kind in zip(params, sig) if kind == "i") == getattr(admm_fused, ints)
+    assert sig == "p" * arrays + "i" * len(getattr(admm_fused, ints)) + "ff" + "p"
+    assert params[:2] == ["kinv", "kmat"] and params[arrays - 10:arrays - 8] == ["order", "starts"]
+    if arrays == 20:
+        assert params[2:4] == ["a2t", "a2"]
+
+
+def test_k12_stream_bytes_match_the_c_entry():
+    """admm_fused.k12_stream_smem_bytes is the stream route's own formula:
+    the entry's two lines, read from csrc/admm_diag_stream.cu and evaluated
+    (its ternary as Python's) on the same layouts."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    text = open(os.path.join(_build.CSRC_DIR, "admm_diag_stream.cu")).read()
+    exprs = [re.search(rf"const long long {name} = (.*);", text).group(1)
+             for name in ("stream_doubles", "stream_need")]
+    py = lambda e: re.sub(r"\(([^()?]*) \? ([^():]*) : ([^()]*)\)", r"((\2) if (\1) else (\3))",
+                          re.sub(r"(\d+)LL", r"\1", e).replace("lay.", "").replace("a.", ""))
+    cases = 0
+    for n, ms in ((100, 0), (61, 7), (528, 0), (275, 550), (1, 1), (33, 1)):
+        for rs in (0, 1, 2):
+            for lanes in admm_fused.LANES:
+                for panel in (96, 7658, 12848):
+                    env = dict(n=n, lanes=lanes, panel=panel, refine_steps=rs,
+                               nslots=(n + 1) & ~1, tslots=(ms + 1) & ~1)
+                    env["stream_doubles"] = eval(py(exprs[0]), {}, env)
+                    assert eval(py(exprs[1]), {}, env) == admm_fused.k12_stream_smem_bytes(
+                        n, ms, rs, lanes, panel)
+                    cases += 1
+    assert cases > 200
+
+
+def test_k12_stream_constants_match_the_source():
+    """The stream route's rows a thread takes in a tile, most threads a
+    block and widest n and tail are the plans' (admm_fused.STREAM_ROWS,
+    STREAM_THREADS, MAX_STREAM_N, MAX_STREAM_TAIL), and its
+    __launch_bounds__ holds a thread to the registers the plans count."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    text = open(os.path.join(_build.CSRC_DIR, "admm_diag_stream.cu")).read()
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+    assert const("kRows") == admm_fused.STREAM_ROWS
+    assert const("kThreads") == admm_fused.STREAM_THREADS
+    assert const("kMaxWidth") == admm_fused.MAX_STREAM_N == admm_fused.MAX_STREAM_TAIL
+    assert "__launch_bounds__(kThreads, 1)" in text
+    assert admm_fused.STREAM_REGISTERS == 65536 // admm_fused.STREAM_THREADS

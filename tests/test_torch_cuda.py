@@ -240,6 +240,179 @@ def test_mixed_solve_auto_launches_k2(mixed_controllers):
     np.testing.assert_allclose(s_gpu.u.cpu().numpy(), s_cpu.u.numpy(), atol=5e-4)
 
 
+@pytest.fixture(scope="module")
+def wide_controllers(card):
+    """Condensed controllers whose operators K1's and K2's shared routes do
+    not hold, so that their stream route (csrc/admm_diag_stream.cu) takes
+    them: the QTP at h50 box-only at the default config (n = 100) and its
+    tier 2 (R = 4, refine 2), at h30 (n = 60), its h50 state box (n = 100,
+    m = 300), and the (16, 8) plant of the routing audit at h30 (n = 240)."""
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import big
+
+    cfg = AdmmConfig(max_iter=1000)
+    design = lambda N, plant=None, **kw: proceed_controller(
+        plant or qtp.linearized_discrete_system(), "model_predictive_control", N, 5.0,
+        [0.0] * 16 if plant else [0.65] * 4, [0.0] * 8 if plant else [1.2] * 2,
+        admm_config=cfg, device=card, **kw)
+    h50 = design(50)
+    return {
+        "h50": h50, "h30": design(30), "h50-sc": design(50, mpc_state_constraint=True),
+        "h50-tier2": parallel.escalation_controller(
+            h50, rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250, refine_steps=2),
+        "wide16x8": design(30, big.random_stable_system(16, 8, seed=0)),
+    }
+
+
+def _lane_args(op, cfg, B, seed, single_index=False):
+    """One chunk's inputs for an operator on its device: seeded q, boxes
+    around 0 and a state of scale 0.05; rho indices random or all at the
+    config's start index."""
+    dev = op.A_s.device
+    m, n = (int(d) for d in op.A_s.shape)
+    R = int(op.rho_grid.shape[0])
+    rng = np.random.default_rng(seed)
+    f32 = lambda *shape, scale=0.05: torch.from_numpy(
+        (scale * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+    qT = f32(n, B, scale=1.0)
+    lT = -f32(m, B, scale=0.5).abs() - 0.1
+    uT = f32(m, B, scale=0.5).abs() + 0.1
+    idx = rng.integers(0, R, size=B).astype(np.int32)
+    if single_index:
+        idx[:] = start_rho_index(cfg) if R > 1 else 0
+    x, y, ax = f32(n, B), f32(m, B), f32(m, B)
+    s = torch.clamp(ax, lT, uT).contiguous()
+    return (op, qT, lT, uT, torch.from_numpy(idx).to(dev), x, s, y, ax, 25, cfg)
+
+
+def _synthetic_box_op(base, n, ms, R, refine_steps, seed):
+    """A diagonal (ms = 0) or mixed operator of any shape, made as
+    build_operator makes one from P = I and A = [diag(d); A2] with a random
+    A2 (no scaling): K_r = P + sigma I + A' diag(rho_r) A over R rho
+    values, K_r^-1 in fp64; every array fp32 on base's device."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(0.5, 1.5, n)
+    A = np.vstack([np.diag(d), rng.standard_normal((ms, n)) / np.sqrt(n)])
+    m = n + ms
+    grid = np.logspace(-1, 1, R)
+    rho = grid[:, None] * np.where(np.arange(m) % 7 == 3, 100.0, 1.0)[None]
+    K = np.eye(n) * (1 + 1e-6) + np.einsum("mi,rm,mj->rij", A, rho, A)
+    dev = base.A_s.device
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+    return base.replace(
+        P_s=t(np.eye(n)), A_s=t(A), Ks=t(K), K_invs=t(np.linalg.inv(K)), rho_vecs=t(rho),
+        rho_invs=t(1.0 / rho), rho_grid=t(grid), D=t(np.ones(n)), E=t(np.ones(m)),
+        diag_a=ms == 0, mixed_a=ms > 0, kia=None,
+    )
+
+
+def _stream_held_to_plain(args, plan=None):
+    """A chunk of K1 or K2 (as the operator says) on the stream route,
+    against its plain version: one launch counted, no plain call, equal to
+    the last bit."""
+    op, cfg = args[0], args[-1]
+    m, n = (int(d) for d in op.A_s.shape)
+    R, rs = int(op.rho_grid.shape[0]), int(cfg.refine_steps)
+    B = int(args[1].shape[1])
+    mode = cfg.kernel_precision
+    kernel = "K2" if op.mixed_a else "K1"
+    if plan is None:
+        plan = (admm_fused.k2_plan(n, m, R, rs, B, mode=mode) if op.mixed_a
+                else admm_fused.k1_plan(n, R, rs, B, mode=mode))
+    assert plan.route == "stream"
+    key = _key(kernel, mode)
+    launches, plain = admm_fused.LAUNCHES[key], admm_fused.PLAIN_CALLS[key]
+    launch = admm_fused._launch_k2 if op.mixed_a else admm_fused._launch_k1
+    out_k = launch(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert admm_fused.LAUNCHES[key] == launches + 1
+    assert admm_fused.PLAIN_CALLS[key] == plain
+    plain_fn = (admm_fused.iterate_chunk_mixed_T_plain if op.mixed_a
+                else admm_fused.iterate_chunk_diag_T_plain)
+    _assert_equal_bits(out_k, plain_fn(*args), (kernel, mode, plan))
+
+
+@pytest.mark.parametrize("which,B,single", [
+    ("h50", 4096, False), ("h50", 4096, True), ("h50", 77, False), ("h50-tier2", 512, False),
+    ("h30", 1000, False), ("wide16x8", 4096, False), ("wide16x8", 33, True),
+    ("h50-sc", 2048, False), ("h50-sc", 77, True), ("h50-sc", 1, False),
+])
+@pytest.mark.parametrize("mode", MODES)
+def test_stream_route_matches_plain_version(wide_controllers, which, B, single, mode):
+    """K1 and K2 on their stream route at the controllers' shapes, as
+    k1_plan and k2_plan lay them out, against their plain versions bit for
+    bit at each precision: random rho indices (every block one index's
+    lanes) or one index, ragged batches (each index's partial last block)."""
+    ctrl = wide_controllers[which]
+    cfg = dataclasses.replace(ctrl.engine.config, kernel_precision=mode)
+    _stream_held_to_plain(_lane_args(ctrl.engine.op, cfg, B, seed=B + 7, single_index=single))
+
+
+@pytest.mark.parametrize("n,ms,R,refine_steps,B,panel", [
+    (61, 0, 3, 2, 100, None), (61, 0, 3, 2, 100, "narrow"), (129, 0, 1, 0, 33, None),
+    (129, 0, 1, 0, 33, "narrow"), (528, 0, 2, 0, 300, None), (280, 0, 4, 2, 64, None),
+    (7, 5, 2, 1, 50, None), (7, 5, 2, 1, 50, "narrow"), (61, 7, 3, 0, 100, "narrow"),
+    (33, 1, 2, 1, 64, None), (100, 200, 5, 1, 300, "narrow"), (275, 550, 2, 0, 128, None),
+    (480, 1, 2, 0, 40, None), (40, 80, 5, 1, 77, None),
+])
+@pytest.mark.parametrize("mode", MODES)
+def test_stream_route_odd_shapes_match_plain_version(controllers, n, ms, R, refine_steps, B,
+                                                    panel, mode):
+    """The stream route at shapes the QTP cells never give it: odd n and
+    tails (each pair loop's last row, a padded operator column), one tail
+    row, one rho and four, no refinement and two, the widest K1 the JAX
+    package fuses (n = 528), K2's widest state box (275, 550), a shape the
+    shared route also takes (forced), and with ``narrow`` panels of about
+    10 columns (every product streamed over several tiles and column
+    panels); equal to the plain version bit for bit at each precision."""
+    op = _synthetic_box_op(controllers[0].engine.op, n, ms, R, refine_steps, seed=n + ms)
+    cfg = AdmmConfig(refine_steps=refine_steps, kernel_precision=mode)
+    plan = (admm_fused.k2_plan(n, n + ms, R, refine_steps, B, mode=mode, route="stream") if ms
+            else admm_fused.k1_plan(n, R, refine_steps, B, mode=mode, route="stream"))
+    if panel == "narrow":
+        doubles = 12 * admm_fused.STREAM_ROWS * plan.groups
+        plan = plan._replace(panel=doubles, smem_bytes=admm_fused.k12_stream_smem_bytes(
+            n, ms, refine_steps, plan.lanes, doubles))
+        assert not admm_fused.k12_stream_layout(n, ms, refine_steps, plan.groups, doubles).resident
+    _stream_held_to_plain(_lane_args(op, cfg, B, seed=B), plan)
+
+
+def test_stream_route_refuses_a_layout_it_does_not_have(wide_controllers):
+    """The stream route's C entries refuse shared-memory bytes that differ
+    from their own layout (cudaError_t 1) rather than run on a wrong one."""
+    for which, launch in (("h50", admm_fused._launch_k1), ("h50-sc", admm_fused._launch_k2)):
+        op, cfg = wide_controllers[which].engine.op, wide_controllers[which].engine.config
+        args = _lane_args(op, cfg, 64, seed=6)
+        m, n = (int(d) for d in op.A_s.shape)
+        plan = (admm_fused.k2_plan(n, m, 5, 1, 64) if op.mixed_a
+                else admm_fused.k1_plan(n, 5, 1, 64))
+        with pytest.raises(RuntimeError, match="cudaError_t 1"):
+            launch(*args, plan=plan._replace(smem_bytes=plan.smem_bytes + 16))
+
+
+def test_wide_solves_launch_the_stream_route(wide_controllers):
+    """parallel.solve_batch_fused on the h50 default and state-box
+    controllers raises no ValueError on the card: it launches K1 and K2
+    (the stream route), no plain version, and agrees with the same solve
+    on the CPU: about as many lanes converged (at eps 1e-6 some end at the
+    iteration limit, which of them following the drivers' fp32 roundoff),
+    u within 5e-4 where both converged."""
+    rng = np.random.default_rng(0)
+    x0 = torch.from_numpy(np.clip(0.65 + 0.1 * rng.standard_normal((128, 4)), 0.3, 1.3)
+                          .astype(np.float32))
+    for which, kernel in (("h50", "K1"), ("h50-sc", "K2")):
+        ctrl = wide_controllers[which]
+        launches, plain = admm_fused.LAUNCHES[kernel], dict(admm_fused.PLAIN_CALLS)
+        s_gpu, _, _, d_gpu = parallel.solve_batch_fused(ctrl, x0.to(ctrl.device))
+        torch.cuda.synchronize()
+        assert admm_fused.LAUNCHES[kernel] > launches
+        assert admm_fused.PLAIN_CALLS == plain
+        s_cpu, _, _, d_cpu = parallel.solve_batch_fused(ctrl.to("cpu"), x0)
+        assert abs(int(d_gpu.n_converged) - int(d_cpu.n_converged)) <= x0.shape[0] // 10
+        both = (s_gpu.status.cpu() == 0) & (s_cpu.status == 0)
+        assert int(both.sum()) >= 32
+        np.testing.assert_allclose(s_gpu.u.cpu()[both].numpy(), s_cpu.u[both].numpy(), atol=5e-4)
+
+
 @pytest.mark.parametrize("mode", MODES + ("hybrid",))
 def test_fused_solve_on_card_matches_cpu(controllers, mode):
     """Tier 1's solve on the card against the CPU at each precision and the
