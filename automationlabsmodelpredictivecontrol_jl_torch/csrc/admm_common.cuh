@@ -32,9 +32,12 @@
 // these formulas.
 //
 // The stream routes (K5 and K4 in admm_perr.cu, K1 and K2 in
-// admm_diag_stream.cu) stream one rho's operators from device memory
-// through two shared panels with cp.async: StreamLayout is K5's and K4's
-// layout, panel_stride the row stride of a panel, copy16 one 16-byte copy.
+// admm_diag_stream.cu) and K5's and K4's wide route (admm_perr_wide.cu)
+// stream one rho's operators from device memory through two shared panels
+// with cp.async: StreamLayout is K5's and K4's stream layout, panel_stride
+// the row stride of a panel, copy16 one 16-byte copy, copy_rows a block's
+// copy of a panel's rows, rho_block the lanes of one rho index a block
+// takes.
 
 #pragma once
 
@@ -211,6 +214,45 @@ inline int panel_stride(int panel, int rows, int ldg) {
 // one 16-byte asynchronous copy from device to shared memory
 __device__ __forceinline__ void copy16(double* dst, const double* src) {
   __pipeline_memcpy_async(dst, src, 16);
+}
+
+// The block's lanes on a route whose lanes the wrapper orders by rho index
+// (admm_fused.rho_order: starts[r] is where index r's lanes begin): block k
+// takes lanes [(k - first) L, + L) of rho r's, in lane order, and the grid
+// has room for every rho's partial last block. r == R marks a spare block;
+// off is the block's first lane within rho r's, seg where they start and
+// cnt how many there are.
+struct RhoBlock {
+  int r, seg, cnt, off;
+};
+
+__device__ __forceinline__ RhoBlock rho_block(const int* __restrict__ starts, int R, int L) {
+  RhoBlock rb{R, 0, 0, 0};
+  int first = 0;
+  for (int rr = 0; rr < R; ++rr) {
+    const int seg = starts[rr];
+    const int cnt = starts[rr + 1] - seg;
+    const int nb = (cnt + L - 1) / L;
+    if (static_cast<int>(blockIdx.x) < first + nb) {
+      rb = RhoBlock{rr, seg, cnt, (static_cast<int>(blockIdx.x) - first) * L};
+      break;
+    }
+    first += nb;
+  }
+  return rb;
+}
+
+// Start copying `rows` rows of `cols` columns (an odd width with its pad
+// column) from device memory at stride ld into shared memory at stride sp,
+// 16 bytes a thread at a time over the block's `nthreads` threads.
+__device__ __forceinline__ void copy_rows(double* dst, int sp, const double* src, int ld,
+                                          int rows, int cols, int tid, int nthreads) {
+  const int per_row = (cols + 1) >> 1;
+  for (int c = tid; c < rows * per_row; c += nthreads) {
+    const int row = c / per_row;
+    const int h = c - row * per_row;
+    copy16(dst + row * sp + 2 * h, src + row * ld + 2 * h);
+  }
 }
 
 }  // namespace mpc_admm

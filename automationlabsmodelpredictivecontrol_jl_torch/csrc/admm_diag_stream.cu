@@ -29,7 +29,7 @@
 // writing them through the order, so it needs one rho's operators: K^-1, K
 // when refining, and for K2 A2' and A2, handed over by the wrapper as the
 // precision's 8-byte entries in device memory, rows padded to an even
-// stride (built once per operator, admm_fused.stream_operators). Where they
+// stride (built once per operator, admm_fused.kernel_operators). Where they
 // fit the block's two panels whole they are copied into shared memory once
 // a chunk (resident: at n = 100 and the default config, K^-1 and K take
 // 160 KB); elsewhere each product streams its operator through the two
@@ -87,7 +87,6 @@
 namespace {
 
 using mpc_admm::clip;
-using mpc_admm::copy16;
 using mpc_admm::panel_stride;
 using mpc_admm::Prec;
 using mpc_admm::slot;
@@ -148,21 +147,11 @@ admm_stream_kernel(const double* __restrict__ kinv,  // (R, n, ldn) entries
   const int H = kRows * G;  // rows of a tile
   const int ms = m - n;
 
-  // block k takes lanes [(k - first) L, + L) of rho r's, in lane order;
-  // the grid has room for every rho's partial last block
-  int first = 0, seg = 0, cnt = 0, r = R;
-  for (int rr = 0; rr < R; ++rr) {
-    seg = starts[rr];
-    cnt = starts[rr + 1] - seg;
-    const int nb = (cnt + L - 1) / L;
-    if (static_cast<int>(blockIdx.x) < first + nb) {
-      r = rr;
-      break;
-    }
-    first += nb;
-  }
-  if (r == R) return;  // a spare block: every thread, before any barrier
-  const int off = (static_cast<int>(blockIdx.x) - first) * L + b;
+  // the block's lanes: one rho index's (mpc_admm::rho_block)
+  const mpc_admm::RhoBlock rb = mpc_admm::rho_block(starts, R, L);
+  if (rb.r == R) return;  // a spare block: every thread, before any barrier
+  const int r = rb.r, seg = rb.seg, cnt = rb.cnt;
+  const int off = rb.off + b;
   const bool live = off < cnt;
   const int lc = order[seg + (live ? off : cnt - 1)];
 
@@ -236,15 +225,9 @@ admm_stream_kernel(const double* __restrict__ kinv,  // (R, n, ldn) entries
     if (kind == kKprod) return Geo{k_r, n, n, lay.ldn, lay.sn, lay.pn, lay.k_at};
     return Geo{ki_r, n, n, lay.ldn, lay.sn, lay.pn, 0};
   };
-  // start copying `rows` rows of `cols` columns (an odd width with its pad
-  // column) from device memory at stride ld into shared memory at stride sp
+  // start copying `rows` rows of `cols` columns into shared memory
   auto copy_rows = [&](double* dst, int sp, const double* src, int ld, int rows, int cols) {
-    const int per_row = (cols + 1) >> 1;
-    for (int c = tid; c < rows * per_row; c += nthreads) {
-      const int row = c / per_row;
-      const int h = c - row * per_row;
-      copy16(dst + row * sp + 2 * h, src + row * ld + 2 * h);
-    }
+    mpc_admm::copy_rows(dst, sp, src, ld, rows, cols, tid, nthreads);
   };
   // start copying the panel of phase ph, tile `tile`, columns panel cp
   auto issue = [&](int ph, int tile, int cp, double* dst) {

@@ -584,21 +584,11 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,  // K4: W, n + m rows a
   const int tid = t * L + b;
   const int nthreads = L * G;
 
-  // block k takes lanes [(k - first) L, + L) of rho r's, in lane order;
-  // the grid has room for every rho's partial last block
-  int first = 0, seg = 0, cnt = 0, r = R;
-  for (int rr = 0; rr < R; ++rr) {
-    seg = starts[rr];
-    cnt = starts[rr + 1] - seg;
-    const int nb = (cnt + L - 1) / L;
-    if (static_cast<int>(blockIdx.x) < first + nb) {
-      r = rr;
-      break;
-    }
-    first += nb;
-  }
-  if (r == R) return;  // a spare block: every thread, before any barrier
-  const int off = (static_cast<int>(blockIdx.x) - first) * L + b;
+  // the block's lanes: one rho index's (mpc_admm::rho_block)
+  const mpc_admm::RhoBlock rb = mpc_admm::rho_block(starts, R, L);
+  if (rb.r == R) return;  // a spare block: every thread, before any barrier
+  const int r = rb.r, seg = rb.seg, cnt = rb.cnt;
+  const int off = rb.off + b;
   const bool live = off < cnt;
   const int lc = order[seg + (live ? off : cnt - 1)];
 
@@ -676,13 +666,7 @@ admm_perr_stream_kernel(const double* __restrict__ kinv,  // K4: W, n + m rows a
       const int pk = last ? lay.pkm : lay.pkn;
       const int sk = last ? lay.skm : lay.skn;
       const int l0 = p * pk;
-      const int width = ((n - l0 < pk ? n - l0 : pk) + 1) & ~1;  // the pad column of an odd n
-      const int per_row = width / 2;
-      for (int c = tid; c < rows * per_row; c += nthreads) {
-        const int row = c / per_row;
-        const int h = c - row * per_row;
-        copy16(dst + row * sk + 2 * h, M + row * ldg + l0 + 2 * h);
-      }
+      mpc_admm::copy_rows(dst, sk, M + l0, ldg, rows, n - l0 < pk ? n - l0 : pk, tid, nthreads);
     }
   };
 

@@ -7,7 +7,8 @@ into one shared library with a plain C interface,
 register tiers, and the widest tier's routes, are sources of their own
 over one header, so that they build side by side; K3W, the width-general
 Riccati chunk, and its rollout and certificate are ``riccati_wide.cu``;
-the stream route of K1 and K2, ``admm_diag_stream.cu``). That happens on
+the stream route of K1 and K2, ``admm_diag_stream.cu``; the wide route of
+K4 and K5, ``admm_perr_wide.cu``). That happens on
 first use, or when a source or a header is newer than the library. The
 library is loaded with ctypes. Nothing here runs at import time: the CPU
 tests import every module on a machine with no nvcc.
@@ -118,6 +119,8 @@ SIGNATURES = {
     "admm_perr_stream_chunk": "p" * 19 + "i" * 13 + "ff" + "p",
     "admm_packed_chunk": "p" * 18 + "i" * 12 + "ff" + "p",
     "admm_packed_stream_chunk": "p" * 19 + "i" * 13 + "ff" + "p",
+    "admm_perr_wide_chunk": "p" * 20 + "i" * 11 + "ff" + "p",
+    "admm_packed_wide_chunk": "p" * 20 + "i" * 11 + "ff" + "p",
     "riccati_admm_chunk": "p" * 26 + "i" * 13 + "p",
     "riccati_rollout": "p" * 5 + "i" * 4 + "p",
     "riccati_certificate": "p" * 15 + "i" * 9 + "p",

@@ -18,7 +18,9 @@ QPs whose scaled constraint matrix A_s is
   rows above the variable bounds): :func:`iterate_chunk_dense_packed_T`,
   kernel K4, or :func:`iterate_chunk_dense_perr_T`, kernel K5, as
   :func:`use_packed` picks; both are instantiations of the two kernels of
-  ``csrc/admm_perr.cu``, laid out by :func:`k4_plan` and :func:`k5_plan`.
+  ``csrc/admm_perr.cu`` and, at the shapes those do not take, of the wide
+  route's (``csrc/admm_perr_wide.cu``), laid out by :func:`k4_plan` and
+  :func:`k5_plan`.
 
 Each chunk function runs ``chunk`` ADMM iterations on the lane-last state,
 its products at ``config.kernel_precision`` (``PRECISIONS``: the JAX
@@ -72,12 +74,19 @@ def reset_counts() -> None:
 
 
 # shared memory one block may use on Hopper (227 KB), the widest n the
-# shared routes of K1 and K2 and the kernels K4 and K5 take, K2's shared
-# route's widest dense tail and K4/K5's most constraint rows
+# shared routes of K1 and K2 and the shared and stream routes of K4 and K5
+# take, K2's shared route's widest dense tail and the most constraint rows
+# K4's and K5's shared and stream routes take
 SMEM_LIMIT = 232448
 MAX_N = 128
 MAX_TAIL = 128
 MAX_DENSE_ROWS = 512
+# K4's and K5's wide route (csrc/admm_perr_wide.cu): the widest n and the
+# most constraint rows, and the lanes a block may take (its m-row vectors
+# take 16 bytes a row and lane: at m = 3839, 61 KB a lane)
+MAX_WIDE_N = 1024
+MAX_WIDE_ROWS = 4096
+WIDE_LANES = (32, 16, 8, 4, 2, 1)
 # K1's and K2's stream route (csrc/admm_diag_stream.cu): the widest n and
 # K2's longest tail, the rows a thread takes in each tile of a product, the
 # most threads a block and the registers a thread is held to (its
@@ -604,18 +613,22 @@ def use_packed(n: int, m: int, R: int, refine_steps: int = 1) -> bool:
 
 
 def k4_fits(n: int, m: int, R: int) -> bool:
-    """Whether K4 takes this operator shape: as K5, n <= 128 and 1 to 512
-    constraint rows, at any R (:func:`k4_plan`)."""
-    return 1 <= n <= MAX_N and 1 <= m <= MAX_DENSE_ROWS
+    """Whether K4 takes this operator shape, a layout on some route at any
+    R (:func:`k4_plan`): as K5 (:func:`k5_fits`)."""
+    return k5_fits(n, m, R)
 
 
 def k5_fits(n: int, m: int, R: int) -> bool:
-    """Whether K5 takes this operator shape: n <= 128 and 1 to 512
-    constraint rows, at any R. Every such shape has a layout on the stream
-    route, whose shared memory holds the lane buffers and two operator
-    panels whatever R is (:func:`k5_plan`). K4 takes the same
-    (:func:`k4_fits`)."""
-    return 1 <= n <= MAX_N and 1 <= m <= MAX_DENSE_ROWS
+    """Whether K5 takes this operator shape, a layout on some route at any
+    R (:func:`k5_plan`): n <= 1024 and 1 to 4096 constraint rows (every
+    dense shape the JAX package's ``fused_fits`` admits: n up to 582, up
+    to 3839 rows). Every shape with n <= 128 and 1 to 512 rows has a layout
+    on the stream route, whose shared memory holds the lane buffers and two
+    operator panels whatever R is, and every other one on the wide route,
+    whose lane buffers of one lane and two panels of 8 columns of a tile
+    take at most 139 KB (n = 1024, m = 4096, K4's with refinement). K4
+    takes the same (:func:`k4_fits`)."""
+    return 1 <= n <= MAX_WIDE_N and 1 <= m <= MAX_WIDE_ROWS
 
 
 # K5's shared route (csrc/admm_perr.cu, MPC_K5_INSTANCES) and stream route
@@ -683,12 +696,18 @@ K5_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups
            "rpt_m", "smem_bytes")
 K5_STREAM_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups",
                   "rpt_n", "rpt_m", "panel", "smem_bytes")
+K5_WIDE_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups", "panel",
+                "smem_bytes")
 # "shared": admm_perr_chunk / admm_packed_chunk (K5 / K4, csrc/admm_perr.cu),
 # every rho's fp64 operators in shared memory; "stream":
 # admm_perr_stream_chunk / admm_packed_stream_chunk (the same file), lanes
 # grouped by rho index, one rho's fp64 operators streamed through shared
-# panels
-DENSE_ROUTES = ("shared", "stream")
+# panels, a thread's rows in registers; "wide": admm_perr_wide_chunk /
+# admm_packed_wide_chunk (csrc/admm_perr_wide.cu), as the stream route
+# with products over row tiles and the lane state in device memory, at
+# any n <= 1024 and up to 4096 rows, where neither of the others has a
+# layout
+DENSE_ROUTES = ("shared", "stream", "wide")
 
 
 class DensePlan(NamedTuple):
@@ -855,6 +874,132 @@ def _stream_layouts(n: int, m: int, refine_steps: int, packed: bool = False,
     return tuple(out)
 
 
+def wide_smem_bytes(n: int, m: int, refine_steps: int, lanes: int, panel: int,
+                    packed: bool = False) -> int:
+    """Dynamic shared memory of one block of K5's or K4's (``packed``) wide
+    route (csrc/admm_perr_wide.cu): two operator panels of ``panel``
+    doubles; the n-row buffers of rhs and xt and the m-row buffers of y and
+    s, fp64, of ``lanes`` lanes, their rows rounded up to pairs; when
+    refining, rhs and xt in fp32, and on K4 the image st."""
+    nslots, mslots = (n + 1) & ~1, (m + 1) & ~1
+    floats = (2 * n + (m if packed else 0)) * lanes if refine_steps > 0 else 0
+    return 8 * (2 * panel + 2 * (nslots + mslots) * lanes) + 4 * floats
+
+
+def _wide_resident_doubles(n: int, m: int, refine_steps: int, packed: bool) -> int:
+    """The doubles one rho's operators take whole in shared memory on the
+    wide route: A' and fl(rho A)', K^-1' (K4: W, n + m rows), K' when
+    refining, and K5's A."""
+    fn, fm = _full_stride(n + (n & 1)), _full_stride(m + (m & 1))
+    rows = (n + m if packed else n) + (n if refine_steps > 0 else 0) + (0 if packed else m)
+    return 2 * n * fm + rows * fn
+
+
+class WideLayout(NamedTuple):
+    """The wide route's layout of one K4 or K5 launch
+    (csrc/admm_perr_wide.cu, make_layout): whether one rho's operators stay
+    whole in the two panels for the chunk, and the row stride and columns
+    of a panel of an n-column operator (K^-1', W, K', A) and of the pass's
+    m-column A' and fl(rho A)'."""
+
+    resident: bool
+    sn: int
+    pn: int
+    sm: int
+    pm: int
+
+
+def wide_layout(n: int, m: int, refine_steps: int, groups: int, panel: int,
+                packed: bool = False) -> Optional[WideLayout]:
+    """The layout the C entry derives from a plan (csrc/admm_perr_wide.cu,
+    make_layout): resident where every operator fits the two panels whole,
+    else panels of 4 ``groups`` rows (the pass's: twice that, A' above
+    fl(rho A)'); None where a panel holds fewer than 2 columns."""
+    ldn, ldm = n + (n & 1), m + (m & 1)
+    if _wide_resident_doubles(n, m, refine_steps, packed) <= 2 * panel:
+        return WideLayout(True, _full_stride(ldn), ldn, _full_stride(ldm), ldm)
+    H = STREAM_ROWS * groups
+    sn, sm = _panel_stride(panel, H, ldn), _panel_stride(panel, 2 * H, ldm)
+    if sn == 0 or sm == 0:
+        return None
+    return WideLayout(False, sn, min(sn, ldn), sm, min(sm, ldm))
+
+
+@functools.lru_cache(maxsize=256)
+def _wide_layouts(n: int, m: int, refine_steps: int, packed: bool = False) -> tuple:
+    """Every (lanes, groups, smem_bytes, per_sm, panel) of K5's wide route
+    (K4's if ``packed``) for this operator shape: 1 to 32 lanes, whole warps
+    of at most 512 threads, tiles of 4 groups rows no taller than the rows
+    need, the largest panel that fits beside the lane buffers with one or
+    with two blocks an SM, up to what the operators can use (all of one
+    rho's operators whole, or whole rows of a tile), and at least 8 columns
+    of the pass's tile."""
+    if not (1 <= n <= MAX_WIDE_N and 1 <= m <= MAX_WIDE_ROWS):
+        return ()
+    ldn, ldm = n + (n & 1), m + (m & 1)
+    rows = n + m if packed else max(n, m)
+    whole = _wide_resident_doubles(n, m, refine_steps, packed)
+    out = []
+    for lanes in WIDE_LANES:
+        step = max(1, 32 // lanes)
+        fixed = wide_smem_bytes(n, m, refine_steps, lanes, 0, packed)
+        if fixed > SMEM_LIMIT:
+            continue
+        for groups in range(step, STREAM_THREADS // lanes + 1, step):
+            H = STREAM_ROWS * groups
+            if H - STREAM_ROWS * step >= rows:
+                break  # fewer groups cover the rows in one tile
+            most = max(-(-whole // 2), 2 * H * (ldm + 2), H * (ldn + 2))
+            most += most & 1
+            panels = set()
+            for per in (1, 2):  # the largest panel with `per` blocks an SM
+                room = min(SMEM_LIMIT, SM_SMEM // per - SM_SMEM_PER_BLOCK) - fixed
+                panels.add(min(most, max(room, 0) // 16) & ~1)
+            for panel in sorted(panels, reverse=True):
+                if panel < 16 * H and 2 * panel < whole:
+                    continue
+                if wide_layout(n, m, refine_steps, groups, panel, packed) is None:
+                    continue
+                smem = wide_smem_bytes(n, m, refine_steps, lanes, panel, packed)
+                per_sm = blocks_per_sm(lanes * groups, smem, STREAM_REGISTERS)
+                out.append((lanes, groups, smem, per_sm, panel))
+    return tuple(out)
+
+
+def _wide_cost(n: int, m: int, R: int, refine_steps: int, B: int, lanes: int, groups: int,
+               per_sm: int, panel: int, packed: bool) -> float:
+    """The wide route's cost of a layout, for ranking, as
+    :func:`_k12_stream_cost` ranks K1's and K2's stream route: the busiest
+    SM's blocks, each taking per iteration its products' panels in turn;
+    the pass reads two operators against two vectors, the solves K^-1' (K4:
+    W, n + m rows), the refinement K', K5's A xt A."""
+    lay = wide_layout(n, m, refine_steps, groups, panel, packed)
+    H = STREAM_ROWS * groups
+    rs = int(refine_steps)
+    # (rows, columns, a panel's columns, operators, vectors)
+    products = [(n, m, lay.pm, 2, 2)]
+    products += [(n + m if packed else n, n, lay.pn, 1, 1)] * (1 + rs)
+    products += [(n, n, lay.pn, 1, 1)] * rs
+    if not packed:
+        products += [(m, n, lay.pn, 1, 1)]
+    blocks = -(-B // lanes) + R
+    used = min(blocks, (B + R * (lanes - 1)) // lanes)
+    busiest = -(-used // SM_COUNT)
+    at_once = min(per_sm, busiest)
+    penalty = max(1.0, 7 / (at_once * lanes * groups / 32))
+    cost = 0.0
+    for rows, cols, pk, ops, vectors in products:
+        panels = -(-rows // H) * -(-cols // pk)
+        width = cols / -(-cols // pk)
+        reads = lanes * H * width * (ops + vectors / STREAM_ROWS) * penalty
+        if lay.resident:
+            cost += panels * reads
+        else:
+            copy = STREAM_COPY_COST * H * ops * width + STREAM_LATENCY / at_once
+            cost += panels * (max(reads, copy) + STREAM_STEP)
+    return busiest * cost
+
+
 @functools.lru_cache(maxsize=256)  # the driver asks once per chunk
 def k5_plan(n: int, m: int, R: int, refine_steps: int, B: int,
             lanes: Optional[int] = None, groups: Optional[int] = None,
@@ -863,8 +1008,10 @@ def k5_plan(n: int, m: int, R: int, refine_steps: int, B: int,
 
     The shared route where some layout of it fits (its fp64 operators and
     lane buffers within one block's shared memory: the h20 state box), else
-    the stream route (the h50 state box), which takes every shape
-    :func:`k5_fits` takes. Within a route the busiest SM runs
+    the stream route (the h50 state box), which takes every shape with n <=
+    128 and 1 to 512 rows, else the wide route (the h100 state box), which
+    takes every other shape :func:`k5_fits` takes, ranked by
+    :func:`_wide_cost`. Within the shared and stream routes the busiest SM runs
     ceil(blocks / 132) blocks of L lanes, several at once where shared
     memory, threads and the instantiation's registers allow; a lane reads
     per iteration an operator entry per multiply-add (on the shared route
@@ -873,7 +1020,8 @@ def k5_plan(n: int, m: int, R: int, refine_steps: int, B: int,
     (:func:`_warp_cost`) counts the warps resident on the SM. A stream
     launch has up to R - 1 more blocks (each rho's partial last one). Ties
     go to more lanes per block. ``lanes``, ``groups`` and ``route`` force a
-    layout (ValueError if it does not fit). ``mode``, a precision of
+    layout (ValueError if it does not fit; the wide route only where it is
+    forced or neither other route has any layout). ``mode``, a precision of
     ``PRECISIONS``, sets the registers the instantiations take; bytes,
     panels and routes are the same at every precision (8-byte entries)."""
     return _dense_plan(False, n, m, R, refine_steps, B, lanes, groups, route, mode)
@@ -889,7 +1037,8 @@ def k4_plan(n: int, m: int, R: int, refine_steps: int, B: int,
     of the fp64 A (the h20 equality terminal, its tier 2 and the h20 state
     box at tier 1's grid), on the stream route panels of K_r^-1 with kia_r
     (n + m rows; the h20 neighborhood terminal), whole where they fit
-    (:func:`k4_resident`). A lane reads per iteration the fp32 A once for
+    (:func:`k4_resident`), on the wide route as K5's (W's n + m rows in its
+    solves). A lane reads per iteration the fp32 A once for
     A'y and A'rho.s and widens it twice (each widening costs about what a
     double's read does: k3_ab.py --kernel K4), K^-1 and kia for xt and its
     image in one product, and K, K^-1 and kia again per refinement.
@@ -905,15 +1054,20 @@ def _dense_plan(packed, n, m, R, refine_steps, B, lanes, groups, route, mode) ->
         raise ValueError(f"{name} takes at least one lane; B={B}")
     if m * B >= 2**31:
         raise ValueError(f"{name} indexes the (m, B) state with 32 bits; m={m}, B={B}")
+    if n * B >= 2**31:
+        raise ValueError(f"{name} indexes the (n, B) state with 32 bits; n={n}, B={B}")
     if not k5_fits(n, m, R):
         raise ValueError(
-            f"no {name} route for n={n}, m={m}: {name} takes n <= {MAX_N} and 1 to "
-            f"{MAX_DENSE_ROWS} rows"
+            f"no {name} route for n={n}, m={m}: {name} takes n <= {MAX_WIDE_N} and 1 to "
+            f"{MAX_WIDE_ROWS} rows"
         )
     if route not in (None,) + DENSE_ROUTES:
         raise ValueError(f"{name} routes are {DENSE_ROUTES}, not {route!r}")
     rs = int(refine_steps)
-    for kind in DENSE_ROUTES:
+    older = (1 <= n <= MAX_N and 1 <= m <= MAX_DENSE_ROWS)  # the stream route has a layout
+    if route == "wide" or (route is None and not older):
+        return _wide_plan(packed, n, m, R, rs, B, lanes, groups)
+    for kind in DENSE_ROUTES[:2]:
         if route not in (None, kind):
             continue
         grouped = kind == "stream"
@@ -949,6 +1103,28 @@ def _dense_plan(packed, n, m, R, refine_steps, B, lanes, groups, route, mode) ->
         + ("" if lanes is None and groups is None else f", lanes={lanes}, groups={groups}")
         + f" within {SMEM_LIMIT} B of shared memory"
     )
+
+
+def _wide_plan(packed, n, m, R, rs, B, lanes, groups) -> DensePlan:
+    """The cheapest layout of the wide route (:func:`_wide_cost`; ties go to
+    more lanes a block, then the larger panel); ``lanes`` and ``groups``
+    force one."""
+    best = None
+    for L, G, smem, per_sm, panel in _wide_layouts(n, m, rs, packed):
+        if lanes not in (None, L) or groups not in (None, G):
+            continue
+        key = (_wide_cost(n, m, R, rs, B, L, G, per_sm, panel, packed), -L, -panel)
+        if best is None or key < best[0]:
+            best = (key, DensePlan("wide", L, G, STREAM_ROWS, STREAM_ROWS, -(-B // L) + R, smem,
+                                   per_sm, panel))
+    if best is None:
+        raise ValueError(
+            f"no layout of {'K4' if packed else 'K5'}'s wide route for n={n}, m={m}, R={R}, "
+            f"refine_steps={rs}"
+            + ("" if lanes is None and groups is None else f", lanes={lanes}, groups={groups}")
+            + f" within {SMEM_LIMIT} B of shared memory"
+        )
+    return best[1]
 
 
 def rho_order(idx: Tensor, R: int) -> Tuple[Tensor, Tensor]:
@@ -1365,38 +1541,17 @@ def _launch_k2(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
                    [ints[k] for k in K2_INTS], (float(config.sigma), float(config.alpha)))
 
 
-def stream_operators(op: AdmmOperator, mode: str) -> dict:
-    """The operators of K1's and K2's stream route as the kernel reads them
-    from device memory (csrc/admm_diag_stream.cu): K^-1 and K (R, n, ldn),
-    and for a mixed operator A2' (n, ldm) and A2 (m - n, ldn), as
-    :func:`operator_entries` at precision ``mode``, rows padded to an even
-    stride for 16-byte copies. Built once per operator and precision and
-    kept on the operator (a new operator, as ``op.to`` or ``replace`` make,
-    builds its own)."""
-    cache = op.__dict__.setdefault("_stream_operators", {})
-    if mode not in cache:
-        n = int(op.A_s.shape[1])
-        pad = lambda M: torch.nn.functional.pad(M, (0, M.shape[-1] & 1))
-        ops = {"kinv": operator_entries(pad(op.K_invs), mode),
-               "k": operator_entries(pad(op.Ks), mode)}
-        if op.mixed_a:
-            a2 = op.A_s[n:]
-            ops.update(a2t=operator_entries(pad(a2.T), mode), a2=operator_entries(pad(a2), mode))
-        cache[mode] = ops
-    return cache[mode]
-
-
 def _launch_k12_stream(tail, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan):
     """K1 (``tail`` false: admm_diag_stream_chunk) or K2
     (admm_mixed_stream_chunk) on the stream route, with the lanes ordered
-    by rho index and the operators of :func:`stream_operators`."""
+    by rho index and the operators of :func:`kernel_operators`."""
     name = "K2" if tail else "K1"
     n, B = qT.shape
     m = lT.shape[0]
     R = int(op.rho_grid.shape[0])
     rs = int(config.refine_steps)
     mode = kernel_mode(config)
-    ops = stream_operators(op, mode)
+    ops = kernel_operators(op, mode, "kinv", "k", *(("a2t", "a2") if tail else ()))
     ldn, ldm = n + (n & 1), (m - n) + ((m - n) & 1)
     shape = lambda *dims: dims if mode == "highest" else dims + (2,)
     f, i32 = torch.float32, torch.int32
@@ -1433,10 +1588,49 @@ def _launch_k5(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
     return _launch_dense(False, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan)
 
 
+# how each operator the stream and wide routes read from device memory is
+# formed from the operator before its entries are taken (rows padded to an
+# even stride): K1's and K2's K^-1 and K, and K2's A2' and A2; K4's and
+# K5's K^-1 transposed, W = [K^-1'; kia'] (K4's solves), K transposed, A
+# and fl(rho_r A) (one fp32 product), and the wide route's A' and
+# fl(rho_r A)'
+_KERNEL_OPERATORS = {
+    "kinv": lambda op: op.K_invs,
+    "k": lambda op: op.Ks,
+    "a2t": lambda op: op.A_s[op.A_s.shape[1]:].T,
+    "a2": lambda op: op.A_s[op.A_s.shape[1]:],
+    "kinv_t": lambda op: op.K_invs.transpose(1, 2),
+    "w": lambda op: torch.cat([op.K_invs.transpose(1, 2), _kia(op).transpose(1, 2)], dim=1),
+    "k_t": lambda op: op.Ks.transpose(1, 2),
+    "a": lambda op: op.A_s,
+    "ra": lambda op: op.rho_vecs[:, :, None] * op.A_s[None],
+    "at": lambda op: op.A_s.T,
+    "rat": lambda op: (op.rho_vecs[:, :, None] * op.A_s[None]).transpose(1, 2),
+}
+
+
+def kernel_operators(op: AdmmOperator, mode: str, *keys: str) -> dict:
+    """The operators ``keys`` of the stream and wide routes as their kernels
+    read them from device memory (csrc/admm_diag_stream.cu,
+    csrc/admm_perr.cu, csrc/admm_perr_wide.cu): :func:`operator_entries`
+    at precision ``mode`` of ``_KERNEL_OPERATORS``' forms, rows padded to
+    an even stride for 16-byte copies. Each is built once per operator and
+    precision and kept on the operator (a new operator, as ``op.to`` or
+    ``replace`` make, builds its own)."""
+    cache = op.__dict__.setdefault("_kernel_operators", {}).setdefault(mode, {})
+    for key in keys:
+        if key not in cache:
+            M = _KERNEL_OPERATORS[key](op)
+            cache[key] = operator_entries(torch.nn.functional.pad(M, (0, M.shape[-1] & 1)), mode)
+    return cache
+
+
 def _launch_dense(packed, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan):
     """K4 (``packed``) or K5 on the shared route (admm_packed_chunk,
-    admm_perr_chunk) or the stream route (admm_packed_stream_chunk,
-    admm_perr_stream_chunk, with the lanes ordered by rho index)."""
+    admm_perr_chunk), the stream route (admm_packed_stream_chunk,
+    admm_perr_stream_chunk) or the wide route (admm_packed_wide_chunk,
+    admm_perr_wide_chunk), the last two with the lanes ordered by rho index
+    and the operators of :func:`kernel_operators`."""
     name = "K4" if packed else "K5"
     n, B = qT.shape
     m = lT.shape[0]
@@ -1452,36 +1646,36 @@ def _launch_dense(packed, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, p
                 mode=PRECISIONS.index(mode), **plan._asdict())
     floats = (float(config.sigma), float(config.alpha))
     name = _count_key(name, mode)
-    if plan.route == "stream":
-        # one rho's operators a block, as the kernel's 8-byte entries
-        # (:func:`operator_entries`), once per launch: K^-1 (K4: with kia
-        # below it) and K transposed, A and fl(rho_r A) (one fp32 product),
-        # rows padded to an even stride for 16-byte copies
-        ldg = n + (n & 1)
-        ent = lambda M: operator_entries(torch.nn.functional.pad(M, (0, ldg - n)), mode)
+    if plan.route in ("stream", "wide"):
+        # one rho's operators a block, as the kernel's 8-byte entries: K^-1
+        # (K4: W, with kia below it) and K transposed, A, and on the stream
+        # route fl(rho_r A), on the wide route A' and fl(rho_r A)'
+        wide = plan.route == "wide"
+        first = "w" if packed else "kinv_t"
+        ops = kernel_operators(op, mode, first, "k_t", "a", *(("at", "rat") if wide else ("ra",)))
+        ldn, ldm = n + (n & 1), m + (m & 1)
         shape = lambda *dims: dims if mode == "highest" else dims + (2,)
         dt = torch.float64 if mode == "highest" else f
-        kinv_e = ent(op.K_invs.transpose(1, 2))
-        if packed:
-            first = ("[K_invs'; kia'] (entries)",
-                     torch.cat([kinv_e, ent(_kia(op).transpose(1, 2))], dim=1),
-                     shape(R, n + m, ldg))
-        else:
-            first = ("K_invs' (entries)", kinv_e, shape(R, n, ldg))
         order, starts = rho_order(idx, R)
         args = [
-            first + (dt,),
-            ("Ks' (entries)", ent(op.Ks.transpose(1, 2)) if rs > 0 else kinv_e,
-             shape(R, n, ldg), dt),
-            ("A_s (entries)", ent(op.A_s), shape(m, ldg), dt),
-            ("fl(rho A_s) (entries)", ent(op.rho_vecs[:, :, None] * op.A_s[None]),
-             shape(R, m, ldg), dt),
+            ("[K_invs'; kia'] (entries)" if packed else "K_invs' (entries)", ops[first],
+             shape(R, n + m if packed else n, ldn), dt),
+            ("Ks' (entries)", ops["k_t"], shape(R, n, ldn), dt),
+            ("A_s (entries)", ops["a"], shape(m, ldn), dt),
+        ] + ([
+            ("A_s' (entries)", ops["at"], shape(n, ldm), dt),
+            ("fl(rho A_s)' (entries)", ops["rat"], shape(R, n, ldm), dt),
+        ] if wide else [
+            ("fl(rho A_s) (entries)", ops["ra"], shape(R, m, ldn), dt),
+        ]) + [
             ("rho_vecs", op.rho_vecs, (R, m), f),
             ("rho_invs", op.rho_invs, (R, m), f),
         ] + state[:3] + [("order", order, (B,), i32), ("starts", starts, (R + 1,), i32)] + state[4:]
         _check_args(name, args, qT.device)
-        entry = "admm_packed_stream_chunk" if packed else "admm_perr_stream_chunk"
-        return _launch(name, entry, args, outs, [ints[k] for k in K5_STREAM_INTS], floats)
+        kind = "wide" if wide else "stream"
+        entry = f"admm_{'packed' if packed else 'perr'}_{kind}_chunk"
+        keys = K5_WIDE_INTS if wide else K5_STREAM_INTS
+        return _launch(name, entry, args, outs, [ints[k] for k in keys], floats)
     args = [
         ("K_invs", op.K_invs, (R, n, n), f),
         ("Ks", op.Ks, (R, n, n), f),
@@ -1651,7 +1845,7 @@ def chunk_fn_for(
         raise ValueError(
             f"no kernel takes this dense operator: use_packed picks {name} for "
             f"n={n}, m={m}, R={R}, refine_steps={rs}, and {name} takes n <= "
-            f"{MAX_N} and 1 to {MAX_DENSE_ROWS} rows"
+            f"{MAX_WIDE_N} and 1 to {MAX_WIDE_ROWS} rows"
         )
     if packed:
         return iterate_chunk_dense_packed_T_plain if plain else iterate_chunk_dense_packed_T

@@ -182,7 +182,9 @@ def fused_supported(controller: MpcController) -> bool:
     operators in one block's shared memory, or on their stream route, n and
     a dense tail of up to 1024 rows: every width the JAX package's
     ``fused_fits`` takes), or dense and fits the kernel that ``use_packed``
-    picks, K4 or K5 (n <= 128, at most 512 rows), as the JAX package's
+    picks, K4 or K5 (on their shared and stream routes up to n = 128 and
+    512 rows, on their wide route n <= 1024 and up to 4096 rows: every
+    dense shape ``fused_fits`` takes), as the JAX package's
     ``_kernel_viable`` takes a dense operator. A Riccati engine on any
     plant: K3 takes it up to (32, 16), K3W (``csrc/riccati_wide.cu``, the
     plant's width a runtime value) past that. Never an SQP, economic or

@@ -87,7 +87,17 @@ device=card)``, then ``parallel`` and ``step``):
   h264 box-only, the (16, 8) plant at h30, the h50 state box at every
   precision), then the cells qtp-h50-default-B4096, qtp-sc-h50-B2048 and
   wide16x8-h30-B4096 through ``parallel.solve_batch_fused`` against the
-  general engine on the same states.
+  general engine on the same states;
+- K4's and K5's wide route (``wide_phase``, ``csrc/admm_perr_wide.cu``):
+  each kernel against its plain version at the dense shapes the Pallas
+  bodies take past the shared and stream routes (n <= 128, m <= 512): the
+  QTP's h100 state box (every precision) and equality terminal at the
+  default config, its h154 state box and h228 equality terminal at tier
+  1's grid (the widest the JAX package fuses), the (32, 1) plant's h20
+  state box on K4 (660 rows); then the cells dense-sc-h100-B2048 and
+  dense-eq-h100-B2048 through ``parallel.solve_batch_fused`` against the
+  general engine on the same states, and dense-sc32x1-h20-B2048 on K4
+  against the same solve with its plain version.
 
 Phases (any failure raises and exits non-zero):
 1. the card: its name, count, and power limit from nvidia-smi;
@@ -195,6 +205,10 @@ PRECISIONS, REPS_PREC, U_BF16X3, CERT_SLACK = ("highest", "bf16x3", "default", "
 # the stream route's phase: K1 and K2 past their shared routes, the solve
 # cells' repetitions and batches
 REPS_STREAM, B_STREAM = 3, 4096
+# the wide route's phase: K4 and K5 past their shared and stream routes,
+# the solve cells' repetitions, the tier-1 batch of the widest shapes, and
+# the lanes and iterations of the K4 cell's re-solve with the plain version
+REPS_WIDE_ROUTE, B_WIDE_T1, B_WIDE_PLAIN, WIDE_PLAIN_ITERS = 3, 1024, 64, 100
 
 
 def log(**kv):
@@ -228,12 +242,14 @@ def ptxas_summary(report: str):
                 ("riccati_admm_chunk", "K3"), ("riccati_rollout", "K3 rollout"),
                 ("riccati_certificate", "K3 certificate"),
                 ("riccati_chain_floor", "K3 chain floor"), ("admm_stream_kernel", "stream"),
-                ("perr_stream", "K5 stream"),
+                ("admm_wide_kernel", "wide"), ("perr_stream", "K5 stream"),
                 ("admm_perr", "K5"), ("mixed", "K2"), ("", "K1"),
             ) if key in name)
             targs = re.findall(r"L[ib](\d+)E", name)  # int and bool arguments
-            if kind == "stream":  # K1's and K2's stream route: TAIL, the precision
-                kind = ("K2 stream" if targs[0] == "1" else "K1 stream") + (
+            if kind in ("stream", "wide"):  # K1's and K2's stream route: TAIL, the
+                # precision; K4's and K5's wide route: PACKED, the precision
+                pair = ("K2", "K1") if kind == "stream" else ("K4", "K5")
+                kind = f"{pair[0] if targs[0] == '1' else pair[1]} {kind}" + (
                     "" if targs[1] == "0" else f" {('bf16x3', 'default')[int(targs[1]) - 1]}")
             elif kind in ("K1", "K2", "K5", "K5 stream"):
                 # the precision comes last (sources before it have none)
@@ -1861,6 +1877,14 @@ def with_precision(ctrl, mode):
     return ctrl.replace(engine=dataclasses.replace(ctrl.engine, config=cfg))
 
 
+def with_iterations(ctrl, max_iter):
+    """The controller with its AdmmConfig's max_iter set."""
+    import dataclasses
+
+    cfg = dataclasses.replace(ctrl.engine.config, max_iter=max_iter)
+    return ctrl.replace(engine=dataclasses.replace(ctrl.engine, config=cfg))
+
+
 @contextlib.contextmanager
 def first_fused_solve():
     """A context in which ``ops.admm_fused.solve_batch_fused``, the fused
@@ -2135,6 +2159,168 @@ def stream_phase(dev):
     return records, counts
 
 
+def wide32_x0s(B):
+    """The (32, 1) plant's initial states: default_rng(0), 0.1 clip(N(0, 1),
+    -3, 3) inside its unit state box, shape (B, 32)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return (0.1 * rng.standard_normal((B, 32)).clip(-3, 3)).astype(np.float32)
+
+
+def wide_phase(dev):
+    """K4's and K5's wide route on the card (csrc/admm_perr_wide.cu): the
+    dense shapes their Pallas bodies take and the shared and stream routes
+    (n <= 128, m <= 512) do not, each QP with its state or terminal rows
+    first (``rows_first``).
+
+    - Each kernel against its plain version, bit for bit (max_ulps 0), as
+      k5_plan or k4_plan lays it out on the wide route, graph-timed over 20
+      launches with its bound, shared-memory floor and plain time: K5 at
+      the QTP's h100 state box (n = 200, m = 600, the default config, B =
+      2048) at each precision, its h100 equality terminal (200, 204), and
+      at tier 1's grid (R = 2, no refinement, B = 1024) the widest state
+      box (h154: 308, 924) and equality terminal (h228: 456, 460) the JAX
+      package fuses; K4 at the (32, 1) plant's h20 state box at tier 1's
+      grid (20, 660, B = 2048).
+    - The cells dense-sc-h100-B2048 and dense-eq-h100-B2048 (the suite's
+      ``AdmmConfig(max_iter=1000)`` and states) through
+      ``parallel.solve_batch_fused`` (which raised ValueError before the
+      wide route) and the general engine (``parallel.solve_batch``) on the
+      same states, counted from zero: launches per solve, statuses,
+      converged fractions, |du| where both converged (U_OK), p50 of each
+      side, and each fused solve under torch.profiler; and the K4 cell
+      dense-sc32x1-h20-B2048 (its lanes reach no certificate at eps 1e-6
+      in 1000 iterations on either engine), whose fused solve is held to
+      the same solve with K4's plain version on the card instead.
+    Fails if a kernel differs from its plain version, if a fused solve
+    raises, runs a plain version, launches no wide-route kernel, leaves a
+    lane non-finite, or lies more than U_OK from the general engine where
+    both converged (from the plain version's solve on the K4 cell).
+    Returns (the kernel records by kernel, the launches by count key)."""
+    import numpy as np
+    import torch
+
+    from automationlabsmodelpredictivecontrol_jl_torch import parallel, proceed_controller
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import big, qtp
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+    from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig
+    from automationlabsmodelpredictivecontrol_jl_torch.types import STATUS_NUMERIC_ERROR
+
+    t0 = time.perf_counter()
+    suite = AdmmConfig(max_iter=1000)
+    tier1 = AdmmConfig(max_iter=1000, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0)
+    design = lambda N, cfg, **kw: rows_first(proceed_controller(
+        qtp.linearized_discrete_system(), "model_predictive_control", N, 5.0, [0.65] * 4,
+        [1.2] * 2, admm_config=cfg, device=dev, **kw))
+    sc100 = design(100, suite, mpc_state_constraint=True)
+    eq100 = design(100, suite, mpc_terminal_ingredient="equality")
+    k4 = rows_first(proceed_controller(
+        big.random_stable_system(32, 1, seed=0), "model_predictive_control", 20, 5.0,
+        [0.0] * 32, [0.0], admm_config=tier1, device=dev, mpc_state_constraint=True))
+    shapes = [
+        *((f"K5 h100 state box {mode}", with_precision(sc100, mode), B_SLICE, suite_x0s)
+          for mode in PRECISIONS[:3]),
+        ("K5 h100 equality", eq100, B_SLICE, suite_x0s),
+        ("K5 h154 state box tier 1", design(154, tier1, mpc_state_constraint=True), B_WIDE_T1,
+         bench_x0s),
+        ("K5 h228 equality tier 1", design(228, tier1, mpc_terminal_ingredient="equality"),
+         B_WIDE_T1, suite_x0s),
+        ("K4 (32, 1) h20 state box tier 1", k4, B_SLICE, wide32_x0s),
+    ]
+    t_design = time.perf_counter() - t0
+    records = {"K4": [], "K5": []}
+    for label, c, B, x0s_fn in shapes:
+        rec = compare_kernel(c, B, 70, x0s_fn, plain_reps=1)
+        rec.update(shape=label)
+        log(phase="wide_vs_plain", **rec)
+        if rec["plan"]["route"] != "wide":
+            raise RuntimeError(f"{label}: expected the wide route: {rec['plan']}")
+        records[rec["kernel"]].append(rec)
+    t_kernels = time.perf_counter() - t0 - t_design
+
+    cells = {
+        "dense-sc-h100-B2048": (sc100, suite_x0s(B_SLICE), "K5", 4),
+        "dense-eq-h100-B2048": (eq100, suite_x0s(B_SLICE), "K5", 4),
+        "dense-sc32x1-h20-B2048": (k4, wide32_x0s(B_SLICE), "K4", 32),
+    }
+    admm_fused.reset_counts()
+    solves = {}
+    for cell, (c, x0s, kernel, nx) in cells.items():
+        op = c.engine.op
+        m, n = (int(d) for d in op.A_s.shape)
+        B, N = int(x0s.shape[0]), c.engine.qp.N
+        R, rs = int(op.rho_grid.shape[0]), int(c.engine.config.refine_steps)
+        plan = (admm_fused.k4_plan if kernel == "K4" else admm_fused.k5_plan)(n, m, R, rs, B)
+        if plan.route != "wide" or not parallel.fused_supported(c):
+            raise RuntimeError(f"{cell}: expected the fused path on the wide route: {plan}")
+        x = torch.from_numpy(x0s).to(dev)
+        before = admm_fused.LAUNCHES[kernel]
+        (sol_f, _, _, d_f), lat_f = timed(lambda c=c, x=x: parallel.solve_batch_fused(c, x),
+                                          REPS_WIDE_ROUTE)
+        launches = (admm_fused.LAUNCHES[kernel] - before) / (REPS_WIDE_ROUTE + 1)
+        check_solution(sol_f, B, N, f"{cell} fused", nx=nx, nu=1 if kernel == "K4" else 2)
+        rec = dict(
+            phase="wide_solve", cell=cell, kernel=kernel, n=n, m=m, B=B, plan=plan._asdict(),
+            launches_per_solve=launches,
+            converged_fraction_fused=int(d_f.n_converged) / B,
+            numeric_errors_fused=int((sol_f.status == STATUS_NUMERIC_ERROR).sum()),
+            mean_iterations_fused=float(d_f.mean_iterations),
+            max_iterations_fused=int(d_f.max_iterations),
+            batch_p50_ms_fused=float(np.percentile(lat_f, 50)) * 1e3,
+        )
+        if kernel == "K5":
+            (sol_g, _, _, d_g), lat_g = timed(lambda c=c, x=x: parallel.solve_batch(c, x),
+                                              REPS_WIDE_ROUTE)
+            check_solution(sol_g, B, N, f"{cell} general")
+            both = (sol_f.status == 0) & (sol_g.status == 0)
+            du = float((sol_f.u - sol_g.u).abs()[both].max()) if bool(both.any()) else 0.0
+            rec.update(
+                converged_fraction_general=int(d_g.n_converged) / B,
+                statuses_equal_fraction=float((sol_f.status == sol_g.status).float().mean()),
+                converged_both=int(both.sum()), max_abs_u_diff_vs_general=du,
+                mean_iterations_general=float(d_g.mean_iterations),
+                batch_p50_ms_general=float(np.percentile(lat_g, 50)) * 1e3,
+            )
+            bad = du > U_OK or not bool(both.any())
+        else:  # the same solve with the plain version, on fewer lanes and iterations
+            short = with_iterations(c, WIDE_PLAIN_ITERS)
+            plain_fn = admm_fused.chunk_fn_for(op, plain=True, config=c.engine.config)
+            xs = x[:B_WIDE_PLAIN]
+            counted = dict(admm_fused.LAUNCHES), dict(admm_fused.PLAIN_CALLS)
+            s_k, _, _, _ = parallel.solve_batch_fused(short, xs)
+            s_p, _, _, _ = parallel.solve_batch_fused(short, xs, chunk_fn=plain_fn)
+            for counts, before in zip((admm_fused.LAUNCHES, admm_fused.PLAIN_CALLS), counted):
+                counts.update(before)  # the comparison's launches are not the path's
+            du = float((s_k.u - s_p.u).abs().max())
+            rec.update(plain_lanes=B_WIDE_PLAIN, plain_iterations=WIDE_PLAIN_ITERS,
+                       statuses_equal_plain=bool(torch.equal(s_k.status, s_p.status)),
+                       max_abs_u_diff_vs_plain=du)
+            bad = du > U_OK or not rec["statuses_equal_plain"]
+        log(**rec)
+        if rec["numeric_errors_fused"] or bad:
+            raise RuntimeError(f"{cell}: the fused solve disagrees with its reference: {rec}")
+        solves[cell] = rec
+    counts = dict(admm_fused.LAUNCHES)
+    plain = dict(admm_fused.PLAIN_CALLS)
+    log(phase="counts", path="wide route", launches={k: v for k, v in counts.items() if v},
+        plain_calls=plain)
+    if any(plain.values()):
+        raise RuntimeError("the wide route's solves ran a plain version")
+    if min(counts["K4"], counts["K5"]) <= 0:
+        raise RuntimeError(f"the wide route's solves left a kernel unlaunched: {counts}")
+    t_solves = time.perf_counter() - t0 - t_design - t_kernels
+    for cell, (c, x0s, _, _) in cells.items():
+        x = torch.from_numpy(x0s).to(dev)
+        rec = profile(lambda c=c, x=x: parallel.solve_batch_fused(c, x), 2)
+        per_solve = solves[cell]["launches_per_solve"]
+        rec["device_ops_per_chunk"] = rec["device_ops_per_call"] / per_solve
+        log(phase="profile", cell=cell, reps=2, **rec)
+    log(phase="wide_seconds", design=t_design, kernels=t_kernels, solves=t_solves,
+        total=time.perf_counter() - t0)
+    return records, counts
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke.py: the {PKG} package is not beside this script", file=sys.stderr)
@@ -2355,7 +2541,7 @@ def main():
                  compare_kernel(dense_t1, B_SLICE, 15, bench_x0s, plain_reps=5),
                  compare_kernel(dense_nb, B_SLICE, 30, suite_x0s, plain_reps=5)]
     k4_routes = {rec["plan"]["route"] for rec in k4_shapes}
-    if k4_routes != set(admm_fused.DENSE_ROUTES):
+    if k4_routes != {"shared", "stream"}:  # the wide route: wide_phase
         raise RuntimeError(f"K4 routes not held to the plain version: {k4_routes}")
     sc20 = dense["dense-sc-h20-B2048"]
     k5_shapes = [compare_kernel(sc20, B_SLICE, 16, bench_x0s, plain_reps=5),
@@ -2364,7 +2550,7 @@ def main():
                  compare_kernel(sc20, RAGGED[2], 26, bench_x0s, plain_reps=2),
                  compare_kernel(dense["dense-sc-h50-B2048"], B_SLICE, 17, suite_x0s, plain_reps=2)]
     k5_routes = {rec["plan"]["route"] for rec in k5_shapes}
-    if k5_routes != set(admm_fused.DENSE_ROUTES):
+    if k5_routes != {"shared", "stream"}:  # the wide route: wide_phase
         raise RuntimeError(f"K5 routes not held to the plain version: {k5_routes}")
     for rec in k4_shapes + k5_shapes:
         log(phase="dense_vs_plain", **rec)
@@ -2644,6 +2830,12 @@ def main():
     # counted from zero
     stream_recs, stream_counts = stream_phase(dev)
 
+    # 4k. K4's and K5's wide route: each kernel against its plain version at
+    # the dense shapes past the shared and stream routes, then the h100
+    # cells that raised before it, fused against the general engine, and
+    # the (32, 1) plant's K4 cell, counted from zero
+    wide_recs, wide_counts = wide_phase(dev)
+
     # where the time goes in each cell (after the counts: these launches
     # are not the paths' runs)
     for cell, fn, reps in (
@@ -2709,11 +2901,13 @@ def main():
         dict(kernel_entry("admm_packed_chunk (K4)", "admm_perr.cu", f"{TPU_ADMM}:252",
                           dense_counts["K4"], k4_shapes),
              smem_floor_ms=k4_shapes[0]["smem_floor_ms"],
-             routes={"shared": "admm_packed_chunk", "stream": "admm_packed_stream_chunk"}),
+             routes={"shared": "admm_packed_chunk", "stream": "admm_packed_stream_chunk",
+                     "wide": "admm_packed_wide_chunk"}),
         dict(kernel_entry("admm_perr_chunk (K5)", "admm_perr.cu", f"{TPU_ADMM}:778",
                           dense_counts["K5"], k5_shapes),
              smem_floor_ms=k5_shapes[0]["smem_floor_ms"],
-             routes={"shared": "admm_perr_chunk", "stream": "admm_perr_stream_chunk"}),
+             routes={"shared": "admm_perr_chunk", "stream": "admm_perr_stream_chunk",
+                     "wide": "admm_perr_wide_chunk"}),
         # the per-lane engine's XLA sweeps (no pallas_call there): K3W
         # past (32, 16), its doubling form under parallel_sweeps, and the
         # wide recurrences
@@ -2748,6 +2942,15 @@ def main():
                                for r in stream_recs[kernel]}))
           for kernel, entry, line in (("K1", "admm_diag_stream_chunk", 348),
                                       ("K2", "admm_mixed_stream_chunk", 580))),
+        # K4's and K5's wide route (the wide route's phase): the dense shapes
+        # the Pallas bodies take past the shared and stream routes
+        *(dict(kernel_entry(f"{entry} ({kernel}, wide route)", "admm_perr_wide.cu",
+                            f"{TPU_ADMM}:{line}", wide_counts[kernel], wide_recs[kernel]),
+               smem_floor_ms=wide_recs[kernel][0]["smem_floor_ms"],
+               layouts=sorted({(r["plan"]["lanes"], r["plan"]["groups"], r["plan"]["panel"])
+                               for r in wide_recs[kernel]}))
+          for kernel, entry, line in (("K5", "admm_perr_wide_chunk", 778),
+                                      ("K4", "admm_packed_wide_chunk", 252))),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

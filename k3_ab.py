@@ -87,6 +87,16 @@ same inputs and operator (``k5_ms``): the two kernels' view of the packed
 / per-rho split on this card (they round differently, so only the time
 per chunk compares).
 
+Both also time their wide route (``csrc/admm_perr_wide.cu``, built beside
+``admm_perr.cu`` into the same library where a tree has it) at the dense
+shapes past the shared and stream routes, each with its rows first:
+K5_WIDE_SHAPES (the QTP's h100 state box and equality terminal at the
+suite's config, B = 2048; its h154 state box and h228 equality terminal
+at tier 1's grid, B = 1024) and K4_WIDE_SHAPES (the (32, 1) plant's h20
+state box at tier 1's grid, B = 2048); a tree without it has no layout
+there and reports them skipped (the K4 shape it skips). LAYOUT ``LxGw`` forces the wide route's
+lanes and row-groups (``w`` alone: the wide route at any shape).
+
 List a tree twice (first and last) to see the drift within the call. The
 last line is a JSON object of all records.
 """
@@ -286,15 +296,30 @@ K4_SHAPES = (
     ("sc-tier1-h20-B2048", {"mpc_state_constraint": True}, "tier1", "bench", 2048, 61),
     ("nb-h20-B2048", {"mpc_terminal_ingredient": "neighborhood"}, "suite", "suite", 2048, 64),
 )
+# the wide route's K5 shapes (csrc/admm_perr_wide.cu): name, horizon,
+# controller options, grid (the suite's or tier 1's), initial states, B,
+# seed; and K4's: the (32, 1) plant's h20 state box at tier 1's grid
+K5_WIDE_SHAPES = (
+    ("sc-h100-B2048", 100, {"mpc_state_constraint": True}, "suite", "suite", 2048, 70),
+    ("eq-h100-B2048", 100, {"mpc_terminal_ingredient": "equality"}, "suite", "suite", 2048, 71),
+    ("sc-h154-tier1-B1024", 154, {"mpc_state_constraint": True}, "tier1", "bench", 1024, 72),
+    ("eq-h228-tier1-B1024", 228, {"mpc_terminal_ingredient": "equality"}, "tier1", "suite",
+     1024, 73),
+)
+K4_WIDE_SHAPES = (
+    ("sc32x1-h20-tier1-B2048", 20, {"mpc_state_constraint": True}, "tier1", "wide32", 2048, 74),
+)
 ADMM_KERNELS = {  # the sources each tree builds alone (those it has), and their C entries
     "K1": (("admm_diag.cu", "admm_diag_stream.cu"), ("admm_diag_chunk", "admm_diag_stream_chunk")),
     "K2": (("admm_mixed.cu", "admm_diag_stream.cu"),
            ("admm_mixed_chunk", "admm_mixed_stream_chunk")),
-    "K4": (("admm_perr.cu", "admm_dense.cu"),
+    "K4": (("admm_perr.cu", "admm_dense.cu", "admm_perr_wide.cu"),
            ("admm_packed_chunk", "admm_packed_stream_chunk", "admm_dense_packed_chunk",
-            "admm_perr_chunk", "admm_perr_stream_chunk")),
-    "K5": (("admm_perr.cu", "admm_dense.cu"),
-           ("admm_perr_chunk", "admm_perr_stream_chunk", "admm_dense_perr_chunk")),
+            "admm_perr_chunk", "admm_perr_stream_chunk", "admm_packed_wide_chunk",
+            "admm_perr_wide_chunk")),
+    "K5": (("admm_perr.cu", "admm_dense.cu", "admm_perr_wide.cu"),
+           ("admm_perr_chunk", "admm_perr_stream_chunk", "admm_dense_perr_chunk",
+            "admm_perr_wide_chunk")),
 }
 
 
@@ -338,7 +363,8 @@ def _admm_cases(kernel, dev, shapes):
     from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig
 
     x0s = {"bench": chip_smoke.bench_x0s, "suite": chip_smoke.suite_x0s,
-           "wide16x8": chip_smoke.wide16_x0s}
+           "wide16x8": chip_smoke.wide16_x0s,
+           "wide32": getattr(chip_smoke, "wide32_x0s", None)}
     tier2 = lambda c: parallel.escalation_controller(
         c, rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250, refine_steps=2)
     design = lambda N, cfg, **kw: proceed_controller(
@@ -346,8 +372,21 @@ def _admm_cases(kernel, dev, shapes):
         [0.65] * 4, [1.2] * 2, admm_config=cfg, device=dev, **kw,
     )
     ctrls = {}
+    t1 = AdmmConfig(max_iter=1000, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0)
+    if kernel in ("K4", "K5"):  # the wide route's shapes
+        for name, N, kw, grid, x0s_name, B, seed in (K4_WIDE_SHAPES if kernel == "K4"
+                                                     else K5_WIDE_SHAPES):
+            if (shapes and name not in shapes) or x0s[x0s_name] is None:
+                continue  # not asked for, or an older tree (no wide route)
+            cfg = t1 if grid == "tier1" else AdmmConfig(max_iter=1000)
+            if x0s_name == "wide32":
+                c = proceed_controller(
+                    big.random_stable_system(32, 1, seed=0), "model_predictive_control", N, 5.0,
+                    [0.0] * 32, [0.0], admm_config=cfg, device=dev, **kw)
+            else:
+                c = design(N, cfg, **kw)
+            yield name, chip_smoke.rows_first(c), x0s[x0s_name], B, seed
     if kernel == "K4":
-        t1 = AdmmConfig(max_iter=1000, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0)
         for name, kw, grid, x0s_name, B, seed in K4_SHAPES:
             if shapes and name not in shapes:
                 continue
@@ -448,6 +487,8 @@ def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
             force, layout = dict(route="stream"), layout or None
         elif layout and layout[-1] == "h":
             force, layout = dict(route="shared"), layout[:-1] or None
+        elif layout and layout[-1] == "w":
+            force, layout = dict(route="wide"), layout[:-1] or None
     else:
         wrapper, plain_fn = admm_fused.iterate_chunk_mixed_T, admm_fused.iterate_chunk_mixed_T_plain
         plan_fn, launch = getattr(admm_fused, "k2_plan", None), getattr(admm_fused, "_launch_k2")

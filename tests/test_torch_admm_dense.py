@@ -366,22 +366,25 @@ def test_use_packed_matches_jax(R, refine_steps):
 
 def test_k4_takes_every_packed_shape_within_its_rows():
     """K4 takes every shape that use_packed sends it with n <= 128 and at
-    most 512 rows; the packed shapes it refuses all have more rows (with no
-    refinement, the packed variant wins at any row count below its size
-    cap)."""
-    refused = set()
+    most 4096 rows (past 512 on its wide route); the packed shapes it
+    refuses all have more rows (with no refinement, the packed variant wins
+    at any row count below its size cap)."""
+    refused, wide = set(), set()
+    rows = lambda n: [*range(n + 1, 2200, 13), *range(2200, 4400, 97)]
     for R in range(1, 9):
         for rs in range(0, 4):
             for n in range(1, 129):
-                for m in range(n + 1, 2200, 13):
+                for m in rows(n):
                     if not admm_fused.use_packed(n, m, R, rs):
                         continue
-                    if m <= admm_fused.MAX_DENSE_ROWS:
+                    if m <= admm_fused.MAX_WIDE_ROWS:
                         assert admm_fused.k4_fits(n, m, R), (n, m, R, rs)
+                        if m > admm_fused.MAX_DENSE_ROWS:
+                            wide.add(rs)
                     else:
                         assert not admm_fused.k4_fits(n, m, R)
                         refused.add(rs)
-    assert refused == {0}
+    assert refused == {0} and wide == {0}
 
 
 def test_dense_shapes_and_routing(designs):
@@ -396,8 +399,11 @@ def test_dense_shapes_and_routing(designs):
     assert admm_fused.k4_plan(40, 120, 2, 0, 2048).route == "shared"
     assert admm_fused.k5_plan(40, 120, 5, 1, 2048).route == "shared"
     assert admm_fused.k5_plan(100, 300, 5, 1, 2048).route == "stream"  # 1.3 MB of fp64
-    assert not admm_fused.k5_fits(129, 300, 5)
-    assert not admm_fused.k5_fits(100, admm_fused.MAX_DENSE_ROWS + 1, 5)
+    # past n = 128 or 512 rows the wide route, past 1024 or 4096 no route
+    assert admm_fused.k5_fits(129, 300, 5) and admm_fused.k5_plan(129, 300, 5, 1, 2048).route == "wide"
+    assert admm_fused.k5_fits(100, admm_fused.MAX_DENSE_ROWS + 1, 5)
+    assert not admm_fused.k5_fits(admm_fused.MAX_WIDE_N + 1, 300, 5)
+    assert not admm_fused.k5_fits(100, admm_fused.MAX_WIDE_ROWS + 1, 5)
 
     _, _, _, td, _ = designs["sc"]
     op, cfg = td.engine.op, td.engine.config
@@ -409,7 +415,7 @@ def test_dense_shapes_and_routing(designs):
     with pytest.raises(ValueError, match="refine_steps"):
         admm_fused.chunk_fn_for(op)
     # a dense operator too wide for either kernel: no fallback
-    wide = op.replace(A_s=torch.zeros((admm_fused.MAX_DENSE_ROWS + 8, 40)))
+    wide = op.replace(A_s=torch.zeros((admm_fused.MAX_WIDE_ROWS + 8, 40)))
     with pytest.raises(ValueError, match="no kernel takes"):
         admm_fused.chunk_fn_for(wide, config=cfg)
     with pytest.raises(ValueError, match="kia"):
@@ -435,24 +441,27 @@ K5_BS = (1, 33, 77, 512, 1000, 2048, 16384)
 @pytest.mark.parametrize("refine_steps", [0, 1, 2])
 @pytest.mark.parametrize("R", list(range(1, 9)))
 def test_k5_plan_covers_every_shape_k5_takes(R, refine_steps):
-    """Every shape k5_fits takes (n <= 128, 1 <= m <= 512, which includes
+    """Every shape k5_fits takes (n <= 1024, 1 <= m <= 4096, which includes
     every shape K4 takes) gets a route at every
     batch size from 1 to 16384, within one block's shared memory: the
-    shared route where a layout of it fits, else the stream route. A plan
-    covers the lanes and the rows with an instantiation, whole warps, no
-    more threads than it allows, and its bytes are the layout's
-    (k5_smem_bytes, k5_stream_smem_bytes: the C entries' formulas)."""
+    shared route where a layout of it fits, else the stream route up to
+    n = 128 and 512 rows, else the wide route. A plan covers the lanes and
+    the rows with an instantiation (the wide route: tiles of 4 rows a
+    thread), whole warps, no more threads than it allows, and its bytes are
+    the layout's (k5_smem_bytes, k5_stream_smem_bytes, wide_smem_bytes:
+    the C entries' formulas)."""
     _assert_plans_cover(False, R, refine_steps)
 
 
 @pytest.mark.parametrize("refine_steps", [0, 1, 2])
 @pytest.mark.parametrize("R", list(range(1, 9)))
 def test_k4_plan_covers_every_shape_k4_takes(R, refine_steps):
-    """The same for K4 (k4_fits: every packed shape with n <= 128 and at
-    most 512 rows, and the other shapes of that range): a route at every
+    """The same for K4 (k4_fits: every packed shape with n <= 1024 and at
+    most 4096 rows, and the other shapes of that range): a route at every
     batch size, a layout of its own instantiations (K4_INSTANCES,
-    K4_STREAM_INSTANCES) within one block's shared memory, its bytes the
-    C entries' (k5_smem_bytes with packed, k5_stream_smem_bytes)."""
+    K4_STREAM_INSTANCES) or of the wide route within one block's shared
+    memory, its bytes the C entries' (k5_smem_bytes with packed,
+    k5_stream_smem_bytes, wide_smem_bytes with packed)."""
     _assert_plans_cover(True, R, refine_steps)
 
 
@@ -462,14 +471,26 @@ def _assert_plans_cover(packed, R, refine_steps):
     shared_table, stream_table = (
         (admm_fused.K4_INSTANCES, admm_fused.K4_STREAM_INSTANCES) if packed
         else (admm_fused.K5_INSTANCES, admm_fused.K5_STREAM_INSTANCES))
-    for n in K5_NS + (0, 129):
-        for m in K5_MS + (0, 513):
-            fits = 1 <= n <= 128 and 1 <= m <= 512
+    for n in K5_NS + (0, 129, admm_fused.MAX_WIDE_N + 1):
+        for m in K5_MS + (0, 513, admm_fused.MAX_WIDE_ROWS + 1):
+            fits = 1 <= n <= admm_fused.MAX_WIDE_N and 1 <= m <= admm_fused.MAX_WIDE_ROWS
             assert fits_fn(n, m, R) == fits
             assert fits or not admm_fused.k4_fits(n, m, R)
             if not fits:
                 with pytest.raises(ValueError):
                     plan_fn(n, m, R, refine_steps, 64)
+                continue
+            if n > 128 or m > 512:  # the wide route
+                assert admm_fused._wide_layouts(n, m, refine_steps, packed)
+                for B in K5_BS:
+                    p = plan_fn(n, m, R, refine_steps, B)
+                    assert p.route == "wide" and p.blocks - R == -(-B // p.lanes), (n, m, B)
+                    assert p.lanes in admm_fused.WIDE_LANES and (p.lanes * p.groups) % 32 == 0
+                    assert p.lanes * p.groups <= admm_fused.STREAM_THREADS
+                    assert p.smem_bytes == admm_fused.wide_smem_bytes(
+                        n, m, refine_steps, p.lanes, p.panel, packed) <= admm_fused.SMEM_LIMIT
+                    assert p.per_sm == admm_fused.blocks_per_sm(
+                        p.lanes * p.groups, p.smem_bytes, admm_fused.STREAM_REGISTERS) >= 1
                 continue
             shared = bool(admm_fused._shared_layouts(n, m, R, refine_steps, packed))
             assert shared or admm_fused._stream_layouts(n, m, refine_steps, packed)

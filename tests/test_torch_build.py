@@ -364,3 +364,69 @@ def test_k12_stream_constants_match_the_source():
     assert const("kMaxWidth") == admm_fused.MAX_STREAM_N == admm_fused.MAX_STREAM_TAIL
     assert "__launch_bounds__(kThreads, 1)" in text
     assert admm_fused.STREAM_REGISTERS == 65536 // admm_fused.STREAM_THREADS
+
+
+@pytest.mark.parametrize("entry,first", [("admm_perr_wide_chunk", "kinv"),
+                                         ("admm_packed_wide_chunk", "w")])
+def test_wide_entries_take_the_plan(entry, first):
+    """K5's and K4's wide-route C entries (csrc/admm_perr_wide.cu) take the
+    ints the wrapper passes, in its order (admm_fused.K5_WIDE_INTS: the
+    shape, then the plan's lanes, groups, panel and bytes), after their 20
+    arrays: K^-1' (K4: W), K', A, A' and fl(rho A)' as entries, the rho
+    table, the vectors, the rho order and the lane state."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    params = _c_params(entry)
+    sig = _build.SIGNATURES[entry]
+    assert tuple(p for p, kind in zip(params, sig) if kind == "i") == admm_fused.K5_WIDE_INTS
+    assert sig == "p" * 20 + "i" * len(admm_fused.K5_WIDE_INTS) + "ff" + "p"
+    assert params[:5] == [first, "kmat", "a", "at", "rat"]
+    assert params[10:12] == ["order", "starts"]
+
+
+def test_wide_bytes_match_the_c_entry():
+    """admm_fused.wide_smem_bytes is the wide route's own formula: the
+    entry's four lines, read from csrc/admm_perr_wide.cu and evaluated (its
+    conditionals as Python's) on the same layouts, for K5 and K4."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    text = open(os.path.join(_build.CSRC_DIR, "admm_perr_wide.cu")).read()
+    names = ("wide_doubles", "refine_floats", "image_floats", "wide_need")
+    exprs = [re.search(rf"const long long {name} = (.*);", text).group(1) for name in names]
+    py = lambda e: re.sub(r"^(.*) \? (.*) : (.*)$", r"(\2) if (\1) else (\3)",
+                          re.sub(r"(\d+)LL", r"\1", e).replace("lay.", "").replace("a.", "")
+                          .replace("&&", "and"))
+    cases = 0
+    for n, m in ((200, 600), (130, 134), (20, 660), (1, 3839), (1024, 4096), (7, 13), (582, 583)):
+        for rs in (0, 1, 2):
+            for lanes in admm_fused.WIDE_LANES:
+                for panel in (96, 7658, 12848):
+                    for packed in (False, True):
+                        env = dict(n=n, m=m, lanes=lanes, panel=panel, refine_steps=rs,
+                                   PACKED=packed, nslots=(n + 1) & ~1, mslots=(m + 1) & ~1)
+                        for name, expr in zip(names, exprs):
+                            env[name] = eval(py(expr), {}, env)
+                        assert env["wide_need"] == admm_fused.wide_smem_bytes(
+                            n, m, rs, lanes, panel, packed)
+                        cases += 1
+    assert cases > 700
+
+
+def test_wide_constants_match_the_source():
+    """The wide route's rows a thread takes in a tile, most threads a
+    block, widest n and most rows are the plans' (admm_fused.STREAM_ROWS,
+    STREAM_THREADS, MAX_WIDE_N, MAX_WIDE_ROWS), its entry takes the plans'
+    lanes a block (WIDE_LANES), and its __launch_bounds__ holds a thread to
+    the registers the plans count."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    text = open(os.path.join(_build.CSRC_DIR, "admm_perr_wide.cu")).read()
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+    assert const("kRows") == admm_fused.STREAM_ROWS
+    assert const("kThreads") == admm_fused.STREAM_THREADS
+    assert const("kMaxN") == admm_fused.MAX_WIDE_N
+    assert const("kMaxRows") == admm_fused.MAX_WIDE_ROWS
+    assert "__launch_bounds__(kThreads, 1)" in text
+    lanes = re.search(r"\(lanes != 1 &&[^)]*\)", text).group(0)
+    assert sorted(int(v) for v in re.findall(r"lanes != (\d+)", lanes)) == sorted(
+        admm_fused.WIDE_LANES)

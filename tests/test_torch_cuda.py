@@ -787,6 +787,153 @@ def test_dense_solve_auto_launches_k4(dense_controllers):
     np.testing.assert_allclose(s_gpu.u.cpu().numpy(), s_cpu.u.numpy(), atol=5e-4)
 
 
+# K4's and K5's wide route (csrc/admm_perr_wide.cu): (kernel, n, m, R,
+# refine_steps, B, forced k4_plan / k5_plan arguments; "panel" a narrow
+# panel of about 12 columns, so that every product streams over several
+# tiles and column panels). The QTP's equality terminal at h65 and its
+# state box at h100 on the default config, the widest state box and
+# equality terminal the JAX package fuses at tier 1's grid (h154, h228),
+# the widest n (582) and the most rows (3839) it fuses, the (32, 1) plant's
+# h20 state box on K4 (660 rows) and K4 with refinement and its image
+# past 512 rows; odd n and m, one row, shapes the stream route takes
+# forced onto the wide route (resident and streamed), one and two lanes a
+# block.
+WIDE_CASES = [
+    ("K5", 130, 134, 5, 1, 64, None), ("K5", 200, 600, 5, 1, 256, None),
+    ("K5", 308, 924, 2, 0, 128, None), ("K5", 456, 460, 2, 0, 64, None),
+    ("K5", 582, 583, 1, 0, 33, None), ("K5", 1, 3839, 1, 0, 40, None),
+    ("K5", 129, 513, 3, 2, 77, None), ("K5", 41, 77, 3, 2, 100, dict(route="wide")),
+    ("K5", 7, 13, 1, 0, 33, dict(route="wide")), ("K5", 1, 1, 2, 1, 5, dict(route="wide")),
+    ("K5", 41, 77, 3, 2, 100, dict(route="wide", panel=True)),
+    ("K5", 200, 204, 5, 1, 100, dict(lanes=1)), ("K5", 131, 700, 2, 1, 50, dict(lanes=2)),
+    ("K4", 20, 660, 2, 0, 2048, None), ("K4", 20, 660, 2, 1, 77, None),
+    ("K4", 64, 3000, 1, 0, 64, None), ("K4", 3, 4000, 1, 2, 33, None),
+    ("K4", 41, 77, 3, 2, 100, dict(route="wide")), ("K4", 7, 13, 1, 0, 33, dict(route="wide")),
+    ("K4", 41, 77, 3, 2, 100, dict(route="wide", panel=True)),
+    ("K4", 19, 801, 2, 0, 50, dict(lanes=1)),
+]
+
+
+def _wide_args(base, kernel, n, m, R, refine_steps, B, mode, seed):
+    op = _synthetic_dense_op(base, n, m, R, seed=seed)
+    if kernel == "K4":
+        from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import packed_kia
+
+        op = op.replace(kia=packed_kia(op.K_invs, op.A_s))
+    cfg = AdmmConfig(refine_steps=refine_steps, kernel_precision=mode)
+    return _lane_args(op, cfg, B, seed=seed + 1)
+
+
+def _wide_held_to_plain(kernel, args, plan):
+    """A chunk of K4 or K5 on the wide route against its plain version: one
+    launch counted, no plain call, equal to the last bit."""
+    assert plan.route == "wide"
+    mode = args[-1].kernel_precision
+    key = _key(kernel, mode)
+    launches, plain = admm_fused.LAUNCHES[key], admm_fused.PLAIN_CALLS[key]
+    launch = admm_fused._launch_k4 if kernel == "K4" else admm_fused._launch_k5
+    out_k = launch(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert admm_fused.LAUNCHES[key] == launches + 1
+    assert admm_fused.PLAIN_CALLS[key] == plain
+    plain_fn = (admm_fused.iterate_chunk_dense_packed_T_plain if kernel == "K4"
+                else admm_fused.iterate_chunk_dense_perr_T_plain)
+    _assert_equal_bits(out_k, plain_fn(*args), (kernel, mode, plan))
+
+
+@pytest.mark.parametrize("kernel,n,m,R,refine_steps,B,force", WIDE_CASES)
+@pytest.mark.parametrize("mode", MODES)
+def test_wide_route_matches_plain_version(k5_controllers, kernel, n, m, R, refine_steps, B,
+                                          force, mode):
+    """K5 and K4 on the wide route, as k5_plan and k4_plan lay it out past
+    the other routes' shapes (or forced onto it), against their plain
+    versions bit for bit at each precision, with and without refinement,
+    random rho indices (every block one index's lanes) and ragged
+    batches."""
+    args = _wide_args(k5_controllers["h20"].engine.op, kernel, n, m, R, refine_steps, B, mode,
+                      seed=n + m)
+    force = dict(force or {})
+    narrow = force.pop("panel", False)
+    plan = (admm_fused.k4_plan if kernel == "K4" else admm_fused.k5_plan)(
+        n, m, R, refine_steps, B, mode=mode, **force)
+    if narrow:
+        doubles = 24 * admm_fused.STREAM_ROWS * plan.groups
+        plan = plan._replace(panel=doubles, smem_bytes=admm_fused.wide_smem_bytes(
+            n, m, refine_steps, plan.lanes, doubles, kernel == "K4"))
+        assert not admm_fused.wide_layout(n, m, refine_steps, plan.groups, doubles,
+                                          kernel == "K4").resident
+    elif force.get("route") == "wide" and m < 100:
+        assert admm_fused.wide_layout(n, m, refine_steps, plan.groups, plan.panel,
+                                      kernel == "K4").resident
+    _wide_held_to_plain(kernel, args, plan)
+
+
+def test_wide_route_refuses_a_layout_it_does_not_have(k5_controllers):
+    """The wide route's C entries refuse shared-memory bytes that differ
+    from their own layout and shapes past their limits (cudaError_t 1)
+    rather than run on a wrong one."""
+    for kernel, launch in (("K5", admm_fused._launch_k5), ("K4", admm_fused._launch_k4)):
+        args = _wide_args(k5_controllers["h20"].engine.op, kernel, 130, 600, 2, 1, 64,
+                          "highest", seed=5)
+        plan = (admm_fused.k4_plan if kernel == "K4" else admm_fused.k5_plan)(130, 600, 2, 1, 64)
+        with pytest.raises(RuntimeError, match="cudaError_t 1"):
+            launch(*args, plan=plan._replace(smem_bytes=plan.smem_bytes + 16))
+        with pytest.raises(RuntimeError, match="cudaError_t 1"):
+            launch(*args, plan=plan._replace(lanes=3))
+
+
+@pytest.fixture(scope="module")
+def wide_dense_controllers(card):
+    """The two dense controllers past the stream route's shapes, each with
+    its rows first: the QTP's equality terminal at h65 on the default
+    config (n = 130, m = 134: K5) and the (32, 1) plant's h20 state box at
+    tier 1's grid (n = 20, m = 660: K4)."""
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import big
+
+    eq = _rows_first(proceed_controller(
+        qtp.linearized_discrete_system(), "model_predictive_control", 65, 5.0, [0.65] * 4,
+        [1.2] * 2, admm_config=AdmmConfig(max_iter=1000), device=card,
+        mpc_terminal_ingredient="equality"))
+    plant = big.random_stable_system(32, 1, seed=0)
+    sc = _rows_first(proceed_controller(
+        plant, "model_predictive_control", 20, 5.0, [0.0] * 32, [0.0],
+        admm_config=AdmmConfig(max_iter=1000, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0),
+        device=card, mpc_state_constraint=True))
+    return {"K5": eq, "K4": sc}
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K4"])
+def test_wide_solves_launch_the_wide_route(wide_dense_controllers, kernel):
+    """parallel.solve_batch_auto on the two controllers goes fused on the
+    card (where solve_batch_fused raised ValueError before the wide route):
+    it launches the kernel, no plain version, and equals the same solve
+    with the plain version on the card (the two chunks are equal to the
+    last bit, and so is every other step of the driver)."""
+    ctrl = wide_dense_controllers[kernel]
+    op = ctrl.engine.op
+    m, n = (int(d) for d in op.A_s.shape)
+    R, rs = int(op.rho_grid.shape[0]), int(ctrl.engine.config.refine_steps)
+    assert admm_fused.use_packed(n, m, R, rs) is (kernel == "K4")
+    assert (admm_fused.k4_plan if kernel == "K4" else admm_fused.k5_plan)(
+        n, m, R, rs, 64).route == "wide"
+    assert parallel.fused_supported(ctrl)
+    nx = int(ctrl.tuning.references.x.shape[0])
+    rng = np.random.default_rng(0)
+    base = 0.65 if nx == 4 else 0.0
+    x0 = torch.from_numpy((base + 0.01 * rng.standard_normal((64, nx))).astype(np.float32))
+    x0 = x0.to(ctrl.device)
+    launches, plain = admm_fused.LAUNCHES[kernel], dict(admm_fused.PLAIN_CALLS)
+    s_k, _, _, _ = parallel.solve_batch_auto(ctrl, x0)
+    torch.cuda.synchronize()
+    assert admm_fused.LAUNCHES[kernel] > launches
+    assert admm_fused.PLAIN_CALLS == plain
+    assert bool(torch.isfinite(s_k.u).all())
+    plain_fn = admm_fused.chunk_fn_for(op, plain=True, config=ctrl.engine.config)
+    s_p, _, _, _ = parallel.solve_batch_fused(ctrl, x0, chunk_fn=plain_fn)
+    assert torch.equal(s_k.status, s_p.status)
+    assert torch.equal(s_k.u, s_p.u)
+
+
 RICCATI_BRANCHES = {
     "none": dict(),
     "state": dict(mpc_state_constraint=True),
