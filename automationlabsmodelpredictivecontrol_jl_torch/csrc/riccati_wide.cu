@@ -1,19 +1,14 @@
-// K3W on Hopper: `chunk` Riccati-ADMM iterations of the per-lane engine for
-// a plant of any width, with the sweeps sequential or in doubling form; and
-// the driver's two per-lane recurrences at any width.
+// K3W's doubling form on Hopper: `chunk` Riccati-ADMM iterations of the
+// per-lane engine for a plant of any width with the sweeps in doubling
+// form; and the driver's two per-lane recurrences at any width. (K3W's
+// sequential form is riccati_wide_seq.cu.)
 //
-// riccati_wide_chunk replaces, for plants K3 (riccati_chunk.cuh) does not
-// take and for RiccatiConfig.parallel_sweeps, the JAX package's XLA code in
-// ops/riccati.py: solve_sparse's admm_iter (:619-659) with its w-update
-// _lqr_affine_solve (:377-424, the sequential form) or
-// _lqr_affine_solve_pscan (:444-486, the doubling form, DOUBLING). Per lane
+// riccati_wide_chunk replaces, for RiccatiConfig.parallel_sweeps, the JAX
+// package's XLA code in ops/riccati.py: solve_sparse's admm_iter
+// (:619-659) with its w-update _lqr_affine_solve_pscan (:444-486). Per lane
 // and iteration, with rho, 1/rho, rho_t, 1/rho_t of the launch's grid index
 // r and the factors K_k, G_k, (A - B K_k) of that rho:
 //
-//   sequential: g = lin_xN; for k = N-1 .. 0: lu_k = -rho vU_k + lamU_k,
-//               ffs_k = G_k (B' g + lu_k), g = (A - B K_k)' g - K_k' lu_k
-//               [+ lpre_k]; then e = e0, for k = 0 .. N-1: u_k = -K_k e -
-//               ffs_k, e = A e + B u_k;
 //   doubling:   b_k = lpre_k - K_k' lu_k, reversed; ceil(log2 N) combine
 //               levels b[i] += bwd_levels[l][i] b[i - 2^l], then g = b +
 //               bwd_full lin_xN; ffs_k = G_k (B' g_{k+1} + lu_k); the
@@ -32,29 +27,22 @@
 // riccati_wide_certificate infeas_certificate's terms (:515-559), as K3's
 // rollout and certificate kernels (riccati_admm.cu) do up to (32, 16).
 //
-// What bounds them on this card: neither bytes nor operations. A lane's
-// sequential iteration is a chain of 2N dependent steps, each a few
-// products of length nx or nu, so a step costs the latency of its sums and
-// of two barriers; the doubling form does ceil(log2 N) times the multiply-
-// adds of the sequential one (each level reads one nx x nx matrix per
-// horizon step, ~ N nx^2) in 2 ceil(log2 N) dependent levels instead of 2N
-// steps.
+// What bounds them on this card: neither bytes nor operations. The
+// doubling form does ceil(log2 N) times the multiply-adds of the
+// sequential one (each level reads one nx x nx matrix per horizon step, ~
+// N nx^2) in 2 ceil(log2 N) dependent levels instead of 2N steps.
 //
 // Design (a simple kernel that is right first):
 // - A block takes `lanes` lanes of one rho; `lane_threads` threads serve
-//   each lane. The threads run over the rows of each small product: in the
-//   sequential form a step's nx + nu rows ([B'; (A - B K_k)'] g, then the
-//   feedforward and the next g; the rollout's [K_k; A] e, then u and e),
-//   in the doubling form the (step, row) pairs of a level. A barrier
-//   separates the phases: two per horizon step (sequential), one per
-//   combine level and a few per iteration (doubling). The plant's width is
-//   a runtime value and every loop is rolled: no register tier per width.
+//   each lane. The threads run over the (step, row) pairs of a level. A
+//   barrier separates the phases: one per combine level and a few per
+//   iteration. The plant's width is a runtime value and every loop is
+//   rolled: no register tier per width.
 // - A lane's scratch holds its split rows (vU, lamU and the split rows of
-//   vX, lamX), e0, the terminal linear term and the iteration's buffers (the
-//   sequential form's ffs, U, X and step vectors; the doubling form's
-//   linear terms and ffs, and two horizon buffers of nx rows, the doubling
-//   levels' double buffer: a level reads the old b[i - s] while it writes
-//   the new b[i]). It sits in shared memory where it fits beside the block's
+//   vX, lamX), e0, the terminal linear term and the iteration's buffers
+//   (the linear terms and ffs, and two horizon buffers of nx rows, the
+//   doubling levels' double buffer: a level reads the old b[i - s] while it
+//   writes the new b[i]). It sits in shared memory where it fits beside the block's
 //   other lanes (the host's plan, ops/riccati_fused.k3w_plan), else in a
 //   scratch in device memory, with the same code and barriers.
 // - The factors, the doubling levels and the plant are read as fp32 from
@@ -66,8 +54,7 @@
 // fp32 products in fp64 in column order and is rounded once to fp32; the
 // elementwise steps are fp32 in the plain version's order. Built with
 // --fmad=false, the kernel agrees with its plain versions bit for bit
-// (ops/riccati_fused.py: iterate_chunk_riccati_plain for the sequential
-// form, iterate_chunk_riccati_doubling_plain for the doubling form, whose
+// (ops/riccati_fused.py: iterate_chunk_riccati_doubling_plain, whose
 // summation order the kernel follows; riccati.rollout_warm;
 // certificate_terms_plain, whose long fp64 sums the kernel forms in
 // another order before the one rounding).
@@ -128,20 +115,17 @@ __host__ __device__ inline int wide_split_x_rows(int N, int si, int st, int ball
 
 // The floats of one lane's scratch (ops/riccati_fused.k3w_lane_floats):
 // vU, lamU (N nu each), the split rows of vX and lamX, e0 and the terminal
-// linear term (nx each); then the sequential form's ffs and U (N nu each),
-// X (N nx), g (nx), [B'; (A - B K)'] g and [K; A] e (nu + nx each) and lu
-// (nu), or the doubling form's linear terms and ffs (N nu each) and two
+// linear term (nx each); then the linear terms and ffs (N nu each) and two
 // horizon buffers (N nx each); a multiple of 4.
-__host__ __device__ inline size_t wide_lane_floats(int N, int nx, int nu, int xrows,
-                                                   int doubling) {
+__host__ __device__ inline size_t wide_lane_floats(int N, int nx, int nu, int xrows) {
   const size_t n = static_cast<size_t>(N), x = nx, u = nu;
   size_t f = 2 * n * u + 2 * static_cast<size_t>(xrows) * x + 2 * x;
-  f += doubling ? 2 * n * u + 2 * n * x : 2 * n * u + n * x + 3 * x + 3 * u;
+  f += 2 * n * u + 2 * n * x;
   return (f + 3) / 4 * 4;
 }
 
 struct WideArgs {
-  const float *Kf, *Gf, *AmBKf, *A, *Bm, *bwdL, *bwdF, *fwdL, *fwdF;
+  const float *Kf, *Gf, *Bm, *bwdL, *bwdF, *fwdL, *fwdF;
   const float *xlo, *xhi, *xNlo, *xNhi, *ulo, *uhi, *rho_tab;
   const int* ridx;
   const float *e0, *ballr, *vX_in, *vU_in, *lamX_in, *lamU_in;
@@ -185,7 +169,6 @@ __device__ float* affine_prefix(const float* __restrict__ lv, const float* __res
   return cur;
 }
 
-template <bool DOUBLING>
 __global__ void __launch_bounds__(kMaxThreads) riccati_wide_kernel(const WideArgs p) {
   extern __shared__ __align__(16) float smem[];
   const int T = p.lane_threads;
@@ -214,7 +197,6 @@ __global__ void __launch_bounds__(kMaxThreads) riccati_wide_kernel(const WideArg
   const float rho_t = p.rho_tab[2 * R + r], rho_t_inv = p.rho_tab[3 * R + r];
   const float* K = p.Kf + static_cast<size_t>(r) * N * nu * nx;     // (N, nu, nx)
   const float* G = p.Gf + static_cast<size_t>(r) * N * nu * nu;     // (N, nu, nu)
-  const float* AmBK = p.AmBKf + static_cast<size_t>(r) * N * nx * nx;  // (N, nx, nx)
   const size_t lvl = static_cast<size_t>(r) * p.L * N * nx * nx, fl = static_cast<size_t>(r) * N * nx * nx;
 
   // ---- the lane's split rows and e0 (lane-last: entry (row, i) at
@@ -233,150 +215,72 @@ __global__ void __launch_bounds__(kMaxThreads) riccati_wide_kernel(const WideArg
   }
   __syncthreads();
 
-  // the sequential form's buffers
-  float *FF, *US, *XS, *Gv = nullptr, *BGAG = nullptr, *LU = nullptr, *KEAE = nullptr;
-  // the doubling form's
-  float *BA = nullptr, *BB = nullptr;
-  if (DOUBLING) {
-    LU = W;
-    FF = LU + N * nu;
-    BA = FF + N * nu;
-    BB = BA + N * nx;
-    US = FF;
-    XS = BB;
-  } else {
-    FF = W;
-    US = FF + N * nu;
-    XS = US + N * nu;  // X_k at (k - 1) nx
-    Gv = XS + N * nx;
-    BGAG = Gv + nx;
-    LU = BGAG + nu + nx;
-    KEAE = LU + nu;
-  }
+  // the linear terms, ffs, and the two horizon buffers
+  float* LU = W;
+  float* FF = LU + N * nu;
+  float* BA = FF + N * nu;
+  float* BB = BA + N * nx;
+  float* US = FF;
+  float* XS = BB;
 
   for (int it = 0; it < p.chunk; ++it) {
     if (active)
       for (int i = t; i < nx; i += T) Y[i] = p.st ? -rho_t * vXN[i] + lamXN[i] : 0.0f;
 
-    if (!DOUBLING) {
-      // ---- backward affine sweep (fills FF) ----
-      if (active)
-        for (int i = t; i < nx; i += T) Gv[i] = Y[i];
-      __syncthreads();
-      for (int k = N - 1; k >= 0; --k) {
-        const float* Ak = AmBK + static_cast<size_t>(k) * nx * nx;
-        const float* Kk = K + static_cast<size_t>(k) * nu * nx;
-        if (active) {
-          for (int rr = t; rr < nu + nx; rr += T) {
-            if (rr < nu) {  // B' g, and lu_k
-              BGAG[rr] = dot(p.Bm + rr, nu, Gv, nx);
-              LU[rr] = -rho * vU[k * nu + rr] + lamU[k * nu + rr];
-            } else {  // (A - B K_k)' g
-              BGAG[rr] = dot(Ak + (rr - nu), nx, Gv, nx);
-            }
-          }
-        }
-        __syncthreads();
-        if (active) {
-          for (int rr = t; rr < nu + nx; rr += T) {
-            if (rr < nu) {  // ffs_k = G_k (B' g + lu_k)
-              const float* Gr = G + (static_cast<size_t>(k) * nu + rr) * nu;
-              double acc = static_cast<double>(Gr[0]) * static_cast<double>(BGAG[0] + LU[0]);
-              for (int j = 1; j < nu; ++j)
-                acc = fma(static_cast<double>(Gr[j]), static_cast<double>(BGAG[j] + LU[j]), acc);
-              FF[k * nu + rr] = static_cast<float>(acc);
-            } else {  // g = (A - B K_k)' g - K_k' lu_k [+ lpre_k]
-              const int i = rr - nu;
-              float gn = BGAG[rr] - dot(Kk + i, nx, LU, nu);
-              if (p.si && k >= 1)
-                gn = gn + (-rho * vX[(k - xoff) * nx + i] + lamX[(k - xoff) * nx + i]);
-              Gv[i] = gn;
-            }
-          }
-        }
-        __syncthreads();
+    // ---- the linear terms lu_k ----
+    if (active)
+      for (int idx = t; idx < N * nu; idx += T) LU[idx] = -rho * vU[idx] + lamU[idx];
+    __syncthreads();
+    // ---- b_k = lpre_k - K_k' lu_k, reversed in time ----
+    if (active) {
+      for (int idx = t; idx < N * nx; idx += T) {
+        const int k = idx / nx, i = idx - k * nx;
+        const float lp = (p.si && k >= 1)
+                             ? -rho * vX[(k - xoff) * nx + i] + lamX[(k - xoff) * nx + i]
+                             : 0.0f;
+        BA[(N - 1 - k) * nx + i] =
+            lp - dot(K + static_cast<size_t>(k) * nu * nx + i, nx, LU + k * nu, nu);
       }
-      // ---- forward rollout (fills US, XS) ----
-      for (int k = 0; k < N; ++k) {
-        const float* e = k == 0 ? E0 : XS + (k - 1) * nx;
-        if (active) {
-          for (int rr = t; rr < nu + nx; rr += T)
-            KEAE[rr] = rr < nu ? dot(K + (static_cast<size_t>(k) * nu + rr) * nx, 1, e, nx)
-                               : dot(p.A + static_cast<size_t>(rr - nu) * nx, 1, e, nx);
-        }
-        __syncthreads();
-        if (active) {
-          const float* ff = FF + k * nu;
-          for (int rr = t; rr < nu + nx; rr += T) {
-            if (rr < nu) {  // u_k = -K_k e - ffs_k
-              US[k * nu + rr] = -KEAE[rr] - ff[rr];
-            } else {  // e = A e + B u_k, u recomputed as above
-              const float* Bi = p.Bm + static_cast<size_t>(rr - nu) * nu;
-              double acc = static_cast<double>(Bi[0]) * static_cast<double>(-KEAE[0] - ff[0]);
-              for (int j = 1; j < nu; ++j)
-                acc = fma(static_cast<double>(Bi[j]), static_cast<double>(-KEAE[j] - ff[j]), acc);
-              XS[k * nx + (rr - nu)] = KEAE[rr] + static_cast<float>(acc);
-            }
-          }
-        }
-        __syncthreads();
-      }
-    } else {
-      // ---- the linear terms lu_k ----
-      if (active)
-        for (int idx = t; idx < N * nu; idx += T) LU[idx] = -rho * vU[idx] + lamU[idx];
-      __syncthreads();
-      // ---- b_k = lpre_k - K_k' lu_k, reversed in time ----
-      if (active) {
-        for (int idx = t; idx < N * nx; idx += T) {
-          const int k = idx / nx, i = idx - k * nx;
-          const float lp = (p.si && k >= 1)
-                               ? -rho * vX[(k - xoff) * nx + i] + lamX[(k - xoff) * nx + i]
-                               : 0.0f;
-          BA[(N - 1 - k) * nx + i] =
-              lp - dot(K + static_cast<size_t>(k) * nu * nx + i, nx, LU + k * nu, nu);
-        }
-      }
-      __syncthreads();
-      // ---- backward prefix: g_k at row N-1-k ----
-      float* grev = affine_prefix(p.bwdL + lvl, p.bwdF + fl, BA, BB, Y, N, nx, t, T, active);
-      float* other = grev == BA ? BB : BA;
-      // ---- B' g_{k+1} + lu_k, in place of lu ----
-      if (active) {
-        for (int idx = t; idx < N * nu; idx += T) {
-          const int k = idx / nu, i = idx - k * nu;
-          const float* gn = k < N - 1 ? grev + (N - 2 - k) * nx : Y;
-          LU[idx] = dot(p.Bm + i, nu, gn, nx) + LU[idx];
-        }
-      }
-      __syncthreads();
-      // ---- ffs_k = G_k (B' g_{k+1} + lu_k) ----
-      if (active) {
-        for (int idx = t; idx < N * nu; idx += T) {
-          const int k = idx / nu, i = idx - k * nu;
-          FF[idx] = dot(G + (static_cast<size_t>(k) * nu + i) * nu, 1, LU + k * nu, nu);
-        }
-      }
-      __syncthreads();
-      // ---- -B ffs_k, then the forward prefix: e_{k+1} at row k ----
-      if (active) {
-        for (int idx = t; idx < N * nx; idx += T) {
-          const int k = idx / nx, i = idx - k * nx;
-          other[idx] = -dot(p.Bm + static_cast<size_t>(i) * nu, 1, FF + k * nu, nu);
-        }
-      }
-      __syncthreads();
-      XS = affine_prefix(p.fwdL + lvl, p.fwdF + fl, other, grev, E0, N, nx, t, T, active);
-      // ---- u_k = -K_k e_k - ffs_k, in place of ffs ----
-      if (active) {
-        for (int idx = t; idx < N * nu; idx += T) {
-          const int k = idx / nu, i = idx - k * nu;
-          const float* xk = k == 0 ? E0 : XS + (k - 1) * nx;
-          FF[idx] = -dot(K + (static_cast<size_t>(k) * nu + i) * nx, 1, xk, nx) - FF[idx];
-        }
-      }
-      __syncthreads();
     }
+    __syncthreads();
+    // ---- backward prefix: g_k at row N-1-k ----
+    float* grev = affine_prefix(p.bwdL + lvl, p.bwdF + fl, BA, BB, Y, N, nx, t, T, active);
+    float* other = grev == BA ? BB : BA;
+    // ---- B' g_{k+1} + lu_k, in place of lu ----
+    if (active) {
+      for (int idx = t; idx < N * nu; idx += T) {
+        const int k = idx / nu, i = idx - k * nu;
+        const float* gn = k < N - 1 ? grev + (N - 2 - k) * nx : Y;
+        LU[idx] = dot(p.Bm + i, nu, gn, nx) + LU[idx];
+      }
+    }
+    __syncthreads();
+    // ---- ffs_k = G_k (B' g_{k+1} + lu_k) ----
+    if (active) {
+      for (int idx = t; idx < N * nu; idx += T) {
+        const int k = idx / nu, i = idx - k * nu;
+        FF[idx] = dot(G + (static_cast<size_t>(k) * nu + i) * nu, 1, LU + k * nu, nu);
+      }
+    }
+    __syncthreads();
+    // ---- -B ffs_k, then the forward prefix: e_{k+1} at row k ----
+    if (active) {
+      for (int idx = t; idx < N * nx; idx += T) {
+        const int k = idx / nx, i = idx - k * nx;
+        other[idx] = -dot(p.Bm + static_cast<size_t>(i) * nu, 1, FF + k * nu, nu);
+      }
+    }
+    __syncthreads();
+    XS = affine_prefix(p.fwdL + lvl, p.fwdF + fl, other, grev, E0, N, nx, t, T, active);
+    // ---- u_k = -K_k e_k - ffs_k, in place of ffs ----
+    if (active) {
+      for (int idx = t; idx < N * nu; idx += T) {
+        const int k = idx / nu, i = idx - k * nu;
+        const float* xk = k == 0 ? E0 : XS + (k - 1) * nx;
+        FF[idx] = -dot(K + (static_cast<size_t>(k) * nu + i) * nx, 1, xk, nx) - FF[idx];
+      }
+    }
+    __syncthreads();
 
     // ---- projections and dual ascent: U, the interior X rows ----
     if (active) {
@@ -593,10 +497,9 @@ int levels_of(int N) {
 extern "C" {
 
 // Launch `chunk` (>= 1) iterations on `stream`. All arrays are float32 and
-// contiguous on one device: Kf (R, N, nu, nx), Gf (R, N, nu, nu), AmBKf
-// (R, N, nx, nx), A (nx, nx), Bm (nx, nu), the doubling levels bwdL, fwdL
-// (R, L, N, nx, nx) and prefix products bwdF, fwdF (R, N, nx, nx) (read by
-// the doubling form only), the boxes xlo, xhi, xNlo, xNhi (nx) and ulo, uhi
+// contiguous on one device: Kf (R, N, nu, nx), Gf (R, N, nu, nu), Bm (nx,
+// nu), the doubling levels bwdL, fwdL (R, L, N, nx, nx) and prefix
+// products bwdF, fwdF (R, N, nx, nx), the boxes xlo, xhi, xNlo, xNhi (nx) and ulo, uhi
 // (nu), rho_tab (4, R); ridx (1) int32 in [0, R); e0 (nx, B), ballr (B);
 // vX_in, lamX_in and the outputs X, vX, lamX (N+1, nx, B); vU_in, lamU_in
 // and the outputs U, vU, lamU (N, nu, B); scratch, the lanes' scratch in
@@ -604,9 +507,9 @@ extern "C" {
 // The layout comes from the host's plan (ops/riccati_fused.k3w_plan):
 // `lanes` lanes a block, `lane_threads` threads each, lane_floats =
 // wide_lane_floats(...), and smem_bytes = 4 lanes lane_floats (the scratch
-// in shared memory) or 0. doubling selects the sweeps' form. Returns the
-// cudaError_t of the launch (0 on success).
-int riccati_wide_chunk(const float* Kf, const float* Gf, const float* AmBKf, const float* A,
+// in shared memory) or 0. Returns the cudaError_t of the launch (0 on
+// success).
+int riccati_wide_chunk(const float* Kf, const float* Gf,
                        const float* Bm, const float* bwdL, const float* bwdF,
                        const float* fwdL, const float* fwdF, const float* xlo,
                        const float* xhi, const float* xNlo, const float* xNhi,
@@ -616,13 +519,13 @@ int riccati_wide_chunk(const float* Kf, const float* Gf, const float* AmBKf, con
                        const float* lamU_in, float* X, float* U, float* vX, float* vU,
                        float* lamX, float* lamU, float* scratch, int N, int nx, int nu, int B,
                        int R, int L, int chunk, int split_interior, int split_terminal,
-                       int terminal_ball, int doubling, int lanes, int lane_threads,
+                       int terminal_ball, int lanes, int lane_threads,
                        int lane_floats, int smem_bytes, void* stream) {
   if (N <= 0 || nx <= 0 || nu <= 0 || B <= 0 || R <= 0 || chunk <= 0 || lanes <= 0 ||
       lane_threads <= 0 || lanes * lane_threads > kMaxThreads || L != levels_of(N))
     return static_cast<int>(cudaErrorInvalidValue);
   const int xrows = wide_split_x_rows(N, split_interior, split_terminal, terminal_ball);
-  const size_t floats = wide_lane_floats(N, nx, nu, xrows, doubling);
+  const size_t floats = wide_lane_floats(N, nx, nu, xrows);
   // the host's plan and this layout must agree
   if (static_cast<size_t>(lane_floats) != floats) return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = static_cast<size_t>(smem_bytes);
@@ -630,7 +533,7 @@ int riccati_wide_chunk(const float* Kf, const float* Gf, const float* AmBKf, con
     return static_cast<int>(cudaErrorInvalidValue);
   if (bytes == 0 && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   WideArgs p;
-  p.Kf = Kf, p.Gf = Gf, p.AmBKf = AmBKf, p.A = A, p.Bm = Bm;
+  p.Kf = Kf, p.Gf = Gf, p.Bm = Bm;
   p.bwdL = bwdL, p.bwdF = bwdF, p.fwdL = fwdL, p.fwdF = fwdF;
   p.xlo = xlo, p.xhi = xhi, p.xNlo = xNlo, p.xNhi = xNhi, p.ulo = ulo, p.uhi = uhi;
   p.rho_tab = rho_tab, p.ridx = ridx, p.e0 = e0, p.ballr = ballr;
@@ -640,11 +543,10 @@ int riccati_wide_chunk(const float* Kf, const float* Gf, const float* AmBKf, con
   p.si = split_interior, p.st = split_terminal, p.ball = terminal_ball;
   p.lanes = lanes, p.lane_threads = lane_threads, p.lane_floats = floats;
   p.shared = bytes != 0;
-  auto kernel = doubling ? riccati_wide_kernel<true> : riccati_wide_kernel<false>;
-  const cudaError_t err = set_smem(kernel, bytes);
+  const cudaError_t err = set_smem(riccati_wide_kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (B + lanes - 1) / lanes;
-  kernel<<<blocks, lanes * lane_threads, bytes, static_cast<cudaStream_t>(stream)>>>(p);
+  riccati_wide_kernel<<<blocks, lanes * lane_threads, bytes, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,8 @@ into one shared library with a plain C interface,
 ``build/kernels/libmpc_kernels.so`` at the root of the checkout (K3's
 register tiers, and the widest tier's routes, are sources of their own
 over one header, so that they build side by side; K3W, the width-general
-Riccati chunk, and its rollout and certificate are ``riccati_wide.cu``;
+Riccati chunk, is ``riccati_wide_seq.cu`` (the sequential sweeps) and
+``riccati_wide.cu`` (the doubling sweeps, the rollout and certificate);
 the stream route of K1 and K2, ``admm_diag_stream.cu``; the wide route of
 K4 and K5, ``admm_perr_wide.cu``). That happens on
 first use, or when a source or a header is newer than the library. The
@@ -125,7 +126,8 @@ SIGNATURES = {
     "riccati_rollout": "p" * 5 + "i" * 4 + "p",
     "riccati_certificate": "p" * 15 + "i" * 9 + "p",
     "riccati_chain_floor": "p" + "i" * 4 + "p",
-    "riccati_wide_chunk": "p" * 30 + "i" * 15 + "p",
+    "riccati_wide_chunk": "p" * 28 + "i" * 14 + "p",
+    "riccati_wide_seq_chunk": "p" * 28 + "i" * 15 + "p",
     "riccati_wide_rollout": "p" * 5 + "i" * 5 + "p",
     "riccati_wide_certificate": "p" * 15 + "i" * 8 + "p",
 }

@@ -13,19 +13,22 @@ with the factors of the current rho (``ops/riccati.py``).
   memory where not even one lane's fit. K3 keeps a lane's vectors in
   registers, so it takes plants up to (32, 16) (:func:`k3_fits`);
 - :func:`iterate_chunk_riccati_wide` and :func:`iterate_chunk_riccati_doubling`
-  run the same iterations on K3W (``csrc/riccati_wide.cu``), laid out by
-  :func:`k3w_plan`: a lane's threads over the rows of each small product,
-  the plant's width a runtime value, the sweeps sequential (the JAX
-  package's ``_lqr_affine_solve``) or in doubling form
-  (``_lqr_affine_solve_pscan``: ceil(log2 N) combine levels a sweep);
+  run the same iterations on K3W, laid out by :func:`k3w_plan`, the
+  plant's width a runtime value: the sweeps sequential (the JAX package's
+  ``_lqr_affine_solve``; ``csrc/riccati_wide_seq.cu``: a block's lanes
+  share each horizon step's factors through a ring in shared memory, a
+  thread takes a row of 4 lanes) or in doubling form
+  (``_lqr_affine_solve_pscan``: ceil(log2 N) combine levels a sweep;
+  ``csrc/riccati_wide.cu``: a lane's threads over a level's rows);
 - :func:`rollout` and :func:`certificate_terms` are the driver's two O(N)
   recurrences (the warm and zero-input rollouts, once per solve; the
   infeasibility certificate's adjoint recursion, every chunk), each a small
   per-lane kernel, K3's up to (32, 16) and the wide ones
   (:func:`rollout_wide`, :func:`certificate_terms_wide`) past it, so that
   no Python loop over the horizon runs between chunks;
-- :func:`riccati_chunk_fn` routes a driver's chunks: K3 where it fits, K3W
-  past it, and, on the per-lane engine under ``parallel_sweeps``, K3W's
+- :func:`riccati_chunk_fn` routes a driver's chunks: K3 or K3W by the
+  plant's tier (``CHUNK_ROUTES``, an A/B on the card), K3W past K3's
+  tiers, and, on the per-lane engine under ``parallel_sweeps``, K3W's
   doubling form;
 - :func:`solve_sparse_fused` is the fused driver: a Python loop over chunks
   that, between chunks, computes the residuals, the certificate, the stall
@@ -84,8 +87,10 @@ __all__ = [
     "LAUNCHES", "PLAIN_CALLS", "MAX_NX", "MAX_NU", "k3_fits", "K3_ROUTES", "K3Plan",
     "k3_plan", "certificate_plan", "iterate_chunk_riccati", "iterate_chunk_riccati_plain", "rollout",
     "certificate_terms", "certificate_terms_plain", "K3WPlan", "k3w_plan",
+    "K3WSeqPlan", "k3w_seq_floats", "k3w_seq_operands",
     "iterate_chunk_riccati_wide", "iterate_chunk_riccati_doubling",
     "iterate_chunk_riccati_doubling_plain", "rollout_wide", "certificate_terms_wide",
+    "CHUNK_ROUTES", "chunk_kernel",
     "riccati_chunk_fn", "solve_sparse_fused", "solve_sparse",
 ]
 
@@ -441,18 +446,19 @@ def iterate_chunk_riccati(
     )
 
 
-# K3W's block: at most this many threads serve one lane, and a block takes
-# lanes until it holds this many threads; no block of csrc/riccati_wide.cu
-# has more than 256 threads (its kMaxThreads)
+# K3W's doubling form (csrc/riccati_wide.cu): at most this many threads
+# serve one lane, and a block takes lanes until it holds this many threads;
+# no block of csrc/riccati_wide.cu has more than 256 threads (its
+# kMaxThreads)
 K3W_LANE_THREADS, K3W_BLOCK_THREADS = 256, 128
 
 
 class K3WPlan(NamedTuple):
-    """How one K3W launch is laid out: the lanes of a block, the threads
-    that serve each lane, the floats of a lane's scratch (its rows and the
-    iteration's buffers), where the scratch lies ("shared" memory, or
-    "device" memory where a lane's does not fit), the block's dynamic
-    shared memory and the blocks of the grid."""
+    """How one launch of K3W's doubling form is laid out: the lanes of a
+    block, the threads that serve each lane, the floats of a lane's scratch
+    (its rows and the iteration's buffers), where the scratch lies
+    ("shared" memory, or "device" memory where a lane's does not fit), the
+    block's dynamic shared memory and the blocks of the grid."""
 
     lanes: int
     lane_threads: int
@@ -466,47 +472,133 @@ def _ceil32(n: int) -> int:
     return -(-int(n) // 32) * 32
 
 
-def k3w_lane_floats(op: RiccatiOperator, doubling: bool) -> int:
-    """The floats of one lane's scratch in K3W (``wide_lane_floats`` of
-    csrc/riccati_wide.cu, which refuses a launch that differs): vU, lamU
-    and the split rows of vX, lamX, e0 and the terminal linear term; then
-    the sequential form's ffs, U, X and step vectors, or the doubling
-    form's linear terms, ffs and two horizon buffers of nx rows; a multiple
-    of 4."""
+def k3w_lane_floats(op: RiccatiOperator) -> int:
+    """The floats of one lane's scratch in K3W's doubling form
+    (``wide_lane_floats`` of csrc/riccati_wide.cu, which refuses a launch
+    that differs): vU, lamU and the split rows of vX, lamX, e0 and the
+    terminal linear term; then the linear terms, ffs and two horizon
+    buffers of nx rows; a multiple of 4."""
     N, nx, nu = op.N, op.nx, op.nu
-    n = 2 * N * nu + 2 * _split_x_rows(op) * nx + 2 * nx
-    if doubling:
-        n += 2 * N * nu + 2 * N * nx
-    else:
-        n += 2 * N * nu + N * nx + 3 * nx + 3 * nu
+    n = 2 * N * nu + 2 * _split_x_rows(op) * nx + 2 * nx + 2 * N * nu + 2 * N * nx
     return -(-n // 4) * 4
 
 
-def k3w_plan(op: RiccatiOperator, B: int, doubling: bool, route: Optional[str] = None) -> K3WPlan:
+# K3W's sequential form (csrc/riccati_wide_seq.cu): a thread takes 4 lanes
+# of a row; a block takes 4, 8, 16 or 32 lanes and at most 256 threads
+K3W_SEQ_LANES, K3W_SEQ_MAX_THREADS = (4, 8, 16, 32), 256
+# where a sequential launch keeps the lanes' horizon state: in "shared"
+# memory, in "device" memory (the outputs themselves), or there with the
+# step's vectors in a device scratch too ("global"; the C entry's route 0,
+# 1, 2)
+K3W_SEQ_ROUTES = ("shared", "device", "global")
+# the layouts the plan tries, in order: (route, the horizon steps its ring
+# holds (0: the factors are read through L1/L2), the plant in shared memory)
+K3W_SEQ_LAYOUTS = (
+    ("shared", 3, True), ("shared", 2, True), ("device", 3, True), ("device", 2, True),
+    ("device", 2, False), ("device", 0, False), ("global", 0, False),
+)
+
+
+class K3WSeqPlan(NamedTuple):
+    """How one launch of K3W's sequential form is laid out: where the lanes'
+    horizon state lies (``K3W_SEQ_ROUTES``), the lanes of a block (one of
+    ``K3W_SEQ_LANES``), its threads, the horizon steps of its factor ring,
+    whether the plant sits in shared memory, the block's dynamic shared
+    memory, the blocks of the grid, and the floats of the "global" route's
+    device scratch (0 on the others)."""
+
+    route: str
+    lanes: int
+    threads: int
+    ring: int
+    plant_shared: bool
+    smem_bytes: int
+    blocks: int
+    scratch_floats: int
+
+
+def k3w_seq_floats(N: int, nx: int, nu: int, xrows: int, lanes: int, ring: int,
+                   plant_shared: bool, state_shared: bool) -> Tuple[int, int]:
+    """(the step vectors' floats, the block's floats) of a sequential K3W
+    block, as ``seq_layout`` of csrc/riccati_wide_seq.cu lays them out (the
+    C entry refuses shared-memory bytes that differ): fp64 g, lu, e (two
+    buffers each), u, s and fp32 lu (two), A e, e0 and the ball's scale, a
+    lane each; then the ring's steps (K_k and A - B K_k, or K_k' and G_k',
+    each padded to 4 floats), the plant (B, A', B') and the lanes' state
+    (vU, lamU, s and the split rows of vX, lamX) where they sit in shared
+    memory."""
+    p4 = lambda n: -(-n // 4) * 4
+    work = lanes * (10 * nx + 10 * nu + 1)
+    slot = p4(nu * nx) + p4(max(nx * nx, nu * nu))
+    total = work + ring * slot
+    if plant_shared:
+        total += 2 * p4(nx * nu) + p4(nx * nx)
+    if state_shared:
+        total += (3 * N * nu + 2 * xrows * nx) * lanes
+    return work, total
+
+
+def _k3w_seq_plan(op: RiccatiOperator, B: int, route: Optional[str], lanes: Optional[int],
+                  ring: Optional[int]) -> K3WSeqPlan:
+    N, nx, nu = op.N, op.nx, op.nu
+    if route not in (None, *K3W_SEQ_ROUTES):
+        raise ValueError(f"unknown K3W route {route!r}; one of {sorted(K3W_SEQ_ROUTES)}")
+    if lanes is None:  # lanes that spread the batch over every SM
+        want = math.ceil(B / SM_COUNT)
+        lanes = next((n for n in K3W_SEQ_LANES if n >= want), K3W_SEQ_LANES[-1])
+    elif lanes not in K3W_SEQ_LANES:
+        raise ValueError(f"K3W takes one of {K3W_SEQ_LANES} lanes a block; lanes={lanes}")
+    threads = min(_ceil32((nu + nx) * (lanes // 4)), K3W_SEQ_MAX_THREADS)
+    blocks = math.ceil(B / lanes)
+    xrows = _split_x_rows(op)
+    for where, depth, plant in K3W_SEQ_LAYOUTS:
+        if route not in (None, where) or ring not in (None, depth):
+            continue
+        work, total = k3w_seq_floats(N, nx, nu, xrows, lanes, depth, plant, where == "shared")
+        if where == "global":
+            return K3WSeqPlan(where, lanes, threads, 0, False, 0, blocks, blocks * work)
+        if 4 * total <= SMEM_LIMIT:
+            return K3WSeqPlan(where, lanes, threads, depth, plant, 4 * total, blocks, 0)
+    raise ValueError(f"K3W's layout (route {route!r}, ring {ring!r}, {lanes} lanes) does not "
+                     f"fit N={N}, nx={nx}, nu={nu}")
+
+
+def k3w_plan(op: RiccatiOperator, B: int, doubling: bool = False, route: Optional[str] = None,
+             lanes: Optional[int] = None, ring: Optional[int] = None):
     """The layout of a K3W launch for ``B`` lanes, from the shape alone.
 
-    A lane's threads run over the rows of each small product: nx + nu of
-    them in the sequential form (a step's [B'; (A - B K)'] g, then its
-    feedforward and next g), and the (step, row) pairs of a combine level
-    in the doubling form, about 16 a thread; at most
-    ``K3W_LANE_THREADS``, a multiple of 32. Lanes share a block (and its
-    reads of one rho's factors and levels) up to ``K3W_BLOCK_THREADS``
-    threads, but no more than spread the batch over every SM. A lane's
-    scratch sits in shared memory where it fits beside the block's other
-    lanes ("shared"), else in a device-memory scratch with the same
-    barriers ("device"), which takes any shape. ``route`` forces one
-    (ValueError where "shared" does not fit)."""
+    The sequential form (a :class:`K3WSeqPlan`): a block takes the lanes
+    that spread the batch over every SM (4, 8, 16 or 32), one
+    rho's lanes sharing each horizon step's factors; its threads run over
+    (row, 4 lanes). The first of ``K3W_SEQ_LAYOUTS`` whose shared memory
+    fits wins: the lanes' horizon state in shared memory beside a ring of
+    3, then 2 steps; else in device memory; the plant out of shared memory
+    and the ring shrunk to nothing last; "global" (no shared memory) takes
+    any shape. ``route``, ``lanes`` and ``ring`` force a layout (ValueError
+    where it does not fit).
+
+    The doubling form (a :class:`K3WPlan`): a lane's threads run over the
+    (step, row) pairs of a combine level, about 16 a thread (at least nx +
+    nu), at most ``K3W_LANE_THREADS``, a multiple of 32. Lanes share a block
+    (and its reads of one rho's factors and levels) up to
+    ``K3W_BLOCK_THREADS`` threads, but no more than spread the batch over
+    every SM. A lane's scratch sits in shared memory where it fits beside
+    the block's other lanes ("shared"), else in a device-memory scratch
+    with the same barriers ("device"), which takes any shape. ``route``
+    forces one (ValueError where "shared" does not fit)."""
     N, nx, nu = op.N, op.nx, op.nu
     B = int(B)
     if B < 1 or nx < 1 or nu < 1:
         raise ValueError(f"K3W takes at least one lane, state and input; B={B}, nx={nx}, nu={nu}")
+    if not doubling:
+        return _k3w_seq_plan(op, B, route, lanes, ring)
+    if lanes is not None or ring is not None:
+        raise ValueError("K3W's doubling form takes no forced lanes or ring")
     if route not in (None, "shared", "device"):
         raise ValueError(f"unknown K3W route {route!r}; one of ['device', 'shared']")
-    rows = nx + nu
-    if doubling:
-        rows = max(rows, -(-N * nx // 16))
+    rows = max(nx + nu, -(-N * nx // 16))
     threads = min(_ceil32(rows), K3W_LANE_THREADS)
-    floats = k3w_lane_floats(op, doubling)
+    floats = k3w_lane_floats(op)
     lanes = max(1, min(K3W_BLOCK_THREADS // threads, math.ceil(B / SM_COUNT)))
     fit = SMEM_LIMIT // (4 * floats)
     if route == "shared" and fit < 1:
@@ -517,6 +609,21 @@ def k3w_plan(op: RiccatiOperator, B: int, doubling: bool, route: Optional[str] =
     else:
         where, smem = "device", 0
     return K3WPlan(lanes, threads, floats, where, smem, math.ceil(B / lanes))
+
+
+def k3w_seq_operands(op: RiccatiOperator) -> dict:
+    """K_k' and G_k' (every rho and step) and A', B' as K3W's sequential form
+    reads them (csrc/riccati_wide_seq.cu: the rollout's products read their
+    matrices by column), contiguous fp32 on the operator's device. Built
+    once per operator and kept on it (a new operator, as ``op.to`` or
+    ``replace`` make, builds its own)."""
+    cache = op.__dict__.get("_k3w_seq_operands")
+    if cache is None:
+        f = op.factors
+        cache = dict(KT=f.K.transpose(-1, -2).contiguous(), GT=f.G.transpose(-1, -2).contiguous(),
+                     AT=f.A.T.contiguous(), BT=f.B.T.contiguous())
+        op.__dict__["_k3w_seq_operands"] = cache
+    return cache
 
 
 def _level_args(op: RiccatiOperator):
@@ -531,20 +638,22 @@ def _level_args(op: RiccatiOperator):
     ]
 
 
-def _launch_k3w(op, ridx, e0T, ballr, vX, vU, lamX, lamU, chunk, doubling=False, route=None):
+def _launch_k3w(op, ridx, e0T, ballr, vX, vU, lamX, lamU, chunk, doubling=False, route=None,
+                plan=None):
     """Launch K3W, sequential or in doubling form, as :func:`k3w_plan`
-    lays it out (``route`` forces "shared" or "device")."""
+    lays it out (``route`` forces one of its routes, ``plan`` a whole
+    layout)."""
     kernel = "K3W-doubling" if doubling else "K3W"
     if int(chunk) < 1:
         raise ValueError(f"{kernel} runs at least one iteration; chunk={chunk}")
     N, nx, nu = op.N, op.nx, op.nu
     B = e0T.shape[1]
-    plan = k3w_plan(op, B, doubling, route)
+    if plan is None:
+        plan = k3w_plan(op, B, doubling, route)
     R = len(op.rho_grid)
-    L = int(op.bwd_levels.shape[1])
     f = torch.float32
-    stacks, plant, boxes = _shape_args(op, B)
-    args = stacks + plant + _level_args(op) + boxes + [
+    (K, G, AmBK), (_, Bm), boxes = _shape_args(op, B)
+    lanes = [
         ("rho_tab", op.rho_tab, (4, R), f),
         ("ridx", ridx, (1,), torch.int32),
         ("e0T", e0T, (nx, B), f),
@@ -554,18 +663,27 @@ def _launch_k3w(op, ridx, e0T, ballr, vX, vU, lamX, lamU, chunk, doubling=False,
         ("lamX", lamX, (N + 1, nx, B), f),
         ("lamU", lamU, (N, nu, B), f),
     ]
-    _check_args(kernel, args, e0T.device)
-    # X, U, vX, vU, lamX, lamU, then the lanes' scratch where it is not in
-    # shared memory
+    # X, U, vX, vU, lamX, lamU, then the scratch where the layout has one
     outs = [torch.empty_like(t) for t in (vX, vU) * 3]
-    outs.append(e0T.new_empty(plan.blocks * plan.lanes * plan.lane_floats)
-                if plan.route == "device" else e0T.new_empty(0))
-    out = _launch(
-        kernel, "riccati_wide_chunk", args, outs,
-        (N, nx, nu, B, R, L, int(chunk), *_flags(op), int(doubling), plan.lanes,
-         plan.lane_threads, plan.lane_floats, plan.smem_bytes),
-    )
-    return out[:6]
+    if doubling:
+        L = int(op.bwd_levels.shape[1])
+        args = [K, G, Bm] + _level_args(op) + boxes + lanes
+        outs.append(e0T.new_empty(plan.blocks * plan.lanes * plan.lane_floats)
+                    if plan.route == "device" else e0T.new_empty(0))
+        entry = "riccati_wide_chunk"
+        ints = (N, nx, nu, B, R, L, int(chunk), *_flags(op), plan.lanes, plan.lane_threads,
+                plan.lane_floats, plan.smem_bytes)
+    else:
+        ops = k3w_seq_operands(op)
+        args = [K, ("K'", ops["KT"], (R, N, nx, nu), f), ("G'", ops["GT"], (R, N, nu, nu), f),
+                AmBK, Bm, ("A'", ops["AT"], (nx, nx), f), ("B'", ops["BT"], (nu, nx), f)]
+        args += boxes + lanes
+        outs.append(e0T.new_empty(plan.scratch_floats))
+        entry = "riccati_wide_seq_chunk"
+        ints = (N, nx, nu, B, R, int(chunk), *_flags(op), plan.lanes, plan.threads, plan.ring,
+                int(plan.plant_shared), K3W_SEQ_ROUTES.index(plan.route), plan.smem_bytes)
+    _check_args(kernel, args, e0T.device)
+    return _launch(kernel, entry, args, outs, ints)[:6]
 
 
 def iterate_chunk_riccati_wide(
@@ -580,8 +698,8 @@ def iterate_chunk_riccati_wide(
     chunk: int,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
     """:func:`iterate_chunk_riccati` for a plant of any width: K3W's
-    sequential form on CUDA tensors (raises if it cannot run), the plain
-    version on CPU ones."""
+    sequential form (csrc/riccati_wide_seq.cu) on CUDA tensors (raises if it
+    cannot run), the plain version on CPU ones."""
     return _dispatch(
         "K3W", _launch_k3w, _k3w_plain, (op, ridx, e0T, ballr, vX, vU, lamX, lamU, chunk),
     )
@@ -609,17 +727,38 @@ def iterate_chunk_riccati_doubling(
     )
 
 
+# Which kernel runs the sequential chunk of a plant K3 takes, by K3's
+# register tier: the faster one at the tier's widest plant on the card at
+# every batch the drivers launch. ms per 25-iteration chunk, K3 / K3W on
+# the same inputs, at B = 1, 256, 1024 (2048 at (32, 16)); k3_ab.py
+# --kernel K3-K3W on an NVIDIA H100 80GB HBM3, 700.00 W:
+#   (4, 2) QTP h500  3.65 / 34.36, 3.62 / 34.38, 3.71 / 34.51
+#   (4, 2) QTP h50   0.39 / 3.49, 0.39 / 3.49, 0.40 / 3.47 (B=4096 0.40 / 3.43)
+#   (8, 4) h30       0.53 / 2.45, 0.53 / 2.46, 0.56 / 2.47
+#   (16, 8) h30      1.63 / 3.11, 1.66 / 3.12, 1.64 / 3.08
+#   (32, 16) h30     39.01 / 4.46, 48.51 / 4.47, 55.76 / 4.00
+# No batch crosses over, so the batch does not enter the choice.
+CHUNK_ROUTES = {(4, 2): "K3", (8, 4): "K3", (16, 8): "K3", (MAX_NX, MAX_NU): "K3W"}
+
+
+def chunk_kernel(op: RiccatiOperator) -> str:
+    """"K3" or "K3W": the kernel of ``op``'s sequential chunk, from
+    ``CHUNK_ROUTES`` (K3W past K3's widest tier)."""
+    return CHUNK_ROUTES[_tier(op.nx, op.nu)] if k3_fits(op) else "K3W"
+
+
 def riccati_chunk_fn(op: RiccatiOperator, config: RiccatiConfig, driver: str) -> "ChunkFn":
     """The chunk a driver launches: on the per-lane engine (``driver=
     "per-lane"``) K3W's doubling form under ``config.parallel_sweeps``;
     otherwise (and on the fused driver, ``"fused"``, which does not read
-    ``parallel_sweeps``, as the JAX package's fused kernel does not) K3
-    where it takes the plant and K3W's sequential form past it."""
+    ``parallel_sweeps``, as the JAX package's fused kernel does not) the
+    sequential chunk on the kernel :func:`chunk_kernel` picks: K3 or K3W
+    by the plant's tier, K3W past K3's tiers."""
     if driver not in ("per-lane", "fused"):
         raise ValueError(f"unknown Riccati driver {driver!r}; one of ['fused', 'per-lane']")
     if driver == "per-lane" and config.parallel_sweeps:
         return iterate_chunk_riccati_doubling
-    return iterate_chunk_riccati if k3_fits(op) else iterate_chunk_riccati_wide
+    return iterate_chunk_riccati if chunk_kernel(op) == "K3" else iterate_chunk_riccati_wide
 
 
 def _rollout_plain(op, e0T, U):
@@ -913,7 +1052,7 @@ def solve_sparse_fused(
     config: RiccatiConfig = RiccatiConfig(),
     chunk_fn: Optional[ChunkFn] = None,
 ):
-    """Batched sparse solves on K3 (K3W past (32, 16)), on the device of
+    """Batched sparse solves on K3 or K3W (``CHUNK_ROUTES``), on the device of
     ``e0s``. Returns (X (B, N+1, nx), U (B, N, nu), status (B,),
     iterations (B,), rp (B,), rd (B,), (lamX, lamU)), as the JAX package's
     ``solve_sparse_fused``. ``chunk_fn`` defaults to
@@ -994,9 +1133,9 @@ def solve_sparse(
 
     Each lane keeps its own grid rho: every ``adapt_interval`` iterations
     the OSQP rule moves it, and ``stall_checks`` stalled checks move it one
-    entry up. The chunk (``riccati_chunk_fn(op, config, "per-lane")``: K3,
-    K3W past (32, 16), K3W's doubling form under ``parallel_sweeps``; or
-    ``chunk_fn``) takes one rho for its whole launch, so
+    entry up. The chunk (``riccati_chunk_fn(op, config, "per-lane")``: K3
+    or K3W by ``CHUNK_ROUTES``, K3W's doubling form under
+    ``parallel_sweeps``; or ``chunk_fn``) takes one rho for its whole launch, so
     each check runs one launch per rho that open lanes hold, on those
     lanes gathered along the lane axis: at most R launches, and no loop
     over the horizon in Python. The tests between checks are the fused

@@ -60,13 +60,14 @@ device=card)``, then ``parallel`` and ``step``):
   ``solve_batch_escalated`` at bench.py's tiers and 16384 states;
 - the controller types (``controllers_phase``): a Riccati controller on a
   wide plant (32 states, 16 inputs, h30, 2048 states: K3's (32, 16)
-  register tier, with its rollout and certificate, through
-  ``solve_batch_auto``), the Takagi-Sugeno fuzzy QTP and the economic QTP
+  register tier, whose chunk the routing table sends to K3W, with K3's
+  rollout and certificate, through ``solve_batch_auto``), the Takagi-Sugeno fuzzy QTP and the economic QTP
   (h10, 256 states, ``parallel.solve_batch`` and ``step``; the economic
   engine also on the card against the CPU) and the exact-ReLU MILP fleet
   on a relu fnn trained on the card (h5, 32 states, host threads);
 - the Riccati sweeps (``riccati_sweeps_phase``): K3W, the width-general
-  Riccati chunk (``csrc/riccati_wide.cu``), with its wide rollout and
+  Riccati chunk (``csrc/riccati_wide_seq.cu``; its doubling form,
+  rollout and certificate ``csrc/riccati_wide.cu``), with its wide rollout and
   certificate, on a (64, 32) plant at h30 past K3's (32, 16)
   (``solve_batch_auto``, ``parallel.solve_batch`` over 1024 states, 10
   ``step``s, the card against the CPU), and its doubling form under
@@ -114,11 +115,13 @@ Phases (any failure raises and exits non-zero):
    shape per branch of the kernel, then at the shapes that take the other
    routes of its plan: h500 with the state box, a ragged batch, longer
    horizons, an (8, 4) and a (16, 8) plant, and in the controllers' phase
-   the (32, 16) tier on each of its routes; K3's rollout and certificate
+   the (32, 16) tier on each of its routes, beside K3W on the same inputs
+   (equal bit for bit); K3's rollout and certificate
    kernels at h500 (1024 lanes, one lane, and the 256-lane bucket of the
-   escalated solve's tier 2); in the sweeps' phase K3W sequential at
-   (64, 32) h30 and (40, 20) h10, K3W-doubling at the QTP's h500, h50 and
-   h24, on both of their scratch routes, and the wide rollout and
+   escalated solve's tier 2); K3W sequential at (32, 16) h30 in the
+   controllers' phase and in the sweeps' phase at (64, 32) h30 (with the
+   chain floor) and (40, 20) h10 on its three routes, K3W-doubling at the
+   QTP's h500, h50 and h24, on both of its scratch routes, and the wide rollout and
    certificate at (64, 32) h30, each with its k3w_plan line; K4 at the h20 equality
    terminal (random and one rho index, tier 2's bucket, a ragged batch),
    the state box at tier 1's grid (no refinement) and the neighborhood
@@ -135,8 +138,9 @@ Phases (any failure raises and exits non-zero):
    its A/B, K3 and its recurrence kernels in the per-lane engine; the
    learned phase: no kernel on the SQP cells, K1 on the learned-linear
    cell, held to its plain version on that operator first; the
-   controllers' phase: K3 and its recurrences on the wide Riccati cell,
-   no kernel on the fuzzy, economic and MILP cells; the sweeps' phase:
+   controllers' phase: the chunk the routing table picks (K3W, never K3)
+   and K3's recurrences on the wide Riccati cell, no kernel on the fuzzy,
+   economic and MILP cells; the sweeps' phase:
    K3W and the wide recurrences on the (64, 32) cell and never K3,
    K3W-doubling and never K3 on the per-lane engine under
    parallel_sweeps);
@@ -238,7 +242,8 @@ def ptxas_summary(report: str):
         if m and name:
             kind = next(k for key, k in (
                 ("riccati_wide_rollout", "rollout-wide"),
-                ("riccati_wide_certificate", "certificate-wide"), ("riccati_wide", "K3W"),
+                ("riccati_wide_certificate", "certificate-wide"), ("riccati_wide_seq", "K3W"),
+                ("riccati_wide_kernel", "K3W-doubling"),
                 ("riccati_admm_chunk", "K3"), ("riccati_rollout", "K3 rollout"),
                 ("riccati_certificate", "K3 certificate"),
                 ("riccati_chain_floor", "K3 chain floor"), ("admm_stream_kernel", "stream"),
@@ -1144,9 +1149,12 @@ def controllers_phase(dev):
       of benchmarks_extra.py), K3's (32, 16) register tier: K3 against its
       plain version at B = 2048, 256 and 1 (max_ulps 0), on every route of
       the tier (the fp64 factors only fit up to h15: an h10 operator of the
-      same plant), the rollout and the certificate likewise; then
-      ``solve_batch_auto`` over 2048 states, K3 and both recurrence
-      kernels launched, no plain version, converged >= 0.999;
+      same plant), the rollout and the certificate likewise; K3W's
+      sequential form against its plain version and against K3 at B =
+      2048, 256 and 1 (max_ulps 0 both); then ``solve_batch_auto`` over
+      2048 states on the chunk ``riccati_fused.chunk_kernel`` picks (K3W),
+      that kernel and both recurrence kernels launched and the other chunk
+      kernel not, no plain version, converged >= 0.999;
     - fuzzy-ts-h10-B256: the Takagi-Sugeno QTP (benchmarks_extra.py lines
       77-92), ``mpc_programming_type="fuzzy_linear"``, the SQP over 256
       states through ``parallel.solve_batch``, and ``step`` at B = 1;
@@ -1158,8 +1166,9 @@ def controllers_phase(dev):
       MILP engine at h5 over 32 states: host threads by design, converged
       1.0.
     The fuzzy, economic and MILP paths run no kernel and no plain version.
-    Returns K3's records at the tier, the recurrences' records, and the
-    launches of K3, the rollout and the certificate on the wide cell."""
+    Returns K3's records at the tier, K3W's, the recurrences' records, and
+    the launches of K3, K3W, the rollout and the certificate on the wide
+    cell."""
     import numpy as np
     import torch
 
@@ -1184,8 +1193,9 @@ def controllers_phase(dev):
         np.zeros(32, np.float32), np.zeros(16, np.float32), mpc_Q=10.0, mpc_R=0.1,
         engine="riccati", device=dev,
     )
-    if not (isinstance(wide.engine, RiccatiEngine) and parallel.fused_supported(wide)):
-        raise RuntimeError("the wide Riccati controller is expected on K3")
+    if not (isinstance(wide.engine, RiccatiEngine) and parallel.fused_supported(wide)
+            and riccati_fused.k3_fits(wide.engine.op)):
+        raise RuntimeError("the wide Riccati controller is expected in K3's (32, 16) tier")
     chunk = int(wide.engine.config.check_interval)
     shapes = [compare_k3(wide, "(32, 16) plant, h30", B, 50 + i, wide_x0s, plain_reps=1)
               for i, B in enumerate((B_WIDE, 256, 1))]
@@ -1212,26 +1222,36 @@ def controllers_phase(dev):
         if rec["max_ulps"] != 0:
             raise RuntimeError(f"the (32, 16) {rec['kernel']} differs from its plain version: {rec}")
         log(phase="k3_driver_vs_plain", **rec)
+    # K3W's sequential form at the tier, against its plain version and K3
+    k3w_recs = [compare_k3w(wide.engine.op, B, 75 + i, chunk, False,
+                            f"(32, 16) h30, K3's widest tier, B={B}", k3=True)
+                for i, B in enumerate((B_WIDE, 256, 1))]
     lap("wide kernels")
 
+    # the cell runs its chunk on the kernel the routing table picks
+    picked = riccati_fused.chunk_kernel(wide.engine.op)
+    other = "K3" if picked == "K3W" else "K3W"
+    head = k3w_recs[0] if picked == "K3W" else shapes[0]
     x_w = torch.from_numpy(wide_x0s(B_WIDE)).to(dev)
     admm_fused.reset_counts()
     fn = lambda: parallel.solve_batch_auto(wide, x_w)
     (sol, _, _, d), lat = timed(fn, REPS_WIDE)
-    counts = {k: admm_fused.LAUNCHES[k] for k in ("K3", "rollout", "certificate")}
+    counts = {k: admm_fused.LAUNCHES[k] for k in ("K3", "K3W", "rollout", "certificate")}
     plain = dict(admm_fused.PLAIN_CALLS)
     check_solution(sol, B_WIDE, 30, "riccati-wide-nx32-h30-B2048", nx=32, nu=16)
     p50, p99 = percentiles_ms(lat)
-    rec = dict(cell="riccati-wide-nx32-h30-B2048", B=B_WIDE, route=shapes[0]["route"],
-               converged_fraction=int(d.n_converged) / B_WIDE,
+    rec = dict(cell="riccati-wide-nx32-h30-B2048", B=B_WIDE, chunk_kernel=picked,
+               route=head["route"], converged_fraction=int(d.n_converged) / B_WIDE,
                mean_iterations=float(d.mean_iterations), max_iterations=int(d.max_iterations),
                batch_p50_ms=p50, batch_p99_ms=p99, solves_per_s=B_WIDE / float(np.median(lat)),
-               launches=counts, k3_launches_per_solve=counts["K3"] / (REPS_WIDE + 1),
-               k3_ms_per_chunk=shapes[0]["ms"], bound_ms=shapes[0]["bound_ms"],
+               launches=counts, chunk_launches_per_solve=counts[picked] / (REPS_WIDE + 1),
+               chunk_ms=head["ms"], k3_ms_per_chunk=shapes[0]["ms"],
+               k3w_ms_per_chunk=k3w_recs[0]["ms"], bound_ms=head["bound_ms"],
                chain_floor_ms=shapes[0]["chain_floor_ms"], plain_calls=plain)
     rec.update(profile(fn, 2))
     log(phase="riccati_wide", **rec)
-    if min(counts.values()) <= 0 or any(plain.values()):
+    if (min(counts[k] for k in (picked, "rollout", "certificate")) <= 0 or counts[other]
+            or any(plain.values())):
         raise RuntimeError(f"the wide Riccati path did not run on its kernels alone: {rec}")
     if rec["converged_fraction"] < CONV_OK:
         raise RuntimeError(f"the wide Riccati cell converged too little: {rec}")
@@ -1331,7 +1351,7 @@ def controllers_phase(dev):
         raise RuntimeError(f"the MILP fleet left a lane unsolved: {rec}")
     lap("milp fleet")
     log(phase="controllers_seconds", **seconds)
-    return shapes, rollout_recs, cert_recs, counts
+    return shapes, k3w_recs, rollout_recs, cert_recs, counts
 
 
 TPU_RICCATI_XLA = "automationlabsmodelpredictivecontrol_jl_tpu/ops/riccati.py"
@@ -1367,10 +1387,12 @@ def k3w_bound(N, nx, nu, B, chunk, split_interior, doubling, L):
     return _bound(4 * (factors + lane * B), 2 * macs * B * chunk, elementwise * B * chunk)
 
 
-def compare_k3w(op, B, seed, chunk, doubling, label, plain_reps=1, route=None):
+def compare_k3w(op, B, seed, chunk, doubling, label, plain_reps=1, route=None, k3=False):
     """K3W (sequential or doubling) against its plain version on one
     chunk's seeded inputs at a real shape, on the card: max_ulps 0, a
-    k3w_plan line, CUDA-event time over 20 launches beside its bound."""
+    k3w_plan line, CUDA-event time over 20 launches beside its bound; with
+    ``k3``, K3 on the same inputs too (its outputs equal K3W's bit for bit,
+    its time beside)."""
     import numpy as np
     import torch
 
@@ -1389,14 +1411,22 @@ def compare_k3w(op, B, seed, chunk, doubling, label, plain_reps=1, route=None):
     plain_fn = (riccati_fused.iterate_chunk_riccati_doubling_plain if doubling
                 else riccati_fused.iterate_chunk_riccati_plain)
     out_p, plain_once_ms = cuda_ms_once(lambda: plain_fn(*args))
-    abs_err, rel_err, ulps = _errors(kernel(), out_p, name)
+    out_k = kernel()
+    abs_err, rel_err, ulps = _errors(out_k, out_p, name)
     rec = dict(kernel=name, cell=label, N=op.N, nx=op.nx, nu=op.nu, B=B, chunk=chunk,
-               route=plan.route, lanes=plan.lanes, lane_threads=plan.lane_threads,
-               smem_bytes=plan.smem_bytes, split_interior=op.split_interior,
+               route=plan.route, lanes=plan.lanes, smem_bytes=plan.smem_bytes,
+               layout=plan._asdict(), split_interior=op.split_interior,
                terminal_ball=op.terminal_ball, max_abs_err=abs_err, max_rel_err=rel_err,
                max_ulps=ulps)
     if ulps != 0:
         raise RuntimeError(f"{name} disagrees with its plain version: {rec}")
+    if k3:  # K3 on the same inputs: the same bits
+        launch_k3 = lambda: riccati_fused._launch_k3(*args)
+        _, _, k3_ulps = _errors(launch_k3(), out_k, "K3 against K3W")
+        rec["k3_max_ulps"] = k3_ulps
+        if k3_ulps != 0:
+            raise RuntimeError(f"K3 and K3W differ on the same inputs: {rec}")
+        rec["k3_ms"] = cuda_ms(launch_k3, reps=3)
     rec["ms"] = cuda_ms(kernel)
     rec["plain_ms"] = (plain_once_ms if plain_reps == 1 else
                        cuda_ms(lambda: plain_fn(*args), reps=plain_reps, warm_up=False))
@@ -1449,9 +1479,11 @@ def riccati_sweeps_phase(dev):
     certificate, on the card; each path counted from zero:
 
     - each kernel against its plain version, max_ulps 0, a k3w_plan line a
-      shape: K3W sequential at (64, 32) h30 (B = 1024 and 1), (40, 20)
-      h10 with the state box, and beside K3 at its widest tier's cell
-      ((32, 16) h30, B = 2048); K3W-doubling at the QTP's h500 (B = 1024 and
+      shape: K3W sequential at (64, 32) h30 (B = 1024 and 1, with the chain
+      floor of the (64, 32) cell's chunk), (40, 20) h10 with the state box
+      on each of its routes (the lanes' state in shared memory, in device
+      memory, and with the step's vectors in device memory too; (32, 16)
+      h30 is the controllers' phase's); K3W-doubling at the QTP's h500 (B = 1024 and
       1), h50 with the state box and with the contractive ball, and h24;
       the wide rollout and certificate at (64, 32) h30 (B = 1024 and 1);
     - riccati-wide-nx64-h30-B1024: ``big.random_stable_system(64, 32,
@@ -1508,20 +1540,17 @@ def riccati_sweeps_phase(dev):
     h24 = long(24, engine="riccati").engine.op
     wide_op = wide.engine.op
     w40 = wide_operator(40, 20, 10, dev, 21)
-    # K3's widest tier's cell (controllers_phase), for K3W beside K3 there
-    w32_op = proceed_controller(
-        big.random_stable_system(32, 16, seed=0), "model_predictive_control", 30, 1.0,
-        np.zeros(32, np.float32), np.zeros(16, np.float32), mpc_Q=10.0, mpc_R=0.1,
-        engine="riccati", device=dev).engine.op
     lap("design")
 
     # each kernel against its plain version at the phase's shapes
     seq = [compare_k3w(wide_op, B_H500, 80, 25, False, "(64, 32) h30", plain_reps=1),
            compare_k3w(wide_op, 1, 81, 25, False, "(64, 32) h30, one lane"),
            compare_k3w(w40, 77, 82, 25, False, "(40, 20) h10 state box"),
-           compare_k3w(w40, 77, 83, 25, False, "(40, 20) h10 state box, device scratch",
+           compare_k3w(w40, 77, 83, 25, False, "(40, 20) h10 state box, state in device memory",
                        route="device"),
-           compare_k3w(w32_op, B_WIDE, 79, 25, False, "(32, 16) h30, K3's widest tier")]
+           compare_k3w(w40, 77, 84, 25, False, "(40, 20) h10 state box, all in device memory",
+                       route="global")]
+    seq[0]["chain_floor_ms"] = chain_floor_ms(wide_op.N, wide_op.nx, wide_op.nu, 25, dev)
     dbl = [compare_k3w(h500.engine.op, B_H500, 84, 25, True, "QTP h500", plain_reps=2),
            compare_k3w(h500.engine.op, 1, 85, 25, True, "QTP h500, one lane", plain_reps=2),
            compare_k3w(h50_state, B_H500, 86, 25, True, "QTP h50 state box", plain_reps=2),
@@ -2795,7 +2824,7 @@ def main():
 
     # 4g. the controller types: K3's (32, 16) tier on the wide Riccati
     # cell, the fuzzy, economic and MILP cells, counted from zero cell by cell
-    k3_wide, rollout_wide, cert_wide, wide_counts = controllers_phase(dev)
+    k3_wide, k3w_wide, rollout_wide, cert_wide, ctrl_counts = controllers_phase(dev)
     k3_shapes += k3_wide
     rollout_recs += rollout_wide
     cert_recs += cert_wide
@@ -2888,16 +2917,16 @@ def main():
              smem_floor_ms=k2_shapes[0]["smem_floor_ms"],
              layouts=sorted(k2_layouts)),
         dict(kernel_entry("riccati_admm_chunk (K3)", "riccati_chunk.cuh", f"{TPU_RICCATI}:60",
-                          k3_counts["K3"] + general_counts["K3"] + wide_counts["K3"], k3_shapes),
+                          k3_counts["K3"] + general_counts["K3"] + ctrl_counts["K3"], k3_shapes),
              routes=sorted({rec["route"] for rec in k3_shapes}),
              tiers=sorted({(rec["nx"], rec["nu"]) for rec in k3_shapes})),
         # the driver's rollouts and certificate recursion (lax.scan there)
         kernel_entry("riccati_rollout (K3 driver)", "riccati_admm.cu", f"{TPU_RICCATI}:352",
-                     k3_counts["rollout"] + general_counts["rollout"] + wide_counts["rollout"],
+                     k3_counts["rollout"] + general_counts["rollout"] + ctrl_counts["rollout"],
                      rollout_recs),
         kernel_entry("riccati_certificate (K3 driver)", "riccati_admm.cu", f"{TPU_RICCATI}:384",
                      k3_counts["certificate"] + general_counts["certificate"]
-                     + wide_counts["certificate"], cert_recs),
+                     + ctrl_counts["certificate"], cert_recs),
         dict(kernel_entry("admm_packed_chunk (K4)", "admm_perr.cu", f"{TPU_ADMM}:252",
                           dense_counts["K4"], k4_shapes),
              smem_floor_ms=k4_shapes[0]["smem_floor_ms"],
@@ -2911,8 +2940,13 @@ def main():
         # the per-lane engine's XLA sweeps (no pallas_call there): K3W
         # past (32, 16), its doubling form under parallel_sweeps, and the
         # wide recurrences
-        kernel_entry("riccati_wide_chunk (K3W)", "riccati_wide.cu", f"{TPU_RICCATI_XLA}:377",
-                     k3w_counts["K3W"], k3w_seq),
+        dict(kernel_entry("riccati_wide_seq_chunk (K3W)", "riccati_wide_seq.cu",
+                          f"{TPU_RICCATI_XLA}:377", k3w_counts["K3W"] + ctrl_counts["K3W"],
+                          k3w_seq + k3w_wide),
+             routes=sorted({rec["route"] for rec in k3w_seq + k3w_wide}),
+             layouts=sorted({(rec["layout"]["route"], rec["layout"]["ring"],
+                              rec["layout"]["lanes"]) for rec in k3w_seq + k3w_wide}),
+             chain_floor_ms=k3w_seq[0]["chain_floor_ms"]),
         kernel_entry("riccati_wide_chunk (K3W-doubling)", "riccati_wide.cu",
                      f"{TPU_RICCATI_XLA}:444", k3w_counts["K3W-doubling"], k3w_dbl),
         kernel_entry("riccati_wide_rollout", "riccati_wide.cu", f"{TPU_RICCATI_XLA}:562",

@@ -1,12 +1,14 @@
-"""A/B timing of K3 and the certificate kernel, or of K2, K1 or K5, across
-source trees, on one NVIDIA GPU, in one process tree (so on one card, under
-one power limit).
+"""A/B timing of K3 and the certificate kernel, or of K2, K1, K5, K4 or
+K3W, across source trees, or of K3 against K3W in one tree, on one NVIDIA
+GPU, in one process tree (so on one card, under one power limit).
 
     python3 k3_ab.py NAME=TREE[:ROUTE] [NAME=TREE[:ROUTE] ...] [--sass NAME]
     python3 k3_ab.py --kernel K2 NAME=TREE[:LxG] [...] [--plain NAME] [--sass NAME]
     python3 k3_ab.py --kernel K1 NAME=TREE[:LxG] [...] [--plain NAME] [--sass NAME]
     python3 k3_ab.py --kernel K5 NAME=TREE[:LAYOUT] [...] [--plain NAME] [--sass NAME]
     python3 k3_ab.py --kernel K4 NAME=TREE[:LAYOUT] [...] [--plain NAME] [--sass NAME]
+    python3 k3_ab.py --kernel K3W NAME=TREE[:LAYOUT] [...] [--plain NAME]
+    python3 k3_ab.py --kernel K3-K3W NAME=TREE [...]
 
 Each TREE is a directory that holds the port's package (this checkout is
 "."; an earlier commit unpacked with ``git archive`` is another). The specs
@@ -96,6 +98,25 @@ at tier 1's grid, B = 1024) and K4_WIDE_SHAPES (the (32, 1) plant's h20
 state box at tier 1's grid, B = 2048); a tree without it has no layout
 there and reports them skipped (the K4 shape it skips). LAYOUT ``LxGw`` forces the wide route's
 lanes and row-groups (``w`` alone: the wide route at any shape).
+
+``--kernel K3W`` times K3W's sequential form (each tree's
+``csrc/riccati_wide.cu`` and, where the tree has it,
+``csrc/riccati_wide_seq.cu``, built into build/k3wab/) at K3W_SHAPES: the
+(64, 32) plant's h30 chunk at the riccati-wide-nx64 cell's B = 1024 and at
+a step's B = 1, the (32, 16) plant's h30 chunk at the riccati-wide-nx32
+cell's B = 2048, a bucket of 256 and B = 1, and the (40, 20) plant's h10
+state box at B = 77. LAYOUT forces ``riccati_fused.k3w_plan``'s route
+("shared", "device" or "global"), and in a tree whose plan takes them
+the ring and the lanes a block: ``ROUTE[/RING][xLANES]``. ``--plain NAME``
+holds that tree's outputs to the plain version and times it.
+
+``--kernel K3-K3W`` times K3 against K3W's sequential form in each tree
+(its whole library, as the package builds it) on the same inputs at
+AB_SHAPES, each of K3's register tiers at its widest plant (the QTP at h500
+and h50; the (8, 4), (16, 8) and (32, 16) plants at h30) and the batches the
+drivers launch (1 to 4096): the two kernels' times, whether their outputs
+are equal bit for bit, the faster one, and the one the tree's
+``riccati_fused.chunk_kernel`` routes the shape to.
 
 List a tree twice (first and last) to see the drift within the call. The
 last line is a JSON object of all records.
@@ -309,6 +330,24 @@ K5_WIDE_SHAPES = (
 K4_WIDE_SHAPES = (
     ("sc32x1-h20-tier1-B2048", 20, {"mpc_state_constraint": True}, "tier1", "wide32", 2048, 74),
 )
+# K3W's sequential form across trees: name, plant (nx, nu), horizon,
+# controller options, B, seed
+K3W_SHAPES = (
+    ("nx64-h30-B1024", (64, 32), 30, {}, 1024, 80),
+    ("nx64-h30-B1", (64, 32), 30, {}, 1, 81),
+    ("nx32-h30-B2048", (32, 16), 30, {}, 2048, 79),
+    ("nx32-h30-B256", (32, 16), 30, {}, 256, 78),
+    ("nx32-h30-B1", (32, 16), 30, {}, 1, 77),
+    ("nx40-h10-state-B77", (40, 20), 10, {"mpc_state_constraint": True}, 77, 82),
+)
+# K3 against K3W in one tree: name, plant (nx, nu), horizon, the batches
+AB_SHAPES = (
+    ("qtp-h500", (4, 2), 500, (1, 256, 1024)),
+    ("qtp-h50", (4, 2), 50, (1, 256, 1024, 4096)),
+    ("nx8-h30", (8, 4), 30, (1, 256, 1024)),
+    ("nx16-h30", (16, 8), 30, (1, 256, 1024)),
+    ("nx32-h30", (32, 16), 30, (1, 256, 2048)),
+)
 ADMM_KERNELS = {  # the sources each tree builds alone (those it has), and their C entries
     "K1": (("admm_diag.cu", "admm_diag_stream.cu"), ("admm_diag_chunk", "admm_diag_stream_chunk")),
     "K2": (("admm_mixed.cu", "admm_diag_stream.cu"),
@@ -320,6 +359,8 @@ ADMM_KERNELS = {  # the sources each tree builds alone (those it has), and their
     "K5": (("admm_perr.cu", "admm_dense.cu", "admm_perr_wide.cu"),
            ("admm_perr_chunk", "admm_perr_stream_chunk", "admm_dense_perr_chunk",
             "admm_perr_wide_chunk")),
+    "K3W": (("riccati_wide.cu", "riccati_wide_seq.cu"),
+            ("riccati_wide_chunk", "riccati_wide_seq_chunk")),
 }
 
 
@@ -331,7 +372,8 @@ def _admm_lib(tree, kernel):
 def build_admm(trees, kernel):
     """nvcc each tree's sources of the kernel (K1: csrc/admm_diag.cu, K2:
     csrc/admm_mixed.cu, K4 and K5: those of csrc/admm_perr.cu and
-    csrc/admm_dense.cu it has) into a library of its own, one nvcc per
+    csrc/admm_dense.cu it has, K3W: csrc/riccati_wide.cu and
+    csrc/riccati_wide_seq.cu) into a library of its own, one nvcc per
     tree, all at once, with this checkout's flags. Returns {tree: (seconds,
     report or None if it failed, error text)}."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import _build
@@ -535,11 +577,146 @@ def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
     print(f"{kernel}_AB " + json.dumps(records), flush=True)
 
 
+def _riccati_op(plant, N, kw, dev):
+    """The Riccati operator of the QTP ((4, 2): suite config 6's design) or
+    of ``big.random_stable_system(nx, nu, seed=0)`` (the wide cells'
+    design: Q 10, R 0.1) at horizon N, on the card."""
+    import numpy as np
+
+    from automationlabsmodelpredictivecontrol_jl_torch import proceed_controller
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import big, qtp
+    from automationlabsmodelpredictivecontrol_jl_torch.ops.riccati import RiccatiConfig
+
+    if plant == (4, 2):
+        return proceed_controller(
+            qtp.linearized_discrete_system(), "model_predictive_control", N, 5.0, [0.65] * 4,
+            [1.2] * 2, riccati_config=RiccatiConfig(max_iter=1000), device=dev,
+            engine="riccati", **kw).engine.op
+    nx, nu = plant
+    return proceed_controller(
+        big.random_stable_system(nx, nu, seed=0), "model_predictive_control", N, 1.0,
+        np.zeros(nx, np.float32), np.zeros(nu, np.float32), mpc_Q=10.0, mpc_R=0.1,
+        engine="riccati", device=dev, **kw).engine.op
+
+
+def _chunk_args(op, B, seed, dev):
+    """A 25-iteration chunk's seeded inputs: e0 of 0.1 N(0, 1), the state of
+    0.05 N(0, 1), the start rho."""
+    import numpy as np
+    import torch
+
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati
+
+    rng = np.random.default_rng(seed)
+    t = lambda *shape: torch.from_numpy(
+        (0.05 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+    N, nx, nu = op.N, op.nx, op.nu
+    e0T = 2.0 * t(nx, B)
+    ridx = torch.tensor([riccati._initial_ridx(op, riccati.RiccatiConfig())], dtype=torch.int32,
+                        device=dev)
+    return (op, ridx, e0T, riccati.ball_radius(op, e0T), t(N + 1, nx, B), t(N, nu, B),
+            t(N + 1, nx, B), t(N, nu, B), 25)
+
+
+def _k3w_layout(riccati_fused, op, B, layout):
+    """The keywords that force ``layout`` (ROUTE[/RING][xLANES]) on this
+    tree's k3w_plan, and the plan; an older tree takes the route alone."""
+    import inspect
+
+    route, _, rest = (layout or "").partition("/")
+    route, _, lanes = route.partition("x")
+    ring, _, lanes2 = rest.partition("x")
+    force = dict(route=route or None)
+    if "ring" in inspect.signature(riccati_fused.k3w_plan).parameters:
+        force.update(ring=int(ring) if ring else None,
+                     lanes=int(lanes or lanes2) if (lanes or lanes2) else None)
+    elif ring or lanes or lanes2:
+        raise ValueError("this tree's k3w_plan takes no forced ring or lanes")
+    return force, riccati_fused.k3w_plan(op, B, False, **force)
+
+
+def child_k3w(kernel, tree, layout, plain, shapes):
+    """K3W's sequential form of one tree at K3W_SHAPES (``kernel`` "K3W",
+    from the tree's build/k3wab library), or K3 against it at AB_SHAPES
+    ("K3-K3W", the tree's whole library); print one K3W_AB or K3-K3W_AB
+    line of records."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import ctypes
+
+    import torch
+
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import _build, riccati_fused
+
+    dev = torch.device("cuda", 0)
+    if kernel == "K3W":
+        lib = ctypes.CDLL(_admm_lib(tree, kernel))
+        for name in ADMM_KERNELS[kernel][1]:
+            if name in _build.SIGNATURES:
+                entry = getattr(lib, name)
+                entry.restype = ctypes.c_int
+                entry.argtypes = [_build._CTYPES[c] for c in _build.SIGNATURES[name]]
+        _build._lib = lib  # the wrappers launch from this library
+    else:
+        _build.load_kernels()
+    records = []
+    if kernel == "K3W":
+        for name, plant, N, kw, B, seed in K3W_SHAPES:
+            if shapes and name not in shapes:
+                continue
+            op = _riccati_op(plant, N, kw, dev)
+            args = _chunk_args(op, B, seed, dev)
+            rec = dict(shape=name, nx=op.nx, nu=op.nu, N=N, B=B)
+            try:
+                force, plan = _k3w_layout(riccati_fused, op, B, layout)
+            except ValueError as err:
+                records.append(dict(rec, skipped=str(err)))
+                continue
+            rec["plan"] = plan._asdict()
+            if "ring" in force:
+                fn = lambda plan=plan: riccati_fused._launch_k3w(*args, plan=plan)
+            else:
+                fn = lambda: riccati_fused._launch_k3w(*args, route=force["route"])
+            out = fn()
+            torch.cuda.synchronize()
+            rec["sha256"] = _digest(out)
+            if plain:
+                want = riccati_fused.iterate_chunk_riccati_plain(*args)
+                rec["equals_plain"] = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                                          for a, b in zip(out, want))
+                rec["plain_ms"] = _ms(lambda: riccati_fused.iterate_chunk_riccati_plain(*args), 1)
+            rec["ms"] = _ms(fn, 10)
+            records.append(rec)
+    else:
+        for name, plant, N, batches in AB_SHAPES:
+            if shapes and name not in shapes:
+                continue
+            op = _riccati_op(plant, N, {}, dev)
+            for i, B in enumerate(batches):
+                args = _chunk_args(op, B, 90 + i, dev)
+                k3 = lambda: riccati_fused._launch_k3(*args)
+                k3w = lambda: riccati_fused._launch_k3w(*args)
+                out3, outw = k3(), k3w()
+                torch.cuda.synchronize()
+                rec = dict(shape=name, nx=op.nx, nu=op.nu, N=N, B=B,
+                           k3_plan=riccati_fused.k3_plan(op, B)._asdict(),
+                           k3w_plan=riccati_fused.k3w_plan(op, B)._asdict(),
+                           equal=all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                                     for a, b in zip(out3, outw)))
+                rec["k3_ms"] = _ms(k3, 5)
+                rec["k3w_ms"] = _ms(k3w, 5)
+                rec["faster"] = "K3" if rec["k3_ms"] <= rec["k3w_ms"] else "K3W"
+                if hasattr(riccati_fused, "chunk_kernel"):
+                    rec["routed"] = riccati_fused.chunk_kernel(op)
+                records.append(rec)
+    print(f"{kernel}_AB " + json.dumps(records), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("specs", nargs="*",
                     help="NAME=TREE[:ROUTE] (K1, K2: NAME=TREE[:LxG]; K4, K5: NAME=TREE[:LAYOUT])")
-    ap.add_argument("--kernel", choices=("K3", "K2", "K1", "K5", "K4"), default="K3",
+    ap.add_argument("--kernel", choices=("K3", "K2", "K1", "K5", "K4", "K3W", "K3-K3W"),
+                    default="K3",
                     help="the kernel timed")
     ap.add_argument("--plain", default=None, help="the spec name whose outputs are held to the plain version")
     ap.add_argument("--sass", action="append", default=[], help="spec names whose K3 SASS is written out")
@@ -556,7 +733,9 @@ def main():
         tree, route = a.child
         args = (tree, None if route == "-" else route, a.child_plain, a.child_sass,
                 os.path.abspath(a.sass_dir), [s for s in a.shapes.split(",") if s])
-        if a.kernel in ADMM_KERNELS:
+        if a.kernel in ("K3W", "K3-K3W"):
+            child_k3w(a.kernel, *args[:3], args[5])
+        elif a.kernel in ADMM_KERNELS:
             child_admm(a.kernel, *args)
         else:
             child(*args)

@@ -53,18 +53,27 @@ def _c_params(entry):
 
 
 def test_k3w_entries_take_the_wrappers_arguments():
-    """riccati_wide_chunk's parameters are the ones _launch_k3w passes, in
-    its order: the factor stacks, the plant, the four doubling-level
-    arrays, the boxes and the lane state, the outputs and the scratch, then
-    the shape, the flags and k3w_plan's layout; the wide rollout and
-    certificate take K3's recurrences' tensors and their block's threads."""
+    """riccati_wide_chunk's (the doubling form's) and riccati_wide_seq_chunk's
+    (the sequential form's) parameters are the ones _launch_k3w passes, in
+    its order: the factor stacks, the plant, the doubling-level arrays or
+    the transposes K', G', A', B', the boxes and the lane state, the
+    outputs and the scratch, then the shape, the flags and k3w_plan's
+    layout; the wide rollout and certificate take K3's recurrences'
+    tensors and their block's threads."""
     params = _c_params("riccati_wide_chunk")
     sig = _build.SIGNATURES["riccati_wide_chunk"]
-    assert params[5:9] == ["bwdL", "bwdF", "fwdL", "fwdF"]
-    assert params[29] == "scratch"
+    assert params[:7] == ["Kf", "Gf", "Bm", "bwdL", "bwdF", "fwdL", "fwdF"]
+    assert params[27] == "scratch"
     assert [p for p, kind in zip(params, sig) if kind == "i"] == [
         "N", "nx", "nu", "B", "R", "L", "chunk", "split_interior", "split_terminal",
-        "terminal_ball", "doubling", "lanes", "lane_threads", "lane_floats", "smem_bytes"]
+        "terminal_ball", "lanes", "lane_threads", "lane_floats", "smem_bytes"]
+    params = _c_params("riccati_wide_seq_chunk")
+    sig = _build.SIGNATURES["riccati_wide_seq_chunk"]
+    assert params[:7] == ["K", "KT", "GT", "AmBK", "Bm", "AT", "BT"]
+    assert params[27] == "scratch"
+    assert [p for p, kind in zip(params, sig) if kind == "i"] == [
+        "N", "nx", "nu", "B", "R", "chunk", "split_interior", "split_terminal",
+        "terminal_ball", "lanes", "threads", "ring", "plant_shared", "route", "smem_bytes"]
     for entry, k3_entry in (("riccati_wide_rollout", "riccati_rollout"),
                             ("riccati_wide_certificate", "riccati_certificate")):
         wide, k3 = _c_params(entry), _c_params(k3_entry)
@@ -73,8 +82,9 @@ def test_k3w_entries_take_the_wrappers_arguments():
 
 
 def test_k3w_lane_floats_match_the_source():
-    """k3w_lane_floats is csrc/riccati_wide.cu's wide_lane_floats: the same
-    terms, read from the source, at several shapes and both forms."""
+    """k3w_lane_floats is csrc/riccati_wide.cu's wide_lane_floats (the
+    doubling form's lane scratch): the same terms, read from the source,
+    at several shapes."""
     import dataclasses
 
     from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati, riccati_fused
@@ -83,16 +93,45 @@ def test_k3w_lane_floats_match_the_source():
     body = text[text.index("wide_lane_floats(int N"):]
     body = body[:body.index("}")]
     assert "size_t f = 2 * n * u + 2 * static_cast<size_t>(xrows) * x + 2 * x;" in body
-    assert "f += doubling ? 2 * n * u + 2 * n * x : 2 * n * u + n * x + 3 * x + 3 * u;" in body
+    assert "f += 2 * n * u + 2 * n * x;" in body
     op0 = riccati.build_riccati_operator(
         [[0.9]], [[1.0]], [[1.0]], [[1.0]], [[1.0]], 3, [-1.0], [1.0], [-1.0], [1.0], True)
     for N, nx, nu, si in ((1, 1, 1, True), (30, 64, 32, False), (500, 4, 2, True)):
         op = dataclasses.replace(op0, N=N, nx=nx, nu=nu, split_interior=si)
         xrows = N if si else 1
-        for d in (0, 1):
-            f = 2 * N * nu + 2 * xrows * nx + 2 * nx
-            f += 2 * N * nu + 2 * N * nx if d else 2 * N * nu + N * nx + 3 * nx + 3 * nu
-            assert riccati_fused.k3w_lane_floats(op, bool(d)) == (f + 3) // 4 * 4
+        f = 2 * N * nu + 2 * xrows * nx + 2 * nx + 2 * N * nu + 2 * N * nx
+        assert riccati_fused.k3w_lane_floats(op) == (f + 3) // 4 * 4
+
+
+def test_k3w_seq_floats_match_the_source():
+    """k3w_seq_floats is csrc/riccati_wide_seq.cu's seq_layout: each region's
+    floats, read from the source (x = nx, u = nu, l = lanes), summed as the
+    plan sums them, at several shapes and layouts."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati_fused
+
+    text = open(os.path.join(_build.CSRC_DIR, "riccati_wide_seq.cu")).read()
+    body = text[text.index("inline SeqLayout seq_layout("):]
+    body = body[:body.index("return s;")]
+    regions = dict(re.findall(r"s\.(\w+) = o, o \+= ([^;]+);", body))
+    assert set(regions) == {"g", "lud", "e", "u", "s", "luf", "ae", "e0", "sc", "ring", "pb",
+                            "pat", "pbt"}
+    assert "s.slot = s.padk + pad4(x * x > u * u ? x * x : u * u);" in body
+    assert "o += (3 * static_cast<size_t>(N) * u + 2 * static_cast<size_t>(xrows) * x) * l;" in body
+    pad4 = lambda n: -(-n // 4) * 4
+    for N, x, u, xrows in ((1, 1, 1, 1), (30, 64, 32, 0), (30, 32, 16, 30), (7, 3, 7, 1)):
+        for l, ring, plant, state in ((4, 3, True, True), (16, 2, True, False),
+                                      (8, 0, False, False)):
+            slot = pad4(u * x) + pad4(max(x * x, u * u))
+            env = dict(x=x, u=u, l=l, pad4=pad4, plant_shared=plant, ring=ring,
+                       s=type("S", (), dict(slot=slot)))
+            sizes = {k: eval(v.replace("static_cast<size_t>(ring)", "ring").replace(
+                "plant_shared ? ", "(").replace(" : 0", ") if plant_shared else 0"), env)
+                for k, v in regions.items()}
+            work = sum(v for k, v in sizes.items() if k not in ("ring", "pb", "pat", "pbt"))
+            total = work + sum(sizes[k] for k in ("ring", "pb", "pat", "pbt"))
+            total += (3 * N * u + 2 * xrows * x) * l if state else 0
+            assert riccati_fused.k3w_seq_floats(N, x, u, xrows, l, ring, plant, state) == (
+                work, total)
 
 
 def test_k2_entry_takes_the_plan():

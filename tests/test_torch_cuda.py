@@ -1206,9 +1206,10 @@ def test_zoo_forward_and_jacobian_on_the_card(card, family):
 @pytest.mark.parametrize("B", [1, 256])
 def test_wide_riccati_plant_on_k3(card, B):
     """A Riccati controller on an (nx 32, nu 16) plant, K3's widest tier:
-    solve_batch_auto launches K3 and both recurrence kernels, runs no plain
-    version, and agrees with the same solve on the CPU; the rollout equals
-    its plain version at the tier."""
+    solve_batch_auto launches the chunk the routing table picks for the
+    tier at this batch (K3W; never K3) and K3's two recurrence kernels,
+    runs no plain version, and agrees with the same solve on the CPU; the
+    rollout equals its plain version at the tier."""
     from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import big
 
     design = lambda dev: proceed_controller(
@@ -1218,11 +1219,13 @@ def test_wide_riccati_plant_on_k3(card, B):
     ctrl, ctrl_cpu = design(card), design("cpu")
     rng = np.random.default_rng(B)
     x0 = torch.from_numpy(np.clip(0.4 * rng.standard_normal((B, 32)), -0.95, 0.95).astype(np.float32))
+    assert riccati_fused.chunk_kernel(ctrl.engine.op) == "K3W"
     launches, plain = dict(admm_fused.LAUNCHES), dict(admm_fused.PLAIN_CALLS)
     s_gpu, _, _, d_gpu = parallel.solve_batch_auto(ctrl, x0.to(card))
     torch.cuda.synchronize()
-    for key in ("K3", "rollout", "certificate"):
+    for key in ("K3W", "rollout", "certificate"):
         assert admm_fused.LAUNCHES[key] > launches[key], key
+    assert admm_fused.LAUNCHES["K3"] == launches["K3"]
     assert admm_fused.PLAIN_CALLS == plain
     s_cpu, _, _, d_cpu = parallel.solve_batch_auto(ctrl_cpu, x0)
     assert int(d_gpu.n_converged) == int(d_cpu.n_converged) == B
@@ -1268,6 +1271,66 @@ def test_k3w_matches_plain_version(card, doubling, branch, N, nx, nu, B, chunk, 
     shared and in device memory."""
     op = _synthetic_op(N, nx, nu, branch, card, seed=N + nx)
     _assert_k3w_equals_plain(_op_args(op, card, B, N + B) + (chunk,), doubling, route)
+
+
+# every layout of K3W's sequential form: (route, ring, lanes a block)
+K3W_SEQ_FORCED = [("shared", 3, None), ("shared", 2, 8), ("device", 3, None), ("device", 2, 4),
+                  ("device", 0, 32), ("global", 0, None), ("global", 0, 16)]
+
+
+@pytest.mark.parametrize("route,ring,lanes", K3W_SEQ_FORCED)
+@pytest.mark.parametrize("N,nx,nu,B", [(1, 4, 2, 5), (7, 5, 3, 77), (12, 32, 16, 130),
+                                        (6, 64, 32, 9), (3, 3, 7, 33)])
+@pytest.mark.parametrize("branch", list(RICCATI_BRANCHES))
+def test_k3w_sequential_layouts_match_plain_version(card, branch, N, nx, nu, B, route, ring,
+                                                    lanes):
+    """K3W's sequential form on every layout k3w_plan has (the lanes' state
+    in shared memory, in the outputs, or with the step's vectors in a
+    device scratch; rings of 3, 2 and no steps; the plant in and out of
+    shared memory), forced lanes a block and partial last blocks, at widths
+    whose rows are not multiples of 4 (4-byte copies) and nu > nx, on every
+    branch: equal to its plain version to the last bit."""
+    op = _synthetic_op(N, nx, nu, branch, card, seed=N + nx + nu)
+    args = _op_args(op, card, B, N + B + nu) + (3,)
+    try:
+        plan = riccati_fused.k3w_plan(op, B, False, route, lanes=lanes, ring=ring)
+    except ValueError:
+        pytest.skip(f"the layout does not fit N={N}, nx={nx}, nu={nu}")
+    assert plan.route == route and plan.ring == ring
+    launches = admm_fused.LAUNCHES["K3W"]
+    out_k = riccati_fused._launch_k3w(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert admm_fused.LAUNCHES["K3W"] == launches + 1
+    out_p = riccati_fused.iterate_chunk_riccati_plain(*args)
+    for name, a, b in zip(("X", "U", "vX", "vU", "lamX", "lamU"), out_k, out_p):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+
+
+@pytest.mark.parametrize("B", [2048, 256, 1])
+def test_k3w_at_its_plans_matches_plain_version_and_k3(card, B):
+    """K3W's sequential form at the (32, 16) plant's h30 shape as k3w_plan
+    lays it out for the riccati-wide-nx32 cell's B = 2048, 256 and 1: equal
+    to its plain version and to K3 on the same inputs, bit for bit; and at
+    (64, 32) h30, B = 1024 (the nx64 cell) to its plain version."""
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import big
+
+    c = proceed_controller(
+        big.random_stable_system(32, 16, seed=0), "model_predictive_control", 30, 1.0,
+        np.zeros(32, np.float32), np.zeros(16, np.float32), mpc_Q=10.0, mpc_R=0.1,
+        engine="riccati", device=card)
+    args = _op_args(c.engine.op, card, B, B) + (25,)
+    out_w = riccati_fused._launch_k3w(*args)
+    out_3 = riccati_fused._launch_k3(*args)
+    out_p = riccati_fused.iterate_chunk_riccati_plain(*args)
+    torch.cuda.synchronize()
+    for name, w, k3, p in zip(("X", "U", "vX", "vU", "lamX", "lamU"), out_w, out_3, out_p):
+        assert bool(torch.isfinite(w).all()), name
+        assert torch.equal(w.view(torch.int32), p.view(torch.int32)), name
+        assert torch.equal(w.view(torch.int32), k3.view(torch.int32)), name
+    if B == 256:
+        op = _synthetic_op(30, 64, 32, "none", card, seed=64)
+        _assert_k3w_equals_plain(_op_args(op, card, 1024, 5) + (25,), False)
 
 
 def _assert_wide_recurrences_equal_plain(op, dev, B, seed):

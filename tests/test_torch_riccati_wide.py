@@ -1,9 +1,12 @@
-"""A Riccati controller on a wide plant (nx 32, nu 16): K3's (32, 16)
+"""A Riccati controller on a wide plant (nx 32, nu 16), K3's widest
 register tier, port against the JAX package.
 
 The plant is ``big.random_stable_system(32, 16, seed=0)``, the wide row of
 the JAX package's extra benchmarks (h30 there; h8-h10 here), designed with
-``engine="riccati"``. On the CPU the port runs K3's plain version, which
+``engine="riccati"``. The drivers run its chunk on the kernel
+``riccati_fused.CHUNK_ROUTES`` picks for the tier, K3W at every batch (K3
+and K3W share one plain version, counted under the kernel's name). On the
+CPU the port runs that plain version, which
 sums in fp64 where XLA sums in fp32, so solutions are held within 1e-4
 (``tests/test_torch_riccati_engine.py``'s TOL) and statuses lane by lane.
 The fused driver adapts rho for the whole batch where the JAX engine it is
@@ -69,14 +72,19 @@ def _x0s(seed, n=B):
 
 @pytest.mark.parametrize("cell", ["h8", "h10", "h8-state"])
 def test_solve_batch_auto_on_k3(wide, cell):
-    """solve_batch_auto takes the wide plant on K3 (its plain version here)
-    and agrees with the JAX package's solve_batch_auto."""
+    """solve_batch_auto takes the wide plant on the chunk the routing table
+    picks for the (32, 16) tier at this batch, K3W (its plain version
+    here; never K3's), with K3's rollout and certificate, and agrees with
+    the JAX package's solve_batch_auto."""
     jc, tc = wide[cell]
     assert tpar.fused_supported(tc)
+    assert riccati_fused.chunk_kernel(tc.engine.op) == "K3W"
     x0 = _x0s(1)
     admm_fused.reset_counts()
     ts, twz, _, td = tpar.solve_batch_auto(tc, torch.from_numpy(x0))
-    assert admm_fused.PLAIN_CALLS["K3"] > 0
+    plain = admm_fused.PLAIN_CALLS
+    assert plain["K3W"] > 0 and plain["K3"] == 0, plain
+    assert plain["rollout"] > 0 and plain["certificate"] > 0, plain
     js, _, _, jd = jpar.solve_batch_auto(jc, jnp.asarray(x0))
     np.testing.assert_array_equal(ts.status.numpy(), np.asarray(js.status))
     assert int(td.n_converged) == int(jd.n_converged) == B
@@ -86,8 +94,8 @@ def test_solve_batch_auto_on_k3(wide, cell):
 
 
 def test_solve_batch_per_lane(wide):
-    """parallel.solve_batch: the per-lane engine on K3 against the JAX
-    package's vmapped engine, counts included."""
+    """parallel.solve_batch: the per-lane engine on the routed chunk (K3W)
+    against the JAX package's vmapped engine, counts included."""
     jc, tc = wide["h8"]
     x0 = _x0s(2)
     ts, _, _, _ = tpar.solve_batch(tc, torch.from_numpy(x0))
