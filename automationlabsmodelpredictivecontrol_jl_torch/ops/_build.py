@@ -114,8 +114,8 @@ def build_kernels(force: bool = False) -> str:
 SIGNATURES = {
     "admm_diag_chunk": "p" * 17 + "i" * 10 + "ff" + "p",
     "admm_mixed_chunk": "p" * 18 + "i" * 12 + "ff" + "p",
-    "admm_diag_stream_chunk": "p" * 18 + "i" * 10 + "ff" + "p",
-    "admm_mixed_stream_chunk": "p" * 20 + "i" * 11 + "ff" + "p",
+    "admm_diag_stream_chunk": "p" * 19 + "i" * 11 + "ff" + "p",
+    "admm_mixed_stream_chunk": "p" * 21 + "i" * 12 + "ff" + "p",
     "admm_perr_chunk": "p" * 17 + "i" * 12 + "ff" + "p",
     "admm_perr_stream_chunk": "p" * 19 + "i" * 13 + "ff" + "p",
     "admm_packed_chunk": "p" * 18 + "i" * 12 + "ff" + "p",

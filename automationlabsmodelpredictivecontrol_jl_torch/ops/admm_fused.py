@@ -88,14 +88,26 @@ MAX_WIDE_N = 1024
 MAX_WIDE_ROWS = 4096
 WIDE_LANES = (32, 16, 8, 4, 2, 1)
 # K1's and K2's stream route (csrc/admm_diag_stream.cu): the widest n and
-# K2's longest tail, the rows a thread takes in each tile of a product, the
+# K2's longest tail; the rows a thread takes in each tile of a product, the
 # most threads a block and the registers a thread is held to (its
-# __launch_bounds__)
+# __launch_bounds__), on the stream routes of K4 and K5 and their wide
+# route (csrc/admm_perr.cu, csrc/admm_perr_wide.cu) and on K1's and K2's
+# (K12_PASS_ROWS, or 8 in K1's blocks of 4 lanes a thread: k12_rows_options;
+# K12_STREAM_THREADS, K12_STREAM_REGISTERS); the lanes a block of K1's and
+# K2's takes, from how many a thread takes 4 lanes and 2 (1 below), and
+# the 16-byte chunks of a streamed panel a thread stages in registers
 MAX_STREAM_N = 1024
 MAX_STREAM_TAIL = 1024
 STREAM_ROWS = 4
 STREAM_THREADS = 512
 STREAM_REGISTERS = 128
+K12_PASS_ROWS = 4
+K12_STREAM_THREADS = 256
+K12_STREAM_REGISTERS = 256
+K12_STREAM_LANES = (64, 32, 16, 8, 4)
+K12_WIDE_LANES = 32
+K12_MID_LANES = 16
+K12_STREAM_STAGE = 8
 # one SM of the card: its SM count, shared memory (of which the runtime
 # keeps 1 KB per resident block), registers, threads and resident blocks
 SM_COUNT = 132
@@ -141,8 +153,8 @@ K1_INSTANCES = {1: (512, 45, 57), 2: (512, 70, 80), 3: (512, 94, 108), 4: (512, 
 # (admm_diag_stream_chunk)
 K1_INTS = ("n", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups", "rpt",
            "smem_bytes")
-K1_STREAM_INTS = ("n", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups", "panel",
-                  "smem_bytes")
+K1_STREAM_INTS = ("n", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups", "rpt",
+                  "panel", "smem_bytes")
 # "shared": admm_diag_chunk / admm_mixed_chunk, every rho's fp64 operators in
 # one block's shared memory; "stream": admm_diag_stream_chunk /
 # admm_mixed_stream_chunk (csrc/admm_diag_stream.cu), lanes grouped by rho
@@ -268,8 +280,8 @@ def k1_plan(n: int, R: int, refine_steps: int, B: int,
             + f": K1 takes n <= {MAX_N} with every rho's operators in a block's "
             f"{SMEM_LIMIT} B of shared memory, or n <= {MAX_STREAM_N} on its stream route"
         )
-    L, G, smem, per_sm, panel = stream
-    return K1Plan(L, G, STREAM_ROWS, -(-B // L) + R, smem, per_sm, "stream", panel)
+    L, G, rows, smem, per_sm, panel = stream
+    return K1Plan(L, G, rows, -(-B // L) + R, smem, per_sm, "stream", panel)
 
 
 def k1_fits(n: int, R: int, refine_steps: int) -> bool:
@@ -288,7 +300,7 @@ K2_RPT_T = (1, 2, 3, 4, 5, 6, 8)
 K2_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups", "rpt_n",
            "rpt_t", "smem_bytes")
 K2_STREAM_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups",
-                  "panel", "smem_bytes")
+                  "rpt_n", "panel", "smem_bytes")
 
 
 class K2Plan(NamedTuple):
@@ -404,8 +416,8 @@ def k2_plan(n: int, m: int, R: int, refine_steps: int, B: int,
             f"operators in a block's {SMEM_LIMIT} B of shared memory, or n <= {MAX_STREAM_N} "
             f"and 1 to {MAX_STREAM_TAIL} dense rows on its stream route"
         )
-    L, G, smem, _, panel = stream
-    return K2Plan(L, G, STREAM_ROWS, STREAM_ROWS, -(-B // L) + R, smem, "stream", panel)
+    L, G, rows, smem, _, panel = stream
+    return K2Plan(L, G, rows, rows, -(-B // L) + R, smem, "stream", panel)
 
 
 def k2_fits(n: int, m: int, R: int, refine_steps: int) -> bool:
@@ -417,29 +429,69 @@ def k2_fits(n: int, m: int, R: int, refine_steps: int) -> bool:
                       or bool(_k12_stream_layouts(n, m - n, int(refine_steps))))
 
 
-# K1's and K2's stream route, for ranking its layouts, in lane reads of a
-# panel entry (32 a clock at 1980 MHz): one double's copy from L2 into a
+# K4's and K5's wide route ranks its layouts (_wide_cost) in lane reads of
+# a panel entry (32 a clock at 1980 MHz): one double's copy from L2 into a
 # panel costs about 12 (the copies and the reads of K5's stream route at
 # the h50 state box, PERF.md); a panel's wait when its copy takes longer
 # than the other panel's products, about 0.6 us; and each streamed panel's
 # two barriers and copy issue, fit to k3_ab.py --kernel K1 at n = 100, R =
-# 5, B = 4096 (H100, PERF.md section 6: the resident 16 x 26 layout ran
-# 1.063 ms a chunk, the streamed 32 x 13 1.196, which the reads and copies
-# alone rank equal)
+# 5, B = 4096 on K1's first stream route (H100, PERF.md section 6: the
+# resident 16 x 26 layout ran 1.063 ms a chunk, the streamed 32 x 13
+# 1.196, which the reads and copies alone rank equal)
 STREAM_COPY_COST = 12
 STREAM_LATENCY = 40000
 STREAM_STEP = 20000
 
+# K1's and K2's stream route ranks its layouts (_k12_stream_cost) in clocks
+# of one SM: the fp64 multiply-adds it starts a clock, the clocks a warp's
+# 16-byte shared-memory load takes (scripts/fp64_rate_probe.py: a 4 x 4
+# register tile fed so runs 32 multiply-adds a clock, 8 x 4 42) and the
+# warps it needs resident to keep its pipes fed; the card's L2 rate in
+# bytes a clock (about 2 TB/s at 1980 MHz, the rate the wide route's copies
+# reach, PERF.md), shared by the blocks a launch keeps busy, and one SM's
+# most; a streamed panel's barrier and staging; a tile's epilogue (its
+# state's round trips to L2). The last two are fit to 14 layouts forced
+# by k3_ab.py --kernel K1 and K2 on the H100 (PERF.md section 6): the
+# model's times lie within about 20% of theirs and rank each shape's
+# fastest first.
+K12_FMA_PER_CLOCK = 64
+K12_LOAD_CLOCKS = 4
+K12_WARPS = 8
+K12_L2_BYTES_PER_CLOCK = 1000
+K12_SM_L2_BYTES_PER_CLOCK = 64
+K12_PANEL_CLOCKS = 3000
+K12_TILE_CLOCKS = 1500
 
-def k12_stream_smem_bytes(n: int, ms: int, refine_steps: int, lanes: int, panel: int) -> int:
+
+def k12_lanes_per_thread(lanes: int) -> int:
+    """The lanes a thread of K1's and K2's stream route takes
+    (csrc/admm_diag_stream.cu, lanes_per_thread): 4 in a block of at least
+    ``K12_WIDE_LANES`` lanes, 2 in one of ``K12_MID_LANES``, 1 in a smaller
+    one."""
+    return 4 if lanes >= K12_WIDE_LANES else 2 if lanes >= K12_MID_LANES else 1
+
+
+def k12_rows_options(lanes: int, tail: bool) -> tuple:
+    """The rows a thread of K1's (``tail`` false) or K2's stream route may
+    take in each tile of its products but K2's A2' pass, which takes
+    ``K12_PASS_ROWS`` (csrc/admm_diag_stream.cu, rows_fit): 4, or 8 in
+    K1's blocks of 4 lanes a thread."""
+    if k12_lanes_per_thread(lanes) == 4 and not tail:
+        return (K12_PASS_ROWS, 2 * K12_PASS_ROWS)
+    return (K12_PASS_ROWS,)
+
+
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def k12_stream_smem_bytes(n: int, ms: int, lanes: int, panel: int) -> int:
     """Dynamic shared memory of one block of K1's (ms = 0) or K2's stream
     route (csrc/admm_diag_stream.cu): two operator panels of ``panel``
     doubles; the box rows' two lane buffers and K2's tail rows' two, fp64,
-    of ``lanes`` lanes, their rows rounded up to pairs; and when refining,
-    rhs and xt in fp32."""
+    of ``lanes`` lanes, their rows rounded up to pairs."""
     nslots, tslots = (n + 1) & ~1, (ms + 1) & ~1
-    refine = 8 * n * lanes if refine_steps > 0 else 0
-    return 8 * (2 * panel + 2 * (nslots + tslots) * lanes) + refine
+    return 8 * (2 * panel + 2 * (nslots + tslots) * lanes)
 
 
 def _full_stride(ld: int) -> int:
@@ -450,9 +502,10 @@ def _full_stride(ld: int) -> int:
 
 def _k12_resident_doubles(n: int, ms: int, refine_steps: int) -> int:
     """The doubles one rho's operators take whole in shared memory on K1's
-    and K2's stream route: K^-1, K when refining, and for K2 A2' and A2."""
-    fn = _full_stride(n + (n & 1))
-    ft = _full_stride(ms + (ms & 1)) if ms else 0
+    and K2's stream route, widened to 8-byte entries, rows of 4-entry
+    chunks: K^-1, K when refining, and for K2 A2' and A2."""
+    fn = _full_stride(_round4(n))
+    ft = _full_stride(_round4(ms)) if ms else 0
     return n * fn * (2 if refine_steps > 0 else 1) + n * ft + ms * fn
 
 
@@ -469,94 +522,161 @@ class K12StreamLayout(NamedTuple):
     pt: int
 
 
-def k12_stream_layout(n: int, ms: int, refine_steps: int, groups: int,
-                      panel: int) -> Optional[K12StreamLayout]:
+def k12_stream_layout(n: int, ms: int, refine_steps: int, lanes: int, groups: int,
+                      rows: int, panel: int) -> Optional[K12StreamLayout]:
     """The layout the C entry derives from a plan (csrc/admm_diag_stream.cu,
     make_layout): resident where every operator fits the two panels whole,
-    else panels of 4 ``groups`` rows; None where a panel holds fewer than 2
-    columns."""
-    ldn, ldm = n + (n & 1), ms + (ms & 1)
+    else panels of a tile's rows (``rows`` ``groups``, ``K12_PASS_ROWS``
+    ``groups`` for K2's A2') and at most the columns the block's threads
+    stage (``K12_STREAM_STAGE`` chunks of 4 a thread); None where a panel
+    holds fewer than 4 columns."""
+    ldn, ldm = _round4(n), _round4(ms)
     if _k12_resident_doubles(n, ms, refine_steps) <= 2 * panel:
         return K12StreamLayout(True, _full_stride(ldn), ldn, _full_stride(ldm) if ms else 0, ldm)
-    H = STREAM_ROWS * groups
-    sn = _panel_stride(panel, H, ldn)
-    st = _panel_stride(panel, H, ldm) if ms else 0
-    if sn == 0 or (ms and st == 0):
+    capt = K12_STREAM_STAGE * (lanes // k12_lanes_per_thread(lanes))
+    sn = _panel_stride(panel, rows * groups, min(ldn, capt * K12_PASS_ROWS // rows))
+    st = _panel_stride(panel, K12_PASS_ROWS * groups, min(ldm, capt)) if ms else 0
+    pn, pt = sn - 2, (st - 2 if ms else 0)
+    if pn < 4 or (ms and pt < 4):
         return None
-    return K12StreamLayout(False, sn, min(sn, ldn), st, min(st, ldm))
+    return K12StreamLayout(False, sn, pn, st, pt)
 
 
 @functools.lru_cache(maxsize=256)
 def _k12_stream_layouts(n: int, ms: int, refine_steps: int) -> tuple:
-    """Every (lanes, groups, smem_bytes, per_sm, panel) of K1's (ms = 0) or
-    K2's stream route for this operator shape: whole warps of at most 512
-    threads, tiles of 4 groups rows no taller than the rows need, the
+    """Every (lanes, groups, rows, smem_bytes, per_sm, panel) of K1's (ms =
+    0) or K2's stream route for this operator shape: lanes of
+    ``K12_STREAM_LANES``, whole warps of at most 256 threads (a thread
+    takes :func:`k12_lanes_per_thread` lanes and the rows of
+    :func:`k12_rows_options`), tiles no taller than the rows need, the
     largest panel that fits beside the lane buffers with one or with two
-    blocks an SM, up to what the operators can use (all of one rho's
-    operators whole, or whole rows of a tile), and at least 8 columns of a
-    tile."""
+    blocks an SM, up to what
+    the operators can use (all of one rho's operators whole, or whole rows
+    of a tile up to the columns the threads stage), and a panel of at
+    least 8 columns of a tile, or whole rows."""
     if not (1 <= n <= MAX_STREAM_N and 0 <= ms <= MAX_STREAM_TAIL):
         return ()
     rows = max(n, ms)
-    ld = max(n + (n & 1), ms + (ms & 1))
+    ldn, ldm = _round4(n), _round4(ms)
     whole = _k12_resident_doubles(n, ms, refine_steps)
+    wide_enough = lambda cols, ld: cols >= min(8, ld)
     out = []
-    for lanes in LANES:
-        step = max(1, 32 // lanes)
-        fixed = k12_stream_smem_bytes(n, ms, refine_steps, lanes, 0)
-        for groups in range(step, STREAM_THREADS // lanes + 1, step):
-            H = STREAM_ROWS * groups
-            if H - STREAM_ROWS * step >= rows:
-                break  # fewer groups cover the rows in one tile
-            most = max(-(-whole // 2), H * (ld + 2))
-            most += most & 1
-            panels = set()
-            for per in (1, 2):  # the largest panel with `per` blocks an SM
-                room = min(SMEM_LIMIT, SM_SMEM // per - SM_SMEM_PER_BLOCK) - fixed
-                panels.add(min(most, max(room, 0) // 16) & ~1)
-            for panel in sorted(panels, reverse=True):
-                if panel < 8 * H and 2 * panel < whole:
-                    continue
-                if k12_stream_layout(n, ms, refine_steps, groups, panel) is None:
-                    continue
-                smem = k12_stream_smem_bytes(n, ms, refine_steps, lanes, panel)
-                per_sm = blocks_per_sm(lanes * groups, smem, STREAM_REGISTERS)
-                out.append((lanes, groups, smem, per_sm, panel))
+    for lanes in K12_STREAM_LANES:
+        lg = lanes // k12_lanes_per_thread(lanes)
+        capt = K12_STREAM_STAGE * lg
+        step = max(1, 32 // lg)
+        fixed = k12_stream_smem_bytes(n, ms, lanes, 0)
+        for rt in k12_rows_options(lanes, ms > 0):
+            for groups in range(step, K12_STREAM_THREADS // lg + 1, step):
+                if rt * (groups - step) >= rows:
+                    break  # fewer groups cover the rows in one tile
+                most = max(-(-whole // 2),
+                           rt * groups * (min(ldn, capt * K12_PASS_ROWS // rt) + 2),
+                           K12_PASS_ROWS * groups * (min(ldm, capt) + 2) if ms else 0)
+                most += most & 1
+                panels = set()
+                for per in (1, 2):  # the largest panel with `per` blocks an SM
+                    room = min(SMEM_LIMIT, SM_SMEM // per - SM_SMEM_PER_BLOCK) - fixed
+                    panels.add(min(most, max(room, 0) // 16) & ~1)
+                for panel in sorted(panels, reverse=True):
+                    lay = (k12_stream_layout(n, ms, refine_steps, lanes, groups, rt, panel)
+                           if panel else None)
+                    if lay is None or not (lay.resident or (
+                            wide_enough(lay.pn, ldn) and (not ms or wide_enough(lay.pt, ldm)))):
+                        continue
+                    smem = k12_stream_smem_bytes(n, ms, lanes, panel)
+                    per_sm = blocks_per_sm(lg * groups, smem, K12_STREAM_REGISTERS)
+                    out.append((lanes, groups, rt, smem, per_sm, panel))
     return tuple(out)
 
 
-def _k12_stream_cost(n: int, ms: int, R: int, refine_steps: int, B: int, lanes: int,
-                     groups: int, per_sm: int, panel: int) -> float:
-    """The stream route's cost of a layout, for ranking: the busiest SM's
-    blocks (each rho index's partial last one counted), each taking per
-    iteration its products' panels in turn. A panel's products read per
-    lane an operator entry per multiply-add of the tile's rows (padded ones
-    included) and the lane's vectors once per 4 rows, with
-    :func:`_warp_cost`'s penalty below 7 resident warps; unless the
-    operators are resident, a panel takes at least its copy from L2
-    (``STREAM_COPY_COST`` a double) and the wait for it
-    (``STREAM_LATENCY``, shared by the blocks an SM runs at once), and
-    ``STREAM_STEP`` more."""
-    lay = k12_stream_layout(n, ms, refine_steps, groups, panel)
-    H = STREAM_ROWS * groups
-    products = [(n, n, lay.pn, 1)] * (1 + 2 * int(refine_steps))
+def k12_scratch_floats(n: int, m: int, refine_steps: int, blocks: int, lanes: int) -> int:
+    """The device scratch of one K1 (m = n) or K2 launch on the stream route
+    (csrc/admm_diag_stream.cu): a column per block and lane of the lanes'
+    working copy (x and q, n rows each; s, y, ax, l and u, m rows each) and,
+    when refining, of the refinement's rhs and xt (n rows each)."""
+    return (2 * n + 5 * m + (2 * n if refine_steps > 0 else 0)) * blocks * lanes
+
+
+def k12_blocks_used(R: int, B: int, lanes: int) -> int:
+    """The blocks of ``lanes`` lanes that a batch of B lanes spread evenly
+    over R rho indices fills (the grid has R more than B needs, one partial
+    block per index; the rest return at once)."""
+    held = min(R, B)
+    return min(-(-B // lanes) + R, held * -(-B // (held * lanes)))
+
+
+def _k12_products(n: int, ms: int, refine_steps: int, rt: int,
+                  lay: K12StreamLayout) -> list:
+    """(rows, columns, a panel's columns, vectors, rows a thread) of each
+    product of one iteration of K1's (ms = 0) or K2's stream route at
+    ``rt`` rows a thread: the K-solves and products, K2's A2' pass (two
+    vectors) and A2 xt."""
+    products = [(n, n, lay.pn, 1, rt)] * (1 + 2 * int(refine_steps))
     if ms:
-        products += [(n, ms, lay.pt, 2), (ms, n, lay.pn, 1)]
-    blocks = -(-B // lanes) + R
-    used = min(blocks, (B + R * (lanes - 1)) // lanes)
+        products += [(n, ms, lay.pt, 2, K12_PASS_ROWS), (ms, n, lay.pn, 1, rt)]
+    return products
+
+
+def k12_stream_l2_bytes(n: int, ms: int, R: int, refine_steps: int, B: int, lanes: int,
+                        groups: int, rows: int, panel: int, chunk: int) -> int:
+    """The operator bytes one chunk of ``chunk`` iterations of K1's (ms =
+    0) or K2's stream route reads from L2 on this layout: each block one
+    rho's operators as 4-byte entries, rows padded to 4 (K^-1 for every
+    solve, K for every refinement, K2's A2' and A2), every iteration where
+    they are streamed, once a chunk where they are resident, over the
+    blocks B lanes spread evenly over R rho indices fill
+    (:func:`k12_blocks_used`)."""
+    lay = k12_stream_layout(n, ms, refine_steps, lanes, groups, rows, panel)
+    ldn, ldm = _round4(n), _round4(ms)
+    if lay.resident:
+        entries = (2 if refine_steps > 0 else 1) * n * ldn + n * ldm + ms * ldn
+    else:
+        entries = sum(r * _round4(cols) for r, cols, _, _, _ in
+                      _k12_products(n, ms, refine_steps, rows, lay))
+        entries *= chunk
+    return 4 * entries * k12_blocks_used(R, B, lanes)
+
+
+def _k12_stream_cost(n: int, ms: int, R: int, refine_steps: int, B: int, lanes: int,
+                     groups: int, rows: int, per_sm: int, panel: int) -> float:
+    """The stream route's cost of a layout, for ranking: clocks of the
+    busiest SM per iteration. Its blocks each take their products' tiles
+    and panels in turn. A warp's two columns of a tile cost the larger of
+    its fp64 multiply-adds (its rows x lanes x the vectors, 64 a clock on
+    the SM) and its 16-byte shared-memory loads (a row's operator entries,
+    a lane's vector entries, ``K12_LOAD_CLOCKS`` each), padded rows
+    included, times ``K12_WARPS`` over the warps resident where fewer; a
+    streamed panel takes at least its copy from L2 (4 bytes an entry, the
+    card's rate shared by the blocks at work) and ``K12_PANEL_CLOCKS``
+    more, a resident product one such step; each tile's epilogue
+    ``K12_TILE_CLOCKS``."""
+    lay = k12_stream_layout(n, ms, refine_steps, lanes, groups, rows, panel)
+    lt = k12_lanes_per_thread(lanes)
+    lg = lanes // lt
+    used = k12_blocks_used(R, B, lanes)
     busiest = -(-used // SM_COUNT)
     at_once = min(per_sm, busiest)
-    penalty = max(1.0, 7 / (at_once * lanes * groups / 32))
+    l2 = min(K12_SM_L2_BYTES_PER_CLOCK, K12_L2_BYTES_PER_CLOCK / min(used, SM_COUNT * at_once))
+    warps = lg * groups / 32
+    slow = max(1.0, K12_WARPS / (at_once * warps))
     cost = 0.0
-    for rows, cols, pk, vectors in products:
-        panels = -(-rows // H) * -(-cols // pk)
-        width = cols / -(-cols // pk)
-        reads = lanes * H * width * (1 + vectors / STREAM_ROWS) * penalty
+    for height_all, cols, pk, vectors, rt in _k12_products(n, ms, refine_steps, rows, lay):
+        pair = max(2 * rt * lt * vectors * 32 / K12_FMA_PER_CLOCK,
+                   K12_LOAD_CLOCKS * (rt + lt * vectors))
+        H = rt * groups
+        tiles = -(-height_all // H)
+        cost += tiles * K12_TILE_CLOCKS
         if lay.resident:
-            cost += panels * reads
-        else:
-            copy = STREAM_COPY_COST * H * width + STREAM_LATENCY / at_once
-            cost += panels * (max(reads, copy) + STREAM_STEP)
+            cost += tiles * -(-cols // 2) * warps * pair * slow + K12_PANEL_CLOCKS
+            continue
+        for tile in range(tiles):
+            height = min(H, height_all - tile * H)
+            for c0 in range(0, cols, pk):
+                width = min(pk, cols - c0)
+                compute = -(-width // 2) * warps * pair * slow
+                copy = height * _round4(width) * 4 / l2
+                cost += max(compute, copy) + K12_PANEL_CLOCKS
     return busiest * cost
 
 
@@ -564,17 +684,18 @@ def _k12_stream_cost(n: int, ms: int, R: int, refine_steps: int, B: int, lanes: 
 def k12_stream_plan(n: int, ms: int, R: int, refine_steps: int, B: int,
                     lanes: Optional[int] = None,
                     groups: Optional[int] = None) -> Optional[tuple]:
-    """The (lanes, groups, smem_bytes, per_sm, panel) of the cheapest
+    """The (lanes, groups, rows, smem_bytes, per_sm, panel) of the cheapest
     layout of K1's (ms = 0) or K2's stream route for ``B`` lanes
     (:func:`_k12_stream_cost`; ties go to more lanes a block), or None
     where none fits. ``lanes`` and ``groups`` force a layout."""
     best = None
-    for L, G, smem, per_sm, panel in _k12_stream_layouts(n, ms, int(refine_steps)):
+    for L, G, rt, smem, per_sm, panel in _k12_stream_layouts(n, ms, int(refine_steps)):
         if lanes not in (None, L) or groups not in (None, G):
             continue
-        key = (_k12_stream_cost(n, ms, R, refine_steps, B, L, G, per_sm, panel), -L, -panel)
+        cost = _k12_stream_cost(n, ms, R, refine_steps, B, L, G, rt, per_sm, panel)
+        key = (cost, -L, -panel, rt)
         if best is None or key < best[0]:
-            best = (key, (L, G, smem, per_sm, panel))
+            best = (key, (L, G, rt, smem, per_sm, panel))
     return None if best is None else best[1]
 
 
@@ -1544,38 +1665,42 @@ def _launch_k2(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
 def _launch_k12_stream(tail, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan):
     """K1 (``tail`` false: admm_diag_stream_chunk) or K2
     (admm_mixed_stream_chunk) on the stream route, with the lanes ordered
-    by rho index and the operators of :func:`kernel_operators`."""
+    by rho index, the 4-byte operators of :func:`kernel_operators` and a
+    scratch for the blocks' working copy of their lanes' state
+    (:func:`k12_scratch_floats`)."""
     name = "K2" if tail else "K1"
     n, B = qT.shape
     m = lT.shape[0]
     R = int(op.rho_grid.shape[0])
     rs = int(config.refine_steps)
     mode = kernel_mode(config)
-    ops = kernel_operators(op, mode, "kinv", "k", *(("a2t", "a2") if tail else ()))
-    ldn, ldm = n + (n & 1), (m - n) + ((m - n) & 1)
-    shape = lambda *dims: dims if mode == "highest" else dims + (2,)
+    ops = kernel_operators(op, mode, "kinv", "k", *(("a2t", "a2") if tail else ()), narrow=True)
+    ldn, ldm = _round4(n), _round4(m - n)
     f, i32 = torch.float32, torch.int32
-    dt = torch.float64 if mode == "highest" else f
-    order, starts = rho_order(idx, R)
-    args = [("K_invs (entries)", ops["kinv"], shape(R, n, ldn), dt),
-            ("Ks (entries)", ops["k"], shape(R, n, ldn), dt)]
+    operators = [("K_invs (entries)", ops["kinv"], (R, n, ldn), f),
+                 ("Ks (entries)", ops["k"], (R, n, ldn), f)]
     if tail:
-        args += [("A2' (entries)", ops["a2t"], shape(n, ldm), dt),
-                 ("A2 (entries)", ops["a2"], shape(m - n, ldn), dt)]
-    state = _state_args(n, m, B, qT, lT, uT, idx, xT, sT, yT, axT)
-    args += [
+        operators += [("A2' (entries)", ops["a2t"], (n, ldm), f),
+                      ("A2 (entries)", ops["a2"], (m - n, ldn), f)]
+    operators += [
         ("diag(A_s[:n])", torch.diagonal(op.A_s[:n, :n]).contiguous(), (n,), f),
         ("rho_vecs", op.rho_vecs, (R, m), f),
         ("rho_invs", op.rho_invs, (R, m), f),
-    ] + state[:3] + [("order", order, (B,), i32), ("starts", starts, (R + 1,), i32)] + state[4:]
+    ]
+    state = _state_args(n, m, B, qT, lT, uT, idx, xT, sT, yT, axT)
+    order, starts = rho_order(idx, R)
+    args = operators + state[:3] + [("order", order, (B,), i32),
+                                    ("starts", starts, (R + 1,), i32)] + state[4:]
     _check_args(name, args, qT.device)
     outs = [torch.empty_like(xT)] + [torch.empty_like(sT) for _ in range(3)]
+    scratch = torch.empty(k12_scratch_floats(n, m, rs, plan.blocks, plan.lanes), dtype=f,
+                          device=qT.device)
     ints = dict(n=n, m=m, B=B, R=R, chunk=int(chunk), refine_steps=rs,
                 mode=PRECISIONS.index(mode), **plan._asdict())
     keys, entry = ((K2_STREAM_INTS, "admm_mixed_stream_chunk") if tail
                    else (K1_STREAM_INTS, "admm_diag_stream_chunk"))
-    return _launch(_count_key(name, mode), entry, args, outs, [ints[k] for k in keys],
-                   (float(config.sigma), float(config.alpha)))
+    return _launch(_count_key(name, mode), entry, args, outs + [scratch],
+                   [ints[k] for k in keys], (float(config.sigma), float(config.alpha)))[:4]
 
 
 def _launch_k4(op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, plan=None):
@@ -1609,19 +1734,26 @@ _KERNEL_OPERATORS = {
 }
 
 
-def kernel_operators(op: AdmmOperator, mode: str, *keys: str) -> dict:
+def kernel_operators(op: AdmmOperator, mode: str, *keys: str, narrow: bool = False) -> dict:
     """The operators ``keys`` of the stream and wide routes as their kernels
-    read them from device memory (csrc/admm_diag_stream.cu,
-    csrc/admm_perr.cu, csrc/admm_perr_wide.cu): :func:`operator_entries`
-    at precision ``mode`` of ``_KERNEL_OPERATORS``' forms, rows padded to
-    an even stride for 16-byte copies. Each is built once per operator and
-    precision and kept on the operator (a new operator, as ``op.to`` or
-    ``replace`` make, builds its own)."""
-    cache = op.__dict__.setdefault("_kernel_operators", {}).setdefault(mode, {})
+    read them from device memory: for K4's and K5's (csrc/admm_perr.cu,
+    csrc/admm_perr_wide.cu) :func:`operator_entries` at precision ``mode``
+    of ``_KERNEL_OPERATORS``' forms, rows padded to an even stride for
+    16-byte copies; ``narrow`` for K1's and K2's (csrc/admm_diag_stream.cu)
+    :func:`narrow_entries`, rows padded to a multiple of 4. Each is built
+    once per operator, precision and form and kept on the operator (a new
+    operator, as ``op.to`` or ``replace`` make, builds its own)."""
+    cache = op.__dict__.setdefault("_kernel_operators", {}).setdefault(
+        (mode, "narrow") if narrow else mode, {})
     for key in keys:
         if key not in cache:
             M = _KERNEL_OPERATORS[key](op)
-            cache[key] = operator_entries(torch.nn.functional.pad(M, (0, M.shape[-1] & 1)), mode)
+            if narrow:
+                cache[key] = narrow_entries(
+                    torch.nn.functional.pad(M, (0, -M.shape[-1] % 4)), mode)
+            else:
+                cache[key] = operator_entries(
+                    torch.nn.functional.pad(M, (0, M.shape[-1] & 1)), mode)
     return cache
 
 
@@ -1701,6 +1833,24 @@ def operator_entries(M: Tensor, mode: str) -> Tensor:
     if mode == "default":
         lo = torch.zeros_like(hi)
     return torch.stack([hi, lo], dim=-1).contiguous()
+
+
+def narrow_entries(M: Tensor, mode: str) -> Tensor:
+    """An fp32 operator as the 4-byte entries K1's and K2's stream route
+    reads from device memory and widens once into :func:`operator_entries`'
+    8-byte ones as it copies them into shared memory
+    (csrc/admm_diag_stream.cu, widen4): the fp32 value at "highest"; at
+    "bf16x3" the pair (hi, lo) of :func:`bf16_split`, at "default"
+    (bf16(M), 0), as two bf16 values, hi in the low half, viewed as
+    float32. Half the bytes of :func:`operator_entries`, the same
+    entries."""
+    if mode == "highest":
+        return M.float().contiguous()
+    hi, lo = bf16_split(M)
+    if mode == "default":
+        lo = torch.zeros_like(hi)
+    pair = torch.stack([hi, lo], dim=-1).to(torch.bfloat16).contiguous()
+    return pair.view(torch.float32).squeeze(-1)
 
 
 def _dispatch(kernel, launch, plain, args):

@@ -252,10 +252,13 @@ def ptxas_summary(report: str):
             ) if key in name)
             targs = re.findall(r"L[ib](\d+)E", name)  # int and bool arguments
             if kind in ("stream", "wide"):  # K1's and K2's stream route: TAIL, the
-                # precision; K4's and K5's wide route: PACKED, the precision
+                # precision, the lanes and rows a thread; K4's and K5's wide
+                # route: PACKED, the precision
                 pair = ("K2", "K1") if kind == "stream" else ("K4", "K5")
+                lanes = "".join(f" {tag}{v}" for tag, v in zip(("x", "r"), targs[2:]))
                 kind = f"{pair[0] if targs[0] == '1' else pair[1]} {kind}" + (
-                    "" if targs[1] == "0" else f" {('bf16x3', 'default')[int(targs[1]) - 1]}")
+                    "" if targs[1] == "0" else f" {('bf16x3', 'default')[int(targs[1]) - 1]}"
+                ) + lanes
             elif kind in ("K1", "K2", "K5", "K5 stream"):
                 # the precision comes last (sources before it have none)
                 flags, precision = targs, "highest"
@@ -669,6 +672,42 @@ def smem_floor_ms(n, m, R, refine_steps, B, chunk, kernel="K2"):
     dense = {"K5": 2 * m, "K4": (2 + refine_steps) * m}.get(kernel, 2 * (m - n))
     entries = (1 + 2 * refine_steps) * n * n + dense * n
     return entries * B * chunk / 32 / (SM_COUNT * sm_clock_hz()) * 1e3
+
+
+def fma_floor_ms(n, m, B, refine_steps, chunk, kernel="K1", mode="highest"):
+    """Least milliseconds of one chunk of K1 (m = n) or K2 on the card's
+    CUDA cores: its multiply-adds (chunk_bound's count: (1 + 2 refine) n^2,
+    and for K2 3 (m - n) n) as fp64 FMAs at 64 a clock on every SM
+    ("highest"; the bound takes them at the fp64 tensor-core rate, which
+    the kernels' index-order sums cannot use), or the bf16 precisions'
+    passes as fp32 FMAs at 128 a clock (3 a multiply-add at "bf16x3", 1 at
+    "default"), at the card's highest SM clock."""
+    macs = (1 + 2 * refine_steps) * n * n + (3 * (m - n) * n if kernel == "K2" else 0)
+    per_clock = {"highest": 64, "bf16x3": 128 / 3, "default": 128}[mode]
+    return macs * B * chunk / per_clock / (SM_COUNT * sm_clock_hz()) * 1e3
+
+
+def tile_floor_ms(n, m, B, refine_steps, chunk, plan):
+    """Least milliseconds of one chunk of K1 (m = n) or K2 on the stream
+    route's register tile of ``plan`` (a K1Plan or K2Plan), at "highest":
+    each product of admm_fused._k12_products at a thread's LT lanes
+    (admm_fused.k12_lanes_per_thread) and RT rows (the plan's, 4 in K2's
+    A2' pass) loads per 2 columns RT operator and LT vector entries a
+    vector as 16-byte shared-memory loads, 4 clocks of its SM a warp's
+    load (scripts/fp64_rate_probe.py), and does 2 RT LT multiply-adds a
+    vector, 64 a clock on the SM; each takes the longer of the two, padded
+    rows left out, at the card's highest SM clock."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    lt = admm_fused.k12_lanes_per_thread(plan.lanes)
+    rows = plan.rpt_n if m > n else plan.rpt
+    lay = admm_fused.k12_stream_layout(n, m - n, refine_steps, plan.lanes, plan.groups, rows,
+                                       plan.panel)
+    clocks = 0.0
+    for r, c, _, v, rt in admm_fused._k12_products(n, m - n, refine_steps, rows, lay):
+        per_warp = max(2 * rt * lt * v * 32 / 64, 4 * (rt + lt * v))  # 2 columns of a warp
+        clocks += r * c * v * per_warp / (32 * rt * lt * 2 * v)  # a lane's multiply-add
+    return clocks * B * chunk / (SM_COUNT * sm_clock_hz()) * 1e3
 
 
 @functools.lru_cache(maxsize=None)
@@ -2063,7 +2102,10 @@ def stream_phase(dev):
 
     - Each kernel against its plain version, bit for bit (max_ulps 0), as
       k1_plan or k2_plan lays it out on the stream route, graph-timed with
-      its bound, shared-memory floor and plain time: K1 at the QTP's h50
+      its bound, the FMA floor (fma_floor_ms), the register tile's
+      shared-memory floor (tile_floor_ms; smem_floor_ms is the older
+      one-entry-a-multiply-add model), the plan's L2 operator bytes a chunk
+      and its lanes a thread, and plain time: K1 at the QTP's h50
       (n = 100, B = 4096) and its tier 2 (R = 4, 2 refinements, B = 512),
       h100 (n = 200, B = 4096), the (16, 8) plant at h30 (n = 240, B =
       4096) and h264 at tier 1's grid (n = 528, the widest the Pallas K1
@@ -2116,7 +2158,17 @@ def stream_phase(dev):
     records = {"K1": [], "K2": []}
     for label, c, B, x0s_fn in shapes:
         rec = compare_kernel(c, B, 60, x0s_fn, plain_reps=1)
-        rec.update(shape=label)
+        n, m, rs, chunk = (rec[k] for k in ("n", "m", "refine_steps", "chunk"))
+        plan = (admm_fused.K2Plan if m > n else admm_fused.K1Plan)(**rec["plan"])
+        rows = plan.rpt_n if m > n else plan.rpt
+        rec.update(
+            shape=label, lanes_per_thread=admm_fused.k12_lanes_per_thread(plan.lanes),
+            fma_floor_ms=fma_floor_ms(n, m, B, rs, chunk, rec["kernel"],
+                                      rec.get("precision", "highest")),
+            tile_floor_ms=tile_floor_ms(n, m, B, rs, chunk, plan),
+            l2_bytes=admm_fused.k12_stream_l2_bytes(n, m - n, rec["R"], rs, B, plan.lanes,
+                                                    plan.groups, rows, plan.panel, chunk),
+        )
         log(phase="stream_vs_plain", **rec)
         if rec["plan"]["route"] != "stream":
             raise RuntimeError(f"{label}: expected the stream route: {rec['plan']}")
@@ -2971,8 +3023,10 @@ def main():
         # the Pallas bodies take past the shared routes
         *(dict(kernel_entry(f"{entry} ({kernel}, stream route)", "admm_diag_stream.cu",
                             f"{TPU_ADMM}:{line}", stream_counts[kernel], stream_recs[kernel]),
-               smem_floor_ms=stream_recs[kernel][0]["smem_floor_ms"],
-               layouts=sorted({(r["plan"]["lanes"], r["plan"]["groups"], r["plan"]["panel"])
+               **{key: stream_recs[kernel][0][key] for key in (
+                   "smem_floor_ms", "fma_floor_ms", "tile_floor_ms", "l2_bytes")},
+               layouts=sorted({(r["plan"]["lanes"], r["lanes_per_thread"], r["plan"]["groups"],
+                                r["plan"].get("rpt", r["plan"].get("rpt_n")), r["plan"]["panel"])
                                for r in stream_recs[kernel]}))
           for kernel, entry, line in (("K1", "admm_diag_stream_chunk", 348),
                                       ("K2", "admm_mixed_stream_chunk", 580))),

@@ -4,7 +4,7 @@ GPU, in one process tree (so on one card, under one power limit).
 
     python3 k3_ab.py NAME=TREE[:ROUTE] [NAME=TREE[:ROUTE] ...] [--sass NAME]
     python3 k3_ab.py --kernel K2 NAME=TREE[:LxG] [...] [--plain NAME] [--sass NAME]
-    python3 k3_ab.py --kernel K1 NAME=TREE[:LxG] [...] [--plain NAME] [--sass NAME]
+    python3 k3_ab.py --kernel K1 NAME=TREE[:LxG[rR][s][/PANEL]] [...] [--plain NAME] [--sass NAME]
     python3 k3_ab.py --kernel K5 NAME=TREE[:LAYOUT] [...] [--plain NAME] [--sass NAME]
     python3 k3_ab.py --kernel K4 NAME=TREE[:LAYOUT] [...] [--plain NAME] [--sass NAME]
     python3 k3_ab.py --kernel K3W NAME=TREE[:LAYOUT] [...] [--plain NAME]
@@ -62,7 +62,15 @@ their shared routes: K1_STREAM_SHAPES (the QTP at h50 at the routing
 audit's config and its tier 2, h100, the (16, 8) plant at h30, h264 at
 tier 1's grid) and K2_STREAM_SHAPES (the h50 state box); a tree without
 it has no layout there and reports them skipped. LxG forces the stream
-route's lanes and row-groups there too.
+route's lanes and row-groups there too; ``rR`` the rows a thread takes
+(``32x28r8``), ``LxGs`` the stream route at every shape (``s`` alone:
+the plan's layout on it), and ``/PANEL`` (after either) its panel's
+doubles, resident or streamed as the layout makes them, in a tree whose
+stream route reads 4-byte entries. On the stream
+route each record also has the plan's L2 operator bytes a chunk
+(``l2_bytes``), the FMA floor (``fma_floor_ms``: the fp64 multiply-adds
+at 64 a clock on every SM) and the register tile's shared-memory floor
+(``tile_floor_ms``), where the tree's chip_smoke.py has them.
 
 ``--kernel K5`` does the same for K5, the dense-A per-rho kernel, with
 each tree's K5 sources (``csrc/admm_perr.cu`` where the tree has it;
@@ -511,7 +519,13 @@ def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
         with open(os.path.join(sass_dir, f"sass_{sass}.txt"), "w") as f:
             f.write("\n\t\tFunction : ".join([""] + keep))
     dev = torch.device("cuda", 0)
-    force, panel = {}, ""
+    force, panel, rows_forced = {}, "", 0
+    if kernel in ("K1", "K2") and layout:  # LxG[rR][s][/PANEL]: rows a thread, the stream
+        layout, _, panel = layout.partition("/")  # route, a panel forced
+        if layout.endswith("s"):
+            force, layout = dict(route="stream"), layout[:-1]
+        layout, _, rows_text = layout.partition("r")
+        rows_forced = int(rows_text or 0)
     if kernel == "K1":
         wrapper, plain_fn = admm_fused.iterate_chunk_diag_T, admm_fused.iterate_chunk_diag_T_plain
         plan_fn, launch = getattr(admm_fused, "k1_plan", None), getattr(admm_fused, "_launch_k1")
@@ -555,7 +569,20 @@ def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
                 if kernel in ("K4", "K5") and force.get("route") == "stream" and panel:
                     plan = plan._replace(panel=int(panel[1:]), smem_bytes=admm_fused.k5_stream_smem_bytes(
                         m, plan.lanes, plan.groups, plan.rpt_n, plan.rpt_m, int(panel[1:])))
+                if kernel in ("K1", "K2") and rows_forced:
+                    plan = plan._replace(**({"rpt": rows_forced} if kernel == "K1" else
+                                            {"rpt_n": rows_forced, "rpt_t": rows_forced}))
+                if kernel in ("K1", "K2") and panel:
+                    plan = plan._replace(panel=int(panel), smem_bytes=admm_fused.k12_stream_smem_bytes(
+                        n, m - n, plan.lanes, int(panel)))
                 rec["plan"] = plan._asdict()
+                if kernel in ("K1", "K2") and plan.route == "stream" and hasattr(
+                        admm_fused, "k12_stream_l2_bytes"):
+                    rows = plan.rpt if kernel == "K1" else plan.rpt_n
+                    rec["l2_bytes"] = admm_fused.k12_stream_l2_bytes(
+                        n, m - n, R, rs, B, plan.lanes, plan.groups, rows, plan.panel, args[-2])
+                    rec["fma_floor_ms"] = chip_smoke.fma_floor_ms(n, m, B, rs, args[-2], kernel)
+                    rec["tile_floor_ms"] = chip_smoke.tile_floor_ms(n, m, B, rs, args[-2], plan)
                 fn = lambda plan=plan: launch(*args, plan=plan)
             out = fn()
             torch.cuda.synchronize()

@@ -188,11 +188,12 @@ def test_k1_plan_covers_batch_and_rows(n, R, refine_steps):
         p = admm_fused.k1_plan(n, R, refine_steps, B)
         if p.route == "stream":  # no shared layout: the stream route's plan
             assert not any(admm_fused._k1_layouts(n, R, refine_steps))
-            assert p.blocks == -(-B // p.lanes) + R and p.rpt == admm_fused.STREAM_ROWS
+            assert p.blocks == -(-B // p.lanes) + R
+            assert p.rpt in admm_fused.k12_rows_options(p.lanes, False)
             assert p.smem_bytes == admm_fused.k12_stream_smem_bytes(
-                n, 0, refine_steps, p.lanes, p.panel) <= admm_fused.SMEM_LIMIT
-            assert (p.lanes * p.groups) % 32 == 0
-            assert p.lanes * p.groups <= admm_fused.STREAM_THREADS
+                n, 0, p.lanes, p.panel) <= admm_fused.SMEM_LIMIT
+            threads = p.lanes // admm_fused.k12_lanes_per_thread(p.lanes) * p.groups
+            assert threads % 32 == 0 and threads <= admm_fused.K12_STREAM_THREADS
             continue
         assert p.blocks * p.lanes >= B > (p.blocks - 1) * p.lanes
         assert p.groups * p.rpt >= n > p.groups * (p.rpt - 1)

@@ -264,7 +264,7 @@ def test_k2_plan_covers_batch_and_rows(m, R, refine_steps):
             assert not any(admm_fused._k2_layouts(n, m, R, refine_steps))
             assert p.blocks == -(-B // p.lanes) + R
             assert p.smem_bytes == admm_fused.k12_stream_smem_bytes(
-                n, m - n, refine_steps, p.lanes, p.panel) <= admm_fused.SMEM_LIMIT
+                n, m - n, p.lanes, p.panel) <= admm_fused.SMEM_LIMIT
             continue
         assert p.smem_bytes == admm_fused.k2_smem_bytes(
             n, m, R, refine_steps, p.lanes, p.groups, p.rpt_n, p.rpt_t

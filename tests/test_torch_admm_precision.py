@@ -436,7 +436,7 @@ def test_every_shape_has_a_plan_at_every_precision(kernel, mode):
                         n, R, rs, lo.lanes, lo.groups, lo.rpt)
                 else:
                     assert lo == hi and lo.smem_bytes == admm_fused.k12_stream_smem_bytes(
-                        n, 0, rs, lo.lanes, lo.panel)
+                        n, 0, lo.lanes, lo.panel)
             elif kernel == "K2":
                 if m <= n or not admm_fused.k2_fits(n, m, R, rs):
                     continue

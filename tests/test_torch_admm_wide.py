@@ -112,9 +112,11 @@ def test_shared_plans_are_unchanged():
 def test_stream_plans_cover_the_batch_within_shared_memory(R, refine_steps):
     """The stream route is planned only where the shared route has no
     layout; its blocks cover B with room for each rho index's partial last
-    block, whole warps of at most 512 threads, its shared memory is the C
-    entry's formula within the card's, and a panel holds at least 2 columns
-    of a tile, or every operator of one rho whole."""
+    block, whole warps of at most 256 threads (1, 2 or 4 lanes a thread,
+    4 rows, or 8 in K1's blocks of 4 lanes a thread), its shared memory is
+    the C entry's formula within the card's,
+    and a panel holds at least 8 columns of a tile (or whole rows), no
+    more than its threads stage, or every operator of one rho whole."""
     shapes = [(n, 0) for n in (41, 53, 59, 60, 100, 129, 200, 240, 288, 333, 528)]
     shapes += [(n, ms) for n in (7, 40, 48, 100, 195, 275) for ms in (1, 129, 2 * n)]
     for n, ms in shapes:
@@ -129,28 +131,84 @@ def test_stream_plans_cover_the_batch_within_shared_memory(R, refine_steps):
             if shared:
                 continue
             assert p.blocks == -(-B // p.lanes) + R and (p.blocks - R) * p.lanes >= B
-            assert p.lanes in admm_fused.LANES and (p.lanes * p.groups) % 32 == 0
-            assert p.lanes * p.groups <= admm_fused.STREAM_THREADS
+            assert admm_fused.k12_blocks_used(R, B, p.lanes) <= p.blocks
+            lanes_a_thread = admm_fused.k12_lanes_per_thread(p.lanes)
+            threads = p.lanes // lanes_a_thread * p.groups
+            assert p.lanes in admm_fused.K12_STREAM_LANES and threads % 32 == 0
+            assert threads <= admm_fused.K12_STREAM_THREADS
+            assert lanes_a_thread == (4 if p.lanes >= 32 else 2 if p.lanes == 16 else 1)
+            rows = p.rpt_n if ms else p.rpt
+            assert rows in admm_fused.k12_rows_options(p.lanes, ms > 0)
+            assert rows == 4 or (rows == 8 and lanes_a_thread == 4 and not ms)
             assert p.smem_bytes == admm_fused.k12_stream_smem_bytes(
-                n, ms, refine_steps, p.lanes, p.panel) <= admm_fused.SMEM_LIMIT
-            lay = admm_fused.k12_stream_layout(n, ms, refine_steps, p.groups, p.panel)
-            assert lay is not None and lay.pn >= 2 and (lay.pt >= 2 or not ms)
-            assert lay.sn % 4 == 2 and lay.pn % 2 == 0  # odd in 16-byte units, pairs
+                n, ms, p.lanes, p.panel) <= admm_fused.SMEM_LIMIT
+            lay = admm_fused.k12_stream_layout(n, ms, refine_steps, p.lanes, p.groups, rows,
+                                               p.panel)
+            assert lay is not None and lay.sn % 4 == 2  # odd in 16-byte units
+            if lay.resident:
+                assert lay.pn == (n + 3) // 4 * 4 and lay.sn >= lay.pn
+                continue
+            # a panel's chunks of 4 columns fit the threads' staging
+            chunks = admm_fused.K12_STREAM_STAGE * threads
+            for cols, pk, sp, rt in ((n, lay.pn, lay.sn, rows),
+                                     (ms, lay.pt, lay.st, admm_fused.K12_PASS_ROWS))[:2 if ms else 1]:
+                H = rt * p.groups
+                assert pk % 4 == 0 and min(8, (cols + 3) // 4 * 4) <= pk and H * pk // 4 <= chunks
+                assert pk + 2 <= sp and H * sp <= p.panel
+
+
+@pytest.mark.parametrize("R,refine_steps", CONFIGS)
+def test_stream_route_takes_every_width_up_to_1024(R, refine_steps):
+    """The stream route has a layout at every n up to 1024 and every tail
+    of 0 to 1024 rows (k1_fits and k2_fits hold wherever the shared route
+    does not), and at none past them."""
+    for n in (1, 2, 3, 5, 64, 129, 255, 256, 511, 600, 777, 1000, 1023, 1024):
+        assert admm_fused._k12_stream_layouts(n, 0, refine_steps), n
+        assert admm_fused.k1_fits(n, R, refine_steps)
+        for ms in (1, 2, 3, 7, 128, 129, 550, 1024):
+            assert admm_fused._k12_stream_layouts(n, ms, refine_steps), (n, ms)
+            assert admm_fused.k2_fits(n, n + ms, R, refine_steps)
+    assert not admm_fused.k1_fits(1025, R, refine_steps)
+    assert not admm_fused.k2_fits(100, 100 + 1025, R, refine_steps)
+
+
+def test_stream_plan_reads_a_quarter_of_the_l2_bytes():
+    """At the (16, 8) plant's h30 shape (n = 240, R = 5, one refinement,
+    B = 4096) the plan's blocks read at most a quarter of the operator
+    bytes from L2 in a chunk that the 16-lane plan of fp64 entries read
+    (every block one rho's K^-1, K and K^-1 each iteration: 8.99 GB at 25
+    iterations), and no more than 2.25 GB."""
+    n, R, rs, B, chunk = 240, 5, 1, 4096, 25
+    p = admm_fused.k1_plan(n, R, rs, B)
+    assert p.route == "stream" and p.lanes >= 32
+    new = admm_fused.k12_stream_l2_bytes(n, 0, R, rs, B, p.lanes, p.groups, p.rpt, p.panel,
+                                         chunk)
+    old = 8 * 3 * n * n * chunk * R * -(-B // (R * 16))
+    assert old == 8985600000 and new * 4 <= old and new <= 2.25e9
 
 
 def test_routes_are_forced_and_checked():
     """``route`` forces the stream route at a shape the shared route takes
     (the card tests hold both to the plain version there), and a forced
-    layout of the shared route never falls to the stream route."""
+    layout of the shared route never falls to the stream route; the
+    stream route's lanes and row-groups are forced likewise, and a layout
+    it does not have raises."""
     p = admm_fused.k1_plan(40, 2, 0, 2048, route="stream")
-    assert p.route == "stream" and p.rpt == admm_fused.STREAM_ROWS
+    assert p.route == "stream" and p.rpt in admm_fused.k12_rows_options(p.lanes, False)
     assert admm_fused.k2_plan(40, 120, 5, 1, 2048, route="stream").route == "stream"
+    for lanes, groups in ((64, 14), (32, 12), (16, 8), (8, 8), (4, 16)):
+        p = admm_fused.k1_plan(100, 5, 1, 512, lanes=lanes, groups=groups)
+        assert p.route == "stream" and (p.lanes, p.groups) == (lanes, groups)
     with pytest.raises(ValueError):
         admm_fused.k1_plan(40, 2, 0, 2048, route="tiled")
     with pytest.raises(ValueError):
         admm_fused.k1_plan(200, 5, 1, 2048, route="shared")
     with pytest.raises(ValueError):
         admm_fused.k1_plan(40, 2, 0, 2048, lanes=32, groups=4)  # 10 rows a thread
+    with pytest.raises(ValueError):
+        admm_fused.k1_plan(100, 5, 1, 512, lanes=64, groups=32)  # 512 threads
+    with pytest.raises(ValueError):
+        admm_fused.k1_plan(100, 5, 1, 512, lanes=16, groups=2)  # not whole warps
     with pytest.raises(ValueError):
         admm_fused.k2_plan(100, 300, 5, 1, 2048, route="shared")
     with pytest.raises(ValueError):

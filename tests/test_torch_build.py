@@ -344,23 +344,24 @@ def test_precision_registers_fit_the_budgets(name, source, macro, keys, mode):
 
 
 @pytest.mark.parametrize("entry,ints,arrays", [
-    ("admm_diag_stream_chunk", "K1_STREAM_INTS", 18),
-    ("admm_mixed_stream_chunk", "K2_STREAM_INTS", 20),
+    ("admm_diag_stream_chunk", "K1_STREAM_INTS", 19),
+    ("admm_mixed_stream_chunk", "K2_STREAM_INTS", 21),
 ])
 def test_k12_stream_entries_take_the_plan(entry, ints, arrays):
     """The stream route's C entries take the ints the wrapper passes, in
     its order (admm_fused.K1_STREAM_INTS / K2_STREAM_INTS: the shape, then
     the plan's lanes, groups, panel and bytes), after their arrays: K^-1
-    and K (K2: A2' and A2) as entries, then the vectors, the rho order and
-    the lane state."""
+    and K (K2: A2' and A2) as entries, then the vectors, the rho order,
+    the lane state and the refinement's scratch."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
 
     params = _c_params(entry)
     sig = _build.SIGNATURES[entry]
     assert tuple(p for p, kind in zip(params, sig) if kind == "i") == getattr(admm_fused, ints)
     assert sig == "p" * arrays + "i" * len(getattr(admm_fused, ints)) + "ff" + "p"
-    assert params[:2] == ["kinv", "kmat"] and params[arrays - 10:arrays - 8] == ["order", "starts"]
-    if arrays == 20:
+    assert params[:2] == ["kinv", "kmat"] and params[arrays - 11:arrays - 9] == ["order", "starts"]
+    assert params[arrays - 1] == "scratch"
+    if arrays == 21:
         assert params[2:4] == ["a2t", "a2"]
 
 
@@ -378,31 +379,46 @@ def test_k12_stream_bytes_match_the_c_entry():
     cases = 0
     for n, ms in ((100, 0), (61, 7), (528, 0), (275, 550), (1, 1), (33, 1)):
         for rs in (0, 1, 2):
-            for lanes in admm_fused.LANES:
+            for lanes in admm_fused.K12_STREAM_LANES:
                 for panel in (96, 7658, 12848):
                     env = dict(n=n, lanes=lanes, panel=panel, refine_steps=rs,
                                nslots=(n + 1) & ~1, tslots=(ms + 1) & ~1)
                     env["stream_doubles"] = eval(py(exprs[0]), {}, env)
                     assert eval(py(exprs[1]), {}, env) == admm_fused.k12_stream_smem_bytes(
-                        n, ms, rs, lanes, panel)
+                        n, ms, lanes, panel)
                     cases += 1
     assert cases > 200
 
 
 def test_k12_stream_constants_match_the_source():
-    """The stream route's rows a thread takes in a tile, most threads a
-    block and widest n and tail are the plans' (admm_fused.STREAM_ROWS,
-    STREAM_THREADS, MAX_STREAM_N, MAX_STREAM_TAIL), and its
-    __launch_bounds__ holds a thread to the registers the plans count."""
+    """The stream route's rows a thread takes in a tile (4, 8 in K1's
+    blocks of 4 lanes a thread), most threads a block, lanes from which a
+    thread takes 4 and 2 (1 below), chunks of a panel a thread stages and
+    widest n and tail are the plans' (admm_fused.K12_PASS_ROWS,
+    k12_rows_options, K12_STREAM_THREADS, K12_WIDE_LANES, K12_MID_LANES,
+    K12_STREAM_STAGE, MAX_STREAM_N, MAX_STREAM_TAIL), its entry takes the
+    plans' lanes, and its __launch_bounds__ holds a thread to the
+    registers the plans count."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
 
     text = open(os.path.join(_build.CSRC_DIR, "admm_diag_stream.cu")).read()
     const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
-    assert const("kRows") == admm_fused.STREAM_ROWS
-    assert const("kThreads") == admm_fused.STREAM_THREADS
+    assert const("kPassRows") == admm_fused.K12_PASS_ROWS
+    assert "return rows == kPassRows || (rows == 2 * kPassRows && lt == 4 && !tail);" in text
+    assert [admm_fused.k12_rows_options(v, tail) for v in (4, 16, 32, 64)
+            for tail in (False, True)] == [(4,)] * 4 + [(4, 8), (4,)] * 2
+    assert "return lanes >= kWideLanes ? 4 : lanes >= kMidLanes ? 2 : 1;" in text
+    assert [admm_fused.k12_lanes_per_thread(v) for v in (4, 8, 16, 32, 64)] == [1, 1, 2, 4, 4]
+    assert const("kThreads") == admm_fused.K12_STREAM_THREADS
+    assert const("kWideLanes") == admm_fused.K12_WIDE_LANES
+    assert const("kMidLanes") == admm_fused.K12_MID_LANES
+    assert const("kStage") == admm_fused.K12_STREAM_STAGE
     assert const("kMaxWidth") == admm_fused.MAX_STREAM_N == admm_fused.MAX_STREAM_TAIL
     assert "__launch_bounds__(kThreads, 1)" in text
-    assert admm_fused.STREAM_REGISTERS == 65536 // admm_fused.STREAM_THREADS
+    assert admm_fused.K12_STREAM_REGISTERS == 65536 // admm_fused.K12_STREAM_THREADS
+    checked = re.search(r"\(lanes != 4 && [^\n]*\n[^\n]*\)", text).group(0)
+    assert sorted(int(v) for v in re.findall(r"lanes != (\d+)", checked)) == sorted(
+        admm_fused.K12_STREAM_LANES)
 
 
 @pytest.mark.parametrize("entry,first", [("admm_perr_wide_chunk", "kinv"),

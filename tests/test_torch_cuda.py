@@ -361,32 +361,88 @@ def test_stream_route_odd_shapes_match_plain_version(controllers, n, ms, R, refi
     tails (each pair loop's last row, a padded operator column), one tail
     row, one rho and four, no refinement and two, the widest K1 the JAX
     package fuses (n = 528), K2's widest state box (275, 550), a shape the
-    shared route also takes (forced), and with ``narrow`` panels of about
-    10 columns (every product streamed over several tiles and column
+    shared route also takes (forced), and with ``narrow`` panels of 4 to 8
+    columns (every product streamed over several tiles and column
     panels); equal to the plain version bit for bit at each precision."""
     op = _synthetic_box_op(controllers[0].engine.op, n, ms, R, refine_steps, seed=n + ms)
     cfg = AdmmConfig(refine_steps=refine_steps, kernel_precision=mode)
     plan = (admm_fused.k2_plan(n, n + ms, R, refine_steps, B, mode=mode, route="stream") if ms
             else admm_fused.k1_plan(n, R, refine_steps, B, mode=mode, route="stream"))
     if panel == "narrow":
-        doubles = 12 * admm_fused.STREAM_ROWS * plan.groups
-        plan = plan._replace(panel=doubles, smem_bytes=admm_fused.k12_stream_smem_bytes(
-            n, ms, refine_steps, plan.lanes, doubles))
-        assert not admm_fused.k12_stream_layout(n, ms, refine_steps, plan.groups, doubles).resident
+        plan = _narrow(plan, n, ms, refine_steps)
     _stream_held_to_plain(_lane_args(op, cfg, B, seed=B), plan)
 
 
+def _narrow(plan, n, ms, refine_steps):
+    """The stream route's plan with panels of 4 to 8 columns of a tile
+    (fewer where that would hold one rho's operators whole): every product
+    streamed over several tiles and column panels."""
+    whole = admm_fused._k12_resident_doubles(n, ms, refine_steps)
+    doubles = min(12 * admm_fused.STREAM_ROWS * plan.groups, (whole - 1) // 2 & ~1)
+    rows = plan.rpt_n if ms else plan.rpt
+    lay = admm_fused.k12_stream_layout(n, ms, refine_steps, plan.lanes, plan.groups, rows, doubles)
+    assert not lay.resident and 4 <= lay.pn <= 8 and lay.pt <= 8
+    return plan._replace(panel=doubles, smem_bytes=admm_fused.k12_stream_smem_bytes(
+        n, ms, plan.lanes, doubles))
+
+
+@pytest.mark.parametrize("which,B,lanes,groups,rows,narrow", [
+    ("h50", 300, 64, 14, 8, False), ("h50", 77, 64, 14, 4, True), ("h50", 300, 32, 16, 8, True),
+    ("h50", 4096, 32, 28, 4, False), ("h50", 33, 16, 8, 4, False), ("h50", 1, 8, 8, 4, True),
+    ("h50", 77, 4, 16, 4, False), ("h50-sc", 300, 32, 28, 4, False),
+    ("h50-sc", 77, 32, 8, 4, True), ("h50-sc", 33, 16, 16, 4, False),
+    ("h50-sc", 77, 8, 24, 4, True), ("h50-sc", 5, 4, 48, 4, False),
+    ("wide16x8", 200, 32, 20, 8, False), ("wide16x8", 200, 32, 32, 4, True),
+    ("wide16x8", 77, 16, 32, 4, True), ("h50-tier2", 100, 8, 16, 4, True),
+    ("h50-tier2", 100, 64, 14, 8, False),
+])
+@pytest.mark.parametrize("single", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+def test_stream_route_forced_layouts_match_plain_version(wide_controllers, which, B, lanes,
+                                                         groups, rows, narrow, single, mode):
+    """The stream route at every block width it has (64 and 32 lanes, 4 a
+    thread, 4 or 8 rows; 16 lanes, 2 a thread; 8 and 4, 1 a thread),
+    forced, resident and streamed, narrow panels, on ragged batches (each
+    rho index's partial last block) with random and single rho indices:
+    equal to the plain version bit for bit at each precision."""
+    ctrl = wide_controllers[which]
+    cfg = dataclasses.replace(ctrl.engine.config, kernel_precision=mode)
+    op = ctrl.engine.op
+    m, n = (int(d) for d in op.A_s.shape)
+    R, rs = int(op.rho_grid.shape[0]), int(cfg.refine_steps)
+    if op.mixed_a:
+        plan = admm_fused.k2_plan(n, m, R, rs, B, lanes, groups, mode)
+        plan = plan._replace(rpt_n=rows, rpt_t=rows)
+    else:
+        plan = admm_fused.k1_plan(n, R, rs, B, lanes, groups, mode)._replace(rpt=rows)
+    assert (plan.route, plan.lanes, plan.groups) == ("stream", lanes, groups)
+    if narrow:
+        plan = _narrow(plan, n, m - n, rs)
+    _stream_held_to_plain(_lane_args(op, cfg, B, seed=B + lanes, single_index=single), plan)
+
+
 def test_stream_route_refuses_a_layout_it_does_not_have(wide_controllers):
-    """The stream route's C entries refuse shared-memory bytes that differ
-    from their own layout (cudaError_t 1) rather than run on a wrong one."""
+    """The stream route's C entries refuse (cudaError_t 1) rather than run
+    on a wrong layout: shared-memory bytes that differ from their own, a
+    lane count they have no instantiation for, more than 256 threads a
+    block, rows a thread they have no instantiation for (K2 at 8, any at
+    6), a streamed panel of fewer than 4 columns of a tile."""
     for which, launch in (("h50", admm_fused._launch_k1), ("h50-sc", admm_fused._launch_k2)):
         op, cfg = wide_controllers[which].engine.op, wide_controllers[which].engine.config
         args = _lane_args(op, cfg, 64, seed=6)
         m, n = (int(d) for d in op.A_s.shape)
         plan = (admm_fused.k2_plan(n, m, 5, 1, 64) if op.mixed_a
                 else admm_fused.k1_plan(n, 5, 1, 64))
-        with pytest.raises(RuntimeError, match="cudaError_t 1"):
-            launch(*args, plan=plan._replace(smem_bytes=plan.smem_bytes + 16))
+        bytes_of = lambda lanes, panel: admm_fused.k12_stream_smem_bytes(n, m - n, lanes, panel)
+        thin = 4 * admm_fused.STREAM_ROWS * plan.groups
+        rows = (lambda r: dict(rpt_n=r, rpt_t=r)) if op.mixed_a else (lambda r: dict(rpt=r))
+        for wrong in (dict(smem_bytes=plan.smem_bytes + 16),
+                      dict(lanes=12, smem_bytes=bytes_of(12, plan.panel)),
+                      dict(lanes=8, groups=128, smem_bytes=bytes_of(8, plan.panel)),
+                      rows(6), *([rows(8)] if op.mixed_a else []),
+                      dict(panel=thin, smem_bytes=bytes_of(plan.lanes, thin))):
+            with pytest.raises(RuntimeError, match="cudaError_t 1"):
+                launch(*args, plan=plan._replace(**wrong))
 
 
 def test_wide_solves_launch_the_stream_route(wide_controllers):
