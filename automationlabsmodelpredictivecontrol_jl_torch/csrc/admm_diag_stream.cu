@@ -59,9 +59,9 @@
 //
 // The lane's state lives in device memory: a block copies its lanes' state
 // and inputs (x, s, y, ax, q, l, u) once a chunk from their scattered
-// columns into a working copy in a scratch, a column per (block, lane), so
-// that a block's columns are neighbours and every iteration's reads and
-// writes coalesce, and writes the outputs back once at its end (a thread
+// columns into a working copy in a scratch, a region of a column per lane
+// for each block, so that a block's columns are neighbours and every
+// iteration's reads and writes coalesce, and writes the outputs back once at its end (a thread
 // owns the same rows and lanes in every product and update, so it alone
 // reads and writes them). When refining, the refinement's rhs and xt in
 // fp32 lie in the same scratch, read ahead of the epilogue that needs
@@ -229,20 +229,21 @@ admm_stream_kernel(const float* __restrict__ kinv,  // (R, n, ldn) entries
   double* vbuf = pan + 2 * lay.panel;        // box rows: two buffers
   double* tbuf = vbuf + 2 * lay.nslots * L;  // K2's tail rows: y, then rho.s
   double* tbuf1 = tbuf + lay.tslots * L;
-  // the lanes' working copy in the scratch, a column per (block, lane),
-  // row i of lane c at [i * W + c * LG]: x (n rows), s, y, ax (m rows
-  // each), q (n), l, u (m), and when refining the refinement's rhs and xt
-  // (n); a block's columns are neighbours, so its accesses coalesce
-  const int W = gridDim.x * L;
-  float* wx = scratch + blockIdx.x * L + g0;
-  float* ws = wx + n * W;
-  float* wy = ws + m * W;
-  float* wax = wy + m * W;
-  float* wq = wax + m * W;
-  float* wl = wq + n * W;
-  float* wu = wl + m * W;
-  float* rhs_f = wu + m * W;
-  float* xt_f = rhs_f + n * W;
+  // the lanes' working copy in the scratch, a region of L columns per
+  // block, row i of lane c at [i * L + c * LG]: x (n rows), s, y, ax (m
+  // rows each), q (n), l, u (m), and when refining the refinement's rhs
+  // and xt (n); a block's columns are neighbours, so its accesses
+  // coalesce, and offsets in the region fit an int whatever the batch
+  const int region = (2 * n + 5 * m + (refine ? 2 * n : 0)) * L;
+  float* wx = scratch + static_cast<long long>(blockIdx.x) * region + g0;
+  float* ws = wx + n * L;
+  float* wy = ws + m * L;
+  float* wax = wy + m * L;
+  float* wq = wax + m * L;
+  float* wl = wq + n * L;
+  float* wu = wl + m * L;
+  float* rhs_f = wu + m * L;
+  float* xt_f = rhs_f + n * L;
   const float* rho_r = rho_vecs + r * m;
   const float* rhoi_r = rho_invs + r * m;
   const float* ki_r = kinv + r * n * lay.ldn;
@@ -257,7 +258,7 @@ admm_stream_kernel(const float* __restrict__ kinv,  // (R, n, ldn) entries
   // row j (row n + j) where i, j = t mod G
   auto copy_in = [&](int row, int c) {
     const int g = row * B + lc[c];
-    const int o = row * W + c * LG;
+    const int o = row * L + c * LG;
     ws[o] = s_in[g];
     wy[o] = y_in[g];
     wax[o] = ax_in[g];
@@ -269,7 +270,7 @@ admm_stream_kernel(const float* __restrict__ kinv,  // (R, n, ldn) entries
     for (int c = 0; c < LT; ++c) {
       copy_in(i, c);
       const int g = i * B + lc[c];
-      const int o = i * W + c * LG;
+      const int o = i * L + c * LG;
       wx[o] = x_in[g];
       wq[o] = q[g];
       if constexpr (!TAIL) {
@@ -285,7 +286,7 @@ admm_stream_kernel(const float* __restrict__ kinv,  // (R, n, ldn) entries
 #pragma unroll
       for (int c = 0; c < LT; ++c) {
         copy_in(n + j, c);
-        const int o = (n + j) * W + c * LG;
+        const int o = (n + j) * L + c * LG;
         P::store(tbuf + slot(j, L, g0 + c * LG), P::entry(wy[o]));
         P::store(tbuf1 + slot(j, L, g0 + c * LG), P::entry(rho_r[n + j] * ws[o]));
       }
@@ -431,7 +432,7 @@ admm_stream_kernel(const float* __restrict__ kinv,  // (R, n, ldn) entries
               for (int k = 0; k < RT; ++k) {
                 const int i = min(r0 + t + k * G, g.rows - 1);
 #pragma unroll
-                for (int c = 0; c < LT; ++c) pre[k][c] = src[i * W + c * LG];
+                for (int c = 0; c < LT; ++c) pre[k][c] = src[i * L + c * LG];
               }
             }
           }
@@ -549,7 +550,7 @@ admm_stream_kernel(const float* __restrict__ kinv,  // (R, n, ldn) entries
               float xs[LT], ss[LT], ys[LT], qs[LT];
 #pragma unroll
               for (int c = 0; c < LT; ++c) {
-                const int o = i * W + c * LG;
+                const int o = i * L + c * LG;
                 xs[c] = wx[o];
                 ss[c] = ws[o];
                 ys[c] = wy[o];
@@ -560,14 +561,14 @@ admm_stream_kernel(const float* __restrict__ kinv,  // (R, n, ldn) entries
                 const float aty = d * ys[c] + P::result(acc[k][c]);
                 const float w = d * (rho_r[i] * ss[c]) + P::result(acc2[k][c]);
                 const float rhs = sigma * xs[c] - qs[c] - aty + w;
-                if (refine) rhs_f[i * W + c * LG] = rhs;
+                if (refine) rhs_f[i * L + c * LG] = rhs;
                 P::store(vout + slot(i, L, g0 + c * LG), P::entry(rhs));
               }
             } else if (TAIL && kind == kAx) {  // tail row i, st = A2 xt
               float s0[LT], y0[LT], a0[LT], lo[LT], hi[LT];
 #pragma unroll
               for (int c = 0; c < LT; ++c) {
-                const int o = (n + i) * W + c * LG;
+                const int o = (n + i) * L + c * LG;
                 s0[c] = ws[o];
                 y0[c] = wy[o];
                 a0[c] = wax[o];
@@ -576,7 +577,7 @@ admm_stream_kernel(const float* __restrict__ kinv,  // (R, n, ldn) entries
               }
 #pragma unroll
               for (int c = 0; c < LT; ++c) {
-                const int o = (n + i) * W + c * LG;
+                const int o = (n + i) * L + c * LG;
                 const float res = P::result(acc[k][c]);
                 const float v = alpha * res + beta * s0[c];
                 const float s_new = clip(v + rhoi_r[n + i] * y0[c], lo[c], hi[c]);
@@ -601,7 +602,7 @@ admm_stream_kernel(const float* __restrict__ kinv,  // (R, n, ldn) entries
               for (int c = 0; c < LT; ++c) {
                 const float res = P::result(acc[k][c]);
                 const float xt = kind == kSolve0 ? res : pre[k][c] + res;
-                xt_f[i * W + c * LG] = xt;
+                xt_f[i * L + c * LG] = xt;
                 P::store(vout + slot(i, L, g0 + c * LG), P::entry(xt));
               }
             } else {  // the update of box row i
@@ -610,7 +611,7 @@ admm_stream_kernel(const float* __restrict__ kinv,  // (R, n, ldn) entries
               float x0[LT], s0[LT], y0[LT], a0[LT], qs[LT], lo[LT], hi[LT];
 #pragma unroll
               for (int c = 0; c < LT; ++c) {
-                const int o = i * W + c * LG;
+                const int o = i * L + c * LG;
                 x0[c] = wx[o];
                 s0[c] = ws[o];
                 y0[c] = wy[o];
@@ -621,7 +622,7 @@ admm_stream_kernel(const float* __restrict__ kinv,  // (R, n, ldn) entries
               }
 #pragma unroll
               for (int c = 0; c < LT; ++c) {
-                const int o = i * W + c * LG;
+                const int o = i * L + c * LG;
                 const float res = P::result(acc[k][c]);
                 const float xt = kind == kSolve0 ? res : pre[k][c] + res;
                 const float st = d * xt;
@@ -663,7 +664,7 @@ admm_stream_kernel(const float* __restrict__ kinv,  // (R, n, ldn) entries
   // the outputs: each live lane's working copy, by the rows' owners
   auto copy_out = [&](int row, int c) {
     const int g = row * B + lc[c];
-    const int o = row * W + c * LG;
+    const int o = row * L + c * LG;
     s_out[g] = ws[o];
     y_out[g] = wy[o];
     ax_out[g] = wax[o];
@@ -673,7 +674,7 @@ admm_stream_kernel(const float* __restrict__ kinv,  // (R, n, ldn) entries
     for (int c = 0; c < LT; ++c) {
       if (!live[c]) continue;
       copy_out(i, c);
-      x_out[i * B + lc[c]] = wx[i * W + c * LG];
+      x_out[i * B + lc[c]] = wx[i * L + c * LG];
     }
   }
   if constexpr (TAIL) {
@@ -778,7 +779,6 @@ int stream_chunk(const Args& a, int mode, int lanes, int groups, int rows, int p
   if (n <= 0 || n > kMaxWidth || (TAIL ? ms < 1 || ms > kMaxWidth : ms != 0) || a.B <= 0 ||
       a.R <= 0 || a.chunk < 0 || a.refine_steps < 0 ||
       static_cast<long long>(a.m) * a.B > INT_MAX ||
-      (4LL * n + 5LL * a.m) * ((a.B + lanes - 1) / lanes + a.R) * lanes > INT_MAX ||
       (lanes != 4 && lanes != 8 && lanes != 16 && lanes != 32 && lanes != 64) ||
       groups <= 0 || lanes / lanes_per_thread(lanes) * groups > kThreads ||
       !rows_fit(TAIL, lanes_per_thread(lanes), rows) || panel <= 0 ||

@@ -592,9 +592,10 @@ def _k12_stream_layouts(n: int, ms: int, refine_steps: int) -> tuple:
 
 def k12_scratch_floats(n: int, m: int, refine_steps: int, blocks: int, lanes: int) -> int:
     """The device scratch of one K1 (m = n) or K2 launch on the stream route
-    (csrc/admm_diag_stream.cu): a column per block and lane of the lanes'
-    working copy (x and q, n rows each; s, y, ax, l and u, m rows each) and,
-    when refining, of the refinement's rhs and xt (n rows each)."""
+    (csrc/admm_diag_stream.cu): a region per block, of a column per lane, of
+    the lanes' working copy (x and q, n rows each; s, y, ax, l and u, m rows
+    each) and, when refining, of the refinement's rhs and xt (n rows
+    each)."""
     return (2 * n + 5 * m + (2 * n if refine_steps > 0 else 0)) * blocks * lanes
 
 

@@ -2103,14 +2103,15 @@ def stream_phase(dev):
     - Each kernel against its plain version, bit for bit (max_ulps 0), as
       k1_plan or k2_plan lays it out on the stream route, graph-timed with
       its bound, the FMA floor (fma_floor_ms), the register tile's
-      shared-memory floor (tile_floor_ms; smem_floor_ms is the older
-      one-entry-a-multiply-add model), the plan's L2 operator bytes a chunk
-      and its lanes a thread, and plain time: K1 at the QTP's h50
-      (n = 100, B = 4096) and its tier 2 (R = 4, 2 refinements, B = 512),
-      h100 (n = 200, B = 4096), the (16, 8) plant at h30 (n = 240, B =
-      4096) and h264 at tier 1's grid (n = 528, the widest the Pallas K1
-      fuses; B = 2048); K2 at the h50 state box (n = 100, m = 300, B =
-      2048) at each precision.
+      shared-memory floor (tile_floor_ms), the plan's model of its L2
+      operator bytes a chunk (l2_bytes) and its lanes a thread, and plain
+      time: K1 at the QTP's h50 (n = 100, B = 4096) and its tier 2 (R = 4,
+      2 refinements, B = 512), h100 (n = 200, B = 4096), the (16, 8) plant
+      at h30 (n = 240, B = 4096) and h264 at tier 1's grid (n = 528, the
+      widest the Pallas K1 fuses; B = 2048); K2 at the h50 state box (n =
+      100, m = 300, B = 2048) at each precision. The three models are logged
+      with the shape and left out of the records returned, which the
+      kernels line carries.
     - The cells qtp-h50-default-B4096, qtp-sc-h50-B2048 and
       wide16x8-h30-B4096 through ``parallel.solve_batch_fused`` (which
       raised ValueError on the card before the stream route) and the
@@ -2158,18 +2159,19 @@ def stream_phase(dev):
     records = {"K1": [], "K2": []}
     for label, c, B, x0s_fn in shapes:
         rec = compare_kernel(c, B, 60, x0s_fn, plain_reps=1)
+        del rec["smem_floor_ms"]  # one entry a multiply-add: not the register tile's model
         n, m, rs, chunk = (rec[k] for k in ("n", "m", "refine_steps", "chunk"))
         plan = (admm_fused.K2Plan if m > n else admm_fused.K1Plan)(**rec["plan"])
         rows = plan.rpt_n if m > n else plan.rpt
-        rec.update(
-            shape=label, lanes_per_thread=admm_fused.k12_lanes_per_thread(plan.lanes),
+        rec.update(shape=label, lanes_per_thread=admm_fused.k12_lanes_per_thread(plan.lanes))
+        models = dict(
             fma_floor_ms=fma_floor_ms(n, m, B, rs, chunk, rec["kernel"],
                                       rec.get("precision", "highest")),
             tile_floor_ms=tile_floor_ms(n, m, B, rs, chunk, plan),
             l2_bytes=admm_fused.k12_stream_l2_bytes(n, m - n, rec["R"], rs, B, plan.lanes,
                                                     plan.groups, rows, plan.panel, chunk),
         )
-        log(phase="stream_vs_plain", **rec)
+        log(phase="stream_vs_plain", **rec, **models)
         if rec["plan"]["route"] != "stream":
             raise RuntimeError(f"{label}: expected the stream route: {rec['plan']}")
         records[rec["kernel"]].append(rec)
@@ -3023,8 +3025,6 @@ def main():
         # the Pallas bodies take past the shared routes
         *(dict(kernel_entry(f"{entry} ({kernel}, stream route)", "admm_diag_stream.cu",
                             f"{TPU_ADMM}:{line}", stream_counts[kernel], stream_recs[kernel]),
-               **{key: stream_recs[kernel][0][key] for key in (
-                   "smem_floor_ms", "fma_floor_ms", "tile_floor_ms", "l2_bytes")},
                layouts=sorted({(r["plan"]["lanes"], r["lanes_per_thread"], r["plan"]["groups"],
                                 r["plan"].get("rpt", r["plan"].get("rpt_n")), r["plan"]["panel"])
                                for r in stream_recs[kernel]}))

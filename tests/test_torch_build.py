@@ -421,6 +421,30 @@ def test_k12_stream_constants_match_the_source():
         admm_fused.K12_STREAM_LANES)
 
 
+def test_k12_stream_scratch_takes_every_batch_the_entry_takes():
+    """The stream route's working copy in its device scratch
+    (admm_fused.k12_scratch_floats) is a region of (2 n + 5 m, and 2 n more
+    when refining) rows of L lanes for each block: a block's offsets fit
+    an int and only its region's start is 64-bit, so its entry refuses no
+    batch on the scratch's account. The one size it checks is m B < 2^31,
+    the lane state's own index, as k1_plan and k2_plan do. At n = 1024 and
+    B = 2^21 - 1 the scratch holds more than 2^31 floats."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    text = open(os.path.join(_build.CSRC_DIR, "admm_diag_stream.cu")).read()
+    assert "const int region = (2 * n + 5 * m + (refine ? 2 * n : 0)) * L;" in text
+    assert "float* wx = scratch + static_cast<long long>(blockIdx.x) * region + g0;" in text
+    assert admm_fused.k12_scratch_floats(100, 300, 1, 7, 32) == (4 * 100 + 5 * 300) * 32 * 7
+    assert admm_fused.k12_scratch_floats(100, 100, 0, 7, 32) == (2 * 100 + 5 * 100) * 32 * 7
+    checks = text[text.index("int stream_chunk("):text.index("Layout lay;")]
+    assert checks.count("INT_MAX") == 1
+    assert "static_cast<long long>(a.m) * a.B > INT_MAX" in checks
+    B = 2**21 - 1
+    plan = admm_fused.k1_plan(1024, 5, 1, B)
+    assert plan.route == "stream" and admm_fused.k1_fits(1024, 5, 1)
+    assert admm_fused.k12_scratch_floats(1024, 1024, 1, plan.blocks, plan.lanes) > 2**31
+
+
 @pytest.mark.parametrize("entry,first", [("admm_perr_wide_chunk", "kinv"),
                                          ("admm_packed_wide_chunk", "w")])
 def test_wide_entries_take_the_plan(entry, first):

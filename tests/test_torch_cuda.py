@@ -378,7 +378,7 @@ def _narrow(plan, n, ms, refine_steps):
     (fewer where that would hold one rho's operators whole): every product
     streamed over several tiles and column panels."""
     whole = admm_fused._k12_resident_doubles(n, ms, refine_steps)
-    doubles = min(12 * admm_fused.STREAM_ROWS * plan.groups, (whole - 1) // 2 & ~1)
+    doubles = min(12 * admm_fused.K12_PASS_ROWS * plan.groups, (whole - 1) // 2 & ~1)
     rows = plan.rpt_n if ms else plan.rpt
     lay = admm_fused.k12_stream_layout(n, ms, refine_steps, plan.lanes, plan.groups, rows, doubles)
     assert not lay.resident and 4 <= lay.pn <= 8 and lay.pt <= 8
@@ -434,7 +434,7 @@ def test_stream_route_refuses_a_layout_it_does_not_have(wide_controllers):
         plan = (admm_fused.k2_plan(n, m, 5, 1, 64) if op.mixed_a
                 else admm_fused.k1_plan(n, 5, 1, 64))
         bytes_of = lambda lanes, panel: admm_fused.k12_stream_smem_bytes(n, m - n, lanes, panel)
-        thin = 4 * admm_fused.STREAM_ROWS * plan.groups
+        thin = 4 * admm_fused.K12_PASS_ROWS * plan.groups
         rows = (lambda r: dict(rpt_n=r, rpt_t=r)) if op.mixed_a else (lambda r: dict(rpt=r))
         for wrong in (dict(smem_bytes=plan.smem_bytes + 16),
                       dict(lanes=12, smem_bytes=bytes_of(12, plan.panel)),
