@@ -33,11 +33,11 @@
 //
 // The stream routes (K5 and K4 in admm_perr.cu, K1 and K2 in
 // admm_diag_stream.cu) and K5's and K4's wide route (admm_perr_wide.cu)
-// stream one rho's operators from device memory through two shared panels
+// stream one rho's operators from device memory through shared panels
 // with cp.async: StreamLayout is K5's and K4's stream layout, panel_stride
-// the row stride of a panel, copy16 one 16-byte copy, copy_rows a block's
-// copy of a panel's rows, rho_block the lanes of one rho index a block
-// takes.
+// the row stride of a panel, copy16 and copy16f one 16-byte copy, copy_rows
+// a block's copy of a panel's rows, widen4 the widening of four 4-byte
+// entries, rho_block the lanes of one rho index a block takes.
 
 #pragma once
 
@@ -216,6 +216,33 @@ __device__ __forceinline__ void copy16(double* dst, const double* src) {
   __pipeline_memcpy_async(dst, src, 16);
 }
 
+// one 16-byte asynchronous copy of four 4-byte entries
+__device__ __forceinline__ void copy16f(float* dst, const float* src) {
+  __pipeline_memcpy_async(dst, src, 16);
+}
+
+// four 4-byte operator entries, widened into the 8-byte entries of
+// Prec<MODE> at dst (16-byte aligned): the fp32 value as fp64 ("highest"),
+// or the bf16 pair (hi in the low half, lo in the high) as fp32 values
+// (ops/admm_fused.narrow_entries makes them; the stream routes of
+// admm_diag_stream.cu and admm_perr_wide.cu widen them once a block)
+template <int MODE>
+__device__ __forceinline__ void widen4(double* dst, float4 e) {
+  if constexpr (MODE == kHighest) {
+    reinterpret_cast<double2*>(dst)[0] = make_double2(e.x, e.y);
+    reinterpret_cast<double2*>(dst)[1] = make_double2(e.z, e.w);
+  } else {
+    const unsigned a = __float_as_uint(e.x), b = __float_as_uint(e.y);
+    const unsigned c = __float_as_uint(e.z), d = __float_as_uint(e.w);
+    reinterpret_cast<float4*>(dst)[0] =
+        make_float4(__uint_as_float(a << 16), __uint_as_float(a & 0xffff0000u),
+                    __uint_as_float(b << 16), __uint_as_float(b & 0xffff0000u));
+    reinterpret_cast<float4*>(dst)[1] =
+        make_float4(__uint_as_float(c << 16), __uint_as_float(c & 0xffff0000u),
+                    __uint_as_float(d << 16), __uint_as_float(d & 0xffff0000u));
+  }
+}
+
 // The block's lanes on a route whose lanes the wrapper orders by rho index
 // (admm_fused.rho_order: starts[r] is where index r's lanes begin): block k
 // takes lanes [(k - first) L, + L) of rho r's, in lane order, and the grid
@@ -235,6 +262,25 @@ __device__ __forceinline__ RhoBlock rho_block(const int* __restrict__ starts, in
     const int nb = (cnt + L - 1) / L;
     if (static_cast<int>(blockIdx.x) < first + nb) {
       rb = RhoBlock{rr, seg, cnt, (static_cast<int>(blockIdx.x) - first) * L};
+      break;
+    }
+    first += nb;
+  }
+  return rb;
+}
+
+// rho_block for block `index` of a grid of equal groups of blocks (a
+// thread-block cluster that shares its lanes: admm_perr_wide.cu)
+__device__ __forceinline__ RhoBlock rho_block_at(const int* __restrict__ starts, int R, int L,
+                                                 int index) {
+  RhoBlock rb{R, 0, 0, 0};
+  int first = 0;
+  for (int rr = 0; rr < R; ++rr) {
+    const int seg = starts[rr];
+    const int cnt = starts[rr + 1] - seg;
+    const int nb = (cnt + L - 1) / L;
+    if (index < first + nb) {
+      rb = RhoBlock{rr, seg, cnt, (index - first) * L};
       break;
     }
     first += nb;

@@ -114,6 +114,7 @@ using mpc_admm::clip;
 using mpc_admm::panel_stride;
 using mpc_admm::Prec;
 using mpc_admm::slot;
+using mpc_admm::widen4;
 
 constexpr int kPassRows = 4;      // rows a thread takes in each tile of K2's A2' pass
 constexpr int kThreads = 256;     // the most threads a block may have
@@ -155,26 +156,6 @@ struct Geo {
   const float* M;
   int rows, cols, ld, sp, pk, at, h;
 };
-
-// four 4-byte operator entries, widened into the 8-byte entries of
-// Prec<MODE> at dst (16-byte aligned): the fp32 value as fp64 ("highest"),
-// or the bf16 pair (hi in the low half, lo in the high) as fp32 values
-template <int MODE>
-__device__ __forceinline__ void widen4(double* dst, float4 e) {
-  if constexpr (MODE == mpc_admm::kHighest) {
-    reinterpret_cast<double2*>(dst)[0] = make_double2(e.x, e.y);
-    reinterpret_cast<double2*>(dst)[1] = make_double2(e.z, e.w);
-  } else {
-    const unsigned a = __float_as_uint(e.x), b = __float_as_uint(e.y);
-    const unsigned c = __float_as_uint(e.z), d = __float_as_uint(e.w);
-    reinterpret_cast<float4*>(dst)[0] =
-        make_float4(__uint_as_float(a << 16), __uint_as_float(a & 0xffff0000u),
-                    __uint_as_float(b << 16), __uint_as_float(b & 0xffff0000u));
-    reinterpret_cast<float4*>(dst)[1] =
-        make_float4(__uint_as_float(c << 16), __uint_as_float(c & 0xffff0000u),
-                    __uint_as_float(d << 16), __uint_as_float(d & 0xffff0000u));
-  }
-}
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));

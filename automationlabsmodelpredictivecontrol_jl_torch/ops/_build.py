@@ -120,8 +120,8 @@ SIGNATURES = {
     "admm_perr_stream_chunk": "p" * 19 + "i" * 13 + "ff" + "p",
     "admm_packed_chunk": "p" * 18 + "i" * 12 + "ff" + "p",
     "admm_packed_stream_chunk": "p" * 19 + "i" * 13 + "ff" + "p",
-    "admm_perr_wide_chunk": "p" * 20 + "i" * 11 + "ff" + "p",
-    "admm_packed_wide_chunk": "p" * 20 + "i" * 11 + "ff" + "p",
+    "admm_perr_wide_chunk": "p" * 21 + "i" * 16 + "ff" + "p",
+    "admm_packed_wide_chunk": "p" * 21 + "i" * 16 + "ff" + "p",
     "riccati_admm_chunk": "p" * 26 + "i" * 13 + "p",
     "riccati_rollout": "p" * 5 + "i" * 4 + "p",
     "riccati_certificate": "p" * 15 + "i" * 9 + "p",

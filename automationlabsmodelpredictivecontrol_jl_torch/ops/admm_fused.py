@@ -82,25 +82,28 @@ MAX_N = 128
 MAX_TAIL = 128
 MAX_DENSE_ROWS = 512
 # K4's and K5's wide route (csrc/admm_perr_wide.cu): the widest n and the
-# most constraint rows, and the lanes a block may take (its m-row vectors
-# take 16 bytes a row and lane: at m = 3839, 61 KB a lane)
+# most constraint rows; the lanes a block may take (a power of 2: its
+# vector buffer holds n rows of them in fp64), the threads of a block and
+# the registers a thread is held to (its __launch_bounds__), the ring's
+# slots, the register tiles (rows, lanes a thread) a product may take
+# (kTiles), and the blocks of a cluster that share their lanes, each taking
+# its span of every product's rows
 MAX_WIDE_N = 1024
 MAX_WIDE_ROWS = 4096
-WIDE_LANES = (32, 16, 8, 4, 2, 1)
+WIDE_LANES = (64, 32, 16, 8, 4, 2, 1)
+WIDE_THREADS = 256
+WIDE_REGISTERS = 255
+WIDE_DEPTHS = (2, 3, 4)
+WIDE_CLUSTERS = (1, 2)
+WIDE_TILES = ((4, 4), (2, 4), (4, 2), (2, 2), (4, 1), (2, 1))
 # K1's and K2's stream route (csrc/admm_diag_stream.cu): the widest n and
-# K2's longest tail; the rows a thread takes in each tile of a product, the
-# most threads a block and the registers a thread is held to (its
-# __launch_bounds__), on the stream routes of K4 and K5 and their wide
-# route (csrc/admm_perr.cu, csrc/admm_perr_wide.cu) and on K1's and K2's
-# (K12_PASS_ROWS, or 8 in K1's blocks of 4 lanes a thread: k12_rows_options;
-# K12_STREAM_THREADS, K12_STREAM_REGISTERS); the lanes a block of K1's and
-# K2's takes, from how many a thread takes 4 lanes and 2 (1 below), and
+# K2's longest tail; the rows a thread takes in each tile of K2's A2' pass
+# (K12_PASS_ROWS; elsewhere k12_rows_options), the most threads a block
+# and the registers a thread is held to (its __launch_bounds__); the lanes
+# a block takes, from how many a thread takes 4 lanes and 2 (1 below), and
 # the 16-byte chunks of a streamed panel a thread stages in registers
 MAX_STREAM_N = 1024
 MAX_STREAM_TAIL = 1024
-STREAM_ROWS = 4
-STREAM_THREADS = 512
-STREAM_REGISTERS = 128
 K12_PASS_ROWS = 4
 K12_STREAM_THREADS = 256
 K12_STREAM_REGISTERS = 256
@@ -429,18 +432,42 @@ def k2_fits(n: int, m: int, R: int, refine_steps: int) -> bool:
                       or bool(_k12_stream_layouts(n, m - n, int(refine_steps))))
 
 
-# K4's and K5's wide route ranks its layouts (_wide_cost) in lane reads of
-# a panel entry (32 a clock at 1980 MHz): one double's copy from L2 into a
-# panel costs about 12 (the copies and the reads of K5's stream route at
-# the h50 state box, PERF.md); a panel's wait when its copy takes longer
-# than the other panel's products, about 0.6 us; and each streamed panel's
-# two barriers and copy issue, fit to k3_ab.py --kernel K1 at n = 100, R =
-# 5, B = 4096 on K1's first stream route (H100, PERF.md section 6: the
-# resident 16 x 26 layout ran 1.063 ms a chunk, the streamed 32 x 13
-# 1.196, which the reads and copies alone rank equal)
-STREAM_COPY_COST = 12
-STREAM_LATENCY = 40000
-STREAM_STEP = 20000
+# K4's and K5's wide route ranks its layouts (_wide_cost) in clocks of one
+# SM, as _k12_stream_cost ranks K1's and K2's: a warp's fp64 multiply-add
+# takes 2 clocks of its quarter of the SM (16 a clock each), its 16-byte
+# shared-memory load 4 of the SM (K12_LOAD_CLOCKS), and a warp's column
+# pair at least its own serial time (WIDE_PAIR_CLOCKS, and a load's and a
+# multiply-add's issue each after it: what sets a product of one or two
+# warps, as K4's 20-row pass); L2 as K12_L2_BYTES_PER_CLOCK and
+# K12_SM_L2_BYTES_PER_CLOCK; one L2 round trip (a panel takes at least its
+# share of one over the depth - 1 in flight). The rest is fit to the
+# kernel's steps timed phase by phase on the H100
+# (scripts/wide_phase_probe.py, PERF.md section 6): an entry's
+# widening and a copied entry's issue, a panel's barrier and bookkeeping, a
+# tile's epilogue for each row a thread takes (round trips of its state to
+# L2), the reload of the vector buffer, a cluster's barrier, and the ring's
+# restart each iteration. The model lies within 15% of 12 layouts timed by
+# k3_ab.py, but where a grid past 132 blocks would run a second
+# wave (it counts every rho index but one ending in a partial cluster).
+WIDE_PAIR_CLOCKS = 60
+WIDE_PAIR_LOAD_CLOCKS = 6
+WIDE_PAIR_FMA_CLOCKS = 2
+WIDE_LATENCY = 2000
+WIDE_WIDEN_CLOCKS = 0.27
+WIDE_ISSUE_CLOCKS = 0.2
+WIDE_STEP_CLOCKS = 400
+WIDE_ROW_CLOCKS = 1500
+WIDE_RELOAD_CLOCKS = 1500
+WIDE_CLUSTER_CLOCKS = 1000
+WIDE_RESTART_CLOCKS = 8000
+# layouts whose modelled costs lie within this share of the least are
+# ranked as equal, and the plan takes the one of them that reads the
+# fewest L2 operator bytes a chunk: at K4's (20, 660, R = 2, B = 2048) 16
+# lanes a block and clusters of two blocks of 32 lanes model 2% apart and
+# ran 1.570 and 1.581 ms on the H100 (scripts/wide_phase_probe.py,
+# PERF.md section 6), the second on half the L2 bytes
+WIDE_COST_TIE = 0.05
+
 
 # K1's and K2's stream route ranks its layouts (_k12_stream_cost) in clocks
 # of one SM: the fp64 multiply-adds it starts a clock, the clocks a warp's
@@ -818,17 +845,18 @@ K5_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups
            "rpt_m", "smem_bytes")
 K5_STREAM_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups",
                   "rpt_n", "rpt_m", "panel", "smem_bytes")
-K5_WIDE_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "mode", "lanes", "groups", "panel",
-                "smem_bytes")
+K5_WIDE_INTS = ("n", "m", "B", "R", "chunk", "refine_steps", "mode", "lanes", "rt_pass", "lt_pass",
+                "rt", "lt", "depth", "panel", "cluster", "smem_bytes")
 # "shared": admm_perr_chunk / admm_packed_chunk (K5 / K4, csrc/admm_perr.cu),
 # every rho's fp64 operators in shared memory; "stream":
 # admm_perr_stream_chunk / admm_packed_stream_chunk (the same file), lanes
 # grouped by rho index, one rho's fp64 operators streamed through shared
 # panels, a thread's rows in registers; "wide": admm_perr_wide_chunk /
-# admm_packed_wide_chunk (csrc/admm_perr_wide.cu), as the stream route
-# with products over row tiles and the lane state in device memory, at
-# any n <= 1024 and up to 4096 rows, where neither of the others has a
-# layout
+# admm_packed_wide_chunk (csrc/admm_perr_wide.cu), lanes grouped by rho
+# index, each product a register tile of rows x lanes a thread over one
+# rho's 4-byte operators widened panel by panel, the lane state in a
+# working copy in device memory, at any n <= 1024 and up to 4096 rows,
+# where neither of the others has a layout
 DENSE_ROUTES = ("shared", "stream", "wide")
 
 
@@ -996,136 +1024,252 @@ def _stream_layouts(n: int, m: int, refine_steps: int, packed: bool = False,
     return tuple(out)
 
 
-def wide_smem_bytes(n: int, m: int, refine_steps: int, lanes: int, panel: int,
-                    packed: bool = False) -> int:
-    """Dynamic shared memory of one block of K5's or K4's (``packed``) wide
-    route (csrc/admm_perr_wide.cu): two operator panels of ``panel``
-    doubles; the n-row buffers of rhs and xt and the m-row buffers of y and
-    s, fp64, of ``lanes`` lanes, their rows rounded up to pairs; when
-    refining, rhs and xt in fp32, and on K4 the image st."""
-    nslots, mslots = (n + 1) & ~1, (m + 1) & ~1
-    floats = (2 * n + (m if packed else 0)) * lanes if refine_steps > 0 else 0
-    return 8 * (2 * panel + 2 * (nslots + mslots) * lanes) + 4 * floats
+class WideGeometry(NamedTuple):
+    """One product of the wide route at a register tile
+    (csrc/admm_perr_wide.cu, make_geo): the operator's rows and columns,
+    its row stride in device memory (columns rounded up to 4), the rows a
+    block of a cluster takes (its span), the operators and staged vectors
+    a panel holds (the pass: A' and fl(rho A)', y and s), the rows and
+    lanes a thread takes, the lane-groups and
+    row-groups (threads past lg G idle in the product), rows of a tile and
+    tiles, a panel's columns and the column panels of a tile."""
+
+    rows: int
+    cols: int
+    ld: int
+    span: int
+    ops: int
+    vecs: int
+    rt: int
+    lt: int
+    lg: int
+    G: int
+    H: int
+    tiles: int
+    pk: int
+    np: int
+
+    @property
+    def padded_rows(self) -> int:
+        """Rows a block's tiles compute past its span (a padded row reads
+        its tile's last one): fewer than rt a tile."""
+        return self.tiles * self.H - self.span
 
 
-def _wide_resident_doubles(n: int, m: int, refine_steps: int, packed: bool) -> int:
-    """The doubles one rho's operators take whole in shared memory on the
-    wide route: A' and fl(rho A)', K^-1' (K4: W, n + m rows), K' when
-    refining, and K5's A."""
-    fn, fm = _full_stride(n + (n & 1)), _full_stride(m + (m & 1))
-    rows = (n + m if packed else n) + (n if refine_steps > 0 else 0) + (0 if packed else m)
-    return 2 * n * fm + rows * fn
+def wide_geometry(rows: int, cols: int, ops: int, vecs: int, rt: int, lt: int, lanes: int,
+                  panel: int, cluster: int = 1) -> Optional[WideGeometry]:
+    """One product's geometry (csrc/admm_perr_wide.cu, make_geo, which this
+    mirrors): LG = lanes / lt lane-groups; each block of a ``cluster``
+    takes a span of ceil(rows / cluster) rows, in as few tiles as the
+    block's WIDE_THREADS / LG row-groups allow and as few row-groups as
+    cover the span in them, and the widest panel of whole 4-entry chunks
+    whose fp64 entries (rows at stride pk + 2) and staged vectors (pk rows
+    of ``lanes`` lanes each) fit ``panel`` doubles (their 4-byte entries
+    then fit a ring slot of ``panel`` floats). None where the lanes do not
+    split so or a panel holds fewer than 4 columns."""
+    if lanes % lt:
+        return None
+    lg = lanes // lt
+    most = WIDE_THREADS // lg
+    span = -(-rows // cluster)
+    tiles = -(-span // (rt * most))
+    G = -(-span // (tiles * rt))
+    H = rt * G
+    ld = _round4(cols)
+    by_panel = (panel - 2 * ops * H) // (ops * H + vecs * lanes) if panel >= 2 * ops * H else 0
+    pk = min(ld, by_panel) & ~3
+    if pk < 4:
+        return None
+    return WideGeometry(rows, cols, ld, span, ops, vecs, rt, lt, lg, G, H, tiles, pk,
+                        -(-cols // pk))
+
+
+def wide_smem_bytes(n: int, lanes: int, panel: int, depth: int) -> int:
+    """Dynamic shared memory of one block of K5's or K4's wide route
+    (csrc/admm_perr_wide.cu): two fp64 panels of ``panel`` doubles and the
+    vector buffer, n rows rounded up to pairs of ``lanes`` lanes in fp64;
+    a ring of ``depth`` slots of ``panel`` 4-byte entries."""
+    return 8 * (2 * panel + ((n + 1) & ~1) * lanes) + 4 * depth * panel
+
+
+def wide_scratch_floats(n: int, m: int, refine_steps: int, blocks: int, lanes: int,
+                        packed: bool = False, cluster: int = 1) -> int:
+    """The device scratch of one launch of the wide route
+    (csrc/admm_perr_wide.cu): a region per cluster of ``cluster`` of its
+    ``blocks``, of a column per lane, of
+    the lanes' working copy, every array's rows rounded up to 4: x, q, rhs
+    and xt (n rows each), s, y, ax, l and u (m rows each), and when
+    refining the refinement's residual (n rows) and K4's image (m rows)."""
+    n4, m4 = _round4(n), _round4(m)
+    rs = refine_steps > 0
+    rows = 4 * n4 + (n4 if rs else 0) + 5 * m4 + (m4 if packed and rs else 0)
+    return rows * lanes * (blocks // max(cluster, 1))
 
 
 class WideLayout(NamedTuple):
     """The wide route's layout of one K4 or K5 launch
-    (csrc/admm_perr_wide.cu, make_layout): whether one rho's operators stay
-    whole in the two panels for the chunk, and the row stride and columns
-    of a panel of an n-column operator (K^-1', W, K', A) and of the pass's
-    m-column A' and fl(rho A)'."""
+    (csrc/admm_perr_wide.cu, make_layout): the geometry of the pass, the
+    solves (K^-1' or W), the refinement's K' (None without refinement) and
+    K5's A (None for K4)."""
 
-    resident: bool
-    sn: int
-    pn: int
-    sm: int
-    pm: int
+    products: tuple
 
 
-def wide_layout(n: int, m: int, refine_steps: int, groups: int, panel: int,
-                packed: bool = False) -> Optional[WideLayout]:
+def wide_layout(n: int, m: int, refine_steps: int, lanes: int, tiles: tuple, panel: int,
+                packed: bool = False, cluster: int = 1) -> Optional[WideLayout]:
     """The layout the C entry derives from a plan (csrc/admm_perr_wide.cu,
-    make_layout): resident where every operator fits the two panels whole,
-    else panels of 4 ``groups`` rows (the pass's: twice that, A' above
-    fl(rho A)'); None where a panel holds fewer than 2 columns."""
-    ldn, ldm = n + (n & 1), m + (m & 1)
-    if _wide_resident_doubles(n, m, refine_steps, packed) <= 2 * panel:
-        return WideLayout(True, _full_stride(ldn), ldn, _full_stride(ldm), ldm)
-    H = STREAM_ROWS * groups
-    sn, sm = _panel_stride(panel, H, ldn), _panel_stride(panel, 2 * H, ldm)
-    if sn == 0 or sm == 0:
+    make_layout): ``tiles`` the pass's and the other products' (rows,
+    lanes) a thread, ``cluster`` the blocks that share their lanes; None
+    where a product has no geometry."""
+    (rtp, ltp), (rt, lt) = tiles
+    geo = lambda rows, cols, ops, vecs, r, l: wide_geometry(rows, cols, ops, vecs, r, l, lanes,
+                                                            panel, cluster)
+    products = (geo(n, m, 2, 2, rtp, ltp), geo(n + m if packed else n, n, 1, 0, rt, lt),
+                geo(n, n, 1, 0, rt, lt) if refine_steps > 0 else None,
+                None if packed else geo(m, n, 1, 0, rt, lt))
+    need = (True, True, refine_steps > 0, not packed)
+    if any(want and p is None for want, p in zip(need, products)):
         return None
-    return WideLayout(False, sn, min(sn, ldn), sm, min(sm, ldm))
+    return WideLayout(products)
+
+
+class WidePlan(NamedTuple):
+    """How one launch of K4's or K5's wide route is laid out
+    (csrc/admm_perr_wide.cu): the lanes a block (and its cluster) takes,
+    the rows and lanes a thread takes in the pass (rt_pass, lt_pass) and in
+    the other products (rt, lt), the ring's slots, the blocks of a cluster
+    that share their lanes, the blocks of the grid (cluster times the clusters:
+    R more than B needs, each rho's partial last one), the block's dynamic
+    shared memory, the blocks an SM holds and the doubles of an fp64
+    panel."""
+
+    route: str
+    lanes: int
+    rt_pass: int
+    lt_pass: int
+    rt: int
+    lt: int
+    depth: int
+    cluster: int
+    blocks: int
+    smem_bytes: int
+    per_sm: int
+    panel: int
+
+    @property
+    def tiles(self) -> tuple:
+        return ((self.rt_pass, self.lt_pass), (self.rt, self.lt))
 
 
 @functools.lru_cache(maxsize=256)
 def _wide_layouts(n: int, m: int, refine_steps: int, packed: bool = False) -> tuple:
-    """Every (lanes, groups, smem_bytes, per_sm, panel) of K5's wide route
-    (K4's if ``packed``) for this operator shape: 1 to 32 lanes, whole warps
-    of at most 512 threads, tiles of 4 groups rows no taller than the rows
-    need, the largest panel that fits beside the lane buffers with one or
-    with two blocks an SM, up to what the operators can use (all of one
-    rho's operators whole, or whole rows of a tile), and at least 8 columns
-    of the pass's tile."""
+    """Every (lanes, depth, cluster, panel, smem_bytes) of the wide route
+    for this operator shape: lanes of WIDE_LANES, depths of WIDE_DEPTHS,
+    clusters of WIDE_CLUSTERS (at most n and m blocks), and the
+    largest panel, a multiple of 8 doubles, that fits one block's shared
+    memory (a block takes a whole SM's registers) and leaves some tile of
+    each product a geometry."""
     if not (1 <= n <= MAX_WIDE_N and 1 <= m <= MAX_WIDE_ROWS):
         return ()
-    ldn, ldm = n + (n & 1), m + (m & 1)
-    rows = n + m if packed else max(n, m)
-    whole = _wide_resident_doubles(n, m, refine_steps, packed)
     out = []
     for lanes in WIDE_LANES:
-        step = max(1, 32 // lanes)
-        fixed = wide_smem_bytes(n, m, refine_steps, lanes, 0, packed)
-        if fixed > SMEM_LIMIT:
-            continue
-        for groups in range(step, STREAM_THREADS // lanes + 1, step):
-            H = STREAM_ROWS * groups
-            if H - STREAM_ROWS * step >= rows:
-                break  # fewer groups cover the rows in one tile
-            most = max(-(-whole // 2), 2 * H * (ldm + 2), H * (ldn + 2))
-            most += most & 1
-            panels = set()
-            for per in (1, 2):  # the largest panel with `per` blocks an SM
-                room = min(SMEM_LIMIT, SM_SMEM // per - SM_SMEM_PER_BLOCK) - fixed
-                panels.add(min(most, max(room, 0) // 16) & ~1)
-            for panel in sorted(panels, reverse=True):
-                if panel < 16 * H and 2 * panel < whole:
+        for depth in WIDE_DEPTHS:
+            fixed = wide_smem_bytes(n, lanes, 0, depth)
+            panel = max(SMEM_LIMIT - fixed, 0) // (16 + 4 * depth) & ~7
+            if panel <= 0:
+                continue
+            smem = wide_smem_bytes(n, lanes, panel, depth)
+            assert smem <= SMEM_LIMIT
+            for cluster in WIDE_CLUSTERS:
+                if cluster > min(n, m):
                     continue
-                if wide_layout(n, m, refine_steps, groups, panel, packed) is None:
-                    continue
-                smem = wide_smem_bytes(n, m, refine_steps, lanes, panel, packed)
-                per_sm = blocks_per_sm(lanes * groups, smem, STREAM_REGISTERS)
-                out.append((lanes, groups, smem, per_sm, panel))
+                if any(wide_layout(n, m, refine_steps, lanes, (tp, ts), panel, packed, cluster)
+                       for tp in WIDE_TILES for ts in WIDE_TILES):
+                    out.append((lanes, depth, cluster, panel, smem))
     return tuple(out)
 
 
-def _wide_cost(n: int, m: int, R: int, refine_steps: int, B: int, lanes: int, groups: int,
-               per_sm: int, panel: int, packed: bool) -> float:
-    """The wide route's cost of a layout, for ranking, as
-    :func:`_k12_stream_cost` ranks K1's and K2's stream route: the busiest
-    SM's blocks, each taking per iteration its products' panels in turn;
-    the pass reads two operators against two vectors, the solves K^-1' (K4:
-    W, n + m rows), the refinement K', K5's A xt A."""
-    lay = wide_layout(n, m, refine_steps, groups, panel, packed)
-    H = STREAM_ROWS * groups
-    rs = int(refine_steps)
-    # (rows, columns, a panel's columns, operators, vectors)
-    products = [(n, m, lay.pm, 2, 2)]
-    products += [(n + m if packed else n, n, lay.pn, 1, 1)] * (1 + rs)
-    products += [(n, n, lay.pn, 1, 1)] * rs
-    if not packed:
-        products += [(m, n, lay.pn, 1, 1)]
-    blocks = -(-B // lanes) + R
-    used = min(blocks, (B + R * (lanes - 1)) // lanes)
+def _wide_product_cost(g: WideGeometry, lanes: int, depth: int, l2: float) -> float:
+    """One product's clocks a block and iteration on the wide route: each
+    panel takes the longer of its sums (its column pairs, each the longer
+    of the warps' multiply-adds on their quarter of the SM and their
+    16-byte loads: rt operator and lt vector entries an operator, and one
+    warp's serial time), its
+    entries' widening and copies' issue and a step's overhead, and its copy
+    from L2 (the operator's rows, the pass's vectors) with its share of an
+    L2 round trip; each tile its epilogue, a
+    round trip to L2 for each of its rows a thread takes."""
+    warps = -(-g.G * g.lg // 32)
+    loads, fmas = g.ops * (g.rt + g.lt), 2 * g.rt * g.lt * g.ops
+    pair = max(-(-warps // 4) * 2 * fmas, warps * K12_LOAD_CLOCKS * loads,
+               WIDE_PAIR_CLOCKS + WIDE_PAIR_LOAD_CLOCKS * loads + WIDE_PAIR_FMA_CLOCKS * fmas)
+    last_rows = g.span - (g.tiles - 1) * g.H
+    last_cols = g.cols - (g.np - 1) * g.pk
+    cost = g.tiles * g.rt * WIDE_ROW_CLOCKS
+    for rows, n_tiles in ((g.H, g.tiles - 1), (last_rows, 1)):
+        for cols, n_panels in ((g.pk, g.np - 1), (last_cols, 1)):
+            if not n_tiles or not n_panels:
+                continue
+            entries = g.ops * rows * _round4(cols)
+            vectors = g.vecs * _round4(cols) * lanes
+            copied = entries + vectors
+            compute = (-(-cols // 2) * pair + copied * (WIDE_WIDEN_CLOCKS + WIDE_ISSUE_CLOCKS))
+            step = max(compute + WIDE_STEP_CLOCKS, 4 * copied / l2 + WIDE_LATENCY / (depth - 1))
+            cost += n_tiles * n_panels * step
+    return cost
+
+
+def _wide_clusters_busy(R: int, B: int, lanes: int) -> int:
+    """The clusters a launch of the wide route may keep busy, for ranking:
+    B lanes in full clusters and all but one of the R rho indices ending in
+    a partial one (random indices do; a grid past the card's SMs runs a
+    second wave)."""
+    return -(-B // lanes) + R - 1
+
+
+def _wide_cost(n: int, m: int, R: int, refine_steps: int, B: int, lanes: int, depth: int,
+               cluster: int, lay: WideLayout) -> float:
+    """The wide route's cost of a layout, for ranking: clocks of the busiest
+    SM (a block an SM) for an iteration: its block's products in turn
+    (:func:`_wide_product_cost`), each but the pass after a reload of the
+    vector buffer (and in a cluster a barrier of its blocks), and the
+    ring's restart."""
+    used = cluster * _wide_clusters_busy(R, B, lanes)
     busiest = -(-used // SM_COUNT)
-    at_once = min(per_sm, busiest)
-    penalty = max(1.0, 7 / (at_once * lanes * groups / 32))
-    cost = 0.0
-    for rows, cols, pk, ops, vectors in products:
-        panels = -(-rows // H) * -(-cols // pk)
-        width = cols / -(-cols // pk)
-        reads = lanes * H * width * (ops + vectors / STREAM_ROWS) * penalty
-        if lay.resident:
-            cost += panels * reads
-        else:
-            copy = STREAM_COPY_COST * H * ops * width + STREAM_LATENCY / at_once
-            cost += panels * (max(reads, copy) + STREAM_STEP)
+    l2 = min(K12_SM_L2_BYTES_PER_CLOCK, K12_L2_BYTES_PER_CLOCK / min(used, SM_COUNT))
+    pass_, solve, kprod, ax = lay.products
+    rs = int(refine_steps)
+    reload = WIDE_RELOAD_CLOCKS + (WIDE_CLUSTER_CLOCKS if cluster > 1 else 0)
+    cost = WIDE_RESTART_CLOCKS + reload + _wide_product_cost(pass_, lanes, depth, l2)
+    cost += (1 + rs) * (reload + _wide_product_cost(solve, lanes, depth, l2))
+    if rs:
+        cost += rs * (reload + _wide_product_cost(kprod, lanes, depth, l2))
+    if ax is not None:
+        cost += reload + _wide_product_cost(ax, lanes, depth, l2)
     return busiest * cost
+
+
+def wide_l2_bytes(n: int, m: int, R: int, refine_steps: int, B: int, plan, chunk: int,
+                  packed: bool = False) -> int:
+    """The operator bytes one chunk of ``chunk`` iterations of the wide
+    route reads from L2 on this plan: each cluster one rho's operators as
+    4-byte entries, rows padded to 4 (its blocks a span of rows each),
+    every iteration (the pass's two, the solves' once a solve, K' once a
+    refinement, K5's A), over the clusters B lanes spread evenly over R rho
+    indices fill (:func:`k12_blocks_used`)."""
+    ldn, ldm = _round4(n), _round4(m)
+    rs = int(refine_steps)
+    clusters = k12_blocks_used(R, B, plan.lanes)
+    entries = 2 * n * ldm + (1 + rs) * (n + m if packed else n) * ldn + rs * n * ldn
+    entries = chunk * (entries + (0 if packed else m * ldn))
+    return 4 * entries * clusters
 
 
 @functools.lru_cache(maxsize=256)  # the driver asks once per chunk
 def k5_plan(n: int, m: int, R: int, refine_steps: int, B: int,
             lanes: Optional[int] = None, groups: Optional[int] = None,
-            route: Optional[str] = None, mode: str = "highest") -> DensePlan:
+            route: Optional[str] = None, mode: str = "highest", tiles: Optional[tuple] = None,
+            depth: Optional[int] = None, cluster: Optional[int] = None):
     """The layout of a K5 launch for ``B`` lanes, from the shape alone.
 
     The shared route where some layout of it fits (its fp64 operators and
@@ -1143,16 +1287,22 @@ def k5_plan(n: int, m: int, R: int, refine_steps: int, B: int,
     launch has up to R - 1 more blocks (each rho's partial last one). Ties
     go to more lanes per block. ``lanes``, ``groups`` and ``route`` force a
     layout (ValueError if it does not fit; the wide route only where it is
-    forced or neither other route has any layout). ``mode``, a precision of
-    ``PRECISIONS``, sets the registers the instantiations take; bytes,
-    panels and routes are the same at every precision (8-byte entries)."""
-    return _dense_plan(False, n, m, R, refine_steps, B, lanes, groups, route, mode)
+    forced or neither other route has any layout); on the wide route, a
+    :class:`WidePlan` (:func:`_wide_plan`), ``tiles`` ((rt_pass, lt_pass),
+    (rt, lt)), ``depth`` and ``cluster`` force its tiles, ring and blocks
+    a cluster (``groups`` does not apply
+    there). ``mode``, a
+    precision of ``PRECISIONS``, sets the registers the instantiations
+    take; bytes, panels and routes are the same at every precision."""
+    return _dense_plan(False, n, m, R, refine_steps, B, lanes, groups, route, mode, tiles, depth,
+                       cluster)
 
 
 @functools.lru_cache(maxsize=256)  # the driver asks once per chunk
 def k4_plan(n: int, m: int, R: int, refine_steps: int, B: int,
             lanes: Optional[int] = None, groups: Optional[int] = None,
-            route: Optional[str] = None, mode: str = "highest") -> DensePlan:
+            route: Optional[str] = None, mode: str = "highest", tiles: Optional[tuple] = None,
+            depth: Optional[int] = None, cluster: Optional[int] = None):
     """The layout of a K4 launch for ``B`` lanes, as :func:`k5_plan` lays
     out K5's, with K4's instantiations (``K4_INSTANCES``,
     ``K4_STREAM_INSTANCES``) and bytes: on the shared route kia_r in place
@@ -1164,11 +1314,14 @@ def k4_plan(n: int, m: int, R: int, refine_steps: int, B: int,
     A'y and A'rho.s and widens it twice (each widening costs about what a
     double's read does: k3_ab.py --kernel K4), K^-1 and kia for xt and its
     image in one product, and K, K^-1 and kia again per refinement.
-    ``mode`` as in :func:`k5_plan`."""
-    return _dense_plan(True, n, m, R, refine_steps, B, lanes, groups, route, mode)
+    ``mode``, ``tiles``, ``depth`` and ``cluster`` as in
+    :func:`k5_plan`."""
+    return _dense_plan(True, n, m, R, refine_steps, B, lanes, groups, route, mode, tiles, depth,
+                       cluster)
 
 
-def _dense_plan(packed, n, m, R, refine_steps, B, lanes, groups, route, mode) -> DensePlan:
+def _dense_plan(packed, n, m, R, refine_steps, B, lanes, groups, route, mode, tiles, depth,
+                cluster):
     name = "K4" if packed else "K5"
     _check_mode(mode)
     B = int(B)
@@ -1188,7 +1341,12 @@ def _dense_plan(packed, n, m, R, refine_steps, B, lanes, groups, route, mode) ->
     rs = int(refine_steps)
     older = (1 <= n <= MAX_N and 1 <= m <= MAX_DENSE_ROWS)  # the stream route has a layout
     if route == "wide" or (route is None and not older):
-        return _wide_plan(packed, n, m, R, rs, B, lanes, groups)
+        if groups is not None:
+            raise ValueError(f"{name}'s wide route takes no row-groups: its tiles set them")
+        return _wide_plan(packed, n, m, R, rs, B, lanes, tiles, depth, cluster)
+    if (tiles, depth, cluster) != (None, None, None):
+        raise ValueError(f"tiles, depth and cluster are {name}'s wide route's, not its "
+                         f"{route or 'shared or stream'} route's")
     for kind in DENSE_ROUTES[:2]:
         if route not in (None, kind):
             continue
@@ -1227,26 +1385,63 @@ def _dense_plan(packed, n, m, R, refine_steps, B, lanes, groups, route, mode) ->
     )
 
 
-def _wide_plan(packed, n, m, R, rs, B, lanes, groups) -> DensePlan:
-    """The cheapest layout of the wide route (:func:`_wide_cost`; ties go to
-    more lanes a block, then the larger panel); ``lanes`` and ``groups``
+def _wide_plan(packed, n, m, R, rs, B, lanes, tiles, depth, cluster) -> WidePlan:
+    """The layout of the wide route for this shape: each of its layouts
+    (:func:`_wide_layouts`) with the pass's tile and the other products'
+    tile that cost least on it (:func:`_wide_cost`), of those with two
+    lanes a thread or more (one lane a thread only in a block of one); of
+    the layouts within ``WIDE_COST_TIE`` of the least cost, the one that
+    reads the fewest L2 operator bytes a chunk (:func:`wide_l2_bytes`),
+    then the cheapest, more lanes a block, the larger panel. ``lanes``,
+    ``tiles`` ((rt_pass, lt_pass), (rt, lt)), ``depth`` and ``cluster``
     force one."""
-    best = None
-    for L, G, smem, per_sm, panel in _wide_layouts(n, m, rs, packed):
-        if lanes not in (None, L) or groups not in (None, G):
+    ranked = []
+    for L, D, C, panel, smem in _wide_layouts(n, m, rs, packed):
+        if lanes not in (None, L) or depth not in (None, D) or cluster not in (None, C):
             continue
-        key = (_wide_cost(n, m, R, rs, B, L, G, per_sm, panel, packed), -L, -panel)
-        if best is None or key < best[0]:
-            best = (key, DensePlan("wide", L, G, STREAM_ROWS, STREAM_ROWS, -(-B // L) + R, smem,
-                                   per_sm, panel))
-    if best is None:
+        used = C * _wide_clusters_busy(R, B, L)
+        l2 = min(K12_SM_L2_BYTES_PER_CLOCK, K12_L2_BYTES_PER_CLOCK / min(used, SM_COUNT))
+        pick = []
+        for kind, options in ((0, WIDE_TILES), (1, WIDE_TILES)):
+            if tiles is not None:  # forced: only a tile the kernel has
+                options = tuple(tile for tile in options if tile == tuple(tiles[kind]))
+            else:  # a thread holds more than one lane's sums where there are two
+                options = tuple(tile for tile in options if tile[1] >= min(2, L))
+            choice = None
+            for rt, lt in options:
+                geo = lambda rows, cols, ops, vecs: wide_geometry(
+                    rows, cols, ops, vecs, rt, lt, L, panel, C)
+                if kind == 0:
+                    parts = [geo(n, m, 2, 2)]
+                else:
+                    parts = [geo(n + m if packed else n, n, 1, 0)]
+                    parts += [geo(n, n, 1, 0)] * min(rs, 1) + ([] if packed else [geo(m, n, 1, 0)])
+                if any(p is None for p in parts):
+                    continue
+                c = sum(_wide_product_cost(p, L, D, l2) for p in parts)
+                if choice is None or c < choice[0]:
+                    choice = (c, (rt, lt))
+            pick.append(choice)
+        if None in pick:
+            continue
+        lay = wide_layout(n, m, rs, L, (pick[0][1], pick[1][1]), panel, packed, C)
+        (rtp, ltp), (rt, lt) = pick[0][1], pick[1][1]
+        plan = WidePlan("wide", L, rtp, ltp, rt, lt, D, C, C * (-(-B // L) + R), smem,
+                        blocks_per_sm(WIDE_THREADS, smem, WIDE_REGISTERS), panel)
+        ranked.append((_wide_cost(n, m, R, rs, B, L, D, C, lay), plan))
+    if not ranked:
         raise ValueError(
             f"no layout of {'K4' if packed else 'K5'}'s wide route for n={n}, m={m}, R={R}, "
             f"refine_steps={rs}"
-            + ("" if lanes is None and groups is None else f", lanes={lanes}, groups={groups}")
+            + ("" if lanes is None else f", lanes={lanes}")
+            + ("" if tiles is None else f", tiles={tiles}")
+            + ("" if depth is None else f", depth={depth}")
+            + ("" if cluster is None else f", cluster={cluster}")
             + f" within {SMEM_LIMIT} B of shared memory"
         )
-    return best[1]
+    least = min(cost for cost, _ in ranked)
+    return min(((wide_l2_bytes(n, m, R, rs, B, plan, 25, packed), cost, -plan.lanes, -plan.panel),
+                plan) for cost, plan in ranked if cost <= least * (1 + WIDE_COST_TIE))[1]
 
 
 def rho_order(idx: Tensor, R: int) -> Tuple[Tensor, Tensor]:
@@ -1737,11 +1932,13 @@ _KERNEL_OPERATORS = {
 
 def kernel_operators(op: AdmmOperator, mode: str, *keys: str, narrow: bool = False) -> dict:
     """The operators ``keys`` of the stream and wide routes as their kernels
-    read them from device memory: for K4's and K5's (csrc/admm_perr.cu,
-    csrc/admm_perr_wide.cu) :func:`operator_entries` at precision ``mode``
-    of ``_KERNEL_OPERATORS``' forms, rows padded to an even stride for
-    16-byte copies; ``narrow`` for K1's and K2's (csrc/admm_diag_stream.cu)
-    :func:`narrow_entries`, rows padded to a multiple of 4. Each is built
+    read them from device memory: for K4's and K5's stream route
+    (csrc/admm_perr.cu) :func:`operator_entries` at precision ``mode`` of
+    ``_KERNEL_OPERATORS``' forms, rows padded to an even stride for 16-byte
+    copies; ``narrow`` for K1's and K2's stream route
+    (csrc/admm_diag_stream.cu) and K4's and K5's wide route
+    (csrc/admm_perr_wide.cu) :func:`narrow_entries`, rows padded to a
+    multiple of 4. Each is built
     once per operator, precision and form and kept on the operator (a new
     operator, as ``op.to`` or ``replace`` make, builds its own)."""
     cache = op.__dict__.setdefault("_kernel_operators", {}).setdefault(
@@ -1780,15 +1977,22 @@ def _launch_dense(packed, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, p
     floats = (float(config.sigma), float(config.alpha))
     name = _count_key(name, mode)
     if plan.route in ("stream", "wide"):
-        # one rho's operators a block, as the kernel's 8-byte entries: K^-1
-        # (K4: W, with kia below it) and K transposed, A, and on the stream
-        # route fl(rho_r A), on the wide route A' and fl(rho_r A)'
+        # one rho's operators a block: K^-1 (K4: W, with kia below it) and K
+        # transposed, A, and on the stream route fl(rho_r A), as the
+        # kernel's 8-byte entries; on the wide route A' and fl(rho_r A)',
+        # all as 4-byte entries (narrow), with a scratch for the blocks'
+        # working copy of their lanes' state (wide_scratch_floats)
         wide = plan.route == "wide"
         first = "w" if packed else "kinv_t"
-        ops = kernel_operators(op, mode, first, "k_t", "a", *(("at", "rat") if wide else ("ra",)))
-        ldn, ldm = n + (n & 1), m + (m & 1)
-        shape = lambda *dims: dims if mode == "highest" else dims + (2,)
-        dt = torch.float64 if mode == "highest" else f
+        ops = kernel_operators(op, mode, first, "k_t", "a", *(("at", "rat") if wide else ("ra",)),
+                               narrow=wide)
+        if wide:
+            ldn, ldm = _round4(n), _round4(m)
+            shape, dt = (lambda *dims: dims), f
+        else:
+            ldn = n + (n & 1)
+            shape = lambda *dims: dims if mode == "highest" else dims + (2,)
+            dt = torch.float64 if mode == "highest" else f
         order, starts = rho_order(idx, R)
         args = [
             ("[K_invs'; kia'] (entries)" if packed else "K_invs' (entries)", ops[first],
@@ -1805,10 +2009,13 @@ def _launch_dense(packed, op, qT, lT, uT, idx, xT, sT, yT, axT, chunk, config, p
             ("rho_invs", op.rho_invs, (R, m), f),
         ] + state[:3] + [("order", order, (B,), i32), ("starts", starts, (R + 1,), i32)] + state[4:]
         _check_args(name, args, qT.device)
-        kind = "wide" if wide else "stream"
-        entry = f"admm_{'packed' if packed else 'perr'}_{kind}_chunk"
-        keys = K5_WIDE_INTS if wide else K5_STREAM_INTS
-        return _launch(name, entry, args, outs, [ints[k] for k in keys], floats)
+        if not wide:
+            return _launch(name, f"admm_{'packed' if packed else 'perr'}_stream_chunk", args, outs,
+                           [ints[k] for k in K5_STREAM_INTS], floats)
+        scratch = torch.empty(wide_scratch_floats(n, m, rs, plan.blocks, plan.lanes, packed,
+                                                  plan.cluster), dtype=f, device=qT.device)
+        return _launch(name, f"admm_{'packed' if packed else 'perr'}_wide_chunk", args,
+                       outs + [scratch], [ints[k] for k in K5_WIDE_INTS], floats)[:4]
     args = [
         ("K_invs", op.K_invs, (R, n, n), f),
         ("Ks", op.Ks, (R, n, n), f),

@@ -675,30 +675,50 @@ def smem_floor_ms(n, m, R, refine_steps, B, chunk, kernel="K2"):
 
 
 def fma_floor_ms(n, m, B, refine_steps, chunk, kernel="K1", mode="highest"):
-    """Least milliseconds of one chunk of K1 (m = n) or K2 on the card's
-    CUDA cores: its multiply-adds (chunk_bound's count: (1 + 2 refine) n^2,
-    and for K2 3 (m - n) n) as fp64 FMAs at 64 a clock on every SM
-    ("highest"; the bound takes them at the fp64 tensor-core rate, which
-    the kernels' index-order sums cannot use), or the bf16 precisions'
-    passes as fp32 FMAs at 128 a clock (3 a multiply-add at "bf16x3", 1 at
-    "default"), at the card's highest SM clock."""
-    macs = (1 + 2 * refine_steps) * n * n + (3 * (m - n) * n if kernel == "K2" else 0)
+    """Least milliseconds of one chunk of K1 (m = n), K2, K4 or K5 on the
+    card's CUDA cores: its multiply-adds (chunk_bound's count: (1 + 2
+    refine) n^2, and for K2 3 (m - n) n; K5 3 m n + (1 + 2 refine) n^2; K4
+    2 m n + n (n + m) + refine (n^2 + n (n + m))) as fp64 FMAs at 64 a
+    clock on every SM ("highest"; the bound takes them at the fp64
+    tensor-core rate, which the kernels' index-order sums cannot use), or
+    the bf16 precisions' passes as fp32 FMAs at 128 a clock (3 a
+    multiply-add at "bf16x3", 1 at "default"), at the card's highest SM
+    clock."""
+    if kernel == "K5":
+        macs = 3 * m * n + (1 + 2 * refine_steps) * n * n
+    elif kernel == "K4":
+        macs = 2 * m * n + n * (n + m) + refine_steps * (n * n + n * (n + m))
+    else:
+        macs = (1 + 2 * refine_steps) * n * n + (3 * (m - n) * n if kernel == "K2" else 0)
     per_clock = {"highest": 64, "bf16x3": 128 / 3, "default": 128}[mode]
     return macs * B * chunk / per_clock / (SM_COUNT * sm_clock_hz()) * 1e3
 
 
-def tile_floor_ms(n, m, B, refine_steps, chunk, plan):
+def tile_floor_ms(n, m, B, refine_steps, chunk, plan, packed=False):
     """Least milliseconds of one chunk of K1 (m = n) or K2 on the stream
-    route's register tile of ``plan`` (a K1Plan or K2Plan), at "highest":
-    each product of admm_fused._k12_products at a thread's LT lanes
-    (admm_fused.k12_lanes_per_thread) and RT rows (the plan's, 4 in K2's
-    A2' pass) loads per 2 columns RT operator and LT vector entries a
-    vector as 16-byte shared-memory loads, 4 clocks of its SM a warp's
-    load (scripts/fp64_rate_probe.py), and does 2 RT LT multiply-adds a
-    vector, 64 a clock on the SM; each takes the longer of the two, padded
-    rows left out, at the card's highest SM clock."""
+    route's register tile of ``plan`` (a K1Plan or K2Plan), or of K4
+    (``packed``) or K5 on the wide route's (a WidePlan), at "highest": each
+    product (admm_fused._k12_products; the wide route's
+    admm_fused.wide_layout) at a thread's LT lanes and RT rows loads per 2
+    columns RT operator and LT vector entries an operator (the wide pass:
+    two) as 16-byte shared-memory loads, 4 clocks of its SM a warp's load
+    (scripts/fp64_rate_probe.py), and does 2 RT LT multiply-adds an
+    operator, 64 a clock on the SM; each takes the longer of the two,
+    padded rows and idle threads left out, at the card's highest SM
+    clock."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
 
+    if plan.route == "wide":
+        lay = admm_fused.wide_layout(n, m, refine_steps, plan.lanes, plan.tiles, plan.panel,
+                                     packed, plan.cluster)
+        pass_, solve, kprod, ax = lay.products
+        clocks = 0.0
+        for g, times in ((pass_, 1), (solve, 1 + refine_steps), (kprod, refine_steps), (ax, 1)):
+            if g is None or not times:
+                continue
+            per_warp = max(2 * g.rt * g.lt * g.ops * 32 / 64, 4 * g.ops * (g.rt + g.lt))
+            clocks += times * g.rows * g.cols * per_warp / (32 * g.rt * g.lt * 2)
+        return clocks * B * chunk / (SM_COUNT * sm_clock_hz()) * 1e3
     lt = admm_fused.k12_lanes_per_thread(plan.lanes)
     rows = plan.rpt_n if m > n else plan.rpt
     lay = admm_fused.k12_stream_layout(n, m - n, refine_steps, plan.lanes, plan.groups, rows,
@@ -2259,7 +2279,11 @@ def wide_phase(dev):
 
     - Each kernel against its plain version, bit for bit (max_ulps 0), as
       k5_plan or k4_plan lays it out on the wide route, graph-timed over 20
-      launches with its bound, shared-memory floor and plain time: K5 at
+      launches with its bound, shared-memory floor, FMA floor
+      (fma_floor_ms), the register tiles' shared-memory floor
+      (tile_floor_ms), the plan's L2 operator bytes a chunk (l2_bytes),
+      its largest share of padded rows and its panel steps an iteration,
+      and plain time: K5 at
       the QTP's h100 state box (n = 200, m = 600, the default config, B =
       2048) at each precision, its h100 equality terminal (200, 204), and
       at tier 1's grid (R = 2, no refinement, B = 1024) the widest state
@@ -2275,7 +2299,8 @@ def wide_phase(dev):
       side, and each fused solve under torch.profiler; and the K4 cell
       dense-sc32x1-h20-B2048 (its lanes reach no certificate at eps 1e-6
       in 1000 iterations on either engine), whose fused solve is held to
-      the same solve with K4's plain version on the card instead.
+      the same solve with K4's plain version on the card instead, and
+      timed beside the general engine's on the same states.
     Fails if a kernel differs from its plain version, if a fused solve
     raises, runs a plain version, launches no wide-route kernel, leaves a
     lane non-finite, or lies more than U_OK from the general engine where
@@ -2316,7 +2341,23 @@ def wide_phase(dev):
     for label, c, B, x0s_fn in shapes:
         rec = compare_kernel(c, B, 70, x0s_fn, plain_reps=1)
         rec.update(shape=label)
-        log(phase="wide_vs_plain", **rec)
+        plan = admm_fused.WidePlan(**rec["plan"])
+        n, m, rs, packed = rec["n"], rec["m"], rec["refine_steps"], rec["kernel"] == "K4"
+        lay = admm_fused.wide_layout(n, m, rs, plan.lanes, plan.tiles, plan.panel, packed,
+                                     plan.cluster)
+        # the plan's models, in this log line only (the kernels line carries
+        # measurements and the bound)
+        models = dict(
+            fma_floor_ms=fma_floor_ms(n, m, B, rs, rec["chunk"], rec["kernel"],
+                                      rec.get("precision", "highest")),
+            tile_floor_ms=tile_floor_ms(n, m, B, rs, rec["chunk"], plan, packed),
+            l2_bytes=admm_fused.wide_l2_bytes(n, m, rec["R"], rs, B, plan, rec["chunk"], packed),
+            padded_share=max(g.padded_rows / (g.tiles * g.H) for g in lay.products if g),
+            clusters_used=admm_fused.k12_blocks_used(rec["R"], B, plan.lanes),
+            steps_per_iteration=sum(g.tiles * g.np * k for g, k in zip(
+                lay.products, (1, 1 + rs, rs, 1)) if g),
+        )
+        log(phase="wide_vs_plain", **rec, **models)
         if rec["plan"]["route"] != "wide":
             raise RuntimeError(f"{label}: expected the wide route: {rec['plan']}")
         records[rec["kernel"]].append(rec)
@@ -2367,6 +2408,14 @@ def wide_phase(dev):
             )
             bad = du > U_OK or not bool(both.any())
         else:  # the same solve with the plain version, on fewer lanes and iterations
+            # the general engine on the same states: a time only (neither
+            # engine certifies these lanes at eps 1e-6 in 1000 iterations)
+            (sol_g, _, _, d_g), lat_g = timed(lambda c=c, x=x: parallel.solve_batch(c, x),
+                                              REPS_WIDE_ROUTE)
+            check_solution(sol_g, B, N, f"{cell} general", nx=nx, nu=1)
+            rec.update(converged_fraction_general=int(d_g.n_converged) / B,
+                       mean_iterations_general=float(d_g.mean_iterations),
+                       batch_p50_ms_general=float(np.percentile(lat_g, 50)) * 1e3)
             short = with_iterations(c, WIDE_PLAIN_ITERS)
             plain_fn = admm_fused.chunk_fn_for(op, plain=True, config=c.engine.config)
             xs = x[:B_WIDE_PLAIN]
@@ -3035,7 +3084,8 @@ def main():
         *(dict(kernel_entry(f"{entry} ({kernel}, wide route)", "admm_perr_wide.cu",
                             f"{TPU_ADMM}:{line}", wide_counts[kernel], wide_recs[kernel]),
                smem_floor_ms=wide_recs[kernel][0]["smem_floor_ms"],
-               layouts=sorted({(r["plan"]["lanes"], r["plan"]["groups"], r["plan"]["panel"])
+               layouts=sorted({tuple(r["plan"][k] for k in (
+                   "lanes", "rt_pass", "lt_pass", "rt", "lt", "depth", "cluster", "panel"))
                                for r in wide_recs[kernel]}))
           for kernel, entry, line in (("K5", "admm_perr_wide_chunk", 778),
                                       ("K4", "admm_packed_wide_chunk", 252))),

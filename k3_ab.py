@@ -104,8 +104,14 @@ K5_WIDE_SHAPES (the QTP's h100 state box and equality terminal at the
 suite's config, B = 2048; its h154 state box and h228 equality terminal
 at tier 1's grid, B = 1024) and K4_WIDE_SHAPES (the (32, 1) plant's h20
 state box at tier 1's grid, B = 2048); a tree without it has no layout
-there and reports them skipped (the K4 shape it skips). LAYOUT ``LxGw`` forces the wide route's
-lanes and row-groups (``w`` alone: the wide route at any shape).
+there and reports them skipped (the K4 shape it skips). LAYOUT
+``Lw[pRxL][sRxL][dD][cC][/PANEL]`` forces the wide route's lanes a
+block, the pass's and the other products' register tiles (rows x lanes a
+thread), the ring's depth, the blocks of a cluster and the doubles of an
+fp64 panel (``w`` alone: the wide route at any shape;
+``32wp2x2s4x4d2c2``); each wide
+record carries the plan's L2 operator bytes a chunk (``l2_bytes``), the FMA
+floor and the register tiles' floor.
 
 ``--kernel K3W`` times K3W's sequential form (each tree's
 ``csrc/riccati_wide.cu`` and, where the tree has it,
@@ -489,6 +495,36 @@ def _admm_cases(kernel, dev, shapes):
         yield name, tier2(ctrls[key]) if fallback else ctrls[key], x0s[x0s_name], B, seed
 
 
+def _wide_spec(spec):
+    """The k4_plan / k5_plan arguments a wide-route LAYOUT forces:
+    ``Lw[pRxL][sRxL][dD][cC][/PANEL]``: lanes a block, the pass's and the
+    other products' rows x lanes a thread, the ring's depth, the blocks of
+    a cluster, the doubles of an fp64 panel; ``w`` alone the wide route at
+    any shape."""
+    import re
+
+    m = re.fullmatch(r"(\d*)w(?:p(\d)x(\d))?(?:s(\d)x(\d))?(?:d(\d))?(?:c(\d))?"
+                     r"(?:/(\d+))?", spec)
+    if m is None:
+        raise SystemExit(f"k3_ab.py: not a wide layout: {spec!r}")
+    lanes, pr, pl, sr, sl, depth, cluster, panel = m.groups()
+    force = dict(route="wide")
+    if lanes:
+        force["lanes"] = int(lanes)
+    if pr or sr:
+        plan_tiles = (int(pr), int(pl)) if pr else None, (int(sr), int(sl)) if sr else None
+        if None in plan_tiles:
+            raise SystemExit(f"k3_ab.py: a wide layout forces both tiles or neither: {spec!r}")
+        force["tiles"] = plan_tiles
+    if depth:
+        force["depth"] = int(depth)
+    if cluster:
+        force["cluster"] = int(cluster)
+    if panel:
+        force["panel"] = int(panel)
+    return force
+
+
 def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
     """Time K1, K2, K4 or K5 of one tree at its shapes; print one K1_AB,
     K2_AB, K4_AB or K5_AB line of records. Each tree's wrapper calls its
@@ -538,13 +574,13 @@ def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
             plain_fn = admm_fused.iterate_chunk_dense_perr_T_plain
         plan_fn = getattr(admm_fused, f"{kernel.lower()}_plan", None)
         launch = getattr(admm_fused, f"_launch_{kernel.lower()}", None)
-        if layout and "s" in layout:  # LxGs[/PANEL]: the stream route, a panel forced
+        if layout and "w" in layout:  # the wide route: Lw[pRxL][sRxL][dD][r|t][cC][/PANEL]
+            force, layout, panel = _wide_spec(layout), None, ""
+        elif layout and "s" in layout:  # LxGs[/PANEL]: the stream route, a panel forced
             layout, _, panel = layout.partition("s")
             force, layout = dict(route="stream"), layout or None
         elif layout and layout[-1] == "h":
             force, layout = dict(route="shared"), layout[:-1] or None
-        elif layout and layout[-1] == "w":
-            force, layout = dict(route="wide"), layout[:-1] or None
     else:
         wrapper, plain_fn = admm_fused.iterate_chunk_mixed_T, admm_fused.iterate_chunk_mixed_T_plain
         plan_fn, launch = getattr(admm_fused, "k2_plan", None), getattr(admm_fused, "_launch_k2")
@@ -561,11 +597,19 @@ def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
             if plan_fn is not None:
                 lanes, groups = (int(v) for v in layout.split("x")) if layout else (None, None)
                 shape = (n, R, rs, B) if kernel == "K1" else (n, m, R, rs, B)
+                wide_panel, forced = None, force
+                if kernel in ("K4", "K5") and force.get("route") == "wide":
+                    forced = dict(force)
+                    wide_panel = forced.pop("panel", None)
+                    lanes = forced.pop("lanes", None)
                 try:
-                    plan = plan_fn(*shape, lanes=lanes, groups=groups, **force)
+                    plan = plan_fn(*shape, lanes=lanes, groups=groups, **forced)
                 except ValueError as err:
                     records.append(dict(rec, skipped=str(err)))
                     continue
+                if wide_panel:
+                    plan = plan._replace(panel=wide_panel, smem_bytes=admm_fused.wide_smem_bytes(
+                        n, plan.lanes, wide_panel, plan.depth))
                 if kernel in ("K4", "K5") and force.get("route") == "stream" and panel:
                     plan = plan._replace(panel=int(panel[1:]), smem_bytes=admm_fused.k5_stream_smem_bytes(
                         m, plan.lanes, plan.groups, plan.rpt_n, plan.rpt_m, int(panel[1:])))
@@ -583,6 +627,13 @@ def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
                         n, m - n, R, rs, B, plan.lanes, plan.groups, rows, plan.panel, args[-2])
                     rec["fma_floor_ms"] = chip_smoke.fma_floor_ms(n, m, B, rs, args[-2], kernel)
                     rec["tile_floor_ms"] = chip_smoke.tile_floor_ms(n, m, B, rs, args[-2], plan)
+                if plan.route == "wide" and hasattr(admm_fused, "wide_l2_bytes"):
+                    packed = kernel == "K4"
+                    rec["l2_bytes"] = admm_fused.wide_l2_bytes(n, m, R, rs, B, plan, args[-2],
+                                                               packed)
+                    rec["fma_floor_ms"] = chip_smoke.fma_floor_ms(n, m, B, rs, args[-2], kernel)
+                    rec["tile_floor_ms"] = chip_smoke.tile_floor_ms(n, m, B, rs, args[-2], plan,
+                                                                    packed)
                 fn = lambda plan=plan: launch(*args, plan=plan)
             out = fn()
             torch.cuda.synchronize()

@@ -446,10 +446,10 @@ def test_k5_plan_covers_every_shape_k5_takes(R, refine_steps):
     batch size from 1 to 16384, within one block's shared memory: the
     shared route where a layout of it fits, else the stream route up to
     n = 128 and 512 rows, else the wide route. A plan covers the lanes and
-    the rows with an instantiation (the wide route: tiles of 4 rows a
-    thread), whole warps, no more threads than it allows, and its bytes are
+    the rows with an instantiation, whole warps, no more threads than it allows, and its bytes are
     the layout's (k5_smem_bytes, k5_stream_smem_bytes, wide_smem_bytes:
-    the C entries' formulas)."""
+    the C entries' formulas; the wide route: register tiles of its own
+    and a layout for every product)."""
     _assert_plans_cover(False, R, refine_steps)
 
 
@@ -484,13 +484,17 @@ def _assert_plans_cover(packed, R, refine_steps):
                 assert admm_fused._wide_layouts(n, m, refine_steps, packed)
                 for B in K5_BS:
                     p = plan_fn(n, m, R, refine_steps, B)
-                    assert p.route == "wide" and p.blocks - R == -(-B // p.lanes), (n, m, B)
-                    assert p.lanes in admm_fused.WIDE_LANES and (p.lanes * p.groups) % 32 == 0
-                    assert p.lanes * p.groups <= admm_fused.STREAM_THREADS
+                    assert p.route == "wide", (n, m, B)
+                    assert p.blocks == p.cluster * (-(-B // p.lanes) + R)
+                    assert p.lanes in admm_fused.WIDE_LANES
+                    assert (p.rt_pass, p.lt_pass) in admm_fused.WIDE_TILES
+                    assert (p.rt, p.lt) in admm_fused.WIDE_TILES
                     assert p.smem_bytes == admm_fused.wide_smem_bytes(
-                        n, m, refine_steps, p.lanes, p.panel, packed) <= admm_fused.SMEM_LIMIT
+                        n, p.lanes, p.panel, p.depth) <= admm_fused.SMEM_LIMIT
                     assert p.per_sm == admm_fused.blocks_per_sm(
-                        p.lanes * p.groups, p.smem_bytes, admm_fused.STREAM_REGISTERS) >= 1
+                        admm_fused.WIDE_THREADS, p.smem_bytes, admm_fused.WIDE_REGISTERS) >= 1
+                    assert admm_fused.wide_layout(n, m, refine_steps, p.lanes, p.tiles, p.panel,
+                                                  packed, p.cluster) is not None
                 continue
             shared = bool(admm_fused._shared_layouts(n, m, R, refine_steps, packed))
             assert shared or admm_fused._stream_layouts(n, m, refine_steps, packed)

@@ -119,11 +119,14 @@ WIDE_SHAPES += [(1024, 4096), (1024, 1), (129, 1)]
 def test_wide_plans_cover_the_batch_within_shared_memory(R, refine_steps, packed):
     """Past n = 128 or 512 rows the wide route is planned (neither other
     route has a layout there); its blocks cover B with room for each rho
-    index's partial last block, 1 to 32 lanes, whole warps of at most 512
-    threads, its shared memory is the C entry's formula within the card's,
-    and a panel holds at least 2 columns of a tile (the pass's: 2 tiles'
-    rows) or every operator of one rho whole, at strides odd in 16-byte
-    units. Past 1024 or 4096 no route takes the shape."""
+    index's partial last cluster, the grid a whole number of clusters of 1
+    or 2 blocks, 1 to 64 lanes, each product's register tile one of the
+    kernel's and its threads within the block's, its shared memory the C
+    entry's formula within the card's, a panel of at least 4 columns of
+    every product's tile, tiles that cover each block's span of a
+    product's rows (the cluster's spans cover the rows) with fewer than rt
+    padded rows each. Past 1024 or 4096
+    no route takes the shape."""
     plan_fn = admm_fused.k4_plan if packed else admm_fused.k5_plan
     fits = admm_fused.k4_fits if packed else admm_fused.k5_fits
     for n, m in WIDE_SHAPES:
@@ -135,17 +138,30 @@ def test_wide_plans_cover_the_batch_within_shared_memory(R, refine_steps, packed
         for B in (1, 33, 512, 1024, 2048, 16384):
             p = plan_fn(n, m, R, refine_steps, B)
             assert p.route == "wide", (n, m, B)
-            assert p.blocks == -(-B // p.lanes) + R and (p.blocks - R) * p.lanes >= B
-            assert p.lanes in admm_fused.WIDE_LANES and (p.lanes * p.groups) % 32 == 0
-            assert p.lanes * p.groups <= admm_fused.STREAM_THREADS
-            assert p.rpt_n == p.rpt_m == admm_fused.STREAM_ROWS
+            assert p.cluster in admm_fused.WIDE_CLUSTERS and p.cluster <= min(n, m)
+            clusters = p.blocks // p.cluster
+            assert p.blocks % p.cluster == 0 and clusters == -(-B // p.lanes) + R
+            assert (clusters - R) * p.lanes >= B
+            assert p.lanes in admm_fused.WIDE_LANES and p.depth in admm_fused.WIDE_DEPTHS
+            assert (p.rt_pass, p.lt_pass) in admm_fused.WIDE_TILES
+            assert (p.rt, p.lt) in admm_fused.WIDE_TILES
             assert p.smem_bytes == admm_fused.wide_smem_bytes(
-                n, m, refine_steps, p.lanes, p.panel, packed) <= admm_fused.SMEM_LIMIT
-            assert p.per_sm == admm_fused.blocks_per_sm(
-                p.lanes * p.groups, p.smem_bytes, admm_fused.STREAM_REGISTERS) >= 1
-            lay = admm_fused.wide_layout(n, m, refine_steps, p.groups, p.panel, packed)
-            assert lay is not None and lay.pn >= 2 and lay.pm >= 2
-            assert lay.sn % 4 == 2 and lay.sm % 4 == 2 and lay.pn % 2 == lay.pm % 2 == 0
+                n, p.lanes, p.panel, p.depth) <= admm_fused.SMEM_LIMIT
+            assert p.panel % 8 == 0 and p.per_sm == admm_fused.blocks_per_sm(
+                admm_fused.WIDE_THREADS, p.smem_bytes, admm_fused.WIDE_REGISTERS) == 1
+            lay = admm_fused.wide_layout(n, m, refine_steps, p.lanes, p.tiles, p.panel,
+                                         packed, p.cluster)
+            assert lay is not None
+            for g in lay.products:
+                if g is None:
+                    continue
+                assert g.lg * g.lt == p.lanes and g.lg * g.G <= admm_fused.WIDE_THREADS
+                assert g.span * p.cluster >= g.rows > g.span * (p.cluster - 1)
+                assert g.tiles * g.H >= g.span > (g.tiles - 1) * g.H
+                assert 0 <= g.padded_rows < g.rt * g.tiles
+                assert g.pk >= 4 and g.pk % 4 == 0 and g.np == -(-g.cols // g.pk)
+                assert g.ops * g.H * (g.pk + 2) + g.vecs * g.pk * p.lanes <= p.panel
+                assert (g.ops * g.H + g.vecs * p.lanes) * g.pk <= p.panel  # a ring slot
     for n, m in ((admm_fused.MAX_WIDE_N + 1, 2000), (10, admm_fused.MAX_WIDE_ROWS + 1), (10, 0)):
         assert not fits(n, m, R)
         with pytest.raises(ValueError, match="no K"):
@@ -154,9 +170,10 @@ def test_wide_plans_cover_the_batch_within_shared_memory(R, refine_steps, packed
 
 def test_wide_route_is_forced_and_checked():
     """``route="wide"`` forces the wide route at a shape the older routes
-    take (the card tests hold it to the plain version there, resident and
-    streamed); a forced layout of another route never falls to it, and a
-    wide shape refuses the other routes."""
+    take (the card tests hold it to the plain version there); a forced layout of another route never falls to it, and a
+    wide shape refuses the other routes. y and s no longer sit in shared
+    memory, so 32 and 64 lanes a block fit at (200, 600) and (308, 924);
+    the tiles, depth and cluster are the wide route's alone."""
     p = admm_fused.k5_plan(40, 120, 5, 1, 2048, route="wide")
     assert p.route == "wide" and p.blocks == 2048 // p.lanes + 5
     assert admm_fused.k4_plan(40, 44, 5, 1, 2048, route="wide").route == "wide"
@@ -167,10 +184,79 @@ def test_wide_route_is_forced_and_checked():
         admm_fused.k5_plan(200, 600, 5, 1, 2048, route="stream")
     with pytest.raises(ValueError):
         admm_fused.k4_plan(20, 660, 2, 0, 2048, route="shared")
+    for n, m, R, rs, B in ((200, 600, 5, 1, 2048), (308, 924, 2, 0, 1024)):
+        for lanes in (32, 64):
+            assert admm_fused.k5_plan(n, m, R, rs, B, lanes=lanes).lanes == lanes
+    forced = admm_fused.k4_plan(20, 660, 2, 0, 2048, tiles=((4, 4), (4, 2)), depth=4, cluster=2)
+    assert (forced.tiles, forced.depth, forced.cluster) == (((4, 4), (4, 2)), 4, 2)
+    assert forced.blocks == 2 * (-(-2048 // forced.lanes) + 2)
     with pytest.raises(ValueError):
-        admm_fused.k5_plan(200, 600, 5, 1, 2048, lanes=32)  # y and s alone take 307 KB
+        admm_fused.k5_plan(1, 3839, 1, 0, 64, cluster=2)  # one row: no span for the second
+    with pytest.raises(ValueError):
+        admm_fused.k5_plan(200, 600, 5, 1, 2048, groups=4)  # the tiles set the row-groups
+    with pytest.raises(ValueError):
+        admm_fused.k5_plan(40, 120, 5, 1, 2048, depth=3)  # the shared route has no ring
+    with pytest.raises(ValueError):
+        admm_fused.k5_plan(200, 600, 5, 1, 2048, tiles=((8, 4), (8, 4)))  # no such pass tile
     with pytest.raises(ValueError):
         admm_fused.k5_plan(40, 120, 5, 1, 2048, route="tiled")
+
+
+def _earlier_l2_bytes(n, m, R, rs, B, lanes, packed, chunk=25):
+    """The operator bytes a chunk read from L2 on the earlier wide route (a
+    lane a thread, 8-byte entries) at ``lanes`` lanes a block (its plans: 8 x 52 at (200, 600, 5, 1), 16 x 12
+    at (20, 660, 2, 0), B = 2048, both streamed): 8-byte entries, rows
+    padded to even, every operator once an iteration (the pass's two, the
+    solves', K' a refinement, K5's A), over the blocks the lanes fill."""
+    ldn, ldm = n + (n & 1), m + (m & 1)
+    entries = 2 * n * ldm + (1 + rs) * (n + m if packed else n) * ldn + rs * n * ldn
+    entries += 0 if packed else m * ldn
+    return 8 * entries * chunk * admm_fused.k12_blocks_used(R, B, lanes)
+
+
+@pytest.mark.parametrize("packed,n,m,R,rs,old_lanes", [(False, 200, 600, 5, 1, 8),
+                                                      (True, 20, 660, 2, 0, 16)])
+def test_wide_plans_read_a_quarter_of_the_l2_bytes(packed, n, m, R, rs, old_lanes):
+    """At the state box of dense-sc-h100-B2048 (K5) and of
+    dense-sc32x1-h20-B2048 (K4) the plan's operators cost at most a
+    quarter of the L2 bytes a chunk that the earlier wide route's plan of
+    the same shape read (4-byte entries, and 32 lanes or more sharing each
+    panel: K4's clusters of two blocks, which its cost ranks within
+    WIDE_COST_TIE of 16 lanes a block, on half the bytes); a lane of any
+    plan pays no more than half the earlier one's."""
+    plan = (admm_fused.k4_plan if packed else admm_fused.k5_plan)(n, m, R, rs, 2048)
+    new = admm_fused.wide_l2_bytes(n, m, R, rs, 2048, plan, 25, packed)
+    old = _earlier_l2_bytes(n, m, R, rs, 2048, old_lanes, packed)
+    assert new * 4 <= old, (plan, new, old)
+    if packed:
+        assert (plan.lanes, plan.cluster) == (32, 2), plan
+    streamed = admm_fused.k5_plan(40, 120, 5, 1, 2048, route="wide", lanes=1, cluster=1)
+    assert admm_fused.wide_l2_bytes(40, 120, 5, 1, 2048, streamed, 25) * 2 == _earlier_l2_bytes(
+        40, 120, 5, 1, 2048, 1, False)
+
+
+# the wide shapes chip_smoke.py times (wide_phase): (packed, n, m, R,
+# refine_steps, B) at every precision
+TIMED = [(False, 200, 600, 5, 1, 2048), (False, 200, 204, 5, 1, 2048),
+         (False, 308, 924, 2, 0, 1024), (False, 456, 460, 2, 0, 1024),
+         (True, 20, 660, 2, 0, 2048)]
+
+
+@pytest.mark.parametrize("packed,n,m,R,rs,B", TIMED)
+def test_wide_tiles_pad_at_most_a_quarter(packed, n, m, R, rs, B):
+    """At the shapes the script times, padded rows take at most a quarter
+    of any product's multiply-adds (K4's 20-row pass is not padded to a
+    tile of 48), and every product holds more than one lane's sums a
+    thread."""
+    for mode in admm_fused.PRECISIONS:
+        p = (admm_fused.k4_plan if packed else admm_fused.k5_plan)(n, m, R, rs, B, mode=mode)
+        lay = admm_fused.wide_layout(n, m, rs, p.lanes, p.tiles, p.panel, packed, p.cluster)
+        for g in lay.products:
+            if g is not None:
+                assert 4 * g.padded_rows <= g.tiles * g.H, (p, g)
+                assert g.rt * g.lt > 1 and g.lt > 1, (p, g)
+    if packed:
+        assert lay.products[0].padded_rows == 0
 
 
 def _plant_pair(nx, nu, horizon, cfg, **rows):

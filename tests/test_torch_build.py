@@ -450,62 +450,108 @@ def test_k12_stream_scratch_takes_every_batch_the_entry_takes():
 def test_wide_entries_take_the_plan(entry, first):
     """K5's and K4's wide-route C entries (csrc/admm_perr_wide.cu) take the
     ints the wrapper passes, in its order (admm_fused.K5_WIDE_INTS: the
-    shape, then the plan's lanes, groups, panel and bytes), after their 20
-    arrays: K^-1' (K4: W), K', A, A' and fl(rho A)' as entries, the rho
-    table, the vectors, the rho order and the lane state."""
+    shape, then the plan's lanes, tiles, depth, panel, cluster and
+    bytes), after their 21 arrays: K^-1' (K4: W), K', A, A' and fl(rho A)'
+    as 4-byte entries, the rho table, the vectors, the rho order, the lane
+    state and the working copy's scratch."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
 
     params = _c_params(entry)
     sig = _build.SIGNATURES[entry]
     assert tuple(p for p, kind in zip(params, sig) if kind == "i") == admm_fused.K5_WIDE_INTS
-    assert sig == "p" * 20 + "i" * len(admm_fused.K5_WIDE_INTS) + "ff" + "p"
+    assert sig == "p" * 21 + "i" * len(admm_fused.K5_WIDE_INTS) + "ff" + "p"
     assert params[:5] == [first, "kmat", "a", "at", "rat"]
     assert params[10:12] == ["order", "starts"]
+    assert params[20] == "scratch"
+    plan = admm_fused.k5_plan(200, 600, 5, 1, 2048)
+    assert set(admm_fused.K5_WIDE_INTS[7:]) <= set(plan._fields)
 
 
 def test_wide_bytes_match_the_c_entry():
     """admm_fused.wide_smem_bytes is the wide route's own formula: the
-    entry's four lines, read from csrc/admm_perr_wide.cu and evaluated (its
-    conditionals as Python's) on the same layouts, for K5 and K4."""
+    entry's three lines, read from csrc/admm_perr_wide.cu and evaluated on
+    the same layouts, at every lane count and depth (K5's and K4's bytes
+    are the same: no operator is held whole)."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
 
     text = open(os.path.join(_build.CSRC_DIR, "admm_perr_wide.cu")).read()
-    names = ("wide_doubles", "refine_floats", "image_floats", "wide_need")
+    names = ("wide_doubles", "ring_floats", "wide_need")
     exprs = [re.search(rf"const long long {name} = (.*);", text).group(1) for name in names]
-    py = lambda e: re.sub(r"^(.*) \? (.*) : (.*)$", r"(\2) if (\1) else (\3)",
-                          re.sub(r"(\d+)LL", r"\1", e).replace("lay.", "").replace("a.", "")
-                          .replace("&&", "and"))
+    py = lambda e: re.sub(r"(\d+)LL", r"\1", e).replace("lay.", "")
     cases = 0
-    for n, m in ((200, 600), (130, 134), (20, 660), (1, 3839), (1024, 4096), (7, 13), (582, 583)):
-        for rs in (0, 1, 2):
-            for lanes in admm_fused.WIDE_LANES:
-                for panel in (96, 7658, 12848):
-                    for packed in (False, True):
-                        env = dict(n=n, m=m, lanes=lanes, panel=panel, refine_steps=rs,
-                                   PACKED=packed, nslots=(n + 1) & ~1, mslots=(m + 1) & ~1)
-                        for name, expr in zip(names, exprs):
-                            env[name] = eval(py(expr), {}, env)
-                        assert env["wide_need"] == admm_fused.wide_smem_bytes(
-                            n, m, rs, lanes, panel, packed)
-                        cases += 1
+    for n in (1, 7, 20, 130, 200, 582, 1024):
+        for lanes in admm_fused.WIDE_LANES:
+            for panel in (8, 96, 1000, 7656, 12848):
+                for depth in admm_fused.WIDE_DEPTHS:
+                    env = dict(n=n, lanes=lanes, panel=panel, depth=depth,
+                               nslots=(n + 1) & ~1)
+                    for name, expr in zip(names, exprs):
+                        env[name] = eval(py(expr), {}, env)
+                    assert env["wide_need"] == admm_fused.wide_smem_bytes(n, lanes, panel, depth)
+                    cases += 1
     assert cases > 700
+    # a ring slot of a panel's floats, as the kernel lays the ring out
+    assert text.count("ring + k * lay.panel;") == 2
+
+
+def test_wide_geometry_matches_the_c_entry():
+    """admm_fused.wide_geometry is make_geo's rule: its tiles, row-groups
+    and panel columns, read from csrc/admm_perr_wide.cu and evaluated on
+    the same products."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+
+    text = open(os.path.join(_build.CSRC_DIR, "admm_perr_wide.cu")).read()
+    body = text[text.index("bool make_geo("):text.index("// The layout of a launch")]
+    for line in ("const int most = kThreads / lg;", "g.span = (rows + cluster - 1) / cluster;",
+                 "g.tiles = (g.span + rt * most - 1) / (rt * most);",
+                 "g.G = (g.span + g.tiles * rt - 1) / (g.tiles * rt);", "g.H = rt * g.G;",
+                 "g.pk = static_cast<int>(pk < 0 ? 0 : pk & ~3LL);", "g.sp = g.pk + 2;",
+                 "return g.pk >= 4;"):
+        assert line in body, line
+    assert re.search(r"by_panel = \(static_cast<long long>\(panel\) - 2LL \* ops \* g\.H\) /\s+"
+                     r"\(static_cast<long long>\(ops\) \* g\.H \+ 1LL \* vecs \* lanes\);",
+                     body)
+    g = admm_fused.wide_geometry(200, 600, 2, 2, 4, 4, 16, 7064)
+    assert (g.lg, g.G, g.H, g.tiles, g.pk, g.np) == (4, 50, 200, 1, 12, 50)
+    g = admm_fused.wide_geometry(600, 200, 1, 0, 8, 4, 16, 7064)
+    assert (g.G, g.H, g.tiles, g.padded_rows) == (38, 304, 2, 8)
+    g = admm_fused.wide_geometry(600, 200, 1, 0, 8, 4, 32, 7064, cluster=2)
+    assert (g.span, g.lg, g.G, g.H, g.tiles, g.padded_rows) == (300, 8, 19, 152, 2, 4)
+    assert admm_fused.wide_geometry(20, 660, 2, 2, 4, 4, 3, 7064) is None
+    assert admm_fused.wide_geometry(1024, 1024, 2, 2, 4, 4, 64, 800) is None
 
 
 def test_wide_constants_match_the_source():
-    """The wide route's rows a thread takes in a tile, most threads a
-    block, widest n and most rows are the plans' (admm_fused.STREAM_ROWS,
-    STREAM_THREADS, MAX_WIDE_N, MAX_WIDE_ROWS), its entry takes the plans'
-    lanes a block (WIDE_LANES), and its __launch_bounds__ holds a thread to
-    the registers the plans count."""
+    """The wide route's threads a block, widest n, most rows and deepest
+    ring are the plans' (admm_fused.WIDE_THREADS, MAX_WIDE_N,
+    MAX_WIDE_ROWS, WIDE_DEPTHS), its register tiles are the plans'
+    (WIDE_TILES, every product's) and each has a case in both of the kernel's
+    dispatch, its entry takes the plans' lanes a block (WIDE_LANES), and
+    its __launch_bounds__ holds a block's thread to the registers the
+    plans count (WIDE_REGISTERS: one block an SM)."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
 
     text = open(os.path.join(_build.CSRC_DIR, "admm_perr_wide.cu")).read()
     const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
-    assert const("kRows") == admm_fused.STREAM_ROWS
-    assert const("kThreads") == admm_fused.STREAM_THREADS
+    assert const("kThreads") == admm_fused.WIDE_THREADS
     assert const("kMaxN") == admm_fused.MAX_WIDE_N
     assert const("kMaxRows") == admm_fused.MAX_WIDE_ROWS
+    assert const("kMaxDepth") == max(admm_fused.WIDE_DEPTHS)
+    assert "depth < 2 ||" in text and min(admm_fused.WIDE_DEPTHS) == 2
+    assert const("kMaxCluster") == max(admm_fused.WIDE_CLUSTERS)
+    assert min(admm_fused.WIDE_CLUSTERS) == 1
+    assert "cluster < 1 || cluster > kMaxCluster || n < cluster || m < cluster ||" in text
     assert "__launch_bounds__(kThreads, 1)" in text
+    assert admm_fused.blocks_per_sm(admm_fused.WIDE_THREADS, 1000, admm_fused.WIDE_REGISTERS) == 1
+    tiles = lambda name: tuple(tuple(int(v) for v in pair) for pair in re.findall(
+        r"\{(\d+), (\d+)\}", re.search(rf"constexpr int {name}\[\]\[2\] = \{{(.*)\}};",
+                                       text).group(1)))
+    assert tiles("kTiles") == admm_fused.WIDE_TILES
+    cases = re.findall(r"case (\d+) \* 16 \+ (\d+):", text)
+    dispatch = [tuple(int(v) for v in c) for c in cases]
+    for part in (dispatch[:5], dispatch[5:]):  # the pass's, the other products'
+        assert len(part) == 5 and set(part) | {admm_fused.WIDE_TILES[-1]} == set(
+            admm_fused.WIDE_TILES)
     lanes = re.search(r"\(lanes != 1 &&[^)]*\)", text).group(0)
     assert sorted(int(v) for v in re.findall(r"lanes != (\d+)", lanes)) == sorted(
         admm_fused.WIDE_LANES)

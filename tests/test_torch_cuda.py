@@ -845,15 +845,16 @@ def test_dense_solve_auto_launches_k4(dense_controllers):
 
 # K4's and K5's wide route (csrc/admm_perr_wide.cu): (kernel, n, m, R,
 # refine_steps, B, forced k4_plan / k5_plan arguments; "panel" a narrow
-# panel of about 12 columns, so that every product streams over several
-# tiles and column panels). The QTP's equality terminal at h65 and its
+# panel of 4 columns of every product's tile, so that every product streams
+# over several column panels). The QTP's equality terminal at h65 and its
 # state box at h100 on the default config, the widest state box and
 # equality terminal the JAX package fuses at tier 1's grid (h154, h228),
 # the widest n (582) and the most rows (3839) it fuses, the (32, 1) plant's
 # h20 state box on K4 (660 rows) and K4 with refinement and its image
 # past 512 rows; odd n and m, one row, shapes the stream route takes
-# forced onto the wide route (resident and streamed), one and two lanes a
-# block.
+# forced onto the wide route; every lanes a block (1 to 64), every pass
+# and product tile, every depth, clusters of 1 and 2 blocks (odd rows, a partial last cluster), one rho
+# index for every lane ("single").
 WIDE_CASES = [
     ("K5", 130, 134, 5, 1, 64, None), ("K5", 200, 600, 5, 1, 256, None),
     ("K5", 308, 924, 2, 0, 128, None), ("K5", 456, 460, 2, 0, 64, None),
@@ -862,22 +863,52 @@ WIDE_CASES = [
     ("K5", 7, 13, 1, 0, 33, dict(route="wide")), ("K5", 1, 1, 2, 1, 5, dict(route="wide")),
     ("K5", 41, 77, 3, 2, 100, dict(route="wide", panel=True)),
     ("K5", 200, 204, 5, 1, 100, dict(lanes=1)), ("K5", 131, 700, 2, 1, 50, dict(lanes=2)),
+    ("K5", 200, 600, 5, 1, 300, dict(lanes=32)), ("K5", 130, 134, 5, 1, 200, dict(lanes=64)),
+    ("K5", 200, 204, 3, 1, 130, dict(lanes=4, depth=4, tiles=((2, 4), (2, 2)))),
+    ("K5", 150, 300, 2, 2, 90, dict(lanes=8, depth=2, tiles=((4, 2), (4, 2)))),
+    ("K5", 150, 300, 2, 1, 90, dict(lanes=8, tiles=((2, 2), (4, 2)), depth=3)),
+    ("K5", 130, 200, 2, 1, 70, dict(lanes=16, tiles=((4, 1), (2, 4)), panel=True)),
+    ("K5", 60, 100, 2, 1, 70, dict(route="wide", lanes=16, tiles=((2, 1), (4, 1)))),
+    ("K5", 200, 600, 5, 1, 300, dict(lanes=32, cluster=2)),
+    ("K5", 200, 600, 5, 1, 300, dict(lanes=16, cluster=1, single=True)),
+    ("K5", 308, 924, 2, 0, 99, dict(cluster=2, single=True)),
+    ("K5", 7, 13, 1, 0, 33, dict(route="wide", cluster=2)),
+    ("K5", 41, 77, 3, 2, 100, dict(route="wide", cluster=2, panel=True)),
     ("K4", 20, 660, 2, 0, 2048, None), ("K4", 20, 660, 2, 1, 77, None),
     ("K4", 64, 3000, 1, 0, 64, None), ("K4", 3, 4000, 1, 2, 33, None),
     ("K4", 41, 77, 3, 2, 100, dict(route="wide")), ("K4", 7, 13, 1, 0, 33, dict(route="wide")),
     ("K4", 41, 77, 3, 2, 100, dict(route="wide", panel=True)),
     ("K4", 19, 801, 2, 0, 50, dict(lanes=1)),
+    ("K4", 20, 660, 2, 0, 300, dict(lanes=16, cluster=1, depth=3)),
+    ("K4", 20, 660, 2, 0, 300, dict(lanes=16, depth=4)),
+    ("K4", 20, 660, 2, 1, 300, dict(lanes=32, tiles=((4, 4), (4, 4)))),
+    ("K4", 40, 600, 3, 2, 99, dict(lanes=8, tiles=((2, 1), (4, 1)), depth=2)),
+    ("K4", 20, 660, 2, 0, 77, dict(cluster=2)),
+    ("K4", 20, 660, 2, 0, 2048, dict(cluster=2, single=True)),
+    ("K4", 3, 4000, 1, 2, 33, dict(cluster=2)),
 ]
 
 
-def _wide_args(base, kernel, n, m, R, refine_steps, B, mode, seed):
+def _narrow_panel(plan, n, m, refine_steps, packed):
+    """The plan with the narrowest fp64 panel its tiles allow: 4 columns of
+    the tallest product's tile (and of the pass's, with y and s), a
+    multiple of 8 doubles."""
+    lay = admm_fused.wide_layout(n, m, refine_steps, plan.lanes, plan.tiles, plan.panel,
+                                 packed, plan.cluster)
+    need = max(g.ops * g.H * 6 + g.vecs * 4 * plan.lanes for g in lay.products if g)
+    panel = -(-need // 8) * 8
+    return plan._replace(panel=panel, smem_bytes=admm_fused.wide_smem_bytes(
+        n, plan.lanes, panel, plan.depth))
+
+
+def _wide_args(base, kernel, n, m, R, refine_steps, B, mode, seed, single_index=False):
     op = _synthetic_dense_op(base, n, m, R, seed=seed)
     if kernel == "K4":
         from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import packed_kia
 
         op = op.replace(kia=packed_kia(op.K_invs, op.A_s))
     cfg = AdmmConfig(refine_steps=refine_steps, kernel_precision=mode)
-    return _lane_args(op, cfg, B, seed=seed + 1)
+    return _lane_args(op, cfg, B, seed=seed + 1, single_index=single_index)
 
 
 def _wide_held_to_plain(kernel, args, plan):
@@ -906,21 +937,20 @@ def test_wide_route_matches_plain_version(k5_controllers, kernel, n, m, R, refin
     versions bit for bit at each precision, with and without refinement,
     random rho indices (every block one index's lanes) and ragged
     batches."""
-    args = _wide_args(k5_controllers["h20"].engine.op, kernel, n, m, R, refine_steps, B, mode,
-                      seed=n + m)
     force = dict(force or {})
     narrow = force.pop("panel", False)
-    plan = (admm_fused.k4_plan if kernel == "K4" else admm_fused.k5_plan)(
+    args = _wide_args(k5_controllers["h20"].engine.op, kernel, n, m, R, refine_steps, B, mode,
+                      seed=n + m, single_index=force.pop("single", False))
+    packed = kernel == "K4"
+    plan = (admm_fused.k4_plan if packed else admm_fused.k5_plan)(
         n, m, R, refine_steps, B, mode=mode, **force)
+    for key in ("lanes", "depth", "tiles", "cluster"):
+        assert key not in force or getattr(plan, key) == force[key]
     if narrow:
-        doubles = 24 * admm_fused.STREAM_ROWS * plan.groups
-        plan = plan._replace(panel=doubles, smem_bytes=admm_fused.wide_smem_bytes(
-            n, m, refine_steps, plan.lanes, doubles, kernel == "K4"))
-        assert not admm_fused.wide_layout(n, m, refine_steps, plan.groups, doubles,
-                                          kernel == "K4").resident
-    elif force.get("route") == "wide" and m < 100:
-        assert admm_fused.wide_layout(n, m, refine_steps, plan.groups, plan.panel,
-                                      kernel == "K4").resident
+        plan = _narrow_panel(plan, n, m, refine_steps, packed)
+        lay = admm_fused.wide_layout(n, m, refine_steps, plan.lanes, plan.tiles, plan.panel,
+                                     packed, plan.cluster)
+        assert lay is not None and all(g.np > 1 for g in lay.products if g and g.cols > 4)
     _wide_held_to_plain(kernel, args, plan)
 
 
@@ -932,10 +962,12 @@ def test_wide_route_refuses_a_layout_it_does_not_have(k5_controllers):
         args = _wide_args(k5_controllers["h20"].engine.op, kernel, 130, 600, 2, 1, 64,
                           "highest", seed=5)
         plan = (admm_fused.k4_plan if kernel == "K4" else admm_fused.k5_plan)(130, 600, 2, 1, 64)
-        with pytest.raises(RuntimeError, match="cudaError_t 1"):
-            launch(*args, plan=plan._replace(smem_bytes=plan.smem_bytes + 16))
-        with pytest.raises(RuntimeError, match="cudaError_t 1"):
-            launch(*args, plan=plan._replace(lanes=3))
+        for wrong in (dict(smem_bytes=plan.smem_bytes + 16), dict(lanes=3), dict(lanes=128),
+                      dict(rt_pass=8), dict(lt_pass=3), dict(rt=8), dict(lt=8), dict(depth=1),
+                      dict(depth=5), dict(panel=0), dict(panel=plan.panel + 4),
+                      dict(cluster=3), dict(cluster=0)):
+            with pytest.raises(RuntimeError, match="cudaError_t 1"):
+                launch(*args, plan=plan._replace(**wrong))
 
 
 @pytest.fixture(scope="module")
