@@ -126,7 +126,7 @@ SIGNATURES = {
     "riccati_rollout": "p" * 5 + "i" * 4 + "p",
     "riccati_certificate": "p" * 15 + "i" * 9 + "p",
     "riccati_chain_floor": "p" + "i" * 4 + "p",
-    "riccati_wide_chunk": "p" * 28 + "i" * 14 + "p",
+    "riccati_wide_chunk": "p" * 28 + "i" * 17 + "p",
     "riccati_wide_seq_chunk": "p" * 28 + "i" * 15 + "p",
     "riccati_wide_rollout": "p" * 5 + "i" * 5 + "p",
     "riccati_wide_certificate": "p" * 15 + "i" * 8 + "p",

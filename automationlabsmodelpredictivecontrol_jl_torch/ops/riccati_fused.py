@@ -19,7 +19,8 @@ with the factors of the current rho (``ops/riccati.py``).
   share each horizon step's factors through a ring in shared memory, a
   thread takes a row of 4 lanes) or in doubling form
   (``_lqr_affine_solve_pscan``: ceil(log2 N) combine levels a sweep;
-  ``csrc/riccati_wide.cu``: a lane's threads over a level's rows);
+  ``csrc/riccati_wide.cu``: a block's lanes share each level's operator,
+  a thread a register tile of 4 rows x 1-8 lanes of a horizon step);
 - :func:`rollout` and :func:`certificate_terms` are the driver's two O(N)
   recurrences (the warm and zero-input rollouts, once per solve; the
   infeasibility certificate's adjoint recursion, every chunk), each a small
@@ -86,7 +87,8 @@ Tensor = torch.Tensor
 __all__ = [
     "LAUNCHES", "PLAIN_CALLS", "MAX_NX", "MAX_NU", "k3_fits", "K3_ROUTES", "K3Plan",
     "k3_plan", "certificate_plan", "iterate_chunk_riccati", "iterate_chunk_riccati_plain", "rollout",
-    "certificate_terms", "certificate_terms_plain", "K3WPlan", "k3w_plan",
+    "certificate_terms", "certificate_terms_plain", "K3WPlan", "k3w_plan", "k3w_dbl_floats",
+    "k3w_dbl_step",
     "K3WSeqPlan", "k3w_seq_floats", "k3w_seq_operands",
     "iterate_chunk_riccati_wide", "iterate_chunk_riccati_doubling",
     "iterate_chunk_riccati_doubling_plain", "rollout_wide", "certificate_terms_wide",
@@ -446,41 +448,175 @@ def iterate_chunk_riccati(
     )
 
 
-# K3W's doubling form (csrc/riccati_wide.cu): at most this many threads
-# serve one lane, and a block takes lanes until it holds this many threads;
-# no block of csrc/riccati_wide.cu has more than 256 threads (its
-# kMaxThreads)
-K3W_LANE_THREADS, K3W_BLOCK_THREADS = 256, 128
+# the wide rollout's and certificate's blocks (csrc/riccati_wide.cu's
+# kMaxThreads): one lane a block, at most this many threads
+K3W_LANE_THREADS = 256
+# K3W's doubling form (csrc/riccati_wide.cu): the lanes a block may take;
+# a thread's register tile of K3W_DBL_ROWS rows x LT lanes (LT, the lanes a
+# thread, one of K3W_DBL_TILE_LANES); where a launch keeps its lanes' work
+# area and state: both in "shared" memory, the state in "device" memory
+# (the outputs, in place), or the work area in a device scratch too
+# ("global"; the C entry's route 0, 1, 2); the layouts the plan tries, in
+# order (route, the slots of its operator ring: none keeps the work area in
+# shared memory where a ring would push it to device memory, 23.4 against
+# 40.7 ms a chunk at the (64, 32) plant's h30, B = 1024); the items a level's
+# product should have before a thread takes more lanes (k3_ab.py --kernel
+# K3W-doubling: at h50, B = 1024, 4 lanes a thread, 100 items, 0.47 ms a
+# chunk against 0.61 at 1 lane, 400 items); the least whole steps of its
+# widest stream a ring slot holds (fewer: the next layout; the (64, 32)
+# plant's h30 ran 96.7 ms a chunk on slots of one step, 40.2 on four)
+K3W_DBL_LANES = (1, 2, 4, 8, 16, 32)
+K3W_DBL_TILE_LANES = (1, 2, 4, 8)
+K3W_DBL_ROWS = 4
+K3W_DBL_ROUTES = ("shared", "device", "global")
+K3W_DBL_LAYOUTS = (("shared", 3), ("device", 3), ("shared", 2), ("device", 2), ("shared", 0),
+                   ("device", 0), ("global", 3), ("global", 2), ("global", 0))
+K3W_DBL_ITEMS = 64
+K3W_DBL_MIN_STEPS = 4
+# the layouts without a ring (the operators read where they lie, through
+# L1/L2), tried first at the QTP's width (the kernel's compile-time (4, 2)
+# instantiation: 1.70 against 2.06 ms a chunk at h500, B = 1024, with the
+# ring of bulk copies; 0.656 against 0.834 at B = 1; 0.256 against 0.387 at
+# h24, B = 77; k3_ab.py --kernel K3W-doubling on an NVIDIA H100 80GB HBM3,
+# 700.00 W) and elsewhere where one rho's operators of an iteration take at
+# most K3W_DBL_L1_BYTES (they stay in the SM's L1 from one iteration to the
+# next)
+K3W_DBL_L1_LAYOUTS = (("shared", 0), ("device", 0), ("global", 0))
+K3W_DBL_L1_BYTES = 64 * 1024
+
+
+def k3w_dbl_max_threads(lanes_per_thread: int) -> int:
+    """The most threads of a doubling block (``dbl_max_threads`` of
+    csrc/riccati_wide.cu): 256 where a thread takes 8 lanes (its tile needs
+    more than 128 registers), else 512."""
+    return 256 if lanes_per_thread == 8 else 512
 
 
 class K3WPlan(NamedTuple):
     """How one launch of K3W's doubling form is laid out: the lanes of a
-    block, the threads that serve each lane, the floats of a lane's scratch
-    (its rows and the iteration's buffers), where the scratch lies
-    ("shared" memory, or "device" memory where a lane's does not fit), the
-    block's dynamic shared memory and the blocks of the grid."""
+    block (one rho's: every operator panel serves them all), its threads,
+    the lanes of a thread's tile, the slots of the operator ring and the
+    floats of a slot (a panel of whole horizon steps), where the lanes'
+    work area and state lie (``K3W_DBL_ROUTES``), the block's dynamic
+    shared memory, the blocks of the grid and the floats of the "global"
+    route's device scratch (0 on the others)."""
 
     lanes: int
-    lane_threads: int
-    lane_floats: int
+    threads: int
+    lanes_per_thread: int
+    ring: int
+    panel: int
     route: str
     smem_bytes: int
     blocks: int
+    scratch_floats: int
 
 
 def _ceil32(n: int) -> int:
     return -(-int(n) // 32) * 32
 
 
-def k3w_lane_floats(op: RiccatiOperator) -> int:
-    """The floats of one lane's scratch in K3W's doubling form
-    (``wide_lane_floats`` of csrc/riccati_wide.cu, which refuses a launch
-    that differs): vU, lamU and the split rows of vX, lamX, e0 and the
-    terminal linear term; then the linear terms, ffs and two horizon
-    buffers of nx rows; a multiple of 4."""
+def _pad4(n: int) -> int:
+    return -(-int(n) // 4) * 4
+
+
+def _dbl_stride(rows: int, lanes: int, lt: int) -> int:
+    unit = min(lt, 4)
+    s = rows * lanes
+    return s + unit if (s // unit) % 2 == 0 else s
+
+
+# the kernel's compile-time instantiation of the QTP's width (dbl_qtp of
+# csrc/riccati_wide.cu)
+K3W_DBL_TIER = (4, 2)
+
+
+def k3w_dbl_operator_floats(N: int, nx: int, nu: int) -> int:
+    """The operator floats one doubling iteration reads at one rho: K twice,
+    the combine levels' rows (step k >= 2^l of level l) and the prefix
+    products of both sweeps, and G."""
+    levels = sum(N - 2 ** l for l in range(max(N - 1, 0).bit_length()))
+    return 2 * N * nu * nx + 2 * (levels + N) * nx * nx + N * nu * nu
+
+
+def k3w_dbl_step(nx: int, nu: int) -> int:
+    """The least panel of a doubling ring: one step of its widest stream,
+    at the odd stride a step takes in a slot."""
+    return max(nx * nx, nu * nx, nu * nu) | 1
+
+
+def k3w_dbl_floats(N: int, nx: int, nu: int, xrows: int, lanes: int, lanes_per_thread: int,
+                   ring: int, panel: int, route: str) -> Tuple[int, int]:
+    """(the work area's floats, the block's shared-memory floats) of a
+    doubling block, as ``dbl_layout`` of csrc/riccati_wide.cu lays them out
+    (the C entry refuses shared-memory bytes that differ). The work area:
+    the two horizon buffers and ff (and s where nu > K3W_DBL_ROWS), each N
+    steps [row][lane] at a padded stride, lin_xN and e0 [row][lane], the
+    ball's scale; shared memory: the ring, the plant's B, the work area
+    where it is not in the device scratch, the lanes' state (vU, lamU, the
+    split rows of vX, lamX) on the "shared" route."""
+    ks = _dbl_stride(nx, lanes, lanes_per_thread)
+    ku = _dbl_stride(nu, lanes, lanes_per_thread)
+    work = 2 * N * ks + N * ku + (N * ku if nu > K3W_DBL_ROWS else 0) + 2 * nx * lanes + lanes
+    work = _pad4(work)
+    total = ring * panel + _pad4(nx * nu) + (work if route != "global" else 0)
+    if route == "shared":
+        total += (2 * N * nu + 2 * xrows * nx) * lanes
+    return work, total
+
+
+def _k3w_dbl_plan(op: RiccatiOperator, B: int, route: Optional[str], lanes: Optional[int],
+                  ring: Optional[int], threads: Optional[int], lanes_per_thread: Optional[int],
+                  panel: Optional[int]) -> K3WPlan:
     N, nx, nu = op.N, op.nx, op.nu
-    n = 2 * N * nu + 2 * _split_x_rows(op) * nx + 2 * nx + 2 * N * nu + 2 * N * nx
-    return -(-n // 4) * 4
+    if route not in (None, *K3W_DBL_ROUTES):
+        raise ValueError(f"unknown K3W route {route!r}; one of {sorted(K3W_DBL_ROUTES)}")
+    if lanes is None:  # the fewest lanes that spread the batch over every SM
+        want = math.ceil(B / SM_COUNT)
+        lanes = next((n for n in K3W_DBL_LANES if n >= want), K3W_DBL_LANES[-1])
+    elif lanes not in K3W_DBL_LANES:
+        raise ValueError(f"K3W's doubling form takes one of {K3W_DBL_LANES} lanes a block; "
+                         f"lanes={lanes}")
+    groups = -(-nx // K3W_DBL_ROWS)  # a step's row groups
+    lt = lanes_per_thread
+    if lt is None:  # the widest tile that leaves a level K3W_DBL_ITEMS items
+        lt = next((t for t in (8, 4, 2) if t <= lanes
+                   and N * groups * (lanes // t) >= K3W_DBL_ITEMS), 1)
+    elif lt not in K3W_DBL_TILE_LANES or lanes % lt:
+        raise ValueError(f"K3W's doubling form takes a tile of {K3W_DBL_TILE_LANES} lanes that "
+                         f"divides the block's {lanes}; lanes_per_thread={lt}")
+    most = k3w_dbl_max_threads(lt)
+    if threads is None:  # about one item of a level a thread
+        threads = max(32, min(_ceil32(N * groups * (lanes // lt)), most))
+    elif threads % 32 or not max(32, lanes) <= threads <= most:
+        raise ValueError(f"K3W's doubling form takes a multiple of 32 threads, {max(32, lanes)} "
+                         f"to {most}; threads={threads}")
+    big = k3w_dbl_step(nx, nu)
+    whole = _pad4(N * big)  # the longest stream in one panel
+    xrows = _split_x_rows(op)
+    layouts = K3W_DBL_LAYOUTS
+    small = 4 * k3w_dbl_operator_floats(N, nx, nu) <= K3W_DBL_L1_BYTES
+    if ring == 0 or (ring is None and ((nx, nu) == K3W_DBL_TIER or small)):
+        layouts = K3W_DBL_L1_LAYOUTS + layouts
+    for where, depth in layouts:
+        if route not in (None, where) or ring not in (None, depth):
+            continue
+        work, fixed = k3w_dbl_floats(N, nx, nu, xrows, lanes, lt, depth, 0, where)
+        room = SMEM_LIMIT // 4 - fixed
+        if depth == 0:  # no ring, no panel
+            pan = 0 if panel in (None, 0) else -1
+            if pan or room < 0:
+                continue
+        else:
+            pan = panel if panel is not None else min(whole, room // depth // 4 * 4)
+            least = big if panel is not None else min(whole, K3W_DBL_MIN_STEPS * big)
+            if pan < least or pan % 4 or depth * pan > room:
+                continue
+        blocks = math.ceil(B / lanes)
+        return K3WPlan(lanes, threads, lt, depth, pan, where, 4 * (fixed + depth * pan), blocks,
+                       blocks * work if where == "global" else 0)
+    raise ValueError(f"K3W's doubling layout (route {route!r}, ring {ring!r}, panel {panel!r}, "
+                     f"{lanes} lanes) does not fit N={N}, nx={nx}, nu={nu}")
 
 
 # K3W's sequential form (csrc/riccati_wide_seq.cu): a thread takes 4 lanes
@@ -564,7 +700,9 @@ def _k3w_seq_plan(op: RiccatiOperator, B: int, route: Optional[str], lanes: Opti
 
 
 def k3w_plan(op: RiccatiOperator, B: int, doubling: bool = False, route: Optional[str] = None,
-             lanes: Optional[int] = None, ring: Optional[int] = None):
+             lanes: Optional[int] = None, ring: Optional[int] = None,
+             threads: Optional[int] = None, lanes_per_thread: Optional[int] = None,
+             panel: Optional[int] = None):
     """The layout of a K3W launch for ``B`` lanes, from the shape alone.
 
     The sequential form (a :class:`K3WSeqPlan`): a block takes the lanes
@@ -577,38 +715,34 @@ def k3w_plan(op: RiccatiOperator, B: int, doubling: bool = False, route: Optiona
     any shape. ``route``, ``lanes`` and ``ring`` force a layout (ValueError
     where it does not fit).
 
-    The doubling form (a :class:`K3WPlan`): a lane's threads run over the
-    (step, row) pairs of a combine level, about 16 a thread (at least nx +
-    nu), at most ``K3W_LANE_THREADS``, a multiple of 32. Lanes share a block
-    (and its reads of one rho's factors and levels) up to
-    ``K3W_BLOCK_THREADS`` threads, but no more than spread the batch over
-    every SM. A lane's scratch sits in shared memory where it fits beside
-    the block's other lanes ("shared"), else in a device-memory scratch
-    with the same barriers ("device"), which takes any shape. ``route``
-    forces one (ValueError where "shared" does not fit)."""
+    The doubling form (a :class:`K3WPlan`): a block takes the lanes that
+    spread the batch over every SM (one of ``K3W_DBL_LANES``), so that one
+    copy of each operator panel serves them all; a thread takes a tile of
+    4 rows x ``lanes_per_thread`` lanes of a horizon step, the widest (8,
+    4, 2) that leaves a combine level ``K3W_DBL_ITEMS`` items, else 1; the
+    block about one item a thread, at most ``k3w_dbl_max_threads``. The
+    first of ``K3W_DBL_LAYOUTS`` that fits wins: the lanes' work area and
+    state in shared memory, then the state in device memory, beside a ring
+    of 3, then 2 slots, then without a ring; last the work area in device
+    memory too ("global", any shape). A slot holds the longest operator
+    stream where it fits,
+    else as many whole steps as the shared memory leaves, and at least
+    ``K3W_DBL_MIN_STEPS`` steps of the widest stream. At the QTP's
+    width, and where one rho's operators of an iteration take at most
+    ``K3W_DBL_L1_BYTES``, the same routes without a ring come first
+    (``K3W_DBL_L1_LAYOUTS``: the blocks read them where they lie, through
+    L1/L2; ring = panel = 0), the faster on the card. Every argument forces its part of a
+    layout (ValueError where it does not fit or is not one the kernel
+    takes)."""
     N, nx, nu = op.N, op.nx, op.nu
     B = int(B)
     if B < 1 or nx < 1 or nu < 1:
         raise ValueError(f"K3W takes at least one lane, state and input; B={B}, nx={nx}, nu={nu}")
-    if not doubling:
-        return _k3w_seq_plan(op, B, route, lanes, ring)
-    if lanes is not None or ring is not None:
-        raise ValueError("K3W's doubling form takes no forced lanes or ring")
-    if route not in (None, "shared", "device"):
-        raise ValueError(f"unknown K3W route {route!r}; one of ['device', 'shared']")
-    rows = max(nx + nu, -(-N * nx // 16))
-    threads = min(_ceil32(rows), K3W_LANE_THREADS)
-    floats = k3w_lane_floats(op)
-    lanes = max(1, min(K3W_BLOCK_THREADS // threads, math.ceil(B / SM_COUNT)))
-    fit = SMEM_LIMIT // (4 * floats)
-    if route == "shared" and fit < 1:
-        raise ValueError(f"K3W's shared route does not fit N={N}, nx={nx}, nu={nu}")
-    if fit >= 1 and route != "device":
-        lanes = min(lanes, fit)
-        where, smem = "shared", 4 * floats * lanes
-    else:
-        where, smem = "device", 0
-    return K3WPlan(lanes, threads, floats, where, smem, math.ceil(B / lanes))
+    if doubling:
+        return _k3w_dbl_plan(op, B, route, lanes, ring, threads, lanes_per_thread, panel)
+    if (threads, lanes_per_thread, panel) != (None, None, None):
+        raise ValueError("K3W's sequential form takes no forced threads, tile or panel")
+    return _k3w_seq_plan(op, B, route, lanes, ring)
 
 
 def k3w_seq_operands(op: RiccatiOperator) -> dict:
@@ -668,11 +802,11 @@ def _launch_k3w(op, ridx, e0T, ballr, vX, vU, lamX, lamU, chunk, doubling=False,
     if doubling:
         L = int(op.bwd_levels.shape[1])
         args = [K, G, Bm] + _level_args(op) + boxes + lanes
-        outs.append(e0T.new_empty(plan.blocks * plan.lanes * plan.lane_floats)
-                    if plan.route == "device" else e0T.new_empty(0))
+        outs.append(e0T.new_empty(plan.scratch_floats))
         entry = "riccati_wide_chunk"
-        ints = (N, nx, nu, B, R, L, int(chunk), *_flags(op), plan.lanes, plan.lane_threads,
-                plan.lane_floats, plan.smem_bytes)
+        ints = (N, nx, nu, B, R, L, int(chunk), *_flags(op), plan.lanes, plan.threads,
+                plan.lanes_per_thread, plan.ring, plan.panel, K3W_DBL_ROUTES.index(plan.route),
+                plan.smem_bytes)
     else:
         ops = k3w_seq_operands(op)
         args = [K, ("K'", ops["KT"], (R, N, nx, nu), f), ("G'", ops["GT"], (R, N, nu, nu), f),

@@ -121,7 +121,10 @@ Phases (any failure raises and exits non-zero):
    escalated solve's tier 2); K3W sequential at (32, 16) h30 in the
    controllers' phase and in the sweeps' phase at (64, 32) h30 (with the
    chain floor) and (40, 20) h10 on its three routes, K3W-doubling at the
-   QTP's h500, h50 and h24, on both of its scratch routes, and the wide rollout and
+   QTP's h500 (1024 lanes and one, beside K3 on the same inputs), h50 and
+   h24, each shape also on the other routes and rings its plan takes there
+   (a model line each: L2 operator bytes, conversion and FMA floors, phases
+   and barriers an iteration), and the wide rollout and
    certificate at (64, 32) h30, each with its k3w_plan line; K4 at the h20 equality
    terminal (random and one rho index, tier 2's bucket, a ragged batch),
    the state box at tier 1's grid (no refinement) and the neighborhood
@@ -1446,12 +1449,52 @@ def k3w_bound(N, nx, nu, B, chunk, split_interior, doubling, L):
     return _bound(4 * (factors + lane * B), 2 * macs * B * chunk, elementwise * B * chunk)
 
 
-def compare_k3w(op, B, seed, chunk, doubling, label, plain_reps=1, route=None, k3=False):
+def k3w_dbl_models(op, plan, B, chunk):
+    """Model numbers of one K3W-doubling chunk as ``plan`` lays it out, for
+    its phase's log line (not the kernels line): the operator bytes its
+    blocks copy from L2 (each block every stream of every iteration once);
+    the fp32 -> fp64 conversions (each operator entry once per lane group
+    of a block, each lane entry once per 4-row group of its product) at 16
+    a clock on every SM and the fp64 multiply-adds (k3w_bound's) at 64, at
+    the card's highest SM clock; the dependent phases of an iteration, 2
+    (L + 1) + 6, and the block's barriers (one a panel, one before each
+    phase without an operator)."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati_fused
+
+    N, nx, nu = op.N, op.nx, op.nu
+    lv = max(N - 1, 0).bit_length()  # the combine levels a sweep runs
+    steps = sum(N - 2 ** l for l in range(lv)) + N  # a sweep's level and prefix steps
+    lanes, lg = plan.lanes, plan.lanes // plan.lanes_per_thread
+    rg = lambda rows: -(-rows // 4)
+    streams = [(N, nu * nx)] + [(N - 2 ** l, nx * nx) for l in range(lv)] + [(N, nx * nx)]
+    streams += [(N, nu * nu)] + streams[1:lv + 2] + [(N, nu * nx)]
+    op_floats = sum(n * m for n, m in streams)
+    conv = lg * (op_floats + 2 * N * nx * nu) + lanes * (
+        2 * steps * nx * rg(nx) + N * nu * rg(nx) + N * nx * rg(nu) + N * nu * rg(nu)
+        + N * nu * rg(nx) + N * nx * rg(nu))
+    clock = SM_COUNT * sm_clock_hz()
+    macs = 3 * N * nu * nx + N * nu * nu + N * nx * nu + 2 * steps * nx * nx
+    steps = lambda n, m: plan.panel // (m | 1) if plan.ring else n  # a panel's
+    barriers = sum(-(-n // steps(n, m)) for n, m in streams)
+    barriers += (1 if nu > 4 else 0) + 1 + (1 if op.split_terminal or op.terminal_ball else 0)
+    return dict(l2_operator_bytes=4 * op_floats * plan.blocks * chunk,
+                conversions=conv * plan.blocks * chunk,
+                conversion_floor_ms=conv * plan.blocks * chunk / 16 / clock * 1e3,
+                fma_floor_ms=macs * B * chunk / 64 / clock * 1e3,
+                depth_phases_per_iteration=2 * (lv + 1) + 6,
+                barriers_per_iteration=barriers)
+
+
+def compare_k3w(op, B, seed, chunk, doubling, label, plain_reps=1, route=None, k3=False,
+                layouts=()):
     """K3W (sequential or doubling) against its plain version on one
     chunk's seeded inputs at a real shape, on the card: max_ulps 0, a
     k3w_plan line, CUDA-event time over 20 launches beside its bound; with
-    ``k3``, K3 on the same inputs too (its outputs equal K3W's bit for bit,
-    its time beside)."""
+    ``k3``, K3 on the same inputs too (the sequential form's outputs equal
+    K3's bit for bit; the doubling form's time beside K3's). ``layouts``:
+    keyword sets that force other doubling layouts on the same inputs, each
+    held to the plain version too (max_ulps 0, not timed). The doubling
+    form's log line carries its model numbers (k3w_dbl_models)."""
     import numpy as np
     import torch
 
@@ -1479,19 +1522,36 @@ def compare_k3w(op, B, seed, chunk, doubling, label, plain_reps=1, route=None, k
                max_ulps=ulps)
     if ulps != 0:
         raise RuntimeError(f"{name} disagrees with its plain version: {rec}")
-    if k3:  # K3 on the same inputs: the same bits
+    held = []
+    for force in layouts:  # the other layouts the plan can take here
+        try:
+            other = riccati_fused.k3w_plan(op, B, True, **force)
+        except ValueError:
+            continue
+        _, _, other_ulps = _errors(riccati_fused._launch_k3w(*args, doubling=True, plan=other),
+                                   out_p, name)
+        held.append(dict(other._asdict(), max_ulps=other_ulps))
+        if other_ulps != 0:
+            raise RuntimeError(f"{name} on {other} disagrees with its plain version: {rec}")
+    if held:
+        rec["layouts_held"] = held
+    if k3:  # K3 on the same inputs
         launch_k3 = lambda: riccati_fused._launch_k3(*args)
-        _, _, k3_ulps = _errors(launch_k3(), out_k, "K3 against K3W")
-        rec["k3_max_ulps"] = k3_ulps
-        if k3_ulps != 0:
-            raise RuntimeError(f"K3 and K3W differ on the same inputs: {rec}")
-        rec["k3_ms"] = cuda_ms(launch_k3, reps=3)
+        if not doubling:  # the same bits
+            _, _, k3_ulps = _errors(launch_k3(), out_k, "K3 against K3W")
+            rec["k3_max_ulps"] = k3_ulps
+            if k3_ulps != 0:
+                raise RuntimeError(f"K3 and K3W differ on the same inputs: {rec}")
+        rec["k3_ms"] = cuda_ms(launch_k3, reps=3 if not doubling else 20)
     rec["ms"] = cuda_ms(kernel)
     rec["plain_ms"] = (plain_once_ms if plain_reps == 1 else
                        cuda_ms(lambda: plain_fn(*args), reps=plain_reps, warm_up=False))
     rec["bound_ms"], rec["bound_by"] = k3w_bound(
         op.N, op.nx, op.nu, B, chunk, op.split_interior, doubling, int(op.bwd_levels.shape[1]))
-    log(phase="k3w_vs_plain", **rec)
+    models = k3w_dbl_models(op, plan, B, chunk) if doubling else {}
+    if models:
+        models["ms_per_barrier"] = rec["ms"] / (chunk * models["barriers_per_iteration"])
+    log(phase="k3w_vs_plain", **rec, **models)
     return rec
 
 
@@ -1610,13 +1670,20 @@ def riccati_sweeps_phase(dev):
            compare_k3w(w40, 77, 84, 25, False, "(40, 20) h10 state box, all in device memory",
                        route="global")]
     seq[0]["chain_floor_ms"] = chain_floor_ms(wide_op.N, wide_op.nx, wide_op.nu, 25, dev)
-    dbl = [compare_k3w(h500.engine.op, B_H500, 84, 25, True, "QTP h500", plain_reps=2),
-           compare_k3w(h500.engine.op, 1, 85, 25, True, "QTP h500, one lane", plain_reps=2),
-           compare_k3w(h50_state, B_H500, 86, 25, True, "QTP h50 state box", plain_reps=2),
-           compare_k3w(h50_ball, B_H500, 87, 25, True, "QTP h50 contractive ball", plain_reps=2),
-           compare_k3w(h24, 77, 88, 25, True, "QTP h24", plain_reps=2),
+    # each doubling shape also holds the plan's other routes and rings there
+    held = [dict(route="shared"), dict(route="device"), dict(route="global"), dict(ring=0),
+            dict(ring=2), dict(ring=3)]
+    dbl = [compare_k3w(h500.engine.op, B_H500, 84, 25, True, "QTP h500", plain_reps=2, k3=True,
+                       layouts=held),
+           compare_k3w(h500.engine.op, 1, 85, 25, True, "QTP h500, one lane", plain_reps=2,
+                       k3=True, layouts=held),
+           compare_k3w(h50_state, B_H500, 86, 25, True, "QTP h50 state box", plain_reps=2,
+                       layouts=held),
+           compare_k3w(h50_ball, B_H500, 87, 25, True, "QTP h50 contractive ball", plain_reps=2,
+                       layouts=held),
+           compare_k3w(h24, 77, 88, 25, True, "QTP h24", plain_reps=2, layouts=held),
            compare_k3w(h50_state, 77, 89, 25, True, "QTP h50 state box, device scratch",
-                       plain_reps=2, route="device")]
+                       plain_reps=2, route="global")]
     rec_w = [compare_wide_recurrences(wide_op, B, 90 + i) for i, B in enumerate((B_H500, 1))]
     rollout_recs = [r for r, _ in rec_w]
     cert_recs = [c for _, c in rec_w]

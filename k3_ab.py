@@ -8,6 +8,7 @@ GPU, in one process tree (so on one card, under one power limit).
     python3 k3_ab.py --kernel K5 NAME=TREE[:LAYOUT] [...] [--plain NAME] [--sass NAME]
     python3 k3_ab.py --kernel K4 NAME=TREE[:LAYOUT] [...] [--plain NAME] [--sass NAME]
     python3 k3_ab.py --kernel K3W NAME=TREE[:LAYOUT] [...] [--plain NAME]
+    python3 k3_ab.py --kernel K3W-doubling NAME=TREE[:LAYOUT] [...] [--plain NAME]
     python3 k3_ab.py --kernel K3-K3W NAME=TREE [...]
 
 Each TREE is a directory that holds the port's package (this checkout is
@@ -123,6 +124,23 @@ state box at B = 77. LAYOUT forces ``riccati_fused.k3w_plan``'s route
 ("shared", "device" or "global"), and in a tree whose plan takes them
 the ring and the lanes a block: ``ROUTE[/RING][xLANES]``. ``--plain NAME``
 holds that tree's outputs to the plain version and times it.
+
+``--kernel K3W-doubling`` times K3W's doubling form (each tree's whole
+library, built for every tree at once before the first child runs) at
+DOUBLING_SHAPES, the shapes of the port's doubling paths on the QTP: h500
+at the riccati-h500-B1024-doubling cell's B = 1024 and the runtime's step
+(B = 1), h50 with the state box and with the contractive ball at B =
+1024, h24 at B = 77, and h50 with the state box at B = 77 with every lane
+array in device memory (the route "global" in a tree whose plan has it,
+else "device", the older doubling form's device scratch); and two wider
+plants, the (64, 32) plant's h30 at B = 1024 and the (40, 20) plant's
+h10 state box at B = 77. Each record has the plan, the outputs' SHA-256,
+``ms`` (CUDA events over 10 launches after one) and, where K3 takes the
+plant, ``k3_ms``, K3 on the same inputs (the sequential chunk the
+doubling form must beat); ``--plain NAME`` also holds that tree's
+outputs to the plain version and times it. LAYOUT forces the plan, in a
+tree whose k3w_plan takes it, as ``ROUTE[/RING][xLANES][tLT][nTHREADS]
+[pPANEL]`` (``device/2x8t4n256``); an older tree takes the route alone.
 
 ``--kernel K3-K3W`` times K3 against K3W's sequential form in each tree
 (its whole library, as the package builds it) on the same inputs at
@@ -353,6 +371,19 @@ K3W_SHAPES = (
     ("nx32-h30-B256", (32, 16), 30, {}, 256, 78),
     ("nx32-h30-B1", (32, 16), 30, {}, 1, 77),
     ("nx40-h10-state-B77", (40, 20), 10, {"mpc_state_constraint": True}, 77, 82),
+)
+# K3W's doubling form: name, plant (nx, nu), horizon, controller options,
+# B, seed, every lane array in device memory
+DOUBLING_SHAPES = (
+    ("qtp-h500-B1024", (4, 2), 500, {}, 1024, 84, False),
+    ("qtp-h500-B1", (4, 2), 500, {}, 1, 85, False),
+    ("qtp-h50-state-B1024", (4, 2), 50, {"mpc_state_constraint": True}, 1024, 86, False),
+    ("qtp-h50-ball-B1024", (4, 2), 50, {"mpc_terminal_ingredient": "contractive"}, 1024, 87,
+     False),
+    ("qtp-h24-B77", (4, 2), 24, {}, 77, 88, False),
+    ("qtp-h50-state-B77-scratch", (4, 2), 50, {"mpc_state_constraint": True}, 77, 89, True),
+    ("nx64-h30-B1024", (64, 32), 30, {}, 1024, 90, False),
+    ("nx40-h10-state-B77", (40, 20), 10, {"mpc_state_constraint": True}, 77, 91, False),
 )
 # K3 against K3W in one tree: name, plant (nx, nu), horizon, the batches
 AB_SHAPES = (
@@ -789,11 +820,97 @@ def child_k3w(kernel, tree, layout, plain, shapes):
     print(f"{kernel}_AB " + json.dumps(records), flush=True)
 
 
+def _dbl_layout(riccati_fused, op, B, layout, scratch):
+    """The plan that ``layout`` (ROUTE[/RING][xLANES][tLT][nTHREADS][pPANEL])
+    forces on this tree's doubling form (``scratch``: every lane array in
+    device memory), and the keywords _launch_k3w takes for it; an older
+    tree takes the route alone."""
+    import inspect
+    import re
+
+    m = re.fullmatch(r"([a-z]*)(?:/(\d+))?(?:x(\d+))?(?:t(\d+))?(?:n(\d+))?(?:p(\d+))?",
+                     layout or "")
+    if m is None:
+        raise ValueError(f"unknown doubling layout {layout!r}")
+    route, ring, lanes, lt, threads, panel = (
+        m.group(1) or None, *(int(g) if g else None for g in m.groups()[1:]))
+    new = "lanes_per_thread" in inspect.signature(riccati_fused.k3w_plan).parameters
+    if scratch:
+        route = "global" if new else "device"
+    if not new:
+        if (ring, lanes, lt, threads, panel) != (None,) * 5:
+            raise ValueError("this tree's doubling form takes no forced layout but its route")
+        return riccati_fused.k3w_plan(op, B, True, route), dict(route=route)
+    plan = riccati_fused.k3w_plan(op, B, True, route, lanes=lanes, ring=ring, threads=threads,
+                                  lanes_per_thread=lt, panel=panel)
+    return plan, dict(plan=plan)
+
+
+def child_dbl(tree, layout, plain, shapes):
+    """K3W's doubling form of one tree at DOUBLING_SHAPES beside K3 on the
+    same inputs; print one K3W-doubling_AB line of records."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import _build, riccati_fused
+
+    dev = torch.device("cuda", 0)
+    _build.load_kernels()
+    records = []
+    for name, plant, N, kw, B, seed, scratch in DOUBLING_SHAPES:
+        if shapes and name not in shapes:
+            continue
+        op = _riccati_op(plant, N, kw, dev)
+        args = _chunk_args(op, B, seed, dev)
+        rec = dict(shape=name, nx=op.nx, nu=op.nu, N=N, B=B)
+        try:
+            plan, force = _dbl_layout(riccati_fused, op, B, layout, scratch)
+        except ValueError as err:
+            records.append(dict(rec, skipped=str(err)))
+            continue
+        rec["plan"] = plan._asdict()
+        fn = lambda: riccati_fused._launch_k3w(*args, doubling=True, **force)
+        out = fn()
+        torch.cuda.synchronize()
+        rec["sha256"] = _digest(out)
+        if plain:
+            want = riccati_fused.iterate_chunk_riccati_doubling_plain(*args)
+            rec["equals_plain"] = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                                      for a, b in zip(out, want))
+            rec["plain_ms"] = _ms(
+                lambda: riccati_fused.iterate_chunk_riccati_doubling_plain(*args), 1)
+        rec["ms"] = _ms(fn, 10)
+        if riccati_fused.k3_fits(op):
+            rec["k3_ms"] = _ms(lambda: riccati_fused._launch_k3(*args), 10)
+        records.append(rec)
+    print("K3W-doubling_AB " + json.dumps(records), flush=True)
+
+
+def build_trees(trees):
+    """Build each tree's whole kernel library (csrc/*.cu, one nvcc a source)
+    into its own build/kernels, every tree at once. Returns {tree:
+    (seconds, ok, output)}."""
+    procs = {}
+    for tree in trees:
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                "from automationlabsmodelpredictivecontrol_jl_torch.ops import _build; "
+                "print(_build.build_kernels())")
+        procs[tree] = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-c", code, os.path.abspath(tree)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for tree, (t0, proc) in procs.items():
+        text, _ = proc.communicate()
+        out[tree] = (time.perf_counter() - t0, proc.returncode == 0, text)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("specs", nargs="*",
                     help="NAME=TREE[:ROUTE] (K1, K2: NAME=TREE[:LxG]; K4, K5: NAME=TREE[:LAYOUT])")
-    ap.add_argument("--kernel", choices=("K3", "K2", "K1", "K5", "K4", "K3W", "K3-K3W"),
+    ap.add_argument("--kernel",
+                    choices=("K3", "K2", "K1", "K5", "K4", "K3W", "K3W-doubling", "K3-K3W"),
                     default="K3",
                     help="the kernel timed")
     ap.add_argument("--plain", default=None, help="the spec name whose outputs are held to the plain version")
@@ -811,7 +928,9 @@ def main():
         tree, route = a.child
         args = (tree, None if route == "-" else route, a.child_plain, a.child_sass,
                 os.path.abspath(a.sass_dir), [s for s in a.shapes.split(",") if s])
-        if a.kernel in ("K3W", "K3-K3W"):
+        if a.kernel == "K3W-doubling":
+            child_dbl(*args[:3], args[5])
+        elif a.kernel in ("K3W", "K3-K3W"):
             child_k3w(a.kernel, *args[:3], args[5])
         elif a.kernel in ADMM_KERNELS:
             child_admm(a.kernel, *args)
@@ -830,7 +949,20 @@ def main():
     results, plained, dumped, failed = [], set(), set(), []
     tag = f"{a.kernel}_AB "
     built = {}
-    if a.kernel in ADMM_KERNELS:
+    if a.kernel == "K3W-doubling":
+        trees = sorted({spec.partition("=")[2].partition(":")[0] for spec in a.specs})
+        for tree, (secs, ok, text) in build_trees(trees).items():
+            import chip_smoke
+            rec = dict(tree=tree, nvcc_s=secs, built=ok)
+            if ok:
+                rec["ptxas"] = [(r["template"], r["registers"], r["spill_bytes"])
+                                for r in chip_smoke.ptxas_summary(text)
+                                if r["kernel"] == "K3W-doubling"]
+            else:
+                rec["error"] = text[-4000:]
+            built[tree] = (secs, text if ok else None, text)
+            print(json.dumps(rec), flush=True)
+    elif a.kernel in ADMM_KERNELS:
         trees = sorted({spec.partition("=")[2].partition(":")[0] for spec in a.specs})
         built = build_admm(trees, a.kernel)
         for tree, (secs, report, text) in built.items():

@@ -58,15 +58,49 @@ def test_k3w_entries_take_the_wrappers_arguments():
     its order: the factor stacks, the plant, the doubling-level arrays or
     the transposes K', G', A', B', the boxes and the lane state, the
     outputs and the scratch, then the shape, the flags and k3w_plan's
-    layout; the wide rollout and certificate take K3's recurrences'
-    tensors and their block's threads."""
+    layout (the doubling form's ints as the wrapper passes them, caught on
+    the CPU at the launch); the wide rollout and certificate take K3's
+    recurrences' tensors and their block's threads."""
+    import dataclasses
+
+    import torch
+
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati, riccati_fused
+
     params = _c_params("riccati_wide_chunk")
     sig = _build.SIGNATURES["riccati_wide_chunk"]
     assert params[:7] == ["Kf", "Gf", "Bm", "bwdL", "bwdF", "fwdL", "fwdF"]
     assert params[27] == "scratch"
-    assert [p for p, kind in zip(params, sig) if kind == "i"] == [
+    ints = [p for p, kind in zip(params, sig) if kind == "i"]
+    assert ints == [
         "N", "nx", "nu", "B", "R", "L", "chunk", "split_interior", "split_terminal",
-        "terminal_ball", "lanes", "lane_threads", "lane_floats", "smem_bytes"]
+        "terminal_ball", "lanes", "threads", "lanes_per_thread", "ring", "panel", "route",
+        "smem_bytes"]
+    op = riccati.build_riccati_operator(
+        [[0.9, 0.1], [0.0, 0.8]], [[1.0], [0.5]], [[1.0, 0.0], [0.0, 1.0]], [[1.0]],
+        [[1.0, 0.0], [0.0, 1.0]], 5, [-1.0, -1.0], [1.0, 1.0], [-1.0], [1.0], True)
+    op = dataclasses.replace(op, split_terminal=True)
+    B = 9
+    zeros = lambda *shape: torch.zeros(shape)
+    args = (op, torch.zeros(1, dtype=torch.int32), zeros(2, B), zeros(B), zeros(6, 2, B),
+            zeros(5, 1, B), zeros(6, 2, B), zeros(5, 1, B), 3)
+    caught = []
+    launch = riccati_fused._launch
+    try:
+        riccati_fused._launch = lambda kernel, entry, a, outs, ii: caught.append(
+            (entry, [name for name, *_ in a], len(outs), ii)) or tuple(outs)
+        plan = riccati_fused.k3w_plan(op, B, True, "global", lanes=4, lanes_per_thread=2)
+        riccati_fused._launch_k3w(*args, doubling=True, plan=plan)
+    finally:
+        riccati_fused._launch = launch
+    (entry, names, n_out, got), = caught
+    assert entry == "riccati_wide_chunk" and len(names) + n_out == 28
+    assert names[:7] == ["K", "G", "B", "bwd_levels", "bwd_full", "fwd_levels", "fwd_full"]
+    values = dict(N=5, nx=2, nu=1, B=B, R=len(op.rho_grid), L=3, chunk=3, split_interior=1,
+                  split_terminal=1, terminal_ball=0, lanes=4, threads=plan.threads,
+                  lanes_per_thread=2, ring=plan.ring, panel=plan.panel, route=2,
+                  smem_bytes=plan.smem_bytes)
+    assert list(got) == [values[name] for name in ints]
     params = _c_params("riccati_wide_seq_chunk")
     sig = _build.SIGNATURES["riccati_wide_seq_chunk"]
     assert params[:7] == ["K", "KT", "GT", "AmBK", "Bm", "AT", "BT"]
@@ -82,25 +116,48 @@ def test_k3w_entries_take_the_wrappers_arguments():
 
 
 def test_k3w_lane_floats_match_the_source():
-    """k3w_lane_floats is csrc/riccati_wide.cu's wide_lane_floats (the
-    doubling form's lane scratch): the same terms, read from the source,
-    at several shapes."""
-    import dataclasses
-
-    from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati, riccati_fused
+    """k3w_dbl_floats is csrc/riccati_wide.cu's dbl_layout (the doubling
+    form's work area and shared memory): each region's floats and the step
+    strides, read from the source (n = N, x = nx, u = nu, l = lanes), summed
+    as the plan sums them, at several shapes, tiles and routes."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati_fused
 
     text = open(os.path.join(_build.CSRC_DIR, "riccati_wide.cu")).read()
-    body = text[text.index("wide_lane_floats(int N"):]
-    body = body[:body.index("}")]
-    assert "size_t f = 2 * n * u + 2 * static_cast<size_t>(xrows) * x + 2 * x;" in body
-    assert "f += 2 * n * u + 2 * n * x;" in body
-    op0 = riccati.build_riccati_operator(
-        [[0.9]], [[1.0]], [[1.0]], [[1.0]], [[1.0]], 3, [-1.0], [1.0], [-1.0], [1.0], True)
-    for N, nx, nu, si in ((1, 1, 1, True), (30, 64, 32, False), (500, 4, 2, True)):
-        op = dataclasses.replace(op0, N=N, nx=nx, nu=nu, split_interior=si)
-        xrows = N if si else 1
-        f = 2 * N * nu + 2 * xrows * nx + 2 * nx + 2 * N * nu + 2 * N * nx
-        assert riccati_fused.k3w_lane_floats(op) == (f + 3) // 4 * 4
+    body = text[text.index("inline DblLayout dbl_layout("):]
+    body = body[:body.index("return d;")]
+    regions = dict(re.findall(r"d\.(\w+) = o, o \+= ([^;]+);", body))
+    assert set(regions) == {"ha", "hb", "ff", "s", "y", "e0", "sc", "ring", "plant", "wbase"}
+    assert "d.ks = dbl_stride(x, l, lt);" in body and "d.ku = dbl_stride(u, l, lt);" in body
+    assert "d.work = pad4(o);" in body
+    assert "if (route == 0) o += (2 * n * u + 2 * static_cast<size_t>(xrows) * x) * l;" in body
+    stride = text[text.index("inline size_t dbl_stride("):]
+    assert "return (s / unit) % 2 == 0 ? s + unit : s;" in stride[:stride.index("}")]
+    pad4 = lambda n: -(-n // 4) * 4
+
+    def dbl_stride(rows, lanes, lt):
+        unit = min(lt, 4)
+        return rows * lanes + (unit if (rows * lanes // unit) % 2 == 0 else 0)
+
+    for n, x, u, xrows in ((1, 1, 1, 1), (30, 64, 32, 0), (500, 4, 2, 500), (7, 3, 7, 1)):
+        for l, lt, ring, panel in ((1, 1, 3, 8500), (8, 8, 3, 4008), (8, 2, 2, 852),
+                                   (32, 4, 3, 4100)):
+            for route in range(3):
+                env = dict(n=n, x=x, u=u, l=l, nu=u, kRt=4, pad4=pad4, ring=ring, panel=panel,
+                           route=route, d=type("D", (), dict(ks=dbl_stride(x, l, lt),
+                                                             ku=dbl_stride(u, l, lt))))
+                conv = lambda v: v.replace("static_cast<size_t>(ring)", "ring").replace(
+                    "nu > kRt ? n * d.ku : 0", "(n * d.ku if nu > kRt else 0)").replace(
+                    "route < 2 ? d.work : 0", "(work if route < 2 else 0)")
+                sizes = {}
+                for key in ("ha", "hb", "ff", "s", "y", "e0", "sc"):
+                    sizes[key] = eval(conv(regions[key]), env)
+                work = pad4(sum(sizes.values()))
+                env["work"] = work
+                total = sum(eval(conv(regions[k]), env) for k in ("ring", "plant", "wbase"))
+                total += (2 * n * u + 2 * xrows * x) * l if route == 0 else 0
+                name = riccati_fused.K3W_DBL_ROUTES[route]
+                assert riccati_fused.k3w_dbl_floats(n, x, u, xrows, l, lt, ring, panel, name) == (
+                    work, total)
 
 
 def test_k3w_seq_floats_match_the_source():

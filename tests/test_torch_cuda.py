@@ -1346,7 +1346,7 @@ def _assert_k3w_equals_plain(args, doubling, route=None):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
 
 
-@pytest.mark.parametrize("route", ["shared", "device"])
+@pytest.mark.parametrize("route", ["shared", "device", "global"])
 @pytest.mark.parametrize("N,nx,nu,B,chunk", [(1, 4, 2, 1, 25), (2, 4, 2, 33, 25), (5, 4, 2, 77, 25),
                                               (24, 4, 2, 130, 5), (10, 40, 20, 8, 3),
                                               (6, 64, 32, 3, 2)])
@@ -1355,10 +1355,70 @@ def _assert_k3w_equals_plain(args, doubling, route=None):
 def test_k3w_matches_plain_version(card, doubling, branch, N, nx, nu, B, chunk, route):
     """K3W in both forms on every branch, at horizons that are not powers
     of two and N = 1 (the backward levels run in reversed time), ragged
-    batches and plants past K3's (32, 16), with the lanes' scratch in
-    shared and in device memory."""
+    batches and plants past K3's (32, 16), on each route: the lanes' state
+    in shared memory, in device memory, and with the work area (the
+    sequential form's step vectors, the doubling form's horizon buffers)
+    in device memory too."""
     op = _synthetic_op(N, nx, nu, branch, card, seed=N + nx)
     _assert_k3w_equals_plain(_op_args(op, card, B, N + B) + (chunk,), doubling, route)
+
+
+# layouts of K3W's doubling form: (route, ring, lanes a block, lanes a
+# thread): every lane count, tile, ring and route
+K3W_DBL_FORCED = [("shared", 3, 1, 1), ("shared", 2, 2, 2), ("device", 3, 4, 4),
+                  ("device", 2, 8, 8), ("global", 3, 16, 8), ("global", 2, 32, 4),
+                  ("shared", 3, 8, 1), ("device", 3, 32, 2), ("shared", 0, 1, 1),
+                  ("device", 0, 8, 8), ("global", 0, 4, 2)]
+
+
+@pytest.mark.parametrize("route,ring,lanes,lt", K3W_DBL_FORCED)
+@pytest.mark.parametrize("N,nx,nu,B", [(1, 4, 2, 5), (5, 4, 2, 33), (24, 4, 2, 130), (9, 4, 1, 17), (7, 5, 3, 77),
+                                        (12, 40, 20, 33), (6, 64, 32, 9), (3, 3, 7, 33)])
+@pytest.mark.parametrize("branch", list(RICCATI_BRANCHES))
+def test_k3w_doubling_layouts_match_plain_version(card, branch, N, nx, nu, B, route, ring, lanes,
+                                                  lt):
+    """K3W's doubling form on every layout k3w_plan can choose (the work
+    area and the lanes' state in shared memory, the state in device memory,
+    both in device memory; rings of 2 and 3 panels, and none (the operators
+    read where they lie); 1 to 32 lanes a block,
+    tiles of 1 to 8 lanes; partial last blocks), at widths whose rows are
+    not a multiple of the tile's 4 and nu > 4 (s in its own buffer), on
+    every branch, and with a panel of one step (the ring refilled every
+    step): equal to its plain version to the last bit. (4, 2) takes the
+    kernel's QTP instantiation (bulk copies), the other widths the general
+    one."""
+    op = _synthetic_op(N, nx, nu, branch, card, seed=N + nx + nu + lanes)
+    args = _op_args(op, card, B, N + B + lanes) + (3,)
+    try:
+        plan = riccati_fused.k3w_plan(op, B, True, route, lanes=lanes, ring=ring,
+                                      lanes_per_thread=lt)
+    except ValueError:
+        pytest.skip(f"the layout does not fit N={N}, nx={nx}, nu={nu}")
+    step = -(-riccati_fused.k3w_dbl_step(nx, nu) // 4) * 4  # one step of the widest stream
+    plans = [plan]
+    if ring:  # and a panel of one step
+        plans.append(riccati_fused.k3w_plan(op, B, True, route, lanes=lanes, ring=ring,
+                                            lanes_per_thread=lt, panel=step))
+    for p in plans:
+        launches = admm_fused.LAUNCHES["K3W-doubling"]
+        out_k = riccati_fused._launch_k3w(*args, doubling=True, plan=p)
+        torch.cuda.synchronize()
+        assert admm_fused.LAUNCHES["K3W-doubling"] == launches + 1
+        out_p = riccati_fused.iterate_chunk_riccati_doubling_plain(*args)
+        for name, a, b in zip(("X", "U", "vX", "vU", "lamX", "lamU"), out_k, out_p):
+            assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), (name, p)
+
+
+@pytest.mark.parametrize("branch", list(RICCATI_BRANCHES))
+@pytest.mark.parametrize("B", [1024, 1])
+def test_k3w_doubling_at_h500_matches_plain_version(card, B, branch):
+    """K3W's doubling form at the QTP's width and h500 (9 combine levels a
+    sweep, several panels a level at B = 1024) as k3w_plan lays it out for
+    the riccati-h500-B1024-doubling cell and for the runtime's step, on
+    every branch: equal to its plain version to the last bit."""
+    op = _synthetic_op(500, 4, 2, branch, card, seed=500 + B)
+    _assert_k3w_equals_plain(_op_args(op, card, B, B) + (25,), True)
 
 
 # every layout of K3W's sequential form: (route, ring, lanes a block)

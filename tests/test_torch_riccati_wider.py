@@ -138,13 +138,21 @@ def test_riccati_chunk_fn_routes_by_width_and_flag(wider):
         riccati_fused.k3_plan(op, 1)
 
 
-def _wide_bytes(op):
-    """The lane scratch csrc/riccati_wide.cu lays out for the doubling form
-    (wide_lane_floats)."""
-    N, nx, nu = op.N, op.nx, op.nu
+def _wide_bytes(op, plan):
+    """(shared-memory bytes, device-scratch floats) that csrc/riccati_wide.cu
+    lays out for a doubling plan (dbl_layout): the ring, the plant's B, the
+    work area (two horizon buffers and ff, s where nu > 4, each N steps at
+    a padded stride; lin_xN, e0, the ball's scale) in shared memory or in
+    the scratch, the lanes' state on the "shared" route."""
+    N, nx, nu, L, lt = op.N, op.nx, op.nu, plan.lanes, plan.lanes_per_thread
     xrows = N if op.split_interior else int(op.split_terminal or op.terminal_ball)
-    n = 2 * N * nu + 2 * xrows * nx + 2 * nx + 2 * N * nu + 2 * N * nx
-    return 4 * (-(-n // 4) * 4)
+    p4 = lambda n: -(-n // 4) * 4
+    stride = lambda rows: rows * L + (min(lt, 4) if (rows * L // min(lt, 4)) % 2 == 0 else 0)
+    work = p4(2 * N * stride(nx) + N * stride(nu) * (2 if nu > 4 else 1) + 2 * nx * L + L)
+    total = plan.ring * plan.panel + p4(nx * nu)
+    total += work if plan.route != "global" else 0
+    total += (2 * N * nu + 2 * xrows * nx) * L if plan.route == "shared" else 0
+    return 4 * total, plan.blocks * work if plan.route == "global" else 0
 
 
 def _seq_bytes(op, plan):
@@ -161,28 +169,28 @@ def _seq_bytes(op, plan):
     return (0, plan.blocks * work) if plan.route == "global" else (4 * total, 0)
 
 
-# the doubling form's plans, frozen at their values before the sequential
-# form's redesign: (N, nx, nu, B, split) -> (lanes, lane_threads,
-# lane_floats, route, smem_bytes, blocks)
+# the doubling form's plans, frozen at their values after its redesign for
+# the card: (N, nx, nu, B, split) -> (lanes, threads, lanes_per_thread,
+# ring, panel, route, smem_bytes, blocks, scratch_floats)
 DOUBLING_PLANS = {
-    (10, 40, 20, 8, False): (1, 64, 1680, "shared", 6720, 8),
-    (10, 40, 20, 8, True): (1, 64, 2480, "shared", 9920, 8),
-    (30, 64, 32, 1024, False): (1, 128, 7808, "shared", 31232, 1024),
-    (30, 64, 32, 1024, True): (1, 128, 11648, "shared", 46592, 1024),
-    (500, 4, 2, 1024, False): (1, 128, 8008, "shared", 32032, 1024),
-    (500, 4, 2, 1024, True): (1, 128, 12008, "shared", 48032, 1024),
-    (500, 4, 2, 1, False): (1, 128, 8008, "shared", 32032, 1),
-    (500, 4, 2, 1, True): (1, 128, 12008, "shared", 48032, 1),
-    (24, 4, 2, 1000, False): (4, 32, 392, "shared", 6272, 250),
-    (24, 4, 2, 1000, True): (4, 32, 584, "shared", 9344, 250),
-    (500, 64, 32, 1024, False): (1, 256, 128128, "device", 0, 1024),
-    (500, 64, 32, 1024, True): (1, 256, 192128, "device", 0, 1024),
-    (30, 32, 16, 2048, False): (2, 64, 3904, "shared", 31232, 1024),
-    (30, 32, 16, 2048, True): (2, 64, 5824, "shared", 46592, 1024),
-    (30, 32, 16, 256, False): (2, 64, 3904, "shared", 31232, 128),
-    (30, 32, 16, 256, True): (2, 64, 5824, "shared", 46592, 128),
-    (30, 32, 16, 1, False): (1, 64, 3904, "shared", 15616, 1),
-    (30, 32, 16, 1, True): (1, 64, 5824, "shared", 23296, 1),
+    (10, 40, 20, 8, False): (1, 128, 1, 3, 16012, "shared", 202240, 8, 0),
+    (10, 40, 20, 8, True): (1, 128, 1, 3, 16012, "shared", 205440, 8, 0),
+    (30, 64, 32, 1024, False): (8, 256, 8, 0, 0, "device", 198560, 128, 0),
+    (30, 64, 32, 1024, True): (8, 256, 8, 0, 0, "device", 198560, 128, 0),
+    (500, 4, 2, 1024, False): (8, 256, 8, 0, 0, "device", 184320, 128, 0),
+    (500, 4, 2, 1024, True): (8, 256, 8, 0, 0, "device", 184320, 128, 0),
+    (500, 4, 2, 1, False): (1, 512, 1, 0, 0, "shared", 34080, 1, 0),
+    (500, 4, 2, 1, True): (1, 512, 1, 0, 0, "shared", 50080, 1, 0),
+    (24, 4, 2, 1000, False): (8, 96, 2, 0, 0, "shared", 11648, 125, 0),
+    (24, 4, 2, 1000, True): (8, 96, 2, 0, 0, "shared", 17792, 125, 0),
+    (500, 64, 32, 1024, False): (8, 256, 8, 3, 18688, "global", 232448, 128, 99460096),
+    (500, 64, 32, 1024, True): (8, 256, 8, 3, 18688, "global", 232448, 128, 99460096),
+    (30, 32, 16, 2048, False): (16, 256, 8, 2, 5000, "device", 232448, 128, 0),
+    (30, 32, 16, 2048, True): (16, 256, 8, 2, 5000, "device", 232448, 128, 0),
+    (30, 32, 16, 256, False): (2, 256, 2, 3, 16516, "shared", 232448, 128, 0),
+    (30, 32, 16, 256, True): (2, 256, 2, 3, 15236, "shared", 232448, 128, 0),
+    (30, 32, 16, 1, False): (1, 256, 1, 3, 17856, "shared", 232432, 1, 0),
+    (30, 32, 16, 1, True): (1, 256, 1, 3, 17216, "shared", 232432, 1, 0),
 }
 
 
@@ -192,9 +200,11 @@ DOUBLING_PLANS = {
                                         (30, 32, 16, 2048), (30, 32, 16, 256), (30, 32, 16, 1)])
 def test_k3w_plan(wider, doubling, N, nx, nu, B):
     """Every shape gets a layout whose blocks cover the batch, with the
-    kernel's bytes. The doubling form's plans are frozen: the lanes'
-    scratch in shared memory where it fits, else in device memory (h500 at
-    nx = 64: a lane's rows alone are ~0.5 MB). The sequential form's
+    kernel's bytes. The doubling form's plans are frozen: a block takes the
+    lanes that spread the batch over the 132 SMs, its work area and the
+    lanes' state in shared memory where they fit beside a ring of operator
+    panels, else the state in device memory, else the work area too (h500
+    at nx = 64: a lane's rows alone are ~0.5 MB). The sequential form's
     blocks take 4, 8, 16 or 32 lanes, the fewest that spread the batch over
     the 132 SMs, a ring of 3 steps, the lanes' state in shared memory where it fits
     beside it, else in device memory (h500 at nx = 64 still gets a layout);
@@ -207,16 +217,22 @@ def test_k3w_plan(wider, doubling, N, nx, nu, B):
         assert plan.blocks * plan.lanes >= B > (plan.blocks - 1) * plan.lanes
         if doubling:
             assert tuple(plan) == DOUBLING_PLANS[(N, nx, nu, B, split)]
-            assert plan.lane_threads % 32 == 0 and plan.lanes * plan.lane_threads <= 256
-            assert 4 * plan.lane_floats == _wide_bytes(op)
-            if plan.route == "shared":
-                assert plan.smem_bytes == plan.lanes * 4 * plan.lane_floats <= 232448
-            else:
-                assert plan.smem_bytes == 0 and 4 * plan.lane_floats > 232448
+            assert plan.threads % 32 == 0 and plan.lanes <= plan.threads
+            assert plan.threads <= riccati_fused.k3w_dbl_max_threads(plan.lanes_per_thread)
+            assert (plan.smem_bytes, plan.scratch_floats) == _wide_bytes(op, plan)
+            assert plan.smem_bytes <= 232448 and plan.panel % 4 == 0
+            if plan.ring:  # a slot holds 4 steps of the widest stream, or all of it
+                assert plan.panel >= min(4 * riccati_fused.k3w_dbl_step(nx, nu),
+                                         N * riccati_fused.k3w_dbl_step(nx, nu))
+            else:  # the QTP's width, operators that fit L1, or the work area kept in
+                # shared memory where a ring would push it out
+                assert plan.panel == 0 and plan.route != "global"
             if (N, nx) == (500, 64):
-                with pytest.raises(ValueError, match="shared route does not fit"):
+                with pytest.raises(ValueError, match="does not fit"):
                     riccati_fused.k3w_plan(op, B, doubling, "shared")
-            assert riccati_fused.k3w_plan(op, B, doubling, "device").route == "device"
+                with pytest.raises(ValueError, match="does not fit"):
+                    riccati_fused.k3w_plan(op, B, doubling, "device")
+            assert riccati_fused.k3w_plan(op, B, doubling, "global").route == "global"
             continue
         want = next((n for n in (4, 8, 16, 32) if n >= -(-B // 132)), 32)
         assert plan.lanes == want and plan.ring == 3 and plan.plant_shared
@@ -242,3 +258,75 @@ def test_k3w_plan(wider, doubling, N, nx, nu, B):
         for lanes in (2, 6, 12, 64):
             with pytest.raises(ValueError, match="lanes a block"):
                 riccati_fused.k3w_plan(op, B, doubling, lanes=lanes)
+
+
+# forced doubling layouts: (route, ring, lanes, lanes_per_thread, threads,
+# panel); None leaves that part to the plan
+DOUBLING_FORCED = [
+    ("shared", 3, None, None, None, None), ("shared", 2, 1, 1, 512, 68),
+    ("device", 2, 4, 4, 128, None), ("device", 3, 32, 2, 64, 1024),
+    ("global", 3, 16, 8, 256, None), ("global", 2, 2, 2, 64, 4100),
+    (None, None, 8, 1, 416, None), (None, 3, None, None, None, 40000),
+    ("shared", 0, None, None, None, None), ("global", 0, 4, 4, 128, None),
+    (None, 0, 2, 2, 64, 20),
+]
+
+
+@pytest.mark.parametrize("forced", DOUBLING_FORCED)
+@pytest.mark.parametrize("N,nx,nu,B", [(500, 4, 2, 1024), (500, 4, 2, 1), (24, 4, 2, 77),
+                                        (10, 40, 20, 8), (1, 4, 2, 5), (7, 3, 7, 33)])
+def test_k3w_doubling_forced_layouts(wider, forced, N, nx, nu, B):
+    """A forced doubling layout is honoured in every part it names, its
+    blocks cover the batch and its bytes are the kernel's; or it is refused
+    with ValueError, and then it does not fit: the panel holds no step of
+    the widest operator, or the shared memory passes the card's 227 KB."""
+    route, ring, lanes, lt, threads, panel = forced
+    op = dataclasses.replace(wider[1].engine.op, N=N, nx=nx, nu=nu, split_interior=True,
+                             split_terminal=True)
+    try:
+        plan = riccati_fused.k3w_plan(op, B, True, route, lanes=lanes, ring=ring,
+                                      threads=threads, lanes_per_thread=lt, panel=panel)
+    except ValueError as err:
+        assert "does not fit" in str(err)
+        lanes = lanes or next(n for n in (1, 2, 4, 8, 16, 32) if n >= -(-B // 132) or n == 32)
+        lt = lt or next((t for t in (8, 4, 2) if t <= lanes
+                         and N * -(-nx // 4) * (lanes // t) >= 256), 1)
+        step = -(-riccati_fused.k3w_dbl_step(nx, nu) // 4) * 4
+        for where, depth in riccati_fused.K3W_DBL_L1_LAYOUTS + riccati_fused.K3W_DBL_LAYOUTS:
+            if route not in (None, where) or ring not in (None, depth):
+                continue
+            _, fixed = riccati_fused.k3w_dbl_floats(N, nx, nu, N, lanes, lt, depth, 0, where)
+            if depth == 0:  # no ring: no panel
+                assert panel not in (None, 0) or 4 * fixed > 232448, where
+                continue
+            pan = step if panel is None else panel
+            assert pan < step or 4 * (fixed + depth * pan) > 232448, (where, depth)
+        return
+    for name, want in zip(("route", "ring", "lanes", "lanes_per_thread", "threads", "panel"),
+                          forced):
+        assert want is None or getattr(plan, name) == want, name
+    assert plan.blocks * plan.lanes >= B > (plan.blocks - 1) * plan.lanes
+    assert (plan.smem_bytes, plan.scratch_floats) == _wide_bytes(op, plan)
+    assert plan.smem_bytes <= 232448
+    assert plan.panel >= riccati_fused.k3w_dbl_step(nx, nu) if plan.ring else plan.panel == 0
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(lanes=3), "lanes a block"), (dict(lanes=64), "lanes a block"),
+    (dict(lanes=4, lanes_per_thread=8), "tile"), (dict(lanes_per_thread=3), "tile"),
+    (dict(threads=48), "threads"), (dict(threads=1024), "threads"),
+    (dict(lanes=8, lanes_per_thread=8, threads=512), "threads"),
+    (dict(lanes=32, threads=0), "threads"), (dict(route="bogus"), "unknown K3W route"),
+    (dict(ring=4), "does not fit"), (dict(panel=42), "does not fit"),
+    (dict(panel=12), "does not fit"),
+])
+def test_k3w_doubling_refuses_layouts_the_kernel_does_not_take(wider, kwargs, match):
+    """Lanes, tiles, threads, routes, rings and panels the kernel has no
+    code for are refused with ValueError before any launch; the sequential
+    form takes no forced threads, tile or panel."""
+    op = dataclasses.replace(wider[1].engine.op, N=50, nx=4, nu=2)
+    with pytest.raises(ValueError, match=match):
+        riccati_fused.k3w_plan(op, 1024, True, **kwargs)
+    if set(kwargs) & {"threads", "lanes_per_thread", "panel"}:
+        with pytest.raises(ValueError, match="sequential form takes no forced"):
+            riccati_fused.k3w_plan(op, 1024, False, **kwargs)
