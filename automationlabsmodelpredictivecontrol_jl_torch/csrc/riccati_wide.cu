@@ -1,7 +1,7 @@
 // K3W's doubling form on Hopper: `chunk` Riccati-ADMM iterations of the
 // per-lane engine for a plant of any width with the sweeps in doubling
-// form; and the driver's two per-lane recurrences at any width. (K3W's
-// sequential form is riccati_wide_seq.cu.)
+// form. (K3W's sequential form is riccati_wide_seq.cu; the drivers' wide
+// rollout and certificate riccati_wide_rec.cu.)
 //
 // riccati_wide_chunk replaces, for RiccatiConfig.parallel_sweeps, the JAX
 // package's XLA code in ops/riccati.py: solve_sparse's admm_iter
@@ -22,10 +22,6 @@
 // (split_terminal); rows not split mirror X and carry no dual; row 0 is e0.
 // lin_xN = -rho_t vX_N + lamX_N where the terminal row is split (else 0),
 // lpre_k = -rho vX_k + lamX_k where the interior is split and k >= 1.
-//
-// riccati_wide_rollout replaces rollout_warm (:562-570) and
-// riccati_wide_certificate infeas_certificate's terms (:515-559), as K3's
-// rollout and certificate kernels (riccati_admm.cu) do up to (32, 16).
 //
 // What bounds the doubling form on this card: the fp64 multiply-adds of
 // its levels (each reads one nx x nx matrix a horizon step, ~ceil(log2 N) N
@@ -76,10 +72,9 @@
 // fp32 products in fp64 in column order and is rounded once to fp32; each
 // level's add is fp32, b[k] + dot(...); the elementwise steps are fp32 in
 // the plain version's order. Built with --fmad=false, the kernel agrees
-// with its plain versions bit for bit (ops/riccati_fused.py:
+// with its plain version bit for bit (ops/riccati_fused.py:
 // iterate_chunk_riccati_doubling_plain, whose summation order the kernel
-// follows; riccati.rollout_warm; certificate_terms_plain, whose long fp64
-// sums the kernel forms in another order before the one rounding).
+// follows).
 //
 // Bound to PyTorch by ctypes through plain C functions that return
 // cudaGetLastError() after the launch (0 on success).
@@ -93,10 +88,6 @@
 namespace {
 
 constexpr size_t kSmemLimit = 232448;
-// the most threads of the rollout's and certificate's blocks
-// (K3W_LANE_THREADS in ops/riccati_fused.py); the bound lets ptxas give a
-// thread up to 255 registers
-constexpr int kMaxThreads = 256;
 // the doubling form: the most threads of a block (k3w_dbl_max_threads: 256
 // where a thread takes 8 lanes, whose tile needs more than 128 registers),
 // the rows of a thread's tile, the lanes a block may take
@@ -115,26 +106,6 @@ __device__ __forceinline__ float clip(float v, float lo, float hi) {
 // max that propagates NaN, as torch.amax does
 __device__ __forceinline__ float nanmax(float a, float b) {
   return (a > b || a != a) ? a : b;
-}
-
-// the support of a box at direction d: +inf rays only where d points along
-// them
-__device__ __forceinline__ float box_term(float d, float lo, float hi) {
-  const float inf = INFINITY;
-  const float pos = d > 0.0f ? (isfinite(hi) ? hi * d : inf) : 0.0f;
-  const float neg = d < 0.0f ? (isfinite(lo) ? lo * d : inf) : 0.0f;
-  return pos + neg;
-}
-
-// sum_j M[j * sj] v[j] for j < n (n >= 1): exact fp32 products summed in
-// fp64 in order j = 0..n-1, rounded once. v may be scratch that the block
-// writes (no read-only loads).
-__device__ __forceinline__ float dot(const float* __restrict__ M, ptrdiff_t sj,
-                                    const float* v, int n) {
-  double acc = static_cast<double>(M[0]) * static_cast<double>(v[0]);
-  for (int j = 1; j < n; ++j)
-    acc = fma(static_cast<double>(M[j * sj]), static_cast<double>(v[j]), acc);
-  return static_cast<float>(acc);
 }
 
 // The split rows of X: N when the interior is split, the terminal row alone
@@ -872,128 +843,6 @@ __global__ void __launch_bounds__(dbl_max_threads(LT)) riccati_wide_kernel(const
   }
 }
 
-// X_0 = e0, X_{k+1} = A X_k + B U_k, one lane a block, a thread a row; e
-// double-buffered, u staged, in shared memory.
-__global__ void __launch_bounds__(kMaxThreads)
-riccati_wide_rollout_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
-                            const float* __restrict__ e0, const float* __restrict__ U,
-                            float* __restrict__ X, int N, int nx, int nu, int B) {
-  extern __shared__ __align__(16) float sm[];
-  const int b = blockIdx.x, t = threadIdx.x, T = blockDim.x;
-  float* e[2] = {sm, sm + nx};
-  float* u = sm + 2 * nx;
-  for (int i = t; i < nx; i += T) {
-    e[0][i] = e0[static_cast<size_t>(i) * B + b];
-    X[static_cast<size_t>(i) * B + b] = e[0][i];
-  }
-  for (int i = t; i < nu; i += T) u[i] = U[static_cast<size_t>(i) * B + b];
-  __syncthreads();
-  for (int k = 0; k < N; ++k) {
-    const float* cur = e[k & 1];
-    float* nxt = e[(k + 1) & 1];
-    for (int i = t; i < nx; i += T) {
-      nxt[i] = dot(A + static_cast<size_t>(i) * nx, 1, cur, nx) +
-               dot(Bm + static_cast<size_t>(i) * nu, 1, u, nu);
-      X[(static_cast<size_t>(k + 1) * nx + i) * B + b] = nxt[i];
-    }
-    __syncthreads();
-    if (k + 1 < N)
-      for (int i = t; i < nu; i += T) u[i] = U[(static_cast<size_t>(k + 1) * nu + i) * B + b];
-    __syncthreads();
-  }
-}
-
-// The certificate's terms of one lane a block: the adjoint recursion g <-
-// A' g + dlamX_k with residual B' g + dlamU_k by a thread a row (g and the
-// two products in shared memory, two barriers a step), the long sums as
-// per-thread fp64 partials combined by thread 0 in thread order.
-__global__ void __launch_bounds__(kMaxThreads) riccati_wide_certificate_kernel(
-    const float* __restrict__ A, const float* __restrict__ Bm, const float* __restrict__ xlo,
-    const float* __restrict__ xhi, const float* __restrict__ xNlo,
-    const float* __restrict__ xNhi, const float* __restrict__ ulo,
-    const float* __restrict__ uhi, const float* __restrict__ lamX_new,
-    const float* __restrict__ lamX_old, const float* __restrict__ lamU_new,
-    const float* __restrict__ lamU_old, const float* __restrict__ Xbar,
-    const float* __restrict__ ballr, float* __restrict__ out, int N, int nx, int nu, int B,
-    int si, int st, int ball) {
-  extern __shared__ __align__(16) double smd[];
-  const int b = blockIdx.x, t = threadIdx.x, T = blockDim.x;
-  double* P = smd;                                  // 4 fp64 partials a thread
-  float* F = reinterpret_cast<float*>(P + 4 * T);   // 2 fp32 maxima a thread
-  float* g = F + 2 * T;
-  float* bgag = g + nx;
-  const auto dx = [&](int row, int i) {
-    const size_t a = (static_cast<size_t>(row) * nx + i) * B + b;
-    return lamX_new[a] - lamX_old[a];
-  };
-  const auto du = [&](int row, int i) {
-    const size_t a = (static_cast<size_t>(row) * nu + i) * B + b;
-    return lamU_new[a] - lamU_old[a];
-  };
-
-  // the long sums: box supports, <dlamX, Xbar>, max |dlam|
-  double s_u = 0.0, s_int = 0.0, s_term = 0.0, xb = 0.0;
-  float dn = 0.0f, ortho = 0.0f;
-  for (int idx = t; idx < N * nu; idx += T) {
-    const int i = idx % nu;
-    const float d = du(idx / nu, i);
-    dn = nanmax(dn, fabsf(d));
-    s_u += static_cast<double>(box_term(d, ulo[i], uhi[i]));
-  }
-  for (int idx = t; idx < (N + 1) * nx; idx += T) {
-    const int row = idx / nx, i = idx - row * nx;
-    const float d = dx(row, i);
-    dn = nanmax(dn, fabsf(d));
-    xb = fma(static_cast<double>(d), static_cast<double>(Xbar[static_cast<size_t>(idx) * B + b]), xb);
-    if (si && row >= 1 && row < N) s_int += static_cast<double>(box_term(d, xlo[i], xhi[i]));
-    if (row == N && st && !ball) s_term += static_cast<double>(box_term(d, xNlo[i], xNhi[i]));
-  }
-
-  // the adjoint recursion from g = dlamX_N
-  for (int i = t; i < nx; i += T) g[i] = dx(N, i);
-  __syncthreads();
-  for (int k = N - 1; k >= 0; --k) {
-    for (int rr = t; rr < nu + nx; rr += T)
-      bgag[rr] = rr < nu ? dot(Bm + rr, nu, g, nx) : dot(A + (rr - nu), nx, g, nx);
-    __syncthreads();
-    for (int rr = t; rr < nu + nx; rr += T) {
-      if (rr < nu)
-        ortho = nanmax(ortho, fabsf(bgag[rr] + du(k, rr)));
-      else
-        g[rr - nu] = bgag[rr] + dx(k, rr - nu);
-    }
-    __syncthreads();
-  }
-
-  P[t] = s_u, P[T + t] = s_int, P[2 * T + t] = s_term, P[3 * T + t] = xb;
-  F[t] = ortho, F[T + t] = dn;
-  __syncthreads();
-  if (t != 0) return;
-  double su = 0.0, sint = 0.0, sterm = 0.0, sxb = 0.0;
-  float o = 0.0f, d = 0.0f;
-  for (int j = 0; j < T; ++j) {
-    su += P[j], sint += P[T + j], sterm += P[2 * T + j], sxb += P[3 * T + j];
-    o = nanmax(o, F[j]);
-    d = nanmax(d, F[T + j]);
-  }
-  float s_c = static_cast<float>(su);
-  if (si) s_c = s_c + static_cast<float>(sint);
-  if (ball) {  // ||dlamX_N||, squares in row order
-    const float d0 = dx(N, 0);
-    double acc = static_cast<double>(d0) * static_cast<double>(d0);
-    for (int i = 1; i < nx; ++i) {
-      const float di = dx(N, i);
-      acc = fma(static_cast<double>(di), static_cast<double>(di), acc);
-    }
-    s_c = s_c + ballr[b] * sqrtf(static_cast<float>(acc));
-  } else if (st) {
-    s_c = s_c + static_cast<float>(sterm);
-  }
-  out[b] = o;
-  out[B + b] = s_c - static_cast<float>(sxb);
-  out[2 * static_cast<size_t>(B) + b] = d;
-}
-
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
   if (bytes > kSmemLimit) return cudaErrorInvalidValue;
@@ -1089,44 +938,6 @@ int riccati_wide_chunk(const float* Kf, const float* Gf,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (B + lanes - 1) / lanes;
   kernel<<<blocks, threads, bytes, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// X (N+1, nx, B) from e0 (nx, B) and U (N, nu, B); A (nx, nx), Bm (nx, nu);
-// one lane a block of `threads` threads.
-int riccati_wide_rollout(const float* A, const float* Bm, const float* e0, const float* U,
-                         float* X, int N, int nx, int nu, int B, int threads, void* stream) {
-  if (N <= 0 || nx <= 0 || nu <= 0 || B <= 0 || threads <= 0 || threads > kMaxThreads)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = sizeof(float) * (2 * static_cast<size_t>(nx) + nu);
-  const cudaError_t err = set_smem(riccati_wide_rollout_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  riccati_wide_rollout_kernel<<<B, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      A, Bm, e0, U, X, N, nx, nu, B);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// out (3, B): max_k |B' g_{k+1} + dlamU_k|, the support value and max |dlam|
-// of each lane, from lamX_new/old, Xbar (N+1, nx, B), lamU_new/old (N, nu,
-// B), ballr (B) and the boxes as in riccati_wide_chunk; one lane a block of
-// `threads` threads.
-int riccati_wide_certificate(const float* A, const float* Bm, const float* xlo,
-                             const float* xhi, const float* xNlo, const float* xNhi,
-                             const float* ulo, const float* uhi, const float* lamX_new,
-                             const float* lamX_old, const float* lamU_new,
-                             const float* lamU_old, const float* Xbar, const float* ballr,
-                             float* out, int N, int nx, int nu, int B, int split_interior,
-                             int split_terminal, int terminal_ball, int threads,
-                             void* stream) {
-  if (N <= 0 || nx <= 0 || nu <= 0 || B <= 0 || threads <= 0 || threads > kMaxThreads)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = sizeof(double) * 4 * threads +
-                       sizeof(float) * (2 * static_cast<size_t>(threads) + 2 * nx + nu);
-  const cudaError_t err = set_smem(riccati_wide_certificate_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  riccati_wide_certificate_kernel<<<B, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      A, Bm, xlo, xhi, xNlo, xNhi, ulo, uhi, lamX_new, lamX_old, lamU_new, lamU_old, Xbar,
-      ballr, out, N, nx, nu, B, split_interior, split_terminal, terminal_ball);
   return static_cast<int>(cudaGetLastError());
 }
 

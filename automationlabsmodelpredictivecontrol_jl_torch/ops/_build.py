@@ -7,7 +7,8 @@ into one shared library with a plain C interface,
 register tiers, and the widest tier's routes, are sources of their own
 over one header, so that they build side by side; K3W, the width-general
 Riccati chunk, is ``riccati_wide_seq.cu`` (the sequential sweeps) and
-``riccati_wide.cu`` (the doubling sweeps, the rollout and certificate);
+``riccati_wide.cu`` (the doubling sweeps), with the drivers' wide rollout
+and certificate in ``riccati_wide_rec.cu``;
 the stream route of K1 and K2, ``admm_diag_stream.cu``; the wide route of
 K4 and K5, ``admm_perr_wide.cu``). That happens on
 first use, or when a source or a header is newer than the library. The
@@ -128,8 +129,8 @@ SIGNATURES = {
     "riccati_chain_floor": "p" + "i" * 4 + "p",
     "riccati_wide_chunk": "p" * 28 + "i" * 17 + "p",
     "riccati_wide_seq_chunk": "p" * 28 + "i" * 15 + "p",
-    "riccati_wide_rollout": "p" * 5 + "i" * 5 + "p",
-    "riccati_wide_certificate": "p" * 15 + "i" * 8 + "p",
+    "riccati_wide_rollout": "p" * 6 + "i" * 11 + "p",
+    "riccati_wide_certificate": "p" * 16 + "i" * 14 + "p",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

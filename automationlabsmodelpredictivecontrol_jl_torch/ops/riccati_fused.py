@@ -24,9 +24,10 @@ with the factors of the current rho (``ops/riccati.py``).
 - :func:`rollout` and :func:`certificate_terms` are the driver's two O(N)
   recurrences (the warm and zero-input rollouts, once per solve; the
   infeasibility certificate's adjoint recursion, every chunk), each a small
-  per-lane kernel, K3's up to (32, 16) and the wide ones
-  (:func:`rollout_wide`, :func:`certificate_terms_wide`) past it, so that
-  no Python loop over the horizon runs between chunks;
+  per-lane kernel, K3's or the wide ones (:func:`rollout_wide`,
+  :func:`certificate_terms_wide`, laid out by :func:`wide_recurrence_plan`)
+  by the plant's tier (``RECURRENCE_ROUTES``), the wide ones past K3's
+  tiers, so that no Python loop over the horizon runs between chunks;
 - :func:`riccati_chunk_fn` routes a driver's chunks: K3 or K3W by the
   plant's tier (``CHUNK_ROUTES``, an A/B on the card), K3W past K3's
   tiers, and, on the per-lane engine under ``parallel_sweeps``, K3W's
@@ -92,7 +93,8 @@ __all__ = [
     "K3WSeqPlan", "k3w_seq_floats", "k3w_seq_operands",
     "iterate_chunk_riccati_wide", "iterate_chunk_riccati_doubling",
     "iterate_chunk_riccati_doubling_plain", "rollout_wide", "certificate_terms_wide",
-    "CHUNK_ROUTES", "chunk_kernel",
+    "CHUNK_ROUTES", "chunk_kernel", "RECURRENCE_ROUTES", "recurrence_kernel", "WideRecPlan",
+    "wide_recurrence_plan", "wide_rec_bytes", "WIDE_REC_RING",
     "riccati_chunk_fn", "solve_sparse_fused", "solve_sparse",
 ]
 
@@ -448,9 +450,6 @@ def iterate_chunk_riccati(
     )
 
 
-# the wide rollout's and certificate's blocks (csrc/riccati_wide.cu's
-# kMaxThreads): one lane a block, at most this many threads
-K3W_LANE_THREADS = 256
 # K3W's doubling form (csrc/riccati_wide.cu): the lanes a block may take;
 # a thread's register tile of K3W_DBL_ROWS rows x LT lanes (LT, the lanes a
 # thread, one of K3W_DBL_TILE_LANES); where a launch keeps its lanes' work
@@ -875,6 +874,26 @@ def iterate_chunk_riccati_doubling(
 CHUNK_ROUTES = {(4, 2): "K3", (8, 4): "K3", (16, 8): "K3", (MAX_NX, MAX_NU): "K3W"}
 
 
+# Which kernels run the drivers' rollout and certificate of a plant K3
+# takes, by K3's register tier: K3's own ("K3": riccati_rollout,
+# riccati_certificate) or the wide ones ("wide": rollout_wide,
+# certificate_terms_wide). At (32, 16), h30, ms a launch, rollout /
+# certificate, K3's against the wide ones on the same inputs at the
+# riccati-wide-nx32 cell's B = 2048, 256 and 1 (k3_ab.py --kernel wide-rec
+# on an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6):
+#   K3    1.027 / 0.544, 1.025 / 0.485, 1.020 / 0.473
+#   wide  0.0495 / 0.0458, 0.0349 / 0.0266, 0.0368 / 0.0263
+# The narrower tiers keep K3's (not measured against the wide ones); past
+# K3's tiers the wide ones run.
+RECURRENCE_ROUTES = {(4, 2): "K3", (8, 4): "K3", (16, 8): "K3", (MAX_NX, MAX_NU): "wide"}
+
+
+def recurrence_kernel(op: RiccatiOperator) -> str:
+    """"K3" or "wide": the kernels of ``op``'s rollout and certificate, from
+    ``RECURRENCE_ROUTES`` (the wide ones past K3's widest tier)."""
+    return RECURRENCE_ROUTES[_tier(op.nx, op.nu)] if k3_fits(op) else "wide"
+
+
 def chunk_kernel(op: RiccatiOperator) -> str:
     """"K3" or "K3W": the kernel of ``op``'s sequential chunk, from
     ``CHUNK_ROUTES`` (K3W past K3's widest tier)."""
@@ -1009,27 +1028,196 @@ def _rollout_wide_plain(op, e0T, U):
     return rollout_warm(op, e0T, U)
 
 
-def _wide_threads(rows: int) -> int:
-    """Threads of the wide rollout's and certificate's one-lane blocks."""
-    return min(_ceil32(rows), K3W_LANE_THREADS)
+# The drivers' wide rollout and certificate (csrc/riccati_wide_rec.cu): the
+# lanes a block may take; a thread's register tile of (rows, lanes), the
+# kernel's instantiations in the order the plan tries them (the first that
+# leaves a block WIDE_REC_MIN_THREADS threads, else (1, 1), the one with
+# the most: a lane's rows spread over the threads); the most threads of a block
+# (more row groups: a thread loops over them); where the operators sit, in
+# the order tried (widened to fp64 in shared memory, fp32 there, read
+# through L1/L2; the C entry's place); where the lane buffers lie (shared
+# memory, or a device scratch: one lane, the (1, 1) tile, the operators
+# through L1/L2; the C entry's route)
+WIDE_REC_KERNELS = ("rollout", "certificate")
+WIDE_REC_LANES = (1, 2, 4, 8, 16, 32)
+WIDE_REC_TILES = ((2, 2), (1, 1))
+WIDE_REC_MIN_THREADS = 128
+WIDE_REC_MAX_THREADS = 512
+WIDE_REC_PLACES = ("fp64", "fp32", "global")
+WIDE_REC_ROUTES = ("shared", "device")
+# the rollout's slots of U in a block (kRing of csrc/riccati_wide_rec.cu:
+# the one a step reads, and the one the next step's U goes to where it
+# ends)
+WIDE_REC_RING = 2
 
 
-def _launch_rollout_wide(op, e0T, U):
+class WideRecPlan(NamedTuple):
+    """How one launch of the wide rollout or certificate is laid out: the
+    lanes of a block, its threads, a thread's tile of rows x lanes, where
+    the operators sit (``WIDE_REC_PLACES``), where the lane buffers lie
+    (``WIDE_REC_ROUTES``), the block's dynamic shared memory, the blocks of
+    the grid and the floats of the "device" route's scratch (0 on the
+    other)."""
+
+    kernel: str
+    lanes: int
+    threads: int
+    rows_per_thread: int
+    lanes_per_thread: int
+    place: str
+    route: str
+    smem_bytes: int
+    blocks: int
+    scratch_floats: int
+
+
+def _a16(n: int) -> int:
+    return -(-int(n) // 16) * 16
+
+
+def wide_rec_bytes(kernel: str, nx: int, nu: int, lanes: int, rows_per_thread: int,
+                   threads: int, place: str, route: str) -> Tuple[int, int]:
+    """(the lane buffers' bytes, the block's shared-memory bytes) of a wide
+    rollout or certificate block, as ``rollout_layout`` /
+    ``certificate_layout`` of csrc/riccati_wide_rec.cu lay them out (the C
+    entry refuses other bytes): the operators [j][row] (fp64 or fp32; none
+    through L1/L2), rows padded to the tile; the certificate's reduction
+    (4 fp64 and 2 fp32 partials a warp and lane); the lane buffers (the
+    rollout: e in fp64, two slots, a step's U in fp32, ``WIDE_REC_RING``
+    slots, B u_{k+1}; the certificate: g in fp64, two slots), in shared
+    memory on the "shared" route."""
+    x, u, l, rt = int(nx), int(nu), int(lanes), int(rows_per_thread)
+    pad = lambda n: -(-n // rt) * rt
+    width = {"fp64": 8, "fp32": 4, "global": 0}[place]
+    if kernel == "rollout":
+        ops = _a16(width * (x + u) * pad(x))
+        red = 0
+        lane = _a16(16 * x * l) + _a16(4 * WIDE_REC_RING * u * l) + _a16(4 * pad(x) * l)
+    else:
+        ops = _a16(width * x * (pad(x) + pad(u)))
+        red = _a16(40 * (int(threads) // 32) * l)
+        lane = _a16(16 * x * l)
+    return lane, ops + red + (lane if route == "shared" else 0)
+
+
+def _wide_rec_rows(kernel: str, nx: int, nu: int, rt: int) -> int:
+    """The row groups of a tile space: A e's rows, or A' g's and B' g's."""
+    groups = -(-nx // rt)
+    return groups + (-(-nu // rt) if kernel == "certificate" else 0)
+
+
+def wide_recurrence_plan(op: RiccatiOperator, B: int, kernel: str = "rollout",
+                         lanes: Optional[int] = None, place: Optional[str] = None,
+                         route: Optional[str] = None, rows_per_thread: Optional[int] = None,
+                         lanes_per_thread: Optional[int] = None,
+                         threads: Optional[int] = None) -> WideRecPlan:
+    """The layout of a wide rollout or certificate launch (``kernel``) for
+    ``B`` lanes, from the shape alone.
+
+    A block takes the fewest of ``WIDE_REC_LANES`` that spread the batch
+    over every SM, so that one staging of the operators serves them all; a
+    thread the (2, 2) tile where it leaves the block ``WIDE_REC_MIN_THREADS``
+    threads, else the (1, 1) tile (at B = 1 a lane's rows spread over the
+    threads), with one thread a (row group, lane group) up to
+    ``WIDE_REC_MAX_THREADS``. On an H100 (scripts/wide_rec_phase_probe.py,
+    PERF.md section 6) the (2, 2) tile ran as fast as or faster than the
+    (4, 1), (4, 2) and (2, 1) tiles forced at (64, 32) h30, B = 1024 and at
+    (32, 16) h30, B = 2048, and (1, 1) ran 1.7-2.7x faster than (4, 1) at
+    B = 1; other shapes were not timed. The operators sit widened to fp64 in
+    shared memory where they fit, else in fp32, each at those lanes or down
+    to a quarter of them; else through L1/L2 at any lanes down to one; where
+    not even one lane's buffers fit shared memory, they lie in a device
+    scratch (route "device"), so that every width is taken. Every argument
+    forces its part of a layout (ValueError where it does not fit or is not
+    one the kernel takes)."""
+    N, nx, nu = op.N, op.nx, op.nu
+    B = int(B)
+    if kernel not in WIDE_REC_KERNELS:
+        raise ValueError(f"unknown wide recurrence {kernel!r}; one of {list(WIDE_REC_KERNELS)}")
+    if B < 1 or nx < 1 or nu < 1 or N < 1:
+        raise ValueError(f"the wide {kernel} takes at least one lane, step, state and input; "
+                         f"B={B}, N={N}, nx={nx}, nu={nu}")
+    if place not in (None, *WIDE_REC_PLACES):
+        raise ValueError(f"unknown placement {place!r}; one of {list(WIDE_REC_PLACES)}")
+    if route not in (None, *WIDE_REC_ROUTES):
+        raise ValueError(f"unknown route {route!r}; one of {list(WIDE_REC_ROUTES)}")
+    if lanes is not None and lanes not in WIDE_REC_LANES:
+        raise ValueError(f"the wide {kernel} takes one of {WIDE_REC_LANES} lanes a block; "
+                         f"lanes={lanes}")
+    tiles = WIDE_REC_TILES
+    if rows_per_thread is not None or lanes_per_thread is not None:
+        tiles = tuple(t for t in tiles if rows_per_thread in (None, t[0])
+                      and lanes_per_thread in (None, t[1]))
+        if not tiles:
+            raise ValueError(f"the wide {kernel} takes a tile of {WIDE_REC_TILES}; "
+                             f"({rows_per_thread}, {lanes_per_thread})")
+    if threads is not None and (threads % 32 or not 32 <= threads <= WIDE_REC_MAX_THREADS):
+        raise ValueError(f"the wide {kernel} takes a multiple of 32 threads, 32 to "
+                         f"{WIDE_REC_MAX_THREADS}; threads={threads}")
+    want = math.ceil(B / SM_COUNT)
+    top = next((n for n in WIDE_REC_LANES if n >= want), WIDE_REC_LANES[-1])
+    for where in WIDE_REC_ROUTES:
+        if route not in (None, where):
+            continue
+        for pl in WIDE_REC_PLACES if where == "shared" else ("global",):
+            if place not in (None, pl):
+                continue
+            if lanes is not None:
+                options = (lanes,)
+            elif where == "device":
+                options = (1,)
+            else:  # fp64 / fp32 down to a quarter of the lanes, unless forced
+                least = 1 if (pl == "global" or place is not None) else max(1, top // 4)
+                options = tuple(n for n in reversed(WIDE_REC_LANES) if least <= n <= top)
+            for L in options:
+                fits = [t for t in tiles if t[1] <= L]
+                if where == "device":
+                    fits = [t for t in fits if t == (1, 1)] if L == 1 else []
+                if not fits:
+                    continue
+                rows = lambda t: _wide_rec_rows(kernel, nx, nu, t[0]) * (L // t[1])
+                rt, lt = next((t for t in fits if rows(t) >= WIDE_REC_MIN_THREADS), fits[-1])
+                T = threads or min(_ceil32(rows((rt, lt))), WIDE_REC_MAX_THREADS)
+                lane_bytes, smem = wide_rec_bytes(kernel, nx, nu, L, rt, T, pl, where)
+                if smem > SMEM_LIMIT:
+                    continue
+                blocks = math.ceil(B / L)
+                return WideRecPlan(kernel, L, T, rt, lt, pl, where, smem, blocks,
+                                   blocks * lane_bytes // 4 if where == "device" else 0)
+    raise ValueError(f"the wide {kernel}'s layout (lanes {lanes!r}, place {place!r}, route "
+                     f"{route!r}, tile ({rows_per_thread}, {lanes_per_thread})) does not fit "
+                     f"nx={nx}, nu={nu}")
+
+
+def _rec_ints(plan: WideRecPlan):
+    return (plan.lanes, plan.threads, plan.rows_per_thread, plan.lanes_per_thread,
+            WIDE_REC_PLACES.index(plan.place), WIDE_REC_ROUTES.index(plan.route),
+            plan.smem_bytes)
+
+
+def _launch_rollout_wide(op, e0T, U, plan=None):
+    """Launch the wide rollout as :func:`wide_recurrence_plan` lays it out
+    (``plan`` forces a layout). It reads A' and B' by row
+    (:func:`k3w_seq_operands`)."""
     N, nx, nu = op.N, op.nx, op.nu
     B = e0T.shape[1]
+    if plan is None:
+        plan = wide_recurrence_plan(op, B, "rollout")
     f = torch.float32
-    _, plant, _ = _shape_args(op, B)
-    args = plant + [("e0T", e0T, (nx, B), f), ("U", U, (N, nu, B), f)]
+    ops = k3w_seq_operands(op)
+    args = [("A'", ops["AT"], (nx, nx), f), ("B'", ops["BT"], (nu, nx), f),
+            ("e0T", e0T, (nx, B), f), ("U", U, (N, nu, B), f)]
     _check_args("rollout-wide", args, e0T.device)
     X = torch.empty((N + 1, nx, B), dtype=f, device=e0T.device)
-    return _launch("rollout-wide", "riccati_wide_rollout", args, [X],
-                   (N, nx, nu, B, _wide_threads(nx)))[0]
+    outs = [X, e0T.new_empty(plan.scratch_floats)]
+    return _launch("rollout-wide", "riccati_wide_rollout", args, outs,
+                   (N, nx, nu, B, *_rec_ints(plan)))[0]
 
 
 def rollout_wide(op: RiccatiOperator, e0T: Tensor, U: Tensor) -> Tensor:
     """:func:`rollout` for a plant of any width: the wide rollout kernel
-    (csrc/riccati_wide.cu) on a CUDA tensor, ``riccati.rollout_warm`` on a
-    CPU one."""
+    (csrc/riccati_wide_rec.cu) on a CUDA tensor, ``riccati.rollout_warm`` on
+    a CPU one."""
     return _dispatch("rollout-wide", _launch_rollout_wide, _rollout_wide_plain, (op, e0T, U))
 
 
@@ -1038,9 +1226,14 @@ def _certificate_wide_plain(op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ba
     return _certificate_plain(op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ballr)
 
 
-def _launch_certificate_wide(op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ballr):
+def _launch_certificate_wide(op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ballr,
+                             plan=None):
+    """Launch the wide certificate as :func:`wide_recurrence_plan` lays it
+    out (``plan`` forces a layout)."""
     N, nx, nu = op.N, op.nx, op.nu
     B = ballr.shape[0]
+    if plan is None:
+        plan = wide_recurrence_plan(op, B, "certificate")
     f = torch.float32
     _, plant, boxes = _shape_args(op, B)
     args = plant + boxes + [
@@ -1053,10 +1246,9 @@ def _launch_certificate_wide(op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, b
     ]
     _check_args("certificate-wide", args, ballr.device)
     out = torch.empty((3, B), dtype=f, device=ballr.device)
-    return _launch(
-        "certificate-wide", "riccati_wide_certificate", args, [out],
-        (N, nx, nu, B, *_flags(op), _wide_threads(nx + nu)),
-    )[0]
+    outs = [out, ballr.new_empty(plan.scratch_floats)]
+    return _launch("certificate-wide", "riccati_wide_certificate", args, outs,
+                   (N, nx, nu, B, *_flags(op), *_rec_ints(plan)))[0]
 
 
 def certificate_terms_wide(
@@ -1069,7 +1261,8 @@ def certificate_terms_wide(
     ballr: Tensor,
 ) -> Tensor:
     """:func:`certificate_terms` for a plant of any width: the wide
-    certificate kernel on CUDA tensors, the plain version on CPU ones."""
+    certificate kernel (csrc/riccati_wide_rec.cu) on CUDA tensors, the
+    plain version on CPU ones."""
     return _dispatch(
         "certificate-wide", _launch_certificate_wide, _certificate_wide_plain,
         (op, lamX_new, lamX_old, lamU_new, lamU_old, Xbar, ballr),
@@ -1099,7 +1292,7 @@ def _start(op: RiccatiOperator, e0s: Tensor, warm_U: Optional[Tensor],
     zeros = lambda: torch.zeros((N, nu, e0s.shape[0]), dtype=f, device=e0s.device)
     e0T = e0s.to(f).T.contiguous()
     ballr = ball_radius(op, e0T)
-    roll = rollout if k3_fits(op) else rollout_wide
+    roll = rollout if recurrence_kernel(op) == "K3" else rollout_wide
     U = zeros() if warm_U is None else _lane_last(warm_U)
     X = roll(op, e0T, U)
     if warm_lam is None:
@@ -1133,7 +1326,7 @@ def _check(op: RiccatiOperator, config: RiccatiConfig, new, old, rp_prev, rho, X
     scale = torch.maximum(_amax(U), torch.clamp_min(_amax(X), 1e-6))
     tol = config.eps_abs + config.eps_rel * scale
     finite = torch.isfinite(U.sum(dim=(0, 1)) + X.sum(dim=(0, 1)))
-    terms = certificate_terms if k3_fits(op) else certificate_terms_wide
+    terms = certificate_terms if recurrence_kernel(op) == "K3" else certificate_terms_wide
     ortho, support, dnorm = terms(op, lamX, lamX0, lamU, lamU0, Xbar, ballr)
     eps = config.eps_infeas
     cert = (dnorm > 1e-9) & (ortho <= eps * dnorm) & (support <= -eps * dnorm)

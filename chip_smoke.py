@@ -60,15 +60,16 @@ device=card)``, then ``parallel`` and ``step``):
   ``solve_batch_escalated`` at bench.py's tiers and 16384 states;
 - the controller types (``controllers_phase``): a Riccati controller on a
   wide plant (32 states, 16 inputs, h30, 2048 states: K3's (32, 16)
-  register tier, whose chunk the routing table sends to K3W, with K3's
-  rollout and certificate, through ``solve_batch_auto``), the Takagi-Sugeno fuzzy QTP and the economic QTP
+  register tier, whose chunk the routing table sends to K3W and whose
+  rollout and certificate RECURRENCE_ROUTES sends to the wide ones, through
+  ``solve_batch_auto``), the Takagi-Sugeno fuzzy QTP and the economic QTP
   (h10, 256 states, ``parallel.solve_batch`` and ``step``; the economic
   engine also on the card against the CPU) and the exact-ReLU MILP fleet
   on a relu fnn trained on the card (h5, 32 states, host threads);
 - the Riccati sweeps (``riccati_sweeps_phase``): K3W, the width-general
-  Riccati chunk (``csrc/riccati_wide_seq.cu``; its doubling form,
-  rollout and certificate ``csrc/riccati_wide.cu``), with its wide rollout and
-  certificate, on a (64, 32) plant at h30 past K3's (32, 16)
+  Riccati chunk (``csrc/riccati_wide_seq.cu``; its doubling form
+  ``csrc/riccati_wide.cu``), with the wide rollout and certificate
+  (``csrc/riccati_wide_rec.cu``), on a (64, 32) plant at h30 past K3's (32, 16)
   (``solve_batch_auto``, ``parallel.solve_batch`` over 1024 states, 10
   ``step``s, the card against the CPU), and its doubling form under
   ``RiccatiConfig(parallel_sweeps=True)`` on suite config 6 (h500, 1024
@@ -124,8 +125,13 @@ Phases (any failure raises and exits non-zero):
    QTP's h500 (1024 lanes and one, beside K3 on the same inputs), h50 and
    h24, each shape also on the other routes and rings its plan takes there
    (a model line each: L2 operator bytes, conversion and FMA floors, phases
-   and barriers an iteration), and the wide rollout and
-   certificate at (64, 32) h30, each with its k3w_plan line; K4 at the h20 equality
+   and barriers an iteration), and the wide rollout and certificate at
+   (64, 32) h30 (1024 lanes and one), (40, 20) h10 with the state box and,
+   in the controllers' phase, (32, 16) h30 (2048, 256 and one lane), each
+   with its wide_recurrence_plan line, device times from CUDA graphs after
+   0.3 s of warm-up with the SM clock beside them, and their chain floor
+   (N x nx dependent fp64 multiply-adds at scripts/fp64_rate_probe.py's
+   chain latency, measured once a run); K4 at the h20 equality
    terminal (random and one rho index, tier 2's bucket, a ragged batch),
    the state box at tier 1's grid (no refinement) and the neighborhood
    terminal (its stream route), K5 at h20 (random and one rho index, tier
@@ -142,7 +148,8 @@ Phases (any failure raises and exits non-zero):
    learned phase: no kernel on the SQP cells, K1 on the learned-linear
    cell, held to its plain version on that operator first; the
    controllers' phase: the chunk the routing table picks (K3W, never K3)
-   and K3's recurrences on the wide Riccati cell, no kernel on the fuzzy,
+   and the recurrences RECURRENCE_ROUTES picks (the wide ones, never K3's)
+   on the wide Riccati cell, no kernel on the fuzzy,
    economic and MILP cells; the sweeps' phase:
    K3W and the wide recurrences on the (64, 32) cell and never K3,
    K3W-doubling and never K3 on the per-lane engine under
@@ -309,11 +316,14 @@ def cuda_ms_once(fn):
     return out, start.elapsed_time(end)
 
 
-def cuda_graph_ms(fn, reps=20, repeats=5):
+def cuda_graph_ms(fn, reps=20, repeats=5, warm_s=0.0):
     """Device milliseconds per call of fn(): reps calls captured in a CUDA
     graph, replayed `repeats` times, the median replay over reps. For
     kernels whose launch takes about as long on the host as the kernel on
-    the card, where cuda_ms would time the host."""
+    the card, where cuda_ms would time the host. ``warm_s``: replay for
+    that many seconds first, so that a card left idle between small
+    kernels (its lowest clock) is timed at its
+    working clock."""
     import statistics
 
     import torch
@@ -326,6 +336,10 @@ def cuda_graph_ms(fn, reps=20, repeats=5):
             fn()
     graph.replay()
     torch.cuda.synchronize()
+    start = time.perf_counter()
+    while time.perf_counter() - start < warm_s:
+        graph.replay()
+        torch.cuda.synchronize()
     times = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
@@ -734,6 +748,15 @@ def tile_floor_ms(n, m, B, refine_steps, chunk, plan, packed=False):
 
 
 @functools.lru_cache(maxsize=None)
+def sm_clock_now_mhz():
+    """The SM clock nvidia-smi reads now, in MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    )
+    return float(out.stdout.strip().splitlines()[0])
+
+
 def sm_clock_hz():
     """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
     out = subprocess.run(
@@ -1213,10 +1236,11 @@ def controllers_phase(dev):
       the tier (the fp64 factors only fit up to h15: an h10 operator of the
       same plant), the rollout and the certificate likewise; K3W's
       sequential form against its plain version and against K3 at B =
-      2048, 256 and 1 (max_ulps 0 both); then ``solve_batch_auto`` over
-      2048 states on the chunk ``riccati_fused.chunk_kernel`` picks (K3W),
-      that kernel and both recurrence kernels launched and the other chunk
-      kernel not, no plain version, converged >= 0.999;
+      2048, 256 and 1 (max_ulps 0 both); the wide rollout and certificate
+      likewise (max_ulps 0); then ``solve_batch_auto`` over 2048 states on
+      the chunk ``riccati_fused.chunk_kernel`` picks (K3W) and the
+      recurrences ``riccati_fused.recurrence_kernel`` picks, those kernels
+      launched and the others not, no plain version, converged >= 0.999;
     - fuzzy-ts-h10-B256: the Takagi-Sugeno QTP (benchmarks_extra.py lines
       77-92), ``mpc_programming_type="fuzzy_linear"``, the SQP over 256
       states through ``parallel.solve_batch``, and ``step`` at B = 1;
@@ -1228,9 +1252,9 @@ def controllers_phase(dev):
       MILP engine at h5 over 32 states: host threads by design, converged
       1.0.
     The fuzzy, economic and MILP paths run no kernel and no plain version.
-    Returns K3's records at the tier, K3W's, the recurrences' records, and
-    the launches of K3, K3W, the rollout and the certificate on the wide
-    cell."""
+    Returns K3's records at the tier, K3W's, K3's recurrences' records, the
+    launches of K3, K3W and both pairs of recurrences on the wide cell, and
+    the wide recurrences' records at the tier."""
     import numpy as np
     import torch
 
@@ -1288,21 +1312,31 @@ def controllers_phase(dev):
     k3w_recs = [compare_k3w(wide.engine.op, B, 75 + i, chunk, False,
                             f"(32, 16) h30, K3's widest tier, B={B}", k3=True)
                 for i, B in enumerate((B_WIDE, 256, 1))]
+    # the wide rollout and certificate at the tier
+    wide_rec = [rec for i, B in enumerate((B_WIDE, 256, 1))
+                for rec in compare_wide_recurrences(wide.engine.op, B, 95 + i, "(32, 16) h30")]
     lap("wide kernels")
 
-    # the cell runs its chunk on the kernel the routing table picks
+    # the cell runs its chunk and its recurrences on the kernels the routing
+    # tables pick
     picked = riccati_fused.chunk_kernel(wide.engine.op)
     other = "K3" if picked == "K3W" else "K3W"
+    rec_keys = (("rollout", "certificate") if riccati_fused.recurrence_kernel(wide.engine.op)
+                == "K3" else ("rollout-wide", "certificate-wide"))
+    rec_other = ("rollout-wide", "certificate-wide") if rec_keys[0] == "rollout" else (
+        "rollout", "certificate")
     head = k3w_recs[0] if picked == "K3W" else shapes[0]
     x_w = torch.from_numpy(wide_x0s(B_WIDE)).to(dev)
     admm_fused.reset_counts()
     fn = lambda: parallel.solve_batch_auto(wide, x_w)
     (sol, _, _, d), lat = timed(fn, REPS_WIDE)
-    counts = {k: admm_fused.LAUNCHES[k] for k in ("K3", "K3W", "rollout", "certificate")}
+    counts = {k: admm_fused.LAUNCHES[k] for k in ("K3", "K3W", "rollout", "certificate",
+                                                   "rollout-wide", "certificate-wide")}
     plain = dict(admm_fused.PLAIN_CALLS)
     check_solution(sol, B_WIDE, 30, "riccati-wide-nx32-h30-B2048", nx=32, nu=16)
     p50, p99 = percentiles_ms(lat)
     rec = dict(cell="riccati-wide-nx32-h30-B2048", B=B_WIDE, chunk_kernel=picked,
+               recurrence_kernels=rec_keys,
                route=head["route"], converged_fraction=int(d.n_converged) / B_WIDE,
                mean_iterations=float(d.mean_iterations), max_iterations=int(d.max_iterations),
                batch_p50_ms=p50, batch_p99_ms=p99, solves_per_s=B_WIDE / float(np.median(lat)),
@@ -1312,8 +1346,8 @@ def controllers_phase(dev):
                chain_floor_ms=shapes[0]["chain_floor_ms"], plain_calls=plain)
     rec.update(profile(fn, 2))
     log(phase="riccati_wide", **rec)
-    if (min(counts[k] for k in (picked, "rollout", "certificate")) <= 0 or counts[other]
-            or any(plain.values())):
+    if (min(counts[k] for k in (picked, *rec_keys)) <= 0 or counts[other]
+            or any(counts[k] for k in rec_other) or any(plain.values())):
         raise RuntimeError(f"the wide Riccati path did not run on its kernels alone: {rec}")
     if rec["converged_fraction"] < CONV_OK:
         raise RuntimeError(f"the wide Riccati cell converged too little: {rec}")
@@ -1413,7 +1447,7 @@ def controllers_phase(dev):
         raise RuntimeError(f"the MILP fleet left a lane unsolved: {rec}")
     lap("milp fleet")
     log(phase="controllers_seconds", **seconds)
-    return shapes, k3w_recs, rollout_recs, cert_recs, counts
+    return shapes, k3w_recs, rollout_recs, cert_recs, counts, wide_rec
 
 
 TPU_RICCATI_XLA = "automationlabsmodelpredictivecontrol_jl_tpu/ops/riccati.py"
@@ -1555,10 +1589,36 @@ def compare_k3w(op, B, seed, chunk, doubling, label, plain_reps=1, route=None, k
     return rec
 
 
-def compare_wide_recurrences(op, B, seed):
+@functools.lru_cache(maxsize=None)
+def dfma_chain_ns():
+    """Nanoseconds of one dependent fp64 multiply-add on the card, at its
+    highest SM clock: scripts/fp64_rate_probe.py's chain case (one warp,
+    clock64 around 2^20 of them), measured once a run."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "fp64_rate_probe", os.path.join(HERE, "scripts", "fp64_rate_probe.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    rec = probe.chain_latency()
+    log(phase="dfma_chain", **rec)
+    return rec["ns"]
+
+
+def wide_chain_floor_ms(N, nx):
+    """The wide rollout's and certificate's chain floor: N x nx dependent
+    fp64 multiply-adds (a lane's A e or A' g, a step after another; the
+    rollout's fp32 add a step aside) at dfma_chain_ns()."""
+    return N * nx * dfma_chain_ns() * 1e-6
+
+
+def compare_wide_recurrences(op, B, seed, label):
     """The wide rollout and certificate kernels against their plain
     versions at one shape (the certificate on a chunk's worth of dual
-    change), max_ulps 0, CUDA-event times beside their bounds."""
+    change), max_ulps 0, a wide_recurrence_plan line each; device times from
+    CUDA graphs replayed for 0.3 s first (``ms``, with the SM clock just
+    after, ``sm_mhz``; ``wrapper_ms`` through the wrapper) beside their
+    bounds and chain floor."""
     import numpy as np
     import torch
 
@@ -1579,14 +1639,19 @@ def compare_wide_recurrences(op, B, seed):
          riccati_fused._certificate_wide_plain, (op, lamX2, lamX, lamU2, lamU, Xbar, ballr),
          certificate_bound(N, nx, nu, B)),
     ):
+        plan = riccati_fused.wide_recurrence_plan(op, B, name.split("-")[0])
+        log(phase="wide_rec_plan", cell=label, N=N, nx=nx, nu=nu, B=B, **plan._asdict())
         abs_err, rel_err, ulps = _errors([kernel(*args)], [plain(*args)], name)
-        rec = dict(kernel=name, N=N, nx=nx, nu=nu, B=B, max_abs_err=abs_err,
-                   max_rel_err=rel_err, max_ulps=ulps)
+        rec = dict(kernel=name, cell=label, N=N, nx=nx, nu=nu, B=B, plan=plan._asdict(),
+                   max_abs_err=abs_err, max_rel_err=rel_err, max_ulps=ulps)
         if ulps != 0:
             raise RuntimeError(f"the {name} kernel disagrees with its plain version: {rec}")
-        rec["ms"] = cuda_ms(lambda: kernel(*args))
+        rec["ms"] = cuda_graph_ms(lambda: kernel(*args), repeats=10, warm_s=0.3)
+        rec["sm_mhz"] = sm_clock_now_mhz()
+        rec["wrapper_ms"] = cuda_ms(lambda: kernel(*args))
         rec["plain_ms"] = cuda_ms(lambda: plain(*args), reps=2, warm_up=False)
         rec["bound_ms"], rec["bound_by"] = bound
+        rec["chain_floor_ms"] = wide_chain_floor_ms(N, nx)
         log(phase="wide_recurrence_vs_plain", **rec)
         recs.append(rec)
     return recs
@@ -1604,7 +1669,9 @@ def riccati_sweeps_phase(dev):
       memory, and with the step's vectors in device memory too; (32, 16)
       h30 is the controllers' phase's); K3W-doubling at the QTP's h500 (B = 1024 and
       1), h50 with the state box and with the contractive ball, and h24;
-      the wide rollout and certificate at (64, 32) h30 (B = 1024 and 1);
+      the wide rollout and certificate at (64, 32) h30 (B = 1024 and 1)
+      and (40, 20) h10 with the state box (B = 77), each with its chain
+      floor;
     - riccati-wide-nx64-h30-B1024: ``big.random_stable_system(64, 32,
       seed=0)`` at h30, ``engine="riccati"``, Q 10, R 0.1 (the extra
       benchmarks' wide row at twice its width), 1024 states through
@@ -1684,7 +1751,9 @@ def riccati_sweeps_phase(dev):
            compare_k3w(h24, 77, 88, 25, True, "QTP h24", plain_reps=2, layouts=held),
            compare_k3w(h50_state, 77, 89, 25, True, "QTP h50 state box, device scratch",
                        plain_reps=2, route="global")]
-    rec_w = [compare_wide_recurrences(wide_op, B, 90 + i) for i, B in enumerate((B_H500, 1))]
+    rec_w = [compare_wide_recurrences(wide_op, B_H500, 90, "(64, 32) h30"),
+             compare_wide_recurrences(wide_op, 1, 91, "(64, 32) h30, one lane"),
+             compare_wide_recurrences(w40, 77, 92, "(40, 20) h10 state box")]
     rollout_recs = [r for r, _ in rec_w]
     cert_recs = [c for _, c in rec_w]
     lap("kernels")
@@ -2994,7 +3063,7 @@ def main():
 
     # 4g. the controller types: K3's (32, 16) tier on the wide Riccati
     # cell, the fuzzy, economic and MILP cells, counted from zero cell by cell
-    k3_wide, k3w_wide, rollout_wide, cert_wide, ctrl_counts = controllers_phase(dev)
+    k3_wide, k3w_wide, rollout_wide, cert_wide, ctrl_counts, ctrl_wide_rec = controllers_phase(dev)
     k3_shapes += k3_wide
     rollout_recs += rollout_wide
     cert_recs += cert_wide
@@ -3002,6 +3071,8 @@ def main():
     # 4h. the Riccati sweeps: K3W past (32, 16) and under parallel_sweeps,
     # with the wide rollout and certificate, counted from zero path by path
     k3w_seq, k3w_dbl, rollout_w, cert_w, k3w_counts = riccati_sweeps_phase(dev)
+    rollout_w += [r for r in ctrl_wide_rec if r["kernel"] == "rollout-wide"]
+    cert_w += [r for r in ctrl_wide_rec if r["kernel"] == "certificate-wide"]
 
     # 4i. the kernel precisions: each kernel at bf16x3 and default against
     # its plain version at the main-path shapes and routes, then the
@@ -3119,10 +3190,15 @@ def main():
              chain_floor_ms=k3w_seq[0]["chain_floor_ms"]),
         kernel_entry("riccati_wide_chunk (K3W-doubling)", "riccati_wide.cu",
                      f"{TPU_RICCATI_XLA}:444", k3w_counts["K3W-doubling"], k3w_dbl),
-        kernel_entry("riccati_wide_rollout", "riccati_wide.cu", f"{TPU_RICCATI_XLA}:562",
-                     k3w_counts["rollout-wide"], rollout_w),
-        kernel_entry("riccati_wide_certificate", "riccati_wide.cu", f"{TPU_RICCATI_XLA}:515",
-                     k3w_counts["certificate-wide"], cert_w),
+        dict(kernel_entry("riccati_wide_rollout", "riccati_wide_rec.cu",
+                          f"{TPU_RICCATI_XLA}:562",
+                          k3w_counts["rollout-wide"] + ctrl_counts["rollout-wide"], rollout_w),
+             chain_floor_ms=rollout_w[0]["chain_floor_ms"]),
+        dict(kernel_entry("riccati_wide_certificate", "riccati_wide_rec.cu",
+                          f"{TPU_RICCATI_XLA}:515",
+                          k3w_counts["certificate-wide"] + ctrl_counts["certificate-wide"],
+                          cert_w),
+             chain_floor_ms=cert_w[0]["chain_floor_ms"]),
         # the bf16 precisions' instantiations of K1, K2, K4 and K5 (the
         # precisions' phase)
         *(dict(kernel_entry(f"{entry} ({kernel}, {mode})", source, f"{TPU_ADMM}:{line}",

@@ -10,6 +10,7 @@ GPU, in one process tree (so on one card, under one power limit).
     python3 k3_ab.py --kernel K3W NAME=TREE[:LAYOUT] [...] [--plain NAME]
     python3 k3_ab.py --kernel K3W-doubling NAME=TREE[:LAYOUT] [...] [--plain NAME]
     python3 k3_ab.py --kernel K3-K3W NAME=TREE [...]
+    python3 k3_ab.py --kernel wide-rec NAME=TREE[:LAYOUT] [...] [--plain NAME]
 
 Each TREE is a directory that holds the port's package (this checkout is
 "."; an earlier commit unpacked with ``git archive`` is another). The specs
@@ -149,6 +150,28 @@ and h50; the (8, 4), (16, 8) and (32, 16) plants at h30) and the batches the
 drivers launch (1 to 4096): the two kernels' times, whether their outputs
 are equal bit for bit, the faster one, and the one the tree's
 ``riccati_fused.chunk_kernel`` routes the shape to.
+
+``--kernel wide-rec`` times the drivers' wide rollout and certificate
+(``riccati_fused.rollout_wide`` / ``certificate_terms_wide``; each tree's
+whole library, built for every tree at once first) at WIDE_REC_SHAPES: the
+(64, 32) plant's h30 at the riccati-wide-nx64 cell's B = 1024 and a step's
+B = 1, the (32, 16) plant's h30 at the riccati-wide-nx32 cell's B = 2048,
+a bucket of 256 and B = 1, and the (40, 20) plant's h10 state box at B =
+77, on seeded inputs (the certificate's Xbar is the plain zero-input
+rollout, the same bits in every tree). Each record has the tree's plans,
+SHA-256s of the rollout's X, of the certificate's rows 0 and 2 (bit-equal
+across trees) and of its row 1 (its long fp64 sums may be taken in
+another order), ``rollout_ms`` / ``certificate_ms`` (CUDA events around a
+CUDA graph of 20 launches, replayed for 0.3 s first so that the card
+leaves its idle clock, then the median of 10 replays: device time alone;
+``*_sm_mhz`` the SM clock just after) and ``*_wrapper_ms`` (20 launches
+through the wrapper, host included); where K3
+takes the plant, K3's rollout and certificate on the same inputs
+(``k3_*_ms``, and whether their outputs equal the wide ones'). ``--plain
+NAME`` also holds that tree's outputs to the plain versions and times
+them. LAYOUT forces ``riccati_fused.wide_recurrence_plan``'s layout on both
+kernels in a tree that has it, as ``[PLACE][/ROUTE][xLANES][rRT][lLT]
+[nTHREADS]`` (``fp32x8r2l2``, ``/device``).
 
 List a tree twice (first and last) to see the drift within the call. The
 last line is a JSON object of all records.
@@ -384,6 +407,16 @@ DOUBLING_SHAPES = (
     ("qtp-h50-state-B77-scratch", (4, 2), 50, {"mpc_state_constraint": True}, 77, 89, True),
     ("nx64-h30-B1024", (64, 32), 30, {}, 1024, 90, False),
     ("nx40-h10-state-B77", (40, 20), 10, {"mpc_state_constraint": True}, 77, 91, False),
+)
+# the drivers' wide rollout and certificate: name, plant (nx, nu), horizon,
+# controller options, B, seed
+WIDE_REC_SHAPES = (
+    ("nx64-h30-B1024", (64, 32), 30, {}, 1024, 110),
+    ("nx64-h30-B1", (64, 32), 30, {}, 1, 111),
+    ("nx32-h30-B2048", (32, 16), 30, {}, 2048, 112),
+    ("nx32-h30-B256", (32, 16), 30, {}, 256, 113),
+    ("nx32-h30-B1", (32, 16), 30, {}, 1, 114),
+    ("nx40-h10-state-B77", (40, 20), 10, {"mpc_state_constraint": True}, 77, 115),
 )
 # K3 against K3W in one tree: name, plant (nx, nu), horizon, the batches
 AB_SHAPES = (
@@ -886,6 +919,113 @@ def child_dbl(tree, layout, plain, shapes):
     print("K3W-doubling_AB " + json.dumps(records), flush=True)
 
 
+def _rec_layout(layout):
+    """wide_recurrence_plan's keywords that LAYOUT ([PLACE][/ROUTE][xLANES]
+    [rRT][lLT][nTHREADS]) forces."""
+    import re
+
+    m = re.fullmatch(r"([a-z0-9]*?)(?:/([a-z]+))?(?:x(\d+))?(?:r(\d+))?(?:l(\d+))?(?:n(\d+))?",
+                     layout or "")
+    if m is None:
+        raise ValueError(f"unknown wide recurrence layout {layout!r}")
+    place, route, lanes, rt, lt, threads = m.groups()
+    force = dict(place=place or None, route=route, lanes=lanes, rows_per_thread=rt,
+                 lanes_per_thread=lt, threads=threads)
+    return {k: (int(v) if k not in ("place", "route") else v) for k, v in force.items()
+            if v is not None}
+
+
+def child_rec(tree, layout, plain, shapes):
+    """The wide rollout and certificate of one tree at WIDE_REC_SHAPES, K3's
+    beside them where K3 takes the plant; print one wide-rec_AB line of
+    records."""
+    import importlib.util
+
+    # this checkout's timing helpers, whatever the tree: every tree is timed
+    # the same way
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_timing", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                          "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import _build, riccati, riccati_fused
+
+    dev = torch.device("cuda", 0)
+    _build.load_kernels()
+    planned = hasattr(riccati_fused, "wide_recurrence_plan")
+    force = _rec_layout(layout)
+    records = []
+    bits = lambda a, b: torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for name, plant, N, kw, B, seed in WIDE_REC_SHAPES:
+        if shapes and name not in shapes:
+            continue
+        op = _riccati_op(plant, N, kw, dev)
+        rng = np.random.default_rng(seed)
+        t = lambda *shape: torch.from_numpy(
+            (0.05 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+        e0T, U = 2.0 * t(op.nx, B), t(N, op.nu, B)
+        lamX = t(N + 1, op.nx, B)
+        lamU = t(N, op.nu, B)
+        lamX2, lamU2 = lamX + 0.01 * lamX.flip(0), lamU - 0.02 * lamU.flip(0)
+        ballr = riccati.ball_radius(op, e0T)
+        Xbar = riccati.rollout_warm(op, e0T, torch.zeros_like(U))
+        rec = dict(shape=name, nx=op.nx, nu=op.nu, N=N, B=B)
+        extra = {}, {}
+        if planned:
+            try:
+                plans = [riccati_fused.wide_recurrence_plan(op, B, k, **force)
+                         for k in ("rollout", "certificate")]
+            except ValueError as err:
+                records.append(dict(rec, skipped=str(err)))
+                continue
+            rec["rollout_plan"], rec["certificate_plan"] = (p._asdict() for p in plans)
+            extra = dict(plan=plans[0]), dict(plan=plans[1])
+        elif force:
+            records.append(dict(rec, skipped="this tree's wide recurrences take no layout"))
+            continue
+        cargs = (op, lamX2, lamX, lamU2, lamU, Xbar, ballr)
+        roll = lambda: riccati_fused._launch_rollout_wide(op, e0T, U, **extra[0])
+        cert = lambda: riccati_fused._launch_certificate_wide(*cargs, **extra[1])
+        X, T = roll(), cert()
+        torch.cuda.synchronize()
+        rec.update(rollout_sha256=_digest([X]), certificate_rows02_sha256=_digest([T[0], T[2]]),
+                   certificate_row1_sha256=_digest([T[1]]))
+        if plain:
+            Xp = riccati.rollout_warm(op, e0T, U)
+            Tp = riccati_fused.certificate_terms_plain(*cargs)
+            rec.update(rollout_equals_plain=bits(X, Xp),
+                       certificate_rows02_equal_plain=bits(T[0], Tp[0]) and bits(T[2], Tp[2]),
+                       certificate_row1_max_rel_err=float(
+                           ((T[1] - Tp[1]).abs() / Tp[1].abs().clamp_min(1.0)).max()))
+            rec["rollout_plain_ms"] = _ms(lambda: riccati.rollout_warm(op, e0T, U), 2)
+            rec["certificate_plain_ms"] = _ms(
+                lambda: riccati_fused.certificate_terms_plain(*cargs), 2)
+        warm = lambda fn: chip_smoke.cuda_graph_ms(fn, repeats=10, warm_s=0.3)
+        rec["rollout_ms"] = warm(roll)
+        rec["rollout_sm_mhz"] = chip_smoke.sm_clock_now_mhz()
+        rec["certificate_ms"] = warm(cert)
+        rec["certificate_sm_mhz"] = chip_smoke.sm_clock_now_mhz()
+        rec["rollout_wrapper_ms"] = _ms(roll, 20)
+        rec["certificate_wrapper_ms"] = _ms(cert, 20)
+        if riccati_fused.k3_fits(op):  # K3's recurrences on the same inputs
+            k3_roll = lambda: riccati_fused._launch_rollout(op, e0T, U)
+            k3_cert = lambda: riccati_fused._launch_certificate(*cargs)
+            X3, T3 = k3_roll(), k3_cert()
+            torch.cuda.synchronize()
+            rec.update(k3_rollout_equal=bits(X3, X),
+                       k3_certificate_rows02_equal=bits(T3[0], T[0]) and bits(T3[2], T[2]))
+            rec["k3_rollout_ms"] = warm(k3_roll)
+            rec["k3_certificate_ms"] = warm(k3_cert)
+            if hasattr(riccati_fused, "recurrence_kernel"):
+                rec["routed"] = riccati_fused.recurrence_kernel(op)
+        records.append(rec)
+    print("wide-rec_AB " + json.dumps(records), flush=True)
+
+
 def build_trees(trees):
     """Build each tree's whole kernel library (csrc/*.cu, one nvcc a source)
     into its own build/kernels, every tree at once. Returns {tree:
@@ -910,7 +1050,8 @@ def main():
     ap.add_argument("specs", nargs="*",
                     help="NAME=TREE[:ROUTE] (K1, K2: NAME=TREE[:LxG]; K4, K5: NAME=TREE[:LAYOUT])")
     ap.add_argument("--kernel",
-                    choices=("K3", "K2", "K1", "K5", "K4", "K3W", "K3W-doubling", "K3-K3W"),
+                    choices=("K3", "K2", "K1", "K5", "K4", "K3W", "K3W-doubling", "K3-K3W",
+                             "wide-rec"),
                     default="K3",
                     help="the kernel timed")
     ap.add_argument("--plain", default=None, help="the spec name whose outputs are held to the plain version")
@@ -930,6 +1071,8 @@ def main():
                 os.path.abspath(a.sass_dir), [s for s in a.shapes.split(",") if s])
         if a.kernel == "K3W-doubling":
             child_dbl(*args[:3], args[5])
+        elif a.kernel == "wide-rec":
+            child_rec(*args[:3], args[5])
         elif a.kernel in ("K3W", "K3-K3W"):
             child_k3w(a.kernel, *args[:3], args[5])
         elif a.kernel in ADMM_KERNELS:
@@ -949,15 +1092,17 @@ def main():
     results, plained, dumped, failed = [], set(), set(), []
     tag = f"{a.kernel}_AB "
     built = {}
-    if a.kernel == "K3W-doubling":
+    if a.kernel in ("K3W-doubling", "wide-rec"):
+        kinds = (("K3W-doubling",) if a.kernel == "K3W-doubling"
+                 else ("rollout-wide", "certificate-wide"))
         trees = sorted({spec.partition("=")[2].partition(":")[0] for spec in a.specs})
         for tree, (secs, ok, text) in build_trees(trees).items():
             import chip_smoke
             rec = dict(tree=tree, nvcc_s=secs, built=ok)
             if ok:
-                rec["ptxas"] = [(r["template"], r["registers"], r["spill_bytes"])
+                rec["ptxas"] = [(r["kernel"], r["template"], r["registers"], r["spill_bytes"])
                                 for r in chip_smoke.ptxas_summary(text)
-                                if r["kernel"] == "K3W-doubling"]
+                                if r["kernel"] in kinds]
             else:
                 rec["error"] = text[-4000:]
             built[tree] = (secs, text if ok else None, text)

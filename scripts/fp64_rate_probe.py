@@ -1,7 +1,7 @@
 """The card's fp64 multiply-add rate on its CUDA cores, alone and fed from
 shared memory as the stream route of K1 and K2 feeds it, on one GPU.
 
-    python3 scripts/fp64_rate_probe.py
+    python3 scripts/fp64_rate_probe.py [--chain]
 
 Builds a small CUDA source (written to build/fp64_probe/, the flags of
 ``ops/_build.py``) and times, with CUDA events over one launch of 132 x
@@ -19,7 +19,14 @@ Builds a small CUDA source (written to build/fp64_probe/, the flags of
 
 at 128, 256 and 512 threads a block, one block an SM. Prints one JSON line
 a case: multiply-adds a clock and SM (at the card's highest SM clock,
-nvidia-smi clocks.max.sm) and TFLOP/s. Exits non-zero without a card.
+nvidia-smi clocks.max.sm) and TFLOP/s. Then the ``chain`` case: one warp
+whose threads each run 2^20 dependent fp64 multiply-adds (acc = fma(acc, a,
+b)), timed by the SM's clock64 around the loop: the clocks and
+nanoseconds (at the highest SM clock) of one dependent multiply-add, the
+latency that sets a recurrence's chain floor (N x nx of them for the
+Riccati drivers' rollout and adjoint). ``--chain`` runs that case alone;
+``chain_latency()`` returns it to a caller on the card. Exits non-zero
+without a card.
 """
 
 import ctypes
@@ -89,6 +96,23 @@ __global__ void probe(T* out, const T* in, int rounds, int LG) {
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 
+__global__ void chain(double* out, long long* clocks, const double* in, int rounds) {
+  double acc = in[threadIdx.x & 7];
+  const double a = in[8], b = in[9];
+  __syncwarp();
+  const long long t0 = clock64();
+#pragma unroll 16
+  for (int j = 0; j < rounds; ++j) acc = fma(acc, a, b);
+  const long long t1 = clock64();
+  out[threadIdx.x] = acc;
+  if (threadIdx.x == 0) clocks[0] = t1 - t0;
+}
+
+extern "C" int chain_launch(void* out, void* clocks, const void* in, int rounds) {
+  chain<<<1, 32>>>((double*)out, (long long*)clocks, (const double*)in, rounds);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int launch(int which, void* out, const void* in, int blocks, int threads, int rounds) {
   const int LG = 8;
   const size_t smem = 12288 * 8;
@@ -110,14 +134,11 @@ CASES = (("regs", 0, 4, "float64"), ("smem", 1, 4, "float64"), ("smem-rows8", 2,
          ("ffma", 3, 4, "float32"))
 
 
-def main():
-    import torch
-
+def _build_probe():
+    """The probe's library, built with the port's nvcc flags into
+    build/fp64_probe/, its entries' signatures set."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import _build
 
-    if not torch.cuda.is_available():
-        print("fp64_rate_probe.py needs an NVIDIA GPU", file=sys.stderr)
-        return 2
     out_dir = os.path.join(ROOT, "build", "fp64_probe")
     os.makedirs(out_dir, exist_ok=True)
     src, lib_path = os.path.join(out_dir, "probe.cu"), os.path.join(out_dir, "libprobe.so")
@@ -127,9 +148,49 @@ def main():
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(lib_path)
     lib.launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
-    smi = subprocess.run(
+    lib.chain_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    return lib
+
+
+def _smi():
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def chain_latency(lib=None, rounds=1 << 20):
+    """{"clocks": SM clocks of one dependent fp64 multiply-add, "ns": the
+    same at the card's highest SM clock, "card": name, power limit and
+    that clock}: one warp's chain of ``rounds`` multiply-adds (after one
+    warm-up run), timed by clock64 in the kernel."""
+    import torch
+
+    lib = lib or _build_probe()
+    smi = _smi()
+    clock = float(smi.split(",")[-1]) * 1e6
+    out = torch.empty(32, dtype=torch.float64, device="cuda")
+    ticks = torch.zeros(1, dtype=torch.int64, device="cuda")
+    inp = torch.linspace(0.5, 1.0, 10, dtype=torch.float64, device="cuda")
+    inp[8], inp[9] = 0.5, 0.25  # a contraction: the values stay bounded
+    for _ in range(2):
+        if lib.chain_launch(out.data_ptr(), ticks.data_ptr(), inp.data_ptr(), rounds):
+            raise RuntimeError("the chain probe did not launch")
+        torch.cuda.synchronize()
+    clocks = int(ticks.item()) / rounds
+    return dict(clocks=clocks, ns=clocks / clock * 1e9, card=smi)
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("fp64_rate_probe.py needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    lib = _build_probe()
+    if "--chain" in sys.argv[1:]:
+        print(json.dumps(dict(case="chain", **chain_latency(lib))), flush=True)
+        return 0
+    smi = _smi()
     clock = float(smi.split(",")[-1]) * 1e6
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rounds = 20000
@@ -154,6 +215,7 @@ def main():
             print(json.dumps(dict(case=name, threads=threads, ms=ms,
                                   fma_per_clock_sm=fmas / (ms * 1e-3) / clock / sms,
                                   tflops=2 * fmas / (ms * 1e-3) / 1e12, card=smi)), flush=True)
+    print(json.dumps(dict(case="chain", **chain_latency(lib))), flush=True)
     return 0
 
 

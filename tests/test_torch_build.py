@@ -60,7 +60,8 @@ def test_k3w_entries_take_the_wrappers_arguments():
     outputs and the scratch, then the shape, the flags and k3w_plan's
     layout (the doubling form's ints as the wrapper passes them, caught on
     the CPU at the launch); the wide rollout and certificate take K3's
-    recurrences' tensors and their block's threads."""
+    recurrences' tensors (the rollout A' and B'), a scratch and
+    wide_recurrence_plan's layout, as their wrappers pass them."""
     import dataclasses
 
     import torch
@@ -108,11 +109,43 @@ def test_k3w_entries_take_the_wrappers_arguments():
     assert [p for p, kind in zip(params, sig) if kind == "i"] == [
         "N", "nx", "nu", "B", "R", "chunk", "split_interior", "split_terminal",
         "terminal_ball", "lanes", "threads", "ring", "plant_shared", "route", "smem_bytes"]
-    for entry, k3_entry in (("riccati_wide_rollout", "riccati_rollout"),
-                            ("riccati_wide_certificate", "riccati_certificate")):
-        wide, k3 = _c_params(entry), _c_params(k3_entry)
-        n_ptr = _build.SIGNATURES[k3_entry].count("p") - 1
-        assert wide[:n_ptr] == k3[:n_ptr] and wide[-2:] == ["threads", "stream"]
+    # the wide rollout and certificate: K3's recurrences' tensors (the
+    # rollout's plant as A', B'), a scratch, the shape, the certificate's
+    # flags and wide_recurrence_plan's layout, as their wrappers pass them
+    layout = ["lanes", "threads", "rows_per_thread", "lanes_per_thread", "place", "route",
+              "smem_bytes"]
+    roll, cert = _c_params("riccati_wide_rollout"), _c_params("riccati_wide_certificate")
+    assert roll == ["AT", "BT", "e0", "U", "X", "scratch", "N", "nx", "nu", "B", *layout,
+                    "stream"]
+    k3 = _c_params("riccati_certificate")
+    assert cert[:15] == k3[:15] and cert[15:] == [
+        "scratch", "N", "nx", "nu", "B", "split_interior", "split_terminal", "terminal_ball",
+        *layout, "stream"]
+    caught = []
+    try:
+        riccati_fused._launch = lambda kernel, entry, a, outs, ii: caught.append(
+            (entry, [name for name, *_ in a], len(outs), ii)) or tuple(outs)
+        for kernel, force in (("rollout", {}), ("certificate", dict(route="device"))):
+            plan = riccati_fused.wide_recurrence_plan(op, B, kernel, **force)
+            if kernel == "rollout":
+                riccati_fused._launch_rollout_wide(op, args[2], args[5], plan=plan)
+            else:
+                riccati_fused._launch_certificate_wide(op, args[4], args[6], args[5], args[7],
+                                                       args[4], args[3], plan=plan)
+            entry, names, n_out, got = caught.pop()
+            params = roll if kernel == "rollout" else cert
+            sig = _build.SIGNATURES[entry]
+            assert entry == f"riccati_wide_{kernel}" and len(names) + n_out == sig.count("p") - 1
+            values = dict(N=5, nx=2, nu=1, B=B, split_interior=1, split_terminal=1,
+                          terminal_ball=0, lanes=plan.lanes, threads=plan.threads,
+                          rows_per_thread=plan.rows_per_thread,
+                          lanes_per_thread=plan.lanes_per_thread,
+                          place=riccati_fused.WIDE_REC_PLACES.index(plan.place),
+                          route=riccati_fused.WIDE_REC_ROUTES.index(plan.route),
+                          smem_bytes=plan.smem_bytes)
+            assert list(got) == [values[p] for p, kind in zip(params, sig) if kind == "i"]
+    finally:
+        riccati_fused._launch = launch
 
 
 def test_k3w_lane_floats_match_the_source():
@@ -158,6 +191,44 @@ def test_k3w_lane_floats_match_the_source():
                 name = riccati_fused.K3W_DBL_ROUTES[route]
                 assert riccati_fused.k3w_dbl_floats(n, x, u, xrows, l, lt, ring, panel, name) == (
                     work, total)
+
+
+def test_wide_rec_bytes_match_the_source():
+    """wide_rec_bytes is csrc/riccati_wide_rec.cu's rollout_layout and
+    certificate_layout: each region's bytes, read from the source and
+    evaluated at several shapes, tiles, threads, placements and routes,
+    summed as the plan sums them; and the ring's slots."""
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati_fused
+
+    text = open(os.path.join(_build.CSRC_DIR, "riccati_wide_rec.cu")).read()
+    assert f"constexpr int kRing = {riccati_fused.WIDE_REC_RING};" in text
+    assert f"constexpr int kRecMaxThreads = {riccati_fused.WIDE_REC_MAX_THREADS};" in text
+    a16 = lambda n: -(-n // 16) * 16
+    pad_to = lambda n, m: -(-n // m) * m
+    op_width = lambda place: {0: 8, 1: 4, 2: 0}[place]
+    for kernel in riccati_fused.WIDE_REC_KERNELS:
+        body = text[text.index(f"inline RecLayout {kernel}_layout("):]
+        body = body[:body.index("return d;")]
+        regions = dict(re.findall(r"d\.(\w+) = ([^;]+);", body))
+        assert set(regions) == {"ops", "red", "e", "u", "bu", "lane", "total"}, kernel
+        assert regions["total"] == "d.ops + d.red + d.lane * (route == 0)"
+        for nx, nu in ((1, 1), (3, 7), (64, 32), (160, 80), (6000, 3)):
+            for lanes, rt, threads in ((1, 1, 32), (8, 4, 128), (16, 2, 192), (32, 4, 512)):
+                for place, name in enumerate(riccati_fused.WIDE_REC_PLACES):
+                    for route, where in enumerate(riccati_fused.WIDE_REC_ROUTES):
+                        env = dict(a16=a16, pad_to=pad_to, op_width=op_width, x=nx, u=nu,
+                                   kRing=riccati_fused.WIDE_REC_RING,
+                                   l=lanes, xp=pad_to(nx, rt), w=threads // 32, place=place,
+                                   route=route, cols=pad_to(nx, rt) + pad_to(nu, rt),
+                                   nx=nx, nu=nu, rt=rt)
+                        d = {}
+                        for key in ("ops", "red", "e", "u", "bu", "lane", "total"):
+                            expr = regions[key].replace("d.", "d_")
+                            d[key] = int(eval(expr, env, {f"d_{k}": v for k, v in d.items()}))
+                        got = riccati_fused.wide_rec_bytes(kernel, nx, nu, lanes, rt, threads,
+                                                           name, where)
+                        assert got == (d["lane"], d["total"]), (kernel, nx, nu, lanes, rt,
+                                                                name, where)
 
 
 def test_k3w_seq_floats_match_the_source():

@@ -1295,9 +1295,10 @@ def test_zoo_forward_and_jacobian_on_the_card(card, family):
 def test_wide_riccati_plant_on_k3(card, B):
     """A Riccati controller on an (nx 32, nu 16) plant, K3's widest tier:
     solve_batch_auto launches the chunk the routing table picks for the
-    tier at this batch (K3W; never K3) and K3's two recurrence kernels,
-    runs no plain version, and agrees with the same solve on the CPU; the
-    rollout equals its plain version at the tier."""
+    tier at this batch (K3W; never K3) and the two recurrence kernels the
+    recurrence table picks (the wide ones; never K3's), runs no plain
+    version, and agrees with the same solve on the CPU; K3's rollout, still
+    built at the tier, equals its plain version there."""
     from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import big
 
     design = lambda dev: proceed_controller(
@@ -1311,9 +1312,13 @@ def test_wide_riccati_plant_on_k3(card, B):
     launches, plain = dict(admm_fused.LAUNCHES), dict(admm_fused.PLAIN_CALLS)
     s_gpu, _, _, d_gpu = parallel.solve_batch_auto(ctrl, x0.to(card))
     torch.cuda.synchronize()
-    for key in ("K3W", "rollout", "certificate"):
+    keys, others = ("rollout", "certificate"), ("rollout-wide", "certificate-wide")
+    if riccati_fused.recurrence_kernel(ctrl.engine.op) == "wide":
+        keys, others = others, keys
+    for key in ("K3W", *keys):
         assert admm_fused.LAUNCHES[key] > launches[key], key
-    assert admm_fused.LAUNCHES["K3"] == launches["K3"]
+    for key in ("K3", *others):
+        assert admm_fused.LAUNCHES[key] == launches[key], key
     assert admm_fused.PLAIN_CALLS == plain
     s_cpu, _, _, d_cpu = parallel.solve_batch_auto(ctrl_cpu, x0)
     assert int(d_gpu.n_converged) == int(d_cpu.n_converged) == B
@@ -1481,12 +1486,23 @@ def test_k3w_at_its_plans_matches_plain_version_and_k3(card, B):
         _assert_k3w_equals_plain(_op_args(op, card, 1024, 5) + (25,), False)
 
 
-def _assert_wide_recurrences_equal_plain(op, dev, B, seed):
+def _assert_wide_recurrences_equal_plain(op, dev, B, seed, force=None):
+    """The wide rollout and certificate as their plans lay them out (or as
+    ``force``, wide_recurrence_plan's keywords, forces both) against their
+    plain versions."""
     _, _, e0T, ballr, lamX0, lamU0, lamX1, lamU1 = _op_args(op, dev, B, seed)
     launches = dict(admm_fused.LAUNCHES)
-    X = riccati_fused.rollout_wide(op, e0T, lamU1)
+    if force is None:
+        X = riccati_fused.rollout_wide(op, e0T, lamU1)
+    else:
+        plan = riccati_fused.wide_recurrence_plan(op, B, "rollout", **force)
+        X = riccati_fused._launch_rollout_wide(op, e0T, lamU1, plan=plan)
     args = (op, lamX1, lamX0, lamU1, lamU0, X, ballr)
-    terms = riccati_fused.certificate_terms_wide(*args)
+    if force is None:
+        terms = riccati_fused.certificate_terms_wide(*args)
+    else:
+        plan = riccati_fused.wide_recurrence_plan(op, B, "certificate", **force)
+        terms = riccati_fused._launch_certificate_wide(*args, plan=plan)
     torch.cuda.synchronize()
     for key in ("rollout-wide", "certificate-wide"):
         assert admm_fused.LAUNCHES[key] == launches[key] + 1, key
@@ -1501,12 +1517,87 @@ def _assert_wide_recurrences_equal_plain(op, dev, B, seed):
     assert bool((err <= 1e-6 * want[1][finite].abs().clamp_min(1.0)).all())
 
 
+_WIDE_OPS = {}
+
+
+def _wide_op(N, nx, nu, branch, dev):
+    """_synthetic_op, designed once per shape and branch in the module."""
+    key = (N, nx, nu, branch)
+    if key not in _WIDE_OPS:
+        _WIDE_OPS[key] = _synthetic_op(N, nx, nu, branch, dev, seed=nx)
+    return _WIDE_OPS[key]
+
+
+# wide_recurrence_plan's keywords: the plan's own layout, each placement of
+# A and B, the lane buffers in a device scratch, and each register tile at
+# lanes that leave the batches a partial last block
+WIDE_REC_FORCED = {
+    "plan": None,
+    "fp64": dict(place="fp64"),
+    "fp32": dict(place="fp32"),
+    "global": dict(place="global"),
+    "device": dict(route="device"),
+    "tile11-x4": dict(lanes=4, rows_per_thread=1, lanes_per_thread=1),
+    "tile11-x32": dict(lanes=32, rows_per_thread=1, lanes_per_thread=1),
+    "tile22-x2": dict(lanes=2, rows_per_thread=2, lanes_per_thread=2),
+    "tile22-x8": dict(lanes=8, rows_per_thread=2, lanes_per_thread=2),
+    "tile22-x32": dict(lanes=32, rows_per_thread=2, lanes_per_thread=2),
+}
+
+
+@pytest.mark.parametrize("layout", list(WIDE_REC_FORCED))
 @pytest.mark.parametrize("branch", list(RICCATI_BRANCHES))
 @pytest.mark.parametrize("N,nx,nu,B", [(1, 3, 1, 1), (12, 40, 20, 77), (30, 64, 32, 33),
-                                        (50, 4, 2, 300)])
-def test_wide_recurrences_match_plain_versions(card, branch, N, nx, nu, B):
-    _assert_wide_recurrences_equal_plain(_synthetic_op(N, nx, nu, branch, card, seed=nx), card,
-                                         B, N + B)
+                                        (50, 4, 2, 300), (30, 64, 32, 1000),
+                                        (10, 160, 80, 77)])
+def test_wide_recurrences_match_plain_versions(card, branch, N, nx, nu, B, layout):
+    """The wide rollout and certificate against their plain versions at
+    every branch, with partial last blocks (B = 33, 77, 1000 at the forced
+    lanes), on every placement of A and B, the device route and each
+    register tile; the (160, 80) plant is too wide for the fp64 placement
+    (A alone 200 KB), so its plan keeps them in fp32."""
+    op = _wide_op(N, nx, nu, branch, card)
+    force = WIDE_REC_FORCED[layout]
+    if force is not None:
+        try:
+            for kernel in riccati_fused.WIDE_REC_KERNELS:
+                riccati_fused.wide_recurrence_plan(op, B, kernel, **force)
+        except ValueError:
+            pytest.skip(f"the layout {layout} does not fit N={N}, nx={nx}, nu={nu}")
+    if nx == 160:
+        for kernel in riccati_fused.WIDE_REC_KERNELS:
+            assert riccati_fused.wide_recurrence_plan(op, B, kernel).place == "fp32"
+    _assert_wide_recurrences_equal_plain(op, card, B, N + B, force)
+
+
+def test_wide_recurrence_wrappers_reject_bad_plans_and_operands(card):
+    """The C entries refuse shared-memory bytes that differ from their own
+    layout, and the wrappers an operand of the wrong dtype or strides."""
+    op = _synthetic_op(6, 5, 3, "state", card)
+    _, _, e0T, ballr, lamX0, lamU0, lamX1, lamU1 = _op_args(op, card, 8, 1)
+    for kernel in riccati_fused.WIDE_REC_KERNELS:
+        plan = riccati_fused.wide_recurrence_plan(op, 8, kernel)
+        bad = plan._replace(smem_bytes=plan.smem_bytes + 16)
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            if kernel == "rollout":
+                riccati_fused._launch_rollout_wide(op, e0T, lamU1, plan=bad)
+            else:
+                riccati_fused._launch_certificate_wide(op, lamX1, lamX0, lamU1, lamU0, lamX1,
+                                                       ballr, plan=bad)
+    ops = riccati_fused.k3w_seq_operands(op)
+    AT = ops["AT"]
+    try:
+        ops["AT"] = AT.double()
+        with pytest.raises(ValueError, match="dtype"):
+            riccati_fused.rollout_wide(op, e0T, lamU1)
+        ops["AT"] = AT.T.contiguous().T
+        with pytest.raises(ValueError, match="not contiguous"):
+            riccati_fused.rollout_wide(op, e0T, lamU1)
+    finally:
+        ops["AT"] = AT
+    with pytest.raises(ValueError, match="not contiguous"):
+        riccati_fused.certificate_terms_wide(op, lamX1, lamX0, lamU1.transpose(0, 2).contiguous()
+                                             .transpose(0, 2), lamU0, lamX1, ballr)
 
 
 def test_k3w_wrappers_reject_wrong_dtypes_and_strides(card):

@@ -5,7 +5,9 @@ The plant is ``big.random_stable_system(32, 16, seed=0)``, the wide row of
 the JAX package's extra benchmarks (h30 there; h8-h10 here), designed with
 ``engine="riccati"``. The drivers run its chunk on the kernel
 ``riccati_fused.CHUNK_ROUTES`` picks for the tier, K3W at every batch (K3
-and K3W share one plain version, counted under the kernel's name). On the
+and K3W share one plain version, counted under the kernel's name), and its
+rollout and certificate on the ones ``riccati_fused.RECURRENCE_ROUTES``
+picks, the wide ones. On the
 CPU the port runs that plain version, which
 sums in fp64 where XLA sums in fp32, so solutions are held within 1e-4
 (``tests/test_torch_riccati_engine.py``'s TOL) and statuses lane by lane.
@@ -74,7 +76,8 @@ def _x0s(seed, n=B):
 def test_solve_batch_auto_on_k3(wide, cell):
     """solve_batch_auto takes the wide plant on the chunk the routing table
     picks for the (32, 16) tier at this batch, K3W (its plain version
-    here; never K3's), with K3's rollout and certificate, and agrees with
+    here; never K3's), with the rollout and certificate the recurrence
+    table picks for it (the wide ones; never the others), and agrees with
     the JAX package's solve_batch_auto."""
     jc, tc = wide[cell]
     assert tpar.fused_supported(tc)
@@ -84,7 +87,11 @@ def test_solve_batch_auto_on_k3(wide, cell):
     ts, twz, _, td = tpar.solve_batch_auto(tc, torch.from_numpy(x0))
     plain = admm_fused.PLAIN_CALLS
     assert plain["K3W"] > 0 and plain["K3"] == 0, plain
-    assert plain["rollout"] > 0 and plain["certificate"] > 0, plain
+    routed = riccati_fused.recurrence_kernel(tc.engine.op)
+    keys, others = ("rollout", "certificate"), ("rollout-wide", "certificate-wide")
+    if routed == "wide":
+        keys, others = others, keys
+    assert all(plain[k] > 0 for k in keys) and not any(plain[k] for k in others), plain
     js, _, _, jd = jpar.solve_batch_auto(jc, jnp.asarray(x0))
     np.testing.assert_array_equal(ts.status.numpy(), np.asarray(js.status))
     assert int(td.n_converged) == int(jd.n_converged) == B
