@@ -15,9 +15,11 @@ general ADMM engine, the per-lane Riccati engine and the SQP, the batched
 fused ADMM solves on the kernels K1 (``csrc/admm_diag.cu``), K2
 (``csrc/admm_mixed.cu``), K4 and K5 (``csrc/admm_perr.cu``), the
 long-horizon Riccati-ADMM solve on K3 (``csrc/riccati_chunk.cuh``),
-tiered straggler escalation with the native f64 oracle, and batched closed
-loops. Every controller the JAX package designs, this package designs
-and solves; see ROADMAP.md for what remains.
+tiered straggler escalation with the native f64 oracle, batched closed
+loops, scenario-sharded solves over ``torch.distributed``
+(``parallel.solve_sharded``), and the profiling and H100 roofline
+utilities (``utils/profiling.py``, ``utils/roofline.py``). Every
+controller the JAX package designs, this package designs and solves.
 
 Importing the package pins float32 matmuls to IEEE fp32 (no TF32): the
 solver's certificates sit at 1e-6, far below what TF32 keeps.
@@ -66,7 +68,7 @@ from .ops.admm import AdmmConfig  # noqa: E402
 from .ops.riccati import RiccatiConfig  # noqa: E402
 from .solvers.empc import EmpcConfig, EmpcEngine  # noqa: E402
 from .solvers.sqp import SqpConfig, SqpEngine  # noqa: E402
-from .models.zoo import MODEL_FAMILIES, init_model, make_system  # noqa: E402
+from .models.zoo import MODEL_FAMILIES, init_model, make_system, rollout  # noqa: E402
 from .io import load_controller, save_controller  # noqa: E402
 from .runtime import (  # noqa: E402
     calculate,
@@ -76,7 +78,7 @@ from .runtime import (  # noqa: E402
     update_initialization,
     update_references,
 )
-from .terminal import create_terminal_ingredient  # noqa: E402
+from .terminal import create_terminal_ingredient, invariant_terminal_set  # noqa: E402
 
 __all__ = [
     "AdmmConfig",
@@ -114,11 +116,13 @@ __all__ = [
     "design_references",
     "discretize",
     "init_model",
+    "invariant_terminal_set",
     "linearize",
     "linearize_to_system",
     "load_controller",
     "make_system",
     "proceed_controller",
+    "rollout",
     "save_controller",
     "solve_once",
     "step",

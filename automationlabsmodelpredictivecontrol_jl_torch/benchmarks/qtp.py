@@ -11,7 +11,7 @@ import numpy as np
 import scipy.linalg as sla
 import torch
 
-from ..systems import LinearDiscreteSystem, rk4_step
+from ..systems import LinearDiscreteSystem, NeuralContinuousSystem, rk4_step
 from ..types import Box, f32
 
 S_TANK = 0.06
@@ -29,6 +29,11 @@ def x_box() -> Box:
 
 def u_box() -> Box:
     return Box(lo=f32([0.0, 0.0]), hi=f32([4.0, 3.26]))
+
+
+# the JAX package's constants; x_box() and u_box() give fresh copies
+X_BOX = x_box()
+U_BOX = u_box()
 
 
 def qtp_ode(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -76,3 +81,11 @@ def linearized_discrete_system(
     M[:4, 4:] = Bc
     E = sla.expm(M * dt)
     return LinearDiscreteSystem(A=f32(E[:4, :4]), B=f32(E[:4, 4:]), X=x_box(), U=u_box())
+
+
+def neural_continuous_system(apply_fn, params) -> NeuralContinuousSystem:
+    """A learned continuous-time QTP, dx/dt = apply_fn(params, x, u), with
+    the QTP's boxes."""
+    return NeuralContinuousSystem(
+        apply_fn=apply_fn, family="physical", nx=4, nu=2, params=params, X=x_box(), U=u_box()
+    )

@@ -170,6 +170,29 @@ def condense_np(
     )
 
 
+def condense(
+    A: Tensor,
+    B: Tensor,
+    horizon: int,
+    weights: Weights,
+    terminal: TerminalIngredient,
+    references: References,
+    X: Box,
+    U: Box,
+    state_constraint: bool,
+) -> CondensedQpData:
+    """The condensed QP data of a discrete linear system, on the device of
+    ``B``: :func:`condense_np` on host copies of the inputs. Its f32 data
+    equal the JAX package's ``condense_np`` bit for bit, and its traced
+    ``condense`` to fp32 roundoff."""
+    host = lambda r: r.to("cpu")
+    qp = condense_np(
+        torch.as_tensor(A).cpu(), torch.as_tensor(B).cpu(), horizon, host(weights),
+        host(terminal), host(references), host(X), host(U), state_constraint,
+    )
+    return qp.to(torch.as_tensor(B).device)
+
+
 def runtime_qp_vectors(qp: CondensedQpData, e0: Tensor):
     """Per-solve QP vectors of one initial deviation e0 (nx,): the batch
     form at B = 1. Returns (q (n,), l (m,), u (m,), ball_c (n_ball,),
@@ -222,3 +245,12 @@ def ltv_prediction_matrices(As: Tensor, Bs: Tensor, cs: Tensor = None):
         Gs.append(Gk)
         hs.append(hk)
     return torch.stack(Fs, 1), torch.stack(Gs, 1), torch.stack(hs, 1)
+
+
+def lti_prediction_matrices(A: Tensor, B: Tensor, N: int):
+    """:func:`ltv_prediction_matrices` of one time-invariant plant, A (nx,
+    nx) and B (nx, nu) at every step: F (N, nx, nx), G (N, N, nx, nu) and
+    h (N, nx), zeros."""
+    As = A[None, None].expand(1, N, *A.shape)
+    Bs = B[None, None].expand(1, N, *B.shape)
+    return tuple(v[0] for v in ltv_prediction_matrices(As, Bs))

@@ -461,3 +461,41 @@ def box_support(d: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
     neg = torch.where(d < 0, torch.where(torch.isfinite(lo), lo * d, inf), 0.0)
     return (pos + neg).double().sum(dim=(0, 1)).float()
 
+
+def infeas_certificate(op: RiccatiOperator, dlamX: Tensor, dlamU: Tensor, Xbar: Tensor,
+                       ball_r, eps: float) -> Tensor:
+    """The primal-infeasibility certificate of the consensus splitting (the
+    JAX package's ``infeas_certificate``; Banjac et al. 2019): True where
+    the dual deltas dlamX (N+1, nx), dlamU (N, nu) separate the dynamics'
+    affine set, through the zero-input rollout Xbar (N+1, nx), from the
+    boxes and the terminal ball of radius ``ball_r``, with a leading lane
+    axis allowed on each (and on ``ball_r``). The terms are
+    ``riccati_fused``'s certificate terms (the certificate kernel's plain
+    version): the adjoint's orthogonality residual, the support value and
+    max |dlam|; a lane is certified where max |dlam| > 1e-9, the residual is
+    at most eps max |dlam| and the support at most -eps max |dlam|."""
+    from .riccati_fused import _certificate_plain
+
+    lanes = dlamX.dim() == 3
+    if not lanes:
+        dlamX, dlamU, Xbar = dlamX[None], dlamU[None], Xbar[None]
+    last = lambda t: t.permute(1, 2, 0).contiguous()  # (lanes, rows, n) -> lane-last
+    ball_r = torch.as_tensor(ball_r, dtype=torch.float32, device=dlamX.device).reshape(-1)
+    ball_r = ball_r.expand(dlamX.shape[0]).contiguous()
+    dX, dU = last(dlamX), last(dlamU)
+    ortho, support, dnorm = _certificate_plain(
+        op, dX, torch.zeros_like(dX), dU, torch.zeros_like(dU), last(Xbar), ball_r)
+    cert = (dnorm > 1e-9) & (ortho <= eps * dnorm) & (support <= -eps * dnorm)
+    return cert if lanes else cert[0]
+
+
+def __getattr__(name: str):
+    # ``solve_sparse`` is the per-lane Riccati engine,
+    # ``riccati_fused.solve_sparse`` (the JAX package's ``solve_sparse`` for
+    # every lane of a batch); riccati_fused imports this module, so it is
+    # looked up on first use
+    if name == "solve_sparse":
+        from .riccati_fused import solve_sparse
+
+        return solve_sparse
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,7 +1,6 @@
 """Batched scenario solves: many initial states, one controller.
 
-The port of the JAX package's ``parallel/scenarios.py`` for the condensed
-linear engine and the Riccati engine on one device:
+The port of the JAX package's ``parallel/scenarios.py``:
 
 - :func:`solve_batch_fused` solves a batch on a fused kernel: K1 for a
   diagonal A (input boxes only), K2 for a mixed one (state-box or
@@ -23,7 +22,11 @@ linear engine and the Riccati engine on one device:
   then the unconverged lanes gathered on the device into a static bucket
   and continued on a wider rho grid with refinement (a Riccati engine's
   lanes restarted on the per-lane engine), then the host f64 oracle;
-- :func:`closed_loop_batch` runs the receding-horizon loop over a plant.
+- :func:`closed_loop_batch` runs the receding-horizon loop over a plant;
+- :func:`make_mesh` and :func:`solve_sharded` split a batch over the ranks
+  of a ``torch.distributed`` process group (the JAX package's
+  ``shard_map`` over a device mesh), each rank solving its rows on its own
+  device, and all-reduce the fleet's diagnostics.
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ from ..types import (
 )
 
 Tensor = torch.Tensor
+
+SCENARIO_AXIS = "scenario"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,6 +229,127 @@ def solve_batch_auto(
     if fused_supported(controller):
         return solve_batch_fused(controller, x0s, warm_z, warm_y)
     return solve_batch(controller, x0s, warm_z, warm_y)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScenarioMesh:
+    """The ranks a scenario batch is split over: ``group`` (a
+    ``torch.distributed`` process group, or None for this process alone),
+    its size ``n``, this process's ``rank`` in it (-1 outside it) and the
+    name of the scenario ``axis``."""
+
+    group: Optional[object]
+    n: int
+    rank: int
+    axis: str = SCENARIO_AXIS
+
+
+def make_mesh(n_devices: Optional[int] = None, axis: str = SCENARIO_AXIS) -> ScenarioMesh:
+    """A 1-D mesh of ranks over the scenario axis.
+
+    The caller initialises ``torch.distributed`` (NCCL for ranks on
+    separate cards, gloo on the CPU), as the JAX package's multi-process
+    runs call ``jax.distributed.initialize``. With a process group, ``None``
+    takes every rank, and n up to the world size ranks 0..n-1. Such a
+    sub-mesh is a new process group (under NCCL a communicator of its own,
+    held until the process group is destroyed), which every rank of the
+    world must create together: build it once and reuse it, not once a
+    step. Without one, the mesh is this process alone (``None`` or 1), and
+    no collective is ever called. Never shrinks: more ranks than exist
+    raise ValueError. Each rank solves on the device of the tensors it is
+    given; nothing falls back to the CPU."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        if n_devices not in (None, 1):
+            raise ValueError(
+                f"requested a {n_devices}-rank mesh but no process group is "
+                "initialised: this process is the only rank"
+            )
+        return ScenarioMesh(group=None, n=1, rank=0, axis=axis)
+    world = dist.get_world_size()
+    n = world if n_devices is None else int(n_devices)
+    if not 1 <= n <= world:
+        raise ValueError(f"requested a {n}-rank mesh but the process group has {world} ranks")
+    group = dist.group.WORLD if n == world else dist.new_group(list(range(n)))
+    rank = dist.get_rank()
+    return ScenarioMesh(group=group, n=n, rank=rank if rank < n else -1, axis=axis)
+
+
+_SUMS = ("n_total", "n_converged", "n_max_iter", "n_infeasible")
+_MAXES = ("max_primal_residual", "max_dual_residual", "max_iterations")
+
+
+def _pack_diagnostics(d: BatchDiagnostics, device) -> Tuple[Tensor, Tensor]:
+    """Fp64 vectors of a shard's diagnostics on ``device``: the counts with
+    mean x n_total (exact in fp64 below 2^29 lanes), and the maxima."""
+    sums = [getattr(d, k).double() for k in _SUMS]
+    sums.append(d.mean_iterations.double() * d.n_total.double())
+    return (torch.stack(sums).to(device),
+            torch.stack([getattr(d, k).double() for k in _MAXES]).to(device))
+
+
+def _unpack_diagnostics(sums: Tensor, maxes: Tensor, like: BatchDiagnostics) -> BatchDiagnostics:
+    """The fleet's diagnostics from reduced vectors, with the dtypes and the
+    device of ``like``."""
+    dev = like.n_total.device
+    sums, maxes = sums.to(dev), maxes.to(dev)
+    fields = {k: sums[i].to(getattr(like, k).dtype) for i, k in enumerate(_SUMS)}
+    fields.update({k: maxes[i].to(getattr(like, k).dtype) for i, k in enumerate(_MAXES)})
+    fields["mean_iterations"] = (sums[4] / sums[0]).to(like.mean_iterations.dtype)
+    return BatchDiagnostics(**fields)
+
+
+def _psum_diagnostics(d: BatchDiagnostics, mesh: ScenarioMesh) -> BatchDiagnostics:
+    """Fleet diagnostics over the mesh, the same bits on every rank: sums of
+    the counts, maxima of the residuals and of max_iterations, and the mean
+    of iterations weighted by n_total. Two all_reduces (one of the sums, one
+    of the maxima), on the card under NCCL and on the host under gloo and
+    the other backends. A mesh without a group returns ``d`` as it is."""
+    import torch.distributed as dist
+
+    if mesh.group is None:
+        return d
+    on_card = dist.get_backend(mesh.group) == "nccl"
+    sums, maxes = _pack_diagnostics(d, d.n_total.device if on_card else "cpu")
+    dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=mesh.group)
+    dist.all_reduce(maxes, op=dist.ReduceOp.MAX, group=mesh.group)
+    return _unpack_diagnostics(sums, maxes, d)
+
+
+def solve_sharded(
+    controller: MpcController,
+    x0s: Tensor,  # (B, nx), the same on every rank; B divisible by the mesh size
+    mesh: Optional[ScenarioMesh] = None,
+    warm_z: Optional[Tensor] = None,  # (B, n)
+    warm_y: Optional[Tensor] = None,  # (B, m)
+    fused: Optional[bool] = None,
+) -> Tuple[MpcSolution, Tensor, Tensor, BatchDiagnostics]:
+    """Scenario-sharded batch solve over a mesh of ranks (SPMD: every rank
+    of the mesh calls it with the whole batch).
+
+    The controller is replicated; rank r solves rows [r B/n, (r+1) B/n) of
+    x0s and of the warm pair (``init_warm_batch`` without one) on
+    :func:`solve_batch_fused` (``fused=True``) or :func:`solve_batch`
+    (``False``; ``None``: :func:`fused_supported`), on the device of
+    ``x0s``. Returns this rank's shard of (solutions, next warm_z, next
+    warm_y) and the fleet's diagnostics, equal on every rank. A Riccati
+    engine's batch-wide rho rule runs per shard, as in the JAX package's
+    ``shard_map``: a rank's lanes equal a solve of its rows alone."""
+    mesh = make_mesh() if mesh is None else mesh
+    B = x0s.shape[0]
+    if B % mesh.n:
+        raise ValueError(f"batch {B} not divisible by mesh size {mesh.n}")
+    if mesh.rank < 0:
+        raise ValueError("this process is not a rank of the mesh")
+    if warm_z is None or warm_y is None:
+        warm_z, warm_y = init_warm_batch(controller, B)
+    if fused is None:
+        fused = fused_supported(controller)
+    rows = slice(mesh.rank * (B // mesh.n), (mesh.rank + 1) * (B // mesh.n))
+    solve = solve_batch_fused if fused else solve_batch
+    sol, wz, wy, diag = solve(controller, x0s[rows], warm_z[rows], warm_y[rows])
+    return sol, wz, wy, _psum_diagnostics(diag, mesh)
 
 
 def escalation_controller(

@@ -83,6 +83,13 @@ device=card)``, then ``parallel`` and ``step``):
   fp64 from the timed solve's own z, y and s. A bf16 precision's bound
   takes its passes at the bf16 tensor-core rate; ``fp32_floor_ms`` beside
   it is this design's floor, the passes as fp32 multiply-adds;
+- the scenario-sharded solve (``sharded_phase``): ``parallel.make_mesh``
+  and ``parallel.solve_sharded`` on one NCCL rank (the headline's tier-1
+  cell on K1 and the h500 cell on K3, each against the batch path bit for
+  bit, with both timed by ``utils.profiling.benchmark``) and on two gloo
+  ranks, spawned processes sharing the card (the tier-1 cell, 8192 lanes a
+  rank, each shard against a solve of its rows), and the escalated
+  headline's roofline (``utils.roofline.speed_of_light_tiered``);
 - K1's and K2's stream route (``stream_phase``, ``csrc/admm_diag_stream.cu``):
   each kernel against its plain version at the widths the Pallas bodies
   take past the shared routes (the QTP at h50 and its tier 2, h100 and
@@ -145,6 +152,8 @@ Phases (any failure raises and exits non-zero):
    just after, showing that it went through its kernel and never through
    a plain version (the general engines' phase: K1 on the fused side of
    its A/B, K3 and its recurrence kernels in the per-lane engine; the
+   sharded phase: K1, and K3 with its recurrences, in this process, and
+   K1 in the gloo ranks; the
    learned phase: no kernel on the SQP cells, K1 on the learned-linear
    cell, held to its plain version on that operator first; the
    controllers' phase: the chunk the routing table picks (K3W, never K3)
@@ -182,14 +191,6 @@ TPU_RICCATI = "automationlabsmodelpredictivecontrol_jl_tpu/ops/riccati_pallas.py
 SHAPES_OK_REL = 1e-4  # kernel vs plain, relative to max(1, ||plain||_inf)
 U_OK = 5e-4  # plain re-solve vs kernel re-solve, absolute on u
 CONV_OK = 0.999  # in-program converged fraction of the h20 and h500 paths
-# the least time the card could take (H100 SXM data sheet): HBM bytes/s,
-# and fp64 operations/s on the tensor cores (67 TFLOP/s; the FMA units
-# give half); the kernels' work is fp64 multiply-adds
-HBM_BYTES_PER_S = 3.35e12
-FP64_OPS_PER_S = 67e12
-FP32_OPS_PER_S = 67e12  # outside the tensor cores
-BF16_OPS_PER_S = 989e12  # bf16 products summed in fp32, on the tensor cores
-SM_COUNT = 132
 
 B_MAIN, BUCKET, B_CL, CL_STEPS = 16384, 512, 4096, 5
 B_SLICE, B_RESOLVE, REPS, REPS_SC = 2048, 256, 20, 5
@@ -223,6 +224,11 @@ REPS_STREAM, B_STREAM = 3, 4096
 # the solve cells' repetitions, the tier-1 batch of the widest shapes, and
 # the lanes and iterations of the K4 cell's re-solve with the plain version
 REPS_WIDE_ROUTE, B_WIDE_T1, B_WIDE_PLAIN, WIDE_PLAIN_ITERS = 3, 1024, 64, 100
+# the sharded phase: the headline's tier-1 config (bench.py's), the gloo
+# ranks that share the card, the latency repetitions, the seconds a rank
+# may take, and the phase's budget (recorded, not enforced)
+TIER1 = dict(max_iter=75, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0)
+RANKS_SHARED, REPS_SHARDED, RANK_JOIN_S, SHARDED_BUDGET_S = 2, 5, 120, 60.0
 
 
 def log(**kv):
@@ -379,83 +385,6 @@ def suite6_x0s(B):
     return np.clip(0.65 + 0.1 * rng.standard_normal((B, 4)), 0.3, 1.3).astype(np.float32)
 
 
-def chunk_bound(n, m, B, R, refine_steps, chunk, kernel, mode="highest"):
-    """Least milliseconds of one chunk of K1, K2, K4 or K5 on the card: each
-    input read and each output written once (the operators once, q, l, u,
-    idx and the state x, s, y, ax in, the state out) over HBM bandwidth,
-    against the multiply-adds of its products, per lane and iteration: K1
-    the K-solves, (1 + 2 refine) n^2; K2 those and the three A2 products,
-    3 (m - n) n; K5 A'y, A' rho s, A xt and the K-solves, 3 m n + (1 + 2
-    refine) n^2; K4 A'y, A' rho s and the packed solve with its image, 2 m
-    n + n (n + m) + refine (n^2 + n (n + m)). At "highest" they are fp64
-    multiply-adds over the fp64 peak; at "bf16x3" three bf16 multiply-adds
-    each (its passes) and at "default" one, summed in fp32, over the bf16
-    tensor-core peak, the rate the TPU body's MXU passes have on this card.
-    Returns (bound_ms, bound_by, floor_ms): floor_ms is this design's
-    floor at a bf16 precision, its passes as fp32 multiply-adds outside
-    the tensor cores (as the kernels take them) against the same bytes,
-    else None."""
-    stacks = 2 if refine_steps else 1
-    if kernel in ("K1", "K2"):
-        ms = m - n
-        operator = stacks * R * n * n + 2 * R * m + n + ms * n
-        macs = (1 + 2 * refine_steps) * n * n + (3 * ms * n if kernel == "K2" else 0)
-    else:
-        operator = stacks * R * n * n + 2 * R * m + m * n + (R * n * m if kernel == "K4" else 0)
-        if kernel == "K4":
-            macs = 2 * m * n + n * (n + m) + refine_steps * (n * n + n * (n + m))
-        else:
-            macs = 3 * m * n + (1 + 2 * refine_steps) * n * n
-    lane = (2 * n + 5 * m + 1) + (n + 3 * m)
-    nbytes = 4 * (operator + lane * B)
-    ops = 2 * macs * B * chunk * {"highest": 1, "bf16x3": 3, "default": 1}[mode]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / (FP64_OPS_PER_S if mode == "highest" else BF16_OPS_PER_S)
-    floor = None if mode == "highest" else max(t_bytes, ops / FP32_OPS_PER_S) * 1e3
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations"), floor
-
-
-def _bound(nbytes, fp64_ops, fp32_ops=0):
-    """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth and
-    the operations over their peaks."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = fp64_ops / FP64_OPS_PER_S + fp32_ops / FP32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
-
-
-def riccati_chunk_bound(N, nx, nu, B, chunk, split_interior):
-    """Least milliseconds of one K3 chunk: the factors of one rho (K, G,
-    A - BK), A, B and the boxes, each lane's inputs (e0, ball radius, vX,
-    lamX, vU, lamU) and outputs (X, vX, lamX, U, vU, lamU) once over HBM,
-    against 2 operations per fp64 multiply-add of the sweep (B'g, G(.),
-    (A-BK)'g, K'lu) and the rollout (Ke, Ae, Bu) over the fp64 peak, plus
-    the fp32 elementwise steps (the linear terms, the projections and dual
-    ascent, the interior rows' terms when split) over the fp32 peak."""
-    factors = (nu * nx + nu * nu + nx * nx) * N + nx * nx + nx * nu + 4 * nx + 2 * nu + 4
-    lane = (nx + 1 + 2 * (N + 1) * nx + 2 * N * nu) + (3 * (N + 1) * nx + 3 * N * nu)
-    macs = (4 * nu * nx + nu * nu + 2 * nx * nx) * N
-    elementwise = (12 * nu + 2 * nx + (10 * nx if split_interior else 0)) * N + 8 * nx
-    return _bound(4 * (factors + lane * B), 2 * macs * B * chunk, elementwise * B * chunk)
-
-
-def rollout_bound(N, nx, nu, B):
-    """The rollout: A, B, e0 and U in, X out; A e and B u per step."""
-    nbytes = 4 * (nx * nx + nx * nu + (nx + N * nu + (N + 1) * nx) * B)
-    return _bound(nbytes, 2 * (nx * nx + nx * nu) * N * B, nx * N * B)
-
-
-def certificate_bound(N, nx, nu, B):
-    """The certificate: A, B, the boxes, lamX new/old and Xbar, lamU new/old
-    and the ball radius in, three values per lane out; the adjoint's B'g
-    and A'g and <dlamX, Xbar> per step, and its fp32 deltas, residuals and
-    support terms."""
-    nbytes = 4 * (nx * nx + nx * nu + 4 * nx + 2 * nu
-                  + (3 * (N + 1) * nx + 2 * N * nu + 1 + 3) * B)
-    macs = (nu * nx + nx * nx + nx) * N + 2 * nx
-    elementwise = (6 * nu + 6 * nx) * N
-    return _bound(nbytes, 2 * macs * B, elementwise * B)
-
-
 def _errors(outs_k, outs_p, tag):
     """Max absolute and relative error, and the largest distance in fp32
     ulps, of a kernel's outputs against its plain version's."""
@@ -569,6 +498,7 @@ def compare_k3_args(args, branch, plain_reps, route=None):
     """K3, laid out as its plan says for the shape (or on a forced
     ``route``), against its plain version on one chunk's inputs."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati_fused
+    from automationlabsmodelpredictivecontrol_jl_torch.utils import roofline
 
     op, B, chunk = args[0], int(args[2].shape[1]), args[-1]
     plan = riccati_fused.k3_plan(op, B, route)
@@ -591,7 +521,7 @@ def compare_k3_args(args, branch, plain_reps, route=None):
     rec["ms"] = cuda_ms(lambda: kernel(*args))
     rec["plain_ms"] = (plain_once_ms if plain_reps == 1 else
                        cuda_ms(lambda: plain(*args), reps=plain_reps, warm_up=False))
-    rec["bound_ms"], rec["bound_by"] = riccati_chunk_bound(
+    rec["bound_ms"], rec["bound_by"] = roofline.riccati_chunk_bound(
         op.N, op.nx, op.nu, B, chunk, op.split_interior
     )
     return rec
@@ -601,6 +531,7 @@ def compare_recurrences(ctrl, B, seed, x0s_fn):
     """The rollout and certificate kernels against their plain versions at
     the cell's shape (the certificate on a chunk's worth of dual change)."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati_fused
+    from automationlabsmodelpredictivecontrol_jl_torch.utils import roofline
 
     op, _, e0T, ballr, _, vU, lamX, lamU = riccati_inputs(ctrl, B, seed, x0s_fn)
     lamX2, lamU2 = lamX + 0.01 * lamX.flip(0), lamU - 0.02 * lamU.flip(0)
@@ -608,10 +539,10 @@ def compare_recurrences(ctrl, B, seed, x0s_fn):
     recs = []
     for name, kernel, plain, args, bound in (
         ("rollout", riccati_fused.rollout, riccati_fused._rollout_plain, (op, e0T, vU),
-         rollout_bound(N, nx, nu, B)),
+         roofline.rollout_bound(N, nx, nu, B)),
         ("certificate", riccati_fused.certificate_terms, riccati_fused.certificate_terms_plain,
          (op, lamX2, lamX, lamU2, lamU, riccati_fused.rollout(op, e0T, vU), ballr),
-         certificate_bound(N, nx, nu, B)),
+         roofline.certificate_bound(N, nx, nu, B)),
     ):
         abs_err, rel_err, ulps = _errors([kernel(*args)], [plain(*args)], name)
         rec = dict(kernel=name, N=N, B=B, max_abs_err=abs_err, max_rel_err=rel_err, max_ulps=ulps)
@@ -622,19 +553,6 @@ def compare_recurrences(ctrl, B, seed, x0s_fn):
         rec["bound_ms"], rec["bound_by"] = bound
         recs.append(rec)
     return recs
-
-
-def _kernel_of(op, cfg):
-    """The name of the kernel that takes the operator: K1, K2, K4 or K5."""
-    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
-
-    if op.diag_a:
-        return "K1"
-    if op.mixed_a:
-        return "K2"
-    m, n = (int(d) for d in op.A_s.shape)
-    packed = admm_fused.use_packed(n, m, int(op.rho_grid.shape[0]), int(cfg.refine_steps))
-    return "K4" if packed else "K5"
 
 
 def kernel_inputs(ctrl, B, seed, x0s_fn, single_index=False):
@@ -678,7 +596,7 @@ def smem_floor_ms(n, m, R, refine_steps, B, chunk, kernel="K2"):
     """Least milliseconds of one K1 (m = n), K2, K4 or K5 chunk if its
     shared memory delivered one operator entry per lane and multiply-add at
     one 32-lane wavefront a clock on every SM, B chunk lane-iterations over
-    132 SMs at the card's highest SM clock. Entries per lane and iteration:
+    the card's SMs at its highest SM clock. Entries per lane and iteration:
     the K-solves, (1 + 2 refine) n^2, and the products with the constraint
     rows, each entry read once for A'y and A'(rho s) together and once for
     A x: K1 and K2 2 (m - n) n (A2), K5 2 m n (all of A); K4 m n for the
@@ -688,27 +606,7 @@ def smem_floor_ms(n, m, R, refine_steps, B, chunk, kernel="K2"):
     not enter: each lane reads only its own rho's operators."""
     dense = {"K5": 2 * m, "K4": (2 + refine_steps) * m}.get(kernel, 2 * (m - n))
     entries = (1 + 2 * refine_steps) * n * n + dense * n
-    return entries * B * chunk / 32 / (SM_COUNT * sm_clock_hz()) * 1e3
-
-
-def fma_floor_ms(n, m, B, refine_steps, chunk, kernel="K1", mode="highest"):
-    """Least milliseconds of one chunk of K1 (m = n), K2, K4 or K5 on the
-    card's CUDA cores: its multiply-adds (chunk_bound's count: (1 + 2
-    refine) n^2, and for K2 3 (m - n) n; K5 3 m n + (1 + 2 refine) n^2; K4
-    2 m n + n (n + m) + refine (n^2 + n (n + m))) as fp64 FMAs at 64 a
-    clock on every SM ("highest"; the bound takes them at the fp64
-    tensor-core rate, which the kernels' index-order sums cannot use), or
-    the bf16 precisions' passes as fp32 FMAs at 128 a clock (3 a
-    multiply-add at "bf16x3", 1 at "default"), at the card's highest SM
-    clock."""
-    if kernel == "K5":
-        macs = 3 * m * n + (1 + 2 * refine_steps) * n * n
-    elif kernel == "K4":
-        macs = 2 * m * n + n * (n + m) + refine_steps * (n * n + n * (n + m))
-    else:
-        macs = (1 + 2 * refine_steps) * n * n + (3 * (m - n) * n if kernel == "K2" else 0)
-    per_clock = {"highest": 64, "bf16x3": 128 / 3, "default": 128}[mode]
-    return macs * B * chunk / per_clock / (SM_COUNT * sm_clock_hz()) * 1e3
+    return entries * B * chunk / 32 / sm_clocks_per_s() * 1e3
 
 
 def tile_floor_ms(n, m, B, refine_steps, chunk, plan, packed=False):
@@ -720,11 +618,12 @@ def tile_floor_ms(n, m, B, refine_steps, chunk, plan, packed=False):
     columns RT operator and LT vector entries an operator (the wide pass:
     two) as 16-byte shared-memory loads, 4 clocks of its SM a warp's load
     (scripts/fp64_rate_probe.py), and does 2 RT LT multiply-adds an
-    operator, 64 a clock on the SM; each takes the longer of the two,
-    padded rows and idle threads left out, at the card's highest SM
-    clock."""
+    operator at the SM's fp64 FMA rate (card_peaks); each takes the longer
+    of the two, padded rows and idle threads left out, at the card's
+    highest SM clock."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
 
+    fma = card_peaks()["fp64_fma_per_clock_sm"]
     if plan.route == "wide":
         lay = admm_fused.wide_layout(n, m, refine_steps, plan.lanes, plan.tiles, plan.panel,
                                      packed, plan.cluster)
@@ -733,18 +632,18 @@ def tile_floor_ms(n, m, B, refine_steps, chunk, plan, packed=False):
         for g, times in ((pass_, 1), (solve, 1 + refine_steps), (kprod, refine_steps), (ax, 1)):
             if g is None or not times:
                 continue
-            per_warp = max(2 * g.rt * g.lt * g.ops * 32 / 64, 4 * g.ops * (g.rt + g.lt))
+            per_warp = max(2 * g.rt * g.lt * g.ops * 32 / fma, 4 * g.ops * (g.rt + g.lt))
             clocks += times * g.rows * g.cols * per_warp / (32 * g.rt * g.lt * 2)
-        return clocks * B * chunk / (SM_COUNT * sm_clock_hz()) * 1e3
+        return clocks * B * chunk / sm_clocks_per_s() * 1e3
     lt = admm_fused.k12_lanes_per_thread(plan.lanes)
     rows = plan.rpt_n if m > n else plan.rpt
     lay = admm_fused.k12_stream_layout(n, m - n, refine_steps, plan.lanes, plan.groups, rows,
                                        plan.panel)
     clocks = 0.0
     for r, c, _, v, rt in admm_fused._k12_products(n, m - n, refine_steps, rows, lay):
-        per_warp = max(2 * rt * lt * v * 32 / 64, 4 * (rt + lt * v))  # 2 columns of a warp
+        per_warp = max(2 * rt * lt * v * 32 / fma, 4 * (rt + lt * v))  # 2 columns of a warp
         clocks += r * c * v * per_warp / (32 * rt * lt * 2 * v)  # a lane's multiply-add
-    return clocks * B * chunk / (SM_COUNT * sm_clock_hz()) * 1e3
+    return clocks * B * chunk / sm_clocks_per_s() * 1e3
 
 
 @functools.lru_cache(maxsize=None)
@@ -766,6 +665,20 @@ def sm_clock_hz():
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
+@functools.lru_cache(maxsize=None)
+def card_peaks():
+    """The card's peaks, SM count and FMA rates (utils.roofline.device_peaks),
+    the one source of the floors' card numbers."""
+    from automationlabsmodelpredictivecontrol_jl_torch.utils import roofline
+
+    return roofline.device_peaks(0)
+
+
+def sm_clocks_per_s():
+    """SM clocks a second on the whole card: its SMs at its highest clock."""
+    return card_peaks()["sm_count"] * sm_clock_hz()
+
+
 def compare_kernel(ctrl, B, seed, x0s_fn, plain_reps=REPS, single_index=False):
     """A kernel against its plain version at one shape, on the card; the
     kernel is K1, K2, K4 or K5 as the controller's operator says, at the
@@ -774,6 +687,7 @@ def compare_kernel(ctrl, B, seed, x0s_fn, plain_reps=REPS, single_index=False):
     CUDA graph (``ms``) and through its wrapper (``wrapper_ms``). Returns
     a record."""
     from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+    from automationlabsmodelpredictivecontrol_jl_torch.utils import roofline
 
     op, cfg = ctrl.engine.op, ctrl.engine.config
     R = int(op.rho_grid.shape[0])
@@ -785,7 +699,7 @@ def compare_kernel(ctrl, B, seed, x0s_fn, plain_reps=REPS, single_index=False):
     args = kernel_inputs(ctrl, B, seed, x0s_fn, single_index)
     chunk = args[-2]
 
-    name = _kernel_of(op, cfg)
+    name = roofline.kernel_of(op, cfg)
     abs_err, rel_err, ulps = _errors(kernel(*args), plain(*args), name)
     rec = dict(
         kernel=name, n=n, m=m, R=R, refine_steps=rs, B=B, chunk=chunk,
@@ -812,7 +726,8 @@ def compare_kernel(ctrl, B, seed, x0s_fn, plain_reps=REPS, single_index=False):
     rec["wrapper_ms"] = cuda_ms(lambda: kernel(*args))
     rec["smem_floor_ms"] = smem_floor_ms(n, m, R, rs, B, chunk, name)
     rec["plain_ms"] = cuda_ms(lambda: plain(*args), reps=plain_reps)
-    rec["bound_ms"], rec["bound_by"], floor = chunk_bound(n, m, B, R, rs, chunk, name, mode)
+    rec["bound_ms"], rec["bound_by"], floor = roofline.chunk_bound(n, m, B, R, rs, chunk, name,
+                                                                    mode)
     if floor is not None:
         rec["fp32_floor_ms"] = floor
     return rec
@@ -842,38 +757,31 @@ def rows_first(ctrl):
 
 
 def timed(fn, reps):
-    """fn() once, then reps timed calls on the host clock, each ending in
-    a synchronize. Returns (first result, seconds per call)."""
-    import numpy as np
+    """fn() once, then reps calls timed by ``utils.profiling.latencies_ms``
+    (the host clock, each call ending when its result's devices are done).
+    Returns (first result, seconds per call)."""
     import torch
+    from automationlabsmodelpredictivecontrol_jl_torch.utils import profiling
 
     out = fn()
     torch.cuda.synchronize()
-    lat = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        lat.append(time.perf_counter() - t0)
-    return out, np.asarray(lat)
+    return out, profiling.latencies_ms(fn, warmup=0, reps=reps) / 1e3
 
 
 def profile(fn, reps, cpu=True):
-    """torch.profiler over reps calls of fn() after one warm-up: device
-    milliseconds per call (all kernels and copies; those of the port's own
-    kernels apart), kernels per call, and the share of the wall time in
-    which the card ran nothing. ``cpu=False`` traces the card alone: the
-    host's operator events of a solve of 10^5 small operations take
-    minutes to collect."""
+    """``utils.profiling.trace`` (no file) over reps calls of fn() after one
+    warm-up: device milliseconds per call (all kernels and copies; those of
+    the port's own kernels apart), kernels per call, and the share of the
+    wall time in which the card ran nothing. ``cpu=False`` traces the card
+    alone: the host's operator events of a solve of 10^5 small operations
+    take minutes to collect."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
+    from automationlabsmodelpredictivecontrol_jl_torch.utils import profiling
 
     fn()
     torch.cuda.synchronize()
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
-    with torch_profile(activities=acts) as prof:
+    with profiling.trace(None, host=cpu) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -1462,39 +1370,16 @@ def wide64_x0s(B):
     return np.clip(0.4 * rng.standard_normal((B, 64)), -0.95, 0.95).astype(np.float32)
 
 
-def k3w_bound(N, nx, nu, B, chunk, split_interior, doubling, L):
-    """Least milliseconds of one K3W chunk: one rho's factors (K, G, and
-    A - B K for the sequential form, the two level stacks and prefix
-    products for the doubling form), A, B and the boxes, each lane's
-    inputs and outputs once over HBM, against 2 operations per fp64
-    multiply-add over the fp64 peak and the fp32 elementwise steps over the
-    fp32 peak. The sequential form's multiply-adds are K3's; the doubling
-    form's are K' lu, the levels' (sum over levels of (N - 2^l) nx^2, both
-    sweeps), the prefix products' (N nx^2 each sweep), B' g, G (.), B ff
-    and K e."""
-    if not doubling:
-        return riccati_chunk_bound(N, nx, nu, B, chunk, split_interior)
-    level_rows = sum(max(N - 2 ** l, 0) for l in range(L)) if N > 1 else 0
-    factors = ((nu * nx + nu * nu) * N + 2 * (L + 1) * N * nx * nx + nx * nx + nx * nu
-               + 4 * nx + 2 * nu + 4)
-    lane = (nx + 1 + 2 * (N + 1) * nx + 2 * N * nu) + (3 * (N + 1) * nx + 3 * N * nu)
-    macs = 3 * N * nu * nx + N * nu * nu + N * nx * nu + 2 * (level_rows + N) * nx * nx
-    elementwise = (12 * nu + 2 * nx + (10 * nx if split_interior else 0)) * N + 8 * nx
-    return _bound(4 * (factors + lane * B), 2 * macs * B * chunk, elementwise * B * chunk)
-
-
 def k3w_dbl_models(op, plan, B, chunk):
     """Model numbers of one K3W-doubling chunk as ``plan`` lays it out, for
     its phase's log line (not the kernels line): the operator bytes its
     blocks copy from L2 (each block every stream of every iteration once);
     the fp32 -> fp64 conversions (each operator entry once per lane group
     of a block, each lane entry once per 4-row group of its product) at 16
-    a clock on every SM and the fp64 multiply-adds (k3w_bound's) at 64, at
-    the card's highest SM clock; the dependent phases of an iteration, 2
-    (L + 1) + 6, and the block's barriers (one a panel, one before each
-    phase without an operator)."""
-    from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati_fused
-
+    a clock on every SM and the fp64 multiply-adds (roofline.k3w_bound's) at
+    the SM's fp64 FMA rate (card_peaks), at the card's highest SM clock;
+    the dependent phases of an iteration, 2 (L + 1) + 6, and the block's
+    barriers (one a panel, one before each phase without an operator)."""
     N, nx, nu = op.N, op.nx, op.nu
     lv = max(N - 1, 0).bit_length()  # the combine levels a sweep runs
     steps = sum(N - 2 ** l for l in range(lv)) + N  # a sweep's level and prefix steps
@@ -1506,7 +1391,7 @@ def k3w_dbl_models(op, plan, B, chunk):
     conv = lg * (op_floats + 2 * N * nx * nu) + lanes * (
         2 * steps * nx * rg(nx) + N * nu * rg(nx) + N * nx * rg(nu) + N * nu * rg(nu)
         + N * nu * rg(nx) + N * nx * rg(nu))
-    clock = SM_COUNT * sm_clock_hz()
+    clock = sm_clocks_per_s()
     macs = 3 * N * nu * nx + N * nu * nu + N * nx * nu + 2 * steps * nx * nx
     steps = lambda n, m: plan.panel // (m | 1) if plan.ring else n  # a panel's
     barriers = sum(-(-n // steps(n, m)) for n, m in streams)
@@ -1514,7 +1399,7 @@ def k3w_dbl_models(op, plan, B, chunk):
     return dict(l2_operator_bytes=4 * op_floats * plan.blocks * chunk,
                 conversions=conv * plan.blocks * chunk,
                 conversion_floor_ms=conv * plan.blocks * chunk / 16 / clock * 1e3,
-                fma_floor_ms=macs * B * chunk / 64 / clock * 1e3,
+                fma_floor_ms=macs * B * chunk / card_peaks()["fp64_fma_per_clock_sm"] / clock * 1e3,
                 depth_phases_per_iteration=2 * (lv + 1) + 6,
                 barriers_per_iteration=barriers)
 
@@ -1533,6 +1418,7 @@ def compare_k3w(op, B, seed, chunk, doubling, label, plain_reps=1, route=None, k
     import torch
 
     from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati, riccati_fused
+    from automationlabsmodelpredictivecontrol_jl_torch.utils import roofline
 
     dev = op.rho_tab.device
     e0T = torch.from_numpy(
@@ -1580,7 +1466,7 @@ def compare_k3w(op, B, seed, chunk, doubling, label, plain_reps=1, route=None, k
     rec["ms"] = cuda_ms(kernel)
     rec["plain_ms"] = (plain_once_ms if plain_reps == 1 else
                        cuda_ms(lambda: plain_fn(*args), reps=plain_reps, warm_up=False))
-    rec["bound_ms"], rec["bound_by"] = k3w_bound(
+    rec["bound_ms"], rec["bound_by"] = roofline.k3w_bound(
         op.N, op.nx, op.nu, B, chunk, op.split_interior, doubling, int(op.bwd_levels.shape[1]))
     models = k3w_dbl_models(op, plan, B, chunk) if doubling else {}
     if models:
@@ -1605,13 +1491,6 @@ def dfma_chain_ns():
     return rec["ns"]
 
 
-def wide_chain_floor_ms(N, nx):
-    """The wide rollout's and certificate's chain floor: N x nx dependent
-    fp64 multiply-adds (a lane's A e or A' g, a step after another; the
-    rollout's fp32 add a step aside) at dfma_chain_ns()."""
-    return N * nx * dfma_chain_ns() * 1e-6
-
-
 def compare_wide_recurrences(op, B, seed, label):
     """The wide rollout and certificate kernels against their plain
     versions at one shape (the certificate on a chunk's worth of dual
@@ -1623,6 +1502,7 @@ def compare_wide_recurrences(op, B, seed, label):
     import torch
 
     from automationlabsmodelpredictivecontrol_jl_torch.ops import riccati, riccati_fused
+    from automationlabsmodelpredictivecontrol_jl_torch.utils import roofline
 
     dev = op.rho_tab.device
     e0T = torch.from_numpy(
@@ -1634,10 +1514,10 @@ def compare_wide_recurrences(op, B, seed, label):
     recs = []
     for name, kernel, plain, args, bound in (
         ("rollout-wide", riccati_fused.rollout_wide, riccati_fused._rollout_wide_plain,
-         (op, e0T, vU), rollout_bound(N, nx, nu, B)),
+         (op, e0T, vU), roofline.rollout_bound(N, nx, nu, B)),
         ("certificate-wide", riccati_fused.certificate_terms_wide,
          riccati_fused._certificate_wide_plain, (op, lamX2, lamX, lamU2, lamU, Xbar, ballr),
-         certificate_bound(N, nx, nu, B)),
+         roofline.certificate_bound(N, nx, nu, B)),
     ):
         plan = riccati_fused.wide_recurrence_plan(op, B, name.split("-")[0])
         log(phase="wide_rec_plan", cell=label, N=N, nx=nx, nu=nu, B=B, **plan._asdict())
@@ -1651,7 +1531,7 @@ def compare_wide_recurrences(op, B, seed, label):
         rec["wrapper_ms"] = cuda_ms(lambda: kernel(*args))
         rec["plain_ms"] = cuda_ms(lambda: plain(*args), reps=2, warm_up=False)
         rec["bound_ms"], rec["bound_by"] = bound
-        rec["chain_floor_ms"] = wide_chain_floor_ms(N, nx)
+        rec["chain_floor_ms"] = roofline.wide_chain_floor_ms(N, nx, dfma_chain_ns())
         log(phase="wide_recurrence_vs_plain", **rec)
         recs.append(rec)
     return recs
@@ -1903,6 +1783,177 @@ def riccati_sweeps_phase(dev):
         + step_counts["certificate-wide"],
     }
     return seq, dbl, rollout_recs, cert_recs, launches
+
+
+def _shard_record(sol, wz, wy, diag):
+    """A shard's solution, warm pair and diagnostics on the host."""
+    return dict(u=sol.u.cpu(), status=sol.status.cpu(), iterations=sol.iterations.cpu(),
+                wz=wz.cpu(), wy=wy.cpu(),
+                diag={k: getattr(diag, k).cpu() for k in diag.__dataclass_fields__})
+
+
+def _equal_shards(got, want, what):
+    """Raise unless two shard records are equal bit for bit."""
+    import torch
+
+    for key in ("u", "status", "iterations", "wz", "wy"):
+        if not torch.equal(got[key], want[key]):
+            raise RuntimeError(f"{what}: {key} differs")
+    for key, v in want["diag"].items():
+        w = got["diag"][key]
+        if v.dtype != w.dtype or not torch.equal(v, w):
+            raise RuntimeError(f"{what}: diagnostics {key} differ ({w} against {v})")
+
+
+def sharded_rank(rank, world, store, out_dir):
+    """One of the gloo ranks that share the card (spawned by
+    ``sharded_phase``): design the headline's tier-1 controller on cuda:0,
+    solve the headline's states through ``parallel.solve_sharded`` over a
+    mesh of every rank, and save this rank's shard, its diagnostics and its
+    launch counts to ``<out_dir>/rank<r>.pt``."""
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+
+    from automationlabsmodelpredictivecontrol_jl_torch import parallel, proceed_controller
+    from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+    from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig
+
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        ctrl = proceed_controller(
+            qtp.linearized_discrete_system(), "model_predictive_control", 20, 5.0,
+            [0.65] * 4, [1.2] * 2, admm_config=AdmmConfig(**TIER1), device=dev)
+        x0s = torch.from_numpy(bench_x0s(B_MAIN)).to(dev)
+        admm_fused.reset_counts()
+        rec = _shard_record(*parallel.solve_sharded(ctrl, x0s, parallel.make_mesh()))
+        rec.update(launches=dict(admm_fused.LAUNCHES), plain_calls=dict(admm_fused.PLAIN_CALLS))
+        torch.save(rec, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_phase(dev, ctrl, fb, x0s, ctrl_h500, x_h500, esc_p50_s):
+    """The scenario-sharded solve (``parallel.make_mesh``,
+    ``parallel.solve_sharded``) on the card, counted from zero:
+
+    - one rank over NCCL (a file store in a temporary directory): the
+      headline's tier-1 cell (h20, B = 16384, K1, the default route) and
+      riccati-h500-B1024 at ``fused=True`` (K3), each equal bit for bit to
+      ``solve_batch_auto`` / ``solve_batch_fused`` on the same inputs (u,
+      status, iterations, the warm pair, and the diagnostics, all-reduced on
+      the card, to the batch's), with ``utils.profiling.benchmark`` of both
+      side by side (a record, not a claim);
+    - RANKS_SHARED gloo ranks, spawned processes sharing cuda:0, on the
+      headline's tier-1 cell (8192 lanes a rank): each rank's shard equal
+      bit for bit to ``solve_batch_fused`` on its rows in this process, the
+      diagnostics the same on every rank and equal to the shards' combined;
+    - the roofline of the escalated headline solve at its measured p50
+      (``utils.roofline.speed_of_light_tiered``; tier 1 at the K1 launches
+      of a tier-1 solve, tier 2's 512-lane bucket at the rest).
+
+    Returns the phase's launches by count key (this process and the ranks')."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from automationlabsmodelpredictivecontrol_jl_torch import parallel
+    from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
+    from automationlabsmodelpredictivecontrol_jl_torch.parallel import scenarios
+    from automationlabsmodelpredictivecontrol_jl_torch.utils import profiling, roofline
+
+    t0 = time.perf_counter()
+    admm_fused.reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            mesh = parallel.make_mesh()
+            if (mesh.n, mesh.rank) != (1, 0) or dist.get_backend(mesh.group) != "nccl":
+                raise RuntimeError(f"unexpected one-rank mesh: {mesh}")
+            for cell, c, x, fused, batch in (
+                ("h20-tier1-B16384", ctrl, x0s, None, parallel.solve_batch_auto),
+                ("riccati-h500-B1024", ctrl_h500, x_h500, True, parallel.solve_batch_fused),
+            ):
+                sharded = lambda c=c, x=x, fused=fused: parallel.solve_sharded(c, x, mesh,
+                                                                               fused=fused)
+                got = _shard_record(*sharded())
+                want = _shard_record(*batch(c, x))
+                _equal_shards(got, want, f"one NCCL rank at {cell}")
+                stats = profiling.benchmark(sharded, warmup=1, reps=REPS_SHARDED)
+                ref = profiling.benchmark(lambda c=c, x=x: batch(c, x), warmup=1,
+                                          reps=REPS_SHARDED)
+                log(phase="sharded", mesh="nccl x1", cell=cell, B=int(x.shape[0]),
+                    bit_equal=True, n_converged=int(got["diag"]["n_converged"]),
+                    sharded_p50_ms=stats["p50_ms"], sharded_p99_ms=stats["p99_ms"],
+                    batch_p50_ms=ref["p50_ms"], batch_p99_ms=ref["p99_ms"],
+                    batch_path=batch.__name__)
+        finally:
+            dist.destroy_process_group()
+
+        # the ranks sharing the card over gloo
+        t_ranks = time.perf_counter()
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=sharded_rank, args=(r, RANKS_SHARED, f"{tmp}/gloo", tmp))
+                 for r in range(RANKS_SHARED)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(RANK_JOIN_S)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        if [p.exitcode for p in procs] != [0] * RANKS_SHARED:
+            raise RuntimeError(f"the gloo ranks failed: exit codes {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(RANKS_SHARED)]
+    b = B_MAIN // RANKS_SHARED
+    local = [parallel.solve_batch_fused(ctrl, x0s[r * b:(r + 1) * b]) for r in range(RANKS_SHARED)]
+    packs = [scenarios._pack_diagnostics(d, "cpu") for *_, d in local]
+    fleet = scenarios._unpack_diagnostics(torch.stack([s for s, _ in packs]).sum(0),
+                                          torch.stack([m for _, m in packs]).amax(0), local[0][3])
+    for r, rec in enumerate(ranks):
+        want = _shard_record(*local[r][:3], fleet)
+        _equal_shards(rec, want, f"gloo rank {r} of {RANKS_SHARED}")
+        if any(rec["plain_calls"].values()) or rec["launches"]["K1"] <= 0:
+            raise RuntimeError(f"gloo rank {r} did not run K1 alone: {rec['launches']}")
+    log(phase="sharded", mesh=f"gloo x{RANKS_SHARED} on one card", cell="h20-tier1-B16384",
+        lanes_per_rank=b, bit_equal=True, ranks_seconds=time.perf_counter() - t_ranks,
+        n_converged=int(fleet.n_converged), mean_iterations=float(fleet.mean_iterations),
+        rank_k1_launches=[rec["launches"]["K1"] for rec in ranks])
+
+    # the escalated headline's roofline at its measured p50
+    before = admm_fused.LAUNCHES["K1"]
+    parallel.solve_batch_fused(ctrl, x0s)
+    t1 = admm_fused.LAUNCHES["K1"] - before
+    before = admm_fused.LAUNCHES["K1"]
+    parallel.solve_batch_escalated(ctrl, fb, x0s, *parallel.init_warm_batch(ctrl, B_MAIN),
+                                   bucket=BUCKET)
+    t2 = admm_fused.LAUNCHES["K1"] - before - t1
+    tiers = [(ctrl.engine.op, ctrl.engine.config, B_MAIN,
+              t1 * int(ctrl.engine.config.check_interval)),
+             (fb.engine.op, fb.engine.config, BUCKET, t2 * int(fb.engine.config.check_interval))]
+    log(phase="roofline", cell="h20-B16384-escalated", tier_launches=[t1, t2],
+        **roofline.speed_of_light_tiered(tiers, esc_p50_s, device=dev))
+
+    counts = dict(admm_fused.LAUNCHES)
+    for rec in ranks:
+        for k, v in rec["launches"].items():
+            counts[k] += v
+    plain = dict(admm_fused.PLAIN_CALLS)
+    seconds = time.perf_counter() - t0
+    log(phase="counts", path="sharded", launches=counts, plain_calls=plain,
+        sharded_seconds=seconds, budget_s=SHARDED_BUDGET_S)
+    if min(counts[k] for k in ("K1", "K3", "rollout", "certificate")) <= 0:
+        raise RuntimeError(f"the sharded phase left a kernel unlaunched: {counts}")
+    if any(plain.values()):
+        raise RuntimeError("the sharded phase ran a plain version")
+    return counts
 
 
 def general_phase(dev, plant, ctrl, ctrl_def, ctrl_h500, suite_cfg, x0s, x_h500, x_suite):
@@ -2258,7 +2309,7 @@ def stream_phase(dev):
 
     - Each kernel against its plain version, bit for bit (max_ulps 0), as
       k1_plan or k2_plan lays it out on the stream route, graph-timed with
-      its bound, the FMA floor (fma_floor_ms), the register tile's
+      its bound, the FMA floor (roofline.fma_floor_ms), the register tile's
       shared-memory floor (tile_floor_ms), the plan's model of its L2
       operator bytes a chunk (l2_bytes) and its lanes a thread, and plain
       time: K1 at the QTP's h50 (n = 100, B = 4096) and its tier 2 (R = 4,
@@ -2288,6 +2339,7 @@ def stream_phase(dev):
     from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
     from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig
     from automationlabsmodelpredictivecontrol_jl_torch.types import STATUS_NUMERIC_ERROR
+    from automationlabsmodelpredictivecontrol_jl_torch.utils import roofline
 
     t0 = time.perf_counter()
     audit = AdmmConfig(max_iter=1000)
@@ -2321,8 +2373,8 @@ def stream_phase(dev):
         rows = plan.rpt_n if m > n else plan.rpt
         rec.update(shape=label, lanes_per_thread=admm_fused.k12_lanes_per_thread(plan.lanes))
         models = dict(
-            fma_floor_ms=fma_floor_ms(n, m, B, rs, chunk, rec["kernel"],
-                                      rec.get("precision", "highest")),
+            fma_floor_ms=roofline.fma_floor_ms(n, m, B, rs, chunk, card_peaks(), sm_clock_hz(),
+                                               rec["kernel"], rec.get("precision", "highest")),
             tile_floor_ms=tile_floor_ms(n, m, B, rs, chunk, plan),
             l2_bytes=admm_fused.k12_stream_l2_bytes(n, m - n, rec["R"], rs, B, plan.lanes,
                                                     plan.groups, rows, plan.panel, chunk),
@@ -2416,7 +2468,7 @@ def wide_phase(dev):
     - Each kernel against its plain version, bit for bit (max_ulps 0), as
       k5_plan or k4_plan lays it out on the wide route, graph-timed over 20
       launches with its bound, shared-memory floor, FMA floor
-      (fma_floor_ms), the register tiles' shared-memory floor
+      (roofline.fma_floor_ms), the register tiles' shared-memory floor
       (tile_floor_ms), the plan's L2 operator bytes a chunk (l2_bytes),
       its largest share of padded rows and its panel steps an iteration,
       and plain time: K5 at
@@ -2450,6 +2502,7 @@ def wide_phase(dev):
     from automationlabsmodelpredictivecontrol_jl_torch.ops import admm_fused
     from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig
     from automationlabsmodelpredictivecontrol_jl_torch.types import STATUS_NUMERIC_ERROR
+    from automationlabsmodelpredictivecontrol_jl_torch.utils import roofline
 
     t0 = time.perf_counter()
     suite = AdmmConfig(max_iter=1000)
@@ -2484,8 +2537,8 @@ def wide_phase(dev):
         # the plan's models, in this log line only (the kernels line carries
         # measurements and the bound)
         models = dict(
-            fma_floor_ms=fma_floor_ms(n, m, B, rs, rec["chunk"], rec["kernel"],
-                                      rec.get("precision", "highest")),
+            fma_floor_ms=roofline.fma_floor_ms(n, m, B, rs, rec["chunk"], card_peaks(), sm_clock_hz(),
+                                               rec["kernel"], rec.get("precision", "highest")),
             tile_floor_ms=tile_floor_ms(n, m, B, rs, rec["chunk"], plan, packed),
             l2_bytes=admm_fused.wide_l2_bytes(n, m, rec["R"], rs, B, plan, rec["chunk"], packed),
             padded_share=max(g.padded_rows / (g.tiles * g.H) for g in lay.products if g),
@@ -2606,6 +2659,7 @@ def main():
     )
     from automationlabsmodelpredictivecontrol_jl_torch.ops.admm import AdmmConfig
     from automationlabsmodelpredictivecontrol_jl_torch.ops.riccati import RiccatiConfig
+    from automationlabsmodelpredictivecontrol_jl_torch.utils import roofline
     from automationlabsmodelpredictivecontrol_jl_torch.utils.devices import require_cuda
 
     # 1. the card
@@ -2638,7 +2692,7 @@ def main():
     )
 
     # the K1 path's controllers, designed on the host and moved to the card
-    tier1 = AdmmConfig(max_iter=75, rho=1.0, rho_grid=(1.0, 10.0), refine_steps=0)
+    tier1 = AdmmConfig(**TIER1)
     ctrl = design(tier1)
     fb = parallel.escalation_controller(
         ctrl, rho_grid=(0.1, 1.0, 10.0, 100.0), max_iter=250, refine_steps=2
@@ -2712,7 +2766,7 @@ def main():
         ("tier-2 equality", dense_eq_fb, "K4"), ("neighborhood", dense_nb, "K4")]
     for cell, c, kind in checks:
         if not (c.engine.op.dense_a and parallel.fused_supported(c)
-                and _kernel_of(c.engine.op, c.engine.config) == kind):
+                and roofline.kernel_of(c.engine.op, c.engine.config) == kind):
             raise RuntimeError(f"{cell}: expected a dense operator on {kind}")
 
     # 3. each kernel against its plain version at its main-path shapes
@@ -2830,6 +2884,7 @@ def main():
 
     esc_solve = lambda: parallel.solve_batch_escalated(ctrl, fb, x0s, wz, wy, bucket=BUCKET)
     (sol, _, _, diag), lat = timed(esc_solve, REPS)
+    esc_p50_s = float(np.percentile(lat, 50))
     k1_per_solve = admm_fused.LAUNCHES["K1"] / (REPS + 1)  # the solves are alike
     check_solution(sol, B_MAIN, 20, "the escalated solve")
     conv = int(diag.n_converged) / B_MAIN
@@ -2978,6 +3033,11 @@ def main():
         raise RuntimeError("the K3 path ran a plain version")
     if ricc_recs["riccati-h500-B1024"]["converged_fraction"] < CONV_OK:
         raise RuntimeError(f"h500 convergence too low: {ricc_recs['riccati-h500-B1024']}")
+
+    # 4c'. the scenario-sharded solve: one NCCL rank against the batch paths
+    # on the headline's tier-1 cell and the h500 cell, two gloo ranks
+    # sharing the card on the tier-1 cell, counted from zero
+    sharded_counts = sharded_phase(dev, ctrl, fb, x0s, ctrl_h500, x_h500, esc_p50_s)
 
     # 4d. the dense path, counted from zero: each cell through
     # parallel.solve_batch_fused; the h20 cells against the K2 solves of
@@ -3150,7 +3210,8 @@ def main():
     log(phase="seconds", total=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [
         dict(kernel_entry("admm_diag_chunk (K1)", "admm_diag.cu", f"{TPU_ADMM}:348",
-                          k1_launches + general_counts["K1"] + k1_learned, k1_shapes),
+                          k1_launches + general_counts["K1"] + k1_learned
+                          + sharded_counts["K1"], k1_shapes),
              smem_floor_ms=k1_shapes[0]["smem_floor_ms"],
              layouts=sorted(k1_layouts)),
         dict(kernel_entry("admm_mixed_chunk (K2)", "admm_mixed.cu", f"{TPU_ADMM}:580",
@@ -3158,16 +3219,17 @@ def main():
              smem_floor_ms=k2_shapes[0]["smem_floor_ms"],
              layouts=sorted(k2_layouts)),
         dict(kernel_entry("riccati_admm_chunk (K3)", "riccati_chunk.cuh", f"{TPU_RICCATI}:60",
-                          k3_counts["K3"] + general_counts["K3"] + ctrl_counts["K3"], k3_shapes),
+                          k3_counts["K3"] + general_counts["K3"] + ctrl_counts["K3"]
+                          + sharded_counts["K3"], k3_shapes),
              routes=sorted({rec["route"] for rec in k3_shapes}),
              tiers=sorted({(rec["nx"], rec["nu"]) for rec in k3_shapes})),
         # the driver's rollouts and certificate recursion (lax.scan there)
         kernel_entry("riccati_rollout (K3 driver)", "riccati_admm.cu", f"{TPU_RICCATI}:352",
-                     k3_counts["rollout"] + general_counts["rollout"] + ctrl_counts["rollout"],
-                     rollout_recs),
+                     k3_counts["rollout"] + general_counts["rollout"] + ctrl_counts["rollout"]
+                     + sharded_counts["rollout"], rollout_recs),
         kernel_entry("riccati_certificate (K3 driver)", "riccati_admm.cu", f"{TPU_RICCATI}:384",
                      k3_counts["certificate"] + general_counts["certificate"]
-                     + ctrl_counts["certificate"], cert_recs),
+                     + ctrl_counts["certificate"] + sharded_counts["certificate"], cert_recs),
         dict(kernel_entry("admm_packed_chunk (K4)", "admm_perr.cu", f"{TPU_ADMM}:252",
                           dense_counts["K4"], k4_shapes),
              smem_floor_ms=k4_shapes[0]["smem_floor_ms"],

@@ -589,6 +589,17 @@ def _wide_spec(spec):
     return force
 
 
+def _fma_floor_ms(chip_smoke, n, m, B, refine_steps, chunk, kernel):
+    """The FMA floor of one chunk: the tree's utils/roofline model where the
+    tree has one, else its chip_smoke.py's."""
+    try:
+        from automationlabsmodelpredictivecontrol_jl_torch.utils import roofline
+    except ImportError:
+        return chip_smoke.fma_floor_ms(n, m, B, refine_steps, chunk, kernel)
+    return roofline.fma_floor_ms(n, m, B, refine_steps, chunk, roofline.device_peaks(0),
+                                 chip_smoke.sm_clock_hz(), kernel)
+
+
 def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
     """Time K1, K2, K4 or K5 of one tree at its shapes; print one K1_AB,
     K2_AB, K4_AB or K5_AB line of records. Each tree's wrapper calls its
@@ -689,13 +700,13 @@ def child_admm(kernel, tree, layout, plain, sass, sass_dir, shapes):
                     rows = plan.rpt if kernel == "K1" else plan.rpt_n
                     rec["l2_bytes"] = admm_fused.k12_stream_l2_bytes(
                         n, m - n, R, rs, B, plan.lanes, plan.groups, rows, plan.panel, args[-2])
-                    rec["fma_floor_ms"] = chip_smoke.fma_floor_ms(n, m, B, rs, args[-2], kernel)
+                    rec["fma_floor_ms"] = _fma_floor_ms(chip_smoke, n, m, B, rs, args[-2], kernel)
                     rec["tile_floor_ms"] = chip_smoke.tile_floor_ms(n, m, B, rs, args[-2], plan)
                 if plan.route == "wide" and hasattr(admm_fused, "wide_l2_bytes"):
                     packed = kernel == "K4"
                     rec["l2_bytes"] = admm_fused.wide_l2_bytes(n, m, R, rs, B, plan, args[-2],
                                                                packed)
-                    rec["fma_floor_ms"] = chip_smoke.fma_floor_ms(n, m, B, rs, args[-2], kernel)
+                    rec["fma_floor_ms"] = _fma_floor_ms(chip_smoke, n, m, B, rs, args[-2], kernel)
                     rec["tile_floor_ms"] = chip_smoke.tile_floor_ms(n, m, B, rs, args[-2], plan,
                                                                     packed)
                 fn = lambda plan=plan: launch(*args, plan=plan)

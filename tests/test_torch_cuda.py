@@ -1679,3 +1679,46 @@ def test_wider_riccati_plant_on_k3w(card, B):
         assert int(d_gpu.n_converged) == int(d_cpu.n_converged) == B
         assert torch.equal(s_gpu.status.cpu(), s_cpu.status)
         assert float((s_gpu.u.cpu() - s_cpu.u).abs().max()) <= 1e-4
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(card, tmp_path_factory):
+    """A one-rank NCCL process group over a file store, and its mesh."""
+    import torch.distributed as dist
+
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        yield parallel.make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("cell", ["h20-K1", "h50-riccati-K3"])
+def test_solve_sharded_one_nccl_rank_equals_batch(card, controllers, nccl_mesh, cell):
+    """solve_sharded on a one-rank NCCL mesh: the solution, the warm pair
+    and the diagnostics (all-reduced on the card) equal the batch solve it
+    routes to bit for bit (h20 at B = 4096 on K1 through solve_batch_auto;
+    the h50 Riccati controller at fused=True on K3)."""
+    if cell == "h20-K1":
+        ctrl, B, fused, batch = controllers[0], 4096, None, parallel.solve_batch_auto
+    else:
+        ctrl = proceed_controller(
+            qtp.linearized_discrete_system(), "model_predictive_control", 50, 5.0,
+            [0.65] * 4, [1.2] * 2, engine="riccati", device=card)
+        B, fused, batch = 256, True, parallel.solve_batch_fused
+    assert (nccl_mesh.n, nccl_mesh.rank) == (1, 0) and nccl_mesh.group is not None
+    x0s = torch.from_numpy(_x0s(B, 5)).to(card)
+    kernel = "K1" if cell == "h20-K1" else "K3"
+    before = admm_fused.LAUNCHES[kernel]
+    sol, wz, wy, diag = parallel.solve_sharded(ctrl, x0s, nccl_mesh, fused=fused)
+    assert admm_fused.LAUNCHES[kernel] > before
+    want, wz_b, wy_b, diag_b = batch(ctrl, x0s)
+    torch.cuda.synchronize()
+    for name, a, b in (("u", sol.u, want.u), ("status", sol.status, want.status),
+                       ("iterations", sol.iterations, want.iterations), ("wz", wz, wz_b),
+                       ("wy", wy, wy_b)):
+        assert torch.equal(a, b), name
+    for key in diag.__dataclass_fields__:
+        a, b = getattr(diag, key), getattr(diag_b, key)
+        assert a.device == b.device and a.dtype == b.dtype and torch.equal(a, b), key

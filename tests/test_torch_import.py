@@ -18,7 +18,7 @@ def test_port_imports_without_jax():
         "from automationlabsmodelpredictivecontrol_jl_torch.benchmarks import qtp\n"
         "from automationlabsmodelpredictivecontrol_jl_torch.ops import _build, admm_fused, condense\n"
         "from automationlabsmodelpredictivecontrol_jl_torch import terminal\n"
-        "from automationlabsmodelpredictivecontrol_jl_torch.utils import devices\n"
+        "from automationlabsmodelpredictivecontrol_jl_torch.utils import devices, profiling, roofline\n"
         "from automationlabsmodelpredictivecontrol_jl_torch import io, systems\n"
         "from automationlabsmodelpredictivecontrol_jl_torch.models import activations, zoo\n"
         "from automationlabsmodelpredictivecontrol_jl_torch.solvers import empc, milp, sqp\n"
